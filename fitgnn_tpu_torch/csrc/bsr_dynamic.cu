@@ -1,0 +1,287 @@
+// K4 and K5: the dynamic-tile BSR walk and its tile gradient.
+//
+// K4, fitgnn_bsr_dyn_apply:
+//   out[rows[k]] += scale[k] . (B[sel[k]] or B[sel[k]]^T) @ x[cols[k]],
+// from zero.  Replaces the TPU kernel
+// fitgnn_tpu/ops/pallas/bsr_dynamic.py:_make_dyn_kernel (grid built by
+// _dyn_apply, entry bsr_spmm_dyn and its backward).  The tile values are a
+// runtime tensor (GAT's attention numerators), so the walk reads them like
+// any operand.  The design is K1's (csrc/bsr_spmm.cu): one CTA owns one
+// output block-row and one 64-column feature slice, walks its slots
+// row_splits[r] .. row_splits[r+1], stages each tile in 32-deep chunks as
+// As[k][row] (the 128 output rows of one contraction index side by side)
+// and the matching x slab as Xs[k][col], accumulates 8x4 outputs a thread
+// in f32 registers and writes every output row once.  No atomics, so the
+// result is deterministic.  sel and scale are optional (null = identity
+// and 1, the forward).  A slot with scale 0 (a coverage filler of the
+// transpose plan) is skipped, uniformly across the CTA, but its row is
+// still written: as zeros when no real slot lands there.
+//   The two orientations differ only in how a chunk is staged.  Forward,
+// As[k][i] = B[i][kc+k]: 32 columns of B, read as float4 along a row and
+// stored transposed (the +4 row padding keeps each row 16-byte aligned for
+// the float4 reads of the product loop).  Transposed, As[k][i] =
+// B^T[i][kc+k] = B[kc+k][i]: 32 whole rows of B, a straight float4 copy,
+// coalesced and free of bank conflicts.
+//
+// K5, fitgnn_dyn_grad_blocks:
+//   dB[k] = g[rows[k]*128 : +128, :] @ x[cols[k]*128 : +128, :]^T,
+// for every tile, fillers included.  Replaces
+// fitgnn_tpu/ops/pallas/bsr_dynamic.py:_dB_kernel (grid built by
+// _dyn_grad_blocks).  One CTA owns one tile's 128x128 output: 256 threads,
+// 8x8 outputs each in registers.  It walks F in 32-wide chunks, staging
+// the g and x slabs transposed (Gs[f][i], Xs[f][j]) from coalesced loads
+// along the feature axis, and writes its tile once.
+//
+// Bound on an H100.  K4: memory, as K1.  The function needs 2 FLOPs per
+// tile non-zero and feature, and the attention tiles are ~3% full, but
+// the tile values are dense operands here: the kernel does the dense
+// 128x128 product on the CUDA cores' f32 FMA, ~33x the FLOPs of a sparse
+// walk, which limits the kernel itself.  K5: operations.  dB is dense
+// (2.192k tiles x 128 x 128 outputs, 2.F FLOPs each: 36.8 GFLOP at
+// F=512), against ~1.2 GB of slab reads.  The design reuses each staged
+// value 8 times from registers (64 FMAs per four 16-byte shared loads).
+// Tensor cores (TF32 or bf16 wgmma), TMA pipelining and a product sampled
+// at the tile mask (only ~3% of dB is kept downstream) are later work.
+
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace {
+
+constexpr int BLK = 128;                          // tile edge (rows = cols)
+
+// K4 tiling (as K1)
+constexpr int FT = 64;                            // feature columns a CTA
+constexpr int KC = 32;                            // tile columns a stage
+constexpr int TM = 8;                             // output rows a thread
+constexpr int TN = 4;                             // output cols a thread
+constexpr int THREADS = (BLK / TM) * (FT / TN);   // 256
+
+template <bool TRANS>
+__global__ void __launch_bounds__(THREADS)
+bsr_dyn_kernel(const float* __restrict__ blocks,
+               const int32_t* __restrict__ row_splits,
+               const int32_t* __restrict__ sel,
+               const int32_t* __restrict__ scale,
+               const int32_t* __restrict__ cols,
+               const float* __restrict__ x, float* __restrict__ out,
+               int64_t feat, int64_t slices) {
+  __shared__ __align__(16) float As[KC][BLK + 4];
+  __shared__ __align__(16) float Xs[KC][FT];
+
+  const int64_t r = static_cast<int64_t>(blockIdx.x) / slices;
+  const int64_t f0 = (static_cast<int64_t>(blockIdx.x) % slices) * FT;
+  const int tid = threadIdx.x;
+  const int row0 = (tid / (FT / TN)) * TM;
+  const int col0 = (tid % (FT / TN)) * TN;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  }
+
+  const int lo = row_splits[r];
+  const int hi = row_splits[r + 1];
+  for (int k = lo; k < hi; ++k) {
+    const float s = scale != nullptr ? static_cast<float>(scale[k]) : 1.f;
+    if (s == 0.f) continue;                       // filler: uniform skip
+    const int64_t t = sel != nullptr ? sel[k] : k;
+    const float* a = blocks + t * BLK * BLK;
+    const float* xb = x + static_cast<int64_t>(cols[k]) * BLK * feat;
+    for (int kc = 0; kc < BLK; kc += KC) {
+      if constexpr (TRANS) {
+        // As[kk][i] = A[kc+kk][i]: 32 rows x 32 float4, straight copy
+        for (int q = tid; q < KC * (BLK / 4); q += THREADS) {
+          const int kk = q / (BLK / 4);
+          const int c4 = (q % (BLK / 4)) * 4;
+          float4 v = *reinterpret_cast<const float4*>(
+              a + static_cast<int64_t>(kc + kk) * BLK + c4);
+          v.x *= s;
+          v.y *= s;
+          v.z *= s;
+          v.w *= s;
+          *reinterpret_cast<float4*>(&As[kk][c4]) = v;
+        }
+      } else {
+        // As[kk][i] = A[i][kc+kk]: 128 rows x 8 float4, stored transposed
+        for (int q = tid; q < BLK * (KC / 4); q += THREADS) {
+          const int row = q / (KC / 4);
+          const int c4 = (q % (KC / 4)) * 4;
+          const float4 v = *reinterpret_cast<const float4*>(
+              a + static_cast<int64_t>(row) * BLK + kc + c4);
+          As[c4 + 0][row] = v.x * s;
+          As[c4 + 1][row] = v.y * s;
+          As[c4 + 2][row] = v.z * s;
+          As[c4 + 3][row] = v.w * s;
+        }
+      }
+      // x[kc:kc+KC, f0:f0+FT], coalesced along the feature axis
+      for (int q = tid; q < KC * FT; q += THREADS) {
+        const int kk = q / FT;
+        const int c = q % FT;
+        const int64_t gc = f0 + c;
+        Xs[kk][c] = gc < feat ? xb[static_cast<int64_t>(kc + kk) * feat + gc]
+                              : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][row0]);
+        const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][row0 + 4]);
+        const float4 b = *reinterpret_cast<const float4*>(&Xs[kk][col0]);
+        const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float bv[TN] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t base = (r * BLK + row0 + i) * feat;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int64_t c = f0 + col0 + j;
+      if (c < feat) out[base + c] = acc[i][j];
+    }
+  }
+}
+
+// K5 tiling
+constexpr int FC = 32;                            // features a stage
+constexpr int GT = 8;                             // outputs a thread, per axis
+constexpr int GTHREADS = (BLK / GT) * (BLK / GT); // 256
+
+__global__ void __launch_bounds__(GTHREADS)
+dyn_grad_blocks_kernel(const int32_t* __restrict__ rows,
+                       const int32_t* __restrict__ cols,
+                       const float* __restrict__ g,
+                       const float* __restrict__ x, float* __restrict__ dB,
+                       int64_t feat) {
+  // Gs[f][i] = g[row i][f0+f], Xs[f][j] = x[row j][f0+f]; +4 keeps each
+  // row 16-byte aligned for the float4 reads of the product loop
+  __shared__ __align__(16) float Gs[FC][BLK + 4];
+  __shared__ __align__(16) float Xs[FC][BLK + 4];
+
+  const int64_t k = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int i0 = (tid / (BLK / GT)) * GT;
+  const int j0 = (tid % (BLK / GT)) * GT;
+  const float* gb = g + static_cast<int64_t>(rows[k]) * BLK * feat;
+  const float* xb = x + static_cast<int64_t>(cols[k]) * BLK * feat;
+
+  float acc[GT][GT];
+#pragma unroll
+  for (int i = 0; i < GT; ++i) {
+#pragma unroll
+    for (int j = 0; j < GT; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int64_t f0 = 0; f0 < feat; f0 += FC) {
+    // one warp reads 32 consecutive features of one slab row
+    for (int q = tid; q < BLK * FC; q += GTHREADS) {
+      const int row = q / FC;
+      const int f = q % FC;
+      const int64_t gf = f0 + f;
+      const int64_t off = static_cast<int64_t>(row) * feat + gf;
+      Gs[f][row] = gf < feat ? gb[off] : 0.f;
+      Xs[f][row] = gf < feat ? xb[off] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int f = 0; f < FC; ++f) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&Gs[f][i0]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&Gs[f][i0 + 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Xs[f][j0]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Xs[f][j0 + 4]);
+      const float av[GT] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[GT] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < GT; ++i) {
+#pragma unroll
+        for (int j = 0; j < GT; ++j) {
+          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  float* o = dB + k * BLK * BLK;
+#pragma unroll
+  for (int i = 0; i < GT; ++i) {
+    float4* dst = reinterpret_cast<float4*>(
+        o + static_cast<int64_t>(i0 + i) * BLK + j0);
+    dst[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    dst[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
+
+}  // namespace
+
+// blocks (K,128,128) f32, 16-byte aligned; row_splits (num_row_blocks+1,)
+// int32 slot range per output block-row; sel, scale (slots,) int32 or null
+// (identity, 1); cols (slots,) int32 input block per slot; x, out
+// (num_row_blocks*128, feat) f32; trans != 0 reads each tile transposed.
+// All contiguous.  Returns cudaErrorInvalidConfiguration when the grid
+// would exceed 2^31 - 1 CTAs, else cudaGetLastError() after the launch.
+extern "C" int fitgnn_bsr_dyn_apply(const void* blocks, const void* row_splits,
+                                    const void* sel, const void* scale,
+                                    const void* cols, const void* x, void* out,
+                                    int64_t num_row_blocks, int64_t feat,
+                                    int trans, void* stream) {
+  if (num_row_blocks > 0 && feat > 0) {
+    const int64_t slices = (feat + FT - 1) / FT;
+    const int64_t ctas = num_row_blocks * slices;
+    if (ctas > 0x7fffffff) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto* b = static_cast<const float*>(blocks);
+    const auto* rs = static_cast<const int32_t*>(row_splits);
+    const auto* sl = static_cast<const int32_t*>(sel);
+    const auto* sc = static_cast<const int32_t*>(scale);
+    const auto* c = static_cast<const int32_t*>(cols);
+    const auto* xp = static_cast<const float*>(x);
+    auto* op = static_cast<float*>(out);
+    if (trans) {
+      bsr_dyn_kernel<true><<<static_cast<unsigned>(ctas), THREADS, 0, s>>>(
+          b, rs, sl, sc, c, xp, op, feat, slices);
+    } else {
+      bsr_dyn_kernel<false><<<static_cast<unsigned>(ctas), THREADS, 0, s>>>(
+          b, rs, sl, sc, c, xp, op, feat, slices);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows, cols (num_tiles,) int32 block ids; g, x (*, feat) f32; dB
+// (num_tiles,128,128) f32, 16-byte aligned; all contiguous.  feat may be 0
+// (dB is then written as zeros).  Returns cudaErrorInvalidConfiguration
+// when num_tiles exceeds 2^31 - 1, else cudaGetLastError() after the
+// launch.
+extern "C" int fitgnn_dyn_grad_blocks(const void* rows, const void* cols,
+                                      const void* g, const void* x, void* dB,
+                                      int64_t num_tiles, int64_t feat,
+                                      void* stream) {
+  if (num_tiles > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  if (num_tiles > 0) {
+    dyn_grad_blocks_kernel<<<static_cast<unsigned>(num_tiles), GTHREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cols),
+        static_cast<const float*>(g), static_cast<const float*>(x),
+        static_cast<float*>(dB), feat);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -20,6 +20,12 @@
 // element once.  The first_slot edge-0 hazard (coo_segmm.py:164-169) is a
 // property of the TPU's padded slot stream and of K6's backward; this
 // layout has no slots.
+//
+// K3w (segmm_weighted_spmm, GAT's straggler numerators; TPU entry
+// fitgnn_tpu/ops/pallas/coo_segmm.py:370) is this same entry with the
+// runtime per-edge weights w_edge * static_weight passed as `weights`, for
+// the forward on the receiver CSR and for dx on the transpose CSR; it has
+// no source of its own.
 
 #include <cuda_runtime.h>
 #include <cstdint>

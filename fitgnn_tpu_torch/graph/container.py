@@ -41,6 +41,13 @@ class Graph(NamedTuple):
     def num_nodes_padded(self) -> int:
         return self.x.shape[0]
 
+    @property
+    def edge_mask(self) -> torch.Tensor:
+        """(E_pad,) bool, True on real edges (padding edges come last)."""
+        return torch.arange(self.senders.shape[0],
+                            device=self.senders.device) < self.n_edge.to(
+                                self.senders.device)
+
     def to(self, device) -> "Graph":
         """The same graph, every tensor (and the operator) on ``device``."""
         return Graph(*(to_device(v, device) for v in self))

@@ -1,7 +1,8 @@
 """Production ingest optimization: community reorder + hybrid operator.
 
 Two-level C++ Leiden ordering makes the adjacency block-dense, then the
-hybrid BCSR + straggler operator (K1 + K3) replaces the per-edge SpMM.
+hybrid BCSR + straggler operator (K1 + K3, or GAT's attention tiles)
+replaces the per-edge SpMM.
 
 Node reorder is exact: a permutation of nodes permutes the rows of every
 per-node tensor and both endpoints of every edge, so outputs are the same
@@ -100,8 +101,13 @@ def build_optimized_graph(x: np.ndarray, senders: np.ndarray,
     return g._replace(aux=hyb), order
 
 
-def should_use_hybrid(num_nodes: int, layer_name: str) -> bool:
-    """Gate for the CLI (the JAX package's ``mode="auto"``): static-weight
-    aggregations (and GAT's tiles) take the hybrid operator from
-    ``AUTO_MIN_NODES`` nodes up."""
+def should_use_hybrid(num_nodes: int, layer_name: str,
+                      mode: str = "auto") -> bool:
+    """Gate for the CLI (``--hybrid_spmm``): static-weight aggregations and
+    GAT's tiles take the hybrid operator from ``AUTO_MIN_NODES`` nodes up
+    under ``auto``, always under ``on``, never under ``off``."""
+    if mode == "off":
+        return False
+    if mode == "on":
+        return layer_name in _LAYER_SEMANTICS
     return layer_name in _LAYER_SEMANTICS and num_nodes >= AUTO_MIN_NODES

@@ -2,9 +2,11 @@
 
 ``NodeModel`` is the JAX package's ``NodeModel`` (convs → dense head;
 log_softmax for classification, the raw scalar for regression).  Dropout
-is inactive in eval mode, which is what the serve path runs; the JAX
-package's training-time dropout variants and layer-0 pre-aggregation come
-with the training slice.
+runs only in train mode (``model.train()``) and draws from a
+``torch.Generator`` the caller passes to ``forward``, never from torch's
+global generator; eval mode (the serve path) has no dropout.  The JAX
+package's layer-0 pre-aggregation and its Pallas dropout (K11) are not
+ported yet (ROADMAP.md §1-2).
 """
 
 from __future__ import annotations
@@ -19,29 +21,60 @@ from fitgnn_tpu_torch.graph.container import Graph
 from fitgnn_tpu_torch.models.layers import lecun_normal_, make_layer
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``generator``.
+
+    ``rate == 0.5`` follows the JAX package's ``_bit_dropout_half``: one
+    random byte per element, kept where its low bit is 1 (exact
+    Bernoulli(½)), scale 2.  Other rates keep an element where a uniform
+    draw is ≥ ``rate`` and scale by ``1 / (1 − rate)``, as flax's
+    ``nn.Dropout``."""
+    if rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if rate == 0.5:
+        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
+                             device=x.device, generator=generator)
+        return torch.where((bits & 1).bool(), x * 2.0, 0.0)
+    keep = torch.rand(x.shape, device=x.device, generator=generator) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 class ConvStack(nn.Module):
-    """``num_layers`` convs, each followed by ELU + dropout(0.5)."""
+    """``num_layers`` convs, each followed by ELU and, in train mode,
+    dropout(``dropout_rate``)."""
 
     def __init__(self, layer_name: str, in_dim: int, hidden: int,
-                 num_layers: int):
+                 num_layers: int, dropout_rate: float = 0.5):
         super().__init__()
         self.layers = nn.ModuleList(
             make_layer(layer_name, in_dim if i == 0 else hidden, hidden)
             for i in range(num_layers))
-        self.dropout = nn.Dropout(0.5)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, g: Graph,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        drop = self.training and self.dropout_rate > 0.0
+        if drop and generator is None:
+            raise ValueError("ConvStack: train-mode dropout needs an explicit "
+                             "torch.Generator")
         for layer in self.layers:
-            x = self.dropout(F.elu(layer(x, g)))
+            x = F.elu(layer(x, g))
+            if drop:
+                x = dropout(x, self.dropout_rate, generator)
         return x
 
 
 class NodeModel(nn.Module):
     def __init__(self, layer_name: str, in_dim: int, hidden: int,
-                 num_layers: int, out_dim: int, classify: bool = True):
+                 num_layers: int, out_dim: int, classify: bool = True,
+                 dropout_rate: float = 0.5):
         super().__init__()
         self.classify = classify
-        self.convs = ConvStack(layer_name, in_dim, hidden, num_layers)
+        self.convs = ConvStack(layer_name, in_dim, hidden, num_layers,
+                               dropout_rate)
         self.head = nn.Linear(hidden, out_dim)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -54,8 +87,11 @@ class NodeModel(nn.Module):
             self.head.bias.zero_()
         return self
 
-    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
-        out = self.head(self.convs(x, g))
+    def forward(self, x: torch.Tensor, g: Graph,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Log-probs (classification) or the raw scalar; ``generator``
+        drives the dropout masks in train mode."""
+        out = self.head(self.convs(x, g, generator))
         if self.classify:
             return F.log_softmax(out.float(), dim=-1)
         return out.float()

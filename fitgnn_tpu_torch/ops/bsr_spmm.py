@@ -122,7 +122,9 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
 def bsr_spmm_acc(b: BsrMatrix, x: torch.Tensor,
                  init: torch.Tensor) -> torch.Tensor:
     """``init + A·x`` for (N_pad, F) ``x`` and ``init``: the CUDA kernel on a
-    CUDA tensor, the plain version on a CPU tensor.  Forward only."""
+    CUDA tensor, the plain version on a CPU tensor.  Forward only: the
+    hybrid operator's autograd Function runs it on ``b.transpose`` for the
+    backward."""
     if x.shape != init.shape or x.dim() != 2 \
             or x.shape[0] != b.num_row_blocks * BLOCK:
         raise ValueError(f"bsr_spmm_acc: x {tuple(x.shape)} and init "
@@ -132,10 +134,6 @@ def bsr_spmm_acc(b: BsrMatrix, x: torch.Tensor,
         return bsr_spmm_acc_plain(b, x, init)
     if x.device.type != "cuda":
         raise ValueError(f"bsr_spmm_acc: unsupported device {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or init.requires_grad):
-        raise NotImplementedError(
-            "bsr_spmm_acc: the kernel's backward (transpose walk) comes "
-            "with the training slice (ROADMAP.md §1)")
     dev = x.device
     kernels.require(x, "x", torch.float32, dev)
     kernels.require(init, "init", torch.float32, dev)

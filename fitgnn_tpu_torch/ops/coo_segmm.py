@@ -17,13 +17,22 @@ needs neither the selector nor the chunk padding.
 * On a CPU tensor it runs the plain version ``segmm_spmm_plain``:
   ``index_select``, multiply, ``index_add_``.
 
-``segmm_spmm.launches`` counts kernel launches.
+K3w, ``segmm_weighted_spmm``, is the same sum with runtime per-edge
+weights (GAT's straggler softmax numerators), differentiable in the
+weights and ``x``, as the JAX package's ``segmm_weighted_spmm``: the
+forward and ``dx`` run K3's kernel (its C entry takes the weight pointer
+as it is, so K3w needs no kernel source of its own); ``dw`` is the
+per-edge dot ``⟨g[r_e], x[s_e]⟩`` in plain PyTorch.
+
+``segmm_spmm.launches`` and ``segmm_weighted_raw.launches`` count kernel
+launches with static and with runtime weights.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -62,13 +71,16 @@ def build_segmm(senders: np.ndarray, receivers: np.ndarray,
         num_nodes=num_nodes_padded)
 
 
-def segmm_spmm_plain(m: SegCsr, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch straggler aggregation: gather, scale, ``index_add_``
-    onto the receivers that ``row_ptr`` spells out."""
+def segmm_spmm_plain(m: SegCsr, x: torch.Tensor,
+                     weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch straggler aggregation: gather, scale by ``weights``
+    (``m.weights`` when None), ``index_add_`` onto the receivers that
+    ``row_ptr`` spells out."""
+    w = m.weights if weights is None else weights
     receivers = torch.repeat_interleave(
         torch.arange(m.num_nodes, device=m.row_ptr.device),
         m.row_ptr.diff(), output_size=m.senders.shape[0])
-    y = x.index_select(0, m.senders.long()) * m.weights[:, None].to(x.dtype)
+    y = x.index_select(0, m.senders.long()) * w[:, None].to(x.dtype)
     out = torch.zeros((m.num_nodes, x.shape[1]), dtype=x.dtype,
                       device=x.device)
     return out.index_add_(0, receivers, y)
@@ -78,35 +90,107 @@ def segmm_spmm_plain(m: SegCsr, x: torch.Tensor) -> torch.Tensor:
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
 
 
-def segmm_spmm(m: SegCsr, x: torch.Tensor) -> torch.Tensor:
-    """out = A_straggler · x, (N_pad, F) → (N_pad, F): the CUDA kernel on a
-    CUDA tensor, the plain version on a CPU tensor.  Forward only."""
+def _check_x(what: str, m: SegCsr, x: torch.Tensor) -> None:
     if x.dim() != 2 or x.shape[0] != m.num_nodes:
-        raise ValueError(f"segmm_spmm: x {tuple(x.shape)} must be "
+        raise ValueError(f"{what}: x {tuple(x.shape)} must be "
                          f"({m.num_nodes}, F)")
-    if x.device.type == "cpu":
-        return segmm_spmm_plain(m, x)
+
+
+def _launch(what: str, m: SegCsr, weights: torch.Tensor,
+            x: torch.Tensor) -> torch.Tensor:
+    """K3's kernel over ``m``'s CSR with per-edge ``weights``."""
     if x.device.type != "cuda":
-        raise ValueError(f"segmm_spmm: unsupported device {x.device}")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "segmm_spmm: the kernel's backward (transpose list) comes with "
-            "the training slice (ROADMAP.md §1)")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     dev = x.device
     kernels.require(x, "x", torch.float32, dev)
     kernels.require(m.row_ptr, "row_ptr", torch.int32, dev)
     kernels.require(m.senders, "senders", torch.int32, dev)
-    kernels.require(m.weights, "weights", torch.float32, dev)
+    kernels.require(weights, "weights", torch.float32, dev)
+    if weights.shape != m.senders.shape:
+        raise ValueError(f"{what}: {weights.shape[0]} weights for "
+                         f"{m.senders.shape[0]} edges")
     out = torch.empty_like(x)
     launch = kernels.function("coo_segmm", "fitgnn_segmm_spmm", _ARGTYPES)
     with torch.cuda.device(dev):
         rc = launch(
             kernels.ptr(m.row_ptr), kernels.ptr(m.senders),
-            kernels.ptr(m.weights), kernels.ptr(x), kernels.ptr(out),
+            kernels.ptr(weights), kernels.ptr(x), kernels.ptr(out),
             m.num_nodes, x.shape[1], kernels.stream(dev))
-    kernels.check(rc, "segmm_spmm")
+    kernels.check(rc, what)
+    return out
+
+
+def segmm_spmm(m: SegCsr, x: torch.Tensor) -> torch.Tensor:
+    """out = A_straggler · x, (N_pad, F) → (N_pad, F): the CUDA kernel on a
+    CUDA tensor, the plain version on a CPU tensor.  Forward only: the
+    hybrid operator's autograd Functions own the backward."""
+    _check_x("segmm_spmm", m, x)
+    if x.device.type == "cpu":
+        return segmm_spmm_plain(m, x)
+    out = _launch("segmm_spmm", m, m.weights, x)
     segmm_spmm.launches += 1
     return out
 
 
 segmm_spmm.launches = 0
+
+
+def segmm_weighted_raw_plain(m: SegCsr, w_edge: torch.Tensor,
+                             x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K3w forward (``segmm_weighted_raw``'s CPU path)."""
+    return segmm_spmm_plain(m, x, w_edge.to(m.weights.dtype) * m.weights)
+
+
+def segmm_weighted_raw(m: SegCsr, w_edge: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """K3w forward, ``out[r] = Σ_e w_edge[e]·m.weights[e]·x[s_e]`` with
+    ``w_edge`` in ``m``'s edge order: the CUDA kernel on a CUDA tensor, the
+    plain version on a CPU tensor.  The static factor keeps padding edges
+    (weight 0) inert whatever ``w_edge`` holds there."""
+    _check_x("segmm_weighted_raw", m, x)
+    if x.device.type == "cpu":
+        return segmm_weighted_raw_plain(m, w_edge, x)
+    weights = (w_edge.to(m.weights.dtype) * m.weights).contiguous()
+    out = _launch("segmm_weighted_raw", m, weights, x)
+    segmm_weighted_raw.launches += 1
+    return out
+
+
+segmm_weighted_raw.launches = 0
+
+
+class _SegmmWeighted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, m, mt, senders, receivers, t_edge_perm, w_edge, x):
+        ctx.mt = mt
+        ctx.save_for_backward(senders, receivers, t_edge_perm, w_edge, x)
+        return segmm_weighted_raw(m, w_edge, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        senders, receivers, t_edge_perm, w_edge, x = ctx.saved_tensors
+        g = g.contiguous()
+        dw = dx = None
+        if ctx.needs_input_grad[6]:
+            # the transpose list holds each edge at t_edge_perm's position
+            dx = segmm_weighted_raw(ctx.mt, w_edge[t_edge_perm.long()], g)
+        if ctx.needs_input_grad[5]:
+            dw = (g.index_select(0, receivers.long()).float()
+                  * x.index_select(0, senders.long()).float()
+                  ).sum(-1).to(w_edge.dtype)
+        return None, None, None, None, None, dw, dx
+
+
+def segmm_weighted_spmm(m: SegCsr, mt: SegCsr, senders: torch.Tensor,
+                        receivers: torch.Tensor, t_edge_perm: torch.Tensor,
+                        w_edge: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K3w: ``out[r] = Σ_e w_edge[e]·x[s_e]`` over the straggler edges, with
+    runtime per-edge weights, differentiable in ``w_edge`` and ``x``.
+
+    ``m``/``mt`` are the forward/transpose CSRs; ``senders``, ``receivers``
+    and ``w_edge`` are in the forward (receiver-sorted) order that ``m``
+    walks, so the forward needs no remap; ``t_edge_perm[i]`` is the
+    forward position of transpose entry ``i``.  ``dx`` runs the kernel on
+    ``mt``; ``dw[e] = ⟨g[r_e], x[s_e]⟩``."""
+    return _SegmmWeighted.apply(m, mt, senders, receivers, t_edge_perm,
+                                w_edge.contiguous(), x.contiguous())

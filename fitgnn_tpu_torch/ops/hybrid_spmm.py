@@ -10,9 +10,11 @@ The hybrid splits edges by tile occupancy:
   ``use_segmm``; plain COO otherwise).
 
 The forward fuses the two: K3 writes the straggler sum and K1 accumulates
-the tiles on top of it.  The transpose lists and the transpose BCSR are
-built as the JAX package builds them; the backward that consumes them
-comes with the training slice.
+the tiles on top of it.  The backward (``dx = Aᵀ·g``) is the same chain on
+the transpose structures, built as the JAX package builds them: K3 on
+``t_segmm``, then K1 on ``bsr.transpose`` accumulating on it.  For GAT's
+``att_unit`` operator the build also makes the dynamic-tile plan
+(``ops/bsr_dynamic.py``) that the attention tiles walk.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fitgnn_tpu_torch.ops.bsr_dynamic import DynPlan, build_dyn_plan
 from fitgnn_tpu_torch.ops.bsr_spmm import (BLOCK, BsrMatrix, build_bsr,
                                            bsr_spmm_acc)
 from fitgnn_tpu_torch.ops.coo_segmm import SegCsr, build_segmm, segmm_spmm
@@ -45,6 +48,8 @@ class HybridSpmm:
     semantics: str = "gcn_norm"        # aggregation the weights encode
     t_edge_perm: Optional[torch.Tensor] = None  # (E,) forward-list position
                                        # of each transpose-list entry
+    dyn_plan: Optional[DynPlan] = None  # walk plan of dynamic tile values
+                                       # (GAT attention); att_unit only
 
     @property
     def num_coo_edges(self) -> int:
@@ -123,6 +128,13 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
         t_segmm = build_segmm(cr[order_t], cs[order_t], cw[order_t],
                               num_nodes_padded)
 
+    dyn_plan = None
+    if semantics == "att_unit" and bsr is not None:
+        # the grid-walk tile order: rows sorted with coverage fillers, whose
+        # zero masks give zero attention tiles
+        dyn_plan = build_dyn_plan(bsr.rows.numpy(), bsr.cols.numpy(),
+                                  bsr.num_row_blocks)
+
     def i32(a):
         return torch.from_numpy(a.astype(np.int32))
 
@@ -132,7 +144,8 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
         t_senders=i32(cr[order_t]), t_receivers=i32(cs[order_t]),
         t_weights=torch.from_numpy(cw[order_t]),
         t_edge_perm=i32(t_edge_perm), num_nodes=num_nodes_padded,
-        semantics=semantics, segmm=segmm, t_segmm=t_segmm)
+        semantics=semantics, segmm=segmm, t_segmm=t_segmm,
+        dyn_plan=dyn_plan)
 
 
 def _coo_apply(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
@@ -142,13 +155,54 @@ def _coo_apply(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
     return spmm_coo(h.weights, h.senders, h.receivers, x, h.num_nodes)
 
 
-def hybrid_spmm(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
-    """out = A·x: the straggler part alone when no tile is dense, else the
-    fused core (K3, then K1 accumulating the tiles on its output)."""
-    if h.bsr is None:
+def _coo_apply_t(h: HybridSpmm, g: torch.Tensor) -> torch.Tensor:
+    """Transpose straggler aggregation through the transpose edge list."""
+    if h.t_segmm is not None:
+        return segmm_spmm(h.t_segmm, g)
+    return spmm_coo(h.t_weights, h.t_senders, h.t_receivers, g, h.num_nodes)
+
+
+class _CooPart(torch.autograd.Function):
+    """The straggler part alone (no dense tile)."""
+
+    @staticmethod
+    def forward(ctx, h, x):
+        ctx.h = h
         return _coo_apply(h, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[1]:
+            return None, None
+        return None, _coo_apply_t(ctx.h, g.contiguous())
+
+
+class _FusedCore(torch.autograd.Function):
+    """Stragglers, then the tiles accumulating on their output (K3 → K1);
+    the backward runs the same chain on the transpose structures."""
+
+    @staticmethod
+    def forward(ctx, h, x):
+        ctx.h = h
+        return bsr_spmm_acc(h.bsr, x, _coo_apply(h, x))
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[1]:
+            return None, None
+        h, g = ctx.h, g.contiguous()
+        return None, bsr_spmm_acc(h.bsr.transpose, g, _coo_apply_t(h, g))
+
+
+def hybrid_spmm(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
+    """out = A·x, differentiable in ``x``: the straggler part alone when no
+    tile is dense, else the fused core (K3, then K1 accumulating the tiles
+    on its output).  A backward runs only for an ``x`` that needs a
+    gradient (GCN's layer 0 aggregates the raw features, which do not)."""
+    if h.bsr is None:
+        return _CooPart.apply(h, x.contiguous())
     if h.bsr.transpose is None:
         raise NotImplementedError(
-            "hybrid_spmm without a transpose BCSR runs K2 (bsr_spmm), which "
-            "comes with the training slice (ROADMAP.md §1)")
-    return bsr_spmm_acc(h.bsr, x, _coo_apply(h, x))
+            "hybrid_spmm without a transpose BCSR runs K2 (bsr_spmm), the "
+            "library spmm(operator=BsrMatrix) surface (ROADMAP.md §2)")
+    return _FusedCore.apply(h, x.contiguous())

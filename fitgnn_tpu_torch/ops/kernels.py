@@ -46,7 +46,8 @@ def _target(name: str) -> Target:
 
 # one library per source; ``build(TARGETS)`` compiles the stale ones in
 # parallel, one nvcc each
-TARGETS = tuple(_target(n) for n in ("bsr_spmm", "coo_segmm"))
+TARGETS = tuple(_target(n) for n in (
+    "bsr_spmm", "coo_segmm", "bsr_dynamic"))
 
 
 def function(lib: str, name: str, argtypes: list):

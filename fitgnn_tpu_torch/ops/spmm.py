@@ -8,19 +8,17 @@ through a per-edge gather and a segment sum.
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 from fitgnn_tpu_torch.ops.segment import segment_sum, take_rows
 
-# read from the same environment variable as the JAX package, so both take
-# the same branch for the same graph
-DENSE_SPMM_MAX_N = int(os.environ.get("FITGNN_DENSE_SPMM_N", "512"))
+# the JAX package's default (its FITGNN_DENSE_SPMM_N); the port reads no
+# environment variable
+DENSE_SPMM_MAX_N = 512
 
 
 def use_dense(num_nodes: int) -> bool:
-    """True when ``spmm_coo`` takes the dense-adjacency branch."""
+    """True when ``spmm_coo`` (and GATConv) take the dense branch."""
     return num_nodes <= DENSE_SPMM_MAX_N
 
 

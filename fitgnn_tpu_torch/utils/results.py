@@ -5,6 +5,17 @@ from __future__ import annotations
 import os
 from typing import Mapping
 
+TRAIN_NODE_CLS_HEADER = (
+    "dataset,coarsening_method,coarsening_ratio,experiment,exp_setup,"
+    "layer_name,extra_nodes,cluster_node,community_used,hidden,runs,"
+    "num_layers,batch_size,lr,ave_acc,ave_time,top_10_acc,best_acc,"
+    "top_10_loss,best_loss")
+
+TRAIN_NODE_REG_HEADER = (
+    "dataset,coarsening_method,coarsening_ratio,layer_name,extra_nodes,"
+    "cluster_node,community_used,hidden,runs,num_layers,batch_size,lr,"
+    "ave_time,top_10_loss,best_loss")
+
 # avg_inf_time is wall-clock per sampled forward; avg_inf_time_device is
 # the device time of one forward (bench.inference)
 INFERENCE_HEADER = (

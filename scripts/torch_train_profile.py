@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Where the time of one ``train --baseline`` step goes, on one GPU.
+
+    python3 scripts/torch_train_profile.py      # from the repository root
+
+Builds the bench graph of ``chip_smoke.py`` (169,344 nodes, 128 features,
+40 classes, seed 0) through the port's ``build_optimized_graph`` for GCN
+and for GAT, and for each puts the seed-0 ``NodeModel`` (2 layers, hidden
+512, f32, dropout 0.5 from a seeded generator) with ``adam_l2(0.01, 5e-4)``
+on the card.  For each it prints:
+
+* the step's time (``gc_train_step``: forward, masked NLL, backward, Adam)
+  from CUDA events over 10 steps after 3 warm-ups;
+* a ``torch.profiler`` table of device time per kernel over 5 steps,
+  grouped into the port's kernels (K1, K3, K4, K4ᵀ, K5), the dense layers
+  (cuBLAS), the optimizer and the rest;
+* the device's idle share over the profiled window: 1 - (summed kernel
+  time) / (window time on the host clock, ended by a synchronize).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from chip_smoke import HIDDEN, NUM_CLASSES, NUM_FEATURES, make_graph  # noqa
+
+PROFILED = 5
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def _group(name: str) -> str:
+    if "bsr_spmm_acc" in name:
+        return "K1 bsr_spmm_acc"
+    if "segmm_spmm" in name:
+        return "K3/K3w segmm_spmm"
+    if "bsr_dyn_kernel<true>" in name:
+        return "K4T dyn_tiles_t"
+    if "bsr_dyn_kernel" in name:
+        return "K4 dyn_tiles"
+    if "dyn_grad_blocks" in name:
+        return "K5 dyn_grad_blocks"
+    if "gemm" in name or "sgemm" in name or "matmul" in name.lower():
+        return "dense layers (cuBLAS)"
+    if "adam" in name.lower() or "multi_tensor" in name.lower():
+        return "optimizer (Adam)"
+    if "index" in name.lower() or "scatter" in name.lower() \
+            or "gather" in name.lower():
+        return "gathers and scatters (index_select, index_add)"
+    return "elementwise, reductions, dropout, copies"
+
+
+def profile_step(layer: str, x, s, r, y, train, dev) -> dict:
+    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.train import steps
+
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                 layer_name=layer, seed=0)
+    g = g.to(dev)
+    model = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES)
+    model = model.reset_parameters(torch.Generator().manual_seed(0)).to(dev)
+    opt = steps.adam_l2(model.parameters(), 0.01, 5e-4)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def step():
+        steps.gc_train_step(model, opt, g, g.y, g.train_mask, gen,
+                            "classification")
+
+    for _ in range(3):
+        step()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(10):
+        step()
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / 10
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROFILED):
+            step()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+
+    groups: dict = {}
+    rows = []
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        rows.append((us, evt.count, evt.key))
+        k = _group(evt.key)
+        groups[k] = groups.get(k, 0.0) + us / 1e3 / PROFILED
+    rows.sort(reverse=True)
+    print(f"{layer}: step (CUDA events, 10 steps): {step_ms:.4f} ms")
+    print("device time per step by kernel (profiler):")
+    for us, count, key in rows[:25]:
+        print(f"  {us / 1e3 / PROFILED:9.4f} ms  x{count / PROFILED:5.1f}  "
+              f"{key[:90]}")
+    busy = sum(groups.values())
+    return {
+        "layer": layer, "step_ms": step_ms,
+        "profiled_window_ms_per_step": window_ms / PROFILED,
+        "device_busy_ms_per_step": busy,
+        "idle_share": 1.0 - busy * PROFILED / window_ms,
+        "groups_ms_per_step": dict(sorted(groups.items(),
+                                          key=lambda kv: -kv[1])),
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a GPU", file=sys.stderr)
+        return 1
+    import subprocess
+    from fitgnn_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    x, s, r, y, train = make_graph()
+    for layer in ("GATConv", "GCNConv"):
+        print(json.dumps(profile_step(layer, x, s, r, y, train, dev)))
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,18 +3,27 @@
 Every test here needs an NVIDIA GPU with ``nvcc`` (the kernels build at
 first use) and skips without one; ``chip_smoke.py`` runs the same checks on
 the card at the bench graph's shapes.  Tolerance: rtol 1e-4 and atol
-1e-4·max|ref|, f32 sums taken in another order.
+1e-4·max|ref|, f32 sums taken in another order; training gradients on the
+card are held against the plain versions on the CPU the same way.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+from fitgnn_tpu_torch.models.models import NodeModel
+from fitgnn_tpu_torch.ops.bsr_dynamic import (build_dyn_plan, dyn_grad_blocks,
+                                              dyn_grad_blocks_plain,
+                                              dyn_tiles, dyn_tiles_plain,
+                                              dyn_tiles_t, dyn_tiles_t_plain)
 from fitgnn_tpu_torch.ops.bsr_spmm import (build_bsr, bsr_spmm_acc,
                                            bsr_spmm_acc_plain)
 from fitgnn_tpu_torch.ops.coo_segmm import (build_segmm, segmm_spmm,
-                                            segmm_spmm_plain)
+                                            segmm_spmm_plain,
+                                            segmm_weighted_raw)
 from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid, hybrid_spmm
+from fitgnn_tpu_torch.train.losses import masked_nll
 
 torch.set_num_threads(1)
 
@@ -107,9 +116,93 @@ def test_hybrid_on_card_matches_cpu(cuda):
     _close(got, hybrid_spmm(h, x))
 
 
-def test_kernel_rejects_grad(cuda):
-    m = build_segmm(np.array([0]), np.array([0]), np.ones(1, np.float32),
-                    128).to(cuda)
-    x = torch.zeros((128, 4), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        segmm_spmm(m, x)
+def _tiles(rng, nb=6, k=15):
+    """A sorted tile list covering every block row; block column 2 is never
+    used, so the transpose plan carries a filler there."""
+    rows = np.sort(np.concatenate([np.arange(nb),
+                                   rng.integers(0, nb, k - nb)]))
+    cols = rng.choice([c for c in range(nb) if c != 2], len(rows))
+    return rows.astype(np.int32), cols.astype(np.int32), nb
+
+
+@pytest.mark.parametrize("feat", [16, 100, 128, 512])
+def test_k4_k5_kernels_match_plain(cuda, feat):
+    rng = np.random.default_rng(feat + 2)
+    rows, cols, nb = _tiles(rng)
+    plan = build_dyn_plan(rows, cols, nb).to(cuda)
+    rt, ct = torch.from_numpy(rows).to(cuda), torch.from_numpy(cols).to(cuda)
+    blocks = torch.from_numpy(rng.standard_normal(
+        (len(rows), 128, 128)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((nb * 128, feat)).astype(
+        np.float32)).to(cuda)
+    g = torch.from_numpy(rng.standard_normal((nb * 128, feat)).astype(
+        np.float32)).to(cuda)
+    before = (dyn_tiles.launches, dyn_tiles_t.launches,
+              dyn_grad_blocks.launches)
+    with torch.inference_mode():
+        got = (dyn_tiles(rt, ct, plan, blocks, x),
+               dyn_tiles_t(plan, blocks, g), dyn_grad_blocks(rt, ct, g, x))
+        ref = (dyn_tiles_plain(rt, ct, plan, blocks, x),
+               dyn_tiles_t_plain(plan, blocks, g),
+               dyn_grad_blocks_plain(rt, ct, g, x))
+    torch.cuda.synchronize()
+    assert (dyn_tiles.launches, dyn_tiles_t.launches,
+            dyn_grad_blocks.launches) == tuple(b + 1 for b in before)
+    for a, b in zip(got, ref):
+        _close(a, b)
+    assert not got[1][2 * 128:3 * 128].any()     # the filler's block
+
+
+@pytest.mark.parametrize("feat", [40, 64])
+def test_k3w_kernel_matches_plain(cuda, feat):
+    rng = np.random.default_rng(feat + 3)
+    n = 1024
+    s, r, w = _coo(rng, n, 3_000, internal=0.0)
+    w[::17] = 0.0                                # inert (padding-like) edges
+    m = build_segmm(s, r, w, n).to(cuda)
+    w_edge = torch.from_numpy(rng.random(len(s)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, feat)).astype(
+        np.float32)).to(cuda)
+    before = segmm_weighted_raw.launches
+    with torch.inference_mode():
+        got = segmm_weighted_raw(m, w_edge, x)
+        ref = segmm_spmm_plain(m, x, w_edge * m.weights)
+    torch.cuda.synchronize()
+    assert segmm_weighted_raw.launches == before + 1
+    _close(got, ref)
+
+
+def _grads(model, g, y, mask):
+    model.zero_grad(set_to_none=True)
+    loss = masked_nll(model(g.x, g), y, mask)
+    loss.backward()
+    return loss.detach().cpu(), {k: p.grad.detach().cpu()
+                                 for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("layer,hidden", [("GCNConv", 64), ("GATConv", 64),
+                                          ("GATConv", 256)])
+def test_training_gradients_on_card_match_cpu(cuda, layer, hidden):
+    """One training step's loss and gradients with the kernels on the card
+    against the plain versions on the CPU (at hidden 64 GAT's stragglers
+    take K3w, at 256 the den-column scatter)."""
+    rng = np.random.default_rng(9)
+    n, feat = 1500, 128
+    r = rng.integers(0, n, 15_000)
+    s = np.where(rng.random(15_000) < 0.85,
+                 np.minimum((r // 128) * 128 + rng.integers(0, 128, 15_000),
+                            n - 1), rng.integers(0, n, 15_000))
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    y = rng.integers(0, 5, n)
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=rng.random(n) < .5,
+                                 min_block_edges=48, layer_name=layer)
+    assert g.aux.bsr is not None and g.aux.num_coo_edges > 1
+    model = NodeModel(layer, feat, hidden, 2, 5, dropout_rate=0.0)
+    model.reset_parameters(torch.Generator().manual_seed(0)).train()
+    loss_c, grads_c = _grads(model, g, g.y, g.train_mask)
+    gd = g.to(cuda)
+    loss_d, grads_d = _grads(model.to(cuda), gd, gd.y, gd.train_mask)
+    torch.cuda.synchronize()
+    _close(loss_d, loss_c)
+    for k, v in grads_c.items():
+        _close(grads_d[k], v)
