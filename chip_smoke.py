@@ -18,31 +18,50 @@ Phases (any failure exits non-zero before the result lines):
    product; on the GAT (``att_unit``) operator, whose tile split must equal
    the GCN operator's, K4 (``dyn_tiles``) and K4ᵀ (``dyn_tiles_t``) at
    F=128 and 512, K5 (``dyn_grad_blocks``) at F=128 and 512 and K3w
-   (``segmm_weighted_raw``) at F=40 and 64;
+   (``segmm_weighted_raw``) at F=40 and 64, and on the transpose CSR at
+   F=512 (K6's ``dx``); then the fused tile attention and K6 at F=128 and
+   512: K7rm (``att_rowmax``), K7f (``att_fwd``), K7bt (``att_bwd_t``: the
+   ``dx`` walk and the ``dssrc`` reduction, timed as the main path calls
+   it, ``dssrc`` alone at F=128), K7bf (``att_bwd_f``) and K6
+   (``segmm_weighted_den_raw``), each beside the two-stage path it
+   replaces (materialised tile scores, K4/K4ᵀ/K5 and PyTorch's
+   elementwise work, forward and autograd backward), whose outputs and
+   gradients they must also match;
 4. gradients: one GAT and one GCN training step (hidden 512, dropout off,
    the same seed-0 init) with the kernels and then with the plain versions
    patched in; the loss and every parameter gradient within the tolerance
    above, and the launches of the kernel step: GAT K4 ×2, K4ᵀ ×1 (layer
    0's input, the raw features, needs no gradient), K5 ×2; GCN K1 ×3 and
    K3 ×3 (two forward, one backward for layer 1: layer 0 aggregates the
-   raw features);
+   raw features); then the GAT step under ``FITGNN_GAT_FUSED_TILES=1
+   FITGNN_GAT_SEGMM_DEN=1``, with kernels, with plain versions, and held
+   against the default step too: K7f ×2, K7bt ×3 (``dx`` only in layer
+   1), K7bf ×2, K6 ×2, K3w ×1 (K6's ``dx`` in layer 1);
 5. train: ``train --baseline`` through the port's CLI on ``cuda``, every
    launch counter at 0 just before each run: GATConv at hidden 512 for 3
    epochs, GCNConv at hidden 512 for 2 epochs, GATConv at hidden 64 for 1
-   epoch (its aggregations are 64 wide, so K3w runs); the launches against
-   the counts per train step and eval forward that phase 4 confirmed, a
-   CSV row with finite losses and a checkpoint per run;
+   epoch (its aggregations are 64 wide, so K3w runs), GATConv at hidden
+   512 for 2 epochs with ``FUSED_TILES=1 SEGMM_DEN=1`` and for 1 epoch
+   with ``FUSED_TILES=1 GLOBAL_MAX=0`` (K7rm ×2 a forward); the launches
+   against the counts per train step and eval forward that phase 4
+   confirmed, a CSV row with finite losses and a checkpoint per run;
 6. serve: ``infer-baseline`` for GATConv at hidden 512 from the checkpoint
-   phase 5 saved (K4 ×2 per forward), and for GCNConv at hidden 512 from
-   random weights (K1 and K3 ×2 per forward), whose full forward with
-   kernels is held against the same forward with the plain versions
-   (atol 1e-4);
+   phase 5 saved (K4 ×2 per forward), the same with ``FUSED_TILES=1``
+   from the fused run's checkpoint (K7f ×2 per forward), and for GCNConv
+   at hidden 512 from random weights (K1 and K3 ×2 per forward), whose
+   full forward with kernels is held against the same forward with the
+   plain versions (atol 1e-4);
 7. one JSON line with every kernel's numbers (launches summed over the
    CLI phases, per phase beside them), then the ``ok`` line.
+
+The JAX package's environment switches are set in ``os.environ`` for one
+phase and restored after it; the earlier phases must launch none of K6
+and K7.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -73,6 +92,12 @@ REF_TILES = 2_192
 REF_STRAGGLERS = 232_718
 
 RTOL = 1e-4
+SLOPE = 0.2                        # GATConv's LeakyReLU slope
+
+# the JAX package's tile_gat switches of the fused phases
+FUSED = {"FITGNN_GAT_FUSED_TILES": "1", "FITGNN_GAT_SEGMM_DEN": "1"}
+FUSED_EXACT = {"FITGNN_GAT_FUSED_TILES": "1", "FITGNN_GAT_GLOBAL_MAX": "0"}
+FUSED_ONLY = {"FITGNN_GAT_FUSED_TILES": "1"}
 
 
 def make_graph():
@@ -132,6 +157,21 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
           f"(atol={atol:.3e}, rtol={RTOL})")
     check(ok, f"{name}: kernel disagrees with its plain version")
     return {"max_abs_err": max_abs, "max_rel_err": max_rel}
+
+
+@contextlib.contextmanager
+def switches(env: dict):
+    """Set the JAX package's switches for one phase, restore after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def bound(bytes_: float, ops: float) -> tuple:
@@ -274,12 +314,16 @@ def counters() -> dict:
     replaces; each counts its own launches."""
     from fitgnn_tpu_torch.ops.bsr_dynamic import (dyn_grad_blocks,
                                                   dyn_tiles, dyn_tiles_t)
+    from fitgnn_tpu_torch.ops import att_bsr
     from fitgnn_tpu_torch.ops.bsr_spmm import bsr_spmm_acc
     from fitgnn_tpu_torch.ops.coo_segmm import (segmm_spmm,
+                                                segmm_weighted_den_raw,
                                                 segmm_weighted_raw)
     return {"K1": bsr_spmm_acc, "K3": segmm_spmm, "K4": dyn_tiles,
             "K4T": dyn_tiles_t, "K5": dyn_grad_blocks,
-            "K3w": segmm_weighted_raw}
+            "K3w": segmm_weighted_raw, "K6": segmm_weighted_den_raw,
+            "K7rm": att_bsr.att_rowmax, "K7f": att_bsr.att_fwd,
+            "K7bt": att_bsr.att_bwd_t, "K7bf": att_bsr.att_bwd_f}
 
 
 def reset_counts() -> None:
@@ -444,22 +488,236 @@ def phase_gat_kernels(device, ds, g_gcn) -> tuple:
     return g, shapes
 
 
+def phase_fused_kernels(device, g) -> dict:
+    """K6 and K7 on the bench graph's att_unit operator at F=128 and 512,
+    each against its plain version and beside the two-stage path it
+    replaces; K3w on the transpose CSR at F=512 (K6's dx)."""
+    from fitgnn_tpu_torch.ops import att_bsr
+    from fitgnn_tpu_torch.ops.coo_segmm import (
+        segmm_weighted_den_raw, segmm_weighted_den_raw_plain,
+        segmm_weighted_raw, segmm_weighted_raw_plain)
+    from fitgnn_tpu_torch.ops.tile_gat import tiles_two_stage
+
+    gd = g.to(device)
+    hd = gd.aux
+    b, plan, m, mt = hd.bsr, hd.dyn_plan, hd.segmm, hd.t_segmm
+    rows, cols, blocks = b.rows, b.cols, b.blocks
+    n = g.num_nodes_padded
+    nb = n // 128
+    k_all = b.nnz_blocks
+    nnz = int((blocks != 0).sum())
+    uniq_cols = int(torch.unique(cols).numel())
+    uniq_rows = int(torch.unique(rows).numel())
+    gen = torch.Generator(device=device).manual_seed(2)
+    # unit-variance scores, as a GAT layer's projections give them, and the
+    # fused default branch's stabilizer (the global bound)
+    ssrc = torch.randn(n, generator=gen, device=device)
+    sdst = torch.randn(n, generator=gen, device=device)
+    dden = torch.randn(n, generator=gen, device=device)
+    mg = (sdst + ssrc.max()).clamp_min(0.0)
+    vec = n * 4
+    tile_bytes = k_all * 128 * 128 * 4
+    idx_f = (k_all + nb + 1) * 4                  # cols, row_splits
+    idx_t = (3 * plan.t_sel.numel() + nb + 1) * 4  # t_sel/scale/cols, splits
+    e = m.senders.shape[0]
+    w_edge = torch.rand(e, generator=gen, device=device)
+    str_csr = torch.sparse_csr_tensor(m.row_ptr, m.senders,
+                                      w_edge * m.weights, (n, n))
+    uniq_senders = int(torch.unique(m.senders[m.weights != 0]).numel())
+    wt = w_edge[hd.t_edge_perm.long()].contiguous()
+    t_uniq = int(torch.unique(mt.senders[mt.weights != 0]).numel())
+    shapes = {k: [] for k in ("K6", "K7rm", "K7f", "K7bt", "K7bf", "K3w")}
+    fwd = (rows, cols, plan, blocks, ssrc, sdst)
+
+    def show(k):
+        sh = shapes[k][-1]
+        lib, two = sh["library_ms"], sh.get("two_stage_ms")
+        print(f"  {k} F={sh['F']}: kernel_ms={sh['ms']:.4f} "
+              f"plain_ms={sh['plain_ms']:.4f} library_ms="
+              f"{'null' if lib is None else f'{lib:.4f}'} "
+              f"two_stage_ms={'null' if two is None else f'{two:.4f}'} "
+              f"bound_ms={sh['bound_ms']:.4f} ({sh['bound_by']})")
+
+    with torch.inference_mode():
+        # K7rm: F-independent, one launch per layer
+        rm = att_bsr.att_rowmax(*fwd, SLOPE)
+        rp = att_bsr.att_rowmax_plain(*fwd, SLOPE)
+        torch.cuda.synchronize()
+        has = rp > -1e29
+        check(torch.equal(rm <= -1e29, ~has), "K7rm: rows without a tile "
+              "entry differ from the plain version")
+        err = compare("K7rm att_rowmax", rm[has], rp[has])
+        brm, byrm = bound(tile_bytes + idx_f + 3 * vec, 3.0 * nnz)
+        plain_rm = cuda_ms(lambda: att_bsr.att_rowmax_plain(*fwd, SLOPE), 5)
+        shapes["K7rm"].append(dict(
+            F=None, **err, bound_ms=brm, bound_by=byrm,
+            ms=cuda_ms(lambda: att_bsr.att_rowmax(*fwd, SLOPE), 20),
+            plain_ms=plain_rm, library_ms=None, two_stage_ms=plain_rm,
+            two_stage_label="the materialised tile row max (its plain "
+                            "version)"))
+        show("K7rm")
+    for feat in (NUM_FEATURES, HIDDEN):
+        # at F=128 (layer 0, raw features) the backward needs no dx
+        need_dx = feat == HIDDEN
+        x = torch.randn((n, feat), generator=gen, device=device)
+        gr = torch.randn((n, feat), generator=gen, device=device)
+        bwd = (plan, blocks, ssrc, sdst, mg, gr, x, dden, SLOPE)
+        print(f"F={feat}:")
+        with torch.inference_mode():
+            num, den = att_bsr.att_fwd(*fwd, mg, x, SLOPE)
+            num_p, den_p = att_bsr.att_fwd_plain(*fwd, mg, x, SLOPE)
+            dx, dss = att_bsr.att_bwd_t(*bwd)
+            dx_p, dss_p = att_bsr.att_bwd_t_plain(*bwd)
+            dsd = att_bsr.att_bwd_f(rows, cols, *bwd)
+            dsd_p = att_bsr.att_bwd_f_plain(rows, cols, *bwd)
+            num6, den6 = segmm_weighted_den_raw(m, w_edge, x)
+            num6_p, den6_p = segmm_weighted_den_raw_plain(m, w_edge, x)
+            torch.cuda.synchronize()
+            e_f = [compare(f"K7f att_fwd {what} F={feat}", a, p_)
+                   for what, a, p_ in (("num", num, num_p),
+                                       ("den", den, den_p))]
+            e_t = [compare(f"K7bt att_bwd_t {what} F={feat}", a, p_)
+                   for what, a, p_ in (("dx", dx, dx_p),
+                                       ("dssrc", dss, dss_p))]
+            e_b = compare(f"K7bf att_bwd_f dsdst F={feat}", dsd, dsd_p)
+            e_6 = [compare(f"K6 segmm_weighted_den_raw {what} F={feat}",
+                           a, p_) for what, a, p_ in (("num", num6, num6_p),
+                                                      ("den", den6, den6_p))]
+            compare(f"K6 library torch.sparse.mm (num only) F={feat}",
+                    torch.sparse.mm(str_csr, x), num6_p)
+        # the two-stage path (materialised pe, K4, row sums; its autograd
+        # backward: K5, K4ᵀ and the elementwise chain) must agree
+        ss_, sd_ = ssrc.clone().requires_grad_(), sdst.clone().requires_grad_()
+        x_ = x.clone().requires_grad_(need_dx)
+        num2, den2 = tiles_two_stage(SLOPE, rows, cols, plan, blocks, ss_,
+                                     sd_, mg, x_)
+        inputs = (ss_, sd_, x_) if need_dx else (ss_, sd_)
+        grads2 = torch.autograd.grad((num2, den2), inputs, (gr, dden),
+                                     retain_graph=True)
+        compare(f"K7f num vs two-stage F={feat}", num, num2.detach())
+        compare(f"K7f den vs two-stage F={feat}", den, den2.detach())
+        compare(f"K7bt dssrc vs two-stage F={feat}", dss, grads2[0])
+        compare(f"K7bf dsdst vs two-stage F={feat}", dsd, grads2[1])
+        if need_dx:
+            compare(f"K7bt dx vs two-stage F={feat}", dx, grads2[2])
+        two_bwd = cuda_ms(lambda: torch.autograd.grad(
+            (num2, den2), inputs, (gr, dden), retain_graph=True), 5)
+        del num2, den2, grads2
+        with torch.inference_mode():
+            slabs = 128 * feat * 4
+            # K7f: tiles once, the three score vectors, the slabs of the
+            # distinct input blocks, num and den out; 2·F FLOPs per tile
+            # non-zero for the product, 1 for den, ~4 for score, LeakyReLU,
+            # subtract and exp
+            bf, byf = bound(tile_bytes + idx_f + 3 * vec + uniq_cols * slabs
+                            + n * feat * 4 + vec, nnz * (2.0 * feat + 5))
+            # K7bt / K7bf: tiles, four vectors, g and x slabs, the output;
+            # 2·F FLOPs per non-zero for each product (the ⟨g, x⟩ of d_pe,
+            # and peᵀ @ g for dx)
+            bt, byt = bound(tile_bytes + idx_t + 4 * vec
+                            + (uniq_rows + uniq_cols) * slabs + vec
+                            + (n * feat * 4 if need_dx else 0),
+                            nnz * (2.0 * feat * (2 if need_dx else 1) + 8))
+            bb, byb = bound(tile_bytes + idx_f + 4 * vec
+                            + (uniq_rows + uniq_cols) * slabs + vec,
+                            nnz * (2.0 * feat + 8))
+            b6, by6 = bound((n + 1) * 4 + e * 12 + uniq_senders * feat * 4
+                            + n * feat * 4 + vec, (2.0 * feat + 1) * e)
+            shapes["K7f"].append(dict(
+                F=feat, max_abs_err=max(er["max_abs_err"] for er in e_f),
+                max_rel_err=max(er["max_rel_err"] for er in e_f),
+                bound_ms=bf, bound_by=byf,
+                ms=cuda_ms(lambda: att_bsr.att_fwd(*fwd, mg, x, SLOPE), 20),
+                plain_ms=cuda_ms(lambda: att_bsr.att_fwd_plain(
+                    *fwd, mg, x, SLOPE), 5), library_ms=None,
+                two_stage_ms=cuda_ms(lambda: tiles_two_stage(
+                    SLOPE, rows, cols, plan, blocks, ssrc, sdst, mg, x), 10),
+                two_stage_label="materialised pe, K4 and the den row sums"))
+            shapes["K7bt"].append(dict(
+                F=feat, need_dx=need_dx,
+                max_abs_err=max(er["max_abs_err"] for er in e_t),
+                max_rel_err=max(er["max_rel_err"] for er in e_t),
+                bound_ms=bt, bound_by=byt,
+                ms=cuda_ms(lambda: att_bsr.att_bwd_t(
+                    *bwd, need_dx=need_dx), 10),
+                plain_ms=cuda_ms(lambda: att_bsr.att_bwd_t_plain(
+                    *bwd, need_dx=need_dx), 5), library_ms=None,
+                two_stage_ms=two_bwd,
+                two_stage_label="the two-stage autograd backward for "
+                                "dssrc, dsdst and dx (K5, K4ᵀ when dx is "
+                                "needed, the elementwise chain): compare "
+                                "with K7bt + K7bf"))
+            shapes["K7bf"].append(dict(
+                F=feat, **e_b, bound_ms=bb, bound_by=byb,
+                ms=cuda_ms(lambda: att_bsr.att_bwd_f(rows, cols, *bwd), 10),
+                plain_ms=cuda_ms(lambda: att_bsr.att_bwd_f_plain(
+                    rows, cols, *bwd), 5), library_ms=None,
+                two_stage_ms=None,
+                two_stage_label="within K7bt's two-stage backward"))
+            shapes["K6"].append(dict(
+                F=feat, max_abs_err=max(er["max_abs_err"] for er in e_6),
+                max_rel_err=max(er["max_rel_err"] for er in e_6),
+                bound_ms=b6, bound_by=by6,
+                ms=cuda_ms(lambda: segmm_weighted_den_raw(m, w_edge, x), 20),
+                plain_ms=cuda_ms(lambda: segmm_weighted_den_raw_plain(
+                    m, w_edge, x), 20),
+                library_ms=cuda_ms(lambda: torch.sparse.mm(str_csr, x), 20),
+                library_label="torch.sparse.mm with runtime weights: num "
+                              "only"))
+            for k in ("K7f", "K7bt", "K7bf", "K6"):
+                show(k)
+            if feat == HIDDEN:
+                # K6's dx in layer 1: K3w on the transpose CSR
+                k3w = segmm_weighted_raw(mt, wt, gr)
+                p3w = segmm_weighted_raw_plain(mt, wt, gr)
+                torch.cuda.synchronize()
+                err3w = compare(f"K3w transpose CSR F={feat}", k3w, p3w)
+                t_csr = torch.sparse_csr_tensor(mt.row_ptr, mt.senders,
+                                                wt * mt.weights, (n, n))
+                b3w, by3w = bound((n + 1) * 4 + e * 12 + t_uniq * feat * 4
+                                  + n * feat * 4, 2.0 * e * feat)
+                shapes["K3w"].append(dict(
+                    F=feat, transpose=True, **err3w, bound_ms=b3w,
+                    bound_by=by3w,
+                    ms=cuda_ms(lambda: segmm_weighted_raw(mt, wt, gr), 20),
+                    plain_ms=cuda_ms(lambda: segmm_weighted_raw_plain(
+                        mt, wt, gr), 20),
+                    library_ms=cuda_ms(lambda: torch.sparse.mm(t_csr, gr),
+                                       20)))
+                show("K3w")
+        del x, gr, x_, ss_, sd_
+        torch.cuda.empty_cache()
+    return shapes
+
+
 # launches of one training step and one eval forward of a 2-layer model at
 # hidden 512, read from the autograd graph and confirmed by phase 4:
 # GAT layer 0 aggregates the raw 128-wide features (no dx, so no K4ᵀ),
 # layer 1 the 512-wide transformed ones; GCN layer 0 aggregates the raw
 # features (no backward), layer 1 its transformed input
 STEP = {"GATConv": {"K4": 2, "K4T": 1, "K5": 2},
-        "GCNConv": {"K1": 3, "K3": 3}}
-EVAL = {"GATConv": {"K4": 2}, "GCNConv": {"K1": 2, "K3": 2}}
+        "GCNConv": {"K1": 3, "K3": 3},
+        # FUSED: K7bt's dssrc in both layers and its dx in layer 1 (3
+        # launches), K6's dx (a K3w launch) in layer 1 only
+        "GATConv fused": {"K7f": 2, "K7bt": 3, "K7bf": 2, "K6": 2, "K3w": 1},
+        "GATConv fused exact": {"K7rm": 2, "K7f": 2, "K7bt": 3, "K7bf": 2}}
+EVAL = {"GATConv": {"K4": 2}, "GCNConv": {"K1": 2, "K3": 2},
+        "GATConv fused": {"K7f": 2, "K6": 2},
+        "GATConv fused exact": {"K7rm": 2, "K7f": 2},
+        "GATConv fused tiles": {"K7f": 2}}
+# the switches of each mode
+MODE_ENV = {"GATConv": {}, "GCNConv": {}, "GATConv fused": FUSED,
+            "GATConv fused exact": FUSED_EXACT,
+            "GATConv fused tiles": FUSED_ONLY}
 
 
 def phase_gradients(device, g_gat, g_gcn) -> None:
     """One training step with the kernels, then with the plain versions
     patched in: the loss and every gradient, and the step's launches."""
     from fitgnn_tpu_torch.models.models import NodeModel
-    from fitgnn_tpu_torch.ops import bsr_dynamic, coo_segmm
+    from fitgnn_tpu_torch.ops import att_bsr, bsr_dynamic, coo_segmm
     from fitgnn_tpu_torch.ops import hybrid_spmm as hybrid_mod
+    from fitgnn_tpu_torch.ops import tile_gat
     from fitgnn_tpu_torch.ops.bsr_spmm import bsr_spmm_acc_plain
     from fitgnn_tpu_torch.ops.coo_segmm import segmm_spmm_plain
     from fitgnn_tpu_torch.train.losses import masked_nll
@@ -474,8 +732,17 @@ def phase_gradients(device, g_gat, g_gcn) -> None:
         mock.patch.object(bsr_dynamic, "dyn_grad_blocks",
                           bsr_dynamic.dyn_grad_blocks_plain),
         mock.patch.object(coo_segmm, "segmm_weighted_raw",
-                          coo_segmm.segmm_weighted_raw_plain)]
-    for layer, g in (("GATConv", g_gat), ("GCNConv", g_gcn)):
+                          coo_segmm.segmm_weighted_raw_plain),
+        mock.patch.object(coo_segmm, "segmm_weighted_den_raw",
+                          coo_segmm.segmm_weighted_den_raw_plain),
+        mock.patch.object(tile_gat, "att_rowmax", att_bsr.att_rowmax_plain),
+        mock.patch.object(att_bsr, "att_fwd", att_bsr.att_fwd_plain),
+        mock.patch.object(att_bsr, "att_bwd_t", att_bsr.att_bwd_t_plain),
+        mock.patch.object(att_bsr, "att_bwd_f", att_bsr.att_bwd_f_plain)]
+    default_gat = None
+    for mode, g in (("GATConv", g_gat), ("GCNConv", g_gcn),
+                    ("GATConv fused", g_gat)):
+        layer = mode.split()[0]
         gd = g.to(device)
         model = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
                           dropout_rate=0.0)
@@ -490,29 +757,40 @@ def phase_gradients(device, g_gat, g_gcn) -> None:
             return loss.detach(), {k: p.grad.detach().clone()
                                    for k, p in model.named_parameters()}
 
-        reset_counts()
-        loss_k, grads_k = step()
-        expect(read_counts(), STEP[layer], f"{layer} train step")
-        reset_counts()
-        for patch in plain:
-            patch.start()
-        try:
-            loss_p, grads_p = step()
-        finally:
+        with switches(MODE_ENV[mode]):
+            reset_counts()
+            loss_k, grads_k = step()
+            expect(read_counts(), STEP[mode], f"{mode} train step")
+            reset_counts()
             for patch in plain:
-                patch.stop()
-        expect(read_counts(), {}, f"{layer} train step, plain versions")
-        compare(f"{layer} loss kernels vs plain", loss_k.reshape(1),
+                patch.start()
+            try:
+                loss_p, grads_p = step()
+            finally:
+                for patch in plain:
+                    patch.stop()
+        expect(read_counts(), {}, f"{mode} train step, plain versions")
+        compare(f"{mode} loss kernels vs plain", loss_k.reshape(1),
                 loss_p.reshape(1))
         for k in grads_p:
-            compare(f"{layer} grad {k}", grads_k[k], grads_p[k])
+            compare(f"{mode} grad {k}", grads_k[k], grads_p[k])
+        if mode == "GATConv":
+            default_gat = (loss_k, grads_k)
+        elif layer == "GATConv":
+            # the same step through the two-stage path (the default)
+            compare(f"{mode} loss vs the default step",
+                    loss_k.reshape(1), default_gat[0].reshape(1))
+            for k in grads_k:
+                compare(f"{mode} grad {k} vs the default step", grads_k[k],
+                        default_gat[1][k])
         del model, gd, grads_k, grads_p
         torch.cuda.empty_cache()
 
 
-def run_cli(tmp, argv) -> tuple:
-    """Run the port's CLI from ``tmp`` with every counter at 0 just before;
-    returns (launches, NodeModel forwards, seconds)."""
+def run_cli(tmp, argv, env=None) -> tuple:
+    """Run the port's CLI from ``tmp`` under the switches ``env`` with every
+    counter at 0 just before; returns (launches, NodeModel forwards,
+    seconds)."""
     from fitgnn_tpu_torch.cli.main import main as cli_main
     from fitgnn_tpu_torch.models.models import NodeModel
 
@@ -527,13 +805,14 @@ def run_cli(tmp, argv) -> tuple:
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
-        reset_counts()
-        t0 = time.perf_counter()
-        rc = cli_main([*argv, "--dataset", "bench", "--data_root",
-                       os.path.join(tmp, "dataset"), "--experiment",
-                       "random", "--device", "cuda"])
-        torch.cuda.synchronize()
-        launches, wall = read_counts(), time.perf_counter() - t0
+        with switches(env or {}):
+            reset_counts()
+            t0 = time.perf_counter()
+            rc = cli_main([*argv, "--dataset", "bench", "--data_root",
+                           os.path.join(tmp, "dataset"), "--experiment",
+                           "random", "--device", "cuda"])
+            torch.cuda.synchronize()
+            launches, wall = read_counts(), time.perf_counter() - t0
     finally:
         os.chdir(cwd)
         hook.remove()
@@ -550,25 +829,28 @@ def expect(launches: dict, want: dict, what: str) -> None:
 
 def phase_train(tmp) -> dict:
     """``train --baseline`` through the CLI: GAT 512 (3 epochs), GCN 512 (2
-    epochs), GAT 64 (1 epoch, K3w).  Per epoch one train step and one val
+    epochs), GAT 64 (1 epoch, K3w), GAT 512 under ``FUSED`` (2 epochs) and
+    ``FUSED_EXACT`` (1 epoch).  Per epoch one train step and one val
     forward; per run a warm-up and a timed test forward."""
     from fitgnn_tpu_torch.utils.results import TRAIN_NODE_CLS_HEADER
 
     phases = {}
     runs = (("gat512", "GATConv", HIDDEN, 3),
             ("gcn512", "GCNConv", HIDDEN, 2),
-            ("gat64", "GATConv", 64, 1))
-    for out_dir, layer, hidden, epochs in runs:
+            ("gat64", "GATConv", 64, 1),
+            ("gat512fused", "GATConv fused", HIDDEN, 2),
+            ("gat512exact", "GATConv fused exact", HIDDEN, 1))
+    for out_dir, mode, hidden, epochs in runs:
         launches, _, wall = run_cli(tmp, [
-            "train", "--baseline", "--layer_name", layer, "--hidden",
-            str(hidden), "--runs", "1", "--epochs1", str(epochs),
-            "--output_dir", out_dir])
+            "train", "--baseline", "--layer_name", mode.split()[0],
+            "--hidden", str(hidden), "--runs", "1", "--epochs1",
+            str(epochs), "--output_dir", out_dir], MODE_ENV[mode])
         print(f"train {out_dir}: {wall:.1f} s")
         if hidden == HIDDEN:
-            want = {k: epochs * (STEP[layer].get(k, 0)
-                                 + EVAL[layer].get(k, 0))
-                    + 2 * EVAL[layer].get(k, 0)
-                    for k in (*STEP[layer], *EVAL[layer])}
+            want = {k: epochs * (STEP[mode].get(k, 0)
+                                 + EVAL[mode].get(k, 0))
+                    + 2 * EVAL[mode].get(k, 0)
+                    for k in (*STEP[mode], *EVAL[mode])}
         else:
             # at hidden 64 layer 0 is 128 → 64, so both layers aggregate
             # transformed (64-wide) features: K4ᵀ twice per step, and the
@@ -595,21 +877,32 @@ def phase_train(tmp) -> dict:
 
 
 def phase_gat_serve(tmp) -> dict:
-    launches, forwards, wall = run_cli(tmp, [
-        "infer-baseline", "--layer_name", "GATConv", "--hidden",
-        str(HIDDEN), "--num_test_samples", "8", "--output_dir", "gat512"])
-    print(f"serve GAT: infer-baseline took {wall:.1f} s, {forwards} forwards")
-    check(forwards > 0, "no forward ran")
-    expect(launches, {"K4": 2 * forwards}, "serve GAT")
-    with open(os.path.join(tmp, "inference_results", "node_cls.csv")) as f:
-        lines = f.read().splitlines()
-    row = dict(zip(lines[0].split(","), lines[-1].split(",")))
-    check(row["layer_name"] == "GATConv"
-          and float(row["avg_inf_time_device"]) > 0,
-          f"bad GAT serve row {lines[-1]}")
-    print(f"GAT avg_inf_time={row['avg_inf_time']} avg_inf_time_device="
-          f"{row['avg_inf_time_device']} acc={row['acc']}")
-    return {"serve gat512": launches}
+    """``infer-baseline`` for GAT 512 from the default run's checkpoint, then
+    under ``FUSED_TILES=1`` from the fused run's."""
+    phases = {}
+    for out_dir, mode in (("gat512", "GATConv"),
+                          ("gat512fused", "GATConv fused tiles")):
+        launches, forwards, wall = run_cli(tmp, [
+            "infer-baseline", "--layer_name", "GATConv", "--hidden",
+            str(HIDDEN), "--num_test_samples", "8", "--output_dir", out_dir],
+            MODE_ENV[mode])
+        print(f"serve {out_dir}: infer-baseline took {wall:.1f} s, "
+              f"{forwards} forwards")
+        check(forwards > 0, "no forward ran")
+        expect(launches, {k: v * forwards for k, v in EVAL[mode].items()},
+               f"serve {out_dir}")
+        with open(os.path.join(tmp, "inference_results",
+                               "node_cls.csv")) as f:
+            lines = f.read().splitlines()
+        row = dict(zip(lines[0].split(","), lines[-1].split(",")))
+        check(row["layer_name"] == "GATConv"
+              and float(row["avg_inf_time_device"]) > 0,
+              f"bad GAT serve row {lines[-1]}")
+        print(f"{out_dir} avg_inf_time={row['avg_inf_time']} "
+              f"avg_inf_time_device={row['avg_inf_time_device']} "
+              f"acc={row['acc']}")
+        phases[f"serve {out_dir}"] = launches
+    return phases
 
 
 def phase_serve(device, tmp, g) -> tuple:
@@ -670,6 +963,13 @@ def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     beside it."""
     top = max(per_shape, key=lambda s: s["bound_ms"])
     libs = [s["library_ms"] for s in per_shape]
+    extra = {}
+    if "two_stage_label" in top:
+        twos = [s["two_stage_ms"] for s in per_shape]
+        extra = {"two_stage_ms": None if None in twos else sum(twos),
+                 "two_stage_label": top["two_stage_label"]}
+    if "library_label" in top:
+        extra["library_label"] = top["library_label"]
     return {
         "name": name, "route": route, "source": source,
         "replaces": replaces, "status": "ok",
@@ -680,6 +980,7 @@ def summarize(name, route, source, replaces, launches, per_shape) -> dict:
         "bound_ms": sum(s["bound_ms"] for s in per_shape),
         "bound_by": top["bound_by"],
         "library_ms": None if None in libs else sum(libs),
+        **extra,
         "per_shape": per_shape,
     }
 
@@ -701,6 +1002,20 @@ KERNELS = (
     ("K3w", "K3w segmm_weighted_raw (segmm_weighted_spmm)",
      "fitgnn_tpu_torch/csrc/coo_segmm.cu",
      "fitgnn_tpu/ops/pallas/coo_segmm.py:370"),
+    ("K6", "K6 segmm_weighted_den_raw (segmm_weighted_spmm_den)",
+     "fitgnn_tpu_torch/csrc/coo_segmm.cu",
+     "fitgnn_tpu/ops/pallas/coo_segmm.py:236"),
+    ("K7rm", "K7 att_rowmax", "fitgnn_tpu_torch/csrc/att_bsr.cu",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:78"),
+    ("K7f", "K7 att_fwd (att_tiles forward)",
+     "fitgnn_tpu_torch/csrc/att_bsr.cu",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:125"),
+    ("K7bt", "K7 att_bwd_t (att_tiles dx and dssrc: two launches)",
+     "fitgnn_tpu_torch/csrc/att_bsr.cu",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:185"),
+    ("K7bf", "K7 att_bwd_f (att_tiles dsdst)",
+     "fitgnn_tpu_torch/csrc/att_bsr.cu",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:267"),
 )
 
 
@@ -735,6 +1050,8 @@ def main() -> int:
         g, _, shapes = phase_kernels(device, ds)
         g_gat, gat_shapes = phase_gat_kernels(device, ds, g)
         shapes.update(gat_shapes)
+        for k, v in phase_fused_kernels(device, g_gat).items():
+            shapes.setdefault(k, []).extend(v)
         phase_gradients(device, g_gat, g)
         phases = phase_train(tmp)
         phases.update(phase_gat_serve(tmp))

@@ -26,6 +26,16 @@
 // runtime per-edge weights w_edge * static_weight passed as `weights`, for
 // the forward on the receiver CSR and for dx on the transpose CSR; it has
 // no source of its own.
+//
+// K6, fitgnn_segmm_spmm_den (segmm_weighted_spmm_den: GAT's straggler
+// numerator and softmax denominator in one pass) replaces the TPU kernel
+// fitgnn_tpu/ops/pallas/coo_segmm.py:_kernel_den (grid built by
+// _segmm_scatter_den).  The TPU gets den as the selector's row sums; here
+// it is K3's kernel with a second output: each lane also sums the weights
+// of the edges it reads, and the chunk-0 warp of a row reduces them with
+// shuffles and writes den[r] (f32, every row, 0 where a row has no edge).
+// The extra cost is one add an edge and one 4-byte store a row, so K6 is
+// bound like K3: memory.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -35,12 +45,14 @@ namespace {
 constexpr int WARPS = 8;                      // warps a CTA
 constexpr int CHUNK = 128;                    // feature columns a warp
 
+template <bool DEN>
 __global__ void __launch_bounds__(WARPS * 32)
 segmm_spmm_kernel(const int32_t* __restrict__ row_ptr,
                   const int32_t* __restrict__ senders,
                   const float* __restrict__ weights,
                   const float* __restrict__ x, float* __restrict__ out,
-                  int64_t num_rows, int64_t feat, int64_t chunks, bool vec) {
+                  float* __restrict__ den, int64_t num_rows, int64_t feat,
+                  int64_t chunks, bool vec) {
   const int lane = threadIdx.x & 31;
   const int64_t warp = static_cast<int64_t>(blockIdx.x) * WARPS +
                        (threadIdx.x >> 5);
@@ -49,6 +61,7 @@ segmm_spmm_kernel(const int32_t* __restrict__ row_ptr,
   const int64_t c0 = (warp % chunks) * CHUNK + lane * 4;
 
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float wsum = 0.f;                           // K6: this lane's edges
   const int lo = row_ptr[r];
   const int hi = row_ptr[r + 1];
   for (int base = lo; base < hi; base += 32) {
@@ -59,6 +72,7 @@ segmm_spmm_kernel(const int32_t* __restrict__ row_ptr,
       s = senders[e];
       w = weights[e];
     }
+    if (DEN) wsum += w;
     const int n = min(32, hi - base);
     for (int j = 0; j < n; ++j) {
       const int sj = __shfl_sync(0xffffffffu, s, j);
@@ -81,6 +95,14 @@ segmm_spmm_kernel(const int32_t* __restrict__ row_ptr,
     }
   }
 
+  if (DEN && warp % chunks == 0) {             // uniform across the warp
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      wsum += __shfl_xor_sync(0xffffffffu, wsum, off);
+    }
+    if (lane == 0) den[r] = wsum;
+  }
+
   float* o = out + r * feat;
   if (vec) {
     if (c0 < feat) {
@@ -95,6 +117,34 @@ segmm_spmm_kernel(const int32_t* __restrict__ row_ptr,
   }
 }
 
+int launch(const void* row_ptr, const void* senders, const void* weights,
+           const void* x, void* out, void* den, int64_t num_rows,
+           int64_t feat, void* stream) {
+  if (num_rows > 0 && feat > 0) {
+    const int64_t chunks = (feat + CHUNK - 1) / CHUNK;
+    const int64_t warps = num_rows * chunks;
+    const bool vec = feat % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    const unsigned grid = static_cast<unsigned>((warps + WARPS - 1) / WARPS);
+    const auto st = static_cast<cudaStream_t>(stream);
+    const auto* rp = static_cast<const int32_t*>(row_ptr);
+    const auto* sp = static_cast<const int32_t*>(senders);
+    const auto* wp = static_cast<const float*>(weights);
+    const auto* xp = static_cast<const float*>(x);
+    auto* op = static_cast<float*>(out);
+    if (den != nullptr) {
+      segmm_spmm_kernel<true><<<grid, WARPS * 32, 0, st>>>(
+          rp, sp, wp, xp, op, static_cast<float*>(den), num_rows, feat,
+          chunks, vec);
+    } else {
+      segmm_spmm_kernel<false><<<grid, WARPS * 32, 0, st>>>(
+          rp, sp, wp, xp, op, nullptr, num_rows, feat, chunks, vec);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // row_ptr (num_rows+1,) int32; senders, weights (E,) int32 / f32 in
@@ -104,19 +154,16 @@ extern "C" int fitgnn_segmm_spmm(const void* row_ptr, const void* senders,
                                  const void* weights, const void* x,
                                  void* out, int64_t num_rows, int64_t feat,
                                  void* stream) {
-  if (num_rows > 0 && feat > 0) {
-    const int64_t chunks = (feat + CHUNK - 1) / CHUNK;
-    const int64_t warps = num_rows * chunks;
-    const bool vec = feat % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
-    const unsigned grid = static_cast<unsigned>((warps + WARPS - 1) / WARPS);
-    segmm_spmm_kernel<<<grid, WARPS * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(row_ptr),
-        static_cast<const int32_t*>(senders),
-        static_cast<const float*>(weights), static_cast<const float*>(x),
-        static_cast<float*>(out), num_rows, feat, chunks, vec);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch(row_ptr, senders, weights, x, out, nullptr, num_rows, feat,
+                stream);
+}
+
+// K6: as fitgnn_segmm_spmm, and den (num_rows,) f32 gets each row's weight
+// sum.  feat must be positive (den is written by the feature chunks' warps).
+extern "C" int fitgnn_segmm_spmm_den(const void* row_ptr, const void* senders,
+                                     const void* weights, const void* x,
+                                     void* out, void* den, int64_t num_rows,
+                                     int64_t feat, void* stream) {
+  return launch(row_ptr, senders, weights, x, out, den, num_rows, feat,
+                stream);
 }

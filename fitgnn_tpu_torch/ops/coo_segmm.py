@@ -24,8 +24,17 @@ forward and ``dx`` run K3's kernel (its C entry takes the weight pointer
 as it is, so K3w needs no kernel source of its own); ``dw`` is the
 per-edge dot ``⟨g[r_e], x[s_e]⟩`` in plain PyTorch.
 
-``segmm_spmm.launches`` and ``segmm_weighted_raw.launches`` count kernel
-launches with static and with runtime weights.
+K6, ``segmm_weighted_spmm_den``, returns the softmax denominator beside
+the numerator, ``den[r] = Σ_e w_edge[e]``, from one pass, as the JAX
+package's ``segmm_weighted_spmm_den``: its forward is K3's kernel with a
+second output (``segmm_weighted_den_raw``); ``dx`` runs K3w's launch on the
+transpose CSR and ``dw_e = ⟨g_num[r_e], x[s_e]⟩ + g_den[r_e]`` is plain
+PyTorch.  The TPU's ``first_slot`` map (its saved gather is in padded slot
+order) has no counterpart: this CSR is in edge order.
+
+``segmm_spmm.launches``, ``segmm_weighted_raw.launches`` and
+``segmm_weighted_den_raw.launches`` count kernel launches with static
+weights, runtime weights, and runtime weights with the denominator.
 """
 
 from __future__ import annotations
@@ -71,23 +80,29 @@ def build_segmm(senders: np.ndarray, receivers: np.ndarray,
         num_nodes=num_nodes_padded)
 
 
+def _receivers(m: SegCsr) -> torch.Tensor:
+    """The receiver of every edge, as ``row_ptr`` spells it out."""
+    return torch.repeat_interleave(
+        torch.arange(m.num_nodes, device=m.row_ptr.device),
+        m.row_ptr.diff(), output_size=m.senders.shape[0])
+
+
 def segmm_spmm_plain(m: SegCsr, x: torch.Tensor,
                      weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch straggler aggregation: gather, scale by ``weights``
-    (``m.weights`` when None), ``index_add_`` onto the receivers that
-    ``row_ptr`` spells out."""
+    (``m.weights`` when None), ``index_add_`` onto the receivers."""
     w = m.weights if weights is None else weights
-    receivers = torch.repeat_interleave(
-        torch.arange(m.num_nodes, device=m.row_ptr.device),
-        m.row_ptr.diff(), output_size=m.senders.shape[0])
     y = x.index_select(0, m.senders.long()) * w[:, None].to(x.dtype)
     out = torch.zeros((m.num_nodes, x.shape[1]), dtype=x.dtype,
                       device=x.device)
-    return out.index_add_(0, receivers, y)
+    return out.index_add_(0, _receivers(m), y)
 
 
 # row_ptr, senders, weights, x, out, num_rows, feat, stream
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
+# row_ptr, senders, weights, x, out, den, num_rows, feat, stream
+_DEN_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
+                 + [ctypes.c_void_p])
 
 
 def _check_x(what: str, m: SegCsr, x: torch.Tensor) -> None:
@@ -96,9 +111,10 @@ def _check_x(what: str, m: SegCsr, x: torch.Tensor) -> None:
                          f"({m.num_nodes}, F)")
 
 
-def _launch(what: str, m: SegCsr, weights: torch.Tensor,
-            x: torch.Tensor) -> torch.Tensor:
-    """K3's kernel over ``m``'s CSR with per-edge ``weights``."""
+def _launch(what: str, m: SegCsr, weights: torch.Tensor, x: torch.Tensor,
+            den: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3's kernel over ``m``'s CSR with per-edge ``weights``; with ``den``
+    ((num_nodes,) f32) the K6 entry, which also writes the weight sums."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     dev = x.device
@@ -110,12 +126,19 @@ def _launch(what: str, m: SegCsr, weights: torch.Tensor,
         raise ValueError(f"{what}: {weights.shape[0]} weights for "
                          f"{m.senders.shape[0]} edges")
     out = torch.empty_like(x)
-    launch = kernels.function("coo_segmm", "fitgnn_segmm_spmm", _ARGTYPES)
+    args = [kernels.ptr(m.row_ptr), kernels.ptr(m.senders),
+            kernels.ptr(weights), kernels.ptr(x), kernels.ptr(out)]
+    if den is None:
+        launch = kernels.function("coo_segmm", "fitgnn_segmm_spmm",
+                                  _ARGTYPES)
+    else:
+        if x.shape[1] == 0:
+            raise ValueError(f"{what}: F=0 leaves den unwritten")
+        launch = kernels.function("coo_segmm", "fitgnn_segmm_spmm_den",
+                                  _DEN_ARGTYPES)
+        args.append(kernels.ptr(den))
     with torch.cuda.device(dev):
-        rc = launch(
-            kernels.ptr(m.row_ptr), kernels.ptr(m.senders),
-            kernels.ptr(weights), kernels.ptr(x), kernels.ptr(out),
-            m.num_nodes, x.shape[1], kernels.stream(dev))
+        rc = launch(*args, m.num_nodes, x.shape[1], kernels.stream(dev))
     kernels.check(rc, what)
     return out
 
@@ -194,3 +217,75 @@ def segmm_weighted_spmm(m: SegCsr, mt: SegCsr, senders: torch.Tensor,
     ``mt``; ``dw[e] = ⟨g[r_e], x[s_e]⟩``."""
     return _SegmmWeighted.apply(m, mt, senders, receivers, t_edge_perm,
                                 w_edge.contiguous(), x.contiguous())
+
+
+def segmm_weighted_den_raw_plain(m: SegCsr, w_edge: torch.Tensor,
+                                 x: torch.Tensor) -> tuple:
+    """Plain PyTorch K6 forward (``segmm_weighted_den_raw``'s CPU path)."""
+    w = w_edge.to(m.weights.dtype) * m.weights
+    den = torch.zeros(m.num_nodes, dtype=torch.float32, device=x.device)
+    return (segmm_spmm_plain(m, x, w),
+            den.index_add_(0, _receivers(m), w.float()))
+
+
+def segmm_weighted_den_raw(m: SegCsr, w_edge: torch.Tensor,
+                           x: torch.Tensor) -> tuple:
+    """K6 forward, ``(num, den)`` with ``num[r] = Σ_e w_e·x[s_e]`` and
+    ``den[r] = Σ_e w_e`` (f32), ``w_e = w_edge[e]·m.weights[e]`` in ``m``'s
+    edge order: the CUDA kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    _check_x("segmm_weighted_den_raw", m, x)
+    if x.device.type == "cpu":
+        return segmm_weighted_den_raw_plain(m, w_edge, x)
+    weights = (w_edge.to(m.weights.dtype) * m.weights).contiguous()
+    den = torch.empty(m.num_nodes, dtype=torch.float32, device=x.device)
+    num = _launch("segmm_weighted_den_raw", m, weights, x, den)
+    segmm_weighted_den_raw.launches += 1
+    return num, den
+
+
+segmm_weighted_den_raw.launches = 0
+
+
+class _SegmmWeightedDen(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, m, mt, receivers, t_edge_perm, w_edge, x):
+        ctx.m, ctx.mt = m, mt
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(receivers, t_edge_perm, w_edge, x)
+        return segmm_weighted_den_raw(m, w_edge, x)
+
+    @staticmethod
+    def backward(ctx, g_num, g_den):
+        receivers, t_edge_perm, w_edge, x = ctx.saved_tensors
+        dw = dx = None
+        if g_num is not None and ctx.needs_input_grad[5]:
+            dx = segmm_weighted_raw(ctx.mt, w_edge[t_edge_perm.long()],
+                                    g_num.contiguous())
+        if ctx.needs_input_grad[4]:
+            r = receivers.long()
+            dw = torch.zeros(w_edge.shape, dtype=torch.float32,
+                             device=w_edge.device)
+            if g_num is not None:
+                dw = dw + (g_num.index_select(0, r).float()
+                           * x.index_select(0, ctx.m.senders.long()).float()
+                           ).sum(-1)
+            if g_den is not None:
+                dw = dw + g_den.index_select(0, r).float()
+            dw = dw.to(w_edge.dtype)
+        return None, None, None, None, dw, dx
+
+
+def segmm_weighted_spmm_den(m: SegCsr, mt: SegCsr, receivers: torch.Tensor,
+                            t_edge_perm: torch.Tensor, w_edge: torch.Tensor,
+                            x: torch.Tensor) -> tuple:
+    """K6: ``(num, den)``, the GAT straggler numerator and softmax
+    denominator in one pass, differentiable in ``w_edge`` and ``x``.
+
+    ``m``/``mt`` are the forward/transpose CSRs; ``receivers`` and
+    ``w_edge`` are in the forward (receiver-sorted) order that ``m`` walks;
+    ``t_edge_perm[i]`` is the forward position of transpose entry ``i``.
+    ``dx`` runs K3w's launch on ``mt``; ``dw_e = ⟨g_num[r_e], x[s_e]⟩ +
+    g_den[r_e]``."""
+    return _SegmmWeightedDen.apply(m, mt, receivers, t_edge_perm,
+                                   w_edge.contiguous(), x.contiguous())

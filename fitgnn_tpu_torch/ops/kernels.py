@@ -47,7 +47,7 @@ def _target(name: str) -> Target:
 # one library per source; ``build(TARGETS)`` compiles the stale ones in
 # parallel, one nvcc each
 TARGETS = tuple(_target(n) for n in (
-    "bsr_spmm", "coo_segmm", "bsr_dynamic"))
+    "bsr_spmm", "coo_segmm", "bsr_dynamic", "att_bsr"))
 
 
 def function(lib: str, name: str, argtypes: list):

@@ -5,15 +5,17 @@
 
 Builds the bench graph of ``chip_smoke.py`` (169,344 nodes, 128 features,
 40 classes, seed 0) through the port's ``build_optimized_graph`` for GCN
-and for GAT, and for each puts the seed-0 ``NodeModel`` (2 layers, hidden
-512, f32, dropout 0.5 from a seeded generator) with ``adam_l2(0.01, 5e-4)``
-on the card.  For each it prints:
+and for GAT, and puts the seed-0 ``NodeModel`` (2 layers, hidden 512, f32,
+dropout 0.5 from a seeded generator) with ``adam_l2(0.01, 5e-4)`` on the
+card: GAT on its default path, under ``FITGNN_GAT_FUSED_TILES=1`` (K7) and
+under ``FITGNN_GAT_FUSED_TILES=1 FITGNN_GAT_SEGMM_DEN=1`` (K7 and K6), then
+GCN.  For each it prints:
 
 * the step's time (``gc_train_step``: forward, masked NLL, backward, Adam)
   from CUDA events over 10 steps after 3 warm-ups;
 * a ``torch.profiler`` table of device time per kernel over 5 steps,
-  grouped into the port's kernels (K1, K3, K4, K4ᵀ, K5), the dense layers
-  (cuBLAS), the optimizer and the rest;
+  grouped into the port's kernels (K1, K3, K4, K4ᵀ, K5, K6, K7), the dense
+  layers (cuBLAS), the optimizer and the rest;
 * the device's idle share over the profiled window: 1 - (summed kernel
   time) / (window time on the host clock, ended by a synchronize).
 """
@@ -31,7 +33,8 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import HIDDEN, NUM_CLASSES, NUM_FEATURES, make_graph  # noqa
+from chip_smoke import (FUSED, FUSED_ONLY, HIDDEN, NUM_CLASSES,  # noqa
+                        NUM_FEATURES, make_graph, switches)
 
 PROFILED = 5
 
@@ -44,6 +47,18 @@ def _device_us(evt) -> float:
 
 
 def _group(name: str) -> str:
+    if "att_rowmax_kernel" in name:
+        return "K7rm att_rowmax"
+    if "att_walk_kernel<false>" in name:
+        return "K7f att_fwd"
+    if "att_walk_kernel<true>" in name:
+        return "K7bt att_bwd_t (dx)"
+    if "att_reduce_kernel<true>" in name:
+        return "K7bt att_bwd_t (dssrc)"
+    if "att_reduce_kernel<false>" in name:
+        return "K7bf att_bwd_f"
+    if "segmm_spmm_kernel<true>" in name:
+        return "K6 segmm_weighted_den_raw"
     if "bsr_spmm_acc" in name:
         return "K1 bsr_spmm_acc"
     if "segmm_spmm" in name:
@@ -64,14 +79,10 @@ def _group(name: str) -> str:
     return "elementwise, reductions, dropout, copies"
 
 
-def profile_step(layer: str, x, s, r, y, train, dev) -> dict:
-    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+def profile_step(layer: str, g, dev) -> dict:
     from fitgnn_tpu_torch.models.models import NodeModel
     from fitgnn_tpu_torch.train import steps
 
-    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
-                                 layer_name=layer, seed=0)
-    g = g.to(dev)
     model = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES)
     model = model.reset_parameters(torch.Generator().manual_seed(0)).to(dev)
     opt = steps.adam_l2(model.parameters(), 0.01, 5e-4)
@@ -112,7 +123,9 @@ def profile_step(layer: str, x, s, r, y, train, dev) -> dict:
         k = _group(evt.key)
         groups[k] = groups.get(k, 0.0) + us / 1e3 / PROFILED
     rows.sort(reverse=True)
-    print(f"{layer}: step (CUDA events, 10 steps): {step_ms:.4f} ms")
+    print(f"{layer} {os.environ.get('FITGNN_GAT_FUSED_TILES', '0')}"
+          f"{os.environ.get('FITGNN_GAT_SEGMM_DEN', '0')}: step (CUDA "
+          f"events, 10 steps): {step_ms:.4f} ms")
     print("device time per step by kernel (profiler):")
     for us, count, key in rows[:25]:
         print(f"  {us / 1e3 / PROFILED:9.4f} ms  x{count / PROFILED:5.1f}  "
@@ -133,6 +146,7 @@ def main() -> int:
         print("needs a GPU", file=sys.stderr)
         return 1
     import subprocess
+    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
     from fitgnn_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cuda")
@@ -140,9 +154,17 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     x, s, r, y, train = make_graph()
-    for layer in ("GATConv", "GCNConv"):
-        print(json.dumps(profile_step(layer, x, s, r, y, train, dev)))
-        torch.cuda.empty_cache()
+    for layer, envs in (("GATConv", ({}, FUSED_ONLY, FUSED)),
+                        ("GCNConv", ({},))):
+        g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                     layer_name=layer, seed=0)
+        g = g.to(dev)
+        for env in envs:
+            with switches(env):
+                out = profile_step(layer, g, dev)
+            print(json.dumps({"switches": env, **out}))
+            torch.cuda.empty_cache()
+        del g
     return 0
 
 

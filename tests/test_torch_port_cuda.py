@@ -13,6 +13,7 @@ import torch
 
 from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
 from fitgnn_tpu_torch.models.models import NodeModel
+from fitgnn_tpu_torch.ops import att_bsr
 from fitgnn_tpu_torch.ops.bsr_dynamic import (build_dyn_plan, dyn_grad_blocks,
                                               dyn_grad_blocks_plain,
                                               dyn_tiles, dyn_tiles_plain,
@@ -21,6 +22,8 @@ from fitgnn_tpu_torch.ops.bsr_spmm import (build_bsr, bsr_spmm_acc,
                                            bsr_spmm_acc_plain)
 from fitgnn_tpu_torch.ops.coo_segmm import (build_segmm, segmm_spmm,
                                             segmm_spmm_plain,
+                                            segmm_weighted_den_raw,
+                                            segmm_weighted_den_raw_plain,
                                             segmm_weighted_raw)
 from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid, hybrid_spmm
 from fitgnn_tpu_torch.train.losses import masked_nll
@@ -172,6 +175,84 @@ def test_k3w_kernel_matches_plain(cuda, feat):
     _close(got, ref)
 
 
+@pytest.mark.parametrize("feat", [40, 101, 128, 512])
+def test_k6_kernel_matches_plain(cuda, feat):
+    rng = np.random.default_rng(feat + 4)
+    n = 1024
+    s, r, w = _coo(rng, n, 3_000, internal=0.0)
+    w[::17] = 0.0                                # inert (padding-like) edges
+    keep = (r // 128) != 3          # an empty block: rows written as 0
+    m = build_segmm(s[keep], r[keep], w[keep], n).to(cuda)
+    w_edge = torch.from_numpy(rng.random(int(keep.sum())).astype(
+        np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, feat)).astype(
+        np.float32)).to(cuda)
+    before = segmm_weighted_den_raw.launches
+    with torch.inference_mode():
+        got = segmm_weighted_den_raw(m, w_edge, x)
+        ref = segmm_weighted_den_raw_plain(m, w_edge, x)
+    torch.cuda.synchronize()
+    assert segmm_weighted_den_raw.launches == before + 1
+    for a, b in zip(got, ref):
+        _close(a, b)
+        assert not a[3 * 128:4 * 128].any()
+
+
+def _att_inputs(rng, feat, dev):
+    """K7's operands on ``_tiles``' tile list (a transpose filler at block
+    column 2): sparse presence tiles where nodes 0-9 have no entry, scores,
+    the exact row max as the stabilizer (−1e30 for nodes 0-9), features
+    and cotangents."""
+    rows, cols, nb = _tiles(rng)
+    blocks = (rng.random((len(rows), 128, 128)) < 0.05).astype(np.float32)
+    blocks[rows == 0, :10, :] = 0.0
+    n = nb * 128
+
+    def dev_(a):
+        return torch.from_numpy(np.asarray(a)).to(dev)
+
+    d = dict(rows=dev_(rows), cols=dev_(cols), blocks=dev_(blocks),
+             ssrc=dev_(rng.standard_normal(n).astype(np.float32)),
+             sdst=dev_(rng.standard_normal(n).astype(np.float32)),
+             x=dev_(rng.standard_normal((n, feat)).astype(np.float32)),
+             g=dev_(rng.standard_normal((n, feat)).astype(np.float32)),
+             dden=dev_(rng.standard_normal(n).astype(np.float32)))
+    plan = build_dyn_plan(rows, cols, nb).to(dev)
+    d["m"] = att_bsr.att_rowmax_plain(d["rows"], d["cols"], plan,
+                                      d["blocks"], d["ssrc"], d["sdst"], 0.2)
+    return plan, d
+
+
+@pytest.mark.parametrize("feat", [16, 101, 128, 512])
+def test_k7_kernels_match_plain(cuda, feat):
+    rng = np.random.default_rng(feat + 5)
+    plan, d = _att_inputs(rng, feat, cuda)
+    fwd = (d["rows"], d["cols"], plan, d["blocks"], d["ssrc"], d["sdst"])
+    bwd = (plan, d["blocks"], d["ssrc"], d["sdst"], d["m"], d["g"], d["x"],
+           d["dden"], 0.2)
+    before = [f.launches for f in (att_bsr.att_rowmax, att_bsr.att_fwd,
+                                   att_bsr.att_bwd_t, att_bsr.att_bwd_f)]
+    with torch.inference_mode():
+        rm = att_bsr.att_rowmax(*fwd, 0.2)
+        num, den = att_bsr.att_fwd(*fwd, d["m"], d["x"], 0.2)
+        dx, dssrc = att_bsr.att_bwd_t(*bwd)
+        none, dssrc1 = att_bsr.att_bwd_t(*bwd, need_dx=False)
+        dsdst = att_bsr.att_bwd_f(d["rows"], d["cols"], *bwd)
+        num_p, den_p = att_bsr.att_fwd_plain(*fwd, d["m"], d["x"], 0.2)
+        dx_p, dssrc_p = att_bsr.att_bwd_t_plain(*bwd)
+        dsdst_p = att_bsr.att_bwd_f_plain(d["rows"], d["cols"], *bwd)
+    torch.cuda.synchronize()
+    after = [f.launches for f in (att_bsr.att_rowmax, att_bsr.att_fwd,
+                                  att_bsr.att_bwd_t, att_bsr.att_bwd_f)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 3, 1]
+    assert torch.equal(rm, d["m"])               # the same f32 operations
+    assert (rm[:10] == -1e30).all() and none is None
+    for got, ref in ((num, num_p), (den, den_p), (dx, dx_p),
+                     (dssrc, dssrc_p), (dssrc1, dssrc_p), (dsdst, dsdst_p)):
+        _close(got, ref)
+    assert not num[:10].any() and not dx[2 * 128:3 * 128].any()
+
+
 def _grads(model, g, y, mask):
     model.zero_grad(set_to_none=True)
     loss = masked_nll(model(g.x, g), y, mask)
@@ -203,6 +284,37 @@ def test_training_gradients_on_card_match_cpu(cuda, layer, hidden):
     gd = g.to(cuda)
     loss_d, grads_d = _grads(model.to(cuda), gd, gd.y, gd.train_mask)
     torch.cuda.synchronize()
+    _close(loss_d, loss_c)
+    for k, v in grads_c.items():
+        _close(grads_d[k], v)
+
+
+@pytest.mark.parametrize("env", [
+    {"FITGNN_GAT_FUSED_TILES": "1", "FITGNN_GAT_SEGMM_DEN": "1"},
+    {"FITGNN_GAT_FUSED_TILES": "1", "FITGNN_GAT_GLOBAL_MAX": "0"}])
+def test_fused_gat_gradients_on_card_match_cpu(cuda, monkeypatch, env):
+    """One GAT training step at hidden 256 through K7 (and K6, or K7's row
+    max) on the card against the plain versions on the CPU."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    rng = np.random.default_rng(10)
+    n, feat = 1500, 128
+    r = rng.integers(0, n, 15_000)
+    s = np.where(rng.random(15_000) < 0.85,
+                 np.minimum((r // 128) * 128 + rng.integers(0, 128, 15_000),
+                            n - 1), rng.integers(0, n, 15_000))
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    y = rng.integers(0, 5, n)
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=rng.random(n) < .5,
+                                 min_block_edges=48, layer_name="GATConv")
+    model = NodeModel("GATConv", feat, 256, 2, 5, dropout_rate=0.0)
+    model.reset_parameters(torch.Generator().manual_seed(0)).train()
+    loss_c, grads_c = _grads(model, g, g.y, g.train_mask)
+    gd = g.to(cuda)
+    before = att_bsr.att_fwd.launches
+    loss_d, grads_d = _grads(model.to(cuda), gd, gd.y, gd.train_mask)
+    torch.cuda.synchronize()
+    assert att_bsr.att_fwd.launches == before + 2
     _close(loss_d, loss_c)
     for k, v in grads_c.items():
         _close(grads_d[k], v)

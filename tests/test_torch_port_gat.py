@@ -346,9 +346,9 @@ def test_segment_helpers_match_jax():
 
 @pytest.mark.parametrize("env,kwargs", [
     ({}, dict(partials=True)),
-    ({"FITGNN_GAT_FUSED_TILES": "1"}, {}),
-    ({"FITGNN_GAT_SEGMM_DEN": "1"}, {}),
-    ({"FITGNN_GAT_GLOBAL_MAX": "0"}, {})])
+    ({"FITGNN_GAT_FUSED_BWD": "1"}, {}),
+    ({"FITGNN_GAT_SORTED_NUM": "1"}, {}),
+    ({"FITGNN_GAT_SORTED_SRC": "1"}, {})])
 def test_unported_tile_gat_options_raise(monkeypatch, env, kwargs):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
