@@ -1,152 +1,358 @@
-// K1: BCSR tile walk with fused init, out = init + sum_k A_k . X[col_k].
+// BCSR tile walks: K1 (out = init + sum_k A_k . X[col_k]), K2 (the same
+// from zero), K9 (from zero on the group-padded layout) and K10 (from zero,
+// the row walk on the filler-free layout).
 //
-// Replaces the TPU kernel fitgnn_tpu/ops/pallas/bsr_spmm.py:_kernel_acc
-// (grid built by _bsr_spmm_fwd_acc, entry bsr_spmm_acc_raw).  There the grid
-// walks the tiles in order and carries each output block in VMEM across
-// grid steps.  Blocks of a CUDA grid run in parallel and in no order, so
-// here one CTA owns one output block-row r and one slice of FT feature
-// columns: it loads init[r] into f32 registers, walks the tiles
-// row_splits[r] .. row_splits[r+1] of that row, stages each tile and the
-// matching X slab through shared memory in KC-deep chunks, accumulates
+// K1 replaces the TPU kernel fitgnn_tpu/ops/pallas/bsr_spmm.py:_kernel_acc
+// (grid built by _bsr_spmm_fwd_acc, entry bsr_spmm_acc_raw), K2 its _kernel
+// (grid _bsr_spmm_fwd, entry bsr_spmm), K9 _make_grouped_kernel (grid
+// _bsr_spmm_fwd_grouped) and K10 _rowwalk_kernel (grid _bsr_spmm_rowwalk).
+// There the grid walks the tiles in order and carries each output block in
+// VMEM across grid steps.  Blocks of a CUDA grid run in parallel and in no
+// order, so here one CTA owns one output block-row r and one slice of FT
+// feature columns: it starts from init[r] (K1) or zero in f32 registers,
+// walks the tiles row_splits[r] .. row_splits[r+1] of that row, accumulates
 // with f32 FMA and stores once.  No atomics: the result is deterministic
-// and every row is written, so the coverage-filler tiles build_bsr appends
-// are harmless zero tiles.
+// and every row is written, so a row without tiles comes out as init or
+// zero (the coverage fillers build_bsr appends are harmless zero tiles).
 //
 // Bound on an H100: memory.  The function needs 2 FLOPs per tile non-zero
-// and feature, a few FLOPs a byte, so reading the tiles, the X slabs and
-// init and writing out bound it.  The bench graph's tiles are ~3% full, so
-// the dense tile product this kernel does costs ~33x the FLOPs the
-// function needs (~37 GFLOP at F=512) and the CUDA cores' f32 rate limits
-// the kernel itself.  The design answers with a register-blocked product
-// (8x4 outputs a thread, 32 FMAs per 3 shared-memory vector loads) and a
-// flat grid whose index is row * slices + slice: the feature slice varies
-// fastest, so the CTAs that reread one tile run together and find it in
-// L2, and the row count is limited only by grid.x (2^31 - 1 CTAs).
-// Tensor cores (TF32 or bf16 wgmma), a sparse walk of the tile non-zeros
-// and TMA-fed pipelining are later work.
+// and feature, a few FLOPs a byte, so reading the tiles, the X slabs (and
+// init) and writing out bound it.  The bench graph's tiles are ~3% full, so
+// the dense tile product these kernels do costs ~33x the FLOPs the function
+// needs and the CUDA cores' f32 rate limits the kernels themselves.  The
+// design answers with a register-blocked product (tile_fma.cuh: 8x4
+// outputs a thread, 32 FMAs per 3 shared-memory vector loads) and a flat
+// grid whose index is row * slices + slice: the feature slice varies
+// fastest, so the CTAs that reread one tile run together and find it in L2,
+// and the row count is limited only by grid.x (2^31 - 1 CTAs).
+//
+// K9: the TPU's group amortises its per-grid-step cost over `group` tiles
+// (one (group, 128, 128) DMA a step); the layout pads every row's run to a
+// multiple of `group` with zero tiles, which K9 reads and multiplies as the
+// TPU does, so it moves more bytes than K2 for the same function.  Each
+// 32-deep stage here holds 32/group columns of every tile of the group, as
+// float4 slots interleaved tile by tile, so one stage and one barrier pair
+// span the whole group and the FMA loop is K1's.
+//
+// K10: the TPU's row walk double-buffers the tile and X DMAs so that tile
+// k+1 arrives while tile k is multiplied, and it needs no coverage fillers.
+// Here the same two-stage pipeline runs on cp.async: a stage holds one
+// whole tile (row-major, rows padded to 132 floats) and its X slab (128 x
+// 64), 98 KB, and the CTA starts tile k+1's copies before it waits for tile
+// k's.  Two stages take 196 KB of dynamic shared memory, one CTA an SM;
+// the copies bypass registers, and the product reads a tile row as float4
+// along k (8 rows x 4 k and 4 X rows a step: 128 FMAs per 12 loads).
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "tile_fma.cuh"
+
 namespace {
 
-constexpr int BLK = 128;                          // tile edge (rows = cols)
-constexpr int FT = 64;                            // feature columns a CTA
-constexpr int KC = 32;                            // tile columns a stage
-constexpr int TM = 8;                             // output rows a thread
-constexpr int TN = 4;                             // output cols a thread
-constexpr int THREADS = (BLK / TM) * (FT / TN);   // 256
+using namespace tile;
 
+// INIT: start from init (K1), else from zero (K2, K9); GROUPED: K9's
+// interleaved staging of `group` tiles
+template <bool INIT, bool GROUPED>
 __global__ void __launch_bounds__(THREADS)
-bsr_spmm_acc_kernel(const float* __restrict__ blocks,
-                    const int32_t* __restrict__ row_splits,
-                    const int32_t* __restrict__ cols,
-                    const float* __restrict__ x,
-                    const float* __restrict__ init,
-                    float* __restrict__ out, int64_t feat,
-                    int64_t slices) {
-  // A chunk stored transposed (As[k][row]) so a thread reads its 8 rows
-  // for one k as two float4; +4 keeps rows 16-byte aligned
-  __shared__ __align__(16) float As[KC][BLK + 4];
-  __shared__ __align__(16) float Xs[KC][FT];
+bsr_walk_kernel(const float* __restrict__ blocks,
+                const int32_t* __restrict__ row_splits,
+                const int32_t* __restrict__ cols,
+                const float* __restrict__ x, const float* __restrict__ init,
+                float* __restrict__ out, int64_t feat, int64_t slices,
+                int group) {
+  __shared__ __align__(16) ATile As;
+  __shared__ __align__(16) XTile Xs;
 
   const int64_t r = static_cast<int64_t>(blockIdx.x) / slices;
   const int64_t f0 = (static_cast<int64_t>(blockIdx.x) % slices) * FT;
   const int tid = threadIdx.x;
-  const int row0 = (tid / (FT / TN)) * TM;
-  const int col0 = (tid % (FT / TN)) * TN;
+  const int row0 = row0_of(tid);
+  const int col0 = col0_of(tid);
 
   float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t base = (r * BLK + row0 + i) * feat;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t c = f0 + col0 + j;
-      acc[i][j] = c < feat ? init[base + c] : 0.f;
-    }
-  }
+  load_acc(acc, INIT ? init : nullptr, r, f0, row0, col0, feat);
 
+  const int g = GROUPED ? group : 1;
   const int lo = row_splits[r];
   const int hi = row_splits[r + 1];
-  for (int k = lo; k < hi; ++k) {
-    const float* a = blocks + static_cast<int64_t>(k) * BLK * BLK;
-    const float* xb = x + static_cast<int64_t>(cols[k]) * BLK * feat;
-    for (int kc = 0; kc < BLK; kc += KC) {
-      // A[:, kc:kc+KC]: 128 rows x 8 float4
-      for (int q = tid; q < BLK * (KC / 4); q += THREADS) {
-        const int row = q / (KC / 4);
-        const int c4 = (q % (KC / 4)) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(
-            a + static_cast<int64_t>(row) * BLK + kc + c4);
-        As[c4 + 0][row] = v.x;
-        As[c4 + 1][row] = v.y;
-        As[c4 + 2][row] = v.z;
-        As[c4 + 3][row] = v.w;
+  for (int k = lo; k < hi; k += g) {
+    // stage s covers the float4 slots f = s*8 .. s*8+7 of the group; slot
+    // f is columns 4*(f / g) .. +3 of tile k + f % g
+    for (int s = 0; s < (BLK / KC) * g; ++s) {
+      if (GROUPED) {
+        for (int q = tid; q < BLK * (KC / 4); q += THREADS) {
+          const int row = q / (KC / 4);
+          const int p = q % (KC / 4);
+          const int f = s * (KC / 4) + p;
+          const float4 v = *reinterpret_cast<const float4*>(
+              blocks + static_cast<int64_t>(k + f % g) * BLK * BLK
+              + static_cast<int64_t>(row) * BLK + (f / g) * 4);
+          As[4 * p + 0][row] = v.x;
+          As[4 * p + 1][row] = v.y;
+          As[4 * p + 2][row] = v.z;
+          As[4 * p + 3][row] = v.w;
+        }
+        for (int q = tid; q < KC * FT; q += THREADS) {
+          const int kk = q / FT;
+          const int c = q % FT;
+          const int f = s * (KC / 4) + kk / 4;
+          const int64_t xr = static_cast<int64_t>(cols[k + f % g]) * BLK
+                             + (f / g) * 4 + kk % 4;
+          const int64_t gc = f0 + c;
+          Xs[kk][c] = gc < feat ? x[xr * feat + gc] : 0.f;
+        }
+      } else {
+        stage_a_cols(As, blocks + static_cast<int64_t>(k) * BLK * BLK,
+                     s * KC, tid);
+        stage_x_rows(Xs, x + (static_cast<int64_t>(cols[k]) * BLK + s * KC)
+                             * feat, f0, feat, tid);
       }
-      // X[kc:kc+KC, f0:f0+FT], coalesced along the feature axis
-      for (int q = tid; q < KC * FT; q += THREADS) {
-        const int kk = q / FT;
+      __syncthreads();
+      fma_chunk(As, Xs, acc, row0, col0);
+      __syncthreads();
+    }
+  }
+  store_acc(acc, out, r, f0, row0, col0, feat);
+}
+
+// --- K10: the row walk on a cp.async two-stage pipeline -------------------
+
+constexpr int RW_LD = BLK + 4;                 // staged tile row stride
+constexpr int RW_A = BLK * RW_LD;              // floats of a staged tile
+constexpr int RW_X = BLK * FT;                 // floats of a staged X slab
+constexpr int RW_SMEM = 2 * (RW_A + RW_X) * static_cast<int>(sizeof(float));
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// VEC: x starts on a 16-byte boundary and feat % 4 == 0, so X rows copy as
+// 16-byte pieces; otherwise 4-byte pieces.  Columns past feat zero-fill.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+bsr_rowwalk_kernel(const float* __restrict__ blocks,
+                   const int32_t* __restrict__ row_splits,
+                   const int32_t* __restrict__ cols,
+                   const float* __restrict__ x, float* __restrict__ out,
+                   int64_t feat, int64_t slices) {
+  extern __shared__ __align__(16) float smem[];
+  const int64_t r = static_cast<int64_t>(blockIdx.x) / slices;
+  const int64_t f0 = (static_cast<int64_t>(blockIdx.x) % slices) * FT;
+  const int tid = threadIdx.x;
+  const int row0 = row0_of(tid);
+  const int col0 = col0_of(tid);
+
+  auto start_copies = [&](int k, int st) {
+    float* as = smem + st * RW_A;
+    float* xs = smem + 2 * RW_A + st * RW_X;
+    const float* a = blocks + static_cast<int64_t>(k) * BLK * BLK;
+    for (int q = tid; q < BLK * BLK / 4; q += THREADS) {
+      const int row = q / (BLK / 4);
+      const int c4 = (q % (BLK / 4)) * 4;
+      cp_async16(as + row * RW_LD + c4, a + row * BLK + c4, 16);
+    }
+    const float* xb = x + static_cast<int64_t>(cols[k]) * BLK * feat;
+    if (VEC) {
+      for (int q = tid; q < BLK * FT / 4; q += THREADS) {
+        const int row = q / (FT / 4);
+        const int c4 = (q % (FT / 4)) * 4;
+        const int64_t gc = f0 + c4;
+        const bool ok = gc < feat;
+        cp_async16(xs + row * FT + c4, ok ? xb + row * feat + gc : x,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int q = tid; q < BLK * FT; q += THREADS) {
+        const int row = q / FT;
         const int c = q % FT;
         const int64_t gc = f0 + c;
-        Xs[kk][c] = gc < feat ? xb[static_cast<int64_t>(kc + kk) * feat + gc]
-                              : 0.f;
+        const bool ok = gc < feat;
+        cp_async4(xs + row * FT + c, ok ? xb + row * feat + gc : x,
+                  ok ? 4 : 0);
       }
-      __syncthreads();
+    }
+  };
+
+  float acc[TM][TN];
+  load_acc(acc, nullptr, r, f0, row0, col0, feat);
+  const int lo = row_splits[r];
+  const int nt = row_splits[r + 1] - lo;
+  if (nt > 0) {
+    start_copies(lo, 0);
+    cp_async_commit();
+  }
+  for (int j = 0; j < nt; ++j) {
+    // stage (j+1)&1 was last read in step j-1, which ended on a barrier
+    if (j + 1 < nt) {
+      start_copies(lo + j + 1, (j + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* as = smem + (j & 1) * RW_A;
+    const float* xs = smem + 2 * RW_A + (j & 1) * RW_X;
+#pragma unroll 2
+    for (int kk = 0; kk < BLK; kk += 4) {
+      float4 a[TM];
 #pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][row0]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][row0 + 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&Xs[kk][col0]);
-        const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[TN] = {b.x, b.y, b.z, b.w};
+      for (int i = 0; i < TM; ++i) {
+        a[i] = *reinterpret_cast<const float4*>(as + (row0 + i) * RW_LD + kk);
+      }
+      float4 b[4];
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
+      for (int t = 0; t < 4; ++t) {
+        b[t] = *reinterpret_cast<const float4*>(xs + (kk + t) * FT + col0);
+      }
 #pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-          }
+      for (int i = 0; i < TM; ++i) {
+        const float av[4] = {a[i].x, a[i].y, a[i].z, a[i].w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          acc[i][0] = fmaf(av[t], b[t].x, acc[i][0]);
+          acc[i][1] = fmaf(av[t], b[t].y, acc[i][1]);
+          acc[i][2] = fmaf(av[t], b[t].z, acc[i][2]);
+          acc[i][3] = fmaf(av[t], b[t].w, acc[i][3]);
         }
       }
-      __syncthreads();
     }
+    __syncthreads();
   }
+  store_acc(acc, out, r, f0, row0, col0, feat);
+}
 
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t base = (r * BLK + row0 + i) * feat;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t c = f0 + col0 + j;
-      if (c < feat) out[base + c] = acc[i][j];
+// the flat grid of a walk: num_row_blocks * ceil(feat / FT) CTAs, or 0 when
+// it would exceed 2^31 - 1
+int64_t walk_ctas(int64_t num_row_blocks, int64_t feat, int64_t* slices) {
+  *slices = (feat + FT - 1) / FT;
+  const int64_t ctas = num_row_blocks * *slices;
+  return ctas > 0x7fffffff ? 0 : ctas;
+}
+
+int launch_walk(const void* blocks, const void* row_splits, const void* cols,
+                const void* x, const void* init, void* out,
+                int64_t num_row_blocks, int64_t feat, int group,
+                void* stream) {
+  if (num_row_blocks > 0 && feat > 0) {
+    int64_t slices;
+    const int64_t ctas = walk_ctas(num_row_blocks, feat, &slices);
+    if (ctas == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto* b = static_cast<const float*>(blocks);
+    const auto* rs = static_cast<const int32_t*>(row_splits);
+    const auto* c = static_cast<const int32_t*>(cols);
+    const auto* xi = static_cast<const float*>(x);
+    const auto* in = static_cast<const float*>(init);
+    auto* o = static_cast<float*>(out);
+    const unsigned grid = static_cast<unsigned>(ctas);
+    if (group > 1) {
+      bsr_walk_kernel<false, true><<<grid, THREADS, 0, s>>>(
+          b, rs, c, xi, nullptr, o, feat, slices, group);
+    } else if (in != nullptr) {
+      bsr_walk_kernel<true, false><<<grid, THREADS, 0, s>>>(
+          b, rs, c, xi, in, o, feat, slices, 1);
+    } else {
+      bsr_walk_kernel<false, false><<<grid, THREADS, 0, s>>>(
+          b, rs, c, xi, nullptr, o, feat, slices, 1);
     }
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // blocks (K,128,128) f32; row_splits (num_row_blocks+1,) int32; cols (K,)
 // int32; x, init, out (num_row_blocks*128, feat) f32, all contiguous.
-// Returns cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1
-// CTAs, else cudaGetLastError() after the launch.
+// Each entry returns cudaErrorInvalidConfiguration when the grid would
+// exceed 2^31 - 1 CTAs, else cudaGetLastError() after the launch.
+
+// K1: out = init + A . x
 extern "C" int fitgnn_bsr_spmm_acc(const void* blocks, const void* row_splits,
                                    const void* cols, const void* x,
                                    const void* init, void* out,
                                    int64_t num_row_blocks, int64_t feat,
                                    void* stream) {
+  return launch_walk(blocks, row_splits, cols, x, init, out, num_row_blocks,
+                     feat, 1, stream);
+}
+
+// K2: out = A . x
+extern "C" int fitgnn_bsr_spmm(const void* blocks, const void* row_splits,
+                               const void* cols, const void* x, void* out,
+                               int64_t num_row_blocks, int64_t feat,
+                               void* stream) {
+  return launch_walk(blocks, row_splits, cols, x, nullptr, out,
+                     num_row_blocks, feat, 1, stream);
+}
+
+// K9: out = A . x on a layout whose every row run is a multiple of group
+// (> 1) tiles
+extern "C" int fitgnn_bsr_spmm_grouped(const void* blocks,
+                                       const void* row_splits,
+                                       const void* cols, const void* x,
+                                       void* out, int64_t num_row_blocks,
+                                       int64_t feat, int group, void* stream) {
+  if (group < 2) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_walk(blocks, row_splits, cols, x, nullptr, out,
+                     num_row_blocks, feat, group, stream);
+}
+
+// K10: out = A . x, the row walk; vec != 0 when x starts on a 16-byte
+// boundary and feat % 4 == 0
+extern "C" int fitgnn_bsr_spmm_rowwalk(const void* blocks,
+                                       const void* row_splits,
+                                       const void* cols, const void* x,
+                                       void* out, int64_t num_row_blocks,
+                                       int64_t feat, int vec, void* stream) {
   if (num_row_blocks > 0 && feat > 0) {
-    const int64_t slices = (feat + FT - 1) / FT;
-    const int64_t ctas = num_row_blocks * slices;
-    if (ctas > 0x7fffffff) {
-      return static_cast<int>(cudaErrorInvalidConfiguration);
+    int64_t slices;
+    const int64_t ctas = walk_ctas(num_row_blocks, feat, &slices);
+    if (ctas == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto* b = static_cast<const float*>(blocks);
+    const auto* rs = static_cast<const int32_t*>(row_splits);
+    const auto* c = static_cast<const int32_t*>(cols);
+    const auto* xi = static_cast<const float*>(x);
+    auto* o = static_cast<float*>(out);
+    if (vec) {
+      const cudaError_t set = cudaFuncSetAttribute(
+          bsr_rowwalk_kernel<true>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, RW_SMEM);
+      if (set != cudaSuccess) return static_cast<int>(set);
+      bsr_rowwalk_kernel<true>
+          <<<static_cast<unsigned>(ctas), THREADS, RW_SMEM, s>>>(
+              b, rs, c, xi, o, feat, slices);
+    } else {
+      const cudaError_t set = cudaFuncSetAttribute(
+          bsr_rowwalk_kernel<false>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, RW_SMEM);
+      if (set != cudaSuccess) return static_cast<int>(set);
+      bsr_rowwalk_kernel<false>
+          <<<static_cast<unsigned>(ctas), THREADS, RW_SMEM, s>>>(
+              b, rs, c, xi, o, feat, slices);
     }
-    bsr_spmm_acc_kernel<<<static_cast<unsigned>(ctas), THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(blocks),
-        static_cast<const int32_t*>(row_splits),
-        static_cast<const int32_t*>(cols), static_cast<const float*>(x),
-        static_cast<const float*>(init), static_cast<float*>(out), feat,
-        slices);
   }
   return static_cast<int>(cudaGetLastError());
 }

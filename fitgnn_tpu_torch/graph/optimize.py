@@ -61,8 +61,10 @@ def build_optimized_graph(x: np.ndarray, senders: np.ndarray,
 
     Returns ``(graph, order)`` where ``order[i]`` is the original id of the
     node now at position ``i``.  Defaults are the JAX package's production
-    config (threshold 48, f32 tiles, K3 stragglers).  The planner's
-    ``min_block_edges="auto"`` and the opt-ins are not ported yet."""
+    config (threshold 48, f32 tiles, K3 stragglers); ``tile_group`` and
+    ``use_diag`` pass through to ``build_hybrid`` (K9, K8), which refuses
+    them for GATConv.  The planner's ``min_block_edges="auto"``, bf16 tiles
+    and the cluster opt-ins are not ported yet."""
     from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
     from fitgnn_tpu_torch.partition.community import \
         hierarchical_community_order

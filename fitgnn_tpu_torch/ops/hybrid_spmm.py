@@ -15,6 +15,23 @@ the transpose structures, built as the JAX package builds them: K3 on
 ``t_segmm``, then K1 on ``bsr.transpose`` accumulating on it.  For GAT's
 ``att_unit`` operator the build also makes the dynamic-tile plan
 (``ops/bsr_dynamic.py``) that the attention tiles walk.
+
+The JAX package's tile opt-ins, dispatched as its ``_hybrid_spmm_main``:
+
+* ``use_diag``: the dense tiles on the block diagonal go to
+  ``diag_blocks`` (nb, 128, 128) and the BCSR keeps the others (it may be
+  ``None``).  With ``diag_r > 0`` the chain is K3 → K8 (``ops/diag_spmm.py``)
+  → K1, every add through an ``init`` operand, and its backward the same
+  chain on the transpose structures; otherwise the diagonal is added by a
+  batched matmul, as the JAX package adds it by an XLA einsum.
+* ``tile_group > 1`` and ``use_rowwalk``: the BCSR layouts of K9 and K10;
+  the fused core then adds ``bsr_spmm`` (K9 or K10) to the stragglers, and
+  a diagonal, if any, by the batched matmul.
+* a BCSR built without its transpose (forward only) takes the straggler
+  part plus ``bsr_spmm`` (K2 on the grid-walk layout).
+
+``att_unit`` (GATConv) refuses ``use_diag``, ``use_rowwalk`` and
+``tile_group > 1``: its tile attention walks the grid-walk tiles only.
 """
 
 from __future__ import annotations
@@ -27,8 +44,9 @@ import torch
 
 from fitgnn_tpu_torch.ops.bsr_dynamic import DynPlan, build_dyn_plan
 from fitgnn_tpu_torch.ops.bsr_spmm import (BLOCK, BsrMatrix, build_bsr,
-                                           bsr_spmm_acc)
+                                           bsr_spmm, bsr_spmm_acc)
 from fitgnn_tpu_torch.ops.coo_segmm import SegCsr, build_segmm, segmm_spmm
+from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm, pick_run_length
 from fitgnn_tpu_torch.ops.spmm import spmm_coo
 from fitgnn_tpu_torch.utils.device import dataclass_to
 
@@ -50,6 +68,11 @@ class HybridSpmm:
                                        # of each transpose-list entry
     dyn_plan: Optional[DynPlan] = None  # walk plan of dynamic tile values
                                        # (GAT attention); att_unit only
+    diag_blocks: Optional[torch.Tensor] = None  # (NB, 128, 128) dense
+                                       # block-diagonal tiles (use_diag)
+    diag_r: int = 0                    # > 0: the diagonal runs through K8
+                                       # (the TPU's blocks per grid step);
+                                       # 0: a batched matmul
 
     @property
     def num_coo_edges(self) -> int:
@@ -65,6 +88,7 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                  tile_dtype=None,
                  use_segmm: bool = False,
                  use_diag: bool = False,
+                 diag_r: Optional[int] = None,
                  use_rowwalk: bool = False,
                  tile_group: int = 1,
                  use_einsum_tiles: bool = False,
@@ -74,15 +98,16 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                  cluster_agg: int = 0,
                  cluster_agg_exact: int = 0) -> HybridSpmm:
     """Split edges by tile occupancy and build both structures (host-side),
-    as the JAX package's ``build_hybrid`` does with its defaults.
+    as the JAX package's ``build_hybrid`` does, with its ``use_diag`` /
+    ``diag_r`` (``None`` → ``pick_run_length(nb)``), ``use_rowwalk`` and
+    ``tile_group``.
 
-    The JAX package's opt-ins (``use_diag``, ``cluster_att``/``cluster_agg``
-    and their ``_exact`` splits, ``use_rowwalk``, ``use_einsum_tiles``,
-    ``tile_group > 1``, bf16 ``tile_dtype``) are not ported yet and raise
-    ``NotImplementedError`` (ROADMAP.md §2)."""
-    opt_ins = dict(use_diag=use_diag, use_rowwalk=use_rowwalk,
-                   use_einsum_tiles=use_einsum_tiles,
-                   tile_group=tile_group != 1,
+    ``use_einsum_tiles``, bf16 ``tile_dtype`` and ``cluster_att`` /
+    ``cluster_agg`` with their ``_exact`` splits are not ported yet and
+    raise ``NotImplementedError`` (ROADMAP.md §1 item 2); so do
+    ``use_diag``, ``use_rowwalk`` and ``tile_group > 1`` under
+    ``att_unit`` (ROADMAP.md §1 item 3)."""
+    opt_ins = dict(use_einsum_tiles=use_einsum_tiles,
                    tile_dtype=tile_dtype is not None,
                    cluster_att=cluster_att, cluster_att_exact=cluster_att_exact,
                    cluster_agg=cluster_agg, cluster_agg_exact=cluster_agg_exact)
@@ -90,7 +115,13 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
     if asked:
         raise NotImplementedError(
             f"build_hybrid: opt-in {', '.join(asked)} not ported yet "
-            "(ROADMAP.md §2)")
+            "(ROADMAP.md §1 item 2)")
+    if semantics == "att_unit" and (use_diag or use_rowwalk
+                                    or tile_group != 1):
+        raise NotImplementedError(
+            "build_hybrid: use_diag, use_rowwalk and tile_group > 1 under "
+            "att_unit (GATConv's tile attention) are not ported yet "
+            "(ROADMAP.md §1 item 3)")
     block = BLOCK
     if num_nodes_padded % block:
         raise ValueError(f"num_nodes_padded={num_nodes_padded} is not a "
@@ -104,10 +135,25 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                                   return_counts=True)
     dense = counts[inv] >= min_block_edges
 
+    diag_blocks = None
+    diag_r_val = 0
+    on_diag = np.zeros_like(dense)
+    if use_diag:
+        on_diag = dense & (receivers // block == senders // block)
+        if on_diag.any():
+            db = np.zeros((nb, block, block), dtype=np.float32)
+            np.add.at(db, (receivers[on_diag] // block,
+                           receivers[on_diag] % block,
+                           senders[on_diag] % block), weight[on_diag])
+            diag_blocks = torch.from_numpy(db)
+            diag_r_val = pick_run_length(nb) if diag_r is None else diag_r
+
     bsr = None
-    if dense.any():
-        bsr = build_bsr(senders[dense], receivers[dense], weight[dense],
-                        num_nodes_padded)
+    tiled = dense & ~on_diag
+    if tiled.any():
+        bsr = build_bsr(senders[tiled], receivers[tiled], weight[tiled],
+                        num_nodes_padded, rowwalk=use_rowwalk,
+                        group=tile_group)
 
     cs, cr, cw = senders[~dense], receivers[~dense], weight[~dense]
     if len(cs) == 0:  # one weight-0 edge on the pad node keeps shapes whole
@@ -145,7 +191,7 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
         t_weights=torch.from_numpy(cw[order_t]),
         t_edge_perm=i32(t_edge_perm), num_nodes=num_nodes_padded,
         semantics=semantics, segmm=segmm, t_segmm=t_segmm,
-        dyn_plan=dyn_plan)
+        dyn_plan=dyn_plan, diag_blocks=diag_blocks, diag_r=diag_r_val)
 
 
 def _coo_apply(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
@@ -178,8 +224,9 @@ class _CooPart(torch.autograd.Function):
 
 
 class _FusedCore(torch.autograd.Function):
-    """Stragglers, then the tiles accumulating on their output (K3 → K1);
-    the backward runs the same chain on the transpose structures."""
+    """Stragglers, then the tiles accumulating on their output (K3 → K1, or
+    K3 + K9/K10 on their layouts); the backward runs the same chain on the
+    transpose structures."""
 
     @staticmethod
     def forward(ctx, h, x):
@@ -194,15 +241,61 @@ class _FusedCore(torch.autograd.Function):
         return None, bsr_spmm_acc(h.bsr.transpose, g, _coo_apply_t(h, g))
 
 
+def _diag_chain(h: HybridSpmm, x: torch.Tensor,
+                transpose: bool) -> torch.Tensor:
+    """Stragglers → K8 → K1, every add through an ``init`` operand; with
+    ``transpose`` the same chain on the transpose structures."""
+    out = _coo_apply_t(h, x) if transpose else _coo_apply(h, x)
+    out = diag_spmm(h.diag_blocks, x, h.diag_r, transpose=transpose,
+                    init=out)
+    if h.bsr is not None:
+        out = bsr_spmm_acc(h.bsr.transpose if transpose else h.bsr, x, out)
+    return out
+
+
+class _FusedCoreDiag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, x):
+        ctx.h = h
+        return _diag_chain(h, x, transpose=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[1]:
+            return None, None
+        return None, _diag_chain(ctx.h, g.contiguous(), transpose=True)
+
+
+def _diag_bmm(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """diag(A)·x as one batched matmul over the (nb, 128, F) views (the
+    JAX package's XLA einsum branch); autograd gives its transpose."""
+    nb, b, _ = blocks.shape
+    return torch.bmm(blocks.to(x.dtype), x.reshape(nb, b, -1)).reshape(
+        x.shape)
+
+
 def hybrid_spmm(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
-    """out = A·x, differentiable in ``x``: the straggler part alone when no
-    tile is dense, else the fused core (K3, then K1 accumulating the tiles
-    on its output).  A backward runs only for an ``x`` that needs a
-    gradient (GCN's layer 0 aggregates the raw features, which do not)."""
-    if h.bsr is None:
-        return _CooPart.apply(h, x.contiguous())
-    if h.bsr.transpose is None:
-        raise NotImplementedError(
-            "hybrid_spmm without a transpose BCSR runs K2 (bsr_spmm), the "
-            "library spmm(operator=BsrMatrix) surface (ROADMAP.md §2)")
-    return _FusedCore.apply(h, x.contiguous())
+    """out = A·x, differentiable in ``x``, dispatched condition for
+    condition as the JAX package's ``_hybrid_spmm_main``: the diagonal chain
+    (K3 → K8 → K1) when the operator has diagonal blocks with ``diag_r >
+    0`` and its BCSR (if any) has a transpose on the grid-walk layout;
+    else the fused core (K3 → K1, or K3 + K9/K10), or, without a transpose
+    BCSR, the straggler part plus ``bsr_spmm`` (K2/K9/K10); then the
+    diagonal, if any, by a batched matmul.  A backward runs only for an
+    ``x`` that needs a gradient (GCN's layer 0 aggregates the raw features,
+    which do not)."""
+    x = x.contiguous()
+    b = h.bsr
+    if (h.diag_blocks is not None and h.diag_r > 0
+            and (b is None or b.transpose is not None)
+            and not (b is not None and (b.rowwalk or b.group > 1))):
+        return _FusedCoreDiag.apply(h, x)
+    if b is not None and b.transpose is not None:
+        out = _FusedCore.apply(h, x)
+    else:
+        out = _CooPart.apply(h, x)
+        if b is not None:
+            out = out + bsr_spmm(b, x)
+    if h.diag_blocks is not None:
+        out = out + _diag_bmm(h.diag_blocks, x)
+    return out

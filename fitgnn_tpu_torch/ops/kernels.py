@@ -38,16 +38,18 @@ def nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Target:
+def _target(name: str, headers: tuple = ()) -> Target:
     src = os.path.join(CSRC, f"{name}.cu")
-    return Target(name, [src],
+    deps = [os.path.join(CSRC, h) for h in headers]
+    return Target(name, [src, *deps],
                   lambda out: [nvcc(), *NVCC_FLAGS, "-o", out, src])
 
 
-# one library per source; ``build(TARGETS)`` compiles the stale ones in
-# parallel, one nvcc each
-TARGETS = tuple(_target(n) for n in (
-    "bsr_spmm", "coo_segmm", "bsr_dynamic", "att_bsr"))
+# one library per source (rebuilt when it or a header it includes is newer);
+# ``build(TARGETS)`` compiles the stale ones in parallel, one nvcc each
+TARGETS = (_target("bsr_spmm", ("tile_fma.cuh",)), _target("coo_segmm"),
+           _target("bsr_dynamic"), _target("att_bsr"),
+           _target("diag_spmm", ("tile_fma.cuh",)), _target("dropout"))
 
 
 def function(lib: str, name: str, argtypes: list):

@@ -1,15 +1,23 @@
-"""COO SpMM: sparse adjacency × dense features, plain PyTorch.
+"""SpMM: sparse adjacency × dense features.
 
-Graphs under the hybrid operator's size gate aggregate here, as the JAX
-package's ``spmm_coo`` does in XLA: graphs of at most ``DENSE_SPMM_MAX_N``
-padded nodes through a dense (N, N) adjacency and one matmul, larger ones
-through a per-edge gather and a segment sum.
+``spmm_coo``: graphs under the hybrid operator's size gate aggregate here,
+as the JAX package's ``spmm_coo`` does in XLA: graphs of at most
+``DENSE_SPMM_MAX_N`` padded nodes through a dense (N, N) adjacency and one
+matmul, larger ones through a per-edge gather and a segment sum, in plain
+PyTorch.
+
+``spmm(..., operator=...)`` dispatches on a precomputed operator structure
+as the JAX package's ``spmm`` does: ``HybridSpmm`` (``ops/hybrid_spmm.py``),
+``BsrMatrix`` (``bsr_spmm``: K2, K9 or K10 by its layout) or ``SegCsr``
+(K3, forward only); plain COO without one.
 """
 
 from __future__ import annotations
 
 import torch
 
+from fitgnn_tpu_torch.ops.bsr_spmm import BsrMatrix, bsr_spmm
+from fitgnn_tpu_torch.ops.coo_segmm import SegCsr, segmm_spmm
 from fitgnn_tpu_torch.ops.segment import segment_sum, take_rows
 
 # the JAX package's default (its FITGNN_DENSE_SPMM_N); the port reads no
@@ -38,3 +46,24 @@ def spmm_coo(edge_weight: torch.Tensor, senders: torch.Tensor,
         return adj @ x
     gathered = take_rows(x, senders) * edge_weight[:, None].to(x.dtype)
     return segment_sum(gathered, receivers, num_nodes)
+
+
+def spmm(edge_weight: torch.Tensor, senders: torch.Tensor,
+         receivers: torch.Tensor, x: torch.Tensor, num_nodes: int, *,
+         operator=None) -> torch.Tensor:
+    """``A·x`` through ``operator`` when one is given, else ``spmm_coo``."""
+    if operator is None:
+        return spmm_coo(edge_weight, senders, receivers, x, num_nodes)
+    if isinstance(operator, BsrMatrix):
+        return bsr_spmm(operator, x)
+    if isinstance(operator, SegCsr):
+        return segmm_spmm(operator, x)
+    name = type(operator).__name__
+    if name == "HybridSpmm":
+        # ops/hybrid_spmm.py imports this module
+        from fitgnn_tpu_torch.ops.hybrid_spmm import hybrid_spmm
+        return hybrid_spmm(operator, x)
+    if name == "EllMatrix":
+        raise NotImplementedError("spmm: the ELL operator (ops/ell_spmm.py) "
+                                  "is not ported yet (ROADMAP.md §1 item 2)")
+    raise TypeError(f"unknown SpMM operator {name}")

@@ -31,9 +31,11 @@ The JAX package's diagnostic switches ``FITGNN_GAT_FUSED_BWD``,
 ``_FUSED_SORTED_DH``, ``_SORTED_SRC`` and ``_SORTED_NUM`` (no Pallas
 kernel) and its ``partials``, ``src_score_bound`` and ``extra_rowmax``
 arguments are not ported: they raise ``NotImplementedError`` rather than
-run the default branch in their place.  ``build_hybrid`` refuses the
-diagonal-tile and cluster opt-ins, so neither ``diag_blocks`` nor
-``cluster_count`` reaches this module.
+run the default branch in their place.  Under ``att_unit``
+``build_hybrid`` refuses ``use_diag``, ``use_rowwalk`` and ``tile_group >
+1`` (and, for every semantics, the cluster opt-ins), so the tiles here are
+in the grid-walk layout and neither ``diag_blocks`` nor ``cluster_count``
+reaches this module.
 """
 
 from __future__ import annotations

@@ -9,13 +9,16 @@ and for GAT, and puts the seed-0 ``NodeModel`` (2 layers, hidden 512, f32,
 dropout 0.5 from a seeded generator) with ``adam_l2(0.01, 5e-4)`` on the
 card: GAT on its default path, under ``FITGNN_GAT_FUSED_TILES=1`` (K7) and
 under ``FITGNN_GAT_FUSED_TILES=1 FITGNN_GAT_SEGMM_DEN=1`` (K7 and K6), then
-GCN.  For each it prints:
+GCN on its default path, with ``fused_dropout=True, bit_dropout=False``
+(K11), and with K11 on the operators of ``build_hybrid``'s tile opt-ins:
+``use_diag`` (K8), ``tile_group=2`` (K9) and ``use_rowwalk`` (K10).  For
+each it prints:
 
 * the step's time (``gc_train_step``: forward, masked NLL, backward, Adam)
   from CUDA events over 10 steps after 3 warm-ups;
 * a ``torch.profiler`` table of device time per kernel over 5 steps,
-  grouped into the port's kernels (K1, K3, K4, K4ᵀ, K5, K6, K7), the dense
-  layers (cuBLAS), the optimizer and the rest;
+  grouped into the port's kernels (K1-K11), the dense layers (cuBLAS), the
+  optimizer and the rest;
 * the device's idle share over the profiled window: 1 - (summed kernel
   time) / (window time on the host clock, ended by a synchronize).
 """
@@ -47,6 +50,19 @@ def _device_us(evt) -> float:
 
 
 def _group(name: str) -> str:
+    bare = name.replace(" ", "")
+    if "bsr_walk_kernel<true,false>" in bare:
+        return "K1 bsr_spmm_acc"
+    if "bsr_walk_kernel<false,false>" in bare:
+        return "K2 bsr_spmm_fwd"
+    if "bsr_walk_kernel<false,true>" in bare:
+        return "K9 bsr_spmm_grouped"
+    if "bsr_rowwalk_kernel" in name:
+        return "K10 bsr_spmm_rowwalk"
+    if "diag_spmm_kernel" in name:
+        return "K8 diag_spmm"
+    if "philox_dropout_kernel" in name:
+        return "K11 philox_dropout"
     if "att_rowmax_kernel" in name:
         return "K7rm att_rowmax"
     if "att_walk_kernel<false>" in name:
@@ -59,8 +75,6 @@ def _group(name: str) -> str:
         return "K7bf att_bwd_f"
     if "segmm_spmm_kernel<true>" in name:
         return "K6 segmm_weighted_den_raw"
-    if "bsr_spmm_acc" in name:
-        return "K1 bsr_spmm_acc"
     if "segmm_spmm" in name:
         return "K3/K3w segmm_spmm"
     if "bsr_dyn_kernel<true>" in name:
@@ -79,11 +93,12 @@ def _group(name: str) -> str:
     return "elementwise, reductions, dropout, copies"
 
 
-def profile_step(layer: str, g, dev) -> dict:
+def profile_step(layer: str, g, dev, label: str, **model_kw) -> dict:
     from fitgnn_tpu_torch.models.models import NodeModel
     from fitgnn_tpu_torch.train import steps
 
-    model = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES)
+    model = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                      **model_kw)
     model = model.reset_parameters(torch.Generator().manual_seed(0)).to(dev)
     opt = steps.adam_l2(model.parameters(), 0.01, 5e-4)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -123,16 +138,14 @@ def profile_step(layer: str, g, dev) -> dict:
         k = _group(evt.key)
         groups[k] = groups.get(k, 0.0) + us / 1e3 / PROFILED
     rows.sort(reverse=True)
-    print(f"{layer} {os.environ.get('FITGNN_GAT_FUSED_TILES', '0')}"
-          f"{os.environ.get('FITGNN_GAT_SEGMM_DEN', '0')}: step (CUDA "
-          f"events, 10 steps): {step_ms:.4f} ms")
+    print(f"{label}: step (CUDA events, 10 steps): {step_ms:.4f} ms")
     print("device time per step by kernel (profiler):")
     for us, count, key in rows[:25]:
         print(f"  {us / 1e3 / PROFILED:9.4f} ms  x{count / PROFILED:5.1f}  "
               f"{key[:90]}")
     busy = sum(groups.values())
     return {
-        "layer": layer, "step_ms": step_ms,
+        "config": label, "layer": layer, "step_ms": step_ms,
         "profiled_window_ms_per_step": window_ms / PROFILED,
         "device_busy_ms_per_step": busy,
         "idle_share": 1.0 - busy * PROFILED / window_ms,
@@ -147,6 +160,7 @@ def main() -> int:
         return 1
     import subprocess
     from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
     from fitgnn_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cuda")
@@ -154,17 +168,36 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     x, s, r, y, train = make_graph()
-    for layer, envs in (("GATConv", ({}, FUSED_ONLY, FUSED)),
-                        ("GCNConv", ({},))):
-        g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
-                                     layer_name=layer, seed=0)
-        g = g.to(dev)
-        for env in envs:
-            with switches(env):
-                out = profile_step(layer, g, dev)
-            print(json.dumps({"switches": env, **out}))
-            torch.cuda.empty_cache()
-        del g
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                 layer_name="GATConv", seed=0)
+    g = g.to(dev)
+    for env in ({}, FUSED_ONLY, FUSED):
+        with switches(env):
+            out = profile_step("GATConv", g, dev, f"GATConv {env}")
+        print(json.dumps({"switches": env, **out}))
+        torch.cuda.empty_cache()
+    del g
+    k11 = dict(fused_dropout=True, bit_dropout=False)
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                 layer_name="GCNConv", seed=0)
+    configs = [("GCNConv", g, {}), ("GCNConv K11", g, k11)]
+    for name, kw in (("diag", dict(use_diag=True)),
+                     ("tile_group=2", dict(tile_group=2))):
+        g2, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                      layer_name="GCNConv", seed=0, **kw)
+        configs.append((f"GCNConv K11 {name}", g2, k11))
+    # build_optimized_graph has no use_rowwalk: the operator is built on
+    # the reordered graph, as bench.py builds it
+    h = build_hybrid(g.senders.numpy(), g.receivers.numpy(),
+                     g.edge_weight.numpy(), g.num_nodes_padded,
+                     min_block_edges=48, use_segmm=True, use_rowwalk=True)
+    configs.append(("GCNConv K11 rowwalk", g._replace(aux=h), k11))
+    for label, graph, kw in configs:
+        gd = graph.to(dev)
+        out = profile_step("GCNConv", gd, dev, label, **kw)
+        print(json.dumps({"model": kw, **out}))
+        del gd
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -18,13 +18,19 @@ from fitgnn_tpu_torch.ops.bsr_dynamic import (build_dyn_plan, dyn_grad_blocks,
                                               dyn_grad_blocks_plain,
                                               dyn_tiles, dyn_tiles_plain,
                                               dyn_tiles_t, dyn_tiles_t_plain)
+from fitgnn_tpu_torch.ops import dropout as dropout_mod
 from fitgnn_tpu_torch.ops.bsr_spmm import (build_bsr, bsr_spmm_acc,
-                                           bsr_spmm_acc_plain)
+                                           bsr_spmm_acc_plain, bsr_spmm_fwd,
+                                           bsr_spmm_grouped, bsr_spmm_plain,
+                                           bsr_spmm_raw, bsr_spmm_rowwalk)
 from fitgnn_tpu_torch.ops.coo_segmm import (build_segmm, segmm_spmm,
                                             segmm_spmm_plain,
                                             segmm_weighted_den_raw,
                                             segmm_weighted_den_raw_plain,
                                             segmm_weighted_raw)
+from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm, diag_spmm_plain
+from fitgnn_tpu_torch.ops.dropout import philox_dropout, \
+    philox_dropout_plain
 from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid, hybrid_spmm
 from fitgnn_tpu_torch.train.losses import masked_nll
 
@@ -318,3 +324,159 @@ def test_fused_gat_gradients_on_card_match_cpu(cuda, monkeypatch, env):
     _close(loss_d, loss_c)
     for k, v in grads_c.items():
         _close(grads_d[k], v)
+
+
+_WALKS = {"gridwalk": ({}, bsr_spmm_fwd), "group2": (dict(group=2),
+                                                     bsr_spmm_grouped),
+          "group3": (dict(group=3), bsr_spmm_grouped),
+          "rowwalk": (dict(rowwalk=True), bsr_spmm_rowwalk)}
+
+
+@pytest.mark.parametrize("feat,aligned", [(16, True), (101, True),
+                                          (128, True), (512, True),
+                                          (128, False)])
+@pytest.mark.parametrize("layout", list(_WALKS))
+def test_k2_k9_k10_kernels_match_plain(cuda, layout, feat, aligned):
+    """K2, K9 and K10 on their layouts; block row 3 has no tile (K10 has no
+    filler there and must write it as 0); F=101 and the unaligned view take
+    K10's 4-byte copies."""
+    rng = np.random.default_rng(feat + 6)
+    n = 1024
+    s, r, w = _coo(rng, n, 20_000)
+    keep = (r // 128 != 3) & (s // 128 != 3)
+    kw, walk = _WALKS[layout]
+    b = build_bsr(s[keep], r[keep], w[keep], n, **kw).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, feat)).astype(
+        np.float32)).to(cuda)
+    xd = x if aligned else _unaligned(x)
+    before = walk.launches
+    with torch.inference_mode():
+        got = bsr_spmm_raw(b, xd)
+        ref = bsr_spmm_plain(b, xd)
+    torch.cuda.synchronize()
+    assert walk.launches == before + 1
+    _close(got, ref)
+    assert not got[3 * 128:4 * 128].any()
+
+
+@pytest.mark.parametrize("feat", [16, 101, 512])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_k8_kernel_matches_plain(cuda, transpose, with_init, feat):
+    rng = np.random.default_rng(feat + 7)
+    nb = 6
+    blocks = torch.from_numpy((rng.standard_normal((nb, 128, 128))
+                               * (rng.random((nb, 128, 128)) < 0.1)).astype(
+        np.float32)).to(cuda)
+    x, init = (torch.from_numpy(rng.standard_normal((nb * 128, feat)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    init = init if with_init else None
+    before = diag_spmm.launches
+    with torch.inference_mode():
+        got = diag_spmm(blocks, x, 3, transpose, init)
+        ref = diag_spmm_plain(blocks, x, 3, transpose, init)
+    torch.cuda.synchronize()
+    assert diag_spmm.launches == before + 1
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("shape,aligned", [((1000, 512), True),
+                                           ((37, 101), True),
+                                           ((64, 128), False)])
+@pytest.mark.parametrize("rate", [0.5, 0.3])
+def test_k11_kernel_matches_plain_bit_exact(cuda, shape, aligned, rate):
+    """The kernel's Philox bits and keep rule equal the plain version's:
+    outputs equal exactly (an odd element count takes the scalar tail)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=cuda)
+    x = x if aligned else _unaligned(x)
+    seed = dropout_mod.seed_from_generator(gen, cuda)
+    before = philox_dropout.launches
+    with torch.inference_mode():
+        got = philox_dropout(x, seed, rate)
+        ref = philox_dropout_plain(x, seed, rate)
+    torch.cuda.synchronize()
+    assert philox_dropout.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+def _bench_like(rng, n=1500, e=15_000):
+    r = rng.integers(0, n, e)
+    s = np.where(rng.random(e) < 0.85,
+                 np.minimum((r // 128) * 128 + rng.integers(0, 128, e),
+                            n - 1), rng.integers(0, n, e))
+    return s, r
+
+
+@pytest.mark.parametrize("case", ["diag", "group2", "rowwalk"])
+def test_opt_in_training_on_card_matches_cpu(cuda, case):
+    """One GCN training step (hidden 64, dropout off) on each opt-in
+    operator, kernels on the card against plain versions on the CPU, with
+    the operator's own walk launched four times (at 128 → 64 layer 0
+    aggregates ``lin(x)``, which needs a gradient: two forward, two
+    backward)."""
+    rng = np.random.default_rng(11)
+    s, r = _bench_like(rng)
+    n, feat = 1500, 128
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    y = rng.integers(0, 5, n)
+    kw = {"diag": dict(use_diag=True), "group2": dict(tile_group=2),
+          "rowwalk": {}}[case]
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=rng.random(n) < .5,
+                                 min_block_edges=48, **kw)
+    if case == "rowwalk":
+        h = build_hybrid(g.senders.numpy(), g.receivers.numpy(),
+                         g.edge_weight.numpy(), g.num_nodes_padded,
+                         min_block_edges=48, use_segmm=True,
+                         use_rowwalk=True)
+        g = g._replace(aux=h)
+    walk = {"diag": diag_spmm, "group2": bsr_spmm_grouped,
+            "rowwalk": bsr_spmm_rowwalk}[case]
+    model = NodeModel("GCNConv", feat, 64, 2, 5, dropout_rate=0.0)
+    model.reset_parameters(torch.Generator().manual_seed(0)).train()
+    loss_c, grads_c = _grads(model, g, g.y, g.train_mask)
+    gd = g.to(cuda)
+    before = walk.launches
+    loss_d, grads_d = _grads(model.to(cuda), gd, gd.y, gd.train_mask)
+    torch.cuda.synchronize()
+    assert walk.launches == before + 4
+    _close(loss_d, loss_c)
+    for k, v in grads_c.items():
+        _close(grads_d[k], v)
+
+
+def test_fused_dropout_step_on_card(cuda, monkeypatch):
+    """A GCN step with ``fused_dropout=True, bit_dropout=False`` launches
+    K11 four times (two layers, forward and backward), and the same step
+    with the plain Philox version patched in gives the same loss and
+    gradients (the same seeds from the same generator)."""
+    rng = np.random.default_rng(12)
+    s, r = _bench_like(rng)
+    n, feat = 1500, 128
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    g, _ = build_optimized_graph(x, s, r, y=rng.integers(0, 5, n),
+                                 train_mask=rng.random(n) < .5,
+                                 min_block_edges=48)
+    gd = g.to(cuda)
+    model = NodeModel("GCNConv", feat, 64, 2, 5, dropout_rate=0.5,
+                      fused_dropout=True, bit_dropout=False)
+    model = model.reset_parameters(torch.Generator().manual_seed(0)).to(
+        cuda).train()
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        loss = masked_nll(model(gd.x, gd, gen), gd.y, gd.train_mask)
+        loss.backward()
+        return loss.detach(), {k: p.grad.detach().clone()
+                               for k, p in model.named_parameters()}
+
+    before = philox_dropout.launches
+    loss_k, grads_k = step()
+    torch.cuda.synchronize()
+    assert philox_dropout.launches == before + 4
+    monkeypatch.setattr(dropout_mod, "philox_dropout", philox_dropout_plain)
+    loss_p, grads_p = step()
+    _close(loss_k, loss_p)
+    for k, v in grads_p.items():
+        _close(grads_k[k], v)

@@ -238,10 +238,13 @@ def test_hybrid_without_tiles_matches_jax():
         np.asarray(jax_hybrid_spmm(hj, jnp.asarray(x))), **TOL)
 
 
-@pytest.mark.parametrize("opt_in", [dict(use_diag=True),
-                                    dict(use_rowwalk=True),
+# the tile opt-ins of the GCN operator are ported; under GATConv's
+# att_unit semantics they still raise
+@pytest.mark.parametrize("opt_in", [dict(use_diag=True, semantics="att_unit"),
+                                    dict(use_rowwalk=True,
+                                         semantics="att_unit"),
                                     dict(use_einsum_tiles=True),
-                                    dict(tile_group=2),
+                                    dict(tile_group=2, semantics="att_unit"),
                                     dict(cluster_agg=128),
                                     dict(tile_dtype="bfloat16")])
 def test_hybrid_opt_ins_raise(opt_in):
