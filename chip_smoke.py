@@ -1341,7 +1341,7 @@ KERNELS = (
      "fitgnn_tpu_torch/csrc/bsr_dynamic.cu",
      "fitgnn_tpu/ops/pallas/bsr_dynamic.py:68"),
     ("K4T", "K4 dyn_tiles_t (bsr_spmm_dyn dx, transposed)",
-     "fitgnn_tpu_torch/csrc/bsr_dynamic.cu",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/bsr_dynamic.py:68"),
     ("K5", "K5 dyn_grad_blocks (bsr_spmm_dyn dblocks)",
      "fitgnn_tpu_torch/csrc/bsr_dynamic.cu",
@@ -1370,7 +1370,7 @@ KERNELS = (
      "fitgnn_tpu_torch/csrc/diag_spmm.cu",
      "fitgnn_tpu/ops/pallas/diag_spmm.py:34"),
     ("K9", "K9 bsr_spmm_grouped (grouped tile walk)",
-     "fitgnn_tpu_torch/csrc/bsr_spmm.cu",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/bsr_spmm.py:264"),
     ("K10", "K10 bsr_spmm_rowwalk (row walk)",
      "fitgnn_tpu_torch/csrc/bsr_spmm.cu",

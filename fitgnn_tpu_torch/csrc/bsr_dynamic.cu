@@ -6,22 +6,26 @@
 // fitgnn_tpu/ops/pallas/bsr_dynamic.py:_make_dyn_kernel (grid built by
 // _dyn_apply, entry bsr_spmm_dyn and its backward).  The tile values are a
 // runtime tensor (GAT's attention numerators), so the walk reads them like
-// any operand.  The design is K1's (csrc/bsr_spmm.cu): one CTA owns one
-// output block-row and one 64-column feature slice, walks its slots
-// row_splits[r] .. row_splits[r+1], stages each tile in 32-deep chunks as
-// As[k][row] (the 128 output rows of one contraction index side by side)
-// and the matching x slab as Xs[k][col], accumulates 8x4 outputs a thread
-// in f32 registers and writes every output row once.  No atomics, so the
-// result is deterministic.  sel and scale are optional (null = identity
-// and 1, the forward).  A slot with scale 0 (a coverage filler of the
-// transpose plan) is skipped, uniformly across the CTA, but its row is
-// still written: as zeros when no real slot lands there.
-//   The two orientations differ only in how a chunk is staged.  Forward,
-// As[k][i] = B[i][kc+k]: 32 columns of B, read as float4 along a row and
-// stored transposed (the +4 row padding keeps each row 16-byte aligned for
-// the float4 reads of the product loop).  Transposed, As[k][i] =
-// B^T[i][kc+k] = B[kc+k][i]: 32 whole rows of B, a straight float4 copy,
-// coalesced and free of bank conflicts.
+// any operand.  One CTA owns one output block-row and one 64-column
+// feature slice, walks its slots row_splits[r] .. row_splits[r+1] and
+// writes every output row once.  No atomics, so the result is
+// deterministic.  A slot with scale 0 (a coverage filler of the transpose
+// plan) is skipped, uniformly across the CTA, but its row is still
+// written: as zeros when no real slot lands there.
+//   Forward (trans == 0; sel and scale null = identity and 1): K1's design
+// (csrc/bsr_spmm.cu), the dense tile product.  Each tile is staged in
+// 32-deep chunks as As[k][row] (32 columns of B, read as float4 along a row
+// and stored transposed; the +4 row padding keeps each row 16-byte aligned
+// for the float4 reads of the product loop) with the matching x slab as
+// Xs[k][col], and each thread accumulates 8x4 outputs in f32 registers.
+//   Transposed (trans != 0, K4T, the dx of bsr_spmm_dyn): the non-zero
+// walk of tile_sparse.cuh, columns orientation.  Output row i takes column
+// i of B[sel[k]]: the tile is staged in shared memory under an XOR swizzle
+// of its 16-byte chunks, so a warp reads a column conflict-free, and only
+// the column's non-zeros are applied; a tile without one costs its read
+// only.  tile_sparse.cuh has the bank-conflict choice and the one way its
+// result departs from the dense product (an inf or NaN in x that only
+// zero tile entries reach).
 //
 // K5, fitgnn_dyn_grad_blocks:
 //   dB[k] = g[rows[k]*128 : +128, :] @ x[cols[k]*128 : +128, :]^T,
@@ -32,11 +36,12 @@
 // the g and x slabs transposed (Gs[f][i], Xs[f][j]) from coalesced loads
 // along the feature axis, and writes its tile once.
 //
-// Bound on an H100.  K4: memory, as K1.  The function needs 2 FLOPs per
-// tile non-zero and feature, and the attention tiles are ~3% full, but
-// the tile values are dense operands here: the kernel does the dense
-// 128x128 product on the CUDA cores' f32 FMA, ~33x the FLOPs of a sparse
-// walk, which limits the kernel itself.  K5: operations.  dB is dense
+// Bound on an H100.  K4 and K4T: memory, as K1.  The function needs 2
+// FLOPs per tile non-zero and feature, and the attention tiles are ~3%
+// full.  The forward does the dense 128x128 product on the CUDA cores' f32
+// FMA, ~33x the FLOPs of a sparse walk, which limits that kernel itself;
+// K4T's walk does 2 FLOPs per non-zero and feature, so the tile reads, the
+// slabs and the output bound it.  K5: operations.  dB is dense
 // (2.192k tiles x 128 x 128 outputs, 2.F FLOPs each: 36.8 GFLOP at
 // F=512), against ~1.2 GB of slab reads.  The design reuses each staged
 // value 8 times from registers (64 FMAs per four 16-byte shared loads).
@@ -45,6 +50,8 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "tile_sparse.cuh"
 
 namespace {
 
@@ -57,7 +64,6 @@ constexpr int TM = 8;                             // output rows a thread
 constexpr int TN = 4;                             // output cols a thread
 constexpr int THREADS = (BLK / TM) * (FT / TN);   // 256
 
-template <bool TRANS>
 __global__ void __launch_bounds__(THREADS)
 bsr_dyn_kernel(const float* __restrict__ blocks,
                const int32_t* __restrict__ row_splits,
@@ -91,31 +97,16 @@ bsr_dyn_kernel(const float* __restrict__ blocks,
     const float* a = blocks + t * BLK * BLK;
     const float* xb = x + static_cast<int64_t>(cols[k]) * BLK * feat;
     for (int kc = 0; kc < BLK; kc += KC) {
-      if constexpr (TRANS) {
-        // As[kk][i] = A[kc+kk][i]: 32 rows x 32 float4, straight copy
-        for (int q = tid; q < KC * (BLK / 4); q += THREADS) {
-          const int kk = q / (BLK / 4);
-          const int c4 = (q % (BLK / 4)) * 4;
-          float4 v = *reinterpret_cast<const float4*>(
-              a + static_cast<int64_t>(kc + kk) * BLK + c4);
-          v.x *= s;
-          v.y *= s;
-          v.z *= s;
-          v.w *= s;
-          *reinterpret_cast<float4*>(&As[kk][c4]) = v;
-        }
-      } else {
-        // As[kk][i] = A[i][kc+kk]: 128 rows x 8 float4, stored transposed
-        for (int q = tid; q < BLK * (KC / 4); q += THREADS) {
-          const int row = q / (KC / 4);
-          const int c4 = (q % (KC / 4)) * 4;
-          const float4 v = *reinterpret_cast<const float4*>(
-              a + static_cast<int64_t>(row) * BLK + kc + c4);
-          As[c4 + 0][row] = v.x * s;
-          As[c4 + 1][row] = v.y * s;
-          As[c4 + 2][row] = v.z * s;
-          As[c4 + 3][row] = v.w * s;
-        }
+      // As[kk][i] = A[i][kc+kk]: 128 rows x 8 float4, stored transposed
+      for (int q = tid; q < BLK * (KC / 4); q += THREADS) {
+        const int row = q / (KC / 4);
+        const int c4 = (q % (KC / 4)) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(
+            a + static_cast<int64_t>(row) * BLK + kc + c4);
+        As[c4 + 0][row] = v.x * s;
+        As[c4 + 1][row] = v.y * s;
+        As[c4 + 2][row] = v.z * s;
+        As[c4 + 3][row] = v.w * s;
       }
       // x[kc:kc+KC, f0:f0+FT], coalesced along the feature axis
       for (int q = tid; q < KC * FT; q += THREADS) {
@@ -230,8 +221,9 @@ dyn_grad_blocks_kernel(const int32_t* __restrict__ rows,
 
 // blocks (K,128,128) f32, 16-byte aligned; row_splits (num_row_blocks+1,)
 // int32 slot range per output block-row; sel, scale (slots,) int32 or null
-// (identity, 1); cols (slots,) int32 input block per slot; x, out
-// (num_row_blocks*128, feat) f32; trans != 0 reads each tile transposed.
+// (identity, 1; both given when trans != 0); cols (slots,) int32 input
+// block per slot; x, out (num_row_blocks*128, feat) f32; trans != 0 reads
+// each tile transposed.
 // All contiguous.  Returns cudaErrorInvalidConfiguration when the grid
 // would exceed 2^31 - 1 CTAs, else cudaGetLastError() after the launch.
 extern "C" int fitgnn_bsr_dyn_apply(const void* blocks, const void* row_splits,
@@ -239,27 +231,26 @@ extern "C" int fitgnn_bsr_dyn_apply(const void* blocks, const void* row_splits,
                                     const void* cols, const void* x, void* out,
                                     int64_t num_row_blocks, int64_t feat,
                                     int trans, void* stream) {
+  const auto* b = static_cast<const float*>(blocks);
+  const auto* rs = static_cast<const int32_t*>(row_splits);
+  const auto* sl = static_cast<const int32_t*>(sel);
+  const auto* sc = static_cast<const int32_t*>(scale);
+  const auto* c = static_cast<const int32_t*>(cols);
+  const auto* xp = static_cast<const float*>(x);
+  auto* op = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (trans) {
+    return static_cast<int>(sparse::launch<true>(b, rs, sl, sc, c, xp, op,
+                                                 num_row_blocks, feat, s));
+  }
   if (num_row_blocks > 0 && feat > 0) {
     const int64_t slices = (feat + FT - 1) / FT;
     const int64_t ctas = num_row_blocks * slices;
     if (ctas > 0x7fffffff) {
       return static_cast<int>(cudaErrorInvalidConfiguration);
     }
-    const auto s = static_cast<cudaStream_t>(stream);
-    const auto* b = static_cast<const float*>(blocks);
-    const auto* rs = static_cast<const int32_t*>(row_splits);
-    const auto* sl = static_cast<const int32_t*>(sel);
-    const auto* sc = static_cast<const int32_t*>(scale);
-    const auto* c = static_cast<const int32_t*>(cols);
-    const auto* xp = static_cast<const float*>(x);
-    auto* op = static_cast<float*>(out);
-    if (trans) {
-      bsr_dyn_kernel<true><<<static_cast<unsigned>(ctas), THREADS, 0, s>>>(
-          b, rs, sl, sc, c, xp, op, feat, slices);
-    } else {
-      bsr_dyn_kernel<false><<<static_cast<unsigned>(ctas), THREADS, 0, s>>>(
-          b, rs, sl, sc, c, xp, op, feat, slices);
-    }
+    bsr_dyn_kernel<<<static_cast<unsigned>(ctas), THREADS, 0, s>>>(
+        b, rs, sl, sc, c, xp, op, feat, slices);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 // BCSR tile walks: K1 (out = init + sum_k A_k . X[col_k]), K2 (the same
-// from zero), K9 (from zero on the group-padded layout) and K10 (from zero,
-// the row walk on the filler-free layout).
+// from zero), K9 (from zero on the group-padded layout, by the non-zero
+// walk of tile_sparse.cuh) and K10 (from zero, the row walk on the
+// filler-free layout).
 //
 // K1 replaces the TPU kernel fitgnn_tpu/ops/pallas/bsr_spmm.py:_kernel_acc
 // (grid built by _bsr_spmm_fwd_acc, entry bsr_spmm_acc_raw), K2 its _kernel
@@ -18,7 +19,7 @@
 // Bound on an H100: memory.  The function needs 2 FLOPs per tile non-zero
 // and feature, a few FLOPs a byte, so reading the tiles, the X slabs (and
 // init) and writing out bound it.  The bench graph's tiles are ~3% full, so
-// the dense tile product these kernels do costs ~33x the FLOPs the function
+// the dense tile product K1, K2 and K10 do costs ~33x the FLOPs the function
 // needs and the CUDA cores' f32 rate limits the kernels themselves.  The
 // design answers with a register-blocked product (tile_fma.cuh: 8x4
 // outputs a thread, 32 FMAs per 3 shared-memory vector loads) and a flat
@@ -26,13 +27,16 @@
 // fastest, so the CTAs that reread one tile run together and find it in L2,
 // and the row count is limited only by grid.x (2^31 - 1 CTAs).
 //
-// K9: the TPU's group amortises its per-grid-step cost over `group` tiles
-// (one (group, 128, 128) DMA a step); the layout pads every row's run to a
-// multiple of `group` with zero tiles, which K9 reads and multiplies as the
-// TPU does, so it moves more bytes than K2 for the same function.  Each
-// 32-deep stage here holds 32/group columns of every tile of the group, as
-// float4 slots interleaved tile by tile, so one stage and one barrier pair
-// span the whole group and the FMA loop is K1's.
+// K9 is the exception: it walks each tile's non-zeros (tile_sparse.cuh,
+// the rows orientation) instead of the dense product.  The TPU's group
+// amortises its per-grid-step cost over `group` tiles (one (group, 128,
+// 128) DMA a step), and the layout pads every row's run to a multiple of
+// `group` with zero tiles (57% more tiles on the bench graph).  A CUDA grid
+// has no such per-step cost, so K9 walks the padded run as a plain run: a
+// pad, like a coverage filler, costs only the read of its zeros (no slab
+// copy, no FMA), and the group is not read at all.  Bytes bound it, the
+// tiles' first of all; tile_sparse.cuh says what the walk does about that
+// and where it departs from the dense product on non-finite inputs.
 //
 // K10: the TPU's row walk double-buffers the tile and X DMAs so that tile
 // k+1 arrives while tile k is multiplied, and it needs no coverage fillers.
@@ -47,21 +51,24 @@
 #include <cstdint>
 
 #include "tile_fma.cuh"
+#include "tile_sparse.cuh"
 
 namespace {
 
 using namespace tile;
+using sparse::cp_async16;
+using sparse::cp_async4;
+using sparse::cp_async_commit;
+using sparse::cp_async_wait;
 
-// INIT: start from init (K1), else from zero (K2, K9); GROUPED: K9's
-// interleaved staging of `group` tiles
-template <bool INIT, bool GROUPED>
+// INIT: start from init (K1), else from zero (K2)
+template <bool INIT>
 __global__ void __launch_bounds__(THREADS)
 bsr_walk_kernel(const float* __restrict__ blocks,
                 const int32_t* __restrict__ row_splits,
                 const int32_t* __restrict__ cols,
                 const float* __restrict__ x, const float* __restrict__ init,
-                float* __restrict__ out, int64_t feat, int64_t slices,
-                int group) {
+                float* __restrict__ out, int64_t feat, int64_t slices) {
   __shared__ __align__(16) ATile As;
   __shared__ __align__(16) XTile Xs;
 
@@ -74,41 +81,14 @@ bsr_walk_kernel(const float* __restrict__ blocks,
   float acc[TM][TN];
   load_acc(acc, INIT ? init : nullptr, r, f0, row0, col0, feat);
 
-  const int g = GROUPED ? group : 1;
   const int lo = row_splits[r];
   const int hi = row_splits[r + 1];
-  for (int k = lo; k < hi; k += g) {
-    // stage s covers the float4 slots f = s*8 .. s*8+7 of the group; slot
-    // f is columns 4*(f / g) .. +3 of tile k + f % g
-    for (int s = 0; s < (BLK / KC) * g; ++s) {
-      if (GROUPED) {
-        for (int q = tid; q < BLK * (KC / 4); q += THREADS) {
-          const int row = q / (KC / 4);
-          const int p = q % (KC / 4);
-          const int f = s * (KC / 4) + p;
-          const float4 v = *reinterpret_cast<const float4*>(
-              blocks + static_cast<int64_t>(k + f % g) * BLK * BLK
-              + static_cast<int64_t>(row) * BLK + (f / g) * 4);
-          As[4 * p + 0][row] = v.x;
-          As[4 * p + 1][row] = v.y;
-          As[4 * p + 2][row] = v.z;
-          As[4 * p + 3][row] = v.w;
-        }
-        for (int q = tid; q < KC * FT; q += THREADS) {
-          const int kk = q / FT;
-          const int c = q % FT;
-          const int f = s * (KC / 4) + kk / 4;
-          const int64_t xr = static_cast<int64_t>(cols[k + f % g]) * BLK
-                             + (f / g) * 4 + kk % 4;
-          const int64_t gc = f0 + c;
-          Xs[kk][c] = gc < feat ? x[xr * feat + gc] : 0.f;
-        }
-      } else {
-        stage_a_cols(As, blocks + static_cast<int64_t>(k) * BLK * BLK,
-                     s * KC, tid);
-        stage_x_rows(Xs, x + (static_cast<int64_t>(cols[k]) * BLK + s * KC)
-                             * feat, f0, feat, tid);
-      }
+  for (int k = lo; k < hi; ++k) {
+    for (int s = 0; s < BLK / KC; ++s) {
+      stage_a_cols(As, blocks + static_cast<int64_t>(k) * BLK * BLK,
+                   s * KC, tid);
+      stage_x_rows(Xs, x + (static_cast<int64_t>(cols[k]) * BLK + s * KC)
+                           * feat, f0, feat, tid);
       __syncthreads();
       fma_chunk(As, Xs, acc, row0, col0);
       __syncthreads();
@@ -123,29 +103,6 @@ constexpr int RW_LD = BLK + 4;                 // staged tile row stride
 constexpr int RW_A = BLK * RW_LD;              // floats of a staged tile
 constexpr int RW_X = BLK * FT;                 // floats of a staged X slab
 constexpr int RW_SMEM = 2 * (RW_A + RW_X) * static_cast<int>(sizeof(float));
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
-                                          int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
 
 // VEC: x starts on a 16-byte boundary and feat % 4 == 0, so X rows copy as
 // 16-byte pieces; otherwise 4-byte pieces.  Columns past feat zero-fill.
@@ -243,8 +200,8 @@ bsr_rowwalk_kernel(const float* __restrict__ blocks,
   store_acc(acc, out, r, f0, row0, col0, feat);
 }
 
-// the flat grid of a walk: num_row_blocks * ceil(feat / FT) CTAs, or 0 when
-// it would exceed 2^31 - 1
+// the flat grid of a dense walk: num_row_blocks * ceil(feat / FT) CTAs, or
+// 0 when it would exceed 2^31 - 1
 int64_t walk_ctas(int64_t num_row_blocks, int64_t feat, int64_t* slices) {
   *slices = (feat + FT - 1) / FT;
   const int64_t ctas = num_row_blocks * *slices;
@@ -253,8 +210,7 @@ int64_t walk_ctas(int64_t num_row_blocks, int64_t feat, int64_t* slices) {
 
 int launch_walk(const void* blocks, const void* row_splits, const void* cols,
                 const void* x, const void* init, void* out,
-                int64_t num_row_blocks, int64_t feat, int group,
-                void* stream) {
+                int64_t num_row_blocks, int64_t feat, void* stream) {
   if (num_row_blocks > 0 && feat > 0) {
     int64_t slices;
     const int64_t ctas = walk_ctas(num_row_blocks, feat, &slices);
@@ -267,15 +223,12 @@ int launch_walk(const void* blocks, const void* row_splits, const void* cols,
     const auto* in = static_cast<const float*>(init);
     auto* o = static_cast<float*>(out);
     const unsigned grid = static_cast<unsigned>(ctas);
-    if (group > 1) {
-      bsr_walk_kernel<false, true><<<grid, THREADS, 0, s>>>(
-          b, rs, c, xi, nullptr, o, feat, slices, group);
-    } else if (in != nullptr) {
-      bsr_walk_kernel<true, false><<<grid, THREADS, 0, s>>>(
-          b, rs, c, xi, in, o, feat, slices, 1);
+    if (in != nullptr) {
+      bsr_walk_kernel<true><<<grid, THREADS, 0, s>>>(b, rs, c, xi, in, o,
+                                                     feat, slices);
     } else {
-      bsr_walk_kernel<false, false><<<grid, THREADS, 0, s>>>(
-          b, rs, c, xi, nullptr, o, feat, slices, 1);
+      bsr_walk_kernel<false><<<grid, THREADS, 0, s>>>(b, rs, c, xi, nullptr,
+                                                      o, feat, slices);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -295,7 +248,7 @@ extern "C" int fitgnn_bsr_spmm_acc(const void* blocks, const void* row_splits,
                                    int64_t num_row_blocks, int64_t feat,
                                    void* stream) {
   return launch_walk(blocks, row_splits, cols, x, init, out, num_row_blocks,
-                     feat, 1, stream);
+                     feat, stream);
 }
 
 // K2: out = A . x
@@ -304,19 +257,21 @@ extern "C" int fitgnn_bsr_spmm(const void* blocks, const void* row_splits,
                                int64_t num_row_blocks, int64_t feat,
                                void* stream) {
   return launch_walk(blocks, row_splits, cols, x, nullptr, out,
-                     num_row_blocks, feat, 1, stream);
+                     num_row_blocks, feat, stream);
 }
 
-// K9: out = A . x on a layout whose every row run is a multiple of group
-// (> 1) tiles
+// K9: out = A . x on the group-padded layout, by the non-zero walk
 extern "C" int fitgnn_bsr_spmm_grouped(const void* blocks,
                                        const void* row_splits,
                                        const void* cols, const void* x,
                                        void* out, int64_t num_row_blocks,
-                                       int64_t feat, int group, void* stream) {
-  if (group < 2) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_walk(blocks, row_splits, cols, x, nullptr, out,
-                     num_row_blocks, feat, group, stream);
+                                       int64_t feat, void* stream) {
+  return static_cast<int>(sparse::launch<false>(
+      static_cast<const float*>(blocks),
+      static_cast<const int32_t*>(row_splits), nullptr, nullptr,
+      static_cast<const int32_t*>(cols), static_cast<const float*>(x),
+      static_cast<float*>(out), num_row_blocks, feat,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K10: out = A . x, the row walk; vec != 0 when x starts on a 16-byte

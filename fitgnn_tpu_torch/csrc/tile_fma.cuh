@@ -1,5 +1,5 @@
 // The 128x128 tile product core shared by the BCSR walks (bsr_spmm.cu: K1,
-// K2, K9) and the block-diagonal run (diag_spmm.cu: K8).
+// K2) and the block-diagonal run (diag_spmm.cu: K8).
 //
 // One CTA of 256 threads owns a 128-row output block and a slice of FT=64
 // feature columns.  Each thread keeps an 8x4 block of the output in f32

@@ -1,0 +1,332 @@
+// The non-zero walk of a dense 128x128 tile, in two orientations: rows
+// (K9, bsr_spmm.cu) and columns (K4 transposed, K4T, bsr_dynamic.cu).
+//
+// Both compute out[r] = sum_k s_k . op(A_k) @ X[c_k] over a block row's
+// run of tiles, where op is the identity (rows) or the transpose
+// (columns).  The rows orientation replaces the TPU kernel
+// fitgnn_tpu/ops/pallas/bsr_spmm.py:_make_grouped_kernel (grid
+// _bsr_spmm_fwd_grouped), the columns orientation
+// fitgnn_tpu/ops/pallas/bsr_dynamic.py:_make_dyn_kernel(trans=True) (grid
+// _dyn_apply).
+//
+// Bound on an H100: bytes.  The tiles are ~3% full on the bench graph
+// (~3.9 non-zeros a tile row or column), so the function needs 2 FLOPs per
+// tile non-zero and feature, and the dense tiles (64 KiB each), the X
+// slabs and the output bound it.  The dense 128x128 product (tile_fma.cuh)
+// spends ~97% of its FMAs on zeros and cannot reach that bound on the CUDA
+// cores.  The walk reads each dense tile in place, finds its non-zeros
+// with __ballot_sync and applies only those: the FMAs a tile costs are
+// proportional to its non-zeros, and a tile with none (K9's group pads,
+// the coverage fillers) costs only its read: no shared-memory store, no
+// slab copy, no FMA.  The group is not read: a padded run is a plain run.
+//
+// Grid: one CTA per (output block row, FT=128 feature columns), the slice
+// varying fastest, so the CTAs that reread one tile run together and find
+// it in L2.  512 threads: each of the 16 warps owns 8 output rows in f32
+// registers, a lane 4 feature columns.  One CTA an SM (the tile and the
+// slab take 128 KB of shared memory); the registers hold the next tile (8
+// float4 a thread) while the current one is applied.  Measured on the
+// bench graph, FT=128 beats FT=64 at two CTAs an SM: half the rereads of
+// each tile from L2 at F=512, each tile read once at F=128, and four FMAs
+// per broadcast non-zero instead of two.
+//
+// Per tile, in order:
+// 1. the CTA votes (__syncthreads_or) on whether the tile, already in
+//    registers, has a non-zero; the vote is also the barrier after the
+//    last apply, so shared memory may be overwritten;
+// 2. if so, the tile goes to shared memory and its X slab (128 x FT) is
+//    copied there with cp.async, 16-byte pieces where x starts on a
+//    16-byte boundary and F % 4 == 0, else 4-byte pieces (columns past F
+//    zero-filled);
+// 3. the next tile's loads start (its indices were read one step earlier,
+//    so no load waits on an index), then the slab is waited for and the
+//    non-zeros applied while those loads are in flight.
+//
+// Bank conflicts: the tile is stored with chunk q (floats 4q .. 4q+3) of
+// row i at chunk q ^ (i % 8), an XOR swizzle of the 16-byte chunks.  The
+// columns orientation reads one chunk of 32 rows j = lane + 32m as float4,
+// served 8 lanes a phase: at a plain stride of 128 floats those 8 rows
+// hit the same 4 banks (8-way); swizzled they hit 8 distinct chunks, all
+// 32 banks.  The rows orientation reads 32 consecutive floats of one row,
+// which the swizzle keeps on 32 banks, and the 16-byte stores (8 chunks of
+// a row a phase) stay conflict-free.  The alternative, a row stride of 129
+// floats, needs 4-byte copies and 4-byte reads.
+//
+// Order and numbers: each output element sums its products in ascending
+// tile order and, within a tile, in ascending contraction index: a lane
+// takes the contraction indices j = lane + 32m (m = 0..3), so one ballot
+// per m lists them in order.  No atomics, so the result is deterministic.
+// An entry counts as a non-zero when v != 0, so a NaN entry is applied and
+// propagates.  A divergence from the dense product (and the TPU kernel):
+// an inf or NaN in X at a row that only zero tile entries reach gives 0
+// there, not 0 * inf = NaN.  The main path never feeds one: GAT's tile
+// values are where(mask, exp(.), 0) and the features are finite.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace sparse {
+
+constexpr int BLK = 128;                        // tile edge (rows = cols)
+constexpr int FT = 128;                         // feature columns a CTA
+constexpr int FL = FT / 32;                     // feature columns a lane
+static_assert(FL == 4, "a lane's columns are one float4");
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int ROWS = BLK / WARPS;               // output rows a warp: 8
+constexpr unsigned FULL = 0xffffffffu;
+
+// dynamic shared memory: the tile and the X slab, 128 KB
+constexpr int SMEM = (BLK * BLK + BLK * FT) * static_cast<int>(sizeof(float));
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Starts the copy xs[j][c] = xb[j][f0 + c] of the 128 slab rows, 0 past
+// feat, as one cp.async group.  VEC: x starts on a 16-byte boundary and
+// feat % 4 == 0, so rows copy as 16-byte pieces; otherwise 4-byte pieces.
+template <bool VEC>
+__device__ __forceinline__ void start_slab(float* xs,
+                                           const float* __restrict__ xb,
+                                           int64_t f0, int64_t feat,
+                                           int tid) {
+  if (VEC) {
+    for (int q = tid; q < BLK * FT / 4; q += THREADS) {
+      const int j = q / (FT / 4);
+      const int c4 = (q % (FT / 4)) * 4;
+      const int64_t gc = f0 + c4;
+      const bool ok = gc < feat;
+      cp_async16(xs + j * FT + c4, ok ? xb + j * feat + gc : xb,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int q = tid; q < BLK * FT; q += THREADS) {
+      const int j = q / FT;
+      const int c = q % FT;
+      const int64_t gc = f0 + c;
+      const bool ok = gc < feat;
+      cp_async4(xs + j * FT + c, ok ? xb + j * feat + gc : xb, ok ? 4 : 0);
+    }
+  }
+  cp_async_commit();
+}
+
+// acc += sum, over the lanes' entries e != 0 in ascending lane order, of
+// s.e . xs[j0 + lane][the lane's 4 columns]: one ballot, then a
+// broadcast, a 16-byte slab read and 4 FMAs per non-zero
+__device__ __forceinline__ void apply(float e, int j0, float s,
+                                      const float* xs, int lane,
+                                      float (&acc)[FL]) {
+  unsigned nz = __ballot_sync(FULL, e != 0.f);
+  while (nz) {
+    const int src = __ffs(nz) - 1;
+    nz &= nz - 1;
+    const float v = __shfl_sync(FULL, e, src) * s;
+    const float4 xv =
+        *reinterpret_cast<const float4*>(xs + (j0 + src) * FT + FL * lane);
+    acc[0] = fmaf(v, xv.x, acc[0]);
+    acc[1] = fmaf(v, xv.y, acc[1]);
+    acc[2] = fmaf(v, xv.z, acc[2]);
+    acc[3] = fmaf(v, xv.w, acc[3]);
+  }
+}
+
+// out rows r*BLK + row0 .. +ROWS-1, the lane's columns of slice f0: one
+// 16-byte store a row where feat % 4 == 0 (out is fresh, so its rows then
+// start on 16-byte boundaries), else one store a column
+__device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
+                                           float* __restrict__ out,
+                                           int64_t r, int64_t f0, int row0,
+                                           int lane, int64_t feat) {
+  const int64_t c = f0 + FL * lane;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    float* o = out + (r * BLK + row0 + i) * feat + c;
+    if (feat % 4 == 0 && c + FL <= feat) {
+      *reinterpret_cast<float4*>(o) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int f = 0; f < FL; ++f) {
+        if (c + f < feat) o[f] = acc[i][f];
+      }
+    }
+  }
+}
+
+// The tile walk.  TRANS = false, rows orientation (K9): out[r] = sum_k
+// A_k @ X[cols[k]] over the run row_splits[r] .. row_splits[r+1]; sel and
+// scale are unused.  TRANS = true, columns orientation (K4T): out[r] =
+// sum_k scale[k] . A_{sel[k]}^T @ X[cols[k]]; a slot with scale 0 (a
+// coverage filler of the transpose plan) is skipped uniformly.
+template <bool TRANS, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+walk_kernel(const float* __restrict__ blocks,
+            const int32_t* __restrict__ row_splits,
+            const int32_t* __restrict__ sel,
+            const int32_t* __restrict__ scale,
+            const int32_t* __restrict__ cols,
+            const float* __restrict__ x, float* __restrict__ out,
+            int64_t feat, int64_t slices) {
+  extern __shared__ __align__(16) float smem[];
+  float* as = smem;                             // the swizzled tile
+  float* xs = smem + BLK * BLK;                 // the X slab
+  const int64_t r = static_cast<int64_t>(blockIdx.x) / slices;
+  const int64_t f0 = (static_cast<int64_t>(blockIdx.x) % slices) * FT;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row0 = warp * ROWS;
+
+  float acc[ROWS][FL];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+    for (int f = 0; f < FL; ++f) acc[i][f] = 0.f;
+  }
+
+  // a slot's indices, read one step before they are used, so no load of
+  // the walk waits on a load of an index
+  struct Slot {
+    int col;
+    int tile;
+    float s;                                    // 0: nothing to apply
+  };
+  auto slot = [&](int k) {
+    return TRANS ? Slot{cols[k], sel[k], static_cast<float>(scale[k])}
+                 : Slot{cols[k], k, 1.f};
+  };
+  // the thread's chunks of a tile: chunk `lane` of the tile rows warp +
+  // WARPS u, one coalesced 512-byte row a warp and load
+  float4 ch[BLK / WARPS];
+  auto fetch = [&](const Slot& c) {
+    if (c.s != 0.f) {
+      const float4* a = reinterpret_cast<const float4*>(
+          blocks + static_cast<int64_t>(c.tile) * BLK * BLK) + lane;
+#pragma unroll
+      for (int u = 0; u < BLK / WARPS; ++u) {
+        ch[u] = a[(warp + WARPS * u) * (BLK / 4)];
+      }
+    }
+  };
+  // float index of tile entry (i, j): chunk j / 4 of row i sits at chunk
+  // (j / 4) ^ (i % 8)
+  auto at = [](int i, int j) {
+    return i * BLK + 4 * ((j >> 2) ^ (i & 7)) + (j & 3);
+  };
+
+  const int lo = row_splits[r];
+  const int nt = row_splits[r + 1] - lo;
+  const Slot none{0, 0, 0.f};
+  Slot c0 = nt > 0 ? slot(lo) : none;           // tile t, in ch
+  Slot c1 = nt > 1 ? slot(lo + 1) : none;       // tile t + 1
+  fetch(c0);
+  for (int t = 0; t < nt; ++t) {
+    bool any = false;
+    if (c0.s != 0.f) {
+#pragma unroll
+      for (int u = 0; u < BLK / WARPS; ++u) {
+        any |= ch[u].x != 0.f || ch[u].y != 0.f || ch[u].z != 0.f
+               || ch[u].w != 0.f;
+      }
+    }
+    // the vote is also the barrier after the last apply: the tile and the
+    // slab may be overwritten
+    const bool live = __syncthreads_or(any);
+    if (live) {
+#pragma unroll
+      for (int u = 0; u < BLK / WARPS; ++u) {
+        *reinterpret_cast<float4*>(as + at(warp + WARPS * u, 4 * lane)) =
+            ch[u];
+      }
+      start_slab<VEC>(xs, x + static_cast<int64_t>(c0.col) * BLK * feat, f0,
+                      feat, tid);
+    }
+    const float st = c0.s;
+    c0 = c1;
+    fetch(c0);                                  // lands during the apply
+    c1 = t + 2 < nt ? slot(lo + t + 2) : none;
+    if (!live) continue;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (TRANS) {
+      // output rows 4q .. 4q+3 take tile columns 4q .. 4q+3: one float4
+      // of each tile row j = lane + 32m
+#pragma unroll
+      for (int qd = 0; qd < ROWS / 4; ++qd) {
+        const int q = warp * (ROWS / 4) + qd;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int j = lane + 32 * m;
+          const float4 v = *reinterpret_cast<const float4*>(as + at(j, 4 * q));
+          apply(v.x, 32 * m, st, xs, lane, acc[4 * qd + 0]);
+          apply(v.y, 32 * m, st, xs, lane, acc[4 * qd + 1]);
+          apply(v.z, 32 * m, st, xs, lane, acc[4 * qd + 2]);
+          apply(v.w, 32 * m, st, xs, lane, acc[4 * qd + 3]);
+        }
+      }
+    } else {
+      // output row i takes tile row i: entries j = lane + 32m
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          apply(as[at(row0 + i, lane + 32 * m)], 32 * m, 1.f, xs, lane,
+                acc[i]);
+        }
+      }
+    }
+  }
+  store_rows(acc, out, r, f0, row0, lane, feat);
+}
+
+// Launches the walk on the flat grid of num_row_blocks * ceil(feat / FT)
+// CTAs (SMEM bytes of dynamic shared memory each); nothing when either is
+// 0; cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1
+// CTAs, else cudaGetLastError() after the launch
+template <bool TRANS>
+cudaError_t launch(const float* blocks, const int32_t* row_splits,
+                   const int32_t* sel, const int32_t* scale,
+                   const int32_t* cols, const float* x, float* out,
+                   int64_t num_row_blocks, int64_t feat,
+                   cudaStream_t stream) {
+  if (num_row_blocks > 0 && feat > 0) {
+    const int64_t slices = (feat + FT - 1) / FT;
+    const int64_t ctas = num_row_blocks * slices;
+    if (ctas > 0x7fffffff) return cudaErrorInvalidConfiguration;
+    const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0
+                     && feat % 4 == 0;
+    const auto kernel = vec ? walk_kernel<TRANS, true>
+                            : walk_kernel<TRANS, false>;
+    const cudaError_t set = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (set != cudaSuccess) return set;
+    kernel<<<static_cast<unsigned>(ctas), THREADS, SMEM, stream>>>(
+        blocks, row_splits, sel, scale, cols, x, out, feat, slices);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace sparse

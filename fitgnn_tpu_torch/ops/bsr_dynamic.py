@@ -9,7 +9,9 @@ differentiable in ``blocks_dyn`` and ``x``, as the JAX package's
 * forward: K4 (``dyn_tiles``) with the identity selection and scale 1;
 * ``dx``: K4 transposed (``dyn_tiles_t``) over the host-built transpose
   plan, reading ``blocks_dyn[t_sel[k]]ᵀ`` in place (no re-sorted tile
-  copy); coverage-filler slots have ``t_scale`` 0 and add nothing;
+  copy) and applying only each tile column's non-zeros
+  (``csrc/tile_sparse.cuh``); coverage-filler slots have ``t_scale`` 0 and
+  add nothing;
 * ``dblocks``: K5 (``dyn_grad_blocks``), ``dB[k] = g[rows[k]] @ x[cols[k]]ᵀ``.
 
 Each wrapper launches the hand-written kernel of ``csrc/bsr_dynamic.cu``

@@ -21,7 +21,9 @@ Each of the four wrappers launches its hand-written kernel in
 ``csrc/bsr_spmm.cu`` on a CUDA tensor (they replace the TPU kernels
 ``_kernel_acc``, ``_kernel``, ``_make_grouped_kernel`` and
 ``_rowwalk_kernel`` of ``fitgnn_tpu/ops/pallas/bsr_spmm.py``; the source
-note says what bounds them on an H100 and what the designs do about it)
+note says what bounds them on an H100 and what the designs do about it:
+K1, K2 and K10 multiply whole tiles, K9 walks each tile's non-zeros, as
+``csrc/tile_sparse.cuh`` describes)
 and runs the plain version (``bsr_spmm_acc_plain``, ``bsr_spmm_plain``: a
 batched matmul over the gathered X slabs, then ``index_add_`` over block
 rows) on a CPU tensor.  Each has its own ``launches`` count.
@@ -189,7 +191,7 @@ def _operands(b: BsrMatrix, x: torch.Tensor, what: str,
 _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _ARGS_ACC = [_PTR] * 6 + [_I64] * 2 + [_PTR]
 _ARGS_FWD = [_PTR] * 5 + [_I64] * 2 + [_PTR]
-# ... num_row_blocks, feat, group (K9) or vec (K10), stream
+# ... num_row_blocks, feat, vec (K10), stream
 _ARGS_EXTRA = [_PTR] * 5 + [_I64] * 2 + [_INT, _PTR]
 
 
@@ -245,7 +247,9 @@ def bsr_spmm_fwd(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def bsr_spmm_grouped(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """K9: ``A·x`` from zero on the group-padded layout."""
+    """K9: ``A·x`` from zero on the group-padded layout.  The kernel walks
+    each tile's non-zeros and the padded run as a plain run: a zero pad
+    costs only its read, and the group is not passed."""
     if b.rowwalk or b.group < 2:
         raise ValueError("bsr_spmm_grouped: K9 walks the group-padded "
                          f"layout, got rowwalk={b.rowwalk} group={b.group}")
@@ -253,7 +257,7 @@ def bsr_spmm_grouped(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     if dev is None:
         return bsr_spmm_plain(b, x)
     out = _launch(b, x, dev, "bsr_spmm_grouped", "fitgnn_bsr_spmm_grouped",
-                  _ARGS_EXTRA, [x], (b.group,))
+                  _ARGS_FWD, [x])
     bsr_spmm_grouped.launches += 1
     return out
 

@@ -40,7 +40,7 @@ def _device_us(evt) -> float:
 
 
 def _group(name: str) -> str:
-    if "bsr_walk_kernel<true,false>" in name.replace(" ", ""):
+    if "bsr_walk_kernel<true>" in name.replace(" ", ""):
         return "K1 bsr_spmm_acc"
     if "segmm_spmm" in name:
         return "K3 segmm_spmm"

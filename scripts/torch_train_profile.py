@@ -51,12 +51,14 @@ def _device_us(evt) -> float:
 
 def _group(name: str) -> str:
     bare = name.replace(" ", "")
-    if "bsr_walk_kernel<true,false>" in bare:
+    if "bsr_walk_kernel<true>" in bare:
         return "K1 bsr_spmm_acc"
-    if "bsr_walk_kernel<false,false>" in bare:
+    if "bsr_walk_kernel<false>" in bare:
         return "K2 bsr_spmm_fwd"
-    if "bsr_walk_kernel<false,true>" in bare:
+    if "sparse::walk_kernel<false," in bare:
         return "K9 bsr_spmm_grouped"
+    if "sparse::walk_kernel<true," in bare:
+        return "K4T dyn_tiles_t"
     if "bsr_rowwalk_kernel" in name:
         return "K10 bsr_spmm_rowwalk"
     if "diag_spmm_kernel" in name:
@@ -77,8 +79,6 @@ def _group(name: str) -> str:
         return "K6 segmm_weighted_den_raw"
     if "segmm_spmm" in name:
         return "K3/K3w segmm_spmm"
-    if "bsr_dyn_kernel<true>" in name:
-        return "K4T dyn_tiles_t"
     if "bsr_dyn_kernel" in name:
         return "K4 dyn_tiles"
     if "dyn_grad_blocks" in name:

@@ -359,6 +359,104 @@ def test_k2_k9_k10_kernels_match_plain(cuda, layout, feat, aligned):
     assert not got[3 * 128:4 * 128].any()
 
 
+def _sparse_tiles(rng, k):
+    """``k`` tiles at ~3% occupancy whose tile rows and columns 0-9 are
+    empty."""
+    blocks = np.where(rng.random((k, 128, 128)) < 0.03,
+                      rng.standard_normal((k, 128, 128)), 0.0)
+    blocks[:, :10, :] = 0.0
+    blocks[:, :, :10] = 0.0
+    return blocks.astype(np.float32)
+
+
+def _walk_operands(rng, kernel, case):
+    """K9's group-padded BCSR (group 3: every run gains zero pads) or K4ᵀ's
+    tile list with its transpose plan (block column 2 unused: a scale-0
+    filler slot there), with sparse tiles edited by ``case``: one fully
+    dense tile, an all-zero tile inside a run, or a NaN entry.  Returns
+    the operands, the output block of the dense tile (None unless
+    "dense") and the output row the NaN must reach (None unless "nan")."""
+    if kernel == "K9":
+        s, r, w = _coo(rng, 1024, 6_000)
+        b = build_bsr(s, r, w, 1024, group=3, with_transpose=False)
+        lo, hi = (int(v) for v in b.row_splits[:2])
+        blocks = _sparse_tiles(rng, b.nnz_blocks)
+        blocks[~b.blocks.flatten(1).any(1).numpy()] = 0.0  # the pads
+        rows, cols, plan = b.rows.numpy(), b.cols.numpy(), None
+    else:
+        rows, cols, nb = _tiles(rng, nb=6, k=15)
+        plan = build_dyn_plan(rows, cols, nb)
+        splits = plan.t_row_splits.numpy()
+        run = int(np.argmax(np.diff(splits)))
+        lo, hi = int(splits[run]), int(splits[run + 1])
+        blocks = _sparse_tiles(rng, len(rows))
+    assert hi - lo >= 2
+    slot = lo if kernel == "K4T" else lo + 1
+    tile = slot if kernel == "K9" else int(plan.t_sel[slot])
+    dense_block = nan_row = None
+    if case == "dense":
+        blocks[tile] = rng.random((128, 128)) + 0.5
+        dense_block = rows[tile] if kernel == "K9" else cols[tile]
+    elif case == "zero_inside":
+        blocks[tile] = 0.0
+    elif case == "nan":
+        tile = len(rows) - 1 if kernel == "K4T" else tile
+        blocks[tile, 20, 30] = np.nan
+        nan_row = (rows[tile] * 128 + 20 if kernel == "K9"
+                   else cols[tile] * 128 + 30)
+    if kernel == "K9":
+        b.blocks = torch.from_numpy(blocks)
+        return b, dense_block, nan_row
+    return (plan, torch.from_numpy(blocks)), dense_block, nan_row
+
+
+@pytest.mark.parametrize("feat,aligned", [(16, True), (40, True),
+                                          (64, True), (101, True),
+                                          (512, True), (64, False)])
+@pytest.mark.parametrize("case", ["sparse", "dense", "zero_inside", "nan"])
+@pytest.mark.parametrize("kernel", ["K9", "K4T"])
+def test_nonzero_walks_match_plain(cuda, kernel, case, feat, aligned):
+    """K9 and K4ᵀ walk each tile's non-zeros: ~3% occupancy with empty tile
+    rows and columns, a fully dense tile, an all-zero tile inside a run
+    (beside K9's pads and K4ᵀ's scale-0 filler), F that is not a multiple of
+    64 or of 4, an unaligned x, and a NaN tile entry, which must reach its
+    output row and no other."""
+    rng = np.random.default_rng(feat + 8)
+    ops, dense_block, nan_row = _walk_operands(rng, kernel, case)
+    n = 1024 if kernel == "K9" else 6 * 128
+    x = torch.from_numpy(rng.standard_normal((n, feat)).astype(
+        np.float32)).to(cuda)
+    xd = x if aligned else _unaligned(x)
+    if kernel == "K9":
+        b = ops.to(cuda)
+        walk, plain = bsr_spmm_grouped, bsr_spmm_plain
+        args = (b, xd)
+    else:
+        plan, blocks = ops
+        walk, plain = dyn_tiles_t, dyn_tiles_t_plain
+        args = (plan.to(cuda), blocks.to(cuda), xd)
+    before = walk.launches
+    with torch.inference_mode():
+        got = walk(*args)
+        ref = plain(*args)
+    torch.cuda.synchronize()
+    assert walk.launches == before + 1
+    nan = ref.isnan()
+    if nan_row is None:
+        _close(got, ref)
+    else:
+        assert nan.any(1).nonzero().flatten().tolist() == [nan_row]
+        assert nan[nan_row].all() and torch.equal(got.isnan(), nan)
+        keep = ~nan.any(1)
+        _close(got[keep], ref[keep])
+    if kernel == "K4T":
+        assert not got[2 * 128:3 * 128].any()    # the filler's block
+    # output rows 0-9 of a block take tile rows (K9) or columns (K4ᵀ) 0-9
+    empty = torch.cat([torch.arange(r * 128, r * 128 + 10)
+                       for r in range(n // 128) if r != dense_block])
+    assert not got[empty.to(cuda)].any()
+
+
 @pytest.mark.parametrize("feat", [16, 101, 512])
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("with_init", [False, True])
