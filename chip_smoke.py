@@ -1338,7 +1338,7 @@ KERNELS = (
     ("K3", "K3 segmm_spmm", "fitgnn_tpu_torch/csrc/coo_segmm.cu",
      "fitgnn_tpu/ops/pallas/coo_segmm.py:187"),
     ("K4", "K4 dyn_tiles (bsr_spmm_dyn forward)",
-     "fitgnn_tpu_torch/csrc/bsr_dynamic.cu",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/bsr_dynamic.py:68"),
     ("K4T", "K4 dyn_tiles_t (bsr_spmm_dyn dx, transposed)",
      "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
@@ -1373,7 +1373,7 @@ KERNELS = (
      "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/bsr_spmm.py:264"),
     ("K10", "K10 bsr_spmm_rowwalk (row walk)",
-     "fitgnn_tpu_torch/csrc/bsr_spmm.cu",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/bsr_spmm.py:330"),
     ("K11", "K11 philox_dropout (fused_dropout forward and backward)",
      "fitgnn_tpu_torch/csrc/dropout.cu",

@@ -5,25 +5,21 @@
 // from zero.  Replaces the TPU kernel
 // fitgnn_tpu/ops/pallas/bsr_dynamic.py:_make_dyn_kernel (grid built by
 // _dyn_apply, entry bsr_spmm_dyn and its backward).  The tile values are a
-// runtime tensor (GAT's attention numerators), so the walk reads them like
-// any operand.  One CTA owns one output block-row and one 64-column
-// feature slice, walks its slots row_splits[r] .. row_splits[r+1] and
-// writes every output row once.  No atomics, so the result is
-// deterministic.  A slot with scale 0 (a coverage filler of the transpose
-// plan) is skipped, uniformly across the CTA, but its row is still
-// written: as zeros when no real slot lands there.
-//   Forward (trans == 0; sel and scale null = identity and 1): K1's design
-// (csrc/bsr_spmm.cu), the dense tile product.  Each tile is staged in
-// 32-deep chunks as As[k][row] (32 columns of B, read as float4 along a row
-// and stored transposed; the +4 row padding keeps each row 16-byte aligned
-// for the float4 reads of the product loop) with the matching x slab as
-// Xs[k][col], and each thread accumulates 8x4 outputs in f32 registers.
-//   Transposed (trans != 0, K4T, the dx of bsr_spmm_dyn): the non-zero
-// walk of tile_sparse.cuh, columns orientation.  Output row i takes column
-// i of B[sel[k]]: the tile is staged in shared memory under an XOR swizzle
-// of its 16-byte chunks, so a warp reads a column conflict-free, and only
-// the column's non-zeros are applied; a tile without one costs its read
-// only.  tile_sparse.cuh has the bank-conflict choice and the one way its
+// runtime tensor (GAT's attention numerators where(mask, exp(.), 0)), so
+// the walk reads them like any operand.  Both orientations are the
+// non-zero walk of tile_sparse.cuh: one CTA owns one output block-row and
+// one 128-column feature slice, walks its slots row_splits[r] ..
+// row_splits[r+1] and writes every output row once, as zeros when no slot
+// adds to it.  No atomics, so the result is deterministic.
+//   Forward (trans == 0, K4): the rows orientation, slot k = tile k with
+// scale 1, as K9 and K10 (bsr_spmm.cu).  Output row i takes row i of B[k].
+//   Transposed (trans != 0, K4T, the dx of bsr_spmm_dyn): the columns
+// orientation over the transpose plan.  Output row i takes column i of
+// B[sel[k]]: the tile is staged in shared memory under an XOR swizzle of
+// its 16-byte chunks, so a warp reads a column conflict-free.  A slot with
+// scale 0 (a coverage filler of the transpose plan) is skipped uniformly
+// across the CTA.
+// tile_sparse.cuh has the bank-conflict choice and the one way the walk's
 // result departs from the dense product (an inf or NaN in x that only
 // zero tile entries reach).
 //
@@ -36,13 +32,13 @@
 // the g and x slabs transposed (Gs[f][i], Xs[f][j]) from coalesced loads
 // along the feature axis, and writes its tile once.
 //
-// Bound on an H100.  K4 and K4T: memory, as K1.  The function needs 2
-// FLOPs per tile non-zero and feature, and the attention tiles are ~3%
-// full.  The forward does the dense 128x128 product on the CUDA cores' f32
-// FMA, ~33x the FLOPs of a sparse walk, which limits that kernel itself;
-// K4T's walk does 2 FLOPs per non-zero and feature, so the tile reads, the
-// slabs and the output bound it.  K5: operations.  dB is dense
-// (2.192k tiles x 128 x 128 outputs, 2.F FLOPs each: 36.8 GFLOP at
+// Bound on an H100.  K4 and K4T: bytes.  The function needs 2 FLOPs per
+// tile non-zero and feature, and the attention tiles are ~3% full, so the
+// dense tiles (64 KiB each), the slabs and the output bound it; a dense
+// 128x128 product would spend ~97% of its FMAs on zeros.  The walk votes
+// on each tile and applies only its non-zeros, so the coverage fillers
+// (zero values) cost their read and nothing more.  K5: operations.  dB is
+// dense (2.192k tiles x 128 x 128 outputs, 2.F FLOPs each: 36.8 GFLOP at
 // F=512), against ~1.2 GB of slab reads.  The design reuses each staged
 // value 8 times from registers (64 FMAs per four 16-byte shared loads).
 // Tensor cores (TF32 or bf16 wgmma), TMA pipelining and a product sampled
@@ -56,96 +52,6 @@
 namespace {
 
 constexpr int BLK = 128;                          // tile edge (rows = cols)
-
-// K4 tiling (as K1)
-constexpr int FT = 64;                            // feature columns a CTA
-constexpr int KC = 32;                            // tile columns a stage
-constexpr int TM = 8;                             // output rows a thread
-constexpr int TN = 4;                             // output cols a thread
-constexpr int THREADS = (BLK / TM) * (FT / TN);   // 256
-
-__global__ void __launch_bounds__(THREADS)
-bsr_dyn_kernel(const float* __restrict__ blocks,
-               const int32_t* __restrict__ row_splits,
-               const int32_t* __restrict__ sel,
-               const int32_t* __restrict__ scale,
-               const int32_t* __restrict__ cols,
-               const float* __restrict__ x, float* __restrict__ out,
-               int64_t feat, int64_t slices) {
-  __shared__ __align__(16) float As[KC][BLK + 4];
-  __shared__ __align__(16) float Xs[KC][FT];
-
-  const int64_t r = static_cast<int64_t>(blockIdx.x) / slices;
-  const int64_t f0 = (static_cast<int64_t>(blockIdx.x) % slices) * FT;
-  const int tid = threadIdx.x;
-  const int row0 = (tid / (FT / TN)) * TM;
-  const int col0 = (tid % (FT / TN)) * TN;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  }
-
-  const int lo = row_splits[r];
-  const int hi = row_splits[r + 1];
-  for (int k = lo; k < hi; ++k) {
-    const float s = scale != nullptr ? static_cast<float>(scale[k]) : 1.f;
-    if (s == 0.f) continue;                       // filler: uniform skip
-    const int64_t t = sel != nullptr ? sel[k] : k;
-    const float* a = blocks + t * BLK * BLK;
-    const float* xb = x + static_cast<int64_t>(cols[k]) * BLK * feat;
-    for (int kc = 0; kc < BLK; kc += KC) {
-      // As[kk][i] = A[i][kc+kk]: 128 rows x 8 float4, stored transposed
-      for (int q = tid; q < BLK * (KC / 4); q += THREADS) {
-        const int row = q / (KC / 4);
-        const int c4 = (q % (KC / 4)) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(
-            a + static_cast<int64_t>(row) * BLK + kc + c4);
-        As[c4 + 0][row] = v.x * s;
-        As[c4 + 1][row] = v.y * s;
-        As[c4 + 2][row] = v.z * s;
-        As[c4 + 3][row] = v.w * s;
-      }
-      // x[kc:kc+KC, f0:f0+FT], coalesced along the feature axis
-      for (int q = tid; q < KC * FT; q += THREADS) {
-        const int kk = q / FT;
-        const int c = q % FT;
-        const int64_t gc = f0 + c;
-        Xs[kk][c] = gc < feat ? xb[static_cast<int64_t>(kc + kk) * feat + gc]
-                              : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][row0]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][row0 + 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&Xs[kk][col0]);
-        const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t base = (r * BLK + row0 + i) * feat;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t c = f0 + col0 + j;
-      if (c < feat) out[base + c] = acc[i][j];
-    }
-  }
-}
 
 // K5 tiling
 constexpr int FC = 32;                            // features a stage
@@ -220,10 +126,11 @@ dyn_grad_blocks_kernel(const int32_t* __restrict__ rows,
 }  // namespace
 
 // blocks (K,128,128) f32, 16-byte aligned; row_splits (num_row_blocks+1,)
-// int32 slot range per output block-row; sel, scale (slots,) int32 or null
-// (identity, 1; both given when trans != 0); cols (slots,) int32 input
-// block per slot; x, out (num_row_blocks*128, feat) f32; trans != 0 reads
-// each tile transposed.
+// int32 slot range per output block-row; cols (slots,) int32 input block
+// per slot; x, out (num_row_blocks*128, feat) f32.  trans != 0 reads each
+// tile transposed: sel, scale (slots,) int32 are then the tile read by a
+// slot and its scale (0 = filler).  The forward (trans == 0) reads tile k
+// for slot k at scale 1 and passes sel and scale as null.
 // All contiguous.  Returns cudaErrorInvalidConfiguration when the grid
 // would exceed 2^31 - 1 CTAs, else cudaGetLastError() after the launch.
 extern "C" int fitgnn_bsr_dyn_apply(const void* blocks, const void* row_splits,
@@ -233,26 +140,18 @@ extern "C" int fitgnn_bsr_dyn_apply(const void* blocks, const void* row_splits,
                                     int trans, void* stream) {
   const auto* b = static_cast<const float*>(blocks);
   const auto* rs = static_cast<const int32_t*>(row_splits);
-  const auto* sl = static_cast<const int32_t*>(sel);
-  const auto* sc = static_cast<const int32_t*>(scale);
   const auto* c = static_cast<const int32_t*>(cols);
   const auto* xp = static_cast<const float*>(x);
   auto* op = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   if (trans) {
-    return static_cast<int>(sparse::launch<true>(b, rs, sl, sc, c, xp, op,
-                                                 num_row_blocks, feat, s));
+    return static_cast<int>(sparse::launch<true>(
+        b, rs, static_cast<const int32_t*>(sel),
+        static_cast<const int32_t*>(scale), c, xp, op, num_row_blocks, feat,
+        s));
   }
-  if (num_row_blocks > 0 && feat > 0) {
-    const int64_t slices = (feat + FT - 1) / FT;
-    const int64_t ctas = num_row_blocks * slices;
-    if (ctas > 0x7fffffff) {
-      return static_cast<int>(cudaErrorInvalidConfiguration);
-    }
-    bsr_dyn_kernel<<<static_cast<unsigned>(ctas), THREADS, 0, s>>>(
-        b, rs, sl, sc, c, xp, op, feat, slices);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(sparse::launch<false>(
+      b, rs, nullptr, nullptr, c, xp, op, num_row_blocks, feat, s));
 }
 
 // rows, cols (num_tiles,) int32 block ids; g, x (*, feat) f32; dB

@@ -1,11 +1,18 @@
 // The non-zero walk of a dense 128x128 tile, in two orientations: rows
-// (K9, bsr_spmm.cu) and columns (K4 transposed, K4T, bsr_dynamic.cu).
+// (K9 and K10, bsr_spmm.cu; K4, bsr_dynamic.cu) and columns (K4
+// transposed, K4T, bsr_dynamic.cu).
 //
 // Both compute out[r] = sum_k s_k . op(A_k) @ X[c_k] over a block row's
 // run of tiles, where op is the identity (rows) or the transpose
-// (columns).  The rows orientation replaces the TPU kernel
-// fitgnn_tpu/ops/pallas/bsr_spmm.py:_make_grouped_kernel (grid
-// _bsr_spmm_fwd_grouped), the columns orientation
+// (columns).  The rows orientation replaces three TPU kernels, all
+// out = A . x from zero over a sorted tile list:
+//   fitgnn_tpu/ops/pallas/bsr_spmm.py:_make_grouped_kernel (grid
+//     _bsr_spmm_fwd_grouped; K9, the group-padded layout),
+//   fitgnn_tpu/ops/pallas/bsr_spmm.py:_rowwalk_kernel (grid
+//     _bsr_spmm_rowwalk; K10, the filler-free layout),
+//   fitgnn_tpu/ops/pallas/bsr_dynamic.py:_make_dyn_kernel(trans=False)
+//     (grid _dyn_apply; K4, GAT's runtime tile values);
+// the columns orientation
 // fitgnn_tpu/ops/pallas/bsr_dynamic.py:_make_dyn_kernel(trans=True) (grid
 // _dyn_apply).
 //
@@ -17,8 +24,10 @@
 // cores.  The walk reads each dense tile in place, finds its non-zeros
 // with __ballot_sync and applies only those: the FMAs a tile costs are
 // proportional to its non-zeros, and a tile with none (K9's group pads,
-// the coverage fillers) costs only its read: no shared-memory store, no
-// slab copy, no FMA.  The group is not read: a padded run is a plain run.
+// the coverage fillers of K4 and K4T, whose values are zero) costs only
+// its read: no shared-memory store, no slab copy, no FMA.  The group is
+// not read: a padded run is a plain run.  A block row without tiles (K10's
+// layout has no fillers) walks nothing and stores zeros.
 //
 // Grid: one CTA per (output block row, FT=128 feature columns), the slice
 // varying fastest, so the CTAs that reread one tile run together and find
@@ -176,9 +185,10 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
   }
 }
 
-// The tile walk.  TRANS = false, rows orientation (K9): out[r] = sum_k
-// A_k @ X[cols[k]] over the run row_splits[r] .. row_splits[r+1]; sel and
-// scale are unused.  TRANS = true, columns orientation (K4T): out[r] =
+// The tile walk.  TRANS = false, rows orientation (K9, K10 and K4):
+// out[r] = sum_k A_k @ X[cols[k]] over the run row_splits[r] ..
+// row_splits[r+1], zeros when the run is empty; sel and scale are unused
+// (the callers pass null).  TRANS = true, columns orientation (K4T): out[r] =
 // sum_k scale[k] . A_{sel[k]}^T @ X[cols[k]]; a slot with scale 0 (a
 // coverage filler of the transpose plan) is skipped uniformly.
 template <bool TRANS, bool VEC>

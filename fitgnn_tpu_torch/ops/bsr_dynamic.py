@@ -6,12 +6,13 @@ runtime tensor (GAT's attention numerators ``exp(e − m)·mask``), and is
 differentiable in ``blocks_dyn`` and ``x``, as the JAX package's
 ``ops/pallas/bsr_dynamic.py`` is:
 
-* forward: K4 (``dyn_tiles``) with the identity selection and scale 1;
+* forward: K4 (``dyn_tiles``) over ``plan.row_splits``, tile k for slot
+  k, applying only each tile row's non-zeros (``csrc/tile_sparse.cuh``,
+  the rows orientation); the coverage fillers' zero values cost their read;
 * ``dx``: K4 transposed (``dyn_tiles_t``) over the host-built transpose
   plan, reading ``blocks_dyn[t_sel[k]]ᵀ`` in place (no re-sorted tile
-  copy) and applying only each tile column's non-zeros
-  (``csrc/tile_sparse.cuh``); coverage-filler slots have ``t_scale`` 0 and
-  add nothing;
+  copy) and applying only each tile column's non-zeros (the columns
+  orientation); coverage-filler slots have ``t_scale`` 0 and add nothing;
 * ``dblocks``: K5 (``dyn_grad_blocks``), ``dB[k] = g[rows[k]] @ x[cols[k]]ᵀ``.
 
 Each wrapper launches the hand-written kernel of ``csrc/bsr_dynamic.cu``

@@ -22,7 +22,7 @@ Each of the four wrappers launches its hand-written kernel in
 ``_kernel_acc``, ``_kernel``, ``_make_grouped_kernel`` and
 ``_rowwalk_kernel`` of ``fitgnn_tpu/ops/pallas/bsr_spmm.py``; the source
 note says what bounds them on an H100 and what the designs do about it:
-K1, K2 and K10 multiply whole tiles, K9 walks each tile's non-zeros, as
+K1 and K2 multiply whole tiles, K9 and K10 walk each tile's non-zeros, as
 ``csrc/tile_sparse.cuh`` describes)
 and runs the plain version (``bsr_spmm_acc_plain``, ``bsr_spmm_plain``: a
 batched matmul over the gathered X slabs, then ``index_add_`` over block
@@ -188,24 +188,21 @@ def _operands(b: BsrMatrix, x: torch.Tensor, what: str,
 
 
 # blocks, row_splits, cols, x, [init,] out, num_row_blocks, feat, stream
-_PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
 _ARGS_ACC = [_PTR] * 6 + [_I64] * 2 + [_PTR]
 _ARGS_FWD = [_PTR] * 5 + [_I64] * 2 + [_PTR]
-# ... num_row_blocks, feat, vec (K10), stream
-_ARGS_EXTRA = [_PTR] * 5 + [_I64] * 2 + [_INT, _PTR]
 
 
 def _launch(b: BsrMatrix, x: torch.Tensor, dev: torch.device, what: str,
-            name: str, argtypes: list, ins: list, tail: tuple = ()
-            ) -> torch.Tensor:
+            name: str, argtypes: list, ins: list) -> torch.Tensor:
     """Launch C entry ``name`` on the tile structure, the input tensors
-    ``ins`` and a fresh output, then the sizes and the ``tail`` ints."""
+    ``ins`` and a fresh output, then the sizes."""
     out = torch.empty_like(x)
     launch = kernels.function("bsr_spmm", name, argtypes)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(b.blocks), kernels.ptr(b.row_splits),
                     kernels.ptr(b.cols), *(kernels.ptr(t) for t in ins),
-                    kernels.ptr(out), b.num_row_blocks, x.shape[1], *tail,
+                    kernels.ptr(out), b.num_row_blocks, x.shape[1],
                     kernels.stream(dev))
     kernels.check(rc, what)
     return out
@@ -263,16 +260,15 @@ def bsr_spmm_grouped(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def bsr_spmm_rowwalk(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """K10: ``A·x`` from zero on the row-walk layout; a block row without
-    tiles comes out zero."""
+    """K10: ``A·x`` from zero on the row-walk layout, by the walk of each
+    tile's non-zeros; a block row without tiles comes out zero."""
     if not b.rowwalk:
         raise ValueError("bsr_spmm_rowwalk: K10 walks the row-walk layout")
     dev = _operands(b, x, "bsr_spmm_rowwalk")
     if dev is None:
         return bsr_spmm_plain(b, x)
-    vec = int(x.data_ptr() % 16 == 0 and x.shape[1] % 4 == 0)
     out = _launch(b, x, dev, "bsr_spmm_rowwalk", "fitgnn_bsr_spmm_rowwalk",
-                  _ARGS_EXTRA, [x], (vec,))
+                  _ARGS_FWD, [x])
     bsr_spmm_rowwalk.launches += 1
     return out
 

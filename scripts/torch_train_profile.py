@@ -18,7 +18,11 @@ each it prints:
   from CUDA events over 10 steps after 3 warm-ups;
 * a ``torch.profiler`` table of device time per kernel over 5 steps,
   grouped into the port's kernels (K1-K11), the dense layers (cuBLAS), the
-  optimizer and the rest;
+  optimizer and the rest.  K4, K9 and K10 all launch the rows walk
+  ``sparse::walk_kernel<false, …>``, so that kernel is labelled by the
+  configuration (K4 in the default GAT run, K9 on ``tile_group=2``, K10 on
+  ``use_rowwalk``), and the launch counters must show that the profiled
+  steps launched that one and no other;
 * the device's idle share over the profiled window: 1 - (summed kernel
   time) / (window time on the host clock, ended by a synchronize).
 """
@@ -49,18 +53,31 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _group(name: str) -> str:
+def _rows_walk_users() -> dict:
+    """The wrappers that launch ``sparse::walk_kernel<false, …>``, by the
+    label of their profile group."""
+    from fitgnn_tpu_torch.ops.bsr_dynamic import dyn_tiles
+    from fitgnn_tpu_torch.ops.bsr_spmm import (bsr_spmm_grouped,
+                                               bsr_spmm_rowwalk)
+    return {"K4 dyn_tiles": dyn_tiles, "K9 bsr_spmm_grouped": bsr_spmm_grouped,
+            "K10 bsr_spmm_rowwalk": bsr_spmm_rowwalk}
+
+
+def _group(name: str, rows_walk: str | None) -> str:
+    """The profile group of kernel ``name``; ``rows_walk`` labels the rows
+    walk, which several wrappers share."""
     bare = name.replace(" ", "")
     if "bsr_walk_kernel<true>" in bare:
         return "K1 bsr_spmm_acc"
     if "bsr_walk_kernel<false>" in bare:
         return "K2 bsr_spmm_fwd"
     if "sparse::walk_kernel<false," in bare:
-        return "K9 bsr_spmm_grouped"
+        if rows_walk is None:
+            raise RuntimeError(f"{name} ran in a configuration that expects "
+                               "no rows walk")
+        return rows_walk
     if "sparse::walk_kernel<true," in bare:
         return "K4T dyn_tiles_t"
-    if "bsr_rowwalk_kernel" in name:
-        return "K10 bsr_spmm_rowwalk"
     if "diag_spmm_kernel" in name:
         return "K8 diag_spmm"
     if "philox_dropout_kernel" in name:
@@ -79,8 +96,6 @@ def _group(name: str) -> str:
         return "K6 segmm_weighted_den_raw"
     if "segmm_spmm" in name:
         return "K3/K3w segmm_spmm"
-    if "bsr_dyn_kernel" in name:
-        return "K4 dyn_tiles"
     if "dyn_grad_blocks" in name:
         return "K5 dyn_grad_blocks"
     if "gemm" in name or "sgemm" in name or "matmul" in name.lower():
@@ -93,7 +108,10 @@ def _group(name: str) -> str:
     return "elementwise, reductions, dropout, copies"
 
 
-def profile_step(layer: str, g, dev, label: str, **model_kw) -> dict:
+def profile_step(layer: str, g, dev, label: str, rows_walk: str | None,
+                 **model_kw) -> dict:
+    """Times and profiles one configuration; ``rows_walk`` is the label of
+    the one rows-walk wrapper its step launches (None: none)."""
     from fitgnn_tpu_torch.models.models import NodeModel
     from fitgnn_tpu_torch.train import steps
 
@@ -119,6 +137,8 @@ def profile_step(layer: str, g, dev, label: str, **model_kw) -> dict:
     end.synchronize()
     step_ms = start.elapsed_time(end) / 10
 
+    users = _rows_walk_users()
+    before = {k: fn.launches for k, fn in users.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -127,6 +147,11 @@ def profile_step(layer: str, g, dev, label: str, **model_kw) -> dict:
             step()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+    launched = sorted(k for k, fn in users.items()
+                      if fn.launches > before[k])
+    if launched != ([rows_walk] if rows_walk else []):
+        raise RuntimeError(f"{label}: the profiled steps launched the rows "
+                           f"walk through {launched}, expected {rows_walk}")
 
     groups: dict = {}
     rows = []
@@ -135,7 +160,7 @@ def profile_step(layer: str, g, dev, label: str, **model_kw) -> dict:
         if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         rows.append((us, evt.count, evt.key))
-        k = _group(evt.key)
+        k = _group(evt.key, rows_walk)
         groups[k] = groups.get(k, 0.0) + us / 1e3 / PROFILED
     rows.sort(reverse=True)
     print(f"{label}: step (CUDA events, 10 steps): {step_ms:.4f} ms")
@@ -173,28 +198,32 @@ def main() -> int:
     g = g.to(dev)
     for env in ({}, FUSED_ONLY, FUSED):
         with switches(env):
-            out = profile_step("GATConv", g, dev, f"GATConv {env}")
+            # the fused runs take K7f where the default takes K4
+            out = profile_step("GATConv", g, dev, f"GATConv {env}",
+                               None if env else "K4 dyn_tiles")
         print(json.dumps({"switches": env, **out}))
         torch.cuda.empty_cache()
     del g
     k11 = dict(fused_dropout=True, bit_dropout=False)
     g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
                                  layer_name="GCNConv", seed=0)
-    configs = [("GCNConv", g, {}), ("GCNConv K11", g, k11)]
-    for name, kw in (("diag", dict(use_diag=True)),
-                     ("tile_group=2", dict(tile_group=2))):
+    configs = [("GCNConv", g, {}, None), ("GCNConv K11", g, k11, None)]
+    for name, kw, walk in (("diag", dict(use_diag=True), None),
+                           ("tile_group=2", dict(tile_group=2),
+                            "K9 bsr_spmm_grouped")):
         g2, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
                                       layer_name="GCNConv", seed=0, **kw)
-        configs.append((f"GCNConv K11 {name}", g2, k11))
+        configs.append((f"GCNConv K11 {name}", g2, k11, walk))
     # build_optimized_graph has no use_rowwalk: the operator is built on
     # the reordered graph, as bench.py builds it
     h = build_hybrid(g.senders.numpy(), g.receivers.numpy(),
                      g.edge_weight.numpy(), g.num_nodes_padded,
                      min_block_edges=48, use_segmm=True, use_rowwalk=True)
-    configs.append(("GCNConv K11 rowwalk", g._replace(aux=h), k11))
-    for label, graph, kw in configs:
+    configs.append(("GCNConv K11 rowwalk", g._replace(aux=h), k11,
+                    "K10 bsr_spmm_rowwalk"))
+    for label, graph, kw, walk in configs:
         gd = graph.to(dev)
-        out = profile_step("GCNConv", gd, dev, label, **kw)
+        out = profile_step("GCNConv", gd, dev, label, walk, **kw)
         print(json.dumps({"model": kw, **out}))
         del gd
         torch.cuda.empty_cache()

@@ -370,71 +370,107 @@ def _sparse_tiles(rng, k):
 
 
 def _walk_operands(rng, kernel, case):
-    """K9's group-padded BCSR (group 3: every run gains zero pads) or K4ᵀ's
-    tile list with its transpose plan (block column 2 unused: a scale-0
-    filler slot there), with sparse tiles edited by ``case``: one fully
-    dense tile, an all-zero tile inside a run, or a NaN entry.  Returns
-    the operands, the output block of the dense tile (None unless
-    "dense") and the output row the NaN must reach (None unless "nan")."""
-    if kernel == "K9":
+    """The operands of a non-zero walk, with sparse tiles edited by
+    ``case``: one fully dense tile, an all-zero tile inside a run, or a NaN
+    entry.
+    * K9: the group-padded BCSR (group 3: every run gains zero pads);
+    * K10: the row-walk BCSR, where block row 3 has no tile (no filler);
+    * K4: a sorted tile list whose block row 4 holds only a zero-valued
+      coverage filler, with its dynamic plan;
+    * K4ᵀ: a tile list with its transpose plan (block column 2 unused: a
+      scale-0 filler slot there).
+    Returns the operands, the output block of the dense tile (None unless
+    "dense"), the output row the NaN must reach (None unless "nan") and
+    the output block that must come out as zeros (None for K9)."""
+    rows_walk = kernel != "K4T"          # output row i takes tile row i
+    zero_block = None
+    if kernel in ("K9", "K10"):
         s, r, w = _coo(rng, 1024, 6_000)
-        b = build_bsr(s, r, w, 1024, group=3, with_transpose=False)
+        kw = dict(group=3) if kernel == "K9" else dict(rowwalk=True)
+        if kernel == "K10":
+            zero_block = 3
+            keep = r // 128 != zero_block
+            s, r, w = s[keep], r[keep], w[keep]
+        b = build_bsr(s, r, w, 1024, with_transpose=False, **kw)
         lo, hi = (int(v) for v in b.row_splits[:2])
         blocks = _sparse_tiles(rng, b.nnz_blocks)
         blocks[~b.blocks.flatten(1).any(1).numpy()] = 0.0  # the pads
         rows, cols, plan = b.rows.numpy(), b.cols.numpy(), None
     else:
         rows, cols, nb = _tiles(rng, nb=6, k=15)
+        if kernel == "K4":
+            # block row 4 keeps one tile, a coverage filler: column 0, zero
+            zero_block = 4
+            first = int(np.searchsorted(rows, zero_block))
+            keep = (rows != zero_block) | (np.arange(len(rows)) == first)
+            rows, cols = rows[keep], cols[keep]
+            cols[first] = 0
+        else:
+            zero_block = 2
         plan = build_dyn_plan(rows, cols, nb)
-        splits = plan.t_row_splits.numpy()
+        splits = (plan.row_splits if kernel == "K4"
+                  else plan.t_row_splits).numpy()
         run = int(np.argmax(np.diff(splits)))
         lo, hi = int(splits[run]), int(splits[run + 1])
         blocks = _sparse_tiles(rng, len(rows))
+        if kernel == "K4":
+            blocks[first] = 0.0
     assert hi - lo >= 2
     slot = lo if kernel == "K4T" else lo + 1
-    tile = slot if kernel == "K9" else int(plan.t_sel[slot])
+    tile = int(plan.t_sel[slot]) if kernel == "K4T" else slot
     dense_block = nan_row = None
     if case == "dense":
         blocks[tile] = rng.random((128, 128)) + 0.5
-        dense_block = rows[tile] if kernel == "K9" else cols[tile]
+        dense_block = rows[tile] if rows_walk else cols[tile]
     elif case == "zero_inside":
         blocks[tile] = 0.0
     elif case == "nan":
         tile = len(rows) - 1 if kernel == "K4T" else tile
         blocks[tile, 20, 30] = np.nan
-        nan_row = (rows[tile] * 128 + 20 if kernel == "K9"
+        nan_row = (rows[tile] * 128 + 20 if rows_walk
                    else cols[tile] * 128 + 30)
-    if kernel == "K9":
+    if plan is None:
         b.blocks = torch.from_numpy(blocks)
-        return b, dense_block, nan_row
-    return (plan, torch.from_numpy(blocks)), dense_block, nan_row
+        return b, dense_block, nan_row, zero_block
+    ops = (torch.from_numpy(rows), torch.from_numpy(cols), plan,
+           torch.from_numpy(blocks))
+    return ops, dense_block, nan_row, zero_block
+
+
+_NONZERO_WALKS = {"K9": (bsr_spmm_grouped, bsr_spmm_plain),
+                  "K10": (bsr_spmm_rowwalk, bsr_spmm_plain),
+                  "K4": (dyn_tiles, dyn_tiles_plain),
+                  "K4T": (dyn_tiles_t, dyn_tiles_t_plain)}
 
 
 @pytest.mark.parametrize("feat,aligned", [(16, True), (40, True),
                                           (64, True), (101, True),
                                           (512, True), (64, False)])
 @pytest.mark.parametrize("case", ["sparse", "dense", "zero_inside", "nan"])
-@pytest.mark.parametrize("kernel", ["K9", "K4T"])
+@pytest.mark.parametrize("kernel", ["K9", "K4T", "K10", "K4"])
 def test_nonzero_walks_match_plain(cuda, kernel, case, feat, aligned):
-    """K9 and K4ᵀ walk each tile's non-zeros: ~3% occupancy with empty tile
-    rows and columns, a fully dense tile, an all-zero tile inside a run
-    (beside K9's pads and K4ᵀ's scale-0 filler), F that is not a multiple of
-    64 or of 4, an unaligned x, and a NaN tile entry, which must reach its
-    output row and no other."""
+    """K9, K10, K4 and K4ᵀ walk each tile's non-zeros: ~3% occupancy with
+    empty tile rows and columns, a fully dense tile, an all-zero tile
+    inside a run (beside K9's pads, K10's block row without tiles, K4's
+    zero-valued filler and K4ᵀ's scale-0 filler, whose output blocks must
+    come out as 0), F that is not a multiple of 64 or of 4, an unaligned x,
+    and a NaN tile entry, which must reach its output row and no other."""
     rng = np.random.default_rng(feat + 8)
-    ops, dense_block, nan_row = _walk_operands(rng, kernel, case)
-    n = 1024 if kernel == "K9" else 6 * 128
+    ops, dense_block, nan_row, zero_block = _walk_operands(rng, kernel,
+                                                           case)
+    n = 1024 if kernel in ("K9", "K10") else 6 * 128
     x = torch.from_numpy(rng.standard_normal((n, feat)).astype(
         np.float32)).to(cuda)
     xd = x if aligned else _unaligned(x)
-    if kernel == "K9":
-        b = ops.to(cuda)
-        walk, plain = bsr_spmm_grouped, bsr_spmm_plain
-        args = (b, xd)
+    walk, plain = _NONZERO_WALKS[kernel]
+    if kernel in ("K9", "K10"):
+        args = (ops.to(cuda), xd)
     else:
-        plan, blocks = ops
-        walk, plain = dyn_tiles_t, dyn_tiles_t_plain
-        args = (plan.to(cuda), blocks.to(cuda), xd)
+        rows, cols, plan, blocks = ops
+        args = (rows.to(cuda), cols.to(cuda), plan.to(cuda),
+                blocks.to(cuda), xd)
+        if kernel == "K4T":
+            args = args[2:]
     before = walk.launches
     with torch.inference_mode():
         got = walk(*args)
@@ -449,9 +485,10 @@ def test_nonzero_walks_match_plain(cuda, kernel, case, feat, aligned):
         assert nan[nan_row].all() and torch.equal(got.isnan(), nan)
         keep = ~nan.any(1)
         _close(got[keep], ref[keep])
-    if kernel == "K4T":
-        assert not got[2 * 128:3 * 128].any()    # the filler's block
-    # output rows 0-9 of a block take tile rows (K9) or columns (K4ᵀ) 0-9
+    if zero_block is not None:
+        assert not got[zero_block * 128:(zero_block + 1) * 128].any()
+    # output rows 0-9 of a block take tile rows (K9, K10, K4) or columns
+    # (K4ᵀ) 0-9
     empty = torch.cat([torch.arange(r * 128, r * 128 + 10)
                        for r in range(n // 128) if r != dense_block])
     assert not got[empty.to(cuda)].any()
