@@ -306,8 +306,8 @@ def phase_kernels(device, ds) -> tuple:
             compare(f"K1 library torch.sparse.addmm F={feat}", lib1(), p1)
             compare(f"K3 library torch.sparse.mm F={feat}", lib3(), init)
 
-            # K1's function needs 2 FLOPs per tile non-zero and feature;
-            # the kernel's dense tile product does 128·128/occupancy more
+            # K1's function needs 2 FLOPs per tile non-zero and feature,
+            # which is what the kernel's walk of the non-zeros does
             b1, by1 = bound(
                 tiles * 128 * 128 * 4 + (2 * tiles_all + b.num_row_blocks + 1)
                 * 4 + uniq_cols * 128 * feat * 4 + 2 * n * feat * 4,
@@ -1333,7 +1333,7 @@ def summarize(name, route, source, replaces, launches, per_shape) -> dict:
 
 
 KERNELS = (
-    ("K1", "K1 bsr_spmm_acc", "fitgnn_tpu_torch/csrc/bsr_spmm.cu",
+    ("K1", "K1 bsr_spmm_acc", "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/bsr_spmm.py:200"),
     ("K3", "K3 segmm_spmm", "fitgnn_tpu_torch/csrc/coo_segmm.cu",
      "fitgnn_tpu/ops/pallas/coo_segmm.py:187"),
@@ -1364,7 +1364,7 @@ KERNELS = (
      "fitgnn_tpu_torch/csrc/att_bsr.cu",
      "fitgnn_tpu/ops/pallas/att_bsr.py:267"),
     ("K2", "K2 bsr_spmm_fwd (bsr_spmm from zero)",
-     "fitgnn_tpu_torch/csrc/bsr_spmm.cu",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/bsr_spmm.py:156"),
     ("K8", "K8 diag_spmm (diag_spmm_raw)",
      "fitgnn_tpu_torch/csrc/diag_spmm.cu",

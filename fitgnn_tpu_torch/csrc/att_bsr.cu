@@ -21,7 +21,7 @@
 // reads a tile row as one 512-byte float4 load, masks the 128 scores and
 // max-reduces them with shuffles; -1e30 where a row has no entry.
 //
-// att_walk_kernel: K1's dense tile walk (csrc/tile_fma.cuh), one CTA per
+// att_walk_kernel: the dense tile walk of csrc/tile_fma.cuh, one CTA per
 // (block row, 64-column feature slice), with pe formed while a tile chunk is
 // staged into shared memory instead of read from a tensor.  The 128 score
 // values of each side sit in shared memory.  Forward: num = sum pe @ x
@@ -48,7 +48,8 @@
 // Bound on an H100.  att_rowmax: bytes (every tile read once).  The walks:
 // the function is bytes-bound (tiles, slabs, output), but the kernel does
 // the dense 128x128 product on the CUDA cores' f32 FMA, ~33x the FLOPs of
-// the tile non-zeros, as K1 does.  att_reduce: bytes as a function (tiles,
+// the tile non-zeros (the BCSR walks apply only the non-zeros:
+// tile_sparse.cuh).  att_reduce: bytes as a function (tiles,
 // g and x slabs); the kernel re-reads a partner row for every entry, 2.2 GB
 // at F=512 on the bench graph, mostly from L2.  Tensor cores, TMA and one
 // exp per entry shared across the F-slices are later work.
@@ -64,7 +65,7 @@ constexpr int THREADS = WARPS * 32;               // 256
 constexpr int ROWS_PER_WARP = BLK / WARPS;        // 16
 constexpr float NEG = -1e30f;
 
-// the walk's tiling (K1's)
+// the walk's tiling (tile_fma.cuh's)
 constexpr int FT = 64;                            // feature columns a CTA
 constexpr int KC = 32;                            // tile columns a stage
 constexpr int TM = 8;                             // output rows a thread

@@ -145,13 +145,13 @@ extern "C" int fitgnn_bsr_dyn_apply(const void* blocks, const void* row_splits,
   auto* op = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   if (trans) {
-    return static_cast<int>(sparse::launch<true>(
+    return static_cast<int>(sparse::launch<true, false>(
         b, rs, static_cast<const int32_t*>(sel),
-        static_cast<const int32_t*>(scale), c, xp, op, num_row_blocks, feat,
-        s));
+        static_cast<const int32_t*>(scale), c, xp, nullptr, op,
+        num_row_blocks, feat, s));
   }
-  return static_cast<int>(sparse::launch<false>(
-      b, rs, nullptr, nullptr, c, xp, op, num_row_blocks, feat, s));
+  return static_cast<int>(sparse::launch<false, false>(
+      b, rs, nullptr, nullptr, c, xp, nullptr, op, num_row_blocks, feat, s));
 }
 
 // rows, cols (num_tiles,) int32 block ids; g, x (*, feat) f32; dB

@@ -16,7 +16,7 @@
 // (64 KiB each), x and init, and writes out, at 2 FLOPs per block non-zero
 // and feature; the design reads each block once per 64-column slice (the
 // slices of one block run together, so the rereads hit L2) and does the
-// dense 128x128 product on the CUDA cores, as K1 does.
+// dense 128x128 product on the CUDA cores.
 
 #include <cuda_runtime.h>
 #include <cstdint>

@@ -1,5 +1,7 @@
-// The 128x128 tile product core shared by the BCSR walks (bsr_spmm.cu: K1,
-// K2) and the block-diagonal run (diag_spmm.cu: K8).
+// The dense 128x128 tile product core of the block-diagonal run
+// (diag_spmm.cu: K8).  The BCSR walks (K1, K2, K9, K10, K4, K4T) walk each
+// tile's non-zeros instead (tile_sparse.cuh); att_bsr.cu's walks keep a
+// copy of this tiling.
 //
 // One CTA of 256 threads owns a 128-row output block and a slice of FT=64
 // feature columns.  Each thread keeps an 8x4 block of the output in f32

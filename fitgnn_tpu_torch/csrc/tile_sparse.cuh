@@ -1,11 +1,15 @@
 // The non-zero walk of a dense 128x128 tile, in two orientations: rows
-// (K9 and K10, bsr_spmm.cu; K4, bsr_dynamic.cu) and columns (K4
+// (K1, K2, K9 and K10, bsr_spmm.cu; K4, bsr_dynamic.cu) and columns (K4
 // transposed, K4T, bsr_dynamic.cu).
 //
-// Both compute out[r] = sum_k s_k . op(A_k) @ X[c_k] over a block row's
-// run of tiles, where op is the identity (rows) or the transpose
-// (columns).  The rows orientation replaces three TPU kernels, all
-// out = A . x from zero over a sorted tile list:
+// Both compute out[r] = init[r] + sum_k s_k . op(A_k) @ X[c_k] over a block
+// row's run of tiles, where op is the identity (rows) or the transpose
+// (columns), and init is zero unless the rows orientation is given one.
+// The rows orientation replaces five TPU kernels over a sorted tile list:
+//   fitgnn_tpu/ops/pallas/bsr_spmm.py:_kernel_acc (grid _bsr_spmm_fwd_acc;
+//     K1, init + A . x on the layout with coverage fillers),
+//   fitgnn_tpu/ops/pallas/bsr_spmm.py:_kernel (grid _bsr_spmm_fwd; K2,
+//     A . x from zero on the same layout),
 //   fitgnn_tpu/ops/pallas/bsr_spmm.py:_make_grouped_kernel (grid
 //     _bsr_spmm_fwd_grouped; K9, the group-padded layout),
 //   fitgnn_tpu/ops/pallas/bsr_spmm.py:_rowwalk_kernel (grid
@@ -19,15 +23,19 @@
 // Bound on an H100: bytes.  The tiles are ~3% full on the bench graph
 // (~3.9 non-zeros a tile row or column), so the function needs 2 FLOPs per
 // tile non-zero and feature, and the dense tiles (64 KiB each), the X
-// slabs and the output bound it.  The dense 128x128 product (tile_fma.cuh)
-// spends ~97% of its FMAs on zeros and cannot reach that bound on the CUDA
-// cores.  The walk reads each dense tile in place, finds its non-zeros
-// with __ballot_sync and applies only those: the FMAs a tile costs are
-// proportional to its non-zeros, and a tile with none (K9's group pads,
-// the coverage fillers of K4 and K4T, whose values are zero) costs only
-// its read: no shared-memory store, no slab copy, no FMA.  The group is
-// not read: a padded run is a plain run.  A block row without tiles (K10's
-// layout has no fillers) walks nothing and stores zeros.
+// slabs, init (K1) and the output bound it.  The dense 128x128 product
+// (tile_fma.cuh) spends ~97% of its FMAs on zeros and cannot reach that
+// bound on the CUDA cores.  The walk reads each dense tile in place, finds
+// its non-zeros with __ballot_sync and applies only those: the FMAs a tile
+// costs are proportional to its non-zeros, and a tile with none (K9's
+// group pads, the coverage fillers of K1, K2, K4 and K4T, whose values are
+// zero) costs only its read: no shared-memory store, no slab copy, no FMA.
+// The group is not read: a padded run is a plain run.  A block row without
+// tiles (K10's layout has no fillers) walks nothing and stores zeros; a
+// block row of K1 whose run has no non-zero stores init unchanged, bit for
+// bit.  K1 reads init straight into the accumulators (one 16-byte load a
+// row where init starts on a 16-byte boundary and F % 4 == 0), so the add
+// that the TPU kernel fuses costs one read of init, as there.
 //
 // Grid: one CTA per (output block row, FT=128 feature columns), the slice
 // varying fastest, so the CTAs that reread one tile run together and find
@@ -61,15 +69,17 @@
 // a row a phase) stay conflict-free.  The alternative, a row stride of 129
 // floats, needs 4-byte copies and 4-byte reads.
 //
-// Order and numbers: each output element sums its products in ascending
-// tile order and, within a tile, in ascending contraction index: a lane
-// takes the contraction indices j = lane + 32m (m = 0..3), so one ballot
-// per m lists them in order.  No atomics, so the result is deterministic.
-// An entry counts as a non-zero when v != 0, so a NaN entry is applied and
-// propagates.  A divergence from the dense product (and the TPU kernel):
-// an inf or NaN in X at a row that only zero tile entries reach gives 0
-// there, not 0 * inf = NaN.  The main path never feeds one: GAT's tile
-// values are where(mask, exp(.), 0) and the features are finite.
+// Order and numbers: each output element starts from init (or zero) and
+// adds its products in ascending tile order and, within a tile, in
+// ascending contraction index: a lane takes the contraction indices
+// j = lane + 32m (m = 0..3), so one ballot per m lists them in order.  No
+// atomics, so the result is deterministic.  An entry counts as a non-zero
+// when v != 0, so a NaN entry is applied and propagates; a NaN in init
+// stays in its own element.  A divergence from the dense product (and the
+// TPU kernel): an inf or NaN in X at a row that only zero tile entries
+// reach leaves the output at init or 0 there, not 0 * inf = NaN.  The main
+// path never feeds one: GAT's tile values are where(mask, exp(.), 0) and
+// the features are finite.
 
 #pragma once
 
@@ -162,6 +172,35 @@ __device__ __forceinline__ void apply(float e, int j0, float s,
   }
 }
 
+// acc = init rows r*BLK + row0 .. +ROWS-1, the lane's columns of slice f0
+// (0 past feat): one 16-byte load a row where init starts on a 16-byte
+// boundary and feat % 4 == 0 (its rows then all do), else one load a
+// column
+__device__ __forceinline__ void load_rows(float (&acc)[ROWS][FL],
+                                          const float* __restrict__ init,
+                                          int64_t r, int64_t f0, int row0,
+                                          int lane, int64_t feat) {
+  const int64_t c = f0 + FL * lane;
+  const bool vec = reinterpret_cast<uintptr_t>(init) % 16 == 0
+                   && feat % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const float* p = init + (r * BLK + row0 + i) * feat + c;
+    if (vec && c + FL <= feat) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+      acc[i][0] = v.x;
+      acc[i][1] = v.y;
+      acc[i][2] = v.z;
+      acc[i][3] = v.w;
+    } else {
+#pragma unroll
+      for (int f = 0; f < FL; ++f) {
+        acc[i][f] = c + f < feat ? __ldg(p + f) : 0.f;
+      }
+    }
+  }
+}
+
 // out rows r*BLK + row0 .. +ROWS-1, the lane's columns of slice f0: one
 // 16-byte store a row where feat % 4 == 0 (out is fresh, so its rows then
 // start on 16-byte boundaries), else one store a column
@@ -185,21 +224,23 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
   }
 }
 
-// The tile walk.  TRANS = false, rows orientation (K9, K10 and K4):
-// out[r] = sum_k A_k @ X[cols[k]] over the run row_splits[r] ..
-// row_splits[r+1], zeros when the run is empty; sel and scale are unused
-// (the callers pass null).  TRANS = true, columns orientation (K4T): out[r] =
-// sum_k scale[k] . A_{sel[k]}^T @ X[cols[k]]; a slot with scale 0 (a
-// coverage filler of the transpose plan) is skipped uniformly.
-template <bool TRANS, bool VEC>
+// The tile walk.  TRANS = false, rows orientation (K1, K2, K9, K10 and
+// K4): out[r] = init[r] + sum_k A_k @ X[cols[k]] over the run
+// row_splits[r] .. row_splits[r+1], with init read only under INIT (K1)
+// and zero otherwise; sel and scale are unused (the callers pass null).
+// TRANS = true, columns orientation (K4T), from zero: out[r] = sum_k
+// scale[k] . A_{sel[k]}^T @ X[cols[k]]; a slot with scale 0 (a coverage
+// filler of the transpose plan) is skipped uniformly.
+template <bool TRANS, bool INIT, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
 walk_kernel(const float* __restrict__ blocks,
             const int32_t* __restrict__ row_splits,
             const int32_t* __restrict__ sel,
             const int32_t* __restrict__ scale,
             const int32_t* __restrict__ cols,
-            const float* __restrict__ x, float* __restrict__ out,
-            int64_t feat, int64_t slices) {
+            const float* __restrict__ x, const float* __restrict__ init,
+            float* __restrict__ out, int64_t feat, int64_t slices) {
+  static_assert(!(TRANS && INIT), "the columns orientation starts from 0");
   extern __shared__ __align__(16) float smem[];
   float* as = smem;                             // the swizzled tile
   float* xs = smem + BLK * BLK;                 // the X slab
@@ -211,10 +252,14 @@ walk_kernel(const float* __restrict__ blocks,
   const int row0 = warp * ROWS;
 
   float acc[ROWS][FL];
+  if (INIT) {
+    load_rows(acc, init, r, f0, row0, lane, feat);
+  } else {
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
+    for (int i = 0; i < ROWS; ++i) {
 #pragma unroll
-    for (int f = 0; f < FL; ++f) acc[i][f] = 0.f;
+      for (int f = 0; f < FL; ++f) acc[i][f] = 0.f;
+    }
   }
 
   // a slot's indices, read one step before they are used, so no load of
@@ -313,14 +358,17 @@ walk_kernel(const float* __restrict__ blocks,
 }
 
 // Launches the walk on the flat grid of num_row_blocks * ceil(feat / FT)
-// CTAs (SMEM bytes of dynamic shared memory each); nothing when either is
-// 0; cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1
-// CTAs, else cudaGetLastError() after the launch
-template <bool TRANS>
+// CTAs (SMEM bytes of dynamic shared memory each), from init under INIT,
+// else from zero (init unused); nothing when either count is 0;
+// cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
+// else cudaGetLastError() after the launch.  The vector slab copy is
+// chosen on x's alignment; the kernel chooses the vector init load on
+// init's own.
+template <bool TRANS, bool INIT>
 cudaError_t launch(const float* blocks, const int32_t* row_splits,
                    const int32_t* sel, const int32_t* scale,
-                   const int32_t* cols, const float* x, float* out,
-                   int64_t num_row_blocks, int64_t feat,
+                   const int32_t* cols, const float* x, const float* init,
+                   float* out, int64_t num_row_blocks, int64_t feat,
                    cudaStream_t stream) {
   if (num_row_blocks > 0 && feat > 0) {
     const int64_t slices = (feat + FT - 1) / FT;
@@ -328,13 +376,13 @@ cudaError_t launch(const float* blocks, const int32_t* row_splits,
     if (ctas > 0x7fffffff) return cudaErrorInvalidConfiguration;
     const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0
                      && feat % 4 == 0;
-    const auto kernel = vec ? walk_kernel<TRANS, true>
-                            : walk_kernel<TRANS, false>;
+    const auto kernel = vec ? walk_kernel<TRANS, INIT, true>
+                            : walk_kernel<TRANS, INIT, false>;
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (set != cudaSuccess) return set;
     kernel<<<static_cast<unsigned>(ctas), THREADS, SMEM, stream>>>(
-        blocks, row_splits, sel, scale, cols, x, out, feat, slices);
+        blocks, row_splits, sel, scale, cols, x, init, out, feat, slices);
   }
   return cudaGetLastError();
 }

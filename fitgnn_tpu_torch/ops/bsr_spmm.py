@@ -17,16 +17,17 @@ layout (``group > 1``: every row's run zero-padded to a multiple of
   (``bsr_spmm_fwd``); its backward runs the same dispatch on
   ``b.transpose``.
 
-Each of the four wrappers launches its hand-written kernel in
-``csrc/bsr_spmm.cu`` on a CUDA tensor (they replace the TPU kernels
-``_kernel_acc``, ``_kernel``, ``_make_grouped_kernel`` and
-``_rowwalk_kernel`` of ``fitgnn_tpu/ops/pallas/bsr_spmm.py``; the source
-note says what bounds them on an H100 and what the designs do about it:
-K1 and K2 multiply whole tiles, K9 and K10 walk each tile's non-zeros, as
-``csrc/tile_sparse.cuh`` describes)
-and runs the plain version (``bsr_spmm_acc_plain``, ``bsr_spmm_plain``: a
-batched matmul over the gathered X slabs, then ``index_add_`` over block
-rows) on a CPU tensor.  Each has its own ``launches`` count.
+Each of the four wrappers launches its hand-written kernel through its C
+entry in ``csrc/bsr_spmm.cu`` on a CUDA tensor (they replace the TPU
+kernels ``_kernel_acc``, ``_kernel``, ``_make_grouped_kernel`` and
+``_rowwalk_kernel`` of ``fitgnn_tpu/ops/pallas/bsr_spmm.py``).  All four
+launch one kernel, the walk of each tile's non-zeros in
+``csrc/tile_sparse.cuh``, which starts from ``init`` for K1 and from zero
+for the others; the source notes say what bounds it on an H100 and what
+the design does about it.  On a CPU tensor each runs the plain version
+(``bsr_spmm_acc_plain``, ``bsr_spmm_plain``: a batched matmul over the
+gathered X slabs, then ``index_add_`` over block rows).  Each has its own
+``launches`` count.
 """
 
 from __future__ import annotations
@@ -211,10 +212,11 @@ def _launch(b: BsrMatrix, x: torch.Tensor, dev: torch.device, what: str,
 def bsr_spmm_acc(b: BsrMatrix, x: torch.Tensor,
                  init: torch.Tensor) -> torch.Tensor:
     """``init + A·x`` for (N_pad, F) ``x`` and ``init``.  On the grid-walk
-    layout K1 (the CUDA kernel on a CUDA tensor, the plain version on a CPU
-    tensor); on the row-walk and grouped layouts ``init + bsr_spmm_raw``,
-    so that K10 or K9 run.  Forward only: the hybrid operator's autograd
-    Function runs it on ``b.transpose`` for the backward."""
+    layout K1 (the walk started from ``init`` on a CUDA tensor, the plain
+    version on a CPU tensor); on the row-walk and grouped layouts
+    ``init + bsr_spmm_raw``, so that K10 or K9 run.  Forward only: the
+    hybrid operator's autograd Function runs it on ``b.transpose`` for the
+    backward."""
     if init.shape != x.shape:
         raise ValueError(f"bsr_spmm_acc: x {tuple(x.shape)} and init "
                          f"{tuple(init.shape)} differ")
@@ -230,7 +232,8 @@ def bsr_spmm_acc(b: BsrMatrix, x: torch.Tensor,
 
 
 def bsr_spmm_fwd(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """K2: ``A·x`` from zero on the grid-walk layout."""
+    """K2: ``A·x`` from zero on the grid-walk layout, by the walk of each
+    tile's non-zeros; a coverage filler costs only its read."""
     if b.rowwalk or b.group > 1:
         raise ValueError("bsr_spmm_fwd: K2 walks the grid-walk layout, got "
                          f"rowwalk={b.rowwalk} group={b.group}")

@@ -9,7 +9,8 @@ seed-0 GCN ``NodeModel`` (2 layers, hidden 512, f32) on the card and prints:
 
 * the forward's time from CUDA events over 20 forwards after 3 warm-ups;
 * a ``torch.profiler`` table of device time per kernel over 10 forwards,
-  grouped into K1, K3, the dense layers (matmul) and the rest;
+  grouped into K1 (the non-zero walk started from ``init``), K3, the
+  dense layers (matmul) and the rest;
 * the device's idle share over the profiled window: 1 - (summed kernel
   time) / (window time on the host clock, ended by a synchronize).
 """
@@ -40,8 +41,13 @@ def _device_us(evt) -> float:
 
 
 def _group(name: str) -> str:
-    if "bsr_walk_kernel<true>" in name.replace(" ", ""):
+    bare = name.replace(" ", "")
+    # the walk from init, sparse::walk_kernel<false, true, …>, is K1's alone
+    if "sparse::walk_kernel<false,true," in bare:
         return "K1 bsr_spmm_acc"
+    if "sparse::walk_kernel" in bare:
+        raise RuntimeError(f"{name}: the GCN forward launches no walk but "
+                           "K1's")
     if "segmm_spmm" in name:
         return "K3 segmm_spmm"
     if "gemm" in name or "sgemm" in name or "matmul" in name.lower():

@@ -18,11 +18,14 @@ each it prints:
   from CUDA events over 10 steps after 3 warm-ups;
 * a ``torch.profiler`` table of device time per kernel over 5 steps,
   grouped into the port's kernels (K1-K11), the dense layers (cuBLAS), the
-  optimizer and the rest.  K4, K9 and K10 all launch the rows walk
-  ``sparse::walk_kernel<false, …>``, so that kernel is labelled by the
-  configuration (K4 in the default GAT run, K9 on ``tile_group=2``, K10 on
-  ``use_rowwalk``), and the launch counters must show that the profiled
-  steps launched that one and no other;
+  optimizer and the rest.  K1 alone launches the rows walk from ``init``,
+  ``sparse::walk_kernel<false, true, …>``.  K2, K4, K9 and K10 all launch
+  the rows walk from zero, ``sparse::walk_kernel<false, false, …>``, so
+  that kernel is labelled by the configuration (K4 in the default GAT run,
+  K9 on ``tile_group=2``, K10 on ``use_rowwalk``).  The launch counters
+  must show that the profiled steps launched the one rows-walk wrapper
+  the configuration expects and no other (K1 in the default GCN runs and
+  on ``use_diag``);
 * the device's idle share over the profiled window: 1 - (summed kernel
   time) / (window time on the host clock, ended by a synchronize).
 """
@@ -53,28 +56,31 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+K1 = "K1 bsr_spmm_acc"
+
+
 def _rows_walk_users() -> dict:
     """The wrappers that launch ``sparse::walk_kernel<false, …>``, by the
     label of their profile group."""
     from fitgnn_tpu_torch.ops.bsr_dynamic import dyn_tiles
-    from fitgnn_tpu_torch.ops.bsr_spmm import (bsr_spmm_grouped,
+    from fitgnn_tpu_torch.ops.bsr_spmm import (bsr_spmm_acc, bsr_spmm_fwd,
+                                               bsr_spmm_grouped,
                                                bsr_spmm_rowwalk)
-    return {"K4 dyn_tiles": dyn_tiles, "K9 bsr_spmm_grouped": bsr_spmm_grouped,
+    return {K1: bsr_spmm_acc, "K2 bsr_spmm_fwd": bsr_spmm_fwd,
+            "K4 dyn_tiles": dyn_tiles, "K9 bsr_spmm_grouped": bsr_spmm_grouped,
             "K10 bsr_spmm_rowwalk": bsr_spmm_rowwalk}
 
 
 def _group(name: str, rows_walk: str | None) -> str:
     """The profile group of kernel ``name``; ``rows_walk`` labels the rows
-    walk, which several wrappers share."""
+    walk from zero, which several wrappers share."""
     bare = name.replace(" ", "")
-    if "bsr_walk_kernel<true>" in bare:
-        return "K1 bsr_spmm_acc"
-    if "bsr_walk_kernel<false>" in bare:
-        return "K2 bsr_spmm_fwd"
-    if "sparse::walk_kernel<false," in bare:
-        if rows_walk is None:
+    if "sparse::walk_kernel<false,true," in bare:
+        return K1
+    if "sparse::walk_kernel<false,false," in bare:
+        if rows_walk in (None, K1):
             raise RuntimeError(f"{name} ran in a configuration that expects "
-                               "no rows walk")
+                               "no rows walk from zero")
         return rows_walk
     if "sparse::walk_kernel<true," in bare:
         return "K4T dyn_tiles_t"
@@ -207,8 +213,10 @@ def main() -> int:
     k11 = dict(fused_dropout=True, bit_dropout=False)
     g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
                                  layer_name="GCNConv", seed=0)
-    configs = [("GCNConv", g, {}, None), ("GCNConv K11", g, k11, None)]
-    for name, kw, walk in (("diag", dict(use_diag=True), None),
+    # K1 runs on the default operator and after K8 on use_diag's; the
+    # grouped and row-walk layouts add init to K9's or K10's output instead
+    configs = [("GCNConv", g, {}, K1), ("GCNConv K11", g, k11, K1)]
+    for name, kw, walk in (("diag", dict(use_diag=True), K1),
                            ("tile_group=2", dict(tile_group=2),
                             "K9 bsr_spmm_grouped")):
         g2, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,

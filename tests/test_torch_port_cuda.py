@@ -369,10 +369,15 @@ def _sparse_tiles(rng, k):
     return blocks.astype(np.float32)
 
 
+_BCSR_WALKS = ("K1", "K2", "K9", "K10")
+
+
 def _walk_operands(rng, kernel, case):
     """The operands of a non-zero walk, with sparse tiles edited by
     ``case``: one fully dense tile, an all-zero tile inside a run, or a NaN
     entry.
+    * K1, K2: the grid-walk BCSR, where block row 3 holds only a zero
+      coverage filler;
     * K9: the group-padded BCSR (group 3: every run gains zero pads);
     * K10: the row-walk BCSR, where block row 3 has no tile (no filler);
     * K4: a sorted tile list whose block row 4 holds only a zero-valued
@@ -381,13 +386,15 @@ def _walk_operands(rng, kernel, case):
       scale-0 filler slot there).
     Returns the operands, the output block of the dense tile (None unless
     "dense"), the output row the NaN must reach (None unless "nan") and
-    the output block that must come out as zeros (None for K9)."""
+    the output block that no non-zero reaches, which comes out as zeros,
+    or as ``init`` for K1 (None for K9)."""
     rows_walk = kernel != "K4T"          # output row i takes tile row i
     zero_block = None
-    if kernel in ("K9", "K10"):
+    if kernel in _BCSR_WALKS:
         s, r, w = _coo(rng, 1024, 6_000)
-        kw = dict(group=3) if kernel == "K9" else dict(rowwalk=True)
-        if kernel == "K10":
+        kw = {"K9": dict(group=3), "K10": dict(rowwalk=True)}.get(kernel,
+                                                                  {})
+        if kernel != "K9":
             zero_block = 3
             keep = r // 128 != zero_block
             s, r, w = s[keep], r[keep], w[keep]
@@ -437,7 +444,9 @@ def _walk_operands(rng, kernel, case):
     return ops, dense_block, nan_row, zero_block
 
 
-_NONZERO_WALKS = {"K9": (bsr_spmm_grouped, bsr_spmm_plain),
+_NONZERO_WALKS = {"K1": (bsr_spmm_acc, bsr_spmm_acc_plain),
+                  "K2": (bsr_spmm_fwd, bsr_spmm_plain),
+                  "K9": (bsr_spmm_grouped, bsr_spmm_plain),
                   "K10": (bsr_spmm_rowwalk, bsr_spmm_plain),
                   "K4": (dyn_tiles, dyn_tiles_plain),
                   "K4T": (dyn_tiles_t, dyn_tiles_t_plain)}
@@ -447,24 +456,30 @@ _NONZERO_WALKS = {"K9": (bsr_spmm_grouped, bsr_spmm_plain),
                                           (64, True), (101, True),
                                           (512, True), (64, False)])
 @pytest.mark.parametrize("case", ["sparse", "dense", "zero_inside", "nan"])
-@pytest.mark.parametrize("kernel", ["K9", "K4T", "K10", "K4"])
+@pytest.mark.parametrize("kernel", ["K9", "K4T", "K10", "K4", "K1", "K2"])
 def test_nonzero_walks_match_plain(cuda, kernel, case, feat, aligned):
-    """K9, K10, K4 and K4ᵀ walk each tile's non-zeros: ~3% occupancy with
-    empty tile rows and columns, a fully dense tile, an all-zero tile
-    inside a run (beside K9's pads, K10's block row without tiles, K4's
-    zero-valued filler and K4ᵀ's scale-0 filler, whose output blocks must
-    come out as 0), F that is not a multiple of 64 or of 4, an unaligned x,
-    and a NaN tile entry, which must reach its output row and no other."""
+    """K1, K2, K9, K10, K4 and K4ᵀ walk each tile's non-zeros: ~3%
+    occupancy with empty tile rows and columns, a fully dense tile, an
+    all-zero tile inside a run (beside the zero coverage filler of K1, K2
+    and K4, K9's pads, K10's block row without tiles and K4ᵀ's scale-0
+    filler, whose output blocks must come out as 0, or as init for K1, bit
+    for bit), F that is not a multiple of 64 or of 4, an unaligned x, and
+    a NaN tile entry, which must reach its output row and no other."""
     rng = np.random.default_rng(feat + 8)
     ops, dense_block, nan_row, zero_block = _walk_operands(rng, kernel,
                                                            case)
-    n = 1024 if kernel in ("K9", "K10") else 6 * 128
+    n = 1024 if kernel in _BCSR_WALKS else 6 * 128
     x = torch.from_numpy(rng.standard_normal((n, feat)).astype(
         np.float32)).to(cuda)
     xd = x if aligned else _unaligned(x)
     walk, plain = _NONZERO_WALKS[kernel]
-    if kernel in ("K9", "K10"):
+    base = torch.zeros_like(x)           # what rows without a non-zero get
+    if kernel in _BCSR_WALKS:
         args = (ops.to(cuda), xd)
+        if kernel == "K1":
+            base = torch.from_numpy(rng.standard_normal((n, feat)).astype(
+                np.float32)).to(cuda)
+            args += (base,)
     else:
         rows, cols, plan, blocks = ops
         args = (rows.to(cuda), cols.to(cuda), plan.to(cuda),
@@ -486,12 +501,51 @@ def test_nonzero_walks_match_plain(cuda, kernel, case, feat, aligned):
         keep = ~nan.any(1)
         _close(got[keep], ref[keep])
     if zero_block is not None:
-        assert not got[zero_block * 128:(zero_block + 1) * 128].any()
-    # output rows 0-9 of a block take tile rows (K9, K10, K4) or columns
-    # (K4ᵀ) 0-9
+        rows = slice(zero_block * 128, (zero_block + 1) * 128)
+        assert torch.equal(got[rows], base[rows])
+    # output rows 0-9 of a block take tile rows (K1, K2, K9, K10, K4) or
+    # columns (K4ᵀ) 0-9
     empty = torch.cat([torch.arange(r * 128, r * 128 + 10)
                        for r in range(n // 128) if r != dense_block])
-    assert not got[empty.to(cuda)].any()
+    assert torch.equal(got[empty.to(cuda)], base[empty.to(cuda)])
+
+
+@pytest.mark.parametrize("case", ["nan_init", "init_unaligned",
+                                  "x_unaligned", "feat101"])
+def test_k1_walk_starts_from_init(cuda, case):
+    """K1 loads ``init`` into its accumulators: a NaN in init reaches its
+    own element and no other; init and x each take their own 16-byte or
+    4-byte path (an unaligned init beside an aligned x, the reverse, and
+    F=101, where both take the 4-byte path); block row 3, whose only tile
+    is a zero coverage filler, and the tile rows without a non-zero come
+    out as init, bit for bit."""
+    rng = np.random.default_rng(13)
+    feat = 101 if case == "feat101" else 64
+    b, _, _, zero_block = _walk_operands(rng, "K1", "sparse")
+    n = 1024
+    x, init = (torch.from_numpy(rng.standard_normal((n, feat)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    if case == "nan_init":
+        init[300, 7] = float("nan")
+    init = _unaligned(init) if case == "init_unaligned" else init
+    x = _unaligned(x) if case == "x_unaligned" else x
+    b = b.to(cuda)
+    before = bsr_spmm_acc.launches
+    with torch.inference_mode():
+        got = bsr_spmm_acc(b, x, init)
+        ref = bsr_spmm_acc_plain(b, x, init)
+    torch.cuda.synchronize()
+    assert bsr_spmm_acc.launches == before + 1
+    nan = got.isnan()
+    assert nan.nonzero().tolist() == ([[300, 7]] if case == "nan_init"
+                                      else [])
+    assert torch.equal(nan, ref.isnan())
+    _close(got[~nan], ref[~nan])
+    rows = slice(zero_block * 128, (zero_block + 1) * 128)
+    assert torch.equal(got[rows], init[rows])
+    empty = torch.cat([torch.arange(r * 128, r * 128 + 10)
+                       for r in range(n // 128)]).to(cuda)
+    assert torch.equal(got[empty], init[empty])
 
 
 @pytest.mark.parametrize("feat", [16, 101, 512])
