@@ -17,7 +17,8 @@ Phases (any failure exits non-zero before the result lines):
    512, and the hybrid SpMM on a small graph against a dense float64
    product; on the GAT (``att_unit``) operator, whose tile split must equal
    the GCN operator's, K4 (``dyn_tiles``) and K4ᵀ (``dyn_tiles_t``) at
-   F=128 and 512, K5 (``dyn_grad_blocks``) at F=128 and 512 and K3w
+   F=128 and 512, K5 (``dyn_grad_blocks``, bound at the tensor cores' TF32
+   rate for its three passes) at F=128 and 512 and K3w
    (``segmm_weighted_raw``) at F=40 and 64, and on the transpose CSR at
    F=512 (K6's ``dx``); then the fused tile attention and K6 at F=128 and
    512: K7rm (``att_rowmax``), K7f (``att_fwd``), K7bt (``att_bwd_t``: the
@@ -31,7 +32,8 @@ Phases (any failure exits non-zero before the result lines):
    ``build_optimized_graph``, ``use_rowwalk`` through ``build_hybrid``) K2
    (``bsr_spmm_fwd``), K9 (``bsr_spmm_grouped``) and K10
    (``bsr_spmm_rowwalk``) at F=128 and 512, K8 (``diag_spmm``) forward and
-   transpose with and without ``init`` at F=128 and 512, and K11
+   transpose with and without ``init`` at F=128 and 512 (after the
+   diagonal blocks' non-zero count and fill), and K11
    (``philox_dropout``) at (N_pad, 512), bit for bit;
 4. gradients: one GAT and one GCN training step (hidden 512, dropout off,
    the same seed-0 init) with the kernels and then with the plain versions
@@ -81,6 +83,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -94,6 +97,7 @@ import torch
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12        # f32 outside the tensor cores
+PEAK_TF32_FLOP_PER_S = 495e12      # TF32 on the tensor cores
 
 # bench.py's graph
 NUM_NODES = 169_344
@@ -134,6 +138,18 @@ def make_graph():
     y = rng.integers(0, NUM_CLASSES, NUM_NODES).astype(np.int32)
     train = rng.random(NUM_NODES) < 0.5
     return x, senders, receivers, y, train
+
+
+def walk_args(kernel_name: str):
+    """(TRANS, INIT, DIAG) of a ``sparse::walk_kernel<TRANS, INIT, VEC,
+    DIAG>`` launch by its demangled name, or None for any other kernel
+    (the profile scripts group the walk's users by these)."""
+    m = re.search(r"sparse::walk_kernel<(\w+),(\w+),(\w+),(\w+)>",
+                  kernel_name.replace(" ", ""))
+    if m is None:
+        return None
+    trans, init, _, diag = (v in ("true", "1") for v in m.groups())
+    return trans, init, diag
 
 
 class Failed(Exception):
@@ -191,9 +207,13 @@ def switches(env: dict):
                 os.environ[k] = v
 
 
-def bound(bytes_: float, ops: float) -> tuple:
+def bound(bytes_: float, ops: float,
+          flop_per_s: float = PEAK_F32_FLOP_PER_S) -> tuple:
+    """The least time in ms for ``bytes_`` over the memory rate and ``ops``
+    over ``flop_per_s`` (the unit the kernel computes in), the larger of
+    the two, and which it is."""
     t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = ops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -451,10 +471,15 @@ def phase_gat_kernels(device, ds, g_gcn) -> tuple:
             b4t, by4t = bound(k_all * 128 * 128 * 4 + 3 * plan.t_sel.numel()
                               * 4 + uniq_rows * 128 * feat * 4
                               + n * feat * 4, 2.0 * nnz * feat)
-            # K5's output is every dense tile: 2·F FLOPs per entry
-            b5, by5 = bound(k_all * 128 * 128 * 4 + idx_bytes
-                            + (uniq_rows + uniq_cols) * 128 * feat * 4,
-                            2.0 * k_all * 128 * 128 * feat)
+            # K5's output is every dense tile: 2·F FLOPs per entry, which
+            # the kernel computes as three TF32 passes on the tensor cores
+            # (hi/lo split); the same FLOPs on the f32 CUDA cores are kept
+            # beside it
+            b5_bytes = (k_all * 128 * 128 * 4 + idx_bytes
+                        + (uniq_rows + uniq_cols) * 128 * feat * 4)
+            b5_flops = 2.0 * k_all * 128 * 128 * feat
+            b5, by5 = bound(b5_bytes, 3 * b5_flops, PEAK_TF32_FLOP_PER_S)
+            b5_cc, _ = bound(b5_bytes, b5_flops)
             # one PyTorch call computes K5 only on slabs gathered first;
             # that bmm is timed (gather excluded) and labelled, not used
             # as library_ms
@@ -476,6 +501,7 @@ def phase_gat_kernels(device, ds, g_gcn) -> tuple:
                                    20)))
             shapes["K5"].append(dict(
                 F=feat, **err5, bound_ms=b5, bound_by=by5,
+                bound_cuda_cores_ms=b5_cc,
                 ms=cuda_ms(lambda: dyn_grad_blocks(b.rows, b.cols, gr, x),
                            10),
                 plain_ms=cuda_ms(lambda: dyn_grad_blocks_plain(
@@ -492,7 +518,8 @@ def phase_gat_kernels(device, ds, g_gcn) -> tuple:
                       f"{'null' if lib is None else f'{lib:.4f}'} "
                       f"bound_ms={sh['bound_ms']:.4f} ({sh['bound_by']})")
             print(f"  K5 F={feat}: torch.bmm on pre-gathered slabs "
-                  f"{shapes['K5'][-1]['bmm_pregathered_ms']:.4f} ms")
+                  f"{shapes['K5'][-1]['bmm_pregathered_ms']:.4f} ms; bound "
+                  f"on the f32 CUDA cores {b5_cc:.4f} ms")
         for feat in (NUM_CLASSES, 64):
             x = torch.randn((n, feat), generator=gen, device=device)
             print(f"F={feat}:")
@@ -791,6 +818,11 @@ def phase_optin_kernels(device, g, ops) -> dict:
     nb = n // 128
     diag_live = (diag != 0).flatten(1).any(1)
     diag_nnz = int((diag != 0).sum())
+    row_nnz = (diag != 0).sum(2).flatten().float()
+    print(f"K8 diagonal blocks: {diag.shape[0]} ({int(diag_live.sum())} with "
+          f"a non-zero), {diag_nnz} non-zeros, fill "
+          f"{diag_nnz / diag.numel():.4f}, {float(row_nnz.mean()):.2f} a row "
+          f"on average, {int(row_nnz.max())} at most")
     gen = torch.Generator(device=device).manual_seed(4)
     shapes = {k: [] for k in ("K2", "K9", "K10", "K8", "K11")}
 
@@ -1367,7 +1399,7 @@ KERNELS = (
      "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/bsr_spmm.py:156"),
     ("K8", "K8 diag_spmm (diag_spmm_raw)",
-     "fitgnn_tpu_torch/csrc/diag_spmm.cu",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/diag_spmm.py:34"),
     ("K9", "K9 bsr_spmm_grouped (grouped tile walk)",
      "fitgnn_tpu_torch/csrc/tile_sparse.cuh",

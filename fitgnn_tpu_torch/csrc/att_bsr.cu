@@ -21,9 +21,12 @@
 // reads a tile row as one 512-byte float4 load, masks the 128 scores and
 // max-reduces them with shuffles; -1e30 where a row has no entry.
 //
-// att_walk_kernel: the dense tile walk of csrc/tile_fma.cuh, one CTA per
-// (block row, 64-column feature slice), with pe formed while a tile chunk is
-// staged into shared memory instead of read from a tensor.  The 128 score
+// att_walk_kernel: a dense tile walk, one CTA of 256 threads per (block
+// row, 64-column feature slice), each thread an 8x4 block of the output in
+// f32 registers; a tile is staged through shared memory in 32-deep chunks
+// (the tile's columns transposed, the matching X rows) and multiplied on
+// the CUDA cores, with pe formed while a tile chunk is staged instead of
+// read from a tensor.  The 128 score
 // values of each side sit in shared memory.  Forward: num = sum pe @ x
 // over the row's tiles, and the slice-0 CTA also writes den = the row sums
 // of pe (per-thread partials, reduced across the 8 lanes that share a
@@ -65,7 +68,7 @@ constexpr int THREADS = WARPS * 32;               // 256
 constexpr int ROWS_PER_WARP = BLK / WARPS;        // 16
 constexpr float NEG = -1e30f;
 
-// the walk's tiling (tile_fma.cuh's)
+// the dense walk's tiling
 constexpr int FT = 64;                            // feature columns a CTA
 constexpr int KC = 32;                            // tile columns a stage
 constexpr int TM = 8;                             // output rows a thread

@@ -1,11 +1,14 @@
 // The non-zero walk of a dense 128x128 tile, in two orientations: rows
-// (K1, K2, K9 and K10, bsr_spmm.cu; K4, bsr_dynamic.cu) and columns (K4
-// transposed, K4T, bsr_dynamic.cu).
+// (K1, K2, K9 and K10, bsr_spmm.cu; K4, bsr_dynamic.cu; K8, diag_spmm.cu)
+// and columns (K4 transposed, K4T, bsr_dynamic.cu; K8 transposed).
 //
 // Both compute out[r] = init[r] + sum_k s_k . op(A_k) @ X[c_k] over a block
 // row's run of tiles, where op is the identity (rows) or the transpose
-// (columns), and init is zero unless the rows orientation is given one.
-// The rows orientation replaces five TPU kernels over a sorted tile list:
+// (columns), and init is zero unless the walk is given one (INIT: K1 and
+// K8).  Under DIAG (K8, the block-diagonal run) the run of block row r is
+// the one tile r, read against X's own slab r at scale 1, and no index
+// array exists.  The rows orientation replaces five TPU kernels over a
+// sorted tile list:
 //   fitgnn_tpu/ops/pallas/bsr_spmm.py:_kernel_acc (grid _bsr_spmm_fwd_acc;
 //     K1, init + A . x on the layout with coverage fillers),
 //   fitgnn_tpu/ops/pallas/bsr_spmm.py:_kernel (grid _bsr_spmm_fwd; K2,
@@ -18,24 +21,28 @@
 //     (grid _dyn_apply; K4, GAT's runtime tile values);
 // the columns orientation
 // fitgnn_tpu/ops/pallas/bsr_dynamic.py:_make_dyn_kernel(trans=True) (grid
-// _dyn_apply).
+// _dyn_apply); under DIAG, both orientations replace
+// fitgnn_tpu/ops/pallas/diag_spmm.py:_make_kernel (diag_spmm.cu).
 //
 // Bound on an H100: bytes.  The tiles are ~3% full on the bench graph
-// (~3.9 non-zeros a tile row or column), so the function needs 2 FLOPs per
-// tile non-zero and feature, and the dense tiles (64 KiB each), the X
-// slabs, init (K1) and the output bound it.  The dense 128x128 product
-// (tile_fma.cuh) spends ~97% of its FMAs on zeros and cannot reach that
-// bound on the CUDA cores.  The walk reads each dense tile in place, finds
-// its non-zeros with __ballot_sync and applies only those: the FMAs a tile
-// costs are proportional to its non-zeros, and a tile with none (K9's
-// group pads, the coverage fillers of K1, K2, K4 and K4T, whose values are
-// zero) costs only its read: no shared-memory store, no slab copy, no FMA.
-// The group is not read: a padded run is a plain run.  A block row without
-// tiles (K10's layout has no fillers) walks nothing and stores zeros; a
-// block row of K1 whose run has no non-zero stores init unchanged, bit for
-// bit.  K1 reads init straight into the accumulators (one 16-byte load a
-// row where init starts on a 16-byte boundary and F % 4 == 0), so the add
-// that the TPU kernel fuses costs one read of init, as there.
+// (~3.9 non-zeros a tile row or column; the diagonal blocks ~4.5%, ~5.8 a
+// row), so the function needs 2 FLOPs per tile non-zero and feature, and
+// the dense tiles (64 KiB each), the X slabs, init (K1, K8) and the output
+// bound it.  A dense 128x128 product on the CUDA cores spends ~95-97% of
+// its FMAs on zeros and cannot reach that bound.  The walk reads each
+// dense tile in place, finds its non-zeros with __ballot_sync and applies
+// only those: the FMAs a tile costs are proportional to its non-zeros,
+// and a tile with none (K9's group pads, the coverage fillers of K1, K2,
+// K4 and K4T, whose values are zero) costs only its read: no
+// shared-memory store, no slab copy, no FMA.  The group is not read: a
+// padded run is a plain run.  A block row without tiles (K10's layout has
+// no fillers) walks nothing and stores zeros; a block row of K1 or K8
+// whose run has no non-zero stores init unchanged, bit for bit.  K1 and K8
+// read init straight into the accumulators (one 16-byte load a row where
+// init starts on a 16-byte boundary and F % 4 == 0), so the add that the
+// TPU kernel fuses costs one read of init, as there.  Both orientations
+// keep output rows warp*8 .. warp*8+7 in that warp's registers, so init
+// loads the same way in both.
 //
 // Grid: one CTA per (output block row, FT=128 feature columns), the slice
 // varying fastest, so the CTAs that reread one tile run together and find
@@ -58,6 +65,11 @@
 // 3. the next tile's loads start (its indices were read one step earlier,
 //    so no load waits on an index), then the slab is waited for and the
 //    non-zeros applied while those loads are in flight.
+// Under DIAG a CTA walks one tile, so there is no previous apply to hide
+// its read behind.  Its slab is known before the vote (slab r), so the
+// copy starts with the tile's read and init's: one memory latency before
+// the apply instead of two.  A diagonal block without a non-zero then
+// costs its slab's copy as well (one of the bench graph's 1,324).
 //
 // Bank conflicts: the tile is stored with chunk q (floats 4q .. 4q+3) of
 // row i at chunk q ^ (i % 8), an XOR swizzle of the 16-byte chunks.  The
@@ -224,14 +236,16 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
   }
 }
 
-// The tile walk.  TRANS = false, rows orientation (K1, K2, K9, K10 and
-// K4): out[r] = init[r] + sum_k A_k @ X[cols[k]] over the run
-// row_splits[r] .. row_splits[r+1], with init read only under INIT (K1)
-// and zero otherwise; sel and scale are unused (the callers pass null).
-// TRANS = true, columns orientation (K4T), from zero: out[r] = sum_k
-// scale[k] . A_{sel[k]}^T @ X[cols[k]]; a slot with scale 0 (a coverage
-// filler of the transpose plan) is skipped uniformly.
-template <bool TRANS, bool INIT, bool VEC>
+// The tile walk.  TRANS = false, rows orientation (K1, K2, K9, K10, K4
+// and K8): out[r] = init[r] + sum_k A_k @ X[cols[k]] over the run
+// row_splits[r] .. row_splits[r+1]; sel and scale are unused (the callers
+// pass null).  TRANS = true, columns orientation (K4T and K8 transposed):
+// out[r] = init[r] + sum_k scale[k] . A_{sel[k]}^T @ X[cols[k]]; a slot
+// with scale 0 (a coverage filler of the transpose plan) is skipped
+// uniformly.  init is read only under INIT (K1, K8), else zero.  DIAG
+// (K8): the run of row r is tile r at column r and scale 1, and
+// row_splits, sel, scale and cols are unused (null).
+template <bool TRANS, bool INIT, bool VEC, bool DIAG>
 __global__ void __launch_bounds__(THREADS, 1)
 walk_kernel(const float* __restrict__ blocks,
             const int32_t* __restrict__ row_splits,
@@ -240,7 +254,6 @@ walk_kernel(const float* __restrict__ blocks,
             const int32_t* __restrict__ cols,
             const float* __restrict__ x, const float* __restrict__ init,
             float* __restrict__ out, int64_t feat, int64_t slices) {
-  static_assert(!(TRANS && INIT), "the columns orientation starts from 0");
   extern __shared__ __align__(16) float smem[];
   float* as = smem;                             // the swizzled tile
   float* xs = smem + BLK * BLK;                 // the X slab
@@ -270,6 +283,7 @@ walk_kernel(const float* __restrict__ blocks,
     float s;                                    // 0: nothing to apply
   };
   auto slot = [&](int k) {
+    if (DIAG) return Slot{k, k, 1.f};
     return TRANS ? Slot{cols[k], sel[k], static_cast<float>(scale[k])}
                  : Slot{cols[k], k, 1.f};
   };
@@ -292,11 +306,13 @@ walk_kernel(const float* __restrict__ blocks,
     return i * BLK + 4 * ((j >> 2) ^ (i & 7)) + (j & 3);
   };
 
-  const int lo = row_splits[r];
-  const int nt = row_splits[r + 1] - lo;
+  const int lo = DIAG ? static_cast<int>(r) : row_splits[r];
+  const int nt = DIAG ? 1 : row_splits[r + 1] - lo;
   const Slot none{0, 0, 0.f};
   Slot c0 = nt > 0 ? slot(lo) : none;           // tile t, in ch
   Slot c1 = nt > 1 ? slot(lo + 1) : none;       // tile t + 1
+  // DIAG: the one slab is known now, so its copy runs beside the tile read
+  if (DIAG) start_slab<VEC>(xs, x + r * BLK * feat, f0, feat, tid);
   fetch(c0);
   for (int t = 0; t < nt; ++t) {
     bool any = false;
@@ -316,8 +332,10 @@ walk_kernel(const float* __restrict__ blocks,
         *reinterpret_cast<float4*>(as + at(warp + WARPS * u, 4 * lane)) =
             ch[u];
       }
-      start_slab<VEC>(xs, x + static_cast<int64_t>(c0.col) * BLK * feat, f0,
-                      feat, tid);
+      if (!DIAG) {
+        start_slab<VEC>(xs, x + static_cast<int64_t>(c0.col) * BLK * feat,
+                        f0, feat, tid);
+      }
     }
     const float st = c0.s;
     c0 = c1;
@@ -354,17 +372,19 @@ walk_kernel(const float* __restrict__ blocks,
       }
     }
   }
+  if (DIAG) cp_async_wait<0>();                 // a block without a non-zero
   store_rows(acc, out, r, f0, row0, lane, feat);
 }
 
 // Launches the walk on the flat grid of num_row_blocks * ceil(feat / FT)
 // CTAs (SMEM bytes of dynamic shared memory each), from init under INIT,
-// else from zero (init unused); nothing when either count is 0;
+// else from zero (init unused); under DIAG over the diagonal blocks (the
+// index arrays unused); nothing when either count is 0;
 // cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
 // else cudaGetLastError() after the launch.  The vector slab copy is
 // chosen on x's alignment; the kernel chooses the vector init load on
 // init's own.
-template <bool TRANS, bool INIT>
+template <bool TRANS, bool INIT, bool DIAG = false>
 cudaError_t launch(const float* blocks, const int32_t* row_splits,
                    const int32_t* sel, const int32_t* scale,
                    const int32_t* cols, const float* x, const float* init,
@@ -376,8 +396,8 @@ cudaError_t launch(const float* blocks, const int32_t* row_splits,
     if (ctas > 0x7fffffff) return cudaErrorInvalidConfiguration;
     const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0
                      && feat % 4 == 0;
-    const auto kernel = vec ? walk_kernel<TRANS, INIT, true>
-                            : walk_kernel<TRANS, INIT, false>;
+    const auto kernel = vec ? walk_kernel<TRANS, INIT, true, DIAG>
+                            : walk_kernel<TRANS, INIT, false, DIAG>;
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (set != cudaSuccess) return set;

@@ -13,7 +13,9 @@ differentiable in ``blocks_dyn`` and ``x``, as the JAX package's
   plan, reading ``blocks_dyn[t_sel[k]]ᵀ`` in place (no re-sorted tile
   copy) and applying only each tile column's non-zeros (the columns
   orientation); coverage-filler slots have ``t_scale`` 0 and add nothing;
-* ``dblocks``: K5 (``dyn_grad_blocks``), ``dB[k] = g[rows[k]] @ x[cols[k]]ᵀ``.
+* ``dblocks``: K5 (``dyn_grad_blocks``), ``dB[k] = g[rows[k]] @ x[cols[k]]ᵀ``,
+  dense, on the tensor cores with f32 accuracy (TF32 operands split into
+  a high and a low part).
 
 Each wrapper launches the hand-written kernel of ``csrc/bsr_dynamic.cu``
 on CUDA tensors (it replaces ``fitgnn_tpu/ops/pallas/bsr_dynamic.py``'s

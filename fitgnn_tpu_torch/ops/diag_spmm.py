@@ -9,10 +9,12 @@ computes ``out_b = (init_b +) A_b · x_b`` for (nb, 128, 128) ``blocks``, or
 TPU's run length (blocks per grid step); it must divide ``nb`` there, and
 here too, though the CUDA grid does not follow it.
 
-* On a CUDA tensor ``diag_spmm`` launches the hand-written kernel
-  ``csrc/diag_spmm.cu`` (it replaces the TPU kernel
-  ``fitgnn_tpu/ops/pallas/diag_spmm.py:_make_kernel``; the source note says
-  what bounds it on an H100 and what the design does about it).
+* On a CUDA tensor ``diag_spmm`` launches the hand-written kernel of
+  ``csrc/diag_spmm.cu``: the non-zero walk of ``csrc/tile_sparse.cuh`` over
+  the diagonal blocks, which applies only each block's non-zeros (it
+  replaces the TPU kernel ``fitgnn_tpu/ops/pallas/diag_spmm.py:_make_kernel``;
+  the source note says what bounds it on an H100 and what the design does
+  about it).
 * On a CPU tensor it runs the plain version ``diag_spmm_plain``: one
   batched matmul over the (nb, 128, F) views.
 

@@ -50,7 +50,7 @@ def _target(name: str, headers: tuple = ()) -> Target:
 TARGETS = (_target("bsr_spmm", ("tile_sparse.cuh",)),
            _target("coo_segmm"), _target("bsr_dynamic", ("tile_sparse.cuh",)),
            _target("att_bsr"),
-           _target("diag_spmm", ("tile_fma.cuh",)), _target("dropout"))
+           _target("diag_spmm", ("tile_sparse.cuh",)), _target("dropout"))
 
 
 def function(lib: str, name: str, argtypes: list):

@@ -28,7 +28,8 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import HIDDEN, NUM_CLASSES, NUM_FEATURES, make_graph  # noqa
+from chip_smoke import (HIDDEN, NUM_CLASSES, NUM_FEATURES,  # noqa
+                        make_graph, walk_args)
 
 PROFILED = 10
 
@@ -41,11 +42,11 @@ def _device_us(evt) -> float:
 
 
 def _group(name: str) -> str:
-    bare = name.replace(" ", "")
-    # the walk from init, sparse::walk_kernel<false, true, …>, is K1's alone
-    if "sparse::walk_kernel<false,true," in bare:
+    walk = walk_args(name)
+    # the rows walk from init, not over the diagonal, is K1's alone
+    if walk == (False, True, False):
         return "K1 bsr_spmm_acc"
-    if "sparse::walk_kernel" in bare:
+    if walk is not None:
         raise RuntimeError(f"{name}: the GCN forward launches no walk but "
                            "K1's")
     if "segmm_spmm" in name:

@@ -18,10 +18,12 @@ each it prints:
   from CUDA events over 10 steps after 3 warm-ups;
 * a ``torch.profiler`` table of device time per kernel over 5 steps,
   grouped into the port's kernels (K1-K11), the dense layers (cuBLAS), the
-  optimizer and the rest.  K1 alone launches the rows walk from ``init``,
-  ``sparse::walk_kernel<false, true, …>``.  K2, K4, K9 and K10 all launch
-  the rows walk from zero, ``sparse::walk_kernel<false, false, …>``, so
-  that kernel is labelled by the configuration (K4 in the default GAT run,
+  optimizer and the rest.  K8 launches the walk over the diagonal blocks,
+  ``sparse::walk_kernel<…, true>`` (DIAG), in both orientations.  K1 alone
+  launches the other rows walk from ``init``, ``sparse::walk_kernel<false,
+  true, …, false>``.  K2, K4, K9 and K10 all launch the rows walk from
+  zero, ``sparse::walk_kernel<false, false, …, false>``, so that kernel is
+  labelled by the configuration (K4 in the default GAT run,
   K9 on ``tile_group=2``, K10 on ``use_rowwalk``).  The launch counters
   must show that the profiled steps launched the one rows-walk wrapper
   the configuration expects and no other (K1 in the default GCN runs and
@@ -44,7 +46,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from chip_smoke import (FUSED, FUSED_ONLY, HIDDEN, NUM_CLASSES,  # noqa
-                        NUM_FEATURES, make_graph, switches)
+                        NUM_FEATURES, make_graph, switches, walk_args)
 
 PROFILED = 5
 
@@ -74,18 +76,19 @@ def _rows_walk_users() -> dict:
 def _group(name: str, rows_walk: str | None) -> str:
     """The profile group of kernel ``name``; ``rows_walk`` labels the rows
     walk from zero, which several wrappers share."""
-    bare = name.replace(" ", "")
-    if "sparse::walk_kernel<false,true," in bare:
-        return K1
-    if "sparse::walk_kernel<false,false," in bare:
+    walk = walk_args(name)
+    if walk is not None:
+        trans, init, diag = walk
+        if diag:
+            return "K8 diag_spmm"
+        if trans:
+            return "K4T dyn_tiles_t"
+        if init:
+            return K1
         if rows_walk in (None, K1):
             raise RuntimeError(f"{name} ran in a configuration that expects "
                                "no rows walk from zero")
         return rows_walk
-    if "sparse::walk_kernel<true," in bare:
-        return "K4T dyn_tiles_t"
-    if "diag_spmm_kernel" in name:
-        return "K8 diag_spmm"
     if "philox_dropout_kernel" in name:
         return "K11 philox_dropout"
     if "att_rowmax_kernel" in name:

@@ -162,6 +162,43 @@ def test_k4_k5_kernels_match_plain(cuda, feat):
     assert not got[1][2 * 128:3 * 128].any()     # the filler's block
 
 
+# F=101 and the unaligned g take K5's 4-byte loads; F=0 writes zeros
+@pytest.mark.parametrize("feat,aligned", [(0, True), (16, True), (40, True),
+                                          (101, True), (512, True),
+                                          (64, False)])
+def test_k5_tensor_cores_keep_f32_accuracy(cuda, feat, aligned):
+    """K5 on the tensor cores (TF32 operands split into hi and lo): the
+    dense product of every tile, a coverage filler (block row 4, column 0,
+    whose forward values are zero) included, within the tolerance of its
+    plain f32 version, and within 1e-5·max|ref| of each tile's float64
+    product, where one TF32 pass misses by ~2e-4; the g slab of block row 1
+    is scaled by 1e3, so tiles of both magnitudes are held."""
+    rng = np.random.default_rng(feat + 20)
+    rows, cols, nb = _tiles(rng)
+    first = int(np.searchsorted(rows, 4))
+    rows, cols = np.insert(rows, first, 4), np.insert(cols, first, 0)
+    g = rng.standard_normal((nb * 128, feat)).astype(np.float32)
+    g[128:256] *= 1e3
+    x = rng.standard_normal((nb * 128, feat)).astype(np.float32)
+    rt, ct = torch.from_numpy(rows).to(cuda), torch.from_numpy(cols).to(cuda)
+    gd, xd = torch.from_numpy(g).to(cuda), torch.from_numpy(x).to(cuda)
+    gd = gd if aligned else _unaligned(gd)
+    before = dyn_grad_blocks.launches
+    with torch.inference_mode():
+        got = dyn_grad_blocks(rt, ct, gd, xd)
+        ref = dyn_grad_blocks_plain(rt, ct, gd, xd)
+    torch.cuda.synchronize()
+    assert dyn_grad_blocks.launches == before + 1
+    assert got.shape == (len(rows), 128, 128)
+    if feat == 0:
+        assert not got.any()
+        return
+    _close(got, ref)
+    ref64 = dyn_grad_blocks_plain(rt, ct, gd.double(), xd.double())
+    err = (got.double() - ref64).abs().flatten(1).max(1).values
+    assert (err <= 1e-5 * ref64.abs().flatten(1).max(1).values).all()
+
+
 @pytest.mark.parametrize("feat", [40, 64])
 def test_k3w_kernel_matches_plain(cuda, feat):
     rng = np.random.default_rng(feat + 3)
@@ -370,6 +407,9 @@ def _sparse_tiles(rng, k):
 
 
 _BCSR_WALKS = ("K1", "K2", "K9", "K10")
+# K8's four forms: transpose, init
+_DIAG_WALKS = {"K8": (False, False), "K8init": (False, True),
+               "K8T": (True, False), "K8Tinit": (True, True)}
 
 
 def _walk_operands(rng, kernel, case):
@@ -383,14 +423,21 @@ def _walk_operands(rng, kernel, case):
     * K4: a sorted tile list whose block row 4 holds only a zero-valued
       coverage filler, with its dynamic plan;
     * K4ᵀ: a tile list with its transpose plan (block column 2 unused: a
-      scale-0 filler slot there).
+      scale-0 filler slot there);
+    * K8: six diagonal blocks, block 4 all zero (as one of the bench
+      graph's), and block 1 the one the case edits.
     Returns the operands, the output block of the dense tile (None unless
     "dense"), the output row the NaN must reach (None unless "nan") and
     the output block that no non-zero reaches, which comes out as zeros,
-    or as ``init`` for K1 (None for K9)."""
-    rows_walk = kernel != "K4T"          # output row i takes tile row i
+    or as ``init`` for K1 and K8 with init (None for K9)."""
+    rows_walk = kernel not in ("K4T", "K8T", "K8Tinit")
     zero_block = None
-    if kernel in _BCSR_WALKS:
+    if kernel in _DIAG_WALKS:
+        blocks = _sparse_tiles(rng, 6)
+        blocks[4] = 0.0
+        rows = cols = np.arange(6)
+        tile, zero_block, plan, b = 1, 4, None, None
+    elif kernel in _BCSR_WALKS:
         s, r, w = _coo(rng, 1024, 6_000)
         kw = {"K9": dict(group=3), "K10": dict(rowwalk=True)}.get(kernel,
                                                                   {})
@@ -422,9 +469,10 @@ def _walk_operands(rng, kernel, case):
         blocks = _sparse_tiles(rng, len(rows))
         if kernel == "K4":
             blocks[first] = 0.0
-    assert hi - lo >= 2
-    slot = lo if kernel == "K4T" else lo + 1
-    tile = int(plan.t_sel[slot]) if kernel == "K4T" else slot
+    if kernel not in _DIAG_WALKS:
+        assert hi - lo >= 2
+        slot = lo if kernel == "K4T" else lo + 1
+        tile = int(plan.t_sel[slot]) if kernel == "K4T" else slot
     dense_block = nan_row = None
     if case == "dense":
         blocks[tile] = rng.random((128, 128)) + 0.5
@@ -436,6 +484,8 @@ def _walk_operands(rng, kernel, case):
         blocks[tile, 20, 30] = np.nan
         nan_row = (rows[tile] * 128 + 20 if rows_walk
                    else cols[tile] * 128 + 30)
+    if kernel in _DIAG_WALKS:
+        return torch.from_numpy(blocks), dense_block, nan_row, zero_block
     if plan is None:
         b.blocks = torch.from_numpy(blocks)
         return b, dense_block, nan_row, zero_block
@@ -449,22 +499,26 @@ _NONZERO_WALKS = {"K1": (bsr_spmm_acc, bsr_spmm_acc_plain),
                   "K9": (bsr_spmm_grouped, bsr_spmm_plain),
                   "K10": (bsr_spmm_rowwalk, bsr_spmm_plain),
                   "K4": (dyn_tiles, dyn_tiles_plain),
-                  "K4T": (dyn_tiles_t, dyn_tiles_t_plain)}
+                  "K4T": (dyn_tiles_t, dyn_tiles_t_plain),
+                  **{k: (diag_spmm, diag_spmm_plain) for k in _DIAG_WALKS}}
 
 
 @pytest.mark.parametrize("feat,aligned", [(16, True), (40, True),
                                           (64, True), (101, True),
                                           (512, True), (64, False)])
 @pytest.mark.parametrize("case", ["sparse", "dense", "zero_inside", "nan"])
-@pytest.mark.parametrize("kernel", ["K9", "K4T", "K10", "K4", "K1", "K2"])
+@pytest.mark.parametrize("kernel", ["K9", "K4T", "K10", "K4", "K1", "K2",
+                                    *_DIAG_WALKS])
 def test_nonzero_walks_match_plain(cuda, kernel, case, feat, aligned):
-    """K1, K2, K9, K10, K4 and K4ᵀ walk each tile's non-zeros: ~3%
-    occupancy with empty tile rows and columns, a fully dense tile, an
-    all-zero tile inside a run (beside the zero coverage filler of K1, K2
-    and K4, K9's pads, K10's block row without tiles and K4ᵀ's scale-0
-    filler, whose output blocks must come out as 0, or as init for K1, bit
-    for bit), F that is not a multiple of 64 or of 4, an unaligned x, and
-    a NaN tile entry, which must reach its output row and no other."""
+    """K1, K2, K9, K10, K4, K4ᵀ and K8 (forward and transposed, from init
+    and from zero) walk each tile's non-zeros: ~3% occupancy with empty
+    tile rows and columns, a fully dense tile, an all-zero tile inside a
+    run (beside the zero coverage filler of K1, K2 and K4, K9's pads,
+    K10's block row without tiles, K4ᵀ's scale-0 filler and K8's empty
+    diagonal block, whose output blocks must come out as 0, or as init for
+    K1 and K8 with init, bit for bit), F that is not a multiple of 64 or of
+    4, an unaligned x, and a NaN tile entry, which must reach its output
+    row and no other."""
     rng = np.random.default_rng(feat + 8)
     ops, dense_block, nan_row, zero_block = _walk_operands(rng, kernel,
                                                            case)
@@ -474,7 +528,13 @@ def test_nonzero_walks_match_plain(cuda, kernel, case, feat, aligned):
     xd = x if aligned else _unaligned(x)
     walk, plain = _NONZERO_WALKS[kernel]
     base = torch.zeros_like(x)           # what rows without a non-zero get
-    if kernel in _BCSR_WALKS:
+    if kernel in _DIAG_WALKS:
+        transpose, with_init = _DIAG_WALKS[kernel]
+        if with_init:
+            base = torch.from_numpy(rng.standard_normal((n, feat)).astype(
+                np.float32)).to(cuda)
+        args = (ops.to(cuda), xd, 3, transpose, base if with_init else None)
+    elif kernel in _BCSR_WALKS:
         args = (ops.to(cuda), xd)
         if kernel == "K1":
             base = torch.from_numpy(rng.standard_normal((n, feat)).astype(
@@ -503,8 +563,8 @@ def test_nonzero_walks_match_plain(cuda, kernel, case, feat, aligned):
     if zero_block is not None:
         rows = slice(zero_block * 128, (zero_block + 1) * 128)
         assert torch.equal(got[rows], base[rows])
-    # output rows 0-9 of a block take tile rows (K1, K2, K9, K10, K4) or
-    # columns (K4ᵀ) 0-9
+    # output rows 0-9 of a block take tile rows (K1, K2, K9, K10, K4, K8) or
+    # columns (K4ᵀ, K8 transposed) 0-9
     empty = torch.cat([torch.arange(r * 128, r * 128 + 10)
                        for r in range(n // 128) if r != dense_block])
     assert torch.equal(got[empty.to(cuda)], base[empty.to(cuda)])
@@ -548,17 +608,23 @@ def test_k1_walk_starts_from_init(cuda, case):
     assert torch.equal(got[empty], init[empty])
 
 
-@pytest.mark.parametrize("feat", [16, 101, 512])
+# F=101 and the unaligned x take the walk's 4-byte slab copy
+@pytest.mark.parametrize("feat,aligned", [(16, True), (101, True),
+                                          (512, True), (64, False)])
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("with_init", [False, True])
-def test_k8_kernel_matches_plain(cuda, transpose, with_init, feat):
+def test_k8_kernel_matches_plain(cuda, transpose, with_init, feat, aligned):
+    """K8 on ~10% full diagonal blocks; block 2 is all zero, so its output
+    rows come out as init (or zero) bit for bit."""
     rng = np.random.default_rng(feat + 7)
     nb = 6
-    blocks = torch.from_numpy((rng.standard_normal((nb, 128, 128))
-                               * (rng.random((nb, 128, 128)) < 0.1)).astype(
-        np.float32)).to(cuda)
+    blocks = (rng.standard_normal((nb, 128, 128))
+              * (rng.random((nb, 128, 128)) < 0.1)).astype(np.float32)
+    blocks[2] = 0.0
+    blocks = torch.from_numpy(blocks).to(cuda)
     x, init = (torch.from_numpy(rng.standard_normal((nb * 128, feat)).astype(
         np.float32)).to(cuda) for _ in range(2))
+    x = x if aligned else _unaligned(x)
     init = init if with_init else None
     before = diag_spmm.launches
     with torch.inference_mode():
@@ -567,6 +633,9 @@ def test_k8_kernel_matches_plain(cuda, transpose, with_init, feat):
     torch.cuda.synchronize()
     assert diag_spmm.launches == before + 1
     _close(got, ref)
+    zero = got[2 * 128:3 * 128]
+    assert (torch.equal(zero, init[2 * 128:3 * 128]) if with_init
+            else not zero.any())
 
 
 @pytest.mark.parametrize("shape,aligned", [((1000, 512), True),
