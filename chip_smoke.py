@@ -7,7 +7,8 @@ its CUDA kernels against their plain PyTorch versions.
 Phases (any failure exits non-zero before the result lines):
 
 1. the card's name and power limit; build every native library (one
-   ``nvcc`` per CUDA source and the Leiden g++ build, all in parallel);
+   ``nvcc`` per CUDA source and the Leiden g++ build, all in parallel) and
+   print each kernel's registers and spilled bytes from ``ptxas -v``;
 2. the bench graph (seed 0, 169,344 nodes, 128 features, 40 classes, the
    generator of ``bench.py``), saved as an npz dataset in a temp root;
 3. kernels, each against its plain version (rtol 1e-4, atol
@@ -22,8 +23,9 @@ Phases (any failure exits non-zero before the result lines):
    (``segmm_weighted_raw``) at F=40 and 64, and on the transpose CSR at
    F=512 (K6's ``dx``); then the fused tile attention and K6 at F=128 and
    512: K7rm (``att_rowmax``), K7f (``att_fwd``), K7bt (``att_bwd_t``: the
-   ``dx`` walk and the ``dssrc`` reduction, timed as the main path calls
-   it, ``dssrc`` alone at F=128), K7bf (``att_bwd_f``) and K6
+   ``dx`` walk and the ``dssrc`` reduction, each timed alone and with a
+   bound of its own; the path launches ``dx`` at F=512 only), K7bf
+   (``att_bwd_f``) and K6
    (``segmm_weighted_den_raw``), each beside the two-stage path it
    replaces (materialised tile scores, K4/K4ᵀ/K5 and PyTorch's
    elementwise work, forward and autograd backward), whose outputs and
@@ -70,7 +72,8 @@ Phases (any failure exits non-zero before the result lines):
    full forward with kernels is held against the same forward with the
    plain versions (atol 1e-4);
 8. one JSON line with every kernel's numbers (launches summed over the
-   main-path phases 5 to 7, per phase beside them), then the ``ok`` line.
+   main-path phases 5 to 7, per phase beside them; K7f and K7bt with the
+   register counts of their walk), then the ``ok`` line.
 
 The JAX package's environment switches are set in ``os.environ`` for one
 phase and restored after it; the earlier phases must launch none of K6
@@ -141,15 +144,17 @@ def make_graph():
 
 
 def walk_args(kernel_name: str):
-    """(TRANS, INIT, DIAG) of a ``sparse::walk_kernel<TRANS, INIT, VEC,
-    DIAG>`` launch by its demangled name, or None for any other kernel
-    (the profile scripts group the walk's users by these)."""
-    m = re.search(r"sparse::walk_kernel<(\w+),(\w+),(\w+),(\w+)>",
-                  kernel_name.replace(" ", ""))
+    """(TRANS, INIT, DIAG, hook) of a ``sparse::walk_kernel<TRANS, INIT,
+    VEC, DIAG, V>`` launch by its demangled name, ``hook`` the value
+    hook's name without its namespace ("Plain", K7f's "FwdScores", K7bt's
+    "DxScores"), or None for any other kernel (the profile scripts group
+    the walk's users by these)."""
+    m = re.search(r"sparse::walk_kernel<(\w+),(\w+),(\w+),(\w+),"
+                  r"(?:\w+::)*(\w+)>", kernel_name.replace(" ", ""))
     if m is None:
         return None
-    trans, init, _, diag = (v in ("true", "1") for v in m.groups())
-    return trans, init, diag
+    trans, init, _, diag = (v in ("true", "1") for v in m.groups()[:4])
+    return trans, init, diag, m.group(5)
 
 
 class Failed(Exception):
@@ -217,18 +222,52 @@ def bound(bytes_: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_build() -> None:
+def ptxas_entries(log_path: str) -> list:
+    """(kernel, registers, spilled bytes) of each entry function in a
+    ``ptxas -v`` log; names demangled by ``c++filt`` where it is found,
+    without their parameter lists."""
+    found, name, spill = [], None, 0
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name, spill = m.group(1), 0
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and name:
+                spill = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                found.append([name, int(m.group(1)), spill])
+                name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            e[0] for e in found), capture_output=True, text=True,
+            check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        names = [e[0] for e in found]
+    for e, n in zip(found, names):
+        n = n.replace("(anonymous namespace)::", "")
+        e[0] = re.sub(r"^void ", "", n.split("(")[0])
+    return [tuple(e) for e in found]
+
+
+def phase_build() -> list:
+    """Builds every library; returns (library, kernel, registers, spilled
+    bytes) of each kernel, which it prints."""
     from fitgnn_tpu_torch.ops import kernels
     from fitgnn_tpu_torch.partition.community import LEIDEN
     from fitgnn_tpu_torch.utils.build import build
     t0 = time.perf_counter()
     built = build([*kernels.TARGETS, LEIDEN])
     print(f"build: {built} in {time.perf_counter() - t0:.1f} s")
+    regs = []
     for t in kernels.TARGETS:
-        with open(t.log_path) as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    print(f"  {t.name}: {line.strip()}")
+        for kernel, n, spill in ptxas_entries(t.log_path):
+            print(f"  {t.name}: {kernel}: {n} registers, {spill} bytes "
+                  "spilled")
+            regs.append((t.name, kernel, n, spill))
+    return regs
 
 
 def phase_small_reference(device) -> None:
@@ -585,15 +624,28 @@ def phase_fused_kernels(device, g) -> dict:
     t_uniq = int(torch.unique(mt.senders[mt.weights != 0]).numel())
     shapes = {k: [] for k in ("K6", "K7rm", "K7f", "K7bt", "K7bf", "K3w")}
     fwd = (rows, cols, plan, blocks, ssrc, sdst)
+    two_label = ("the two-stage autograd backward for dssrc, dsdst and dx "
+                 "(K5, K4ᵀ when dx is needed, the elementwise chain): "
+                 "compare with K7bt + K7bf")
 
-    def show(k):
-        sh = shapes[k][-1]
-        lib, two = sh["library_ms"], sh.get("two_stage_ms")
-        print(f"  {k} F={sh['F']}: kernel_ms={sh['ms']:.4f} "
-              f"plain_ms={sh['plain_ms']:.4f} library_ms="
-              f"{'null' if lib is None else f'{lib:.4f}'} "
-              f"two_stage_ms={'null' if two is None else f'{two:.4f}'} "
-              f"bound_ms={sh['bound_ms']:.4f} ({sh['bound_by']})")
+    def plain_dx(gr):
+        """The dx half of att_bwd_t_plain (materialised pe, bmm, index_add_):
+        the plain version of K7bt's walk alone."""
+        pe = att_bsr._tile_pe(blocks.index_select(0, plan.t_sel.long()), ssrc,
+                              sdst, mg, plan.t_cols, plan.t_rows, SLOPE)[2]
+        sc = plan.t_scale.to(pe.dtype)[:, None, None]
+        dx = torch.bmm(pe.transpose(1, 2), att_bsr._slabs(gr, plan.t_cols))
+        return att_bsr._sum_by_block(sc * dx, plan.t_rows, nb)
+
+    def show(k, last=1):
+        for sh in shapes[k][-last:]:
+            lib, two = sh["library_ms"], sh.get("two_stage_ms")
+            part = f" ({sh['launch']})" if "launch" in sh else ""
+            print(f"  {k}{part} F={sh['F']}: kernel_ms={sh['ms']:.4f} "
+                  f"plain_ms={sh['plain_ms']:.4f} library_ms="
+                  f"{'null' if lib is None else f'{lib:.4f}'} "
+                  f"two_stage_ms={'null' if two is None else f'{two:.4f}'} "
+                  f"bound_ms={sh['bound_ms']:.4f} ({sh['bound_by']})")
 
     with torch.inference_mode():
         # K7rm: F-independent, one launch per layer
@@ -668,13 +720,18 @@ def phase_fused_kernels(device, g) -> dict:
             # subtract and exp
             bf, byf = bound(tile_bytes + idx_f + 3 * vec + uniq_cols * slabs
                             + n * feat * 4 + vec, nnz * (2.0 * feat + 5))
-            # K7bt / K7bf: tiles, four vectors, g and x slabs, the output;
-            # 2·F FLOPs per non-zero for each product (the ⟨g, x⟩ of d_pe,
-            # and peᵀ @ g for dx)
+            # K7bt's dssrc / K7bf: tiles, four vectors, g and x slabs, the
+            # output; 2·F FLOPs per non-zero for the ⟨g, x⟩ of d_pe and ~8
+            # for the score, its gradient and the sum
             bt, byt = bound(tile_bytes + idx_t + 4 * vec
-                            + (uniq_rows + uniq_cols) * slabs + vec
-                            + (n * feat * 4 if need_dx else 0),
-                            nnz * (2.0 * feat * (2 if need_dx else 1) + 8))
+                            + (uniq_rows + uniq_cols) * slabs + vec,
+                            nnz * (2.0 * feat + 8))
+            # K7bt's dx: tiles, the transpose plan, ssrc, sdst and m, the
+            # slabs of the distinct g blocks (the forward row blocks), dx
+            # out; 2·F FLOPs per non-zero for peᵀ @ g and ~5 for pe
+            bdx, bydx = bound(tile_bytes + idx_t + 3 * vec
+                              + uniq_rows * slabs + n * feat * 4,
+                              nnz * (2.0 * feat + 5))
             bb, byb = bound(tile_bytes + idx_f + 4 * vec
                             + (uniq_rows + uniq_cols) * slabs + vec,
                             nnz * (2.0 * feat + 8))
@@ -690,20 +747,32 @@ def phase_fused_kernels(device, g) -> dict:
                 two_stage_ms=cuda_ms(lambda: tiles_two_stage(
                     SLOPE, rows, cols, plan, blocks, ssrc, sdst, mg, x), 10),
                 two_stage_label="materialised pe, K4 and the den row sums"))
+            # K7bt's two launches, each timed alone: the dx walk and the
+            # dssrc reduction (need_dx=False launches it alone); the main
+            # path launches dx at F=512 only (layer 1), so the F=128 dx row
+            # is off the path; the two-stage backward sits on the dx row at
+            # F=512 and on the dssrc row at F=128
+            compare(f"K7bt dx plain half vs att_bwd_t_plain F={feat}",
+                    plain_dx(gr), dx_p)
             shapes["K7bt"].append(dict(
-                F=feat, need_dx=need_dx,
-                max_abs_err=max(er["max_abs_err"] for er in e_t),
-                max_rel_err=max(er["max_rel_err"] for er in e_t),
-                bound_ms=bt, bound_by=byt,
+                F=feat, launch="dx", on_path=need_dx, **e_t[0],
+                bound_ms=bdx, bound_by=bydx,
+                ms=cuda_ms(lambda: att_bsr._launch_walk(
+                    "att_bwd_t (dx)", device, blocks, plan.t_row_splits,
+                    plan.t_sel, plan.t_scale, plan.t_cols, ssrc, sdst, mg,
+                    gr, None, True, SLOPE), 20),
+                plain_ms=cuda_ms(lambda: plain_dx(gr), 5), library_ms=None,
+                two_stage_ms=two_bwd if need_dx else None,
+                two_stage_label=two_label))
+            shapes["K7bt"].append(dict(
+                F=feat, launch="dssrc", **e_t[-1], bound_ms=bt,
+                bound_by=byt,
                 ms=cuda_ms(lambda: att_bsr.att_bwd_t(
-                    *bwd, need_dx=need_dx), 10),
+                    *bwd, need_dx=False), 20),
                 plain_ms=cuda_ms(lambda: att_bsr.att_bwd_t_plain(
-                    *bwd, need_dx=need_dx), 5), library_ms=None,
-                two_stage_ms=two_bwd,
-                two_stage_label="the two-stage autograd backward for "
-                                "dssrc, dsdst and dx (K5, K4ᵀ when dx is "
-                                "needed, the elementwise chain): compare "
-                                "with K7bt + K7bf"))
+                    *bwd, need_dx=False), 5), library_ms=None,
+                two_stage_ms=None if need_dx else two_bwd,
+                two_stage_label=two_label))
             shapes["K7bf"].append(dict(
                 F=feat, **e_b, bound_ms=bb, bound_by=byb,
                 ms=cuda_ms(lambda: att_bsr.att_bwd_f(rows, cols, *bwd), 10),
@@ -722,7 +791,7 @@ def phase_fused_kernels(device, g) -> dict:
                 library_label="torch.sparse.mm with runtime weights: num "
                               "only"))
             for k in ("K7f", "K7bt", "K7bf", "K6"):
-                show(k)
+                show(k, 2 if k == "K7bt" else 1)
             if feat == HIDDEN:
                 # K6's dx in layer 1: K3w on the transpose CSR
                 k3w = segmm_weighted_raw(mt, wt, gr)
@@ -1344,8 +1413,11 @@ def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     libs = [s["library_ms"] for s in path]
     extra = {}
     if "two_stage_label" in top:
-        twos = [s["two_stage_ms"] for s in path]
-        extra = {"two_stage_ms": None if None in twos else sum(twos),
+        # a yardstick may cover several rows (K7bt's two launches): it sits
+        # on one of them and is None on the others
+        twos = [s["two_stage_ms"] for s in path
+                if s["two_stage_ms"] is not None]
+        extra = {"two_stage_ms": sum(twos) if twos else None,
                  "two_stage_label": top["two_stage_label"]}
     if "library_label" in top:
         extra["library_label"] = top["library_label"]
@@ -1386,11 +1458,12 @@ KERNELS = (
      "fitgnn_tpu/ops/pallas/coo_segmm.py:236"),
     ("K7rm", "K7 att_rowmax", "fitgnn_tpu_torch/csrc/att_bsr.cu",
      "fitgnn_tpu/ops/pallas/att_bsr.py:78"),
-    ("K7f", "K7 att_fwd (att_tiles forward)",
-     "fitgnn_tpu_torch/csrc/att_bsr.cu",
+    ("K7f", "K7 att_fwd (att_tiles forward: the rows walk, pe per "
+     "non-zero)", "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/att_bsr.py:125"),
-    ("K7bt", "K7 att_bwd_t (att_tiles dx and dssrc: two launches)",
-     "fitgnn_tpu_torch/csrc/att_bsr.cu",
+    ("K7bt", "K7 att_bwd_t (att_tiles dx: the columns walk of "
+     "tile_sparse.cuh, pe per non-zero; dssrc: att_reduce_kernel; two "
+     "launches, per_shape gives each)", "fitgnn_tpu_torch/csrc/att_bsr.cu",
      "fitgnn_tpu/ops/pallas/att_bsr.py:185"),
     ("K7bf", "K7 att_bwd_f (att_tiles dsdst)",
      "fitgnn_tpu_torch/csrc/att_bsr.cu",
@@ -1430,7 +1503,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
-    phase_build()
+    regs = phase_build()
     phase_small_reference(device)
 
     x, s, r, y, train = make_graph()
@@ -1464,6 +1537,17 @@ def main() -> int:
     for entry in kernels_line["kernels"]:
         check(entry["launches"] > 0,
               f"{entry['name']} never launched on a main-path phase")
+    # the register counts of the walk's K7 instantiations (both slab copies)
+    for (k, *_), entry in zip(KERNELS, kernels_line["kernels"]):
+        hook = {"K7f": "FwdScores", "K7bt": "DxScores"}.get(k)
+        if hook is None:
+            continue
+        entry["registers"] = {
+            kernel: {"registers": n, "spilled_bytes": spill}
+            for _, kernel, n, spill in regs
+            if (walk_args(kernel) or (None,) * 4)[3] == hook}
+        check(len(entry["registers"]) == 2,
+              f"{entry['name']}: no ptxas record of the walk under {hook}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

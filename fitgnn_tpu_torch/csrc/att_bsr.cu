@@ -4,8 +4,11 @@
 //
 // Replaces the TPU kernels of fitgnn_tpu/ops/pallas/att_bsr.py:
 //   _rowmax_kernel (entry att_rowmax)  -> att_rowmax_kernel
-//   _fwd_kernel    (entry _att_fwd)    -> att_walk_kernel<false>
-//   _bwd_t_kernel  (entry _att_bwd_t)  -> att_walk_kernel<true> (dx) and
+//   _fwd_kernel    (entry _att_fwd)    -> the rows walk of tile_sparse.cuh
+//                                         under the hook att::FwdScores
+//   _bwd_t_kernel  (entry _att_bwd_t)  -> the columns walk of
+//                                         tile_sparse.cuh under the hook
+//                                         att::DxScores (dx) and
 //                                         att_reduce_kernel<true> (dssrc)
 //   _bwd_f_kernel  (entry _att_bwd_f)  -> att_reduce_kernel<false> (dsdst)
 //
@@ -21,20 +24,27 @@
 // reads a tile row as one 512-byte float4 load, masks the 128 scores and
 // max-reduces them with shuffles; -1e30 where a row has no entry.
 //
-// att_walk_kernel: a dense tile walk, one CTA of 256 threads per (block
-// row, 64-column feature slice), each thread an 8x4 block of the output in
-// f32 registers; a tile is staged through shared memory in 32-deep chunks
-// (the tile's columns transposed, the matching X rows) and multiplied on
-// the CUDA cores, with pe formed while a tile chunk is staged instead of
-// read from a tensor.  The 128 score
-// values of each side sit in shared memory.  Forward: num = sum pe @ x
-// over the row's tiles, and the slice-0 CTA also writes den = the row sums
-// of pe (per-thread partials, reduced across the 8 lanes that share a
-// row).  Transposed (dx of the backward): the transpose plan's slots, each
-// tile read transposed in place, dx[c] += scale . pe^T @ g[r]; a filler
-// slot (scale 0) is skipped, but every row is still written.  No atomics.
-// Cost of this design: every F-slice CTA recomputes the exps of its tiles
-// (F/64 = 8 times at F=512).
+// The walks (K7f, and K7bt's dx): K4 and K4T of GAT's two-stage path with
+// pe formed per non-zero instead of read from a tensor.  The walk of
+// tile_sparse.cuh (one CTA of 512 threads per block row and 128-column
+// feature slice, a warp per 8 output rows, each tile's non-zeros found by
+// ballot and applied alone) calls a value hook on each lane's tile entry:
+// the lane whose entry is set works out its pe, and pe is broadcast in the
+// entry's place.  The score vectors sit in shared memory beside the tile
+// and the slab: the CTA's own block's once, the slot's partner block's
+// copied with the slab, so no load waits on them and none holds a
+// register through the walk (the rows walk already takes up to 122 of the
+// 128 registers that 512 threads may have).  Forward (att::FwdScores): num
+// = sum pe @ x over the row's tiles, and the CTAs of slice 0 also write
+// den = the row sums of pe (8 partials a lane, one a row, summed across
+// the warp at the end); every row is written, 0 where it has no tile.
+// Transposed (att::DxScores, the transpose plan's slots): dx[c] += scale .
+// pe^T @ g[r]; a filler slot (scale 0) is skipped, but every row is still
+// written.  No atomics.
+// Each F-slice CTA works out the exps of its tiles' non-zeros again
+// (F/128 = 4 times at F=512).  tile_sparse.cuh has the walk's one
+// departure from the dense product: an inf in x or g that only masked-out
+// entries reach leaves the output finite.
 //
 // att_reduce_kernel: the score gradient d_raw = mask . LeakyReLU'(raw) .
 // pe . (<g[i], x[j]> + dden[i]), summed over j into dsdst[i] (forward
@@ -49,16 +59,17 @@
 // sampled product, where the TPU kernel did the dense 128x128xF one.
 //
 // Bound on an H100.  att_rowmax: bytes (every tile read once).  The walks:
-// the function is bytes-bound (tiles, slabs, output), but the kernel does
-// the dense 128x128 product on the CUDA cores' f32 FMA, ~33x the FLOPs of
-// the tile non-zeros (the BCSR walks apply only the non-zeros:
-// tile_sparse.cuh).  att_reduce: bytes as a function (tiles,
-// g and x slabs); the kernel re-reads a partner row for every entry, 2.2 GB
-// at F=512 on the bench graph, mostly from L2.  Tensor cores, TMA and one
-// exp per entry shared across the F-slices are later work.
+// bytes (tiles, slabs, the three score vectors, output), 2.F + ~5 FLOPs
+// per tile non-zero (the product, the score, LeakyReLU, subtract, exp and,
+// forward, den's add).  att_reduce: bytes as a function (tiles, g and x
+// slabs); the kernel re-reads a partner row for every entry, 2.2 GB at
+// F=512 on the bench graph, mostly from L2.  One exp per entry shared
+// across the F-slices, and the reductions' redesign, are later work.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "tile_sparse.cuh"
 
 namespace {
 
@@ -67,13 +78,6 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;               // 256
 constexpr int ROWS_PER_WARP = BLK / WARPS;        // 16
 constexpr float NEG = -1e30f;
-
-// the dense walk's tiling
-constexpr int FT = 64;                            // feature columns a CTA
-constexpr int KC = 32;                            // tile columns a stage
-constexpr int TM = 8;                             // output rows a thread
-constexpr int TN = 4;                             // output cols a thread
-static_assert((BLK / TM) * (FT / TN) == THREADS, "walk tiling");
 
 // the reduction's staging
 constexpr int SG = 8;                             // tiles staged at once
@@ -143,159 +147,6 @@ att_rowmax_kernel(const float* __restrict__ blocks,
 #pragma unroll
     for (int q = 0; q < ROWS_PER_WARP; ++q) {
       out[r * BLK + warp + WARPS * q] = rm[q];
-    }
-  }
-}
-
-template <bool TRANS>
-__global__ void __launch_bounds__(THREADS)
-att_walk_kernel(const float* __restrict__ blocks,
-                const int32_t* __restrict__ splits,
-                const int32_t* __restrict__ sel,
-                const int32_t* __restrict__ scale,
-                const int32_t* __restrict__ cols,
-                const float* __restrict__ ssrc,
-                const float* __restrict__ sdst, const float* __restrict__ m,
-                const float* __restrict__ x, float* __restrict__ out,
-                float* __restrict__ den, int64_t feat, int64_t slices,
-                float slope) {
-  __shared__ __align__(16) float As[KC][BLK + 4];
-  __shared__ __align__(16) float Xs[KC][FT];
-  // the tile rows' sdst and m, the tile columns' ssrc: forward, the rows
-  // are the out block's and the columns the input block's; transposed,
-  // the other way round
-  __shared__ float Sd[BLK];
-  __shared__ float Mi[BLK];
-  __shared__ float Ss[BLK];
-
-  const int64_t r = static_cast<int64_t>(blockIdx.x) / slices;
-  const int64_t f0 = (static_cast<int64_t>(blockIdx.x) % slices) * FT;
-  const int tid = threadIdx.x;
-  const int row0 = (tid / (FT / TN)) * TM;
-  const int col0 = (tid % (FT / TN)) * TN;
-  if (tid < BLK) {
-    if (TRANS) {
-      Ss[tid] = ssrc[r * BLK + tid];
-    } else {
-      Sd[tid] = sdst[r * BLK + tid];
-      Mi[tid] = m[r * BLK + tid];
-    }
-  }
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  }
-  // forward: partial row sums of pe for rows tid/8 + 32*it
-  constexpr int STAGE_ITERS = BLK * (KC / 4) / THREADS;   // 4
-  float dsum[STAGE_ITERS];
-#pragma unroll
-  for (int it = 0; it < STAGE_ITERS; ++it) dsum[it] = 0.f;
-
-  const int lo = splits[r];
-  const int hi = splits[r + 1];
-  for (int k = lo; k < hi; ++k) {
-    const float s = scale != nullptr ? static_cast<float>(scale[k]) : 1.f;
-    if (s == 0.f) continue;                       // filler: uniform skip
-    const int64_t t = sel != nullptr ? sel[k] : k;
-    const int64_t c = cols[k];
-    __syncthreads();                              // previous slot staged
-    if (tid < BLK) {
-      if (TRANS) {
-        Sd[tid] = sdst[c * BLK + tid];
-        Mi[tid] = m[c * BLK + tid];
-      } else {
-        Ss[tid] = ssrc[c * BLK + tid];
-      }
-    }
-    __syncthreads();
-    const float* a = blocks + t * BLK * BLK;
-    const float* xb = x + c * BLK * feat;
-    for (int kc = 0; kc < BLK; kc += KC) {
-      if constexpr (TRANS) {
-        // As[kk][j] = pe[kc+kk][j]: 32 tile rows, a straight float4 copy
-        for (int q = tid; q < KC * (BLK / 4); q += THREADS) {
-          const int kk = q / (BLK / 4);
-          const int c4 = (q % (BLK / 4)) * 4;
-          const float4 v = *reinterpret_cast<const float4*>(
-              a + static_cast<int64_t>(kc + kk) * BLK + c4);
-          const float sd = Sd[kc + kk];
-          const float mi = Mi[kc + kk];
-          As[kk][c4 + 0] = s * att_pe(v.x, sd + Ss[c4 + 0], mi, slope);
-          As[kk][c4 + 1] = s * att_pe(v.y, sd + Ss[c4 + 1], mi, slope);
-          As[kk][c4 + 2] = s * att_pe(v.z, sd + Ss[c4 + 2], mi, slope);
-          As[kk][c4 + 3] = s * att_pe(v.w, sd + Ss[c4 + 3], mi, slope);
-        }
-      } else {
-        // As[kk][i] = pe[i][kc+kk]: 128 rows x 8 float4, stored transposed
-#pragma unroll
-        for (int it = 0; it < STAGE_ITERS; ++it) {
-          const int q = tid + it * THREADS;
-          const int row = q / (KC / 4);
-          const int c4 = (q % (KC / 4)) * 4;
-          const float4 v = *reinterpret_cast<const float4*>(
-              a + static_cast<int64_t>(row) * BLK + kc + c4);
-          const float sd = Sd[row];
-          const float mi = Mi[row];
-          const float p0 = att_pe(v.x, sd + Ss[kc + c4 + 0], mi, slope);
-          const float p1 = att_pe(v.y, sd + Ss[kc + c4 + 1], mi, slope);
-          const float p2 = att_pe(v.z, sd + Ss[kc + c4 + 2], mi, slope);
-          const float p3 = att_pe(v.w, sd + Ss[kc + c4 + 3], mi, slope);
-          As[c4 + 0][row] = p0;
-          As[c4 + 1][row] = p1;
-          As[c4 + 2][row] = p2;
-          As[c4 + 3][row] = p3;
-          dsum[it] += (p0 + p1) + (p2 + p3);
-        }
-      }
-      // x[kc:kc+KC, f0:f0+FT], coalesced along the feature axis
-      for (int q = tid; q < KC * FT; q += THREADS) {
-        const int kk = q / FT;
-        const int cc = q % FT;
-        const int64_t gc = f0 + cc;
-        Xs[kk][cc] = gc < feat
-                         ? xb[static_cast<int64_t>(kc + kk) * feat + gc]
-                         : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][row0]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][row0 + 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&Xs[kk][col0]);
-        const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t base = (r * BLK + row0 + i) * feat;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t cc = f0 + col0 + j;
-      if (cc < feat) out[base + cc] = acc[i][j];
-    }
-  }
-  if (!TRANS && den != nullptr && f0 == 0) {      // uniform per CTA
-#pragma unroll
-    for (int it = 0; it < STAGE_ITERS; ++it) {
-      float v = dsum[it];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      if ((tid & 7) == 0) den[r * BLK + tid / 8 + 32 * it] = v;
     }
   }
 }
@@ -439,6 +290,97 @@ att_reduce_kernel(const float* __restrict__ blocks,
 
 }  // namespace
 
+// The walk's value hooks (tile_sparse.cuh): a lane's tile entry e becomes
+// pe where e != 0, from score vectors staged in the walk's shared memory hs:
+// the CTA's own block once, the slot's partner block with each tile's slab
+// (cp.async, 4 bytes a thread).  Entry (i, j) of a tile is (row0 + o,
+// lane + 32m) in the rows orientation, (lane + 32m, row0 + o) in the
+// columns orientation.
+namespace att {
+
+constexpr int BLK = sparse::BLK;
+constexpr int ROWS = sparse::ROWS;                // output rows a warp: 8
+
+// K7f on the rows walk: entry (i, j) of a tile of output block r and input
+// block c = cols[k] gives pe = exp(LeakyReLU(sdst[i] + ssrc[j]) - m[i]).
+// hs holds sdst and m of block r, then ssrc of block c.  den's partials,
+// one a warp's output row, are summed across the warp at the end and
+// written by the CTAs of slice 0 (den null: not written).
+struct FwdScores {
+  static constexpr int SMEM = 3 * BLK;
+  const float* ssrc;
+  const float* sdst;
+  const float* m;
+  float* den;
+  float slope;
+  float dsum[ROWS];
+
+  __device__ __forceinline__ void begin(float* hs, int64_t r, int tid) {
+    if (tid < 2 * BLK) {
+      hs[tid] = tid < BLK ? __ldg(sdst + r * BLK + tid)
+                          : __ldg(m + r * BLK + tid - BLK);
+    }
+#pragma unroll
+    for (int o = 0; o < ROWS; ++o) dsum[o] = 0.f;
+  }
+  __device__ __forceinline__ void tile(float* hs, int64_t c, int tid) {
+    if (tid < BLK) {
+      sparse::cp_async4(hs + 2 * BLK + tid, ssrc + c * BLK + tid, 4);
+    }
+    sparse::cp_async_commit();
+  }
+  __device__ __forceinline__ float value(float* hs, float e, int o, int mm,
+                                         int row0, int lane) {
+    const int i = row0 + o;
+    const float p = att_pe(e, hs[i] + hs[2 * BLK + lane + 32 * mm],
+                           hs[BLK + i], slope);
+    dsum[o] += p;
+    return p;
+  }
+  __device__ __forceinline__ void finish(int64_t r, int64_t f0, int row0,
+                                         int lane) {
+    if (den == nullptr || f0 != 0) return;        // uniform across the CTA
+#pragma unroll
+    for (int o = 0; o < ROWS; ++o) {
+      const float v = warp_sum(dsum[o]);
+      if (lane == 0) den[r * BLK + row0 + o] = v;
+    }
+  }
+};
+
+// K7bt's dx on the columns walk: slot k reads tile sel[k], whose rows are
+// forward block p = cols[k] and whose columns are the output block r, so
+// entry (j, q) gives pe = exp(LeakyReLU(sdst[j] + ssrc[q]) - m[j]) (the
+// walk scales it by the slot's scale).  hs holds ssrc of block r, then
+// sdst and m of block p.
+struct DxScores {
+  static constexpr int SMEM = 3 * BLK;
+  const float* ssrc;
+  const float* sdst;
+  const float* m;
+  float slope;
+
+  __device__ __forceinline__ void begin(float* hs, int64_t r, int tid) {
+    if (tid < BLK) hs[tid] = __ldg(ssrc + r * BLK + tid);
+  }
+  __device__ __forceinline__ void tile(float* hs, int64_t p, int tid) {
+    if (tid < 2 * BLK) {
+      sparse::cp_async4(hs + BLK + tid,
+                        tid < BLK ? sdst + p * BLK + tid
+                                  : m + p * BLK + tid - BLK, 4);
+    }
+    sparse::cp_async_commit();
+  }
+  __device__ __forceinline__ float value(float* hs, float e, int o, int mm,
+                                         int row0, int lane) {
+    const int j = lane + 32 * mm;
+    return att_pe(e, hs[BLK + j] + hs[row0 + o], hs[2 * BLK + j], slope);
+  }
+  __device__ __forceinline__ void finish(int64_t, int64_t, int, int) {}
+};
+
+}  // namespace att
+
 // blocks (K,128,128) f32, 16-byte aligned; row_splits (num_row_blocks+1,)
 // int32 tile range per block row; cols (K,) int32; ssrc, sdst, out
 // (num_row_blocks*128,) f32; all contiguous.  Returns cudaGetLastError()
@@ -477,33 +419,24 @@ extern "C" int fitgnn_att_walk(const void* blocks, const void* splits,
                                void* out, void* den, int64_t num_row_blocks,
                                int64_t feat, int trans, float slope,
                                void* stream) {
-  if (num_row_blocks > 0 && feat > 0) {
-    const int64_t slices = (feat + FT - 1) / FT;
-    const int64_t ctas = num_row_blocks * slices;
-    if (ctas > 0x7fffffff) {
-      return static_cast<int>(cudaErrorInvalidConfiguration);
-    }
-    const auto st = static_cast<cudaStream_t>(stream);
-    const auto* b = static_cast<const float*>(blocks);
-    const auto* sp = static_cast<const int32_t*>(splits);
-    const auto* sl = static_cast<const int32_t*>(sel);
-    const auto* sc = static_cast<const int32_t*>(scale);
-    const auto* c = static_cast<const int32_t*>(cols);
-    const auto* ss = static_cast<const float*>(ssrc);
-    const auto* sd = static_cast<const float*>(sdst);
-    const auto* mm = static_cast<const float*>(m);
-    const auto* xp = static_cast<const float*>(x);
-    auto* op = static_cast<float*>(out);
-    auto* dp = static_cast<float*>(den);
-    if (trans) {
-      att_walk_kernel<true><<<static_cast<unsigned>(ctas), THREADS, 0, st>>>(
-          b, sp, sl, sc, c, ss, sd, mm, xp, op, nullptr, feat, slices, slope);
-    } else {
-      att_walk_kernel<false><<<static_cast<unsigned>(ctas), THREADS, 0, st>>>(
-          b, sp, sl, sc, c, ss, sd, mm, xp, op, dp, feat, slices, slope);
-    }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* b = static_cast<const float*>(blocks);
+  const auto* sp = static_cast<const int32_t*>(splits);
+  const auto* c = static_cast<const int32_t*>(cols);
+  const auto* ss = static_cast<const float*>(ssrc);
+  const auto* sd = static_cast<const float*>(sdst);
+  const auto* mm = static_cast<const float*>(m);
+  const auto* xp = static_cast<const float*>(x);
+  auto* op = static_cast<float*>(out);
+  if (trans) {
+    return static_cast<int>(sparse::launch<true, false, false>(
+        b, sp, static_cast<const int32_t*>(sel),
+        static_cast<const int32_t*>(scale), c, xp, nullptr, op,
+        num_row_blocks, feat, st, att::DxScores{ss, sd, mm, slope}));
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(sparse::launch<false, false, false>(
+      b, sp, nullptr, nullptr, c, xp, nullptr, op, num_row_blocks, feat, st,
+      att::FwdScores{ss, sd, mm, static_cast<float*>(den), slope}));
 }
 
 // The score-gradient reduction: trans == 0 gives dsdst on the forward walk

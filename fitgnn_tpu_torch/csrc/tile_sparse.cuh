@@ -1,14 +1,20 @@
 // The non-zero walk of a dense 128x128 tile, in two orientations: rows
-// (K1, K2, K9 and K10, bsr_spmm.cu; K4, bsr_dynamic.cu; K8, diag_spmm.cu)
-// and columns (K4 transposed, K4T, bsr_dynamic.cu; K8 transposed).
+// (K1, K2, K9 and K10, bsr_spmm.cu; K4, bsr_dynamic.cu; K8, diag_spmm.cu;
+// K7f, att_bsr.cu) and columns (K4 transposed, K4T, bsr_dynamic.cu; K8
+// transposed; K7bt's dx, att_bsr.cu).
 //
 // Both compute out[r] = init[r] + sum_k s_k . op(A_k) @ X[c_k] over a block
 // row's run of tiles, where op is the identity (rows) or the transpose
 // (columns), and init is zero unless the walk is given one (INIT: K1 and
 // K8).  Under DIAG (K8, the block-diagonal run) the run of block row r is
 // the one tile r, read against X's own slab r at scale 1, and no index
-// array exists.  The rows orientation replaces five TPU kernels over a
-// sorted tile list:
+// array exists.  A value hook V turns each tile entry into the value that
+// is applied: the identity (Plain) for every walk but K7's, whose tiles
+// are the attention mask and whose values are GAT's softmax numerators
+// pe = exp(LeakyReLU(sdst_i + ssrc_j) - m_i), worked out per non-zero
+// (att_bsr.cu: its hooks and the TPU kernels _fwd_kernel and the dx half
+// of _bwd_t_kernel that they replace).  The rows orientation replaces five
+// TPU kernels over a sorted tile list:
 //   fitgnn_tpu/ops/pallas/bsr_spmm.py:_kernel_acc (grid _bsr_spmm_fwd_acc;
 //     K1, init + A . x on the layout with coverage fillers),
 //   fitgnn_tpu/ops/pallas/bsr_spmm.py:_kernel (grid _bsr_spmm_fwd; K2,
@@ -81,17 +87,38 @@
 // a row a phase) stay conflict-free.  The alternative, a row stride of 129
 // floats, needs 4-byte copies and 4-byte reads.
 //
+// Value hooks: the lane that holds entry e of the tile works out its value
+// V::value(hs, e, o, m, row0, lane) for the tile entry (row0 + o,
+// lane + 32m) in the rows orientation and (lane + 32m, row0 + o) in the
+// columns orientation, row0 + o being the warp's output row o; the ballot
+// stays on e != 0, and the value is broadcast in e's place.  The rows
+// orientation works a value out only where its ballot found a non-zero
+// (ahead of the ballots, the values of a warp's 32 entries spilled
+// registers); the columns orientation works out the four values of a
+// float4 before its four ballots, so that their work overlaps.  A hook's
+// operands sit in V::SMEM floats of shared memory after the slab (hs):
+// what is constant for the CTA is stored there once (begin, before the
+// first vote, whose barrier publishes it), and what the slot's partner
+// block gives is copied there with cp.async beside the tile's slab (tile,
+// waited for with the slab), so no operand holds a register through the
+// walk and no load waits.  A hook may write a result of its own after the
+// last tile (finish).  Plain's steps are empty, its SMEM 0 and its value
+// e, so the other walks compile as they would without a hook (the same
+// register counts under ptxas -v).
+//
 // Order and numbers: each output element starts from init (or zero) and
 // adds its products in ascending tile order and, within a tile, in
 // ascending contraction index: a lane takes the contraction indices
 // j = lane + 32m (m = 0..3), so one ballot per m lists them in order.  No
 // atomics, so the result is deterministic.  An entry counts as a non-zero
-// when v != 0, so a NaN entry is applied and propagates; a NaN in init
-// stays in its own element.  A divergence from the dense product (and the
-// TPU kernel): an inf or NaN in X at a row that only zero tile entries
-// reach leaves the output at init or 0 there, not 0 * inf = NaN.  The main
-// path never feeds one: GAT's tile values are where(mask, exp(.), 0) and
-// the features are finite.
+// when e != 0, so a NaN entry is applied and propagates (as does a NaN
+// value that a hook works out at a non-zero); a NaN in init stays in its
+// own element.  A divergence from the dense product (and the TPU kernel):
+// an inf or NaN in X at a row that only zero tile entries reach leaves the
+// output at init or 0 there, not 0 * inf = NaN (for K7: an inf in x or g
+// that only masked-out entries reach).  The main path never feeds one:
+// GAT's tile values are where(mask, exp(.), 0) and the features are
+// finite.
 
 #pragma once
 
@@ -164,19 +191,35 @@ __device__ __forceinline__ void start_slab(float* xs,
   cp_async_commit();
 }
 
+// The identity hook: an entry's value is the entry (every walk but K7's)
+struct Plain {
+  static constexpr int SMEM = 0;                // floats of shared memory
+  __device__ __forceinline__ void begin(float*, int64_t, int) {}
+  __device__ __forceinline__ void tile(float*, int64_t, int) {}
+  __device__ __forceinline__ float value(float*, float e, int, int, int,
+                                         int) {
+    return e;
+  }
+  __device__ __forceinline__ void finish(int64_t, int64_t, int, int) {}
+};
+
 // acc += sum, over the lanes' entries e != 0 in ascending lane order, of
-// s.e . xs[j0 + lane][the lane's 4 columns]: one ballot, then a
+// s.v . xs[32m + lane][the lane's 4 columns], v = get() the entry's value
+// (called once, after a ballot that found a non-zero): one ballot, then a
 // broadcast, a 16-byte slab read and 4 FMAs per non-zero
-__device__ __forceinline__ void apply(float e, int j0, float s,
+template <class Get>
+__device__ __forceinline__ void apply(float e, Get get, int m, float s,
                                       const float* xs, int lane,
                                       float (&acc)[FL]) {
   unsigned nz = __ballot_sync(FULL, e != 0.f);
+  if (nz == 0) return;
+  const float w = get();
   while (nz) {
     const int src = __ffs(nz) - 1;
     nz &= nz - 1;
-    const float v = __shfl_sync(FULL, e, src) * s;
-    const float4 xv =
-        *reinterpret_cast<const float4*>(xs + (j0 + src) * FT + FL * lane);
+    const float v = __shfl_sync(FULL, w, src) * s;
+    const float4 xv = *reinterpret_cast<const float4*>(
+        xs + (32 * m + src) * FT + FL * lane);
     acc[0] = fmaf(v, xv.x, acc[0]);
     acc[1] = fmaf(v, xv.y, acc[1]);
     acc[2] = fmaf(v, xv.z, acc[2]);
@@ -236,16 +279,18 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
   }
 }
 
-// The tile walk.  TRANS = false, rows orientation (K1, K2, K9, K10, K4
-// and K8): out[r] = init[r] + sum_k A_k @ X[cols[k]] over the run
+// The tile walk.  TRANS = false, rows orientation (K1, K2, K9, K10, K4,
+// K8 and K7f): out[r] = init[r] + sum_k A_k @ X[cols[k]] over the run
 // row_splits[r] .. row_splits[r+1]; sel and scale are unused (the callers
-// pass null).  TRANS = true, columns orientation (K4T and K8 transposed):
-// out[r] = init[r] + sum_k scale[k] . A_{sel[k]}^T @ X[cols[k]]; a slot
-// with scale 0 (a coverage filler of the transpose plan) is skipped
-// uniformly.  init is read only under INIT (K1, K8), else zero.  DIAG
-// (K8): the run of row r is tile r at column r and scale 1, and
-// row_splits, sel, scale and cols are unused (null).
-template <bool TRANS, bool INIT, bool VEC, bool DIAG>
+// pass null).  TRANS = true, columns orientation (K4T, K8 transposed and
+// K7bt's dx): out[r] = init[r] + sum_k scale[k] . A_{sel[k]}^T @
+// X[cols[k]]; a slot with scale 0 (a coverage filler of the transpose
+// plan) is skipped uniformly.  init is read only under INIT (K1, K8), else
+// zero.  DIAG (K8): the run of row r is tile r at column r and scale 1,
+// and row_splits, sel, scale and cols are unused (null).  A's entries are
+// applied as the values that the hook val gives them (Plain: as they
+// are).
+template <bool TRANS, bool INIT, bool VEC, bool DIAG, class V>
 __global__ void __launch_bounds__(THREADS, 1)
 walk_kernel(const float* __restrict__ blocks,
             const int32_t* __restrict__ row_splits,
@@ -253,10 +298,11 @@ walk_kernel(const float* __restrict__ blocks,
             const int32_t* __restrict__ scale,
             const int32_t* __restrict__ cols,
             const float* __restrict__ x, const float* __restrict__ init,
-            float* __restrict__ out, int64_t feat, int64_t slices) {
+            float* __restrict__ out, int64_t feat, int64_t slices, V val) {
   extern __shared__ __align__(16) float smem[];
   float* as = smem;                             // the swizzled tile
   float* xs = smem + BLK * BLK;                 // the X slab
+  float* hs = xs + BLK * FT;                    // the hook's V::SMEM floats
   const int64_t r = static_cast<int64_t>(blockIdx.x) / slices;
   const int64_t f0 = (static_cast<int64_t>(blockIdx.x) % slices) * FT;
   const int tid = threadIdx.x;
@@ -274,6 +320,7 @@ walk_kernel(const float* __restrict__ blocks,
       for (int f = 0; f < FL; ++f) acc[i][f] = 0.f;
     }
   }
+  val.begin(hs, r, tid);
 
   // a slot's indices, read one step before they are used, so no load of
   // the walk waits on a load of an index
@@ -332,6 +379,7 @@ walk_kernel(const float* __restrict__ blocks,
         *reinterpret_cast<float4*>(as + at(warp + WARPS * u, 4 * lane)) =
             ch[u];
       }
+      val.tile(hs, c0.col, tid);
       if (!DIAG) {
         start_slab<VEC>(xs, x + static_cast<int64_t>(c0.col) * BLK * feat,
                         f0, feat, tid);
@@ -354,10 +402,15 @@ walk_kernel(const float* __restrict__ blocks,
         for (int m = 0; m < 4; ++m) {
           const int j = lane + 32 * m;
           const float4 v = *reinterpret_cast<const float4*>(as + at(j, 4 * q));
-          apply(v.x, 32 * m, st, xs, lane, acc[4 * qd + 0]);
-          apply(v.y, 32 * m, st, xs, lane, acc[4 * qd + 1]);
-          apply(v.z, 32 * m, st, xs, lane, acc[4 * qd + 2]);
-          apply(v.w, 32 * m, st, xs, lane, acc[4 * qd + 3]);
+          // the four values first, so that their work overlaps
+          const float w[4] = {val.value(hs, v.x, 4 * qd + 0, m, row0, lane),
+                              val.value(hs, v.y, 4 * qd + 1, m, row0, lane),
+                              val.value(hs, v.z, 4 * qd + 2, m, row0, lane),
+                              val.value(hs, v.w, 4 * qd + 3, m, row0, lane)};
+          apply(v.x, [&] { return w[0]; }, m, st, xs, lane, acc[4 * qd + 0]);
+          apply(v.y, [&] { return w[1]; }, m, st, xs, lane, acc[4 * qd + 1]);
+          apply(v.z, [&] { return w[2]; }, m, st, xs, lane, acc[4 * qd + 2]);
+          apply(v.w, [&] { return w[3]; }, m, st, xs, lane, acc[4 * qd + 3]);
         }
       }
     } else {
@@ -366,43 +419,49 @@ walk_kernel(const float* __restrict__ blocks,
       for (int i = 0; i < ROWS; ++i) {
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
-          apply(as[at(row0 + i, lane + 32 * m)], 32 * m, 1.f, xs, lane,
-                acc[i]);
+          // the value only where the ballot found a non-zero
+          const float e = as[at(row0 + i, lane + 32 * m)];
+          apply(e, [&] { return val.value(hs, e, i, m, row0, lane); }, m,
+                1.f, xs, lane, acc[i]);
         }
       }
     }
   }
   if (DIAG) cp_async_wait<0>();                 // a block without a non-zero
   store_rows(acc, out, r, f0, row0, lane, feat);
+  val.finish(r, f0, row0, lane);
 }
 
 // Launches the walk on the flat grid of num_row_blocks * ceil(feat / FT)
-// CTAs (SMEM bytes of dynamic shared memory each), from init under INIT,
-// else from zero (init unused); under DIAG over the diagonal blocks (the
-// index arrays unused); nothing when either count is 0;
+// CTAs (SMEM bytes of dynamic shared memory each, and the hook's V::SMEM
+// floats), from init under INIT, else from zero (init unused); under DIAG
+// over the diagonal blocks (the index arrays unused); nothing when either
+// count is 0;
 // cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
 // else cudaGetLastError() after the launch.  The vector slab copy is
 // chosen on x's alignment; the kernel chooses the vector init load on
-// init's own.
-template <bool TRANS, bool INIT, bool DIAG = false>
+// init's own.  val is the value hook (Plain: the entries as they are).
+template <bool TRANS, bool INIT, bool DIAG = false, class V = Plain>
 cudaError_t launch(const float* blocks, const int32_t* row_splits,
                    const int32_t* sel, const int32_t* scale,
                    const int32_t* cols, const float* x, const float* init,
                    float* out, int64_t num_row_blocks, int64_t feat,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, V val = V{}) {
   if (num_row_blocks > 0 && feat > 0) {
     const int64_t slices = (feat + FT - 1) / FT;
     const int64_t ctas = num_row_blocks * slices;
     if (ctas > 0x7fffffff) return cudaErrorInvalidConfiguration;
     const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0
                      && feat % 4 == 0;
-    const auto kernel = vec ? walk_kernel<TRANS, INIT, true, DIAG>
-                            : walk_kernel<TRANS, INIT, false, DIAG>;
+    const auto kernel = vec ? walk_kernel<TRANS, INIT, true, DIAG, V>
+                            : walk_kernel<TRANS, INIT, false, DIAG, V>;
+    const int bytes = SMEM + V::SMEM * static_cast<int>(sizeof(float));
     const cudaError_t set = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (set != cudaSuccess) return set;
-    kernel<<<static_cast<unsigned>(ctas), THREADS, SMEM, stream>>>(
-        blocks, row_splits, sel, scale, cols, x, init, out, feat, slices);
+    kernel<<<static_cast<unsigned>(ctas), THREADS, bytes, stream>>>(
+        blocks, row_splits, sel, scale, cols, x, init, out, feat, slices,
+        val);
   }
   return cudaGetLastError();
 }

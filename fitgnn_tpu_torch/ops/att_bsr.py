@@ -27,7 +27,9 @@ is a constant, as under the JAX package's ``stop_gradient``.  F ≤ 512.
 
 Each wrapper launches the hand-written kernels of ``csrc/att_bsr.cu`` on
 CUDA tensors (the source note there says which TPU kernel each replaces,
-what bounds it on an H100 and what its design does about it) and its
+what bounds it on an H100 and what its design does about it; ``att_fwd``
+and ``att_bwd_t``'s ``dx`` run the non-zero walk of
+``csrc/tile_sparse.cuh`` with ``pe`` worked out per non-zero) and its
 plain PyTorch version (``*_plain``: materialised tiles, ``bmm`` and
 ``index_add_``) on CPU tensors.  ``<wrapper>.launches`` counts kernel
 launches.

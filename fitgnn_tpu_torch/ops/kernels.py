@@ -49,7 +49,7 @@ def _target(name: str, headers: tuple = ()) -> Target:
 # ``build(TARGETS)`` compiles the stale ones in parallel, one nvcc each
 TARGETS = (_target("bsr_spmm", ("tile_sparse.cuh",)),
            _target("coo_segmm"), _target("bsr_dynamic", ("tile_sparse.cuh",)),
-           _target("att_bsr"),
+           _target("att_bsr", ("tile_sparse.cuh",)),
            _target("diag_spmm", ("tile_sparse.cuh",)), _target("dropout"))
 
 

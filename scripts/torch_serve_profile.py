@@ -44,7 +44,7 @@ def _device_us(evt) -> float:
 def _group(name: str) -> str:
     walk = walk_args(name)
     # the rows walk from init, not over the diagonal, is K1's alone
-    if walk == (False, True, False):
+    if walk == (False, True, False, "Plain"):
         return "K1 bsr_spmm_acc"
     if walk is not None:
         raise RuntimeError(f"{name}: the GCN forward launches no walk but "

@@ -18,13 +18,16 @@ each it prints:
   from CUDA events over 10 steps after 3 warm-ups;
 * a ``torch.profiler`` table of device time per kernel over 5 steps,
   grouped into the port's kernels (K1-K11), the dense layers (cuBLAS), the
-  optimizer and the rest.  K8 launches the walk over the diagonal blocks,
-  ``sparse::walk_kernel<…, true>`` (DIAG), in both orientations.  K1 alone
-  launches the other rows walk from ``init``, ``sparse::walk_kernel<false,
-  true, …, false>``.  K2, K4, K9 and K10 all launch the rows walk from
-  zero, ``sparse::walk_kernel<false, false, …, false>``, so that kernel is
-  labelled by the configuration (K4 in the default GAT run,
-  K9 on ``tile_group=2``, K10 on ``use_rowwalk``).  The launch counters
+  optimizer and the rest.  K7f and K7bt's ``dx`` launch the walk under
+  their value hooks, ``sparse::walk_kernel<…, att::FwdScores>`` and
+  ``<…, att::DxScores>``.  K8 launches the walk over the diagonal blocks,
+  ``sparse::walk_kernel<…, true, sparse::Plain>`` (DIAG), in both
+  orientations.  K1 alone launches the other rows walk from ``init``,
+  ``sparse::walk_kernel<false, true, …, false, sparse::Plain>``.  K2, K4,
+  K9 and K10 all launch the rows walk from zero,
+  ``sparse::walk_kernel<false, false, …, false, sparse::Plain>``, so that
+  kernel is labelled by the configuration (K4 in the default GAT run, K9
+  on ``tile_group=2``, K10 on ``use_rowwalk``).  The launch counters
   must show that the profiled steps launched the one rows-walk wrapper
   the configuration expects and no other (K1 in the default GCN runs and
   on ``use_diag``);
@@ -78,7 +81,12 @@ def _group(name: str, rows_walk: str | None) -> str:
     walk from zero, which several wrappers share."""
     walk = walk_args(name)
     if walk is not None:
-        trans, init, diag = walk
+        trans, init, diag, hook = walk
+        # K7's walks carry their own value hook, whatever the configuration
+        if hook == "FwdScores":
+            return "K7f att_fwd"
+        if hook == "DxScores":
+            return "K7bt att_bwd_t (dx)"
         if diag:
             return "K8 diag_spmm"
         if trans:
@@ -93,10 +101,6 @@ def _group(name: str, rows_walk: str | None) -> str:
         return "K11 philox_dropout"
     if "att_rowmax_kernel" in name:
         return "K7rm att_rowmax"
-    if "att_walk_kernel<false>" in name:
-        return "K7f att_fwd"
-    if "att_walk_kernel<true>" in name:
-        return "K7bt att_bwd_t (dx)"
     if "att_reduce_kernel<true>" in name:
         return "K7bt att_bwd_t (dssrc)"
     if "att_reduce_kernel<false>" in name:

@@ -570,6 +570,129 @@ def test_nonzero_walks_match_plain(cuda, kernel, case, feat, aligned):
     assert torch.equal(got[empty.to(cuda)], base[empty.to(cuda)])
 
 
+def _k7_walk_operands(rng, kernel, case, feat):
+    """K7's operands on ``_tiles``' tile list, on the CPU, edited by
+    ``case``; ``x`` is the walk's slab operand (K7f's features, K7bt's
+    cotangent g).  Presence tiles at ~3% where nodes 0-9 have no entry; the
+    transpose plan has a scale-0 filler slot (block column 2 is unused);
+    ``m`` is the exact row max of the unedited scores, −1e30 where a node
+    has no entry.  Cases: a fully set tile, an all-zero tile inside a run,
+    a block row without an entry (every m there −1e30), an inf in ``x`` at
+    a row that only masked-out entries reach (K7f: a forward column, K7bt:
+    a forward row), and a NaN in ``ssrc`` at one masked entry.  Returns the
+    operands and the row of the inf or the output row of the NaN."""
+    rows, cols, nb = _tiles(rng)
+    plan = build_dyn_plan(rows, cols, nb)
+    blocks = (rng.random((len(rows), 128, 128)) < 0.03).astype(np.float32)
+    blocks[rows == 0, :10, :] = 0.0
+    n = nb * 128
+    splits = (plan.row_splits if kernel == "K7f"
+              else plan.t_row_splits).numpy()
+    lo = int(splits[int(np.argmax(np.diff(splits)))])
+    tile = lo + 1 if kernel == "K7f" else int(plan.t_sel[lo])
+    row = None
+    if case == "dense":
+        blocks[tile] = 1.0
+    elif case == "zero_inside":
+        blocks[tile] = 0.0
+    elif case == "edgeless":
+        blocks[rows == 4] = 0.0
+    elif case == "inf_unreached" and kernel == "K7f":
+        blocks[cols == cols[tile], :, 50] = 0.0
+        row = cols[tile] * 128 + 50
+    elif case == "inf_unreached":
+        blocks[rows == rows[tile], 50, :] = 0.0
+        row = rows[tile] * 128 + 50
+    elif case == "nan":
+        if kernel == "K7f":                 # the one entry of its column
+            blocks[cols == cols[tile], :, 30] = 0.0
+        blocks[tile, 20, 30] = 1.0
+        row = (rows[tile] * 128 + 20 if kernel == "K7f"
+               else cols[tile] * 128 + 30)
+    ops = {k: torch.from_numpy(v) for k, v in dict(
+        rows=rows, cols=cols, blocks=blocks,
+        ssrc=rng.standard_normal(n).astype(np.float32),
+        sdst=rng.standard_normal(n).astype(np.float32),
+        x=rng.standard_normal((n, feat)).astype(np.float32),
+        x_other=rng.standard_normal((n, feat)).astype(np.float32),
+        dden=rng.standard_normal(n).astype(np.float32)).items()}
+    ops["m"] = att_bsr.att_rowmax_plain(ops["rows"], ops["cols"], plan,
+                                        ops["blocks"], ops["ssrc"],
+                                        ops["sdst"], 0.2)
+    if case == "inf_unreached":
+        ops["x"][row] = float("inf")
+    elif case == "nan":
+        ops["ssrc"][cols[tile] * 128 + 30] = float("nan")
+    return plan, ops, row
+
+
+@pytest.mark.parametrize("feat", [16, 101, 512])
+@pytest.mark.parametrize("case", ["sparse", "dense", "zero_inside",
+                                  "edgeless", "inf_unreached", "nan"])
+@pytest.mark.parametrize("kernel", ["K7f", "K7bt"])
+def test_k7_walks_match_plain(cuda, kernel, case, feat):
+    """K7f (``num`` and ``den``) and K7bt's ``dx`` walk each tile's
+    non-zeros with ``pe`` worked out per non-zero: ~3% occupancy, a fully
+    set tile, an all-zero tile inside a run, a block row whose nodes have
+    no edge (m = −1e30), the transpose plan's scale-0 filler, F that is not
+    a multiple of 4 (the 4-byte slab copy) and F=512 (four slices, ``den``
+    from the first); every output row that no entry reaches is written as
+    0.  An inf in x (K7f) or g (K7bt) at a row that only masked-out entries
+    reach leaves the kernel's output finite, where the plain version gives
+    0·inf = NaN (the walk's divergence): the kernel must equal the plain
+    version on the same operands with that row zeroed.  A NaN in ssrc at a
+    masked entry reaches its own output row and no other."""
+    rng = np.random.default_rng(feat + 30)
+    plan, ops, row = _k7_walk_operands(rng, kernel, case, feat)
+    plan = plan.to(cuda)
+    d = {k: v.to(cuda) for k, v in ops.items()}
+    if kernel == "K7f":
+        fwd = (d["rows"], d["cols"], plan, d["blocks"], d["ssrc"], d["sdst"],
+               d["m"])
+
+        def run(fn, x):
+            num, den = fn(*fwd, x, 0.2)
+            return torch.cat([num, den[:, None]], 1)
+
+        walk, plain = att_bsr.att_fwd, att_bsr.att_fwd_plain
+    else:
+        def run(fn, g):
+            return fn(plan, d["blocks"], d["ssrc"], d["sdst"], d["m"], g,
+                      d["x_other"], d["dden"], 0.2)[0]
+
+        walk, plain = att_bsr.att_bwd_t, att_bsr.att_bwd_t_plain
+    before = walk.launches
+    with torch.inference_mode():
+        got = run(walk, d["x"])
+        ref = run(plain, d["x"])
+        if case == "inf_unreached":
+            clean = d["x"].clone()
+            clean[row] = 0.0
+            ref_clean = run(plain, clean)
+    torch.cuda.synchronize()
+    assert walk.launches == before + (1 if kernel == "K7f" else 2)
+    nan = ref.isnan()
+    if case == "inf_unreached":
+        assert nan.any()                  # the dense product's 0·inf
+        _close(got, ref_clean)
+    elif case == "nan":
+        assert nan.any(1).nonzero().flatten().tolist() == [row]
+        assert nan[row].all() and torch.equal(got.isnan(), nan)
+        _close(got[~nan.any(1)], ref[~nan.any(1)])
+    else:
+        _close(got, ref)
+    # output rows that no entry reaches (K7f: forward rows, K7bt: forward
+    # columns; the filler's block 2 among them) come out as exact zeros
+    reached = torch.zeros(got.shape[0], dtype=torch.bool)
+    for k in range(len(ops["rows"])):
+        hit = ops["blocks"][k].any(1 if kernel == "K7f" else 0)
+        blk = int((ops["rows"] if kernel == "K7f" else ops["cols"])[k])
+        reached[blk * 128:(blk + 1) * 128] |= hit
+    if kernel == "K7bt":
+        assert not reached[2 * 128:3 * 128].any()
+    assert not got[~reached.to(cuda)].any()
+
+
 @pytest.mark.parametrize("case", ["nan_init", "init_unaligned",
                                   "x_unaligned", "feat101"])
 def test_k1_walk_starts_from_init(cuda, case):
