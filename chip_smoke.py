@@ -22,10 +22,13 @@ Phases (any failure exits non-zero before the result lines):
    rate for its three passes) at F=128 and 512 and K3w
    (``segmm_weighted_raw``) at F=40 and 64, and on the transpose CSR at
    F=512 (K6's ``dx``); then the fused tile attention and K6 at F=128 and
-   512: K7rm (``att_rowmax``), K7f (``att_fwd``), K7bt (``att_bwd_t``: the
-   ``dx`` walk and the ``dssrc`` reduction, each timed alone and with a
-   bound of its own; the path launches ``dx`` at F=512 only), K7bf
-   (``att_bwd_f``) and K6
+   512: K7rm (``att_rowmax``), K7f (``att_fwd``), K7bt (``att_bwd_t``'s
+   ``dx`` walk; the path launches it at F=512 only), K7s (the score pass of
+   ``att_bwd_scores``: ``dsdst`` and ``dssrc``'s column partials, timed
+   alone and with both outputs, beside ``torch.sparse.sampled_addmm`` for
+   its ⟨g, x⟩ alone; two launches bit-equal; the longest block row's tile
+   count printed), K7sums (``att_sums``, ``dssrc`` and ``dsdst`` from the
+   partials) and K6
    (``segmm_weighted_den_raw``), each beside the two-stage path it
    replaces (materialised tile scores, K4/K4ᵀ/K5 and PyTorch's
    elementwise work, forward and autograd backward), whose outputs and
@@ -45,8 +48,9 @@ Phases (any failure exits non-zero before the result lines):
    K3 ×3 (two forward, one backward for layer 1: layer 0 aggregates the
    raw features); then the GAT step under ``FITGNN_GAT_FUSED_TILES=1
    FITGNN_GAT_SEGMM_DEN=1``, with kernels, with plain versions, and held
-   against the default step too: K7f ×2, K7bt ×3 (``dx`` only in layer
-   1), K7bf ×2, K6 ×2, K3w ×1 (K6's ``dx`` in layer 1);
+   against the default step too: K7f ×2, K7s ×2 and K7sums ×2 (both score
+   gradients in each layer), K7bt ×1 (``dx`` only in layer 1), K6 ×2, K3w
+   ×1 (K6's ``dx`` in layer 1);
 5. the opt-ins through the library surface, every counter at 0 just
    before each counted run: GCNConv at hidden 512 with
    ``fused_dropout=True, bit_dropout=False`` (dropout 0.5: K11 ×4 a
@@ -72,8 +76,9 @@ Phases (any failure exits non-zero before the result lines):
    full forward with kernels is held against the same forward with the
    plain versions (atol 1e-4);
 8. one JSON line with every kernel's numbers (launches summed over the
-   main-path phases 5 to 7, per phase beside them; K7f and K7bt with the
-   register counts of their walk), then the ``ok`` line.
+   main-path phases 5 to 7, per phase beside them; K5, K7f, K7bt, K7s and
+   K7sums with their ``ptxas`` register and spill counts), then the ``ok``
+   line.
 
 The JAX package's environment switches are set in ``os.environ`` for one
 phase and restored after it; the earlier phases must launch none of K6
@@ -172,6 +177,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """``cuda_ms`` with the stream held busy (``torch.cuda._sleep``) while
+    the host enqueues the launches, so that the wrapper's host time between
+    two launches does not count: the device time of a kernel shorter than
+    its wrapper's host work."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -410,7 +434,8 @@ def counters() -> dict:
             "K4T": dyn_tiles_t, "K5": dyn_grad_blocks,
             "K3w": segmm_weighted_raw, "K6": segmm_weighted_den_raw,
             "K7rm": att_bsr.att_rowmax, "K7f": att_bsr.att_fwd,
-            "K7bt": att_bsr.att_bwd_t, "K7bf": att_bsr.att_bwd_f,
+            "K7bt": att_bsr.att_bwd_t, "K7s": att_bsr.att_bwd_scores,
+            "K7sums": att_bsr.att_sums,
             "K2": bsr_spmm_fwd, "K8": diag_spmm, "K9": bsr_spmm_grouped,
             "K10": bsr_spmm_rowwalk, "K11": philox_dropout}
 
@@ -622,11 +647,29 @@ def phase_fused_kernels(device, g) -> dict:
     uniq_senders = int(torch.unique(m.senders[m.weights != 0]).numel())
     wt = w_edge[hd.t_edge_perm.long()].contiguous()
     t_uniq = int(torch.unique(mt.senders[mt.weights != 0]).numel())
-    shapes = {k: [] for k in ("K6", "K7rm", "K7f", "K7bt", "K7bf", "K3w")}
+    shapes = {k: [] for k in ("K6", "K7rm", "K7f", "K7bt", "K7s", "K7sums",
+                              "K3w")}
     fwd = (rows, cols, plan, blocks, ssrc, sdst)
     two_label = ("the two-stage autograd backward for dssrc, dsdst and dx "
-                 "(K5, K4ᵀ when dx is needed, the elementwise chain): "
-                 "compare with K7bt + K7bf")
+                 "(K5, K4ᵀ, the elementwise chain): compare with K7bt + K7s "
+                 "+ K7sums")
+    two_scores_label = ("the two-stage autograd backward for dssrc and "
+                        "dsdst (K5, the elementwise chain): compare with "
+                        "K7s + K7sums")
+    # the score pass walks one CTA per block row: its longest run of tiles
+    runs = plan.row_splits[1:] - plan.row_splits[:-1]
+    print(f"score pass: {nb} block rows, {k_all} tiles, the longest block "
+          f"row {int(runs.max())} tiles, {int((runs == 0).sum())} without "
+          "one")
+    # ⟨g, x⟩ at the mask's entries through one PyTorch call (a reference
+    # for that part of the pass alone; no one call gives d_raw's sums)
+    nz = (blocks != 0).nonzero()
+    m_rows = rows.long()[nz[:, 0]] * 128 + nz[:, 1]
+    m_cols = cols.long()[nz[:, 0]] * 128 + nz[:, 2]
+    mask_csr = torch.sparse_coo_tensor(
+        torch.stack([m_rows, m_cols]), torch.ones(nnz, device=device),
+        (n, n)).coalesce().to_sparse_csr()
+    del nz
 
     def plain_dx(gr):
         """The dx half of att_bwd_t_plain (materialised pe, bmm, index_add_):
@@ -675,20 +718,42 @@ def phase_fused_kernels(device, g) -> dict:
         with torch.inference_mode():
             num, den = att_bsr.att_fwd(*fwd, mg, x, SLOPE)
             num_p, den_p = att_bsr.att_fwd_plain(*fwd, mg, x, SLOPE)
-            dx, dss = att_bsr.att_bwd_t(*bwd)
+            dx = att_bsr.att_bwd_t(*bwd, need_dssrc=False)[0]
             dx_p, dss_p = att_bsr.att_bwd_t_plain(*bwd)
-            dsd = att_bsr.att_bwd_f(rows, cols, *bwd)
+            dss, dsd = att_bsr.att_bwd_scores(rows, cols, *bwd)
+            dss2, dsd2 = att_bsr.att_bwd_scores(rows, cols, *bwd)
             dsd_p = att_bsr.att_bwd_f_plain(rows, cols, *bwd)
+            # the pass and the sums apart, each against its plain version
+            # on the same inputs
+            part = att_bsr._launch_scores("att_bwd_scores", device, blocks,
+                                          rows, cols, ssrc, sdst, mg, gr, x,
+                                          dden, SLOPE)
+            part_p = att_bsr.att_scores_plain(rows, cols, *bwd)
+            sums = att_bsr.att_sums(plan, *part_p)
+            sums_p = att_bsr.att_sums_plain(plan, *part_p)
+            # the entry points of the JAX package's two kernels
+            dss_t = att_bsr.att_bwd_t(*bwd, need_dx=False)[1]
+            dsd_f = att_bsr.att_bwd_f(rows, cols, *bwd)
             num6, den6 = segmm_weighted_den_raw(m, w_edge, x)
             num6_p, den6_p = segmm_weighted_den_raw_plain(m, w_edge, x)
             torch.cuda.synchronize()
             e_f = [compare(f"K7f att_fwd {what} F={feat}", a, p_)
                    for what, a, p_ in (("num", num, num_p),
                                        ("den", den, den_p))]
-            e_t = [compare(f"K7bt att_bwd_t {what} F={feat}", a, p_)
-                   for what, a, p_ in (("dx", dx, dx_p),
-                                       ("dssrc", dss, dss_p))]
-            e_b = compare(f"K7bf att_bwd_f dsdst F={feat}", dsd, dsd_p)
+            e_t = compare(f"K7bt att_bwd_t dx F={feat}", dx, dx_p)
+            e_s = [compare(f"K7s att_bwd_scores {what} F={feat}", a, p_)
+                   for what, a, p_ in (("dssrc", dss, dss_p),
+                                       ("dsdst", dsd, dsd_p))]
+            e_p = [compare(f"K7s pass {what} partials F={feat}", a, p_)
+                   for what, a, p_ in zip(("column", "row"), part, part_p)]
+            e_c = [compare(f"K7sums att_sums {what} F={feat}", a, p_)
+                   for what, a, p_ in zip(("dssrc", "dsdst"), sums, sums_p)]
+            compare(f"K7bt att_bwd_t dssrc F={feat}", dss_t, dss_p)
+            compare(f"K7bf att_bwd_f dsdst F={feat}", dsd_f, dsd_p)
+            check(torch.equal(dss, dss2) and torch.equal(dsd, dsd2),
+                  f"K7s/K7sums F={feat}: two launches differ")
+            print(f"  K7s/K7sums F={feat}: two launches bit-equal")
+            del part_p, dss2, dsd2
             e_6 = [compare(f"K6 segmm_weighted_den_raw {what} F={feat}",
                            a, p_) for what, a, p_ in (("num", num6, num6_p),
                                                       ("den", den6, den6_p))]
@@ -705,12 +770,14 @@ def phase_fused_kernels(device, g) -> dict:
                                      retain_graph=True)
         compare(f"K7f num vs two-stage F={feat}", num, num2.detach())
         compare(f"K7f den vs two-stage F={feat}", den, den2.detach())
-        compare(f"K7bt dssrc vs two-stage F={feat}", dss, grads2[0])
-        compare(f"K7bf dsdst vs two-stage F={feat}", dsd, grads2[1])
+        compare(f"K7s dssrc vs two-stage F={feat}", dss, grads2[0])
+        compare(f"K7s dsdst vs two-stage F={feat}", dsd, grads2[1])
         if need_dx:
             compare(f"K7bt dx vs two-stage F={feat}", dx, grads2[2])
         two_bwd = cuda_ms(lambda: torch.autograd.grad(
             (num2, den2), inputs, (gr, dden), retain_graph=True), 5)
+        two_scores = cuda_ms(lambda: torch.autograd.grad(
+            (num2, den2), (ss_, sd_), (gr, dden), retain_graph=True), 5)
         del num2, den2, grads2
         with torch.inference_mode():
             slabs = 128 * feat * 4
@@ -720,21 +787,26 @@ def phase_fused_kernels(device, g) -> dict:
             # subtract and exp
             bf, byf = bound(tile_bytes + idx_f + 3 * vec + uniq_cols * slabs
                             + n * feat * 4 + vec, nnz * (2.0 * feat + 5))
-            # K7bt's dssrc / K7bf: tiles, four vectors, g and x slabs, the
-            # output; 2·F FLOPs per non-zero for the ⟨g, x⟩ of d_pe and ~8
-            # for the score, its gradient and the sum
-            bt, byt = bound(tile_bytes + idx_t + 4 * vec
-                            + (uniq_rows + uniq_cols) * slabs + vec,
-                            nnz * (2.0 * feat + 8))
+            # K7s, the pass: tiles, four vectors, the distinct g and x
+            # slabs, the two (K, 128) partials out; 2·F FLOPs per
+            # non-zero for the ⟨g, x⟩ of d_pe and ~8 for the score, its
+            # gradient and the sums.  Its dense product (three TF32
+            # passes on the tensor cores) is printed beside it.
+            bs, bys = bound(tile_bytes + 2 * k_all * 4 + 4 * vec
+                            + (uniq_rows + uniq_cols) * slabs
+                            + 2 * k_all * 128 * 4, nnz * (2.0 * feat + 8))
+            bs_tc = 3 * 2.0 * k_all * 128 * 128 * feat \
+                / PEAK_TF32_FLOP_PER_S * 1e3
+            # K7sums: the partials read once, both walks' indices, dssrc
+            # and dsdst out; one add a partial
+            bc, byc = bound(2 * k_all * 128 * 4 + idx_t + (nb + 1) * 4
+                            + 2 * vec, 2 * k_all * 128.0)
             # K7bt's dx: tiles, the transpose plan, ssrc, sdst and m, the
             # slabs of the distinct g blocks (the forward row blocks), dx
             # out; 2·F FLOPs per non-zero for peᵀ @ g and ~5 for pe
             bdx, bydx = bound(tile_bytes + idx_t + 3 * vec
                               + uniq_rows * slabs + n * feat * 4,
                               nnz * (2.0 * feat + 5))
-            bb, byb = bound(tile_bytes + idx_f + 4 * vec
-                            + (uniq_rows + uniq_cols) * slabs + vec,
-                            nnz * (2.0 * feat + 8))
             b6, by6 = bound((n + 1) * 4 + e * 12 + uniq_senders * feat * 4
                             + n * feat * 4 + vec, (2.0 * feat + 1) * e)
             shapes["K7f"].append(dict(
@@ -747,15 +819,12 @@ def phase_fused_kernels(device, g) -> dict:
                 two_stage_ms=cuda_ms(lambda: tiles_two_stage(
                     SLOPE, rows, cols, plan, blocks, ssrc, sdst, mg, x), 10),
                 two_stage_label="materialised pe, K4 and the den row sums"))
-            # K7bt's two launches, each timed alone: the dx walk and the
-            # dssrc reduction (need_dx=False launches it alone); the main
-            # path launches dx at F=512 only (layer 1), so the F=128 dx row
-            # is off the path; the two-stage backward sits on the dx row at
-            # F=512 and on the dssrc row at F=128
+            # K7bt's dx walk alone; the main path launches it at F=512
+            # only (layer 1), so the F=128 row is off the path
             compare(f"K7bt dx plain half vs att_bwd_t_plain F={feat}",
                     plain_dx(gr), dx_p)
             shapes["K7bt"].append(dict(
-                F=feat, launch="dx", on_path=need_dx, **e_t[0],
+                F=feat, launch="dx", on_path=need_dx, **e_t,
                 bound_ms=bdx, bound_by=bydx,
                 ms=cuda_ms(lambda: att_bsr._launch_walk(
                     "att_bwd_t (dx)", device, blocks, plan.t_row_splits,
@@ -764,22 +833,60 @@ def phase_fused_kernels(device, g) -> dict:
                 plain_ms=cuda_ms(lambda: plain_dx(gr), 5), library_ms=None,
                 two_stage_ms=two_bwd if need_dx else None,
                 two_stage_label=two_label))
-            shapes["K7bt"].append(dict(
-                F=feat, launch="dssrc", **e_t[-1], bound_ms=bt,
-                bound_by=byt,
-                ms=cuda_ms(lambda: att_bsr.att_bwd_t(
-                    *bwd, need_dx=False), 20),
-                plain_ms=cuda_ms(lambda: att_bsr.att_bwd_t_plain(
-                    *bwd, need_dx=False), 5), library_ms=None,
-                two_stage_ms=None if need_dx else two_bwd,
-                two_stage_label=two_label))
-            shapes["K7bf"].append(dict(
-                F=feat, **e_b, bound_ms=bb, bound_by=byb,
-                ms=cuda_ms(lambda: att_bsr.att_bwd_f(rows, cols, *bwd), 10),
-                plain_ms=cuda_ms(lambda: att_bsr.att_bwd_f_plain(
-                    rows, cols, *bwd), 5), library_ms=None,
-                two_stage_ms=None,
-                two_stage_label="within K7bt's two-stage backward"))
+            # K7s: the pass alone; K7sums: the sums alone; both outputs
+            # through att_bwd_scores (the pass and the sums, what replaced
+            # the two reductions) beside them
+            xt = x.t().contiguous()
+            sampled = torch.sparse.sampled_addmm(mask_csr, gr, xt, beta=0.0)
+            pick = torch.arange(0, nnz, max(1, nnz // 4096), device=device)
+            compare(f"K7s reference sampled_addmm ⟨g, x⟩ F={feat}",
+                    sampled.values()[pick],
+                    (gr[torch.bucketize(pick, sampled.crow_indices(),
+                                        right=True) - 1]
+                     * x[sampled.col_indices()[pick]]).sum(1))
+            del sampled
+            both_ms = cuda_ms(lambda: att_bsr.att_bwd_scores(
+                rows, cols, *bwd), 20)
+            both_dev = device_ms(lambda: att_bsr.att_bwd_scores(
+                rows, cols, *bwd), 20)
+            shapes["K7s"].append(dict(
+                F=feat, max_abs_err=max(er["max_abs_err"]
+                                        for er in (*e_s, *e_p)),
+                max_rel_err=max(er["max_rel_err"] for er in (*e_s, *e_p)),
+                bound_ms=bs, bound_by=bys, bound_tensor_cores_ms=bs_tc,
+                ms=cuda_ms(lambda: att_bsr._launch_scores(
+                    "att_bwd_scores", device, blocks, rows, cols, ssrc, sdst,
+                    mg, gr, x, dden, SLOPE), 20),
+                plain_ms=cuda_ms(lambda: att_bsr.att_scores_plain(
+                    rows, cols, *bwd), 5),
+                library_ms=None,
+                sampled_addmm_ms=cuda_ms(lambda: torch.sparse.sampled_addmm(
+                    mask_csr, gr, xt, beta=0.0), 20),
+                both_outputs_ms=both_ms, both_outputs_device_ms=both_dev,
+                both_outputs_plain_ms=cuda_ms(
+                    lambda: att_bsr.att_bwd_scores_plain(rows, cols, *bwd),
+                    5),
+                two_stage_ms=two_scores, two_stage_label=two_scores_label))
+            # the sums take a few microseconds, under their wrapper's host
+            # work: ms is the device time, wrapper_ms cuda_ms's
+            shapes["K7sums"].append(dict(
+                F=feat, max_abs_err=max(er["max_abs_err"] for er in e_c),
+                max_rel_err=max(er["max_rel_err"] for er in e_c),
+                bound_ms=bc, bound_by=byc,
+                ms=device_ms(lambda: att_bsr.att_sums(plan, *part), 20),
+                wrapper_ms=cuda_ms(lambda: att_bsr.att_sums(plan, *part), 20),
+                plain_ms=cuda_ms(lambda: att_bsr.att_sums_plain(
+                    plan, *part), 20), library_ms=None,
+                two_stage_ms=None, two_stage_label=two_scores_label))
+            sh = shapes["K7s"][-1]
+            print(f"  K7s+K7sums F={feat}: both outputs "
+                  f"{sh['both_outputs_ms']:.4f} ms (device time "
+                  f"{sh['both_outputs_device_ms']:.4f}; plain "
+                  f"{sh['both_outputs_plain_ms']:.4f}); the pass's dense "
+                  f"product at the TF32 rate {bs_tc:.4f} ms; "
+                  f"torch.sparse.sampled_addmm (⟨g, x⟩ alone) "
+                  f"{sh['sampled_addmm_ms']:.4f} ms")
+            del xt, part
             shapes["K6"].append(dict(
                 F=feat, max_abs_err=max(er["max_abs_err"] for er in e_6),
                 max_rel_err=max(er["max_rel_err"] for er in e_6),
@@ -790,8 +897,8 @@ def phase_fused_kernels(device, g) -> dict:
                 library_ms=cuda_ms(lambda: torch.sparse.mm(str_csr, x), 20),
                 library_label="torch.sparse.mm with runtime weights: num "
                               "only"))
-            for k in ("K7f", "K7bt", "K7bf", "K6"):
-                show(k, 2 if k == "K7bt" else 1)
+            for k in ("K7f", "K7bt", "K7s", "K7sums", "K6"):
+                show(k)
             if feat == HIDDEN:
                 # K6's dx in layer 1: K3w on the transpose CSR
                 k3w = segmm_weighted_raw(mt, wt, gr)
@@ -1009,10 +1116,12 @@ def phase_optin_kernels(device, g, ops) -> dict:
 # features (no backward), layer 1 its transformed input
 STEP = {"GATConv": {"K4": 2, "K4T": 1, "K5": 2},
         "GCNConv": {"K1": 3, "K3": 3},
-        # FUSED: K7bt's dssrc in both layers and its dx in layer 1 (3
-        # launches), K6's dx (a K3w launch) in layer 1 only
-        "GATConv fused": {"K7f": 2, "K7bt": 3, "K7bf": 2, "K6": 2, "K3w": 1},
-        "GATConv fused exact": {"K7rm": 2, "K7f": 2, "K7bt": 3, "K7bf": 2}}
+        # FUSED: the score pass and its column sum in both layers, K7bt's
+        # dx walk and K6's dx (a K3w launch) in layer 1 only
+        "GATConv fused": {"K7f": 2, "K7bt": 1, "K7s": 2, "K7sums": 2,
+                          "K6": 2, "K3w": 1},
+        "GATConv fused exact": {"K7rm": 2, "K7f": 2, "K7bt": 1, "K7s": 2,
+                                "K7sums": 2}}
 EVAL = {"GATConv": {"K4": 2}, "GCNConv": {"K1": 2, "K3": 2},
         "GATConv fused": {"K7f": 2, "K6": 2},
         "GATConv fused exact": {"K7rm": 2, "K7f": 2},
@@ -1050,7 +1159,8 @@ def phase_gradients(device, g_gat, g_gcn) -> None:
         mock.patch.object(tile_gat, "att_rowmax", att_bsr.att_rowmax_plain),
         mock.patch.object(att_bsr, "att_fwd", att_bsr.att_fwd_plain),
         mock.patch.object(att_bsr, "att_bwd_t", att_bsr.att_bwd_t_plain),
-        mock.patch.object(att_bsr, "att_bwd_f", att_bsr.att_bwd_f_plain)]
+        mock.patch.object(att_bsr, "att_bwd_scores",
+                          att_bsr.att_bwd_scores_plain)]
     default_gat = None
     for mode, g in (("GATConv", g_gat), ("GCNConv", g_gcn),
                     ("GATConv fused", g_gat)):
@@ -1461,13 +1571,20 @@ KERNELS = (
     ("K7f", "K7 att_fwd (att_tiles forward: the rows walk, pe per "
      "non-zero)", "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/att_bsr.py:125"),
-    ("K7bt", "K7 att_bwd_t (att_tiles dx: the columns walk of "
-     "tile_sparse.cuh, pe per non-zero; dssrc: att_reduce_kernel; two "
-     "launches, per_shape gives each)", "fitgnn_tpu_torch/csrc/att_bsr.cu",
+    ("K7bt", "K7 att_bwd_t dx (att_tiles dx: the columns walk of "
+     "tile_sparse.cuh, pe per non-zero)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/att_bsr.py:185"),
-    ("K7bf", "K7 att_bwd_f (att_tiles dsdst)",
+    ("K7s", "K7 att_bwd_scores (att_tiles' score gradients: each forward "
+     "tile's row and column partials of d_raw in one tensor-core pass; "
+     "replaces _bwd_f_kernel and the dssrc half of _bwd_t_kernel, :185)",
      "fitgnn_tpu_torch/csrc/att_bsr.cu",
      "fitgnn_tpu/ops/pallas/att_bsr.py:267"),
+    ("K7sums", "K7 att_sums (dsdst and dssrc from the pass's partials, over "
+     "the forward walk and the transpose plan: the tile sums of "
+     "_bwd_f_kernel and _bwd_t_kernel)",
+     "fitgnn_tpu_torch/csrc/att_bsr.cu",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:185"),
     ("K2", "K2 bsr_spmm_fwd (bsr_spmm from zero)",
      "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/bsr_spmm.py:156"),
@@ -1537,17 +1654,23 @@ def main() -> int:
     for entry in kernels_line["kernels"]:
         check(entry["launches"] > 0,
               f"{entry['name']} never launched on a main-path phase")
-    # the register counts of the walk's K7 instantiations (both slab copies)
+    # the register counts of K7's walks (both slab copies), of the score
+    # pass and K5 (both load widths) and of the column sum
     for (k, *_), entry in zip(KERNELS, kernels_line["kernels"]):
         hook = {"K7f": "FwdScores", "K7bt": "DxScores"}.get(k)
-        if hook is None:
+        name = {"K5": "dyn_grad_blocks_kernel", "K7s": "att_scores_kernel",
+                "K7sums": "att_sums_kernel"}.get(k)
+        if hook is None and name is None:
             continue
         entry["registers"] = {
             kernel: {"registers": n, "spilled_bytes": spill}
             for _, kernel, n, spill in regs
-            if (walk_args(kernel) or (None,) * 4)[3] == hook}
-        check(len(entry["registers"]) == 2,
-              f"{entry['name']}: no ptxas record of the walk under {hook}")
+            if (hook is not None
+                and (walk_args(kernel) or (None,) * 4)[3] == hook)
+            or (name is not None and kernel.startswith(name))}
+        check(len(entry["registers"]) == (1 if k == "K7sums" else 2),
+              f"{entry['name']}: no ptxas record of its kernels")
+        print(f"{k} registers: {entry['registers']}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

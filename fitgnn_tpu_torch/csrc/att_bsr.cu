@@ -8,9 +8,11 @@
 //                                         under the hook att::FwdScores
 //   _bwd_t_kernel  (entry _att_bwd_t)  -> the columns walk of
 //                                         tile_sparse.cuh under the hook
-//                                         att::DxScores (dx) and
-//                                         att_reduce_kernel<true> (dssrc)
-//   _bwd_f_kernel  (entry _att_bwd_f)  -> att_reduce_kernel<false> (dsdst)
+//                                         att::DxScores (dx); dssrc:
+//                                         att_scores_kernel's column
+//                                         partials, att_sums_kernel
+//   _bwd_f_kernel  (entry _att_bwd_f)  -> dsdst: att_scores_kernel's row
+//                                         partials, att_sums_kernel
 //
 // Notation.  Tile k covers the forward rows i of block rows[k] and the
 // forward columns j of block cols[k]; its entry B[k][i][j] != 0 is the
@@ -46,29 +48,67 @@
 // departure from the dense product: an inf in x or g that only masked-out
 // entries reach leaves the output finite.
 //
-// att_reduce_kernel: the score gradient d_raw = mask . LeakyReLU'(raw) .
-// pe . (<g[i], x[j]> + dden[i]), summed over j into dsdst[i] (forward
-// walk) or over i into dssrc[j], times scale (transpose plan).  The dot
-// product runs over the whole feature axis, so one CTA owns one block
-// (its "owner" rows: i forward, j transposed) for all F.  It stages up to
-// 8 tiles at a time as 128x128 bit masks (2 KB each) in owner-major order,
-// then each warp takes 16 owner rows: the owner's feature row sits in
-// registers (16 floats a lane, F <= 512), and for each set bit the partner
-// row is read from device memory (coalesced, mostly from L2) and dotted
-// with it.  Only the mask's entries (~3% of each tile) are computed: a
-// sampled product, where the TPU kernel did the dense 128x128xF one.
+// The score gradients: att_scores_kernel, then att_sums_kernel.  d_raw =
+// mask . LeakyReLU'(raw) . pe . (<g[i], x[j]> + dden[i]) is one number per
+// tile entry; _bwd_f_kernel sums it over j into dsdst[i], the dssrc half
+// of _bwd_t_kernel over i into dssrc[j].  The pass computes it once and
+// reduces it along both axes: one CTA (two warpgroups) per forward tile k,
+// K5's grid.  tf32x3.cuh's tensor-core product (K5's mainloop: wgmma
+// m64n128k8 on 3xTF32 splits, F in 32-wide chunks) forms <g[i], x[j]> for
+// the whole 128x128 tile, g[rows[k]] against x[cols[k]], while the tile
+// and the score vectors (ssrc of the column block; sdst, m and dden of the
+// row block) are copied into shared memory with cp.async.  The epilogue
+// works in the accumulator's own layout (2 rows x 32 columns a thread):
+// the mask, read from the staged tile, selects, and the exp's argument is
+// 0 where it is not set; no branch, so the 64 entries interleave (with a
+// branch per entry the epilogue took twice as long).  Its row sums are
+// summed over the quad, its column sums over the warp's 16 rows with
+// shuffles and then over the 8 warps
+// through shared memory in a fixed order: one row and one column partial
+// per (tile, row or column), two (K, 128) scratch tensors (1.1 MB each on
+// the bench graph).  att_sums_kernel (one CTA of 128 threads per block)
+// then adds, in order, the row partials of block row r's tiles
+// row_splits[r] .. row_splits[r+1] into dsdst, and scale . cpart[sel]
+// over the transpose plan's slots of block c into dssrc, skipping the
+// coverage fillers (scale 0): every real forward tile is one slot, so this
+// is the JAX kernel's sum in the plan's order.  No atomics, so two launches
+// are bit-equal.  The dense product costs nothing the bytes do not: at 3%
+// fill the 97% of FMAs spent on zeros run on tensor cores that would
+// otherwise idle.  Like K5, the split gives NaN, not inf, where an inf in
+// g or x reaches a masked-in entry; an inf that only masked-out entries
+// reach stays out of both sums (the select).
 //
 // Bound on an H100.  att_rowmax: bytes (every tile read once).  The walks:
 // bytes (tiles, slabs, the three score vectors, output), 2.F + ~5 FLOPs
 // per tile non-zero (the product, the score, LeakyReLU, subtract, exp and,
-// forward, den's add).  att_reduce: bytes as a function (tiles, g and x
-// slabs); the kernel re-reads a partner row for every entry, 2.2 GB at
-// F=512 on the bench graph, mostly from L2.  One exp per entry shared
-// across the F-slices, and the reductions' redesign, are later work.
+// forward, den's add).  att_scores: bytes (the tiles, the distinct g and x
+// slabs, four vectors, dsdst and the partials); its dense product, 3 TF32
+// passes of 2.F FLOPs per tile entry, takes 0.223 ms at F=512 on the bench
+// graph's 2,192 tiles at 495 TFLOP/s, under those bytes.  The function
+// needs 2.F + ~8 FLOPs per mask entry.  att_sums: bytes (the partials
+// once, dssrc and dsdst once).
+//
+// Not kept: att_reduce_kernel, the two reductions before this pass (a CTA
+// per block, each mask entry's partner feature row reread from L2 and
+// dotted on the CUDA cores, the same d_raw computed twice; 3x the time on
+// the bench graph); and, each timed against the pass on synthetic tiles of
+// the bench graph's shape by scripts/torch_design_variants.py, one CTA
+// per block row over its
+// tiles with the row sums in registers (a row's g slab refetched per tile
+// without the L2 sharing of the tile order; 12-33% slower); the mask read
+// from device memory in the epilogue, or its copy started inside or after
+// the product (no faster); a branch per entry in place of the selects;
+// __expf; the column sums reduce-scattered over the lane groups (its
+// array left registers); and the product sampled at the mask's entries on
+// the CUDA cores (scripts/variants/att_scores_sampled.cu; 1.8-2.1x
+// slower).  The epilogue still runs after the product with nothing to
+// overlap it at one CTA an SM; one exp per entry shared between K7f's
+// F-slices is later work too.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "tf32x3.cuh"
 #include "tile_sparse.cuh"
 
 namespace {
@@ -79,10 +119,7 @@ constexpr int THREADS = WARPS * 32;               // 256
 constexpr int ROWS_PER_WARP = BLK / WARPS;        // 16
 constexpr float NEG = -1e30f;
 
-// the reduction's staging
-constexpr int SG = 8;                             // tiles staged at once
-constexpr int MAX_F = 512;
-constexpr int FPL = MAX_F / 32;                   // features a lane
+constexpr int MAX_F = 512;                        // the pass's widest F
 
 __device__ __forceinline__ float leaky(float v, float slope) {
   return v >= 0.f ? v : slope * v;
@@ -151,141 +188,175 @@ att_rowmax_kernel(const float* __restrict__ blocks,
   }
 }
 
-template <bool TRANS>
-__global__ void __launch_bounds__(THREADS)
-att_reduce_kernel(const float* __restrict__ blocks,
-                  const int32_t* __restrict__ splits,
-                  const int32_t* __restrict__ sel,
-                  const int32_t* __restrict__ scale,
-                  const int32_t* __restrict__ part,
+// d_raw of one tile entry: the score gradient where the mask is set, else
+// 0 by a select (an inf or NaN product at an unmasked entry never reaches
+// the sums).  No branch, so the 64 entries of a thread interleave: every
+// entry's exp is taken, of its score where the mask is set and of 0
+// elsewhere, so none overflows whatever m holds (-1e30 for a row without
+// edges).
+__device__ __forceinline__ float score_grad(float acc, float mask, float raw,
+                                            float m, float dd, float slope) {
+  const bool set = mask != 0.f;
+  const float v = (acc + dd) * expf(set ? leaky(raw, slope) - m : 0.f);
+  return set ? (raw >= 0.f ? v : slope * v) : 0.f;
+}
+
+// shared memory of att_scores_kernel (floats after the 1 KB-aligned
+// product stages): the tile, swizzled; ssrc of its column block; sdst, m
+// and dden of its row block; the eight warps' column sums
+constexpr int SC_TILE = BLK * BLK;
+constexpr int SC_SMEM = tf32x3::SMEM + 1024
+    + (SC_TILE + 4 * BLK + WARPS * BLK) * static_cast<int>(sizeof(float));
+static_assert(tf32x3::THREADS == THREADS, "a warp per 16 tile rows");
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+att_scores_kernel(const float* __restrict__ blocks,
+                  const int32_t* __restrict__ rows,
+                  const int32_t* __restrict__ cols,
                   const float* __restrict__ ssrc,
                   const float* __restrict__ sdst,
                   const float* __restrict__ m,
                   const float* __restrict__ dden,
-                  const float* __restrict__ own,
-                  const float* __restrict__ other, float* __restrict__ out,
+                  const float* __restrict__ g, const float* __restrict__ x,
+                  float* __restrict__ cpart, float* __restrict__ rpart,
                   int64_t feat, float slope) {
-  // Bits[s][o][w] bit b: staged tile s has an entry at owner row o and
-  // partner row 32w+b (owner = forward row, partner = forward column; the
-  // other way round when TRANS)
-  __shared__ uint32_t Bits[SG][BLK][4];
-  // the partner rows' scalars: ssrc (forward) or sdst, m, dden (TRANS)
-  __shared__ float Pv[SG][3][BLK];
-  __shared__ float Sc[SG];                        // slot scale, 0 = skip
-  __shared__ int32_t Pb[SG];                      // partner block
-  __shared__ float Osum[BLK];
-
-  const int64_t o = blockIdx.x;
+  extern __shared__ unsigned char sraw[];
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(sraw));
+  float* sm = reinterpret_cast<float*>(sraw + ((1024 - base % 1024) % 1024));
+  float* ts = sm + 2 * tf32x3::STAGE;             // the tile
+  float* ss = ts + SC_TILE;                       // ssrc of block cols[k]
+  float* rv = ss + BLK;                           // sdst, m, dden of rows[k]
+  float* cs = rv + 3 * BLK;                       // [warp][column] sums
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  if (tid < BLK) Osum[tid] = 0.f;
-  const int lo = splits[o];
-  const int hi = splits[o + 1];
-  for (int base = lo; base < hi; base += SG) {
-    const int ns = min(SG, hi - base);
-    uint32_t* flat = &Bits[0][0][0];
-    for (int q = tid; q < SG * BLK * 4; q += THREADS) flat[q] = 0u;
-    if (tid < SG) {
-      const int k = base + tid;
-      Sc[tid] = tid >= ns ? 0.f
-                          : scale != nullptr ? static_cast<float>(scale[k])
-                                             : 1.f;
-      Pb[tid] = tid < ns ? part[k] : 0;
-    }
-    __syncthreads();
-    for (int s = 0; s < ns; ++s) {
-      if (Sc[s] == 0.f) continue;                 // filler: uniform skip
-      const int k = base + s;
-      const int64_t t = sel != nullptr ? sel[k] : k;
-      const int64_t p = Pb[s];
-      if (tid < BLK) {
-        if (TRANS) {
-          Pv[s][0][tid] = sdst[p * BLK + tid];
-          Pv[s][1][tid] = m[p * BLK + tid];
-          Pv[s][2][tid] = dden[p * BLK + tid];
-        } else {
-          Pv[s][0][tid] = ssrc[p * BLK + tid];
-        }
-      }
-      const float* a = blocks + t * BLK * BLK;
-      for (int q = tid; q < BLK * (BLK / 4); q += THREADS) {
-        const int i = q / (BLK / 4);
-        const int j4 = (q % (BLK / 4)) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(
-            a + static_cast<int64_t>(i) * BLK + j4);
-        const float vv[4] = {v.x, v.y, v.z, v.w};
+  const int64_t k = blockIdx.x;
+  const int64_t r = rows[k];
+  const int64_t c = cols[k];
+  // the tile and the score vectors into shared memory while the product
+  // runs (no load waits): 16-byte chunk q of tile row i at chunk
+  // q ^ (i % 8), so the epilogue's float2 reads of 8 rows and 4 column
+  // pairs spread over all banks
+  const float* tile = blocks + k * SC_TILE;
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          if (vv[cc] != 0.f) {
-            const int ow = TRANS ? j4 + cc : i;
-            const int pa = TRANS ? i : j4 + cc;
-            atomicOr(&Bits[s][ow][pa >> 5], 1u << (pa & 31));
-          }
-        }
-      }
-    }
-    __syncthreads();
-    for (int q = 0; q < ROWS_PER_WARP; ++q) {
-      const int orow = warp + WARPS * q;
-      const int64_t og = o * BLK + orow;
-      float sd_o = 0.f, m_o = 0.f, dd_o = 0.f, ss_o = 0.f;
-      if (TRANS) {
-        ss_o = ssrc[og];
-      } else {
-        sd_o = sdst[og];
-        m_o = m[og];
-        dd_o = dden[og];
-      }
-      float ov[FPL];
-      const float* orow_p = own + og * feat;
-#pragma unroll
-      for (int u = 0; u < FPL; ++u) {
-        const int64_t f = u * 32 + lane;
-        ov[u] = f < feat ? orow_p[f] : 0.f;
-      }
-      float sum = 0.f;
-      for (int s = 0; s < ns; ++s) {
-        const float sc = Sc[s];
-        if (sc == 0.f) continue;
-        const float* pbase = other + static_cast<int64_t>(Pb[s]) * BLK * feat;
-        for (int w = 0; w < 4; ++w) {
-          uint32_t word = Bits[s][orow][w];       // uniform across the warp
-          while (word != 0u) {
-            const int pa = w * 32 + __ffs(word) - 1;
-            word &= word - 1u;
-            const float* pr = pbase + static_cast<int64_t>(pa) * feat;
-            float d = 0.f;
-#pragma unroll
-            for (int u = 0; u < FPL; ++u) {
-              const int64_t f = u * 32 + lane;
-              if (f < feat) d = fmaf(ov[u], pr[f], d);
-            }
-            d = warp_sum(d);
-            float sd, mi, dd, ss;
-            if (TRANS) {
-              sd = Pv[s][0][pa];
-              mi = Pv[s][1][pa];
-              dd = Pv[s][2][pa];
-              ss = ss_o;
-            } else {
-              sd = sd_o;
-              mi = m_o;
-              dd = dd_o;
-              ss = Pv[s][0][pa];
-            }
-            const float raw = sd + ss;
-            float dr = (d + dd) * expf(leaky(raw, slope) - mi);
-            if (raw < 0.f) dr *= slope;
-            sum = fmaf(sc, dr, sum);
-          }
-        }
-      }
-      if (lane == 0) Osum[orow] += sum;           // one warp owns the row
-    }
-    __syncthreads();                              // before the next group
+  for (int u = 0; u < SC_TILE / 4 / THREADS; ++u) {
+    const int q = tid + THREADS * u;
+    const int i = q / (BLK / 4);
+    sparse::cp_async16(ts + i * BLK + 4 * ((q % (BLK / 4)) ^ (i & 7)),
+                       tile + 4 * q, 16);
   }
-  if (tid < BLK) out[o * BLK + tid] = Osum[tid];
+  if (tid < BLK) {
+    sparse::cp_async4(ss + tid, ssrc + c * BLK + tid, 4);
+    sparse::cp_async4(rv + tid, sdst + r * BLK + tid, 4);
+    sparse::cp_async4(rv + BLK + tid, m + r * BLK + tid, 4);
+    sparse::cp_async4(rv + 2 * BLK + tid, dden + r * BLK + tid, 4);
+  }
+  sparse::cp_async_commit();
+
+  float d[64];                                    // <g_i, x_j>, 3xTF32
+  tf32x3::product<VEC>(d, sm, g + r * BLK * feat, x + c * BLK * feat, feat,
+                       tid);
+  sparse::cp_async_wait<0>();
+  __syncthreads();
+
+  // the accumulator's rows i0 and i0 + 8 (tf32x3.cuh's layout: 64 wg + 16
+  // (warp % 4) = 16 warp), so both rows have the swizzle key lane / 4
+  const int i0 = warp * 16 + (lane >> 2);
+  const int key = lane >> 2;
+  const float sd0 = rv[i0], sd1 = rv[i0 + 8];
+  const float m0 = rv[BLK + i0], m1 = rv[BLK + i0 + 8];
+  const float dd0 = rv[2 * BLK + i0], dd1 = rv[2 * BLK + i0 + 8];
+  // d_raw in the accumulator's own layout: register 4j + {0, 1} is row i0
+  // at columns 8j + 2 (lane % 4) + {0, 1}, 4j + {2, 3} row i0 + 8; the
+  // column sums of the thread's two rows replace registers 4j and 4j + 1
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const int at = i0 * BLK + 4 * ((col >> 2) ^ key) + (col & 3);
+    const float2 k0 = *reinterpret_cast<const float2*>(ts + at);
+    const float2 k1 = *reinterpret_cast<const float2*>(ts + at + 8 * BLK);
+    const float s0 = ss[col], s1 = ss[col + 1];
+    const float a0 = score_grad(d[4 * j], k0.x, sd0 + s0, m0, dd0, slope);
+    const float a1 = score_grad(d[4 * j + 1], k0.y, sd0 + s1, m0, dd0, slope);
+    const float b0 = score_grad(d[4 * j + 2], k1.x, sd1 + s0, m1, dd1, slope);
+    const float b1 = score_grad(d[4 * j + 3], k1.y, sd1 + s1, m1, dd1, slope);
+    rs0 += a0 + a1;
+    rs1 += b0 + b1;
+    d[4 * j] = a0 + b0;
+    d[4 * j + 1] = a1 + b1;
+  }
+  // the tile's row partials: the thread's 32 columns, then the quad's
+  rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+  rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+  rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+  rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+  if ((lane & 3) == 0) {
+    rpart[k * BLK + i0] = rs0;
+    rpart[k * BLK + i0 + 8] = rs1;
+  }
+  // its column partials: the warp's 16 rows (the 8 lane groups), then the
+  // 8 warps in a fixed order
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      d[4 * j] += __shfl_xor_sync(0xffffffffu, d[4 * j], o);
+      d[4 * j + 1] += __shfl_xor_sync(0xffffffffu, d[4 * j + 1], o);
+    }
+  }
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      *reinterpret_cast<float2*>(cs + warp * BLK + 8 * j + 2 * lane) =
+          make_float2(d[4 * j], d[4 * j + 1]);
+    }
+  }
+  __syncthreads();
+  if (tid < BLK) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) v += cs[w * BLK + tid];
+    cpart[k * BLK + tid] = v;
+  }
+}
+
+// The partials' sums, one CTA of 128 threads per block: CTA b < nb gives
+// dsdst[b] = the row partials of block row b's tiles row_splits[b] ..
+// row_splits[b+1], in order; CTA nb + c gives dssrc[c] = the column
+// partials of the transpose plan's slots of block c, in order, times their
+// scale (a coverage filler, scale 0, is skipped).  Every row is written, 0
+// where no tile adds to it.
+__global__ void __launch_bounds__(BLK)
+att_sums_kernel(const float* __restrict__ cpart,
+                const float* __restrict__ rpart,
+                const int32_t* __restrict__ row_splits,
+                const int32_t* __restrict__ t_splits,
+                const int32_t* __restrict__ t_sel,
+                const int32_t* __restrict__ t_scale,
+                float* __restrict__ dssrc, float* __restrict__ dsdst,
+                int64_t nb) {
+  const int64_t b = blockIdx.x;
+  const int tid = threadIdx.x;
+  float v = 0.f;
+  if (b < nb) {
+    const int hi = row_splits[b + 1];
+    for (int k = row_splits[b]; k < hi; ++k) {
+      v += rpart[static_cast<int64_t>(k) * BLK + tid];
+    }
+    dsdst[b * BLK + tid] = v;
+    return;
+  }
+  const int64_t c = b - nb;
+  const int hi = t_splits[c + 1];
+  for (int k = t_splits[c]; k < hi; ++k) {
+    const int32_t sc = t_scale[k];
+    if (sc == 0) continue;
+    v = fmaf(static_cast<float>(sc),
+             cpart[static_cast<int64_t>(t_sel[k]) * BLK + tid], v);
+  }
+  dssrc[c * BLK + tid] = v;
 }
 
 }  // namespace
@@ -439,51 +510,69 @@ extern "C" int fitgnn_att_walk(const void* blocks, const void* splits,
       att::FwdScores{ss, sd, mm, static_cast<float*>(den), slope}));
 }
 
-// The score-gradient reduction: trans == 0 gives dsdst on the forward walk
-// (splits = row_splits, sel = scale = null, part = cols, own = g, other =
-// x); trans != 0 gives dssrc on the transpose plan (splits = t_row_splits,
-// sel = t_sel, scale = t_scale, part = t_cols, own = x, other = g).
-// blocks (K,128,128) f32, 16-byte aligned; ssrc, sdst, m, dden, out (n,)
-// f32; g, x (n, feat) f32 with 0 < feat <= 512; all contiguous.  Returns
-// cudaErrorInvalidValue for another feat, cudaErrorInvalidConfiguration
-// when num_row_blocks exceeds 2^31 - 1, else cudaGetLastError() after the
-// launch.
-extern "C" int fitgnn_att_reduce(const void* blocks, const void* splits,
-                                 const void* sel, const void* scale,
-                                 const void* part, const void* ssrc,
+// The score-gradient pass: the column partials cpart and the row partials
+// rpart (K, 128) f32 of every forward tile k (rows block rows[k], columns
+// block cols[k]).  blocks (K,128,128) f32, 16-byte aligned; ssrc, sdst, m,
+// dden (n,) f32; g, x (n, feat) f32 with 0 < feat <= 512; rows, cols (K,)
+// int32; all contiguous.  Returns cudaErrorInvalidValue for another feat,
+// cudaErrorInvalidConfiguration when num_tiles exceeds 2^31 - 1, else
+// cudaGetLastError() after the launch.
+extern "C" int fitgnn_att_scores(const void* blocks, const void* rows,
+                                 const void* cols, const void* ssrc,
                                  const void* sdst, const void* m,
-                                 const void* dden, const void* own,
-                                 const void* other, void* out,
-                                 int64_t num_row_blocks, int64_t feat,
-                                 int trans, float slope, void* stream) {
+                                 const void* dden, const void* g,
+                                 const void* x, void* cpart, void* rpart,
+                                 int64_t num_tiles, int64_t feat,
+                                 float slope, void* stream) {
   if (feat <= 0 || feat > MAX_F) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_row_blocks > 0x7fffffff) {
+  if (num_tiles > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  if (num_tiles > 0) {
+    const bool vec = reinterpret_cast<uintptr_t>(g) % 16 == 0
+                     && reinterpret_cast<uintptr_t>(x) % 16 == 0
+                     && feat % 4 == 0;
+    const auto kernel = vec ? att_scores_kernel<true>
+                            : att_scores_kernel<false>;
+    const cudaError_t set = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SC_SMEM);
+    if (set != cudaSuccess) return static_cast<int>(set);
+    kernel<<<static_cast<unsigned>(num_tiles), THREADS, SC_SMEM,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(blocks), static_cast<const int32_t*>(rows),
+        static_cast<const int32_t*>(cols), static_cast<const float*>(ssrc),
+        static_cast<const float*>(sdst), static_cast<const float*>(m),
+        static_cast<const float*>(dden), static_cast<const float*>(g),
+        static_cast<const float*>(x), static_cast<float*>(cpart),
+        static_cast<float*>(rpart), feat, slope);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dssrc and dsdst (n,) f32 from the pass's partials (K, 128) f32: the row
+// partials over row_splits (nb + 1), the column partials over the
+// transpose plan (t_row_splits, t_sel, t_scale); int32, all contiguous.
+// Returns cudaErrorInvalidConfiguration when 2 num_row_blocks exceeds
+// 2^31 - 1, else cudaGetLastError() after the launch.
+extern "C" int fitgnn_att_sums(const void* cpart, const void* rpart,
+                               const void* row_splits, const void* t_splits,
+                               const void* t_sel, const void* t_scale,
+                               void* dssrc, void* dsdst,
+                               int64_t num_row_blocks, void* stream) {
+  if (2 * num_row_blocks > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   if (num_row_blocks > 0) {
-    const auto st = static_cast<cudaStream_t>(stream);
-    const auto* b = static_cast<const float*>(blocks);
-    const auto* sp = static_cast<const int32_t*>(splits);
-    const auto* sl = static_cast<const int32_t*>(sel);
-    const auto* sc = static_cast<const int32_t*>(scale);
-    const auto* pt = static_cast<const int32_t*>(part);
-    const auto* ss = static_cast<const float*>(ssrc);
-    const auto* sd = static_cast<const float*>(sdst);
-    const auto* mm = static_cast<const float*>(m);
-    const auto* dd = static_cast<const float*>(dden);
-    const auto* ow = static_cast<const float*>(own);
-    const auto* ot = static_cast<const float*>(other);
-    auto* op = static_cast<float*>(out);
-    const auto grid = static_cast<unsigned>(num_row_blocks);
-    if (trans) {
-      att_reduce_kernel<true><<<grid, THREADS, 0, st>>>(
-          b, sp, sl, sc, pt, ss, sd, mm, dd, ow, ot, op, feat, slope);
-    } else {
-      att_reduce_kernel<false><<<grid, THREADS, 0, st>>>(
-          b, sp, sl, sc, pt, ss, sd, mm, dd, ow, ot, op, feat, slope);
-    }
+    att_sums_kernel<<<static_cast<unsigned>(2 * num_row_blocks), BLK, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(cpart), static_cast<const float*>(rpart),
+        static_cast<const int32_t*>(row_splits),
+        static_cast<const int32_t*>(t_splits),
+        static_cast<const int32_t*>(t_sel),
+        static_cast<const int32_t*>(t_scale), static_cast<float*>(dssrc),
+        static_cast<float*>(dsdst), num_row_blocks);
   }
   return static_cast<int>(cudaGetLastError());
 }

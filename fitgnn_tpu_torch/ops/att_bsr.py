@@ -12,24 +12,29 @@ package's ``ops/pallas/att_bsr.py`` does:
 * ``att_rowmax`` — the per-node max of the masked tile scores (the exact
   softmax max), −1e30 where a node has no tile in-edge;
 * ``att_fwd`` — ``num = Σ_tile pe @ x[cols]`` and ``den = Σ_tile Σ_j pe``;
+* ``att_bwd_scores`` — both score gradients in one pass: ``dsdst`` (the
+  row sums of ``d_raw``) and ``dssrc`` (its column sums), from one
+  tensor-core product per tile and a deterministic kernel (``att_sums``)
+  that adds its partials over the forward walk and the transpose plan;
 * ``att_bwd_t`` — ``dx`` (``peᵀ @ g`` on the transpose plan) and
-  ``dssrc`` (the column sums of ``d_raw``), two launches, or one when
-  ``dx`` is not needed;
-* ``att_bwd_f`` — ``dsdst`` (the row sums of ``d_raw``) on the forward
-  walk;
+  ``dssrc``, each on request; ``att_bwd_f`` — ``dsdst`` (the two halves of
+  the JAX package's backward, kept for its entry points);
 
 with ``pe = exp(LeakyReLU(sdst_i + ssrc_j) − m_i)`` at the tile's entries
 and ``d_raw = LeakyReLU'(raw)·pe·(⟨g_i, x_j⟩ + dden_i)`` there.  The exp
 is taken only at the mask's entries (the TPU kernels mask after it), so a
 row whose ``m`` is −1e30 never overflows.  ``att_tiles`` is the autograd
 Function over them, differentiable in ``ssrc``, ``sdst`` and ``x``; ``m``
-is a constant, as under the JAX package's ``stop_gradient``.  F ≤ 512.
+is a constant, as under the JAX package's ``stop_gradient``.  Its backward
+launches ``att_bwd_scores`` once for both score gradients and the ``dx``
+walk alone.  0 < F ≤ 512.
 
 Each wrapper launches the hand-written kernels of ``csrc/att_bsr.cu`` on
 CUDA tensors (the source note there says which TPU kernel each replaces,
 what bounds it on an H100 and what its design does about it; ``att_fwd``
 and ``att_bwd_t``'s ``dx`` run the non-zero walk of
-``csrc/tile_sparse.cuh`` with ``pe`` worked out per non-zero) and its
+``csrc/tile_sparse.cuh`` with ``pe`` worked out per non-zero, and
+``att_bwd_scores`` the tensor-core product of ``csrc/tf32x3.cuh``) and its
 plain PyTorch version (``*_plain``: materialised tiles, ``bmm`` and
 ``index_add_``) on CPU tensors.  ``<wrapper>.launches`` counts kernel
 launches.
@@ -107,32 +112,72 @@ def att_fwd_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst, m, x,
 
 
 def att_bwd_t_plain(plan: DynPlan, blocks, ssrc, sdst, m, g, x, dden,
-                    slope: float, need_dx: bool = True) -> tuple:
-    """``(dx or None, dssrc)`` on the transpose plan: slot ``k`` reads
-    forward tile ``t_sel[k]`` (rows block ``t_cols[k]``, columns block
-    ``t_rows[k]``) scaled by ``t_scale[k]`` (0 for a coverage filler)."""
+                    slope: float, need_dx: bool = True,
+                    need_dssrc: bool = True) -> tuple:
+    """``(dx, dssrc)``, each None unless asked for, on the transpose plan:
+    slot ``k`` reads forward tile ``t_sel[k]`` (rows block ``t_cols[k]``,
+    columns block ``t_rows[k]``) scaled by ``t_scale[k]`` (0 for a coverage
+    filler)."""
     nb = x.shape[0] // BLOCK
     mask, raw, pe = _tile_pe(blocks.index_select(0, plan.t_sel.long()), ssrc,
                              sdst, m, plan.t_cols, plan.t_rows, slope)
     sc = plan.t_scale.to(pe.dtype)[:, None, None]
     gs = _slabs(g, plan.t_cols)
-    dx = None
+    dx = dssrc = None
     if need_dx:
         dx = _sum_by_block(sc * torch.bmm(pe.transpose(1, 2).to(g.dtype), gs),
                            plan.t_rows, nb)
-    d_raw = _d_raw(mask, raw, pe, gs.float(), _slabs(x, plan.t_rows).float(),
-                   _slabs(dden, plan.t_cols), slope)
-    return dx, _sum_by_block((sc * d_raw).sum(dim=1), plan.t_rows, nb)
+    if need_dssrc:
+        d_raw = _d_raw(mask, raw, pe, gs.float(),
+                       _slabs(x, plan.t_rows).float(),
+                       _slabs(dden, plan.t_cols), slope)
+        dssrc = _sum_by_block((sc * d_raw).sum(dim=1), plan.t_rows, nb)
+    return dx, dssrc
 
 
 def att_bwd_f_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst, m, g, x,
                     dden, slope: float) -> torch.Tensor:
     """``dsdst``: the row sums of ``d_raw`` on the forward walk."""
-    nb = x.shape[0] // BLOCK
+    rpart = att_scores_plain(rows, cols, plan, blocks, ssrc, sdst, m, g, x,
+                             dden, slope)[1]
+    return _sum_by_block(rpart, rows, x.shape[0] // BLOCK)
+
+
+def att_scores_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst, m, g, x,
+                     dden, slope: float) -> tuple:
+    """The score-gradient pass: ``(cpart, rpart)``, the column sums and the
+    row sums of each forward tile's ``d_raw``, (K, b) each."""
     mask, raw, pe = _tile_pe(blocks, ssrc, sdst, m, rows, cols, slope)
     d_raw = _d_raw(mask, raw, pe, _slabs(g, rows).float(),
                    _slabs(x, cols).float(), _slabs(dden, rows), slope)
-    return _sum_by_block(d_raw.sum(dim=2), rows, nb)
+    return d_raw.sum(dim=1), d_raw.sum(dim=2)
+
+
+def att_sums_plain(plan: DynPlan, cpart, rpart) -> tuple:
+    """``(dssrc, dsdst)`` from the pass's partials: ``dssrc[c] = Σ
+    scale·cpart[t_sel]`` over the transpose plan's slots of block ``c`` (a
+    coverage filler, scale 0, adds nothing), ``dsdst[r]`` the row partials
+    of block row ``r``'s tiles."""
+    nb = plan.row_splits.shape[0] - 1
+    sc = plan.t_scale[:, None]
+    vals = torch.where(sc != 0, sc.to(cpart.dtype)
+                       * cpart.index_select(0, plan.t_sel.long()), 0.0)
+    rows = torch.repeat_interleave(
+        torch.arange(nb, device=rpart.device),
+        (plan.row_splits[1:] - plan.row_splits[:-1]).long())
+    return (_sum_by_block(vals, plan.t_rows, nb),
+            _sum_by_block(rpart, rows, nb))
+
+
+def att_bwd_scores_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst, m, g,
+                         x, dden, slope: float) -> tuple:
+    """``(dssrc, dsdst)`` as the JAX package's two kernels give them: the
+    column sums of ``d_raw`` on the transpose plan, its row sums on the
+    forward walk."""
+    return (att_bwd_t_plain(plan, blocks, ssrc, sdst, m, g, x, dden, slope,
+                            need_dx=False)[1],
+            att_bwd_f_plain(rows, cols, plan, blocks, ssrc, sdst, m, g, x,
+                            dden, slope))
 
 
 # blocks, row_splits, cols, ssrc, sdst, out, num_row_blocks, slope, stream
@@ -142,10 +187,13 @@ _ROWMAX_ARGTYPES = ([ctypes.c_void_p] * 6
 # num_row_blocks, feat, trans, slope, stream
 _WALK_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 2
                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-# blocks, splits, sel, scale, part, ssrc, sdst, m, dden, own, other, out,
-# num_row_blocks, feat, trans, slope, stream
-_REDUCE_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int64] * 2
-                    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+# blocks, rows, cols, ssrc, sdst, m, dden, g, x, cpart, rpart, num_tiles,
+# feat, slope, stream
+_SCORES_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 2
+                    + [ctypes.c_float, ctypes.c_void_p])
+# cpart, rpart, row_splits, t_row_splits, t_sel, t_scale, dssrc, dsdst,
+# num_row_blocks, stream
+_SUMS_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_void_p]
 
 _NULL = ctypes.c_void_p(None)
 
@@ -234,22 +282,22 @@ def _launch_walk(what, dev, blocks, splits, sel, scale, cols, ssrc, sdst, m,
     return out
 
 
-def _launch_reduce(what, dev, blocks, splits, sel, scale, part, ssrc, sdst,
-                   m, dden, own, other, trans: bool,
-                   slope: float) -> torch.Tensor:
-    """One launch of the score-gradient reduction (dsdst or dssrc)."""
-    out = torch.empty_like(ssrc)
-    launch = kernels.function("att_bsr", "fitgnn_att_reduce",
-                              _REDUCE_ARGTYPES)
+def _launch_scores(what, dev, blocks, rows, cols, ssrc, sdst, m, g, x, dden,
+                   slope: float) -> tuple:
+    """One launch of the score-gradient pass: ``(cpart, rpart)``, (K, b)
+    each."""
+    cpart, rpart = torch.empty((2, blocks.shape[0], BLOCK),
+                               dtype=torch.float32, device=dev)
+    launch = kernels.function("att_bsr", "fitgnn_att_scores",
+                              _SCORES_ARGTYPES)
     with torch.cuda.device(dev):
-        rc = launch(kernels.ptr(blocks), kernels.ptr(splits), _ptr(sel),
-                    _ptr(scale), kernels.ptr(part), kernels.ptr(ssrc),
-                    kernels.ptr(sdst), kernels.ptr(m), kernels.ptr(dden),
-                    kernels.ptr(own), kernels.ptr(other), kernels.ptr(out),
-                    splits.shape[0] - 1, own.shape[1], int(trans),
-                    float(slope), kernels.stream(dev))
+        rc = launch(kernels.ptr(blocks), kernels.ptr(rows), kernels.ptr(cols),
+                    kernels.ptr(ssrc), kernels.ptr(sdst), kernels.ptr(m),
+                    kernels.ptr(dden), kernels.ptr(g), kernels.ptr(x),
+                    kernels.ptr(cpart), kernels.ptr(rpart), blocks.shape[0],
+                    x.shape[1], float(slope), kernels.stream(dev))
     kernels.check(rc, what)
-    return out
+    return cpart, rpart
 
 
 def att_fwd(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
@@ -270,32 +318,100 @@ def att_fwd(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     return num, den
 
 
+def att_sums(plan: DynPlan, cpart: torch.Tensor,
+             rpart: torch.Tensor) -> tuple:
+    """K7's partial sums: ``(dssrc, dsdst)`` (n,) from the score-gradient
+    pass's column and row partials (K, b), summed over the transpose plan's
+    slots and the forward walk's tiles in order: the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if cpart.device.type == "cpu":
+        return att_sums_plain(plan, cpart, rpart)
+    dev = cpart.device
+    for name, t in (("cpart", cpart), ("rpart", rpart)):
+        kernels.require(t, name, torch.float32, dev)
+        if t.shape != cpart.shape or t.dim() != 2 or t.shape[1] != BLOCK:
+            raise ValueError(f"att_sums: {name} {tuple(t.shape)} must be "
+                             f"(K, {BLOCK}), as the other")
+    for name in ("row_splits", "t_row_splits", "t_sel", "t_scale"):
+        kernels.require(getattr(plan, name), name, torch.int32, dev)
+    nb = plan.row_splits.shape[0] - 1
+    if plan.t_row_splits.shape[0] != nb + 1:
+        raise ValueError("att_sums: the plan's two walks cover "
+                         "different block counts")
+    dssrc, dsdst = torch.empty((2, nb * BLOCK), dtype=torch.float32,
+                               device=dev)
+    launch = kernels.function("att_bsr", "fitgnn_att_sums", _SUMS_ARGTYPES)
+    with torch.cuda.device(dev):
+        rc = launch(kernels.ptr(cpart), kernels.ptr(rpart),
+                    kernels.ptr(plan.row_splits),
+                    kernels.ptr(plan.t_row_splits), kernels.ptr(plan.t_sel),
+                    kernels.ptr(plan.t_scale), kernels.ptr(dssrc),
+                    kernels.ptr(dsdst), nb, kernels.stream(dev))
+    kernels.check(rc, "att_sums")
+    att_sums.launches += 1
+    return dssrc, dsdst
+
+
+def att_bwd_scores(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
+                   blocks: torch.Tensor, ssrc: torch.Tensor,
+                   sdst: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
+                   x: torch.Tensor, dden: torch.Tensor,
+                   slope: float) -> tuple:
+    """K7bt's ``dssrc`` and K7bf's ``dsdst``, ``(dssrc, dsdst)``: on a CUDA
+    tensor one launch of the score-gradient pass over the forward tiles
+    (counted here; ``rows`` sorted, ``plan.row_splits`` their CSR), then
+    ``att_sums`` on its partials; the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return att_bwd_scores_plain(rows, cols, plan, blocks, ssrc, sdst, m,
+                                    g, x, dden, slope)
+    dev = _check("att_bwd_scores", blocks, plan.row_splits,
+                 dict(ssrc=ssrc, sdst=sdst, m=m, dden=dden), dict(g=g, x=x),
+                 dict(rows=rows, cols=cols))
+    if not rows.shape[0] == cols.shape[0] == blocks.shape[0]:
+        raise ValueError(f"att_bwd_scores: {rows.shape[0]} rows and "
+                         f"{cols.shape[0]} cols for {blocks.shape[0]} tiles")
+    cpart, rpart = _launch_scores("att_bwd_scores", dev, blocks, rows, cols,
+                                  ssrc, sdst, m, g, x, dden, slope)
+    att_bwd_scores.launches += 1
+    return att_sums(plan, cpart, rpart)
+
+
+def _forward_tiles(plan: DynPlan, k: int) -> tuple:
+    """The forward tiles' ``(rows, cols)`` block ids, read back from the
+    transpose plan (every real tile is one slot, at ``t_sel``, in row block
+    ``t_cols`` and column block ``t_rows``)."""
+    real = plan.t_scale != 0
+    sel = plan.t_sel[real].long()
+    rows, cols = torch.zeros((2, k), dtype=torch.int32,
+                             device=plan.t_sel.device)
+    rows[sel] = plan.t_cols[real]
+    cols[sel] = plan.t_rows[real]
+    return rows, cols
+
+
 def att_bwd_t(plan: DynPlan, blocks: torch.Tensor, ssrc: torch.Tensor,
               sdst: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
               x: torch.Tensor, dden: torch.Tensor, slope: float,
-              need_dx: bool = True) -> tuple:
-    """K7bt: ``(dx, dssrc)`` on the transpose plan, ``dx`` None unless
-    ``need_dx``: on a CUDA tensor the walk kernel for ``dx`` and the
-    reduction kernel for ``dssrc`` (one launch each, each counted), the
-    plain version on a CPU tensor."""
+              need_dx: bool = True, need_dssrc: bool = True) -> tuple:
+    """K7bt: ``(dx, dssrc)`` on the transpose plan, each None unless asked
+    for: on a CUDA tensor the walk kernel for ``dx`` (counted here) and
+    ``att_bwd_scores`` for ``dssrc``, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return att_bwd_t_plain(plan, blocks, ssrc, sdst, m, g, x, dden,
-                               slope, need_dx)
+                               slope, need_dx, need_dssrc)
     dev = _check("att_bwd_t", blocks, plan.t_row_splits,
                  dict(ssrc=ssrc, sdst=sdst, m=m, dden=dden), dict(g=g, x=x),
                  dict(t_sel=plan.t_sel, t_scale=plan.t_scale,
                       t_cols=plan.t_cols))
-    dx = None
+    dx = dssrc = None
     if need_dx:
         dx = _launch_walk("att_bwd_t (dx)", dev, blocks, plan.t_row_splits,
                           plan.t_sel, plan.t_scale, plan.t_cols, ssrc, sdst,
                           m, g, None, True, slope)
         att_bwd_t.launches += 1
-    dssrc = _launch_reduce("att_bwd_t (dssrc)", dev, blocks,
-                           plan.t_row_splits, plan.t_sel, plan.t_scale,
-                           plan.t_cols, ssrc, sdst, m, dden, x, g, True,
-                           slope)
-    att_bwd_t.launches += 1
+    if need_dssrc:
+        dssrc = att_bwd_scores(*_forward_tiles(plan, blocks.shape[0]), plan,
+                               blocks, ssrc, sdst, m, g, x, dden, slope)[0]
     return dx, dssrc
 
 
@@ -303,25 +419,20 @@ def att_bwd_f(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
               blocks: torch.Tensor, ssrc: torch.Tensor, sdst: torch.Tensor,
               m: torch.Tensor, g: torch.Tensor, x: torch.Tensor,
               dden: torch.Tensor, slope: float) -> torch.Tensor:
-    """K7bf: ``dsdst`` on the forward walk: the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    """K7bf: ``dsdst`` on the forward walk: ``att_bwd_scores``' second
+    output on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return att_bwd_f_plain(rows, cols, plan, blocks, ssrc, sdst, m, g, x,
                                dden, slope)
-    dev = _check("att_bwd_f", blocks, plan.row_splits,
-                 dict(ssrc=ssrc, sdst=sdst, m=m, dden=dden), dict(g=g, x=x),
-                 dict(cols=cols))
-    dsdst = _launch_reduce("att_bwd_f", dev, blocks, plan.row_splits, None,
-                           None, cols, ssrc, sdst, m, dden, g, x, False,
-                           slope)
-    att_bwd_f.launches += 1
-    return dsdst
+    return att_bwd_scores(rows, cols, plan, blocks, ssrc, sdst, m, g, x,
+                          dden, slope)[1]
 
 
 att_rowmax.launches = 0
 att_fwd.launches = 0
 att_bwd_t.launches = 0
-att_bwd_f.launches = 0
+att_bwd_scores.launches = 0
+att_sums.launches = 0
 
 
 class _AttTiles(torch.autograd.Function):
@@ -340,16 +451,16 @@ class _AttTiles(torch.autograd.Function):
         dden = (torch.zeros_like(ssrc) if dden is None
                 else dden.contiguous().float())
         dx = dssrc = dsdst = None
-        if need[5] or need[8]:
-            # dssrc comes with every call: layer 0 aggregates raw features
-            # (no dx) but its scores still need their gradient
-            dx, dssrc = att_bwd_t(ctx.plan, blocks, ssrc, sdst, m, g, x,
-                                  dden, ctx.slope, need_dx=need[8])
-        if need[6]:
-            dsdst = att_bwd_f(rows, cols, ctx.plan, blocks, ssrc, sdst, m, g,
-                              x, dden, ctx.slope)
+        if need[5] or need[6]:
+            # both score gradients in one pass (layer 0 aggregates raw
+            # features, so it has no dx, but its scores need them)
+            dssrc, dsdst = att_bwd_scores(rows, cols, ctx.plan, blocks, ssrc,
+                                          sdst, m, g, x, dden, ctx.slope)
+        if need[8]:
+            dx = att_bwd_t(ctx.plan, blocks, ssrc, sdst, m, g, x, dden,
+                           ctx.slope, need_dssrc=False)[0]
         return (None, None, None, None, None, dssrc if need[5] else None,
-                dsdst, None, dx)
+                dsdst if need[6] else None, None, dx)
 
 
 def att_tiles(slope: float, rows: torch.Tensor, cols: torch.Tensor,
@@ -361,7 +472,8 @@ def att_tiles(slope: float, rows: torch.Tensor, cols: torch.Tensor,
     ``blocks`` are the static tile structure; differentiable in ``ssrc``,
     ``sdst`` (per-node score projections, (n,) f32) and ``x``; ``m`` (the
     softmax stabiliser, (n,) f32) is a constant.  A backward launches only
-    what its inputs need: no ``dx`` walk for an ``x`` without gradient."""
+    what its inputs need: one score-gradient pass for ``ssrc`` and
+    ``sdst``, no ``dx`` walk for an ``x`` without gradient."""
     return _AttTiles.apply(slope, rows, cols, plan, blocks.contiguous(),
                            ssrc.contiguous(), sdst.contiguous(),
                            m.detach().contiguous(), x.contiguous())

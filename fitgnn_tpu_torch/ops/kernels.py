@@ -48,8 +48,9 @@ def _target(name: str, headers: tuple = ()) -> Target:
 # one library per source (rebuilt when it or a header it includes is newer);
 # ``build(TARGETS)`` compiles the stale ones in parallel, one nvcc each
 TARGETS = (_target("bsr_spmm", ("tile_sparse.cuh",)),
-           _target("coo_segmm"), _target("bsr_dynamic", ("tile_sparse.cuh",)),
-           _target("att_bsr", ("tile_sparse.cuh",)),
+           _target("coo_segmm"),
+           _target("bsr_dynamic", ("tf32x3.cuh", "tile_sparse.cuh")),
+           _target("att_bsr", ("tf32x3.cuh", "tile_sparse.cuh")),
            _target("diag_spmm", ("tile_sparse.cuh",)), _target("dropout"))
 
 

@@ -17,15 +17,33 @@ on one GPU.
   values of a float4 before its four ballots; the alternative works each
   out after its ballot, as the rows walk does.  Both K7 alternatives print
   their registers and spilled bytes beside the committed walk's.
+* K7's score-gradient pass (``att_bwd_scores``' first kernel): the
+  committed pass runs one CTA per tile, forms ⟨g_i, x_j⟩ for the whole
+  tile on the tensor cores (3xTF32), masks it and writes row and column
+  partials; one alternative runs one CTA per block row over its tiles with
+  the row sums in registers (``dsdst`` written by the pass); another reads
+  the mask from device memory in the epilogue instead of copying it into
+  shared memory during the product; another starts that copy inside the
+  product's first chunk; others change the epilogue (the column sums
+  reduce-scattered over the lane groups, the exp as ``__expf``, a branch
+  per entry that takes the exp only where the mask is set); the last,
+  ``scripts/variants/att_scores_sampled.cu``, forms ⟨g_i, x_j⟩ only at
+  the mask's entries on the CUDA cores, one CTA per block row and
+  128-feature slice, the slices summed after it (in its time).  All print
+  registers and spills.  Two diagnostics, timed but not checked (their
+  results are wrong by design), split the pass's time: the copies and the
+  product without the epilogue, and the tile's copy started after the
+  product.
 
-Each alternative is the committed source with a few textual edits, built
-with ``nvcc`` into ``build/fitgnn_tpu_torch/variants/``; the script fails
-if an edit no longer applies.  Inputs are synthetic at the bench graph's
+Each alternative but the last is the committed source with a few textual
+edits; all are built with ``nvcc`` into
+``build/fitgnn_tpu_torch/variants/``; the script fails if an edit no
+longer applies.  Inputs are synthetic at the bench graph's
 shapes, made on the card from seed 0: 1,324 diagonal blocks of 4.5% fill
 (one empty) with ``init``, at F = 128, 512 and 512 transposed; 2,192 tile
 pairs sorted by block row over 1,324 block rows at F = 128, 512 and 101
-(K5), and as presence tiles of 3.04% fill with unit-normal scores at F =
-128 and 512 (K7).
+(K5), and as presence tiles of 3.04% fill with unit-normal scores,
+features and cotangents at F = 128 and 512 (K7).
 Each result is checked against the plain version (rtol 1e-4, atol
 1e-4·max|ref|) and timed with CUDA events (20 launches after 3).  Prints
 the card's name and power limit, one line per shape, then one JSON line.
@@ -121,9 +139,8 @@ def k8_late():
 
 def k5_three_stages():
     """K5 with three stages and one wgmma group left in flight."""
-    src = edited(read("bsr_dynamic.cu"), [
-        ("    2 * STAGE * static_cast<int>(sizeof(float)) + 1024;",
-         "    3 * STAGE * static_cast<int>(sizeof(float)) + 1024;"),
+    src = edited(read("tf32x3.cuh"), [
+        ("constexpr int SMEM = 2 * STAGE", "constexpr int SMEM = 3 * STAGE"),
         ("float* s = sm + (c & 1) * STAGE;", "float* s = sm + (c % 3) * STAGE;"),
         ('''    asm volatile("wgmma.wait_group.sync.aligned 0;\\n" ::: "memory");
     fence_acc(d);
@@ -139,7 +156,8 @@ def k5_three_stages():
   fence_acc(d);
 ''')])
     return build_variant("k5_three_stages", {
-        "bsr_dynamic.cu": src, "tile_sparse.cuh": read("tile_sparse.cuh")},
+        "bsr_dynamic.cu": read("bsr_dynamic.cu"), "tf32x3.cuh": src,
+        "tile_sparse.cuh": read("tile_sparse.cuh")},
         "bsr_dynamic.cu", "fitgnn_dyn_grad_blocks",
         bsr_dynamic._GRAD_ARGTYPES)
 
@@ -148,7 +166,8 @@ def k7_variant(name: str, edits: list):
     """K7's walk entry built with ``tile_sparse.cuh`` edited."""
     return build_variant(name, {
         "tile_sparse.cuh": edited(read("tile_sparse.cuh"), edits),
-        "att_bsr.cu": read("att_bsr.cu")}, "att_bsr.cu", "fitgnn_att_walk",
+        "tf32x3.cuh": read("tf32x3.cuh"), "att_bsr.cu": read("att_bsr.cu")},
+        "att_bsr.cu", "fitgnn_att_walk",
         att_bsr._WALK_ARGTYPES)
 
 
@@ -171,9 +190,231 @@ def k7_cols_late():
     return k7_variant("k7_cols_late", edits)
 
 
-def k7_registers(log: str) -> dict:
+def k7_registers(log: str, what: str = "Scores") -> dict:
     return {k: (n, spill) for k, n, spill in ptxas_entries(log)
-            if "Scores" in k}
+            if what in k}
+
+
+# blocks, row_splits, cols, ssrc, sdst, m, dden, g, x, rpart, cpart,
+# num_row_blocks, k_all, feat, slope, stream
+_SAMPLED_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3
+                     + [ctypes.c_float, ctypes.c_void_p])
+
+
+def k7_per_row():
+    """The score pass with one CTA per block row walking its tiles, the
+    row sums kept in registers across them; ``rows`` carries the forward
+    walk's ``row_splits`` and ``rpart`` is ``dsdst``."""
+    return build_variant("k7_per_row", {
+        "att_bsr.cu": edited(read("att_bsr.cu"), [
+            ("  const int64_t k = blockIdx.x;\n  const int64_t r = rows[k];\n"
+             "  const int64_t c = cols[k];\n",
+             "  const int64_t r = blockIdx.x;\n  float rs0 = 0.f, rs1 = 0.f;\n"
+             "  for (int64_t k = rows[r]; k < rows[r + 1]; ++k) {\n"
+             "  const int64_t c = cols[k];\n"),
+            ("  float rs0 = 0.f, rs1 = 0.f;\n#pragma unroll\n", "#pragma unroll\n"),
+            ("""  if ((lane & 3) == 0) {
+    rpart[k * BLK + i0] = rs0;
+    rpart[k * BLK + i0 + 8] = rs1;
+  }
+""", ""),
+            ("  rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);\n"
+             "  rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);\n"
+             "  rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);\n"
+             "  rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);\n", ""),
+            ("    cpart[k * BLK + tid] = v;\n  }\n}\n",
+             """    cpart[k * BLK + tid] = v;
+  }
+  __syncthreads();
+  }
+  const int i0 = warp * 16 + (lane >> 2);
+  rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);
+  rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);
+  rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
+  rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
+  if ((lane & 3) == 0) {
+    rpart[r * BLK + i0] = rs0;
+    rpart[r * BLK + i0 + 8] = rs1;
+  }
+}
+""")]),
+        "tf32x3.cuh": read("tf32x3.cuh"),
+        "tile_sparse.cuh": read("tile_sparse.cuh")},
+        "att_bsr.cu", "fitgnn_att_scores", att_bsr._SCORES_ARGTYPES)
+
+
+def k7_mask_global():
+    """The score pass with the mask read from device memory in the
+    epilogue, into the accumulator's positions, instead of copied into
+    shared memory during the product."""
+    return build_variant("k7_mask_global", {
+        "att_bsr.cu": edited(read("att_bsr.cu"), [
+            ("""#pragma unroll
+  for (int u = 0; u < SC_TILE / 4 / THREADS; ++u) {
+    const int q = tid + THREADS * u;
+    const int i = q / (BLK / 4);
+    sparse::cp_async16(ts + i * BLK + 4 * ((q % (BLK / 4)) ^ (i & 7)),
+                       tile + 4 * q, 16);
+  }
+""", ""),
+            ("    const int at = i0 * BLK + 4 * ((col >> 2) ^ key) + (col & 3);\n"
+             "    const float2 k0 = *reinterpret_cast<const float2*>(ts + at);\n"
+             "    const float2 k1 = *reinterpret_cast<const float2*>(ts + at + 8 * BLK);",
+             "    const int at = i0 * BLK + col;\n"
+             "    const float2 k0 = __ldg(reinterpret_cast<const float2*>(tile + at));\n"
+             "    const float2 k1 = __ldg(reinterpret_cast<const float2*>(tile + at + 8 * BLK));")]),
+        "tf32x3.cuh": read("tf32x3.cuh"),
+        "tile_sparse.cuh": read("tile_sparse.cuh")},
+        "att_bsr.cu", "fitgnn_att_scores", att_bsr._SCORES_ARGTYPES)
+
+
+_SHUFFLES = """#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      d[4 * j] += __shfl_xor_sync(0xffffffffu, d[4 * j], o);
+      d[4 * j + 1] += __shfl_xor_sync(0xffffffffu, d[4 * j + 1], o);
+    }
+  }
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      *reinterpret_cast<float2*>(cs + warp * BLK + 8 * j + 2 * lane) =
+          make_float2(d[4 * j], d[4 * j + 1]);
+    }
+  }
+"""
+# reduce-scatter over the 8 lane groups: each round a lane keeps half its
+# values and sends the other half, 16 + 8 + 4 shuffles instead of 96
+_SCATTER = """  float u[32];
+#pragma unroll
+  for (int t = 0; t < 32; ++t) u[t] = d[4 * (t >> 1) + (t & 1)];
+#pragma unroll
+  for (int rd = 0; rd < 3; ++rd) {
+    const bool up = (lane >> (2 + rd)) & 1;
+    const int half = 16 >> rd;
+#pragma unroll
+    for (int t = 0; t < half; ++t) {
+      const float send = up ? u[t] : u[t + half];
+      const float keep = up ? u[t + half] : u[t];
+      u[t] = keep + __shfl_xor_sync(0xffffffffu, send, 4 << rd);
+    }
+  }
+  const int t0 = 16 * ((lane >> 2) & 1) + 8 * ((lane >> 3) & 1)
+                 + 4 * ((lane >> 4) & 1);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int tt = t0 + t;
+    cs[warp * BLK + 8 * (tt >> 1) + 2 * (lane & 3) + (tt & 1)] = u[t];
+  }
+"""
+
+
+_SELECT = """  const bool set = mask != 0.f;
+  const float v = (acc + dd) * expf(set ? leaky(raw, slope) - m : 0.f);
+  return set ? (raw >= 0.f ? v : slope * v) : 0.f;
+"""
+# a branch per entry: the exp is taken only where the mask is set
+_BRANCH = """  if (mask == 0.f) return 0.f;
+  const float v = (acc + dd) * expf(leaky(raw, slope) - m);
+  return raw >= 0.f ? v : slope * v;
+"""
+
+
+def k7_epilogue(name: str, scatter: bool, fast_exp: bool,
+                branch: bool = False):
+    """The score pass with the column sums reduce-scattered over the lane
+    groups, the exp taken as __expf, and/or a branch per entry in place of
+    the selects."""
+    edits = []
+    if scatter:
+        edits.append((_SHUFFLES, _SCATTER))
+    if branch:
+        edits.append((_SELECT, _BRANCH))
+    if fast_exp:
+        edits.append(("* expf(", "* __expf("))
+    return build_variant(name, {
+        "att_bsr.cu": edited(read("att_bsr.cu"), edits),
+        "tf32x3.cuh": read("tf32x3.cuh"),
+        "tile_sparse.cuh": read("tile_sparse.cuh")},
+        "att_bsr.cu", "fitgnn_att_scores", att_bsr._SCORES_ARGTYPES)
+
+
+_TILE_COPY = """#pragma unroll
+  for (int u = 0; u < SC_TILE / 4 / THREADS; ++u) {
+    const int q = tid + THREADS * u;
+    const int i = q / (BLK / 4);
+    sparse::cp_async16(ts + i * BLK + 4 * ((q % (BLK / 4)) ^ (i & 7)),
+                       tile + 4 * q, 16);
+  }
+"""
+
+
+def k7_diagnostic(name: str):
+    """Timing only (wrong results): ``no_epilogue`` keeps the pass's copies
+    and product and sums the accumulators into one store; ``copy_late``
+    starts the tile's copy after the product instead of before it."""
+    src = read("att_bsr.cu")
+    if name == "no_epilogue":
+        a = src.index("  // the accumulator's rows i0 and i0 + 8")
+        b = src.index("    cpart[k * BLK + tid] = v;\n  }\n}\n")
+        src = (src[:a] + "  float v = 0.f;\n#pragma unroll\n"
+               "  for (int j = 0; j < 64; ++j) v += d[j];\n"
+               "  cpart[k * BLK + (tid & 127)] = v;\n  rpart[k] = ts[tid];\n}\n"
+               + src[b + len("    cpart[k * BLK + tid] = v;\n  }\n}\n"):])
+    else:
+        src = edited(src, [
+            (_TILE_COPY, ""),
+            ("  sparse::cp_async_wait<0>();\n  __syncthreads();\n\n"
+             "  // the accumulator's rows",
+             _TILE_COPY + "  sparse::cp_async_commit();\n"
+             "  sparse::cp_async_wait<0>();\n  __syncthreads();\n\n"
+             "  // the accumulator's rows")])
+    return build_variant(f"k7_{name}", {
+        "att_bsr.cu": src, "tf32x3.cuh": read("tf32x3.cuh"),
+        "tile_sparse.cuh": read("tile_sparse.cuh")},
+        "att_bsr.cu", "fitgnn_att_scores", att_bsr._SCORES_ARGTYPES)
+
+
+def k7_copy_in_loop():
+    """The score pass with the tile's copy started inside the product's
+    first chunk, after its wgmmas are issued (a hook in tf32x3.cuh)."""
+    header = edited(read("tf32x3.cuh"), [
+        ("template <bool VEC>\n__device__ __forceinline__ void product(",
+         "template <bool VEC, class Hook>\n"
+         "__device__ __forceinline__ void product("),
+        ("                                        int64_t feat, int tid) {",
+         "                                        int64_t feat, int tid,\n"
+         "                                        Hook hook) {"),
+        ("""    asm volatile("wgmma.commit_group.sync.aligned;\\n" ::: "memory");
+    fence_acc(d);
+""", """    asm volatile("wgmma.commit_group.sync.aligned;\\n" ::: "memory");
+    fence_acc(d);
+    if (c == 0) hook();
+""")])
+    src = edited(read("att_bsr.cu"), [
+        (_TILE_COPY, ""),
+        ("""  tf32x3::product<VEC>(d, sm, g + r * BLK * feat, x + c * BLK * feat, feat,
+                       tid);""", """  tf32x3::product<VEC>(d, sm, g + r * BLK * feat, x + c * BLK * feat, feat,
+                       tid, [&] {
+""" + _TILE_COPY + """  sparse::cp_async_commit();
+  });""")])
+    return build_variant("k7_copy_in_loop", {
+        "att_bsr.cu": src, "tf32x3.cuh": header,
+        "tile_sparse.cuh": read("tile_sparse.cuh")},
+        "att_bsr.cu", "fitgnn_att_scores", att_bsr._SCORES_ARGTYPES)
+
+
+def k7_sampled():
+    """The score pass sampled at the mask on the CUDA cores."""
+    with open(os.path.join(ROOT, "scripts", "variants",
+                           "att_scores_sampled.cu")) as f:
+        src = f.read()
+    return build_variant("k7_sampled", {
+        "att_scores_sampled.cu": src,
+        "tile_sparse.cuh": read("tile_sparse.cuh")},
+        "att_scores_sampled.cu", "fitgnn_att_scores_sampled",
+        _SAMPLED_ARGTYPES)
 
 
 def main() -> int:
@@ -241,6 +482,14 @@ def main() -> int:
                         "three_stages_ms": ms(run_three)})
         print(results[-1])
     rows_early, cols_late = k7_rows_early(), k7_cols_late()
+    sampled, per_row = k7_sampled(), k7_per_row()
+    mask_global = k7_mask_global()
+    epilogues = {"scatter": k7_epilogue("k7_scatter", True, False),
+                 "fast_exp": k7_epilogue("k7_fast_exp", False, True),
+                 "copy_in_loop": k7_copy_in_loop(),
+                 "branch": k7_epilogue("k7_branch", False, False, True)}
+    diagnostics = {k: k7_diagnostic(k) for k in ("no_epilogue",
+                                                  "copy_late")}
     kept = kernels.function("att_bsr", "fitgnn_att_walk",
                             att_bsr._WALK_ARGTYPES)
     target = next(t for t in kernels.TARGETS if t.name == "att_bsr")
@@ -248,7 +497,15 @@ def main() -> int:
             "rows_early": k7_registers(os.path.join(
                 OUT, "k7_rows_early", "libk7_rows_early.log")),
             "cols_late": k7_registers(os.path.join(
-                OUT, "k7_cols_late", "libk7_cols_late.log"))}
+                OUT, "k7_cols_late", "libk7_cols_late.log")),
+            "scores_kept": k7_registers(target.log_path, "att_scores"),
+            "scores_sampled": k7_registers(os.path.join(
+                OUT, "k7_sampled", "libk7_sampled.log"), "att_scores"),
+            "scores_per_row": k7_registers(os.path.join(
+                OUT, "k7_per_row", "libk7_per_row.log"), "att_scores"),
+            "scores_mask_global": k7_registers(os.path.join(
+                OUT, "k7_mask_global", "libk7_mask_global.log"),
+                "att_scores")}
     print(json.dumps(regs))
     blocks = (torch.rand((TILES, 128, 128), generator=gen, device=dev)
               < 0.0304).float()
@@ -283,7 +540,7 @@ def main() -> int:
         num_p, den_p = att_bsr.att_fwd_plain(rows, cols, plan, blocks, ssrc,
                                              sdst, mg, x, 0.2)
         dx_p = att_bsr.att_bwd_t_plain(plan, blocks, ssrc, sdst, mg, x, x,
-                                       sdst, 0.2)[0]
+                                       sdst, 0.2, need_dssrc=False)[0]
         for what, fn in (("kept", None), ("rows early", rows_early)):
             num, den = fwd(fn)
             check(f"K7f {what} num", num, num_p)
@@ -296,6 +553,68 @@ def main() -> int:
         results.append({"kernel": "K7bt dx", "F": feat,
                         "kept_ms": ms(lambda: dx(kept)),
                         "cols_late_ms": ms(lambda: dx(cols_late))})
+        print(results[-1])
+
+        # the score pass against the sampled alternative
+        gr = torch.randn((NB * 128, feat), generator=gen, device=dev)
+        dden = torch.randn(NB * 128, generator=gen, device=dev)
+        slices = (feat + 127) // 128
+
+        def scores():
+            return att_bsr._launch_scores("att_bwd_scores", dev, blocks,
+                                          rows, cols, ssrc, sdst, mg, gr, x,
+                                          dden, 0.2)
+
+        def run_tiles(fn, what):
+            def run():
+                cp, rp = torch.empty((2, TILES, 128), device=dev)
+                kernels.check(fn(p(blocks), p(rows), p(cols), p(ssrc),
+                                 p(sdst), p(mg), p(dden), p(gr), p(x),
+                                 p(cp), p(rp), TILES, feat, 0.2, stream),
+                              what)
+                return cp, rp
+            return run
+
+        def scores_per_row():
+            cp = torch.empty((TILES, 128), device=dev)
+            dsdst = torch.empty(NB * 128, device=dev)
+            kernels.check(per_row(p(blocks), p(plan.row_splits), p(cols),
+                                  p(ssrc), p(sdst), p(mg), p(dden), p(gr),
+                                  p(x), p(cp), p(dsdst), NB, feat, 0.2,
+                                  stream), "k7 per row")
+            return cp, dsdst
+
+        def scores_sampled():
+            rp = torch.empty((slices, NB * 128), device=dev)
+            cp = torch.empty((slices, TILES, 128), device=dev)
+            kernels.check(sampled(p(blocks), p(plan.row_splits), p(cols),
+                                  p(ssrc), p(sdst), p(mg), p(dden), p(gr),
+                                  p(x), p(rp), p(cp), NB, TILES, feat, 0.2,
+                                  stream), "k7 sampled")
+            return cp.sum(0), rp.sum(0)
+
+        part_p, rpart_p = att_bsr.att_scores_plain(
+            rows, cols, plan, blocks, ssrc, sdst, mg, gr, x, dden, 0.2)
+        dsdst_p = att_bsr.att_sums_plain(plan, part_p, rpart_p)[1]
+        scores_mask_global = run_tiles(mask_global, "mask global")
+        epi = {k: run_tiles(f, k) for k, f in epilogues.items()}
+        for what, fn in (("kept", scores), ("sampled", scores_sampled),
+                         ("per row", scores_per_row),
+                         ("mask global", scores_mask_global), *epi.items()):
+            part, dsdst = fn()
+            if what not in ("sampled", "per row"):   # row partials
+                dsdst = att_bsr.att_sums_plain(plan, part, dsdst)[1]
+            check(f"K7 scores {what} partials", part, part_p)
+            check(f"K7 scores {what} dsdst", dsdst, dsdst_p)
+        del part_p, rpart_p, dsdst_p
+        results.append({"kernel": "K7 score pass", "F": feat,
+                        "kept_ms": ms(scores),
+                        "sampled_ms": ms(scores_sampled),
+                        "per_row_ms": ms(scores_per_row),
+                        "mask_global_ms": ms(scores_mask_global),
+                        **{f"{k}_ms": ms(f) for k, f in epi.items()},
+                        **{f"diagnostic_{k}_ms": ms(run_tiles(f, k))
+                           for k, f in diagnostics.items()}})
         print(results[-1])
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "registers": regs, "results": results}))

@@ -20,7 +20,10 @@ each it prints:
   grouped into the port's kernels (K1-K11), the dense layers (cuBLAS), the
   optimizer and the rest.  K7f and K7bt's ``dx`` launch the walk under
   their value hooks, ``sparse::walk_kernel<…, att::FwdScores>`` and
-  ``<…, att::DxScores>``.  K8 launches the walk over the diagonal blocks,
+  ``<…, att::DxScores>``; K7's score gradients launch
+  ``att_scores_kernel`` (K7s: each tile's row and column partials of
+  ``d_raw``) and ``att_sums_kernel`` (K7sums: ``dsdst`` and ``dssrc``).
+  K8 launches the walk over the diagonal blocks,
   ``sparse::walk_kernel<…, true, sparse::Plain>`` (DIAG), in both
   orientations.  K1 alone launches the other rows walk from ``init``,
   ``sparse::walk_kernel<false, true, …, false, sparse::Plain>``.  K2, K4,
@@ -62,6 +65,10 @@ def _device_us(evt) -> float:
 
 
 K1 = "K1 bsr_spmm_acc"
+# the score gradients: each tile's row and column partials of d_raw in one
+# pass, then their sums (dsdst, dssrc)
+K7S = "K7s att_bwd_scores"
+K7SUMS = "K7sums att_sums"
 
 
 def _rows_walk_users() -> dict:
@@ -101,10 +108,10 @@ def _group(name: str, rows_walk: str | None) -> str:
         return "K11 philox_dropout"
     if "att_rowmax_kernel" in name:
         return "K7rm att_rowmax"
-    if "att_reduce_kernel<true>" in name:
-        return "K7bt att_bwd_t (dssrc)"
-    if "att_reduce_kernel<false>" in name:
-        return "K7bf att_bwd_f"
+    if "att_scores_kernel" in name:
+        return K7S
+    if "att_sums_kernel" in name:
+        return K7SUMS
     if "segmm_spmm_kernel<true>" in name:
         return "K6 segmm_weighted_den_raw"
     if "segmm_spmm" in name:

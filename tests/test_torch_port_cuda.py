@@ -273,27 +273,129 @@ def test_k7_kernels_match_plain(cuda, feat):
     fwd = (d["rows"], d["cols"], plan, d["blocks"], d["ssrc"], d["sdst"])
     bwd = (plan, d["blocks"], d["ssrc"], d["sdst"], d["m"], d["g"], d["x"],
            d["dden"], 0.2)
-    before = [f.launches for f in (att_bsr.att_rowmax, att_bsr.att_fwd,
-                                   att_bsr.att_bwd_t, att_bsr.att_bwd_f)]
+    counted = (att_bsr.att_rowmax, att_bsr.att_fwd, att_bsr.att_bwd_t,
+               att_bsr.att_bwd_scores, att_bsr.att_sums)
+    before = [f.launches for f in counted]
     with torch.inference_mode():
         rm = att_bsr.att_rowmax(*fwd, 0.2)
         num, den = att_bsr.att_fwd(*fwd, d["m"], d["x"], 0.2)
         dx, dssrc = att_bsr.att_bwd_t(*bwd)
         none, dssrc1 = att_bsr.att_bwd_t(*bwd, need_dx=False)
         dsdst = att_bsr.att_bwd_f(d["rows"], d["cols"], *bwd)
+        dssrc2, dsdst2 = att_bsr.att_bwd_scores(d["rows"], d["cols"], *bwd)
         num_p, den_p = att_bsr.att_fwd_plain(*fwd, d["m"], d["x"], 0.2)
         dx_p, dssrc_p = att_bsr.att_bwd_t_plain(*bwd)
         dsdst_p = att_bsr.att_bwd_f_plain(d["rows"], d["cols"], *bwd)
     torch.cuda.synchronize()
-    after = [f.launches for f in (att_bsr.att_rowmax, att_bsr.att_fwd,
-                                  att_bsr.att_bwd_t, att_bsr.att_bwd_f)]
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 3, 1]
+    after = [f.launches for f in counted]
+    # the dx walk once; every dssrc or dsdst asked for is one score pass
+    # and one sum of its partials
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 4, 4]
     assert torch.equal(rm, d["m"])               # the same f32 operations
     assert (rm[:10] == -1e30).all() and none is None
     for got, ref in ((num, num_p), (den, den_p), (dx, dx_p),
-                     (dssrc, dssrc_p), (dssrc1, dssrc_p), (dsdst, dsdst_p)):
+                     (dssrc, dssrc_p), (dssrc1, dssrc_p), (dsdst, dsdst_p),
+                     (dssrc2, dssrc_p), (dsdst2, dsdst_p)):
         _close(got, ref)
     assert not num[:10].any() and not dx[2 * 128:3 * 128].any()
+
+
+# forward tiles of the score pass's card test: block row 1 has 7 tiles,
+# block column 7 one (in row 1), block column 2 none (a transpose filler),
+# block row 7 none (dsdst written as 0)
+_SCORE_ROWS = [0, 0, 1, 1, 1, 1, 1, 1, 1, 2, 3, 3, 4, 5, 6, 6]
+_SCORE_COLS = [0, 1, 0, 1, 3, 4, 5, 6, 7, 3, 0, 4, 1, 5, 3, 6]
+
+
+def _score_operands(rng, feat, dev, full):
+    """Tiles of 3% fill (tile 2, block row 1 against column 0, full when
+    ``full``) with positive values at the mask; nodes 0-9 have no entry,
+    so their ``m`` (the exact row max) is −1e30; scores, features and
+    cotangents unit normal."""
+    nb = 8
+    rows = np.asarray(_SCORE_ROWS, np.int32)
+    cols = np.asarray(_SCORE_COLS, np.int32)
+    mask = rng.random((len(rows), 128, 128)) < 0.03
+    if full:
+        mask[2] = True
+    mask[0, :10] = mask[1, :10] = False
+    blocks = np.where(mask, rng.random(mask.shape) + 0.5, 0.0)
+    n = nb * 128
+
+    def dev_(a, dtype=np.float32):
+        return torch.from_numpy(np.asarray(a, dtype)).to(dev)
+
+    d = dict(rows=dev_(rows, np.int32), cols=dev_(cols, np.int32),
+             blocks=dev_(blocks),
+             ssrc=dev_(rng.standard_normal(n)),
+             sdst=dev_(rng.standard_normal(n)),
+             x=dev_(rng.standard_normal((n, feat))),
+             g=dev_(rng.standard_normal((n, feat))),
+             dden=dev_(rng.standard_normal(n)))
+    plan = build_dyn_plan(rows, cols, nb).to(dev)
+    assert 0 in plan.t_scale.tolist()            # the filler of column 2
+    d["m"] = att_bsr.att_rowmax_plain(d["rows"], d["cols"], plan,
+                                      d["blocks"], d["ssrc"], d["sdst"], 0.2)
+    return plan, d
+
+
+@pytest.mark.parametrize("feat", [16, 101, 128, 512])
+@pytest.mark.parametrize("case", ["sparse", "full", "inf_unreached",
+                                  "inf_reached", "deterministic"])
+def test_k7_score_pass_matches_plain(cuda, case, feat):
+    """K7's score-gradient pass and its partials' sums (``att_bwd_scores``)
+    against
+    the JAX package's two halves in their plain versions.  ``inf_unreached``:
+    an inf in ``g`` at a row without entries and in ``x`` at a column that
+    no entry reaches stays out of both sums.  ``inf_reached``: an inf in
+    ``g`` at a row with entries gives NaN (the 3xTF32 split's inf − inf)
+    exactly where the plain version is not finite (±inf or NaN), the
+    recorded divergence.  ``deterministic``: two launches are bit-equal."""
+    rng = np.random.default_rng(feat + 30)
+    plan, d = _score_operands(rng, feat, cuda, full=case == "full")
+    if case == "inf_unreached":
+        d["g"][3, 0] = float("inf")                # node 3 has no entry
+        # column 5 of block 7 is reached only through tile 8 (row 1)
+        d["blocks"][8, :, 5] = 0.0
+        d["x"][7 * 128 + 5, feat // 2] = float("-inf")
+    if case == "inf_reached":
+        i = 3 * 128 + int(torch.nonzero(d["blocks"][10].sum(1))[0])
+        d["g"][i, feat - 1] = float("inf")
+    args = (d["rows"], d["cols"], plan, d["blocks"], d["ssrc"], d["sdst"],
+            d["m"], d["g"], d["x"], d["dden"], 0.2)
+    before = (att_bsr.att_bwd_scores.launches, att_bsr.att_sums.launches)
+    with torch.inference_mode():
+        got = att_bsr.att_bwd_scores(*args)
+        again = att_bsr.att_bwd_scores(*args)
+        ref = att_bsr.att_bwd_scores_plain(*args)
+    torch.cuda.synchronize()
+    assert (att_bsr.att_bwd_scores.launches,
+            att_bsr.att_sums.launches) == (before[0] + 2, before[1] + 2)
+    for a, b in zip(got, again):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+        assert torch.equal(a.isnan(), b.isnan())
+    if case == "inf_reached":
+        for a, b in zip(got, ref):
+            bad = ~torch.isfinite(b)
+            assert bad.any() and torch.equal(a.isnan(), bad)
+            _close(a[~bad], b[~bad])
+        return
+    for a, b in zip(got, ref):
+        _close(a, b)
+    dssrc, dsdst = got
+    assert not dsdst[:10].any() and not dsdst[7 * 128:].any()
+    assert not dssrc[2 * 128:3 * 128].any()      # no tile in column 2
+
+
+@pytest.mark.parametrize("feat", [0, 520])
+def test_k7_score_pass_refuses_width(cuda, feat):
+    rng = np.random.default_rng(7)
+    plan, d = _score_operands(rng, max(feat, 1), cuda, full=False)
+    g = torch.zeros((d["x"].shape[0], feat), device=cuda)
+    with pytest.raises(ValueError, match=f"F={feat}"):
+        att_bsr.att_bwd_scores(d["rows"], d["cols"], plan, d["blocks"],
+                               d["ssrc"], d["sdst"], d["m"], g, g.clone(),
+                               d["dden"], 0.2)
 
 
 def _grads(model, g, y, mask):
@@ -658,7 +760,7 @@ def test_k7_walks_match_plain(cuda, kernel, case, feat):
     else:
         def run(fn, g):
             return fn(plan, d["blocks"], d["ssrc"], d["sdst"], d["m"], g,
-                      d["x_other"], d["dden"], 0.2)[0]
+                      d["x_other"], d["dden"], 0.2, need_dssrc=False)[0]
 
         walk, plain = att_bsr.att_bwd_t, att_bsr.att_bwd_t_plain
     before = walk.launches
@@ -670,7 +772,7 @@ def test_k7_walks_match_plain(cuda, kernel, case, feat):
             clean[row] = 0.0
             ref_clean = run(plain, clean)
     torch.cuda.synchronize()
-    assert walk.launches == before + (1 if kernel == "K7f" else 2)
+    assert walk.launches == before + 1
     nan = ref.isnan()
     if case == "inf_unreached":
         assert nan.any()                  # the dense product's 0·inf

@@ -63,7 +63,8 @@ def t(a, grad=False):
 
 def no_launches():
     return (att_bsr.att_rowmax.launches == att_bsr.att_fwd.launches
-            == att_bsr.att_bwd_t.launches == att_bsr.att_bwd_f.launches
+            == att_bsr.att_bwd_t.launches == att_bsr.att_bwd_scores.launches
+            == att_bsr.att_sums.launches
             == segmm_weighted_den_raw.launches == 0)
 
 
@@ -150,6 +151,8 @@ def test_att_bwd_t_matches_jax(feat):
     assert not dx[3 * 128:4 * 128].any()                # the filler's block
     none, dssrc2 = att_bsr.att_bwd_t(*args, need_dx=False)
     assert none is None and torch.equal(dssrc2, dssrc)
+    dx2, none = att_bsr.att_bwd_t(*args, need_dssrc=False)
+    assert none is None and torch.equal(dx2, dx)
     assert no_launches()
 
 
@@ -165,6 +168,37 @@ def test_att_bwd_f_matches_jax(feat):
                             p["ssrc"], p["sdst"], p["m"], p["g"], p["x"],
                             p["dden"], SLOPE)
     close(got, ref, grad=True)
+    assert no_launches()
+
+
+@pytest.mark.parametrize("feat", [16, 24])
+def test_att_bwd_scores_matches_jax(feat):
+    """Both score gradients from one call, and the decomposition the card
+    computes (each forward tile's column and row partials, summed over the
+    transpose plan and the forward walk by ``att_sums``), against the JAX
+    package's two kernels."""
+    d = _tile_inputs(feat + 3, feat)
+    plan, p = _port(d)
+    pj = jax_plan(d["rows"], d["cols"], d["nb"])
+    vec = [jnp.asarray(d[k]) for k in ("blocks", "ssrc", "sdst", "m", "g",
+                                       "x", "dden")]
+    _, dssrc_j = jax_att._att_bwd_t(pj.t_rows, pj.t_cols, pj.t_sel,
+                                    pj.t_scale, *vec, 128, SLOPE,
+                                    interpret=True)
+    dsdst_j = jax_att._att_bwd_f(jnp.asarray(d["rows"]),
+                                 jnp.asarray(d["cols"]), *vec, 128, SLOPE,
+                                 interpret=True)
+    args = (p["rows"], p["cols"], plan, p["blocks"], p["ssrc"], p["sdst"],
+            p["m"], p["g"], p["x"], p["dden"], SLOPE)
+    dssrc, dsdst = att_bsr.att_bwd_scores(*args)
+    close(dssrc, dssrc_j, grad=True)
+    close(dsdst, dsdst_j, grad=True)
+    cpart, rpart = att_bsr.att_scores_plain(*args)
+    assert cpart.shape == rpart.shape == (len(d["rows"]), 128)
+    dssrc2, dsdst2 = att_bsr.att_sums(plan, cpart, rpart)
+    close(dssrc2, dssrc_j, grad=True)
+    close(dsdst2, dsdst_j, grad=True)
+    assert not dsdst[:10].any()                         # rows without edges
     assert no_launches()
 
 

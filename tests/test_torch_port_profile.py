@@ -51,9 +51,11 @@ def test_walk_args_reads_flags_and_hook(trans, init, diag, hook, vec):
         trans, init, diag, hook.split("::")[-1])
 
 
-def test_walk_args_ignores_other_kernels():
-    assert walk_args("void (anonymous namespace)::att_reduce_kernel<true>("
-                     "float const*)") is None
+@pytest.mark.parametrize("name", [
+    "void (anonymous namespace)::att_scores_kernel<true>(float const*)",
+    "void (anonymous namespace)::att_sums_kernel(float const*)"])
+def test_walk_args_ignores_other_kernels(name):
+    assert walk_args(name) is None
 
 
 @pytest.mark.parametrize("name,rows_walk,group", [
@@ -70,10 +72,13 @@ def test_walk_args_ignores_other_kernels():
      _train.K1),
     (_walk(True, True, False, True, "sparse::Plain"), _train.K1,
      "K8 diag_spmm"),
-    ("void (anonymous namespace)::att_reduce_kernel<true>(float const*)",
-     None, "K7bt att_bwd_t (dssrc)"),
-    ("void (anonymous namespace)::att_reduce_kernel<false>(float const*)",
-     None, "K7bf att_bwd_f"),
+    ("void (anonymous namespace)::att_scores_kernel<true>(float const*)",
+     None, _train.K7S),
+    ("void (anonymous namespace)::att_scores_kernel<false>(float const*)",
+     None, _train.K7S),
+    ("void (anonymous namespace)::att_sums_kernel(float const*, float "
+     "const*, int const*, int const*, int const*, int const*, float*, "
+     "float*, long)", None, _train.K7SUMS),
     ("void (anonymous namespace)::att_rowmax_kernel(float const*)", None,
      "K7rm att_rowmax")])
 def test_train_profile_groups(name, rows_walk, group):
