@@ -20,8 +20,9 @@ Phases (any failure exits non-zero before the result lines):
    the GCN operator's, K4 (``dyn_tiles``) and K4ᵀ (``dyn_tiles_t``) at
    F=128 and 512, K5 (``dyn_grad_blocks``, bound at the tensor cores' TF32
    rate for its three passes) at F=128 and 512 and K3w
-   (``segmm_weighted_raw``) at F=40 and 64, and on the transpose CSR at
-   F=512 (K6's ``dx``); then the fused tile attention and K6 at F=128 and
+   (``segmm_weighted_raw``) at F=40 (off the path) and 64, and on the
+   transpose CSR at F=512 (K6's ``dx``, the permutation passed to the
+   kernel); then the fused tile attention and K6 at F=128 and
    512: K7rm (``att_rowmax``), K7f (``att_fwd``), K7bt (``att_bwd_t``'s
    ``dx`` walk; the path launches it at F=512 only), K7s (the score pass of
    ``att_bwd_scores``: ``dsdst`` and ``dssrc``'s column partials, timed
@@ -39,7 +40,12 @@ Phases (any failure exits non-zero before the result lines):
    (``bsr_spmm_rowwalk``) at F=128 and 512, K8 (``diag_spmm``) forward and
    transpose with and without ``init`` at F=128 and 512 (after the
    diagonal blocks' non-zero count and fill), and K11
-   (``philox_dropout``) at (N_pad, 512), bit for bit;
+   (``philox_dropout``) at (N_pad, 512), bit for bit.  The straggler
+   sum's forms (K3, K3w, K6) are launched twice (bit-equal) and timed by
+   their device time (``device_ms``: the kernel alone, which is all their
+   wrappers launch) and with their wrappers' host work (``wrapper_ms``),
+   each beside the launch shape it took (lanes a row, floats a lane,
+   gathers in flight, rows a CTA);
 4. gradients: one GAT and one GCN training step (hidden 512, dropout off,
    the same seed-0 init) with the kernels and then with the plain versions
    patched in; the loss and every parameter gradient within the tolerance
@@ -64,7 +70,8 @@ Phases (any failure exits non-zero before the result lines):
 6. train: ``train --baseline`` through the port's CLI on ``cuda``, every
    launch counter at 0 just before each run: GATConv at hidden 512 for 3
    epochs, GCNConv at hidden 512 for 2 epochs, GATConv at hidden 64 for 1
-   epoch (its aggregations are 64 wide, so K3w runs), GATConv at hidden
+   epoch (its aggregations are 64 wide, so K3w runs; the widths K3w
+   launches at are tallied and must be 64 alone), GATConv at hidden
    512 for 2 epochs with ``FUSED_TILES=1 SEGMM_DEN=1`` and for 1 epoch
    with ``FUSED_TILES=1 GLOBAL_MAX=0`` (K7rm ×2 a forward); the launches
    against the counts per train step and eval forward that phase 4
@@ -76,9 +83,9 @@ Phases (any failure exits non-zero before the result lines):
    full forward with kernels is held against the same forward with the
    plain versions (atol 1e-4);
 8. one JSON line with every kernel's numbers (launches summed over the
-   main-path phases 5 to 7, per phase beside them; K5, K7f, K7bt, K7s and
-   K7sums with their ``ptxas`` register and spill counts), then the ``ok``
-   line.
+   main-path phases 5 to 7, per phase beside them; K3, K3w, K6, K5,
+   K7f, K7bt, K7s and K7sums with their ``ptxas`` register and spill
+   counts), then the ``ok`` line.
 
 The JAX package's environment switches are set in ``os.environ`` for one
 phase and restored after it; the earlier phases must launch none of K6
@@ -202,6 +209,19 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def segmm_times(fn) -> dict:
+    """The straggler sum's times (K3, K3w, K6): ``ms`` its device time
+    (the kernel alone: its wrapper launches nothing else) and
+    ``wrapper_ms`` with the wrapper's host work."""
+    return {"ms": device_ms(fn, 20), "wrapper_ms": cuda_ms(fn, 20)}
+
+
+def segmm_note(sh: dict) -> str:
+    from fitgnn_tpu_torch.ops.coo_segmm import launch_shape
+    return (f" wrapper_ms={sh['wrapper_ms']:.4f} launch shape "
+            f"{launch_shape(sh['F'])}")
 
 
 def compare(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -373,8 +393,12 @@ def phase_kernels(device, ds) -> tuple:
             print(f"F={feat}:")
             init = segmm_spmm_plain(m, x)
             k3 = segmm_spmm(m, x)
+            k3_again = segmm_spmm(m, x)
             torch.cuda.synchronize()
             err3 = compare(f"K3 segmm_spmm F={feat}", k3, init)
+            check(torch.equal(k3, k3_again), f"K3 F={feat}: two launches "
+                  "differ")
+            del k3_again
             k1 = bsr_spmm_acc(b, x, init)
             p1 = bsr_spmm_acc_plain(b, x, init)
             torch.cuda.synchronize()
@@ -404,7 +428,7 @@ def phase_kernels(device, ds) -> tuple:
                 library_ms=cuda_ms(lib1, 20)))
             shapes["K3"].append(dict(
                 F=feat, **err3, bound_ms=b3, bound_by=by3,
-                ms=cuda_ms(lambda: segmm_spmm(m, x), 20),
+                **segmm_times(lambda: segmm_spmm(m, x)),
                 plain_ms=cuda_ms(lambda: segmm_spmm_plain(m, x), 20),
                 library_ms=cuda_ms(lib3, 20)))
             for k in ("K1", "K3"):
@@ -412,7 +436,8 @@ def phase_kernels(device, ds) -> tuple:
                 print(f"  {k} F={feat}: kernel_ms={s['ms']:.4f} "
                       f"plain_ms={s['plain_ms']:.4f} "
                       f"library_ms={s['library_ms']:.4f} "
-                      f"bound_ms={s['bound_ms']:.4f} ({s['bound_by']})")
+                      f"bound_ms={s['bound_ms']:.4f} ({s['bound_by']})"
+                      + (segmm_note(s) if k == "K3" else ""))
     return g, order, shapes
 
 
@@ -588,16 +613,23 @@ def phase_gat_kernels(device, ds, g_gcn) -> tuple:
             x = torch.randn((n, feat), generator=gen, device=device)
             print(f"F={feat}:")
             k3w = segmm_weighted_raw(m, w_edge, x)
+            k3w_again = segmm_weighted_raw(m, w_edge, x)
             p3w = segmm_weighted_raw_plain(m, w_edge, x)
             torch.cuda.synchronize()
             err3w = compare(f"K3w segmm_weighted_raw F={feat}", k3w, p3w)
+            check(torch.equal(k3w, k3w_again), f"K3w F={feat}: two "
+                  "launches differ")
             compare(f"K3w library torch.sparse.mm F={feat}",
                     torch.sparse.mm(str_csr, x), p3w)
             b3w, by3w = bound((n + 1) * 4 + e * 12 + uniq_senders * feat * 4
                               + n * feat * 4, 2.0 * e * feat)
+            # the GAT step at hidden 64 aggregates at F=64 in both layers
+            # (128 → 64, 64 → 64; the head is a separate linear layer):
+            # F=40, the class count, is off the path (phase 6 checks it)
             shapes["K3w"].append(dict(
-                F=feat, **err3w, bound_ms=b3w, bound_by=by3w,
-                ms=cuda_ms(lambda: segmm_weighted_raw(m, w_edge, x), 20),
+                F=feat, on_path=feat == 64, **err3w, bound_ms=b3w,
+                bound_by=by3w,
+                **segmm_times(lambda: segmm_weighted_raw(m, w_edge, x)),
                 plain_ms=cuda_ms(lambda: segmm_weighted_raw_plain(
                     m, w_edge, x), 20),
                 library_ms=cuda_ms(lambda: torch.sparse.mm(str_csr, x), 20)))
@@ -605,7 +637,8 @@ def phase_gat_kernels(device, ds, g_gcn) -> tuple:
             print(f"  K3w F={feat}: kernel_ms={sh['ms']:.4f} "
                   f"plain_ms={sh['plain_ms']:.4f} "
                   f"library_ms={sh['library_ms']:.4f} "
-                  f"bound_ms={sh['bound_ms']:.4f} ({sh['bound_by']})")
+                  f"bound_ms={sh['bound_ms']:.4f} ({sh['bound_by']})"
+                  + segmm_note(sh))
     return g, shapes
 
 
@@ -645,7 +678,8 @@ def phase_fused_kernels(device, g) -> dict:
     str_csr = torch.sparse_csr_tensor(m.row_ptr, m.senders,
                                       w_edge * m.weights, (n, n))
     uniq_senders = int(torch.unique(m.senders[m.weights != 0]).numel())
-    wt = w_edge[hd.t_edge_perm.long()].contiguous()
+    t_perm = hd.t_edge_perm
+    wt = w_edge[t_perm.long()].contiguous()
     t_uniq = int(torch.unique(mt.senders[mt.weights != 0]).numel())
     shapes = {k: [] for k in ("K6", "K7rm", "K7f", "K7bt", "K7s", "K7sums",
                               "K3w")}
@@ -735,6 +769,7 @@ def phase_fused_kernels(device, g) -> dict:
             dss_t = att_bsr.att_bwd_t(*bwd, need_dx=False)[1]
             dsd_f = att_bsr.att_bwd_f(rows, cols, *bwd)
             num6, den6 = segmm_weighted_den_raw(m, w_edge, x)
+            num6_2, den6_2 = segmm_weighted_den_raw(m, w_edge, x)
             num6_p, den6_p = segmm_weighted_den_raw_plain(m, w_edge, x)
             torch.cuda.synchronize()
             e_f = [compare(f"K7f att_fwd {what} F={feat}", a, p_)
@@ -757,6 +792,9 @@ def phase_fused_kernels(device, g) -> dict:
             e_6 = [compare(f"K6 segmm_weighted_den_raw {what} F={feat}",
                            a, p_) for what, a, p_ in (("num", num6, num6_p),
                                                       ("den", den6, den6_p))]
+            check(torch.equal(num6, num6_2) and torch.equal(den6, den6_2),
+                  f"K6 F={feat}: two launches differ")
+            del num6_2, den6_2
             compare(f"K6 library torch.sparse.mm (num only) F={feat}",
                     torch.sparse.mm(str_csr, x), num6_p)
         # the two-stage path (materialised pe, K4, row sums; its autograd
@@ -891,7 +929,7 @@ def phase_fused_kernels(device, g) -> dict:
                 F=feat, max_abs_err=max(er["max_abs_err"] for er in e_6),
                 max_rel_err=max(er["max_rel_err"] for er in e_6),
                 bound_ms=b6, bound_by=by6,
-                ms=cuda_ms(lambda: segmm_weighted_den_raw(m, w_edge, x), 20),
+                **segmm_times(lambda: segmm_weighted_den_raw(m, w_edge, x)),
                 plain_ms=cuda_ms(lambda: segmm_weighted_den_raw_plain(
                     m, w_edge, x), 20),
                 library_ms=cuda_ms(lambda: torch.sparse.mm(str_csr, x), 20),
@@ -899,25 +937,34 @@ def phase_fused_kernels(device, g) -> dict:
                               "only"))
             for k in ("K7f", "K7bt", "K7s", "K7sums", "K6"):
                 show(k)
+            print("  K6" + segmm_note(shapes["K6"][-1]))
             if feat == HIDDEN:
-                # K6's dx in layer 1: K3w on the transpose CSR
-                k3w = segmm_weighted_raw(mt, wt, gr)
-                p3w = segmm_weighted_raw_plain(mt, wt, gr)
+                # K6's dx in layer 1: K3w on the transpose CSR, the weights
+                # w_edge[t_edge_perm] formed inside the kernel
+                k3w = segmm_weighted_raw(mt, w_edge, gr, t_perm)
+                k3w_again = segmm_weighted_raw(mt, w_edge, gr, t_perm)
+                p3w = segmm_weighted_raw_plain(mt, w_edge, gr, t_perm)
                 torch.cuda.synchronize()
                 err3w = compare(f"K3w transpose CSR F={feat}", k3w, p3w)
+                check(torch.equal(k3w, k3w_again), f"K3w transpose F={feat}:"
+                      " two launches differ")
+                del k3w_again
                 t_csr = torch.sparse_csr_tensor(mt.row_ptr, mt.senders,
                                                 wt * mt.weights, (n, n))
-                b3w, by3w = bound((n + 1) * 4 + e * 12 + t_uniq * feat * 4
+                # the CSR, senders, static weights, w_edge and perm once
+                b3w, by3w = bound((n + 1) * 4 + e * 16 + t_uniq * feat * 4
                                   + n * feat * 4, 2.0 * e * feat)
                 shapes["K3w"].append(dict(
                     F=feat, transpose=True, **err3w, bound_ms=b3w,
                     bound_by=by3w,
-                    ms=cuda_ms(lambda: segmm_weighted_raw(mt, wt, gr), 20),
+                    **segmm_times(lambda: segmm_weighted_raw(
+                        mt, w_edge, gr, t_perm)),
                     plain_ms=cuda_ms(lambda: segmm_weighted_raw_plain(
-                        mt, wt, gr), 20),
+                        mt, w_edge, gr, t_perm), 20),
                     library_ms=cuda_ms(lambda: torch.sparse.mm(t_csr, gr),
                                        20)))
                 show("K3w")
+                print("  K3w" + segmm_note(shapes["K3w"][-1]))
         del x, gr, x_, ss_, sd_
         torch.cuda.empty_cache()
     return shapes
@@ -1397,12 +1444,29 @@ def phase_train(tmp) -> dict:
             ("gat64", "GATConv", 64, 1),
             ("gat512fused", "GATConv fused", HIDDEN, 2),
             ("gat512exact", "GATConv fused exact", HIDDEN, 1))
+    from fitgnn_tpu_torch.ops import coo_segmm
+
+    launch, widths = coo_segmm._launch, {}
+
+    def k3w_widths(what, m, x, *args, **kwargs):
+        """The straggler sum's launch as it is, tallying K3w's widths."""
+        if what == "segmm_weighted_raw":
+            widths[x.shape[1]] = widths.get(x.shape[1], 0) + 1
+        return launch(what, m, x, *args, **kwargs)
+
     for out_dir, mode, hidden, epochs in runs:
-        launches, _, wall = run_cli(tmp, [
-            "train", "--baseline", "--layer_name", mode.split()[0],
-            "--hidden", str(hidden), "--runs", "1", "--epochs1",
-            str(epochs), "--output_dir", out_dir], MODE_ENV[mode])
+        with mock.patch.object(coo_segmm, "_launch", k3w_widths):
+            launches, _, wall = run_cli(tmp, [
+                "train", "--baseline", "--layer_name", mode.split()[0],
+                "--hidden", str(hidden), "--runs", "1", "--epochs1",
+                str(epochs), "--output_dir", out_dir], MODE_ENV[mode])
         print(f"train {out_dir}: {wall:.1f} s")
+        if hidden == 64:
+            # K3w's F=40 row of phase 3 (the class count) is off the path
+            print(f"train {out_dir}: K3w widths {widths}")
+            check(set(widths) == {64}, f"K3w at hidden 64 ran at widths "
+                  f"{widths}, expected 64 alone")
+        widths.clear()
         if hidden == HIDDEN:
             want = {k: epochs * (STEP[mode].get(k, 0)
                                  + EVAL[mode].get(k, 0))
@@ -1656,10 +1720,15 @@ def main() -> int:
               f"{entry['name']} never launched on a main-path phase")
     # the register counts of K7's walks (both slab copies), of the score
     # pass and K5 (both load widths) and of the column sum
+    # and of the straggler sum (K3 and K3w without den, K6 with it: three
+    # lane counts, two load widths each)
     for (k, *_), entry in zip(KERNELS, kernels_line["kernels"]):
         hook = {"K7f": "FwdScores", "K7bt": "DxScores"}.get(k)
         name = {"K5": "dyn_grad_blocks_kernel", "K7s": "att_scores_kernel",
-                "K7sums": "att_sums_kernel"}.get(k)
+                "K7sums": "att_sums_kernel",
+                "K3": "segmm_spmm_kernel<false", "K3w":
+                "segmm_spmm_kernel<false", "K6": "segmm_spmm_kernel<true"
+                }.get(k)
         if hook is None and name is None:
             continue
         entry["registers"] = {
@@ -1668,7 +1737,8 @@ def main() -> int:
             if (hook is not None
                 and (walk_args(kernel) or (None,) * 4)[3] == hook)
             or (name is not None and kernel.startswith(name))}
-        check(len(entry["registers"]) == (1 if k == "K7sums" else 2),
+        want = {"K7sums": 1, "K3": 6, "K3w": 6, "K6": 6}.get(k, 2)
+        check(len(entry["registers"]) == want,
               f"{entry['name']}: no ptxas record of its kernels")
         print(f"{k} registers: {entry['registers']}")
     print(f"total {time.perf_counter() - t_start:.1f} s")

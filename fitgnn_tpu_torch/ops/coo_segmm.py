@@ -20,21 +20,25 @@ needs neither the selector nor the chunk padding.
 K3w, ``segmm_weighted_spmm``, is the same sum with runtime per-edge
 weights (GAT's straggler softmax numerators), differentiable in the
 weights and ``x``, as the JAX package's ``segmm_weighted_spmm``: the
-forward and ``dx`` run K3's kernel (its C entry takes the weight pointer
-as it is, so K3w needs no kernel source of its own); ``dw`` is the
-per-edge dot ``⟨g[r_e], x[s_e]⟩`` in plain PyTorch.
+forward and ``dx`` launch the same kernel, which forms the edge weight
+``w_edge[e]·weights[e]`` itself while it stages the edges (on the
+transpose CSR ``w_edge[perm[e]]·weights[e]``, ``perm`` the forward
+position of each transpose entry), so no elementwise pass runs before it;
+``dw`` is the per-edge dot ``⟨g[r_e], x[s_e]⟩`` in plain PyTorch.
 
 K6, ``segmm_weighted_spmm_den``, returns the softmax denominator beside
 the numerator, ``den[r] = Σ_e w_edge[e]``, from one pass, as the JAX
-package's ``segmm_weighted_spmm_den``: its forward is K3's kernel with a
-second output (``segmm_weighted_den_raw``); ``dx`` runs K3w's launch on the
-transpose CSR and ``dw_e = ⟨g_num[r_e], x[s_e]⟩ + g_den[r_e]`` is plain
+package's ``segmm_weighted_spmm_den``: its forward is the same kernel with
+a second output (``segmm_weighted_den_raw``); ``dx`` runs K3w's launch on
+the transpose CSR and ``dw_e = ⟨g_num[r_e], x[s_e]⟩ + g_den[r_e]`` is plain
 PyTorch.  The TPU's ``first_slot`` map (its saved gather is in padded slot
 order) has no counterpart: this CSR is in edge order.
 
 ``segmm_spmm.launches``, ``segmm_weighted_raw.launches`` and
 ``segmm_weighted_den_raw.launches`` count kernel launches with static
-weights, runtime weights, and runtime weights with the denominator.
+weights, runtime weights, and runtime weights with the denominator;
+``launch_shape(feat)`` reads the kernel's launch shape for ``feat``
+columns.
 """
 
 from __future__ import annotations
@@ -98,11 +102,16 @@ def segmm_spmm_plain(m: SegCsr, x: torch.Tensor,
     return out.index_add_(0, _receivers(m), y)
 
 
-# row_ptr, senders, weights, x, out, num_rows, feat, stream
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
-# row_ptr, senders, weights, x, out, den, num_rows, feat, stream
-_DEN_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
-                 + [ctypes.c_void_p])
+def _edge_weights(m: SegCsr, w_edge: torch.Tensor,
+                  perm: Optional[torch.Tensor]) -> torch.Tensor:
+    """The plain versions' runtime edge weights, ``w_edge[perm]·weights``."""
+    w = w_edge if perm is None else w_edge[perm.long()]
+    return w.to(m.weights.dtype) * m.weights
+
+
+# row_ptr, senders, weights, w_edge, perm, x, out, den, num_rows, feat,
+# stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
 
 
 def _check_x(what: str, m: SegCsr, x: torch.Tensor) -> None:
@@ -111,36 +120,55 @@ def _check_x(what: str, m: SegCsr, x: torch.Tensor) -> None:
                          f"({m.num_nodes}, F)")
 
 
-def _launch(what: str, m: SegCsr, weights: torch.Tensor, x: torch.Tensor,
+def _launch(what: str, m: SegCsr, x: torch.Tensor,
+            w_edge: Optional[torch.Tensor] = None,
+            perm: Optional[torch.Tensor] = None,
             den: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K3's kernel over ``m``'s CSR with per-edge ``weights``; with ``den``
-    ((num_nodes,) f32) the K6 entry, which also writes the weight sums."""
+    """The kernel over ``m``'s CSR: edge weights ``m.weights``, times
+    ``w_edge`` (times ``w_edge[perm]``) when given; with ``den``
+    ((num_nodes,) f32) it also writes the weight sums (K6)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     dev = x.device
     kernels.require(x, "x", torch.float32, dev)
     kernels.require(m.row_ptr, "row_ptr", torch.int32, dev)
     kernels.require(m.senders, "senders", torch.int32, dev)
-    kernels.require(weights, "weights", torch.float32, dev)
-    if weights.shape != m.senders.shape:
-        raise ValueError(f"{what}: {weights.shape[0]} weights for "
-                         f"{m.senders.shape[0]} edges")
+    kernels.require(m.weights, "weights", torch.float32, dev)
+    null = ctypes.c_void_p(None)
+    ptrs = []
+    for name, t, dtype in (("w_edge", w_edge, torch.float32),
+                           ("perm", perm, torch.int32)):
+        if t is None:
+            ptrs.append(null)
+            continue
+        kernels.require(t, name, dtype, dev)
+        if t.shape != m.senders.shape:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} for "
+                             f"{m.senders.shape[0]} edges")
+        ptrs.append(kernels.ptr(t))
+    if den is not None and x.shape[1] == 0:
+        raise ValueError(f"{what}: F=0 leaves den unwritten")
     out = torch.empty_like(x)
-    args = [kernels.ptr(m.row_ptr), kernels.ptr(m.senders),
-            kernels.ptr(weights), kernels.ptr(x), kernels.ptr(out)]
-    if den is None:
-        launch = kernels.function("coo_segmm", "fitgnn_segmm_spmm",
-                                  _ARGTYPES)
-    else:
-        if x.shape[1] == 0:
-            raise ValueError(f"{what}: F=0 leaves den unwritten")
-        launch = kernels.function("coo_segmm", "fitgnn_segmm_spmm_den",
-                                  _DEN_ARGTYPES)
-        args.append(kernels.ptr(den))
+    launch = kernels.function("coo_segmm", "fitgnn_segmm_spmm", _ARGTYPES)
     with torch.cuda.device(dev):
-        rc = launch(*args, m.num_nodes, x.shape[1], kernels.stream(dev))
+        rc = launch(kernels.ptr(m.row_ptr), kernels.ptr(m.senders),
+                    kernels.ptr(m.weights), *ptrs, kernels.ptr(x),
+                    kernels.ptr(out), null if den is None else
+                    kernels.ptr(den), m.num_nodes, x.shape[1],
+                    kernels.stream(dev))
     kernels.check(rc, what)
     return out
+
+
+def launch_shape(feat: int) -> dict:
+    """The kernel's launch shape for ``feat`` columns: lanes a row, floats a
+    lane, gathers in flight a lane and rows a CTA (builds the kernel)."""
+    fn = kernels.function("coo_segmm", "fitgnn_segmm_shape",
+                          [ctypes.c_int64, ctypes.c_void_p])
+    cfg = (ctypes.c_int32 * 4)()
+    kernels.check(fn(feat, cfg), "launch_shape")
+    return dict(zip(("lanes", "floats_per_lane", "gathers_in_flight",
+                     "rows_per_cta"), cfg))
 
 
 def segmm_spmm(m: SegCsr, x: torch.Tensor) -> torch.Tensor:
@@ -150,7 +178,7 @@ def segmm_spmm(m: SegCsr, x: torch.Tensor) -> torch.Tensor:
     _check_x("segmm_spmm", m, x)
     if x.device.type == "cpu":
         return segmm_spmm_plain(m, x)
-    out = _launch("segmm_spmm", m, m.weights, x)
+    out = _launch("segmm_spmm", m, x)
     segmm_spmm.launches += 1
     return out
 
@@ -159,22 +187,25 @@ segmm_spmm.launches = 0
 
 
 def segmm_weighted_raw_plain(m: SegCsr, w_edge: torch.Tensor,
-                             x: torch.Tensor) -> torch.Tensor:
+                             x: torch.Tensor,
+                             perm: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """Plain PyTorch K3w forward (``segmm_weighted_raw``'s CPU path)."""
-    return segmm_spmm_plain(m, x, w_edge.to(m.weights.dtype) * m.weights)
+    return segmm_spmm_plain(m, x, _edge_weights(m, w_edge, perm))
 
 
-def segmm_weighted_raw(m: SegCsr, w_edge: torch.Tensor,
-                       x: torch.Tensor) -> torch.Tensor:
+def segmm_weighted_raw(m: SegCsr, w_edge: torch.Tensor, x: torch.Tensor,
+                       perm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3w forward, ``out[r] = Σ_e w_edge[e]·m.weights[e]·x[s_e]`` with
-    ``w_edge`` in ``m``'s edge order: the CUDA kernel on a CUDA tensor, the
-    plain version on a CPU tensor.  The static factor keeps padding edges
-    (weight 0) inert whatever ``w_edge`` holds there."""
+    ``w_edge`` in ``m``'s edge order, or ``w_edge[perm[e]]`` for entry ``e``
+    when ``perm`` is given (``dx`` on the transpose CSR): the CUDA kernel on
+    a CUDA tensor, the plain version on a CPU tensor.  The static factor
+    keeps padding edges (weight 0) inert whatever ``w_edge`` holds there."""
     _check_x("segmm_weighted_raw", m, x)
     if x.device.type == "cpu":
-        return segmm_weighted_raw_plain(m, w_edge, x)
-    weights = (w_edge.to(m.weights.dtype) * m.weights).contiguous()
-    out = _launch("segmm_weighted_raw", m, weights, x)
+        return segmm_weighted_raw_plain(m, w_edge, x, perm)
+    out = _launch("segmm_weighted_raw", m, x,
+                  w_edge.to(m.weights.dtype).contiguous(), perm)
     segmm_weighted_raw.launches += 1
     return out
 
@@ -196,7 +227,7 @@ class _SegmmWeighted(torch.autograd.Function):
         dw = dx = None
         if ctx.needs_input_grad[6]:
             # the transpose list holds each edge at t_edge_perm's position
-            dx = segmm_weighted_raw(ctx.mt, w_edge[t_edge_perm.long()], g)
+            dx = segmm_weighted_raw(ctx.mt, w_edge, g, t_edge_perm)
         if ctx.needs_input_grad[5]:
             dw = (g.index_select(0, receivers.long()).float()
                   * x.index_select(0, senders.long()).float()
@@ -222,7 +253,7 @@ def segmm_weighted_spmm(m: SegCsr, mt: SegCsr, senders: torch.Tensor,
 def segmm_weighted_den_raw_plain(m: SegCsr, w_edge: torch.Tensor,
                                  x: torch.Tensor) -> tuple:
     """Plain PyTorch K6 forward (``segmm_weighted_den_raw``'s CPU path)."""
-    w = w_edge.to(m.weights.dtype) * m.weights
+    w = _edge_weights(m, w_edge, None)
     den = torch.zeros(m.num_nodes, dtype=torch.float32, device=x.device)
     return (segmm_spmm_plain(m, x, w),
             den.index_add_(0, _receivers(m), w.float()))
@@ -237,9 +268,9 @@ def segmm_weighted_den_raw(m: SegCsr, w_edge: torch.Tensor,
     _check_x("segmm_weighted_den_raw", m, x)
     if x.device.type == "cpu":
         return segmm_weighted_den_raw_plain(m, w_edge, x)
-    weights = (w_edge.to(m.weights.dtype) * m.weights).contiguous()
     den = torch.empty(m.num_nodes, dtype=torch.float32, device=x.device)
-    num = _launch("segmm_weighted_den_raw", m, weights, x, den)
+    num = _launch("segmm_weighted_den_raw", m, x,
+                  w_edge.to(m.weights.dtype).contiguous(), den=den)
     segmm_weighted_den_raw.launches += 1
     return num, den
 
@@ -260,8 +291,8 @@ class _SegmmWeightedDen(torch.autograd.Function):
         receivers, t_edge_perm, w_edge, x = ctx.saved_tensors
         dw = dx = None
         if g_num is not None and ctx.needs_input_grad[5]:
-            dx = segmm_weighted_raw(ctx.mt, w_edge[t_edge_perm.long()],
-                                    g_num.contiguous())
+            dx = segmm_weighted_raw(ctx.mt, w_edge, g_num.contiguous(),
+                                    t_edge_perm)
         if ctx.needs_input_grad[4]:
             r = receivers.long()
             dw = torch.zeros(w_edge.shape, dtype=torch.float32,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Design choices of K8, K5 and K7's walks, each against its alternative,
-on one GPU.
+"""Design choices of K8, K5, K7's walks and the straggler sum, each against
+its alternatives, on one GPU.
 
     python3 scripts/torch_design_variants.py    # from the repository root
 
@@ -34,13 +34,35 @@ on one GPU.
   results are wrong by design), split the pass's time: the copies and the
   product without the epilogue, and the tile's copy started after the
   product.
+* The straggler segment sum (K3, K3w, K6; ``csrc/coo_segmm.cu``), on the
+  bench graph's straggler CSR (``chip_smoke.make_graph`` through the
+  port's GAT ingest: 169,472 rows, 232,718 edges).  First each form on
+  its path widths (K3 at F = 128 / 512, K3w at F = 40 / 64 and on the
+  transpose CSR at F=512, K6 at F = 128 / 512), the kernel before its
+  redesign (``scripts/variants/coo_segmm_warp_per_row.cu``: one warp per
+  (row, 128-float chunk), the runtime weights formed before it by an
+  elementwise pass, as its wrapper did) against the committed wrapper,
+  in the order old, new, new, old: device time (``chip_smoke.device_ms``)
+  of the old kernel alone and with its weight pass, and of the new one;
+  and the time with each wrapper's host work (``chip_smoke.cuda_ms``).
+  Then the committed design's steps at F = 40, 64, 128 and 512 on K3w's
+  forward (runtime weights): lane groups of 8, 16 or 32 lanes with
+  several rows a warp but every group reading its own row pointers and
+  edges from device memory and one gather in flight ("rows a warp
+  only"); plus the CTA's staged CSR slice ("staged"); plus U = 2 and the
+  committed U = 4 gathers in flight.  Beside them its neighbours: the
+  edges read unstaged at U = 4; 4 floats a lane (16, 32 lanes at F = 64,
+  128) with 128 or 256 threads; 256 threads; 2 or 8 rows a group (the
+  committed 4 give 64 rows a CTA at F <= 64).  Each is timed twice (in
+  order, then in reverse).
 
-Each alternative but the last is the committed source with a few textual
-edits; all are built with ``nvcc`` into
-``build/fitgnn_tpu_torch/variants/``; the script fails if an edit no
-longer applies.  Inputs are synthetic at the bench graph's
-shapes, made on the card from seed 0: 1,324 diagonal blocks of 4.5% fill
-(one empty) with ``init``, at F = 128, 512 and 512 transposed; 2,192 tile
+Each alternative but the last K7 one and the old segment sum is the
+committed source with a few textual edits; all are built with ``nvcc``
+into ``build/fitgnn_tpu_torch/variants/``; the script fails if an edit no
+longer applies.  ``--segmm-only`` runs the segment sum's section alone.
+The other inputs are synthetic at the bench graph's shapes, made on the
+card from seed 0: 1,324 diagonal blocks of 4.5% fill (one empty) with
+``init``, at F = 128, 512 and 512 transposed; 2,192 tile
 pairs sorted by block row over 1,324 block rows at F = 128, 512 and 101
 (K5), and as presence tiles of 3.04% fill with unit-normal scores,
 features and cotangents at F = 128 and 512 (K7).
@@ -62,9 +84,10 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import ptxas_entries  # noqa
-from fitgnn_tpu_torch.ops import (att_bsr, bsr_dynamic, diag_spmm,  # noqa
-                                  kernels)
+from chip_smoke import (cuda_ms, device_ms, make_graph,  # noqa
+                        ptxas_entries)
+from fitgnn_tpu_torch.ops import (att_bsr, bsr_dynamic, coo_segmm,  # noqa
+                                  diag_spmm, kernels)
 from fitgnn_tpu_torch.ops.bsr_dynamic import build_dyn_plan  # noqa
 
 OUT = os.path.join(ROOT, "build", "fitgnn_tpu_torch", "variants")
@@ -80,24 +103,45 @@ def edited(src: str, edits: list) -> str:
     return src
 
 
-def build_variant(name: str, files: dict, main: str, fn: str, argtypes):
-    """Writes ``files`` (name -> text) into a directory of their own,
-    compiles ``main`` and returns its C function ``fn``."""
-    d = os.path.join(OUT, name)
-    os.makedirs(d, exist_ok=True)
-    for f, text in files.items():
-        with open(os.path.join(d, f), "w") as fh:
-            fh.write(text)
-    lib = os.path.join(d, f"lib{name}.so")
-    out = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", lib,
-                          os.path.join(d, main)], check=True,
-                         capture_output=True, text=True)
-    with open(os.path.join(d, f"lib{name}.log"), "w") as f:
-        f.write(out.stdout + out.stderr)
-    c = getattr(ctypes.CDLL(lib), fn)
+def build_libraries(specs: dict) -> dict:
+    """Builds each ``name: (files, main)`` of ``specs``, all in parallel:
+    ``files`` (name -> text) go into a directory of their own and ``main``
+    is compiled; returns each library, loaded."""
+    procs = {}
+    for name, (files, main) in specs.items():
+        d = os.path.join(OUT, name)
+        os.makedirs(d, exist_ok=True)
+        for f, text in files.items():
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(text)
+        lib = os.path.join(d, f"lib{name}.so")
+        procs[name] = (lib, subprocess.Popen(
+            [kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", lib,
+             os.path.join(d, main)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log = proc.communicate()[0]
+        with open(os.path.join(OUT, name, f"lib{name}.log"), "w") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {name} failed to build:\n{log}")
+        libs[name] = ctypes.CDLL(lib)
+    return libs
+
+
+def c_function(lib, fn: str, argtypes):
+    c = getattr(lib, fn)
     c.restype = ctypes.c_int
     c.argtypes = argtypes
     return c
+
+
+def build_variant(name: str, files: dict, main: str, fn: str, argtypes):
+    """Builds one variant (``build_libraries``) and returns its C function
+    ``fn``."""
+    return c_function(build_libraries({name: (files, main)})[name], fn,
+                      argtypes)
 
 
 def read(rel: str) -> str:
@@ -417,6 +461,175 @@ def k7_sampled():
         _SAMPLED_ARGTYPES)
 
 
+# the old segment sum's entries: row_ptr, senders, weights, x, out,
+# (den,) num_rows, feat, stream
+_OLD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [
+    ctypes.c_void_p]
+_OLD_DEN_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [
+    ctypes.c_void_p]
+_UNSTAGED = [
+    ("const int nwin = max(1, (hi - lo + WINDOW - 1) / WINDOW);",
+     "const int nwin = 1;"),
+    ("const int we = min(hi, wb + WINDOW);", "const int we = hi;"),
+    ("if (nwin > 1 || base == 0) {", "if (false) {"),
+    ("s[j] = j < left ? s_send[e + j - wb] : 0;",
+     "s[j] = j < left ? senders[e + j] : 0;"),
+    ("w[j] = j < left ? s_w[e + j - wb] : 0.f;",
+     "w[j] = j < left ? edge_weight(weights, w_edge, perm, e + j) : 0.f;")]
+
+
+def _set(name: str, value: int) -> list:
+    """Sets one of the kernel's constants (its committed value first)."""
+    committed = {"U": 4, "ROWS": 4, "V": 2, "THREADS": 128}[name]
+    return [(f"constexpr int {name} = {committed};",
+             f"constexpr int {name} = {value};")]
+
+
+# the committed design's steps first, then its neighbours
+SEGMM_VARIANTS = {
+    "rows a warp only": _set("U", 1) + _UNSTAGED,
+    "staged": _set("U", 1),
+    "staged, U=2": _set("U", 2),
+    "unstaged, U=4": _UNSTAGED,
+    "4 floats a lane": _set("V", 1),
+    "4 floats a lane, 256 threads": _set("V", 1) + _set("THREADS", 256),
+    "256 threads": _set("THREADS", 256),
+    "2 rows a group": _set("ROWS", 2),
+    "8 rows a group": _set("ROWS", 8)}
+
+
+def segmm_section(dev) -> list:
+    """The segment sum's forms, old against new, then the design's steps
+    (the module docstring says which)."""
+    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+    names = {k: "segmm_" + "".join(c if c.isalnum() else "_" for c in k)
+             for k in ("old", *SEGMM_VARIANTS)}
+    with open(os.path.join(ROOT, "scripts", "variants",
+                           "coo_segmm_warp_per_row.cu")) as f:
+        specs = {names["old"]: ({"coo_segmm.cu": f.read()}, "coo_segmm.cu")}
+    for k, edits in SEGMM_VARIANTS.items():
+        specs[names[k]] = ({"coo_segmm.cu": edited(read("coo_segmm.cu"),
+                                                    edits)}, "coo_segmm.cu")
+    libs = build_libraries(specs)
+    regs = {k: max(n for _, n, _ in ptxas_entries(os.path.join(
+        OUT, v, f"lib{v}.log"))) for k, v in names.items()}
+    committed = next(t for t in kernels.TARGETS if t.name == "coo_segmm")
+    coo_segmm.launch_shape(64)                   # builds the committed one
+    regs["committed"] = max(n for _, n, _ in ptxas_entries(
+        committed.log_path))
+    print(f"segmm registers (most over the instantiations): {regs}")
+    old = c_function(libs[names["old"]], "fitgnn_segmm_spmm", _OLD_ARGTYPES)
+    old_den = c_function(libs[names["old"]], "fitgnn_segmm_spmm_den",
+                         _OLD_DEN_ARGTYPES)
+    new = {k: c_function(libs[names[k]], "fitgnn_segmm_spmm",
+                         coo_segmm._ARGTYPES) for k in SEGMM_VARIANTS}
+
+    x, s, r, y, train = make_graph()
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                 layer_name="GATConv", seed=0)
+    h = g.aux
+    m, mt = h.segmm.to(dev), h.t_segmm.to(dev)
+    perm = h.t_edge_perm.to(dev)
+    n, e = m.num_nodes, m.senders.shape[0]
+    per_row = m.row_ptr.diff()
+    print(f"straggler CSR: {n} rows, {e} edges, "
+          f"{int((per_row == 0).sum())} rows empty, at most "
+          f"{int(per_row.max())} edges a row")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w_edge = torch.rand(e, generator=gen, device=dev)
+    p, stream = kernels.ptr, kernels.stream(dev)
+    null = ctypes.c_void_p(None)
+
+    def old_run(csr, w, xx, den=False):
+        out = torch.empty_like(xx)
+        if den:
+            d = torch.empty(n, device=dev)
+            kernels.check(old_den(p(csr.row_ptr), p(csr.senders), p(w),
+                                  p(xx), p(out), p(d), n, xx.shape[1],
+                                  stream), "old segmm den")
+            return out, d
+        kernels.check(old(p(csr.row_ptr), p(csr.senders), p(w), p(xx),
+                          p(out), n, xx.shape[1], stream), "old segmm")
+        return out
+
+    results = []
+    forms = (("K3", 128), ("K3", 512), ("K3w", 40), ("K3w", 64),
+             ("K3w transpose", 512), ("K6", 128), ("K6", 512))
+    for form, feat in forms:
+        xx = torch.randn((n, feat), generator=gen, device=dev)
+        csr = mt if form == "K3w transpose" else m
+        pm = perm if form == "K3w transpose" else None
+        den = form == "K6"
+
+        def weight_pass():
+            """The old wrapper's edge weights (K3's are the static ones)."""
+            if form == "K3":
+                return csr.weights
+            w = w_edge if pm is None else w_edge[pm.long()]
+            return (w * csr.weights).contiguous()
+
+        def old_form():
+            return old_run(csr, weight_pass(), xx, den)
+
+        w_old = weight_pass()
+
+        def old_kernel():
+            return old_run(csr, w_old, xx, den)
+
+        new_form = {
+            "K3": lambda: coo_segmm.segmm_spmm(csr, xx),
+            "K6": lambda: coo_segmm.segmm_weighted_den_raw(csr, w_edge, xx)
+        }.get(form, lambda: coo_segmm.segmm_weighted_raw(csr, w_edge, xx,
+                                                         pm))
+
+        got, ref = new_form(), old_form()
+        for a, b in zip(got if den else (got,), ref if den else (ref,)):
+            check(f"{form} F={feat} new vs old", a, b)
+        row = {"form": form, "F": feat}
+        for what, timer in (("device_ms", device_ms), ("wrapper_ms",
+                                                       cuda_ms)):
+            t = {"old": [], "old_kernel": [], "new": []}
+            for which in ("old", "new", "new", "old"):
+                if which == "old":
+                    t["old"].append(timer(old_form, 20))
+                    t["old_kernel"].append(timer(old_kernel, 20))
+                else:
+                    t["new"].append(timer(new_form, 20))
+            row[what] = t
+        results.append(row)
+        print(results[-1])
+
+    for feat in (40, 64, 128, 512):
+        xx = torch.randn((n, feat), generator=gen, device=dev)
+        ref = coo_segmm.segmm_weighted_raw_plain(m, w_edge, xx)
+
+        def launcher(fn):
+            def run():
+                out = torch.empty_like(xx)
+                kernels.check(fn(p(m.row_ptr), p(m.senders), p(m.weights),
+                                 p(w_edge), null, p(xx), p(out), null, n,
+                                 feat, stream), "segmm variant")
+                return out
+            return run
+
+        w_old = (w_edge * m.weights).contiguous()
+        runs = {"old kernel alone": lambda: old_run(m, w_old, xx),
+                **{k: launcher(fn) for k, fn in new.items()},
+                "committed": lambda: coo_segmm.segmm_weighted_raw(
+                    m, w_edge, xx)}
+        for k, fn in runs.items():
+            check(f"K3w F={feat} {k}", fn(), ref)
+        order = list(runs)
+        t = {k: [] for k in order}
+        for seq in (order, order[::-1]):
+            for k in seq:
+                t[k].append(device_ms(runs[k], 20))
+        results.append({"kernel": "K3w variants", "F": feat,
+                        "device_ms": t, "registers": regs})
+        print(results[-1])
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("needs a GPU", file=sys.stderr)
@@ -426,6 +639,10 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    if "--segmm-only" in sys.argv[1:]:
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "results": segmm_section(dev)}))
+        return 0
     gen = torch.Generator(device=dev).manual_seed(0)
     results = []
 
@@ -616,6 +833,7 @@ def main() -> int:
                         **{f"diagnostic_{k}_ms": ms(run_tiles(f, k))
                            for k, f in diagnostics.items()}})
         print(results[-1])
+    results.extend(segmm_section(dev))
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "registers": regs, "results": results}))
     return 0

@@ -8,7 +8,9 @@ Builds the bench graph of ``chip_smoke.py`` (169,344 nodes, 128 features,
 and for GAT, and puts the seed-0 ``NodeModel`` (2 layers, hidden 512, f32,
 dropout 0.5 from a seeded generator) with ``adam_l2(0.01, 5e-4)`` on the
 card: GAT on its default path, under ``FITGNN_GAT_FUSED_TILES=1`` (K7) and
-under ``FITGNN_GAT_FUSED_TILES=1 FITGNN_GAT_SEGMM_DEN=1`` (K7 and K6), then
+under ``FITGNN_GAT_FUSED_TILES=1 FITGNN_GAT_SEGMM_DEN=1`` (K7 and K6), GAT
+at hidden 64 on its default path (its straggler sums take K3w, forward and
+``dx``, in both layers: 4 launches a step), then
 GCN on its default path, with ``fused_dropout=True, bit_dropout=False``
 (K11), and with K11 on the operators of ``build_hybrid``'s tile opt-ins:
 ``use_diag`` (K8), ``tile_group=2`` (K9) and ``use_rowwalk`` (K10).  For
@@ -112,7 +114,8 @@ def _group(name: str, rows_walk: str | None) -> str:
         return K7S
     if "att_sums_kernel" in name:
         return K7SUMS
-    if "segmm_spmm_kernel<true>" in name:
+    # segmm_spmm_kernel<DEN, …>: DEN is K6's den output
+    if "segmm_spmm_kernel<true" in name:
         return "K6 segmm_weighted_den_raw"
     if "segmm_spmm" in name:
         return "K3/K3w segmm_spmm"
@@ -129,13 +132,13 @@ def _group(name: str, rows_walk: str | None) -> str:
 
 
 def profile_step(layer: str, g, dev, label: str, rows_walk: str | None,
-                 **model_kw) -> dict:
+                 hidden: int = HIDDEN, **model_kw) -> dict:
     """Times and profiles one configuration; ``rows_walk`` is the label of
     the one rows-walk wrapper its step launches (None: none)."""
     from fitgnn_tpu_torch.models.models import NodeModel
     from fitgnn_tpu_torch.train import steps
 
-    model = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+    model = NodeModel(layer, NUM_FEATURES, hidden, 2, NUM_CLASSES,
                       **model_kw)
     model = model.reset_parameters(torch.Generator().manual_seed(0)).to(dev)
     opt = steps.adam_l2(model.parameters(), 0.01, 5e-4)
@@ -223,6 +226,10 @@ def main() -> int:
                                None if env else "K4 dyn_tiles")
         print(json.dumps({"switches": env, **out}))
         torch.cuda.empty_cache()
+    out = profile_step("GATConv", g, dev, "GATConv hidden 64",
+                       "K4 dyn_tiles", hidden=64)
+    print(json.dumps({"switches": {}, "hidden": 64, **out}))
+    torch.cuda.empty_cache()
     del g
     k11 = dict(fused_dropout=True, bit_dropout=False)
     g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,

@@ -90,27 +90,55 @@ def _unaligned(x: torch.Tensor) -> torch.Tensor:
     return view
 
 
-# F=101 (F % 4 != 0) and the unaligned view take the kernel's scalar branch;
-# the others its 16-byte vector branch
-@pytest.mark.parametrize("feat,aligned", [(16, True), (100, True),
-                                          (101, True), (128, True),
-                                          (512, True), (128, False)])
-def test_k3_kernel_matches_plain(cuda, feat, aligned):
-    rng = np.random.default_rng(feat + 1)
-    n = 1024
+def _straggler_csr(rng, n=1024):
+    """A receiver-sorted straggler list with spread edges, a hub row of
+    5,000 edges (row 5), a run of 64 rows with 200 edges each (rows
+    600-663: more edges than one staging window of any CTA that holds
+    them), empty rows, an empty block (rows 384-511) and inert edges of
+    static weight 0."""
     s, r, w = _coo(rng, n, 3_000, internal=0.0)
-    keep = (r // 128) != 3          # an empty block: rows written as 0
-    m = build_segmm(s[keep], r[keep], w[keep], n).to(cuda)
-    x = torch.from_numpy(rng.standard_normal((n, feat)).astype(np.float32))
-    xd = x.to(cuda) if aligned else _unaligned(x.to(cuda))
+    r = np.concatenate([r, np.full(5_000, 5), np.repeat(np.arange(600, 664),
+                                                        200)])
+    s = np.concatenate([s, rng.integers(0, n, len(r) - len(s))])
+    w = np.concatenate([w, rng.random(len(r) - len(w)).astype(np.float32)])
+    w[::17] = 0.0
+    order = np.argsort(r, kind="stable")
+    s, r, w = s[order], r[order], w[order]
+    keep = (r // 128) != 3
+    return s[keep], r[keep], w[keep]
+
+
+# every lane count of the kernel (8, 16, 32 lanes a row; 128-column chunks
+# at F=512); F=101 (F % 4 != 0) and the unaligned views take its scalar
+# branch, the others its 16-byte vector branch
+SEGMM_SHAPES = [(8, True), (16, True), (40, True), (64, True), (100, True),
+                (101, True), (128, True), (512, True), (40, False),
+                (128, False)]
+
+
+def _segmm_inputs(cuda, feat, aligned, seed):
+    rng = np.random.default_rng(feat + seed)
+    s, r, w = _straggler_csr(rng)
+    m = build_segmm(s, r, w, 1024).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((1024, feat)).astype(
+        np.float32)).to(cuda)
+    w_edge = torch.from_numpy(rng.random(len(s)).astype(np.float32)).to(cuda)
+    return rng, m, (x if aligned else _unaligned(x)), w_edge
+
+
+@pytest.mark.parametrize("feat,aligned", SEGMM_SHAPES)
+def test_k3_kernel_matches_plain(cuda, feat, aligned):
+    _, m, xd, _ = _segmm_inputs(cuda, feat, aligned, 1)
     before = segmm_spmm.launches
     with torch.inference_mode():
         got = segmm_spmm(m, xd)
+        again = segmm_spmm(m, xd)
         ref = segmm_spmm_plain(m, xd)
     torch.cuda.synchronize()
-    assert segmm_spmm.launches == before + 1
+    assert segmm_spmm.launches == before + 2
     _close(got, ref)
-    assert not got[3 * 128:4 * 128].any()
+    assert torch.equal(got, again)                 # two launches bit-equal
+    assert not got[3 * 128:4 * 128].any()          # the empty block
 
 
 def test_hybrid_on_card_matches_cpu(cuda):
@@ -199,46 +227,71 @@ def test_k5_tensor_cores_keep_f32_accuracy(cuda, feat, aligned):
     assert (err <= 1e-5 * ref64.abs().flatten(1).max(1).values).all()
 
 
-@pytest.mark.parametrize("feat", [40, 64])
-def test_k3w_kernel_matches_plain(cuda, feat):
-    rng = np.random.default_rng(feat + 3)
-    n = 1024
-    s, r, w = _coo(rng, n, 3_000, internal=0.0)
-    w[::17] = 0.0                                # inert (padding-like) edges
-    m = build_segmm(s, r, w, n).to(cuda)
-    w_edge = torch.from_numpy(rng.random(len(s)).astype(np.float32)).to(cuda)
-    x = torch.from_numpy(rng.standard_normal((n, feat)).astype(
-        np.float32)).to(cuda)
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("feat,aligned", SEGMM_SHAPES)
+def test_k3w_kernel_matches_plain(cuda, feat, aligned, transpose):
+    """K3w forms ``w_edge[e]·weights[e]`` itself; on the transpose CSR (K3w
+    and K6's ``dx``) ``w_edge[perm[e]]·weights[e]``, ``perm`` a
+    permutation of the edges."""
+    rng, m, xd, w_edge = _segmm_inputs(cuda, feat, aligned, 3)
+    perm = (torch.from_numpy(rng.permutation(len(w_edge)).astype(np.int32))
+            .to(cuda) if transpose else None)
+    w_ref = w_edge if perm is None else w_edge[perm.long()]
     before = segmm_weighted_raw.launches
     with torch.inference_mode():
-        got = segmm_weighted_raw(m, w_edge, x)
-        ref = segmm_spmm_plain(m, x, w_edge * m.weights)
+        got = segmm_weighted_raw(m, w_edge, xd, perm)
+        again = segmm_weighted_raw(m, w_edge, xd, perm)
+        ref = segmm_spmm_plain(m, xd, w_ref * m.weights)
     torch.cuda.synchronize()
-    assert segmm_weighted_raw.launches == before + 1
+    assert segmm_weighted_raw.launches == before + 2
     _close(got, ref)
+    assert torch.equal(got, again)
+    assert not got[3 * 128:4 * 128].any()
 
 
-@pytest.mark.parametrize("feat", [40, 101, 128, 512])
-def test_k6_kernel_matches_plain(cuda, feat):
-    rng = np.random.default_rng(feat + 4)
-    n = 1024
-    s, r, w = _coo(rng, n, 3_000, internal=0.0)
-    w[::17] = 0.0                                # inert (padding-like) edges
-    keep = (r // 128) != 3          # an empty block: rows written as 0
-    m = build_segmm(s[keep], r[keep], w[keep], n).to(cuda)
-    w_edge = torch.from_numpy(rng.random(int(keep.sum())).astype(
-        np.float32)).to(cuda)
-    x = torch.from_numpy(rng.standard_normal((n, feat)).astype(
-        np.float32)).to(cuda)
+@pytest.mark.parametrize("feat,aligned", SEGMM_SHAPES)
+def test_k6_kernel_matches_plain(cuda, feat, aligned):
+    _, m, xd, w_edge = _segmm_inputs(cuda, feat, aligned, 4)
     before = segmm_weighted_den_raw.launches
     with torch.inference_mode():
-        got = segmm_weighted_den_raw(m, w_edge, x)
-        ref = segmm_weighted_den_raw_plain(m, w_edge, x)
+        got = segmm_weighted_den_raw(m, w_edge, xd)
+        again = segmm_weighted_den_raw(m, w_edge, xd)
+        ref = segmm_weighted_den_raw_plain(m, w_edge, xd)
     torch.cuda.synchronize()
-    assert segmm_weighted_den_raw.launches == before + 1
-    for a, b in zip(got, ref):
+    assert segmm_weighted_den_raw.launches == before + 2
+    for a, b, c in zip(got, ref, again):
         _close(a, b)
+        assert torch.equal(a, c)                   # den has no atomics
         assert not a[3 * 128:4 * 128].any()
+    # den against the weight sums in float64
+    recv = torch.repeat_interleave(torch.arange(1024, device=cuda),
+                                   m.row_ptr.diff())
+    den64 = torch.zeros(1024, dtype=torch.float64, device=cuda).index_add_(
+        0, recv, w_edge.double() * m.weights.double())
+    _close(got[1].double(), den64)
+
+
+@pytest.mark.parametrize("form", ["k3", "k3w", "k3w_transpose", "k6"])
+def test_segmm_forms_launch_one_kernel(cuda, form):
+    """Each form is one kernel launch and nothing else on the card: the
+    runtime weights (and their permutation) are formed inside it."""
+    rng, m, xd, w_edge = _segmm_inputs(cuda, 64, True, 5)
+    perm = torch.from_numpy(rng.permutation(len(w_edge)).astype(
+        np.int32)).to(cuda)
+    call = {"k3": lambda: segmm_spmm(m, xd),
+            "k3w": lambda: segmm_weighted_raw(m, w_edge, xd),
+            "k3w_transpose": lambda: segmm_weighted_raw(m, w_edge, xd, perm),
+            "k6": lambda: segmm_weighted_den_raw(m, w_edge, xd)}[form]
+    with torch.inference_mode():
+        call()                                     # builds the kernel
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "segmm_spmm_kernel" in names[0], names
 
 
 def _att_inputs(rng, feat, dev):

@@ -26,6 +26,8 @@ from fitgnn_tpu.ops.hybrid_spmm import build_hybrid as jax_build_hybrid
 from fitgnn_tpu.ops.pallas.bsr_dynamic import build_dyn_plan as jax_plan
 from fitgnn_tpu.ops.pallas.bsr_dynamic import bsr_spmm_dyn as jax_dyn
 from fitgnn_tpu.ops.pallas.coo_segmm import \
+    _segmm_weighted_bwd as jax_segmm_weighted_bwd
+from fitgnn_tpu.ops.pallas.coo_segmm import \
     segmm_weighted_spmm as jax_segmm_weighted
 from fitgnn_tpu.ops.sddmm import gather_concat_score as jax_gcs
 from fitgnn_tpu.ops.tile_gat import tile_gat_attention as jax_tile_gat
@@ -160,6 +162,23 @@ def test_segmm_weighted_spmm_matches_jax(feat):
     close(wt.grad, dw_j, grad=True)
     close(xt.grad, dx_j, grad=True)
     assert not out[2 * 128:3 * 128].any()
+    assert segmm_weighted_raw.launches == 0
+
+
+@pytest.mark.parametrize("feat", [40, 64, 512])
+def test_segmm_weighted_raw_perm_matches_jax_dx(feat):
+    """K3w's dx form: one launch on the transpose CSR with the permutation
+    passed (``w_edge[t_edge_perm]`` formed in the launch), against the JAX
+    ``_segmm_weighted_bwd``'s dx (its Pallas kernel in interpret mode)."""
+    ht, hj, rng = _straggler_hybrid(feat + 10)
+    w = rng.random(ht.num_coo_edges).astype(np.float32)
+    x = rng.standard_normal((ht.num_nodes, feat)).astype(np.float32)
+    g = rng.standard_normal((ht.num_nodes, feat)).astype(np.float32)
+    res = (hj.segmm, hj.t_segmm, hj.senders, hj.receivers, jnp.asarray(w),
+           jnp.asarray(x))
+    dx_j = jax_segmm_weighted_bwd(res, jnp.asarray(g))[5]
+    dx = segmm_weighted_raw(ht.t_segmm, t(w), t(g), ht.t_edge_perm)
+    close(dx, dx_j, grad=True)
     assert segmm_weighted_raw.launches == 0
 
 

@@ -80,7 +80,14 @@ def test_walk_args_ignores_other_kernels(name):
      "const*, int const*, int const*, int const*, int const*, float*, "
      "float*, long)", None, _train.K7SUMS),
     ("void (anonymous namespace)::att_rowmax_kernel(float const*)", None,
-     "K7rm att_rowmax")])
+     "K7rm att_rowmax")] + [
+    # the straggler sum, segmm_spmm_kernel<DEN, L, VEC>: K6 with den
+    (f"void (anonymous namespace)::segmm_spmm_kernel<{den}, {lanes}, {vec}>"
+     "(int const*, int const*, float const*, float const*, int const*, "
+     "float const*, float*, float*, long, long, int, int)", None,
+     "K6 segmm_weighted_den_raw" if den == "true" else "K3/K3w segmm_spmm")
+    for den in ("true", "false") for lanes in (8, 16, 32)
+    for vec in ("true", "false")])
 def test_train_profile_groups(name, rows_walk, group):
     assert _train._group(name, rows_walk) == group
 
