@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one GPU and hold
-its CUDA kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's serving and training paths (the full-graph
+baselines and the FIT-GNN curriculum) on one GPU and hold its CUDA kernels
+against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -82,8 +83,23 @@ Phases (any failure exits non-zero before the result lines):
    at hidden 512 from random weights (K1 and K3 ×2 per forward), whose
    full forward with kernels is held against the same forward with the
    plain versions (atol 1e-4);
-8. one JSON line with every kernel's numbers (launches summed over the
-   main-path phases 5 to 7, per phase beside them; K3, K3w, K6, K5,
+8. curriculum: the FIT-GNN curriculum through the port's CLI on ``cuda``
+   at hidden 512, every launch counter at 0 just before each run
+   (``CURRICULUM``): ``train`` GCNConv ``Gc_train_2_Gs_infer`` for 2
+   epochs, whose partition (host seconds, metanodes, the subgraph batch's
+   (S, N_pad, E_pad)) is computed once and then taken from the port's
+   cache by every later run; ``Gc_train_2_Gs_train`` in GD and in MB
+   (``--batch_size 128``) for 1 + 1 epochs; ``Gs_train_2_Gs_infer`` for 1;
+   GATConv ``Gc_train_2_Gs_infer`` for 1.  Each Gc run prints Gc's tiles
+   and stragglers and launches the counts per train step and eval forward
+   that phase 4 confirmed times its epochs; the Gs epochs and evals launch
+   none.  Then ``infer`` from the first run's checkpoint (64 samples, no
+   launches), printed beside phase 7's GCN ``infer-baseline`` row, and
+   the batched Gs eval forward of the first 4,096 subgraphs on the card
+   against the same forward on the CPU (GCN and GAT, tolerance as in
+   phase 3);
+9. one JSON line with every kernel's numbers (launches summed over the
+   main-path phases 5 to 8, per phase beside them; K3, K3w, K6, K5,
    K7f, K7bt, K7s and K7sums with their ``ptxas`` register and spill
    counts), then the ``ok`` line.
 
@@ -1577,6 +1593,167 @@ def phase_serve(device, tmp, g) -> tuple:
     return {"serve gcn": launches}, avg, avg_dev
 
 
+# the curriculum phase: (output dir, layer, setup, gradient method, epochs1,
+# epochs2); the Gc epochs launch the confirmed STEP + EVAL counts each, the
+# Gs epochs and evals none
+CURRICULUM = (
+    ("cur_gcn", "GCNConv", "Gc_train_2_Gs_infer", "GD", 2, 0),
+    ("cur_gcn_gd", "GCNConv", "Gc_train_2_Gs_train", "GD", 1, 1),
+    ("cur_gcn_mb", "GCNConv", "Gc_train_2_Gs_train", "MB", 1, 1),
+    ("cur_gcn_gs", "GCNConv", "Gs_train_2_Gs_infer", "GD", 0, 1),
+    ("cur_gat", "GATConv", "Gc_train_2_Gs_infer", "GD", 1, 0))
+# subgraphs held on the card against the CPU (the batched dense branch)
+CURRICULUM_CHECK_SUBGRAPHS = 4096
+
+
+def phase_curriculum(device, tmp, serve_avg, serve_avg_dev) -> dict:
+    """The FIT-GNN curriculum through the port's CLI on the bench graph at
+    hidden 512: the partition (computed once, then from the cache), the
+    runs of ``CURRICULUM``, the subgraph ``infer`` from the first run's
+    checkpoint beside the GCN ``infer-baseline`` row, and the batched Gs
+    eval forward on the card against the CPU's."""
+    from fitgnn_tpu_torch.graph import optimize as optimize_mod
+    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.partition import pipeline
+    from fitgnn_tpu_torch.train import loop
+    from fitgnn_tpu_torch.train.checkpoint import restore_params
+    from fitgnn_tpu_torch.utils.results import (INFERENCE_HEADER,
+                                                TRAIN_NODE_CLS_HEADER)
+
+    seen = {"partitions": [], "gc": [], "runs": []}
+    partition, optimize, run_task = (pipeline.coarsen_and_partition,
+                                     optimize_mod.optimize_coarse,
+                                     loop.run_node_task)
+
+    def timed_partition(*args, **kwargs):
+        t0 = time.perf_counter()
+        part = partition(*args, **kwargs)
+        seen["partitions"].append((time.perf_counter() - t0, part))
+        return part
+
+    def traced_optimize(coarse, **kwargs):
+        out = optimize(coarse, **kwargs)
+        hyb = out.graph.aux
+        seen["gc"].append((int(out.graph.n_node), out.graph.num_nodes_padded,
+                           0 if hyb.bsr is None else hyb.bsr.nnz_blocks,
+                           hyb.num_coo_edges))
+        return out
+
+    def traced_run(cfg, coarse, batch, verbose=False):
+        res = run_task(cfg, coarse, batch, verbose=verbose)
+        seen.setdefault("batch", batch)     # the first run's, on the host
+        seen["runs"].append(res)
+        return res
+
+    phases, rows = {}, {}
+    patches = (mock.patch.object(pipeline, "coarsen_and_partition",
+                                 timed_partition),
+               mock.patch.object(optimize_mod, "optimize_coarse",
+                                 traced_optimize),
+               mock.patch.object(loop, "run_node_task", traced_run))
+    for patch in patches:
+        patch.start()
+    try:
+        for i, (out_dir, layer, setup, method, ep1, ep2) in enumerate(
+                CURRICULUM):
+            torch.cuda.reset_peak_memory_stats()
+            launches, _, wall = run_cli(tmp, [
+                "train", "--layer_name", layer, "--hidden", str(HIDDEN),
+                "--exp_setup", setup, "--gradient_method", method,
+                "--epochs1", str(ep1), "--epochs2", str(ep2), "--runs", "1",
+                "--output_dir", out_dir])
+            if i == 0:
+                check(len(seen["partitions"]) == 1,
+                      "the first curriculum run did not partition")
+                secs, part = seen["partitions"][0]
+                b = part.subgraphs
+                print(f"curriculum partition: {secs:.2f} s host, "
+                      f"{part.num_metanodes} metanodes, Gc "
+                      f"{int(part.coarse.graph.n_node)} nodes; subgraph "
+                      f"batch (S, N_pad, E_pad) = ({b.num_subgraphs}, "
+                      f"{b.num_nodes_padded}, {b.senders.shape[1]})")
+                del part, b
+            else:
+                check(len(seen["partitions"]) == 1,
+                      f"curriculum {out_dir} did not take the partition "
+                      "from the cache")
+            want = {k: ep1 * (STEP[layer].get(k, 0) + EVAL[layer].get(k, 0))
+                    for k in (*STEP[layer], *EVAL[layer])}
+            expect(launches, want, f"curriculum {out_dir}")
+            res = seen["runs"][-1].runs[0]
+            check(np.isfinite(res.test_loss) and res.test_loss > 0,
+                  f"curriculum {out_dir}: test loss {res.test_loss}")
+            gc_ms = [round(t * 1e3, 3) for t in res.gc_epoch_seconds]
+            gs_s = [round(t, 4) for t in res.gs_epoch_seconds]
+            if ep1:
+                n, n_pad, tiles, stragglers = seen["gc"][-1]
+                print(f"curriculum {out_dir}: Gc {n} nodes (N_pad {n_pad}): "
+                      f"{tiles} tiles, {stragglers} straggler edges")
+                check(tiles > 0 and stragglers > 0,
+                      f"curriculum {out_dir}: Gc took no hybrid operator")
+            print(f"curriculum {out_dir}: {wall:.1f} s; Gc epoch ms "
+                  f"{gc_ms}; Gs epoch s {gs_s} ({method}); test eval "
+                  f"{res.test_time * 1e3:.3f} ms; test loss "
+                  f"{res.test_loss:.4f} metric {res.test_acc:.4f}; peak "
+                  f"device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            ckpt = os.path.join(tmp, "save", "node_cls", out_dir, "model.pt")
+            check(os.path.exists(ckpt), f"no checkpoint at {ckpt}")
+            phases[f"curriculum {out_dir}"] = launches
+    finally:
+        for patch in patches:
+            patch.stop()
+    batch = seen.pop("batch")
+    del seen
+
+    with open(os.path.join(tmp, "results", "bench.csv")) as f:
+        header, *lines = f.read().splitlines()
+    check(header == TRAIN_NODE_CLS_HEADER and len(lines) == len(CURRICULUM),
+          f"curriculum CSV not written under the header: {header}")
+    for line in lines:
+        row = dict(zip(header.split(","), line.split(",")))
+        check(np.isfinite(float(row["best_loss"])) and
+              float(row["ave_time"]) > 0, f"bad curriculum row {line}")
+
+    # serve each sampled node from its subgraph: no kernel launches
+    launches, forwards, wall = run_cli(tmp, [
+        "infer", "--hidden", str(HIDDEN), "--num_test_samples", "64",
+        "--output_dir", "cur_gcn"])
+    expect(launches, {}, "curriculum infer")
+    phases["curriculum infer"] = launches
+    with open(os.path.join(tmp, "inference_results", "node_cls.csv")) as f:
+        lines = f.read().splitlines()
+    check(lines[0] == INFERENCE_HEADER, "infer CSV header")
+    row = dict(zip(lines[0].split(","), lines[-1].split(",")))
+    avg, avg_dev = float(row["avg_inf_time"]), float(row["avg_inf_time_device"])
+    check(row["exp_setup"] == "fitgnn" and avg > 0 and avg_dev > 0
+          and np.isfinite(float(row["acc"])), f"bad infer row {lines[-1]}")
+    print(f"curriculum infer: {wall:.1f} s, {forwards} forwards")
+    print(f"serve GCN hidden {HIDDEN}: subgraph infer avg_inf_time={avg} "
+          f"avg_inf_time_device={avg_dev} acc={row['acc']} | "
+          f"infer-baseline avg_inf_time={serve_avg} "
+          f"avg_inf_time_device={serve_avg_dev} | ratio "
+          f"{serve_avg / avg:.1f}x wall, {serve_avg_dev / avg_dev:.1f}x "
+          "device")
+
+    # the batched Gs eval forward on the card against the CPU's
+    sub = batch.slice(0, CURRICULUM_CHECK_SUBGRAPHS)
+    for layer, out_dir in (("GCNConv", "cur_gcn"), ("GATConv", "cur_gat")):
+        model = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES)
+        model.load_state_dict(restore_params(
+            os.path.join(tmp, "save", "node_cls", out_dir, "model.pt")))
+        model.eval()
+        with torch.inference_mode():
+            ref = model(sub.x, sub.graphs())
+            reset_counts()
+            got = model.to(device)(sub.x.to(device),
+                                   sub.graphs().to(device)).cpu()
+            expect(read_counts(), {}, f"curriculum {layer} batched forward")
+        compare(f"curriculum {layer} batched Gs forward, {sub.num_subgraphs} "
+                "subgraphs, cuda vs cpu", got, ref)
+    return phases
+
+
 def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     """One kernel's line: times and bounds summed over the shapes one step
     or forward launches it at (those not marked ``on_path: False``); errors
@@ -1708,8 +1885,12 @@ def main() -> int:
         phases.update(phase_forward_only(device, g))
         phases.update(phase_train(tmp))
         phases.update(phase_gat_serve(tmp))
-        serve, _, _ = phase_serve(device, tmp, g)
+        serve, serve_avg, serve_avg_dev = phase_serve(device, tmp, g)
         phases.update(serve)
+        del g, g_gat
+        torch.cuda.empty_cache()
+        phases.update(phase_curriculum(device, tmp, serve_avg,
+                                       serve_avg_dev))
 
     kernels_line = {"kernels": [
         summarize(label, "cuda", source, replaces,

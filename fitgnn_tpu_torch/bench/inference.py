@@ -1,14 +1,19 @@
-"""Inference-latency benchmark of the full-graph baseline.
+"""Inference-latency benchmarks: FIT-GNN's subgraph serving and the
+full-graph baseline.
 
-Per-sample protocol, as in the JAX package: sample test nodes, run one
-full-graph forward per sampled node, and report the mean wall-clock time
-of those forwards (the first excluded as warm-up when there are several)
-with the loss and accuracy at the sampled nodes.
+Per-sample protocol, as in the JAX package: sample test nodes (numpy
+``default_rng(seed)``, so the same nodes), run one forward per sampled
+node — of the node's own subgraph (``node_inference_benchmark``, the
+paper's headline) or of the full graph (``baseline_inference_benchmark``)
+— to the synchronize, and report the mean wall-clock time of those
+forwards (the first excluded as warm-up when there are several) with the
+loss and accuracy at the sampled nodes.
 
 ``avg_inf_time_device`` is the device time of one forward: on the GPU,
 CUDA events around ``DEVICE_ITERS`` back-to-back forwards after a
 warm-up forward, divided by their count; on the CPU the same loop timed
-with ``perf_counter``.
+with ``perf_counter``.  The subgraph benchmark takes it on the first
+subgraph, as the JAX package does (one padded shape serves them all).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from fitgnn_tpu_torch.graph.container import Graph
+from fitgnn_tpu_torch.graph.container import Graph, SubgraphBatch
 
 DEVICE_ITERS = 16
 
@@ -70,6 +75,60 @@ def _sample_nodes(mask: np.ndarray, num_samples: int, seed: int) -> np.ndarray:
     return rng.choice(idx, size=num_samples, replace=False)
 
 
+def _report(nodes, times, losses, correct, classify, dev_time):
+    n = max(len(nodes), 1)
+    return InferenceReport(
+        num_test_samples=len(nodes),
+        avg_inf_time=float(np.mean(times[1:]) if len(times) > 1
+                           else np.mean(times)),
+        avg_loss=float(np.mean(losses)) if losses else 0.0,
+        acc=correct / n if classify else 0.0,
+        avg_inf_time_device=float(dev_time))
+
+
+def _score(row: np.ndarray, label, classify: bool, losses: list) -> int:
+    """Append the sample's loss; 1 when it is classified right."""
+    if classify:
+        losses.append(-row[int(label)])
+        return int(row.argmax() == label)
+    losses.append(abs(float(row[0]) - float(label)))
+    return 0
+
+
+def node_inference_benchmark(
+    model: nn.Module, batch: SubgraphBatch, parent: np.ndarray,
+    test_mask: np.ndarray, y: np.ndarray, num_samples: int = 100,
+    classify: bool = True, seed: int = 0,
+) -> InferenceReport:
+    """One forward of each sampled test node's own subgraph (metanode
+    ``parent[node]``), timed to the synchronize.
+
+    ``model`` and ``batch`` lie on the device to time; ``parent``,
+    ``test_mask`` and ``y`` are host arrays over the original nodes."""
+    nodes = _sample_nodes(np.asarray(test_mask, dtype=bool), num_samples,
+                          seed)
+    sub_of_node = np.asarray(parent)[nodes]          # metanode == subgraph
+    orig = batch.orig_idx.cpu().numpy()
+    dev = batch.x.device
+    model.eval()
+    times, losses, correct = [], [], 0
+    with torch.inference_mode():
+        g0 = batch.subgraph(0)
+        model(g0.x, g0)
+        _sync(dev)
+        dev_time = device_seconds_per_forward(model, g0)
+        for node, s in zip(nodes, sub_of_node):
+            g = batch.subgraph(int(s))
+            t0 = time.perf_counter()
+            out = model(g.x, g)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+            local = int(np.where(orig[int(s)] == node)[0][0])
+            correct += _score(out[local].cpu().numpy(), y[node], classify,
+                              losses)
+    return _report(nodes, times, losses, correct, classify, dev_time)
+
+
 def baseline_inference_benchmark(
     model: nn.Module, g: Graph, test_mask: np.ndarray, y: np.ndarray,
     num_samples: int = 100, classify: bool = True, seed: int = 0,
@@ -92,17 +151,6 @@ def baseline_inference_benchmark(
             out = model(g.x, g)
             _sync(dev)
             times.append(time.perf_counter() - t0)
-            row = out[int(node)].cpu().numpy()
-            if classify:
-                losses.append(-row[int(y[node])])
-                correct += int(row.argmax() == y[node])
-            else:
-                losses.append(abs(float(row[0]) - float(y[node])))
-    n = max(len(nodes), 1)
-    return InferenceReport(
-        num_test_samples=len(nodes),
-        avg_inf_time=float(np.mean(times[1:]) if len(times) > 1
-                           else np.mean(times)),
-        avg_loss=float(np.mean(losses)) if losses else 0.0,
-        acc=correct / n if classify else 0.0,
-        avg_inf_time_device=float(dev_time))
+            correct += _score(out[int(node)].cpu().numpy(), y[node],
+                              classify, losses)
+    return _report(nodes, times, losses, correct, classify, dev_time)

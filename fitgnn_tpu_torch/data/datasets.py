@@ -3,9 +3,9 @@
 A dataset lives at ``<root>/<name>/<name>.npz`` with arrays ``x``,
 ``senders``, ``receivers``, ``y`` and optional ``train_mask``,
 ``val_mask``, ``test_mask`` — the JAX package's cache format, written by
-``save_npz_cache``.  The loaders of raw formats (Planetoid, OGB, TU,
-WikiCS, GraphSAINT, ...) and the synthetic ``random_<N>`` ring are not
-ported yet and raise.
+``save_npz_cache``.  ``random`` / ``random_<N>`` is the synthetic ring,
+made on the fly.  The loaders of raw formats (Planetoid, OGB, TU, WikiCS,
+GraphSAINT, ...) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -72,12 +72,26 @@ def load_npz_cache(path: str, name: str) -> NodeDataset:
 
 
 def load_node_dataset(name: str, root: str = "./dataset") -> NodeDataset:
-    """Load a node-task dataset from its npz cache."""
+    """Load a node-task dataset from its npz cache.
+
+    ``random`` / ``random_<N>``: the reference's synthetic scalability ring
+    (each node linked to its 1- and 2-hop ring neighbours, scalar integer
+    features, one class), made on the fly as the JAX package makes it."""
     key = name.lower()
+    if key == "random" or key.startswith("random_"):
+        n = int(key.split("_", 1)[1]) if "_" in key else 1000
+        rng = np.random.default_rng(0)
+        i = np.arange(n, dtype=np.int64)
+        senders = np.concatenate([i, (i + 1) % n, i, (i + 2) % n])
+        receivers = np.concatenate([(i + 1) % n, i, (i + 2) % n, i])
+        return NodeDataset(
+            name=key, x=rng.integers(0, 10, (n, 1)).astype(np.float32),
+            senders=senders, receivers=receivers,
+            y=np.zeros(n, dtype=np.int64))
     cache = os.path.join(root, key, f"{key}.npz")
     if os.path.exists(cache):
         return load_npz_cache(cache, key)
-    if key in NODE_CLS or key in NODE_REG or key.startswith("random"):
+    if key in NODE_CLS or key in NODE_REG:
         raise NotImplementedError(
             f"no npz cache at {cache!r}, and the raw-format loader for "
             f"{key!r} is not ported yet (ROADMAP.md §1); convert it with "

@@ -11,7 +11,10 @@ up to that permutation (masks and labels permute with the nodes).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from fitgnn_tpu_torch.graph.build import build_graph
 from fitgnn_tpu_torch.graph.container import Graph
@@ -71,7 +74,7 @@ def build_optimized_graph(x: np.ndarray, senders: np.ndarray,
 
     if min_block_edges == "auto":
         raise NotImplementedError("min_block_edges='auto' needs the ingest "
-                                  "planner (ROADMAP.md §1)")
+                                  "planner (ROADMAP.md §1 item 2)")
     senders = np.asarray(senders, dtype=np.int64)
     receivers = np.asarray(receivers, dtype=np.int64)
     n = x.shape[0]
@@ -101,6 +104,70 @@ def build_optimized_graph(x: np.ndarray, senders: np.ndarray,
                        cluster_agg=cluster_agg,
                        cluster_agg_exact=cluster_agg_exact)
     return g._replace(aux=hyb), order
+
+
+def optimize_coarse(coarse, *, min_block_edges: int = 48,
+                    layer_name: str = "GCNConv", seed: int = 0):
+    """Leiden-reorder a ``CoarseData``'s graph (CPU tensors) and attach the
+    hybrid operator, as the JAX package's ``optimize_coarse`` does: a large
+    Gc is a full-graph training problem and takes the same path as
+    ``--baseline``.
+
+    Only Gc's own node order changes (with its label and mask views); the
+    Gs phase takes the transferred parameters, not Gc node ids.  The node
+    arrays grow to a multiple of 128 with inert rows (zero features, False
+    masks).  The JAX package's bf16 tiles, tile groups and cluster
+    collapses are not ported yet (ROADMAP.md §1 item 2)."""
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+    from fitgnn_tpu_torch.partition.community import \
+        hierarchical_community_order
+
+    if min_block_edges == "auto":
+        raise NotImplementedError("min_block_edges='auto' needs the ingest "
+                                  "planner (ROADMAP.md §1 item 2)")
+    g = coarse.graph
+    n_real = int(g.n_node)
+    n_pad = g.num_nodes_padded
+    s = g.senders.numpy().astype(np.int64)
+    r = g.receivers.numpy().astype(np.int64)
+    w = g.edge_weight.numpy()
+    e_real = int(g.n_edge)
+    order = hierarchical_community_order(s[:e_real], r[:e_real], n_real,
+                                         seed=seed)
+    perm = np.concatenate([order, np.arange(n_real, n_pad)])  # pads stay
+    inv = np.empty(n_pad, dtype=np.int64)
+    inv[perm] = np.arange(n_pad)
+    s2, r2 = inv[s], inv[r]
+    # receivers sorted ascending (the padding tail's weight-0 self loops on
+    # the pad node sort to the end)
+    esort = np.argsort(r2, kind="stable")
+    s2, r2, w2 = s2[esort], r2[esort], w[esort]
+    extra = (-n_pad) % 128
+    n_pad += extra
+
+    def pnode(a):
+        if a is None:
+            return None
+        a = a.numpy()[perm]
+        if extra:
+            a = np.pad(a, [(0, extra)] + [(0, 0)] * (a.ndim - 1))
+        return torch.from_numpy(a)
+
+    semantics = _LAYER_SEMANTICS[layer_name]
+    w_op = _operator_weights(s2, r2, w2, n_pad, semantics)
+    hyb = build_hybrid(s2, r2, w_op, n_pad, min_block_edges=min_block_edges,
+                       use_segmm=True, semantics=semantics)
+    g2 = g._replace(x=pnode(g.x),
+                    senders=torch.from_numpy(s2.astype(np.int32)),
+                    receivers=torch.from_numpy(r2.astype(np.int32)),
+                    edge_weight=torch.from_numpy(w2), y=pnode(g.y),
+                    train_mask=pnode(g.train_mask),
+                    val_mask=pnode(g.val_mask),
+                    test_mask=pnode(g.test_mask), aux=hyb)
+    return dataclasses.replace(
+        coarse, graph=g2, y_train=pnode(coarse.y_train),
+        train_mask=pnode(coarse.train_mask), y_val=pnode(coarse.y_val),
+        val_mask=pnode(coarse.val_mask))
 
 
 def should_use_hybrid(num_nodes: int, layer_name: str,

@@ -9,6 +9,10 @@
   (``ops/tile_gat.py``), a dense masked path for graphs of at most
   ``DENSE_SPMM_MAX_N`` padded nodes, and a per-edge path otherwise.
 
+Both layers also take a stack of same-padded subgraphs (``x`` (S, N, F),
+a ``Graph`` whose tensors have the subgraph axis in front), as the JAX
+package's ``jax.vmap`` over a ``SubgraphBatch`` runs them.
+
 SAGE and GIN are not ported yet.
 """
 
@@ -26,7 +30,8 @@ from fitgnn_tpu_torch.ops.hybrid_spmm import HybridSpmm, hybrid_spmm
 from fitgnn_tpu_torch.ops.sddmm import gather_concat_score
 from fitgnn_tpu_torch.ops.segment import segment_softmax, segment_sum, \
     take_rows
-from fitgnn_tpu_torch.ops.spmm import spmm_coo, use_dense
+from fitgnn_tpu_torch.ops.spmm import (dense_adjacency, flat_edges,
+                                       spmm_coo, use_dense)
 from fitgnn_tpu_torch.ops.tile_gat import tile_gat_attention
 
 _NEG = -1e30
@@ -121,38 +126,52 @@ class GATConv(nn.Module):
                                      att_src=v_src if narrow else a_src)
         elif use_dense(n):
             out = self._dense(score_src, score_dst, h, g)
+        elif x.dim() == 3:
+            # a stack of large subgraphs: the per-edge path over the
+            # flattened node rows
+            s, r = flat_edges(g.senders, g.receivers, n)
+            rows = x.shape[0] * n
+            out = self._per_edge(score_src.reshape(-1),
+                                 score_dst.reshape(-1),
+                                 h.reshape(rows, -1), s, r,
+                                 g.edge_mask.reshape(-1), rows)
+            out = out.reshape(x.shape[0], n, -1)
         else:
-            e = F.leaky_relu(gather_concat_score(g.senders, g.receivers,
-                                                 score_src, score_dst),
-                             self.negative_slope)
-            alpha = segment_softmax(e, g.receivers, n, mask=g.edge_mask)
-            out = segment_sum(take_rows(h, g.senders) * alpha[:, None],
-                              g.receivers, n)
+            out = self._per_edge(score_src, score_dst, h, g.senders,
+                                 g.receivers, g.edge_mask, n)
         if narrow:
             out = self.lin(out)                       # (Σ α·x)·W
         return out + self.bias
+
+    def _per_edge(self, score_src, score_dst, h, senders, receivers,
+                  edge_mask, n) -> torch.Tensor:
+        e = F.leaky_relu(gather_concat_score(senders, receivers, score_src,
+                                             score_dst), self.negative_slope)
+        alpha = segment_softmax(e, receivers, n, mask=edge_mask)
+        return segment_sum(take_rows(h, senders) * alpha[:, None],
+                           receivers, n)
 
     def _dense(self, score_src, score_dst, h, g: Graph) -> torch.Tensor:
         """Dense masked attention for small graphs: an (N, N) edge-count
         mask from one scatter, then broadcast scores and one matmul; the
         same sums as the per-edge path (duplicate edges weight the exp by
-        their count, empty rows hit the same 1e-16 clamp)."""
+        their count, empty rows hit the same 1e-16 clamp).  A stack takes
+        (S, N, N) masks, the edge mask per subgraph."""
         n = g.num_nodes_padded
-        cnt = torch.zeros((n, n), dtype=torch.float32, device=h.device)
-        cnt.index_put_((g.receivers.long(), g.senders.long()),
-                       g.edge_mask.float(), accumulate=True)
-        s = F.leaky_relu(score_dst[:, None] + score_src[None, :],
+        cnt = dense_adjacency(g.edge_mask.float(), g.senders, g.receivers,
+                              n, torch.float32)
+        s = F.leaky_relu(score_dst[..., :, None] + score_src[..., None, :],
                          self.negative_slope)
         has = cnt > 0
         # the row max is a constant shift of a softmax: detached
-        m = torch.where(has, s, _NEG).amax(dim=1, keepdim=True).detach()
+        m = torch.where(has, s, _NEG).amax(dim=-1, keepdim=True).detach()
         m = torch.where(m <= -1e29, 0.0, m)
         # mask BEFORE the exp: a pair without an edge may score far above
         # its row's max, and exp overflowing there would turn the masked
         # zero gradient into 0·inf = NaN
         p = torch.exp(torch.where(has, s - m, _NEG)) * cnt
-        alpha = p / p.sum(dim=1, keepdim=True).clamp_min(1e-16)
-        return alpha.to(h.dtype) @ h
+        alpha = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-16)
+        return torch.matmul(alpha.to(h.dtype), h)
 
 
 def make_layer(layer_name: str, in_features: int, hidden: int) -> nn.Module:

@@ -79,8 +79,8 @@ def switches() -> Switches:
     if asked:
         raise NotImplementedError(
             f"tile_gat_attention: {', '.join(asked)} selects a diagnostic "
-            "branch of the JAX package that is not ported (ROADMAP.md §2); "
-            "unset it")
+            "branch of the JAX package that is not ported (ROADMAP.md §1 "
+            "item 3); unset it")
     return Switches(fused_tiles=env("FITGNN_GAT_FUSED_TILES", "0") == "1",
                     global_max=env("FITGNN_GAT_GLOBAL_MAX", "1") == "1",
                     segmm_den=env("FITGNN_GAT_SEGMM_DEN", "0") == "1",

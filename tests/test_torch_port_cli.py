@@ -110,11 +110,12 @@ def test_cuda_default_raises_without_gpu(toy):
               str(tmp_path / "dataset")])
 
 
-@pytest.mark.parametrize("command", ["train", "infer", "memory", "stats",
-                                     "save-graphs"])
+@pytest.mark.parametrize("command", [
+    ["memory"], ["stats"], ["save-graphs"], ["infer", "--bucket_sizes"],
+    ["train", "--bucket_sizes"]], ids=lambda c: "_".join(c))
 def test_unported_subcommands_raise(command):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main([command, "--dataset", "toy"])
+        main([*command, "--dataset", "toy", "--device", "cpu"])
 
 
 def test_graph_tasks_raise(toy):
@@ -142,14 +143,15 @@ def test_dataset_loading(toy):
     assert got.train_mask is None and got.num_classes == 4
     with pytest.raises(DatasetNotFoundError):
         load_node_dataset("nope", str(tmp_path))
-    for name in ("cora", "random_50"):
-        with pytest.raises(NotImplementedError):
-            load_node_dataset(name, str(tmp_path))
+    with pytest.raises(NotImplementedError):
+        load_node_dataset("cora", str(tmp_path))
+    ring = load_node_dataset("random_50", str(tmp_path))
+    assert ring.num_nodes == 50 and len(ring.senders) == 200
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Importing every module of the port pulls in neither JAX nor the
-    JAX package."""
+    """Importing every module of the port pulls in neither JAX, nor the
+    JAX package, nor networkx (the GPU machine has none)."""
     pkg = os.path.join(REPO, "fitgnn_tpu_torch")
     mods = []
     for root, _, files in os.walk(pkg):
@@ -161,12 +163,15 @@ def test_port_imports_neither_jax_nor_reference():
     code = ("import importlib, sys\n"
             f"for m in {sorted(mods)!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'fitgnn_tpu' or "
-            "m.startswith('fitgnn_tpu.')]\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'fitgnn_tpu', 'networkx')]\n"
             "print(len(sys.modules))\n"
             "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(mods) > 20
+    for sub in ("coarsen", "partition", "train", "bench", "utils"):
+        assert any(m.startswith(f"fitgnn_tpu_torch.{sub}.") for m in mods)
+    assert "fitgnn_tpu_torch.coarsen.variation" in mods
+    assert "fitgnn_tpu_torch.train.loop" in mods

@@ -313,7 +313,8 @@ def test_train_baseline_node_reg(toy):
 
 
 @pytest.mark.parametrize("flags", [
-    [], ["--baseline", "--num_devices", "2"],
+    ["--eval_chunk", "8"], ["--fused_epochs"], ["--resume"],
+    ["--num_devices", "2"], ["--baseline", "--num_devices", "2"],
     ["--baseline", "--cluster_attention", "128"],
     ["--baseline", "--cluster_aggregation", "128"],
     ["--baseline", "--preaggregate"], ["--baseline", "--hybrid_bf16_tiles"],
