@@ -98,8 +98,33 @@ Phases (any failure exits non-zero before the result lines):
    the batched Gs eval forward of the first 4,096 subgraphs on the card
    against the same forward on the CPU (GCN and GAT, tolerance as in
    phase 3);
-9. one JSON line with every kernel's numbers (launches summed over the
-   main-path phases 5 to 8, per phase beside them; K3, K3w, K6, K5,
+9. curriculum buckets: the 1-hop halo partition (``--extra_node``) in
+   size buckets (``--bucket_sizes``) through the port's CLI at hidden
+   512, every launch counter at 0 just before each run (``phase_buckets``):
+   GCN ``Gc_train_2_Gs_train`` for 3 + 2 epochs in GD, whose partition is
+   computed once (each bucket's (S, N_pad, E_pad) and the padded rows,
+   bucketed and with one pad, held within 1% of ``BUCKET_ROWS`` and
+   ``SINGLE_PAD_ROWS``) and then taken from the cache, and in MB, both
+   with ``--fused_epochs --eval_chunk 8192 --checkpoint_every 1``; GAT
+   ``Gc_train_2_Gs_infer --fused_epochs`` for 3; GCN ``Gc_train_2_Gs_infer``
+   for 3 with and without ``--fused_epochs`` (the fused phase under
+   ``torch.cuda.set_sync_debug_mode("error")``, as every fused phase here;
+   the val losses, their best and the test loss within rtol 1e-4), and,
+   since that mode does not see every synchronization, a probe: a fused
+   run of 2 epochs behind ~0.5 s of ``torch.cuda._sleep`` must return to
+   the host before half of it has passed; the GD
+   run cut after its Gs epoch 0's checkpoint and taken up with
+   ``--resume`` (test loss and metric within rtol 1e-3 of the
+   uninterrupted run's: the card's atomics); each Gc phase launching the
+   counts per train step and eval forward that phase 4 confirmed times
+   its epochs, the Gs phases none; the fused Gc ms an epoch, the Gs epoch
+   seconds and the peak device memory of each run; the eval of every
+   bucket at once against the chunked one (peak memory of each); then
+   ``infer --extra_node --bucket_sizes`` from the GD run's checkpoint (64
+   samples, no launches, the samples of each bucket) beside phase 8's
+   ``infer``;
+10. one JSON line with every kernel's numbers (launches summed over the
+   main-path phases 5 to 9, per phase beside them; K3, K3w, K6, K5,
    K7f, K7bt, K7s and K7sums with their ``ptxas`` register and spill
    counts), then the ``ok`` line.
 
@@ -1751,6 +1776,304 @@ def phase_curriculum(device, tmp, serve_avg, serve_avg_dev) -> dict:
             expect(read_counts(), {}, f"curriculum {layer} batched forward")
         compare(f"curriculum {layer} batched Gs forward, {sub.num_subgraphs} "
                 "subgraphs, cuda vs cpu", got, ref)
+    return phases, (avg, avg_dev)
+
+
+# phase 9: the extra-node curriculum in size buckets.  The padded rows the
+# port's own coarsen and extract_subgraphs give this partition
+# (variation_neighborhoods, ratio 0.5, extra_node, seed 0) on the CPU:
+# bucketed (caps 32 / 64 / 128 at N_pad 40 / 72 / 104) and with one pad for
+# every subgraph (N_pad 104)
+BUCKET_ROWS = 3_615_960
+SINGLE_PAD_ROWS = 8_814_936
+BUCKET_EVAL_CHUNK = 8192
+BUCKET_FLAGS = ["--extra_node", "--bucket_sizes", "--hidden", str(HIDDEN),
+                "--runs", "1"]
+BUCKET_GD = ["--layer_name", "GCNConv", "--exp_setup", "Gc_train_2_Gs_train",
+             "--fused_epochs", "--eval_chunk", str(BUCKET_EVAL_CHUNK),
+             "--checkpoint_every", "1", "--epochs1", "3", "--epochs2", "2"]
+
+
+# cycles of torch.cuda._sleep in the fused phase's probe (~0.5 s at the
+# H100's SM clock), far longer than the host takes to launch 2 epochs
+PROBE_CYCLES = 1_000_000_000
+
+
+class Interrupted(Exception):
+    """The crash a resume check simulates."""
+
+
+def phase_buckets(device, tmp, plain_infer) -> dict:
+    """The extra-node curriculum on size-bucketed batches through the
+    port's CLI at hidden 512: GCN ``Gc_train_2_Gs_train`` in GD (the
+    partition computed here once, then from the cache) and in MB, each
+    with the fused Gc phase, the chunked eval and a resume checkpoint an
+    epoch; GAT ``Gc_train_2_Gs_infer`` with the fused Gc phase; GCN
+    ``Gc_train_2_Gs_infer`` with and without ``--fused_epochs`` (the fused
+    phase under ``set_sync_debug_mode("error")``), which must agree; the GD
+    run again, cut after its Gs epoch 0 and taken up with ``--resume``; the
+    eval of every bucket at once against the chunked one on the card; and
+    the bucketed ``infer``."""
+    from fitgnn_tpu_torch.bench import inference as inference_mod
+    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.partition import pipeline
+    from fitgnn_tpu_torch.train import checkpoint as ckpt_mod
+    from fitgnn_tpu_torch.train import loop, steps
+    from fitgnn_tpu_torch.train.checkpoint import restore_params
+    from fitgnn_tpu_torch.utils.results import INFERENCE_HEADER
+
+    seen = {"partitions": [], "runs": []}
+    partition, run_task = pipeline.coarsen_and_partition, loop.run_node_task
+
+    def timed_partition(*args, **kwargs):
+        t0 = time.perf_counter()
+        part = partition(*args, **kwargs)
+        seen["partitions"].append((time.perf_counter() - t0, part))
+        return part
+
+    def traced_run(cfg, coarse, batch, verbose=False):
+        res = run_task(cfg, coarse, batch, verbose=verbose)
+        seen["runs"].append(res.runs[0])
+        return res
+
+    phases = {}
+
+    def train(out_dir, argv, layer, epochs1, env=None):
+        """One ``train`` run: its launches against the Gc phase's
+        ``epochs1 × (STEP + EVAL)`` (the Gs phase launches none), its
+        peak device memory; returns its ``RunResult``."""
+        torch.cuda.reset_peak_memory_stats()
+        launches, _, wall = run_cli(tmp, ["train", *BUCKET_FLAGS, *argv,
+                                          "--output_dir", out_dir], env)
+        want = {k: epochs1 * (STEP[layer].get(k, 0) + EVAL[layer].get(k, 0))
+                for k in (*STEP[layer], *EVAL[layer])}
+        expect(launches, want, f"buckets {out_dir}")
+        phases[f"buckets {out_dir}"] = launches
+        res = seen["runs"][-1]
+        check(np.isfinite(res.test_loss) and res.test_loss > 0,
+              f"buckets {out_dir}: test loss {res.test_loss}")
+        fused = ("" if res.gc_fused_seconds is None else
+                 f"fused Gc {res.gc_fused_seconds * 1e3 / epochs1:.3f} ms "
+                 f"an epoch ({epochs1} in {res.gc_fused_seconds:.3f} s); ")
+        print(f"buckets {out_dir}: {wall:.1f} s; {fused}Gc epoch ms "
+              f"{[round(t * 1e3, 3) for t in res.gc_epoch_seconds]}; Gs "
+              f"epoch s {[round(t, 4) for t in res.gs_epoch_seconds]}; "
+              f"test eval {res.test_time * 1e3:.3f} ms; test loss "
+              f"{res.test_loss:.6f} metric {res.test_acc:.6f}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return res
+
+    strict_calls, probe = [], []
+    fused_fn = steps.gc_train_epochs_fused
+
+    def strict_fused(*args, **kwargs):
+        """The fused Gc phase with any host synchronization an error.  In
+        the probe run the device is first kept busy for ``PROBE_CYCLES``
+        (``torch.cuda._sleep``), so a phase that waited for the device
+        anywhere would return to the host only after that; the host
+        seconds until it returns and until the device is done are
+        recorded."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if probe:
+            torch.cuda._sleep(PROBE_CYCLES)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fused_fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        returned = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        strict_calls.append((returned, time.perf_counter() - t0))
+        print(f"fused Gc phase{' (probe)' if probe else ''}: returned to "
+              f"the host after {returned * 1e3:.3f} ms, the device done "
+              f"after {strict_calls[-1][1] * 1e3:.3f} ms")
+        return out
+
+    save_fn = ckpt_mod.save_resume
+
+    def save_then_crash(*args, **kwargs):
+        save_fn(*args, **kwargs)
+        if args[6:8] == ("gs", 0):           # phase, epoch
+            raise Interrupted("after Gs epoch 0's checkpoint")
+
+    patches = (mock.patch.object(pipeline, "coarsen_and_partition",
+                                 timed_partition),
+               mock.patch.object(loop, "run_node_task", traced_run),
+               mock.patch.object(steps, "gc_train_epochs_fused",
+                                 strict_fused))
+    for patch in patches:
+        patch.start()
+    try:
+        # (1) GCN GD: the partition, computed once
+        gd = train("buck_gd", ["--gradient_method", "GD", *BUCKET_GD],
+                   "GCNConv", 3)
+        check(len(seen["partitions"]) == 1,
+              "the first bucketed run did not partition")
+        secs, part = seen["partitions"][0]
+        batches = part.subgraphs
+        check(isinstance(batches, tuple) and len(batches) >= 2,
+              f"the extra-node partition gave {len(batches)} buckets")
+        rows = sum(b.num_subgraphs * b.num_nodes_padded for b in batches)
+        n_max = max(int(b.n_node.max()) for b in batches)
+        n_single = max(-(-(n_max + 1) // 8) * 8, 8)
+        single = part.num_metanodes * n_single
+        shapes = [(b.num_subgraphs, b.num_nodes_padded, b.senders.shape[1])
+                  for b in batches]
+        print(f"buckets partition: {secs:.2f} s host, {part.num_metanodes} "
+              f"subgraphs in {len(batches)} buckets, (S, N_pad, E_pad) "
+              f"{shapes}; "
+              f"padded rows {rows} bucketed, {single} with one pad (N_pad "
+              f"{n_single}): {single / rows:.2f}x")
+        check(rows < single, "bucketing padded no fewer rows")
+        for got, ref, what in ((rows, BUCKET_ROWS, "bucketed"),
+                               (single, SINGLE_PAD_ROWS, "single-pad")):
+            check(abs(got - ref) <= 0.01 * ref,
+                  f"{what} padded rows {got}, expected {ref} within 1%")
+        check(gd.gc_fused_seconds is not None and len(gd.gs_epoch_seconds)
+              == 2, "buck_gd did not run the fused Gc phase and 2 Gs epochs")
+        del part
+        # (2) GCN MB, from the cache
+        train("buck_mb", ["--gradient_method", "MB", *BUCKET_GD], "GCNConv",
+              3)
+        # (3) GAT with the fused Gc phase
+        gat = train("buck_gat", [
+            "--layer_name", "GATConv", "--exp_setup", "Gc_train_2_Gs_infer",
+            "--fused_epochs", "--epochs1", "3", "--eval_chunk",
+            str(BUCKET_EVAL_CHUNK)], "GATConv", 3)
+        check(gat.gc_fused_seconds is not None, "buck_gat was not fused")
+        # (4) the fused Gc phase against the per-epoch loop
+        n_strict = len(strict_calls)
+        pair = {}
+        for out_dir, extra in (("buck_fused", ["--fused_epochs"]),
+                               ("buck_epochs", [])):
+            res = train(out_dir, ["--layer_name", "GCNConv", "--exp_setup",
+                                  "Gc_train_2_Gs_infer", "--epochs1", "3",
+                                  *extra], "GCNConv", 3)
+            with open(os.path.join(tmp, "save", "node_cls", out_dir,
+                                   "run_1", "scalars.jsonl")) as f:
+                vals = [json.loads(line) for line in f]
+            vals = [r["value"] for r in vals if r["tag"] == "Gc_val_loss"]
+            pair[out_dir] = (res, vals)
+        check(len(strict_calls) == n_strict + 1,
+              "the fused run did not run under the sync check")
+        # the probe: the fused phase behind a busy device
+        probe.append(1)
+        train("buck_probe", ["--layer_name", "GCNConv", "--exp_setup",
+                             "Gc_train_2_Gs_infer", "--epochs1", "2",
+                             "--fused_epochs"], "GCNConv", 2)
+        probe.clear()
+        returned, done = strict_calls[-1]
+        check(returned < 0.5 * done, "the fused Gc phase returned to the "
+              f"host after {returned * 1e3:.3f} ms of {done * 1e3:.3f} "
+              "behind a busy device: it waited for the device")
+        (fres, fvals), (eres, evals) = pair["buck_fused"], pair["buck_epochs"]
+        print(f"fused vs per-epoch Gc: val losses {fvals} / {evals}; best "
+              f"{min(fvals):.6f} / {min(evals):.6f}; test loss "
+              f"{fres.test_loss:.6f} / {eres.test_loss:.6f}; Gc "
+              f"{fres.gc_fused_seconds * 1e3 / 3:.3f} ms an epoch fused, "
+              f"{[round(t * 1e3, 3) for t in eres.gc_epoch_seconds]} ms "
+              "per epoch")
+        check(len(fvals) == len(evals) == 3
+              and np.allclose(fvals, evals, rtol=RTOL, atol=0)
+              and np.isclose(min(fvals), min(evals), rtol=RTOL, atol=0)
+              and np.isclose(fres.test_loss, eres.test_loss, rtol=RTOL,
+                             atol=0),
+              "the fused Gc phase disagrees with the per-epoch loop")
+        # (5) resume: (1) cut after Gs epoch 0, then taken up
+        with mock.patch.object(ckpt_mod, "save_resume", save_then_crash):
+            try:
+                run_cli(tmp, ["train", *BUCKET_FLAGS, "--gradient_method",
+                              "GD", *BUCKET_GD, "--output_dir",
+                              "buck_resume"])
+            except Interrupted:
+                cut = read_counts()
+            else:
+                check(False, "the resume run was not interrupted")
+        expect(cut, {k: 3 * (STEP["GCNConv"][k] + EVAL["GCNConv"][k])
+                     for k in STEP["GCNConv"]},
+               "buckets buck_resume, cut after Gs epoch 0")
+        phases["buckets buck_resume cut"] = cut
+        resumed = train("buck_resume", ["--gradient_method", "GD",
+                                         *BUCKET_GD, "--resume"],
+                        "GCNConv", 0)
+        print(f"resumed vs uninterrupted: test loss {resumed.test_loss:.6f} "
+              f"/ {gd.test_loss:.6f}, metric {resumed.test_acc:.6f} / "
+              f"{gd.test_acc:.6f}; Gs epochs run "
+              f"{len(resumed.gs_epoch_seconds)}")
+        check(len(resumed.gs_epoch_seconds) == 1
+              and np.isclose(resumed.test_loss, gd.test_loss, rtol=1e-3,
+                             atol=0)
+              and np.isclose(resumed.test_acc, gd.test_acc, rtol=1e-3,
+                             atol=0),
+              "the resumed run disagrees with the uninterrupted one")
+    finally:
+        for patch in patches:
+            patch.stop()
+
+    # the eval of every bucket at once against the chunked one, on the card
+    model = NodeModel("GCNConv", NUM_FEATURES, HIDDEN, 2, NUM_CLASSES)
+    model.load_state_dict(restore_params(
+        os.path.join(tmp, "save", "node_cls", "buck_gd", "model.pt")))
+    model = model.to(device)
+    on_card = tuple(b.to(device) for b in batches)
+    del batches
+    cfg = loop.NodeTaskConfig(hidden=HIDDEN, device="cuda")
+    evals = {}
+    for chunk in (0, BUCKET_EVAL_CHUNK):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        evals[chunk] = loop._gs_eval(model, on_card, dataclasses.replace(
+            cfg, eval_chunk=chunk), "test")
+        secs = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        print(f"buckets eval {'chunk ' + str(chunk) if chunk else 'whole'}: "
+              f"loss {evals[chunk][0]:.6f} metric {evals[chunk][1]:.6f}, "
+              f"{secs:.3f} s, peak device memory above the batches "
+              f"{peak:.2f} GiB")
+    check(np.allclose(evals[0], evals[BUCKET_EVAL_CHUNK], rtol=RTOL, atol=0),
+          "the chunked eval disagrees with the whole-bucket eval")
+    del on_card, model
+    torch.cuda.empty_cache()
+
+    # (6) the bucketed infer: which buckets its samples fall in
+    sampled = {}
+    bench_fn = inference_mod.node_inference_benchmark
+
+    def traced_bench(model, batch, parent, test_mask, y, num_samples=100,
+                     classify=True, seed=0, subgraph_index=None):
+        nodes = inference_mod._sample_nodes(np.asarray(test_mask, bool),
+                                            num_samples, seed)
+        b, c = np.unique(subgraph_index[parent[nodes], 0],
+                         return_counts=True)
+        sampled.update(zip(b.tolist(), c.tolist()))
+        return bench_fn(model, batch, parent, test_mask, y, num_samples,
+                        classify, seed, subgraph_index)
+
+    with mock.patch.object(inference_mod, "node_inference_benchmark",
+                           traced_bench):
+        launches, forwards, wall = run_cli(tmp, [
+            "infer", "--extra_node", "--bucket_sizes", "--hidden",
+            str(HIDDEN), "--num_test_samples", "64", "--output_dir",
+            "buck_gd"])
+    expect(launches, {}, "buckets infer")
+    phases["buckets infer"] = launches
+    with open(os.path.join(tmp, "inference_results", "node_cls.csv")) as f:
+        lines = f.read().splitlines()
+    check(lines[0] == INFERENCE_HEADER, "infer CSV header")
+    row = dict(zip(lines[0].split(","), lines[-1].split(",")))
+    avg = float(row["avg_inf_time"])
+    avg_dev = float(row["avg_inf_time_device"])
+    check(row["extra_nodes"] == "True" and avg > 0 and avg_dev > 0
+          and np.isfinite(float(row["acc"])), f"bad infer row {lines[-1]}")
+    check(sum(sampled.values()) == 64, f"sampled buckets {sampled}")
+    print(f"buckets infer: {wall:.1f} s, {forwards} forwards, samples by "
+          f"bucket {sampled}; avg_inf_time={avg} avg_inf_time_device="
+          f"{avg_dev} acc={row['acc']} | plain-mode infer (phase 8) "
+          f"avg_inf_time={plain_infer[0]} avg_inf_time_device="
+          f"{plain_infer[1]}")
     return phases
 
 
@@ -1889,8 +2212,11 @@ def main() -> int:
         phases.update(serve)
         del g, g_gat
         torch.cuda.empty_cache()
-        phases.update(phase_curriculum(device, tmp, serve_avg,
-                                       serve_avg_dev))
+        curriculum, plain_infer = phase_curriculum(device, tmp, serve_avg,
+                                                   serve_avg_dev)
+        phases.update(curriculum)
+        torch.cuda.empty_cache()
+        phases.update(phase_buckets(device, tmp, plain_infer))
 
     kernels_line = {"kernels": [
         summarize(label, "cuda", source, replaces,

@@ -13,13 +13,15 @@ loss and accuracy at the sampled nodes.
 CUDA events around ``DEVICE_ITERS`` back-to-back forwards after a
 warm-up forward, divided by their count; on the CPU the same loop timed
 with ``perf_counter``.  The subgraph benchmark takes it on the first
-subgraph, as the JAX package does (one padded shape serves them all).
+subgraph of each sampled bucket (one padded shape a bucket), weighted by
+the bucket's samples, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -96,34 +98,55 @@ def _score(row: np.ndarray, label, classify: bool, losses: list) -> int:
 
 
 def node_inference_benchmark(
-    model: nn.Module, batch: SubgraphBatch, parent: np.ndarray,
+    model: nn.Module, batch, parent: np.ndarray,
     test_mask: np.ndarray, y: np.ndarray, num_samples: int = 100,
     classify: bool = True, seed: int = 0,
+    subgraph_index: Optional[np.ndarray] = None,
 ) -> InferenceReport:
     """One forward of each sampled test node's own subgraph (metanode
     ``parent[node]``), timed to the synchronize.
 
-    ``model`` and ``batch`` lie on the device to time; ``parent``,
-    ``test_mask`` and ``y`` are host arrays over the original nodes."""
+    ``batch`` is one ``SubgraphBatch`` or a sequence of size-bucketed ones
+    with ``subgraph_index[meta] = (bucket, position)``, the partition's
+    ``bucket=True`` layout.  Each sampled bucket's shape gets a warm-up
+    forward and its own device time; ``avg_inf_time_device`` weights them
+    by the samples drawn from each bucket.  ``model`` and the batches lie
+    on the device to time; ``parent``, ``test_mask`` and ``y`` are host
+    arrays over the original nodes."""
+    buckets = ((batch,) if isinstance(batch, SubgraphBatch)
+               else tuple(batch))
+    if subgraph_index is None:
+        if len(buckets) > 1:
+            raise ValueError(
+                "bucketed batches need the partition's subgraph_index "
+                "(metanode -> (bucket, position)); without it sampled "
+                "nodes would map to the wrong subgraphs")
+        s0 = buckets[0].num_subgraphs
+        subgraph_index = np.stack([np.zeros(s0, dtype=np.int64),
+                                   np.arange(s0, dtype=np.int64)], axis=1)
     nodes = _sample_nodes(np.asarray(test_mask, dtype=bool), num_samples,
                           seed)
-    sub_of_node = np.asarray(parent)[nodes]          # metanode == subgraph
-    orig = batch.orig_idx.cpu().numpy()
-    dev = batch.x.device
+    where = np.asarray(subgraph_index)[np.asarray(parent)[nodes]]
+    sampled, counts = np.unique(where[:, 0], return_counts=True)
+    origs = [b.orig_idx.cpu().numpy() for b in buckets]
+    dev = buckets[0].x.device
     model.eval()
     times, losses, correct = [], [], 0
     with torch.inference_mode():
-        g0 = batch.subgraph(0)
-        model(g0.x, g0)
-        _sync(dev)
-        dev_time = device_seconds_per_forward(model, g0)
-        for node, s in zip(nodes, sub_of_node):
-            g = batch.subgraph(int(s))
+        dev_times = []
+        for b in sampled:
+            g0 = buckets[int(b)].subgraph(0)
+            model(g0.x, g0)
+            _sync(dev)
+            dev_times.append(device_seconds_per_forward(model, g0))
+        dev_time = float(np.dot(dev_times, counts) / max(counts.sum(), 1))
+        for node, (b, pos) in zip(nodes, where):
+            g = buckets[int(b)].subgraph(int(pos))
             t0 = time.perf_counter()
             out = model(g.x, g)
             _sync(dev)
             times.append(time.perf_counter() - t0)
-            local = int(np.where(orig[int(s)] == node)[0][0])
+            local = int(np.where(origs[int(b)][int(pos)] == node)[0][0])
             correct += _score(out[local].cpu().numpy(), y[node], classify,
                               losses)
     return _report(nodes, times, losses, correct, classify, dev_time)

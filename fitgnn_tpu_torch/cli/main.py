@@ -9,10 +9,14 @@ Ported, for node tasks with GCN and GAT: ``train`` (the FIT-GNN
 curriculum: coarsening, partition, the three Gc/Gs setups in GD and MB),
 ``infer`` (the subgraph inference-latency benchmark, from the checkpoint
 ``train`` saved), ``train --baseline`` (full-batch training) and
-``infer-baseline`` (the full-graph inference-latency baseline).  The
-options not ported yet, ``memory``, ``stats``, ``save-graphs`` and the
-graph-level tasks raise ``NotImplementedError`` naming their ROADMAP
-item.  Every subcommand takes
+``infer-baseline`` (the full-graph inference-latency baseline).
+``train`` and ``infer`` take size-bucketed subgraph batches
+(``--bucket_sizes``, ``--max_buckets``); ``train`` the chunked Gs eval
+(``--eval_chunk``), the Gc phase without a host read per epoch
+(``--fused_epochs``) and mid-training resume (``--resume``,
+``--checkpoint_every``).  The options not ported yet, ``memory``,
+``stats``, ``save-graphs`` and the graph-level tasks raise
+``NotImplementedError`` naming their ROADMAP item.  Every subcommand takes
 ``--device {cuda,cpu}`` (default ``cuda``); asking for ``cuda`` without a
 GPU raises instead of falling back.
 """
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import sys
 import time
 from typing import Optional
@@ -59,17 +64,12 @@ _TRAIN_NOT_PORTED = (
      "ROADMAP.md §1 item 2 (bf16 tiles)"),
     ("--auto_config", lambda a: a.auto_config,
      "ROADMAP.md §1 item 2 (ingest planner)"),
-    ("--resume", lambda a: a.resume,
-     "ROADMAP.md §1 item 1 (resume)"),
-    ("--checkpoint_every", lambda a: a.checkpoint_every,
-     "ROADMAP.md §1 item 1 (resume)"),
-    ("--bucket_sizes", lambda a: a.bucket_sizes and not a.baseline,
-     "ROADMAP.md §1 item 1 (bucketing)"),
-    ("--eval_chunk", lambda a: a.eval_chunk and not a.baseline,
-     "ROADMAP.md §1 item 1 (eval_chunk)"),
-    ("--fused_epochs", lambda a: a.fused_epochs and not a.baseline,
-     "ROADMAP.md §1 item 1 (fused_epochs)"),
 )
+
+# the resume flags under --baseline: the JAX package's baseline reads
+# neither, so the port refuses them rather than ignore them
+_BASELINE_NO_RESUME = (("--resume", lambda a: a.resume),
+                       ("--checkpoint_every", lambda a: a.checkpoint_every))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -92,12 +92,13 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--seed", type=int, default=0)
         sp.add_argument("--output_dir", type=str, default="out")
         sp.add_argument("--bucket_sizes", action="store_true",
-                        help="size-bucketed subgraph batches: not ported "
-                        "yet (train and infer raise); the baselines ignore "
-                        "it")
+                        help="size-bucket the subgraph batches (pad within "
+                        "power-of-two node-count buckets, at least 32); "
+                        "the baselines ignore it")
         sp.add_argument("--max_buckets", type=int, default=0,
-                        help="accepted for parity (no effect without "
-                        "--bucket_sizes)")
+                        help="cap the bucket count by merging adjacent "
+                        "buckets with the least added padding; 0 = one "
+                        "bucket per power of two")
         sp.add_argument("--normalize_features", action="store_true",
                         help="row-wise L1 feature normalization")
         sp.add_argument("--auto_config", action="store_true",
@@ -151,11 +152,20 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--cluster_aggregation", type=int, default=0)
     t.add_argument("--cluster_aggregation_exact", type=int, default=0)
     t.add_argument("--preaggregate", action="store_true")
-    t.add_argument("--eval_chunk", type=int, default=0)
+    t.add_argument("--eval_chunk", type=int, default=0,
+                   help="evaluate the subgraphs in slices of this many per "
+                   "bucket (capped by --chunk_budget); 0 = all at once")
     t.add_argument("--chunk_budget", type=int, default=1 << 28)
-    t.add_argument("--checkpoint_every", type=int, default=0)
-    t.add_argument("--resume", action="store_true")
-    t.add_argument("--fused_epochs", action="store_true")
+    t.add_argument("--checkpoint_every", type=int, default=0,
+                   help="save the resume checkpoint every this many epochs "
+                   "(and at phase and run boundaries); without --resume a "
+                   "stale one is deleted first")
+    t.add_argument("--resume", action="store_true",
+                   help="take up the resume checkpoint of this output_dir "
+                   "(save/<task>/<output_dir>/resume/) if there is one")
+    t.add_argument("--fused_epochs", action="store_true",
+                   help="run the Gc phase without a host read per epoch "
+                   "(ignored under --early_stopping)")
     t.add_argument("--num_devices", type=int, default=1)
     t.add_argument("--num_hosts", type=int, default=1)
     i = common(sub.add_parser("infer"))
@@ -284,7 +294,8 @@ def _partition(args, ds, train, val, test, num_classes):
             reduction=1.0 - args.coarsening_ratio,  # reference ratio semantics
             method=args.coarsening_method, mode=_node_mode(args), task=task,
             num_classes=num_classes, train_mask=train, val_mask=val,
-            test_mask=test, seed=args.seed)
+            test_mask=test, seed=args.seed, bucket=args.bucket_sizes,
+            max_buckets=args.max_buckets)
         print(f"partition: {time.perf_counter() - t0:.2f} s host, "
               f"{part.num_metanodes} metanodes", file=sys.stderr)
         return part
@@ -302,7 +313,8 @@ def _partition(args, ds, train, val, test, num_classes):
          "val_mask": _mask_arr(val), "test_mask": _mask_arr(test)},
         {"ratio": args.coarsening_ratio, "method": args.coarsening_method,
          "mode": _node_mode(args), "task": args.task, "seed": args.seed,
-         "bucket": False, "max_buckets": 0, "artifact": ARTIFACT_KIND})
+         "bucket": args.bucket_sizes, "max_buckets": args.max_buckets,
+         "artifact": ARTIFACT_KIND})
     part, hit = cache.load_or_compute(key, compute)
     if hit:
         print(f"partition artifacts loaded from cache ({key})",
@@ -359,16 +371,13 @@ def cmd_infer(args) -> int:
     subgraph; one row to ``inference_results/<task>.csv``."""
     import torch
     from fitgnn_tpu_torch.bench.inference import node_inference_benchmark
+    from fitgnn_tpu_torch.graph.container import SubgraphBatch
     from fitgnn_tpu_torch.models.models import NodeModel
     from fitgnn_tpu_torch.train.checkpoint import restore_params
     from fitgnn_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     _check_node_task(args)
-    if args.bucket_sizes:
-        raise NotImplementedError(
-            "infer --bucket_sizes is not ported yet: ROADMAP.md §1 item 1 "
-            "(bucketing)")
     ds = _load_node(args)
     classify = args.task == "node_cls"
     num_classes = ds.num_classes if classify else None
@@ -385,10 +394,12 @@ def cmd_infer(args) -> int:
     ckpt = _resolve_checkpoint(args, baseline=False)
     if ckpt:
         model.load_state_dict(restore_params(ckpt))
+    batches = ((part.subgraphs,) if isinstance(part.subgraphs, SubgraphBatch)
+               else part.subgraphs)
     rep = node_inference_benchmark(
-        model.to(device), part.subgraphs.to(device), part.parent, test,
-        ds.y, num_samples=args.num_test_samples, classify=classify,
-        seed=args.seed)
+        model.to(device), tuple(b.to(device) for b in batches), part.parent,
+        test, ds.y, num_samples=args.num_test_samples, classify=classify,
+        seed=args.seed, subgraph_index=part.subgraph_index)
     return _inference_row(args, rep, "fitgnn")
 
 
@@ -451,6 +462,14 @@ def _check_train_args(args) -> None:
         if is_set(args):
             raise NotImplementedError(
                 f"train {flag} is not ported yet: {item}")
+    if args.baseline:
+        for flag, is_set in _BASELINE_NO_RESUME:
+            if is_set(args):
+                raise NotImplementedError(
+                    f"train --baseline {flag}: the JAX package's baseline "
+                    "has no resume (it reads neither --resume nor "
+                    "--checkpoint_every), so neither has the port's "
+                    "(ROADMAP.md §1, resume)")
     _check_node_task(args)
 
 
@@ -610,7 +629,16 @@ def cmd_train(args) -> int:
             f"results/{args.dataset}_intermediate_inference.csv"
             if args.run_intermediate_inference else None),
         early_stopping=args.early_stopping,
-        chunk_elem_budget=args.chunk_budget, device=args.device)
+        chunk_elem_budget=args.chunk_budget, eval_chunk=args.eval_chunk,
+        fused_epochs=args.fused_epochs,
+        resume_path=(os.path.join("save", args.task, args.output_dir,
+                                  "resume")
+                     if (args.resume or args.checkpoint_every) else None),
+        checkpoint_every=args.checkpoint_every, device=args.device)
+    if cfg.resume_path and not args.resume:
+        # --checkpoint_every without --resume is a fresh session: a stale
+        # checkpoint of an earlier one must not skip its epochs
+        shutil.rmtree(cfg.resume_path, ignore_errors=True)
     res = run_node_task(cfg, coarse, part.subgraphs, verbose=True)
     print(f"checkpoint saved: {save_path}")
     s = res.summary

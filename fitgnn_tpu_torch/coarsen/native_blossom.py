@@ -50,7 +50,8 @@ def max_weight_matching_native(edges: np.ndarray, weights: np.ndarray,
     if num_nodes > MAX_NODES:
         raise NotImplementedError(
             f"optimal matching on {num_nodes} nodes: the native blossom "
-            f"holds at most {MAX_NODES} (ROADMAP.md §1 item 1); use "
+            f"holds at most {MAX_NODES} (ROADMAP.md §1, optimal matching "
+            "above the blossom's size); use "
             "algorithm='greedy'")
     lib = _lib()
     eu = np.ascontiguousarray(edges[0], dtype=np.int64)

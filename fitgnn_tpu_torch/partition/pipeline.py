@@ -15,8 +15,9 @@ The array-native analog of the reference's ``coarsening_classification`` /
 4. build the per-metanode subgraph batch in the requested node mode.
 
 The port's copy of the JAX package's ``partition/pipeline.py``: the same
-numpy, with CPU tensors in ``CoarseData`` and the ``SubgraphBatch``.
-Size-bucketed batches (``bucket=True``) are not ported yet.
+numpy, with CPU tensors in ``CoarseData`` and the ``SubgraphBatch`` (or,
+with ``bucket=True``, a tuple of size-bucketed batches and the index of
+each metanode's subgraph in them).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from fitgnn_tpu_torch.coarsen import (
 )
 from fitgnn_tpu_torch.graph.build import build_graph
 from fitgnn_tpu_torch.graph.container import Graph, SubgraphBatch
+from fitgnn_tpu_torch.partition.bucketing import bucket_subgraphs_with_index
 from fitgnn_tpu_torch.partition.subgraphs import extract_subgraphs, pad_subgraphs
 from fitgnn_tpu_torch.utils.device import dataclass_to
 
@@ -60,8 +62,12 @@ class CoarseData:
 class PartitionedDataset:
     parent: np.ndarray                # (N,) global node → metanode
     coarse: Optional[CoarseData]      # None when no component qualifies
-    subgraphs: SubgraphBatch
+    subgraphs: SubgraphBatch          # or a tuple of size-bucketed batches
+                                      # (``bucket=True``)
     num_metanodes: int
+    # with bucket=True: (num_meta, 2), the (bucket, position) of metanode
+    # i's subgraph
+    subgraph_index: Optional[np.ndarray] = None
 
 
 def _component_adjacency(senders: np.ndarray, receivers: np.ndarray,
@@ -97,10 +103,6 @@ def coarsen_and_partition(
     bucket: bool = False,
     max_buckets: int = 0,
 ) -> PartitionedDataset:
-    if bucket:
-        raise NotImplementedError(
-            "coarsen_and_partition(bucket=True): size-bucketed subgraph "
-            "batches are not ported yet (ROADMAP.md §1 item 1, bucketing)")
     N = x.shape[0]
     W = _component_adjacency(senders, receivers, N)
     comps = connected_components(W)
@@ -150,6 +152,15 @@ def coarsen_and_partition(
     specs = extract_subgraphs(W, x, parent, mode=mode,
                               coarse_x=coarse_x_global,
                               coarse_W=coarse_W_global)
+    if bucket:
+        batches, index = bucket_subgraphs_with_index(
+            specs, y=y, train_mask=train_mask, val_mask=val_mask,
+            test_mask=test_mask, node_pad_to=node_pad_to,
+            edge_pad_to=edge_pad_to, max_buckets=max_buckets)
+        return PartitionedDataset(parent=parent, coarse=coarse,
+                                  subgraphs=tuple(batches),
+                                  num_metanodes=num_meta,
+                                  subgraph_index=index)
     batch = pad_subgraphs(specs, y=y, train_mask=train_mask,
                           val_mask=val_mask, test_mask=test_mask,
                           node_pad_to=node_pad_to, edge_pad_to=edge_pad_to)

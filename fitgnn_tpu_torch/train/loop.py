@@ -11,20 +11,24 @@ three experiment setups —
   over, as the JAX package's ``state.replace(params=…)`` keeps it, unless
   ``lr2`` starts a fresh one),
 
-with best-validation tracking in both phases, GD/MB gradient modes,
-early stopping, the intermediate-inference CSV, and a warm-up then timed
-Gs test eval per run.  Multi-run statistics (mean, top-10, best) match the
-reference's reporting.
+with best-validation tracking in both phases, GD/MB gradient modes on one
+subgraph batch or on size-bucketed batches, early stopping, the
+intermediate-inference CSV, and a warm-up then timed Gs test eval per run.
+``fused_epochs`` runs the Gc phase without reading a value back until it
+ends (ignored under ``early_stopping``, which needs each val loss, as the
+JAX package ignores it); ``eval_chunk`` evaluates the subgraphs in slices;
+``resume_path`` / ``checkpoint_every`` save the session's state and take
+a killed session up where its last save left it.  Multi-run statistics
+(mean, top-10, best) match the reference's reporting.
 
-Not ported yet, each raising ``NotImplementedError``: ``fused_epochs``,
-``eval_chunk``, size-bucketed batches (``bucket_sizes``, or a sequence of
-batches), ``resume_path`` / ``checkpoint_every`` and ``num_devices > 1``.
+Not ported yet: ``num_devices > 1``, which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 from typing import List, Optional
 
 import numpy as np
@@ -33,6 +37,7 @@ import torch
 from fitgnn_tpu_torch.graph.container import SubgraphBatch
 from fitgnn_tpu_torch.models.models import NodeModel
 from fitgnn_tpu_torch.partition.pipeline import CoarseData
+from fitgnn_tpu_torch.train import checkpoint as ckpt
 from fitgnn_tpu_torch.train import steps
 from fitgnn_tpu_torch.utils.device import resolve_device
 
@@ -48,6 +53,9 @@ class RunResult:
     # wall seconds of each epoch (train step(s) + val eval, to the value)
     gc_epoch_seconds: List[float] = dataclasses.field(default_factory=list)
     gs_epoch_seconds: List[float] = dataclasses.field(default_factory=list)
+    # the fused Gc phase: wall seconds of all its epochs, from the call to
+    # the values read back (it has no per-epoch times)
+    gc_fused_seconds: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -95,7 +103,9 @@ class NodeTaskConfig:
                                           # fresh optimizer at the boundary
     weight_decay: float = 5e-4
     gradient_method: str = "GD"           # or "MB"
-    loss_reduction: str = "mean"          # or "sum" (reference flag)
+    loss_reduction: str = "mean"          # or "sum" (reference flag; GD
+                                          # over several buckets always
+                                          # means, as the JAX package's)
     batch_size: int = 128                 # subgraphs per MB optimizer step
     runs: int = 1
     seed: int = 0
@@ -107,95 +117,143 @@ class NodeTaskConfig:
                                           # test_acc,test_time per check
     early_stopping: int = 0               # patience in epochs on the val
                                           # loss; 0 = off
-    chunk_elem_budget: int = 1 << 28      # caps the MB chunk at
+    chunk_elem_budget: int = 1 << 28      # caps the MB chunk and the eval
+                                          # chunk of a batch at
                                           # budget / (E_pad · hidden)
+    eval_chunk: int = 0                   # >0: the Gs eval runs slices of
+                                          # this many subgraphs in turn
+                                          # (per bucket, capped as above)
+    fused_epochs: bool = False            # the Gc phase without a host
+                                          # read per epoch (not under
+                                          # early_stopping)
+    resume_path: Optional[str] = None     # directory of the resume
+                                          # checkpoint; loaded if present
+    checkpoint_every: int = 0             # epochs between resume saves
+                                          # (0 = phase and run boundaries)
     device: str = "cuda"                  # "cpu" only when asked
-    # not ported yet: each raises when set
-    bucket_sizes: bool = False
-    eval_chunk: int = 0
-    fused_epochs: bool = False
-    resume_path: Optional[str] = None
-    checkpoint_every: int = 0
-    num_devices: int = 1
-
-
-# the options not ported yet: (field, is set, ROADMAP item)
-_NOT_PORTED = (
-    ("bucket_sizes", lambda c: c.bucket_sizes,
-     "ROADMAP.md §1 item 1 (bucketing)"),
-    ("eval_chunk", lambda c: c.eval_chunk,
-     "ROADMAP.md §1 item 1 (eval_chunk)"),
-    ("fused_epochs", lambda c: c.fused_epochs,
-     "ROADMAP.md §1 item 1 (fused_epochs)"),
-    ("resume_path", lambda c: c.resume_path is not None,
-     "ROADMAP.md §1 item 1 (resume)"),
-    ("checkpoint_every", lambda c: c.checkpoint_every,
-     "ROADMAP.md §1 item 1 (resume)"),
-    ("num_devices > 1", lambda c: c.num_devices > 1,
-     "ROADMAP.md §1 item 4 (distributed paths)"),
-)
+    num_devices: int = 1                  # >1 is not ported yet
 
 
 def _check_config(cfg: NodeTaskConfig) -> None:
-    """Raise for every option the port does not run yet."""
-    for name, is_set, item in _NOT_PORTED:
-        if is_set(cfg):
-            raise NotImplementedError(
-                f"run_node_task: {name} is not ported yet: {item}")
+    if cfg.num_devices > 1:
+        raise NotImplementedError(
+            "run_node_task: num_devices > 1 is not ported yet: ROADMAP.md "
+            "§1 item 4 (distributed paths)")
+    if cfg.exp_setup not in EXP_SETUPS:
+        raise ValueError(f"exp_setup must be one of {EXP_SETUPS}")
+    if cfg.gradient_method not in ("GD", "MB"):
+        raise ValueError(f"unknown gradient_method {cfg.gradient_method!r}"
+                         " (GD or MB)")
+
+
+def _config_fp(cfg: NodeTaskConfig) -> int:
+    """The fingerprint of what shapes a session's stream, as the JAX
+    package's: a resume under another schedule or model raises."""
+    key = (cfg.seed, cfg.epochs1, cfg.epochs2, cfg.runs, cfg.exp_setup,
+           cfg.gradient_method, cfg.batch_size, cfg.layer_name,
+           cfg.hidden, cfg.num_layers, cfg.task, cfg.lr,
+           cfg.weight_decay, cfg.loss_reduction, cfg.early_stopping)
+    return zlib.crc32(repr(key).encode())
 
 
 def _chunk_cap(cfg: NodeTaskConfig, batch: SubgraphBatch) -> int:
-    """Largest MB chunk whose (chunk, E_pad, hidden) per-edge message size
-    stays inside ``cfg.chunk_elem_budget`` elements."""
+    """Largest chunk of subgraphs whose (chunk, E_pad, hidden) per-edge
+    message size stays inside ``cfg.chunk_elem_budget`` elements."""
     e_pad = batch.senders.shape[-1]
     return max(1, cfg.chunk_elem_budget // max(1, e_pad * cfg.hidden))
 
 
+def _gs_train_epoch(model, opt, batches, gen, cfg: NodeTaskConfig):
+    """One Gs epoch: GD one step (over every bucket), MB a step a chunk,
+    bucket by bucket, each bucket's chunk capped by its own ``E_pad``.
+    Returns the loss (a tensor)."""
+    task = cfg.task
+    if cfg.gradient_method == "GD":
+        if len(batches) == 1:
+            return steps.gs_train_step_gd(model, opt, batches[0], gen, task,
+                                          reduction=cfg.loss_reduction)
+        return steps.gs_train_step_gd_multi(model, opt, batches, gen, task)
+    total = 0.0
+    for b in batches:
+        bs = min(cfg.batch_size, b.num_subgraphs, _chunk_cap(cfg, b))
+        total = total + steps.gs_train_epoch_mb(
+            model, opt, b, gen, task, batch_size=bs,
+            reduction=cfg.loss_reduction)
+    return total
+
+
+def _gs_eval(model, batches, cfg: NodeTaskConfig, split: str) -> tuple:
+    """(loss, metric) as floats over every batch's consuming ``split``
+    nodes; with ``eval_chunk`` each bucket's sums in slices of
+    ``min(eval_chunk, its chunk cap)`` subgraphs."""
+    if cfg.eval_chunk:
+        return steps.finish_eval_from_sums(cfg.task, [
+            steps.gs_eval_bucket_sums(
+                model, b, cfg.task, split,
+                chunk=min(cfg.eval_chunk, _chunk_cap(cfg, b)))
+            for b in batches])
+    if len(batches) == 1:
+        loss, metric = steps.gs_eval_step(model, batches[0], cfg.task, split)
+    else:
+        loss, metric = steps.gs_eval_step_multi(model, batches, cfg.task,
+                                                split)
+    return float(loss), float(metric)
+
+
 def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
-                  batch: SubgraphBatch, verbose: bool = False) -> TaskResult:
+                  batch, verbose: bool = False) -> TaskResult:
     """Run ``cfg.runs`` runs of ``cfg.exp_setup`` on ``cfg.device``.
 
-    ``coarse`` and ``batch`` are the partition's CPU tensors; they move to
-    the device once.  Each run starts from ``reset_parameters`` drawn from a
-    generator seeded with ``seed + run``, and its dropout draws from a
-    generator with the same seed on the device."""
+    ``coarse`` and ``batch`` are the partition's CPU tensors; ``batch`` is
+    one ``SubgraphBatch`` or a sequence of size-bucketed ones (GD and eval
+    give the same result either way).  They move to the device once.  Each
+    run starts from ``reset_parameters`` drawn from a generator seeded with
+    ``seed + run``, and its dropout draws from a generator with the same
+    seed on the device.  With ``resume_path`` a checkpoint found there is
+    taken up first (completed runs are skipped, the run it was written in
+    goes on from its epoch), and the session's state is saved there at
+    each phase boundary, every ``checkpoint_every`` epochs and after each
+    run."""
     _check_config(cfg)
-    if cfg.exp_setup not in EXP_SETUPS:
-        raise ValueError(f"exp_setup must be one of {EXP_SETUPS}")
     if cfg.exp_setup != "Gs_train_2_Gs_infer" and coarse is None:
         raise ValueError(f"{cfg.exp_setup} requires a coarse graph")
-    if cfg.gradient_method not in ("GD", "MB"):
-        raise ValueError(f"unknown gradient_method {cfg.gradient_method!r}"
-                         " (GD or MB)")
-    if not isinstance(batch, SubgraphBatch):
-        raise NotImplementedError(
-            "run_node_task: a sequence of size-bucketed batches is not "
-            "ported yet (ROADMAP.md §1 item 1, bucketing)")
+    batches = ((batch,) if isinstance(batch, SubgraphBatch)
+               else tuple(batch))
+    if not batches or not all(isinstance(b, SubgraphBatch)
+                              for b in batches):
+        raise TypeError("run_node_task: batch must be a SubgraphBatch or a "
+                        "non-empty sequence of them")
     device = resolve_device(cfg.device)
-    batch = batch.to(device)
+    batches = tuple(b.to(device) for b in batches)
     if coarse is not None:
         coarse = coarse.to(device)
     task = cfg.task
     use_gc = cfg.exp_setup in ("Gc_train_2_Gs_infer", "Gc_train_2_Gs_train")
     use_gs = cfg.exp_setup in ("Gs_train_2_Gs_infer", "Gc_train_2_Gs_train")
-    bs = min(cfg.batch_size, batch.num_subgraphs, _chunk_cap(cfg, batch))
+    fp = _config_fp(cfg)
 
     def vprint(msg):
         if verbose:
             print(msg, flush=True)
 
-    def gs_train(model, opt, gen):
-        if cfg.gradient_method == "GD":
-            return steps.gs_train_step_gd(model, opt, batch, gen, task,
-                                          reduction=cfg.loss_reduction)
-        return steps.gs_train_epoch_mb(model, opt, batch, gen, task,
-                                       batch_size=bs,
-                                       reduction=cfg.loss_reduction)
-
     results: List[RunResult] = []
-    for run in range(cfg.runs):
+    skip_runs, cursor = 0, None
+    if cfg.resume_path is not None:
+        point = ckpt.load_resume(cfg.resume_path, config_fp=fp)
+        if point is not None:
+            results = [RunResult(*row) for row in point.done]
+            skip_runs = point.run
+            if point.epoch >= 0 or point.phase == "gs":
+                cursor = point
+            # else the run-complete marker: the next run starts fresh, as
+            # in an uninterrupted session
+            vprint(f"[resume] run {point.run} {point.phase} epoch "
+                   f"{point.epoch + 1} ({len(results)} runs done)")
+
+    for run in range(skip_runs, cfg.runs):
+        here, cursor = cursor, None
         seed = cfg.seed + run
-        model = NodeModel(cfg.layer_name, in_dim=batch.x.shape[-1],
+        model = NodeModel(cfg.layer_name, in_dim=batches[0].x.shape[-1],
                           hidden=cfg.hidden, num_layers=cfg.num_layers,
                           out_dim=cfg.out_dim,
                           classify=task == "classification")
@@ -209,63 +267,120 @@ def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
                     for k, v in model.state_dict().items()}
 
         best_state, best_val = snapshot(), np.inf
+        if here is not None:
+            model.load_state_dict(here.model)
+            if (here.phase == "gs" and cfg.lr2 is not None
+                    and cfg.lr2 != cfg.lr):
+                opt = steps.adam_l2(model.parameters(), cfg.lr2,
+                                    cfg.weight_decay)
+            opt.load_state_dict(here.optimizer)
+            gen.set_state(here.generator)
+            best_state = {k: v.to(device)
+                          for k, v in here.best_state.items()}
+            best_val = here.best_val
+
+        def save_resume(phase, epoch, since_best=0, run=run):
+            if cfg.resume_path is not None:
+                ckpt.save_resume(
+                    cfg.resume_path, model, opt, best_state, best_val, gen,
+                    phase, epoch, run,
+                    [[r.test_loss, r.test_acc, r.test_time]
+                     for r in results],
+                    since_best=since_best, config_fp=fp)
+
         writer = None
         if cfg.logdir is not None:
             from fitgnn_tpu_torch.utils.logging import ScalarWriter
             writer = ScalarWriter(cfg.logdir, run=run + 1)
+            if here is not None:
+                # the dead session logged the epochs about to be replayed
+                writer.trim_replay("Gs_" if here.phase == "gs" else "Gc_",
+                                   here.epoch + 1,
+                                   gc_done=here.phase == "gs")
 
         def log(tag, value, step):
             if writer is not None:
                 writer.add_scalar(tag, value, step)
 
         gc_times: List[float] = []
-        if use_gc:
-            since_best = 0
-            t_gc = t_ep0 = time.perf_counter()
-            for epoch in range(cfg.epochs1):
-                train_loss = steps.gc_train_step(
+        gc_fused_s = None
+        if use_gc and (here is None or here.phase == "gc"):
+            start, since_best = ((here.epoch + 1, here.since_best)
+                                 if here is not None else (0, 0))
+            if cfg.fused_epochs and not cfg.early_stopping:
+                t0 = time.perf_counter()
+                best_state, best_v, tr, vl = steps.gc_train_epochs_fused(
                     model, opt, coarse.graph, coarse.y_train,
-                    coarse.train_mask, gen, task,
-                    reduction=cfg.loss_reduction)
-                val_loss, _ = steps.gc_eval_step(
-                    model, coarse.graph, coarse.y_val, coarse.val_mask, task)
-                val_loss = float(val_loss)
-                t_ep1 = time.perf_counter()
-                gc_times.append(t_ep1 - t_ep0)
-                t_ep0 = t_ep1
-                log("Gc_train_loss", float(train_loss), epoch)
-                log("Gc_val_loss", val_loss, epoch)
-                if epoch < 2 or epoch % 10 == 0:
-                    vprint(f"[Gc] epoch {epoch}: val={val_loss:.4f}"
-                           f" {t_ep1 - t_gc:.0f}s")
-                if val_loss < best_val or epoch == 0:
-                    best_val, best_state, since_best = val_loss, snapshot(), 0
-                else:
-                    since_best += 1
-                    if (cfg.early_stopping
-                            and since_best >= cfg.early_stopping):
-                        break
-            if len(gc_times) > 1:
-                vprint(f"[Gc] first epoch {gc_times[0]:.3f}s, steady "
-                       f"{float(np.median(gc_times[1:])):.4f}s/epoch "
-                       f"(median of {len(gc_times) - 1})")
+                    coarse.train_mask, coarse.y_val, coarse.val_mask, gen,
+                    cfg.epochs1 - start, task, reduction=cfg.loss_reduction,
+                    best_state=best_state, best_val=best_val)
+                best_val, tr, vl = float(best_v), tr.tolist(), vl.tolist()
+                gc_fused_s = time.perf_counter() - t0
+                for epoch, (t_loss, v_loss) in enumerate(zip(tr, vl),
+                                                         start):
+                    log("Gc_train_loss", t_loss, epoch)
+                    log("Gc_val_loss", v_loss, epoch)
+                vprint(f"[Gc fused] {len(vl)} epochs: best_val="
+                       f"{best_val:.4f} {gc_fused_s:.3f}s "
+                       f"({gc_fused_s / max(len(vl), 1) * 1e3:.2f} "
+                       "ms/epoch)")
+            else:
+                t_gc = t_ep0 = time.perf_counter()
+                for epoch in range(start, cfg.epochs1):
+                    train_loss = steps.gc_train_step(
+                        model, opt, coarse.graph, coarse.y_train,
+                        coarse.train_mask, gen, task,
+                        reduction=cfg.loss_reduction)
+                    val_loss, _ = steps.gc_eval_step(
+                        model, coarse.graph, coarse.y_val, coarse.val_mask,
+                        task)
+                    val_loss = float(val_loss)
+                    t_ep1 = time.perf_counter()
+                    gc_times.append(t_ep1 - t_ep0)
+                    t_ep0 = t_ep1
+                    log("Gc_train_loss", float(train_loss), epoch)
+                    log("Gc_val_loss", val_loss, epoch)
+                    if epoch < 2 or epoch % 10 == 0:
+                        vprint(f"[Gc] epoch {epoch}: val={val_loss:.4f}"
+                               f" {t_ep1 - t_gc:.0f}s")
+                    if val_loss < best_val or epoch == 0:
+                        best_val, best_state = val_loss, snapshot()
+                        since_best = 0
+                    else:
+                        since_best += 1
+                        if (cfg.early_stopping
+                                and since_best >= cfg.early_stopping):
+                            break
+                    if (cfg.checkpoint_every
+                            and (epoch + 1) % cfg.checkpoint_every == 0):
+                        save_resume("gc", epoch, since_best)
+                if len(gc_times) > 1:
+                    vprint(f"[Gc] first epoch {gc_times[0]:.3f}s, steady "
+                           f"{float(np.median(gc_times[1:])):.4f}s/epoch "
+                           f"(median of {len(gc_times) - 1})")
 
         gs_times: List[float] = []
         if use_gs:
-            if cfg.exp_setup == "Gc_train_2_Gs_train":
-                # weight transfer: on from the best Gc parameters
-                model.load_state_dict(best_state)
-            if cfg.lr2 is not None and cfg.lr2 != cfg.lr:
-                # a fresh optimizer at the phase boundary, at the Gs rate
-                opt = steps.adam_l2(model.parameters(), cfg.lr2,
-                                    cfg.weight_decay)
-            best_val, since_best = np.inf, 0
+            resumed_gs = here is not None and here.phase == "gs"
+            start, since_best = ((here.epoch + 1, here.since_best)
+                                 if resumed_gs else (0, 0))
+            if not resumed_gs:
+                if cfg.exp_setup == "Gc_train_2_Gs_train":
+                    # weight transfer: on from the best Gc parameters
+                    model.load_state_dict(best_state)
+                if cfg.lr2 is not None and cfg.lr2 != cfg.lr:
+                    # a fresh optimizer at the phase boundary, at the Gs
+                    # rate
+                    opt = steps.adam_l2(model.parameters(), cfg.lr2,
+                                        cfg.weight_decay)
+                best_state, best_val = snapshot(), np.inf
+                # the phase boundary: a resumed session skips the Gc phase
+                save_resume("gs", -1)
             t_gs = t_ep0 = time.perf_counter()
-            for epoch in range(cfg.epochs2):
-                train_loss = float(gs_train(model, opt, gen))
-                val_loss, val_acc = steps.gs_eval_step(model, batch, task,
-                                                       "val")
-                val_loss, val_acc = float(val_loss), float(val_acc)
+            for epoch in range(start, cfg.epochs2):
+                train_loss = float(_gs_train_epoch(model, opt, batches, gen,
+                                                   cfg))
+                val_loss, val_acc = _gs_eval(model, batches, cfg, "val")
                 t_ep1 = time.perf_counter()
                 gs_times.append(t_ep1 - t_ep0)
                 t_ep0 = t_ep1
@@ -282,6 +397,9 @@ def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
                     if (cfg.early_stopping
                             and since_best >= cfg.early_stopping):
                         break
+                if (cfg.checkpoint_every
+                        and (epoch + 1) % cfg.checkpoint_every == 0):
+                    save_resume("gs", epoch, since_best)
                 if (cfg.run_intermediate_inference
                         and epoch % cfg.intermediate_inference_freq == 0):
                     # a test eval with the best parameters so far; the
@@ -289,9 +407,7 @@ def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
                     current = snapshot()
                     model.load_state_dict(best_state)
                     t0 = time.perf_counter()
-                    t_loss, t_acc = steps.gs_eval_step(model, batch, task,
-                                                       "test")
-                    t_loss, t_acc = float(t_loss), float(t_acc)
+                    t_loss, t_acc = _gs_eval(model, batches, cfg, "test")
                     t_time = time.perf_counter() - t0
                     model.load_state_dict(current)
                     log("Gs_test_loss_intermediate", t_loss, epoch)
@@ -311,19 +427,20 @@ def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
         # test with the best-val parameters: a warm-up, then timed to the
         # value
         model.load_state_dict(best_state)
-        steps.gs_eval_step(model, batch, task, "test")
+        _gs_eval(model, batches, cfg, "test")
         t0 = time.perf_counter()
-        test_loss, test_metric = steps.gs_eval_step(model, batch, task,
-                                                    "test")
-        test_loss, test_metric = float(test_loss), float(test_metric)
+        test_loss, test_metric = _gs_eval(model, batches, cfg, "test")
         elapsed = time.perf_counter() - t0
         results.append(RunResult(test_loss=test_loss, test_acc=test_metric,
                                  test_time=elapsed,
                                  gc_epoch_seconds=gc_times,
-                                 gs_epoch_seconds=gs_times))
+                                 gs_epoch_seconds=gs_times,
+                                 gc_fused_seconds=gc_fused_s))
         if cfg.save_path is not None:
-            from fitgnn_tpu_torch.train.checkpoint import save_params
-            save_params(cfg.save_path, best_state)
+            ckpt.save_params(cfg.save_path, best_state)
+        # the run-complete marker, after model.pt: a crash between the two
+        # re-runs the save; a resumed session starts the next run fresh
+        save_resume("gc", -1, run=run + 1)
         log("Gs_test_loss", test_loss, run)
         log("Gs_test_acc", test_metric, run)
         if writer is not None:

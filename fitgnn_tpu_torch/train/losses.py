@@ -46,3 +46,62 @@ def masked_accuracy(log_probs: torch.Tensor, labels: torch.Tensor,
     m = mask.float()
     correct = ((log_probs.argmax(dim=-1) == labels).float() * m).sum()
     return correct / m.sum().clamp_min(1.0)
+
+
+# sum forms: the pieces of a masked mean that add across size buckets and
+# eval chunks, finished once over every piece
+
+
+def masked_nll_sum(log_probs: torch.Tensor, labels: torch.Tensor,
+                   mask: torch.Tensor) -> tuple:
+    """(Σ masked NLL, masked count)."""
+    picked = log_probs.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+    return (torch.where(mask, -picked, 0.0).sum(),
+            mask.sum().to(log_probs.dtype))
+
+
+def masked_l1_sum(pred: torch.Tensor, target: torch.Tensor,
+                  mask: torch.Tensor) -> tuple:
+    """(Σ masked absolute error, masked count)."""
+    pred = pred.reshape(target.shape)
+    return (torch.where(mask, (pred - target).abs(), 0.0).sum(),
+            mask.sum().to(pred.dtype))
+
+
+def masked_correct_sum(log_probs: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor) -> tuple:
+    """(masked count of right argmaxes, masked count)."""
+    m = mask.float()
+    return ((log_probs.argmax(dim=-1) == labels).float() * m).sum(), m.sum()
+
+
+def task_loss_sums(task: str, out, y, mask) -> tuple:
+    """(Σ masked loss, masked count): NLL for classification, L1 for
+    regression."""
+    if task == "classification":
+        return masked_nll_sum(out, y, mask)
+    return masked_l1_sum(out, y, mask)
+
+
+def task_metric_sums(task: str, out, y, mask) -> tuple:
+    """The metric's pieces ``(metric_sum, y_sum, y2_sum)``: the right
+    argmaxes for classification (y moments zero); for regression the masked
+    target moments Σy and Σy², since the std-normalized L1 needs the std of
+    every piece's targets together, not one piece's."""
+    zero = out.new_zeros(())
+    if task == "classification":
+        return masked_correct_sum(out, y, mask)[0], zero, zero
+    m = mask.to(out.dtype)
+    return zero, (y * m).sum(), ((y ** 2) * m).sum()
+
+
+def task_metric_from_sums(task: str, loss_sum, count, metric_sum, y_sum,
+                          y2_sum) -> torch.Tensor:
+    """The metric from the summed pieces (tensors): accuracy, or the L1
+    over the std of the masked targets."""
+    count = count.clamp_min(1.0)
+    if task == "classification":
+        return metric_sum / count
+    mean = y_sum / count
+    std = (y2_sum / count - mean ** 2).clamp_min(0.0).sqrt()
+    return (loss_sum / count) / std.clamp_min(1e-12)

@@ -2,24 +2,30 @@
 """Where the time of the FIT-GNN curriculum's phases goes, on one GPU.
 
     python3 scripts/torch_curriculum_profile.py      # from the repository root
+    python3 scripts/torch_curriculum_profile.py --extra_node --bucket_sizes
 
 Partitions the bench graph of ``chip_smoke.py`` (169,344 nodes, 128
 features, 40 classes, seed 0) as ``train --experiment random`` does
-(variation_neighborhoods, ratio 0.5, plain node mode), then, with the
-seed-0 ``NodeModel`` at hidden 512 (2 layers, dropout 0.5, f32), times and
-profiles:
+(variation_neighborhoods, ratio 0.5, plain node mode, or the 1-hop halo
+mode with ``--extra_node``; one pad for every subgraph, or size buckets
+with ``--bucket_sizes``), then, with the seed-0 ``NodeModel`` at hidden
+512 (2 layers, dropout 0.5, f32), times and profiles:
 
 * Gc: one GCN and one GAT ``gc_train_step`` and ``gc_eval_step`` (the val
   forward) on the Leiden-reordered Gc with its hybrid operator, as
   ``train`` builds it;
-* Gs: one GCN ``gs_train_step_gd`` and ``gs_eval_step`` over every
-  subgraph, and one MB epoch (``gs_train_epoch_mb``, 128 subgraphs a
-  chunk), with the peak device memory of each;
-* serve: one GCN eval forward of one subgraph, what ``infer`` times per
-  sampled node, on the card and on the host clock.
+* Gs: one GCN GD step and one eval over every subgraph (as ``train``
+  runs them: ``gs_train_step_gd`` and ``gs_eval_step`` on one batch,
+  ``gs_train_step_gd_multi`` and ``gs_eval_step_multi`` on buckets, whose
+  eval takes ``--eval_chunk`` subgraphs at a time when it is set), and one
+  MB epoch (128 subgraphs a chunk, bucket by bucket), with the peak device
+  memory of each; with buckets also the GD step and the eval of each
+  bucket alone;
+* serve: one GCN eval forward of one subgraph (of each bucket), what
+  ``infer`` times per sampled node, on the card and on the host clock.
 
-The serve forward and the Gs eval are measured a second time with the
-dense adjacency built by ``index_put_(…, accumulate=True)``
+Without buckets, the serve forward and the Gs eval are measured a second
+time with the dense adjacency built by ``index_put_(…, accumulate=True)``
 (``index_put_adjacency`` below; it sorts its indices first on the GPU)
 in place of ``ops/spmm.py``'s one ``scatter_add_``, both in this call.
 
@@ -31,6 +37,7 @@ window on the host clock, ended by a synchronize); then one JSON line.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -115,7 +122,32 @@ def measure(label: str, fn, iters: int, profiled: int,
     return out
 
 
-def main() -> int:
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--extra_node", action="store_true",
+                   help="the 1-hop halo node mode")
+    p.add_argument("--bucket_sizes", action="store_true",
+                   help="size-bucketed subgraph batches")
+    p.add_argument("--eval_chunk", type=int, default=0,
+                   help="subgraphs a slice of the bucketed eval (0: all)")
+    return p.parse_args(argv)
+
+
+def partition_kwargs(args) -> dict:
+    """``coarsen_and_partition``'s options for ``args``, as ``train``
+    passes them."""
+    return {"mode": "extra_node" if args.extra_node else "plain",
+            "bucket": args.bucket_sizes}
+
+
+def describe(batches) -> list:
+    """(S, N_pad, E_pad) of each batch."""
+    return [(b.num_subgraphs, b.num_nodes_padded, b.senders.shape[1])
+            for b in batches]
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a GPU", file=sys.stderr)
         return 1
@@ -134,9 +166,12 @@ def main() -> int:
     tr, va, te = splits_classification(y, NUM_CLASSES, "random", seed=0)
     t0 = time.perf_counter()
     part = coarsen_and_partition(x, s, r, y, num_classes=NUM_CLASSES,
-                                 train_mask=tr, val_mask=va, test_mask=te)
-    print(f"partition: {time.perf_counter() - t0:.2f} s host")
-    batch = part.subgraphs.to(dev)
+                                 train_mask=tr, val_mask=va, test_mask=te,
+                                 **partition_kwargs(args))
+    batches = (part.subgraphs if args.bucket_sizes else (part.subgraphs,))
+    batches = tuple(b.to(dev) for b in batches)
+    print(f"partition: {time.perf_counter() - t0:.2f} s host, (S, N_pad, "
+          f"E_pad) {describe(batches)}")
     results = []
 
     def model_for(layer):
@@ -169,13 +204,29 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     from fitgnn_tpu_torch.ops import spmm as spmm_mod
+    from fitgnn_tpu_torch.train import loop
 
     model, opt, gen = model_for("GCNConv")
-    for label, fn in (
-            ("Gs GCN GD step", lambda: steps.gs_train_step_gd(
-                model, opt, batch, gen, "classification")),
-            ("Gs GCN eval", lambda: steps.gs_eval_step(
-                model, batch, "classification", "test"))):
+    cfg = loop.NodeTaskConfig(hidden=HIDDEN, out_dim=NUM_CLASSES,
+                              eval_chunk=args.eval_chunk, device="cuda")
+    items = [("Gs GCN GD step", lambda: loop._gs_train_epoch(
+                  model, opt, batches, gen, cfg)),
+             ("Gs GCN eval", lambda: loop._gs_eval(model, batches, cfg,
+                                                   "test"))]
+    if len(batches) > 1:
+        for i, b in enumerate(batches):
+            shape = describe((b,))[0]
+            items += [
+                (f"Gs GCN GD step, bucket {i} {shape}",
+                 lambda b=b: steps.gs_train_step_gd_multi(
+                     model, opt, (b,), gen, "classification")),
+                (f"Gs GCN eval, bucket {i} {shape}",
+                 lambda b=b: steps.gs_eval_bucket_sums(
+                     model, b, "classification", "test",
+                     chunk=min(args.eval_chunk, loop._chunk_cap(cfg, b))
+                     if args.eval_chunk else 0))]
+    for label, fn in items:
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         out = measure(label, fn, 5, 3)
         out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -183,19 +234,32 @@ def main() -> int:
         results.append(out)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    steps.gs_train_epoch_mb(model, opt, batch, gen, "classification",
-                            batch_size=128)
+    loop._gs_train_epoch(model, opt, batches, gen,
+                         loop.NodeTaskConfig(hidden=HIDDEN,
+                                             gradient_method="MB",
+                                             device="cuda"))
     torch.cuda.synchronize()
     mb_s = time.perf_counter() - t0
     print(f"Gs GCN MB epoch (batch 128): {mb_s:.3f} s host")
     results.append({"item": "Gs GCN MB epoch", "s": mb_s,
-                    "chunks": -(-batch.num_subgraphs // 128)})
+                    "chunks": sum(-(-b.num_subgraphs // 128)
+                                  for b in batches)})
 
     model.eval()
-    g0 = batch.subgraph(0)
     committed = spmm_mod.dense_adjacency
-    for form, adjacency in (("scatter_add_", committed),
-                            ("index_put_", index_put_adjacency)):
+    if len(batches) > 1:
+        for i, b in enumerate(batches):
+            g0 = b.subgraph(0)
+            with torch.inference_mode():
+                results.append(measure(
+                    f"serve GCN one subgraph forward, bucket {i} "
+                    f"{describe((b,))[0]}", lambda: model(g0.x, g0), 200,
+                    20, top=12))
+    batch = batches[0]
+    g0 = batch.subgraph(0)
+    forms = () if len(batches) > 1 else (
+        ("scatter_add_", committed), ("index_put_", index_put_adjacency))
+    for form, adjacency in forms:
         spmm_mod.dense_adjacency = adjacency
         try:
             with torch.inference_mode():
@@ -208,10 +272,8 @@ def main() -> int:
                                            "test"), 5, 3, top=6))
         finally:
             spmm_mod.dense_adjacency = committed
-    print(json.dumps({"device": smi, "subgraphs": batch.num_subgraphs,
-                      "n_pad": batch.num_nodes_padded,
-                      "e_pad": batch.senders.shape[1],
-                      "results": results}))
+    print(json.dumps({"device": smi, "mode": partition_kwargs(args),
+                      "batches": describe(batches), "results": results}))
     return 0
 
 

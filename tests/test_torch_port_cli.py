@@ -111,8 +111,7 @@ def test_cuda_default_raises_without_gpu(toy):
 
 
 @pytest.mark.parametrize("command", [
-    ["memory"], ["stats"], ["save-graphs"], ["infer", "--bucket_sizes"],
-    ["train", "--bucket_sizes"]], ids=lambda c: "_".join(c))
+    ["memory"], ["stats"], ["save-graphs"]], ids=lambda c: "_".join(c))
 def test_unported_subcommands_raise(command):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main([*command, "--dataset", "toy", "--device", "cpu"])

@@ -281,9 +281,7 @@ def test_run_node_task_regression_matches_jax():
     close(got.summary["best_metric"], ref.summary["best_metric"])
 
 
-@pytest.mark.parametrize("field,value", [
-    ("bucket_sizes", True), ("eval_chunk", 8), ("fused_epochs", True),
-    ("resume_path", "r"), ("checkpoint_every", 2), ("num_devices", 2)])
+@pytest.mark.parametrize("field,value", [("num_devices", 2)])
 def test_run_node_task_refuses_unported_options(field, value):
     part, _ = partitions()
     cfg = loop.NodeTaskConfig(device="cpu", **{field: value})

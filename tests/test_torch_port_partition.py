@@ -108,9 +108,12 @@ def test_coarsen_and_partition_regression_matches_jax(method):
 
 
 def test_bucketed_partition_raises():
+    """A negative bucket cap raises in both packages."""
     x, s, r, y, tr, va, te = node_data(n=80)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        coarsen_and_partition(x, s, r, y, num_classes=4, bucket=True)
+    for partition in (coarsen_and_partition, jax_partition):
+        with pytest.raises(ValueError, match="max_buckets"):
+            partition(x, s, r, y, num_classes=4, bucket=True,
+                      max_buckets=-1)
 
 
 @pytest.mark.parametrize("layer", ["GCNConv", "GATConv"])

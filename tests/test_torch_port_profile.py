@@ -10,6 +10,7 @@ import importlib.util
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,6 +32,7 @@ def _script(name: str):
 
 _train = _script("torch_train_profile")
 _serve = _script("torch_serve_profile")
+_curriculum = _script("torch_curriculum_profile")
 
 
 def _walk(trans, init, vec, diag, hook):
@@ -103,3 +105,27 @@ def test_serve_profile_groups():
         == "K1 bsr_spmm_acc"
     with pytest.raises(RuntimeError, match="no walk but K1's"):
         _serve._group(_walk(False, False, True, False, "att::FwdScores"))
+
+
+@pytest.mark.parametrize("argv,mode,bucket", [
+    ([], "plain", False), (["--extra_node"], "extra_node", False),
+    (["--extra_node", "--bucket_sizes"], "extra_node", True)])
+def test_curriculum_profile_partition_options(argv, mode, bucket):
+    """The curriculum profile partitions as ``train`` does with the same
+    flags, and names each bucket by its (S, N_pad, E_pad)."""
+    from fitgnn_tpu_torch.partition.pipeline import coarsen_and_partition
+
+    args = _curriculum.parse_args(argv + ["--eval_chunk", "4"])
+    assert args.eval_chunk == 4
+    kw = _curriculum.partition_kwargs(args)
+    assert kw == {"mode": mode, "bucket": bucket}
+    rng = np.random.default_rng(0)
+    s, r = rng.integers(0, 120, (2, 400))
+    keep = s != r
+    x = rng.standard_normal((120, 4)).astype(np.float32)
+    part = coarsen_and_partition(x, s[keep], r[keep], np.arange(120) % 3,
+                                 num_classes=3, **kw)
+    batches = part.subgraphs if bucket else (part.subgraphs,)
+    assert _curriculum.describe(batches) == [
+        (b.num_subgraphs, b.num_nodes_padded, b.senders.shape[1])
+        for b in batches]

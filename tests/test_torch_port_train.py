@@ -313,7 +313,6 @@ def test_train_baseline_node_reg(toy):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--eval_chunk", "8"], ["--fused_epochs"], ["--resume"],
     ["--num_devices", "2"], ["--baseline", "--num_devices", "2"],
     ["--baseline", "--cluster_attention", "128"],
     ["--baseline", "--cluster_aggregation", "128"],
