@@ -123,8 +123,31 @@ Phases (any failure exits non-zero before the result lines):
    ``infer --extra_node --bucket_sizes`` from the GD run's checkpoint (64
    samples, no launches, the samples of each bucket) beside phase 8's
    ``infer``;
-10. one JSON line with every kernel's numbers (launches summed over the
-   main-path phases 5 to 9, per phase beside them; K3, K3w, K6, K5,
+10. SAGE and GIN, and layer-0 pre-aggregation (``phase_sage_gin_*``):
+   ``build_optimized_graph`` for SAGEConv (``mean_nonself`` weights, not
+   symmetric) and GINConv (``sum_nonself``), whose tiles and straggler
+   edges must be GCN's; K3 then K1 on each at F=128 and 512, forward and
+   on the transpose structures (``t_segmm``, ``bsr.transpose``), and K8
+   from ``init`` on SAGE's ``use_diag`` diagonal blocks in both
+   orientations, each against its plain version (tolerance as in phase 3)
+   with its times beside phase 3's GCN rows; one SAGE and one GIN step
+   (hidden 512, dropout off, seed-0 init) with kernels and with the plain
+   versions (the loss and every gradient, GIN's 0-dim ``eps`` included),
+   K1 ×3 and K3 ×3 a step and ×2 an eval forward; the pre-aggregated
+   model (K1 and K3 ×1 at ingest, then ×2 a step and ×1 an eval forward)
+   against the plain model's loss, gradients and forward; SAGE's step on
+   its ``use_diag`` operator (K3, K8 and K1 ×3) against the default
+   operator's.  Then through the CLI, every counter at 0 just before
+   each run: ``train --baseline`` for SAGEConv and GINConv at hidden 512
+   for 2 epochs, plain and with ``--preaggregate`` (launches against those
+   counts, a finite CSV row, a checkpoint), ``infer-baseline`` from each
+   checkpoint (the pre-aggregated one into the plain model; K1 and K3 ×2 a
+   forward) with that forward held against the plain versions, the
+   curriculum ``train`` ``Gc_train_2_Gs_train`` GD for 1 + 1 epochs on
+   phase 8's cached partition (the Gc epoch's counts, none in the Gs
+   phase), and ``infer`` from SAGE's checkpoint (64 samples, no launches);
+11. one JSON line with every kernel's numbers (launches summed over the
+   main-path phases 5 to 10, per phase beside them; K3, K3w, K6, K5,
    K7f, K7bt, K7s and K7sums with their ``ptxas`` register and spill
    counts), then the ``ok`` line.
 
@@ -389,10 +412,85 @@ def tile_csr(b, n: int) -> tuple:
     return csr, nz.shape[0]
 
 
-def phase_kernels(device, ds) -> tuple:
-    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+def k1_k3_rows(b, m, n: int, xs: dict, tag: str = "") -> dict:
+    """K3 (``segmm_spmm``) on the straggler CSR ``m``, then K1
+    (``bsr_spmm_acc``) on the tiles ``b`` from K3's output, at each width
+    of ``xs`` ({F: x}), each against its plain version, with kernel, plain
+    and library times and the bound from bytes and operations: phase 3's
+    rows on the GCN operator, phase 10's on SAGE's and GIN's, forward and
+    on the transpose structures (``tag`` names them)."""
     from fitgnn_tpu_torch.ops.bsr_spmm import bsr_spmm_acc, bsr_spmm_acc_plain
     from fitgnn_tpu_torch.ops.coo_segmm import segmm_spmm, segmm_spmm_plain
+
+    tiles_all = b.nnz_blocks
+    nz_tile = (b.blocks.reshape(tiles_all, -1) != 0).any(dim=1)
+    tiles = int(nz_tile.sum())
+    tile_edges = int((b.blocks != 0).sum())
+    live = m.weights != 0
+    e = int(live.sum())
+    # library yardsticks: the same products through torch.sparse (cuSPARSE)
+    a_tiles, _ = tile_csr(b, n)
+    a_str = torch.sparse_csr_tensor(m.row_ptr, m.senders, m.weights, (n, n))
+    uniq_cols = int(torch.unique(b.cols[nz_tile]).numel())
+    uniq_senders = int(torch.unique(m.senders[live]).numel())
+    shapes = {"K1": [], "K3": []}
+    with torch.inference_mode():
+        for feat, x in xs.items():
+            name = f"{tag} F={feat}" if tag else f"F={feat}"
+            print(f"{name}:")
+            init = segmm_spmm_plain(m, x)
+            k3 = segmm_spmm(m, x)
+            k3_again = segmm_spmm(m, x)
+            torch.cuda.synchronize()
+            err3 = compare(f"K3 segmm_spmm {name}", k3, init)
+            check(torch.equal(k3, k3_again), f"K3 {name}: two launches "
+                  "differ")
+            del k3_again
+            k1 = bsr_spmm_acc(b, x, init)
+            p1 = bsr_spmm_acc_plain(b, x, init)
+            torch.cuda.synchronize()
+            err1 = compare(f"K1 bsr_spmm_acc {name}", k1, p1)
+            # yardsticks: one PyTorch call each computing the same function
+            def lib1():
+                return torch.sparse.addmm(init, a_tiles, x)
+
+            def lib3():
+                return torch.sparse.mm(a_str, x)
+
+            compare(f"K1 library torch.sparse.addmm {name}", lib1(), p1)
+            compare(f"K3 library torch.sparse.mm {name}", lib3(), init)
+
+            # K1's function needs 2 FLOPs per tile non-zero and feature,
+            # which is what the kernel's walk of the non-zeros does
+            b1, by1 = bound(
+                tiles * 128 * 128 * 4 + (2 * tiles_all + b.num_row_blocks + 1)
+                * 4 + uniq_cols * 128 * feat * 4 + 2 * n * feat * 4,
+                2.0 * tile_edges * feat)
+            b3, by3 = bound((n + 1) * 4 + e * 8 + uniq_senders * feat * 4
+                            + n * feat * 4, 2.0 * e * feat)
+            extra = {"operator": tag} if tag else {}
+            shapes["K1"].append(dict(
+                F=feat, **extra, **err1, bound_ms=b1, bound_by=by1,
+                ms=cuda_ms(lambda: bsr_spmm_acc(b, x, init), 20),
+                plain_ms=cuda_ms(lambda: bsr_spmm_acc_plain(b, x, init), 5),
+                library_ms=cuda_ms(lib1, 20)))
+            shapes["K3"].append(dict(
+                F=feat, **extra, **err3, bound_ms=b3, bound_by=by3,
+                **segmm_times(lambda: segmm_spmm(m, x)),
+                plain_ms=cuda_ms(lambda: segmm_spmm_plain(m, x), 20),
+                library_ms=cuda_ms(lib3, 20)))
+            for k in ("K1", "K3"):
+                s = shapes[k][-1]
+                print(f"  {k} {name}: kernel_ms={s['ms']:.4f} "
+                      f"plain_ms={s['plain_ms']:.4f} "
+                      f"library_ms={s['library_ms']:.4f} "
+                      f"bound_ms={s['bound_ms']:.4f} ({s['bound_by']})"
+                      + (segmm_note(s) if k == "K3" else ""))
+    return shapes
+
+
+def phase_kernels(device, ds) -> tuple:
+    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
 
     t0 = time.perf_counter()
     g, order = build_optimized_graph(ds.x, ds.senders, ds.receivers,
@@ -415,70 +513,11 @@ def phase_kernels(device, ds) -> tuple:
 
     gd = g.to(device)
     hd = gd.aux
-    b, m = hd.bsr, hd.segmm
     n = g.num_nodes_padded
     gen = torch.Generator(device=device).manual_seed(0)
-
-    # library yardsticks: the same products through torch.sparse (cuSPARSE)
-    a_tiles, _ = tile_csr(b, n)
-    a_str = torch.sparse_csr_tensor(m.row_ptr, m.senders, m.weights, (n, n))
-    uniq_cols = int(torch.unique(b.cols[nz_tile.to(device)]).numel())
-    uniq_senders = int(torch.unique(m.senders[m.weights != 0]).numel())
-    e = stragglers
-
-    shapes = {"K1": [], "K3": []}
-    with torch.inference_mode():
-        for feat in (NUM_FEATURES, HIDDEN):
-            x = (gd.x if feat == NUM_FEATURES else
-                 torch.randn((n, feat), generator=gen, device=device))
-            print(f"F={feat}:")
-            init = segmm_spmm_plain(m, x)
-            k3 = segmm_spmm(m, x)
-            k3_again = segmm_spmm(m, x)
-            torch.cuda.synchronize()
-            err3 = compare(f"K3 segmm_spmm F={feat}", k3, init)
-            check(torch.equal(k3, k3_again), f"K3 F={feat}: two launches "
-                  "differ")
-            del k3_again
-            k1 = bsr_spmm_acc(b, x, init)
-            p1 = bsr_spmm_acc_plain(b, x, init)
-            torch.cuda.synchronize()
-            err1 = compare(f"K1 bsr_spmm_acc F={feat}", k1, p1)
-            # yardsticks: one PyTorch call each computing the same function
-            def lib1():
-                return torch.sparse.addmm(init, a_tiles, x)
-
-            def lib3():
-                return torch.sparse.mm(a_str, x)
-
-            compare(f"K1 library torch.sparse.addmm F={feat}", lib1(), p1)
-            compare(f"K3 library torch.sparse.mm F={feat}", lib3(), init)
-
-            # K1's function needs 2 FLOPs per tile non-zero and feature,
-            # which is what the kernel's walk of the non-zeros does
-            b1, by1 = bound(
-                tiles * 128 * 128 * 4 + (2 * tiles_all + b.num_row_blocks + 1)
-                * 4 + uniq_cols * 128 * feat * 4 + 2 * n * feat * 4,
-                2.0 * tile_edges * feat)
-            b3, by3 = bound((n + 1) * 4 + e * 8 + uniq_senders * feat * 4
-                            + n * feat * 4, 2.0 * e * feat)
-            shapes["K1"].append(dict(
-                F=feat, **err1, bound_ms=b1, bound_by=by1,
-                ms=cuda_ms(lambda: bsr_spmm_acc(b, x, init), 20),
-                plain_ms=cuda_ms(lambda: bsr_spmm_acc_plain(b, x, init), 5),
-                library_ms=cuda_ms(lib1, 20)))
-            shapes["K3"].append(dict(
-                F=feat, **err3, bound_ms=b3, bound_by=by3,
-                **segmm_times(lambda: segmm_spmm(m, x)),
-                plain_ms=cuda_ms(lambda: segmm_spmm_plain(m, x), 20),
-                library_ms=cuda_ms(lib3, 20)))
-            for k in ("K1", "K3"):
-                s = shapes[k][-1]
-                print(f"  {k} F={feat}: kernel_ms={s['ms']:.4f} "
-                      f"plain_ms={s['plain_ms']:.4f} "
-                      f"library_ms={s['library_ms']:.4f} "
-                      f"bound_ms={s['bound_ms']:.4f} ({s['bound_by']})"
-                      + (segmm_note(s) if k == "K3" else ""))
+    xs = {NUM_FEATURES: gd.x,
+          HIDDEN: torch.randn((n, HIDDEN), generator=gen, device=device)}
+    shapes = k1_k3_rows(hd.bsr, hd.segmm, n, xs)
     return g, order, shapes
 
 
@@ -1204,6 +1243,12 @@ def phase_optin_kernels(device, g, ops) -> dict:
 # features (no backward), layer 1 its transformed input
 STEP = {"GATConv": {"K4": 2, "K4T": 1, "K5": 2},
         "GCNConv": {"K1": 3, "K3": 3},
+        # SAGE and GIN aggregate as GCN does: layer 0 the raw features
+        # (forward only), layer 1 its 512-wide input; pre-aggregated,
+        # layer 0 aggregates nothing (its K3 and K1 run once, at ingest)
+        "SAGEConv": {"K1": 3, "K3": 3}, "GINConv": {"K1": 3, "K3": 3},
+        "SAGEConv preaggregated": {"K1": 2, "K3": 2},
+        "GINConv preaggregated": {"K1": 2, "K3": 2},
         # FUSED: the score pass and its column sum in both layers, K7bt's
         # dx walk and K6's dx (a K3w launch) in layer 1 only
         "GATConv fused": {"K7f": 2, "K7bt": 1, "K7s": 2, "K7sums": 2,
@@ -1211,44 +1256,57 @@ STEP = {"GATConv": {"K4": 2, "K4T": 1, "K5": 2},
         "GATConv fused exact": {"K7rm": 2, "K7f": 2, "K7bt": 1, "K7s": 2,
                                 "K7sums": 2}}
 EVAL = {"GATConv": {"K4": 2}, "GCNConv": {"K1": 2, "K3": 2},
+        "SAGEConv": {"K1": 2, "K3": 2}, "GINConv": {"K1": 2, "K3": 2},
+        "SAGEConv preaggregated": {"K1": 1, "K3": 1},
+        "GINConv preaggregated": {"K1": 1, "K3": 1},
         "GATConv fused": {"K7f": 2, "K6": 2},
         "GATConv fused exact": {"K7rm": 2, "K7f": 2},
         "GATConv fused tiles": {"K7f": 2}}
 # the switches of each mode
-MODE_ENV = {"GATConv": {}, "GCNConv": {}, "GATConv fused": FUSED,
+MODE_ENV = {"GATConv": {}, "GCNConv": {}, "SAGEConv": {}, "GINConv": {},
+            "SAGEConv preaggregated": {}, "GINConv preaggregated": {},
+            "GATConv fused": FUSED,
             "GATConv fused exact": FUSED_EXACT,
             "GATConv fused tiles": FUSED_ONLY}
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel's plain version where the path calls the wrapper."""
+    from fitgnn_tpu_torch.ops import att_bsr, bsr_dynamic, coo_segmm
+    from fitgnn_tpu_torch.ops import hybrid_spmm as hybrid_mod
+    from fitgnn_tpu_torch.ops import tile_gat
+    from fitgnn_tpu_torch.ops.bsr_spmm import bsr_spmm_acc_plain
+    from fitgnn_tpu_torch.ops.coo_segmm import segmm_spmm_plain
+    from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm_plain
+
+    with contextlib.ExitStack() as stack:
+        for module, name, plain in (
+                (hybrid_mod, "bsr_spmm_acc", bsr_spmm_acc_plain),
+                (hybrid_mod, "segmm_spmm", segmm_spmm_plain),
+                (hybrid_mod, "diag_spmm", diag_spmm_plain),
+                (bsr_dynamic, "dyn_tiles", bsr_dynamic.dyn_tiles_plain),
+                (bsr_dynamic, "dyn_tiles_t", bsr_dynamic.dyn_tiles_t_plain),
+                (bsr_dynamic, "dyn_grad_blocks",
+                 bsr_dynamic.dyn_grad_blocks_plain),
+                (coo_segmm, "segmm_weighted_raw",
+                 coo_segmm.segmm_weighted_raw_plain),
+                (coo_segmm, "segmm_weighted_den_raw",
+                 coo_segmm.segmm_weighted_den_raw_plain),
+                (tile_gat, "att_rowmax", att_bsr.att_rowmax_plain),
+                (att_bsr, "att_fwd", att_bsr.att_fwd_plain),
+                (att_bsr, "att_bwd_t", att_bsr.att_bwd_t_plain),
+                (att_bsr, "att_bwd_scores", att_bsr.att_bwd_scores_plain)):
+            stack.enter_context(mock.patch.object(module, name, plain))
+        yield
 
 
 def phase_gradients(device, g_gat, g_gcn) -> None:
     """One training step with the kernels, then with the plain versions
     patched in: the loss and every gradient, and the step's launches."""
     from fitgnn_tpu_torch.models.models import NodeModel
-    from fitgnn_tpu_torch.ops import att_bsr, bsr_dynamic, coo_segmm
-    from fitgnn_tpu_torch.ops import hybrid_spmm as hybrid_mod
-    from fitgnn_tpu_torch.ops import tile_gat
-    from fitgnn_tpu_torch.ops.bsr_spmm import bsr_spmm_acc_plain
-    from fitgnn_tpu_torch.ops.coo_segmm import segmm_spmm_plain
     from fitgnn_tpu_torch.train.losses import masked_nll
 
-    plain = [
-        mock.patch.object(hybrid_mod, "bsr_spmm_acc", bsr_spmm_acc_plain),
-        mock.patch.object(hybrid_mod, "segmm_spmm", segmm_spmm_plain),
-        mock.patch.object(bsr_dynamic, "dyn_tiles",
-                          bsr_dynamic.dyn_tiles_plain),
-        mock.patch.object(bsr_dynamic, "dyn_tiles_t",
-                          bsr_dynamic.dyn_tiles_t_plain),
-        mock.patch.object(bsr_dynamic, "dyn_grad_blocks",
-                          bsr_dynamic.dyn_grad_blocks_plain),
-        mock.patch.object(coo_segmm, "segmm_weighted_raw",
-                          coo_segmm.segmm_weighted_raw_plain),
-        mock.patch.object(coo_segmm, "segmm_weighted_den_raw",
-                          coo_segmm.segmm_weighted_den_raw_plain),
-        mock.patch.object(tile_gat, "att_rowmax", att_bsr.att_rowmax_plain),
-        mock.patch.object(att_bsr, "att_fwd", att_bsr.att_fwd_plain),
-        mock.patch.object(att_bsr, "att_bwd_t", att_bsr.att_bwd_t_plain),
-        mock.patch.object(att_bsr, "att_bwd_scores",
-                          att_bsr.att_bwd_scores_plain)]
     default_gat = None
     for mode, g in (("GATConv", g_gat), ("GCNConv", g_gcn),
                     ("GATConv fused", g_gat)):
@@ -1272,13 +1330,8 @@ def phase_gradients(device, g_gat, g_gcn) -> None:
             loss_k, grads_k = step()
             expect(read_counts(), STEP[mode], f"{mode} train step")
             reset_counts()
-            for patch in plain:
-                patch.start()
-            try:
+            with plain_versions():
                 loss_p, grads_p = step()
-            finally:
-                for patch in plain:
-                    patch.stop()
         expect(read_counts(), {}, f"{mode} train step, plain versions")
         compare(f"{mode} loss kernels vs plain", loss_k.reshape(1),
                 loss_p.reshape(1))
@@ -1569,9 +1622,6 @@ def phase_gat_serve(tmp) -> dict:
 
 def phase_serve(device, tmp, g) -> tuple:
     from fitgnn_tpu_torch.models.models import NodeModel
-    from fitgnn_tpu_torch.ops import hybrid_spmm as hybrid_mod
-    from fitgnn_tpu_torch.ops.bsr_spmm import bsr_spmm_acc_plain
-    from fitgnn_tpu_torch.ops.coo_segmm import segmm_spmm_plain
     from fitgnn_tpu_torch.utils.results import INFERENCE_HEADER
 
     launches, forwards, wall = run_cli(tmp, [
@@ -1601,10 +1651,7 @@ def phase_serve(device, tmp, g) -> tuple:
     gd = g.to(device)
     with torch.inference_mode():
         out_k = model(gd.x, gd)
-        with mock.patch.object(hybrid_mod, "bsr_spmm_acc",
-                               bsr_spmm_acc_plain), \
-                mock.patch.object(hybrid_mod, "segmm_spmm",
-                                  segmm_spmm_plain):
+        with plain_versions():
             out_p = model(gd.x, gd)
     torch.cuda.synchronize()
     check(out_k.shape == (g.num_nodes_padded, NUM_CLASSES),
@@ -2077,6 +2124,381 @@ def phase_buckets(device, tmp, plain_infer) -> dict:
     return phases
 
 
+# phase 10: SAGE and GIN on every entry point, and layer-0 pre-aggregation
+SAGE_GIN = ("SAGEConv", "GINConv")
+# the aggregate of a pre-aggregated stack, computed once at ingest
+PREAGG_INGEST = {"K1": 1, "K3": 1}
+SAGE_GIN_EPOCHS = 2
+# SAGE's step on its use_diag operator: K3 → K8 → K1 in each aggregation
+SAGE_DIAG_STEP = {"K3": 3, "K8": 3, "K1": 3}
+
+
+def phase_sage_gin_kernels(device, ds, gcn_split) -> tuple:
+    """Phase 10's operators and kernels: ``build_optimized_graph`` for SAGE
+    and GIN on the bench graph (their split must be GCN's), K3 then K1 on
+    each at F=128 and 512, forward and on the transpose structures, and K8
+    from ``init`` on SAGE's ``use_diag`` diagonal blocks (not symmetric),
+    both orientations, each against its plain version.  Returns the two
+    graphs (CPU), SAGE's ``use_diag`` operator and the rows."""
+    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+    from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm, diag_spmm_plain
+
+    graphs, shapes = {}, {"K1": [], "K3": [], "K8": []}
+    gen = torch.Generator(device=device).manual_seed(10)
+    for layer in SAGE_GIN:
+        t0 = time.perf_counter()
+        g, _ = build_optimized_graph(ds.x, ds.senders, ds.receivers,
+                                     y=ds.y, train_mask=ds.train_mask,
+                                     layer_name=layer, seed=0)
+        h = g.aux
+        print(f"{layer} ingest: {time.perf_counter() - t0:.1f} s; "
+              f"semantics {h.semantics}: {h.bsr.nnz_blocks} tiles (with "
+              f"fillers), {h.num_coo_edges} straggler edges, "
+              f"{int((h.weights != 0).sum())} of weight != 0 (GCN: "
+              f"{gcn_split[2]} tiles, {gcn_split[3]} straggler edges)")
+        check(torch.equal(h.bsr.rows, gcn_split[0])
+              and torch.equal(h.bsr.cols, gcn_split[1])
+              and h.bsr.nnz_blocks == gcn_split[2]
+              and h.num_coo_edges == gcn_split[3],
+              f"{layer}: the operator does not split as GCN's")
+        graphs[layer] = g
+        hd = h.to(device)
+        n = g.num_nodes_padded
+        xs = {f: torch.randn((n, f), generator=gen, device=device)
+              for f in (NUM_FEATURES, HIDDEN)}
+        for trans in (False, True):
+            tag = f"{layer}{' transpose' if trans else ''}"
+            rows = k1_k3_rows(hd.bsr.transpose if trans else hd.bsr,
+                              hd.t_segmm if trans else hd.segmm, n, xs, tag)
+            for k, v in rows.items():
+                for row in v:
+                    row["on_path"] = False    # GCN's rows carry the times
+                shapes[k].extend(v)
+        del hd, xs
+
+    t0 = time.perf_counter()
+    gdiag, _ = build_optimized_graph(ds.x, ds.senders, ds.receivers,
+                                     y=ds.y, train_mask=ds.train_mask,
+                                     layer_name="SAGEConv", seed=0,
+                                     use_diag=True)
+    check(torch.equal(gdiag.senders, graphs["SAGEConv"].senders),
+          "SAGE use_diag: node order differs from the default operator's")
+    hdiag = gdiag.aux
+    diag, r8 = hdiag.diag_blocks.to(device), hdiag.diag_r
+    n = gdiag.num_nodes_padded
+    nb = n // 128
+    asym = float((diag - diag.transpose(1, 2)).abs().max())
+    print(f"SAGE use_diag ingest: {time.perf_counter() - t0:.1f} s; "
+          f"{diag.shape[0]} diagonal blocks, diag_r={r8}, "
+          f"max |D - Dᵀ| {asym:.4f}")
+    check(r8 > 0 and hdiag.bsr is not None and asym > 0,
+          "SAGE use_diag: expected the K8 chain on asymmetric blocks")
+    diag_live = int((diag != 0).flatten(1).any(1).sum())
+    diag_nnz = int((diag != 0).sum())
+    with torch.inference_mode():
+        for feat, transpose in ((NUM_FEATURES, False), (HIDDEN, False),
+                                (HIDDEN, True)):
+            x = torch.randn((n, feat), generator=gen, device=device)
+            init = torch.randn((n, feat), generator=gen, device=device)
+            tag = (f"SAGEConv F={feat}{' transpose' if transpose else ''} "
+                   "init")
+            got = diag_spmm(diag, x, r8, transpose, init)
+            ref = diag_spmm_plain(diag, x, r8, transpose, init)
+            torch.cuda.synchronize()
+            err = compare(f"K8 diag_spmm {tag}", got, ref)
+            a3 = diag.transpose(1, 2) if transpose else diag
+            x3, i3 = x.reshape(nb, 128, feat), init.reshape(nb, 128, feat)
+            b8, by8 = bound(diag_live * 128 * 128 * 4 + n * feat * 4 * 3,
+                            2.0 * diag_nnz * feat)
+            shapes["K8"].append(dict(
+                F=feat, shape=tag, transpose=transpose, init=True,
+                operator="SAGEConv use_diag", on_path=False, **err,
+                bound_ms=b8, bound_by=by8,
+                ms=cuda_ms(lambda: diag_spmm(diag, x, r8, transpose, init),
+                           20),
+                plain_ms=cuda_ms(lambda: diag_spmm_plain(
+                    diag, x, r8, transpose, init), 5),
+                library_ms=cuda_ms(lambda: torch.baddbmm(i3, a3, x3), 20)))
+            sh = shapes["K8"][-1]
+            print(f"  K8 {tag}: kernel_ms={sh['ms']:.4f} plain_ms="
+                  f"{sh['plain_ms']:.4f} library_ms={sh['library_ms']:.4f} "
+                  f"bound_ms={sh['bound_ms']:.4f} ({sh['bound_by']})")
+            del x, init, got, ref, x3, i3
+    torch.cuda.empty_cache()
+    return graphs, hdiag, shapes
+
+
+class ReluMasks:
+    """GIN's ReLUs: ``record`` keeps each ``F.relu``'s mask in a run,
+    ``replay`` applies them in order in a second run and counts the
+    pre-activations whose sign differs there.  A pre-activation within
+    rounding of 0 may take the other side of the kink in another order of
+    sums, and the gradient then changes by that unit's whole term: the
+    replayed run's gradients differ from the first's by the order of the
+    sums alone, so they are held at the tolerance of the others."""
+
+    def __init__(self):
+        self.masks, self.flips, self.flip_max, self.z_max = [], 0, 0.0, 0.0
+
+    @contextlib.contextmanager
+    def record(self):
+        def relu(z, inplace=False):
+            self.masks.append(z.detach() > 0)
+            return torch.relu(z)
+
+        with mock.patch.object(torch.nn.functional, "relu", relu):
+            yield
+
+    @contextlib.contextmanager
+    def replay(self):
+        it = iter(self.masks)
+
+        def relu(z, inplace=False):
+            m = next(it)
+            diff = (z.detach() > 0) != m
+            self.flips += int(diff.sum())
+            self.z_max = max(self.z_max, float(z.detach().abs().max()))
+            if diff.any():
+                self.flip_max = max(self.flip_max,
+                                    float(z.detach()[diff].abs().max()))
+            return z * m
+
+        with mock.patch.object(torch.nn.functional, "relu", relu):
+            yield
+        check(next(it, None) is None, "ReluMasks: a ReLU was not replayed")
+
+    def report(self, what: str) -> None:
+        if not self.masks:
+            return
+        print(f"{what}: {len(self.masks)} ReLUs replayed, {self.flips} "
+              f"pre-activations on the other side of 0, the largest "
+              f"|z| {self.flip_max:.3e} of max |z| {self.z_max:.3e}")
+        check(self.flip_max <= 1e-5 * self.z_max,
+              f"{what}: a ReLU flipped away from its kink")
+
+
+def phase_sage_gin_gradients(device, graphs, hdiag) -> None:
+    """One SAGE and one GIN step (hidden 512, dropout off, seed-0 init)
+    with the kernels and with the plain versions (GIN's ReLU masks
+    replayed, ``ReluMasks``): the loss and every gradient (GIN's ``eps``
+    included), the launches of the step and of an eval forward; the pre-aggregated model's step and forward against the
+    plain model's; SAGE's step on its ``use_diag`` operator (K8 both ways)
+    against the default operator's."""
+    from fitgnn_tpu_torch.models.models import NodeModel, preaggregate_input
+    from fitgnn_tpu_torch.train.losses import masked_nll
+
+    for layer in SAGE_GIN:
+        gd = graphs[layer].to(device)
+
+        def model_for(pre=False):
+            m = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                          dropout_rate=0.0, first_layer_preaggregated=pre)
+            m.reset_parameters(torch.Generator().manual_seed(0))
+            return m.to(device).train()
+
+        def step(model, x, g):
+            model.zero_grad(set_to_none=True)
+            loss = masked_nll(model(x, g), gd.y, gd.train_mask)
+            loss.backward()
+            torch.cuda.synchronize()
+            return loss.detach(), {k: p.grad.detach().clone()
+                                   for k, p in model.named_parameters()}
+
+        def eval_forward(model, x, g):
+            model.eval()
+            with torch.inference_mode():
+                out = model(x, g)
+            torch.cuda.synchronize()
+            model.train()
+            return out
+
+        model = model_for()
+        relus = ReluMasks()
+        reset_counts()
+        with relus.record():
+            loss_k, grads_k = step(model, gd.x, gd)
+        expect(read_counts(), STEP[layer], f"{layer} train step")
+        reset_counts()
+        out_k = eval_forward(model, gd.x, gd)
+        expect(read_counts(), EVAL[layer], f"{layer} eval forward")
+        reset_counts()
+        with plain_versions(), relus.replay():
+            loss_p, grads_p = step(model, gd.x, gd)
+        expect(read_counts(), {}, f"{layer} train step, plain versions")
+        relus.report(f"{layer} step, plain versions")
+        compare(f"{layer} loss kernels vs plain", loss_k.reshape(1),
+                loss_p.reshape(1))
+        for k in grads_p:
+            compare(f"{layer} grad {k}", grads_k[k].reshape(-1),
+                    grads_p[k].reshape(-1))
+
+        mode = f"{layer} preaggregated"
+        reset_counts()
+        with torch.no_grad():
+            x_pre = preaggregate_input(gd, layer)
+        torch.cuda.synchronize()
+        expect(read_counts(), PREAGG_INGEST, f"{mode} ingest")
+        pre = model_for(pre=True)
+        reset_counts()
+        loss_pre, grads_pre = step(pre, x_pre, gd)
+        expect(read_counts(), STEP[mode], f"{mode} train step")
+        reset_counts()
+        out_pre = eval_forward(pre, x_pre, gd)
+        expect(read_counts(), EVAL[mode], f"{mode} eval forward")
+        compare(f"{mode} eval forward vs the plain model's", out_pre, out_k)
+        compare(f"{mode} loss vs the plain model's", loss_pre.reshape(1),
+                loss_k.reshape(1))
+        for k in grads_k:
+            compare(f"{mode} grad {k} vs the plain model's",
+                    grads_pre[k].reshape(-1), grads_k[k].reshape(-1))
+        del pre, x_pre, out_pre, grads_pre
+
+        if layer == "SAGEConv":
+            gdiag = gd._replace(aux=hdiag.to(device))
+            reset_counts()
+            loss_d, grads_d = step(model, gdiag.x, gdiag)
+            expect(read_counts(), SAGE_DIAG_STEP, "SAGEConv use_diag step")
+            compare("SAGEConv use_diag loss vs the default operator's",
+                    loss_d.reshape(1), loss_k.reshape(1))
+            for k in grads_k:
+                compare(f"SAGEConv use_diag grad {k} vs the default "
+                        "operator's", grads_d[k], grads_k[k])
+            del gdiag, grads_d
+        del model, gd, grads_k, grads_p, out_k
+        torch.cuda.empty_cache()
+
+
+def phase_sage_gin_cli(device, tmp, graphs) -> dict:
+    """``train --baseline`` for SAGE and GIN at hidden 512, plain and with
+    ``--preaggregate`` (the aggregate once at ingest), then
+    ``infer-baseline`` from each checkpoint (the pre-aggregated one loaded
+    into the plain model) and its forward with kernels against the plain
+    versions; then the curriculum ``Gc_train_2_Gs_train`` GD for 1 + 1
+    epochs on phase 8's cached plain partition, and ``infer`` from SAGE's
+    checkpoint."""
+    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.partition import pipeline
+    from fitgnn_tpu_torch.train import loop
+    from fitgnn_tpu_torch.train.checkpoint import restore_params
+
+    phases, runs = {}, []
+    for layer in SAGE_GIN:
+        for pre in (False, True):
+            out_dir = f"{layer[:-4].lower()}512{'pre' if pre else ''}"
+            mode = f"{layer} preaggregated" if pre else layer
+            launches, _, wall = run_cli(tmp, [
+                "train", "--baseline", "--layer_name", layer, "--hidden",
+                str(HIDDEN), "--runs", "1", "--epochs1",
+                str(SAGE_GIN_EPOCHS), "--output_dir", out_dir,
+                *(["--preaggregate"] if pre else [])])
+            print(f"train {out_dir}: {wall:.1f} s")
+            want = {k: SAGE_GIN_EPOCHS * (STEP[mode][k] + EVAL[mode][k])
+                    + 2 * EVAL[mode][k]
+                    + (PREAGG_INGEST[k] if pre else 0) for k in STEP[mode]}
+            expect(launches, want, f"train {out_dir}")
+            ckpt = os.path.join(tmp, "save", "node_cls", "baseline",
+                                out_dir, "model.pt")
+            check(os.path.exists(ckpt), f"no checkpoint at {ckpt}")
+            phases[f"train {out_dir}"] = launches
+            runs.append((layer, out_dir))
+    with open(os.path.join(tmp, "results", "baseline", "bench.csv")) as f:
+        header, *lines = f.read().splitlines()
+    for line in lines[-len(runs):]:
+        row = dict(zip(header.split(","), line.split(",")))
+        loss = float(row["best_loss"])
+        check(row["layer_name"] in SAGE_GIN and np.isfinite(loss)
+              and loss > 0, f"bad SAGE/GIN train row {line}")
+        print(f"train row: layer={row['layer_name']} best_acc="
+              f"{row['best_acc']} best_loss={row['best_loss']} "
+              f"ave_time={row['ave_time']}")
+
+    for layer, out_dir in runs:
+        launches, forwards, wall = run_cli(tmp, [
+            "infer-baseline", "--layer_name", layer, "--hidden", str(HIDDEN),
+            "--num_test_samples", "8", "--output_dir", out_dir])
+        check(forwards > 0, "no forward ran")
+        expect(launches, {k: v * forwards for k, v in EVAL[layer].items()},
+               f"serve {out_dir}")
+        with open(os.path.join(tmp, "inference_results",
+                               "node_cls.csv")) as f:
+            lines = f.read().splitlines()
+        row = dict(zip(lines[0].split(","), lines[-1].split(",")))
+        check(row["layer_name"] == layer
+              and float(row["avg_inf_time_device"]) > 0
+              and np.isfinite(float(row["avg_loss"])),
+              f"bad {layer} serve row {lines[-1]}")
+        print(f"serve {out_dir}: infer-baseline took {wall:.1f} s, "
+              f"{forwards} forwards; avg_inf_time={row['avg_inf_time']} "
+              f"avg_inf_time_device={row['avg_inf_time_device']} "
+              f"acc={row['acc']}")
+        phases[f"serve {out_dir}"] = launches
+        # the served forward (the checkpoint in the plain model), with
+        # kernels and with the plain versions
+        model = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES)
+        model.load_state_dict(restore_params(os.path.join(
+            tmp, "save", "node_cls", "baseline", out_dir, "model.pt")))
+        model = model.to(device).eval()
+        gd = graphs[layer].to(device)
+        with torch.inference_mode():
+            out_k = model(gd.x, gd)
+            with plain_versions():
+                out_p = model(gd.x, gd)
+        torch.cuda.synchronize()
+        check(bool(((out_k.exp().sum(-1) - 1).abs() < 1e-4).all()),
+              f"serve {out_dir}: rows are not distributions")
+        compare(f"serve {out_dir} forward kernels vs plain", out_k, out_p)
+        del model, gd, out_k, out_p
+
+    results, partition, run_task = ([], pipeline.coarsen_and_partition,
+                                    loop.run_node_task)
+
+    def traced_run(cfg, coarse, batch, verbose=False):
+        res = run_task(cfg, coarse, batch, verbose=verbose)
+        results.append(res.runs[0])
+        return res
+
+    partitioned = []
+    with mock.patch.object(loop, "run_node_task", traced_run), \
+            mock.patch.object(pipeline, "coarsen_and_partition",
+                              lambda *a, **k: partitioned.append(1)
+                              or partition(*a, **k)):
+        for layer in SAGE_GIN:
+            out_dir = f"cur_{layer[:-4].lower()}"
+            launches, _, wall = run_cli(tmp, [
+                "train", "--layer_name", layer, "--hidden", str(HIDDEN),
+                "--exp_setup", "Gc_train_2_Gs_train", "--gradient_method",
+                "GD", "--epochs1", "1", "--epochs2", "1", "--runs", "1",
+                "--output_dir", out_dir])
+            expect(launches, {k: STEP[layer][k] + EVAL[layer][k]
+                              for k in STEP[layer]}, f"curriculum {out_dir}")
+            res = results[-1]
+            check(np.isfinite(res.test_loss) and res.test_loss > 0,
+                  f"curriculum {out_dir}: test loss {res.test_loss}")
+            print(f"curriculum {out_dir}: {wall:.1f} s; Gc epoch ms "
+                  f"{[round(t * 1e3, 3) for t in res.gc_epoch_seconds]}; "
+                  f"Gs epoch s {[round(t, 4) for t in res.gs_epoch_seconds]}"
+                  f" (GD); test eval {res.test_time * 1e3:.3f} ms; test "
+                  f"loss {res.test_loss:.4f} metric {res.test_acc:.4f}")
+            phases[f"curriculum {out_dir}"] = launches
+    check(not partitioned, "phase 10's curriculum did not take phase 8's "
+          "partition from the cache")
+    launches, forwards, wall = run_cli(tmp, [
+        "infer", "--layer_name", "SAGEConv", "--hidden", str(HIDDEN),
+        "--num_test_samples", "64", "--output_dir", "cur_sage"])
+    expect(launches, {}, "curriculum SAGE infer")
+    phases["curriculum sage infer"] = launches
+    with open(os.path.join(tmp, "inference_results", "node_cls.csv")) as f:
+        lines = f.read().splitlines()
+    row = dict(zip(lines[0].split(","), lines[-1].split(",")))
+    check(row["exp_setup"] == "fitgnn" and row["layer_name"] == "SAGEConv"
+          and float(row["avg_inf_time_device"]) > 0
+          and np.isfinite(float(row["acc"])), f"bad infer row {lines[-1]}")
+    print(f"curriculum SAGE infer: {wall:.1f} s, {forwards} forwards; "
+          f"avg_inf_time={row['avg_inf_time']} avg_inf_time_device="
+          f"{row['avg_inf_time_device']} acc={row['acc']}")
+    return phases
+
+
 def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     """One kernel's line: times and bounds summed over the shapes one step
     or forward launches it at (those not marked ``on_path: False``); errors
@@ -2196,6 +2618,8 @@ def main() -> int:
         os.makedirs(os.path.join(tmp, "dataset", "bench"))
         save_npz_cache(os.path.join(tmp, "dataset", "bench", "bench.npz"), ds)
         g, _, shapes = phase_kernels(device, ds)
+        gcn_split = (g.aux.bsr.rows, g.aux.bsr.cols, g.aux.bsr.nnz_blocks,
+                     g.aux.num_coo_edges)
         g_gat, gat_shapes = phase_gat_kernels(device, ds, g)
         shapes.update(gat_shapes)
         for k, v in phase_fused_kernels(device, g_gat).items():
@@ -2217,6 +2641,13 @@ def main() -> int:
         phases.update(curriculum)
         torch.cuda.empty_cache()
         phases.update(phase_buckets(device, tmp, plain_infer))
+        torch.cuda.empty_cache()
+        graphs, hdiag, sage_gin_shapes = phase_sage_gin_kernels(device, ds,
+                                                                gcn_split)
+        for k, v in sage_gin_shapes.items():
+            shapes[k].extend(v)
+        phase_sage_gin_gradients(device, graphs, hdiag)
+        phases.update(phase_sage_gin_cli(device, tmp, graphs))
 
     kernels_line = {"kernels": [
         summarize(label, "cuda", source, replaces,

@@ -5,10 +5,11 @@
     python -m fitgnn_tpu_torch.cli.main train --baseline --dataset cora ...
     python -m fitgnn_tpu_torch.cli.main infer-baseline --dataset cora ...
 
-Ported, for node tasks with GCN and GAT: ``train`` (the FIT-GNN
+Ported, for node tasks with GCN, GAT, SAGE and GIN: ``train`` (the FIT-GNN
 curriculum: coarsening, partition, the three Gc/Gs setups in GD and MB),
 ``infer`` (the subgraph inference-latency benchmark, from the checkpoint
-``train`` saved), ``train --baseline`` (full-batch training) and
+``train`` saved), ``train --baseline`` (full-batch training, with layer-0
+pre-aggregation under ``--preaggregate`` for GCN, SAGE and GIN) and
 ``infer-baseline`` (the full-graph inference-latency baseline).
 ``train`` and ``infer`` take size-bucketed subgraph batches
 (``--bucket_sizes``, ``--max_buckets``); ``train`` the chunked Gs eval
@@ -45,8 +46,8 @@ _NOT_PORTED = {
 }
 
 # train options the port does not run yet: (flag, is set, ROADMAP item);
-# the baseline ignores --bucket_sizes, --eval_chunk and --fused_epochs, as
-# the JAX package's does
+# the baseline ignores --bucket_sizes, --eval_chunk and --fused_epochs, and
+# the curriculum --preaggregate, as the JAX package's do
 _TRAIN_NOT_PORTED = (
     ("--num_devices > 1", lambda a: a.num_devices > 1,
      "ROADMAP.md §1 item 4 (distributed paths)"),
@@ -58,8 +59,6 @@ _TRAIN_NOT_PORTED = (
      "ROADMAP.md §1 item 2 (cluster collapse of the stragglers)"),
     ("--cluster_aggregation_exact", lambda a: a.cluster_aggregation_exact,
      "ROADMAP.md §1 item 2 (cluster collapse of the stragglers)"),
-    ("--preaggregate", lambda a: a.preaggregate,
-     "ROADMAP.md §1 item 2 (layer-0 pre-aggregation)"),
     ("--hybrid_bf16_tiles", lambda a: a.hybrid_bf16_tiles,
      "ROADMAP.md §1 item 2 (bf16 tiles)"),
     ("--auto_config", lambda a: a.auto_config,
@@ -142,8 +141,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="attach the Leiden-reordered hybrid aggregation "
                    "operator to full-graph training (--baseline, and the Gc "
-                   "phase of the curriculum); auto = on for GCN/GAT at "
-                   ">=65,536 nodes")
+                   "phase of the curriculum); auto = on at >=65,536 "
+                   "nodes")
     t.add_argument("--hybrid_threshold", type=int, default=48,
                    help="min edges per 128x128 tile to densify it")
     t.add_argument("--hybrid_bf16_tiles", action="store_true")
@@ -151,7 +150,11 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--cluster_attention", type=int, default=0)
     t.add_argument("--cluster_aggregation", type=int, default=0)
     t.add_argument("--cluster_aggregation_exact", type=int, default=0)
-    t.add_argument("--preaggregate", action="store_true")
+    t.add_argument("--preaggregate", action="store_true",
+                   help="--baseline with GCN, SAGE or GIN: aggregate layer "
+                   "0's input once at ingest (exact; the checkpoint loads "
+                   "into the plain model); GAT and the curriculum ignore "
+                   "it")
     t.add_argument("--eval_chunk", type=int, default=0,
                    help="evaluate the subgraphs in slices of this many per "
                    "bucket (capped by --chunk_budget); 0 = all at once")
@@ -475,8 +478,10 @@ def _check_train_args(args) -> None:
 
 def cmd_train_baseline(args) -> int:
     """Full-graph baseline training, as the JAX package's
-    ``_cmd_train_baseline`` (single device): per run a fresh init from
-    ``seed + run``; per epoch one full-batch train step then a val eval,
+    ``_cmd_train_baseline`` (single device): with ``--preaggregate`` (GCN,
+    SAGE, GIN) layer 0's aggregation runs once here, on the device; per run
+    a fresh init from ``seed + run``; per epoch one full-batch train step
+    then a val eval,
     keeping the parameters of the best val loss; then a warm-up and a
     timed test eval.  The last run's best parameters go to
     ``save/<task>/baseline/<output_dir>/model.pt``, and one row to
@@ -486,7 +491,7 @@ def cmd_train_baseline(args) -> int:
     from fitgnn_tpu_torch.graph.build import build_graph
     from fitgnn_tpu_torch.graph.optimize import (build_optimized_graph,
                                                  should_use_hybrid)
-    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.models.models import NodeModel, preaggregate_input
     from fitgnn_tpu_torch.train import steps
     from fitgnn_tpu_torch.train.checkpoint import save_params
     from fitgnn_tpu_torch.utils import results as R
@@ -513,6 +518,13 @@ def cmd_train_baseline(args) -> int:
     if not classify:
         g = g._replace(y=g.y.float())
     task = "classification" if classify else "regression"
+    preagg = args.preaggregate and args.layer_name in (
+        "GCNConv", "SAGEConv", "GINConv")
+    if preagg:
+        # exact: the input features are constant, so layer 0's aggregation
+        # moves to ingest; the parameters are the plain model's
+        with torch.no_grad():
+            g = g._replace(x=preaggregate_input(g, args.layer_name))
 
     all_acc, all_loss, all_time = [], [], []
     best_state = None
@@ -521,7 +533,8 @@ def cmd_train_baseline(args) -> int:
         model = NodeModel(args.layer_name, in_dim=ds.x.shape[1],
                           hidden=args.hidden, num_layers=args.num_layers1,
                           out_dim=num_classes if classify else 1,
-                          classify=classify)
+                          classify=classify,
+                          first_layer_preaggregated=preagg)
         model.reset_parameters(torch.Generator().manual_seed(seed))
         model = model.to(device)
         opt = steps.adam_l2(model.parameters(), args.lr, args.weight_decay)

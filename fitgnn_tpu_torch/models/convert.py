@@ -15,6 +15,14 @@ _LAYER_PARAMS = {
                 "att_src": (("att_src",), False),
                 "att_dst": (("att_dst",), False),
                 "bias": (("bias",), False)},
+    "SAGEConv": {"lin_l.weight": (("lin_l", "kernel"), True),
+                 "lin_l.bias": (("lin_l", "bias"), False),
+                 "lin_r.weight": (("lin_r", "kernel"), True)},
+    "GINConv": {"eps": (("eps",), False),
+                "mlp_0.weight": (("mlp_0", "kernel"), True),
+                "mlp_0.bias": (("mlp_0", "bias"), False),
+                "mlp_1.weight": (("mlp_1", "kernel"), True),
+                "mlp_1.bias": (("mlp_1", "bias"), False)},
 }
 
 
@@ -23,17 +31,18 @@ def _t(a) -> torch.Tensor:
 
 
 def params_from_flax(tree: Mapping) -> dict:
-    """Map a flax GCN or GAT ``NodeModel`` parameter tree (nested mappings
-    of numpy arrays, with or without the top-level ``params`` key) onto
-    the port's state dict.  flax kernels are (in, out); ``nn.Linear``
-    stores (out, in), so kernels are transposed.  The layer type comes
-    from the tree's ``<layer>_0`` key."""
+    """Map a flax ``NodeModel`` parameter tree (GCN, GAT, SAGE or GIN,
+    pre-aggregated or not: the trees are the same; nested mappings of numpy
+    arrays, with or without the top-level ``params`` key) onto the port's
+    state dict.  flax kernels are (in, out); ``nn.Linear`` stores (out,
+    in), so kernels are transposed; GIN's ``eps`` stays 0-dim.  The layer
+    type comes from the tree's ``<layer>_0`` key."""
     p = tree["params"] if "params" in tree else tree
     convs = p["convs"]
     layer_name = next((name for name in _LAYER_PARAMS
                        if f"{name}_0" in convs), None)
     if layer_name is None:
-        raise ValueError("no GCNConv_<i> or GATConv_<i> layers under "
+        raise ValueError(f"no {'/'.join(_LAYER_PARAMS)}_<i> layers under "
                          f"params/convs (found {sorted(convs)})")
     sd = {}
     i = 0

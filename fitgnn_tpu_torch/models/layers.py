@@ -9,11 +9,17 @@
   (``ops/tile_gat.py``), a dense masked path for graphs of at most
   ``DENSE_SPMM_MAX_N`` padded nodes, and a per-edge path otherwise.
 
-Both layers also take a stack of same-padded subgraphs (``x`` (S, N, F),
+* SAGEConv: ``lin_l(mean_neigh(x)) + lin_r(x)``, self loops left out of
+  the mean: the hybrid operator when it carries ``mean_nonself`` weights
+  (``1/indeg`` on non-self edges), else a ``w/deg``-weighted SpMM on the
+  dense branch and a masked segment mean per edge.
+* GINConv: ``relu(mlp_1(relu(mlp_0((1+ε)·x + Σ_neigh x))))`` with a
+  trainable 0-dim ``eps``: the hybrid operator when it carries
+  ``sum_nonself`` weights, else ``spmm_coo`` with the non-self weights.
+
+Every layer also takes a stack of same-padded subgraphs (``x`` (S, N, F),
 a ``Graph`` whose tensors have the subgraph axis in front), as the JAX
 package's ``jax.vmap`` over a ``SubgraphBatch`` runs them.
-
-SAGE and GIN are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,8 +34,8 @@ import torch.nn.functional as F
 from fitgnn_tpu_torch.graph.container import Graph
 from fitgnn_tpu_torch.ops.hybrid_spmm import HybridSpmm, hybrid_spmm
 from fitgnn_tpu_torch.ops.sddmm import gather_concat_score
-from fitgnn_tpu_torch.ops.segment import segment_softmax, segment_sum, \
-    take_rows
+from fitgnn_tpu_torch.ops.segment import (segment_mean, segment_softmax,
+                                          segment_sum, take_rows)
 from fitgnn_tpu_torch.ops.spmm import (dense_adjacency, flat_edges,
                                        spmm_coo, use_dense)
 from fitgnn_tpu_torch.ops.tile_gat import tile_gat_attention
@@ -174,11 +180,119 @@ class GATConv(nn.Module):
         return torch.matmul(alpha.to(h.dtype), h)
 
 
+def _nonself_weight(g: Graph, dtype: torch.dtype) -> torch.Tensor:
+    """1 on non-self-loop edges, else 0 (padding edges are self loops on
+    the padding node, so they drop out too)."""
+    return (g.senders != g.receivers).to(dtype)
+
+
+def sage_aggregator(g: Graph, dtype: torch.dtype):
+    """SAGE's neighbour mean as a function of the (N, F) or (S, N, F)
+    features, as the JAX package's ``SAGEConv`` picks it."""
+    if isinstance(g.aux, HybridSpmm) and g.aux.semantics == "mean_nonself":
+        return lambda h: hybrid_spmm(g.aux, h)
+    n = g.num_nodes_padded
+    w = _nonself_weight(g, dtype)
+    if use_dense(n):
+        # a (w/deg)-weighted SpMM on the dense branch; a stack's in-degree
+        # is taken per subgraph
+        r = g.receivers.long()
+        deg = torch.zeros(w.shape[:-1] + (n,), dtype=dtype,
+                          device=w.device).scatter_add_(-1, r, w)
+        wn = w * (1.0 / deg.clamp_min(1.0)).gather(-1, r)
+        return lambda h: spmm_coo(wn, g.senders, g.receivers, h, n)
+    if g.senders.dim() == 2:
+        # a stack of large subgraphs: the mean over the flattened rows
+        s, r = flat_edges(g.senders, g.receivers, n)
+        mask = w.reshape(-1) > 0
+
+        def agg(h):
+            rows = h.shape[0] * n
+            out = segment_mean(take_rows(h.reshape(rows, -1), s), r, rows,
+                               mask=mask)
+            return out.reshape(h.shape[0], n, -1)
+        return agg
+    return lambda h: segment_mean(take_rows(h, g.senders), g.receivers, n,
+                                  mask=w > 0)
+
+
+def gin_aggregator(g: Graph, dtype: torch.dtype):
+    """GIN's neighbour sum, as the JAX package's ``GINConv`` picks it."""
+    if isinstance(g.aux, HybridSpmm) and g.aux.semantics == "sum_nonself":
+        return lambda h: hybrid_spmm(g.aux, h)
+    w = _nonself_weight(g, dtype)
+    return lambda h: spmm_coo(w, g.senders, g.receivers, h,
+                              g.num_nodes_padded)
+
+
+class SAGEConv(nn.Module):
+    """``lin_l`` (with bias) on the neighbour mean plus ``lin_r`` (no bias)
+    on the node itself, ``nn.Linear``'s (out, in) storage."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.features = features
+        self.lin_l = nn.Linear(in_features, features)
+        self.lin_r = nn.Linear(in_features, features, bias=False)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """flax's init: lecun_normal kernels, zero bias."""
+        with torch.no_grad():
+            lecun_normal_(self.lin_l.weight, self.lin_l.in_features,
+                          generator)
+            self.lin_l.bias.zero_()
+            lecun_normal_(self.lin_r.weight, self.lin_r.in_features,
+                          generator)
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        agg = sage_aggregator(g, x.dtype)
+        if self.features <= x.shape[-1]:
+            # aggregate on the narrow side: mean(x)·W + b = mean(x·W) + b,
+            # the bias added after the mean, so a node without neighbours
+            # gets b as lin_l(mean(x)) gives it
+            out = agg(F.linear(x, self.lin_l.weight)) + self.lin_l.bias
+        else:
+            out = self.lin_l(agg(x))
+        return out + self.lin_r(x)
+
+
+class GINConv(nn.Module):
+    """``relu(mlp_1(relu(mlp_0((1+ε)·x + Σ_neigh x))))``; ``eps`` is a
+    trainable 0-dim parameter, the MLP's hidden width ``features``."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.features = features
+        self.eps = nn.Parameter(torch.zeros(()))
+        self.mlp_0 = nn.Linear(in_features, features)
+        self.mlp_1 = nn.Linear(features, features)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """flax's init: zero ``eps``, lecun_normal kernels, zero biases."""
+        with torch.no_grad():
+            self.eps.zero_()
+            for lin in (self.mlp_0, self.mlp_1):
+                lecun_normal_(lin.weight, lin.in_features, generator)
+                lin.bias.zero_()
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        agg = gin_aggregator(g, x.dtype)
+        if self.features <= x.shape[-1]:
+            # aggregate on the narrow side: W₀((1+ε)x + Σx) + b₀
+            # = (1+ε)(x·W₀) + Σ(x·W₀) + b₀
+            h0 = F.linear(x, self.mlp_0.weight)
+            h = F.relu((1.0 + self.eps) * h0 + agg(h0) + self.mlp_0.bias)
+        else:
+            h = F.relu(self.mlp_0((1.0 + self.eps) * x + agg(x)))
+        return F.relu(self.mlp_1(h))
+
+
+LAYERS = {"GCNConv": GCNConv, "GATConv": GATConv, "SAGEConv": SAGEConv,
+          "GINConv": GINConv}
+
+
 def make_layer(layer_name: str, in_features: int, hidden: int) -> nn.Module:
-    if layer_name == "GCNConv":
-        return GCNConv(in_features, hidden)
-    if layer_name == "GATConv":
-        return GATConv(in_features, hidden)
-    raise NotImplementedError(
-        f"layer {layer_name!r} is not ported yet (ROADMAP.md §1 item 2: "
-        "SAGE and GIN)")
+    if layer_name not in LAYERS:
+        raise ValueError(f"unknown layer {layer_name!r}; choose from "
+                         f"{sorted(LAYERS)}")
+    return LAYERS[layer_name](in_features, hidden)

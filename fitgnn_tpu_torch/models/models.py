@@ -8,8 +8,14 @@ global generator; eval mode (the serve path) has no dropout.  The dropout
 of a layer follows the JAX package's precedence: the byte-mask dropout at
 rate ½ under ``bit_dropout`` (the default), else the in-kernel Philox
 dropout (K11, ``ops/dropout.py``) under ``fused_dropout``, else Bernoulli
-dropout from a uniform draw.  The JAX package's layer-0 pre-aggregation is
-not ported yet (ROADMAP.md §1 item 2).
+dropout from a uniform draw.
+
+Layer-0 pre-aggregation (``first_layer_preaggregated``), as the JAX
+package's: the input features are constant, so layer 0's aggregation runs
+once at ingest (``preaggregate_input``) and the layer becomes dense work
+alone (``_PreAggGCN``, ``_PreAggSAGE``, ``_PreAggGIN``).  Their parameters
+carry the regular layer's names and shapes, so one state dict loads into
+either model.
 """
 
 from __future__ import annotations
@@ -21,8 +27,12 @@ from torch import nn
 import torch.nn.functional as F
 
 from fitgnn_tpu_torch.graph.container import Graph
-from fitgnn_tpu_torch.models.layers import lecun_normal_, make_layer
+from fitgnn_tpu_torch.models.layers import (GCNConv, GINConv, SAGEConv,
+                                            gin_aggregator, lecun_normal_,
+                                            make_layer, sage_aggregator)
 from fitgnn_tpu_torch.ops.dropout import fused_dropout, seed_from_generator
+from fitgnn_tpu_torch.ops.hybrid_spmm import HybridSpmm, hybrid_spmm
+from fitgnn_tpu_torch.ops.spmm import spmm_coo
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
@@ -46,18 +56,55 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
+class _PreAggGCN(GCNConv):
+    """Layer 0 of a pre-aggregated GCN stack: the input is already Â·X, so
+    only the dense transform and the bias remain."""
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        return self.lin(x) + self.bias
+
+
+class _PreAggSAGE(SAGEConv):
+    """Layer 0 of a pre-aggregated SAGE stack: the input is
+    ``concat([X, mean_neigh(X)])``; out = lin_l(mean) + lin_r(X)."""
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        x_raw, x_mean = x.chunk(2, dim=-1)
+        return self.lin_l(x_mean) + self.lin_r(x_raw)
+
+
+class _PreAggGIN(GINConv):
+    """Layer 0 of a pre-aggregated GIN stack: the input is
+    ``concat([X, sum_neigh(X)])``; ε multiplies only the raw half."""
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        x_raw, x_sum = x.chunk(2, dim=-1)
+        h = F.relu(self.mlp_0((1.0 + self.eps) * x_raw + x_sum))
+        return F.relu(self.mlp_1(h))
+
+
+_PREAGG = {"GCNConv": _PreAggGCN, "SAGEConv": _PreAggSAGE,
+           "GINConv": _PreAggGIN}
+
+
 class ConvStack(nn.Module):
     """``num_layers`` convs, each followed by ELU and, in train mode,
     dropout(``dropout_rate``): bit dropout when ``bit_dropout`` and the rate
     is ½, else K11 when ``fused_dropout`` (one seed a layer, drawn from the
-    generator), else Bernoulli dropout."""
+    generator), else Bernoulli dropout.  ``first_layer_preaggregated``:
+    layer 0 takes ``preaggregate_input``'s features (GCN, SAGE, GIN)."""
 
     def __init__(self, layer_name: str, in_dim: int, hidden: int,
                  num_layers: int, dropout_rate: float = 0.5,
-                 fused_dropout: bool = False, bit_dropout: bool = True):
+                 fused_dropout: bool = False, bit_dropout: bool = True,
+                 first_layer_preaggregated: bool = False):
         super().__init__()
+        if first_layer_preaggregated and layer_name not in _PREAGG:
+            raise ValueError("pre-aggregation is exact for GCN/SAGE/GIN only")
         self.layers = nn.ModuleList(
-            make_layer(layer_name, in_dim if i == 0 else hidden, hidden)
+            _PREAGG[layer_name](in_dim, hidden)
+            if i == 0 and first_layer_preaggregated
+            else make_layer(layer_name, in_dim if i == 0 else hidden, hidden)
             for i in range(num_layers))
         self.dropout_rate = dropout_rate
         self.fused_dropout = fused_dropout
@@ -90,11 +137,13 @@ class NodeModel(nn.Module):
     def __init__(self, layer_name: str, in_dim: int, hidden: int,
                  num_layers: int, out_dim: int, classify: bool = True,
                  dropout_rate: float = 0.5, fused_dropout: bool = False,
-                 bit_dropout: bool = True):
+                 bit_dropout: bool = True,
+                 first_layer_preaggregated: bool = False):
         super().__init__()
         self.classify = classify
         self.convs = ConvStack(layer_name, in_dim, hidden, num_layers,
-                               dropout_rate, fused_dropout, bit_dropout)
+                               dropout_rate, fused_dropout, bit_dropout,
+                               first_layer_preaggregated)
         self.head = nn.Linear(hidden, out_dim)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -115,3 +164,26 @@ class NodeModel(nn.Module):
         if self.classify:
             return F.log_softmax(out.float(), dim=-1)
         return out.float()
+
+
+def preaggregate_features(g: Graph) -> torch.Tensor:
+    """x̃ = Â·X, computed once at ingest for a pre-aggregated GCN (through
+    the graph's hybrid operator when it has one)."""
+    if isinstance(g.aux, HybridSpmm):
+        return hybrid_spmm(g.aux, g.x)
+    return spmm_coo(g.edge_weight, g.senders, g.receivers, g.x,
+                    g.num_nodes_padded)
+
+
+def preaggregate_input(g: Graph, layer_name: str) -> torch.Tensor:
+    """Layer 0's input for a pre-aggregated stack: GCN takes ``Â·X``; SAGE
+    and GIN take ``concat([X, agg(X)])``, the aggregate their own layer's
+    neighbour mean or sum (the hybrid operator when it carries the layer's
+    semantics)."""
+    if layer_name == "GCNConv":
+        return preaggregate_features(g)
+    aggregators = {"SAGEConv": sage_aggregator, "GINConv": gin_aggregator}
+    if layer_name not in aggregators:
+        raise ValueError(f"pre-aggregation unsupported for {layer_name!r}")
+    agg = aggregators[layer_name](g, g.x.dtype)
+    return torch.cat([g.x, agg(g.x)], dim=-1)

@@ -11,9 +11,9 @@ mode with ``--extra_node``; one pad for every subgraph, or size buckets
 with ``--bucket_sizes``), then, with the seed-0 ``NodeModel`` at hidden
 512 (2 layers, dropout 0.5, f32), times and profiles:
 
-* Gc: one GCN and one GAT ``gc_train_step`` and ``gc_eval_step`` (the val
-  forward) on the Leiden-reordered Gc with its hybrid operator, as
-  ``train`` builds it;
+* Gc: one GCN, GAT, SAGE and GIN ``gc_train_step`` and ``gc_eval_step``
+  (the val forward) on the Leiden-reordered Gc with the layer's hybrid
+  operator, as ``train`` builds it;
 * Gs: one GCN GD step and one eval over every subgraph (as ``train``
   runs them: ``gs_train_step_gd`` and ``gs_eval_step`` on one batch,
   ``gs_train_step_gd_multi`` and ``gs_eval_step_multi`` on buckets, whose
@@ -53,7 +53,8 @@ sys.path.insert(0, HERE)
 from chip_smoke import HIDDEN, NUM_CLASSES, NUM_FEATURES, make_graph  # noqa
 from torch_train_profile import _device_us, _group  # noqa
 
-ROWS_WALK = {"GCNConv": None, "GATConv": "K4 dyn_tiles"}
+ROWS_WALK = {"GCNConv": None, "GATConv": "K4 dyn_tiles", "SAGEConv": None,
+             "GINConv": None}
 
 
 def index_put_adjacency(values, senders, receivers, num_nodes, dtype):
@@ -180,7 +181,7 @@ def main(argv=None) -> int:
         return (m, steps.adam_l2(m.parameters(), 0.01, 5e-4),
                 torch.Generator(device=dev).manual_seed(0))
 
-    for layer in ("GCNConv", "GATConv"):
+    for layer in ROWS_WALK:
         t0 = time.perf_counter()
         coarse = optimize_coarse(part.coarse, layer_name=layer,
                                  seed=0).to(dev)

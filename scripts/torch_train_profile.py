@@ -13,11 +13,16 @@ at hidden 64 on its default path (its straggler sums take K3w, forward and
 ``dx``, in both layers: 4 launches a step), then
 GCN on its default path, with ``fused_dropout=True, bit_dropout=False``
 (K11), and with K11 on the operators of ``build_hybrid``'s tile opt-ins:
-``use_diag`` (K8), ``tile_group=2`` (K9) and ``use_rowwalk`` (K10).  For
+``use_diag`` (K8), ``tile_group=2`` (K9) and ``use_rowwalk`` (K10); then
+SAGE and GIN on their own operators (``mean_nonself`` and ``sum_nonself``
+weights: K3 then K1, as GCN), and GCN, SAGE and GIN pre-aggregated
+(``first_layer_preaggregated``, layer 0's input from
+``preaggregate_input`` once, as ``train --baseline --preaggregate``).  For
 each it prints:
 
 * the step's time (``gc_train_step``: forward, masked NLL, backward, Adam)
-  from CUDA events over 10 steps after 3 warm-ups;
+  from CUDA events over 10 steps after 3 warm-ups, and the eval forward's
+  (``gc_eval_step``) over 10 after 3;
 * a ``torch.profiler`` table of device time per kernel over 5 steps,
   grouped into the port's kernels (K1-K11), the dense layers (cuBLAS), the
   optimizer and the rest.  K7f and K7bt's ``dx`` launch the walk under
@@ -160,6 +165,16 @@ def profile_step(layer: str, g, dev, label: str, rows_walk: str | None,
     end.synchronize()
     step_ms = start.elapsed_time(end) / 10
 
+    for _ in range(3):
+        steps.gc_eval_step(model, g, g.y, g.train_mask, "classification")
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(10):
+        steps.gc_eval_step(model, g, g.y, g.train_mask, "classification")
+    end.record()
+    end.synchronize()
+    eval_ms = start.elapsed_time(end) / 10
+
     users = _rows_walk_users()
     before = {k: fn.launches for k, fn in users.items()}
     with profile(activities=[ProfilerActivity.CPU,
@@ -186,7 +201,8 @@ def profile_step(layer: str, g, dev, label: str, rows_walk: str | None,
         k = _group(evt.key, rows_walk)
         groups[k] = groups.get(k, 0.0) + us / 1e3 / PROFILED
     rows.sort(reverse=True)
-    print(f"{label}: step (CUDA events, 10 steps): {step_ms:.4f} ms")
+    print(f"{label}: step (CUDA events, 10 steps): {step_ms:.4f} ms; eval "
+          f"forward {eval_ms:.4f} ms")
     print("device time per step by kernel (profiler):")
     for us, count, key in rows[:25]:
         print(f"  {us / 1e3 / PROFILED:9.4f} ms  x{count / PROFILED:5.1f}  "
@@ -194,6 +210,7 @@ def profile_step(layer: str, g, dev, label: str, rows_walk: str | None,
     busy = sum(groups.values())
     return {
         "config": label, "layer": layer, "step_ms": step_ms,
+        "eval_ms": eval_ms,
         "profiled_window_ms_per_step": window_ms / PROFILED,
         "device_busy_ms_per_step": busy,
         "idle_share": 1.0 - busy * PROFILED / window_ms,
@@ -208,6 +225,7 @@ def main() -> int:
         return 1
     import subprocess
     from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+    from fitgnn_tpu_torch.models.models import preaggregate_input
     from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
     from fitgnn_tpu_torch.utils.device import resolve_device
 
@@ -236,24 +254,40 @@ def main() -> int:
                                  layer_name="GCNConv", seed=0)
     # K1 runs on the default operator and after K8 on use_diag's; the
     # grouped and row-walk layouts add init to K9's or K10's output instead
-    configs = [("GCNConv", g, {}, K1), ("GCNConv K11", g, k11, K1)]
+    configs = [("GCNConv", g, {}, K1, "GCNConv"),
+               ("GCNConv K11", g, k11, K1, "GCNConv")]
     for name, kw, walk in (("diag", dict(use_diag=True), K1),
                            ("tile_group=2", dict(tile_group=2),
                             "K9 bsr_spmm_grouped")):
         g2, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
                                       layer_name="GCNConv", seed=0, **kw)
-        configs.append((f"GCNConv K11 {name}", g2, k11, walk))
+        configs.append((f"GCNConv K11 {name}", g2, k11, walk, "GCNConv"))
     # build_optimized_graph has no use_rowwalk: the operator is built on
     # the reordered graph, as bench.py builds it
     h = build_hybrid(g.senders.numpy(), g.receivers.numpy(),
                      g.edge_weight.numpy(), g.num_nodes_padded,
                      min_block_edges=48, use_segmm=True, use_rowwalk=True)
     configs.append(("GCNConv K11 rowwalk", g._replace(aux=h), k11,
-                    "K10 bsr_spmm_rowwalk"))
-    for label, graph, kw, walk in configs:
+                    "K10 bsr_spmm_rowwalk", "GCNConv"))
+    own = {"GCNConv": g}
+    for layer in ("SAGEConv", "GINConv"):
+        own[layer], _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                              layer_name=layer, seed=0)
+        configs.append((layer, own[layer], {}, K1, layer))
+    for label, graph, kw, walk, layer in configs:
         gd = graph.to(dev)
-        out = profile_step("GCNConv", gd, dev, label, walk, **kw)
+        out = profile_step(layer, gd, dev, label, walk, **kw)
         print(json.dumps({"model": kw, **out}))
+        del gd
+        torch.cuda.empty_cache()
+    for layer, graph in own.items():
+        gd = graph.to(dev)
+        with torch.no_grad():
+            gd = gd._replace(x=preaggregate_input(gd, layer))
+        out = profile_step(layer, gd, dev, f"{layer} preaggregated", K1,
+                           first_layer_preaggregated=True)
+        print(json.dumps({"model": {"first_layer_preaggregated": True},
+                          **out}))
         del gd
         torch.cuda.empty_cache()
     return 0

@@ -153,6 +153,61 @@ def test_hybrid_on_card_matches_cpu(cuda):
     _close(got, hybrid_spmm(h, x))
 
 
+def _layer_operator(rng, layer, **kw):
+    """The hybrid operator ``build_optimized_graph`` gives ``layer`` on a
+    1,500-node community graph: SAGE's ``1/indeg`` weights make it
+    asymmetric, GIN's are 0/1."""
+    s, r = _bench_like(rng)
+    x = np.zeros((1500, 4), np.float32)
+    g, _ = build_optimized_graph(x, s, r, min_block_edges=48,
+                                 layer_name=layer, **kw)
+    h = g.aux
+    assert h.bsr is not None or h.diag_blocks is not None
+    return h
+
+
+@pytest.mark.parametrize("feat", [128, 512])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("layer", ["SAGEConv", "GINConv"])
+def test_k1_k3_at_sage_gin_weights_match_plain(cuda, layer, transpose,
+                                                feat):
+    """K3 then K1 on the SAGE (``mean_nonself``) and GIN (``sum_nonself``)
+    operators, forward and on the transpose structures (``t_segmm``,
+    ``bsr.transpose``) the backward runs, against the plain versions."""
+    rng = np.random.default_rng(feat + len(layer))
+    h = _layer_operator(rng, layer).to(cuda)
+    m = h.t_segmm if transpose else h.segmm
+    b = h.bsr.transpose if transpose else h.bsr
+    x = torch.from_numpy(rng.standard_normal((h.num_nodes, feat)).astype(
+        np.float32)).to(cuda)
+    before = (segmm_spmm.launches, bsr_spmm_acc.launches)
+    with torch.inference_mode():
+        k3, p3 = segmm_spmm(m, x), segmm_spmm_plain(m, x)
+        k1, p1 = bsr_spmm_acc(b, x, p3), bsr_spmm_acc_plain(b, x, p3)
+    torch.cuda.synchronize()
+    assert (segmm_spmm.launches, bsr_spmm_acc.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close(k3, p3)
+    _close(k1, p1)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_k8_on_sage_diagonal_matches_plain(cuda, transpose):
+    """K8 from ``init`` on the diagonal blocks of SAGE's ``use_diag``
+    operator, which are not symmetric, in both orientations."""
+    rng = np.random.default_rng(13)
+    h = _layer_operator(rng, "SAGEConv", use_diag=True).to(cuda)
+    blocks = h.diag_blocks
+    assert not torch.equal(blocks, blocks.transpose(1, 2))
+    x, init = (torch.from_numpy(rng.standard_normal(
+        (h.num_nodes, 512)).astype(np.float32)).to(cuda) for _ in range(2))
+    with torch.inference_mode():
+        got = diag_spmm(blocks, x, h.diag_r, transpose, init)
+        ref = diag_spmm_plain(blocks, x, h.diag_r, transpose, init)
+    torch.cuda.synchronize()
+    _close(got, ref)
+
+
 def _tiles(rng, nb=6, k=15):
     """A sorted tile list covering every block row; block column 2 is never
     used, so the transpose plan carries a filler there."""
@@ -460,11 +515,14 @@ def _grads(model, g, y, mask):
 
 
 @pytest.mark.parametrize("layer,hidden", [("GCNConv", 64), ("GATConv", 64),
-                                          ("GATConv", 256)])
+                                          ("GATConv", 256), ("SAGEConv", 64),
+                                          ("GINConv", 64)])
 def test_training_gradients_on_card_match_cpu(cuda, layer, hidden):
     """One training step's loss and gradients with the kernels on the card
     against the plain versions on the CPU (at hidden 64 GAT's stragglers
-    take K3w, at 256 the den-column scatter)."""
+    take K3w, at 256 the den-column scatter; SAGE and GIN run K3 and K1 on
+    their mean and sum operators, GIN's 0-dim ``eps`` among the
+    gradients)."""
     rng = np.random.default_rng(9)
     n, feat = 1500, 128
     r = rng.integers(0, n, 15_000)

@@ -107,6 +107,8 @@ def test_hybrid_gate():
     assert not should_use_hybrid(10 ** 6, "MLP")
 
 
-def test_unported_layers_raise():
-    with pytest.raises(NotImplementedError):
-        NodeModel("SAGEConv", 8, 16, 2, 3)
+def test_unknown_layer_raises():
+    """As the JAX package's ``make_layer``: a ValueError naming the four
+    layers."""
+    with pytest.raises(ValueError, match="GINConv"):
+        NodeModel("MLP", 8, 16, 2, 3)
