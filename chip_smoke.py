@@ -146,14 +146,38 @@ Phases (any failure exits non-zero before the result lines):
    curriculum ``train`` ``Gc_train_2_Gs_train`` GD for 1 + 1 epochs on
    phase 8's cached partition (the Gc epoch's counts, none in the Gs
    phase), and ``infer`` from SAGE's checkpoint (64 samples, no launches);
-11. one JSON line with every kernel's numbers (launches summed over the
-   main-path phases 5 to 10, per phase beside them; K3, K3w, K6, K5,
-   K7f, K7bt, K7s and K7sums with their ``ptxas`` register and spill
-   counts), then the ``ok`` line.
+11. bf16 tiles (``phase_bf16_*``): the bench graph's operators built with
+   ``tile_dtype=torch.bfloat16`` (GCN's default, ``use_diag``,
+   ``tile_group=2`` and ``use_rowwalk`` layouts, GAT's mask; their tile
+   bytes against f32's); each bf16 form against its plain version on the
+   same tiles at F=128 and 512 (K1, K2, K9, K10; K8 forward and
+   transposed, with and without init; K7rm, K7f, K7bt's dx and K7s, these
+   also bit for bit against their f32 forms on the mask in f32), with
+   kernel, plain and library times and its bound (tiles at 2 bytes an
+   entry) beside the f32 form's time and bound; the walk's edge cases (a
+   NaN tile entry reaches its own row only in K1, K2, K9, K10 and K8 both
+   ways; an inf that only masked-out entries reach stays out of K7f and
+   K7bt's dx); then, every counter at 0
+   just before each run, one GCN step and eval forward on each bf16
+   operator (K1, K8, K9 or K10 in its bf16 form, K3) against the plain
+   versions, eval forwards on the forward-only bf16 operator (K2), a GAT
+   step under ``FUSED`` and one under ``FUSED_EXACT`` on the bf16 mask
+   against the plain versions and the f32 mask's step; then through the
+   CLI with ``--hybrid_bf16_tiles``: ``train --baseline`` for GCN, SAGE
+   and GAT (``FUSED``) at hidden 512 for 2 epochs (the f32 runs' counts
+   with every tile kernel in its bf16 form, so no f32 tile kernel
+   launches; best losses beside the f32 runs' of phases 6 and 10), and
+   the curriculum ``train`` GD for 1 + 1 epochs on phase 8's cached
+   partition (Gc on bf16 tiles);
+12. one JSON line with every kernel's numbers, the bf16 forms as their
+   own entries (launches summed over the main-path phases 5 to 11, per
+   phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and K7sums with
+   their ``ptxas`` register and spill counts), then the ``ok`` line.
 
 The JAX package's environment switches are set in ``os.environ`` for one
 phase and restored after it; the earlier phases must launch none of K6
-and K7, and the CLI phases none of the opt-in kernels.
+and K7, the CLI phases none of the opt-in kernels, and no phase before 11
+a bf16 form.
 """
 
 from __future__ import annotations
@@ -221,12 +245,14 @@ def make_graph():
 
 def walk_args(kernel_name: str):
     """(TRANS, INIT, DIAG, hook) of a ``sparse::walk_kernel<TRANS, INIT,
-    VEC, DIAG, V>`` launch by its demangled name, ``hook`` the value
-    hook's name without its namespace ("Plain", K7f's "FwdScores", K7bt's
-    "DxScores"), or None for any other kernel (the profile scripts group
-    the walk's users by these)."""
+    VEC, DIAG, V, T, ROUND_X>`` launch by its demangled name, ``hook`` the
+    value hook's name without its namespace ("Plain", K7f's "FwdScores",
+    K7bt's "DxScores"), or None for any other kernel (the profile scripts
+    group the walk's users by these; the tile type T and ROUND_X, the bf16
+    forms', do not change the group)."""
     m = re.search(r"sparse::walk_kernel<(\w+),(\w+),(\w+),(\w+),"
-                  r"(?:\w+::)*(\w+)>", kernel_name.replace(" ", ""))
+                  r"(?:\w+::)*(\w+)(?:,\w+,\w+)?>",
+                  kernel_name.replace(" ", ""))
     if m is None:
         return None
     trans, init, _, diag = (v in ("true", "1") for v in m.groups()[:4])
@@ -522,8 +548,9 @@ def phase_kernels(device, ds) -> tuple:
 
 
 def counters() -> dict:
-    """Every kernel wrapper of the path, by the ID of the TPU kernel it
-    replaces; each counts its own launches."""
+    """Every kernel form of the path, by the ID of the TPU kernel it
+    replaces (a bf16 form's ID ends in "bf"): (its wrapper, the wrapper's
+    count of that form's launches)."""
     from fitgnn_tpu_torch.ops.bsr_dynamic import (dyn_grad_blocks,
                                                   dyn_tiles, dyn_tiles_t)
     from fitgnn_tpu_torch.ops import att_bsr
@@ -535,23 +562,36 @@ def counters() -> dict:
                                                 segmm_weighted_raw)
     from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm
     from fitgnn_tpu_torch.ops.dropout import philox_dropout
-    return {"K1": bsr_spmm_acc, "K3": segmm_spmm, "K4": dyn_tiles,
-            "K4T": dyn_tiles_t, "K5": dyn_grad_blocks,
-            "K3w": segmm_weighted_raw, "K6": segmm_weighted_den_raw,
-            "K7rm": att_bsr.att_rowmax, "K7f": att_bsr.att_fwd,
-            "K7bt": att_bsr.att_bwd_t, "K7s": att_bsr.att_bwd_scores,
-            "K7sums": att_bsr.att_sums,
-            "K2": bsr_spmm_fwd, "K8": diag_spmm, "K9": bsr_spmm_grouped,
-            "K10": bsr_spmm_rowwalk, "K11": philox_dropout}
+    f32 = {"K1": bsr_spmm_acc, "K3": segmm_spmm, "K4": dyn_tiles,
+           "K4T": dyn_tiles_t, "K5": dyn_grad_blocks,
+           "K3w": segmm_weighted_raw, "K6": segmm_weighted_den_raw,
+           "K7rm": att_bsr.att_rowmax, "K7f": att_bsr.att_fwd,
+           "K7bt": att_bsr.att_bwd_t, "K7s": att_bsr.att_bwd_scores,
+           "K7sums": att_bsr.att_sums,
+           "K2": bsr_spmm_fwd, "K8": diag_spmm, "K9": bsr_spmm_grouped,
+           "K10": bsr_spmm_rowwalk, "K11": philox_dropout}
+    return {**{k: (fn, "launches") for k, fn in f32.items()},
+            **{BF[k]: (f32[k], "launches_bf16") for k in BF}}
+
+
+# the kernels with a bf16 form (bf16 tiles), and its ID
+BF = {k: f"{k}bf" for k in ("K1", "K2", "K8", "K9", "K10", "K7rm", "K7f",
+                            "K7bt", "K7s")}
+
+
+def bf16_counts(counts: dict) -> dict:
+    """Launch counts of an f32-tile run, its tile kernels in their bf16
+    forms: what the same run on bf16 tiles launches."""
+    return {BF.get(k, k): v for k, v in counts.items()}
 
 
 def reset_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
 def phase_gat_kernels(device, ds, g_gcn) -> tuple:
@@ -2499,6 +2539,633 @@ def phase_sage_gin_cli(device, tmp, graphs) -> dict:
     return phases
 
 
+# --- phase 11: bf16 tiles ----------------------------------------------------
+
+def bf16_operators(g) -> dict:
+    """The bench graph's operators with bf16 tiles on phase 3's node order
+    (``build_hybrid(tile_dtype=torch.bfloat16)``, as
+    ``build_optimized_graph`` builds them after its reorder): GCN's
+    default, ``use_diag``, ``tile_group=2`` and ``use_rowwalk`` layouts,
+    and GAT's ``att_unit`` operator."""
+    from fitgnn_tpu_torch.graph.optimize import _operator_weights
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+
+    s, r = g.senders.numpy(), g.receivers.numpy()
+    w, n = g.edge_weight.numpy(), g.num_nodes_padded
+    kw = dict(min_block_edges=48, use_segmm=True, tile_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    ops = {name: build_hybrid(s, r, w, n, **kw, **extra)
+           for name, extra in (("default", {}), ("diag", dict(use_diag=True)),
+                               ("group2", dict(tile_group=2)),
+                               ("rowwalk", dict(use_rowwalk=True)))}
+    ops["gat"] = build_hybrid(s, r, _operator_weights(s, r, w, n, "att_unit"),
+                              n, semantics="att_unit", **kw)
+    print(f"bf16 ingest (5 operators): {time.perf_counter() - t0:.1f} s")
+    for name, h in ops.items():
+        check(h.bsr is not None, f"bf16 {name}: no tile off the diagonal")
+        blocks = [h.bsr.blocks, h.bsr.transpose.blocks]
+        if h.diag_blocks is not None:
+            blocks.append(h.diag_blocks)
+        check(all(b.dtype == torch.bfloat16 for b in blocks),
+              f"bf16 {name}: the tiles are not bf16")
+    b = ops["default"].bsr
+    check(torch.equal(b.rows, g.aux.bsr.rows)
+          and torch.equal(b.blocks.float(),
+                          g.aux.bsr.blocks.to(torch.bfloat16).float()),
+          "bf16 default: the tiles are not phase 3's, rounded")
+    print(f"bf16 tiles: {b.nnz_blocks} tiles of 32 KiB, "
+          f"{b.blocks.numel() * 2 / 2**20:.1f} MiB a direction (f32: "
+          f"{b.blocks.numel() * 4 / 2**20:.1f} MiB)")
+    return ops
+
+
+def f32_row(shapes, k, **match) -> dict:
+    """The f32 form's row of kernel ``k`` whose keys match ``match``."""
+    rows = [sh for sh in shapes.get(k, [])
+            if all(sh.get(a) == v for a, v in match.items())]
+    check(len(rows) == 1, f"{k}: {len(rows)} f32 rows match {match}")
+    return rows[0]
+
+
+def phase_bf16_kernels(device, ops, shapes) -> dict:
+    """Each bf16 form against its plain version on the same bf16 tiles at
+    F=128 and 512: K1, K2, K9 and K10 on their layouts, K8 forward and
+    transposed with and without init, K7rm, K7f, K7bt's dx walk and K7s's
+    pass on GAT's mask (these also bit for bit against their f32 forms on
+    the mask widened to f32: it is 0/1, and nothing is rounded).  Each row
+    holds its kernel, plain and library times, its bound from the bytes it
+    moves (tiles at 2 bytes an entry) and its operations, and the f32
+    form's time from phase 3 or 5 beside it."""
+    from fitgnn_tpu_torch.ops import att_bsr
+    from fitgnn_tpu_torch.ops.bsr_spmm import (bsr_spmm_acc,
+                                               bsr_spmm_acc_plain,
+                                               bsr_spmm_fwd,
+                                               bsr_spmm_grouped,
+                                               bsr_spmm_plain,
+                                               bsr_spmm_rowwalk)
+    from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm, diag_spmm_plain
+
+    b0 = ops["default"].bsr.to(device)
+    n = b0.num_row_blocks * 128
+    nb = n // 128
+    walks = {"K2": (b0, bsr_spmm_fwd),
+             "K9": (ops["group2"].bsr.to(device), bsr_spmm_grouped),
+             "K10": (ops["rowwalk"].bsr.to(device), bsr_spmm_rowwalk)}
+    diag, r8 = ops["diag"].diag_blocks.to(device), ops["diag"].diag_r
+    # the library yardsticks: the tiles' CSR with their bf16 values in f32
+    # (PyTorch's sparse products take no bf16 matrix beside an f32 x), x
+    # rounded to bf16 beforehand where the form rounds it
+    a_tiles, nnz = tile_csr(dataclasses.replace(b0, blocks=b0.blocks.float()),
+                            n)
+    nz_tile = (b0.blocks != 0).flatten(1).any(1)
+    tiles, tiles_all = int(nz_tile.sum()), b0.nnz_blocks
+    uniq_cols = int(torch.unique(b0.cols[nz_tile]).numel())
+    diag_live = int((diag != 0).flatten(1).any(1).sum())
+    diag_nnz = int((diag != 0).sum())
+    diag32 = diag.float()
+    gen = torch.Generator(device=device).manual_seed(11)
+    out = {BF[k]: [] for k in BF}
+    lib_label = ("one torch.sparse call on the tiles' CSR (their bf16 values "
+                 "in f32) and x rounded to bf16 beforehand")
+
+    def show(k, sh, f32):
+        lib = sh["library_ms"]
+        print(f"  {BF[k]} {sh['shape']}: kernel_ms={sh['ms']:.4f} (f32 form "
+              f"{f32['ms']:.4f}) plain_ms={sh['plain_ms']:.4f} library_ms="
+              f"{'null' if lib is None else f'{lib:.4f}'} "
+              f"bound_ms={sh['bound_ms']:.4f} ({sh['bound_by']}; f32 form "
+              f"{f32['bound_ms']:.4f})")
+
+    with torch.inference_mode():
+        for feat in (NUM_FEATURES, HIDDEN):
+            x = torch.randn((n, feat), generator=gen, device=device)
+            xr = x.to(torch.bfloat16).float()
+            init = torch.randn((n, feat), generator=gen, device=device)
+            print(f"bf16 F={feat}:")
+            slabs = uniq_cols * 128 * feat * 4
+            # K1: the live tiles at 2 bytes an entry, the indices, the slabs
+            # of the distinct input blocks, init and out; 2 FLOPs per tile
+            # non-zero and feature
+            b1, by1 = bound(tiles * 128 * 128 * 2 + (2 * tiles_all + nb + 1)
+                            * 4 + slabs + 2 * n * feat * 4,
+                            2.0 * nnz * feat)
+            got = bsr_spmm_acc(b0, x, init)
+            err = compare(f"K1bf bsr_spmm_acc F={feat}", got,
+                          bsr_spmm_acc_plain(b0, x, init))
+            compare(f"K1bf library torch.sparse.addmm F={feat}",
+                    torch.sparse.addmm(init, a_tiles, xr), got)
+            sh = dict(F=feat, shape=f"F={feat}", **err, bound_ms=b1,
+                      bound_by=by1,
+                      ms=cuda_ms(lambda: bsr_spmm_acc(b0, x, init), 20),
+                      plain_ms=cuda_ms(lambda: bsr_spmm_acc_plain(
+                          b0, x, init), 5),
+                      library_ms=cuda_ms(lambda: torch.sparse.addmm(
+                          init, a_tiles, xr), 20), library_label=lib_label)
+            out["K1bf"].append(sh)
+            show("K1", sh, f32_row(shapes, "K1", F=feat, operator=None))
+            # K2, K9, K10: K1's function from zero (out written, no init)
+            bw, byw = bound(tiles * 128 * 128 * 2 + (tiles + nb + 1) * 4
+                            + slabs + n * feat * 4, 2.0 * nnz * feat)
+            for k, (b, walk) in walks.items():
+                xl = x if k == "K10" else xr     # K10 leaves x unrounded
+                label = (lib_label.replace("x rounded to bf16 beforehand",
+                                           "x as it is")
+                         if k == "K10" else lib_label)
+                got = walk(b, x)
+                torch.cuda.synchronize()
+                err = compare(f"{BF[k]} {walk.__name__} F={feat}", got,
+                              bsr_spmm_plain(b, x))
+                compare(f"{BF[k]} library torch.sparse.mm F={feat}",
+                        torch.sparse.mm(a_tiles, xl), got)
+                sh = dict(F=feat, shape=f"F={feat}", **err, bound_ms=bw,
+                          bound_by=byw, ms=cuda_ms(lambda: walk(b, x), 20),
+                          plain_ms=cuda_ms(lambda: bsr_spmm_plain(b, x), 5),
+                          library_ms=cuda_ms(
+                              lambda: torch.sparse.mm(a_tiles, xl), 20),
+                          library_label=label)
+                out[BF[k]].append(sh)
+                show(k, sh, f32_row(shapes, k, F=feat))
+            # K8: the live blocks at 2 bytes an entry, x, init once, out
+            x3, xr3 = x.reshape(nb, 128, feat), xr.reshape(nb, 128, feat)
+            i3 = init.reshape(nb, 128, feat)
+            for transpose in (False, True):
+                a3 = diag32.transpose(1, 2) if transpose else diag32
+                for with_init in (True, False):
+                    it = init if with_init else None
+                    tag = (f"F={feat}{' transpose' if transpose else ''}"
+                           f"{' init' if with_init else ''}")
+                    got = diag_spmm(diag, x, r8, transpose, it)
+                    err = compare(f"K8bf diag_spmm {tag}", got,
+                                  diag_spmm_plain(diag, x, r8, transpose, it))
+
+                    def lib8(a3=a3, with_init=with_init):
+                        if with_init:
+                            return torch.baddbmm(i3, a3, xr3)
+                        return torch.bmm(a3, xr3)
+
+                    compare(f"K8bf library torch.baddbmm {tag}",
+                            lib8().reshape(n, feat), got)
+                    b8, by8 = bound(diag_live * 128 * 128 * 2
+                                    + n * feat * 4 * (3 if with_init else 2),
+                                    2.0 * diag_nnz * feat)
+                    sh = dict(
+                        F=feat, shape=tag, transpose=transpose,
+                        init=with_init,
+                        on_path=with_init and (feat == HIDDEN
+                                               or not transpose),
+                        **err, bound_ms=b8, bound_by=by8,
+                        ms=cuda_ms(lambda: diag_spmm(diag, x, r8, transpose,
+                                                     it), 20),
+                        plain_ms=cuda_ms(lambda: diag_spmm_plain(
+                            diag, x, r8, transpose, it), 5),
+                        library_ms=cuda_ms(lib8, 20),
+                        library_label="torch.baddbmm / torch.bmm on the "
+                                      "blocks in f32 and x rounded to bf16 "
+                                      "beforehand")
+                    out["K8bf"].append(sh)
+                    show("K8", sh, f32_row(shapes, "K8", shape=tag))
+            del x, xr, init, x3, xr3, i3, got
+        out.update(_bf16_k7_rows(device, ops["gat"], shapes, gen))
+    del walks, diag, diag32, a_tiles, b0
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bf16_k7_rows(device, h, shapes, gen) -> dict:
+    """K7rm, K7f, K7bt's dx and K7s's pass on GAT's bf16 mask, each against
+    its plain version and its f32 form on the mask widened to f32."""
+    from fitgnn_tpu_torch.ops import att_bsr
+
+    hd = h.to(device)
+    b, plan = hd.bsr, hd.dyn_plan
+    rows, cols, blocks = b.rows, b.cols, b.blocks
+    b32 = blocks.float()
+    n = b.num_row_blocks * 128
+    nb = n // 128
+    k_all = b.nnz_blocks
+    nnz = int((blocks != 0).sum())
+    uniq_cols = int(torch.unique(cols).numel())
+    uniq_rows = int(torch.unique(rows).numel())
+    ssrc = torch.randn(n, generator=gen, device=device)
+    sdst = torch.randn(n, generator=gen, device=device)
+    dden = torch.randn(n, generator=gen, device=device)
+    mg = (sdst + ssrc.max()).clamp_min(0.0)
+    vec = n * 4
+    tile_bytes = k_all * 128 * 128 * 2
+    idx_f = (k_all + nb + 1) * 4
+    idx_t = (3 * plan.t_sel.numel() + nb + 1) * 4
+    out = {BF[k]: [] for k in ("K7rm", "K7f", "K7bt", "K7s")}
+
+    def show(k, sh, f32):
+        print(f"  {BF[k]} F={sh['F']}: kernel_ms={sh['ms']:.4f} (f32 form "
+              f"{f32['ms']:.4f}) plain_ms={sh['plain_ms']:.4f} "
+              f"bound_ms={sh['bound_ms']:.4f} ({sh['bound_by']}; f32 form "
+              f"{f32['bound_ms']:.4f})")
+
+    def fwd(bl):
+        return (rows, cols, plan, bl, ssrc, sdst)
+
+    def same(name, got, f32):
+        check(all(torch.equal(a, c) for a, c in zip(got, f32)),
+              f"{name}: the bf16 form differs from the f32 form")
+
+    with torch.inference_mode():
+        rm = att_bsr.att_rowmax(*fwd(blocks), SLOPE)
+        rp = att_bsr.att_rowmax_plain(*fwd(blocks), SLOPE)
+        same("K7rmbf", (rm,), (att_bsr.att_rowmax(*fwd(b32), SLOPE),))
+        has = rp > -1e29
+        check(torch.equal(rm <= -1e29, ~has), "K7rmbf: rows without a tile "
+              "entry differ from the plain version")
+        err = compare("K7rmbf att_rowmax", rm[has], rp[has])
+        brm, byrm = bound(tile_bytes + idx_f + 3 * vec, 3.0 * nnz)
+        sh = dict(F=None, shape="rows", **err, bound_ms=brm, bound_by=byrm,
+                  ms=cuda_ms(lambda: att_bsr.att_rowmax(*fwd(blocks), SLOPE),
+                             20),
+                  plain_ms=cuda_ms(lambda: att_bsr.att_rowmax_plain(
+                      *fwd(blocks), SLOPE), 5), library_ms=None)
+        out["K7rmbf"].append(sh)
+        show("K7rm", sh, f32_row(shapes, "K7rm", F=None))
+        for feat in (NUM_FEATURES, HIDDEN):
+            x = torch.randn((n, feat), generator=gen, device=device)
+            gr = torch.randn((n, feat), generator=gen, device=device)
+
+            def bwd(bl):
+                return (plan, bl, ssrc, sdst, mg, gr, x, dden, SLOPE)
+
+            def dx_walk(bl):
+                return att_bsr._launch_walk(
+                    "att_bwd_t (dx)", device, bl, plan.t_row_splits,
+                    plan.t_sel, plan.t_scale, plan.t_cols, ssrc, sdst, mg,
+                    gr, None, True, SLOPE)
+
+            def scores(bl):
+                return att_bsr._launch_scores(
+                    "att_bwd_scores", device, bl, rows, cols, ssrc, sdst, mg,
+                    gr, x, dden, SLOPE)
+
+            num, den = att_bsr.att_fwd(*fwd(blocks), mg, x, SLOPE)
+            same(f"K7fbf F={feat}", (num, den),
+                 att_bsr.att_fwd(*fwd(b32), mg, x, SLOPE))
+            num_p, den_p = att_bsr.att_fwd_plain(*fwd(blocks), mg, x, SLOPE)
+            e_f = [compare(f"K7fbf att_fwd {w} F={feat}", a, p_)
+                   for w, a, p_ in (("num", num, num_p), ("den", den, den_p))]
+            dx = dx_walk(blocks)
+            same(f"K7btbf F={feat}", (dx,), (dx_walk(b32),))
+            e_t = compare(f"K7btbf att_bwd_t dx F={feat}", dx,
+                          att_bsr.att_bwd_t_plain(*bwd(blocks),
+                                                  need_dssrc=False)[0])
+            part = scores(blocks)
+            same(f"K7sbf F={feat}", part, scores(b32))
+            part_p = att_bsr.att_scores_plain(rows, cols, *bwd(blocks))
+            e_s = [compare(f"K7sbf pass {w} partials F={feat}", a, p_)
+                   for w, a, p_ in zip(("column", "row"), part, part_p)]
+            del num, den, num_p, den_p, dx, part, part_p
+            slabs = 128 * feat * 4
+            # the f32 rows' bounds (phase 3) with the tiles at 2 bytes
+            bf, byf = bound(tile_bytes + idx_f + 3 * vec + uniq_cols * slabs
+                            + n * feat * 4 + vec, nnz * (2.0 * feat + 5))
+            bdx, bydx = bound(tile_bytes + idx_t + 3 * vec
+                              + uniq_rows * slabs + n * feat * 4,
+                              nnz * (2.0 * feat + 5))
+            bs, bys = bound(tile_bytes + 2 * k_all * 4 + 4 * vec
+                            + (uniq_rows + uniq_cols) * slabs
+                            + 2 * k_all * 128 * 4, nnz * (2.0 * feat + 8))
+            rows_ = (
+                ("K7f", e_f, bf, byf, True,
+                 lambda: att_bsr.att_fwd(*fwd(blocks), mg, x, SLOPE),
+                 lambda: att_bsr.att_fwd_plain(*fwd(blocks), mg, x, SLOPE)),
+                ("K7bt", [e_t], bdx, bydx, feat == HIDDEN,
+                 lambda: dx_walk(blocks),
+                 lambda: att_bsr.att_bwd_t_plain(*bwd(blocks),
+                                                 need_dssrc=False)),
+                ("K7s", e_s, bs, bys, True, lambda: scores(blocks),
+                 lambda: att_bsr.att_scores_plain(rows, cols,
+                                                  *bwd(blocks))))
+            for k, errs, bd, by, on_path, kernel, plain in rows_:
+                sh = dict(F=feat, shape=f"F={feat}", on_path=on_path,
+                          max_abs_err=max(e["max_abs_err"] for e in errs),
+                          max_rel_err=max(e["max_rel_err"] for e in errs),
+                          bound_ms=bd, bound_by=by, ms=cuda_ms(kernel, 20),
+                          plain_ms=cuda_ms(plain, 5), library_ms=None)
+                out[BF[k]].append(sh)
+                show(k, sh, f32_row(shapes, k, F=feat))
+            del x, gr
+    print("K7 bf16 forms: bit for bit their f32 forms on the same mask")
+    del hd, b32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_edge_cases(device, ops) -> None:
+    """The walk's edge cases on the bench graph's bf16 operators at F=512:
+    a NaN tile entry reaches its own output row and no other (K1, K2, K9,
+    K10; K8 forward and transposed from init), the other rows within the
+    tolerance of the plain version; an inf in x (K7f) or g (K7bt's dx) at
+    a row that only masked-out entries reach leaves the output finite, equal
+    to the plain version's with that row zeroed."""
+    from fitgnn_tpu_torch.ops import att_bsr
+    from fitgnn_tpu_torch.ops.bsr_spmm import (bsr_spmm_acc,
+                                               bsr_spmm_acc_plain,
+                                               bsr_spmm_fwd,
+                                               bsr_spmm_grouped,
+                                               bsr_spmm_plain,
+                                               bsr_spmm_rowwalk)
+    from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm, diag_spmm_plain
+
+    gen = torch.Generator(device=device).manual_seed(12)
+
+    def nan_case(what, run, plain, blocks, tile, row):
+        bl = blocks.clone()
+        bl[tile, 20, 30] = float("nan")
+        got, ref = run(bl), plain(bl)
+        torch.cuda.synchronize()
+        rows_nan = got.isnan().any(1).nonzero().flatten().tolist()
+        check(rows_nan == [row] and bool(got[row].isnan().all()),
+              f"{what} nan: NaN rows {rows_nan[:4]}, expected [{row}]")
+        keep = ~ref.isnan().any(1)
+        compare(f"{what} nan: rows the NaN does not reach", got[keep],
+                ref[keep])
+
+    with torch.inference_mode():
+        n = ops["default"].num_nodes
+        x = torch.randn((n, HIDDEN), generator=gen, device=device)
+        init = torch.randn((n, HIDDEN), generator=gen, device=device)
+        for k, name, walk in (("K1bf", "default", None),
+                              ("K2bf", "default", bsr_spmm_fwd),
+                              ("K9bf", "group2", bsr_spmm_grouped),
+                              ("K10bf", "rowwalk", bsr_spmm_rowwalk)):
+            b = ops[name].bsr.to(device)
+            tile = int((b.blocks != 0).flatten(1).any(1).nonzero()[0])
+
+            def with_(bl, b=b):
+                return dataclasses.replace(b, blocks=bl)
+
+            if walk is None:
+                run = lambda bl: bsr_spmm_acc(with_(bl), x, init)  # noqa
+                plain = lambda bl: bsr_spmm_acc_plain(with_(bl), x, init)  # noqa
+            else:
+                run = lambda bl, w=walk: w(with_(bl), x)  # noqa
+                plain = lambda bl: bsr_spmm_plain(with_(bl), x)  # noqa
+            nan_case(k, run, plain, b.blocks, tile,
+                     int(b.rows[tile]) * 128 + 20)
+        diag, r8 = ops["diag"].diag_blocks.to(device), ops["diag"].diag_r
+        blk = int((diag != 0).flatten(1).any(1).nonzero()[0])
+        for transpose in (False, True):
+            nan_case(f"K8bf{'T' if transpose else ''} init",
+                     lambda bl: diag_spmm(bl, x, r8, transpose, init),
+                     lambda bl: diag_spmm_plain(bl, x, r8, transpose, init),
+                     diag, blk, blk * 128 + (30 if transpose else 20))
+        h = ops["gat"].to(device)
+        b, plan = h.bsr, h.dyn_plan
+        ssrc = torch.randn(n, generator=gen, device=device)
+        sdst = torch.randn(n, generator=gen, device=device)
+        dden = torch.randn(n, generator=gen, device=device)
+        mg = (sdst + ssrc.max()).clamp_min(0.0)
+        g = torch.randn((n, HIDDEN), generator=gen, device=device)
+        for k in ("K7fbf", "K7btbf"):
+            # K7f: node 50 of the first tile's column block reaches no
+            # output once its column is cleared in every tile of that block
+            # column; K7bt: node 50 of its row block, its row cleared
+            fwd = k == "K7fbf"
+            blk = int((b.cols if fwd else b.rows)[0])
+            bl = b.blocks.clone()
+            sel = (b.cols if fwd else b.rows) == blk
+            if fwd:
+                bl[sel, :, 50] = 0
+            else:
+                bl[sel, 50, :] = 0
+            node = blk * 128 + 50
+            v = (x if fwd else g).clone()
+            v[node] = float("inf")
+            clean = v.clone()
+            clean[node] = 0.0
+            if fwd:
+                def run(fn, vv):
+                    num, den = fn(b.rows, b.cols, plan, bl, ssrc, sdst, mg,
+                                  vv, SLOPE)
+                    return torch.cat([num, den[:, None]], 1)
+                kernel, plain = att_bsr.att_fwd, att_bsr.att_fwd_plain
+            else:
+                def run(fn, vv):
+                    return fn(plan, bl, ssrc, sdst, mg, vv, x, dden, SLOPE,
+                              need_dssrc=False)[0]
+                kernel, plain = att_bsr.att_bwd_t, att_bsr.att_bwd_t_plain
+            got = run(kernel, v)
+            torch.cuda.synchronize()
+            check(bool(run(plain, v).isnan().any()),
+                  f"{k} inf_unreached: the dense product gives no NaN")
+            compare(f"{k} inf_unreached vs plain on the row zeroed", got,
+                    run(plain, clean))
+    del x, init, g, h, diag
+    torch.cuda.empty_cache()
+    print("bf16 edge cases: NaN entries reach their own rows only; infs "
+          "that only masked-out entries reach stay out")
+
+
+# launches of one GCN step and eval forward (dropout off) on each bf16
+# operator, before the tile kernels take their bf16 forms.  Kernels and
+# plain versions sum in another order, so an input of a layer may round to
+# the other bf16 neighbour in one of them: on the bench graph that moves
+# the steps by ~4e-5·max|ref| (H100, PERF.md §6), inside the tolerance
+BF16_STEP = {"default": STEP["GCNConv"], "diag": {"K3": 3, "K8": 3, "K1": 3},
+             "group2": {"K3": 3, "K9": 3}, "rowwalk": {"K3": 3, "K10": 3}}
+BF16_EVAL = {"default": EVAL["GCNConv"], **OPTIN_EVAL}
+
+
+def phase_bf16_steps(device, g, ops) -> dict:
+    """Through the library surface, every counter at 0 just before each
+    counted run: one GCN training step (hidden 512, dropout off) and one
+    eval forward on each bf16 operator (default: K1; ``use_diag``: K8 and
+    K1; ``tile_group=2``: K9; ``use_rowwalk``: K10; K3 on each) with the
+    kernels, held against the same step with the plain versions; two eval
+    forwards on the forward-only bf16 operator (K2), against the default
+    bf16 operator's; one GAT step and eval forward under ``FUSED`` and
+    under ``FUSED_EXACT`` on the bf16 mask, against the plain versions and
+    the step against the same step on the mask in f32 (K7's forms are bit for bit
+    their f32 forms there)."""
+    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.train.losses import masked_nll
+
+    phases = {}
+
+    def run(layer, gd, env, want, what):
+        model = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                          dropout_rate=0.0)
+        model = model.reset_parameters(torch.Generator().manual_seed(0)).to(
+            device)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            model.train()
+            loss = masked_nll(model(gd.x, gd), gd.y, gd.train_mask)
+            loss.backward()
+            model.eval()
+            with torch.inference_mode():
+                fwd = model(gd.x, gd)
+            torch.cuda.synchronize()
+            return loss.detach(), {k: p.grad.detach().clone()
+                                   for k, p in model.named_parameters()}, fwd
+
+        with switches(env):
+            reset_counts()
+            got = step()
+            launches = read_counts()
+            expect(launches, want, what)
+            phases[what] = launches
+            with plain_versions():
+                ref = step()
+        compare(f"{what} loss kernels vs plain", got[0].reshape(1),
+                ref[0].reshape(1))
+        for k in ref[1]:
+            compare(f"{what} grad {k} kernels vs plain", got[1][k],
+                    ref[1][k])
+        compare(f"{what} eval forward kernels vs plain", got[2], ref[2])
+        del model
+        return got
+
+    for name in ("default", "diag", "group2", "rowwalk"):
+        gd = g._replace(aux=ops[name]).to(device)
+        want = {k: BF16_STEP[name].get(k, 0) + BF16_EVAL[name].get(k, 0)
+                for k in (*BF16_STEP[name], *BF16_EVAL[name])}
+        out = run("GCNConv", gd, {}, bf16_counts(want),
+                  f"bf16 gcn512 {name} step and eval")[2]
+        if name == "default":
+            ref_fwd = out
+            fwd_only = gd._replace(aux=dataclasses.replace(
+                gd.aux, bsr=dataclasses.replace(gd.aux.bsr, transpose=None)))
+            model = NodeModel("GCNConv", NUM_FEATURES, HIDDEN, 2,
+                              NUM_CLASSES).reset_parameters(
+                torch.Generator().manual_seed(0)).to(device).eval()
+            with torch.inference_mode():
+                reset_counts()
+                outs = [model(fwd_only.x, fwd_only) for _ in range(2)]
+                torch.cuda.synchronize()
+                launches = read_counts()
+            expect(launches, {"K3": 4, "K2bf": 4},
+                   "bf16 serve gcn512 forward-only")
+            phases["bf16 serve gcn512 forward-only"] = launches
+            compare("bf16 forward-only operator vs the default bf16 "
+                    "operator", outs[0], ref_fwd)
+            del model, outs, fwd_only
+        del gd
+        torch.cuda.empty_cache()
+    h = ops["gat"]
+    h32 = dataclasses.replace(h, bsr=dataclasses.replace(
+        h.bsr, blocks=h.bsr.blocks.float(), transpose=dataclasses.replace(
+            h.bsr.transpose, blocks=h.bsr.transpose.blocks.float())))
+    for mode in ("GATConv fused", "GATConv fused exact"):
+        gd = g._replace(aux=h).to(device)
+        want = {k: STEP[mode].get(k, 0) + EVAL[mode].get(k, 0)
+                for k in (*STEP[mode], *EVAL[mode])}
+        loss, grads, fwd = run("GATConv", gd, MODE_ENV[mode],
+                               bf16_counts(want),
+                               f"bf16 {mode} step and eval")
+        gd = g._replace(aux=h32).to(device)
+        with switches(MODE_ENV[mode]):
+            model = NodeModel("GATConv", NUM_FEATURES, HIDDEN, 2,
+                              NUM_CLASSES, dropout_rate=0.0)
+            model = model.reset_parameters(
+                torch.Generator().manual_seed(0)).to(device).train()
+            loss32 = masked_nll(model(gd.x, gd), gd.y, gd.train_mask)
+            loss32.backward()
+        compare(f"bf16 {mode} loss vs the f32 mask", loss.reshape(1),
+                loss32.detach().reshape(1))
+        for k, p in model.named_parameters():
+            compare(f"bf16 {mode} grad {k} vs the f32 mask", grads[k],
+                    p.grad)
+        del gd, model, grads, fwd
+        torch.cuda.empty_cache()
+    return phases
+
+
+# (out_dir, mode, the f32 run of phase 6 or 10 with the same epochs and
+# seed: its index among that layer's hidden-512 rows, and how far the bf16
+# run's best loss may sit from it: GAT's mask is exact in bf16, GCN's and
+# SAGE's x is rounded to bf16 in K1)
+BF16_CLI = (("gcn512bf16", "GCNConv", 0, 2e-2),
+            ("sage512bf16", "SAGEConv", 0, 2e-2),
+            ("gat512fusedbf16", "GATConv fused", 1, 1e-3))
+BF16_EPOCHS = 2
+
+
+def phase_bf16_cli(tmp) -> dict:
+    """Through the CLI with ``--hybrid_bf16_tiles``, every counter at 0
+    just before each run: ``train --baseline`` for GCN, SAGE and GAT (under
+    ``FUSED``) at hidden 512 for 2 epochs, whose launches are the f32
+    runs' with every tile kernel in its bf16 form (no f32 tile kernel),
+    and whose best losses sit near those of the f32 runs of phases 6 and
+    10 with the same epochs and seed; then the curriculum ``train``
+    ``Gc_train_2_Gs_train`` GD for 1 + 1 epochs (GCN) on phase 8's cached
+    partition, the Gc phase on bf16 tiles."""
+    from fitgnn_tpu_torch.partition import pipeline
+    from fitgnn_tpu_torch.train import loop
+
+    phases = {}
+    with open(os.path.join(tmp, "results", "baseline", "bench.csv")) as f:
+        header, *lines = f.read().splitlines()
+    f32_rows = [dict(zip(header.split(","), line.split(",")))
+                for line in lines]
+    for out_dir, mode, f32_index, rtol in BF16_CLI:
+        layer = mode.split()[0]
+        launches, _, wall = run_cli(tmp, [
+            "train", "--baseline", "--layer_name", layer, "--hidden",
+            str(HIDDEN), "--runs", "1", "--epochs1", str(BF16_EPOCHS),
+            "--output_dir", out_dir, "--hybrid_bf16_tiles"], MODE_ENV[mode])
+        print(f"train {out_dir}: {wall:.1f} s")
+        want = {k: BF16_EPOCHS * (STEP[mode].get(k, 0)
+                                  + EVAL[mode].get(k, 0))
+                + 2 * EVAL[mode].get(k, 0)
+                for k in (*STEP[mode], *EVAL[mode])}
+        expect(launches, bf16_counts(want), f"train {out_dir}")
+        phases[f"train {out_dir}"] = launches
+        with open(os.path.join(tmp, "results", "baseline", "bench.csv")) as f:
+            row = dict(zip(header.split(","), f.read().splitlines()[-1]
+                           .split(",")))
+        ref = [r for r in f32_rows if r["layer_name"] == layer
+               and r["hidden"] == str(HIDDEN)][f32_index]
+        loss, loss32 = float(row["best_loss"]), float(ref["best_loss"])
+        print(f"train row {out_dir}: best_acc={row['best_acc']} best_loss="
+              f"{row['best_loss']} ave_time={row['ave_time']}; the f32 run: "
+              f"best_acc={ref['best_acc']} best_loss={ref['best_loss']} "
+              f"ave_time={ref['ave_time']}")
+        check(row["layer_name"] == layer and np.isfinite(loss)
+              and abs(loss - loss32) <= rtol * loss32,
+              f"train {out_dir}: best loss {loss} against the f32 run's "
+              f"{loss32} (rtol {rtol})")
+    results, partition, run_task = [], pipeline.coarsen_and_partition, \
+        loop.run_node_task
+
+    def traced_run(cfg, coarse, batch, verbose=False):
+        res = run_task(cfg, coarse, batch, verbose=verbose)
+        results.append(res.runs[0])
+        return res
+
+    partitioned = []
+    with mock.patch.object(loop, "run_node_task", traced_run), \
+            mock.patch.object(pipeline, "coarsen_and_partition",
+                              lambda *a, **k: partitioned.append(1)
+                              or partition(*a, **k)):
+        launches, _, wall = run_cli(tmp, [
+            "train", "--layer_name", "GCNConv", "--hidden", str(HIDDEN),
+            "--exp_setup", "Gc_train_2_Gs_train", "--gradient_method", "GD",
+            "--epochs1", "1", "--epochs2", "1", "--runs", "1",
+            "--output_dir", "cur_gcnbf16", "--hybrid_bf16_tiles"])
+    check(not partitioned, "phase 11's curriculum did not take phase 8's "
+          "partition from the cache")
+    expect(launches, bf16_counts({k: STEP["GCNConv"][k] + EVAL["GCNConv"][k]
+                                  for k in STEP["GCNConv"]}),
+           "curriculum cur_gcnbf16")
+    res = results[-1]
+    check(np.isfinite(res.test_loss) and res.test_loss > 0,
+          f"curriculum cur_gcnbf16: test loss {res.test_loss}")
+    print(f"curriculum cur_gcnbf16: {wall:.1f} s; Gc epoch ms "
+          f"{[round(t * 1e3, 3) for t in res.gc_epoch_seconds]}; Gs epoch s "
+          f"{[round(t, 4) for t in res.gs_epoch_seconds]} (GD); test loss "
+          f"{res.test_loss:.4f} metric {res.test_acc:.4f}")
+    phases["curriculum cur_gcnbf16"] = launches
+    return phases
+
+
 def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     """One kernel's line: times and bounds summed over the shapes one step
     or forward launches it at (those not marked ``on_path: False``); errors
@@ -2586,6 +3253,34 @@ KERNELS = (
     ("K11", "K11 philox_dropout (fused_dropout forward and backward)",
      "fitgnn_tpu_torch/csrc/dropout.cu",
      "fitgnn_tpu/ops/pallas/dropout.py:29"),
+    # the bf16 forms (train --hybrid_bf16_tiles), phase 11
+    ("K1bf", "K1 bsr_spmm_acc on bf16 tiles (x rounded to bf16)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_spmm.py:200"),
+    ("K2bf", "K2 bsr_spmm_fwd on bf16 tiles (x rounded to bf16)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_spmm.py:156"),
+    ("K8bf", "K8 diag_spmm on bf16 diagonal blocks (x rounded to bf16)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/diag_spmm.py:34"),
+    ("K9bf", "K9 bsr_spmm_grouped on bf16 tiles (x rounded to bf16)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_spmm.py:264"),
+    ("K10bf", "K10 bsr_spmm_rowwalk on bf16 tiles (x not rounded)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_spmm.py:330"),
+    ("K7rmbf", "K7 att_rowmax on the bf16 mask",
+     "fitgnn_tpu_torch/csrc/att_bsr.cu",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:78"),
+    ("K7fbf", "K7 att_fwd on the bf16 mask",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:125"),
+    ("K7btbf", "K7 att_bwd_t dx on the bf16 mask",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:185"),
+    ("K7sbf", "K7 att_bwd_scores on the bf16 mask (the score pass)",
+     "fitgnn_tpu_torch/csrc/att_bsr.cu",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:267"),
 )
 
 
@@ -2634,7 +3329,7 @@ def main() -> int:
         phases.update(phase_gat_serve(tmp))
         serve, serve_avg, serve_avg_dev = phase_serve(device, tmp, g)
         phases.update(serve)
-        del g, g_gat
+        del g_gat
         torch.cuda.empty_cache()
         curriculum, plain_infer = phase_curriculum(device, tmp, serve_avg,
                                                    serve_avg_dev)
@@ -2648,6 +3343,14 @@ def main() -> int:
             shapes[k].extend(v)
         phase_sage_gin_gradients(device, graphs, hdiag)
         phases.update(phase_sage_gin_cli(device, tmp, graphs))
+        del graphs, hdiag
+        ops = bf16_operators(g)
+        shapes.update(phase_bf16_kernels(device, ops, shapes))
+        phase_bf16_edge_cases(device, ops)
+        phases.update(phase_bf16_steps(device, g, ops))
+        del ops, g
+        torch.cuda.empty_cache()
+        phases.update(phase_bf16_cli(tmp))
 
     kernels_line = {"kernels": [
         summarize(label, "cuda", source, replaces,
@@ -2675,7 +3378,8 @@ def main() -> int:
             if (hook is not None
                 and (walk_args(kernel) or (None,) * 4)[3] == hook)
             or (name is not None and kernel.startswith(name))}
-        want = {"K7sums": 1, "K3": 6, "K3w": 6, "K6": 6}.get(k, 2)
+        # two load widths each, K7f, K7bt and K7s also on bf16 tiles
+        want = {"K7sums": 1, "K3": 6, "K3w": 6, "K6": 6, "K5": 2}.get(k, 4)
         check(len(entry["registers"]) == want,
               f"{entry['name']}: no ptxas record of its kernels")
         print(f"{k} registers: {entry['registers']}")

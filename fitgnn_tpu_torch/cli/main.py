@@ -11,6 +11,9 @@ curriculum: coarsening, partition, the three Gc/Gs setups in GD and MB),
 ``train`` saved), ``train --baseline`` (full-batch training, with layer-0
 pre-aggregation under ``--preaggregate`` for GCN, SAGE and GIN) and
 ``infer-baseline`` (the full-graph inference-latency baseline).
+``train --hybrid_bf16_tiles`` stores the hybrid operator's tiles in bf16
+on ``--baseline`` and in the curriculum's Gc phase; ``infer`` and
+``infer-baseline`` take no such flag, as in the JAX package.
 ``train`` and ``infer`` take size-bucketed subgraph batches
 (``--bucket_sizes``, ``--max_buckets``); ``train`` the chunked Gs eval
 (``--eval_chunk``), the Gc phase without a host read per epoch
@@ -59,8 +62,6 @@ _TRAIN_NOT_PORTED = (
      "ROADMAP.md §1 item 2 (cluster collapse of the stragglers)"),
     ("--cluster_aggregation_exact", lambda a: a.cluster_aggregation_exact,
      "ROADMAP.md §1 item 2 (cluster collapse of the stragglers)"),
-    ("--hybrid_bf16_tiles", lambda a: a.hybrid_bf16_tiles,
-     "ROADMAP.md §1 item 2 (bf16 tiles)"),
     ("--auto_config", lambda a: a.auto_config,
      "ROADMAP.md §1 item 2 (ingest planner)"),
 )
@@ -145,7 +146,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "nodes")
     t.add_argument("--hybrid_threshold", type=int, default=48,
                    help="min edges per 128x128 tile to densify it")
-    t.add_argument("--hybrid_bf16_tiles", action="store_true")
+    t.add_argument("--hybrid_bf16_tiles", action="store_true",
+                   help="store the dense adjacency tiles in bfloat16 "
+                   "(the walks' bf16 forms; x rounded to bf16 as the JAX "
+                   "package rounds it, f32 accumulation)")
     t.add_argument("--cluster_attention_exact", type=int, default=0)
     t.add_argument("--cluster_attention", type=int, default=0)
     t.add_argument("--cluster_aggregation", type=int, default=0)
@@ -476,6 +480,13 @@ def _check_train_args(args) -> None:
     _check_node_task(args)
 
 
+def _tile_dtype(args):
+    """The hybrid operator's tile type: bf16 under ``--hybrid_bf16_tiles``
+    (the walks' bf16 forms), else f32 (None)."""
+    import torch
+    return torch.bfloat16 if args.hybrid_bf16_tiles else None
+
+
 def cmd_train_baseline(args) -> int:
     """Full-graph baseline training, as the JAX package's
     ``_cmd_train_baseline`` (single device): with ``--preaggregate`` (GCN,
@@ -507,7 +518,8 @@ def cmd_train_baseline(args) -> int:
         g, _ = build_optimized_graph(
             ds.x, ds.senders, ds.receivers, y=ds.y, train_mask=train,
             val_mask=val, test_mask=test, layer_name=args.layer_name,
-            min_block_edges=args.hybrid_threshold, seed=args.seed)
+            min_block_edges=args.hybrid_threshold,
+            tile_dtype=_tile_dtype(args), seed=args.seed)
         tiles = 0 if g.aux.bsr is None else g.aux.bsr.nnz_blocks
         print(f"hybrid operator: {tiles} dense tiles, "
               f"{g.aux.num_coo_edges} straggler edges")
@@ -618,7 +630,8 @@ def cmd_train(args) -> int:
                              args.hybrid_spmm):
             coarse = optimize_coarse(coarse, seed=args.seed,
                                      layer_name=args.layer_name,
-                                     min_block_edges=args.hybrid_threshold)
+                                     min_block_edges=args.hybrid_threshold,
+                                     tile_dtype=_tile_dtype(args))
             hyb = coarse.graph.aux
             print(f"Gc hybrid operator: "
                   f"{0 if hyb.bsr is None else hyb.bsr.nnz_blocks} dense "

@@ -104,6 +104,17 @@
 // slower).  The epilogue still runs after the product with nothing to
 // overlap it at one CTA an SM; one exp per entry shared between K7f's
 // F-slices is later work too.
+//
+// bf16 masks (train --hybrid_bf16_tiles; the JAX package passes the bf16
+// tiles to the same kernels, fitgnn_tpu/ops/tile_gat.py:366-378): the
+// tiles are GAT's 0/1 mask, exact in bf16, and only their type changes;
+// pe, x, g and every sum stay f32, and x is not rounded.  The entries
+// ending in _bf16 read them: att_rowmax_kernel<bf16> reads a tile row as
+// one 256-byte load a warp (8 bytes a lane, widened to f32); the walks are
+// tile_sparse.cuh's bf16 instantiations under the same hooks; and
+// att_scores_kernel<VEC, bf16> stages the tile as bf16 (32 KB), 16-byte
+// chunk q (8 entries) of row i at chunk q ^ (i % 8), so that the
+// epilogue's 4-byte pair reads of 8 rows spread over all banks.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -144,8 +155,9 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-att_rowmax_kernel(const float* __restrict__ blocks,
+att_rowmax_kernel(const T* __restrict__ blocks,
                   const int32_t* __restrict__ row_splits,
                   const int32_t* __restrict__ cols,
                   const float* __restrict__ ssrc,
@@ -166,12 +178,11 @@ att_rowmax_kernel(const float* __restrict__ blocks,
   for (int k = lo; k < hi; ++k) {
     const float* ss = ssrc + static_cast<int64_t>(cols[k]) * BLK + 4 * lane;
     const float s0 = ss[0], s1 = ss[1], s2 = ss[2], s3 = ss[3];
-    const float* a = blocks + static_cast<int64_t>(k) * BLK * BLK + 4 * lane;
+    const T* a = blocks + static_cast<int64_t>(k) * BLK * BLK + 4 * lane;
 #pragma unroll
     for (int q = 0; q < ROWS_PER_WARP; ++q) {
       const int i = warp + WARPS * q;
-      const float4 v = *reinterpret_cast<const float4*>(
-          a + static_cast<int64_t>(i) * BLK);
+      const float4 v = sparse::load4(a + static_cast<int64_t>(i) * BLK);
       float mx = NEG;
       if (v.x != 0.f) mx = fmaxf(mx, leaky(sd[q] + s0, slope));
       if (v.y != 0.f) mx = fmaxf(mx, leaky(sd[q] + s1, slope));
@@ -186,6 +197,15 @@ att_rowmax_kernel(const float* __restrict__ blocks,
       out[r * BLK + warp + WARPS * q] = rm[q];
     }
   }
+}
+
+// two consecutive staged tile entries as f32
+__device__ __forceinline__ float2 mask_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 mask_pair(const __nv_bfloat16* p) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(sparse::bf16_lo(w), sparse::bf16_hi(w));
 }
 
 // d_raw of one tile entry: the score gradient where the mask is set, else
@@ -209,9 +229,9 @@ constexpr int SC_SMEM = tf32x3::SMEM + 1024
     + (SC_TILE + 4 * BLK + WARPS * BLK) * static_cast<int>(sizeof(float));
 static_assert(tf32x3::THREADS == THREADS, "a warp per 16 tile rows");
 
-template <bool VEC>
+template <bool VEC, class T>
 __global__ void __launch_bounds__(THREADS, 1)
-att_scores_kernel(const float* __restrict__ blocks,
+att_scores_kernel(const T* __restrict__ blocks,
                   const int32_t* __restrict__ rows,
                   const int32_t* __restrict__ cols,
                   const float* __restrict__ ssrc,
@@ -236,15 +256,19 @@ att_scores_kernel(const float* __restrict__ blocks,
   const int64_t c = cols[k];
   // the tile and the score vectors into shared memory while the product
   // runs (no load waits): 16-byte chunk q of tile row i at chunk
-  // q ^ (i % 8), so the epilogue's float2 reads of 8 rows and 4 column
-  // pairs spread over all banks
-  const float* tile = blocks + k * SC_TILE;
+  // q ^ (i % 8), so the epilogue's float2 (bf16: 4-byte pair) reads of 8
+  // rows and 4 column pairs spread over all banks
+  constexpr int PER = 16 / sizeof(T);             // entries a chunk: 4 or 8
+  const T* tile = blocks + k * SC_TILE;
+  T* tt = reinterpret_cast<T*>(ts);
 #pragma unroll
-  for (int u = 0; u < SC_TILE / 4 / THREADS; ++u) {
+  for (int u = 0; u < SC_TILE / PER / THREADS; ++u) {
     const int q = tid + THREADS * u;
-    const int i = q / (BLK / 4);
-    sparse::cp_async16(ts + i * BLK + 4 * ((q % (BLK / 4)) ^ (i & 7)),
-                       tile + 4 * q, 16);
+    const int i = q / (BLK / PER);
+    sparse::cp_async16(
+        reinterpret_cast<float*>(tt + i * BLK
+                                 + PER * ((q % (BLK / PER)) ^ (i & 7))),
+        reinterpret_cast<const float*>(tile + PER * q), 16);
   }
   if (tid < BLK) {
     sparse::cp_async4(ss + tid, ssrc + c * BLK + tid, 4);
@@ -274,9 +298,9 @@ att_scores_kernel(const float* __restrict__ blocks,
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int col = 8 * j + 2 * (lane & 3);
-    const int at = i0 * BLK + 4 * ((col >> 2) ^ key) + (col & 3);
-    const float2 k0 = *reinterpret_cast<const float2*>(ts + at);
-    const float2 k1 = *reinterpret_cast<const float2*>(ts + at + 8 * BLK);
+    const int at = i0 * BLK + PER * ((col / PER) ^ key) + (col % PER);
+    const float2 k0 = mask_pair(tt + at);
+    const float2 k1 = mask_pair(tt + at + 8 * BLK);
     const float s0 = ss[col], s1 = ss[col + 1];
     const float a0 = score_grad(d[4 * j], k0.x, sd0 + s0, m0, dd0, slope);
     const float a1 = score_grad(d[4 * j + 1], k0.y, sd0 + s1, m0, dd0, slope);
@@ -452,22 +476,20 @@ struct DxScores {
 
 }  // namespace att
 
-// blocks (K,128,128) f32, 16-byte aligned; row_splits (num_row_blocks+1,)
-// int32 tile range per block row; cols (K,) int32; ssrc, sdst, out
-// (num_row_blocks*128,) f32; all contiguous.  Returns cudaGetLastError()
-// after the launch.
-extern "C" int fitgnn_att_rowmax(const void* blocks, const void* row_splits,
-                                 const void* cols, const void* ssrc,
-                                 const void* sdst, void* out,
-                                 int64_t num_row_blocks, float slope,
-                                 void* stream) {
+namespace {
+
+// the entries' launches, T the tile type (float or __nv_bfloat16)
+template <class T>
+int rowmax(const void* blocks, const void* row_splits, const void* cols,
+           const void* ssrc, const void* sdst, void* out,
+           int64_t num_row_blocks, float slope, void* stream) {
   if (num_row_blocks > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   if (num_row_blocks > 0) {
-    att_rowmax_kernel<<<static_cast<unsigned>(num_row_blocks), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(blocks),
+    att_rowmax_kernel<T><<<static_cast<unsigned>(num_row_blocks), THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(blocks),
         static_cast<const int32_t*>(row_splits),
         static_cast<const int32_t*>(cols), static_cast<const float*>(ssrc),
         static_cast<const float*>(sdst), static_cast<float*>(out), slope);
@@ -475,23 +497,14 @@ extern "C" int fitgnn_att_rowmax(const void* blocks, const void* row_splits,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The walk: trans == 0 is the forward (splits = row_splits, sel = scale =
-// null, cols the input blocks, x the features, den (n,) f32 or null);
-// trans != 0 the dx walk of the transpose plan (splits = t_row_splits,
-// sel = t_sel, scale = t_scale, cols = t_cols, x = g, den null).  blocks
-// (K,128,128) f32, 16-byte aligned; ssrc, sdst, m (n,) f32; x, out (n,
-// feat) f32 with n = num_row_blocks*128; all contiguous.  Returns
-// cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
-// else cudaGetLastError() after the launch.
-extern "C" int fitgnn_att_walk(const void* blocks, const void* splits,
-                               const void* sel, const void* scale,
-                               const void* cols, const void* ssrc,
-                               const void* sdst, const void* m, const void* x,
-                               void* out, void* den, int64_t num_row_blocks,
-                               int64_t feat, int trans, float slope,
-                               void* stream) {
+template <class T>
+int walk(const void* blocks, const void* splits, const void* sel,
+         const void* scale, const void* cols, const void* ssrc,
+         const void* sdst, const void* m, const void* x, void* out,
+         void* den, int64_t num_row_blocks, int64_t feat, int trans,
+         float slope, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto* b = static_cast<const float*>(blocks);
+  const auto* b = static_cast<const T*>(blocks);
   const auto* sp = static_cast<const int32_t*>(splits);
   const auto* c = static_cast<const int32_t*>(cols);
   const auto* ss = static_cast<const float*>(ssrc);
@@ -510,6 +523,98 @@ extern "C" int fitgnn_att_walk(const void* blocks, const void* splits,
       att::FwdScores{ss, sd, mm, static_cast<float*>(den), slope}));
 }
 
+template <class T>
+int scores(const void* blocks, const void* rows, const void* cols,
+           const void* ssrc, const void* sdst, const void* m,
+           const void* dden, const void* g, const void* x, void* cpart,
+           void* rpart, int64_t num_tiles, int64_t feat, float slope,
+           void* stream) {
+  if (feat <= 0 || feat > MAX_F) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_tiles > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  if (num_tiles > 0) {
+    const bool vec = reinterpret_cast<uintptr_t>(g) % 16 == 0
+                     && reinterpret_cast<uintptr_t>(x) % 16 == 0
+                     && feat % 4 == 0;
+    const auto kernel = vec ? att_scores_kernel<true, T>
+                            : att_scores_kernel<false, T>;
+    const cudaError_t set = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SC_SMEM);
+    if (set != cudaSuccess) return static_cast<int>(set);
+    kernel<<<static_cast<unsigned>(num_tiles), THREADS, SC_SMEM,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(blocks), static_cast<const int32_t*>(rows),
+        static_cast<const int32_t*>(cols), static_cast<const float*>(ssrc),
+        static_cast<const float*>(sdst), static_cast<const float*>(m),
+        static_cast<const float*>(dden), static_cast<const float*>(g),
+        static_cast<const float*>(x), static_cast<float*>(cpart),
+        static_cast<float*>(rpart), feat, slope);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Each of the next three entries has a twin ending in _bf16 that takes
+// blocks (K,128,128) bf16 in place of f32, with the same other operands.
+
+// blocks (K,128,128) f32, 16-byte aligned; row_splits (num_row_blocks+1,)
+// int32 tile range per block row; cols (K,) int32; ssrc, sdst, out
+// (num_row_blocks*128,) f32; all contiguous.  Returns cudaGetLastError()
+// after the launch.
+extern "C" int fitgnn_att_rowmax(const void* blocks, const void* row_splits,
+                                 const void* cols, const void* ssrc,
+                                 const void* sdst, void* out,
+                                 int64_t num_row_blocks, float slope,
+                                 void* stream) {
+  return rowmax<float>(blocks, row_splits, cols, ssrc, sdst, out,
+                       num_row_blocks, slope, stream);
+}
+
+extern "C" int fitgnn_att_rowmax_bf16(const void* blocks,
+                                      const void* row_splits,
+                                      const void* cols, const void* ssrc,
+                                      const void* sdst, void* out,
+                                      int64_t num_row_blocks, float slope,
+                                      void* stream) {
+  return rowmax<__nv_bfloat16>(blocks, row_splits, cols, ssrc, sdst, out,
+                               num_row_blocks, slope, stream);
+}
+
+// The walk: trans == 0 is the forward (splits = row_splits, sel = scale =
+// null, cols the input blocks, x the features, den (n,) f32 or null);
+// trans != 0 the dx walk of the transpose plan (splits = t_row_splits,
+// sel = t_sel, scale = t_scale, cols = t_cols, x = g, den null).  blocks
+// (K,128,128) f32, 16-byte aligned; ssrc, sdst, m (n,) f32; x, out (n,
+// feat) f32 with n = num_row_blocks*128; all contiguous.  Returns
+// cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
+// else cudaGetLastError() after the launch.
+extern "C" int fitgnn_att_walk(const void* blocks, const void* splits,
+                               const void* sel, const void* scale,
+                               const void* cols, const void* ssrc,
+                               const void* sdst, const void* m, const void* x,
+                               void* out, void* den, int64_t num_row_blocks,
+                               int64_t feat, int trans, float slope,
+                               void* stream) {
+  return walk<float>(blocks, splits, sel, scale, cols, ssrc, sdst, m, x,
+                     out, den, num_row_blocks, feat, trans, slope, stream);
+}
+
+extern "C" int fitgnn_att_walk_bf16(const void* blocks, const void* splits,
+                                    const void* sel, const void* scale,
+                                    const void* cols, const void* ssrc,
+                                    const void* sdst, const void* m,
+                                    const void* x, void* out, void* den,
+                                    int64_t num_row_blocks, int64_t feat,
+                                    int trans, float slope, void* stream) {
+  return walk<__nv_bfloat16>(blocks, splits, sel, scale, cols, ssrc, sdst, m,
+                             x, out, den, num_row_blocks, feat, trans, slope,
+                             stream);
+}
+
 // The score-gradient pass: the column partials cpart and the row partials
 // rpart (K, 128) f32 of every forward tile k (rows block rows[k], columns
 // block cols[k]).  blocks (K,128,128) f32, 16-byte aligned; ssrc, sdst, m,
@@ -524,31 +629,19 @@ extern "C" int fitgnn_att_scores(const void* blocks, const void* rows,
                                  const void* x, void* cpart, void* rpart,
                                  int64_t num_tiles, int64_t feat,
                                  float slope, void* stream) {
-  if (feat <= 0 || feat > MAX_F) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (num_tiles > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  if (num_tiles > 0) {
-    const bool vec = reinterpret_cast<uintptr_t>(g) % 16 == 0
-                     && reinterpret_cast<uintptr_t>(x) % 16 == 0
-                     && feat % 4 == 0;
-    const auto kernel = vec ? att_scores_kernel<true>
-                            : att_scores_kernel<false>;
-    const cudaError_t set = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SC_SMEM);
-    if (set != cudaSuccess) return static_cast<int>(set);
-    kernel<<<static_cast<unsigned>(num_tiles), THREADS, SC_SMEM,
-             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(blocks), static_cast<const int32_t*>(rows),
-        static_cast<const int32_t*>(cols), static_cast<const float*>(ssrc),
-        static_cast<const float*>(sdst), static_cast<const float*>(m),
-        static_cast<const float*>(dden), static_cast<const float*>(g),
-        static_cast<const float*>(x), static_cast<float*>(cpart),
-        static_cast<float*>(rpart), feat, slope);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return scores<float>(blocks, rows, cols, ssrc, sdst, m, dden, g, x, cpart,
+                       rpart, num_tiles, feat, slope, stream);
+}
+
+extern "C" int fitgnn_att_scores_bf16(const void* blocks, const void* rows,
+                                      const void* cols, const void* ssrc,
+                                      const void* sdst, const void* m,
+                                      const void* dden, const void* g,
+                                      const void* x, void* cpart, void* rpart,
+                                      int64_t num_tiles, int64_t feat,
+                                      float slope, void* stream) {
+  return scores<__nv_bfloat16>(blocks, rows, cols, ssrc, sdst, m, dden, g, x,
+                               cpart, rpart, num_tiles, feat, slope, stream);
 }
 
 // dssrc and dsdst (n,) f32 from the pass's partials (K, 128) f32: the row

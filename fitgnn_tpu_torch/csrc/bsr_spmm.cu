@@ -41,6 +41,14 @@
 // registers while the current one is applied, and a block row without
 // tiles stores zeros.  tile_sparse.cuh says where the walk departs from
 // the dense product on non-finite inputs.
+//
+// bf16 tiles (the JAX package's tile_dtype=bfloat16): the entries ending
+// in _bf16 walk bf16 tiles, half the tile bytes.  K1, K2 and K9 round x to
+// bf16 before the products, as _kernel_acc, _kernel and
+// _make_grouped_kernel cast x when the tile is bf16; K10 does not, as
+// _rowwalk_kernel's jnp.dot promotes the bf16 tile to f32 instead.  The
+// sums stay f32, so each form's result is its f32 walk's on the rounded
+// operands.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -50,14 +58,15 @@
 namespace {
 
 // the non-zero walk, rows orientation: tile k for slot k at scale 1, from
-// init under INIT (K1), else from zero (init unused)
-template <bool INIT>
+// init under INIT (K1), else from zero (init unused); T the tile type,
+// ROUND_X: x rounded to bf16
+template <bool INIT, class T = float, bool ROUND_X = false>
 int launch_nonzero(const void* blocks, const void* row_splits,
                    const void* cols, const void* x, const void* init,
                    void* out, int64_t num_row_blocks, int64_t feat,
                    void* stream) {
-  return static_cast<int>(sparse::launch<false, INIT>(
-      static_cast<const float*>(blocks),
+  return static_cast<int>(sparse::launch<false, INIT, false, ROUND_X>(
+      static_cast<const T*>(blocks),
       static_cast<const int32_t*>(row_splits), nullptr, nullptr,
       static_cast<const int32_t*>(cols), static_cast<const float*>(x),
       static_cast<const float*>(init), static_cast<float*>(out),
@@ -111,4 +120,51 @@ extern "C" int fitgnn_bsr_spmm_rowwalk(const void* blocks,
                                        int64_t feat, void* stream) {
   return launch_nonzero<false>(blocks, row_splits, cols, x, nullptr,
                                out, num_row_blocks, feat, stream);
+}
+
+// The same four on bf16 tiles, blocks (K,128,128) bf16, 16-byte aligned;
+// K1, K2 and K9 round x to bf16, K10 does not.
+using bf16 = __nv_bfloat16;
+
+// K1 bf16: out = init + A . bf16(x)
+extern "C" int fitgnn_bsr_spmm_acc_bf16(const void* blocks,
+                                        const void* row_splits,
+                                        const void* cols, const void* x,
+                                        const void* init, void* out,
+                                        int64_t num_row_blocks, int64_t feat,
+                                        void* stream) {
+  return launch_nonzero<true, bf16, true>(blocks, row_splits, cols, x, init,
+                                          out, num_row_blocks, feat, stream);
+}
+
+// K2 bf16: out = A . bf16(x)
+extern "C" int fitgnn_bsr_spmm_bf16(const void* blocks, const void* row_splits,
+                                    const void* cols, const void* x, void* out,
+                                    int64_t num_row_blocks, int64_t feat,
+                                    void* stream) {
+  return launch_nonzero<false, bf16, true>(blocks, row_splits, cols, x,
+                                           nullptr, out, num_row_blocks, feat,
+                                           stream);
+}
+
+// K9 bf16: out = A . bf16(x) on the group-padded layout
+extern "C" int fitgnn_bsr_spmm_grouped_bf16(const void* blocks,
+                                            const void* row_splits,
+                                            const void* cols, const void* x,
+                                            void* out, int64_t num_row_blocks,
+                                            int64_t feat, void* stream) {
+  return launch_nonzero<false, bf16, true>(blocks, row_splits, cols, x,
+                                           nullptr, out, num_row_blocks, feat,
+                                           stream);
+}
+
+// K10 bf16: out = A . x on the row-walk layout, x not rounded
+extern "C" int fitgnn_bsr_spmm_rowwalk_bf16(const void* blocks,
+                                            const void* row_splits,
+                                            const void* cols, const void* x,
+                                            void* out, int64_t num_row_blocks,
+                                            int64_t feat, void* stream) {
+  return launch_nonzero<false, bf16, false>(blocks, row_splits, cols, x,
+                                            nullptr, out, num_row_blocks,
+                                            feat, stream);
 }

@@ -23,6 +23,12 @@
 // x's slab b, so no index array is built or read.  Since the CTA walks one
 // tile, the slab copy starts with the tile's read and init's.  A block
 // without a non-zero stores init (or zero) bit for bit.
+//
+// bf16 blocks (the JAX package's tile_dtype=bfloat16, its diagonal blocks
+// cast at fitgnn_tpu/ops/hybrid_spmm.py:160-165): fitgnn_diag_spmm_bf16
+// walks them with x rounded to bf16 in both orientations, from init or
+// zero, as _make_kernel casts x when the blocks are bf16; the sums and
+// init stay f32.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -31,18 +37,34 @@
 
 namespace {
 
-template <bool TRANS>
-cudaError_t launch_diag(const float* blocks, const float* x,
-                        const float* init, float* out, int64_t nb,
-                        int64_t feat, cudaStream_t stream) {
+// T the block type; bf16 blocks round x to bf16
+template <bool TRANS, class T = float>
+cudaError_t launch_diag(const T* blocks, const float* x, const float* init,
+                        float* out, int64_t nb, int64_t feat,
+                        cudaStream_t stream) {
+  constexpr bool ROUND_X = !std::is_same<T, float>::value;
   if (init != nullptr) {
-    return sparse::launch<TRANS, true, true>(blocks, nullptr, nullptr,
-                                             nullptr, nullptr, x, init, out,
-                                             nb, feat, stream);
+    return sparse::launch<TRANS, true, true, ROUND_X>(
+        blocks, nullptr, nullptr, nullptr, nullptr, x, init, out, nb, feat,
+        stream);
   }
-  return sparse::launch<TRANS, false, true>(blocks, nullptr, nullptr,
-                                            nullptr, nullptr, x, nullptr,
-                                            out, nb, feat, stream);
+  return sparse::launch<TRANS, false, true, ROUND_X>(
+      blocks, nullptr, nullptr, nullptr, nullptr, x, nullptr, out, nb, feat,
+      stream);
+}
+
+template <class T>
+int diag_entry(const void* blocks, const void* x, const void* init,
+               void* out, int64_t nb, int64_t feat, int transpose,
+               void* stream) {
+  const auto* bl = static_cast<const T*>(blocks);
+  const auto* xi = static_cast<const float*>(x);
+  const auto* in = static_cast<const float*>(init);
+  auto* o = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      transpose ? launch_diag<true>(bl, xi, in, o, nb, feat, s)
+                : launch_diag<false>(bl, xi, in, o, nb, feat, s));
 }
 
 }  // namespace
@@ -54,12 +76,15 @@ cudaError_t launch_diag(const float* blocks, const float* x,
 extern "C" int fitgnn_diag_spmm(const void* blocks, const void* x,
                                 const void* init, void* out, int64_t nb,
                                 int64_t feat, int transpose, void* stream) {
-  const auto* bl = static_cast<const float*>(blocks);
-  const auto* xi = static_cast<const float*>(x);
-  const auto* in = static_cast<const float*>(init);
-  auto* o = static_cast<float*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      transpose ? launch_diag<true>(bl, xi, in, o, nb, feat, s)
-                : launch_diag<false>(bl, xi, in, o, nb, feat, s));
+  return diag_entry<float>(blocks, x, init, out, nb, feat, transpose,
+                           stream);
+}
+
+// the same on bf16 blocks (nb,128,128), 16-byte aligned, x rounded to bf16
+extern "C" int fitgnn_diag_spmm_bf16(const void* blocks, const void* x,
+                                     const void* init, void* out, int64_t nb,
+                                     int64_t feat, int transpose,
+                                     void* stream) {
+  return diag_entry<__nv_bfloat16>(blocks, x, init, out, nb, feat, transpose,
+                                   stream);
 }

@@ -118,12 +118,47 @@
 // output at init or 0 there, not 0 * inf = NaN (for K7: an inf in x or g
 // that only masked-out entries reach).  The main path never feeds one:
 // GAT's tile values are where(mask, exp(.), 0) and the features are
-// finite.
+// finite.  It covers the bf16 forms below too.
+//
+// Tile types.  The walk is templated on the stored tile's element type T
+// and on ROUND_X.  T = float (every walk above) is the f32 tile.  T =
+// __nv_bfloat16 is the tile of the JAX package's tile_dtype=bfloat16
+// (train --hybrid_bf16_tiles): a tile row is 256 bytes, so a thread reads
+// its share of a tile as four 16-byte loads of 8 entries (row 32u + 2 warp
+// + lane / 16, entries 8 (lane % 16) .. +7: one contiguous 512-byte piece
+// a warp and load), half the registers the f32 tile takes.  The vote reads
+// the raw bits (an entry counts where its bits other than the sign are
+// set, as e != 0 does), and a live tile is widened to f32 (exact: a bf16
+// is the top half of an f32) as it is stored to shared memory, with the
+// same swizzle; lanes whose 8 entries start in an odd 4-chunk of their
+// row store their second 16-byte chunk first, so that each phase of 8
+// lanes writes 8 distinct bank groups.  Past the store the walk is the
+// f32 walk.  ROUND_X rounds each element of the X slab to bf16 (round to
+// nearest even) once it has landed, by the thread that copied it, before
+// the barrier that publishes it: the Pallas kernels cast x to bf16 when
+// the tile is bf16 and take bf16 x bf16 products, exact in f32, summed in
+// f32 (fitgnn_tpu/ops/pallas/bsr_spmm.py:168-169, 219-220, 285-286;
+// diag_spmm.py:43-44).  The instantiations and the TPU kernels they
+// replace with bf16 tiles:
+//   <T = __nv_bfloat16, ROUND_X> rows from init (bsr_spmm.cu's K1 bf16)
+//     _kernel_acc; rows from zero (K2 and K9 bf16) _kernel and
+//     _make_grouped_kernel; under DIAG, both orientations, from init or
+//     zero (diag_spmm.cu's K8 bf16) diag_spmm.py:_make_kernel;
+//   <T = __nv_bfloat16, no ROUND_X> rows from zero (K10 bf16)
+//     _rowwalk_kernel, whose jnp.dot of a bf16 tile and an f32 slab
+//     promotes the tile and leaves x unrounded (bsr_spmm.py:364-365); the
+//     hooks att::FwdScores and att::DxScores (K7f and K7bt's dx bf16)
+//     att_bsr.py:_fwd_kernel and _bwd_t_kernel, whose bf16 tiles are GAT's
+//     0/1 mask, exact in bf16, while pe and x stay f32.
+// The shared-memory tile stays f32 (64 KB): holding it as bf16 and the
+// apply's reads of it at 2 bytes an entry is later work.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace sparse {
 
@@ -162,6 +197,110 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// a bf16 pair's two values as f32 (exact): the low half is the first
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// four consecutive tile entries as f32, from a 16-byte (f32) or 8-byte
+// (bf16) aligned address
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+}
+
+// v rounded to bf16 (to nearest even), as f32
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// float index of tile entry (i, j) in the swizzled shared-memory tile:
+// chunk j / 4 of row i sits at chunk (j / 4) ^ (i % 8)
+__device__ __forceinline__ int swizzled(int i, int j) {
+  return i * BLK + 4 * ((j >> 2) ^ (i & 7)) + (j & 3);
+}
+
+// A thread's share of one tile in registers, read one step ahead of its
+// use; any() is the thread's vote, store() writes the share to the
+// swizzled shared-memory tile as f32.
+template <class T>
+struct TileRegs;
+
+// f32: chunk `lane` (4 entries) of the tile rows warp + WARPS u, one
+// coalesced 512-byte row a warp and load
+template <>
+struct TileRegs<float> {
+  float4 ch[BLK / WARPS];
+  __device__ __forceinline__ void load(const float* tile, int warp,
+                                       int lane) {
+    const float4* a = reinterpret_cast<const float4*>(tile) + lane;
+#pragma unroll
+    for (int u = 0; u < BLK / WARPS; ++u) {
+      ch[u] = a[(warp + WARPS * u) * (BLK / 4)];
+    }
+  }
+  __device__ __forceinline__ bool any() const {
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < BLK / WARPS; ++u) {
+      any |= ch[u].x != 0.f || ch[u].y != 0.f || ch[u].z != 0.f
+             || ch[u].w != 0.f;
+    }
+    return any;
+  }
+  __device__ __forceinline__ void store(float* as, int warp, int lane) const {
+#pragma unroll
+    for (int u = 0; u < BLK / WARPS; ++u) {
+      *reinterpret_cast<float4*>(as + swizzled(warp + WARPS * u, 4 * lane)) =
+          ch[u];
+    }
+  }
+};
+
+// bf16: 16-byte piece u of the thread, tile row 32u + 2 warp + lane / 16,
+// entries 8 (lane % 16) .. +7; the pieces of a warp and load are one
+// contiguous 512 bytes (piece index 512u + 32 warp + lane)
+template <>
+struct TileRegs<__nv_bfloat16> {
+  static constexpr int N = BLK * BLK / 8 / THREADS;   // 4
+  uint4 ch[N];
+  __device__ __forceinline__ void load(const __nv_bfloat16* tile, int warp,
+                                       int lane) {
+    const uint4* a = reinterpret_cast<const uint4*>(tile) + 32 * warp + lane;
+#pragma unroll
+    for (int u = 0; u < N; ++u) ch[u] = a[THREADS * u];
+  }
+  __device__ __forceinline__ bool any() const {
+    uint32_t bits = 0;
+#pragma unroll
+    for (int u = 0; u < N; ++u) bits |= ch[u].x | ch[u].y | ch[u].z | ch[u].w;
+    return (bits & 0x7fff7fffu) != 0;             // +-0 is no non-zero
+  }
+  __device__ __forceinline__ void store(float* as, int warp, int lane) const {
+    const int c = lane & 15;                      // 8-entry piece of the row
+    const bool odd = (c >> 2) & 1;                // second chunk first
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const int i = 32 * u + 2 * warp + (lane >> 4);
+      const float4 a = make_float4(bf16_lo(ch[u].x), bf16_hi(ch[u].x),
+                                   bf16_lo(ch[u].y), bf16_hi(ch[u].y));
+      const float4 b = make_float4(bf16_lo(ch[u].z), bf16_hi(ch[u].z),
+                                   bf16_lo(ch[u].w), bf16_hi(ch[u].w));
+      float* row = as + i * BLK;
+      *reinterpret_cast<float4*>(row + 4 * ((2 * c + odd) ^ (i & 7))) =
+          odd ? b : a;
+      *reinterpret_cast<float4*>(row + 4 * ((2 * c + !odd) ^ (i & 7))) =
+          odd ? a : b;
+    }
+  }
+};
+
 // Starts the copy xs[j][c] = xb[j][f0 + c] of the 128 slab rows, 0 past
 // feat, as one cp.async group.  VEC: x starts on a 16-byte boundary and
 // feat % 4 == 0, so rows copy as 16-byte pieces; otherwise 4-byte pieces.
@@ -189,6 +328,23 @@ __device__ __forceinline__ void start_slab(float* xs,
     }
   }
   cp_async_commit();
+}
+
+// Rounds to bf16 the slab elements that start_slab<VEC> had thread tid
+// copy (those it sees once its copies have landed): 16-byte piece q at
+// xs + 4q under VEC, else element q
+template <bool VEC>
+__device__ __forceinline__ void round_slab(float* xs, int tid) {
+  if (VEC) {
+    for (int q = tid; q < BLK * FT / 4; q += THREADS) {
+      float4* p = reinterpret_cast<float4*>(xs) + q;
+      const float4 v = *p;
+      *p = make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                       round_bf16(v.w));
+    }
+  } else {
+    for (int q = tid; q < BLK * FT; q += THREADS) xs[q] = round_bf16(xs[q]);
+  }
 }
 
 // The identity hook: an entry's value is the entry (every walk but K7's)
@@ -289,10 +445,12 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
 // zero.  DIAG (K8): the run of row r is tile r at column r and scale 1,
 // and row_splits, sel, scale and cols are unused (null).  A's entries are
 // applied as the values that the hook val gives them (Plain: as they
-// are).
-template <bool TRANS, bool INIT, bool VEC, bool DIAG, class V>
+// are).  T is the stored tile's element type (float or __nv_bfloat16);
+// ROUND_X rounds the X slab to bf16 before the products (bf16 tiles only).
+template <bool TRANS, bool INIT, bool VEC, bool DIAG, class V, class T,
+          bool ROUND_X>
 __global__ void __launch_bounds__(THREADS, 1)
-walk_kernel(const float* __restrict__ blocks,
+walk_kernel(const T* __restrict__ blocks,
             const int32_t* __restrict__ row_splits,
             const int32_t* __restrict__ sel,
             const int32_t* __restrict__ scale,
@@ -334,23 +492,12 @@ walk_kernel(const float* __restrict__ blocks,
     return TRANS ? Slot{cols[k], sel[k], static_cast<float>(scale[k])}
                  : Slot{cols[k], k, 1.f};
   };
-  // the thread's chunks of a tile: chunk `lane` of the tile rows warp +
-  // WARPS u, one coalesced 512-byte row a warp and load
-  float4 ch[BLK / WARPS];
+  // the thread's share of a tile (TileRegs<T>)
+  TileRegs<T> ch;
   auto fetch = [&](const Slot& c) {
     if (c.s != 0.f) {
-      const float4* a = reinterpret_cast<const float4*>(
-          blocks + static_cast<int64_t>(c.tile) * BLK * BLK) + lane;
-#pragma unroll
-      for (int u = 0; u < BLK / WARPS; ++u) {
-        ch[u] = a[(warp + WARPS * u) * (BLK / 4)];
-      }
+      ch.load(blocks + static_cast<int64_t>(c.tile) * BLK * BLK, warp, lane);
     }
-  };
-  // float index of tile entry (i, j): chunk j / 4 of row i sits at chunk
-  // (j / 4) ^ (i % 8)
-  auto at = [](int i, int j) {
-    return i * BLK + 4 * ((j >> 2) ^ (i & 7)) + (j & 3);
   };
 
   const int lo = DIAG ? static_cast<int>(r) : row_splits[r];
@@ -363,22 +510,12 @@ walk_kernel(const float* __restrict__ blocks,
   fetch(c0);
   for (int t = 0; t < nt; ++t) {
     bool any = false;
-    if (c0.s != 0.f) {
-#pragma unroll
-      for (int u = 0; u < BLK / WARPS; ++u) {
-        any |= ch[u].x != 0.f || ch[u].y != 0.f || ch[u].z != 0.f
-               || ch[u].w != 0.f;
-      }
-    }
+    if (c0.s != 0.f) any = ch.any();
     // the vote is also the barrier after the last apply: the tile and the
     // slab may be overwritten
     const bool live = __syncthreads_or(any);
     if (live) {
-#pragma unroll
-      for (int u = 0; u < BLK / WARPS; ++u) {
-        *reinterpret_cast<float4*>(as + at(warp + WARPS * u, 4 * lane)) =
-            ch[u];
-      }
+      ch.store(as, warp, lane);
       val.tile(hs, c0.col, tid);
       if (!DIAG) {
         start_slab<VEC>(xs, x + static_cast<int64_t>(c0.col) * BLK * feat,
@@ -391,6 +528,7 @@ walk_kernel(const float* __restrict__ blocks,
     c1 = t + 2 < nt ? slot(lo + t + 2) : none;
     if (!live) continue;
     cp_async_wait<0>();
+    if (ROUND_X) round_slab<VEC>(xs, tid);      // before the barrier
     __syncthreads();
     if (TRANS) {
       // output rows 4q .. 4q+3 take tile columns 4q .. 4q+3: one float4
@@ -401,7 +539,8 @@ walk_kernel(const float* __restrict__ blocks,
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
           const int j = lane + 32 * m;
-          const float4 v = *reinterpret_cast<const float4*>(as + at(j, 4 * q));
+          const float4 v =
+              *reinterpret_cast<const float4*>(as + swizzled(j, 4 * q));
           // the four values first, so that their work overlaps
           const float w[4] = {val.value(hs, v.x, 4 * qd + 0, m, row0, lane),
                               val.value(hs, v.y, 4 * qd + 1, m, row0, lane),
@@ -420,7 +559,7 @@ walk_kernel(const float* __restrict__ blocks,
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
           // the value only where the ballot found a non-zero
-          const float e = as[at(row0 + i, lane + 32 * m)];
+          const float e = as[swizzled(row0 + i, lane + 32 * m)];
           apply(e, [&] { return val.value(hs, e, i, m, row0, lane); }, m,
                 1.f, xs, lane, acc[i]);
         }
@@ -440,9 +579,12 @@ walk_kernel(const float* __restrict__ blocks,
 // cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
 // else cudaGetLastError() after the launch.  The vector slab copy is
 // chosen on x's alignment; the kernel chooses the vector init load on
-// init's own.  val is the value hook (Plain: the entries as they are).
-template <bool TRANS, bool INIT, bool DIAG = false, class V = Plain>
-cudaError_t launch(const float* blocks, const int32_t* row_splits,
+// init's own.  val is the value hook (Plain: the entries as they are); T,
+// the tile type, comes from blocks, which must start on a 16-byte
+// boundary; ROUND_X (bf16 tiles only) rounds x to bf16.
+template <bool TRANS, bool INIT, bool DIAG = false, bool ROUND_X = false,
+          class T = float, class V = Plain>
+cudaError_t launch(const T* blocks, const int32_t* row_splits,
                    const int32_t* sel, const int32_t* scale,
                    const int32_t* cols, const float* x, const float* init,
                    float* out, int64_t num_row_blocks, int64_t feat,
@@ -453,8 +595,14 @@ cudaError_t launch(const float* blocks, const int32_t* row_splits,
     if (ctas > 0x7fffffff) return cudaErrorInvalidConfiguration;
     const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0
                      && feat % 4 == 0;
-    const auto kernel = vec ? walk_kernel<TRANS, INIT, true, DIAG, V>
-                            : walk_kernel<TRANS, INIT, false, DIAG, V>;
+    static_assert(std::is_same<T, float>::value
+                  || std::is_same<T, __nv_bfloat16>::value,
+                  "tiles are f32 or bf16");
+    static_assert(!ROUND_X || std::is_same<T, __nv_bfloat16>::value,
+                  "x is rounded to bf16 for bf16 tiles only");
+    const auto kernel =
+        vec ? walk_kernel<TRANS, INIT, true, DIAG, V, T, ROUND_X>
+            : walk_kernel<TRANS, INIT, false, DIAG, V, T, ROUND_X>;
     const int bytes = SMEM + V::SMEM * static_cast<int>(sizeof(float));
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);

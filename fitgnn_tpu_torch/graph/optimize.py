@@ -64,10 +64,12 @@ def build_optimized_graph(x: np.ndarray, senders: np.ndarray,
 
     Returns ``(graph, order)`` where ``order[i]`` is the original id of the
     node now at position ``i``.  Defaults are the JAX package's production
-    config (threshold 48, f32 tiles, K3 stragglers); ``tile_group`` and
-    ``use_diag`` pass through to ``build_hybrid`` (K9, K8), which refuses
-    them for GATConv.  The planner's ``min_block_edges="auto"``, bf16 tiles
-    and the cluster opt-ins are not ported yet."""
+    config (threshold 48, f32 tiles, K3 stragglers); ``tile_dtype``
+    (``torch.bfloat16``: bf16 tiles, ``train --hybrid_bf16_tiles``),
+    ``tile_group`` and ``use_diag`` pass through to ``build_hybrid`` (the
+    walks' bf16 forms, K9, K8), which refuses the last two for GATConv.
+    The planner's ``min_block_edges="auto"`` and the cluster opt-ins are
+    not ported yet."""
     from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
     from fitgnn_tpu_torch.partition.community import \
         hierarchical_community_order
@@ -106,7 +108,7 @@ def build_optimized_graph(x: np.ndarray, senders: np.ndarray,
     return g._replace(aux=hyb), order
 
 
-def optimize_coarse(coarse, *, min_block_edges: int = 48,
+def optimize_coarse(coarse, *, min_block_edges: int = 48, tile_dtype=None,
                     layer_name: str = "GCNConv", seed: int = 0):
     """Leiden-reorder a ``CoarseData``'s graph (CPU tensors) and attach the
     hybrid operator, as the JAX package's ``optimize_coarse`` does: a large
@@ -116,8 +118,9 @@ def optimize_coarse(coarse, *, min_block_edges: int = 48,
     Only Gc's own node order changes (with its label and mask views); the
     Gs phase takes the transferred parameters, not Gc node ids.  The node
     arrays grow to a multiple of 128 with inert rows (zero features, False
-    masks).  The JAX package's bf16 tiles, tile groups and cluster
-    collapses are not ported yet (ROADMAP.md §1 item 2)."""
+    masks).  ``tile_dtype=torch.bfloat16`` stores Gc's tiles in bf16
+    (``train --hybrid_bf16_tiles``).  The JAX package's tile groups and
+    cluster collapses are not ported yet (ROADMAP.md §1 item 2)."""
     from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
     from fitgnn_tpu_torch.partition.community import \
         hierarchical_community_order
@@ -156,7 +159,8 @@ def optimize_coarse(coarse, *, min_block_edges: int = 48,
     semantics = _LAYER_SEMANTICS[layer_name]
     w_op = _operator_weights(s2, r2, w2, n_pad, semantics)
     hyb = build_hybrid(s2, r2, w_op, n_pad, min_block_edges=min_block_edges,
-                       use_segmm=True, semantics=semantics)
+                       tile_dtype=tile_dtype, use_segmm=True,
+                       semantics=semantics)
     g2 = g._replace(x=pnode(g.x),
                     senders=torch.from_numpy(s2.astype(np.int32)),
                     receivers=torch.from_numpy(r2.astype(np.int32)),

@@ -168,7 +168,8 @@ class NodeModel(nn.Module):
 
 def preaggregate_features(g: Graph) -> torch.Tensor:
     """x̃ = Â·X, computed once at ingest for a pre-aggregated GCN (through
-    the graph's hybrid operator when it has one)."""
+    the graph's hybrid operator when it has one: K3 then K1, in its bf16
+    form, x rounded to bf16, on an operator with bf16 tiles)."""
     if isinstance(g.aux, HybridSpmm):
         return hybrid_spmm(g.aux, g.x)
     return spmm_coo(g.edge_weight, g.senders, g.receivers, g.x,

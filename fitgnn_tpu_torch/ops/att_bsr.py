@@ -38,6 +38,14 @@ and ``att_bwd_t``'s ``dx`` run the non-zero walk of
 plain PyTorch version (``*_plain``: materialised tiles, ``bmm`` and
 ``index_add_``) on CPU tensors.  ``<wrapper>.launches`` counts kernel
 launches.
+
+bf16 tiles (``train --hybrid_bf16_tiles``): the tiles are GAT's 0/1 mask,
+exact in bf16, so only their type changes; ``pe``, ``x``, ``g`` and every
+sum stay f32 and nothing is rounded, as in the JAX package, which passes
+its bf16 tiles to the same kernels.  The wrappers that read the tiles
+(``att_rowmax``, ``att_fwd``, ``att_bwd_t``'s ``dx`` walk and
+``att_bwd_scores``) launch the kernels' bf16 forms on them (the C entries
+ending in ``_bf16``) and count those in ``<wrapper>.launches_bf16``.
 """
 
 from __future__ import annotations
@@ -210,7 +218,10 @@ def _check(what: str, blocks, splits, vectors: dict, feats: dict = None,
     if splits.shape[0] != n // BLOCK + 1:
         raise ValueError(f"{what}: {splits.shape[0]} splits for "
                          f"{n // BLOCK} block rows")
-    kernels.require(blocks, "blocks", torch.float32, dev)
+    if blocks.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: blocks must be f32 or bf16, got "
+                         f"{blocks.dtype}")
+    kernels.require(blocks, "blocks", blocks.dtype, dev)
     if blocks.dim() != 3 or blocks.shape[1:] != (BLOCK, BLOCK):
         raise ValueError(f"{what}: blocks {tuple(blocks.shape)} must be "
                          f"(K, {BLOCK}, {BLOCK})")
@@ -251,7 +262,7 @@ def att_rowmax(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     dev = _check("att_rowmax", blocks, plan.row_splits,
                  dict(ssrc=ssrc, sdst=sdst), ints=dict(cols=cols))
     out = torch.empty_like(ssrc)
-    launch = kernels.function("att_bsr", "fitgnn_att_rowmax",
+    launch = kernels.function("att_bsr", kernels.entry("fitgnn_att_rowmax", blocks),
                               _ROWMAX_ARGTYPES)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(blocks), kernels.ptr(plan.row_splits),
@@ -259,7 +270,7 @@ def att_rowmax(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
                     kernels.ptr(out), plan.row_splits.shape[0] - 1,
                     float(slope), kernels.stream(dev))
     kernels.check(rc, "att_rowmax")
-    att_rowmax.launches += 1
+    kernels.count(att_rowmax, blocks)
     return out
 
 
@@ -271,7 +282,8 @@ def _launch_walk(what, dev, blocks, splits, sel, scale, cols, ssrc, sdst, m,
                  x, den, trans: bool, slope: float) -> torch.Tensor:
     """One launch of the tile walk (forward or the transpose plan's dx)."""
     out = torch.empty_like(x)
-    launch = kernels.function("att_bsr", "fitgnn_att_walk", _WALK_ARGTYPES)
+    launch = kernels.function("att_bsr", kernels.entry("fitgnn_att_walk", blocks),
+                              _WALK_ARGTYPES)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(blocks), kernels.ptr(splits), _ptr(sel),
                     _ptr(scale), kernels.ptr(cols), kernels.ptr(ssrc),
@@ -288,7 +300,7 @@ def _launch_scores(what, dev, blocks, rows, cols, ssrc, sdst, m, g, x, dden,
     each."""
     cpart, rpart = torch.empty((2, blocks.shape[0], BLOCK),
                                dtype=torch.float32, device=dev)
-    launch = kernels.function("att_bsr", "fitgnn_att_scores",
+    launch = kernels.function("att_bsr", kernels.entry("fitgnn_att_scores", blocks),
                               _SCORES_ARGTYPES)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(blocks), kernels.ptr(rows), kernels.ptr(cols),
@@ -314,7 +326,7 @@ def att_fwd(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     den = torch.empty_like(ssrc)
     num = _launch_walk("att_fwd", dev, blocks, plan.row_splits, None, None,
                        cols, ssrc, sdst, m, x, den, False, slope)
-    att_fwd.launches += 1
+    kernels.count(att_fwd, blocks)
     return num, den
 
 
@@ -372,7 +384,7 @@ def att_bwd_scores(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
                          f"{cols.shape[0]} cols for {blocks.shape[0]} tiles")
     cpart, rpart = _launch_scores("att_bwd_scores", dev, blocks, rows, cols,
                                   ssrc, sdst, m, g, x, dden, slope)
-    att_bwd_scores.launches += 1
+    kernels.count(att_bwd_scores, blocks)
     return att_sums(plan, cpart, rpart)
 
 
@@ -408,7 +420,7 @@ def att_bwd_t(plan: DynPlan, blocks: torch.Tensor, ssrc: torch.Tensor,
         dx = _launch_walk("att_bwd_t (dx)", dev, blocks, plan.t_row_splits,
                           plan.t_sel, plan.t_scale, plan.t_cols, ssrc, sdst,
                           m, g, None, True, slope)
-        att_bwd_t.launches += 1
+        kernels.count(att_bwd_t, blocks)
     if need_dssrc:
         dssrc = att_bwd_scores(*_forward_tiles(plan, blocks.shape[0]), plan,
                                blocks, ssrc, sdst, m, g, x, dden, slope)[0]
@@ -428,10 +440,10 @@ def att_bwd_f(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
                           dden, slope)[1]
 
 
-att_rowmax.launches = 0
-att_fwd.launches = 0
-att_bwd_t.launches = 0
-att_bwd_scores.launches = 0
+att_rowmax.launches = att_rowmax.launches_bf16 = 0
+att_fwd.launches = att_fwd.launches_bf16 = 0
+att_bwd_t.launches = att_bwd_t.launches_bf16 = 0
+att_bwd_scores.launches = att_bwd_scores.launches_bf16 = 0
 att_sums.launches = 0
 
 

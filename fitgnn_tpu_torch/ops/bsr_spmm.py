@@ -3,10 +3,13 @@
 Community-reordered adjacency is block-sparse: most edges land in a few
 dense 128×128 tiles.  ``blocks[k]`` is tile ``(rows[k], cols[k])`` and adds
 ``A_k · X[cols[k]]`` into block-row ``rows[k]``.  ``build_bsr`` makes the
-JAX package's three layouts: the grid-walk layout (every block row holds at
+JAX package's four layouts: the grid-walk layout (every block row holds at
 least one tile, zero coverage fillers where it had none), the group-padded
 layout (``group > 1``: every row's run zero-padded to a multiple of
-``group``) and the row-walk layout (``rowwalk``: no fillers).
+``group``), the row-walk layout (``rowwalk``: no fillers) and the einsum
+layout (``einsum``: no fillers either).  Its tiles are f32, or bf16 under
+``tile_dtype=torch.bfloat16`` (built in f32, then cast, as the JAX
+package casts them).
 
 * ``bsr_spmm_acc(b, x, init)`` = ``init + A·x``: K1 on the grid-walk
   layout, ``init + bsr_spmm(...)`` on the others, as the JAX package's
@@ -14,8 +17,8 @@ layout (``group > 1``: every row's run zero-padded to a multiple of
 * ``bsr_spmm(b, x)`` = ``A·x``, differentiable in ``x``: dispatched by the
   layout as the JAX package's ``_fwd_dispatch``, to K10 (row walk,
   ``bsr_spmm_rowwalk``), K9 (grouped, ``bsr_spmm_grouped``) or K2
-  (``bsr_spmm_fwd``); its backward runs the same dispatch on
-  ``b.transpose``.
+  (``bsr_spmm_fwd``), or the einsum layout's ``bsr_spmm_einsum``; its
+  backward runs the same dispatch on ``b.transpose``.
 
 Each of the four wrappers launches its hand-written kernel through its C
 entry in ``csrc/bsr_spmm.cu`` on a CUDA tensor (they replace the TPU
@@ -28,6 +31,16 @@ the design does about it.  On a CPU tensor each runs the plain version
 (``bsr_spmm_acc_plain``, ``bsr_spmm_plain``: a batched matmul over the
 gathered X slabs, then ``index_add_`` over block rows).  Each has its own
 ``launches`` count.
+
+bf16 tiles: each wrapper launches the walk's bf16 form on them (the C
+entries ending in ``_bf16``) and counts it in ``launches_bf16``.  The
+rounding is the Pallas kernels': K1, K2 and K9 round ``x`` to bf16 and sum
+the exact bf16 × bf16 products in f32; K10's ``jnp.dot`` of a bf16 tile
+and an f32 slab promotes the tile, so it leaves ``x`` as it is.  The
+plain versions apply the same rule.  The einsum layout is the JAX
+package's XLA path (``_bsr_spmm_einsum``), plain PyTorch here on either
+device: ``x`` rounded to the tile type, one ``bmm`` whose tile products
+are rounded to it, ``index_add_`` in it, then f32.
 """
 
 from __future__ import annotations
@@ -49,7 +62,7 @@ BLOCK = 128  # node-block edge length: one dense tile
 class BsrMatrix:
     """Dense-block BCSR adjacency. ``blocks[k]`` is tile (rows[k], cols[k])."""
 
-    blocks: torch.Tensor        # (K, BLOCK, BLOCK) f32 tile values
+    blocks: torch.Tensor        # (K, BLOCK, BLOCK) f32 or bf16 tile values
     rows: torch.Tensor          # (K,) int32 block-row id, sorted ascending
     cols: torch.Tensor          # (K,) int32 block-col id
     num_row_blocks: int
@@ -58,6 +71,11 @@ class BsrMatrix:
     row_splits: Optional[torch.Tensor] = None  # (NB+1,) int32 CSR pointers
     rowwalk: bool = False       # row-walk layout: no coverage fillers (K10)
     group: int = 1              # every row's run padded to a multiple (K9)
+    einsum: bool = False        # the einsum layout: no coverage fillers
+
+    @property
+    def bf16(self) -> bool:
+        return self.blocks.dtype == torch.bfloat16
 
     @property
     def nnz_blocks(self) -> int:
@@ -67,6 +85,15 @@ class BsrMatrix:
         return dataclass_to(self, device)
 
 
+def check_tile_dtype(tile_dtype) -> None:
+    """Tiles are f32 (``None``) or bf16 (``torch.bfloat16``); the JAX
+    package's other types are not ported."""
+    if tile_dtype not in (None, torch.bfloat16):
+        raise NotImplementedError(
+            f"tile_dtype={tile_dtype!r}: only f32 (None) and bf16 tiles "
+            "are ported (ROADMAP.md §1 item 2)")
+
+
 def build_bsr(senders: np.ndarray, receivers: np.ndarray, weight: np.ndarray,
               num_nodes_padded: int, block: int = BLOCK,
               with_transpose: bool = True, *, tile_dtype=None,
@@ -74,16 +101,17 @@ def build_bsr(senders: np.ndarray, receivers: np.ndarray, weight: np.ndarray,
               einsum: bool = False) -> BsrMatrix:
     """Host-side BCSR construction from a COO edge list (numpy): the same
     blocks, rows, cols and row_splits as the JAX package's ``build_bsr``
-    with the same ``rowwalk`` and ``group``, and a transpose built with the
-    same flags.  Tiles are f32 and 128 wide; ``block != 128``, bf16
-    ``tile_dtype`` and ``einsum`` are not ported (ROADMAP.md §1 item 2).
+    with the same ``tile_dtype``, ``rowwalk``, ``group`` and ``einsum``,
+    and a transpose built with the same flags.  Tiles are 128 wide;
+    ``block != 128`` is not ported (ROADMAP.md §1 item 2).
 
     ``num_nodes_padded`` must be a multiple of 128.  Edges pointing at
     padding slots are harmless as long as their weight is 0."""
-    if block != BLOCK or tile_dtype is not None or einsum:
+    if block != BLOCK:
         raise NotImplementedError(
-            "build_bsr: block != 128, bf16 tile_dtype and einsum are not "
-            "ported yet (ROADMAP.md §1 item 2)")
+            "build_bsr: block != 128 is not ported yet (the walk templated "
+            "on the tile edge, ROADMAP.md §1 item 2)")
+    check_tile_dtype(tile_dtype)
     if group < 1:
         raise ValueError(f"build_bsr: group must be >= 1, got {group}")
     dtype = np.float32
@@ -104,11 +132,11 @@ def build_bsr(senders: np.ndarray, receivers: np.ndarray, weight: np.ndarray,
     if k == 0:
         rows = np.zeros(1, dtype=np.int32)
         cols = np.zeros(1, dtype=np.int32)
-    if not rowwalk:
+    if not rowwalk and not einsum:
         # coverage fillers: the TPU grid leaves an unvisited out block
         # uninitialized, so every block-row gets ≥1 (zero) tile.  The CUDA
         # walks write every row themselves; the fillers stay for parity and
-        # cost one zero tile each.  The row walk has none.
+        # cost one zero tile each.  The row walk and einsum have none.
         missing = np.setdiff1d(np.arange(nb, dtype=np.int32), rows)
         if missing.size:
             blocks = np.concatenate(
@@ -135,21 +163,35 @@ def build_bsr(senders: np.ndarray, receivers: np.ndarray, weight: np.ndarray,
     t = None
     if with_transpose:
         t = build_bsr(receivers, senders, weight, num_nodes_padded,
-                      with_transpose=False, rowwalk=rowwalk, group=group)
+                      with_transpose=False, tile_dtype=tile_dtype,
+                      rowwalk=rowwalk, group=group, einsum=einsum)
     row_splits = np.searchsorted(rows, np.arange(nb + 1)).astype(np.int32)
+    blocks_t = torch.from_numpy(blocks)
+    if tile_dtype is not None:
+        blocks_t = blocks_t.to(tile_dtype)
     return BsrMatrix(
-        blocks=torch.from_numpy(blocks), rows=torch.from_numpy(rows),
+        blocks=blocks_t, rows=torch.from_numpy(rows),
         cols=torch.from_numpy(cols), num_row_blocks=nb, num_col_blocks=nb,
         transpose=t, row_splits=torch.from_numpy(row_splits),
-        rowwalk=rowwalk, group=group)
+        rowwalk=rowwalk, group=group, einsum=einsum)
+
+
+def round_x(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the walk of ``b``'s layout multiplies it: rounded to bf16
+    (and held in f32, exactly) on bf16 tiles, except in the row walk (K10),
+    whose TPU kernel promotes the tile instead; as it is on f32 tiles."""
+    if b.bf16 and not b.rowwalk:
+        return x.to(torch.bfloat16).to(x.dtype)
+    return x
 
 
 def _tile_sum(b: BsrMatrix, x: torch.Tensor,
               out: torch.Tensor) -> torch.Tensor:
     """``out += A·x`` in place on an (N_pad, F) ``out``: gather the (K,
-    block, F) X slabs, one batched matmul, ``index_add_`` over block rows."""
+    block, F) X slabs, one batched matmul, ``index_add_`` over block rows;
+    x rounded as the walk rounds it, the tiles widened to x's type."""
     n, feat = x.shape
-    xb = x.reshape(b.num_col_blocks, BLOCK, feat)
+    xb = round_x(b, x).reshape(b.num_col_blocks, BLOCK, feat)
     prod = torch.bmm(b.blocks.to(x.dtype), xb.index_select(0, b.cols.long()))
     return out.reshape(b.num_row_blocks, BLOCK, feat).index_add_(
         0, b.rows.long(), prod).reshape(n, feat)
@@ -162,8 +204,23 @@ def bsr_spmm_acc_plain(b: BsrMatrix, x: torch.Tensor,
 
 
 def bsr_spmm_plain(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch ``A·x`` on any of the three layouts (K2, K9, K10)."""
+    """Plain PyTorch ``A·x`` on the grid-walk, grouped and row-walk layouts
+    (K2, K9, K10)."""
     return _tile_sum(b, x, torch.zeros_like(x))
+
+
+def bsr_spmm_einsum(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    """``A·x`` on the einsum layout, as the JAX package's
+    ``_bsr_spmm_einsum``: the X slabs in the tile type (bf16 or f32), one
+    batched matmul whose tile products come out in that type, their sum
+    over block rows (``index_add_``) in it, then x's type.  Plain PyTorch
+    on every device, as XLA computes it there."""
+    n, feat = x.shape
+    xb = x.to(b.blocks.dtype).reshape(b.num_col_blocks, BLOCK, feat)
+    prod = torch.bmm(b.blocks, xb.index_select(0, b.cols.long()))
+    out = torch.zeros((b.num_row_blocks, BLOCK, feat), dtype=prod.dtype,
+                      device=prod.device)
+    return out.index_add_(0, b.rows.long(), prod).reshape(n, feat).to(x.dtype)
 
 
 def _operands(b: BsrMatrix, x: torch.Tensor, what: str,
@@ -180,7 +237,8 @@ def _operands(b: BsrMatrix, x: torch.Tensor, what: str,
     kernels.require(x, "x", torch.float32, dev)
     if init is not None:
         kernels.require(init, "init", torch.float32, dev)
-    kernels.require(b.blocks, "blocks", torch.float32, dev)
+    kernels.require(b.blocks, "blocks",
+                    torch.bfloat16 if b.bf16 else torch.float32, dev)
     kernels.require(b.row_splits, "row_splits", torch.int32, dev)
     kernels.require(b.cols, "cols", torch.int32, dev)
     if b.blocks.data_ptr() % 16:
@@ -196,10 +254,12 @@ _ARGS_FWD = [_PTR] * 5 + [_I64] * 2 + [_PTR]
 
 def _launch(b: BsrMatrix, x: torch.Tensor, dev: torch.device, what: str,
             name: str, argtypes: list, ins: list) -> torch.Tensor:
-    """Launch C entry ``name`` on the tile structure, the input tensors
-    ``ins`` and a fresh output, then the sizes."""
+    """Launch C entry ``name`` (its ``_bf16`` twin on bf16 tiles) on the
+    tile structure, the input tensors ``ins`` and a fresh output, then the
+    sizes."""
     out = torch.empty_like(x)
-    launch = kernels.function("bsr_spmm", name, argtypes)
+    launch = kernels.function("bsr_spmm", kernels.entry(name, b.blocks),
+                              argtypes)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(b.blocks), kernels.ptr(b.row_splits),
                     kernels.ptr(b.cols), *(kernels.ptr(t) for t in ins),
@@ -213,36 +273,37 @@ def bsr_spmm_acc(b: BsrMatrix, x: torch.Tensor,
                  init: torch.Tensor) -> torch.Tensor:
     """``init + A·x`` for (N_pad, F) ``x`` and ``init``.  On the grid-walk
     layout K1 (the walk started from ``init`` on a CUDA tensor, the plain
-    version on a CPU tensor); on the row-walk and grouped layouts
-    ``init + bsr_spmm_raw``, so that K10 or K9 run.  Forward only: the
-    hybrid operator's autograd Function runs it on ``b.transpose`` for the
-    backward."""
+    version on a CPU tensor); on the row-walk, grouped and einsum layouts
+    ``init + bsr_spmm_raw``, so that K10, K9 or the einsum run.  Forward
+    only: the hybrid operator's autograd Function runs it on
+    ``b.transpose`` for the backward."""
     if init.shape != x.shape:
         raise ValueError(f"bsr_spmm_acc: x {tuple(x.shape)} and init "
                          f"{tuple(init.shape)} differ")
-    if b.rowwalk or b.group > 1:
+    if b.rowwalk or b.einsum or b.group > 1:
         return init + bsr_spmm_raw(b, x)
     dev = _operands(b, x, "bsr_spmm_acc", init)
     if dev is None:
         return bsr_spmm_acc_plain(b, x, init)
     out = _launch(b, x, dev, "bsr_spmm_acc", "fitgnn_bsr_spmm_acc",
                   _ARGS_ACC, [x, init])
-    bsr_spmm_acc.launches += 1
+    kernels.count(bsr_spmm_acc, b.blocks)
     return out
 
 
 def bsr_spmm_fwd(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """K2: ``A·x`` from zero on the grid-walk layout, by the walk of each
     tile's non-zeros; a coverage filler costs only its read."""
-    if b.rowwalk or b.group > 1:
+    if b.rowwalk or b.einsum or b.group > 1:
         raise ValueError("bsr_spmm_fwd: K2 walks the grid-walk layout, got "
-                         f"rowwalk={b.rowwalk} group={b.group}")
+                         f"rowwalk={b.rowwalk} einsum={b.einsum} "
+                         f"group={b.group}")
     dev = _operands(b, x, "bsr_spmm_fwd")
     if dev is None:
         return bsr_spmm_plain(b, x)
     out = _launch(b, x, dev, "bsr_spmm_fwd", "fitgnn_bsr_spmm", _ARGS_FWD,
                   [x])
-    bsr_spmm_fwd.launches += 1
+    kernels.count(bsr_spmm_fwd, b.blocks)
     return out
 
 
@@ -250,39 +311,43 @@ def bsr_spmm_grouped(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """K9: ``A·x`` from zero on the group-padded layout.  The kernel walks
     each tile's non-zeros and the padded run as a plain run: a zero pad
     costs only its read, and the group is not passed."""
-    if b.rowwalk or b.group < 2:
+    if b.rowwalk or b.einsum or b.group < 2:
         raise ValueError("bsr_spmm_grouped: K9 walks the group-padded "
-                         f"layout, got rowwalk={b.rowwalk} group={b.group}")
+                         f"layout, got rowwalk={b.rowwalk} "
+                         f"einsum={b.einsum} group={b.group}")
     dev = _operands(b, x, "bsr_spmm_grouped")
     if dev is None:
         return bsr_spmm_plain(b, x)
     out = _launch(b, x, dev, "bsr_spmm_grouped", "fitgnn_bsr_spmm_grouped",
                   _ARGS_FWD, [x])
-    bsr_spmm_grouped.launches += 1
+    kernels.count(bsr_spmm_grouped, b.blocks)
     return out
 
 
 def bsr_spmm_rowwalk(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """K10: ``A·x`` from zero on the row-walk layout, by the walk of each
     tile's non-zeros; a block row without tiles comes out zero."""
-    if not b.rowwalk:
+    if not b.rowwalk or b.einsum:
         raise ValueError("bsr_spmm_rowwalk: K10 walks the row-walk layout")
     dev = _operands(b, x, "bsr_spmm_rowwalk")
     if dev is None:
         return bsr_spmm_plain(b, x)
     out = _launch(b, x, dev, "bsr_spmm_rowwalk", "fitgnn_bsr_spmm_rowwalk",
                   _ARGS_FWD, [x])
-    bsr_spmm_rowwalk.launches += 1
+    kernels.count(bsr_spmm_rowwalk, b.blocks)
     return out
 
 
 for _fn in (bsr_spmm_acc, bsr_spmm_fwd, bsr_spmm_grouped, bsr_spmm_rowwalk):
-    _fn.launches = 0
+    _fn.launches = _fn.launches_bf16 = 0
 
 
 def bsr_spmm_raw(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
-    """``A·x`` by the layout, as the JAX package's ``_fwd_dispatch``: K10
-    for the row walk, K9 for ``group > 1``, K2 otherwise.  No autograd."""
+    """``A·x`` by the layout, as the JAX package's ``_fwd_dispatch``: the
+    einsum for the einsum layout, K10 for the row walk, K9 for ``group >
+    1``, K2 otherwise.  No autograd."""
+    if b.einsum:
+        return bsr_spmm_einsum(b, x)
     if b.rowwalk:
         return bsr_spmm_rowwalk(b, x)
     if b.group > 1:

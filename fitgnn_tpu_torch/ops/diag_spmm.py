@@ -18,7 +18,13 @@ here too, though the CUDA grid does not follow it.
 * On a CPU tensor it runs the plain version ``diag_spmm_plain``: one
   batched matmul over the (nb, 128, F) views.
 
-``diag_spmm.launches`` counts kernel launches.  No autograd: the hybrid
+bf16 blocks (the JAX package's ``tile_dtype=bfloat16``): ``x`` is rounded
+to bf16 in both orientations, as the TPU kernel casts it, and the exact
+bf16 × bf16 products are summed in f32 (``init`` stays f32); the kernel is
+the walk's bf16 form (``fitgnn_diag_spmm_bf16``).
+
+``diag_spmm.launches`` counts kernel launches on f32 blocks,
+``diag_spmm.launches_bf16`` on bf16 blocks.  No autograd: the hybrid
 operator differentiates through its transpose chain.
 """
 
@@ -57,10 +63,13 @@ def _check(blocks: torch.Tensor, x: torch.Tensor, r: int,
 def diag_spmm_plain(blocks: torch.Tensor, x: torch.Tensor, r: int,
                     transpose: bool = False,
                     init: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch K8: a batched matmul over the (nb, 128, F) views."""
+    """Plain PyTorch K8: a batched matmul over the (nb, 128, F) views (x
+    rounded to bf16 first on bf16 blocks)."""
     _check(blocks, x, r, init)
     nb, b, _ = blocks.shape
     a = blocks.to(x.dtype)
+    if blocks.dtype == torch.bfloat16:
+        x = x.to(torch.bfloat16).to(a.dtype)
     out = torch.bmm(a.transpose(1, 2) if transpose else a,
                     x.reshape(nb, b, -1)).reshape(x.shape)
     return out if init is None else out + init
@@ -86,21 +95,24 @@ def diag_spmm(blocks: torch.Tensor, x: torch.Tensor, r: int,
                          f"{blocks.shape[1]}")
     dev = x.device
     kernels.require(x, "x", torch.float32, dev)
-    kernels.require(blocks, "blocks", torch.float32, dev)
+    kernels.require(blocks, "blocks",
+                    torch.bfloat16 if blocks.dtype == torch.bfloat16
+                    else torch.float32, dev)
     if init is not None:
         kernels.require(init, "init", torch.float32, dev)
     if blocks.data_ptr() % 16:
         raise ValueError("diag_spmm: blocks must be 16-byte aligned")
     out = torch.empty_like(x)
-    launch = kernels.function("diag_spmm", "fitgnn_diag_spmm", _ARGTYPES)
+    launch = kernels.function(
+        "diag_spmm", kernels.entry("fitgnn_diag_spmm", blocks), _ARGTYPES)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(blocks), kernels.ptr(x),
                     None if init is None else kernels.ptr(init),
                     kernels.ptr(out), blocks.shape[0], x.shape[1],
                     int(transpose), kernels.stream(dev))
     kernels.check(rc, "diag_spmm")
-    diag_spmm.launches += 1
+    kernels.count(diag_spmm, blocks)
     return out
 
 
-diag_spmm.launches = 0
+diag_spmm.launches = diag_spmm.launches_bf16 = 0

@@ -29,9 +29,19 @@ The JAX package's tile opt-ins, dispatched as its ``_hybrid_spmm_main``:
   a diagonal, if any, by the batched matmul.
 * a BCSR built without its transpose (forward only) takes the straggler
   part plus ``bsr_spmm`` (K2 on the grid-walk layout).
+* ``tile_dtype=torch.bfloat16``: the tiles and the diagonal blocks are
+  stored in bf16 and every walk takes its bf16 form (``ops/bsr_spmm.py``,
+  ``ops/diag_spmm.py``); the diagonal's batched matmul then runs in bf16,
+  as the JAX package's einsum does.
+* ``use_einsum_tiles``: the BCSR's einsum layout (plain PyTorch, as the
+  JAX package's XLA einsum); like the row walk and the grouped layout, it
+  takes no part in the diagonal chain, and K1's fused add becomes a
+  separate one.  Under ``att_unit`` it has no dynamic-tile plan, as in the
+  JAX package, so GAT's tiles take the einsum branch of ``ops/tile_gat.py``.
 
 ``att_unit`` (GATConv) refuses ``use_diag``, ``use_rowwalk`` and
-``tile_group > 1``: its tile attention walks the grid-walk tiles only.
+``tile_group > 1``: its tile attention walks the grid-walk tiles (or the
+einsum layout's) only.
 """
 
 from __future__ import annotations
@@ -44,7 +54,8 @@ import torch
 
 from fitgnn_tpu_torch.ops.bsr_dynamic import DynPlan, build_dyn_plan
 from fitgnn_tpu_torch.ops.bsr_spmm import (BLOCK, BsrMatrix, build_bsr,
-                                           bsr_spmm, bsr_spmm_acc)
+                                           bsr_spmm, bsr_spmm_acc,
+                                           check_tile_dtype)
 from fitgnn_tpu_torch.ops.coo_segmm import SegCsr, build_segmm, segmm_spmm
 from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm, pick_run_length
 from fitgnn_tpu_torch.ops.spmm import spmm_coo
@@ -69,7 +80,8 @@ class HybridSpmm:
     dyn_plan: Optional[DynPlan] = None  # walk plan of dynamic tile values
                                        # (GAT attention); att_unit only
     diag_blocks: Optional[torch.Tensor] = None  # (NB, 128, 128) dense
-                                       # block-diagonal tiles (use_diag)
+                                       # block-diagonal tiles (use_diag),
+                                       # f32 or bf16 as the BCSR's
     diag_r: int = 0                    # > 0: the diagonal runs through K8
                                        # (the TPU's blocks per grid step);
                                        # 0: a batched matmul
@@ -98,19 +110,19 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                  cluster_agg: int = 0,
                  cluster_agg_exact: int = 0) -> HybridSpmm:
     """Split edges by tile occupancy and build both structures (host-side),
-    as the JAX package's ``build_hybrid`` does, with its ``use_diag`` /
-    ``diag_r`` (``None`` → ``pick_run_length(nb)``), ``use_rowwalk`` and
-    ``tile_group``.
+    as the JAX package's ``build_hybrid`` does, with its ``tile_dtype``
+    (``None`` or ``torch.bfloat16``), ``use_diag`` / ``diag_r`` (``None``
+    → ``pick_run_length(nb)``), ``use_rowwalk``, ``tile_group`` and
+    ``use_einsum_tiles``.
 
-    ``use_einsum_tiles``, bf16 ``tile_dtype`` and ``cluster_att`` /
-    ``cluster_agg`` with their ``_exact`` splits are not ported yet and
-    raise ``NotImplementedError`` (ROADMAP.md §1 item 2); so do
-    ``use_diag``, ``use_rowwalk`` and ``tile_group > 1`` under
+    ``cluster_att`` / ``cluster_agg`` with their ``_exact`` splits are not
+    ported yet and raise ``NotImplementedError`` (ROADMAP.md §1 item 2); so
+    do ``use_diag``, ``use_rowwalk`` and ``tile_group > 1`` under
     ``att_unit`` (ROADMAP.md §1 item 3)."""
-    opt_ins = dict(use_einsum_tiles=use_einsum_tiles,
-                   tile_dtype=tile_dtype is not None,
-                   cluster_att=cluster_att, cluster_att_exact=cluster_att_exact,
-                   cluster_agg=cluster_agg, cluster_agg_exact=cluster_agg_exact)
+    opt_ins = dict(cluster_att=cluster_att,
+                   cluster_att_exact=cluster_att_exact,
+                   cluster_agg=cluster_agg,
+                   cluster_agg_exact=cluster_agg_exact)
     asked = [k for k, v in opt_ins.items() if v]
     if asked:
         raise NotImplementedError(
@@ -122,6 +134,7 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
             "build_hybrid: use_diag, use_rowwalk and tile_group > 1 under "
             "att_unit (GATConv's tile attention) are not ported yet "
             "(ROADMAP.md §1 item 3)")
+    check_tile_dtype(tile_dtype)
     block = BLOCK
     if num_nodes_padded % block:
         raise ValueError(f"num_nodes_padded={num_nodes_padded} is not a "
@@ -146,14 +159,17 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                            receivers[on_diag] % block,
                            senders[on_diag] % block), weight[on_diag])
             diag_blocks = torch.from_numpy(db)
+            if tile_dtype is not None:
+                diag_blocks = diag_blocks.to(tile_dtype)
             diag_r_val = pick_run_length(nb) if diag_r is None else diag_r
 
     bsr = None
     tiled = dense & ~on_diag
     if tiled.any():
         bsr = build_bsr(senders[tiled], receivers[tiled], weight[tiled],
-                        num_nodes_padded, rowwalk=use_rowwalk,
-                        group=tile_group)
+                        num_nodes_padded, tile_dtype=tile_dtype,
+                        rowwalk=use_rowwalk,
+                        group=tile_group, einsum=use_einsum_tiles)
 
     cs, cr, cw = senders[~dense], receivers[~dense], weight[~dense]
     if len(cs) == 0:  # one weight-0 edge on the pad node keeps shapes whole
@@ -175,9 +191,9 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                               num_nodes_padded)
 
     dyn_plan = None
-    if semantics == "att_unit" and bsr is not None:
+    if semantics == "att_unit" and bsr is not None and not bsr.einsum:
         # the grid-walk tile order: rows sorted with coverage fillers, whose
-        # zero masks give zero attention tiles
+        # zero masks give zero attention tiles (the einsum layout has none)
         dyn_plan = build_dyn_plan(bsr.rows.numpy(), bsr.cols.numpy(),
                                   bsr.num_row_blocks)
 
@@ -225,8 +241,8 @@ class _CooPart(torch.autograd.Function):
 
 class _FusedCore(torch.autograd.Function):
     """Stragglers, then the tiles accumulating on their output (K3 → K1, or
-    K3 + K9/K10 on their layouts); the backward runs the same chain on the
-    transpose structures."""
+    K3 + K9/K10/the einsum on their layouts); the backward runs the same
+    chain on the transpose structures."""
 
     @staticmethod
     def forward(ctx, h, x):
@@ -268,10 +284,11 @@ class _FusedCoreDiag(torch.autograd.Function):
 
 def _diag_bmm(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """diag(A)·x as one batched matmul over the (nb, 128, F) views (the
-    JAX package's XLA einsum branch); autograd gives its transpose."""
+    JAX package's XLA einsum branch: on bf16 blocks x is cast to bf16 and
+    the product comes out in bf16); autograd gives its transpose."""
     nb, b, _ = blocks.shape
-    return torch.bmm(blocks.to(x.dtype), x.reshape(nb, b, -1)).reshape(
-        x.shape)
+    xb = x.to(blocks.dtype).reshape(nb, b, -1)
+    return torch.bmm(blocks, xb).reshape(x.shape).to(x.dtype)
 
 
 def hybrid_spmm(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
@@ -279,16 +296,17 @@ def hybrid_spmm(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
     condition as the JAX package's ``_hybrid_spmm_main``: the diagonal chain
     (K3 → K8 → K1) when the operator has diagonal blocks with ``diag_r >
     0`` and its BCSR (if any) has a transpose on the grid-walk layout;
-    else the fused core (K3 → K1, or K3 + K9/K10), or, without a transpose
-    BCSR, the straggler part plus ``bsr_spmm`` (K2/K9/K10); then the
-    diagonal, if any, by a batched matmul.  A backward runs only for an
-    ``x`` that needs a gradient (GCN's layer 0 aggregates the raw features,
-    which do not)."""
+    else the fused core (K3 → K1, or K3 + K9/K10/the einsum), or, without
+    a transpose BCSR, the straggler part plus ``bsr_spmm`` (K2/K9/K10/the
+    einsum); then the diagonal, if any, by a batched matmul.  A backward
+    runs only for an ``x`` that needs a gradient (GCN's layer 0 aggregates
+    the raw features, which do not)."""
     x = x.contiguous()
     b = h.bsr
     if (h.diag_blocks is not None and h.diag_r > 0
             and (b is None or b.transpose is not None)
-            and not (b is not None and (b.rowwalk or b.group > 1))):
+            and not (b is not None and (b.rowwalk or b.einsum
+                                        or b.group > 1))):
         return _FusedCoreDiag.apply(h, x)
     if b is not None and b.transpose is not None:
         out = _FusedCore.apply(h, x)

@@ -83,6 +83,20 @@ def check(rc: int, what: str) -> None:
                            f"{rc}")
 
 
+def entry(name: str, tiles: torch.Tensor) -> str:
+    """C entry ``name``, or its ``_bf16`` twin for bf16 tiles."""
+    return name + "_bf16" if tiles.dtype == torch.bfloat16 else name
+
+
+def count(fn, tiles: torch.Tensor) -> None:
+    """One launch of wrapper ``fn``'s form for the tiles' type: counted in
+    ``fn.launches_bf16`` for bf16 tiles, else in ``fn.launches``."""
+    if tiles.dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
             device: torch.device) -> None:
     """Validate an operand before its pointer goes to a kernel."""

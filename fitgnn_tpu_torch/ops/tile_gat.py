@@ -34,8 +34,13 @@ arguments are not ported: they raise ``NotImplementedError`` rather than
 run the default branch in their place.  Under ``att_unit``
 ``build_hybrid`` refuses ``use_diag``, ``use_rowwalk`` and ``tile_group >
 1`` (and, for every semantics, the cluster opt-ins), so the tiles here are
-in the grid-walk layout and neither ``diag_blocks`` nor ``cluster_count``
-reaches this module.
+in the grid-walk layout or the einsum layout, and neither ``diag_blocks``
+nor ``cluster_count`` reaches this module.  The tiles may be bf16
+(``tile_dtype=torch.bfloat16``): they are the 0/1 mask, so the scores and
+``pe`` stay f32 and only the kernels' tile loads change.  The einsum
+layout has no dynamic-tile plan, so its tiles take the JAX package's XLA
+branch: a batched matmul of ``pe`` and the gathered slabs and a sum over
+block rows, in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -196,7 +201,8 @@ def tiles_two_stage(slope: float, rows, cols, plan, blocks, ssrc, sdst, m,
                     x) -> tuple:
     """The tiles' ``(num, den)`` in two stages (``att_tiles``'s contract):
     the (K, b, b) numerators ``pe`` materialised in PyTorch, then K4's
-    dynamic-tile walk and a row sum."""
+    dynamic-tile walk (with no plan, on the einsum layout: a batched matmul
+    and a sum over block rows) and a row sum."""
     nb = x.shape[0] // BLOCK
     mask = blocks > 0                               # static adjacency
     ssrc_t = ssrc.reshape(nb, BLOCK)[cols.long()]   # (K,b) sender scores
@@ -208,5 +214,11 @@ def tiles_two_stage(slope: float, rows, cols, plan, blocks, ssrc, sdst, m,
                                  slope), _NEG)
     mrow = m.reshape(nb, BLOCK)[rows.long()]        # (K,b)
     pe = torch.where(mask, torch.exp(e - mrow[:, :, None]), 0.0)
-    num = bsr_spmm_dyn(rows, cols, plan, pe.to(x.dtype), x)
+    if plan is None:
+        slabs = x.reshape(nb, BLOCK, -1).index_select(0, cols.long())
+        num = torch.zeros((nb, BLOCK, x.shape[1]), dtype=x.dtype,
+                          device=x.device).index_add_(
+            0, rows.long(), torch.bmm(pe.to(x.dtype), slabs)).reshape(x.shape)
+    else:
+        num = bsr_spmm_dyn(rows, cols, plan, pe.to(x.dtype), x)
     return num, segment_sum(pe.sum(dim=2), rows, nb).reshape(-1)

@@ -5,7 +5,17 @@ Both are host numpy/scipy, so the partitions must be equal and the
 matrices equal within rtol 1e-10.  The port has no networkx: its maximal
 cliques are held against networkx here (the sandbox has it), clique for
 clique and in the same order.
+
+The JAX package builds its native cores (the blossom and the variation
+core) in place at first use, with no lock, and quietly takes another path
+(networkx's blossom, which breaks ties otherwise, or the Python variation
+loop) when the library does not load, as when another test process has
+created it and not yet written it.  The tests whose reference runs a
+native core have it build its own copy under ``tmp_path`` and fail unless
+it loads.
 """
+
+import os
 
 import networkx as nx
 import numpy as np
@@ -13,6 +23,8 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+import fitgnn_tpu.coarsen.native_blossom as jax_native_blossom
+import fitgnn_tpu.coarsen.native_variation as jax_native_variation
 from fitgnn_tpu.coarsen import METHODS as JAX_METHODS
 from fitgnn_tpu.coarsen import coarsen as jax_coarsen
 from fitgnn_tpu.coarsen import quality as jax_quality
@@ -54,6 +66,21 @@ def assert_same(a, b):
                                    atol=0)
 
 
+@pytest.fixture
+def jax_native(monkeypatch, tmp_path):
+    """Builds a JAX native core module's library privately under
+    ``tmp_path`` (no other process writes it) and asserts that it loads,
+    so that the reference cannot fall back silently."""
+    def build(mod):
+        monkeypatch.setattr(mod, "_SO_DIR", str(tmp_path))
+        monkeypatch.setattr(mod, "_SO", str(tmp_path / os.path.basename(
+            mod._SO)))
+        monkeypatch.setattr(mod, "_lib_handle", None)
+        monkeypatch.setattr(mod, "_build_failed", False)
+        assert mod.native_available(), f"{mod.__name__} did not load"
+    return build
+
+
 def test_methods_are_the_jax_packages():
     assert METHODS == JAX_METHODS and len(METHODS) == 14
 
@@ -67,8 +94,9 @@ def test_coarsen_matches_jax(method):
     assert got.num_coarse < 220
 
 
-def test_native_variation_branch_matches_jax():
+def test_native_variation_branch_matches_jax(jax_native):
     """Above 3,000 nodes variation_neighborhoods takes the C++ core."""
+    jax_native(jax_native_variation)
     W = community_w(3_200, deg=3, block=64, seed=2)
     assert W.shape[0] > core.NATIVE_VARIATION_MIN_NODES
     got = coarsen(W, r=0.5, method="variation_neighborhoods", K=6)
@@ -79,7 +107,8 @@ def test_native_variation_branch_matches_jax():
 
 @pytest.mark.parametrize("method", ["heavy_edge", "variation_edges",
                                     "algebraic_JC"])
-def test_optimal_matching_runs_the_native_blossom(method):
+def test_optimal_matching_runs_the_native_blossom(jax_native, method):
+    jax_native(jax_native_blossom)
     W = community_w(160, seed=3)
     got = coarsen(W, r=0.4, method=method, K=8, algorithm="optimal")
     ref = jax_coarsen(W, r=0.4, method=method, K=8, algorithm="optimal")

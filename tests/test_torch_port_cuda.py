@@ -7,6 +7,8 @@ the card at the bench graph's shapes.  Tolerance: rtol 1e-4 and atol
 card are held against the plain versions on the CPU the same way.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1074,3 +1076,180 @@ def test_fused_dropout_step_on_card(cuda, monkeypatch):
     _close(loss_k, loss_p)
     for k, v in grads_p.items():
         _close(grads_k[k], v)
+
+
+# --- bf16 tiles (train --hybrid_bf16_tiles) -------------------------------
+
+_BF16_WALKS = ("K1", "K2", "K9", "K10", *_DIAG_WALKS)
+
+
+def _bf16_nan_equal(a, b):
+    """Bit-equal, NaN where the other is NaN."""
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+@pytest.mark.parametrize("feat,aligned", [(16, True), (101, True),
+                                          (128, True), (512, True),
+                                          (64, False)])
+@pytest.mark.parametrize("case", ["sparse", "dense", "zero_inside", "nan"])
+@pytest.mark.parametrize("kernel", _BF16_WALKS)
+def test_bf16_walks_match_plain(cuda, kernel, case, feat, aligned):
+    """The walk's bf16 forms of K1, K2, K9, K10 and K8 (both orientations,
+    from init and from zero) in the cases of
+    ``test_nonzero_walks_match_plain``: against their plain versions on the
+    same bf16 tiles; bit for bit against the f32 walk on the tiles widened
+    to f32 and x as the form multiplies it (rounded to bf16, except by K10);
+    measurably apart from the other rounding rule; the rows that no
+    non-zero reaches come out as init or zero; counted in
+    ``launches_bf16`` alone."""
+    rng = np.random.default_rng(feat + 40)
+    ops, dense_block, nan_row, zero_block = _walk_operands(rng, kernel,
+                                                           case)
+    n = 1024 if kernel in _BCSR_WALKS else 6 * 128
+    x = torch.from_numpy(rng.standard_normal((n, feat)).astype(
+        np.float32)).to(cuda)
+    xd = x if aligned else _unaligned(x)
+    rounded = x.to(torch.bfloat16).float()
+    walk, plain = _NONZERO_WALKS[kernel]
+    base = torch.zeros_like(x)
+    if kernel in _DIAG_WALKS:
+        transpose, with_init = _DIAG_WALKS[kernel]
+        if with_init:
+            base = torch.from_numpy(rng.standard_normal((n, feat)).astype(
+                np.float32)).to(cuda)
+        tiles = ops.to(cuda).to(torch.bfloat16)
+
+        def args(t, xx):
+            return (t, xx, 3, transpose, base if with_init else None)
+
+        wide = tiles.float()
+    else:
+        b = ops.to(cuda)
+        if kernel == "K1":
+            base = torch.from_numpy(rng.standard_normal((n, feat)).astype(
+                np.float32)).to(cuda)
+
+        def args(t, xx):
+            return (t, xx) + ((base,) if kernel == "K1" else ())
+
+        tiles = dataclasses.replace(b, blocks=b.blocks.to(torch.bfloat16))
+        wide = dataclasses.replace(b, blocks=tiles.blocks.float())
+    right, wrong = (x, rounded) if kernel == "K10" else (rounded, x)
+    before = (walk.launches, walk.launches_bf16)
+    with torch.inference_mode():
+        got = walk(*args(tiles, xd))
+        ref = plain(*args(tiles, xd))
+        f32_walk = walk(*args(wide, right))
+        other_rule = plain(*args(wide, wrong))
+    torch.cuda.synchronize()
+    assert (walk.launches, walk.launches_bf16) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert _bf16_nan_equal(got, f32_walk)
+    nan = ref.isnan()
+    if nan_row is None:
+        _close(got, ref)
+        atol = 1e-4 * float(ref.abs().max())
+        assert float((got - other_rule).abs().max()) > 10 * atol
+    else:
+        assert nan.any(1).nonzero().flatten().tolist() == [nan_row]
+        assert torch.equal(got.isnan(), nan)
+        keep = ~nan.any(1)
+        _close(got[keep], ref[keep])
+    if zero_block is not None:
+        rows = slice(zero_block * 128, (zero_block + 1) * 128)
+        assert torch.equal(got[rows], base[rows])
+    empty = torch.cat([torch.arange(r * 128, r * 128 + 10)
+                       for r in range(n // 128) if r != dense_block])
+    assert torch.equal(got[empty.to(cuda)], base[empty.to(cuda)])
+
+
+@pytest.mark.parametrize("feat", [16, 101, 128, 512])
+@pytest.mark.parametrize("case", ["sparse", "dense", "zero_inside",
+                                  "edgeless", "inf_unreached", "nan"])
+@pytest.mark.parametrize("kernel", ["K7f", "K7bt"])
+def test_bf16_k7_walks_match_f32(cuda, kernel, case, feat):
+    """K7f and K7bt's ``dx`` on bf16 masks, in the cases of
+    ``test_k7_walks_match_plain``: bit for bit the f32 forms' results on
+    the same 0/1 tiles (the mask is exact in bf16, and pe and x stay f32),
+    within tolerance of the plain version on the bf16 tiles, with the walk's
+    divergence where an inf is reached only by masked-out entries; counted
+    in ``launches_bf16`` alone."""
+    rng = np.random.default_rng(feat + 50)
+    plan, ops, row = _k7_walk_operands(rng, kernel, case, feat)
+    plan = plan.to(cuda)
+    d = {k: v.to(cuda) for k, v in ops.items()}
+    bf = d["blocks"].to(torch.bfloat16)
+    if kernel == "K7f":
+        def run(fn, blocks, x):
+            num, den = fn(d["rows"], d["cols"], plan, blocks, d["ssrc"],
+                          d["sdst"], d["m"], x, 0.2)
+            return torch.cat([num, den[:, None]], 1)
+
+        walk, plain = att_bsr.att_fwd, att_bsr.att_fwd_plain
+    else:
+        def run(fn, blocks, g):
+            return fn(plan, blocks, d["ssrc"], d["sdst"], d["m"], g,
+                      d["x_other"], d["dden"], 0.2, need_dssrc=False)[0]
+
+        walk, plain = att_bsr.att_bwd_t, att_bsr.att_bwd_t_plain
+    before = (walk.launches, walk.launches_bf16)
+    with torch.inference_mode():
+        got = run(walk, bf, d["x"])
+        f32 = run(walk, d["blocks"], d["x"])
+        x_ref = d["x"]
+        if case == "inf_unreached":
+            x_ref = d["x"].clone()
+            x_ref[row] = 0.0
+        ref = run(plain, bf, x_ref)
+    torch.cuda.synchronize()
+    assert (walk.launches, walk.launches_bf16) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert _bf16_nan_equal(got, f32)
+    if case == "nan":
+        keep = ~ref.isnan().any(1)
+        assert ref.isnan().any(1).nonzero().flatten().tolist() == [row]
+        _close(got[keep], ref[keep])
+    else:
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("feat", [16, 101, 128, 512])
+@pytest.mark.parametrize("case", ["sparse", "full", "inf_unreached"])
+def test_bf16_k7_rowmax_and_score_pass_match_f32(cuda, case, feat):
+    """K7rm and the score pass (``att_bwd_scores``, then ``att_sums``) on
+    bf16 tiles: only the mask is read, so each equals its f32 form on the
+    same tiles bit for bit, and the plain version within tolerance (an inf
+    that no entry reaches stays out of the sums); counted in
+    ``launches_bf16`` (K7sums, which reads no tile, in ``launches``)."""
+    rng = np.random.default_rng(feat + 60)
+    plan, d = _score_operands(rng, feat, cuda, full=case == "full")
+    if case == "inf_unreached":
+        d["g"][3, 0] = float("inf")
+        d["blocks"][8, :, 5] = 0.0
+        d["x"][7 * 128 + 5, feat // 2] = float("-inf")
+    bf = d["blocks"].to(torch.bfloat16)
+
+    def args(blocks):
+        return (d["rows"], d["cols"], plan, blocks, d["ssrc"], d["sdst"],
+                d["m"], d["g"], d["x"], d["dden"], 0.2)
+
+    fwd = (d["rows"], d["cols"], plan)
+    counted = (att_bsr.att_rowmax, att_bsr.att_bwd_scores)
+    before = [(f.launches, f.launches_bf16) for f in counted]
+    sums = att_bsr.att_sums.launches
+    with torch.inference_mode():
+        rm = att_bsr.att_rowmax(*fwd, bf, d["ssrc"], d["sdst"], 0.2)
+        rm32 = att_bsr.att_rowmax(*fwd, d["blocks"], d["ssrc"], d["sdst"],
+                                  0.2)
+        got = att_bsr.att_bwd_scores(*args(bf))
+        f32 = att_bsr.att_bwd_scores(*args(d["blocks"]))
+        ref = att_bsr.att_bwd_scores_plain(*args(bf))
+    torch.cuda.synchronize()
+    assert [(f.launches, f.launches_bf16) for f in counted] == [
+        (a + 1, b + 1) for a, b in before]
+    assert att_bsr.att_sums.launches == sums + 2
+    assert torch.equal(rm, rm32) and torch.equal(rm, d["m"])
+    for a, b, c in zip(got, f32, ref):
+        assert _bf16_nan_equal(a, b)
+        _close(a, c)

@@ -238,15 +238,18 @@ def test_hybrid_without_tiles_matches_jax():
         np.asarray(jax_hybrid_spmm(hj, jnp.asarray(x))), **TOL)
 
 
-# the tile opt-ins of the GCN operator are ported; under GATConv's
-# att_unit semantics they still raise
+# the tile opt-ins of the GCN operator are ported (bf16 tiles and the
+# einsum layout too); under GATConv's att_unit semantics use_diag,
+# use_rowwalk and tile_group > 1 still raise, and so do the cluster
+# collapses and tiles of another type
 @pytest.mark.parametrize("opt_in", [dict(use_diag=True, semantics="att_unit"),
                                     dict(use_rowwalk=True,
                                          semantics="att_unit"),
-                                    dict(use_einsum_tiles=True),
+                                    dict(cluster_att=128,
+                                         semantics="att_unit"),
                                     dict(tile_group=2, semantics="att_unit"),
                                     dict(cluster_agg=128),
-                                    dict(tile_dtype="bfloat16")])
+                                    dict(tile_dtype=torch.float16)])
 def test_hybrid_opt_ins_raise(opt_in):
     s, r, w = sorted_coo(np.random.default_rng(12), 256, 500)
     with pytest.raises(NotImplementedError):

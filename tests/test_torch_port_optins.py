@@ -119,8 +119,10 @@ def test_build_bsr_layouts_match_jax(layout):
         assert (np.diff(splits) % bt.group == 0).all()
 
 
-@pytest.mark.parametrize("kw", [dict(block=256), dict(einsum=True),
-                                dict(tile_dtype="bfloat16")])
+@pytest.mark.parametrize("kw", [dict(block=256),
+                                dict(block=256, einsum=True,
+                                     tile_dtype=torch.bfloat16),
+                                dict(tile_dtype=torch.float16)])
 def test_build_bsr_unported_variants_raise(kw):
     s, r, w = sorted_coo(np.random.default_rng(2), 512, 1000)
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):

@@ -53,6 +53,28 @@ def test_walk_args_reads_flags_and_hook(trans, init, diag, hook, vec):
         trans, init, diag, hook.split("::")[-1])
 
 
+@pytest.mark.parametrize("tile,round_x", [("float", "false"),
+                                          ("__nv_bfloat16", "true"),
+                                          ("__nv_bfloat16", "false")])
+@pytest.mark.parametrize("trans,init,diag,hook", [
+    (False, False, False, "att::FwdScores"),
+    (True, False, False, "att::DxScores"),
+    (False, True, False, "sparse::Plain"),
+    (True, True, True, "sparse::Plain")])
+def test_walk_args_reads_the_tile_type_forms(trans, init, diag, hook, tile,
+                                             round_x):
+    """The walk's names as ``nvcc`` gives them, with the tile type and
+    ROUND_X after the hook (f32 and the bf16 forms), read as the same
+    flags and hook, and grouped as the name without them."""
+    name = _walk(trans, init, True, diag, hook).replace(
+        f"{hook}>", f"{hook}, {tile}, {round_x}>", 1)
+    assert f", {tile}, {round_x}>" in name
+    assert walk_args(name) == (trans, init, diag, hook.split("::")[-1])
+    rows_walk = _train.K1 if init else "K4 dyn_tiles"
+    assert _train._group(name, rows_walk) == _train._group(
+        _walk(trans, init, True, diag, hook), rows_walk)
+
+
 @pytest.mark.parametrize("name", [
     "void (anonymous namespace)::att_scores_kernel<true>(float const*)",
     "void (anonymous namespace)::att_sums_kernel(float const*)"])

@@ -316,7 +316,7 @@ def test_train_baseline_node_reg(toy):
     ["--num_devices", "2"], ["--baseline", "--num_devices", "2"],
     ["--baseline", "--cluster_attention", "128"],
     ["--baseline", "--cluster_aggregation", "128"],
-    ["--baseline", "--hybrid_bf16_tiles"],
+    ["--cluster_attention_exact", "4"],
     ["--baseline", "--auto_config"], ["--baseline", "--resume"],
     ["--baseline", "--checkpoint_every", "5"],
     ["--baseline", "--task", "graph_cls"]])
