@@ -169,8 +169,27 @@ Phases (any failure exits non-zero before the result lines):
    launches; best losses beside the f32 runs' of phases 6 and 10), and
    the curriculum ``train`` GD for 1 + 1 epochs on phase 8's cached
    partition (Gc on bf16 tiles);
-12. one JSON line with every kernel's numbers, the bf16 forms as their
-   own entries (launches summed over the main-path phases 5 to 11, per
+12. the cluster collapse and the ingest planner (``phase_cluster_*``):
+   the bench graph's operators under ``cluster_agg`` 2048 (GCN), with
+   ``cluster_agg_exact`` 4096, and under ``cluster_att`` 2048 (GAT), each
+   with its N_pad (169,984), C, tiles, stragglers, table entries and the
+   table's type and MiB; the static term on the card against float64 on
+   the host; one training step on each (hidden 512, dropout off, seed-0
+   init: GCN on the static operators, GAT on the attention one under the
+   default switches and under ``FUSED_TILES=1 SEGMM_DEN=1 GLOBAL_MAX=0``,
+   whose exact max folds the summary rows) with kernels and with the plain
+   versions (the loss and every gradient), launching phase 4's counts (the
+   collapse launches none of the port's kernels); then through the CLI,
+   every counter at 0 just before each run: ``train --baseline
+   --cluster_aggregation 2048`` (GCN) and ``--cluster_attention 2048``
+   (GAT) for 2 epochs, ``train --baseline --auto_config`` (GCN; the
+   planner's pick and predicted ms), and the curriculum ``train`` GD for 1
+   + 1 epochs with ``--cluster_aggregation 2048 --fused_epochs`` on phase
+   8's cached partition (the fused Gc phase under
+   ``set_sync_debug_mode("error")``), each with its launches and a finite
+   row;
+13. one JSON line with every kernel's numbers, the bf16 forms as their
+   own entries (launches summed over the main-path phases 5 to 12, per
    phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and K7sums with
    their ``ptxas`` register and spill counts), then the ``ok`` line.
 
@@ -3166,6 +3185,230 @@ def phase_bf16_cli(tmp) -> dict:
     return phases
 
 
+# --- phase 12: the cluster collapse and the ingest planner -----------------
+
+CLUSTER_K = 2048
+# (name, layer, build_optimized_graph's collapse)
+CLUSTER_OPS = (("gcn_agg", "GCNConv", dict(cluster_agg=CLUSTER_K)),
+               ("gcn_agg_exact", "GCNConv", dict(cluster_agg=CLUSTER_K,
+                                                 cluster_agg_exact=4096)),
+               ("gat_att", "GATConv", dict(cluster_att=CLUSTER_K)))
+# the bench graph's nodes padded to a whole cluster of 2,048
+CLUSTER_N_PAD = 169_984
+CLUSTER_EPOCHS = 2
+# phase 4's fused GAT step under the exact max, which folds the summary
+# rows' max into it: K7rm in both layers beside the fused step's kernels
+STEP["GATConv fused den exact"] = {**STEP["GATConv fused"], "K7rm": 2}
+EVAL["GATConv fused den exact"] = {**EVAL["GATConv fused"], "K7rm": 2}
+MODE_ENV["GATConv fused den exact"] = {**FUSED, "FITGNN_GAT_GLOBAL_MAX": "0"}
+
+
+def cluster_operators(ds) -> dict:
+    """The bench graph's operators under ``cluster_agg`` 2048 (GCN), with
+    ``cluster_agg_exact`` 4096, and under ``cluster_att`` 2048 (GAT), at the
+    default threshold; prints each one's N_pad, C, tiles, stragglers,
+    table entries and the table's type and size."""
+    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+
+    graphs = {}
+    for name, layer, collapse in CLUSTER_OPS:
+        t0 = time.perf_counter()
+        g, _ = build_optimized_graph(ds.x, ds.senders, ds.receivers,
+                                     y=ds.y, train_mask=ds.train_mask,
+                                     layer_name=layer, seed=0, **collapse)
+        h = g.aux
+        cc = h.cluster_count
+        mib = cc.numel() * cc.element_size() / 2 ** 20
+        print(f"cluster ingest {name}: {time.perf_counter() - t0:.1f} s; "
+              f"N_pad {g.num_nodes_padded}, C {cc.shape[1]}, "
+              f"{h.bsr.nnz_blocks} tiles (with fillers), {h.num_coo_edges} "
+              f"straggler edges, {int((cc > 0).sum())} cluster entries, "
+              f"table {cc.dtype} {mib:.1f} MiB")
+        check(g.num_nodes_padded == CLUSTER_N_PAD
+              and cc.shape == (CLUSTER_N_PAD, CLUSTER_N_PAD // CLUSTER_K)
+              and h.cluster_size == CLUSTER_K,
+              f"{name}: N_pad {g.num_nodes_padded}, table {tuple(cc.shape)}")
+        check(cc.dtype == (torch.bfloat16 if layer == "GATConv"
+                           else torch.float32),
+              f"{name}: table of type {cc.dtype}")
+        exact = collapse.get("cluster_agg_exact", 0)
+        check((h.num_coo_edges > 1) == bool(exact),
+              f"{name}: {h.num_coo_edges} straggler edges left")
+        graphs[name] = g
+    return graphs
+
+
+def phase_cluster_steps(device, graphs) -> dict:
+    """On each collapsed operator one training step (hidden 512, dropout
+    off, seed-0 init) with the kernels and with the plain versions patched
+    in: the loss and every gradient, and the step's launches (the collapse
+    launches none of the port's kernels).  GCN on both static operators,
+    GAT on the attention one under the default switches and under
+    ``FUSED_TILES=1 SEGMM_DEN=1 GLOBAL_MAX=0`` (the exact max folds the
+    summary rows).  First the static term alone on the card against
+    float64 on the host."""
+    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.ops.hybrid_spmm import _cluster_static_term
+    from fitgnn_tpu_torch.train.losses import masked_nll
+
+    h = graphs["gcn_agg"].aux
+    hd = h.to(device)
+    x = torch.randn((h.num_nodes, NUM_FEATURES), device=device,
+                    generator=torch.Generator(device=device).manual_seed(12))
+    with torch.inference_mode():
+        got = _cluster_static_term(hd, x)
+    torch.cuda.synchronize()
+    xs = x.double().cpu() * h.cluster_member.double()[:, None]
+    means = (xs.reshape(-1, CLUSTER_K, NUM_FEATURES).sum(1)
+             * h.cluster_scale.double()[:, None])
+    compare("cluster_agg static term on the card vs float64",
+            got.double().cpu(), h.cluster_count.double() @ means)
+    del hd, x, got
+    phases = {}
+    for name, mode in (("gcn_agg", "GCNConv"), ("gcn_agg_exact", "GCNConv"),
+                       ("gat_att", "GATConv"),
+                       ("gat_att", "GATConv fused den exact")):
+        layer = mode.split()[0]
+        gd = graphs[name].to(device)
+        model = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                          dropout_rate=0.0)
+        model = model.reset_parameters(torch.Generator().manual_seed(0)).to(
+            device).train()
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            loss = masked_nll(model(gd.x, gd), gd.y, gd.train_mask)
+            loss.backward()
+            torch.cuda.synchronize()
+            return loss.detach(), {k: p.grad.detach().clone()
+                                   for k, p in model.named_parameters()}
+
+        what = f"cluster {name} {mode}"
+        with switches(MODE_ENV[mode]):
+            reset_counts()
+            t0 = time.perf_counter()
+            loss_k, grads_k = step()
+            secs = time.perf_counter() - t0
+            launches = read_counts()
+            expect(launches, STEP[mode], f"{what} train step")
+            phases[f"{what} step"] = launches
+            reset_counts()
+            with plain_versions():
+                loss_p, grads_p = step()
+        expect(read_counts(), {}, f"{what} train step, plain versions")
+        compare(f"{what} loss kernels vs plain", loss_k.reshape(1),
+                loss_p.reshape(1))
+        for k in grads_p:
+            compare(f"{what} grad {k}", grads_k[k], grads_p[k])
+        print(f"{what}: loss {float(loss_k):.6f}, first step {secs:.3f} s")
+        del model, gd, grads_k, grads_p
+        torch.cuda.empty_cache()
+    return phases
+
+
+def phase_cluster_cli(tmp) -> dict:
+    """Through the CLI, every counter at 0 just before each run: ``train
+    --baseline --cluster_aggregation 2048`` (GCN) and ``--cluster_attention
+    2048`` (GAT) for 2 epochs, ``train --baseline --auto_config`` (GCN; the
+    planner's pick and its predicted ms printed), each against the counts
+    per step and eval forward that phase 4 confirmed, with its CSV row;
+    then the curriculum ``train`` GD for 1 + 1 epochs with
+    ``--cluster_aggregation 2048 --fused_epochs`` on phase 8's cached
+    partition, the fused Gc phase under ``set_sync_debug_mode("error")``."""
+    from fitgnn_tpu_torch.graph import planner
+    from fitgnn_tpu_torch.partition import pipeline
+    from fitgnn_tpu_torch.train import loop, steps
+
+    phases = {}
+    plans, plan = [], planner.plan_config
+
+    def traced_plan(*args, **kwargs):
+        plans.append(plan(*args, **kwargs))
+        return plans[-1]
+
+    runs = (("gcn512agg", "GCNConv", ["--cluster_aggregation",
+                                      str(CLUSTER_K)]),
+            ("gat512att", "GATConv", ["--cluster_attention",
+                                      str(CLUSTER_K)]),
+            ("gcn512auto", "GCNConv", ["--auto_config"]))
+    for out_dir, mode, flags in runs:
+        with mock.patch.object(planner, "plan_config", traced_plan):
+            launches, _, wall = run_cli(tmp, [
+                "train", "--baseline", "--layer_name", mode, "--hidden",
+                str(HIDDEN), "--runs", "1", "--epochs1", str(CLUSTER_EPOCHS),
+                "--output_dir", out_dir, *flags])
+        want = {k: CLUSTER_EPOCHS * (STEP[mode].get(k, 0)
+                                     + EVAL[mode].get(k, 0))
+                + 2 * EVAL[mode].get(k, 0)
+                for k in (*STEP[mode], *EVAL[mode])}
+        expect(launches, want, f"train {out_dir}")
+        phases[f"train {out_dir}"] = launches
+        with open(os.path.join(tmp, "results", "baseline", "bench.csv")) as f:
+            header, *lines = f.read().splitlines()
+        row = dict(zip(header.split(","), lines[-1].split(",")))
+        loss = float(row["best_loss"])
+        check(row["layer_name"] == mode and np.isfinite(loss) and loss > 0,
+              f"train {out_dir}: bad row {lines[-1]}")
+        print(f"train {out_dir}: {wall:.1f} s; best_acc={row['best_acc']} "
+              f"best_loss={row['best_loss']} ave_time={row['ave_time']}")
+        if out_dir == "gcn512auto":
+            check(len(plans) == 1, f"the planner ran {len(plans)} times")
+            p = plans[0]
+            print(f"train {out_dir}: the planner picked threshold "
+                  f"{p.min_block_edges}, predicted {p.predicted_ms:.4f} ms "
+                  f"(48: {p.alternatives[48]:.4f} ms), cluster_k "
+                  f"{p.cluster_k}, max_buckets {p.max_buckets}, "
+                  f"chunk_budget {p.chunk_budget}")
+            check(p.min_block_edges in planner.THRESHOLD_CANDIDATES,
+                  f"planner pick {p.min_block_edges}")
+
+    results, partition, run_task = [], pipeline.coarsen_and_partition, \
+        loop.run_node_task
+    fused_fn = steps.gc_train_epochs_fused
+
+    def traced_run(cfg, coarse, batch, verbose=False):
+        res = run_task(cfg, coarse, batch, verbose=verbose)
+        results.append(res.runs[0])
+        return res
+
+    def strict_fused(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fused_fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    partitioned = []
+    with mock.patch.object(loop, "run_node_task", traced_run), \
+            mock.patch.object(steps, "gc_train_epochs_fused",
+                              strict_fused), \
+            mock.patch.object(pipeline, "coarsen_and_partition",
+                              lambda *a, **k: partitioned.append(1)
+                              or partition(*a, **k)):
+        launches, _, wall = run_cli(tmp, [
+            "train", "--layer_name", "GCNConv", "--hidden", str(HIDDEN),
+            "--exp_setup", "Gc_train_2_Gs_train", "--gradient_method", "GD",
+            "--epochs1", "1", "--epochs2", "1", "--runs", "1",
+            "--output_dir", "cur_gcnagg", "--fused_epochs",
+            "--cluster_aggregation", str(CLUSTER_K)])
+    check(not partitioned, "phase 12's curriculum did not take phase 8's "
+          "partition from the cache")
+    expect(launches, {k: STEP["GCNConv"][k] + EVAL["GCNConv"][k]
+                      for k in STEP["GCNConv"]}, "curriculum cur_gcnagg")
+    res = results[-1]
+    check(np.isfinite(res.test_loss) and res.test_loss > 0
+          and res.gc_fused_seconds is not None,
+          f"curriculum cur_gcnagg: test loss {res.test_loss}, fused "
+          f"{res.gc_fused_seconds}")
+    print(f"curriculum cur_gcnagg: {wall:.1f} s; fused Gc phase "
+          f"{res.gc_fused_seconds * 1e3:.3f} ms (1 epoch); Gs epoch s "
+          f"{[round(t, 4) for t in res.gs_epoch_seconds]} (GD); test loss "
+          f"{res.test_loss:.4f} metric {res.test_acc:.4f}")
+    phases["curriculum cur_gcnagg"] = launches
+    return phases
+
+
 def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     """One kernel's line: times and bounds summed over the shapes one step
     or forward launches it at (those not marked ``on_path: False``); errors
@@ -3351,6 +3594,11 @@ def main() -> int:
         del ops, g
         torch.cuda.empty_cache()
         phases.update(phase_bf16_cli(tmp))
+        graphs = cluster_operators(ds)
+        phases.update(phase_cluster_steps(device, graphs))
+        del graphs
+        torch.cuda.empty_cache()
+        phases.update(phase_cluster_cli(tmp))
 
     kernels_line = {"kernels": [
         summarize(label, "cuda", source, replaces,

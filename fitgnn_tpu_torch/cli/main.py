@@ -13,7 +13,14 @@ pre-aggregation under ``--preaggregate`` for GCN, SAGE and GIN) and
 ``infer-baseline`` (the full-graph inference-latency baseline).
 ``train --hybrid_bf16_tiles`` stores the hybrid operator's tiles in bf16
 on ``--baseline`` and in the curriculum's Gc phase; ``infer`` and
-``infer-baseline`` take no such flag, as in the JAX package.
+``infer-baseline`` take no such flag, as in the JAX package.  ``train
+--cluster_aggregation K`` (GCN, SAGE, GIN) and ``--cluster_attention K``
+(GAT), with their ``_exact`` splits, collapse the hybrid operator's
+stragglers onto cluster summaries on ``--baseline`` and in the Gc phase
+(approximate by design, as in the JAX package).  ``--auto_config`` on
+every subcommand sets the bucket cap and chunk budget from the graph's
+size, and on ``train`` takes the tile threshold from the ingest planner
+(``graph/planner.py``).
 ``train`` and ``infer`` take size-bucketed subgraph batches
 (``--bucket_sizes``, ``--max_buckets``); ``train`` the chunked Gs eval
 (``--eval_chunk``), the Gc phase without a host read per epoch
@@ -54,16 +61,6 @@ _NOT_PORTED = {
 _TRAIN_NOT_PORTED = (
     ("--num_devices > 1", lambda a: a.num_devices > 1,
      "ROADMAP.md §1 item 4 (distributed paths)"),
-    ("--cluster_attention", lambda a: a.cluster_attention,
-     "ROADMAP.md §1 item 2 (cluster collapse of the stragglers)"),
-    ("--cluster_attention_exact", lambda a: a.cluster_attention_exact,
-     "ROADMAP.md §1 item 2 (cluster collapse of the stragglers)"),
-    ("--cluster_aggregation", lambda a: a.cluster_aggregation,
-     "ROADMAP.md §1 item 2 (cluster collapse of the stragglers)"),
-    ("--cluster_aggregation_exact", lambda a: a.cluster_aggregation_exact,
-     "ROADMAP.md §1 item 2 (cluster collapse of the stragglers)"),
-    ("--auto_config", lambda a: a.auto_config,
-     "ROADMAP.md §1 item 2 (ingest planner)"),
 )
 
 # the resume flags under --baseline: the JAX package's baseline reads
@@ -102,9 +99,11 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--normalize_features", action="store_true",
                         help="row-wise L1 feature normalization")
         sp.add_argument("--auto_config", action="store_true",
-                        help="accepted for parity: infer-baseline ignores "
-                        "it, train raises (the ingest planner is not "
-                        "ported)")
+                        help="derive the bucket cap and chunk budget from "
+                        "the graph's size and, on train, the hybrid tile "
+                        "threshold from the ingest planner "
+                        "(graph/planner.py); on every subcommand so the "
+                        "partition cache key stays consistent")
         sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="where the model runs; cuda raises when no GPU "
                         "is visible")
@@ -150,10 +149,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="store the dense adjacency tiles in bfloat16 "
                    "(the walks' bf16 forms; x rounded to bf16 as the JAX "
                    "package rounds it, f32 accumulation)")
-    t.add_argument("--cluster_attention_exact", type=int, default=0)
-    t.add_argument("--cluster_attention", type=int, default=0)
-    t.add_argument("--cluster_aggregation", type=int, default=0)
-    t.add_argument("--cluster_aggregation_exact", type=int, default=0)
+    t.add_argument("--cluster_attention_exact", type=int, default=0,
+                   help="with --cluster_attention: the top-k straggler "
+                   "senders (by straggler out-degree) keep the exact "
+                   "per-edge attention path; only the tail collapses onto "
+                   "cluster summaries")
+    t.add_argument("--cluster_attention", type=int, default=0,
+                   help="GATConv full-graph training: collapse straggler "
+                   "edges onto their sender's cluster-summary row "
+                   "(APPROXIMATE: the reference's cluster_node idea applied "
+                   "to attention; one dense (N, C) block instead of the "
+                   "per-edge softmax). Value = nodes per cluster, multiple "
+                   "of 128; 0 = exact per-edge (default)")
+    t.add_argument("--cluster_aggregation", type=int, default=0,
+                   help="GCN/SAGE/GIN full-graph training: the static-weight "
+                   "analog of --cluster_attention: straggler edges "
+                   "aggregate their sender's cluster-mean row through one "
+                   "(N, C) product (APPROXIMATE). Value = nodes per "
+                   "cluster, multiple of 128; 0 = exact per-edge (default)")
+    t.add_argument("--cluster_aggregation_exact", type=int, default=0,
+                   help="with --cluster_aggregation: the top-k straggler "
+                   "senders (by straggler weight mass) keep the exact "
+                   "per-edge path; only the tail collapses")
     t.add_argument("--preaggregate", action="store_true",
                    help="--baseline with GCN, SAGE or GIN: aggregate layer "
                    "0's input once at ingest (exact; the checkpoint loads "
@@ -353,6 +370,32 @@ def _resolve_checkpoint(args, baseline: bool = True) -> Optional[str]:
     return None
 
 
+def _apply_auto_config(args, num_nodes: int) -> None:
+    """``--auto_config``, as the JAX package's ``_apply_auto_config``: on
+    train the tile threshold becomes ``"auto"`` (the planner picks it from
+    the reordered tile histogram inside ``build_optimized_graph`` or
+    ``optimize_coarse``); on every subcommand the bucket cap and the chunk
+    budget follow the graph's size, so that the partition and its cache key
+    are the JAX package's.  The values (2 buckets, 1<<26 elements) are the
+    JAX package's and were not measured on this card."""
+    if not getattr(args, "auto_config", False):
+        return
+    if hasattr(args, "hybrid_threshold"):        # train only
+        args.hybrid_threshold = "auto"
+    # the subgraph count is about nodes · (1 - ratio)
+    est_subgraphs = int(num_nodes
+                        * (1.0 - getattr(args, "coarsening_ratio", 0.5)))
+    big = num_nodes >= 1_000_000 or est_subgraphs >= 50_000
+    if (big and getattr(args, "bucket_sizes", False)
+            and not getattr(args, "max_buckets", 0)):
+        args.max_buckets = 2
+    if big and getattr(args, "chunk_budget", 1 << 28) == (1 << 28):
+        args.chunk_budget = 1 << 26
+    print(f"auto-config: tile threshold deferred to planner, "
+          f"max_buckets={getattr(args, 'max_buckets', 0) or 'default'}, "
+          f"chunk_budget={getattr(args, 'chunk_budget', 1 << 28)}")
+
+
 def _inference_row(args, rep, tag: str) -> int:
     from fitgnn_tpu_torch.utils import results as R
     row = R.format_row(R.INFERENCE_HEADER, {
@@ -386,6 +429,7 @@ def cmd_infer(args) -> int:
     device = resolve_device(args.device)
     _check_node_task(args)
     ds = _load_node(args)
+    _apply_auto_config(args, ds.num_nodes)
     classify = args.task == "node_cls"
     num_classes = ds.num_classes if classify else None
     train, val, test = _splits(args, ds, num_classes)
@@ -424,6 +468,7 @@ def cmd_infer_baseline(args) -> int:
     device = resolve_device(args.device)
     _check_node_task(args)
     ds = _load_node(args)
+    _apply_auto_config(args, ds.num_nodes)
     classify = args.task == "node_cls"
     num_classes = ds.num_classes if classify else None
     _, _, test = _splits(args, ds, num_classes)
@@ -463,8 +508,59 @@ def _check_node_task(args) -> None:
             "graph-level tasks are not ported yet (ROADMAP.md §1 item 4)")
 
 
+def _check_cluster_args(args) -> None:
+    """The JAX package's ``cmd_train`` refusals of the cluster flags, with
+    its messages and in its order, before any partition (the one that
+    needs the partition, a setup with no Gc phase, is in ``cmd_train``)."""
+    cl_att, cl_agg = args.cluster_attention, args.cluster_aggregation
+    if args.cluster_attention_exact and not cl_att:
+        raise SystemExit("--cluster_attention_exact requires "
+                         "--cluster_attention")
+    if args.cluster_aggregation_exact and not cl_agg:
+        raise SystemExit("--cluster_aggregation_exact requires "
+                         "--cluster_aggregation")
+    if (cl_att or cl_agg) and args.task in ("graph_cls", "graph_reg"):
+        raise SystemExit("--cluster_attention/--cluster_aggregation apply "
+                         "to node-level full-graph training, not "
+                         "graph-level tasks")
+    if cl_att and args.layer_name != "GATConv":
+        raise SystemExit("--cluster_attention is an attention "
+                         "factorization (GATConv only)")
+    if cl_agg and args.layer_name == "GATConv":
+        raise SystemExit("--cluster_aggregation is for static-weight "
+                         "layers; use --cluster_attention for GATConv")
+    if (cl_att or cl_agg) and args.exp_setup == "Gs_train_2_Gs_infer":
+        raise SystemExit(_NO_GC_PHASE)
+
+
+_NO_GC_PHASE = ("--cluster_attention/--cluster_aggregation apply to the Gc "
+                "full-graph phase; this experiment setup has none (use "
+                "--baseline for full-graph training)")
+
+
+def _cluster_kwargs(args) -> dict:
+    return dict(cluster_att=args.cluster_attention,
+                cluster_att_exact=args.cluster_attention_exact,
+                cluster_agg=args.cluster_aggregation,
+                cluster_agg_exact=args.cluster_aggregation_exact)
+
+
+def _operator_line(hyb, cluster_att: int) -> str:
+    """The hybrid operator's line, as the JAX package prints it: tiles,
+    stragglers and, under a collapse, the table's entries."""
+    nca = (0 if hyb.cluster_count is None
+           else int((hyb.cluster_count > 0).sum()))
+    kind = "attention" if cluster_att else "aggregation"
+    return (f"{0 if hyb.bsr is None else hyb.bsr.nnz_blocks} dense tiles, "
+            f"{hyb.num_coo_edges} straggler edges"
+            + (f", {nca} cluster-{kind} entries (K={hyb.cluster_size}, "
+               "approximate)" if nca else ""))
+
+
 def _check_train_args(args) -> None:
-    """Raise for every train option the port does not run."""
+    """Raise for every train option the port does not run, after the
+    cluster flags' refusals."""
+    _check_cluster_args(args)
     for flag, is_set, item in _TRAIN_NOT_PORTED:
         if is_set(args):
             raise NotImplementedError(
@@ -510,19 +606,24 @@ def cmd_train_baseline(args) -> int:
 
     device = resolve_device(args.device)
     ds = _load_node(args)
+    _apply_auto_config(args, ds.num_nodes)
     classify = args.task == "node_cls"
     num_classes = ds.num_classes if classify else None
     train, val, test = _splits(args, ds, num_classes)
-    if should_use_hybrid(ds.num_nodes, args.layer_name, args.hybrid_spmm):
-        # Leiden reorder + hybrid operator (exact: a node permutation)
+    if (args.cluster_attention or args.cluster_aggregation
+            or should_use_hybrid(ds.num_nodes, args.layer_name,
+                                 args.hybrid_spmm)):
+        # Leiden reorder + hybrid operator (exact: a node permutation); a
+        # cluster collapse needs the operator and makes the stragglers
+        # approximate
         g, _ = build_optimized_graph(
             ds.x, ds.senders, ds.receivers, y=ds.y, train_mask=train,
             val_mask=val, test_mask=test, layer_name=args.layer_name,
             min_block_edges=args.hybrid_threshold,
-            tile_dtype=_tile_dtype(args), seed=args.seed)
-        tiles = 0 if g.aux.bsr is None else g.aux.bsr.nnz_blocks
-        print(f"hybrid operator: {tiles} dense tiles, "
-              f"{g.aux.num_coo_edges} straggler edges")
+            tile_dtype=_tile_dtype(args), seed=args.seed,
+            **_cluster_kwargs(args))
+        print(f"hybrid operator: "
+              f"{_operator_line(g.aux, args.cluster_attention)}")
     else:
         g = build_graph(ds.x, ds.senders, ds.receivers, y=ds.y,
                         train_mask=train, val_mask=val, test_mask=test)
@@ -619,23 +720,26 @@ def cmd_train(args) -> int:
 
     resolve_device(args.device)
     ds = _load_node(args)
+    _apply_auto_config(args, ds.num_nodes)
     num_classes = ds.num_classes if args.task == "node_cls" else None
     train, val, test = _splits(args, ds, num_classes)
     part = _partition(args, ds, train, val, test, num_classes)
     coarse = part.coarse
+    collapse = args.cluster_attention or args.cluster_aggregation
+    if collapse and coarse is None:
+        raise SystemExit(_NO_GC_PHASE)
     if coarse is not None and args.exp_setup != "Gs_train_2_Gs_infer":
         from fitgnn_tpu_torch.graph.optimize import (optimize_coarse,
                                                      should_use_hybrid)
-        if should_use_hybrid(int(coarse.graph.n_node), args.layer_name,
-                             args.hybrid_spmm):
+        if collapse or should_use_hybrid(int(coarse.graph.n_node),
+                                         args.layer_name, args.hybrid_spmm):
             coarse = optimize_coarse(coarse, seed=args.seed,
                                      layer_name=args.layer_name,
                                      min_block_edges=args.hybrid_threshold,
-                                     tile_dtype=_tile_dtype(args))
-            hyb = coarse.graph.aux
+                                     tile_dtype=_tile_dtype(args),
+                                     **_cluster_kwargs(args))
             print(f"Gc hybrid operator: "
-                  f"{0 if hyb.bsr is None else hyb.bsr.nnz_blocks} dense "
-                  f"tiles, {hyb.num_coo_edges} straggler edges")
+                  f"{_operator_line(coarse.graph.aux, args.cluster_attention)}")
 
     task = "classification" if args.task == "node_cls" else "regression"
     save_path = checkpoint_path(args.task, args.output_dir, baseline=False)

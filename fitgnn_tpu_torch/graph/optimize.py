@@ -66,17 +66,17 @@ def build_optimized_graph(x: np.ndarray, senders: np.ndarray,
     node now at position ``i``.  Defaults are the JAX package's production
     config (threshold 48, f32 tiles, K3 stragglers); ``tile_dtype``
     (``torch.bfloat16``: bf16 tiles, ``train --hybrid_bf16_tiles``),
-    ``tile_group`` and ``use_diag`` pass through to ``build_hybrid`` (the
-    walks' bf16 forms, K9, K8), which refuses the last two for GATConv.
-    The planner's ``min_block_edges="auto"`` and the cluster opt-ins are
-    not ported yet."""
+    ``tile_group``, ``use_diag`` and the cluster collapses with their
+    ``_exact`` splits pass through to ``build_hybrid`` (the walks' bf16
+    forms, K9, K8), which refuses ``tile_group`` and ``use_diag`` for
+    GATConv.  Under a collapse the nodes pad to a multiple of K, which
+    must be a positive multiple of 128.  ``min_block_edges="auto"`` takes
+    the planner's threshold (``graph/planner.py``) for the reordered
+    graph's real edges."""
     from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
     from fitgnn_tpu_torch.partition.community import \
         hierarchical_community_order
 
-    if min_block_edges == "auto":
-        raise NotImplementedError("min_block_edges='auto' needs the ingest "
-                                  "planner (ROADMAP.md §1 item 2)")
     senders = np.asarray(senders, dtype=np.int64)
     receivers = np.asarray(receivers, dtype=np.int64)
     n = x.shape[0]
@@ -87,15 +87,27 @@ def build_optimized_graph(x: np.ndarray, senders: np.ndarray,
     def perm(a):
         return None if a is None else np.asarray(a)[order]
 
+    for nm, k in (("cluster_att", cluster_att), ("cluster_agg",
+                                                  cluster_agg)):
+        if k and (k % 128 or k <= 0):
+            raise ValueError(f"{nm}={k} must be a positive "
+                             "multiple of the 128 tile block")
     g = build_graph(np.asarray(x)[order], inv[senders].astype(np.int32),
                     inv[receivers].astype(np.int32), y=perm(y),
                     train_mask=perm(train_mask), val_mask=perm(val_mask),
-                    test_mask=perm(test_mask), node_pad_to=128)
+                    test_mask=perm(test_mask),
+                    # the summaries reduce over contiguous equal-size node
+                    # groups: the node space pads to a whole cluster
+                    node_pad_to=cluster_att or cluster_agg or 128)
     semantics = _LAYER_SEMANTICS[layer_name]
     s_np = g.senders.numpy().astype(np.int64)
     r_np = g.receivers.numpy().astype(np.int64)
     w_op = _operator_weights(s_np, r_np, g.edge_weight.numpy(),
                              g.num_nodes_padded, semantics)
+    if min_block_edges == "auto":
+        min_block_edges = _planned_threshold(s_np, r_np, w_op,
+                                             g.num_nodes_padded, layer_name,
+                                             cluster_att or cluster_agg)
     hyb = build_hybrid(s_np, r_np, w_op, g.num_nodes_padded,
                        min_block_edges=min_block_edges,
                        tile_dtype=tile_dtype,
@@ -104,12 +116,28 @@ def build_optimized_graph(x: np.ndarray, senders: np.ndarray,
                        cluster_att=cluster_att,
                        cluster_att_exact=cluster_att_exact,
                        cluster_agg=cluster_agg,
-                       cluster_agg_exact=cluster_agg_exact)
+                       cluster_agg_exact=cluster_agg_exact, real_nodes=n)
     return g._replace(aux=hyb), order
 
 
+def _planned_threshold(s, r, w_op, n_pad: int, layer_name: str,
+                       cluster: int) -> int:
+    """``min_block_edges="auto"``: the planner's tile threshold for the
+    real edges (``w_op > 0``) of the reordered graph, printed as the JAX
+    package prints it."""
+    from fitgnn_tpu_torch.graph.planner import plan_config
+    real = w_op > 0
+    pc = plan_config(s[real], r[real], n_pad, layer_name=layer_name,
+                     cluster=cluster)
+    print(f"auto-config: tile threshold {pc.min_block_edges} "
+          f"(predicted {pc.predicted_ms:.1f} ms hybrid cost)")
+    return pc.min_block_edges
+
+
 def optimize_coarse(coarse, *, min_block_edges: int = 48, tile_dtype=None,
-                    layer_name: str = "GCNConv", seed: int = 0):
+                    layer_name: str = "GCNConv", cluster_att: int = 0,
+                    cluster_att_exact: int = 0, cluster_agg: int = 0,
+                    cluster_agg_exact: int = 0, seed: int = 0):
     """Leiden-reorder a ``CoarseData``'s graph (CPU tensors) and attach the
     hybrid operator, as the JAX package's ``optimize_coarse`` does: a large
     Gc is a full-graph training problem and takes the same path as
@@ -117,17 +145,16 @@ def optimize_coarse(coarse, *, min_block_edges: int = 48, tile_dtype=None,
 
     Only Gc's own node order changes (with its label and mask views); the
     Gs phase takes the transferred parameters, not Gc node ids.  The node
-    arrays grow to a multiple of 128 with inert rows (zero features, False
-    masks).  ``tile_dtype=torch.bfloat16`` stores Gc's tiles in bf16
-    (``train --hybrid_bf16_tiles``).  The JAX package's tile groups and
-    cluster collapses are not ported yet (ROADMAP.md §1 item 2)."""
+    arrays grow to a multiple of 128 (of K under a cluster collapse) with
+    inert rows (zero features, False masks).  ``tile_dtype=torch.bfloat16``
+    stores Gc's tiles in bf16 (``train --hybrid_bf16_tiles``); the cluster
+    collapses pass through to ``build_hybrid``; ``min_block_edges="auto"``
+    takes the planner's threshold.  The JAX package's ``use_segmm`` and
+    ``tile_group`` are not ported yet (ROADMAP.md §1 item 2)."""
     from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
     from fitgnn_tpu_torch.partition.community import \
         hierarchical_community_order
 
-    if min_block_edges == "auto":
-        raise NotImplementedError("min_block_edges='auto' needs the ingest "
-                                  "planner (ROADMAP.md §1 item 2)")
     g = coarse.graph
     n_real = int(g.n_node)
     n_pad = g.num_nodes_padded
@@ -145,7 +172,8 @@ def optimize_coarse(coarse, *, min_block_edges: int = 48, tile_dtype=None,
     # the pad node sort to the end)
     esort = np.argsort(r2, kind="stable")
     s2, r2, w2 = s2[esort], r2[esort], w[esort]
-    extra = (-n_pad) % 128
+    # the tiles need a multiple of 128 nodes, the summaries whole clusters
+    extra = (-n_pad) % (cluster_att or cluster_agg or 128)
     n_pad += extra
 
     def pnode(a):
@@ -158,9 +186,16 @@ def optimize_coarse(coarse, *, min_block_edges: int = 48, tile_dtype=None,
 
     semantics = _LAYER_SEMANTICS[layer_name]
     w_op = _operator_weights(s2, r2, w2, n_pad, semantics)
+    if min_block_edges == "auto":
+        min_block_edges = _planned_threshold(s2, r2, w_op, n_pad, layer_name,
+                                             cluster_att or cluster_agg)
     hyb = build_hybrid(s2, r2, w_op, n_pad, min_block_edges=min_block_edges,
                        tile_dtype=tile_dtype, use_segmm=True,
-                       semantics=semantics)
+                       semantics=semantics, cluster_att=cluster_att,
+                       cluster_att_exact=cluster_att_exact,
+                       cluster_agg=cluster_agg,
+                       cluster_agg_exact=cluster_agg_exact,
+                       real_nodes=n_real)
     g2 = g._replace(x=pnode(g.x),
                     senders=torch.from_numpy(s2.astype(np.int32)),
                     receivers=torch.from_numpy(r2.astype(np.int32)),

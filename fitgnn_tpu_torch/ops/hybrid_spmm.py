@@ -42,6 +42,19 @@ The JAX package's tile opt-ins, dispatched as its ``_hybrid_spmm_main``:
 ``att_unit`` (GATConv) refuses ``use_diag``, ``use_rowwalk`` and
 ``tile_group > 1``: its tile attention walks the grid-walk tiles (or the
 einsum layout's) only.
+
+The cluster collapse of the stragglers (``cluster_agg`` for the static
+weights of GCN, SAGE and GIN, ``cluster_att`` for GAT's ``att_unit``), as
+the JAX package builds it: the node space splits into contiguous clusters
+of K nodes, and each straggler edge (u→v, w) reads the member mean of u's
+cluster instead of x[u].  The (N, C) table ``cluster_count`` holds, per
+receiver and sender cluster, the summed static weights (``cluster_agg``)
+or the edge counts (``cluster_att``, read by ``ops/tile_gat.py``); the
+``_exact`` splits keep the top-k straggler senders on the per-edge path.
+The static term is plain PyTorch, as the JAX package's is XLA outside any
+Pallas kernel: a member-masked reshape-sum and one dense (N, C) × (C, F)
+product, added after the chains above on every layout.  It is approximate
+by design (the reference's ``cluster_node`` idea applied per edge).
 """
 
 from __future__ import annotations
@@ -85,6 +98,15 @@ class HybridSpmm:
     diag_r: int = 0                    # > 0: the diagonal runs through K8
                                        # (the TPU's blocks per grid step);
                                        # 0: a batched matmul
+    # the cluster collapse (cluster_att / cluster_agg; None / 0 when off)
+    cluster_count: Optional[torch.Tensor] = None  # (N, C) per receiver and
+                                       # sender cluster: summed straggler
+                                       # weights (static; f32, or the tile
+                                       # type) or edge counts (att_unit;
+                                       # bf16 while every count ≤ 256)
+    cluster_scale: Optional[torch.Tensor] = None  # (C,) 1/|real members|
+    cluster_member: Optional[torch.Tensor] = None  # (N,) 1.0 on real rows
+    cluster_size: int = 0              # K, nodes a cluster (0: off)
 
     @property
     def num_coo_edges(self) -> int:
@@ -108,26 +130,26 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                  cluster_att: int = 0,
                  cluster_att_exact: int = 0,
                  cluster_agg: int = 0,
-                 cluster_agg_exact: int = 0) -> HybridSpmm:
+                 cluster_agg_exact: int = 0,
+                 real_nodes: Optional[int] = None) -> HybridSpmm:
     """Split edges by tile occupancy and build both structures (host-side),
     as the JAX package's ``build_hybrid`` does, with its ``tile_dtype``
     (``None`` or ``torch.bfloat16``), ``use_diag`` / ``diag_r`` (``None``
     → ``pick_run_length(nb)``), ``use_rowwalk``, ``tile_group`` and
     ``use_einsum_tiles``.
 
-    ``cluster_att`` / ``cluster_agg`` with their ``_exact`` splits are not
-    ported yet and raise ``NotImplementedError`` (ROADMAP.md §1 item 2); so
-    do ``use_diag``, ``use_rowwalk`` and ``tile_group > 1`` under
-    ``att_unit`` (ROADMAP.md §1 item 3)."""
-    opt_ins = dict(cluster_att=cluster_att,
-                   cluster_att_exact=cluster_att_exact,
-                   cluster_agg=cluster_agg,
-                   cluster_agg_exact=cluster_agg_exact)
-    asked = [k for k, v in opt_ins.items() if v]
-    if asked:
-        raise NotImplementedError(
-            f"build_hybrid: opt-in {', '.join(asked)} not ported yet "
-            "(ROADMAP.md §1 item 2)")
+    ``cluster_att`` (``att_unit`` only) / ``cluster_agg`` (the static
+    semantics): K, the nodes a cluster; the stragglers collapse onto the
+    (N, C) table against their sender's cluster (see ``HybridSpmm``).
+    ``cluster_att_exact`` / ``cluster_agg_exact``: the top-k straggler
+    senders, ranked by straggler edge count (attention) or summed weight
+    (static), keep the per-edge path.  ``real_nodes``: the rows that are
+    not padding (the summaries' means leave the others out); defaults to
+    ``num_nodes_padded``.
+
+    ``use_diag``, ``use_rowwalk`` and ``tile_group > 1`` under ``att_unit``
+    are not ported yet and raise ``NotImplementedError`` (ROADMAP.md §1
+    item 3)."""
     if semantics == "att_unit" and (use_diag or use_rowwalk
                                     or tile_group != 1):
         raise NotImplementedError(
@@ -172,6 +194,16 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                         group=tile_group, einsum=use_einsum_tiles)
 
     cs, cr, cw = senders[~dense], receivers[~dense], weight[~dense]
+    cluster = {}
+    if cluster_att and cluster_agg:
+        raise ValueError("cluster_att and cluster_agg are mutually "
+                         "exclusive (attention vs static semantics)")
+    if cluster_att or cluster_agg:
+        cluster, keep = _collapse(cs, cr, cw, num_nodes_padded, semantics,
+                                  cluster_att, cluster_att_exact,
+                                  cluster_agg, cluster_agg_exact,
+                                  tile_dtype, real_nodes)
+        cs, cr, cw = cs[keep], cr[keep], cw[keep]
     if len(cs) == 0:  # one weight-0 edge on the pad node keeps shapes whole
         cs = np.array([num_nodes_padded - 1], dtype=np.int64)
         cr = np.array([num_nodes_padded - 1], dtype=np.int64)
@@ -207,7 +239,64 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
         t_weights=torch.from_numpy(cw[order_t]),
         t_edge_perm=i32(t_edge_perm), num_nodes=num_nodes_padded,
         semantics=semantics, segmm=segmm, t_segmm=t_segmm,
-        dyn_plan=dyn_plan, diag_blocks=diag_blocks, diag_r=diag_r_val)
+        dyn_plan=dyn_plan, diag_blocks=diag_blocks, diag_r=diag_r_val,
+        **cluster)
+
+
+def _collapse(cs, cr, cw, n: int, semantics: str, cluster_att: int,
+              cluster_att_exact: int, cluster_agg: int,
+              cluster_agg_exact: int, tile_dtype,
+              real_nodes: Optional[int]) -> tuple:
+    """The cluster collapse of the straggler lists ``(cs, cr, cw)``, as the
+    JAX package's ``build_hybrid`` makes it: the ``HybridSpmm`` fields of
+    the collapse, and the mask of the straggler edges that keep the
+    per-edge path (the ``_exact`` senders' real edges)."""
+    if cluster_att and semantics != "att_unit":
+        raise ValueError("cluster_att is an attention factorization "
+                         "(semantics='att_unit' only)")
+    if cluster_agg and semantics == "att_unit":
+        raise ValueError("cluster_agg is for static-weight semantics; "
+                         "use cluster_att for att_unit")
+    k_size = cluster_att or cluster_agg
+    exact_k = cluster_att_exact if cluster_att else cluster_agg_exact
+    if n % k_size:
+        raise ValueError(f"cluster size {k_size} must divide the "
+                         f"padded node count {n}")
+    c = n // k_size
+    real = cw > 0                          # padding edges never count
+    keep = np.zeros(len(cs), dtype=bool)
+    if exact_k:
+        # senders ranked by the straggler mass of their edges: the edge
+        # count under attention, the summed static weight otherwise
+        if cluster_att:
+            deg = np.bincount(cs[real], minlength=n).astype(np.float64)
+        else:
+            deg = np.bincount(cs[real], weights=cw[real].astype(np.float64),
+                              minlength=n)
+        k = min(int(exact_k), int((deg > 0).sum()))
+        if k:
+            top = np.argpartition(deg, -k)[-k:]
+            is_top = np.zeros(n, dtype=bool)
+            is_top[top[deg[top] > 0]] = True
+            keep = is_top[cs] & real
+    collapse = real & ~keep
+    cc = np.zeros((n, c), dtype=np.float32)
+    np.add.at(cc, (cr[collapse], cs[collapse] // k_size),
+              1.0 if cluster_att else cw[collapse])
+    if cluster_att:
+        # integer counts up to 256 are exact in bf16
+        cdtype = torch.bfloat16 if cc.max() <= 256 else torch.float32
+    else:
+        # summed weights, stored as the tiles are
+        cdtype = tile_dtype if tile_dtype is not None else torch.float32
+    nr = n if real_nodes is None else int(real_nodes)
+    member = (np.arange(n) < nr).astype(np.float32)
+    counts = member.reshape(c, k_size).sum(axis=1)
+    return dict(cluster_count=torch.from_numpy(cc).to(cdtype),
+                cluster_scale=torch.from_numpy(
+                    (1.0 / np.maximum(counts, 1.0)).astype(np.float32)),
+                cluster_member=torch.from_numpy(member),
+                cluster_size=k_size), keep
 
 
 def _coo_apply(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
@@ -291,7 +380,34 @@ def _diag_bmm(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.bmm(blocks, xb).reshape(x.shape).to(x.dtype)
 
 
+def _cluster_static_term(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
+    """The collapsed stragglers under static weights, as the JAX package's
+    ``_cluster_static_term``: each cluster's member sum in f32 (a K-long
+    sum in bf16 would lose about 3 digits), times ``cluster_scale``,
+    rounded to the table's type, then ``table @ summaries`` with both
+    widened to f32 (the JAX package's ``preferred_element_type=f32``; the
+    products of two bf16 values are exact in f32).  Autograd gives the
+    backward: the transposed product and a broadcast."""
+    k_size = h.cluster_size
+    table = h.cluster_count
+    c = table.shape[1]
+    member = h.cluster_member.to(x.dtype)        # 0/1: exact in any type
+    sums = (x * member[:, None]).reshape(c, k_size, x.shape[-1]).sum(
+        1, dtype=torch.float32)
+    summaries = (sums * h.cluster_scale[:, None]).to(table.dtype)
+    return torch.matmul(table.float(), summaries.float()).to(x.dtype)
+
+
 def hybrid_spmm(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
+    """``_hybrid_spmm_main``, plus the collapsed stragglers' term for every
+    semantics but ``att_unit`` (whose table ``ops/tile_gat.py`` reads)."""
+    out = _hybrid_spmm_main(h, x)
+    if h.cluster_size and h.semantics != "att_unit":
+        out = out + _cluster_static_term(h, x).to(out.dtype)
+    return out
+
+
+def _hybrid_spmm_main(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
     """out = A·x, differentiable in ``x``, dispatched condition for
     condition as the JAX package's ``_hybrid_spmm_main``: the diagonal chain
     (K3 → K8 → K1) when the operator has diagonal blocks with ``diag_r >

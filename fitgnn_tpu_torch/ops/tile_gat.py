@@ -33,9 +33,18 @@ kernel) and its ``partials``, ``src_score_bound`` and ``extra_rowmax``
 arguments are not ported: they raise ``NotImplementedError`` rather than
 run the default branch in their place.  Under ``att_unit``
 ``build_hybrid`` refuses ``use_diag``, ``use_rowwalk`` and ``tile_group >
-1`` (and, for every semantics, the cluster opt-ins), so the tiles here are
-in the grid-walk layout or the einsum layout, and neither ``diag_blocks``
-nor ``cluster_count`` reaches this module.  The tiles may be bf16
+1``, so the tiles here are in the grid-walk layout or the einsum layout,
+and no ``diag_blocks`` reaches this module.
+
+With the cluster collapse (``build_hybrid(cluster_att=K)``) each collapsed
+straggler edge attends to its sender's cluster-summary row: the summary's
+score is the member mean of ``score_src`` (means commute with the linear
+score projection), and its message the member mean of ``h``.  One dense
+(N, C) score block, masked by the count table before the exp and weighted
+by the counts, and one (N, C) × (C, F) product add to the numerator and
+the denominator, after the stragglers and before the tiles, under every
+switch; the exact max folds in the summary rows' max.  This is plain
+PyTorch, as the JAX package's is XLA.  The tiles may be bf16
 (``tile_dtype=torch.bfloat16``): they are the 0/1 mask, so the scores and
 ``pe`` stay f32 and only the kernels' tile loads change.  The einsum
 layout has no dynamic-tile plan, so its tiles take the JAX package's XLA
@@ -163,6 +172,23 @@ def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
         num = num_aug[:, :f]
         den = num_aug[:, f].float()
 
+    # ---- the collapsed stragglers' summary rows ---------------------------
+    if aux.cluster_count is not None:
+        # duplicate edges from one cluster share the summary's score, so the
+        # count multiplies the numerator.  The global-max bound needs no
+        # fold: the summary score is a mean of member scores, at most
+        # max(score_src)
+        cnt = aux.cluster_count                              # (N, C)
+        c = n // aux.cluster_size
+        member = aux.cluster_member.float()
+        # masked BEFORE the exp, as the tiles are: every exponent stays ≤ 0
+        e_c = _cluster_scores(aux, score_src, score_dst, negative_slope)
+        pe_c = torch.exp(e_c - m[:, None]) * cnt.float()
+        hs = ((h.float() * member[:, None]).reshape(c, aux.cluster_size, f)
+              .sum(1) * aux.cluster_scale[:, None]).to(h.dtype)  # (C, F)
+        num = num + (pe_c.to(h.dtype) @ hs).to(num.dtype)
+        den = den + pe_c.sum(1)
+
     # ---- the tiles' contribution, then normalize ---------------------------
     bsr = aux.bsr
     if bsr is not None:
@@ -178,7 +204,8 @@ def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
 
 def _exact_max(aux, es, score_src, score_dst, slope: float,
                fused: bool) -> torch.Tensor:
-    """The exact per-receiver max over straggler and tile scores, detached;
+    """The exact per-receiver max over straggler, tile and cluster-summary
+    scores, detached;
     −1e30 where a row has no edge (never 0: a row whose every score sits
     below −88 would underflow its denominator to 0)."""
     bsr = aux.bsr
@@ -194,7 +221,29 @@ def _exact_max(aux, es, score_src, score_dst, slope: float,
             m = torch.maximum(m, rowmax(bsr.rows, bsr.cols, aux.dyn_plan,
                                         bsr.blocks, score_src.float(),
                                         score_dst.float(), slope))
+        if aux.cluster_count is not None:
+            # the summary rows carry in-edges too: a row whose every in-edge
+            # collapsed would otherwise exponentiate against −1e30
+            m = torch.maximum(m, _cluster_scores(
+                aux, score_src, score_dst, slope).max(dim=1).values)
     return m
+
+
+def _cluster_src_scores(aux, score_src: torch.Tensor) -> torch.Tensor:
+    """(C,) sender scores of the cluster-summary rows: the member means of
+    ``score_src`` (padding rows left out)."""
+    c = aux.num_nodes // aux.cluster_size
+    member = aux.cluster_member.float()
+    return ((score_src.float() * member).reshape(c, aux.cluster_size).sum(1)
+            * aux.cluster_scale)
+
+
+def _cluster_scores(aux, score_src, score_dst, slope: float) -> torch.Tensor:
+    """(N, C) scores of each receiver against each cluster-summary row,
+    −1e30 where the count table has no edge."""
+    return torch.where(aux.cluster_count > 0, _leaky(
+        score_dst.float()[:, None]
+        + _cluster_src_scores(aux, score_src)[None, :], slope), _NEG)
 
 
 def tiles_two_stage(slope: float, rows, cols, plan, blocks, ssrc, sdst, m,

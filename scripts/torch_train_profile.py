@@ -2,6 +2,7 @@
 """Where the time of one ``train --baseline`` step goes, on one GPU.
 
     python3 scripts/torch_train_profile.py      # from the repository root
+    python3 scripts/torch_train_profile.py --collapse-only   # the collapse
 
 Builds the bench graph of ``chip_smoke.py`` (169,344 nodes, 128 features,
 40 classes, seed 0) through the port's ``build_optimized_graph`` for GCN
@@ -17,8 +18,15 @@ GCN on its default path, with ``fused_dropout=True, bit_dropout=False``
 SAGE and GIN on their own operators (``mean_nonself`` and ``sum_nonself``
 weights: K3 then K1, as GCN), and GCN, SAGE and GIN pre-aggregated
 (``first_layer_preaggregated``, layer 0's input from
-``preaggregate_input`` once, as ``train --baseline --preaggregate``).  For
-each it prints:
+``preaggregate_input`` once, as ``train --baseline --preaggregate``); then
+the cluster collapse at threshold 192: GCN under ``cluster_agg`` 2048, and
+with ``cluster_agg_exact`` 4096, GAT under ``cluster_att`` 2048 on its
+default path and under ``FITGNN_GAT_FUSED_TILES=1 FITGNN_GAT_SEGMM_DEN=1``,
+and SAGE and GIN under ``cluster_agg`` 2048 (the static collapse's
+product runs in cuBLAS, so it lands in the dense group; each static row
+also times the collapse term alone, ``_cluster_static_term`` forward at
+F=128 and forward and backward at F=512, as a step runs it).  For each
+it prints:
 
 * the step's time (``gc_train_step``: forward, masked NLL, backward, Adam)
   from CUDA events over 10 steps after 3 warm-ups, and the eval forward's
@@ -234,6 +242,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     x, s, r, y, train = make_graph()
+    if "--collapse-only" in sys.argv[1:]:
+        profile_collapse(x, s, r, y, train, dev)
+        return 0
     g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
                                  layer_name="GATConv", seed=0)
     g = g.to(dev)
@@ -290,7 +301,80 @@ def main() -> int:
                           **out}))
         del gd
         torch.cuda.empty_cache()
+    del own, configs
+    profile_collapse(x, s, r, y, train, dev)
     return 0
+
+
+# the collapse rows: (label, layer, build_optimized_graph's collapse, the
+# switches, the rows-walk label)
+COLLAPSE = (
+    ("GCNConv cluster_agg 2048", "GCNConv", dict(cluster_agg=2048), {}, K1),
+    ("GCNConv cluster_agg 2048 exact 4096", "GCNConv",
+     dict(cluster_agg=2048, cluster_agg_exact=4096), {}, K1),
+    ("GATConv cluster_att 2048", "GATConv", dict(cluster_att=2048), {},
+     "K4 dyn_tiles"),
+    ("GATConv cluster_att 2048 fused", "GATConv", dict(cluster_att=2048),
+     FUSED, None),
+    ("SAGEConv cluster_agg 2048", "SAGEConv", dict(cluster_agg=2048), {}, K1),
+    ("GINConv cluster_agg 2048", "GINConv", dict(cluster_agg=2048), {}, K1))
+COLLAPSE_THRESHOLD = 192
+
+
+def collapse_term_ms(h, dev) -> float:
+    """The static collapse term alone, as a step runs it: forward at F=128
+    (layer 0), forward and backward at F=512 (layer 1); CUDA events over
+    10 after 3."""
+    from fitgnn_tpu_torch.ops.hybrid_spmm import _cluster_static_term
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x0 = torch.randn((h.num_nodes, NUM_FEATURES), generator=gen, device=dev)
+    x1 = torch.randn((h.num_nodes, HIDDEN), generator=gen, device=dev,
+                     requires_grad=True)
+    g1 = torch.randn((h.num_nodes, HIDDEN), generator=gen, device=dev)
+
+    def run():
+        _cluster_static_term(h, x0)
+        _cluster_static_term(h, x1).backward(g1)
+
+    for _ in range(3):
+        run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(10):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 10
+
+
+def profile_collapse(x, s, r, y, train, dev) -> None:
+    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+
+    for label, layer, collapse, env, walk in COLLAPSE:
+        g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                     layer_name=layer, seed=0,
+                                     min_block_edges=COLLAPSE_THRESHOLD,
+                                     **collapse)
+        h = g.aux
+        cc = h.cluster_count
+        info = {"collapse": collapse, "threshold": COLLAPSE_THRESHOLD,
+                "n_pad": g.num_nodes_padded, "C": cc.shape[1],
+                "tiles": 0 if h.bsr is None else h.bsr.nnz_blocks,
+                "straggler_edges": h.num_coo_edges,
+                "cluster_entries": int((cc > 0).sum()),
+                "table": f"{cc.dtype}, "
+                         f"{cc.numel() * cc.element_size() / 2**20:.1f} MiB"}
+        gd = g.to(dev)
+        with switches(env):
+            out = profile_step(layer, gd, dev, label, walk)
+        if layer != "GATConv":
+            info["collapse_term_ms"] = collapse_term_ms(gd.aux, dev)
+        print(json.dumps({"switches": env, **info, **out}))
+        del g, gd, h, cc
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

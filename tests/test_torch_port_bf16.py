@@ -59,6 +59,7 @@ from fitgnn_tpu_torch.ops.bsr_spmm import (build_bsr, bsr_spmm, bsr_spmm_acc,
                                            bsr_spmm_rowwalk)
 from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm
 from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid, hybrid_spmm
+from fitgnn_tpu_torch.ops.tile_gat import tile_gat_attention
 from fitgnn_tpu_torch.train import steps
 
 from test_torch_port_curriculum import _rows, toy  # noqa: F401 (fixture)
@@ -485,19 +486,69 @@ def test_cli_curriculum_bf16_tiles(toy, tile_types, layer):
     assert float(rows[0]["acc"]) > 0.3
 
 
-@pytest.mark.parametrize("what", ["block", "cluster_agg", "cluster_att",
-                                  "cli_cluster"])
+@pytest.mark.parametrize("what", ["block"])
 def test_unported_tile_options_raise(what):
-    """``block != 128`` and the cluster collapses still raise, naming
-    their ROADMAP item."""
+    """``block != 128`` still raises, naming its ROADMAP item."""
     s, r, w = sorted_coo(np.random.default_rng(2), 512, 1000)
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        if what == "block":
-            build_bsr(s, r, w, 512, block=256, tile_dtype=BF16)
-        elif what == "cli_cluster":
-            main(["train", "--baseline", "--dataset", "toy",
-                  "--hybrid_bf16_tiles", "--cluster_aggregation", "128"])
-        else:
-            build_hybrid(s, r, w, 512, tile_dtype=BF16, **{what: 128},
-                         semantics="att_unit" if what == "cluster_att"
-                         else "gcn_norm")
+        build_bsr(s, r, w, 512, block=256, tile_dtype=BF16)
+
+
+@pytest.mark.parametrize("what", ["cluster_agg", "cluster_att"])
+def test_cluster_collapse_on_bf16_tiles_matches_jax(what):
+    """The collapses on bf16 tiles: the static table takes the tiles' type
+    (bf16), the attention table bf16 by its count rule; every array equals
+    the JAX package's, and so do the static operator's forward and
+    gradient (within 8e-3·max|ref|: a summary rounded to bf16 can take the
+    other neighbour under another order of its f32 sum) and the attention
+    forward."""
+    s, r, w = sorted_coo(np.random.default_rng(2), 512, 4000)
+    att = what == "cluster_att"
+    if att:
+        w = np.ones_like(w)
+    kw = dict(min_block_edges=60, use_segmm=True, real_nodes=500,
+              semantics="att_unit" if att else "gcn_norm", **{what: 128})
+    ht = build_hybrid(s, r, w, 512, tile_dtype=BF16, **kw)
+    hj = jax_build_hybrid(s, r, w, 512, tile_dtype=jnp.bfloat16, **kw)
+    assert ht.cluster_count.dtype == BF16 == ht.bsr.blocks.dtype
+    assert hj.cluster_count.dtype == jnp.bfloat16
+    for k in ("cluster_count", "cluster_scale", "cluster_member", "senders",
+              "receivers", "weights", "t_edge_perm"):
+        np.testing.assert_array_equal(as_f32(getattr(ht, k)),
+                                      as_f32(getattr(hj, k)), err_msg=k)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((512, 16)).astype(np.float32)
+    if att:
+        a = (rng.standard_normal(16) / 4).astype(np.float32)
+        sd = rng.standard_normal(512).astype(np.float32)
+        ref = jax_tile_gat_mod.tile_gat_attention(
+            hj, jnp.asarray(x @ a), jnp.asarray(sd), jnp.asarray(x), 0.2,
+            att_src=jnp.asarray(a))
+        xt = torch.from_numpy(x)
+        got = tile_gat_attention(ht, xt @ torch.from_numpy(a),
+                                 torch.from_numpy(sd), xt, 0.2,
+                                 att_src=torch.from_numpy(a))
+        close_step(got, ref)
+        return
+    g = rng.standard_normal((512, 16)).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda xx: jax_hybrid_spmm(hj, xx), jnp.asarray(x))
+    xt = torch.tensor(x, requires_grad=True)
+    out = hybrid_spmm(ht, xt)
+    out.backward(torch.from_numpy(g))
+    close(out, out_j, 8e-3)
+    close(xt.grad, vjp(jnp.asarray(g))[0], 8e-3)
+
+
+def test_cli_cluster_aggregation_on_bf16_tiles(toy, tile_types, capsys):
+    """``train --baseline --hybrid_bf16_tiles --cluster_aggregation 128``:
+    a bf16 operator whose stragglers collapse onto a bf16 table, a finite
+    row, and the JAX package's operator line."""
+    common = _cli(toy, "GCNConv")
+    assert main(["train", "--baseline", "--runs", "1", "--epochs1", "10",
+                 "--hybrid_bf16_tiles", "--cluster_aggregation", "128",
+                 *common, "--hybrid_threshold", "100"]) == 0
+    assert tile_types == [BF16]
+    out = capsys.readouterr().out
+    assert "cluster-aggregation entries (K=128, approximate)" in out
+    _, rows = _rows(toy / "results" / "baseline" / "toy.csv")
+    assert len(rows) == 1 and np.isfinite(float(rows[0]["best_loss"]))

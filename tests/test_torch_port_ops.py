@@ -239,18 +239,41 @@ def test_hybrid_without_tiles_matches_jax():
 
 
 # the tile opt-ins of the GCN operator are ported (bf16 tiles and the
-# einsum layout too); under GATConv's att_unit semantics use_diag,
-# use_rowwalk and tile_group > 1 still raise, and so do the cluster
-# collapses and tiles of another type
+# einsum layout too), and so are the cluster collapses; under GATConv's
+# att_unit semantics use_diag, use_rowwalk and tile_group > 1 still raise,
+# and so do tiles of another type
 @pytest.mark.parametrize("opt_in", [dict(use_diag=True, semantics="att_unit"),
                                     dict(use_rowwalk=True,
                                          semantics="att_unit"),
-                                    dict(cluster_att=128,
-                                         semantics="att_unit"),
                                     dict(tile_group=2, semantics="att_unit"),
-                                    dict(cluster_agg=128),
                                     dict(tile_dtype=torch.float16)])
 def test_hybrid_opt_ins_raise(opt_in):
     s, r, w = sorted_coo(np.random.default_rng(12), 256, 500)
     with pytest.raises(NotImplementedError):
         build_hybrid(s, r, w, 256, **opt_in)
+
+
+@pytest.mark.parametrize("opt_in", [dict(cluster_att=128,
+                                         semantics="att_unit"),
+                                    dict(cluster_agg=128)])
+def test_hybrid_cluster_opt_ins_match_jax(opt_in):
+    """The cluster collapses build the JAX package's operator (the straggler
+    lists that stay, the (N, C) table, its scales), and under static
+    weights ``hybrid_spmm`` gives its output."""
+    s, r, w = sorted_coo(np.random.default_rng(12), 256, 500)
+    ht = build_hybrid(s, r, w, 256, use_segmm=True, **opt_in)
+    hj = jax_build_hybrid(s, r, w, 256, use_segmm=True, **opt_in)
+    assert ht.cluster_size == hj.cluster_size == 128
+    for k in ("senders", "receivers", "weights", "cluster_scale",
+              "cluster_member"):
+        np.testing.assert_array_equal(getattr(ht, k).numpy(),
+                                      np.asarray(getattr(hj, k)), err_msg=k)
+    np.testing.assert_array_equal(
+        ht.cluster_count.float().numpy(),
+        np.asarray(hj.cluster_count.astype(jnp.float32)))
+    if "cluster_agg" in opt_in:
+        x = np.random.default_rng(13).standard_normal((256, 16)).astype(
+            np.float32)
+        np.testing.assert_allclose(
+            hybrid_spmm(ht, torch.from_numpy(x)).numpy(),
+            np.asarray(jax_hybrid_spmm(hj, jnp.asarray(x))), **TOL)

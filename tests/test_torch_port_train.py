@@ -314,12 +314,68 @@ def test_train_baseline_node_reg(toy):
 
 @pytest.mark.parametrize("flags", [
     ["--num_devices", "2"], ["--baseline", "--num_devices", "2"],
-    ["--baseline", "--cluster_attention", "128"],
-    ["--baseline", "--cluster_aggregation", "128"],
-    ["--cluster_attention_exact", "4"],
-    ["--baseline", "--auto_config"], ["--baseline", "--resume"],
+    ["--baseline", "--resume"],
     ["--baseline", "--checkpoint_every", "5"],
     ["--baseline", "--task", "graph_cls"]])
 def test_unported_train_options_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["train", "--dataset", "toy", *flags])
+
+
+# the cluster flags' refusals, raised before any data is read, with the JAX
+# package's messages
+@pytest.mark.parametrize("flags,message", [
+    (["--cluster_attention_exact", "4"], "requires --cluster_attention"),
+    (["--baseline", "--cluster_aggregation_exact", "4"],
+     "requires --cluster_aggregation"),
+    (["--baseline", "--cluster_attention", "128"], "GATConv only"),
+    (["--cluster_aggregation", "128", "--layer_name", "GATConv"],
+     "static-weight"),
+    (["--baseline", "--cluster_aggregation", "128", "--task", "graph_cls"],
+     "not graph-level tasks"),
+    (["--cluster_aggregation", "128", "--exp_setup", "Gs_train_2_Gs_infer"],
+     "Gc full-graph phase")])
+def test_cluster_flags_refused_as_jax(flags, message):
+    from fitgnn_tpu.cli import main as jax_cli
+    argv = ["train", "--dataset", "nowhere", *flags]
+    with pytest.raises(SystemExit, match=message) as got:
+        main(argv)
+    with pytest.raises(SystemExit) as ref:
+        jax_cli.cmd_train(jax_cli.arg_correction(
+            jax_cli.build_parser().parse_args(argv)))
+    assert str(got.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--layer_name", "GATConv", "--cluster_attention", "128"],
+    ["--layer_name", "GATConv", "--cluster_attention", "128",
+     "--cluster_attention_exact", "8"],
+    ["--cluster_aggregation", "128"],
+    ["--cluster_aggregation", "128", "--cluster_aggregation_exact", "8"],
+    ["--layer_name", "SAGEConv", "--cluster_aggregation", "256"],
+    ["--auto_config"], ["--layer_name", "GATConv", "--auto_config"]])
+def test_train_baseline_collapse_and_auto_config(toy, capsys, flags):
+    """``train --baseline`` on the toy dataset (400 nodes, under the hybrid
+    gate's 65,536): a collapse forces the hybrid operator and prints its
+    table's entries; ``--auto_config`` takes the planner's threshold.  A
+    finite row and a checkpoint either way."""
+    assert main(["train", "--baseline", "--dataset", "toy", "--data_root",
+                 str(toy / "dataset"), "--hidden", "16", "--runs", "1",
+                 "--epochs1", "8", "--experiment", "random", "--device",
+                 "cpu", *flags]) == 0
+    out = capsys.readouterr().out
+    if "--auto_config" in flags:
+        assert "auto-config: tile threshold deferred to planner" in out
+    else:
+        k = flags[flags.index("--cluster_aggregation" if
+                              "--cluster_aggregation" in flags
+                              else "--cluster_attention") + 1]
+        kind = "aggregation" if "--cluster_aggregation" in flags \
+            else "attention"
+        assert f"cluster-{kind} entries (K={k}, approximate)" in out
+    with open(toy / "results" / "baseline" / "toy.csv") as f:
+        lines = f.read().splitlines()
+    row = dict(zip(lines[0].split(","), lines[1].split(",")))
+    assert np.isfinite(float(row["best_loss"]))
+    assert (toy / "save" / "node_cls" / "baseline" / "out" /
+            "model.pt").exists()
