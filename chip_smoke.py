@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (the full-graph
-baselines and the FIT-GNN curriculum) on one GPU and hold its CUDA kernels
-against their plain PyTorch versions.
+baselines, the FIT-GNN curriculum and the graph-level tasks) on one GPU
+and hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -188,7 +188,26 @@ Phases (any failure exits non-zero before the result lines):
    8's cached partition (the fused Gc phase under
    ``set_sync_debug_mode("error")``), each with its launches and a finite
    row;
-13. one JSON line with every kernel's numbers, the bf16 forms as their
+13. the graph-level tasks (``phase_graph``, 50–70 s, 150 s at most):
+   2,048 QM9-shaped molecules (9–29 atoms, 11 features; QM9's 130,831 cut
+   for the host's per-molecule coarsening, which every ``train`` and
+   ``infer`` call repeats) from the port's ``qm9_like_dataset`` written as
+   ``qm9proxy`` (regression targets) and ``qm9proxycls`` (the 2-class
+   label) ``<name>_graphs.npz`` caches; through the port's CLI at hidden
+   512, 2 layers, ``--batch_size 128 --extra_node``, every counter at 0
+   just before each run: ``train --task graph_reg`` GCN
+   ``Gc_train_2_Gs_train`` for 2 + 2 epochs, ``train --task graph_cls``
+   GAT ``Gc_train_2_Gs_infer`` for 2, and ``infer --task graph_reg`` (256
+   molecules, the Gs and Gc rows) from the first run's checkpoint; the
+   host ms a molecule of ``prepare_graph_sample``, the collation seconds,
+   the chunk's shapes (the Gc view on the per-edge branch, the Gs view on
+   the dense batched one), the Gc and Gs epoch seconds, the peak device
+   memory, each CSV row (finite), both views' ``avg_inf_time`` and
+   ``avg_inf_time_device``, and no launch of the port's kernels (the JAX
+   graph path reaches no Pallas kernel); then one train chunk's forward in
+   both views on the card against the CPU with each run's saved
+   parameters (tolerance as in phase 3);
+14. one JSON line with every kernel's numbers, the bf16 forms as their
    own entries (launches summed over the main-path phases 5 to 12, per
    phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and K7sums with
    their ``ptxas`` register and spill counts), then the ``ok`` line.
@@ -1544,10 +1563,10 @@ def phase_forward_only(device, g) -> dict:
             "spmm BsrMatrix fwd+bwd F=512": lib}
 
 
-def run_cli(tmp, argv, env=None) -> tuple:
-    """Run the port's CLI from ``tmp`` under the switches ``env`` with every
-    counter at 0 just before; returns (launches, NodeModel forwards,
-    seconds)."""
+def run_cli(tmp, argv, env=None, dataset="bench") -> tuple:
+    """Run the port's CLI on ``dataset`` from ``tmp`` under the switches
+    ``env`` with every counter at 0 just before; returns (launches,
+    NodeModel forwards, seconds)."""
     from fitgnn_tpu_torch.cli.main import main as cli_main
     from fitgnn_tpu_torch.models.models import NodeModel
 
@@ -1565,7 +1584,7 @@ def run_cli(tmp, argv, env=None) -> tuple:
         with switches(env or {}):
             reset_counts()
             t0 = time.perf_counter()
-            rc = cli_main([*argv, "--dataset", "bench", "--data_root",
+            rc = cli_main([*argv, "--dataset", dataset, "--data_root",
                            os.path.join(tmp, "dataset"), "--experiment",
                            "random", "--device", "cuda"])
             torch.cuda.synchronize()
@@ -3409,6 +3428,177 @@ def phase_cluster_cli(tmp) -> dict:
     return phases
 
 
+# the graph phase: QM9-shaped molecules (9–29 atoms, 11 features) from the
+# port's qm9_like_dataset, the count cut from QM9's 130,831 for the host's
+# per-molecule coarsening; GraphModel at hidden 512, 2 layers, chunks of
+# 128 graphs, the 1-hop halo subgraphs
+GRAPH_COUNT = 2048
+QM9_COUNT = 130_831
+GRAPH_INFER = 256
+GRAPH_FLAGS = ("--hidden", str(HIDDEN), "--num_layers1", "2", "--extra_node",
+               "--coarsening_ratio", "0.5", "--coarsening_method",
+               "variation_neighborhoods")
+GRAPH_RUNS = (
+    ("qm9proxy", "graph_reg", "GCNConv", "Gc_train_2_Gs_train", 2, 2),
+    ("qm9proxycls", "graph_cls", "GATConv", "Gc_train_2_Gs_infer", 2, 0))
+
+
+def phase_graph(device, tmp) -> dict:
+    """The graph-level tasks through the port's CLI on the card: the
+    QM9-shaped sets written as ``<name>_graphs.npz``, ``train --task
+    graph_reg`` (GCN ``Gc_train_2_Gs_train``) and ``--task graph_cls``
+    (GAT ``Gc_train_2_Gs_infer``) at hidden 512 in chunks of 128, then
+    ``infer --task graph_reg`` from the first run's checkpoint (the Gs and
+    Gc rows); each with every counter at 0 just before and no launch of
+    the port's kernels after (the JAX graph path reaches no Pallas
+    kernel).  Then one train chunk's forward in both views on the card
+    against the CPU with each run's saved parameters."""
+    from fitgnn_tpu_torch.data import graph_level
+    from fitgnn_tpu_torch.data.datasets import GraphDataset, save_graph_cache
+    from fitgnn_tpu_torch.data.synthetic import qm9_like_dataset
+    from fitgnn_tpu_torch.models.models import GraphModel
+    from fitgnn_tpu_torch.train import graph_loop
+    from fitgnn_tpu_torch.train.checkpoint import restore_params
+    from fitgnn_tpu_torch.utils.results import (INFERENCE_HEADER,
+                                                TRAIN_GRAPH_HEADER)
+
+    t_phase = time.perf_counter()
+    print(f"graph phase: {GRAPH_COUNT} QM9-shaped molecules (QM9 has "
+          f"{QM9_COUNT:,}; the count is cut for the host's per-molecule "
+          "coarsening, which every train and infer call repeats), 9-29 "
+          "atoms, 11 features")
+    graphs, y_reg, y_cls = qm9_like_dataset(GRAPH_COUNT, seed=0)
+    for name, y in (("qm9proxy", y_reg), ("qm9proxycls", y_cls)):
+        os.makedirs(os.path.join(tmp, "dataset", name))
+        save_graph_cache(os.path.join(tmp, "dataset", name,
+                                      f"{name}_graphs.npz"),
+                         GraphDataset(name, graphs, y))
+
+    seen = {"prep": [0.0, 0], "collate": [], "runs": []}
+    prepare, collate, run_task = (graph_level.prepare_graph_sample,
+                                  graph_level.collate_graph_level_batches,
+                                  graph_loop.run_graph_task)
+
+    def timed_prepare(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = prepare(*args, **kwargs)
+        seen["prep"][0] += time.perf_counter() - t0
+        seen["prep"][1] += 1
+        return out
+
+    def timed_collate(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = collate(*args, **kwargs)
+        seen["collate"].append(time.perf_counter() - t0)
+        return out
+
+    def traced_run(cfg, train_b, val_b, test_b, verbose=False):
+        res = run_task(cfg, train_b, val_b, test_b, verbose=verbose)
+        seen["runs"].append((cfg, train_b[0], res))
+        return res
+
+    phases, peaks = {}, {}
+    patches = (mock.patch.object(graph_level, "prepare_graph_sample",
+                                 timed_prepare),
+               mock.patch.object(graph_level, "collate_graph_level_batches",
+                                 timed_collate),
+               mock.patch.object(graph_loop, "run_graph_task", traced_run))
+    for patch in patches:
+        patch.start()
+    try:
+        for name, task, layer, setup, ep1, ep2 in GRAPH_RUNS:
+            seen["prep"], seen["collate"] = [0.0, 0], []
+            torch.cuda.reset_peak_memory_stats()
+            launches, _, wall = run_cli(tmp, [
+                "train", "--task", task, "--layer_name", layer,
+                "--exp_setup", setup, "--epochs1", str(ep1), "--epochs2",
+                str(ep2), "--batch_size", "128", "--output_dir",
+                f"g_{name}", *GRAPH_FLAGS], dataset=name)
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**20
+            check(not any(launches.values()),
+                  f"graph train {name}: launches {launches}")
+            phases[f"graph train {name}"] = launches
+            cfg, chunk, res = seen["runs"][-1]
+            secs, count = seen["prep"]
+            check(count == GRAPH_COUNT, f"graph train {name}: {count} "
+                  "molecules coarsened")
+            print(f"graph train {name} ({task} {layer} {setup}, {ep1} + "
+                  f"{ep2} epochs): {wall:.1f} s wall; host "
+                  f"prepare_graph_sample {1e3 * secs / count:.3f} ms a "
+                  f"molecule ({secs:.1f} s for {count}); collation "
+                  f"{sum(seen['collate']):.2f} s (train, val, test); chunk "
+                  f"gc {tuple(chunk.gc.x.shape)} edges "
+                  f"{tuple(chunk.gc.senders.shape)}, gs "
+                  f"{tuple(chunk.gs.x.shape)} edges "
+                  f"{tuple(chunk.gs.senders.shape)}; Gc epoch s "
+                  f"{[round(t, 4) for t in res.gc_epoch_seconds]}, Gs "
+                  f"epoch s {[round(t, 4) for t in res.gs_epoch_seconds]}; "
+                  f"peak device memory {peaks[name]:.1f} MiB; launches 0")
+            check(len(res.gc_epoch_seconds) == ep1
+                  and len(res.gs_epoch_seconds) == ep2,
+                  f"graph train {name}: epochs {res}")
+            with open(os.path.join(tmp, "results", f"{name}.csv")) as f:
+                lines = f.read().splitlines()
+            check(lines[0] == TRAIN_GRAPH_HEADER and len(lines) == 2,
+                  f"graph train {name}: results rows {lines}")
+            row = dict(zip(lines[0].split(","), lines[1].split(",")))
+            print(f"  row: {lines[1]}")
+            for k in ("best_test_loss", "best_test_acc"):
+                check(np.isfinite(float(row[k])),
+                      f"graph train {name}: {k} {row[k]}")
+
+        torch.cuda.reset_peak_memory_stats()
+        launches, _, wall = run_cli(tmp, [
+            "infer", "--task", "graph_reg", "--num_test_samples",
+            str(GRAPH_INFER), "--output_dir", "g_qm9proxy", *GRAPH_FLAGS],
+            dataset="qm9proxy")
+    finally:
+        for patch in patches:
+            patch.stop()
+    check(not any(launches.values()), f"graph infer: launches {launches}")
+    phases["graph infer"] = launches
+    with open(os.path.join(tmp, "inference_results", "graph_reg.csv")) as f:
+        lines = f.read().splitlines()
+    check(lines[0] == INFERENCE_HEADER and len(lines) == 3,
+          f"graph infer: rows {lines}")
+    for line in lines[1:]:
+        row = dict(zip(lines[0].split(","), line.split(",")))
+        for k in ("avg_inf_time", "avg_loss", "avg_inf_time_device"):
+            check(np.isfinite(float(row[k])) and float(row[k]) > 0,
+                  f"graph infer {row['exp_setup']}: {k} {row[k]}")
+        print(f"graph infer {row['exp_setup']} ({GRAPH_INFER} molecules, "
+              f"one forward each): avg_inf_time "
+              f"{1e3 * float(row['avg_inf_time']):.4f} ms, "
+              f"avg_inf_time_device "
+              f"{1e3 * float(row['avg_inf_time_device']):.4f} ms, avg_loss "
+              f"{float(row['avg_loss']):.4f}; {wall:.1f} s wall, peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+              " MiB; launches 0")
+        print(f"  row: {line}")
+    check([line.split(",")[3] for line in lines[1:]]
+          == ["fitgnn_gs", "fitgnn_gc"], "graph infer: the views' rows")
+
+    # one train chunk's forward in both views, the card against the CPU
+    reset_counts()
+    for cfg, chunk, _ in seen["runs"]:
+        m = GraphModel(cfg.layer_name, in_dim=chunk.gc.x.shape[1],
+                       hidden=cfg.hidden, num_layers=cfg.num_layers,
+                       out_dim=cfg.out_dim, classify=cfg.classify)
+        m.load_state_dict(restore_params(os.path.join(tmp, cfg.save_path)))
+        m.eval()
+        with torch.inference_mode():
+            ref = {v: graph_loop._forward(m, chunk, v) for v in ("gc", "gs")}
+            md, bd = m.to(device), chunk.to(device)
+            got = {v: graph_loop._forward(md, bd, v) for v in ("gc", "gs")}
+        for v in ("gc", "gs"):
+            compare(f"graph {cfg.layer_name} {v} forward, card against CPU",
+                    got[v].cpu(), ref[v])
+    check(not any(read_counts().values()),
+          f"graph forwards: launches {read_counts()}")
+    print(f"graph phase: {time.perf_counter() - t_phase:.1f} s")
+    return phases
+
+
 def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     """One kernel's line: times and bounds summed over the shapes one step
     or forward launches it at (those not marked ``on_path: False``); errors
@@ -3599,6 +3789,8 @@ def main() -> int:
         del graphs
         torch.cuda.empty_cache()
         phases.update(phase_cluster_cli(tmp))
+        torch.cuda.empty_cache()
+        phases.update(phase_graph(device, tmp))
 
     kernels_line = {"kernels": [
         summarize(label, "cuda", source, replaces,

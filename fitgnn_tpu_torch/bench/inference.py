@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -46,25 +46,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def device_seconds_per_forward(model: nn.Module, g: Graph,
-                               iters: int = DEVICE_ITERS) -> float:
-    """Device time of one forward, after one warm-up forward."""
-    model(g.x, g)
-    dev = g.x.device
-    if dev.type == "cuda":
+def device_seconds_per_call(fn: Callable[[], object], device: torch.device,
+                            iters: int = DEVICE_ITERS) -> float:
+    """Device time of one ``fn()`` on ``device``, after one warm-up
+    call."""
+    fn()
+    if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(device)
         start.record()
         for _ in range(iters):
-            model(g.x, g)
+            fn()
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / 1e3 / iters
     t0 = time.perf_counter()
     for _ in range(iters):
-        model(g.x, g)
+        fn()
     return (time.perf_counter() - t0) / iters
+
+
+def device_seconds_per_forward(model: nn.Module, g: Graph,
+                               iters: int = DEVICE_ITERS) -> float:
+    """Device time of one forward, after one warm-up forward."""
+    return device_seconds_per_call(lambda: model(g.x, g), g.x.device, iters)
 
 
 def _sample_nodes(mask: np.ndarray, num_samples: int, seed: int) -> np.ndarray:

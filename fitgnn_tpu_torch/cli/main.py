@@ -25,9 +25,16 @@ size, and on ``train`` takes the tile threshold from the ingest planner
 (``--bucket_sizes``, ``--max_buckets``); ``train`` the chunked Gs eval
 (``--eval_chunk``), the Gc phase without a host read per epoch
 (``--fused_epochs``) and mid-training resume (``--resume``,
-``--checkpoint_every``).  The options not ported yet, ``memory``,
-``stats``, ``save-graphs`` and the graph-level tasks raise
-``NotImplementedError`` naming their ROADMAP item.  Every subcommand takes
+``--checkpoint_every``).  The graph-level tasks (``--task graph_cls`` and
+``graph_reg``) run the per-graph pipeline on a ``<name>_graphs.npz``
+cache: ``train`` (and ``train --baseline``, which the JAX package sends
+to the same path) coarsens each graph, collates the splits in chunks of
+``--batch_size`` and runs one of the four graph setups, saving the best
+parameters to ``save/<task>/<output_dir>/model.pt``; ``infer`` (and
+``infer-baseline``) times one forward per graph in the Gs and in the Gc
+view from that checkpoint.  The options not ported yet, ``memory``,
+``stats`` and ``save-graphs``, raise ``NotImplementedError`` naming their
+ROADMAP item.  Every subcommand takes
 ``--device {cuda,cpu}`` (default ``cuda``); asking for ``cuda`` without a
 GPU raises instead of falling back.
 """
@@ -48,6 +55,8 @@ FIXED_SPLIT_DATASETS = ("cora", "citeseer", "pubmed", "wikics")
 COMMUNITY_NODE_CAP = 165_000
 
 AUTO_COMMUNITY_NODES = 170_000
+
+GRAPH_TASKS = ("graph_cls", "graph_reg")
 
 _NOT_PORTED = {
     "memory": "ROADMAP.md §1 item 4 (memory benches)",
@@ -200,7 +209,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="inference model depth; defaults to num_layers1")
     i.add_argument("--num_test_samples", type=int, default=100)
     i.add_argument("--checkpoint", type=str, default=None,
-                   help="a torch.save'd NodeModel state dict; defaults to "
+                   help="a torch.save'd NodeModel (GraphModel on a graph task) "
+                   "state dict; defaults to "
                    "save/<task>/<output_dir>/model.pt if present")
     ib = common(sub.add_parser("infer-baseline"))
     ib.add_argument("--hidden", type=int, default=512)
@@ -210,7 +220,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="inference model depth; defaults to num_layers1")
     ib.add_argument("--num_test_samples", type=int, default=100)
     ib.add_argument("--checkpoint", type=str, default=None,
-                    help="a torch.save'd NodeModel state dict; defaults to "
+                    help="a torch.save'd NodeModel (GraphModel on a graph task) "
+                   "state dict; defaults to "
                     "save/<task>/baseline/<output_dir>/model.pt if present")
     for name in ("memory", "stats", "save-graphs"):
         common(sub.add_parser(name))
@@ -427,7 +438,6 @@ def cmd_infer(args) -> int:
     from fitgnn_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    _check_node_task(args)
     ds = _load_node(args)
     _apply_auto_config(args, ds.num_nodes)
     classify = args.task == "node_cls"
@@ -466,7 +476,6 @@ def cmd_infer_baseline(args) -> int:
     from fitgnn_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    _check_node_task(args)
     ds = _load_node(args)
     _apply_auto_config(args, ds.num_nodes)
     classify = args.task == "node_cls"
@@ -502,12 +511,6 @@ def cmd_infer_baseline(args) -> int:
     return _inference_row(args, rep, "baseline")
 
 
-def _check_node_task(args) -> None:
-    if args.task in ("graph_cls", "graph_reg"):
-        raise NotImplementedError(
-            "graph-level tasks are not ported yet (ROADMAP.md §1 item 4)")
-
-
 def _check_cluster_args(args) -> None:
     """The JAX package's ``cmd_train`` refusals of the cluster flags, with
     its messages and in its order, before any partition (the one that
@@ -519,7 +522,7 @@ def _check_cluster_args(args) -> None:
     if args.cluster_aggregation_exact and not cl_agg:
         raise SystemExit("--cluster_aggregation_exact requires "
                          "--cluster_aggregation")
-    if (cl_att or cl_agg) and args.task in ("graph_cls", "graph_reg"):
+    if (cl_att or cl_agg) and args.task in GRAPH_TASKS:
         raise SystemExit("--cluster_attention/--cluster_aggregation apply "
                          "to node-level full-graph training, not "
                          "graph-level tasks")
@@ -558,9 +561,7 @@ def _operator_line(hyb, cluster_att: int) -> str:
 
 
 def _check_train_args(args) -> None:
-    """Raise for every train option the port does not run, after the
-    cluster flags' refusals."""
-    _check_cluster_args(args)
+    """Raise for every node-task train option the port does not run."""
     for flag, is_set, item in _TRAIN_NOT_PORTED:
         if is_set(args):
             raise NotImplementedError(
@@ -573,7 +574,6 @@ def _check_train_args(args) -> None:
                     "has no resume (it reads neither --resume nor "
                     "--checkpoint_every), so neither has the port's "
                     "(ROADMAP.md §1, resume)")
-    _check_node_task(args)
 
 
 def _tile_dtype(args):
@@ -802,6 +802,116 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _graph_samples(args, gds, n: Optional[int] = None) -> list:
+    """The first ``n`` graphs of ``gds`` (all by default) coarsened into
+    ``GraphSample``s: ratio ``1 - coarsening_ratio`` (the reference's
+    semantics), the subgraphs in ``_node_mode``; host seconds printed."""
+    from fitgnn_tpu_torch.data.graph_level import prepare_graph_sample
+    n = len(gds.graphs) if n is None else n
+    t0 = time.perf_counter()
+    samples = [prepare_graph_sample(
+        x, s, r, y_, reduction=1.0 - args.coarsening_ratio,
+        method=args.coarsening_method, mode=_node_mode(args), seed=args.seed)
+        for (x, s, r), y_ in zip(gds.graphs[:n], gds.y[:n])]
+    secs = time.perf_counter() - t0
+    print(f"graph samples: {len(samples)} coarsened in {secs:.2f} s host "
+          f"({1e3 * secs / max(len(samples), 1):.2f} ms a graph)",
+          file=sys.stderr)
+    return samples
+
+
+def _cmd_train_graph(args) -> int:
+    """Graph-level training, as the JAX package's ``_cmd_train_graph``:
+    every graph coarsened, the 1/2, 1/4, 1/4 split collated in chunks of
+    ``--batch_size`` graphs of one shape, then ``run_graph_task``; the best
+    parameters go to ``save/<task>/<output_dir>/model.pt``, one row to
+    ``results/<dataset>.csv``."""
+    from fitgnn_tpu_torch.data.datasets import load_graph_dataset
+    from fitgnn_tpu_torch.data.graph_level import collate_graph_level_batches
+    from fitgnn_tpu_torch.data.splits import splits_graph_level
+    from fitgnn_tpu_torch.train.graph_loop import (GraphTaskConfig,
+                                                   run_graph_task)
+    from fitgnn_tpu_torch.utils import results as R
+    from fitgnn_tpu_torch.utils.device import resolve_device
+
+    resolve_device(args.device)
+    gds = load_graph_dataset(args.dataset, args.data_root)
+    classify = args.task == "graph_cls"
+    samples = _graph_samples(args, gds)
+    t0 = time.perf_counter()
+    bt, bv, be = (collate_graph_level_batches([samples[i] for i in idx],
+                                              args.batch_size)
+                  for idx in splits_graph_level(len(samples),
+                                                seed=args.seed))
+    print(f"graph collation: {time.perf_counter() - t0:.2f} s host, "
+          f"{len(bt)} train chunks of gc {tuple(bt[0].gc.x.shape)}, gs "
+          f"{tuple(bt[0].gs.x.shape)}", file=sys.stderr)
+
+    save_path = checkpoint_path(args.task, args.output_dir, baseline=False)
+    cfg = GraphTaskConfig(
+        layer_name=args.layer_name, hidden=args.hidden,
+        num_layers=args.num_layers1,
+        out_dim=int(gds.y.max()) + 1 if classify else 1, classify=classify,
+        exp_setup=args.exp_setup, epochs1=args.epochs1, epochs2=args.epochs2,
+        lr=args.lr, weight_decay=args.weight_decay,
+        prop=args.property if args.multi_prop else None, seed=args.seed,
+        batch_size=args.batch_size, save_path=save_path, device=args.device)
+    res = run_graph_task(cfg, bt, bv, be, verbose=True)
+    print(f"checkpoint saved: {save_path}")
+    row = R.format_row(R.TRAIN_GRAPH_HEADER, {
+        "dataset": args.dataset, "coarsening_method": args.coarsening_method,
+        "coarsening_ratio": args.coarsening_ratio,
+        "exp_setup": args.exp_setup, "layer_name": args.layer_name,
+        "extra_nodes": args.extra_node, "cluster_node": args.cluster_node,
+        "community_used": args.use_community_detection,
+        "hidden": args.hidden, "num_layers1": args.num_layers1,
+        "num_layers2": args.num_layers2, "epochs1": args.epochs1,
+        "epochs2": args.epochs2, "batch_size": args.batch_size,
+        "lr": args.lr, "best_test_loss": res.best_test_loss,
+        "best_test_acc": res.best_test_acc})
+    R.append_csv_row(f"results/{args.dataset}.csv", R.TRAIN_GRAPH_HEADER, row)
+    print(f"results/{args.dataset}.csv <- {row}")
+    return 0
+
+
+def _cmd_infer_graph(args) -> int:
+    """Graph-level inference latency, as the JAX package's
+    ``_cmd_infer_graph``: the first ``--num_test_samples`` graphs, the
+    checkpoint ``train`` saved, one row for the Gs view (``fitgnn_gs``)
+    and one for the Gc view (``fitgnn_gc``) to
+    ``inference_results/<task>.csv``."""
+    import torch
+    from fitgnn_tpu_torch.bench.graph_inference import \
+        graph_inference_benchmark
+    from fitgnn_tpu_torch.data.datasets import load_graph_dataset
+    from fitgnn_tpu_torch.models.models import GraphModel
+    from fitgnn_tpu_torch.train.checkpoint import restore_params
+    from fitgnn_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    gds = load_graph_dataset(args.dataset, args.data_root)
+    classify = args.task == "graph_cls"
+    n = min(args.num_test_samples, len(gds.graphs))
+    samples = _graph_samples(args, gds, n)
+    depth = args.num_layers2 if args.num_layers2 is not None \
+        else args.num_layers1
+    model = GraphModel(args.layer_name,
+                       in_dim=samples[0].coarse_x.shape[1],
+                       hidden=args.hidden, num_layers=depth,
+                       out_dim=int(gds.y.max()) + 1 if classify else 1,
+                       classify=classify)
+    model.reset_parameters(torch.Generator().manual_seed(args.seed))
+    ckpt = _resolve_checkpoint(args, baseline=False)
+    if ckpt:
+        model.load_state_dict(restore_params(ckpt))
+    model = model.to(device)
+    for view in ("gs", "gc"):
+        rep = graph_inference_benchmark(model, samples, gds.y[:n], view=view,
+                                        classify=classify)
+        _inference_row(args, rep, f"fitgnn_{view}")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
@@ -813,8 +923,15 @@ def main(argv=None) -> int:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     args = arg_correction(args)
     if args.command == "train":
+        # the JAX package's order: the cluster flags' refusals, then the
+        # graph tasks (--baseline included), then the node paths
+        _check_cluster_args(args)
+        if args.task in GRAPH_TASKS:
+            return _cmd_train_graph(args)
         _check_train_args(args)
         return cmd_train_baseline(args) if args.baseline else cmd_train(args)
+    if args.task in GRAPH_TASKS:       # infer and infer-baseline alike
+        return _cmd_infer_graph(args)
     if args.command == "infer":
         return cmd_infer(args)
     return cmd_infer_baseline(args)

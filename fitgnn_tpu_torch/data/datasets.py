@@ -1,10 +1,13 @@
-"""Node-task datasets: the standardized npz cache.
+"""Datasets: the standardized npz caches.
 
-A dataset lives at ``<root>/<name>/<name>.npz`` with arrays ``x``,
-``senders``, ``receivers``, ``y`` and optional ``train_mask``,
+A node-task dataset lives at ``<root>/<name>/<name>.npz`` with arrays
+``x``, ``senders``, ``receivers``, ``y`` and optional ``train_mask``,
 ``val_mask``, ``test_mask`` — the JAX package's cache format, written by
 ``save_npz_cache``.  ``random`` / ``random_<N>`` is the synthetic ring,
-made on the fly.  The loaders of raw formats (Planetoid, OGB, TU, WikiCS,
+made on the fly.  A graph-level dataset lives at
+``<root>/<name>/<name>_graphs.npz``: an object array ``graphs`` of
+``(x, senders, receivers)`` and the targets ``y`` (``save_graph_cache``).
+The loaders of raw formats (Planetoid, OGB, TU, ZINC, QM9, WikiCS,
 GraphSAINT, ...) are not ported yet and raise.
 """
 
@@ -12,13 +15,15 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 NODE_CLS = ("cora", "citeseer", "pubmed", "dblp", "physics", "wikics",
             "ogbn-arxiv", "ogbn-products", "ogbn-proteins", "flickr")
 NODE_REG = ("chameleon", "squirrel", "crocodile")
+GRAPH_CLS = ("ENZYMES", "PROTEINS", "AIDS")
+GRAPH_REG = ("QM9", "ZINC", "ZINC_subset")
 
 
 @dataclasses.dataclass
@@ -40,6 +45,13 @@ class NodeDataset:
     def num_classes(self):
         return int(self.y.max()) + 1 if np.issubdtype(self.y.dtype,
                                                       np.integer) else 0
+
+
+@dataclasses.dataclass
+class GraphDataset:
+    name: str
+    graphs: List[Tuple[np.ndarray, np.ndarray, np.ndarray]]  # (x, s, r)
+    y: np.ndarray                       # (B,) labels or (B, T) targets
 
 
 class DatasetNotFoundError(FileNotFoundError):
@@ -97,3 +109,30 @@ def load_node_dataset(name: str, root: str = "./dataset") -> NodeDataset:
             f"{key!r} is not ported yet (ROADMAP.md §1); convert it with "
             "the JAX package's loader and save_npz_cache")
     raise _missing(name, root, f"{key}.npz standardized cache")
+
+
+def save_graph_cache(path: str, ds: GraphDataset) -> None:
+    """Write ``ds`` as a ``<name>_graphs.npz`` cache: ``graphs`` an object
+    array of ``(x, senders, receivers)`` tuples, ``y`` the targets."""
+    graphs = np.empty(len(ds.graphs), dtype=object)
+    for i, g in enumerate(ds.graphs):
+        graphs[i] = tuple(g)
+    np.savez_compressed(path, graphs=graphs, y=np.asarray(ds.y))
+
+
+def load_graph_dataset(name: str, root: str = "./dataset") -> GraphDataset:
+    """Load a graph-level dataset from its ``<name>_graphs.npz`` cache (the
+    JAX package's format; the cache holds pickled objects, so load only
+    caches this program or the JAX package wrote)."""
+    cache = os.path.join(root, name, f"{name}_graphs.npz")
+    if os.path.exists(cache):
+        with np.load(cache, allow_pickle=True) as z:
+            return GraphDataset(name=name, graphs=list(z["graphs"]),
+                                y=z["y"])
+    if name in GRAPH_CLS or name.startswith("ZINC") or name == "QM9":
+        raise NotImplementedError(
+            f"no graph cache at {cache!r}, and the raw-format loader for "
+            f"{name!r} is not ported yet (ROADMAP.md §1, other dataset "
+            "loaders); convert it with the JAX package's loader into a "
+            "<name>_graphs.npz cache")
+    raise _missing(name, root, f"{name}_graphs.npz graph cache")

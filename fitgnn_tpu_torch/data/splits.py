@@ -1,9 +1,10 @@
-"""Split generators for node tasks.
+"""Split generators.
 
-* classification: ``random`` (20 train / 30 val per class), ``few`` (5/5
-  per class), ``ogbn_split`` (8 % / 2 % / 90 %); ``fixed`` keeps the
+* node classification: ``random`` (20 train / 30 val per class), ``few``
+  (5/5 per class), ``ogbn_split`` (8 % / 2 % / 90 %); ``fixed`` keeps the
   dataset's masks and is handled by the caller
-* regression: ratio-based random split
+* node regression: ratio-based random split
+* graph-level tasks: 1/2 train, 1/4 val, 1/4 test over shuffled graphs
 """
 
 from __future__ import annotations
@@ -57,3 +58,13 @@ def splits_regression(num_nodes: int, train_ratio: float, val_ratio: float,
     val[perm[n_tr:n_tr + n_va]] = True
     test[perm[n_tr + n_va:]] = True
     return train, val, test
+
+
+def splits_graph_level(num_graphs: int, seed: int = 0):
+    """(train, val, test) graph indices: 1/2, 1/4 and the rest of a
+    permutation, as the JAX package's ``splits_graph_level``."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(num_graphs)
+    n_tr = num_graphs // 2
+    n_va = num_graphs // 4
+    return perm[:n_tr], perm[n_tr:n_tr + n_va], perm[n_tr + n_va:]

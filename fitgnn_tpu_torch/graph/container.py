@@ -50,6 +50,14 @@ class Graph(NamedTuple):
         return self.x.shape[-2]
 
     @property
+    def node_mask(self) -> torch.Tensor:
+        """(N_pad,) bool, True on real nodes (padding nodes come last);
+        (S, N_pad) for a stack."""
+        n_node = self.n_node.to(self.x.device)
+        return torch.arange(self.x.shape[-2],
+                            device=self.x.device) < n_node[..., None]
+
+    @property
     def edge_mask(self) -> torch.Tensor:
         """(E_pad,) bool, True on real edges (padding edges come last);
         (S, E_pad) for a stack."""

@@ -1,4 +1,5 @@
-"""Parameters trained by the JAX package → the port's ``NodeModel``."""
+"""Parameters trained by the JAX package → the port's ``NodeModel`` or
+``GraphModel`` (the same keys: ``convs/<Layer>_<i>`` and ``head``)."""
 
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ def _t(a) -> torch.Tensor:
 
 
 def params_from_flax(tree: Mapping) -> dict:
-    """Map a flax ``NodeModel`` parameter tree (GCN, GAT, SAGE or GIN,
+    """Map a flax ``NodeModel`` or ``GraphModel`` parameter tree (GCN,
+    GAT, SAGE or GIN,
     pre-aggregated or not: the trees are the same; nested mappings of numpy
     arrays, with or without the top-level ``params`` key) onto the port's
     state dict.  flax kernels are (in, out); ``nn.Linear`` stores (out,

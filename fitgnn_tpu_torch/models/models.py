@@ -1,7 +1,13 @@
-"""Node-task model: conv stack + dense head.
+"""Task models: conv stack + dense head.
 
 ``NodeModel`` is the JAX package's ``NodeModel`` (convs → dense head;
-log_softmax for classification, the raw scalar for regression).  Dropout
+log_softmax for classification, the raw scalar for regression).
+``GraphModel`` is its ``GraphModel``: convs → a masked pool over each
+sample's rows (max for classification, mean for regression) → dense head;
+softmax for classification.  Its Gc view (``forward``) runs on a
+block-diagonal batch of coarse graphs, its Gs view
+(``forward_subgraphs``) on every subgraph of a ``SubgraphBatch`` at once;
+both take the same parameters.  Dropout
 runs only in train mode (``model.train()``) and draws from a
 ``torch.Generator`` the caller passes to ``forward``, never from torch's
 global generator; eval mode (the serve path) has no dropout.  The dropout
@@ -26,12 +32,13 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from fitgnn_tpu_torch.graph.container import Graph
+from fitgnn_tpu_torch.graph.container import Graph, SubgraphBatch
 from fitgnn_tpu_torch.models.layers import (GCNConv, GINConv, SAGEConv,
                                             gin_aggregator, lecun_normal_,
                                             make_layer, sage_aggregator)
 from fitgnn_tpu_torch.ops.dropout import fused_dropout, seed_from_generator
 from fitgnn_tpu_torch.ops.hybrid_spmm import HybridSpmm, hybrid_spmm
+from fitgnn_tpu_torch.ops.segment import segment_max, segment_mean
 from fitgnn_tpu_torch.ops.spmm import spmm_coo
 
 
@@ -164,6 +171,52 @@ class NodeModel(nn.Module):
         if self.classify:
             return F.log_softmax(out.float(), dim=-1)
         return out.float()
+
+
+class GraphModel(nn.Module):
+    """Graph-level model.  Dropout as ``ConvStack``'s (bit dropout at the
+    default rate ½, as the JAX ``GraphModel``'s stack)."""
+
+    def __init__(self, layer_name: str, in_dim: int, hidden: int,
+                 num_layers: int, out_dim: int, classify: bool = True,
+                 dropout_rate: float = 0.5):
+        super().__init__()
+        self.classify = classify
+        self.convs = ConvStack(layer_name, in_dim, hidden, num_layers,
+                               dropout_rate)
+        self.head = nn.Linear(hidden, out_dim)
+
+    reset_parameters = NodeModel.reset_parameters
+
+    def _pool_and_head(self, h: torch.Tensor, segment_ids: torch.Tensor,
+                       num_graphs: int, mask: torch.Tensor) -> torch.Tensor:
+        pool = segment_max if self.classify else segment_mean
+        out = self.head(pool(h, segment_ids, num_graphs, mask=mask))
+        if self.classify:
+            return F.softmax(out.float(), dim=-1)
+        return out.float()
+
+    def forward(self, x: torch.Tensor, g: Graph, graph_ids: torch.Tensor,
+                num_graphs: int,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Gc view: ``g`` is a block-diagonal batch of coarse graphs and
+        ``graph_ids`` (N_pad,) assigns each node to its sample (PyG's
+        ``batch``); padding nodes are left out of the pool.  (num_graphs,
+        out_dim) probabilities or raw outputs."""
+        h = self.convs(x, g, generator)
+        return self._pool_and_head(h, graph_ids, num_graphs, g.node_mask)
+
+    def forward_subgraphs(self, batch: SubgraphBatch,
+                          graph_ids: torch.Tensor, num_graphs: int,
+                          generator: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+        """Gs view: the stack on every subgraph at once, then one pool
+        over each sample's consuming rows across its subgraphs;
+        ``graph_ids`` (S, N_pad) gives each node slot's sample."""
+        h = self.convs(batch.x, batch.graphs(), generator)
+        return self._pool_and_head(h.reshape(-1, h.shape[-1]),
+                                   graph_ids.reshape(-1), num_graphs,
+                                   batch.consume_mask.reshape(-1))
 
 
 def preaggregate_features(g: Graph) -> torch.Tensor:

@@ -16,6 +16,11 @@ TRAIN_NODE_REG_HEADER = (
     "cluster_node,community_used,hidden,runs,num_layers,batch_size,lr,"
     "ave_time,top_10_loss,best_loss")
 
+TRAIN_GRAPH_HEADER = (
+    "dataset,coarsening_method,coarsening_ratio,exp_setup,layer_name,"
+    "extra_nodes,cluster_node,community_used,hidden,num_layers1,num_layers2,"
+    "epochs1,epochs2,batch_size,lr,best_test_loss,best_test_acc")
+
 # avg_inf_time is wall-clock per sampled forward; avg_inf_time_device is
 # the device time of one forward (bench.inference)
 INFERENCE_HEADER = (

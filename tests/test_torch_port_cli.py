@@ -1,4 +1,6 @@
-"""The port's ``infer-baseline`` CLI against the JAX package, on the CPU."""
+"""The port's CLI against the JAX package, on the CPU: ``infer-baseline``
+on a node dataset, ``train`` and ``infer`` on a graph-level one, the
+dataset loaders, and the import rule (no JAX in the port)."""
 
 import os
 import subprocess
@@ -12,6 +14,8 @@ import jax
 
 from fitgnn_tpu.bench.inference import \
     baseline_inference_benchmark as jax_baseline_benchmark
+from fitgnn_tpu.data.datasets import \
+    load_graph_dataset as jax_load_graph_dataset
 from fitgnn_tpu.data.splits import \
     splits_classification as jax_splits_classification
 from fitgnn_tpu.data.splits import splits_regression as jax_splits_regression
@@ -22,9 +26,12 @@ from fitgnn_tpu.utils.results import format_row as jax_format_row
 
 from fitgnn_tpu_torch.cli.main import main
 from fitgnn_tpu_torch.data.datasets import (DatasetNotFoundError, NodeDataset,
-                                            load_node_dataset, save_npz_cache)
+                                            load_graph_dataset,
+                                            load_node_dataset,
+                                            save_graph_cache, save_npz_cache)
 from fitgnn_tpu_torch.data.splits import (splits_classification,
                                           splits_regression)
+from fitgnn_tpu_torch.data.synthetic import random_graph_dataset
 from fitgnn_tpu_torch.models.convert import params_from_flax
 from fitgnn_tpu_torch.utils.results import INFERENCE_HEADER, format_row
 
@@ -117,10 +124,93 @@ def test_unported_subcommands_raise(command):
         main([*command, "--dataset", "toy", "--device", "cpu"])
 
 
-def test_graph_tasks_raise(toy):
-    tmp_path, _ = toy
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run(tmp_path, "--task", "graph_cls")
+@pytest.fixture
+def toyg(tmp_path, monkeypatch):
+    """24 graphs of ``random_graph_dataset`` as a ``toyg_graphs.npz``
+    cache, written as the JAX package's tests write it; the working
+    directory is ``tmp_path``."""
+    graphs, y = random_graph_dataset(num_graphs=24, seed=0)
+    os.makedirs(tmp_path / "dataset" / "toyg")
+    arr = np.empty(len(graphs), dtype=object)
+    for i, g in enumerate(graphs):
+        arr[i] = g
+    np.savez(str(tmp_path / "dataset" / "toyg" / "toyg_graphs.npz"),
+             graphs=arr, y=y)
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
+def _csv_rows(path):
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return lines[0], [dict(zip(lines[0].split(","), line.split(",")))
+                      for line in lines[1:]]
+
+
+_GRAPH_METRICS = ("best_test_loss", "best_test_acc", "avg_inf_time",
+                  "avg_loss", "acc", "avg_inf_time_device")
+
+
+def test_graph_tasks_raise(toyg):
+    """``--task graph_cls`` raises on the cuda default without a GPU, and
+    with ``--device cpu`` runs ``train`` then ``infer`` (from train's
+    checkpoint), writing the JAX CLI's rows: the same headers, the same
+    values outside the metrics, finite metrics."""
+    from fitgnn_tpu.cli.main import main as jax_main
+    root = str(toyg / "dataset")
+    train = ["train", "--task", "graph_cls", "--dataset", "toyg",
+             "--data_root", root, "--hidden", "8", "--epochs1", "3",
+             "--epochs2", "2", "--batch_size", "5", "--exp_setup",
+             "Gc_train_2_Gs_train", "--extra_node"]
+    infer = ["infer", "--task", "graph_cls", "--dataset", "toyg",
+             "--data_root", root, "--hidden", "8", "--num_test_samples",
+             "4", "--extra_node"]
+    if not torch.cuda.is_available():
+        for argv in (train, infer):
+            with pytest.raises(RuntimeError, match="--device cpu"):
+                main(argv)
+    assert main([*train, "--device", "cpu"]) == 0
+    assert (toyg / "save" / "graph_cls" / "out" / "model.pt").exists()
+    assert main([*infer, "--device", "cpu"]) == 0
+    os.makedirs(toyg / "jax")
+    os.chdir(toyg / "jax")
+    assert jax_main(train) == 0 and jax_main(infer) == 0
+    for rel, n in (("results/toyg.csv", 1),
+                   ("inference_results/graph_cls.csv", 2)):
+        head, rows = _csv_rows(toyg / rel)
+        jax_head, jax_rows = _csv_rows(toyg / "jax" / rel)
+        assert head == jax_head and len(rows) == len(jax_rows) == n
+        for row, jrow in zip(rows, jax_rows):
+            assert set(row) == set(jrow)
+            for k in row:
+                if k in _GRAPH_METRICS:
+                    assert np.isfinite(float(row[k])), (k, row[k])
+                else:
+                    assert row[k] == jrow[k], (k, row[k], jrow[k])
+    assert rows[0]["exp_setup"] == "fitgnn_gs"
+    assert rows[1]["exp_setup"] == "fitgnn_gc"
+
+
+def test_graph_dataset_loading(toyg):
+    got = load_graph_dataset("toyg", str(toyg / "dataset"))
+    ref = jax_load_graph_dataset("toyg", str(toyg / "dataset"))
+    assert len(got.graphs) == len(ref.graphs) == 24
+    for a, b in zip(got.graphs, ref.graphs):
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u, v)
+    np.testing.assert_array_equal(got.y, ref.y)
+    save_graph_cache(str(toyg / "copy_graphs.npz"), got)
+    os.makedirs(toyg / "dataset" / "copy")
+    os.replace(toyg / "copy_graphs.npz",
+               toyg / "dataset" / "copy" / "copy_graphs.npz")
+    again = jax_load_graph_dataset("copy", str(toyg / "dataset"))
+    for a, b in zip(again.graphs, ref.graphs):
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u, v)
+    with pytest.raises(NotImplementedError, match="other dataset loaders"):
+        load_graph_dataset("QM9", str(toyg))
+    with pytest.raises(DatasetNotFoundError):
+        load_graph_dataset("nope", str(toyg))
 
 
 def test_splits_match_jax():

@@ -1253,3 +1253,35 @@ def test_bf16_k7_rowmax_and_score_pass_match_f32(cuda, case, feat):
     for a, b, c in zip(got, f32, ref):
         assert _bf16_nan_equal(a, b)
         _close(a, c)
+
+
+@pytest.mark.parametrize("layer", ["GCNConv", "GATConv"])
+@pytest.mark.parametrize("classify", [True, False], ids=["cls", "reg"])
+def test_graph_model_on_card_matches_cpu(cuda, layer, classify):
+    """``GraphModel``'s Gc view (above 512 coarse nodes: the per-edge
+    branch) and Gs view (the dense batched branch) on the card against the
+    CPU with the same parameters; no kernel of the port launches."""
+    from fitgnn_tpu_torch.data.graph_level import (collate_graph_level,
+                                                   prepare_graph_sample)
+    from fitgnn_tpu_torch.data.synthetic import qm9_like_dataset
+    from fitgnn_tpu_torch.models.models import GraphModel
+    from fitgnn_tpu_torch.train.graph_loop import _forward
+    graphs, y_reg, y_cls = qm9_like_dataset(128, seed=0)
+    y = y_cls if classify else y_reg
+    b = collate_graph_level([
+        prepare_graph_sample(x, s, r, y_, reduction=0.5, mode="extra_node")
+        for (x, s, r), y_ in zip(graphs, y)])
+    assert b.gc.num_nodes_padded > 512 and b.gs.num_nodes_padded <= 512
+    m = GraphModel(layer, in_dim=11, hidden=512, num_layers=2,
+                   out_dim=2 if classify else 1, classify=classify)
+    m.reset_parameters(torch.Generator().manual_seed(0)).eval()
+    counts = (segmm_spmm.launches, bsr_spmm_acc.launches)
+    with torch.inference_mode():
+        ref = {v: _forward(m, b, v) for v in ("gc", "gs")}
+        mc, bc = m.to(cuda), b.to(cuda)
+        got = {v: _forward(mc, bc, v) for v in ("gc", "gs")}
+    torch.cuda.synchronize()
+    assert (segmm_spmm.launches, bsr_spmm_acc.launches) == counts
+    for v in ("gc", "gs"):
+        assert got[v].shape == (128, 2 if classify else 1)
+        _close(got[v].cpu(), ref[v])

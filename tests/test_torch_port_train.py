@@ -315,11 +315,42 @@ def test_train_baseline_node_reg(toy):
 @pytest.mark.parametrize("flags", [
     ["--num_devices", "2"], ["--baseline", "--num_devices", "2"],
     ["--baseline", "--resume"],
-    ["--baseline", "--checkpoint_every", "5"],
-    ["--baseline", "--task", "graph_cls"]])
+    ["--baseline", "--checkpoint_every", "5"]])
 def test_unported_train_options_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["train", "--dataset", "toy", *flags])
+
+
+def test_train_baseline_graph_task_runs_graph_path(tmp_path, monkeypatch):
+    """``train --baseline --task graph_reg`` takes the graph path, as the
+    JAX package's ``cmd_train`` does (it branches on the task first): a
+    TRAIN_GRAPH_HEADER row and the graph checkpoint, no baseline one."""
+    from fitgnn_tpu_torch.data.datasets import GraphDataset, save_graph_cache
+    from fitgnn_tpu_torch.data.synthetic import qm9_like_dataset
+    graphs, y_reg, _ = qm9_like_dataset(24, seed=0)
+    os.makedirs(tmp_path / "dataset" / "qm")
+    save_graph_cache(str(tmp_path / "dataset" / "qm" / "qm_graphs.npz"),
+                     GraphDataset("qm", graphs, y_reg))
+    monkeypatch.chdir(tmp_path)
+    assert main(["train", "--baseline", "--task", "graph_reg", "--dataset",
+                 "qm", "--data_root", str(tmp_path / "dataset"), "--hidden",
+                 "8", "--epochs1", "3", "--exp_setup", "Gc_train_2_Gc_infer",
+                 "--device", "cpu"]) == 0
+    with open(tmp_path / "results" / "qm.csv") as f:
+        lines = f.read().splitlines()
+    assert lines[0] == jax_results.TRAIN_GRAPH_HEADER and len(lines) == 2
+    row = dict(zip(lines[0].split(","), lines[1].split(",")))
+    assert row["exp_setup"] == "Gc_train_2_Gc_infer"
+    assert np.isfinite(float(row["best_test_loss"]))
+    assert (tmp_path / "save" / "graph_reg" / "out" / "model.pt").exists()
+    assert not (tmp_path / "save" / "graph_reg" / "baseline").exists()
+    # infer-baseline on a graph task serves train's checkpoint, as infer
+    assert main(["infer-baseline", "--task", "graph_reg", "--dataset", "qm",
+                 "--data_root", str(tmp_path / "dataset"), "--hidden", "8",
+                 "--num_test_samples", "4", "--device", "cpu"]) == 0
+    with open(tmp_path / "inference_results" / "graph_reg.csv") as f:
+        rows = [line.split(",") for line in f.read().splitlines()[1:]]
+    assert [r[3] for r in rows] == ["fitgnn_gs", "fitgnn_gc"]
 
 
 # the cluster flags' refusals, raised before any data is read, with the JAX
