@@ -207,10 +207,26 @@ Phases (any failure exits non-zero before the result lines):
    graph path reaches no Pallas kernel); then one train chunk's forward in
    both views on the card against the CPU with each run's saved
    parameters (tolerance as in phase 3);
-14. one JSON line with every kernel's numbers, the bf16 forms as their
-   own entries (launches summed over the main-path phases 5 to 12, per
-   phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and K7sums with
-   their ``ptxas`` register and spill counts), then the ``ok`` line.
+14. tiles of edge 256 (``phase_block_*``, ~60 s): the bench graph's GCN
+   operators built by ``build_hybrid(block=256)`` on phase 3's node order,
+   as ``bench.py`` composes them (threshold 48; threshold 192 with
+   ``use_diag``; threshold 48 with ``tile_group=2``), their tiles,
+   diagonal blocks and stragglers beside the split expected; K1
+   (forward and on the transpose), K2, K9 and K8 (both orientations, from
+   init and from zero) at edge 256 on f32 and bf16 tiles at F=128 and
+   512, each against its plain version (tolerance as in phase 3) with its
+   kernel, plain and library times and its bound; then, every counter at
+   0 just before each run, one eval forward and one ``gc_train_step`` of
+   GCN at hidden 512 with K11's dropout on each operator in f32 and bf16,
+   launching phase 4's and 5's counts at 128 (K1 / K8 / K9 in their
+   ``@256`` forms) and held against the plain versions, two eval forwards
+   on the forward-only operator (K2), and the step's ms on each f32
+   operator beside the edge-128 operator's;
+15. one JSON line with every kernel's numbers, the bf16 forms and the
+   forms at edge 256 (``K1@256``, ``K1bf@256``, ...) as their own entries
+   (launches summed over the main-path phases 5 to 14, per phase beside
+   them; K3, K3w, K6, K5, K7f, K7bt, K7s and K7sums with their ``ptxas``
+   register and spill counts), then the ``ok`` line.
 
 The JAX package's environment switches are set in ``os.environ`` for one
 phase and restored after it; the earlier phases must launch none of K6
@@ -283,13 +299,14 @@ def make_graph():
 
 def walk_args(kernel_name: str):
     """(TRANS, INIT, DIAG, hook) of a ``sparse::walk_kernel<TRANS, INIT,
-    VEC, DIAG, V, T, ROUND_X>`` launch by its demangled name, ``hook`` the
-    value hook's name without its namespace ("Plain", K7f's "FwdScores",
-    K7bt's "DxScores"), or None for any other kernel (the profile scripts
-    group the walk's users by these; the tile type T and ROUND_X, the bf16
-    forms', do not change the group)."""
+    VEC, DIAG, V, T, ROUND_X, QUAD>`` launch by its demangled name, ``hook``
+    the value hook's name without its namespace ("Plain", K7f's
+    "FwdScores", K7bt's "DxScores"), or None for any other kernel (the
+    profile scripts group the walk's users by these; the tile type T and
+    ROUND_X, the bf16 forms', and QUAD, the quadrant walk of tiles wider
+    than 128, do not change the group)."""
     m = re.search(r"sparse::walk_kernel<(\w+),(\w+),(\w+),(\w+),"
-                  r"(?:\w+::)*(\w+)(?:,\w+,\w+)?>",
+                  r"(?:\w+::)*(\w+)(?:,\w+)*>",
                   kernel_name.replace(" ", ""))
     if m is None:
         return None
@@ -468,8 +485,8 @@ def tile_csr(b, n: int) -> tuple:
     """The CSR of a BCSR operator's tile non-zeros (the library yardstick's
     operand) and their count."""
     nz = b.blocks.nonzero()
-    rows = b.rows.long()[nz[:, 0]] * 128 + nz[:, 1]
-    cols = b.cols.long()[nz[:, 0]] * 128 + nz[:, 2]
+    rows = b.rows.long()[nz[:, 0]] * b.block + nz[:, 1]
+    cols = b.cols.long()[nz[:, 0]] * b.block + nz[:, 2]
     csr = torch.sparse_coo_tensor(
         torch.stack([rows, cols]), b.blocks[nz[:, 0], nz[:, 1], nz[:, 2]],
         (n, n)).coalesce().to_sparse_csr()
@@ -3599,6 +3616,344 @@ def phase_graph(device, tmp) -> dict:
     return phases
 
 
+# ---- phase 14: tiles of edge 256 ----------------------------------------
+
+EDGE = 256
+# the bench graph's two operators at edge 256 (bench.py's
+# FITGNN_BENCH_BLOCK=256 builds build_hybrid(block=256); its threshold rule
+# takes 48 × 4 = 192 with the edge) and the split they give (live tiles,
+# of which on the diagonal; live diagonal blocks; stragglers).  The split
+# is the JAX package's rule, which counts the weight-0 padding edges
+# toward a tile's threshold: at 192 they make the last diagonal block,
+# which holds the pad node, dense (662 blocks, not the 661 that the real
+# edges alone reach).  tests/test_torch_port_block.py holds the split
+# against the JAX package's on a cut of the graph.
+EDGE_OPS = {"t48": (dict(min_block_edges=48), (1_174, 662, 0, 225_132)),
+            "t192diag": (dict(min_block_edges=192, use_diag=True),
+                         (16, 0, 662, 284_690))}
+# the forms counted at edge 256 ("K1@256", "K1bf@256", ...)
+EDGE_IDS = ("K1", "K2", "K8", "K9", "K1bf", "K2bf", "K8bf", "K9bf")
+# one GCN train step (hidden 512, dropout 0.5 through K11) and one eval
+# forward on each operator at 256: phase 4's and 5's counts at 128
+EDGE_STEP = {"t48": {"K3": 3, "K1": 3, "K11": 4},
+             "t192diag": {"K3": 3, "K8": 3, "K1": 3, "K11": 4},
+             "group2": {"K3": 3, "K9": 3, "K11": 4}}
+EDGE_EVAL = {"t48": {"K3": 2, "K1": 2},
+             "t192diag": {"K3": 2, "K8": 2, "K1": 2},
+             "group2": {"K3": 2, "K9": 2}}
+EDGE_TIMED_STEPS = 10
+
+
+def at_edge(counts: dict) -> dict:
+    """Launch counts of a run at edge 256, the tile kernels under their
+    ``@256`` IDs."""
+    return {f"{k}@{EDGE}" if k in EDGE_IDS else k: v
+            for k, v in counts.items()}
+
+
+def bf16_tiles(h):
+    """A hybrid operator with its tiles and diagonal blocks in bf16 (what
+    ``build_hybrid(tile_dtype=torch.bfloat16)`` builds: f32, then cast)."""
+    b = h.bsr
+    bsr = dataclasses.replace(
+        b, blocks=b.blocks.to(torch.bfloat16),
+        transpose=dataclasses.replace(
+            b.transpose, blocks=b.transpose.blocks.to(torch.bfloat16)))
+    return dataclasses.replace(
+        h, bsr=bsr, diag_blocks=None if h.diag_blocks is None
+        else h.diag_blocks.to(torch.bfloat16))
+
+
+def block_operators(g) -> dict:
+    """The bench graph's GCN operators at edge 256 on phase 3's node order
+    (``build_hybrid(block=256)``, as ``bench.py`` composes it): threshold
+    48, threshold 192 with ``use_diag``, and threshold 48 with
+    ``tile_group=2``; their tiles, diagonal blocks and stragglers printed
+    beside ``EDGE_OPS``'."""
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+
+    s, r = g.senders.numpy(), g.receivers.numpy()
+    w, n = g.edge_weight.numpy(), g.num_nodes_padded
+    t0 = time.perf_counter()
+    ops = {name: build_hybrid(s, r, w, n, block=EDGE, use_segmm=True, **kw)
+           for name, (kw, _) in EDGE_OPS.items()}
+    ops["group2"] = build_hybrid(s, r, w, n, block=EDGE, use_segmm=True,
+                                 min_block_edges=48, tile_group=2)
+    print(f"edge-{EDGE} ingest (3 operators): "
+          f"{time.perf_counter() - t0:.1f} s; N_pad {n} = {n // EDGE} x "
+          f"{EDGE}")
+    for name, h in ops.items():
+        b = h.bsr
+        check(b is not None and b.block == EDGE
+              and b.blocks.shape[1:] == (EDGE, EDGE),
+              f"edge {EDGE} {name}: no {EDGE}-wide tile")
+        live = (b.blocks != 0).flatten(1).any(1)
+        tiles = int(live.sum())
+        on_diag = int((live & (b.rows == b.cols)).sum())
+        diag = (0 if h.diag_blocks is None
+                else int((h.diag_blocks != 0).flatten(1).any(1).sum()))
+        stragglers = int((h.weights != 0).sum())
+        got = (tiles, on_diag, diag, stragglers)
+        ref = EDGE_OPS.get(name, (None, got))[1]
+        print(f"edge {EDGE} {name}: {tiles} tiles ({on_diag} on the "
+              f"diagonal; +{b.nnz_blocks - tiles} fillers and pads), {diag} "
+              f"diagonal blocks (diag_r {h.diag_r}), {stragglers} "
+              f"stragglers; f32 tiles {b.blocks.numel() * 4 / 2**20:.1f} MiB "
+              f"a direction; expected {ref} (diff "
+              f"{tuple(a - c for a, c in zip(got, ref))})")
+    check(ops["t192diag"].diag_r > 0, "t192diag: no K8 chain")
+    return ops
+
+
+def phase_block_kernels(device, ops) -> dict:
+    """K1 (forward and on the transpose), K2, K9 (``tile_group=2``) and K8
+    (forward and transposed, from init and from zero) at edge 256, f32
+    and bf16 tiles, at F=128 and 512, each against its plain version with
+    its kernel, plain and library times and its bound (live tiles of
+    256 x 256 at 4 or 2 bytes an entry)."""
+    from fitgnn_tpu_torch.ops.bsr_spmm import (bsr_spmm_acc,
+                                               bsr_spmm_acc_plain,
+                                               bsr_spmm_fwd,
+                                               bsr_spmm_grouped,
+                                               bsr_spmm_plain)
+    from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm, diag_spmm_plain
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(14)
+    out = {f"{k}@{EDGE}": [] for k in EDGE_IDS}
+    for tt in ("f32", "bf16"):
+        cast = bf16_tiles if tt == "bf16" else (lambda h: h)
+        suffix, width = ("bf", 2) if tt == "bf16" else ("", 4)
+        h48 = cast(ops["t48"]).to(device)
+        bg = cast(ops["group2"]).bsr.to(device)
+        hd = cast(ops["t192diag"]).to(device)
+        diag, r8 = hd.diag_blocks, hd.diag_r
+        n = h48.num_nodes
+        nb = n // EDGE
+        diag_live = int((diag != 0).flatten(1).any(1).sum())
+        diag_nnz = int((diag != 0).sum())
+        diag32 = diag.float()
+        rows = {}
+        for what, b in (("forward", h48.bsr), ("transpose",
+                                                 h48.bsr.transpose)):
+            live = (b.blocks != 0).flatten(1).any(1)
+            csr, nnz = tile_csr(dataclasses.replace(
+                b, blocks=b.blocks.float()), n)
+            rows[what] = (b, csr, nnz, int(live.sum()),
+                          int(torch.unique(b.cols[live]).numel()))
+
+        def show(k, sh):
+            print(f"  {k}{suffix}@{EDGE} {sh['shape']}: kernel_ms="
+                  f"{sh['ms']:.4f} plain_ms={sh['plain_ms']:.4f} "
+                  f"library_ms={sh['library_ms']:.4f} bound_ms="
+                  f"{sh['bound_ms']:.4f} ({sh['bound_by']})")
+
+        with torch.inference_mode():
+            for feat in (NUM_FEATURES, HIDDEN):
+                x = torch.randn((n, feat), generator=gen, device=device)
+                xl = x.to(torch.bfloat16).float() if tt == "bf16" else x
+                init = torch.randn((n, feat), generator=gen, device=device)
+                print(f"edge {EDGE} {tt} F={feat}:")
+                for what, (b, csr, nnz, tiles, uniq) in rows.items():
+                    # the live tiles, the indices, the distinct slabs, init
+                    # and out; 2 FLOPs per tile non-zero and feature
+                    slabs = uniq * EDGE * feat * 4
+                    b1, by1 = bound(tiles * EDGE * EDGE * width
+                                    + (2 * b.nnz_blocks + nb + 1) * 4
+                                    + slabs + 2 * n * feat * 4,
+                                    2.0 * nnz * feat)
+                    tag = (f"F={feat}"
+                           f"{' transpose' if what == 'transpose' else ''}")
+                    got = bsr_spmm_acc(b, x, init)
+                    ref = bsr_spmm_acc_plain(b, x, init)
+                    torch.cuda.synchronize()
+                    err = compare(f"K1{suffix}@{EDGE} bsr_spmm_acc {tag}",
+                                  got, ref)
+                    compare(f"K1{suffix}@{EDGE} library torch.sparse.addmm "
+                            f"{tag}", torch.sparse.addmm(init, csr, xl), ref)
+                    sh = dict(
+                        F=feat, shape=tag,
+                        on_path=what == "forward" or feat == HIDDEN,
+                        **err, bound_ms=b1, bound_by=by1,
+                        ms=cuda_ms(lambda: bsr_spmm_acc(b, x, init), 20),
+                        plain_ms=cuda_ms(lambda: bsr_spmm_acc_plain(
+                            b, x, init), 5),
+                        library_ms=cuda_ms(lambda: torch.sparse.addmm(
+                            init, csr, xl), 20))
+                    out[f"K1{suffix}@{EDGE}"].append(sh)
+                    show("K1", sh)
+                b, csr, nnz, tiles, uniq = rows["forward"]
+                bw, byw = bound(tiles * EDGE * EDGE * width
+                                + (tiles + nb + 1) * 4
+                                + uniq * EDGE * feat * 4 + n * feat * 4,
+                                2.0 * nnz * feat)
+                ref = bsr_spmm_plain(b, x)
+                for k, (bk, walk) in (("K2", (b, bsr_spmm_fwd)),
+                                      ("K9", (bg, bsr_spmm_grouped))):
+                    got = walk(bk, x)
+                    torch.cuda.synchronize()
+                    err = compare(f"{k}{suffix}@{EDGE} {walk.__name__} "
+                                  f"F={feat}", got, bsr_spmm_plain(bk, x))
+                    compare(f"{k}{suffix}@{EDGE} vs the grid walk's plain "
+                            f"version F={feat}", got, ref)
+                    sh = dict(F=feat, shape=f"F={feat}", **err, bound_ms=bw,
+                              bound_by=byw,
+                              ms=cuda_ms(lambda: walk(bk, x), 20),
+                              plain_ms=cuda_ms(lambda: bsr_spmm_plain(bk, x),
+                                               5),
+                              library_ms=cuda_ms(
+                                  lambda: torch.sparse.mm(csr, xl), 20))
+                    out[f"{k}{suffix}@{EDGE}"].append(sh)
+                    show(k, sh)
+                x3, i3 = xl.reshape(nb, EDGE, feat), init.reshape(nb, EDGE,
+                                                                  feat)
+                for transpose in (False, True):
+                    a3 = diag32.transpose(1, 2) if transpose else diag32
+                    for with_init in (True, False):
+                        it = init if with_init else None
+                        tag = (f"F={feat}{' transpose' if transpose else ''}"
+                               f"{' init' if with_init else ''}")
+                        got = diag_spmm(diag, x, r8, transpose, it)
+                        ref = diag_spmm_plain(diag, x, r8, transpose, it)
+                        torch.cuda.synchronize()
+                        err = compare(f"K8{suffix}@{EDGE} diag_spmm {tag}",
+                                      got, ref)
+
+                        def lib8(a3=a3, with_init=with_init):
+                            if with_init:
+                                return torch.baddbmm(i3, a3, x3)
+                            return torch.bmm(a3, x3)
+
+                        compare(f"K8{suffix}@{EDGE} library torch.baddbmm "
+                                f"{tag}", lib8().reshape(n, feat), ref)
+                        b8, by8 = bound(diag_live * EDGE * EDGE * width
+                                        + n * feat * 4 * (3 if with_init
+                                                          else 2),
+                                        2.0 * diag_nnz * feat)
+                        sh = dict(
+                            F=feat, shape=tag, transpose=transpose,
+                            init=with_init,
+                            on_path=with_init and (feat == HIDDEN
+                                                   or not transpose),
+                            **err, bound_ms=b8, bound_by=by8,
+                            ms=cuda_ms(lambda: diag_spmm(
+                                diag, x, r8, transpose, it), 20),
+                            plain_ms=cuda_ms(lambda: diag_spmm_plain(
+                                diag, x, r8, transpose, it), 5),
+                            library_ms=cuda_ms(lib8, 20))
+                        out[f"K8{suffix}@{EDGE}"].append(sh)
+                        show("K8", sh)
+                del x, xl, init, x3, i3, got, ref
+        del h48, bg, hd, diag, diag32, rows
+        torch.cuda.empty_cache()
+    print(f"edge-{EDGE} kernels: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_block_steps(device, g, ops) -> dict:
+    """Through the library surface, every counter at 0 just before each
+    counted run: on each operator at edge 256 (threshold 48: K1;
+    threshold 192 with ``use_diag``: K8 and K1; ``tile_group=2``: K9; K3
+    on each), f32 and bf16 tiles, one eval forward and one
+    ``gc_train_step`` of GCN at hidden 512 with dropout 0.5 through K11
+    from seed-0 weights, launching phase 4's and 5's counts at 128 and
+    held against the same run with the plain versions (the eval forward,
+    the loss and every gradient); two eval forwards on the forward-only
+    operator (K2) against the threshold-48 operator's; then the
+    ``gc_train_step`` ms of each f32 operator beside the edge-128
+    operator's, in one call."""
+    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.train import steps
+
+    t_phase = time.perf_counter()
+    phases = {}
+
+    def model_():
+        m = NodeModel("GCNConv", NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                      dropout_rate=0.5, fused_dropout=True,
+                      bit_dropout=False)
+        return m.reset_parameters(torch.Generator().manual_seed(0)).to(
+            device)
+
+    def run(gd):
+        model = model_().eval()
+        with torch.inference_mode():
+            fwd = model(gd.x, gd)
+        opt = steps.adam_l2(model.parameters(), 0.01, 5e-4)
+        gen = torch.Generator(device=device).manual_seed(0)
+        loss = steps.gc_train_step(model, opt, gd, gd.y, gd.train_mask, gen,
+                                   "classification")
+        torch.cuda.synchronize()
+        return fwd, loss, {k: p.grad.detach().clone()
+                           for k, p in model.named_parameters()}
+
+    evals = {}
+    for tt in ("f32", "bf16"):
+        for name in ("t48", "t192diag", "group2"):
+            h = bf16_tiles(ops[name]) if tt == "bf16" else ops[name]
+            gd = g._replace(aux=h).to(device)
+            what = f"edge{EDGE} gcn512 {name} {tt} step and eval"
+            want = {k: EDGE_STEP[name].get(k, 0) + EDGE_EVAL[name].get(k, 0)
+                    for k in (*EDGE_STEP[name], *EDGE_EVAL[name])}
+            want = at_edge(bf16_counts(want) if tt == "bf16" else want)
+            reset_counts()
+            got = run(gd)
+            launches = at_edge(read_counts())
+            expect(launches, want, what)
+            phases[what] = launches
+            with plain_versions():
+                ref = run(gd)
+            compare(f"{what}: eval forward kernels vs plain", got[0], ref[0])
+            compare(f"{what}: loss kernels vs plain", got[1].reshape(1),
+                    ref[1].reshape(1))
+            for k in ref[2]:
+                compare(f"{what}: grad {k} kernels vs plain", got[2][k],
+                        ref[2][k])
+            evals[(name, tt)] = got[0]
+            if name == "t48":
+                # the BCSR without its transpose: K3 then K2 a layer
+                fwd_only = gd._replace(aux=dataclasses.replace(
+                    gd.aux, bsr=dataclasses.replace(gd.aux.bsr,
+                                                    transpose=None)))
+                model = model_().eval()
+                with torch.inference_mode():
+                    reset_counts()
+                    outs = [model(fwd_only.x, fwd_only) for _ in range(2)]
+                    torch.cuda.synchronize()
+                    launches = at_edge(read_counts())
+                what = f"edge{EDGE} serve gcn512 forward-only {tt}"
+                expect(launches, at_edge({"K3": 4, ("K2bf" if tt == "bf16"
+                                                    else "K2"): 4}), what)
+                phases[what] = launches
+                compare(f"{what} vs the threshold-48 operator", outs[0],
+                        got[0])
+                del model, outs, fwd_only
+            del gd, got, ref
+            torch.cuda.empty_cache()
+    for name in ("t192diag", "group2"):
+        compare(f"edge {EDGE} {name} eval forward vs t48's (f32)",
+                evals[(name, "f32")], evals[("t48", "f32")])
+
+    # the step's time on each f32 operator beside edge 128's, in one call
+    times = {}
+    for name, h in (("edge 128 (phase 3)", g.aux), *(
+            (f"edge {EDGE} {k}", ops[k]) for k in ops)):
+        gd = g._replace(aux=h).to(device)
+        model = model_()
+        opt = steps.adam_l2(model.parameters(), 0.01, 5e-4)
+        gen = torch.Generator(device=device).manual_seed(0)
+        times[name] = cuda_ms(lambda: steps.gc_train_step(
+            model, opt, gd, gd.y, gd.train_mask, gen, "classification"),
+            EDGE_TIMED_STEPS)
+        del gd, model, opt
+        torch.cuda.empty_cache()
+    print("gc_train_step ms (GCN hidden 512, K11 dropout 0.5, CUDA events "
+          f"over {EDGE_TIMED_STEPS} steps): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in times.items()))
+    print(f"edge-{EDGE} steps: {time.perf_counter() - t_phase:.1f} s")
+    return phases
+
+
 def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     """One kernel's line: times and bounds summed over the shapes one step
     or forward launches it at (those not marked ``on_path: False``); errors
@@ -3714,6 +4069,32 @@ KERNELS = (
     ("K7sbf", "K7 att_bwd_scores on the bf16 mask (the score pass)",
      "fitgnn_tpu_torch/csrc/att_bsr.cu",
      "fitgnn_tpu/ops/pallas/att_bsr.py:267"),
+    # the forms at tile edge 256 (the quadrant walk), phase 14
+    ("K1@256", "K1@256 bsr_spmm_acc on 256-wide tiles (128-wide "
+     "quadrants)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_spmm.py:200"),
+    ("K2@256", "K2@256 bsr_spmm_fwd on 256-wide tiles",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_spmm.py:156"),
+    ("K8@256", "K8@256 diag_spmm on 256-wide diagonal blocks",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/diag_spmm.py:34"),
+    ("K9@256", "K9@256 bsr_spmm_grouped on 256-wide tiles",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_spmm.py:264"),
+    ("K1bf@256", "K1bf@256 bsr_spmm_acc on 256-wide bf16 tiles (x "
+     "rounded to bf16)", "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_spmm.py:200"),
+    ("K2bf@256", "K2bf@256 bsr_spmm_fwd on 256-wide bf16 tiles",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_spmm.py:156"),
+    ("K8bf@256", "K8bf@256 diag_spmm on 256-wide bf16 diagonal blocks",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/diag_spmm.py:34"),
+    ("K9bf@256", "K9bf@256 bsr_spmm_grouped on 256-wide bf16 tiles",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_spmm.py:264"),
 )
 
 
@@ -3781,7 +4162,7 @@ def main() -> int:
         shapes.update(phase_bf16_kernels(device, ops, shapes))
         phase_bf16_edge_cases(device, ops)
         phases.update(phase_bf16_steps(device, g, ops))
-        del ops, g
+        del ops
         torch.cuda.empty_cache()
         phases.update(phase_bf16_cli(tmp))
         graphs = cluster_operators(ds)
@@ -3791,10 +4172,17 @@ def main() -> int:
         phases.update(phase_cluster_cli(tmp))
         torch.cuda.empty_cache()
         phases.update(phase_graph(device, tmp))
+        torch.cuda.empty_cache()
+        ops = block_operators(g)
+        shapes.update(phase_block_kernels(device, ops))
+        phases.update(phase_block_steps(device, g, ops))
+        del ops, g
+        torch.cuda.empty_cache()
 
     kernels_line = {"kernels": [
         summarize(label, "cuda", source, replaces,
-                  {ph: c[k] for ph, c in phases.items() if c[k]}, shapes[k])
+                  {ph: c.get(k, 0) for ph, c in phases.items()
+                   if c.get(k, 0)}, shapes[k])
         for k, label, source, replaces in KERNELS]}
     for entry in kernels_line["kernels"]:
         check(entry["launches"] > 0,

@@ -49,6 +49,14 @@
 // _rowwalk_kernel's jnp.dot promotes the bf16 tile to f32 instead.  The
 // sums stay f32, so each form's result is its f32 walk's on the rounded
 // operands.
+//
+// Tiles of another edge: every entry takes the tile edge `block`, a
+// multiple of 128 (the JAX package's build_bsr(block=...) and the static
+// `block` of _bsr_spmm_fwd, _bsr_spmm_fwd_acc and _bsr_spmm_fwd_grouped).
+// Above 128 the walk takes each tile as 128-wide quadrants
+// (tile_sparse.cuh, QUAD); at 128 it is the walk above.  K10 walks 128-wide
+// tiles only, as _rowwalk_kernel does: its entries return
+// cudaErrorInvalidValue for another edge and build no quadrant walk.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -59,46 +67,56 @@ namespace {
 
 // the non-zero walk, rows orientation: tile k for slot k at scale 1, from
 // init under INIT (K1), else from zero (init unused); T the tile type,
-// ROUND_X: x rounded to bf16
-template <bool INIT, class T = float, bool ROUND_X = false>
+// ROUND_X: x rounded to bf16; block the tile edge, a multiple of 128 under
+// QUAD (the quadrant walk), else 128 (anything else:
+// cudaErrorInvalidValue)
+template <bool INIT, class T = float, bool ROUND_X = false, bool QUAD = true>
 int launch_nonzero(const void* blocks, const void* row_splits,
                    const void* cols, const void* x, const void* init,
                    void* out, int64_t num_row_blocks, int64_t feat,
-                   void* stream) {
-  return static_cast<int>(sparse::launch<false, INIT, false, ROUND_X>(
+                   int64_t block, void* stream) {
+  if (QUAD ? block < sparse::BLK || block % sparse::BLK
+           : block != sparse::BLK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(sparse::launch<false, INIT, false, ROUND_X, QUAD>(
       static_cast<const T*>(blocks),
       static_cast<const int32_t*>(row_splits), nullptr, nullptr,
       static_cast<const int32_t*>(cols), static_cast<const float*>(x),
       static_cast<const float*>(init), static_cast<float*>(out),
-      num_row_blocks, feat, static_cast<cudaStream_t>(stream)));
+      num_row_blocks, feat, static_cast<cudaStream_t>(stream),
+      sparse::Plain{}, static_cast<int>(block / sparse::BLK)));
 }
 
 }  // namespace
 
-// blocks (K,128,128) f32, 16-byte aligned; row_splits (num_row_blocks+1,)
-// int32; cols (K,) int32; x, init, out (num_row_blocks*128, feat) f32, all
-// contiguous (x and init at any 4-byte alignment: each takes its 16-byte
-// path only where it starts on a 16-byte boundary and feat % 4 == 0).
-// Each entry returns cudaErrorInvalidConfiguration when the grid would
-// exceed 2^31 - 1 CTAs, else cudaGetLastError() after the launch.
+// blocks (K,block,block) f32, 16-byte aligned; row_splits
+// (num_row_blocks+1,) int32; cols (K,) int32; x, init, out
+// (num_row_blocks*block, feat) f32, all contiguous (x and init at any
+// 4-byte alignment: each takes its 16-byte path only where it starts on a
+// 16-byte boundary and feat % 4 == 0).  Each entry returns
+// cudaErrorInvalidValue for a block that is not a multiple of 128 (K10:
+// not 128),
+// cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
+// else cudaGetLastError() after the launch.
 
 // K1: out = init + A . x
 extern "C" int fitgnn_bsr_spmm_acc(const void* blocks, const void* row_splits,
                                    const void* cols, const void* x,
                                    const void* init, void* out,
                                    int64_t num_row_blocks, int64_t feat,
-                                   void* stream) {
+                                   int64_t block, void* stream) {
   return launch_nonzero<true>(blocks, row_splits, cols, x, init, out,
-                              num_row_blocks, feat, stream);
+                              num_row_blocks, feat, block, stream);
 }
 
 // K2: out = A . x
 extern "C" int fitgnn_bsr_spmm(const void* blocks, const void* row_splits,
                                const void* cols, const void* x, void* out,
                                int64_t num_row_blocks, int64_t feat,
-                               void* stream) {
+                               int64_t block, void* stream) {
   return launch_nonzero<false>(blocks, row_splits, cols, x, nullptr,
-                               out, num_row_blocks, feat, stream);
+                               out, num_row_blocks, feat, block, stream);
 }
 
 // K9: out = A . x on the group-padded layout
@@ -106,9 +124,10 @@ extern "C" int fitgnn_bsr_spmm_grouped(const void* blocks,
                                        const void* row_splits,
                                        const void* cols, const void* x,
                                        void* out, int64_t num_row_blocks,
-                                       int64_t feat, void* stream) {
+                                       int64_t feat, int64_t block,
+                                       void* stream) {
   return launch_nonzero<false>(blocks, row_splits, cols, x, nullptr,
-                               out, num_row_blocks, feat, stream);
+                               out, num_row_blocks, feat, block, stream);
 }
 
 // K10: out = A . x on the row-walk layout (no coverage fillers: a block
@@ -117,12 +136,14 @@ extern "C" int fitgnn_bsr_spmm_rowwalk(const void* blocks,
                                        const void* row_splits,
                                        const void* cols, const void* x,
                                        void* out, int64_t num_row_blocks,
-                                       int64_t feat, void* stream) {
-  return launch_nonzero<false>(blocks, row_splits, cols, x, nullptr,
-                               out, num_row_blocks, feat, stream);
+                                       int64_t feat, int64_t block,
+                                       void* stream) {
+  return launch_nonzero<false, float, false, false>(
+      blocks, row_splits, cols, x, nullptr, out, num_row_blocks, feat, block,
+      stream);
 }
 
-// The same four on bf16 tiles, blocks (K,128,128) bf16, 16-byte aligned;
+// The same four on bf16 tiles, blocks (K,block,block) bf16, 16-byte aligned;
 // K1, K2 and K9 round x to bf16, K10 does not.
 using bf16 = __nv_bfloat16;
 
@@ -132,19 +153,20 @@ extern "C" int fitgnn_bsr_spmm_acc_bf16(const void* blocks,
                                         const void* cols, const void* x,
                                         const void* init, void* out,
                                         int64_t num_row_blocks, int64_t feat,
-                                        void* stream) {
+                                        int64_t block, void* stream) {
   return launch_nonzero<true, bf16, true>(blocks, row_splits, cols, x, init,
-                                          out, num_row_blocks, feat, stream);
+                                          out, num_row_blocks, feat, block,
+                                          stream);
 }
 
 // K2 bf16: out = A . bf16(x)
 extern "C" int fitgnn_bsr_spmm_bf16(const void* blocks, const void* row_splits,
                                     const void* cols, const void* x, void* out,
                                     int64_t num_row_blocks, int64_t feat,
-                                    void* stream) {
+                                    int64_t block, void* stream) {
   return launch_nonzero<false, bf16, true>(blocks, row_splits, cols, x,
                                            nullptr, out, num_row_blocks, feat,
-                                           stream);
+                                           block, stream);
 }
 
 // K9 bf16: out = A . bf16(x) on the group-padded layout
@@ -152,10 +174,11 @@ extern "C" int fitgnn_bsr_spmm_grouped_bf16(const void* blocks,
                                             const void* row_splits,
                                             const void* cols, const void* x,
                                             void* out, int64_t num_row_blocks,
-                                            int64_t feat, void* stream) {
+                                            int64_t feat, int64_t block,
+                                            void* stream) {
   return launch_nonzero<false, bf16, true>(blocks, row_splits, cols, x,
                                            nullptr, out, num_row_blocks, feat,
-                                           stream);
+                                           block, stream);
 }
 
 // K10 bf16: out = A . x on the row-walk layout, x not rounded
@@ -163,8 +186,9 @@ extern "C" int fitgnn_bsr_spmm_rowwalk_bf16(const void* blocks,
                                             const void* row_splits,
                                             const void* cols, const void* x,
                                             void* out, int64_t num_row_blocks,
-                                            int64_t feat, void* stream) {
-  return launch_nonzero<false, bf16, false>(blocks, row_splits, cols, x,
-                                            nullptr, out, num_row_blocks,
-                                            feat, stream);
+                                            int64_t feat, int64_t block,
+                                            void* stream) {
+  return launch_nonzero<false, bf16, false, false>(
+      blocks, row_splits, cols, x, nullptr, out, num_row_blocks, feat, block,
+      stream);
 }

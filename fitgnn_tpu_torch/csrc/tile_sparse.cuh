@@ -152,6 +152,28 @@
 //     0/1 mask, exact in bf16, while pe and x stay f32.
 // The shared-memory tile stays f32 (64 KB): holding it as bf16 and the
 // apply's reads of it at 2 bytes an entry is later work.
+//
+// Tiles of another edge (QUAD).  The JAX package's build_hybrid(block=E)
+// and build_bsr(block=E) store (K, E, E) tiles for any E = 128 nq (Mosaic
+// needs the multiple of 128, fitgnn_tpu/ops/pallas/att_bsr.py:28-29); K1,
+// K2 and K9 take E as a static argument (bsr_spmm.py:174-175, 225-226,
+// 294-296) and K8 from its blocks' shape (diag_spmm.py:34).  One f32 tile
+// of edge 256 is 256 KiB, above the 227 KiB of shared memory a block can
+// have, so the walk keeps its 128-wide staging and walks an E tile as
+// nq x nq quadrants of 128 x 128: output block R (128 rows) is half
+// h = R % nq of tile row r = R / nq, and its CTA walks quadrants (h, q),
+// q < nq, of each tile of row r in turn (the columns orientation takes
+// quadrant (q, h), read transposed as any tile is), against X's 128-row
+// slab col nq + q.  A quadrant is read in place at row stride E: each of
+// its 128-float rows is still 512 contiguous bytes.  The vote, the slab
+// copy and the register prefetch work per quadrant, so an empty quadrant
+// (most off-diagonal ones on the bench graph, and every quadrant of K9's
+// pads) costs only its read, and the next (slot, quadrant)'s read is in
+// flight while the current one is applied.  Under DIAG a CTA walks the nq
+// quadrants of one tile, so its slab copies start after each vote as in
+// the other walks.  QUAD is a template flag: at E = 128 (nq = 1) the walk
+// is the code above, unchanged; only the launches of K1, K2, K9 and K8 (the
+// Plain hook) build a QUAD form.
 
 #pragma once
 
@@ -237,8 +259,18 @@ struct TileRegs;
 template <>
 struct TileRegs<float> {
   float4 ch[BLK / WARPS];
-  __device__ __forceinline__ void load(const float* tile, int warp,
-                                       int lane) {
+  // STRIDED: a quadrant of a wider tile, its rows ld floats apart
+  template <bool STRIDED>
+  __device__ __forceinline__ void load(const float* tile, int64_t ld,
+                                       int warp, int lane) {
+    if (STRIDED) {
+      const float* a = tile + 4 * lane;
+#pragma unroll
+      for (int u = 0; u < BLK / WARPS; ++u) {
+        ch[u] = *reinterpret_cast<const float4*>(a + (warp + WARPS * u) * ld);
+      }
+      return;
+    }
     const float4* a = reinterpret_cast<const float4*>(tile) + lane;
 #pragma unroll
     for (int u = 0; u < BLK / WARPS; ++u) {
@@ -270,8 +302,19 @@ template <>
 struct TileRegs<__nv_bfloat16> {
   static constexpr int N = BLK * BLK / 8 / THREADS;   // 4
   uint4 ch[N];
-  __device__ __forceinline__ void load(const __nv_bfloat16* tile, int warp,
-                                       int lane) {
+  // STRIDED: a quadrant of a wider tile, its rows ld entries apart
+  template <bool STRIDED>
+  __device__ __forceinline__ void load(const __nv_bfloat16* tile, int64_t ld,
+                                       int warp, int lane) {
+    if (STRIDED) {
+      const __nv_bfloat16* a =
+          tile + (2 * warp + (lane >> 4)) * ld + 8 * (lane & 15);
+#pragma unroll
+      for (int u = 0; u < N; ++u) {
+        ch[u] = *reinterpret_cast<const uint4*>(a + 32 * u * ld);
+      }
+      return;
+    }
     const uint4* a = reinterpret_cast<const uint4*>(tile) + 32 * warp + lane;
 #pragma unroll
     for (int u = 0; u < N; ++u) ch[u] = a[THREADS * u];
@@ -447,8 +490,12 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
 // applied as the values that the hook val gives them (Plain: as they
 // are).  T is the stored tile's element type (float or __nv_bfloat16);
 // ROUND_X rounds the X slab to bf16 before the products (bf16 tiles only).
+// QUAD: the tiles are (K, E, E), E = nq * 128 (nq > 1), and every index
+// above (block rows, cols, the diagonal blocks) counts in E; the walk
+// takes each tile as its nq x nq quadrants (Plain only).  Without QUAD,
+// nq is 1 and unread.
 template <bool TRANS, bool INIT, bool VEC, bool DIAG, class V, class T,
-          bool ROUND_X>
+          bool ROUND_X, bool QUAD>
 __global__ void __launch_bounds__(THREADS, 1)
 walk_kernel(const T* __restrict__ blocks,
             const int32_t* __restrict__ row_splits,
@@ -456,12 +503,19 @@ walk_kernel(const T* __restrict__ blocks,
             const int32_t* __restrict__ scale,
             const int32_t* __restrict__ cols,
             const float* __restrict__ x, const float* __restrict__ init,
-            float* __restrict__ out, int64_t feat, int64_t slices, V val) {
+            float* __restrict__ out, int64_t feat, int64_t slices, V val,
+            int nq) {
+  static_assert(!QUAD || std::is_same<V, Plain>::value,
+                "the quadrant walk takes no value hook");
   extern __shared__ __align__(16) float smem[];
   float* as = smem;                             // the swizzled tile
   float* xs = smem + BLK * BLK;                 // the X slab
   float* hs = xs + BLK * FT;                    // the hook's V::SMEM floats
-  const int64_t r = static_cast<int64_t>(blockIdx.x) / slices;
+  // the 128-row output block, and under QUAD its tile row and half
+  const int64_t ob = static_cast<int64_t>(blockIdx.x) / slices;
+  const int64_t r = QUAD ? ob / nq : ob;
+  const int h = QUAD ? static_cast<int>(ob % nq) : 0;
+  const int64_t edge = static_cast<int64_t>(QUAD ? nq : 1) * BLK;
   const int64_t f0 = (static_cast<int64_t>(blockIdx.x) % slices) * FT;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -470,7 +524,7 @@ walk_kernel(const T* __restrict__ blocks,
 
   float acc[ROWS][FL];
   if (INIT) {
-    load_rows(acc, init, r, f0, row0, lane, feat);
+    load_rows(acc, init, ob, f0, row0, lane, feat);
   } else {
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
@@ -492,11 +546,21 @@ walk_kernel(const T* __restrict__ blocks,
     return TRANS ? Slot{cols[k], sel[k], static_cast<float>(scale[k])}
                  : Slot{cols[k], k, 1.f};
   };
-  // the thread's share of a tile (TileRegs<T>)
+  // the thread's share of a tile (TileRegs<T>); under QUAD of quadrant
+  // (h, q) of the tile, (q, h) in the columns orientation
   TileRegs<T> ch;
-  auto fetch = [&](const Slot& c) {
+  auto fetch = [&](const Slot& c, int q) {
     if (c.s != 0.f) {
-      ch.load(blocks + static_cast<int64_t>(c.tile) * BLK * BLK, warp, lane);
+      if (QUAD) {
+        const int64_t i = TRANS ? q : h, j = TRANS ? h : q;
+        ch.template load<true>(
+            blocks + c.tile * edge * edge + i * BLK * edge + j * BLK, edge,
+            warp, lane);
+      } else {
+        ch.template load<false>(
+            blocks + static_cast<int64_t>(c.tile) * BLK * BLK, BLK, warp,
+            lane);
+      }
     }
   };
 
@@ -505,10 +569,12 @@ walk_kernel(const T* __restrict__ blocks,
   const Slot none{0, 0, 0.f};
   Slot c0 = nt > 0 ? slot(lo) : none;           // tile t, in ch
   Slot c1 = nt > 1 ? slot(lo + 1) : none;       // tile t + 1
+  int quad = 0;                                 // QUAD: c0's quadrant in ch
+  int next = lo + 2;                            // QUAD: c1's successor
   // DIAG: the one slab is known now, so its copy runs beside the tile read
-  if (DIAG) start_slab<VEC>(xs, x + r * BLK * feat, f0, feat, tid);
-  fetch(c0);
-  for (int t = 0; t < nt; ++t) {
+  if (DIAG && !QUAD) start_slab<VEC>(xs, x + r * BLK * feat, f0, feat, tid);
+  fetch(c0, 0);
+  for (int t = 0; t < (QUAD ? nt * nq : nt); ++t) {
     bool any = false;
     if (c0.s != 0.f) any = ch.any();
     // the vote is also the barrier after the last apply: the tile and the
@@ -517,15 +583,30 @@ walk_kernel(const T* __restrict__ blocks,
     if (live) {
       ch.store(as, warp, lane);
       val.tile(hs, c0.col, tid);
-      if (!DIAG) {
+      if (QUAD) {
+        start_slab<VEC>(
+            xs, x + (static_cast<int64_t>(c0.col) * nq + quad) * BLK * feat,
+            f0, feat, tid);
+      } else if (!DIAG) {
         start_slab<VEC>(xs, x + static_cast<int64_t>(c0.col) * BLK * feat,
                         f0, feat, tid);
       }
     }
     const float st = c0.s;
-    c0 = c1;
-    fetch(c0);                                  // lands during the apply
-    c1 = t + 2 < nt ? slot(lo + t + 2) : none;
+    if (QUAD) {
+      // the next (slot, quadrant)
+      if (++quad == nq) {
+        quad = 0;
+        c0 = c1;
+        c1 = next < lo + nt ? slot(next) : none;
+        ++next;
+      }
+      fetch(c0, quad);                          // lands during the apply
+    } else {
+      c0 = c1;
+      fetch(c0, 0);                             // lands during the apply
+      c1 = t + 2 < nt ? slot(lo + t + 2) : none;
+    }
     if (!live) continue;
     cp_async_wait<0>();
     if (ROUND_X) round_slab<VEC>(xs, tid);      // before the barrier
@@ -567,15 +648,18 @@ walk_kernel(const T* __restrict__ blocks,
     }
   }
   if (DIAG) cp_async_wait<0>();                 // a block without a non-zero
-  store_rows(acc, out, r, f0, row0, lane, feat);
+  store_rows(acc, out, ob, f0, row0, lane, feat);
   val.finish(r, f0, row0, lane);
 }
 
-// Launches the walk on the flat grid of num_row_blocks * ceil(feat / FT)
-// CTAs (SMEM bytes of dynamic shared memory each, and the hook's V::SMEM
-// floats), from init under INIT, else from zero (init unused); under DIAG
-// over the diagonal blocks (the index arrays unused); nothing when either
-// count is 0;
+// Launches the walk on the flat grid of num_row_blocks * quads *
+// ceil(feat / FT) CTAs (SMEM bytes of dynamic shared memory each, and the
+// hook's V::SMEM floats), from init under INIT, else from zero (init
+// unused); under DIAG over the diagonal blocks (the index arrays unused);
+// nothing when either count is 0.  quads: the tiles' edge over 128
+// (num_row_blocks counts tile rows of that edge); above 1 the quadrant
+// walk, which only a launch with QUAD builds (Plain only: K1, K2, K9, K8).
+// Returns cudaErrorInvalidValue for quads < 1, or > 1 without QUAD,
 // cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
 // else cudaGetLastError() after the launch.  The vector slab copy is
 // chosen on x's alignment; the kernel chooses the vector init load on
@@ -583,33 +667,40 @@ walk_kernel(const T* __restrict__ blocks,
 // the tile type, comes from blocks, which must start on a 16-byte
 // boundary; ROUND_X (bf16 tiles only) rounds x to bf16.
 template <bool TRANS, bool INIT, bool DIAG = false, bool ROUND_X = false,
-          class T = float, class V = Plain>
+          bool QUAD = false, class T = float, class V = Plain>
 cudaError_t launch(const T* blocks, const int32_t* row_splits,
                    const int32_t* sel, const int32_t* scale,
                    const int32_t* cols, const float* x, const float* init,
                    float* out, int64_t num_row_blocks, int64_t feat,
-                   cudaStream_t stream, V val = V{}) {
+                   cudaStream_t stream, V val = V{}, int quads = 1) {
+  static_assert(std::is_same<T, float>::value
+                || std::is_same<T, __nv_bfloat16>::value,
+                "tiles are f32 or bf16");
+  static_assert(!ROUND_X || std::is_same<T, __nv_bfloat16>::value,
+                "x is rounded to bf16 for bf16 tiles only");
+  if (quads < 1 || (quads > 1 && !QUAD)) return cudaErrorInvalidValue;
   if (num_row_blocks > 0 && feat > 0) {
     const int64_t slices = (feat + FT - 1) / FT;
-    const int64_t ctas = num_row_blocks * slices;
+    const int64_t ctas = num_row_blocks * quads * slices;
     if (ctas > 0x7fffffff) return cudaErrorInvalidConfiguration;
     const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0
                      && feat % 4 == 0;
-    static_assert(std::is_same<T, float>::value
-                  || std::is_same<T, __nv_bfloat16>::value,
-                  "tiles are f32 or bf16");
-    static_assert(!ROUND_X || std::is_same<T, __nv_bfloat16>::value,
-                  "x is rounded to bf16 for bf16 tiles only");
     const auto kernel =
-        vec ? walk_kernel<TRANS, INIT, true, DIAG, V, T, ROUND_X>
-            : walk_kernel<TRANS, INIT, false, DIAG, V, T, ROUND_X>;
+        quads > 1
+            ? (vec ? walk_kernel<TRANS, INIT, true, DIAG, V, T, ROUND_X, QUAD>
+                   : walk_kernel<TRANS, INIT, false, DIAG, V, T, ROUND_X,
+                                 QUAD>)
+            : (vec ? walk_kernel<TRANS, INIT, true, DIAG, V, T, ROUND_X,
+                                 false>
+                   : walk_kernel<TRANS, INIT, false, DIAG, V, T, ROUND_X,
+                                 false>);
     const int bytes = SMEM + V::SMEM * static_cast<int>(sizeof(float));
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (set != cudaSuccess) return set;
     kernel<<<static_cast<unsigned>(ctas), THREADS, bytes, stream>>>(
         blocks, row_splits, sel, scale, cols, x, init, out, feat, slices,
-        val);
+        val, quads);
   }
   return cudaGetLastError();
 }

@@ -135,6 +135,7 @@ def _planned_threshold(s, r, w_op, n_pad: int, layer_name: str,
 
 
 def optimize_coarse(coarse, *, min_block_edges: int = 48, tile_dtype=None,
+                    use_segmm: bool = True, tile_group: int = 1,
                     layer_name: str = "GCNConv", cluster_att: int = 0,
                     cluster_att_exact: int = 0, cluster_agg: int = 0,
                     cluster_agg_exact: int = 0, seed: int = 0):
@@ -147,10 +148,13 @@ def optimize_coarse(coarse, *, min_block_edges: int = 48, tile_dtype=None,
     Gs phase takes the transferred parameters, not Gc node ids.  The node
     arrays grow to a multiple of 128 (of K under a cluster collapse) with
     inert rows (zero features, False masks).  ``tile_dtype=torch.bfloat16``
-    stores Gc's tiles in bf16 (``train --hybrid_bf16_tiles``); the cluster
-    collapses pass through to ``build_hybrid``; ``min_block_edges="auto"``
-    takes the planner's threshold.  The JAX package's ``use_segmm`` and
-    ``tile_group`` are not ported yet (ROADMAP.md §1 item 2)."""
+    stores Gc's tiles in bf16 (``train --hybrid_bf16_tiles``);
+    ``use_segmm`` (K3 for the stragglers, the default; ``False``: the
+    per-edge gather and segment sum) and ``tile_group`` (K9's grouped
+    layout; GATConv refuses it) and the cluster collapses pass through to
+    ``build_hybrid``; ``min_block_edges="auto"`` takes the planner's
+    threshold.  The CLI passes neither ``use_segmm`` nor ``tile_group``,
+    as the JAX package's does not."""
     from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
     from fitgnn_tpu_torch.partition.community import \
         hierarchical_community_order
@@ -190,7 +194,8 @@ def optimize_coarse(coarse, *, min_block_edges: int = 48, tile_dtype=None,
         min_block_edges = _planned_threshold(s2, r2, w_op, n_pad, layer_name,
                                              cluster_att or cluster_agg)
     hyb = build_hybrid(s2, r2, w_op, n_pad, min_block_edges=min_block_edges,
-                       tile_dtype=tile_dtype, use_segmm=True,
+                       tile_dtype=tile_dtype, use_segmm=use_segmm,
+                       tile_group=tile_group,
                        semantics=semantics, cluster_att=cluster_att,
                        cluster_att_exact=cluster_att_exact,
                        cluster_agg=cluster_agg,

@@ -1,15 +1,16 @@
 """Block-sparse (BCSR) SpMM: the tile walks K1, K2, K9 and K10.
 
 Community-reordered adjacency is block-sparse: most edges land in a few
-dense 128×128 tiles.  ``blocks[k]`` is tile ``(rows[k], cols[k])`` and adds
-``A_k · X[cols[k]]`` into block-row ``rows[k]``.  ``build_bsr`` makes the
-JAX package's four layouts: the grid-walk layout (every block row holds at
-least one tile, zero coverage fillers where it had none), the group-padded
-layout (``group > 1``: every row's run zero-padded to a multiple of
-``group``), the row-walk layout (``rowwalk``: no fillers) and the einsum
-layout (``einsum``: no fillers either).  Its tiles are f32, or bf16 under
-``tile_dtype=torch.bfloat16`` (built in f32, then cast, as the JAX
-package casts them).
+dense E×E tiles (E = ``block``, 128 by default, any multiple of 128).
+``blocks[k]`` is tile ``(rows[k], cols[k])`` and adds ``A_k · X[cols[k]]``
+into block-row ``rows[k]``.  ``build_bsr`` makes the JAX package's four
+layouts: the grid-walk layout (every block row holds at least one tile,
+zero coverage fillers where it had none), the group-padded layout
+(``group > 1``: every row's run zero-padded to a multiple of ``group``),
+the row-walk layout (``rowwalk``: no fillers; 128-wide tiles only, as in
+the JAX package) and the einsum layout (``einsum``: no fillers either).
+Its tiles are f32, or bf16 under ``tile_dtype=torch.bfloat16`` (built in
+f32, then cast, as the JAX package casts them).
 
 * ``bsr_spmm_acc(b, x, init)`` = ``init + A·x``: K1 on the grid-walk
   layout, ``init + bsr_spmm(...)`` on the others, as the JAX package's
@@ -30,7 +31,9 @@ for the others; the source notes say what bounds it on an H100 and what
 the design does about it.  On a CPU tensor each runs the plain version
 (``bsr_spmm_acc_plain``, ``bsr_spmm_plain``: a batched matmul over the
 gathered X slabs, then ``index_add_`` over block rows).  Each has its own
-``launches`` count.
+``launches`` count.  At an edge above 128 (K1, K2 and K9; K10 is
+128-wide only) the walk takes each tile as 128-wide quadrants, and the
+same counts count it.
 
 bf16 tiles: each wrapper launches the walk's bf16 form on them (the C
 entries ending in ``_bf16``) and counts it in ``launches_bf16``.  The
@@ -55,14 +58,14 @@ import torch
 from fitgnn_tpu_torch.ops import kernels
 from fitgnn_tpu_torch.utils.device import dataclass_to
 
-BLOCK = 128  # node-block edge length: one dense tile
+BLOCK = 128  # default node-block edge length: one dense tile
 
 
 @dataclasses.dataclass
 class BsrMatrix:
     """Dense-block BCSR adjacency. ``blocks[k]`` is tile (rows[k], cols[k])."""
 
-    blocks: torch.Tensor        # (K, BLOCK, BLOCK) f32 or bf16 tile values
+    blocks: torch.Tensor        # (K, block, block) f32 or bf16 tile values
     rows: torch.Tensor          # (K,) int32 block-row id, sorted ascending
     cols: torch.Tensor          # (K,) int32 block-col id
     num_row_blocks: int
@@ -72,6 +75,7 @@ class BsrMatrix:
     rowwalk: bool = False       # row-walk layout: no coverage fillers (K10)
     group: int = 1              # every row's run padded to a multiple (K9)
     einsum: bool = False        # the einsum layout: no coverage fillers
+    block: int = BLOCK          # tile edge E, a multiple of 128
 
     @property
     def bf16(self) -> bool:
@@ -94,6 +98,14 @@ def check_tile_dtype(tile_dtype) -> None:
             "are ported (ROADMAP.md §1 item 2)")
 
 
+def check_block(block: int) -> None:
+    """A tile edge is a positive multiple of 128 (Mosaic's tile needs it on
+    the TPU, the quadrant walk on the GPU)."""
+    if block <= 0 or block % BLOCK:
+        raise ValueError(f"tile edge block={block} must be a positive "
+                         f"multiple of {BLOCK}")
+
+
 def build_bsr(senders: np.ndarray, receivers: np.ndarray, weight: np.ndarray,
               num_nodes_padded: int, block: int = BLOCK,
               with_transpose: bool = True, *, tile_dtype=None,
@@ -101,16 +113,18 @@ def build_bsr(senders: np.ndarray, receivers: np.ndarray, weight: np.ndarray,
               einsum: bool = False) -> BsrMatrix:
     """Host-side BCSR construction from a COO edge list (numpy): the same
     blocks, rows, cols and row_splits as the JAX package's ``build_bsr``
-    with the same ``tile_dtype``, ``rowwalk``, ``group`` and ``einsum``,
-    and a transpose built with the same flags.  Tiles are 128 wide;
-    ``block != 128`` is not ported (ROADMAP.md §1 item 2).
+    with the same ``block``, ``tile_dtype``, ``rowwalk``, ``group`` and
+    ``einsum``, and a transpose built with the same edge and flags.
+    ``block`` must be a multiple of 128 (``ValueError``), and 128 under
+    ``rowwalk``, as the JAX package's row walk refuses another edge.
 
-    ``num_nodes_padded`` must be a multiple of 128.  Edges pointing at
-    padding slots are harmless as long as their weight is 0."""
-    if block != BLOCK:
-        raise NotImplementedError(
-            "build_bsr: block != 128 is not ported yet (the walk templated "
-            "on the tile edge, ROADMAP.md §1 item 2)")
+    ``num_nodes_padded`` must be a multiple of ``block``.  Edges pointing
+    at padding slots are harmless as long as their weight is 0."""
+    check_block(block)
+    if rowwalk and block != BLOCK:
+        # the row walk's out tiles and slab offsets are 128-wide, in both
+        # packages
+        raise ValueError(f"rowwalk supports block={BLOCK} only, got {block}")
     check_tile_dtype(tile_dtype)
     if group < 1:
         raise ValueError(f"build_bsr: group must be >= 1, got {group}")
@@ -162,7 +176,7 @@ def build_bsr(senders: np.ndarray, receivers: np.ndarray, weight: np.ndarray,
 
     t = None
     if with_transpose:
-        t = build_bsr(receivers, senders, weight, num_nodes_padded,
+        t = build_bsr(receivers, senders, weight, num_nodes_padded, block,
                       with_transpose=False, tile_dtype=tile_dtype,
                       rowwalk=rowwalk, group=group, einsum=einsum)
     row_splits = np.searchsorted(rows, np.arange(nb + 1)).astype(np.int32)
@@ -173,7 +187,7 @@ def build_bsr(senders: np.ndarray, receivers: np.ndarray, weight: np.ndarray,
         blocks=blocks_t, rows=torch.from_numpy(rows),
         cols=torch.from_numpy(cols), num_row_blocks=nb, num_col_blocks=nb,
         transpose=t, row_splits=torch.from_numpy(row_splits),
-        rowwalk=rowwalk, group=group, einsum=einsum)
+        rowwalk=rowwalk, group=group, einsum=einsum, block=block)
 
 
 def round_x(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
@@ -191,9 +205,9 @@ def _tile_sum(b: BsrMatrix, x: torch.Tensor,
     block, F) X slabs, one batched matmul, ``index_add_`` over block rows;
     x rounded as the walk rounds it, the tiles widened to x's type."""
     n, feat = x.shape
-    xb = round_x(b, x).reshape(b.num_col_blocks, BLOCK, feat)
+    xb = round_x(b, x).reshape(b.num_col_blocks, b.block, feat)
     prod = torch.bmm(b.blocks.to(x.dtype), xb.index_select(0, b.cols.long()))
-    return out.reshape(b.num_row_blocks, BLOCK, feat).index_add_(
+    return out.reshape(b.num_row_blocks, b.block, feat).index_add_(
         0, b.rows.long(), prod).reshape(n, feat)
 
 
@@ -216,9 +230,9 @@ def bsr_spmm_einsum(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     over block rows (``index_add_``) in it, then x's type.  Plain PyTorch
     on every device, as XLA computes it there."""
     n, feat = x.shape
-    xb = x.to(b.blocks.dtype).reshape(b.num_col_blocks, BLOCK, feat)
+    xb = x.to(b.blocks.dtype).reshape(b.num_col_blocks, b.block, feat)
     prod = torch.bmm(b.blocks, xb.index_select(0, b.cols.long()))
-    out = torch.zeros((b.num_row_blocks, BLOCK, feat), dtype=prod.dtype,
+    out = torch.zeros((b.num_row_blocks, b.block, feat), dtype=prod.dtype,
                       device=prod.device)
     return out.index_add_(0, b.rows.long(), prod).reshape(n, feat).to(x.dtype)
 
@@ -226,9 +240,9 @@ def bsr_spmm_einsum(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
 def _operands(b: BsrMatrix, x: torch.Tensor, what: str,
               init: Optional[torch.Tensor] = None) -> Optional[torch.device]:
     """Validate a walk's operands; the CUDA device, or None on the CPU."""
-    if x.dim() != 2 or x.shape[0] != b.num_row_blocks * BLOCK:
+    if x.dim() != 2 or x.shape[0] != b.num_row_blocks * b.block:
         raise ValueError(f"{what}: x {tuple(x.shape)} must be "
-                         f"({b.num_row_blocks * BLOCK}, F)")
+                         f"({b.num_row_blocks * b.block}, F)")
     if x.device.type == "cpu":
         return None
     if x.device.type != "cuda":
@@ -243,27 +257,31 @@ def _operands(b: BsrMatrix, x: torch.Tensor, what: str,
     kernels.require(b.cols, "cols", torch.int32, dev)
     if b.blocks.data_ptr() % 16:
         raise ValueError(f"{what}: blocks must be 16-byte aligned")
+    if b.blocks.shape[1:] != (b.block, b.block):
+        raise ValueError(f"{what}: blocks {tuple(b.blocks.shape)} are not "
+                         f"(K, {b.block}, {b.block})")
     return dev
 
 
-# blocks, row_splits, cols, x, [init,] out, num_row_blocks, feat, stream
+# blocks, row_splits, cols, x, [init,] out, num_row_blocks, feat, block,
+# stream
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
-_ARGS_ACC = [_PTR] * 6 + [_I64] * 2 + [_PTR]
-_ARGS_FWD = [_PTR] * 5 + [_I64] * 2 + [_PTR]
+_ARGS_ACC = [_PTR] * 6 + [_I64] * 3 + [_PTR]
+_ARGS_FWD = [_PTR] * 5 + [_I64] * 3 + [_PTR]
 
 
 def _launch(b: BsrMatrix, x: torch.Tensor, dev: torch.device, what: str,
             name: str, argtypes: list, ins: list) -> torch.Tensor:
     """Launch C entry ``name`` (its ``_bf16`` twin on bf16 tiles) on the
     tile structure, the input tensors ``ins`` and a fresh output, then the
-    sizes."""
+    sizes and the tile edge."""
     out = torch.empty_like(x)
     launch = kernels.function("bsr_spmm", kernels.entry(name, b.blocks),
                               argtypes)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(b.blocks), kernels.ptr(b.row_splits),
                     kernels.ptr(b.cols), *(kernels.ptr(t) for t in ins),
-                    kernels.ptr(out), b.num_row_blocks, x.shape[1],
+                    kernels.ptr(out), b.num_row_blocks, x.shape[1], b.block,
                     kernels.stream(dev))
     kernels.check(rc, what)
     return out

@@ -3,20 +3,23 @@
 Community-reordered graphs put most of their dense-tile edges on the block
 diagonal, where a tile's column block equals its row block, so block ``b``
 multiplies X's own slab ``b``.  ``diag_spmm(blocks, x, r, transpose, init)``
-computes ``out_b = (init_b +) A_b · x_b`` for (nb, 128, 128) ``blocks``, or
+computes ``out_b = (init_b +) A_b · x_b`` for (nb, E, E) ``blocks``, or
 ``A_bᵀ · x_b`` with ``transpose``, as the JAX package's ``diag_spmm_raw``
-(its two call sites ``_diag_spmm`` and ``_diag_spmm_acc``).  ``r`` is the
-TPU's run length (blocks per grid step); it must divide ``nb`` there, and
-here too, though the CUDA grid does not follow it.
+(its two call sites ``_diag_spmm`` and ``_diag_spmm_acc``).  The edge E is
+the blocks' (128, or any multiple of 128: ``build_hybrid(block=E,
+use_diag=True)``).  ``r`` is the TPU's run length (blocks per grid step);
+it must divide ``nb`` there, and here too, though the CUDA grid does not
+follow it.
 
 * On a CUDA tensor ``diag_spmm`` launches the hand-written kernel of
   ``csrc/diag_spmm.cu``: the non-zero walk of ``csrc/tile_sparse.cuh`` over
   the diagonal blocks, which applies only each block's non-zeros (it
   replaces the TPU kernel ``fitgnn_tpu/ops/pallas/diag_spmm.py:_make_kernel``;
   the source note says what bounds it on an H100 and what the design does
-  about it).
+  about it).  Above E = 128 the walk takes each block as 128-wide
+  quadrants.
 * On a CPU tensor it runs the plain version ``diag_spmm_plain``: one
-  batched matmul over the (nb, 128, F) views.
+  batched matmul over the (nb, E, F) views.
 
 bf16 blocks (the JAX package's ``tile_dtype=bfloat16``): ``x`` is rounded
 to bf16 in both orientations, as the TPU kernel casts it, and the exact
@@ -52,6 +55,9 @@ def _check(blocks: torch.Tensor, x: torch.Tensor, r: int,
     if b != b2 or x.dim() != 2 or x.shape[0] != nb * b:
         raise ValueError(f"diag_spmm: blocks {tuple(blocks.shape)} and x "
                          f"{tuple(x.shape)} do not match")
+    if b <= 0 or b % 128:
+        raise ValueError(f"diag_spmm: the block edge {b} is not a positive "
+                         "multiple of 128")
     if init is not None and init.shape != x.shape:
         raise ValueError(f"diag_spmm: init {tuple(init.shape)} differs from "
                          f"x {tuple(x.shape)}")
@@ -63,7 +69,7 @@ def _check(blocks: torch.Tensor, x: torch.Tensor, r: int,
 def diag_spmm_plain(blocks: torch.Tensor, x: torch.Tensor, r: int,
                     transpose: bool = False,
                     init: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch K8: a batched matmul over the (nb, 128, F) views (x
+    """Plain PyTorch K8: a batched matmul over the (nb, E, F) views (x
     rounded to bf16 first on bf16 blocks)."""
     _check(blocks, x, r, init)
     nb, b, _ = blocks.shape
@@ -75,8 +81,8 @@ def diag_spmm_plain(blocks: torch.Tensor, x: torch.Tensor, r: int,
     return out if init is None else out + init
 
 
-# blocks, x, init, out, nb, feat, transpose, stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_int,
+# blocks, x, init, out, nb, feat, block, transpose, stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_int,
                                                             ctypes.c_void_p]
 
 
@@ -90,9 +96,6 @@ def diag_spmm(blocks: torch.Tensor, x: torch.Tensor, r: int,
     if x.device.type != "cuda":
         raise ValueError(f"diag_spmm: unsupported device {x.device}")
     _check(blocks, x, r, init)
-    if blocks.shape[1] != 128:
-        raise ValueError("diag_spmm: the kernel takes 128-wide blocks, got "
-                         f"{blocks.shape[1]}")
     dev = x.device
     kernels.require(x, "x", torch.float32, dev)
     kernels.require(blocks, "blocks",
@@ -109,7 +112,7 @@ def diag_spmm(blocks: torch.Tensor, x: torch.Tensor, r: int,
         rc = launch(kernels.ptr(blocks), kernels.ptr(x),
                     None if init is None else kernels.ptr(init),
                     kernels.ptr(out), blocks.shape[0], x.shape[1],
-                    int(transpose), kernels.stream(dev))
+                    blocks.shape[1], int(transpose), kernels.stream(dev))
     kernels.check(rc, "diag_spmm")
     kernels.count(diag_spmm, blocks)
     return out

@@ -1,7 +1,9 @@
 """Hybrid BCSR + straggler SpMM.
 
-Community-reordered graphs put most edges inside dense 128×128 adjacency
-tiles, but a tail of cut edges would fill millions of nearly-empty tiles.
+Community-reordered graphs put most edges inside dense E×E adjacency
+tiles (E = ``block``: 128 by default, any multiple of 128 for the static
+semantics), but a tail of cut edges would fill millions of nearly-empty
+tiles.
 The hybrid splits edges by tile occupancy:
 
 * tiles with ≥ ``min_block_edges`` edges → dense BCSR tiles (K1,
@@ -19,7 +21,7 @@ the transpose structures, built as the JAX package builds them: K3 on
 The JAX package's tile opt-ins, dispatched as its ``_hybrid_spmm_main``:
 
 * ``use_diag``: the dense tiles on the block diagonal go to
-  ``diag_blocks`` (nb, 128, 128) and the BCSR keeps the others (it may be
+  ``diag_blocks`` (nb, E, E) and the BCSR keeps the others (it may be
   ``None``).  With ``diag_r > 0`` the chain is K3 → K8 (``ops/diag_spmm.py``)
   → K1, every add through an ``init`` operand, and its backward the same
   chain on the transpose structures; otherwise the diagonal is added by a
@@ -41,7 +43,8 @@ The JAX package's tile opt-ins, dispatched as its ``_hybrid_spmm_main``:
 
 ``att_unit`` (GATConv) refuses ``use_diag``, ``use_rowwalk`` and
 ``tile_group > 1``: its tile attention walks the grid-walk tiles (or the
-einsum layout's) only.
+einsum layout's) only, and 128-wide ones only (GAT's tile kernels at
+another edge are not ported).
 
 The cluster collapse of the stragglers (``cluster_agg`` for the static
 weights of GCN, SAGE and GIN, ``cluster_att`` for GAT's ``att_unit``), as
@@ -68,7 +71,7 @@ import torch
 from fitgnn_tpu_torch.ops.bsr_dynamic import DynPlan, build_dyn_plan
 from fitgnn_tpu_torch.ops.bsr_spmm import (BLOCK, BsrMatrix, build_bsr,
                                            bsr_spmm, bsr_spmm_acc,
-                                           check_tile_dtype)
+                                           check_block, check_tile_dtype)
 from fitgnn_tpu_torch.ops.coo_segmm import SegCsr, build_segmm, segmm_spmm
 from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm, pick_run_length
 from fitgnn_tpu_torch.ops.spmm import spmm_coo
@@ -92,7 +95,7 @@ class HybridSpmm:
                                        # of each transpose-list entry
     dyn_plan: Optional[DynPlan] = None  # walk plan of dynamic tile values
                                        # (GAT attention); att_unit only
-    diag_blocks: Optional[torch.Tensor] = None  # (NB, 128, 128) dense
+    diag_blocks: Optional[torch.Tensor] = None  # (NB, E, E) dense
                                        # block-diagonal tiles (use_diag),
                                        # f32 or bf16 as the BCSR's
     diag_r: int = 0                    # > 0: the diagonal runs through K8
@@ -119,6 +122,7 @@ class HybridSpmm:
 def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                  weight: np.ndarray, num_nodes_padded: int,
                  min_block_edges: int = 150,
+                 block: int = BLOCK,
                  tile_dtype=None,
                  use_segmm: bool = False,
                  use_diag: bool = False,
@@ -133,9 +137,11 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                  cluster_agg_exact: int = 0,
                  real_nodes: Optional[int] = None) -> HybridSpmm:
     """Split edges by tile occupancy and build both structures (host-side),
-    as the JAX package's ``build_hybrid`` does, with its ``tile_dtype``
-    (``None`` or ``torch.bfloat16``), ``use_diag`` / ``diag_r`` (``None``
-    → ``pick_run_length(nb)``), ``use_rowwalk``, ``tile_group`` and
+    as the JAX package's ``build_hybrid`` does, with its ``block`` (the tile
+    edge E, a multiple of 128: the tiles, the diagonal blocks and every
+    layout at that edge), ``tile_dtype`` (``None`` or ``torch.bfloat16``),
+    ``use_diag`` / ``diag_r`` (``None`` → ``pick_run_length(nb)``),
+    ``use_rowwalk`` (E = 128 only, as there), ``tile_group`` and
     ``use_einsum_tiles``.
 
     ``cluster_att`` (``att_unit`` only) / ``cluster_agg`` (the static
@@ -145,11 +151,12 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
     senders, ranked by straggler edge count (attention) or summed weight
     (static), keep the per-edge path.  ``real_nodes``: the rows that are
     not padding (the summaries' means leave the others out); defaults to
-    ``num_nodes_padded``.
+    ``num_nodes_padded``, which must be a multiple of both E and K.
 
     ``use_diag``, ``use_rowwalk`` and ``tile_group > 1`` under ``att_unit``
     are not ported yet and raise ``NotImplementedError`` (ROADMAP.md §1
-    item 3)."""
+    item 3), as does an edge other than 128 under ``att_unit`` (GAT's tile
+    kernels K4, K4ᵀ, K5 and K7 at that edge, ROADMAP.md §2)."""
     if semantics == "att_unit" and (use_diag or use_rowwalk
                                     or tile_group != 1):
         raise NotImplementedError(
@@ -157,7 +164,12 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
             "att_unit (GATConv's tile attention) are not ported yet "
             "(ROADMAP.md §1 item 3)")
     check_tile_dtype(tile_dtype)
-    block = BLOCK
+    check_block(block)
+    if semantics == "att_unit" and block != BLOCK:
+        raise NotImplementedError(
+            f"build_hybrid: block={block} under att_unit: GAT's tile "
+            "kernels (K4, K4ᵀ, K5, K7) take 128-wide tiles only; their "
+            "forms at another edge are not ported yet (ROADMAP.md §2)")
     if num_nodes_padded % block:
         raise ValueError(f"num_nodes_padded={num_nodes_padded} is not a "
                          f"multiple of {block}")
@@ -189,7 +201,7 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
     tiled = dense & ~on_diag
     if tiled.any():
         bsr = build_bsr(senders[tiled], receivers[tiled], weight[tiled],
-                        num_nodes_padded, tile_dtype=tile_dtype,
+                        num_nodes_padded, block, tile_dtype=tile_dtype,
                         rowwalk=use_rowwalk,
                         group=tile_group, einsum=use_einsum_tiles)
 
@@ -372,7 +384,7 @@ class _FusedCoreDiag(torch.autograd.Function):
 
 
 def _diag_bmm(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """diag(A)·x as one batched matmul over the (nb, 128, F) views (the
+    """diag(A)·x as one batched matmul over the (nb, E, F) views (the
     JAX package's XLA einsum branch: on bf16 blocks x is cast to bf16 and
     the product comes out in bf16); autograd gives its transpose."""
     nb, b, _ = blocks.shape

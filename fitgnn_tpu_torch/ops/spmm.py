@@ -11,8 +11,9 @@ PyTorch.  A stack of S same-padded subgraphs (``x`` (S, N, F), edges
 
 ``spmm(..., operator=...)`` dispatches on a precomputed operator structure
 as the JAX package's ``spmm`` does: ``HybridSpmm`` (``ops/hybrid_spmm.py``),
-``BsrMatrix`` (``bsr_spmm``: K2, K9 or K10 by its layout) or ``SegCsr``
-(K3, forward only); plain COO without one.
+``BsrMatrix`` (``bsr_spmm``: K2, K9 or K10 by its layout), ``EllMatrix``
+(``ops/ell_spmm.py``, plain PyTorch as the JAX package's is XLA) or
+``SegCsr`` (K3, forward only); plain COO without one.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from fitgnn_tpu_torch.ops.bsr_spmm import BsrMatrix, bsr_spmm
 from fitgnn_tpu_torch.ops.coo_segmm import SegCsr, segmm_spmm
+from fitgnn_tpu_torch.ops.ell_spmm import EllMatrix, ell_spmm
 from fitgnn_tpu_torch.ops.segment import segment_sum, take_rows
 
 # the JAX package's default (its FITGNN_DENSE_SPMM_N); the port reads no
@@ -94,12 +96,11 @@ def spmm(edge_weight: torch.Tensor, senders: torch.Tensor,
         return bsr_spmm(operator, x)
     if isinstance(operator, SegCsr):
         return segmm_spmm(operator, x)
+    if isinstance(operator, EllMatrix):
+        return ell_spmm(operator, x)
     name = type(operator).__name__
     if name == "HybridSpmm":
         # ops/hybrid_spmm.py imports this module
         from fitgnn_tpu_torch.ops.hybrid_spmm import hybrid_spmm
         return hybrid_spmm(operator, x)
-    if name == "EllMatrix":
-        raise NotImplementedError("spmm: the ELL operator (ops/ell_spmm.py) "
-                                  "is not ported yet (ROADMAP.md §1 item 2)")
     raise TypeError(f"unknown SpMM operator {name}")

@@ -171,10 +171,10 @@ def check(name: str, got: torch.Tensor, ref: torch.Tensor) -> None:
 def k8_late():
     """The walk with the DIAG slab copy started after the vote."""
     walk = edited(read("tile_sparse.cuh"), [
-        ("  if (DIAG) start_slab<VEC>(xs, x + r * BLK * feat, f0, feat, "
-         "tid);\n", ""),
-        ("      if (!DIAG) {\n        start_slab<VEC>", "      {\n"
-         "        start_slab<VEC>")])
+        ("  if (DIAG && !QUAD) start_slab<VEC>(xs, x + r * BLK * feat, f0, "
+         "feat, tid);\n", ""),
+        ("      } else if (!DIAG) {\n        start_slab<VEC>",
+         "      } else {\n        start_slab<VEC>")])
     return build_variant("k8_late", {"tile_sparse.cuh": walk,
                                      "diag_spmm.cu": read("diag_spmm.cu")},
                          "diag_spmm.cu", "fitgnn_diag_spmm",
@@ -294,19 +294,21 @@ def k7_mask_global():
     return build_variant("k7_mask_global", {
         "att_bsr.cu": edited(read("att_bsr.cu"), [
             ("""#pragma unroll
-  for (int u = 0; u < SC_TILE / 4 / THREADS; ++u) {
+  for (int u = 0; u < SC_TILE / PER / THREADS; ++u) {
     const int q = tid + THREADS * u;
-    const int i = q / (BLK / 4);
-    sparse::cp_async16(ts + i * BLK + 4 * ((q % (BLK / 4)) ^ (i & 7)),
-                       tile + 4 * q, 16);
+    const int i = q / (BLK / PER);
+    sparse::cp_async16(
+        reinterpret_cast<float*>(tt + i * BLK
+                                 + PER * ((q % (BLK / PER)) ^ (i & 7))),
+        reinterpret_cast<const float*>(tile + PER * q), 16);
   }
 """, ""),
-            ("    const int at = i0 * BLK + 4 * ((col >> 2) ^ key) + (col & 3);\n"
-             "    const float2 k0 = *reinterpret_cast<const float2*>(ts + at);\n"
-             "    const float2 k1 = *reinterpret_cast<const float2*>(ts + at + 8 * BLK);",
+            ("    const int at = i0 * BLK + PER * ((col / PER) ^ key) + (col % PER);\n"
+             "    const float2 k0 = mask_pair(tt + at);\n"
+             "    const float2 k1 = mask_pair(tt + at + 8 * BLK);",
              "    const int at = i0 * BLK + col;\n"
-             "    const float2 k0 = __ldg(reinterpret_cast<const float2*>(tile + at));\n"
-             "    const float2 k1 = __ldg(reinterpret_cast<const float2*>(tile + at + 8 * BLK));")]),
+             "    const float2 k0 = mask_pair(tile + at);\n"
+             "    const float2 k1 = mask_pair(tile + at + 8 * BLK);")]),
         "tf32x3.cuh": read("tf32x3.cuh"),
         "tile_sparse.cuh": read("tile_sparse.cuh")},
         "att_bsr.cu", "fitgnn_att_scores", att_bsr._SCORES_ARGTYPES)
@@ -385,11 +387,13 @@ def k7_epilogue(name: str, scatter: bool, fast_exp: bool,
 
 
 _TILE_COPY = """#pragma unroll
-  for (int u = 0; u < SC_TILE / 4 / THREADS; ++u) {
+  for (int u = 0; u < SC_TILE / PER / THREADS; ++u) {
     const int q = tid + THREADS * u;
-    const int i = q / (BLK / 4);
-    sparse::cp_async16(ts + i * BLK + 4 * ((q % (BLK / 4)) ^ (i & 7)),
-                       tile + 4 * q, 16);
+    const int i = q / (BLK / PER);
+    sparse::cp_async16(
+        reinterpret_cast<float*>(tt + i * BLK
+                                 + PER * ((q % (BLK / PER)) ^ (i & 7))),
+        reinterpret_cast<const float*>(tile + PER * q), 16);
   }
 """
 
@@ -659,7 +663,8 @@ def main() -> int:
             out = torch.empty_like(x)
             kernels.check(late(kernels.ptr(blocks), kernels.ptr(x),
                                kernels.ptr(init), kernels.ptr(out), NB, feat,
-                               int(trans), kernels.stream(dev)), "k8_late")
+                               128, int(trans), kernels.stream(dev)),
+                          "k8_late")
             return out
 
         def run_kept():

@@ -1,0 +1,57 @@
+#!/usr/bin/env python3
+"""The tile walks' kernel times of ``chip_smoke.py`` alone, as one JSON line,
+on one GPU: a cheap way to compare two checkouts on one card.
+
+    python3 scripts/torch_kernel_rows.py [CHECKOUT] [--edge256]
+
+CHECKOUT (default: this repository) is the root of the checkout whose
+``chip_smoke.py`` and ``fitgnn_tpu_torch/`` run; its kernels build into its
+own ``build/``.  The script builds every kernel, makes the bench graph
+(seed 0), then runs ``chip_smoke.py``'s phase 3 (K1 and K3 on the default
+operator at F=128 and 512) and phase 5's kernel rows (K2, K9, K10 and K8's
+four forms on the opt-in operators), each checked against its plain
+version, and prints ``ROWS {"checkout": ..., "rows": {"K1 F=512": ms,
+...}}``; with ``--edge256`` also phase 14's rows at tile edge 256 (K1, K2,
+K9, K8 and their bf16 forms; a checkout from before that phase has none).
+Parent against change, alternated in one call:
+
+    for d in build/parent . . build/parent; do
+        python3 scripts/torch_kernel_rows.py $d; done
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+
+def main() -> int:
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    root = os.path.abspath(args[0] if args else os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    os.chdir(root)
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from fitgnn_tpu_torch.data.datasets import NodeDataset
+    from fitgnn_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device("cuda")
+    cs.phase_build()
+    x, s, r, y, train = cs.make_graph()
+    ds = NodeDataset("bench", x, s, r, y, train_mask=train)
+    g, _, shapes = cs.phase_kernels(device, ds)
+    shapes.update(cs.phase_optin_kernels(device, g,
+                                         cs.optin_operators(ds, g)))
+    ids = ["K1", "K3", "K2", "K9", "K10", "K8"]
+    if "--edge256" in sys.argv:
+        shapes.update(cs.phase_block_kernels(device, cs.block_operators(g)))
+        ids += [f"{k}@{cs.EDGE}" for k in cs.EDGE_IDS]
+    rows = {f"{k} {sh.get('shape', 'F=%d' % sh['F'])}": sh["ms"]
+            for k in ids for sh in shapes[k]}
+    print("ROWS " + json.dumps({"checkout": root, "rows": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

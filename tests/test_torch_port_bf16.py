@@ -488,10 +488,20 @@ def test_cli_curriculum_bf16_tiles(toy, tile_types, layer):
 
 @pytest.mark.parametrize("what", ["block"])
 def test_unported_tile_options_raise(what):
-    """``block != 128`` still raises, naming its ROADMAP item."""
+    """``block != 128``, once refused, now builds the JAX package's bf16
+    tiles at edge 256 (both directions); an edge off the multiples of 128
+    raises ``ValueError``."""
     s, r, w = sorted_coo(np.random.default_rng(2), 512, 1000)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        build_bsr(s, r, w, 512, block=256, tile_dtype=BF16)
+    bt = build_bsr(s, r, w, 512, block=256, tile_dtype=BF16)
+    bj = jax_build_bsr(s, r, w, 512, block=256, tile_dtype=jnp.bfloat16)
+    for mt, mj in ((bt, bj), (bt.transpose, bj.transpose)):
+        assert mt.blocks.dtype == BF16 and mt.block == mj.block == 256
+        np.testing.assert_array_equal(as_f32(mt.blocks), as_f32(mj.blocks))
+        for name in ("rows", "cols", "row_splits"):
+            np.testing.assert_array_equal(getattr(mt, name).numpy(),
+                                          np.asarray(getattr(mj, name)))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        build_bsr(s, r, w, 512, block=192, tile_dtype=BF16)
 
 
 @pytest.mark.parametrize("what", ["cluster_agg", "cluster_att"])

@@ -1285,3 +1285,214 @@ def test_graph_model_on_card_matches_cpu(cuda, layer, classify):
     for v in ("gc", "gs"):
         assert got[v].shape == (128, 2 if classify else 1)
         _close(got[v].cpu(), ref[v])
+
+
+# --- tiles of another edge (block=256): the quadrant walk -------------------
+
+_EDGE = 256
+_QUAD_WALKS = ("K1", "K2", "K9", *_DIAG_WALKS)
+
+
+def _quad_operands(rng, kernel, case):
+    """The operands of a walk on 256-wide tiles (1,024 nodes: four tile
+    rows), sparse (~3%) with tile rows and columns 0-9 of every 128-wide
+    quadrant empty and quadrant (0, 1) of every tile empty, edited by
+    ``case``: one fully dense tile, an all-zero tile inside a run, or a NaN
+    entry in quadrant (1, 1) (tile row 150, column 200).
+    * K1, K2: the grid-walk BCSR; tile row 2 holds only a zero coverage
+      filler;
+    * K9: the group-padded BCSR (group 3: every run gains zero pads);
+    * K8: four diagonal blocks, block 2 all zero, block 1 the one the case
+      edits.
+    Returns the operands, the 128-row output blocks of the dense tile
+    (empty unless "dense"), the output row the NaN must reach (None unless
+    "nan") and the 256-row output block that no non-zero reaches (None for
+    K9)."""
+    rows_walk = kernel not in ("K8T", "K8Tinit")
+    zero_block = None
+    if kernel in _DIAG_WALKS:
+        nt, tile, zero_block, b = 4, 1, 2, None
+        rows = cols = np.arange(nt)
+    else:
+        s, r, w = _coo(rng, 1024, 8_000)
+        s = np.where(rng.random(len(s)) < 0.8,
+                     (r // _EDGE) * _EDGE + rng.integers(0, _EDGE, len(s)), s)
+        if kernel != "K9":
+            zero_block = 2
+            keep = (r // _EDGE != zero_block) & (s // _EDGE != zero_block)
+            s, r, w = s[keep], r[keep], w[keep]
+        b = build_bsr(s, r, w, 1024, _EDGE, with_transpose=False,
+                      group=3 if kernel == "K9" else 1)
+        nt, (lo, hi) = b.nnz_blocks, (int(v) for v in b.row_splits[:2])
+        assert hi - lo >= 2
+        tile = lo + 1
+        rows, cols = b.rows.numpy(), b.cols.numpy()
+    blocks = np.where(rng.random((nt, _EDGE, _EDGE)) < 0.03,
+                      rng.standard_normal((nt, _EDGE, _EDGE)), 0.0)
+    for q in (0, 128):
+        blocks[:, q:q + 10, :] = 0.0
+        blocks[:, :, q:q + 10] = 0.0
+    blocks[:, :128, 128:] = 0.0
+    if b is not None:
+        blocks[~b.blocks.flatten(1).any(1).numpy()] = 0.0    # the pads
+    else:
+        blocks[zero_block] = 0.0
+    dense_blocks, nan_row = [], None
+    if case == "dense":
+        blocks[tile] = rng.random((_EDGE, _EDGE)) + 0.5
+        c = rows[tile] if rows_walk else cols[tile]
+        dense_blocks = [2 * c, 2 * c + 1]
+    elif case == "zero_inside":
+        blocks[tile] = 0.0
+    elif case == "nan":
+        blocks[tile, 150, 200] = np.nan
+        nan_row = (rows[tile] * _EDGE + 150 if rows_walk
+                   else cols[tile] * _EDGE + 200)
+    blocks = torch.from_numpy(blocks.astype(np.float32))
+    if b is None:
+        return blocks, dense_blocks, nan_row, zero_block
+    b.blocks = blocks
+    return b, dense_blocks, nan_row, zero_block
+
+
+@pytest.mark.parametrize("feat,aligned", [(40, True), (128, True),
+                                          (512, True), (40, False)])
+@pytest.mark.parametrize("case", ["sparse", "dense", "zero_inside", "nan"])
+@pytest.mark.parametrize("tile_type", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", _QUAD_WALKS)
+def test_quadrant_walks_match_plain(cuda, kernel, tile_type, case, feat,
+                                    aligned):
+    """K1, K2, K9 and K8 (both orientations, from init and from zero) on
+    256-wide tiles, walked as 128-wide quadrants, in the cases of
+    ``test_nonzero_walks_match_plain``: against their plain versions; an
+    empty quadrant, a zero tile, K9's pads and the zero tile row or
+    diagonal block leave their rows at init or zero bit for bit, and a NaN
+    entry reaches its own output row alone; the bf16 forms also bit for
+    bit against the f32 walk on the tiles widened and x rounded."""
+    rng = np.random.default_rng(feat + 60)
+    ops, dense_blocks, nan_row, zero_block = _quad_operands(rng, kernel,
+                                                            case)
+    n = 1024
+    x = torch.from_numpy(rng.standard_normal((n, feat)).astype(
+        np.float32)).to(cuda)
+    xd = x if aligned else _unaligned(x)
+    walk, plain = _NONZERO_WALKS[kernel]
+    base = torch.zeros_like(x)
+    bf16 = tile_type == "bf16"
+    if kernel in _DIAG_WALKS:
+        transpose, with_init = _DIAG_WALKS[kernel]
+        if with_init:
+            base = torch.from_numpy(rng.standard_normal((n, feat)).astype(
+                np.float32)).to(cuda)
+        tiles = ops.to(cuda)
+        tiles = tiles.to(torch.bfloat16) if bf16 else tiles
+
+        def args(t, xx):
+            return (t, xx, 2, transpose, base if with_init else None)
+
+        wide = tiles.float()
+    else:
+        b = ops.to(cuda)
+        assert b.block == _EDGE
+        if kernel == "K1":
+            base = torch.from_numpy(rng.standard_normal((n, feat)).astype(
+                np.float32)).to(cuda)
+
+        def args(t, xx):
+            return (t, xx) + ((base,) if kernel == "K1" else ())
+
+        tiles = dataclasses.replace(b, blocks=b.blocks.to(torch.bfloat16)) \
+            if bf16 else b
+        wide = dataclasses.replace(b, blocks=tiles.blocks.float())
+    count = "launches_bf16" if bf16 else "launches"
+    before = getattr(walk, count)
+    with torch.inference_mode():
+        got = walk(*args(tiles, xd))
+        ref = plain(*args(tiles, xd))
+        if bf16:
+            f32_walk = walk(*args(wide, x.to(torch.bfloat16).float()))
+    torch.cuda.synchronize()
+    assert getattr(walk, count) == before + 1
+    if bf16:
+        assert _bf16_nan_equal(got, f32_walk)
+    nan = ref.isnan()
+    if nan_row is None:
+        _close(got, ref)
+    else:
+        assert nan.any(1).nonzero().flatten().tolist() == [nan_row]
+        assert torch.equal(got.isnan(), nan)
+        keep = ~nan.any(1)
+        _close(got[keep], ref[keep])
+    if zero_block is not None:
+        rows = slice(zero_block * _EDGE, (zero_block + 1) * _EDGE)
+        assert torch.equal(got[rows], base[rows])
+    # output rows 0-9 of each 128-row half take quadrant rows (columns for
+    # K8 transposed) 0-9, empty in every tile
+    empty = torch.cat([torch.arange(r * 128, r * 128 + 10)
+                       for r in range(n // 128) if r not in dense_blocks])
+    assert torch.equal(got[empty.to(cuda)], base[empty.to(cuda)])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_walk_entries_refuse_an_edge_they_do_not_walk(cuda, bf16):
+    """The C entries themselves refuse a tile edge they have no form for:
+    K10 anything but 128 (the row walk builds no quadrant form), K2 an
+    edge off the multiples of 128; cudaErrorInvalidValue (1), nothing
+    launched.  At 128 both launch."""
+    from fitgnn_tpu_torch.ops import bsr_spmm as bsr_mod, kernels
+    rng = np.random.default_rng(31)
+    s, r, w = _coo(rng, 512, 2000)
+    b = build_bsr(s, r, w, 512, rowwalk=True,
+                  tile_dtype=torch.bfloat16 if bf16 else None).to(cuda)
+    x = torch.randn((512, 16), device=cuda)
+    out = torch.zeros_like(x)
+    for name, block, want in (("fitgnn_bsr_spmm_rowwalk", 256, 1),
+                              ("fitgnn_bsr_spmm_rowwalk", 128, 0),
+                              ("fitgnn_bsr_spmm", 192, 1),
+                              ("fitgnn_bsr_spmm", 128, 0)):
+        fn = kernels.function("bsr_spmm", kernels.entry(name, b.blocks),
+                              bsr_mod._ARGS_FWD)
+        rc = fn(kernels.ptr(b.blocks), kernels.ptr(b.row_splits),
+                kernels.ptr(b.cols), kernels.ptr(x), kernels.ptr(out),
+                b.num_row_blocks, 16, block, kernels.stream(cuda))
+        torch.cuda.synchronize()
+        assert rc == want, (name, block, rc)
+
+
+@pytest.mark.parametrize("use_diag", [False, True])
+def test_block256_training_on_card_matches_cpu(cuda, use_diag):
+    """One GCN training step (hidden 64, dropout off) on the 256-wide
+    operator (with and without the diagonal split), kernels on the card
+    against plain versions on the CPU: K3, K1 (where off-diagonal tiles
+    stay) and K8 launched four times each."""
+    rng = np.random.default_rng(13)
+    n, feat = 1920, 128                  # 2,048 rows padded: 8 tiles of 256
+    s, r = _bench_like(rng, n=n, e=20_000)
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    y = rng.integers(0, 5, n)
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=rng.random(n) < .5,
+                                 min_block_edges=48)
+    h = build_hybrid(g.senders.numpy(), g.receivers.numpy(),
+                     g.edge_weight.numpy(), g.num_nodes_padded,
+                     min_block_edges=96, block=_EDGE, use_segmm=True,
+                     use_diag=use_diag)
+    assert (h.diag_blocks is not None) == use_diag
+    assert h.bsr is not None or use_diag
+    k1 = 0 if h.bsr is None else 4
+    if h.bsr is not None:
+        assert h.bsr.block == _EDGE
+    g = g._replace(aux=h)
+    model = NodeModel("GCNConv", feat, 64, 2, 5, dropout_rate=0.0)
+    model.reset_parameters(torch.Generator().manual_seed(0)).train()
+    loss_c, grads_c = _grads(model, g, g.y, g.train_mask)
+    gd = g.to(cuda)
+    before = (bsr_spmm_acc.launches, diag_spmm.launches,
+              segmm_spmm.launches)
+    loss_d, grads_d = _grads(model.to(cuda), gd, gd.y, gd.train_mask)
+    torch.cuda.synchronize()
+    assert (bsr_spmm_acc.launches, diag_spmm.launches,
+            segmm_spmm.launches) == (before[0] + k1,
+                                     before[1] + 4 * use_diag, before[2] + 4)
+    _close(loss_d, loss_c)
+    for k, v in grads_c.items():
+        _close(grads_d[k], v)

@@ -30,6 +30,7 @@ from fitgnn_tpu.graph.build import build_graph as jax_build_graph
 from fitgnn_tpu.graph.optimize import \
     build_optimized_graph as jax_build_optimized_graph
 from fitgnn_tpu.models import NodeModel as JaxNodeModel
+from fitgnn_tpu.ops.ell_spmm import build_ell as jax_build_ell
 from fitgnn_tpu.ops.hybrid_spmm import build_hybrid as jax_build_hybrid
 from fitgnn_tpu.ops.hybrid_spmm import hybrid_spmm as jax_hybrid_spmm
 from fitgnn_tpu.ops.pallas.bsr_spmm import build_bsr as jax_build_bsr
@@ -38,6 +39,7 @@ from fitgnn_tpu.ops.pallas.bsr_spmm import bsr_spmm_acc_raw
 from fitgnn_tpu.ops.pallas.diag_spmm import diag_spmm_raw
 from fitgnn_tpu.ops.pallas.diag_spmm import \
     pick_run_length as jax_pick_run_length
+from fitgnn_tpu.ops.spmm import spmm as jax_spmm
 from fitgnn_tpu.train import losses as jax_losses
 
 from fitgnn_tpu_torch.graph.build import build_graph
@@ -53,6 +55,7 @@ from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm, pick_run_length
 from fitgnn_tpu_torch.ops.dropout import (dropout_bits, fused_dropout,
                                           philox4x32, philox_dropout,
                                           seed_from_generator)
+from fitgnn_tpu_torch.ops.ell_spmm import build_ell
 from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid, hybrid_spmm
 from fitgnn_tpu_torch.ops.spmm import spmm
 from fitgnn_tpu_torch.train import steps
@@ -124,9 +127,26 @@ def test_build_bsr_layouts_match_jax(layout):
                                      tile_dtype=torch.bfloat16),
                                 dict(tile_dtype=torch.float16)])
 def test_build_bsr_unported_variants_raise(kw):
+    """Of the variants once refused, the 256-wide tiles (f32 grid walk,
+    bf16 einsum) now build the JAX package's arrays; float16 tiles still
+    raise, naming their ROADMAP item."""
     s, r, w = sorted_coo(np.random.default_rng(2), 512, 1000)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        build_bsr(s, r, w, 512, **kw)
+    if kw.get("tile_dtype") is torch.float16:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
+            build_bsr(s, r, w, 512, **kw)
+        return
+    jkw = dict(kw, tile_dtype=jnp.bfloat16 if "tile_dtype" in kw else None)
+    bt, bj = build_bsr(s, r, w, 512, **kw), jax_build_bsr(s, r, w, 512, **jkw)
+    for mt, mj in ((bt, bj), (bt.transpose, bj.transpose)):
+        assert mt.block == mj.block == 256
+        assert mt.blocks.dtype == kw.get("tile_dtype", torch.float32)
+        np.testing.assert_array_equal(
+            mt.blocks.float().numpy(),
+            np.asarray(jnp.asarray(mj.blocks).astype(jnp.float32)))
+        for name in ("rows", "cols", "row_splits"):
+            np.testing.assert_array_equal(getattr(mt, name).numpy(),
+                                          np.asarray(getattr(mj, name)),
+                                          err_msg=name)
 
 
 WALKS = {"gridwalk": bsr_spmm_fwd, "group2": bsr_spmm_grouped,
@@ -188,10 +208,6 @@ def test_bsr_walks_refuse_other_layouts():
                  x.requires_grad_())
 
 
-class EllMatrix:
-    """A stand-in with the JAX package's ELL operator's name."""
-
-
 def test_spmm_dispatch():
     rng = np.random.default_rng(6)
     n = 512
@@ -204,8 +220,13 @@ def test_spmm_dispatch():
     for op in (None, h, build_bsr(s, r, w, n), build_segmm(s, r, w, n)):
         close(spmm(torch.from_numpy(w), torch.from_numpy(s),
                    torch.from_numpy(r), x, n, operator=op), ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spmm(None, None, None, x, n, operator=EllMatrix())
+    # the ELL operator (once refused) against the JAX package's dispatch
+    ell = spmm(None, None, None, x, n, operator=build_ell(s, r, w, n))
+    close(ell, jax_spmm(None, None, None, jnp.asarray(x.numpy()), n,
+                        operator=jax_build_ell(s, r, w, n)))
+    close(ell, ref)
+    with pytest.raises(TypeError, match="unknown SpMM operator"):
+        spmm(None, None, None, x, n, operator=object())
     assert segmm_spmm.launches == 0
 
 
