@@ -20,7 +20,8 @@ Phases (any failure exits non-zero before the result lines):
    product; on the GAT (``att_unit``) operator, whose tile split must equal
    the GCN operator's, K4 (``dyn_tiles``) and K4ᵀ (``dyn_tiles_t``) at
    F=128 and 512, K5 (``dyn_grad_blocks``, bound at the tensor cores' TF32
-   rate for its three passes) at F=128 and 512 and K3w
+   rate for its three passes; beside ``torch.bmm`` on slabs gathered
+   first, TF32 off) at F=128 and 512 and K3w
    (``segmm_weighted_raw``) at F=40 (off the path) and 64, and on the
    transpose CSR at F=512 (K6's ``dx``, the permutation passed to the
    kernel); then the fused tile attention and K6 at F=128 and
@@ -222,11 +223,33 @@ Phases (any failure exits non-zero before the result lines):
    ``@256`` forms) and held against the plain versions, two eval forwards
    on the forward-only operator (K2), and the step's ms on each f32
    operator beside the edge-128 operator's;
-15. one JSON line with every kernel's numbers, the bf16 forms and the
-   forms at edge 256 (``K1@256``, ``K1bf@256``, ...) as their own entries
-   (launches summed over the main-path phases 5 to 14, per phase beside
-   them; K3, K3w, K6, K5, K7f, K7bt, K7s and K7sums with their ``ptxas``
-   register and spill counts), then the ``ok`` line.
+15. GAT's tiles of edge 256 (``phase_gat_block_*``, ~60 s): the bench
+   graph's ``att_unit`` operators built by ``build_hybrid(block=256,
+   semantics="att_unit")`` on phase 3's node order (threshold 48 on f32
+   and on bf16 tiles; threshold 192 with ``cluster_att=2048``, the nodes
+   padded to 169,984), their live tiles, stragglers and share of empty
+   128-wide quadrants beside the split expected; K4 (``dyn_tiles``), K4ᵀ
+   (``dyn_tiles_t`` on the transpose plan) and K5 (``dyn_grad_blocks``,
+   one CTA a quadrant, bound at the tensor cores' TF32 rate for its three
+   passes) at edge 256 on ``pe``-like tile values at F=128 and 512, each
+   against its plain version (tolerance as in phase 3) with its kernel,
+   plain and library times (``torch.sparse.mm`` on the tiles' non-zeros;
+   K5's ``torch.bmm`` on pre-gathered slabs, TF32 off) and its bound;
+   then, every counter at 0 just before each run, one GAT
+   ``gc_train_step`` and one eval forward at hidden 512 (dropout 0.5) on
+   each operator under the default switches and under ``GLOBAL_MAX=0``,
+   launching phase 4's GAT counts (K4, K4ᵀ, K5 in their ``@256`` forms)
+   and held against the plain versions (the eval forward, the loss and
+   every gradient); ``FUSED_TILES=1`` on the threshold-48 operator, which
+   must raise ``NotImplementedError`` naming ROADMAP.md §2 and launch
+   nothing (K7 at 256 is not ported); and the step's ms on each operator
+   beside the edge-128 GAT operator's, in one call;
+16. one JSON line with every kernel's numbers, the bf16 forms and the
+   forms at edge 256 (``K1@256``, ``K1bf@256``, ``K4@256``, ...) as their
+   own entries (launches summed over the main-path phases 5 to 15, per
+   phase beside them; K3, K3w, K6, K5, K5@256, K7f, K7bt, K7s and K7sums
+   with their ``ptxas`` register and spill counts), then the ``ok``
+   line.
 
 The JAX package's environment switches are set in ``os.environ`` for one
 phase and restored after it; the earlier phases must launch none of K6
@@ -649,12 +672,134 @@ def read_counts() -> dict:
     return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
-def phase_gat_kernels(device, ds, g_gcn) -> tuple:
-    """K4, K4ᵀ, K5 and K3w on the bench graph's att_unit operator."""
-    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+def dyn_kernel_rows(device, hd, gen, tag: str = "") -> dict:
+    """K4, K4ᵀ (on the transpose plan) and K5 on the tiles of ``hd``, an
+    ``att_unit`` operator on the card, at the tiles' edge, with
+    attention-like values (positive on the mask, zero elsewhere) at F=128
+    and 512: each against its plain version, with its kernel, plain and
+    library times and its bound.  Returns the rows by ID, ``tag`` ("" or
+    "@256") after each."""
     from fitgnn_tpu_torch.ops.bsr_dynamic import (
         dyn_grad_blocks, dyn_grad_blocks_plain, dyn_tiles, dyn_tiles_plain,
         dyn_tiles_t, dyn_tiles_t_plain)
+
+    b, plan = hd.bsr, hd.dyn_plan
+    n, edge = hd.num_nodes, b.block
+    nb, k_all = n // edge, b.nnz_blocks
+    mask = b.blocks > 0
+    blocks = torch.where(mask, torch.rand(mask.shape, generator=gen,
+                                          device=device), 0.0)
+    nnz = int(mask.sum())
+    nz = mask.nonzero()
+    a_rows = b.rows.long()[nz[:, 0]] * edge + nz[:, 1]
+    a_cols = b.cols.long()[nz[:, 0]] * edge + nz[:, 2]
+    a_vals = blocks[nz[:, 0], nz[:, 1], nz[:, 2]]
+    a_csr = torch.sparse_coo_tensor(torch.stack([a_rows, a_cols]), a_vals,
+                                    (n, n)).coalesce().to_sparse_csr()
+    a_t_csr = torch.sparse_coo_tensor(torch.stack([a_cols, a_rows]), a_vals,
+                                      (n, n)).coalesce().to_sparse_csr()
+    del mask, nz, a_rows, a_cols, a_vals
+    uniq_cols = int(torch.unique(b.cols).numel())
+    uniq_rows = int(torch.unique(b.rows).numel())
+    tile_bytes = k_all * edge * edge * 4
+    idx_bytes = (2 * k_all + nb + 1) * 4
+    out = {f"{k}{tag}": [] for k in ("K4", "K4T", "K5")}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            for feat in (NUM_FEATURES, HIDDEN):
+                x = torch.randn((n, feat), generator=gen, device=device)
+                gr = torch.randn((n, feat), generator=gen, device=device)
+                print(f"F={feat}{' at edge ' + str(edge) if tag else ''}:")
+                k4 = dyn_tiles(b.rows, b.cols, plan, blocks, x)
+                p4 = dyn_tiles_plain(b.rows, b.cols, plan, blocks, x)
+                k4t = dyn_tiles_t(plan, blocks, gr)
+                p4t = dyn_tiles_t_plain(plan, blocks, gr)
+                torch.cuda.synchronize()
+                err4 = compare(f"K4{tag} dyn_tiles F={feat}", k4, p4)
+                err4t = compare(f"K4T{tag} dyn_tiles_t F={feat}", k4t, p4t)
+                compare(f"K4{tag} library torch.sparse.mm F={feat}",
+                        torch.sparse.mm(a_csr, x), p4)
+                compare(f"K4T{tag} library torch.sparse.mm F={feat}",
+                        torch.sparse.mm(a_t_csr, gr), p4t)
+                del k4, p4, k4t, p4t
+                k5 = dyn_grad_blocks(b.rows, b.cols, gr, x, edge)
+                p5 = dyn_grad_blocks_plain(b.rows, b.cols, gr, x, edge)
+                torch.cuda.synchronize()
+                err5 = compare(f"K5{tag} dyn_grad_blocks F={feat}", k5, p5)
+                del k5, p5
+                # K4 and K4ᵀ read every tile (at 256 all four quadrants),
+                # the slabs of the distinct input blocks and write the
+                # output once; 2 FLOPs per tile non-zero and feature
+                b4, by4 = bound(tile_bytes + idx_bytes
+                                + uniq_cols * edge * feat * 4 + n * feat * 4,
+                                2.0 * nnz * feat)
+                b4t, by4t = bound(tile_bytes + (3 * plan.t_sel.numel()
+                                                + nb + 1) * 4
+                                  + uniq_rows * edge * feat * 4
+                                  + n * feat * 4, 2.0 * nnz * feat)
+                # K5's output is every dense tile: 2·F FLOPs per entry,
+                # which the kernel computes as three TF32 passes on the
+                # tensor cores (hi/lo split); the same FLOPs on the f32
+                # CUDA cores are kept beside it
+                b5_bytes = (tile_bytes + idx_bytes
+                            + (uniq_rows + uniq_cols) * edge * feat * 4)
+                b5_flops = 2.0 * k_all * edge * edge * feat
+                b5, by5 = bound(b5_bytes, 3 * b5_flops,
+                                PEAK_TF32_FLOP_PER_S)
+                b5_cc, _ = bound(b5_bytes, b5_flops)
+                gs = gr.reshape(nb, edge, feat).index_select(0,
+                                                             b.rows.long())
+                xs = x.reshape(nb, edge, feat).index_select(0, b.cols.long())
+                out[f"K4{tag}"].append(dict(
+                    F=feat, **err4, bound_ms=b4, bound_by=by4,
+                    ms=cuda_ms(lambda: dyn_tiles(b.rows, b.cols, plan,
+                                                 blocks, x), 20),
+                    plain_ms=cuda_ms(lambda: dyn_tiles_plain(
+                        b.rows, b.cols, plan, blocks, x), 5),
+                    library_ms=cuda_ms(lambda: torch.sparse.mm(a_csr, x),
+                                       20)))
+                # the GAT step at hidden 512 takes no dx in layer 0 (the
+                # raw features need no gradient): K4ᵀ runs at F=512 alone
+                out[f"K4T{tag}"].append(dict(
+                    F=feat, on_path=feat == HIDDEN, **err4t, bound_ms=b4t,
+                    bound_by=by4t,
+                    ms=cuda_ms(lambda: dyn_tiles_t(plan, blocks, gr), 20),
+                    plain_ms=cuda_ms(lambda: dyn_tiles_t_plain(
+                        plan, blocks, gr), 5),
+                    library_ms=cuda_ms(lambda: torch.sparse.mm(a_t_csr, gr),
+                                       20)))
+                # no one PyTorch call gathers the slabs and multiplies
+                # them: the bmm of slabs gathered first stands in
+                out[f"K5{tag}"].append(dict(
+                    F=feat, **err5, bound_ms=b5, bound_by=by5,
+                    bound_cuda_cores_ms=b5_cc,
+                    ms=cuda_ms(lambda: dyn_grad_blocks(b.rows, b.cols, gr, x,
+                                                       edge), 10),
+                    plain_ms=cuda_ms(lambda: dyn_grad_blocks_plain(
+                        b.rows, b.cols, gr, x, edge), 5),
+                    library_ms=cuda_ms(lambda: torch.bmm(
+                        gs, xs.transpose(1, 2)), 10),
+                    library_label="torch.bmm on pre-gathered slabs (the "
+                    "gather excluded), TF32 off"))
+                for k in ("K4", "K4T", "K5"):
+                    sh = out[f"{k}{tag}"][-1]
+                    print(f"  {k}{tag} F={feat}: kernel_ms={sh['ms']:.4f} "
+                          f"plain_ms={sh['plain_ms']:.4f} library_ms="
+                          f"{sh['library_ms']:.4f} bound_ms="
+                          f"{sh['bound_ms']:.4f} ({sh['bound_by']})")
+                print(f"  K5{tag} F={feat}: bound on the f32 CUDA cores "
+                      f"{b5_cc:.4f} ms")
+                del x, gr, gs, xs
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def phase_gat_kernels(device, ds, g_gcn) -> tuple:
+    """K4, K4ᵀ, K5 and K3w on the bench graph's att_unit operator."""
+    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
     from fitgnn_tpu_torch.ops.coo_segmm import (segmm_weighted_raw,
                                                 segmm_weighted_raw_plain)
 
@@ -679,111 +824,18 @@ def phase_gat_kernels(device, ds, g_gcn) -> tuple:
 
     gd = g.to(device)
     hd = gd.aux
-    b, plan, m = hd.bsr, hd.dyn_plan, hd.segmm
+    m = hd.segmm
     n = g.num_nodes_padded
-    k_all = b.nnz_blocks
     gen = torch.Generator(device=device).manual_seed(1)
-    mask = b.blocks > 0
-    # attention-like tile values: positive on the adjacency, zero elsewhere
-    blocks = torch.where(mask, torch.rand(mask.shape, generator=gen,
-                                          device=device), 0.0)
-    nnz = int(mask.sum())
-    nz = mask.nonzero()
-    a_rows = b.rows.long()[nz[:, 0]] * 128 + nz[:, 1]
-    a_cols = b.cols.long()[nz[:, 0]] * 128 + nz[:, 2]
-    a_vals = blocks[nz[:, 0], nz[:, 1], nz[:, 2]]
-    a_csr = torch.sparse_coo_tensor(torch.stack([a_rows, a_cols]), a_vals,
-                                    (n, n)).coalesce().to_sparse_csr()
-    a_t_csr = torch.sparse_coo_tensor(torch.stack([a_cols, a_rows]), a_vals,
-                                      (n, n)).coalesce().to_sparse_csr()
-    uniq_cols = int(torch.unique(b.cols).numel())
-    uniq_rows = int(torch.unique(b.rows).numel())
+    shapes = dyn_kernel_rows(device, hd, gen)
     e = m.senders.shape[0]
     w_edge = torch.rand(e, generator=gen, device=device)
     str_csr = torch.sparse_csr_tensor(m.row_ptr, m.senders,
                                       w_edge * m.weights, (n, n))
     uniq_senders = int(torch.unique(m.senders[m.weights != 0]).numel())
-    idx_bytes = (2 * k_all + b.num_row_blocks + 1) * 4
 
-    shapes = {"K4": [], "K4T": [], "K5": [], "K3w": []}
+    shapes["K3w"] = []
     with torch.inference_mode():
-        for feat in (NUM_FEATURES, HIDDEN):
-            x = torch.randn((n, feat), generator=gen, device=device)
-            gr = torch.randn((n, feat), generator=gen, device=device)
-            print(f"F={feat}:")
-            k4 = dyn_tiles(b.rows, b.cols, plan, blocks, x)
-            p4 = dyn_tiles_plain(b.rows, b.cols, plan, blocks, x)
-            k4t = dyn_tiles_t(plan, blocks, gr)
-            p4t = dyn_tiles_t_plain(plan, blocks, gr)
-            k5 = dyn_grad_blocks(b.rows, b.cols, gr, x)
-            p5 = dyn_grad_blocks_plain(b.rows, b.cols, gr, x)
-            torch.cuda.synchronize()
-            err4 = compare(f"K4 dyn_tiles F={feat}", k4, p4)
-            err4t = compare(f"K4T dyn_tiles_t F={feat}", k4t, p4t)
-            err5 = compare(f"K5 dyn_grad_blocks F={feat}", k5, p5)
-            compare(f"K4 library torch.sparse.mm F={feat}",
-                    torch.sparse.mm(a_csr, x), p4)
-            compare(f"K4T library torch.sparse.mm F={feat}",
-                    torch.sparse.mm(a_t_csr, gr), p4t)
-            del k5, p5
-            # K4 and K4ᵀ read every tile, the slabs of the distinct input
-            # blocks, and write the output once; the function needs 2 FLOPs
-            # per tile non-zero and feature
-            b4, by4 = bound(k_all * 128 * 128 * 4 + idx_bytes
-                            + uniq_cols * 128 * feat * 4 + n * feat * 4,
-                            2.0 * nnz * feat)
-            b4t, by4t = bound(k_all * 128 * 128 * 4 + 3 * plan.t_sel.numel()
-                              * 4 + uniq_rows * 128 * feat * 4
-                              + n * feat * 4, 2.0 * nnz * feat)
-            # K5's output is every dense tile: 2·F FLOPs per entry, which
-            # the kernel computes as three TF32 passes on the tensor cores
-            # (hi/lo split); the same FLOPs on the f32 CUDA cores are kept
-            # beside it
-            b5_bytes = (k_all * 128 * 128 * 4 + idx_bytes
-                        + (uniq_rows + uniq_cols) * 128 * feat * 4)
-            b5_flops = 2.0 * k_all * 128 * 128 * feat
-            b5, by5 = bound(b5_bytes, 3 * b5_flops, PEAK_TF32_FLOP_PER_S)
-            b5_cc, _ = bound(b5_bytes, b5_flops)
-            # one PyTorch call computes K5 only on slabs gathered first;
-            # that bmm is timed (gather excluded) and labelled, not used
-            # as library_ms
-            gs = gr.reshape(-1, 128, feat).index_select(0, b.rows.long())
-            xs = x.reshape(-1, 128, feat).index_select(0, b.cols.long())
-            shapes["K4"].append(dict(
-                F=feat, **err4, bound_ms=b4, bound_by=by4,
-                ms=cuda_ms(lambda: dyn_tiles(b.rows, b.cols, plan, blocks,
-                                             x), 20),
-                plain_ms=cuda_ms(lambda: dyn_tiles_plain(
-                    b.rows, b.cols, plan, blocks, x), 5),
-                library_ms=cuda_ms(lambda: torch.sparse.mm(a_csr, x), 20)))
-            shapes["K4T"].append(dict(
-                F=feat, **err4t, bound_ms=b4t, bound_by=by4t,
-                ms=cuda_ms(lambda: dyn_tiles_t(plan, blocks, gr), 20),
-                plain_ms=cuda_ms(lambda: dyn_tiles_t_plain(plan, blocks,
-                                                           gr), 5),
-                library_ms=cuda_ms(lambda: torch.sparse.mm(a_t_csr, gr),
-                                   20)))
-            shapes["K5"].append(dict(
-                F=feat, **err5, bound_ms=b5, bound_by=by5,
-                bound_cuda_cores_ms=b5_cc,
-                ms=cuda_ms(lambda: dyn_grad_blocks(b.rows, b.cols, gr, x),
-                           10),
-                plain_ms=cuda_ms(lambda: dyn_grad_blocks_plain(
-                    b.rows, b.cols, gr, x), 5),
-                library_ms=None,
-                bmm_pregathered_ms=cuda_ms(
-                    lambda: torch.bmm(gs, xs.transpose(1, 2)), 10)))
-            del gs, xs
-            for k in ("K4", "K4T", "K5"):
-                sh = shapes[k][-1]
-                lib = sh["library_ms"]
-                print(f"  {k} F={feat}: kernel_ms={sh['ms']:.4f} "
-                      f"plain_ms={sh['plain_ms']:.4f} library_ms="
-                      f"{'null' if lib is None else f'{lib:.4f}'} "
-                      f"bound_ms={sh['bound_ms']:.4f} ({sh['bound_by']})")
-            print(f"  K5 F={feat}: torch.bmm on pre-gathered slabs "
-                  f"{shapes['K5'][-1]['bmm_pregathered_ms']:.4f} ms; bound "
-                  f"on the f32 CUDA cores {b5_cc:.4f} ms")
         for feat in (NUM_CLASSES, 64):
             x = torch.randn((n, feat), generator=gen, device=device)
             print(f"F={feat}:")
@@ -886,7 +938,8 @@ def phase_fused_kernels(device, g) -> dict:
         pe = att_bsr._tile_pe(blocks.index_select(0, plan.t_sel.long()), ssrc,
                               sdst, mg, plan.t_cols, plan.t_rows, SLOPE)[2]
         sc = plan.t_scale.to(pe.dtype)[:, None, None]
-        dx = torch.bmm(pe.transpose(1, 2), att_bsr._slabs(gr, plan.t_cols))
+        dx = torch.bmm(pe.transpose(1, 2),
+                       att_bsr._slabs(gr, plan.t_cols, 128))
         return att_bsr._sum_by_block(sc * dx, plan.t_rows, nb)
 
     def show(k, last=1):
@@ -3644,10 +3697,53 @@ EDGE_EVAL = {"t48": {"K3": 2, "K1": 2},
 EDGE_TIMED_STEPS = 10
 
 
+# GAT's forms counted at edge 256 (phase 15)
+GAT_EDGE_IDS = ("K4", "K4T", "K5")
+
+
+def eval_and_step(model, gd, device) -> tuple:
+    """One eval forward of ``model`` on ``gd``, then one ``gc_train_step``
+    (Adam with L2, dropout drawn from a seed-0 generator on the card):
+    (the forward, the loss, every parameter's gradient)."""
+    from fitgnn_tpu_torch.train import steps
+
+    model.eval()
+    with torch.inference_mode():
+        fwd = model(gd.x, gd)
+    opt = steps.adam_l2(model.parameters(), 0.01, 5e-4)
+    gen = torch.Generator(device=device).manual_seed(0)
+    loss = steps.gc_train_step(model, opt, gd, gd.y, gd.train_mask, gen,
+                               "classification")
+    torch.cuda.synchronize()
+    return fwd, loss, {k: p.grad.detach().clone()
+                       for k, p in model.named_parameters()}
+
+
+def step_ms(what: str, make_model, device, graphs) -> None:
+    """Prints the ``gc_train_step`` ms (CUDA events over EDGE_TIMED_STEPS
+    steps) of a fresh ``make_model()`` on each (name, CPU graph) in turn,
+    in one call."""
+    from fitgnn_tpu_torch.train import steps
+
+    times = {}
+    for name, gr in graphs:
+        gd = gr.to(device)
+        model = make_model()
+        opt = steps.adam_l2(model.parameters(), 0.01, 5e-4)
+        gen = torch.Generator(device=device).manual_seed(0)
+        times[name] = cuda_ms(lambda: steps.gc_train_step(
+            model, opt, gd, gd.y, gd.train_mask, gen, "classification"),
+            EDGE_TIMED_STEPS)
+        del gd, model, opt
+        torch.cuda.empty_cache()
+    print(f"gc_train_step ms ({what}, CUDA events over {EDGE_TIMED_STEPS} "
+          "steps): " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+
+
 def at_edge(counts: dict) -> dict:
     """Launch counts of a run at edge 256, the tile kernels under their
     ``@256`` IDs."""
-    return {f"{k}@{EDGE}" if k in EDGE_IDS else k: v
+    return {f"{k}@{EDGE}" if k in EDGE_IDS + GAT_EDGE_IDS else k: v
             for k, v in counts.items()}
 
 
@@ -3863,7 +3959,6 @@ def phase_block_steps(device, g, ops) -> dict:
     ``gc_train_step`` ms of each f32 operator beside the edge-128
     operator's, in one call."""
     from fitgnn_tpu_torch.models.models import NodeModel
-    from fitgnn_tpu_torch.train import steps
 
     t_phase = time.perf_counter()
     phases = {}
@@ -3876,16 +3971,7 @@ def phase_block_steps(device, g, ops) -> dict:
             device)
 
     def run(gd):
-        model = model_().eval()
-        with torch.inference_mode():
-            fwd = model(gd.x, gd)
-        opt = steps.adam_l2(model.parameters(), 0.01, 5e-4)
-        gen = torch.Generator(device=device).manual_seed(0)
-        loss = steps.gc_train_step(model, opt, gd, gd.y, gd.train_mask, gen,
-                                   "classification")
-        torch.cuda.synchronize()
-        return fwd, loss, {k: p.grad.detach().clone()
-                           for k, p in model.named_parameters()}
+        return eval_and_step(model_(), gd, device)
 
     evals = {}
     for tt in ("f32", "bf16"):
@@ -3935,22 +4021,183 @@ def phase_block_steps(device, g, ops) -> dict:
                 evals[(name, "f32")], evals[("t48", "f32")])
 
     # the step's time on each f32 operator beside edge 128's, in one call
-    times = {}
-    for name, h in (("edge 128 (phase 3)", g.aux), *(
-            (f"edge {EDGE} {k}", ops[k]) for k in ops)):
-        gd = g._replace(aux=h).to(device)
-        model = model_()
-        opt = steps.adam_l2(model.parameters(), 0.01, 5e-4)
-        gen = torch.Generator(device=device).manual_seed(0)
-        times[name] = cuda_ms(lambda: steps.gc_train_step(
-            model, opt, gd, gd.y, gd.train_mask, gen, "classification"),
-            EDGE_TIMED_STEPS)
-        del gd, model, opt
-        torch.cuda.empty_cache()
-    print("gc_train_step ms (GCN hidden 512, K11 dropout 0.5, CUDA events "
-          f"over {EDGE_TIMED_STEPS} steps): " + ", ".join(
-              f"{k} {v:.3f}" for k, v in times.items()))
+    step_ms("GCN hidden 512, K11 dropout 0.5", model_, device, (
+        ("edge 128 (phase 3)", g),
+        *((f"edge {EDGE} {k}", g._replace(aux=h)) for k, h in ops.items())))
     print(f"edge-{EDGE} steps: {time.perf_counter() - t_phase:.1f} s")
+    return phases
+
+
+# ---- phase 15: GAT's tiles of edge 256 -----------------------------------
+
+# the bench graph's att_unit operators at edge 256 on phase 3's order and
+# their split (live tiles, of which on the diagonal; stragglers; empty
+# 128-wide quadrants of the live tiles).  At 128 the att_unit split equals
+# the GCN split (phase 3), and at 256 it is phase 14's: threshold 48 is
+# the CLI's default, 192 bench.py's rule at this edge, here collapsed onto
+# clusters of 2,048.  The collapse pads the nodes to 169,984 = 664 x 256,
+# which moves the pad node and its weight-0 edges (the JAX rule counts
+# them toward a tile's threshold): 677 live tiles, 661 on the diagonal,
+# where 169,472 rows give 678 and 662; every straggler collapses.
+GAT_EDGE_OPS = {"t48": (1_174, 662, 225_132, 1_581),
+                "t48bf": (1_174, 662, 225_132, 1_581),
+                "t192c": (677, 661, 0, 490)}
+GAT_EDGE_STEP = at_edge({k: STEP["GATConv"].get(k, 0)
+                         + EVAL["GATConv"].get(k, 0)
+                         for k in (*STEP["GATConv"], *EVAL["GATConv"])})
+GAT_EDGE_MODES = {"default": {}, "exact": {"FITGNN_GAT_GLOBAL_MAX": "0"}}
+
+
+def gat_block_operators(g, ds, order) -> dict:
+    """GAT's operators at edge 256 on phase 3's node order: name →
+    (graph with the operator attached, CPU tensors).  ``t48`` on phase 3's
+    graph (presence weights, as ``build_optimized_graph`` weighs GAT's
+    operator), ``t48bf`` its tiles in bf16, ``t192c`` threshold 192 under
+    ``cluster_att=2048`` on the same order padded to a whole cluster;
+    their split printed beside ``GAT_EDGE_OPS``'."""
+    from fitgnn_tpu_torch.graph.build import build_graph
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+
+    t0 = time.perf_counter()
+
+    def att(gr, **kw):
+        s = gr.senders.numpy().astype(np.int64)
+        r = gr.receivers.numpy().astype(np.int64)
+        w = (gr.edge_weight.numpy() > 0).astype(np.float32)
+        return build_hybrid(s, r, w, gr.num_nodes_padded, block=EDGE,
+                            use_segmm=True, semantics="att_unit",
+                            real_nodes=NUM_NODES, **kw)
+
+    h48 = att(g, min_block_edges=48)
+    inv = np.empty(NUM_NODES, dtype=np.int64)
+    inv[order] = np.arange(NUM_NODES)
+    gc = build_graph(ds.x[order], inv[ds.senders].astype(np.int32),
+                     inv[ds.receivers].astype(np.int32), y=ds.y[order],
+                     train_mask=ds.train_mask[order], node_pad_to=CLUSTER_K)
+    check(gc.num_nodes_padded == CLUSTER_N_PAD,
+          f"t192c: N_pad {gc.num_nodes_padded}")
+    ops = {"t48": g._replace(aux=h48),
+           "t48bf": g._replace(aux=bf16_tiles(h48)),
+           "t192c": gc._replace(aux=att(gc, min_block_edges=192,
+                                        cluster_att=CLUSTER_K))}
+    print(f"GAT edge-{EDGE} ingest (3 operators): "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, gr in ops.items():
+        h = gr.aux
+        b = h.bsr
+        check(b is not None and b.block == EDGE and h.dyn_plan is not None
+              and b.blocks.shape[1:] == (EDGE, EDGE),
+              f"GAT edge {EDGE} {name}: no {EDGE}-wide tile with a plan")
+        quads = (b.blocks.reshape(-1, 2, 128, 2, 128) != 0).any(4).any(2)
+        live = quads.flatten(1).any(1)
+        tiles = int(live.sum())
+        empty = int((~quads[live]).sum())
+        on_diag = int((live & (b.rows == b.cols)).sum())
+        stragglers = int((h.weights != 0).sum())
+        cc = h.cluster_count
+        collapsed = "" if cc is None else (
+            f", {int((cc > 0).sum())} cluster entries ({cc.dtype}, "
+            f"C {cc.shape[1]}, N_pad {gr.num_nodes_padded})")
+        ref = GAT_EDGE_OPS[name]
+        mib = b.blocks.numel() * b.blocks.element_size() / 2 ** 20
+        print(f"GAT edge {EDGE} {name}: {tiles} live tiles ({on_diag} on "
+              f"the diagonal; +{b.nnz_blocks - tiles} fillers), "
+              f"{stragglers} stragglers{collapsed}; empty quadrants "
+              f"{empty} of {4 * tiles} ({100 * empty / (4 * tiles):.1f}%); "
+              f"tiles {b.blocks.dtype} {mib:.1f} MiB a direction; "
+              f"expected (tiles, on the diagonal, stragglers, empty "
+              f"quadrants) {ref}")
+    return ops
+
+
+def phase_gat_block_kernels(device, h) -> dict:
+    """K4, K4ᵀ (on the transpose plan) and K5 at edge 256 on the
+    threshold-48 operator's tiles (``dyn_kernel_rows``)."""
+    t_phase = time.perf_counter()
+    out = dyn_kernel_rows(device, h.to(device),
+                          torch.Generator(device=device).manual_seed(15),
+                          f"@{EDGE}")
+    torch.cuda.empty_cache()
+    print(f"GAT edge-{EDGE} kernels: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_gat_block_steps(device, g, ops) -> dict:
+    """Through the library surface, every counter at 0 just before each
+    counted run: on each operator at edge 256, under the default switches
+    and under ``GLOBAL_MAX=0``, one GAT ``gc_train_step`` at hidden 512
+    (bit dropout 0.5, seed-0 weights) and one eval forward, launching
+    ``GAT_EDGE_STEP`` and held against the same run with the plain versions
+    (the eval forward, the loss and every gradient); ``FUSED_TILES=1`` on
+    the threshold-48 operator raises naming ROADMAP.md §2 and launches
+    nothing; then the ``gc_train_step`` ms on each operator beside the
+    edge-128 GAT operator's (phase 3's order at threshold 48), in one
+    call."""
+    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+
+    t_phase = time.perf_counter()
+    phases = {}
+
+    def model_():
+        m = NodeModel("GATConv", NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                      dropout_rate=0.5)
+        return m.reset_parameters(torch.Generator().manual_seed(0)).to(
+            device)
+
+    def run(gd):
+        return eval_and_step(model_(), gd, device)
+
+    for name, gr in ops.items():
+        gd = gr.to(device)
+        for mode, env in GAT_EDGE_MODES.items():
+            what = f"edge{EDGE} gat512 {name} {mode} step and eval"
+            with switches(env):
+                reset_counts()
+                got = run(gd)
+                launches = at_edge(read_counts())
+                expect(launches, GAT_EDGE_STEP, what)
+                phases[what] = launches
+                with plain_versions():
+                    ref = run(gd)
+            compare(f"{what}: eval forward kernels vs plain", got[0], ref[0])
+            compare(f"{what}: loss kernels vs plain", got[1].reshape(1),
+                    ref[1].reshape(1))
+            for k in ref[2]:
+                compare(f"{what}: grad {k} kernels vs plain", got[2][k],
+                        ref[2][k])
+            del got, ref
+        if name == "t48":
+            # the fused tile attention at 256 is not ported: an expected
+            # refusal before any launch, and the run carries on
+            model = model_().eval()
+            with switches(FUSED_ONLY), torch.inference_mode():
+                reset_counts()
+                try:
+                    model(gd.x, gd)
+                    raised = None
+                except NotImplementedError as exc:
+                    raised = str(exc)
+            check(raised is not None and "ROADMAP.md §2" in raised,
+                  f"FUSED_TILES=1 at edge {EDGE}: expected a refusal naming "
+                  f"ROADMAP.md §2, got {raised!r}")
+            expect(read_counts(), {}, f"FUSED_TILES=1 at edge {EDGE}")
+            print(f"FUSED_TILES=1 at edge {EDGE}: NotImplementedError, as "
+                  f"expected: {raised}")
+            del model
+        del gd
+        torch.cuda.empty_cache()
+
+    # the step's time on each operator beside edge 128's, in one call
+    s = g.senders.numpy().astype(np.int64)
+    r = g.receivers.numpy().astype(np.int64)
+    w = (g.edge_weight.numpy() > 0).astype(np.float32)
+    h128 = build_hybrid(s, r, w, g.num_nodes_padded, min_block_edges=48,
+                        use_segmm=True, semantics="att_unit")
+    step_ms("GAT hidden 512, dropout 0.5", model_, device, (
+        ("edge 128 t48", g._replace(aux=h128)),
+        *((f"edge {EDGE} {k}", v) for k, v in ops.items())))
+    print(f"GAT edge-{EDGE} steps: {time.perf_counter() - t_phase:.1f} s")
     return phases
 
 
@@ -4095,6 +4342,17 @@ KERNELS = (
     ("K9bf@256", "K9bf@256 bsr_spmm_grouped on 256-wide bf16 tiles",
      "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/bsr_spmm.py:264"),
+    # GAT's forms at tile edge 256, phase 15
+    ("K4@256", "K4@256 dyn_tiles on 256-wide attention tiles (128-wide "
+     "quadrants)", "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_dynamic.py:68"),
+    ("K4T@256", "K4T@256 dyn_tiles_t on 256-wide attention tiles (the "
+     "transpose plan's quadrants, read transposed)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_dynamic.py:68"),
+    ("K5@256", "K5@256 dyn_grad_blocks on 256-wide tiles (one CTA a "
+     "128-wide quadrant)", "fitgnn_tpu_torch/csrc/bsr_dynamic.cu",
+     "fitgnn_tpu/ops/pallas/bsr_dynamic.py:122"),
 )
 
 
@@ -4126,7 +4384,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         os.makedirs(os.path.join(tmp, "dataset", "bench"))
         save_npz_cache(os.path.join(tmp, "dataset", "bench", "bench.npz"), ds)
-        g, _, shapes = phase_kernels(device, ds)
+        g, order, shapes = phase_kernels(device, ds)
         gcn_split = (g.aux.bsr.rows, g.aux.bsr.cols, g.aux.bsr.nnz_blocks,
                      g.aux.num_coo_edges)
         g_gat, gat_shapes = phase_gat_kernels(device, ds, g)
@@ -4176,6 +4434,11 @@ def main() -> int:
         ops = block_operators(g)
         shapes.update(phase_block_kernels(device, ops))
         phases.update(phase_block_steps(device, g, ops))
+        del ops
+        torch.cuda.empty_cache()
+        ops = gat_block_operators(g, ds, order)
+        shapes.update(phase_gat_block_kernels(device, ops["t48"].aux))
+        phases.update(phase_gat_block_steps(device, g, ops))
         del ops, g
         torch.cuda.empty_cache()
 
@@ -4188,16 +4451,19 @@ def main() -> int:
         check(entry["launches"] > 0,
               f"{entry['name']} never launched on a main-path phase")
     # the register counts of K7's walks (both slab copies), of the score
-    # pass and K5 (both load widths) and of the column sum
-    # and of the straggler sum (K3 and K3w without den, K6 with it: three
-    # lane counts, two load widths each)
+    # pass and K5 (both load widths; K5@256 its quadrant forms) and of the
+    # column sum and of the straggler sum (K3 and K3w without den, K6 with
+    # it: three lane counts, two load widths each)
     for (k, *_), entry in zip(KERNELS, kernels_line["kernels"]):
         hook = {"K7f": "FwdScores", "K7bt": "DxScores"}.get(k)
-        name = {"K5": "dyn_grad_blocks_kernel", "K7s": "att_scores_kernel",
+        name = {"K5": "dyn_grad_blocks_kernel<", "K5@256":
+                "dyn_grad_blocks_kernel<", "K7s": "att_scores_kernel",
                 "K7sums": "att_sums_kernel",
                 "K3": "segmm_spmm_kernel<false", "K3w":
                 "segmm_spmm_kernel<false", "K6": "segmm_spmm_kernel<true"
                 }.get(k)
+        # K5's template flags are <VEC, QUAD>
+        quad = {"K5": "false>", "K5@256": "true>"}.get(k, "")
         if hook is None and name is None:
             continue
         entry["registers"] = {
@@ -4205,9 +4471,11 @@ def main() -> int:
             for _, kernel, n, spill in regs
             if (hook is not None
                 and (walk_args(kernel) or (None,) * 4)[3] == hook)
-            or (name is not None and kernel.startswith(name))}
+            or (name is not None and kernel.startswith(name)
+                and kernel.endswith(quad))}
         # two load widths each, K7f, K7bt and K7s also on bf16 tiles
-        want = {"K7sums": 1, "K3": 6, "K3w": 6, "K6": 6, "K5": 2}.get(k, 4)
+        want = {"K7sums": 1, "K3": 6, "K3w": 6, "K6": 6, "K5": 2,
+                "K5@256": 2}.get(k, 4)
         check(len(entry["registers"]) == want,
               f"{entry['name']}: no ptxas record of its kernels")
         print(f"{k} registers: {entry['registers']}")

@@ -60,6 +60,22 @@
 // overlaps a tile's store with the next tile's loads, and a product
 // sampled at the tile mask (only ~3% of dB is used downstream, but that
 // changes the op's output at every unmasked entry).
+//
+// Tiles of another edge.  The JAX package's build_hybrid(block=E,
+// semantics="att_unit") gives GAT (K, E, E) tiles for any E = 128 nq, and
+// _dyn_apply and _dyn_grad_blocks take E as a static argument.  Both
+// entries here take it as `block`.  K4 and K4T walk an E tile as nq x nq
+// quadrants of 128 x 128 (tile_sparse.cuh, QUAD; the columns orientation
+// reads quadrant (q, h) of tile sel[k] transposed), so an empty quadrant
+// costs only its read.  K5 gives each quadrant (i, j) of a tile a CTA of
+// its own, the nq^2 CTAs of a tile adjacent in the grid so that they share
+// their slabs in L2: CTA (k, i, j) takes the g slab at node row
+// rows[k] E + 128 i and the x slab at cols[k] E + 128 j, runs the same
+// product, and stores it at row stride E.  One CTA a whole 256 x 256 tile
+// would hold 256 accumulators a thread over two warpgroups, far over the
+// register file.  At E = 256 the dense dB is 4x the work of a 128 tile, so
+// the tensor cores (three TF32 passes), not the bytes, bound K5 on the
+// bench graph.  At E = 128 (nq = 1) both are the kernels above, unchanged.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -73,97 +89,125 @@ constexpr int BLK = tf32x3::BLK;
 // the product's two stages, 1 KB aligned
 constexpr int GSMEM = tf32x3::SMEM + 1024;
 
-template <bool VEC>
+template <bool VEC, bool QUAD>
 __global__ void __launch_bounds__(tf32x3::THREADS, 1)
 dyn_grad_blocks_kernel(const int32_t* __restrict__ rows,
                        const int32_t* __restrict__ cols,
                        const float* __restrict__ g,
                        const float* __restrict__ x, float* __restrict__ dB,
-                       int64_t feat) {
+                       int64_t feat, int nq) {
   extern __shared__ unsigned char graw[];
   const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(graw));
   float* sm = reinterpret_cast<float*>(graw + ((1024 - base % 1024) % 1024));
   const int tid = threadIdx.x;
   const int wg = tid / 128;                     // output rows 64 wg ..
-  const int64_t k = blockIdx.x;
-  const float* gb = g + static_cast<int64_t>(rows[k]) * BLK * feat;
-  const float* xb = x + static_cast<int64_t>(cols[k]) * BLK * feat;
+  // the tile, and under QUAD its quadrant (qi, qj): the nq^2 CTAs of a
+  // tile are adjacent, so they run together and share their slabs in L2
+  const int64_t k = QUAD ? blockIdx.x / (nq * nq) : blockIdx.x;
+  const int quad = QUAD ? static_cast<int>(blockIdx.x % (nq * nq)) : 0;
+  const int64_t qi = QUAD ? quad / nq : 0, qj = QUAD ? quad % nq : 0;
+  const int64_t edge = QUAD ? static_cast<int64_t>(nq) * BLK : BLK;
+  const float* gb = g + (static_cast<int64_t>(rows[k]) * edge + qi * BLK)
+                        * feat;
+  const float* xb = x + (static_cast<int64_t>(cols[k]) * edge + qj * BLK)
+                        * feat;
 
   float d[64];
   tf32x3::product<VEC>(d, sm, gb, xb, feat, tid);
 
   // accumulator j of a thread: row 64 wg + 16 warp + lane / 4 (+8 for the
-  // odd pair), columns 8 (j / 4) + 2 (lane % 4) + {0, 1}
+  // odd pair), columns 8 (j / 4) + 2 (lane % 4) + {0, 1} of the quadrant,
+  // whose rows lie edge floats apart in dB
   const int lane = tid & 31;
   const int i0 = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
-  float* o = dB + k * BLK * BLK + static_cast<int64_t>(i0) * BLK
+  float* o = dB + k * edge * edge + (qi * BLK + i0) * edge + qj * BLK
              + 2 * (lane & 3);
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     *reinterpret_cast<float2*>(o + 8 * j) =
         make_float2(d[4 * j], d[4 * j + 1]);
-    *reinterpret_cast<float2*>(o + 8 * BLK + 8 * j) =
+    *reinterpret_cast<float2*>(o + 8 * edge + 8 * j) =
         make_float2(d[4 * j + 2], d[4 * j + 3]);
   }
 }
 
 }  // namespace
 
-// blocks (K,128,128) f32, 16-byte aligned; row_splits (num_row_blocks+1,)
-// int32 slot range per output block-row; cols (slots,) int32 input block
-// per slot; x, out (num_row_blocks*128, feat) f32.  trans != 0 reads each
-// tile transposed: sel, scale (slots,) int32 are then the tile read by a
-// slot and its scale (0 = filler).  The forward (trans == 0) reads tile k
-// for slot k at scale 1 and passes sel and scale as null.
-// All contiguous.  Returns cudaErrorInvalidConfiguration when the grid
-// would exceed 2^31 - 1 CTAs, else cudaGetLastError() after the launch.
+// blocks (K,block,block) f32, 16-byte aligned; row_splits
+// (num_row_blocks+1,) int32 slot range per output tile row; cols (slots,)
+// int32 input tile per slot; x, out (num_row_blocks*block, feat) f32.
+// trans != 0 reads each tile transposed: sel, scale (slots,) int32 are
+// then the tile read by a slot and its scale (0 = filler).  The forward
+// (trans == 0) reads tile k for slot k at scale 1 and passes sel and scale
+// as null.  block, the tile edge, is a multiple of 128; above 128 the walk
+// takes each tile as 128-wide quadrants (tile_sparse.cuh, QUAD), at 128 it
+// is the walk above.  All contiguous.  Returns cudaErrorInvalidValue for a
+// block that is not a multiple of 128, cudaErrorInvalidConfiguration when
+// the grid would exceed 2^31 - 1 CTAs, else cudaGetLastError() after the
+// launch.
 extern "C" int fitgnn_bsr_dyn_apply(const void* blocks, const void* row_splits,
                                     const void* sel, const void* scale,
                                     const void* cols, const void* x, void* out,
                                     int64_t num_row_blocks, int64_t feat,
-                                    int trans, void* stream) {
+                                    int64_t block, int trans, void* stream) {
+  if (block < BLK || block % BLK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto* b = static_cast<const float*>(blocks);
   const auto* rs = static_cast<const int32_t*>(row_splits);
   const auto* c = static_cast<const int32_t*>(cols);
   const auto* xp = static_cast<const float*>(x);
   auto* op = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
+  const int nq = static_cast<int>(block / BLK);
   if (trans) {
-    return static_cast<int>(sparse::launch<true, false>(
+    return static_cast<int>(sparse::launch<true, false, false, false, true>(
         b, rs, static_cast<const int32_t*>(sel),
         static_cast<const int32_t*>(scale), c, xp, nullptr, op,
-        num_row_blocks, feat, s));
+        num_row_blocks, feat, s, sparse::Plain{}, nq));
   }
-  return static_cast<int>(sparse::launch<false, false>(
-      b, rs, nullptr, nullptr, c, xp, nullptr, op, num_row_blocks, feat, s));
+  return static_cast<int>(sparse::launch<false, false, false, false, true>(
+      b, rs, nullptr, nullptr, c, xp, nullptr, op, num_row_blocks, feat, s,
+      sparse::Plain{}, nq));
 }
 
-// rows, cols (num_tiles,) int32 block ids; g, x (*, feat) f32; dB
-// (num_tiles,128,128) f32, 16-byte aligned; all contiguous.  feat may be 0
-// (dB is then written as zeros).  Returns cudaErrorInvalidConfiguration
-// when num_tiles exceeds 2^31 - 1, else cudaGetLastError() after the
-// launch.
+// rows, cols (num_tiles,) int32 tile-row and tile-column ids; g, x (*,
+// feat) f32; dB (num_tiles,block,block) f32, 16-byte aligned; all
+// contiguous.  block, the tile edge, is a multiple of 128: above 128 each
+// tile's nq^2 quadrants (nq = block / 128) are CTAs of their own.  feat may
+// be 0 (dB is then written as zeros).  Returns cudaErrorInvalidValue for a
+// block that is not a multiple of 128, cudaErrorInvalidConfiguration when
+// the grid (num_tiles nq^2 CTAs) would exceed 2^31 - 1, else
+// cudaGetLastError() after the launch.
 extern "C" int fitgnn_dyn_grad_blocks(const void* rows, const void* cols,
                                       const void* g, const void* x, void* dB,
                                       int64_t num_tiles, int64_t feat,
-                                      void* stream) {
-  if (num_tiles > 0x7fffffff) {
+                                      int64_t block, void* stream) {
+  if (block < BLK || block % BLK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nq = static_cast<int>(block / BLK);
+  const int64_t ctas = num_tiles * nq * nq;
+  if (ctas > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  if (num_tiles > 0) {
+  if (ctas > 0) {
     const bool vec = reinterpret_cast<uintptr_t>(g) % 16 == 0
                      && reinterpret_cast<uintptr_t>(x) % 16 == 0
                      && feat % 4 == 0;
-    const auto kernel = vec ? dyn_grad_blocks_kernel<true>
-                            : dyn_grad_blocks_kernel<false>;
+    const auto kernel =
+        nq > 1 ? (vec ? dyn_grad_blocks_kernel<true, true>
+                      : dyn_grad_blocks_kernel<false, true>)
+               : (vec ? dyn_grad_blocks_kernel<true, false>
+                      : dyn_grad_blocks_kernel<false, false>);
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM);
     if (set != cudaSuccess) return static_cast<int>(set);
-    kernel<<<static_cast<unsigned>(num_tiles), tf32x3::THREADS, GSMEM,
+    kernel<<<static_cast<unsigned>(ctas), tf32x3::THREADS, GSMEM,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cols),
         static_cast<const float*>(g), static_cast<const float*>(x),
-        static_cast<float*>(dB), feat);
+        static_cast<float*>(dB), feat, nq);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -157,7 +157,9 @@
 // and build_bsr(block=E) store (K, E, E) tiles for any E = 128 nq (Mosaic
 // needs the multiple of 128, fitgnn_tpu/ops/pallas/att_bsr.py:28-29); K1,
 // K2 and K9 take E as a static argument (bsr_spmm.py:174-175, 225-226,
-// 294-296) and K8 from its blocks' shape (diag_spmm.py:34).  One f32 tile
+// 294-296), K8 from its blocks' shape (diag_spmm.py:34), and GAT's K4 and
+// K4T (build_hybrid(block=E, semantics="att_unit")) through _dyn_apply's
+// static block (bsr_dynamic.py:91-92).  One f32 tile
 // of edge 256 is 256 KiB, above the 227 KiB of shared memory a block can
 // have, so the walk keeps its 128-wide staging and walks an E tile as
 // nq x nq quadrants of 128 x 128: output block R (128 rows) is half
@@ -172,8 +174,11 @@
 // flight while the current one is applied.  Under DIAG a CTA walks the nq
 // quadrants of one tile, so its slab copies start after each vote as in
 // the other walks.  QUAD is a template flag: at E = 128 (nq = 1) the walk
-// is the code above, unchanged; only the launches of K1, K2, K9 and K8 (the
-// Plain hook) build a QUAD form.
+// is the code above, unchanged; only the launches of K1, K2, K9, K8, K4 and
+// K4T (the Plain hook) build a QUAD form.  K4T is the one columns walk over
+// quadrants outside DIAG: its slots' sel, scale and column tiles count in E
+// as the other indices do, and a scale-0 slot skips all nq of its
+// quadrants.
 
 #pragma once
 
@@ -492,7 +497,8 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
 // ROUND_X rounds the X slab to bf16 before the products (bf16 tiles only).
 // QUAD: the tiles are (K, E, E), E = nq * 128 (nq > 1), and every index
 // above (block rows, cols, the diagonal blocks) counts in E; the walk
-// takes each tile as its nq x nq quadrants (Plain only).  Without QUAD,
+// takes each tile as its nq x nq quadrants (Plain only: K1, K2, K9, K8,
+// K4 and K4T).  Without QUAD,
 // nq is 1 and unread.
 template <bool TRANS, bool INIT, bool VEC, bool DIAG, class V, class T,
           bool ROUND_X, bool QUAD>
@@ -658,7 +664,8 @@ walk_kernel(const T* __restrict__ blocks,
 // unused); under DIAG over the diagonal blocks (the index arrays unused);
 // nothing when either count is 0.  quads: the tiles' edge over 128
 // (num_row_blocks counts tile rows of that edge); above 1 the quadrant
-// walk, which only a launch with QUAD builds (Plain only: K1, K2, K9, K8).
+// walk, which only a launch with QUAD builds (Plain only: K1, K2, K9, K8,
+// K4, K4T).
 // Returns cudaErrorInvalidValue for quads < 1, or > 1 without QUAD,
 // cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
 // else cudaGetLastError() after the launch.  The vector slab copy is

@@ -39,6 +39,12 @@ plain PyTorch version (``*_plain``: materialised tiles, ``bmm`` and
 ``index_add_``) on CPU tensors.  ``<wrapper>.launches`` counts kernel
 launches.
 
+The plain versions take tiles of any edge (the JAX package's
+``build_hybrid(block=E)``; ``ops/tile_gat.py``'s exact max without
+``FUSED_TILES`` runs ``att_rowmax_plain`` at E on any device); the CUDA
+wrappers take 128-wide tiles only and refuse any other (``ValueError``):
+the fused path at another edge is not ported (ROADMAP.md §2).
+
 bf16 tiles (``train --hybrid_bf16_tiles``): the tiles are GAT's 0/1 mask,
 exact in bf16, so only their type changes; ``pe``, ``x``, ``g`` and every
 sum stay f32 and nothing is rounded, as in the JAX package, which passes
@@ -66,19 +72,24 @@ def _leaky(v: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(v >= 0, v, slope * v)
 
 
-def _slabs(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows of ``v`` ((n,) or (n, F)) by 128-row block: (len(idx), b[, F])."""
-    return v.reshape(v.shape[0] // BLOCK, BLOCK, *v.shape[1:]).index_select(
+def _slabs(v: torch.Tensor, idx: torch.Tensor, e: int) -> torch.Tensor:
+    """Rows of ``v`` ((n,) or (n, F)) by ``e``-row block: (len(idx), e[,
+    F])."""
+    return v.reshape(v.shape[0] // e, e, *v.shape[1:]).index_select(
         0, idx.long())
 
 
 def _tile_pe(blocks, ssrc, sdst, m, row_blk, col_blk, slope):
     """mask, raw and pe of tiles whose rows are block ``row_blk[k]`` and
-    columns block ``col_blk[k]``; masked before the exp."""
+    columns block ``col_blk[k]`` (blocks of the tiles' edge); masked
+    before the exp."""
+    b = blocks.shape[-1]
     mask = blocks != 0
-    raw = _slabs(sdst, row_blk)[:, :, None] + _slabs(ssrc, col_blk)[:, None, :]
+    raw = (_slabs(sdst, row_blk, b)[:, :, None]
+           + _slabs(ssrc, col_blk, b)[:, None, :])
     e = torch.where(mask, _leaky(raw, slope), NEG)
-    pe = torch.where(mask, torch.exp(e - _slabs(m, row_blk)[:, :, None]), 0.0)
+    pe = torch.where(mask, torch.exp(e - _slabs(m, row_blk, b)[:, :, None]),
+                     0.0)
     return mask, raw, pe
 
 
@@ -94,17 +105,20 @@ def _sum_by_block(vals, idx, nb) -> torch.Tensor:
     out = torch.zeros((nb,) + tuple(vals.shape[1:]), dtype=vals.dtype,
                       device=vals.device)
     return out.index_add_(0, idx.long(), vals).reshape(
-        nb * BLOCK, *vals.shape[2:])
+        nb * vals.shape[1], *vals.shape[2:])
 
 
 def att_rowmax_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst,
                      slope: float) -> torch.Tensor:
     """Per-node max of the masked tile scores, −1e30 where none: the
-    materialised (K, b, b) scores, a row max and a segment max."""
-    nb = ssrc.shape[0] // BLOCK
-    raw = _slabs(sdst, rows)[:, :, None] + _slabs(ssrc, cols)[:, None, :]
+    materialised (K, b, b) scores at the tiles' edge b, a row max and a
+    segment max."""
+    b = blocks.shape[-1]
+    nb = ssrc.shape[0] // b
+    raw = (_slabs(sdst, rows, b)[:, :, None]
+           + _slabs(ssrc, cols, b)[:, None, :])
     tmax = torch.where(blocks != 0, _leaky(raw, slope), NEG).amax(dim=2)
-    out = torch.full((nb, BLOCK), NEG, dtype=tmax.dtype, device=tmax.device)
+    out = torch.full((nb, b), NEG, dtype=tmax.dtype, device=tmax.device)
     idx = rows.long()[:, None].expand_as(tmax)
     return out.scatter_reduce(0, idx, tmax, "amax",
                               include_self=True).reshape(-1)
@@ -113,9 +127,11 @@ def att_rowmax_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst,
 def att_fwd_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst, m, x,
                   slope: float) -> tuple:
     """``(num, den)`` from the materialised ``pe``."""
-    nb = x.shape[0] // BLOCK
+    b = blocks.shape[-1]
+    nb = x.shape[0] // b
     _, _, pe = _tile_pe(blocks, ssrc, sdst, m, rows, cols, slope)
-    num = _sum_by_block(torch.bmm(pe.to(x.dtype), _slabs(x, cols)), rows, nb)
+    num = _sum_by_block(torch.bmm(pe.to(x.dtype), _slabs(x, cols, b)), rows,
+                        nb)
     return num, _sum_by_block(pe.sum(dim=2), rows, nb)
 
 
@@ -126,19 +142,20 @@ def att_bwd_t_plain(plan: DynPlan, blocks, ssrc, sdst, m, g, x, dden,
     slot ``k`` reads forward tile ``t_sel[k]`` (rows block ``t_cols[k]``,
     columns block ``t_rows[k]``) scaled by ``t_scale[k]`` (0 for a coverage
     filler)."""
-    nb = x.shape[0] // BLOCK
+    b = blocks.shape[-1]
+    nb = x.shape[0] // b
     mask, raw, pe = _tile_pe(blocks.index_select(0, plan.t_sel.long()), ssrc,
                              sdst, m, plan.t_cols, plan.t_rows, slope)
     sc = plan.t_scale.to(pe.dtype)[:, None, None]
-    gs = _slabs(g, plan.t_cols)
+    gs = _slabs(g, plan.t_cols, b)
     dx = dssrc = None
     if need_dx:
         dx = _sum_by_block(sc * torch.bmm(pe.transpose(1, 2).to(g.dtype), gs),
                            plan.t_rows, nb)
     if need_dssrc:
         d_raw = _d_raw(mask, raw, pe, gs.float(),
-                       _slabs(x, plan.t_rows).float(),
-                       _slabs(dden, plan.t_cols), slope)
+                       _slabs(x, plan.t_rows, b).float(),
+                       _slabs(dden, plan.t_cols, b), slope)
         dssrc = _sum_by_block((sc * d_raw).sum(dim=1), plan.t_rows, nb)
     return dx, dssrc
 
@@ -148,16 +165,17 @@ def att_bwd_f_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst, m, g, x,
     """``dsdst``: the row sums of ``d_raw`` on the forward walk."""
     rpart = att_scores_plain(rows, cols, plan, blocks, ssrc, sdst, m, g, x,
                              dden, slope)[1]
-    return _sum_by_block(rpart, rows, x.shape[0] // BLOCK)
+    return _sum_by_block(rpart, rows, x.shape[0] // blocks.shape[-1])
 
 
 def att_scores_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst, m, g, x,
                      dden, slope: float) -> tuple:
     """The score-gradient pass: ``(cpart, rpart)``, the column sums and the
     row sums of each forward tile's ``d_raw``, (K, b) each."""
+    b = blocks.shape[-1]
     mask, raw, pe = _tile_pe(blocks, ssrc, sdst, m, rows, cols, slope)
-    d_raw = _d_raw(mask, raw, pe, _slabs(g, rows).float(),
-                   _slabs(x, cols).float(), _slabs(dden, rows), slope)
+    d_raw = _d_raw(mask, raw, pe, _slabs(g, rows, b).float(),
+                   _slabs(x, cols, b).float(), _slabs(dden, rows, b), slope)
     return d_raw.sum(dim=1), d_raw.sum(dim=2)
 
 

@@ -17,6 +17,14 @@ differentiable in ``blocks_dyn`` and ``x``, as the JAX package's
   dense, on the tensor cores with f32 accuracy (TF32 operands split into
   a high and a low part).
 
+The tiles are (K, E, E) for any edge E that is a multiple of 128 (the JAX
+package's ``build_hybrid(block=E, semantics="att_unit")``); every index
+counts in E, and the plain versions and the wrappers read E from the
+tiles' shape (K5, which has no tile operand, from its ``block``).  Above
+128 the kernels take each tile as 128-wide quadrants (K4 and K4ᵀ walk
+them, K5 gives each its own CTA); an edge off the multiples of 128 raises
+``ValueError``.
+
 Each wrapper launches the hand-written kernel of ``csrc/bsr_dynamic.cu``
 on CUDA tensors (it replaces ``fitgnn_tpu/ops/pallas/bsr_dynamic.py``'s
 ``_make_dyn_kernel`` and ``_dB_kernel``; the source note there says what
@@ -34,7 +42,7 @@ import numpy as np
 import torch
 
 from fitgnn_tpu_torch.ops import kernels
-from fitgnn_tpu_torch.ops.bsr_spmm import BLOCK
+from fitgnn_tpu_torch.ops.bsr_spmm import BLOCK, check_block
 from fitgnn_tpu_torch.utils.device import dataclass_to
 
 
@@ -88,17 +96,18 @@ def build_dyn_plan(rows: np.ndarray, cols: np.ndarray, nb: int) -> DynPlan:
 def _apply_plain(blocks, rows, cols, x, sel=None, scale=None,
                  trans=False) -> torch.Tensor:
     """``out[rows[k]] += scale[k]·(blocks[sel[k]] or its transpose) @
-    x[cols[k]]``, from zero: a batched matmul and ``index_add_``."""
+    x[cols[k]]``, from zero, at the tiles' edge: a batched matmul and
+    ``index_add_``."""
     n, feat = x.shape
+    e = blocks.shape[-1]
     a = blocks if sel is None else blocks.index_select(0, sel.long())
     if trans:
         a = a.transpose(1, 2)
-    xb = x.reshape(n // BLOCK, BLOCK, feat).index_select(0, cols.long())
+    xb = x.reshape(n // e, e, feat).index_select(0, cols.long())
     prod = torch.bmm(a.to(x.dtype), xb)
     if scale is not None:
         prod = prod * scale.to(x.dtype)[:, None, None]
-    out = torch.zeros((n // BLOCK, BLOCK, feat), dtype=x.dtype,
-                      device=x.device)
+    out = torch.zeros((n // e, e, feat), dtype=x.dtype, device=x.device)
     return out.index_add_(0, rows.long(), prod).reshape(n, feat)
 
 
@@ -111,36 +120,41 @@ def dyn_tiles_t_plain(plan: DynPlan, blocks, g) -> torch.Tensor:
                         scale=plan.t_scale, trans=True)
 
 
-def dyn_grad_blocks_plain(rows, cols, g, x) -> torch.Tensor:
-    """``dB[k] = g[rows[k]] @ x[cols[k]]ᵀ`` over (BLOCK, F) slabs."""
+def dyn_grad_blocks_plain(rows, cols, g, x,
+                          block: int = BLOCK) -> torch.Tensor:
+    """``dB[k] = g[rows[k]] @ x[cols[k]]ᵀ`` over (block, F) slabs."""
     n, feat = x.shape
-    gb = g.reshape(n // BLOCK, BLOCK, feat).index_select(0, rows.long())
-    xb = x.reshape(n // BLOCK, BLOCK, feat).index_select(0, cols.long())
+    gb = g.reshape(n // block, block, feat).index_select(0, rows.long())
+    xb = x.reshape(n // block, block, feat).index_select(0, cols.long())
     return torch.bmm(gb, xb.transpose(1, 2))
 
 
 # blocks, row_splits, sel, scale, cols, x, out, num_row_blocks, feat,
-# trans, stream
-_APPLY_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 2
+# block, trans, stream
+_APPLY_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3
                    + [ctypes.c_int, ctypes.c_void_p])
-# rows, cols, g, x, dB, num_tiles, feat, stream
-_GRAD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2 + [
+# rows, cols, g, x, dB, num_tiles, feat, block, stream
+_GRAD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [
     ctypes.c_void_p]
 
 
-def _check_operands(what: str, blocks, x, *ints) -> torch.device:
-    if x.dim() != 2 or x.shape[0] % BLOCK:
+def _check_operands(what: str, blocks, x, block: int,
+                    *ints) -> torch.device:
+    """Validate a launch's operands at tile edge ``block``; returns their
+    device."""
+    check_block(block)
+    if x.dim() != 2 or x.shape[0] % block:
         raise ValueError(f"{what}: x {tuple(x.shape)} must be "
-                         f"(a multiple of {BLOCK}, F)")
+                         f"(a multiple of {block}, F)")
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     dev = x.device
     kernels.require(x, "x", torch.float32, dev)
     if blocks is not None:
         kernels.require(blocks, "blocks", torch.float32, dev)
-        if blocks.dim() != 3 or blocks.shape[1:] != (BLOCK, BLOCK):
+        if blocks.dim() != 3 or blocks.shape[1:] != (block, block):
             raise ValueError(f"{what}: blocks {tuple(blocks.shape)} must be "
-                             f"(K, {BLOCK}, {BLOCK})")
+                             f"(K, {block}, {block})")
         if blocks.data_ptr() % 16:
             raise ValueError(f"{what}: blocks must be 16-byte aligned")
     for name, t in ints:
@@ -153,8 +167,12 @@ def _launch_apply(what, blocks, row_splits, sel, scale, cols, x,
     ints = [("row_splits", row_splits), ("cols", cols)]
     if sel is not None:
         ints += [("sel", sel), ("scale", scale)]
-    dev = _check_operands(what, blocks, x, *ints)
-    nb = x.shape[0] // BLOCK
+    if blocks.dim() != 3:
+        raise ValueError(f"{what}: blocks {tuple(blocks.shape)} must be "
+                         "(K, E, E)")
+    block = blocks.shape[-1]
+    dev = _check_operands(what, blocks, x, block, *ints)
+    nb = x.shape[0] // block
     if row_splits.shape[0] != nb + 1:
         raise ValueError(f"{what}: row_splits has {row_splits.shape[0]} "
                          f"entries for {nb} block rows")
@@ -167,7 +185,7 @@ def _launch_apply(what, blocks, row_splits, sel, scale, cols, x,
                     null if sel is None else kernels.ptr(sel),
                     null if scale is None else kernels.ptr(scale),
                     kernels.ptr(cols), kernels.ptr(x), kernels.ptr(out),
-                    nb, x.shape[1], int(trans), kernels.stream(dev))
+                    nb, x.shape[1], block, int(trans), kernels.stream(dev))
     kernels.check(rc, what)
     return out
 
@@ -178,6 +196,7 @@ def dyn_tiles(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     (``rows`` sorted; the kernel walks ``plan.row_splits``): the CUDA
     kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
+        check_block(blocks.shape[-1])
         return dyn_tiles_plain(rows, cols, plan, blocks, x)
     out = _launch_apply("dyn_tiles", blocks, plan.row_splits, None, None,
                         cols, x, trans=False)
@@ -191,6 +210,7 @@ def dyn_tiles_t(plan: DynPlan, blocks: torch.Tensor,
     g[t_cols[k]]`` from zero: the CUDA kernel on a CUDA tensor, the plain
     version on a CPU tensor."""
     if g.device.type == "cpu":
+        check_block(blocks.shape[-1])
         return dyn_tiles_t_plain(plan, blocks, g)
     out = _launch_apply("dyn_tiles_t", blocks, plan.t_row_splits,
                         plan.t_sel, plan.t_scale, plan.t_cols, g,
@@ -200,25 +220,26 @@ def dyn_tiles_t(plan: DynPlan, blocks: torch.Tensor,
 
 
 def dyn_grad_blocks(rows: torch.Tensor, cols: torch.Tensor, g: torch.Tensor,
-                    x: torch.Tensor) -> torch.Tensor:
+                    x: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
     """K5, ``dB[k] = g[rows[k]] @ x[cols[k]]ᵀ`` for every tile (fillers
-    included), (K, BLOCK, BLOCK): the CUDA kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    included), (K, block, block), ``block`` the tile edge: the CUDA kernel
+    on a CUDA tensor, the plain version on a CPU tensor."""
     if g.shape != x.shape:
         raise ValueError(f"dyn_grad_blocks: g {tuple(g.shape)} and x "
                          f"{tuple(x.shape)} differ")
     if x.device.type == "cpu":
-        return dyn_grad_blocks_plain(rows, cols, g, x)
-    dev = _check_operands("dyn_grad_blocks", None, x, ("rows", rows),
+        check_block(block)
+        return dyn_grad_blocks_plain(rows, cols, g, x, block)
+    dev = _check_operands("dyn_grad_blocks", None, x, block, ("rows", rows),
                           ("cols", cols))
     kernels.require(g, "g", torch.float32, dev)
     k = rows.shape[0]
-    out = torch.empty((k, BLOCK, BLOCK), dtype=x.dtype, device=dev)
+    out = torch.empty((k, block, block), dtype=x.dtype, device=dev)
     launch = kernels.function("bsr_dynamic", "fitgnn_dyn_grad_blocks",
                               _GRAD_ARGTYPES)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(rows), kernels.ptr(cols), kernels.ptr(g),
-                    kernels.ptr(x), kernels.ptr(out), k, x.shape[1],
+                    kernels.ptr(x), kernels.ptr(out), k, x.shape[1], block,
                     kernels.stream(dev))
     kernels.check(rc, "dyn_grad_blocks")
     dyn_grad_blocks.launches += 1
@@ -243,7 +264,9 @@ class _BsrSpmmDyn(torch.autograd.Function):
         g = g.contiguous()
         dblocks = dx = None
         if ctx.needs_input_grad[3]:
-            dblocks = dyn_grad_blocks(rows, cols, g, x).to(blocks_dyn.dtype)
+            dblocks = dyn_grad_blocks(rows, cols, g, x,
+                                      blocks_dyn.shape[-1]).to(
+                                          blocks_dyn.dtype)
         if ctx.needs_input_grad[4]:
             dx = dyn_tiles_t(ctx.plan, blocks_dyn, g)
         return None, None, None, dblocks, dx
@@ -251,11 +274,12 @@ class _BsrSpmmDyn(torch.autograd.Function):
 
 def bsr_spmm_dyn(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
                  blocks_dyn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``Σ_k scatter(rows[k], blocks_dyn[k] @ x[cols[k]])``, differentiable
-    in ``blocks_dyn`` and ``x``.  ``rows`` must be sorted ascending and
-    cover every block row (the static BSR's coverage fillers do; their
-    dynamic values must be zero); ``plan = build_dyn_plan(rows, cols,
-    nb)``.  A backward launches only what its inputs need: no K4ᵀ when
-    ``x`` needs no gradient."""
+    """``Σ_k scatter(rows[k], blocks_dyn[k] @ x[cols[k]])`` over (K, E, E)
+    tiles, differentiable in ``blocks_dyn`` and ``x``.  ``rows`` must be
+    sorted ascending and cover every block row (the static BSR's coverage
+    fillers do; their dynamic values must be zero); ``plan =
+    build_dyn_plan(rows, cols, nb)``, nb counting block rows of E.  A
+    backward launches only what its inputs need: no K4ᵀ when ``x`` needs
+    no gradient."""
     return _BsrSpmmDyn.apply(rows, cols, plan, blocks_dyn.contiguous(),
                              x.contiguous())

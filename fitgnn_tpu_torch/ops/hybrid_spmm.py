@@ -43,8 +43,8 @@ The JAX package's tile opt-ins, dispatched as its ``_hybrid_spmm_main``:
 
 ``att_unit`` (GATConv) refuses ``use_diag``, ``use_rowwalk`` and
 ``tile_group > 1``: its tile attention walks the grid-walk tiles (or the
-einsum layout's) only, and 128-wide ones only (GAT's tile kernels at
-another edge are not ported).
+einsum layout's) only, at any edge that is a multiple of 128 (its
+dynamic-tile plan counts block rows of that edge).
 
 The cluster collapse of the stragglers (``cluster_agg`` for the static
 weights of GCN, SAGE and GIN, ``cluster_att`` for GAT's ``att_unit``), as
@@ -155,8 +155,7 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
 
     ``use_diag``, ``use_rowwalk`` and ``tile_group > 1`` under ``att_unit``
     are not ported yet and raise ``NotImplementedError`` (ROADMAP.md §1
-    item 3), as does an edge other than 128 under ``att_unit`` (GAT's tile
-    kernels K4, K4ᵀ, K5 and K7 at that edge, ROADMAP.md §2)."""
+    item 3)."""
     if semantics == "att_unit" and (use_diag or use_rowwalk
                                     or tile_group != 1):
         raise NotImplementedError(
@@ -165,11 +164,6 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
             "(ROADMAP.md §1 item 3)")
     check_tile_dtype(tile_dtype)
     check_block(block)
-    if semantics == "att_unit" and block != BLOCK:
-        raise NotImplementedError(
-            f"build_hybrid: block={block} under att_unit: GAT's tile "
-            "kernels (K4, K4ᵀ, K5, K7) take 128-wide tiles only; their "
-            "forms at another edge are not ported yet (ROADMAP.md §2)")
     if num_nodes_padded % block:
         raise ValueError(f"num_nodes_padded={num_nodes_padded} is not a "
                          f"multiple of {block}")

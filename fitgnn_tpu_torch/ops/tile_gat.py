@@ -27,6 +27,13 @@ only at exactly ``"1"``):
 * ``FITGNN_GAT_SEGMM_DEN=1``: the straggler numerator and denominator from
   K6 at any width, with sender scores gathered from ``score_src``.
 
+The tiles may have any edge E that is a multiple of 128
+(``build_hybrid(block=E, semantics="att_unit")``): the two-stage path, the
+exact max and the einsum branch take E from the tiles' shape, and K4, K4ᵀ
+and K5 walk E-wide tiles as 128-wide quadrants.  ``FUSED_TILES=1`` at E ≠
+128 raises ``NotImplementedError`` before any launch: K7's forms at
+another edge are not ported (ROADMAP.md §2).
+
 The JAX package's diagnostic switches ``FITGNN_GAT_FUSED_BWD``,
 ``_FUSED_SORTED_DH``, ``_SORTED_SRC`` and ``_SORTED_NUM`` (no Pallas
 kernel) and its ``partials``, ``src_score_bound`` and ``extra_rowmax``
@@ -143,6 +150,13 @@ def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
 
     fused = (aux.bsr is not None and aux.dyn_plan is not None and f <= MAX_F
              and sw.fused_tiles)
+    if fused and aux.bsr.block != BLOCK:
+        raise NotImplementedError(
+            f"tile_gat_attention: FITGNN_GAT_FUSED_TILES=1 on tiles of edge "
+            f"{aux.bsr.block}: the fused tile attention (K7rm, K7f, K7bt, "
+            "K7s) takes 128-wide tiles only; its forms at another edge are "
+            "not ported yet (ROADMAP.md §2); unset the switch for the "
+            "two-stage path")
     if sw.global_max:
         # LeakyReLU(sdst[r] + ssrc[s]) ≤ max(0, sdst[r] + max ssrc), one
         # reduction over all rows
@@ -249,23 +263,24 @@ def _cluster_scores(aux, score_src, score_dst, slope: float) -> torch.Tensor:
 def tiles_two_stage(slope: float, rows, cols, plan, blocks, ssrc, sdst, m,
                     x) -> tuple:
     """The tiles' ``(num, den)`` in two stages (``att_tiles``'s contract):
-    the (K, b, b) numerators ``pe`` materialised in PyTorch, then K4's
-    dynamic-tile walk (with no plan, on the einsum layout: a batched matmul
-    and a sum over block rows) and a row sum."""
-    nb = x.shape[0] // BLOCK
+    the (K, b, b) numerators ``pe`` materialised in PyTorch at the tiles'
+    edge b, then K4's dynamic-tile walk (with no plan, on the einsum
+    layout: a batched matmul and a sum over block rows) and a row sum."""
+    b = blocks.shape[-1]
+    nb = x.shape[0] // b
     mask = blocks > 0                               # static adjacency
-    ssrc_t = ssrc.reshape(nb, BLOCK)[cols.long()]   # (K,b) sender scores
-    sdst_t = sdst.reshape(nb, BLOCK)[rows.long()]   # (K,b) receiver scores
+    ssrc_t = ssrc.reshape(nb, b)[cols.long()]       # (K,b) sender scores
+    sdst_t = sdst.reshape(nb, b)[rows.long()]       # (K,b) receiver scores
     # mask BEFORE the exp: an edgeless row's masked entries would give
     # exp(raw_e − m) = inf, and the where-backward's 0 upstream times inf is
     # a NaN gradient
     e = torch.where(mask, _leaky(sdst_t[:, :, None] + ssrc_t[:, None, :],
                                  slope), _NEG)
-    mrow = m.reshape(nb, BLOCK)[rows.long()]        # (K,b)
+    mrow = m.reshape(nb, b)[rows.long()]            # (K,b)
     pe = torch.where(mask, torch.exp(e - mrow[:, :, None]), 0.0)
     if plan is None:
-        slabs = x.reshape(nb, BLOCK, -1).index_select(0, cols.long())
-        num = torch.zeros((nb, BLOCK, x.shape[1]), dtype=x.dtype,
+        slabs = x.reshape(nb, b, -1).index_select(0, cols.long())
+        num = torch.zeros((nb, b, x.shape[1]), dtype=x.dtype,
                           device=x.device).index_add_(
             0, rows.long(), torch.bmm(pe.to(x.dtype), slabs)).reshape(x.shape)
     else:

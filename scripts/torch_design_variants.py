@@ -690,7 +690,7 @@ def main() -> int:
             out = torch.empty((TILES, 128, 128), device=dev)
             kernels.check(three(kernels.ptr(rows), kernels.ptr(cols),
                                 kernels.ptr(gr), kernels.ptr(x),
-                                kernels.ptr(out), TILES, feat,
+                                kernels.ptr(out), TILES, feat, 128,
                                 kernels.stream(dev)), "k5_three_stages")
             return out
 

@@ -2,7 +2,7 @@
 """The tile walks' kernel times of ``chip_smoke.py`` alone, as one JSON line,
 on one GPU: a cheap way to compare two checkouts on one card.
 
-    python3 scripts/torch_kernel_rows.py [CHECKOUT] [--edge256]
+    python3 scripts/torch_kernel_rows.py [CHECKOUT] [--edge256] [--gat]
 
 CHECKOUT (default: this repository) is the root of the checkout whose
 ``chip_smoke.py`` and ``fitgnn_tpu_torch/`` run; its kernels build into its
@@ -13,6 +13,9 @@ four forms on the opt-in operators), each checked against its plain
 version, and prints ``ROWS {"checkout": ..., "rows": {"K1 F=512": ms,
 ...}}``; with ``--edge256`` also phase 14's rows at tile edge 256 (K1, K2,
 K9, K8 and their bf16 forms; a checkout from before that phase has none).
+With ``--gat`` also phase 3's GAT rows (K4, K4ᵀ and K5 on the
+``att_unit`` operator at F=128 and 512), and with both flags phase 15's
+(K4, K4ᵀ and K5 at tile edge 256, where the checkout has that phase).
 Parent against change, alternated in one call:
 
     for d in build/parent . . build/parent; do
@@ -40,13 +43,21 @@ def main() -> int:
     cs.phase_build()
     x, s, r, y, train = cs.make_graph()
     ds = NodeDataset("bench", x, s, r, y, train_mask=train)
-    g, _, shapes = cs.phase_kernels(device, ds)
+    g, order, shapes = cs.phase_kernels(device, ds)
     shapes.update(cs.phase_optin_kernels(device, g,
                                          cs.optin_operators(ds, g)))
     ids = ["K1", "K3", "K2", "K9", "K10", "K8"]
     if "--edge256" in sys.argv:
         shapes.update(cs.phase_block_kernels(device, cs.block_operators(g)))
         ids += [f"{k}@{cs.EDGE}" for k in cs.EDGE_IDS]
+    if "--gat" in sys.argv:
+        shapes.update(cs.phase_gat_kernels(device, ds, g)[1])
+        ids += ["K4", "K4T", "K5"]
+        if "--edge256" in sys.argv and hasattr(cs, "gat_block_operators"):
+            ops = cs.gat_block_operators(g, ds, order)
+            shapes.update(cs.phase_gat_block_kernels(device,
+                                                     ops["t48"].aux))
+            ids += [f"{k}@{cs.EDGE}" for k in cs.GAT_EDGE_IDS]
     rows = {f"{k} {sh.get('shape', 'F=%d' % sh['F'])}": sh["ms"]
             for k in ids for sh in shapes[k]}
     print("ROWS " + json.dumps({"checkout": root, "rows": rows}))

@@ -10,9 +10,10 @@ K1's ``init + A·x``; the diagonal blocks (K8) in both orientations, from
 with and without ``use_diag``; one GCN ``gc_train_step``; the tile and
 straggler counts of ``bench.py``'s graph (cut to 20,352 nodes) at 256;
 ``build_ell`` and ``ell_spmm``; ``optimize_coarse`` with ``use_segmm=False``
-and ``tile_group=2``; and the refusals (an edge that is not a multiple of
-128, the row walk at 256, GAT at 256).  The JAX Pallas kernels run in interpret mode; the port's
-wrappers take their plain versions because the tensors lie on the CPU.
+and ``tile_group=2``; GAT's operator at 256; and the refusals (an edge
+that is not a multiple of 128, the row walk at 256, GAT's fused tiles at
+256).  The JAX Pallas kernels run in interpret mode; the port's wrappers
+take their plain versions because the tensors lie on the CPU.
 
 Tolerance: forward rtol 1e-4 and atol 1e-4·max|ref|, gradients rtol 1e-3
 and atol 1e-3·max|ref| (f32 sums in another order; bf16 tiles with ``x``
@@ -51,6 +52,7 @@ from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm, pick_run_length
 from fitgnn_tpu_torch.ops.ell_spmm import EllMatrix, build_ell, ell_spmm
 from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid, hybrid_spmm
 from fitgnn_tpu_torch.ops.spmm import spmm
+from fitgnn_tpu_torch.ops.tile_gat import tile_gat_attention
 from fitgnn_tpu_torch.partition.community import hierarchical_community_order
 from fitgnn_tpu_torch.train import steps
 
@@ -539,16 +541,30 @@ def test_rowwalk_at_256_raises_as_jax(build):
                    use_rowwalk=True)
 
 
-def test_gat_at_256_raises_naming_the_roadmap():
-    """GAT's tile kernels at another edge are not ported: ``att_unit`` at
-    256 raises naming ROADMAP.md §2 (the JAX package builds it)."""
+def test_gat_at_256_raises_naming_the_roadmap(monkeypatch):
+    """GAT's operator at 256 builds as the JAX package's: ``att_unit``
+    gives the same tiles, straggler lists and dynamic-tile plan; of GAT's
+    tile kernels at another edge only the fused path (K7) is still not
+    ported, so ``FUSED_TILES=1`` there raises naming ROADMAP.md §2."""
     s, r, w = sorted_coo(np.random.default_rng(29), 1024, 6000)
     w = np.ones_like(w)
-    assert jax_build_hybrid(s, r, w, 1024, min_block_edges=20, block=E,
-                            semantics="att_unit").bsr is not None
+    kw = dict(min_block_edges=20, block=E, semantics="att_unit")
+    hj = jax_build_hybrid(s, r, w, 1024, **kw)
+    ht = build_hybrid(s, r, w, 1024, **kw)
+    assert hj.bsr is not None
+    assert_same_bsr(ht.bsr, hj.bsr)
+    for name in ("senders", "receivers", "weights", "t_edge_perm"):
+        np.testing.assert_array_equal(getattr(ht, name).numpy(),
+                                      np.asarray(getattr(hj, name)),
+                                      err_msg=name)
+    for name in ("t_sel", "t_scale", "t_rows", "t_cols"):
+        np.testing.assert_array_equal(getattr(ht.dyn_plan, name).numpy(),
+                                      np.asarray(getattr(hj.dyn_plan, name)),
+                                      err_msg=name)
+    monkeypatch.setenv("FITGNN_GAT_FUSED_TILES", "1")
+    v = torch.zeros(1024)
     with pytest.raises(NotImplementedError, match="ROADMAP.md §2"):
-        build_hybrid(s, r, w, 1024, min_block_edges=20, block=E,
-                     semantics="att_unit")
+        tile_gat_attention(ht, v, v, torch.zeros((1024, 8)), 0.2)
 
 
 def test_node_count_off_the_edge_raises():

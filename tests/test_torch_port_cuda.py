@@ -1496,3 +1496,190 @@ def test_block256_training_on_card_matches_cpu(cuda, use_diag):
     _close(loss_d, loss_c)
     for k, v in grads_c.items():
         _close(grads_d[k], v)
+
+
+# --- GAT's dynamic tiles at edge 256: K4, K4ᵀ and K5 ------------------------
+
+def _dyn_quad_operands(rng, kernel, case):
+    """K4's or K4ᵀ's operands on 256-wide tiles (1,024 nodes: four tile
+    rows): a sorted tile list covering every tile row whose tile column 2
+    is never used (the transpose plan's scale-0 filler slot), for K4 with
+    tile row 2 holding only a zero coverage filler; ~3% values, rows and
+    columns 0-9 of every 128-wide quadrant empty and quadrant (0, 1) of
+    every tile empty; edited by ``case`` as ``_quad_operands`` edits its
+    tiles.  Returns ``(rows, cols, plan, blocks)``, the 128-row output
+    blocks of the dense tile, the output row the NaN must reach and the
+    256-row output block that no non-zero reaches."""
+    nb = 4
+    rows = np.sort(np.concatenate([np.arange(nb), rng.integers(0, nb, 8)]))
+    cols = rng.choice([0, 1, 3], len(rows))
+    zero_block = 2
+    if kernel == "K4":
+        first = int(np.searchsorted(rows, zero_block))
+        keep = (rows != zero_block) | (np.arange(len(rows)) == first)
+        rows, cols = rows[keep], cols[keep]
+    plan = build_dyn_plan(rows, cols, nb)
+    assert plan.t_scale.numpy().tolist().count(0) == 1
+    splits = (plan.row_splits if kernel == "K4" else plan.t_row_splits).numpy()
+    run = int(np.argmax(np.diff(splits)))
+    lo, hi = int(splits[run]), int(splits[run + 1])
+    assert hi - lo >= 2
+    blocks = np.where(rng.random((len(rows), _EDGE, _EDGE)) < 0.03,
+                      rng.standard_normal((len(rows), _EDGE, _EDGE)), 0.0)
+    for q in (0, 128):
+        blocks[:, q:q + 10, :] = 0.0
+        blocks[:, :, q:q + 10] = 0.0
+    blocks[:, :128, 128:] = 0.0
+    if kernel == "K4":
+        blocks[first] = 0.0
+        tile = lo + 1
+    else:
+        tile = int(plan.t_sel[lo])
+    rows_walk = kernel == "K4"
+    dense_blocks, nan_row = [], None
+    if case == "dense":
+        blocks[tile] = rng.random((_EDGE, _EDGE)) + 0.5
+        c = rows[tile] if rows_walk else cols[tile]
+        dense_blocks = [2 * c, 2 * c + 1]
+    elif case == "zero_inside":
+        blocks[tile] = 0.0
+    elif case == "nan":
+        # K4ᵀ: not tile 0, which the filler slot reads at scale 0 (the
+        # plain version's 0·NaN would reach the filler's block)
+        tile = len(rows) - 1 if kernel == "K4T" else tile
+        blocks[tile, 150, 200] = np.nan
+        nan_row = (rows[tile] * _EDGE + 150 if rows_walk
+                   else cols[tile] * _EDGE + 200)
+    ops = (torch.from_numpy(rows.astype(np.int32)),
+           torch.from_numpy(cols.astype(np.int32)), plan,
+           torch.from_numpy(blocks.astype(np.float32)))
+    return ops, dense_blocks, nan_row, zero_block
+
+
+@pytest.mark.parametrize("feat,aligned", [(40, True), (128, True),
+                                          (512, True), (40, False)])
+@pytest.mark.parametrize("case", ["sparse", "dense", "zero_inside", "nan"])
+@pytest.mark.parametrize("kernel", ["K4", "K4T"])
+def test_dyn_quadrant_walks_match_plain(cuda, kernel, case, feat, aligned):
+    """K4 and K4ᵀ (the transpose plan, with its filler slot) on 256-wide
+    tiles, walked as 128-wide quadrants, in the cases of
+    ``test_nonzero_walks_match_plain``: against their plain versions; an
+    empty quadrant, a zero tile, K4's zero coverage filler and K4ᵀ's
+    scale-0 slot leave their rows at zero bit for bit, and a NaN entry
+    reaches its own output row alone."""
+    rng = np.random.default_rng(feat + 70)
+    ops, dense_blocks, nan_row, zero_block = _dyn_quad_operands(rng, kernel,
+                                                                case)
+    n = 1024
+    x = torch.from_numpy(rng.standard_normal((n, feat)).astype(
+        np.float32)).to(cuda)
+    xd = x if aligned else _unaligned(x)
+    rows, cols, plan, blocks = ops
+    args = (rows.to(cuda), cols.to(cuda), plan.to(cuda), blocks.to(cuda), xd)
+    if kernel == "K4T":
+        args = args[2:]
+    walk, plain = _NONZERO_WALKS[kernel]
+    before = walk.launches
+    with torch.inference_mode():
+        got = walk(*args)
+        ref = plain(*args)
+    torch.cuda.synchronize()
+    assert walk.launches == before + 1
+    nan = ref.isnan()
+    if nan_row is None:
+        _close(got, ref)
+    else:
+        assert nan.any(1).nonzero().flatten().tolist() == [nan_row]
+        assert torch.equal(got.isnan(), nan)
+        keep = ~nan.any(1)
+        _close(got[keep], ref[keep])
+    zero = slice(zero_block * _EDGE, (zero_block + 1) * _EDGE)
+    assert not got[zero].any()
+    # output rows 0-9 of each 128-row half take quadrant rows (K4) or
+    # columns (K4ᵀ) 0-9, empty in every tile
+    empty = torch.cat([torch.arange(r * 128, r * 128 + 10)
+                       for r in range(n // 128) if r not in dense_blocks])
+    assert not got[empty.to(cuda)].any()
+
+
+# F=101 and the unaligned g take K5's 4-byte loads; F=0 writes zeros
+@pytest.mark.parametrize("feat,aligned", [(0, True), (40, True), (101, True),
+                                          (128, True), (512, True),
+                                          (64, False)])
+def test_k5_quadrants_keep_f32_accuracy(cuda, feat, aligned):
+    """K5 on 256-wide tiles (each 128 x 128 quadrant a CTA of its own on
+    the tensor cores): the dense product of every tile, a coverage filler
+    (tile row 2, column 0) included, within the tolerance of its plain f32
+    version, and within 1e-5·max|ref| of each tile's float64 product; the
+    g rows 384-511 (the lower half of tile row 1) are scaled by 1e3, so
+    the quadrants of one tile hold both magnitudes."""
+    rng = np.random.default_rng(feat + 80)
+    nb = 4
+    rows = np.sort(np.concatenate([np.arange(nb), rng.integers(0, nb, 8)]))
+    cols = rng.choice([0, 1, 3], len(rows))
+    first = int(np.searchsorted(rows, 2))
+    rows, cols = np.insert(rows, first, 2), np.insert(cols, first, 0)
+    g = rng.standard_normal((nb * _EDGE, feat)).astype(np.float32)
+    g[384:512] *= 1e3
+    x = rng.standard_normal((nb * _EDGE, feat)).astype(np.float32)
+    rt = torch.from_numpy(rows.astype(np.int32)).to(cuda)
+    ct = torch.from_numpy(cols.astype(np.int32)).to(cuda)
+    gd, xd = torch.from_numpy(g).to(cuda), torch.from_numpy(x).to(cuda)
+    gd = gd if aligned else _unaligned(gd)
+    before = dyn_grad_blocks.launches
+    with torch.inference_mode():
+        got = dyn_grad_blocks(rt, ct, gd, xd, _EDGE)
+        ref = dyn_grad_blocks_plain(rt, ct, gd, xd, _EDGE)
+    torch.cuda.synchronize()
+    assert dyn_grad_blocks.launches == before + 1
+    assert got.shape == (len(rows), _EDGE, _EDGE)
+    if feat == 0:
+        assert not got.any()
+        return
+    _close(got, ref)
+    ref64 = dyn_grad_blocks_plain(rt, ct, gd.double(), xd.double(), _EDGE)
+    err = (got.double() - ref64).abs().flatten(1).max(1).values
+    assert (err <= 1e-5 * ref64.abs().flatten(1).max(1).values).all()
+
+
+@pytest.mark.parametrize("global_max", [True, False], ids=["bound", "exact"])
+def test_gat_block256_training_on_card_matches_cpu(cuda, monkeypatch,
+                                                   global_max):
+    """One GAT training step (hidden 64, dropout off) on the 256-wide
+    ``att_unit`` operator under ``GLOBAL_MAX`` 1 and 0, kernels on the card
+    against plain versions on the CPU: K4, K4ᵀ and K5 twice each (at
+    hidden 64 < 128 features layer 0 transforms before it aggregates, so
+    its aggregation needs ``dx`` too); then ``FUSED_TILES=1`` raises
+    naming ROADMAP.md §2 and launches nothing."""
+    monkeypatch.setenv("FITGNN_GAT_GLOBAL_MAX", "1" if global_max else "0")
+    rng = np.random.default_rng(14)
+    n, feat = 1920, 128                  # 2,048 rows padded: 8 tiles of 256
+    s, r = _bench_like(rng, n=n, e=20_000)
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    y = rng.integers(0, 5, n)
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=rng.random(n) < .5,
+                                 min_block_edges=48, layer_name="GATConv")
+    h = build_hybrid(g.senders.numpy(), g.receivers.numpy(),
+                     g.edge_weight.numpy(), g.num_nodes_padded,
+                     min_block_edges=96, block=_EDGE, use_segmm=True,
+                     semantics="att_unit")
+    assert h.bsr.block == _EDGE and h.dyn_plan is not None
+    g = g._replace(aux=h)
+    model = NodeModel("GATConv", feat, 64, 2, 5, dropout_rate=0.0)
+    model.reset_parameters(torch.Generator().manual_seed(0)).train()
+    loss_c, grads_c = _grads(model, g, g.y, g.train_mask)
+    gd = g.to(cuda)
+    model = model.to(cuda)
+    counts = (dyn_tiles, dyn_tiles_t, dyn_grad_blocks)
+    before = tuple(c.launches for c in counts)
+    loss_d, grads_d = _grads(model, gd, gd.y, gd.train_mask)
+    torch.cuda.synchronize()
+    assert tuple(c.launches - b for c, b in zip(counts, before)) == (2, 2, 2)
+    _close(loss_d, loss_c)
+    for k, v in grads_c.items():
+        _close(grads_d[k], v)
+    monkeypatch.setenv("FITGNN_GAT_FUSED_TILES", "1")
+    before = att_bsr.att_fwd.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §2"):
+        model(gd.x, gd)
+    assert att_bsr.att_fwd.launches == before
