@@ -240,16 +240,30 @@ Phases (any failure exits non-zero before the result lines):
    each operator under the default switches and under ``GLOBAL_MAX=0``,
    launching phase 4's GAT counts (K4, K4ᵀ, K5 in their ``@256`` forms)
    and held against the plain versions (the eval forward, the loss and
-   every gradient); ``FUSED_TILES=1`` on the threshold-48 operator, which
-   must raise ``NotImplementedError`` naming ROADMAP.md §2 and launch
-   nothing (K7 at 256 is not ported); and the step's ms on each operator
-   beside the edge-128 GAT operator's, in one call;
-16. one JSON line with every kernel's numbers, the bf16 forms and the
-   forms at edge 256 (``K1@256``, ``K1bf@256``, ``K4@256``, ...) as their
-   own entries (launches summed over the main-path phases 5 to 15, per
-   phase beside them; K3, K3w, K6, K5, K5@256, K7f, K7bt, K7s and K7sums
-   with their ``ptxas`` register and spill counts), then the ``ok``
-   line.
+   every gradient); and the step's ms on each operator beside the
+   edge-128 GAT operator's, in one call;
+16. GAT's fused tile attention at edge 256 (``phase_gat_fused_block_*``):
+   on phase 15's threshold-48 operator, f32 and bf16 masks, K7rm
+   (``att_rowmax``, bit for bit), K7f (``att_fwd``), K7bt's ``dx`` walk,
+   the score pass K7s (partials (K, 2·256)) and K7sums at F=128 and 512,
+   each against its plain version (tolerance as in phase 3; two launches
+   of K7s + K7sums bit-equal; each bf16 form bit for bit its f32 form),
+   with kernel, plain and two-stage times (the two-stage path at 256) and
+   its bound, and the fused outputs and gradients against the two-stage
+   path at 256; then, every counter at 0 just before each run, one fused
+   GAT ``gc_train_step`` and one eval forward at hidden 512 (dropout 0.5)
+   on the threshold-48 operator under ``FUSED`` and ``FUSED_EXACT`` (f32
+   and bf16 masks) and on the collapsed one under phase 12's ``FUSED``
+   with ``GLOBAL_MAX=0``, launching the same mode's counts at 128 (the
+   tile kernels in their ``@256`` forms) and held against the plain
+   versions; and the fused step's ms on each operator beside the edge-128
+   operator's, in one call;
+17. one JSON line with every kernel's numbers, the bf16 forms and the
+   forms at edge 256 (``K1@256``, ``K1bf@256``, ``K4@256``, ``K7f@256``,
+   ...) as their own entries (launches summed over the main-path phases 5
+   to 16, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
+   K7sums, and K5, K7f, K7bt, K7s and K7sums at 256, with their ``ptxas``
+   register and spill counts), then the ``ok`` line.
 
 The JAX package's environment switches are set in ``os.environ`` for one
 phase and restored after it; the earlier phases must launch none of K6
@@ -3697,8 +3711,11 @@ EDGE_EVAL = {"t48": {"K3": 2, "K1": 2},
 EDGE_TIMED_STEPS = 10
 
 
-# GAT's forms counted at edge 256 (phase 15)
-GAT_EDGE_IDS = ("K4", "K4T", "K5")
+# GAT's forms counted at edge 256: the two-stage path's (phase 15) and the
+# fused path's (phase 16), with the bf16 forms of the fused kernels that
+# read the mask (K7sums reads none)
+GAT_EDGE_IDS = ("K4", "K4T", "K5", "K7rm", "K7f", "K7bt", "K7s", "K7sums",
+                "K7rmbf", "K7fbf", "K7btbf", "K7sbf")
 
 
 def eval_and_step(model, gd, device) -> tuple:
@@ -4128,13 +4145,10 @@ def phase_gat_block_steps(device, g, ops) -> dict:
     and under ``GLOBAL_MAX=0``, one GAT ``gc_train_step`` at hidden 512
     (bit dropout 0.5, seed-0 weights) and one eval forward, launching
     ``GAT_EDGE_STEP`` and held against the same run with the plain versions
-    (the eval forward, the loss and every gradient); ``FUSED_TILES=1`` on
-    the threshold-48 operator raises naming ROADMAP.md §2 and launches
-    nothing; then the ``gc_train_step`` ms on each operator beside the
-    edge-128 GAT operator's (phase 3's order at threshold 48), in one
-    call."""
+    (the eval forward, the loss and every gradient); then the
+    ``gc_train_step`` ms on each operator beside the edge-128 GAT
+    operator's (phase 3's order at threshold 48), in one call."""
     from fitgnn_tpu_torch.models.models import NodeModel
-    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
 
     t_phase = time.perf_counter()
     phases = {}
@@ -4167,37 +4181,333 @@ def phase_gat_block_steps(device, g, ops) -> dict:
                 compare(f"{what}: grad {k} kernels vs plain", got[2][k],
                         ref[2][k])
             del got, ref
-        if name == "t48":
-            # the fused tile attention at 256 is not ported: an expected
-            # refusal before any launch, and the run carries on
-            model = model_().eval()
-            with switches(FUSED_ONLY), torch.inference_mode():
-                reset_counts()
-                try:
-                    model(gd.x, gd)
-                    raised = None
-                except NotImplementedError as exc:
-                    raised = str(exc)
-            check(raised is not None and "ROADMAP.md §2" in raised,
-                  f"FUSED_TILES=1 at edge {EDGE}: expected a refusal naming "
-                  f"ROADMAP.md §2, got {raised!r}")
-            expect(read_counts(), {}, f"FUSED_TILES=1 at edge {EDGE}")
-            print(f"FUSED_TILES=1 at edge {EDGE}: NotImplementedError, as "
-                  f"expected: {raised}")
-            del model
         del gd
         torch.cuda.empty_cache()
 
     # the step's time on each operator beside edge 128's, in one call
+    step_ms("GAT hidden 512, dropout 0.5", model_, device, (
+        ("edge 128 t48", att_unit_128(g)),
+        *((f"edge {EDGE} {k}", v) for k, v in ops.items())))
+    print(f"GAT edge-{EDGE} steps: {time.perf_counter() - t_phase:.1f} s")
+    return phases
+
+
+def att_unit_128(g):
+    """Phase 3's graph with its ``att_unit`` operator at edge 128 and
+    threshold 48, the yardstick of the steps at 256."""
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+
     s = g.senders.numpy().astype(np.int64)
     r = g.receivers.numpy().astype(np.int64)
     w = (g.edge_weight.numpy() > 0).astype(np.float32)
-    h128 = build_hybrid(s, r, w, g.num_nodes_padded, min_block_edges=48,
-                        use_segmm=True, semantics="att_unit")
-    step_ms("GAT hidden 512, dropout 0.5", model_, device, (
-        ("edge 128 t48", g._replace(aux=h128)),
-        *((f"edge {EDGE} {k}", v) for k, v in ops.items())))
-    print(f"GAT edge-{EDGE} steps: {time.perf_counter() - t_phase:.1f} s")
+    return g._replace(aux=build_hybrid(s, r, w, g.num_nodes_padded,
+                                       min_block_edges=48, use_segmm=True,
+                                       semantics="att_unit"))
+
+
+# ---- phase 16: GAT's fused tile attention at edge 256 ---------------------
+
+# phase 16's fused steps on each operator at 256: phase 4's two fused modes
+# on the threshold-48 masks, phase 12's exact fused mode on the collapsed
+# operator, each launching its counts at 128 under the @256 IDs
+FUSED_EDGE_MODES = {"t48": ("GATConv fused", "GATConv fused exact"),
+                    "t48bf": ("GATConv fused", "GATConv fused exact"),
+                    "t192c": ("GATConv fused den exact",)}
+
+
+def k7_edge_rows(device, h, tt, gen) -> dict:
+    """K7rm, K7f, K7bt's dx walk, the score pass K7s and its sums K7sums on
+    the tiles of ``h`` (an ``att_unit`` operator at edge 256; ``tt`` "f32"
+    or "bf16", the mask's type) at F=128 and 512, each against its plain
+    version (K7rm bit for bit; the pass's partials too; two launches of
+    K7s + K7sums bit-equal; a bf16 form bit for bit its f32 form on the
+    mask widened), with kernel, plain and two-stage times and its bound,
+    and the fused outputs and gradients against the two-stage path at the
+    same edge (``pe``, K4@256 and row sums; its autograd backward through
+    K5@256 and K4ᵀ@256).  Returns the rows by ID (``K7f@256``,
+    ``K7fbf@256``, ...; K7sums, which reads no tile, from the f32 mask)."""
+    from fitgnn_tpu_torch.ops import att_bsr
+    from fitgnn_tpu_torch.ops.tile_gat import tiles_two_stage
+
+    hd = h.to(device)
+    b, plan = hd.bsr, hd.dyn_plan
+    rows, cols, blocks = b.rows, b.cols, b.blocks
+    b32 = blocks.float()
+    bf16 = tt == "bf16"
+    n, e = hd.num_nodes, b.block
+    nb, nq, k_all = n // e, e // 128, b.nnz_blocks
+    nnz = int((blocks != 0).sum())
+    uniq_cols = int(torch.unique(cols).numel())
+    uniq_rows = int(torch.unique(rows).numel())
+    ssrc, sdst, dden = (torch.randn(n, generator=gen, device=device)
+                        for _ in range(3))
+    mg = (sdst + ssrc.max()).clamp_min(0.0)
+    vec = n * 4
+    tile_bytes = k_all * e * e * blocks.element_size()
+    idx_f = (k_all + nb + 1) * 4
+    idx_t = (3 * plan.t_sel.numel() + nb + 1) * 4
+    part_bytes = 2 * k_all * nq * e * 4               # (K, nq·E) twice
+    sfx = "bf" if bf16 else ""
+    out = {f"{k}{sfx}@{EDGE}": [] for k in ("K7rm", "K7f", "K7bt", "K7s")}
+    if not bf16:
+        out[f"K7sums@{EDGE}"] = []
+    fwd = (rows, cols, plan, blocks, ssrc, sdst)
+    fwd32 = (rows, cols, plan, b32, ssrc, sdst)
+    two_bwd_label = (f"the two-stage autograd backward at {EDGE} for dssrc, "
+                     f"dsdst and dx (K5@{EDGE}, K4T@{EDGE}, the elementwise "
+                     "chain): compare with K7bt + K7s + K7sums")
+    two_scores_label = (f"the two-stage autograd backward at {EDGE} for "
+                        f"dssrc and dsdst (K5@{EDGE}, the elementwise "
+                        "chain): compare with K7s + K7sums")
+
+    def same(name, got, f32):
+        if bf16:
+            check(all(torch.equal(a, c) for a, c in zip(got, f32)),
+                  f"{name}: the bf16 form differs from the f32 form")
+
+    def errs(es):
+        return dict(max_abs_err=max(x["max_abs_err"] for x in es),
+                    max_rel_err=max(x["max_rel_err"] for x in es))
+
+    def add(k, sh):
+        out[f"{k}{sfx}@{EDGE}"].append(sh)
+        two = sh.get("two_stage_ms")
+        print(f"  {k}{sfx}@{EDGE} {sh['shape']}: kernel_ms={sh['ms']:.4f} "
+              f"plain_ms={sh['plain_ms']:.4f} library_ms=null two_stage_ms="
+              f"{'null' if two is None else f'{two:.4f}'} "
+              f"bound_ms={sh['bound_ms']:.4f} ({sh['bound_by']})")
+
+    print(f"GAT fused tiles at edge {EDGE}, {tt} mask: {k_all} tiles "
+          f"(fillers included), {nnz} mask entries")
+    with torch.inference_mode():
+        rm = att_bsr.att_rowmax(*fwd, SLOPE)
+        rp = att_bsr.att_rowmax_plain(*fwd, SLOPE)
+        same(f"K7rm{sfx}@{EDGE}", (rm,), (att_bsr.att_rowmax(*fwd32, SLOPE),))
+        torch.cuda.synchronize()
+        check(torch.equal(rm, rp), f"K7rm{sfx}@{EDGE}: differs from its "
+              "plain version")
+        print(f"  K7rm{sfx}@{EDGE}: bit for bit its plain version, "
+              f"{int((rm <= -1e29).sum())} rows without a tile entry")
+        brm, byrm = bound(tile_bytes + idx_f + 3 * vec, 3.0 * nnz)
+        plain_rm = cuda_ms(lambda: att_bsr.att_rowmax_plain(*fwd, SLOPE), 5)
+        add("K7rm", dict(
+            F=None, shape="rows", max_abs_err=0.0, max_rel_err=0.0,
+            bit_exact=True, bound_ms=brm, bound_by=byrm,
+            ms=cuda_ms(lambda: att_bsr.att_rowmax(*fwd, SLOPE), 20),
+            plain_ms=plain_rm, library_ms=None, two_stage_ms=plain_rm,
+            two_stage_label="the materialised tile row max (its plain "
+                            "version)"))
+        del rm, rp
+    for feat in (NUM_FEATURES, HIDDEN):
+        # at F=128 (layer 0, raw features) the backward needs no dx
+        need_dx = feat == HIDDEN
+        x = torch.randn((n, feat), generator=gen, device=device)
+        gr = torch.randn((n, feat), generator=gen, device=device)
+        bwd = (plan, blocks, ssrc, sdst, mg, gr, x, dden, SLOPE)
+        tag = f"{sfx}@{EDGE}"
+
+        def dx_walk(bl):
+            return att_bsr._launch_walk(
+                "att_bwd_t (dx)", device, bl, plan.t_row_splits, plan.t_sel,
+                plan.t_scale, plan.t_cols, ssrc, sdst, mg, gr, None, True,
+                SLOPE)
+
+        def scores(bl):
+            return att_bsr._launch_scores(
+                "att_bwd_scores", device, bl, rows, cols, ssrc, sdst, mg, gr,
+                x, dden, SLOPE)
+
+        with torch.inference_mode():
+            num, den = att_bsr.att_fwd(*fwd, mg, x, SLOPE)
+            same(f"K7f{tag} F={feat}", (num, den),
+                 att_bsr.att_fwd(*fwd32, mg, x, SLOPE))
+            num_p, den_p = att_bsr.att_fwd_plain(*fwd, mg, x, SLOPE)
+            e_f = [compare(f"K7f{tag} att_fwd {w} F={feat}", a, p_)
+                   for w, a, p_ in (("num", num, num_p), ("den", den, den_p))]
+            del num_p, den_p
+            dx = dx_walk(blocks)
+            same(f"K7bt{tag} F={feat}", (dx,), (dx_walk(b32),))
+            e_t = compare(f"K7bt{tag} att_bwd_t dx F={feat}", dx,
+                          att_bsr.att_bwd_t_plain(*bwd, need_dssrc=False)[0])
+            part = scores(blocks)
+            same(f"K7s{tag} F={feat}", part, scores(b32))
+            part_p = att_bsr.att_scores_plain(rows, cols, *bwd)
+            check(part[0].shape == (k_all, nq * e),
+                  f"K7s{tag}: partials {tuple(part[0].shape)}")
+            e_p = [compare(f"K7s{tag} pass {w} partials F={feat}", a, p_)
+                   for w, a, p_ in zip(("column", "row"), part, part_p)]
+            dss, dsd = att_bsr.att_bwd_scores(rows, cols, *bwd)
+            again = att_bsr.att_bwd_scores(rows, cols, *bwd)
+            pair = f"K7s{tag} + K7sums@{EDGE} F={feat}"
+            check(torch.equal(dss, again[0]) and torch.equal(dsd, again[1]),
+                  f"{pair}: two launches differ")
+            print(f"  {pair}: two launches bit-equal")
+            e_s = [compare(f"K7s{tag} att_bwd_scores {w} F={feat}", a, p_)
+                   for w, a, p_ in zip(("dssrc", "dsdst"), (dss, dsd),
+                                       att_bsr.att_bwd_scores_plain(
+                                           rows, cols, *bwd))]
+            e_c = [compare(f"K7sums{tag} att_sums {w} F={feat}", a, p_)
+                   for w, a, p_ in zip(("dssrc", "dsdst"),
+                                       att_bsr.att_sums(plan, *part_p),
+                                       att_bsr.att_sums_plain(plan,
+                                                              *part_p))]
+            del part_p, again
+        # the two-stage path at the same edge must agree, forward and in
+        # the gradients
+        ss_, sd_ = ssrc.clone().requires_grad_(), sdst.clone().requires_grad_()
+        x_ = x.clone().requires_grad_(need_dx)
+        num2, den2 = tiles_two_stage(SLOPE, rows, cols, plan, blocks, ss_,
+                                     sd_, mg, x_)
+        inputs = (ss_, sd_, x_) if need_dx else (ss_, sd_)
+        grads2 = torch.autograd.grad((num2, den2), inputs, (gr, dden),
+                                     retain_graph=True)
+        compare(f"K7f{tag} num vs two-stage F={feat}", num, num2.detach())
+        compare(f"K7f{tag} den vs two-stage F={feat}", den, den2.detach())
+        compare(f"K7s{tag} dssrc vs two-stage F={feat}", dss, grads2[0])
+        compare(f"K7s{tag} dsdst vs two-stage F={feat}", dsd, grads2[1])
+        if need_dx:
+            compare(f"K7bt{tag} dx vs two-stage F={feat}", dx, grads2[2])
+        two_bwd = cuda_ms(lambda: torch.autograd.grad(
+            (num2, den2), inputs, (gr, dden), retain_graph=True), 5)
+        two_scores = cuda_ms(lambda: torch.autograd.grad(
+            (num2, den2), (ss_, sd_), (gr, dden), retain_graph=True), 5)
+        del num2, den2, grads2, num, den, dx, dss, dsd
+        with torch.inference_mode():
+            slabs = e * feat * 4
+            # the bounds of phase 3's rows with 256-wide tiles and slabs,
+            # the partials (K, nq·E) each
+            bf_, byf = bound(tile_bytes + idx_f + 3 * vec + uniq_cols * slabs
+                             + n * feat * 4 + vec, nnz * (2.0 * feat + 5))
+            bdx, bydx = bound(tile_bytes + idx_t + 3 * vec
+                              + uniq_rows * slabs + n * feat * 4,
+                              nnz * (2.0 * feat + 5))
+            bs, bys = bound(tile_bytes + 2 * k_all * 4 + 4 * vec
+                            + (uniq_rows + uniq_cols) * slabs + part_bytes,
+                            nnz * (2.0 * feat + 8))
+            bs_tc = 3 * 2.0 * k_all * e * e * feat \
+                / PEAK_TF32_FLOP_PER_S * 1e3
+            bc, byc = bound(part_bytes + idx_t + (nb + 1) * 4 + 2 * vec,
+                            2.0 * k_all * nq * e)
+            add("K7f", dict(
+                F=feat, shape=f"F={feat}", **errs(e_f), bound_ms=bf_,
+                bound_by=byf,
+                ms=cuda_ms(lambda: att_bsr.att_fwd(*fwd, mg, x, SLOPE), 20),
+                plain_ms=cuda_ms(lambda: att_bsr.att_fwd_plain(
+                    *fwd, mg, x, SLOPE), 5), library_ms=None,
+                two_stage_ms=cuda_ms(lambda: tiles_two_stage(
+                    SLOPE, rows, cols, plan, blocks, ssrc, sdst, mg, x), 10),
+                two_stage_label=f"materialised pe, K4@{EDGE} and the den "
+                                "row sums"))
+            # the path launches the dx walk at F=512 only (layer 1)
+            add("K7bt", dict(
+                F=feat, shape=f"F={feat}", launch="dx", on_path=need_dx,
+                **e_t, bound_ms=bdx, bound_by=bydx,
+                ms=cuda_ms(lambda: dx_walk(blocks), 20),
+                plain_ms=cuda_ms(lambda: att_bsr.att_bwd_t_plain(
+                    *bwd, need_dssrc=False), 5), library_ms=None,
+                two_stage_ms=two_bwd if need_dx else None,
+                two_stage_label=two_bwd_label))
+            both = cuda_ms(lambda: att_bsr.att_bwd_scores(rows, cols, *bwd),
+                           20)
+            add("K7s", dict(
+                F=feat, shape=f"F={feat}", **errs(e_s + e_p), bound_ms=bs,
+                bound_by=bys, bound_tensor_cores_ms=bs_tc,
+                ms=cuda_ms(lambda: scores(blocks), 20),
+                plain_ms=cuda_ms(lambda: att_bsr.att_scores_plain(
+                    rows, cols, *bwd), 5), library_ms=None,
+                both_outputs_ms=both, two_stage_ms=two_scores,
+                two_stage_label=two_scores_label))
+            print(f"  K7s{tag} + K7sums@{EDGE} F={feat}: both outputs "
+                  f"{both:.4f} ms; the pass's dense product at the TF32 "
+                  f"rate {bs_tc:.4f} ms")
+            if not bf16:
+                # a few microseconds, under the wrapper's host work: ms is
+                # the device time, wrapper_ms cuda_ms's
+                add("K7sums", dict(
+                    F=feat, shape=f"F={feat}", **errs(e_c), bound_ms=bc,
+                    bound_by=byc,
+                    ms=device_ms(lambda: att_bsr.att_sums(plan, *part), 20),
+                    wrapper_ms=cuda_ms(lambda: att_bsr.att_sums(plan, *part),
+                                       20),
+                    plain_ms=cuda_ms(lambda: att_bsr.att_sums_plain(
+                        plan, *part), 20), library_ms=None,
+                    two_stage_ms=None, two_stage_label=two_scores_label))
+        del x, gr, x_, ss_, sd_, part
+        torch.cuda.empty_cache()
+    del hd, b32
+    return out
+
+
+def phase_gat_fused_block_kernels(device, ops) -> dict:
+    """``k7_edge_rows`` on the threshold-48 operator's f32 and bf16
+    masks."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(16)
+    out = {}
+    for name, tt in (("t48", "f32"), ("t48bf", "bf16")):
+        out.update(k7_edge_rows(device, ops[name].aux, tt, gen))
+        torch.cuda.empty_cache()
+    print(f"GAT fused edge-{EDGE} kernels: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_gat_fused_block_steps(device, g, ops) -> dict:
+    """Through the library surface, every counter at 0 just before each
+    counted run: on each operator at edge 256 under its ``FUSED_EDGE_MODES``
+    one fused GAT ``gc_train_step`` at hidden 512 (bit dropout 0.5, seed-0
+    weights) and one eval forward, launching the same mode's counts at 128
+    (``STEP``, ``EVAL``; the tile kernels under their ``@256`` IDs, in
+    their bf16 forms on the bf16 mask) and held against the same run with
+    the plain versions (the eval forward, the loss and every gradient);
+    then the ``gc_train_step`` ms under ``FUSED`` on each operator beside
+    the edge-128 GAT operator's, in one call."""
+    from fitgnn_tpu_torch.models.models import NodeModel
+
+    t_phase = time.perf_counter()
+    phases = {}
+
+    def model_():
+        m = NodeModel("GATConv", NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                      dropout_rate=0.5)
+        return m.reset_parameters(torch.Generator().manual_seed(0)).to(
+            device)
+
+    def run(gd):
+        return eval_and_step(model_(), gd, device)
+
+    for name, modes in FUSED_EDGE_MODES.items():
+        gd = ops[name].to(device)
+        for mode in modes:
+            want = {k: STEP[mode].get(k, 0) + EVAL[mode].get(k, 0)
+                    for k in (*STEP[mode], *EVAL[mode])}
+            want = at_edge(bf16_counts(want) if name == "t48bf" else want)
+            what = f"edge{EDGE} gat512 {name} {mode} step and eval"
+            with switches(MODE_ENV[mode]):
+                reset_counts()
+                got = run(gd)
+                launches = at_edge(read_counts())
+                expect(launches, want, what)
+                phases[what] = launches
+                with plain_versions():
+                    ref = run(gd)
+            compare(f"{what}: eval forward kernels vs plain", got[0], ref[0])
+            compare(f"{what}: loss kernels vs plain", got[1].reshape(1),
+                    ref[1].reshape(1))
+            for k in ref[2]:
+                compare(f"{what}: grad {k} kernels vs plain", got[2][k],
+                        ref[2][k])
+            del got, ref
+        del gd
+        torch.cuda.empty_cache()
+
+    # the fused step's time on each operator beside edge 128's, in one call
+    with switches(FUSED):
+        step_ms("GAT fused + SEGMM_DEN hidden 512, dropout 0.5", model_,
+                device, (("edge 128 t48", att_unit_128(g)),
+                         *((f"edge {EDGE} {k}", v) for k, v in ops.items())))
+    print(f"GAT fused edge-{EDGE} steps: "
+          f"{time.perf_counter() - t_phase:.1f} s")
     return phases
 
 
@@ -4353,6 +4663,36 @@ KERNELS = (
     ("K5@256", "K5@256 dyn_grad_blocks on 256-wide tiles (one CTA a "
      "128-wide quadrant)", "fitgnn_tpu_torch/csrc/bsr_dynamic.cu",
      "fitgnn_tpu/ops/pallas/bsr_dynamic.py:122"),
+    # GAT's fused forms at tile edge 256, phase 16
+    ("K7rm@256", "K7rm@256 att_rowmax on 256-wide masks (a CTA a 128-row "
+     "half, over its quadrants)", "fitgnn_tpu_torch/csrc/att_bsr.cu",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:78"),
+    ("K7f@256", "K7f@256 att_fwd on 256-wide masks (the rows walk's QUAD "
+     "form under att::FwdScores)", "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:125"),
+    ("K7bt@256", "K7bt@256 att_bwd_t dx on 256-wide masks (the columns "
+     "walk's QUAD form under att::DxScores)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:185"),
+    ("K7s@256", "K7s@256 att_bwd_scores' pass on 256-wide masks (one "
+     "tensor-core CTA a 128-wide quadrant; partials (K, 2·256))",
+     "fitgnn_tpu_torch/csrc/att_bsr.cu",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:267"),
+    ("K7sums@256", "K7sums@256 att_sums on the quadrant partials",
+     "fitgnn_tpu_torch/csrc/att_bsr.cu",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:185"),
+    ("K7rmbf@256", "K7rmbf@256 att_rowmax on 256-wide bf16 masks",
+     "fitgnn_tpu_torch/csrc/att_bsr.cu",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:78"),
+    ("K7fbf@256", "K7fbf@256 att_fwd on 256-wide bf16 masks",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:125"),
+    ("K7btbf@256", "K7btbf@256 att_bwd_t dx on 256-wide bf16 masks",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:185"),
+    ("K7sbf@256", "K7sbf@256 att_bwd_scores' pass on 256-wide bf16 masks",
+     "fitgnn_tpu_torch/csrc/att_bsr.cu",
+     "fitgnn_tpu/ops/pallas/att_bsr.py:267"),
 )
 
 
@@ -4439,6 +4779,8 @@ def main() -> int:
         ops = gat_block_operators(g, ds, order)
         shapes.update(phase_gat_block_kernels(device, ops["t48"].aux))
         phases.update(phase_gat_block_steps(device, g, ops))
+        shapes.update(phase_gat_fused_block_kernels(device, ops))
+        phases.update(phase_gat_fused_block_steps(device, g, ops))
         del ops, g
         torch.cuda.empty_cache()
 
@@ -4451,31 +4793,32 @@ def main() -> int:
         check(entry["launches"] > 0,
               f"{entry['name']} never launched on a main-path phase")
     # the register counts of K7's walks (both slab copies), of the score
-    # pass and K5 (both load widths; K5@256 its quadrant forms) and of the
-    # column sum and of the straggler sum (K3 and K3w without den, K6 with
-    # it: three lane counts, two load widths each)
+    # pass and K5 (both load widths), each at 128 and in its quadrant form
+    # at 256 (QUAD, the last template flag), and of the column sum and of
+    # the straggler sum (K3 and K3w without den, K6 with it: three lane
+    # counts, two load widths each)
     for (k, *_), entry in zip(KERNELS, kernels_line["kernels"]):
-        hook = {"K7f": "FwdScores", "K7bt": "DxScores"}.get(k)
-        name = {"K5": "dyn_grad_blocks_kernel<", "K5@256":
-                "dyn_grad_blocks_kernel<", "K7s": "att_scores_kernel",
+        base, _, edge = k.partition("@")
+        hook = {"K7f": "FwdScores", "K7bt": "DxScores"}.get(base)
+        name = {"K5": "dyn_grad_blocks_kernel<", "K7s": "att_scores_kernel",
                 "K7sums": "att_sums_kernel",
                 "K3": "segmm_spmm_kernel<false", "K3w":
                 "segmm_spmm_kernel<false", "K6": "segmm_spmm_kernel<true"
-                }.get(k)
-        # K5's template flags are <VEC, QUAD>
-        quad = {"K5": "false>", "K5@256": "true>"}.get(k, "")
+                }.get(base)
         if hook is None and name is None:
             continue
+        quad = ("" if base in ("K3", "K3w", "K6")
+                else "true>" if edge else "false>")
         entry["registers"] = {
             kernel: {"registers": n, "spilled_bytes": spill}
             for _, kernel, n, spill in regs
-            if (hook is not None
-                and (walk_args(kernel) or (None,) * 4)[3] == hook)
-            or (name is not None and kernel.startswith(name)
-                and kernel.endswith(quad))}
+            if kernel.endswith(quad)
+            and ((hook is not None
+                  and (walk_args(kernel) or (None,) * 4)[3] == hook)
+                 or (name is not None and kernel.startswith(name)))}
         # two load widths each, K7f, K7bt and K7s also on bf16 tiles
-        want = {"K7sums": 1, "K3": 6, "K3w": 6, "K6": 6, "K5": 2,
-                "K5@256": 2}.get(k, 4)
+        want = {"K7sums": 1, "K3": 6, "K3w": 6, "K6": 6, "K5": 2}.get(base,
+                                                                       4)
         check(len(entry["registers"]) == want,
               f"{entry['name']}: no ptxas record of its kernels")
         print(f"{k} registers: {entry['registers']}")

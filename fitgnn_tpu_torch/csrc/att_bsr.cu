@@ -115,6 +115,40 @@
 // att_scores_kernel<VEC, bf16> stages the tile as bf16 (32 KB), 16-byte
 // chunk q (8 entries) of row i at chunk q ^ (i % 8), so that the
 // epilogue's 4-byte pair reads of 8 rows spread over all banks.
+//
+// Tiles of another edge (QUAD): the JAX package's build_hybrid(block=E,
+// semantics="att_unit") under FITGNN_GAT_FUSED_TILES=1 hands its (K, E, E)
+// masks to the same kernels, whose entries take E as their static block
+// (fitgnn_tpu/ops/pallas/att_bsr.py:96, 146, 223, 292).  Every entry here
+// takes the edge, block = 128 nq; at 128 each kernel is the one above,
+// unchanged (QUAD is a template flag, as in tile_sparse.cuh).  Above 128:
+// * att_rowmax_kernel runs one CTA per 128-row output block ob (half
+//   h = ob % nq of tile row ob / nq) and reads quadrants (h, q) of each
+//   tile of the row, their rows at stride E, against ssrc of 128-column
+//   block cols[k] nq + q; the max is bit-exact, as at 128;
+// * the walks are tile_sparse.cuh's quadrant walk under the same hooks,
+//   which keep their 128-row score slices: begin and finish take the CTA's
+//   output block, the tile step the slab of the quadrant being applied
+//   (the columns of quadrant (h, q) forward, the forward rows of quadrant
+//   (q, h) for dx); an empty quadrant costs only its read, and a scale-0
+//   filler slot skips all of its quadrants;
+// * the score pass runs K5's quadrant grid: one CTA (two warpgroups) per
+//   quadrant (qi, qj), the nq^2 CTAs of a tile adjacent so that they share
+//   their slabs in L2; it multiplies the g slab of 128-row block
+//   rows[k] nq + qi against the x slab of cols[k] nq + qj, stages the
+//   quadrant (read at row stride E, the same swizzle), ssrc of the column
+//   slab and sdst, m and dden of the row slab.  One CTA a whole 256 x 256
+//   tile would hold 256 accumulators a thread (K5's finding).  Its partials
+//   are (K, nq, E), rpart[k][qj][128 qi + i] (row i's sum over quadrant
+//   column qj) and cpart[k][qi][128 qj + j] (column j's over quadrant row
+//   qi), each written by one CTA: no atomics, so two launches stay
+//   bit-equal, and at nq = 1 they are the (K, 128) partials above.
+//   att_sums_kernel runs one CTA per 128-row block and adds a tile's nq
+//   partials of that half in order before it adds them as at 128.
+// Bounds at E as at 128, each live tile read whole (256 KiB at 256, bf16
+// 128 KiB); the pass's dense product is 4x a 128 tile's entries, so at
+// E = 256 its three TF32 passes (2.F FLOPs an entry each) bound it by the
+// operations on the bench graph.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -155,15 +189,26 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <class T>
+// QUAD: (K, E, E) tiles, E = nq * 128 (nq > 1); CTA ob takes the 128-row
+// output block ob, half h = ob % nq of tile row r = ob / nq, and walks
+// quadrants (h, q), q < nq, of each tile of row r, their rows at stride E,
+// against ssrc of 128-column block cols[k] nq + q.  Without QUAD nq is 1
+// and unread.
+template <class T, bool QUAD>
 __global__ void __launch_bounds__(THREADS)
 att_rowmax_kernel(const T* __restrict__ blocks,
                   const int32_t* __restrict__ row_splits,
                   const int32_t* __restrict__ cols,
                   const float* __restrict__ ssrc,
                   const float* __restrict__ sdst, float* __restrict__ out,
-                  float slope) {
-  const int64_t r = blockIdx.x;
+                  float slope, int nq) {
+  const int64_t ob = blockIdx.x;
+  const int64_t r = QUAD ? ob / nq : ob;
+  const int64_t h = QUAD ? ob % nq : 0;
+  const int64_t edge = QUAD ? static_cast<int64_t>(nq) * BLK : BLK;
+  // QUAD: a tile row's entries; the row offsets i ld stay 32-bit (as
+  // 64-bit products of a runtime edge they spilled registers)
+  const int ld = nq * BLK;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   float rm[ROWS_PER_WARP];
@@ -171,30 +216,36 @@ att_rowmax_kernel(const T* __restrict__ blocks,
 #pragma unroll
   for (int q = 0; q < ROWS_PER_WARP; ++q) {
     rm[q] = NEG;
-    sd[q] = sdst[r * BLK + warp + WARPS * q];
+    sd[q] = sdst[ob * BLK + warp + WARPS * q];
   }
   const int lo = row_splits[r];
   const int hi = row_splits[r + 1];
   for (int k = lo; k < hi; ++k) {
-    const float* ss = ssrc + static_cast<int64_t>(cols[k]) * BLK + 4 * lane;
-    const float s0 = ss[0], s1 = ss[1], s2 = ss[2], s3 = ss[3];
-    const T* a = blocks + static_cast<int64_t>(k) * BLK * BLK + 4 * lane;
+    for (int qc = 0; qc < (QUAD ? nq : 1); ++qc) {
+      const int64_t cb = QUAD ? static_cast<int64_t>(cols[k]) * nq + qc
+                              : cols[k];
+      const float* ss = ssrc + cb * BLK + 4 * lane;
+      const float s0 = ss[0], s1 = ss[1], s2 = ss[2], s3 = ss[3];
+      const T* a = blocks + static_cast<int64_t>(k) * edge * edge
+                   + h * BLK * edge + qc * BLK + 4 * lane;
 #pragma unroll
-    for (int q = 0; q < ROWS_PER_WARP; ++q) {
-      const int i = warp + WARPS * q;
-      const float4 v = sparse::load4(a + static_cast<int64_t>(i) * BLK);
-      float mx = NEG;
-      if (v.x != 0.f) mx = fmaxf(mx, leaky(sd[q] + s0, slope));
-      if (v.y != 0.f) mx = fmaxf(mx, leaky(sd[q] + s1, slope));
-      if (v.z != 0.f) mx = fmaxf(mx, leaky(sd[q] + s2, slope));
-      if (v.w != 0.f) mx = fmaxf(mx, leaky(sd[q] + s3, slope));
-      rm[q] = fmaxf(rm[q], warp_max(mx));
+      for (int q = 0; q < ROWS_PER_WARP; ++q) {
+        const int i = warp + WARPS * q;
+        const float4 v = sparse::load4(
+            QUAD ? a + i * ld : a + static_cast<int64_t>(i) * BLK);
+        float mx = NEG;
+        if (v.x != 0.f) mx = fmaxf(mx, leaky(sd[q] + s0, slope));
+        if (v.y != 0.f) mx = fmaxf(mx, leaky(sd[q] + s1, slope));
+        if (v.z != 0.f) mx = fmaxf(mx, leaky(sd[q] + s2, slope));
+        if (v.w != 0.f) mx = fmaxf(mx, leaky(sd[q] + s3, slope));
+        rm[q] = fmaxf(rm[q], warp_max(mx));
+      }
     }
   }
   if (lane == 0) {
 #pragma unroll
     for (int q = 0; q < ROWS_PER_WARP; ++q) {
-      out[r * BLK + warp + WARPS * q] = rm[q];
+      out[ob * BLK + warp + WARPS * q] = rm[q];
     }
   }
 }
@@ -229,7 +280,7 @@ constexpr int SC_SMEM = tf32x3::SMEM + 1024
     + (SC_TILE + 4 * BLK + WARPS * BLK) * static_cast<int>(sizeof(float));
 static_assert(tf32x3::THREADS == THREADS, "a warp per 16 tile rows");
 
-template <bool VEC, class T>
+template <bool VEC, class T, bool QUAD>
 __global__ void __launch_bounds__(THREADS, 1)
 att_scores_kernel(const T* __restrict__ blocks,
                   const int32_t* __restrict__ rows,
@@ -240,7 +291,7 @@ att_scores_kernel(const T* __restrict__ blocks,
                   const float* __restrict__ dden,
                   const float* __restrict__ g, const float* __restrict__ x,
                   float* __restrict__ cpart, float* __restrict__ rpart,
-                  int64_t feat, float slope) {
+                  int64_t feat, float slope, int nq) {
   extern __shared__ unsigned char sraw[];
   const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(sraw));
   float* sm = reinterpret_cast<float*>(sraw + ((1024 - base % 1024) % 1024));
@@ -251,15 +302,26 @@ att_scores_kernel(const T* __restrict__ blocks,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int64_t k = blockIdx.x;
-  const int64_t r = rows[k];
-  const int64_t c = cols[k];
-  // the tile and the score vectors into shared memory while the product
-  // runs (no load waits): 16-byte chunk q of tile row i at chunk
-  // q ^ (i % 8), so the epilogue's float2 (bf16: 4-byte pair) reads of 8
-  // rows and 4 column pairs spread over all banks
+  // tile k and, under QUAD, its quadrant (qi, qj): CTA k nq^2 + qi nq +
+  // qj, so the nq^2 CTAs of a tile run together and share their slabs in
+  // L2 (K5's grid); r and c count 128-row blocks
+  const int64_t k = QUAD ? blockIdx.x / (nq * nq) : blockIdx.x;
+  const int64_t qi = QUAD ? blockIdx.x / nq % nq : 0;
+  const int64_t qj = QUAD ? blockIdx.x % nq : 0;
+  const int64_t edge = QUAD ? static_cast<int64_t>(nq) * BLK : BLK;
+  const int64_t r = QUAD ? static_cast<int64_t>(rows[k]) * nq + qi : rows[k];
+  const int64_t c = QUAD ? static_cast<int64_t>(cols[k]) * nq + qj : cols[k];
+  // where its partials go, (K, nq, E) each: the row sums over its columns
+  // at rpart[k][qj][128 qi + i], the column sums over its rows at
+  // cpart[k][qi][128 qj + j]
+  const int64_t rp = QUAD ? (k * nq + qj) * nq + qi : k;
+  const int64_t cp = QUAD ? static_cast<int64_t>(blockIdx.x) : k;
+  // the tile (its quadrant, rows at stride E) and the score vectors into
+  // shared memory while the product runs (no load waits): 16-byte chunk q
+  // of tile row i at chunk q ^ (i % 8), so the epilogue's float2 (bf16:
+  // 4-byte pair) reads of 8 rows and 4 column pairs spread over all banks
   constexpr int PER = 16 / sizeof(T);             // entries a chunk: 4 or 8
-  const T* tile = blocks + k * SC_TILE;
+  const T* tile = blocks + k * edge * edge + qi * BLK * edge + qj * BLK;
   T* tt = reinterpret_cast<T*>(ts);
 #pragma unroll
   for (int u = 0; u < SC_TILE / PER / THREADS; ++u) {
@@ -268,7 +330,9 @@ att_scores_kernel(const T* __restrict__ blocks,
     sparse::cp_async16(
         reinterpret_cast<float*>(tt + i * BLK
                                  + PER * ((q % (BLK / PER)) ^ (i & 7))),
-        reinterpret_cast<const float*>(tile + PER * q), 16);
+        reinterpret_cast<const float*>(
+            QUAD ? tile + i * edge + PER * (q % (BLK / PER)) : tile + PER * q),
+        16);
   }
   if (tid < BLK) {
     sparse::cp_async4(ss + tid, ssrc + c * BLK + tid, 4);
@@ -317,8 +381,8 @@ att_scores_kernel(const T* __restrict__ blocks,
   rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);
   rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);
   if ((lane & 3) == 0) {
-    rpart[k * BLK + i0] = rs0;
-    rpart[k * BLK + i0 + 8] = rs1;
+    rpart[rp * BLK + i0] = rs0;
+    rpart[rp * BLK + i0 + 8] = rs1;
   }
   // its column partials: the warp's 16 rows (the 8 lane groups), then the
   // 8 warps in a fixed order
@@ -342,16 +406,20 @@ att_scores_kernel(const T* __restrict__ blocks,
     float v = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) v += cs[w * BLK + tid];
-    cpart[k * BLK + tid] = v;
+    cpart[cp * BLK + tid] = v;
   }
 }
 
-// The partials' sums, one CTA of 128 threads per block: CTA b < nb gives
-// dsdst[b] = the row partials of block row b's tiles row_splits[b] ..
-// row_splits[b+1], in order; CTA nb + c gives dssrc[c] = the column
+// The partials' sums, one CTA of 128 threads per 128-row block: CTA b <
+// nb gives dsdst[b] = the row partials of block row b's tiles row_splits[b]
+// .. row_splits[b+1], in order; CTA nb + c gives dssrc[c] = the column
 // partials of the transpose plan's slots of block c, in order, times their
 // scale (a coverage filler, scale 0, is skipped).  Every row is written, 0
-// where no tile adds to it.
+// where no tile adds to it.  QUAD: nb counts 128-row blocks, half h = b %
+// nq of tile row (column) b / nq; a tile's nq partials of that half (over
+// its quadrants' columns, or rows) are summed in order first, then added
+// as the one partial is without QUAD.
+template <bool QUAD>
 __global__ void __launch_bounds__(BLK)
 att_sums_kernel(const float* __restrict__ cpart,
                 const float* __restrict__ rpart,
@@ -360,25 +428,36 @@ att_sums_kernel(const float* __restrict__ cpart,
                 const int32_t* __restrict__ t_sel,
                 const int32_t* __restrict__ t_scale,
                 float* __restrict__ dssrc, float* __restrict__ dsdst,
-                int64_t nb) {
+                int64_t nb, int nq) {
   const int64_t b = blockIdx.x;
   const int tid = threadIdx.x;
+  // the tile's partial of half h: rpart[k][0..nq)[128 h + tid] (cpart
+  // alike), the first without an add
+  const auto part = [&](const float* p, int64_t k, int64_t h) {
+    if (!QUAD) return p[k * BLK + tid];
+    const float* q = p + (k * nq * nq + h) * BLK + tid;
+    float t = q[0];
+    for (int u = 1; u < nq; ++u) t += q[static_cast<int64_t>(u) * nq * BLK];
+    return t;
+  };
   float v = 0.f;
   if (b < nb) {
-    const int hi = row_splits[b + 1];
-    for (int k = row_splits[b]; k < hi; ++k) {
-      v += rpart[static_cast<int64_t>(k) * BLK + tid];
+    const int64_t r = QUAD ? b / nq : b;
+    const int hi = row_splits[r + 1];
+    for (int k = row_splits[r]; k < hi; ++k) {
+      v += part(rpart, k, QUAD ? b % nq : 0);
     }
     dsdst[b * BLK + tid] = v;
     return;
   }
   const int64_t c = b - nb;
-  const int hi = t_splits[c + 1];
-  for (int k = t_splits[c]; k < hi; ++k) {
+  const int64_t ct = QUAD ? c / nq : c;
+  const int hi = t_splits[ct + 1];
+  for (int k = t_splits[ct]; k < hi; ++k) {
     const int32_t sc = t_scale[k];
     if (sc == 0) continue;
-    v = fmaf(static_cast<float>(sc),
-             cpart[static_cast<int64_t>(t_sel[k]) * BLK + tid], v);
+    v = fmaf(static_cast<float>(sc), part(cpart, t_sel[k], QUAD ? c % nq : 0),
+             v);
   }
   dssrc[c * BLK + tid] = v;
 }
@@ -390,7 +469,9 @@ att_sums_kernel(const float* __restrict__ cpart,
 // the CTA's own block once, the slot's partner block with each tile's slab
 // (cp.async, 4 bytes a thread).  Entry (i, j) of a tile is (row0 + o,
 // lane + 32m) in the rows orientation, (lane + 32m, row0 + o) in the
-// columns orientation.
+// columns orientation.  Blocks here are 128-row blocks: under QUAD the
+// walk passes the CTA's output block and the current quadrant's partner
+// slab, so (i, j) are entries of that quadrant.
 namespace att {
 
 constexpr int BLK = sparse::BLK;
@@ -478,21 +559,32 @@ struct DxScores {
 
 namespace {
 
-// the entries' launches, T the tile type (float or __nv_bfloat16)
+// the entries' launches, T the tile type (float or __nv_bfloat16); block,
+// the tile edge, a multiple of 128: nq = block / 128 above 1 takes the
+// QUAD forms, 1 the kernels as they were
+bool bad_edge(int64_t block) { return block < BLK || block % BLK; }
+
 template <class T>
 int rowmax(const void* blocks, const void* row_splits, const void* cols,
            const void* ssrc, const void* sdst, void* out,
-           int64_t num_row_blocks, float slope, void* stream) {
-  if (num_row_blocks > 0x7fffffff) {
+           int64_t num_row_blocks, int64_t block, float slope,
+           void* stream) {
+  if (bad_edge(block)) return static_cast<int>(cudaErrorInvalidValue);
+  const int nq = static_cast<int>(block / BLK);
+  const int64_t ctas = num_row_blocks * nq;
+  if (ctas > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  if (num_row_blocks > 0) {
-    att_rowmax_kernel<T><<<static_cast<unsigned>(num_row_blocks), THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  if (ctas > 0) {
+    const auto kernel = nq > 1 ? att_rowmax_kernel<T, true>
+                               : att_rowmax_kernel<T, false>;
+    kernel<<<static_cast<unsigned>(ctas), THREADS, 0,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(blocks),
         static_cast<const int32_t*>(row_splits),
         static_cast<const int32_t*>(cols), static_cast<const float*>(ssrc),
-        static_cast<const float*>(sdst), static_cast<float*>(out), slope);
+        static_cast<const float*>(sdst), static_cast<float*>(out), slope,
+        nq);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -501,8 +593,10 @@ template <class T>
 int walk(const void* blocks, const void* splits, const void* sel,
          const void* scale, const void* cols, const void* ssrc,
          const void* sdst, const void* m, const void* x, void* out,
-         void* den, int64_t num_row_blocks, int64_t feat, int trans,
-         float slope, void* stream) {
+         void* den, int64_t num_row_blocks, int64_t feat, int64_t block,
+         int trans, float slope, void* stream) {
+  if (bad_edge(block)) return static_cast<int>(cudaErrorInvalidValue);
+  const int nq = static_cast<int>(block / BLK);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* b = static_cast<const T*>(blocks);
   const auto* sp = static_cast<const int32_t*>(splits);
@@ -513,45 +607,50 @@ int walk(const void* blocks, const void* splits, const void* sel,
   const auto* xp = static_cast<const float*>(x);
   auto* op = static_cast<float*>(out);
   if (trans) {
-    return static_cast<int>(sparse::launch<true, false, false>(
+    return static_cast<int>(sparse::launch<true, false, false, false, true>(
         b, sp, static_cast<const int32_t*>(sel),
         static_cast<const int32_t*>(scale), c, xp, nullptr, op,
-        num_row_blocks, feat, st, att::DxScores{ss, sd, mm, slope}));
+        num_row_blocks, feat, st, att::DxScores{ss, sd, mm, slope}, nq));
   }
-  return static_cast<int>(sparse::launch<false, false, false>(
+  return static_cast<int>(sparse::launch<false, false, false, false, true>(
       b, sp, nullptr, nullptr, c, xp, nullptr, op, num_row_blocks, feat, st,
-      att::FwdScores{ss, sd, mm, static_cast<float*>(den), slope}));
+      att::FwdScores{ss, sd, mm, static_cast<float*>(den), slope}, nq));
 }
 
 template <class T>
 int scores(const void* blocks, const void* rows, const void* cols,
            const void* ssrc, const void* sdst, const void* m,
            const void* dden, const void* g, const void* x, void* cpart,
-           void* rpart, int64_t num_tiles, int64_t feat, float slope,
-           void* stream) {
-  if (feat <= 0 || feat > MAX_F) {
+           void* rpart, int64_t num_tiles, int64_t feat, int64_t block,
+           float slope, void* stream) {
+  if (feat <= 0 || feat > MAX_F || bad_edge(block)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_tiles > 0x7fffffff) {
+  const int nq = static_cast<int>(block / BLK);
+  const int64_t ctas = num_tiles * nq * nq;
+  if (ctas > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  if (num_tiles > 0) {
+  if (ctas > 0) {
     const bool vec = reinterpret_cast<uintptr_t>(g) % 16 == 0
                      && reinterpret_cast<uintptr_t>(x) % 16 == 0
                      && feat % 4 == 0;
-    const auto kernel = vec ? att_scores_kernel<true, T>
-                            : att_scores_kernel<false, T>;
+    const auto kernel =
+        nq > 1 ? (vec ? att_scores_kernel<true, T, true>
+                      : att_scores_kernel<false, T, true>)
+               : (vec ? att_scores_kernel<true, T, false>
+                      : att_scores_kernel<false, T, false>);
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SC_SMEM);
     if (set != cudaSuccess) return static_cast<int>(set);
-    kernel<<<static_cast<unsigned>(num_tiles), THREADS, SC_SMEM,
+    kernel<<<static_cast<unsigned>(ctas), THREADS, SC_SMEM,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(blocks), static_cast<const int32_t*>(rows),
         static_cast<const int32_t*>(cols), static_cast<const float*>(ssrc),
         static_cast<const float*>(sdst), static_cast<const float*>(m),
         static_cast<const float*>(dden), static_cast<const float*>(g),
         static_cast<const float*>(x), static_cast<float*>(cpart),
-        static_cast<float*>(rpart), feat, slope);
+        static_cast<float*>(rpart), feat, slope, nq);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -559,37 +658,41 @@ int scores(const void* blocks, const void* rows, const void* cols,
 }  // namespace
 
 // Each of the next three entries has a twin ending in _bf16 that takes
-// blocks (K,128,128) bf16 in place of f32, with the same other operands.
+// blocks (K,block,block) bf16 in place of f32, with the same other
+// operands.  block, the tile edge, is a multiple of 128 (else
+// cudaErrorInvalidValue, nothing launched); above 128 each tile is walked
+// as 128-wide quadrants, at 128 the kernels are the forms without QUAD.
 
-// blocks (K,128,128) f32, 16-byte aligned; row_splits (num_row_blocks+1,)
-// int32 tile range per block row; cols (K,) int32; ssrc, sdst, out
-// (num_row_blocks*128,) f32; all contiguous.  Returns cudaGetLastError()
-// after the launch.
+// blocks (K,block,block) f32, 16-byte aligned; row_splits
+// (num_row_blocks+1,) int32 tile range per tile row; cols (K,) int32;
+// ssrc, sdst, out (num_row_blocks*block,) f32; all contiguous.  Returns
+// cudaErrorInvalidConfiguration when the grid (num_row_blocks*block/128
+// CTAs) would exceed 2^31 - 1, else cudaGetLastError() after the launch.
 extern "C" int fitgnn_att_rowmax(const void* blocks, const void* row_splits,
                                  const void* cols, const void* ssrc,
                                  const void* sdst, void* out,
-                                 int64_t num_row_blocks, float slope,
-                                 void* stream) {
+                                 int64_t num_row_blocks, int64_t block,
+                                 float slope, void* stream) {
   return rowmax<float>(blocks, row_splits, cols, ssrc, sdst, out,
-                       num_row_blocks, slope, stream);
+                       num_row_blocks, block, slope, stream);
 }
 
 extern "C" int fitgnn_att_rowmax_bf16(const void* blocks,
                                       const void* row_splits,
                                       const void* cols, const void* ssrc,
                                       const void* sdst, void* out,
-                                      int64_t num_row_blocks, float slope,
-                                      void* stream) {
+                                      int64_t num_row_blocks, int64_t block,
+                                      float slope, void* stream) {
   return rowmax<__nv_bfloat16>(blocks, row_splits, cols, ssrc, sdst, out,
-                               num_row_blocks, slope, stream);
+                               num_row_blocks, block, slope, stream);
 }
 
 // The walk: trans == 0 is the forward (splits = row_splits, sel = scale =
-// null, cols the input blocks, x the features, den (n,) f32 or null);
+// null, cols the input tiles, x the features, den (n,) f32 or null);
 // trans != 0 the dx walk of the transpose plan (splits = t_row_splits,
 // sel = t_sel, scale = t_scale, cols = t_cols, x = g, den null).  blocks
-// (K,128,128) f32, 16-byte aligned; ssrc, sdst, m (n,) f32; x, out (n,
-// feat) f32 with n = num_row_blocks*128; all contiguous.  Returns
+// (K,block,block) f32, 16-byte aligned; ssrc, sdst, m (n,) f32; x, out
+// (n, feat) f32 with n = num_row_blocks*block; all contiguous.  Returns
 // cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
 // else cudaGetLastError() after the launch.
 extern "C" int fitgnn_att_walk(const void* blocks, const void* splits,
@@ -597,10 +700,11 @@ extern "C" int fitgnn_att_walk(const void* blocks, const void* splits,
                                const void* cols, const void* ssrc,
                                const void* sdst, const void* m, const void* x,
                                void* out, void* den, int64_t num_row_blocks,
-                               int64_t feat, int trans, float slope,
-                               void* stream) {
+                               int64_t feat, int64_t block, int trans,
+                               float slope, void* stream) {
   return walk<float>(blocks, splits, sel, scale, cols, ssrc, sdst, m, x,
-                     out, den, num_row_blocks, feat, trans, slope, stream);
+                     out, den, num_row_blocks, feat, block, trans, slope,
+                     stream);
 }
 
 extern "C" int fitgnn_att_walk_bf16(const void* blocks, const void* splits,
@@ -609,18 +713,22 @@ extern "C" int fitgnn_att_walk_bf16(const void* blocks, const void* splits,
                                     const void* sdst, const void* m,
                                     const void* x, void* out, void* den,
                                     int64_t num_row_blocks, int64_t feat,
-                                    int trans, float slope, void* stream) {
+                                    int64_t block, int trans, float slope,
+                                    void* stream) {
   return walk<__nv_bfloat16>(blocks, splits, sel, scale, cols, ssrc, sdst, m,
-                             x, out, den, num_row_blocks, feat, trans, slope,
-                             stream);
+                             x, out, den, num_row_blocks, feat, block, trans,
+                             slope, stream);
 }
 
 // The score-gradient pass: the column partials cpart and the row partials
-// rpart (K, 128) f32 of every forward tile k (rows block rows[k], columns
-// block cols[k]).  blocks (K,128,128) f32, 16-byte aligned; ssrc, sdst, m,
-// dden (n,) f32; g, x (n, feat) f32 with 0 < feat <= 512; rows, cols (K,)
-// int32; all contiguous.  Returns cudaErrorInvalidValue for another feat,
-// cudaErrorInvalidConfiguration when num_tiles exceeds 2^31 - 1, else
+// rpart (K, nq, block) f32, nq = block / 128, of every forward tile k
+// (rows tile rows[k], columns tile cols[k]): rpart[k][qj][i] the row sums
+// of d_raw over the columns of quadrant column qj, cpart[k][qi][j] its
+// column sums over the rows of quadrant row qi ((K, 128) at block 128).
+// blocks (K,block,block) f32, 16-byte aligned; ssrc, sdst, m, dden (n,)
+// f32; g, x (n, feat) f32 with 0 < feat <= 512; rows, cols (K,) int32; all
+// contiguous.  Returns cudaErrorInvalidValue for another feat,
+// cudaErrorInvalidConfiguration when num_tiles nq^2 exceeds 2^31 - 1, else
 // cudaGetLastError() after the launch.
 extern "C" int fitgnn_att_scores(const void* blocks, const void* rows,
                                  const void* cols, const void* ssrc,
@@ -628,9 +736,9 @@ extern "C" int fitgnn_att_scores(const void* blocks, const void* rows,
                                  const void* dden, const void* g,
                                  const void* x, void* cpart, void* rpart,
                                  int64_t num_tiles, int64_t feat,
-                                 float slope, void* stream) {
+                                 int64_t block, float slope, void* stream) {
   return scores<float>(blocks, rows, cols, ssrc, sdst, m, dden, g, x, cpart,
-                       rpart, num_tiles, feat, slope, stream);
+                       rpart, num_tiles, feat, block, slope, stream);
 }
 
 extern "C" int fitgnn_att_scores_bf16(const void* blocks, const void* rows,
@@ -639,33 +747,43 @@ extern "C" int fitgnn_att_scores_bf16(const void* blocks, const void* rows,
                                       const void* dden, const void* g,
                                       const void* x, void* cpart, void* rpart,
                                       int64_t num_tiles, int64_t feat,
-                                      float slope, void* stream) {
+                                      int64_t block, float slope,
+                                      void* stream) {
   return scores<__nv_bfloat16>(blocks, rows, cols, ssrc, sdst, m, dden, g, x,
-                               cpart, rpart, num_tiles, feat, slope, stream);
+                               cpart, rpart, num_tiles, feat, block, slope,
+                               stream);
 }
 
-// dssrc and dsdst (n,) f32 from the pass's partials (K, 128) f32: the row
-// partials over row_splits (nb + 1), the column partials over the
-// transpose plan (t_row_splits, t_sel, t_scale); int32, all contiguous.
-// Returns cudaErrorInvalidConfiguration when 2 num_row_blocks exceeds
-// 2^31 - 1, else cudaGetLastError() after the launch.
+// dssrc and dsdst (n,) f32 from the pass's partials (K, nq, block) f32:
+// the row partials over row_splits (num_row_blocks + 1), the column
+// partials over the transpose plan (t_row_splits, t_sel, t_scale); int32,
+// all contiguous; n = num_row_blocks*block.  Returns cudaErrorInvalidValue
+// for a block that is not a multiple of 128, cudaErrorInvalidConfiguration
+// when 2 n / 128 exceeds 2^31 - 1, else cudaGetLastError() after the
+// launch.
 extern "C" int fitgnn_att_sums(const void* cpart, const void* rpart,
                                const void* row_splits, const void* t_splits,
                                const void* t_sel, const void* t_scale,
                                void* dssrc, void* dsdst,
-                               int64_t num_row_blocks, void* stream) {
-  if (2 * num_row_blocks > 0x7fffffff) {
+                               int64_t num_row_blocks, int64_t block,
+                               void* stream) {
+  if (bad_edge(block)) return static_cast<int>(cudaErrorInvalidValue);
+  const int nq = static_cast<int>(block / BLK);
+  const int64_t nb = num_row_blocks * nq;        // 128-row blocks
+  if (2 * nb > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  if (num_row_blocks > 0) {
-    att_sums_kernel<<<static_cast<unsigned>(2 * num_row_blocks), BLK, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  if (nb > 0) {
+    const auto kernel = nq > 1 ? att_sums_kernel<true>
+                               : att_sums_kernel<false>;
+    kernel<<<static_cast<unsigned>(2 * nb), BLK, 0,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(cpart), static_cast<const float*>(rpart),
         static_cast<const int32_t*>(row_splits),
         static_cast<const int32_t*>(t_splits),
         static_cast<const int32_t*>(t_sel),
         static_cast<const int32_t*>(t_scale), static_cast<float*>(dssrc),
-        static_cast<float*>(dsdst), num_row_blocks);
+        static_cast<float*>(dsdst), nb, nq);
   }
   return static_cast<int>(cudaGetLastError());
 }

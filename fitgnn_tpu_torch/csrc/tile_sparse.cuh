@@ -174,11 +174,18 @@
 // flight while the current one is applied.  Under DIAG a CTA walks the nq
 // quadrants of one tile, so its slab copies start after each vote as in
 // the other walks.  QUAD is a template flag: at E = 128 (nq = 1) the walk
-// is the code above, unchanged; only the launches of K1, K2, K9, K8, K4 and
-// K4T (the Plain hook) build a QUAD form.  K4T is the one columns walk over
-// quadrants outside DIAG: its slots' sel, scale and column tiles count in E
-// as the other indices do, and a scale-0 slot skips all nq of its
-// quadrants.
+// is the code above, unchanged; the launches of K1, K2, K9, K8, K4 and K4T
+// (the Plain hook) and of K7f and K7bt's dx (att_bsr.cu's hooks) build a
+// QUAD form.  The columns walk over quadrants outside DIAG (K4T, K7bt's
+// dx): its slots' sel, scale and column tiles count in E as the other
+// indices do, and a scale-0 slot skips all nq of its quadrants.  A hook's
+// operands are 128-row score slices, so under QUAD its begin and finish
+// take the CTA's 128-row output block (ob = r nq + h), not the tile row r,
+// and its tile step the partner's 128-row slab of the current quadrant
+// (cols[k] nq + q, the slab that start_slab copies beside it): in the rows
+// orientation the columns of quadrant (h, q), in the columns orientation
+// the forward rows of quadrant (q, h).  Without QUAD both are r and
+// cols[k], as they were.
 
 #pragma once
 
@@ -497,9 +504,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
 // ROUND_X rounds the X slab to bf16 before the products (bf16 tiles only).
 // QUAD: the tiles are (K, E, E), E = nq * 128 (nq > 1), and every index
 // above (block rows, cols, the diagonal blocks) counts in E; the walk
-// takes each tile as its nq x nq quadrants (Plain only: K1, K2, K9, K8,
-// K4 and K4T).  Without QUAD,
-// nq is 1 and unread.
+// takes each tile as its nq x nq quadrants, and the hook sees 128-row
+// blocks (its begin and finish the output block, its tile step the
+// quadrant's partner slab).  Without QUAD, nq is 1 and unread.
 template <bool TRANS, bool INIT, bool VEC, bool DIAG, class V, class T,
           bool ROUND_X, bool QUAD>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -511,8 +518,6 @@ walk_kernel(const T* __restrict__ blocks,
             const float* __restrict__ x, const float* __restrict__ init,
             float* __restrict__ out, int64_t feat, int64_t slices, V val,
             int nq) {
-  static_assert(!QUAD || std::is_same<V, Plain>::value,
-                "the quadrant walk takes no value hook");
   extern __shared__ __align__(16) float smem[];
   float* as = smem;                             // the swizzled tile
   float* xs = smem + BLK * BLK;                 // the X slab
@@ -538,7 +543,7 @@ walk_kernel(const T* __restrict__ blocks,
       for (int f = 0; f < FL; ++f) acc[i][f] = 0.f;
     }
   }
-  val.begin(hs, r, tid);
+  val.begin(hs, ob, tid);
 
   // a slot's indices, read one step before they are used, so no load of
   // the walk waits on a load of an index
@@ -588,14 +593,17 @@ walk_kernel(const T* __restrict__ blocks,
     const bool live = __syncthreads_or(any);
     if (live) {
       ch.store(as, warp, lane);
-      val.tile(hs, c0.col, tid);
       if (QUAD) {
-        start_slab<VEC>(
-            xs, x + (static_cast<int64_t>(c0.col) * nq + quad) * BLK * feat,
-            f0, feat, tid);
-      } else if (!DIAG) {
-        start_slab<VEC>(xs, x + static_cast<int64_t>(c0.col) * BLK * feat,
-                        f0, feat, tid);
+        // the partner's 128-row slab of this quadrant, for the hook too
+        const int64_t slab = static_cast<int64_t>(c0.col) * nq + quad;
+        val.tile(hs, slab, tid);
+        start_slab<VEC>(xs, x + slab * BLK * feat, f0, feat, tid);
+      } else {
+        val.tile(hs, c0.col, tid);
+        if (!DIAG) {
+          start_slab<VEC>(xs, x + static_cast<int64_t>(c0.col) * BLK * feat,
+                          f0, feat, tid);
+        }
       }
     }
     const float st = c0.s;
@@ -655,7 +663,7 @@ walk_kernel(const T* __restrict__ blocks,
   }
   if (DIAG) cp_async_wait<0>();                 // a block without a non-zero
   store_rows(acc, out, ob, f0, row0, lane, feat);
-  val.finish(r, f0, row0, lane);
+  val.finish(ob, f0, row0, lane);
 }
 
 // Launches the walk on the flat grid of num_row_blocks * quads *
@@ -664,8 +672,8 @@ walk_kernel(const T* __restrict__ blocks,
 // unused); under DIAG over the diagonal blocks (the index arrays unused);
 // nothing when either count is 0.  quads: the tiles' edge over 128
 // (num_row_blocks counts tile rows of that edge); above 1 the quadrant
-// walk, which only a launch with QUAD builds (Plain only: K1, K2, K9, K8,
-// K4, K4T).
+// walk, which only a launch with QUAD builds (K1, K2, K9, K8, K4, K4T,
+// K7f and K7bt's dx).
 // Returns cudaErrorInvalidValue for quads < 1, or > 1 without QUAD,
 // cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
 // else cudaGetLastError() after the launch.  The vector slab copy is

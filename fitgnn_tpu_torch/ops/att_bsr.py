@@ -39,11 +39,13 @@ plain PyTorch version (``*_plain``: materialised tiles, ``bmm`` and
 ``index_add_``) on CPU tensors.  ``<wrapper>.launches`` counts kernel
 launches.
 
-The plain versions take tiles of any edge (the JAX package's
-``build_hybrid(block=E)``; ``ops/tile_gat.py``'s exact max without
-``FUSED_TILES`` runs ``att_rowmax_plain`` at E on any device); the CUDA
-wrappers take 128-wide tiles only and refuse any other (``ValueError``):
-the fused path at another edge is not ported (ROADMAP.md §2).
+Tiles of any edge E that is a multiple of 128 (the JAX package's
+``build_hybrid(block=E, semantics="att_unit")``): the kernels take E from
+the tiles' shape and walk an E-wide tile as 128-wide quadrants (the
+source note says how); the score pass's partials are then (K, nq·E), nq =
+E / 128 (``att_scores_plain``).  Every wrapper refuses another edge with
+``ValueError``, on the CPU too.  ``ops/tile_gat.py``'s exact max without
+``FUSED_TILES`` runs ``att_rowmax_plain`` at E on any device.
 
 bf16 tiles (``train --hybrid_bf16_tiles``): the tiles are GAT's 0/1 mask,
 exact in bf16, so only their type changes; ``pe``, ``x``, ``g`` and every
@@ -57,12 +59,13 @@ ending in ``_bf16``) and count those in ``<wrapper>.launches_bf16``.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from fitgnn_tpu_torch.ops import kernels
 from fitgnn_tpu_torch.ops.bsr_dynamic import DynPlan
-from fitgnn_tpu_torch.ops.bsr_spmm import BLOCK
+from fitgnn_tpu_torch.ops.bsr_spmm import BLOCK, check_block
 
 NEG = -1e30
 MAX_F = 512
@@ -165,34 +168,60 @@ def att_bwd_f_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst, m, g, x,
     """``dsdst``: the row sums of ``d_raw`` on the forward walk."""
     rpart = att_scores_plain(rows, cols, plan, blocks, ssrc, sdst, m, g, x,
                              dden, slope)[1]
-    return _sum_by_block(rpart, rows, x.shape[0] // blocks.shape[-1])
+    b = blocks.shape[-1]
+    return _sum_by_block(_tile_sums(rpart), rows, x.shape[0] // b)
 
 
 def att_scores_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst, m, g, x,
                      dden, slope: float) -> tuple:
-    """The score-gradient pass: ``(cpart, rpart)``, the column sums and the
-    row sums of each forward tile's ``d_raw``, (K, b) each."""
+    """The score-gradient pass: ``(cpart, rpart)``, each forward tile's
+    ``d_raw`` summed over one 128-wide quadrant slice of an axis, (K, nq·b)
+    each for tiles of edge b = 128·nq: ``rpart[k, qj·b + i]`` row ``i``'s
+    sum over the columns of quadrant column ``qj``, ``cpart[k, qi·b + j]``
+    column ``j``'s over the rows of quadrant row ``qi`` (at b = 128 the
+    tile's row and column sums, (K, 128))."""
     b = blocks.shape[-1]
+    nq = b // BLOCK
     mask, raw, pe = _tile_pe(blocks, ssrc, sdst, m, rows, cols, slope)
     d_raw = _d_raw(mask, raw, pe, _slabs(g, rows, b).float(),
                    _slabs(x, cols, b).float(), _slabs(dden, rows, b), slope)
-    return d_raw.sum(dim=1), d_raw.sum(dim=2)
+    k = d_raw.shape[0]
+    cpart = d_raw.reshape(k, nq, BLOCK, b).sum(dim=2)
+    rpart = d_raw.reshape(k, b, nq, BLOCK).sum(dim=3).transpose(1, 2)
+    return cpart.reshape(k, nq * b), rpart.reshape(k, nq * b)
+
+
+def _part_edge(what: str, part) -> int:
+    """The tile edge b of partials (K, nq·b), b = 128·nq."""
+    nq = math.isqrt(part.shape[-1] // BLOCK) if part.dim() == 2 else 0
+    if nq < 1 or part.shape[-1] != nq * nq * BLOCK:
+        raise ValueError(f"{what}: partials {tuple(part.shape)} must be "
+                         f"(K, nq·E) with E = nq·{BLOCK}, a multiple of "
+                         f"{BLOCK}")
+    return nq * BLOCK
+
+
+def _tile_sums(part) -> torch.Tensor:
+    """A tile's full row (column) sums, (K, b), from its nq partials."""
+    b = _part_edge("att_sums", part)
+    return part.reshape(part.shape[0], -1, b).sum(dim=1)
 
 
 def att_sums_plain(plan: DynPlan, cpart, rpart) -> tuple:
     """``(dssrc, dsdst)`` from the pass's partials: ``dssrc[c] = Σ
     scale·cpart[t_sel]`` over the transpose plan's slots of block ``c`` (a
     coverage filler, scale 0, adds nothing), ``dsdst[r]`` the row partials
-    of block row ``r``'s tiles."""
+    of block row ``r``'s tiles; a tile's nq partials summed first."""
     nb = plan.row_splits.shape[0] - 1
+    csum, rsum = _tile_sums(cpart), _tile_sums(rpart)
     sc = plan.t_scale[:, None]
-    vals = torch.where(sc != 0, sc.to(cpart.dtype)
-                       * cpart.index_select(0, plan.t_sel.long()), 0.0)
+    vals = torch.where(sc != 0, sc.to(csum.dtype)
+                       * csum.index_select(0, plan.t_sel.long()), 0.0)
     rows = torch.repeat_interleave(
         torch.arange(nb, device=rpart.device),
         (plan.row_splits[1:] - plan.row_splits[:-1]).long())
     return (_sum_by_block(vals, plan.t_rows, nb),
-            _sum_by_block(rpart, rows, nb))
+            _sum_by_block(rsum, rows, nb))
 
 
 def att_bwd_scores_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst, m, g,
@@ -206,20 +235,22 @@ def att_bwd_scores_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst, m, g,
                             dden, slope))
 
 
-# blocks, row_splits, cols, ssrc, sdst, out, num_row_blocks, slope, stream
-_ROWMAX_ARGTYPES = ([ctypes.c_void_p] * 6
-                    + [ctypes.c_int64, ctypes.c_float, ctypes.c_void_p])
+# blocks, row_splits, cols, ssrc, sdst, out, num_row_blocks, block, slope,
+# stream
+_ROWMAX_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
+                    + [ctypes.c_float, ctypes.c_void_p])
 # blocks, splits, sel, scale, cols, ssrc, sdst, m, x, out, den,
-# num_row_blocks, feat, trans, slope, stream
-_WALK_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 2
+# num_row_blocks, feat, block, trans, slope, stream
+_WALK_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3
                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 # blocks, rows, cols, ssrc, sdst, m, dden, g, x, cpart, rpart, num_tiles,
-# feat, slope, stream
-_SCORES_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 2
+# feat, block, slope, stream
+_SCORES_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3
                     + [ctypes.c_float, ctypes.c_void_p])
 # cpart, rpart, row_splits, t_row_splits, t_sel, t_scale, dssrc, dsdst,
-# num_row_blocks, stream
-_SUMS_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_void_p]
+# num_row_blocks, block, stream
+_SUMS_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2
+                  + [ctypes.c_void_p])
 
 _NULL = ctypes.c_void_p(None)
 
@@ -227,26 +258,25 @@ _NULL = ctypes.c_void_p(None)
 def _check(what: str, blocks, splits, vectors: dict, feats: dict = None,
            ints: dict = None) -> torch.device:
     """Validate the operands of a K7 launch (``splits`` is the walk's CSR
-    over the block rows); returns their device."""
+    over the tile rows); returns their device."""
     n = next(iter(vectors.values())).shape[0]
     dev = blocks.device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
+    e = _edge(what, blocks)
     kernels.require(splits, "splits", torch.int32, dev)
-    if splits.shape[0] != n // BLOCK + 1:
+    if n % e:
+        raise ValueError(f"{what}: {n} nodes is not a multiple of the tile "
+                         f"edge {e}")
+    if splits.shape[0] != n // e + 1:
         raise ValueError(f"{what}: {splits.shape[0]} splits for "
-                         f"{n // BLOCK} block rows")
+                         f"{n // e} tile rows")
     if blocks.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{what}: blocks must be f32 or bf16, got "
                          f"{blocks.dtype}")
     kernels.require(blocks, "blocks", blocks.dtype, dev)
-    if blocks.dim() != 3 or blocks.shape[1:] != (BLOCK, BLOCK):
-        raise ValueError(f"{what}: blocks {tuple(blocks.shape)} must be "
-                         f"(K, {BLOCK}, {BLOCK})")
     if blocks.data_ptr() % 16:
         raise ValueError(f"{what}: blocks must be 16-byte aligned")
-    if n % BLOCK:
-        raise ValueError(f"{what}: {n} nodes is not a multiple of {BLOCK}")
     for name, v in vectors.items():
         kernels.require(v, name, torch.float32, dev)
         if v.shape != (n,):
@@ -268,6 +298,15 @@ def _check(what: str, blocks, splits, vectors: dict, feats: dict = None,
     return dev
 
 
+def _edge(what: str, blocks) -> int:
+    """The tiles' edge E: (K, E, E) with E a positive multiple of 128."""
+    if blocks.dim() != 3 or blocks.shape[1] != blocks.shape[2]:
+        raise ValueError(f"{what}: blocks {tuple(blocks.shape)} must be "
+                         "(K, E, E)")
+    check_block(blocks.shape[-1])
+    return blocks.shape[-1]
+
+
 def att_rowmax(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
                blocks: torch.Tensor, ssrc: torch.Tensor, sdst: torch.Tensor,
                slope: float) -> torch.Tensor:
@@ -276,6 +315,7 @@ def att_rowmax(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     version on a CPU tensor.  ``rows`` sorted, walked by
     ``plan.row_splits``."""
     if ssrc.device.type == "cpu":
+        _edge("att_rowmax", blocks)
         return att_rowmax_plain(rows, cols, plan, blocks, ssrc, sdst, slope)
     dev = _check("att_rowmax", blocks, plan.row_splits,
                  dict(ssrc=ssrc, sdst=sdst), ints=dict(cols=cols))
@@ -286,7 +326,7 @@ def att_rowmax(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
         rc = launch(kernels.ptr(blocks), kernels.ptr(plan.row_splits),
                     kernels.ptr(cols), kernels.ptr(ssrc), kernels.ptr(sdst),
                     kernels.ptr(out), plan.row_splits.shape[0] - 1,
-                    float(slope), kernels.stream(dev))
+                    blocks.shape[-1], float(slope), kernels.stream(dev))
     kernels.check(rc, "att_rowmax")
     kernels.count(att_rowmax, blocks)
     return out
@@ -307,16 +347,18 @@ def _launch_walk(what, dev, blocks, splits, sel, scale, cols, ssrc, sdst, m,
                     _ptr(scale), kernels.ptr(cols), kernels.ptr(ssrc),
                     kernels.ptr(sdst), kernels.ptr(m), kernels.ptr(x),
                     kernels.ptr(out), _ptr(den), splits.shape[0] - 1,
-                    x.shape[1], int(trans), float(slope), kernels.stream(dev))
+                    x.shape[1], blocks.shape[-1], int(trans), float(slope),
+                    kernels.stream(dev))
     kernels.check(rc, what)
     return out
 
 
 def _launch_scores(what, dev, blocks, rows, cols, ssrc, sdst, m, g, x, dden,
                    slope: float) -> tuple:
-    """One launch of the score-gradient pass: ``(cpart, rpart)``, (K, b)
-    each."""
-    cpart, rpart = torch.empty((2, blocks.shape[0], BLOCK),
+    """One launch of the score-gradient pass: ``(cpart, rpart)``, (K, nq·b)
+    each (``att_scores_plain``'s layout)."""
+    b = blocks.shape[-1]
+    cpart, rpart = torch.empty((2, blocks.shape[0], b // BLOCK * b),
                                dtype=torch.float32, device=dev)
     launch = kernels.function("att_bsr", kernels.entry("fitgnn_att_scores", blocks),
                               _SCORES_ARGTYPES)
@@ -325,7 +367,7 @@ def _launch_scores(what, dev, blocks, rows, cols, ssrc, sdst, m, g, x, dden,
                     kernels.ptr(ssrc), kernels.ptr(sdst), kernels.ptr(m),
                     kernels.ptr(dden), kernels.ptr(g), kernels.ptr(x),
                     kernels.ptr(cpart), kernels.ptr(rpart), blocks.shape[0],
-                    x.shape[1], float(slope), kernels.stream(dev))
+                    x.shape[1], b, float(slope), kernels.stream(dev))
     kernels.check(rc, what)
     return cpart, rpart
 
@@ -337,6 +379,7 @@ def att_fwd(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     worked out in the kernel, every row written: the CUDA kernel on a CUDA
     tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
+        _edge("att_fwd", blocks)
         return att_fwd_plain(rows, cols, plan, blocks, ssrc, sdst, m, x,
                              slope)
     dev = _check("att_fwd", blocks, plan.row_splits,
@@ -351,24 +394,25 @@ def att_fwd(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
 def att_sums(plan: DynPlan, cpart: torch.Tensor,
              rpart: torch.Tensor) -> tuple:
     """K7's partial sums: ``(dssrc, dsdst)`` (n,) from the score-gradient
-    pass's column and row partials (K, b), summed over the transpose plan's
-    slots and the forward walk's tiles in order: the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    pass's column and row partials (K, nq·b), summed over the transpose
+    plan's slots and the forward walk's tiles in order: the CUDA kernel on
+    a CUDA tensor, the plain version on a CPU tensor."""
+    b = _part_edge("att_sums", cpart)
+    if rpart.shape != cpart.shape:
+        raise ValueError(f"att_sums: rpart {tuple(rpart.shape)} and cpart "
+                         f"{tuple(cpart.shape)} differ")
     if cpart.device.type == "cpu":
         return att_sums_plain(plan, cpart, rpart)
     dev = cpart.device
     for name, t in (("cpart", cpart), ("rpart", rpart)):
         kernels.require(t, name, torch.float32, dev)
-        if t.shape != cpart.shape or t.dim() != 2 or t.shape[1] != BLOCK:
-            raise ValueError(f"att_sums: {name} {tuple(t.shape)} must be "
-                             f"(K, {BLOCK}), as the other")
     for name in ("row_splits", "t_row_splits", "t_sel", "t_scale"):
         kernels.require(getattr(plan, name), name, torch.int32, dev)
     nb = plan.row_splits.shape[0] - 1
     if plan.t_row_splits.shape[0] != nb + 1:
         raise ValueError("att_sums: the plan's two walks cover "
                          "different block counts")
-    dssrc, dsdst = torch.empty((2, nb * BLOCK), dtype=torch.float32,
+    dssrc, dsdst = torch.empty((2, nb * b), dtype=torch.float32,
                                device=dev)
     launch = kernels.function("att_bsr", "fitgnn_att_sums", _SUMS_ARGTYPES)
     with torch.cuda.device(dev):
@@ -376,7 +420,7 @@ def att_sums(plan: DynPlan, cpart: torch.Tensor,
                     kernels.ptr(plan.row_splits),
                     kernels.ptr(plan.t_row_splits), kernels.ptr(plan.t_sel),
                     kernels.ptr(plan.t_scale), kernels.ptr(dssrc),
-                    kernels.ptr(dsdst), nb, kernels.stream(dev))
+                    kernels.ptr(dsdst), nb, b, kernels.stream(dev))
     kernels.check(rc, "att_sums")
     att_sums.launches += 1
     return dssrc, dsdst
@@ -392,6 +436,7 @@ def att_bwd_scores(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     (counted here; ``rows`` sorted, ``plan.row_splits`` their CSR), then
     ``att_sums`` on its partials; the plain version on a CPU tensor."""
     if x.device.type == "cpu":
+        _edge("att_bwd_scores", blocks)
         return att_bwd_scores_plain(rows, cols, plan, blocks, ssrc, sdst, m,
                                     g, x, dden, slope)
     dev = _check("att_bwd_scores", blocks, plan.row_splits,
@@ -427,6 +472,7 @@ def att_bwd_t(plan: DynPlan, blocks: torch.Tensor, ssrc: torch.Tensor,
     for: on a CUDA tensor the walk kernel for ``dx`` (counted here) and
     ``att_bwd_scores`` for ``dssrc``, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
+        _edge("att_bwd_t", blocks)
         return att_bwd_t_plain(plan, blocks, ssrc, sdst, m, g, x, dden,
                                slope, need_dx, need_dssrc)
     dev = _check("att_bwd_t", blocks, plan.t_row_splits,
@@ -452,6 +498,7 @@ def att_bwd_f(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     """K7bf: ``dsdst`` on the forward walk: ``att_bwd_scores``' second
     output on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
+        _edge("att_bwd_f", blocks)
         return att_bwd_f_plain(rows, cols, plan, blocks, ssrc, sdst, m, g, x,
                                dden, slope)
     return att_bwd_scores(rows, cols, plan, blocks, ssrc, sdst, m, g, x,

@@ -29,10 +29,10 @@ only at exactly ``"1"``):
 
 The tiles may have any edge E that is a multiple of 128
 (``build_hybrid(block=E, semantics="att_unit")``): the two-stage path, the
-exact max and the einsum branch take E from the tiles' shape, and K4, K4ᵀ
-and K5 walk E-wide tiles as 128-wide quadrants.  ``FUSED_TILES=1`` at E ≠
-128 raises ``NotImplementedError`` before any launch: K7's forms at
-another edge are not ported (ROADMAP.md §2).
+exact max and the einsum branch take E from the tiles' shape, K4, K4ᵀ and
+K5 walk E-wide tiles as 128-wide quadrants, and so does the fused path
+(K7rm, K7f, K7bt's ``dx`` and the score pass, ``ops/att_bsr.py``), as the
+JAX package hands ``bsr.block`` to its fused kernels.
 
 The JAX package's diagnostic switches ``FITGNN_GAT_FUSED_BWD``,
 ``_FUSED_SORTED_DH``, ``_SORTED_SRC`` and ``_SORTED_NUM`` (no Pallas
@@ -70,7 +70,6 @@ import torch
 from fitgnn_tpu_torch.ops.att_bsr import MAX_F, att_rowmax, att_rowmax_plain, \
     att_tiles
 from fitgnn_tpu_torch.ops.bsr_dynamic import bsr_spmm_dyn
-from fitgnn_tpu_torch.ops.bsr_spmm import BLOCK
 from fitgnn_tpu_torch.ops.coo_segmm import segmm_weighted_spmm, \
     segmm_weighted_spmm_den
 from fitgnn_tpu_torch.ops.segment import segment_sum, take_rows
@@ -150,13 +149,6 @@ def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
 
     fused = (aux.bsr is not None and aux.dyn_plan is not None and f <= MAX_F
              and sw.fused_tiles)
-    if fused and aux.bsr.block != BLOCK:
-        raise NotImplementedError(
-            f"tile_gat_attention: FITGNN_GAT_FUSED_TILES=1 on tiles of edge "
-            f"{aux.bsr.block}: the fused tile attention (K7rm, K7f, K7bt, "
-            "K7s) takes 128-wide tiles only; its forms at another edge are "
-            "not ported yet (ROADMAP.md §2); unset the switch for the "
-            "two-stage path")
     if sw.global_max:
         # LeakyReLU(sdst[r] + ssrc[s]) ≤ max(0, sdst[r] + max ssrc), one
         # reduction over all rows

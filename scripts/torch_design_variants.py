@@ -173,8 +173,8 @@ def k8_late():
     walk = edited(read("tile_sparse.cuh"), [
         ("  if (DIAG && !QUAD) start_slab<VEC>(xs, x + r * BLK * feat, f0, "
          "feat, tid);\n", ""),
-        ("      } else if (!DIAG) {\n        start_slab<VEC>",
-         "      } else {\n        start_slab<VEC>")])
+        ("        if (!DIAG) {\n          start_slab<VEC>",
+         "        if (true) {\n          start_slab<VEC>")])
     return build_variant("k8_late", {"tile_sparse.cuh": walk,
                                      "diag_spmm.cu": read("diag_spmm.cu")},
                          "diag_spmm.cu", "fitgnn_diag_spmm",
@@ -251,23 +251,23 @@ def k7_per_row():
     walk's ``row_splits`` and ``rpart`` is ``dsdst``."""
     return build_variant("k7_per_row", {
         "att_bsr.cu": edited(read("att_bsr.cu"), [
-            ("  const int64_t k = blockIdx.x;\n  const int64_t r = rows[k];\n"
-             "  const int64_t c = cols[k];\n",
+            ("  const int64_t k = QUAD ? blockIdx.x / (nq * nq) : blockIdx.x;\n",
              "  const int64_t r = blockIdx.x;\n  float rs0 = 0.f, rs1 = 0.f;\n"
-             "  for (int64_t k = rows[r]; k < rows[r + 1]; ++k) {\n"
-             "  const int64_t c = cols[k];\n"),
+             "  for (int64_t k = rows[r]; k < rows[r + 1]; ++k) {\n"),
+            ("  const int64_t r = QUAD ? static_cast<int64_t>(rows[k]) * nq + qi"
+             " : rows[k];\n", ""),
             ("  float rs0 = 0.f, rs1 = 0.f;\n#pragma unroll\n", "#pragma unroll\n"),
             ("""  if ((lane & 3) == 0) {
-    rpart[k * BLK + i0] = rs0;
-    rpart[k * BLK + i0 + 8] = rs1;
+    rpart[rp * BLK + i0] = rs0;
+    rpart[rp * BLK + i0 + 8] = rs1;
   }
 """, ""),
             ("  rs0 += __shfl_xor_sync(0xffffffffu, rs0, 1);\n"
              "  rs0 += __shfl_xor_sync(0xffffffffu, rs0, 2);\n"
              "  rs1 += __shfl_xor_sync(0xffffffffu, rs1, 1);\n"
              "  rs1 += __shfl_xor_sync(0xffffffffu, rs1, 2);\n", ""),
-            ("    cpart[k * BLK + tid] = v;\n  }\n}\n",
-             """    cpart[k * BLK + tid] = v;
+            ("    cpart[cp * BLK + tid] = v;\n  }\n}\n",
+             """    cpart[cp * BLK + tid] = v;
   }
   __syncthreads();
   }
@@ -300,7 +300,9 @@ def k7_mask_global():
     sparse::cp_async16(
         reinterpret_cast<float*>(tt + i * BLK
                                  + PER * ((q % (BLK / PER)) ^ (i & 7))),
-        reinterpret_cast<const float*>(tile + PER * q), 16);
+        reinterpret_cast<const float*>(
+            QUAD ? tile + i * edge + PER * (q % (BLK / PER)) : tile + PER * q),
+        16);
   }
 """, ""),
             ("    const int at = i0 * BLK + PER * ((col / PER) ^ key) + (col % PER);\n"
@@ -393,7 +395,9 @@ _TILE_COPY = """#pragma unroll
     sparse::cp_async16(
         reinterpret_cast<float*>(tt + i * BLK
                                  + PER * ((q % (BLK / PER)) ^ (i & 7))),
-        reinterpret_cast<const float*>(tile + PER * q), 16);
+        reinterpret_cast<const float*>(
+            QUAD ? tile + i * edge + PER * (q % (BLK / PER)) : tile + PER * q),
+        16);
   }
 """
 
@@ -405,11 +409,11 @@ def k7_diagnostic(name: str):
     src = read("att_bsr.cu")
     if name == "no_epilogue":
         a = src.index("  // the accumulator's rows i0 and i0 + 8")
-        b = src.index("    cpart[k * BLK + tid] = v;\n  }\n}\n")
+        b = src.index("    cpart[cp * BLK + tid] = v;\n  }\n}\n")
         src = (src[:a] + "  float v = 0.f;\n#pragma unroll\n"
                "  for (int j = 0; j < 64; ++j) v += d[j];\n"
                "  cpart[k * BLK + (tid & 127)] = v;\n  rpart[k] = ts[tid];\n}\n"
-               + src[b + len("    cpart[k * BLK + tid] = v;\n  }\n}\n"):])
+               + src[b + len("    cpart[cp * BLK + tid] = v;\n  }\n}\n"):])
     else:
         src = edited(src, [
             (_TILE_COPY, ""),
@@ -748,15 +752,16 @@ def main() -> int:
             out, den = torch.empty_like(x), torch.empty_like(ssrc)
             kernels.check(fn(p(blocks), p(plan.row_splits), null, null,
                              p(cols), p(ssrc), p(sdst), p(mg), p(x), p(out),
-                             p(den), NB, feat, 0, 0.2, stream), "k7 fwd")
+                             p(den), NB, feat, 128, 0, 0.2, stream),
+                          "k7 fwd")
             return out, den
 
         def dx(fn):
             out = torch.empty_like(x)
             kernels.check(fn(p(blocks), p(plan.t_row_splits), p(plan.t_sel),
                              p(plan.t_scale), p(plan.t_cols), p(ssrc),
-                             p(sdst), p(mg), p(x), p(out), null, NB, feat, 1,
-                             0.2, stream), "k7 dx")
+                             p(sdst), p(mg), p(x), p(out), null, NB, feat,
+                             128, 1, 0.2, stream), "k7 dx")
             return out
 
         num_p, den_p = att_bsr.att_fwd_plain(rows, cols, plan, blocks, ssrc,
@@ -792,7 +797,8 @@ def main() -> int:
                 cp, rp = torch.empty((2, TILES, 128), device=dev)
                 kernels.check(fn(p(blocks), p(rows), p(cols), p(ssrc),
                                  p(sdst), p(mg), p(dden), p(gr), p(x),
-                                 p(cp), p(rp), TILES, feat, 0.2, stream),
+                                 p(cp), p(rp), TILES, feat, 128, 0.2,
+                                 stream),
                               what)
                 return cp, rp
             return run
@@ -802,7 +808,7 @@ def main() -> int:
             dsdst = torch.empty(NB * 128, device=dev)
             kernels.check(per_row(p(blocks), p(plan.row_splits), p(cols),
                                   p(ssrc), p(sdst), p(mg), p(dden), p(gr),
-                                  p(x), p(cp), p(dsdst), NB, feat, 0.2,
+                                  p(x), p(cp), p(dsdst), NB, feat, 128, 0.2,
                                   stream), "k7 per row")
             return cp, dsdst
 

@@ -3,6 +3,7 @@
 on one GPU: a cheap way to compare two checkouts on one card.
 
     python3 scripts/torch_kernel_rows.py [CHECKOUT] [--edge256] [--gat]
+        [--fused]
 
 CHECKOUT (default: this repository) is the root of the checkout whose
 ``chip_smoke.py`` and ``fitgnn_tpu_torch/`` run; its kernels build into its
@@ -16,6 +17,9 @@ K9, K8 and their bf16 forms; a checkout from before that phase has none).
 With ``--gat`` also phase 3's GAT rows (K4, K4ᵀ and K5 on the
 ``att_unit`` operator at F=128 and 512), and with both flags phase 15's
 (K4, K4ᵀ and K5 at tile edge 256, where the checkout has that phase).
+``--fused`` (with ``--gat``) adds phase 3's fused rows (K7rm, K7f, K7bt,
+K7s, K7sums, K6 and K3w), and with ``--edge256`` phase 16's (the K7 forms
+at 256, f32 and bf16, where the checkout has that phase).
 Parent against change, alternated in one call:
 
     for d in build/parent . . build/parent; do
@@ -50,16 +54,26 @@ def main() -> int:
     if "--edge256" in sys.argv:
         shapes.update(cs.phase_block_kernels(device, cs.block_operators(g)))
         ids += [f"{k}@{cs.EDGE}" for k in cs.EDGE_IDS]
+    fused = "--fused" in sys.argv
     if "--gat" in sys.argv:
-        shapes.update(cs.phase_gat_kernels(device, ds, g)[1])
+        g_gat, gat_shapes = cs.phase_gat_kernels(device, ds, g)
+        shapes.update(gat_shapes)
         ids += ["K4", "K4T", "K5"]
+        if fused:
+            for k, v in cs.phase_fused_kernels(device, g_gat).items():
+                shapes.setdefault(k, []).extend(v)
+            ids += ["K7rm", "K7f", "K7bt", "K7s", "K7sums", "K6", "K3w"]
+        del g_gat
         if "--edge256" in sys.argv and hasattr(cs, "gat_block_operators"):
             ops = cs.gat_block_operators(g, ds, order)
             shapes.update(cs.phase_gat_block_kernels(device,
                                                      ops["t48"].aux))
+            if fused and hasattr(cs, "phase_gat_fused_block_kernels"):
+                shapes.update(cs.phase_gat_fused_block_kernels(device, ops))
             ids += [f"{k}@{cs.EDGE}" for k in cs.GAT_EDGE_IDS]
-    rows = {f"{k} {sh.get('shape', 'F=%d' % sh['F'])}": sh["ms"]
-            for k in ids for sh in shapes[k]}
+    rows = {f"{k} {sh.get('shape') or 'F=%s' % sh['F']}"
+            f"{' ' + sh['launch'] if 'launch' in sh else ''}": sh["ms"]
+            for k in ids if k in shapes for sh in shapes[k]}
     print("ROWS " + json.dumps({"checkout": root, "rows": rows}))
     return 0
 

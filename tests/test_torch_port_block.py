@@ -10,9 +10,9 @@ K1's ``init + A·x``; the diagonal blocks (K8) in both orientations, from
 with and without ``use_diag``; one GCN ``gc_train_step``; the tile and
 straggler counts of ``bench.py``'s graph (cut to 20,352 nodes) at 256;
 ``build_ell`` and ``ell_spmm``; ``optimize_coarse`` with ``use_segmm=False``
-and ``tile_group=2``; GAT's operator at 256; and the refusals (an edge
-that is not a multiple of 128, the row walk at 256, GAT's fused tiles at
-256).  The JAX Pallas kernels run in interpret mode; the port's wrappers
+and ``tile_group=2``; GAT's operator at 256 and its fused tile attention
+there; and the refusals (an edge that is not a multiple of 128, the row
+walk at 256).  The JAX Pallas kernels run in interpret mode; the port's wrappers
 take their plain versions because the tensors lie on the CPU.
 
 Tolerance: forward rtol 1e-4 and atol 1e-4·max|ref|, gradients rtol 1e-3
@@ -31,6 +31,7 @@ import jax.numpy as jnp
 from fitgnn_tpu.graph.build import build_graph as jax_build_graph
 from fitgnn_tpu.graph.optimize import optimize_coarse as jax_optimize_coarse
 from fitgnn_tpu.models import NodeModel as JaxNodeModel
+from fitgnn_tpu.ops import tile_gat as jax_tile_gat_mod
 from fitgnn_tpu.ops.ell_spmm import build_ell as jax_build_ell
 from fitgnn_tpu.ops.ell_spmm import ell_spmm as jax_ell_spmm
 from fitgnn_tpu.ops.hybrid_spmm import build_hybrid as jax_build_hybrid
@@ -543,9 +544,10 @@ def test_rowwalk_at_256_raises_as_jax(build):
 
 def test_gat_at_256_raises_naming_the_roadmap(monkeypatch):
     """GAT's operator at 256 builds as the JAX package's: ``att_unit``
-    gives the same tiles, straggler lists and dynamic-tile plan; of GAT's
-    tile kernels at another edge only the fused path (K7) is still not
-    ported, so ``FUSED_TILES=1`` there raises naming ROADMAP.md §2."""
+    gives the same tiles, straggler lists and dynamic-tile plan; and
+    ``FUSED_TILES=1`` there (which raised until K7's forms at another edge
+    were ported) runs the fused tile attention as the JAX package's does,
+    within the forward tolerance."""
     s, r, w = sorted_coo(np.random.default_rng(29), 1024, 6000)
     w = np.ones_like(w)
     kw = dict(min_block_edges=20, block=E, semantics="att_unit")
@@ -562,9 +564,15 @@ def test_gat_at_256_raises_naming_the_roadmap(monkeypatch):
                                       np.asarray(getattr(hj.dyn_plan, name)),
                                       err_msg=name)
     monkeypatch.setenv("FITGNN_GAT_FUSED_TILES", "1")
-    v = torch.zeros(1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §2"):
-        tile_gat_attention(ht, v, v, torch.zeros((1024, 8)), 0.2)
+    monkeypatch.setattr(jax_tile_gat_mod, "_FUSED_TILES", True)
+    rng = np.random.default_rng(30)
+    ss, sd = (rng.standard_normal(1024).astype(np.float32) for _ in range(2))
+    h = rng.standard_normal((1024, 8)).astype(np.float32)
+    ref = jax_tile_gat_mod.tile_gat_attention(
+        hj, jnp.asarray(ss), jnp.asarray(sd), jnp.asarray(h), 0.2)
+    got = tile_gat_attention(ht, torch.from_numpy(ss), torch.from_numpy(sd),
+                             torch.from_numpy(h), 0.2)
+    close(got, ref)
 
 
 def test_node_count_off_the_edge_raises():

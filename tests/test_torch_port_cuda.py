@@ -1649,8 +1649,10 @@ def test_gat_block256_training_on_card_matches_cpu(cuda, monkeypatch,
     ``att_unit`` operator under ``GLOBAL_MAX`` 1 and 0, kernels on the card
     against plain versions on the CPU: K4, K4ᵀ and K5 twice each (at
     hidden 64 < 128 features layer 0 transforms before it aggregates, so
-    its aggregation needs ``dx`` too); then ``FUSED_TILES=1`` raises
-    naming ROADMAP.md §2 and launches nothing."""
+    its aggregation needs ``dx`` too); then the same step under
+    ``FUSED_TILES=1`` (which raised until K7's forms at another edge were
+    ported), on the card against the CPU: K7f, K7bt's ``dx``, K7s and
+    K7sums twice each at 256, and K7rm twice under the exact max."""
     monkeypatch.setenv("FITGNN_GAT_GLOBAL_MAX", "1" if global_max else "0")
     rng = np.random.default_rng(14)
     n, feat = 1920, 128                  # 2,048 rows padded: 8 tiles of 256
@@ -1679,7 +1681,319 @@ def test_gat_block256_training_on_card_matches_cpu(cuda, monkeypatch,
     for k, v in grads_c.items():
         _close(grads_d[k], v)
     monkeypatch.setenv("FITGNN_GAT_FUSED_TILES", "1")
-    before = att_bsr.att_fwd.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §2"):
-        model(gd.x, gd)
-    assert att_bsr.att_fwd.launches == before
+    model = model.cpu()
+    loss_c, grads_c = _grads(model, g, g.y, g.train_mask)
+    model = model.to(cuda)
+    counts = (att_bsr.att_rowmax, att_bsr.att_fwd, att_bsr.att_bwd_t,
+              att_bsr.att_bwd_scores, att_bsr.att_sums)
+    before = tuple(c.launches for c in counts)
+    loss_d, grads_d = _grads(model, gd, gd.y, gd.train_mask)
+    torch.cuda.synchronize()
+    assert tuple(c.launches - b for c, b in zip(counts, before)) == (
+        0 if global_max else 2, 2, 2, 2, 2)
+    _close(loss_d, loss_c)
+    for k, v in grads_c.items():
+        _close(grads_d[k], v)
+
+
+# --- GAT's fused tile attention at edge 256: K7rm, K7f, K7bt, K7s, K7sums ---
+
+def _k7_quad_operands(rng, kernel, case, feat):
+    """K7's operands on 256-wide presence tiles (1,024 nodes: four tile
+    rows), on the CPU, edited by ``case`` as ``_k7_walk_operands`` edits
+    its 128-wide tiles: a sorted tile list covering every tile row whose
+    tile column 2 is never used (the transpose plan's scale-0 filler
+    slot), ~3% fill, quadrant (0, 1) of every tile empty and nodes 0-9
+    without an entry (m = −1e30); the inf's row and the NaN's entry lie in
+    the second 128-wide half (quadrant (1, 1) for the NaN).  ``x`` is the
+    walk's slab operand (K7f's features, K7bt's cotangent g).  Returns the
+    plan, the operands and the row of the inf or the output row of the
+    NaN."""
+    nb = 4
+    rows = np.sort(np.concatenate([np.arange(nb), rng.integers(0, nb, 8)]))
+    cols = rng.choice([0, 1, 3], len(rows))
+    plan = build_dyn_plan(rows, cols, nb)
+    assert plan.t_scale.numpy().tolist().count(0) == 1
+    blocks = (rng.random((len(rows), _EDGE, _EDGE)) < 0.03).astype(
+        np.float32)
+    blocks[:, :128, 128:] = 0.0
+    blocks[rows == 0, :10, :] = 0.0
+    n = nb * _EDGE
+    splits = (plan.row_splits if kernel == "K7f"
+              else plan.t_row_splits).numpy()
+    lo = int(splits[int(np.argmax(np.diff(splits)))])
+    tile = lo + 1 if kernel == "K7f" else int(plan.t_sel[lo])
+    row = None
+    if case == "dense":
+        blocks[tile] = 1.0
+    elif case == "zero_inside":
+        blocks[tile] = 0.0
+    elif case == "edgeless":
+        blocks[rows == 2] = 0.0
+    elif case == "inf_unreached" and kernel == "K7f":
+        blocks[cols == cols[tile], :, 178] = 0.0
+        row = cols[tile] * _EDGE + 178
+    elif case == "inf_unreached":
+        blocks[rows == rows[tile], 178, :] = 0.0
+        row = rows[tile] * _EDGE + 178
+    elif case == "nan":
+        if kernel == "K7f":                 # the one entry of its column
+            blocks[cols == cols[tile], :, 158] = 0.0
+        blocks[tile, 148, 158] = 1.0
+        row = (rows[tile] * _EDGE + 148 if kernel == "K7f"
+               else cols[tile] * _EDGE + 158)
+    ops = {k: torch.from_numpy(v) for k, v in dict(
+        rows=rows.astype(np.int32), cols=cols.astype(np.int32),
+        blocks=blocks,
+        ssrc=rng.standard_normal(n).astype(np.float32),
+        sdst=rng.standard_normal(n).astype(np.float32),
+        x=rng.standard_normal((n, feat)).astype(np.float32),
+        x_other=rng.standard_normal((n, feat)).astype(np.float32),
+        dden=rng.standard_normal(n).astype(np.float32)).items()}
+    ops["m"] = att_bsr.att_rowmax_plain(ops["rows"], ops["cols"], plan,
+                                        ops["blocks"], ops["ssrc"],
+                                        ops["sdst"], 0.2)
+    if case == "inf_unreached":
+        ops["x"][row] = float("inf")
+    elif case == "nan":
+        ops["ssrc"][cols[tile] * _EDGE + 158] = float("nan")
+    return plan, ops, row
+
+
+@pytest.mark.parametrize("feat", [40, 128, 512])
+@pytest.mark.parametrize("case", ["sparse", "dense", "zero_inside",
+                                  "edgeless", "inf_unreached", "nan"])
+@pytest.mark.parametrize("tile_type", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["K7f", "K7bt"])
+def test_k7_quadrant_walks_match_plain(cuda, kernel, tile_type, case, feat):
+    """K7f (``num`` and ``den``) and K7bt's ``dx`` on 256-wide masks,
+    walked as 128-wide quadrants with ``pe`` worked out per non-zero from
+    the quadrant's 128-row score slices, in the cases of
+    ``test_k7_walks_match_plain``: against their plain versions; an inf
+    that only masked-out entries reach leaves the output finite (held
+    against the plain version with that row zeroed), a NaN in ``ssrc``
+    reaches its own output row alone, and every output row that no entry
+    reaches (the filler's tile column 2 among them) is written as 0; the
+    bf16 form bit for bit against the f32 form on the same mask."""
+    rng = np.random.default_rng(feat + 90)
+    plan, ops, row = _k7_quad_operands(rng, kernel, case, feat)
+    plan = plan.to(cuda)
+    d = {k: v.to(cuda) for k, v in ops.items()}
+    bf16 = tile_type == "bf16"
+    tiles = d["blocks"].to(torch.bfloat16) if bf16 else d["blocks"]
+    if kernel == "K7f":
+        def run(fn, x, t):
+            num, den = fn(d["rows"], d["cols"], plan, t, d["ssrc"],
+                          d["sdst"], d["m"], x, 0.2)
+            return torch.cat([num, den[:, None]], 1)
+
+        walk, plain = att_bsr.att_fwd, att_bsr.att_fwd_plain
+    else:
+        def run(fn, g, t):
+            return fn(plan, t, d["ssrc"], d["sdst"], d["m"], g,
+                      d["x_other"], d["dden"], 0.2, need_dssrc=False)[0]
+
+        walk, plain = att_bsr.att_bwd_t, att_bsr.att_bwd_t_plain
+    before = (walk.launches, walk.launches_bf16)
+    with torch.inference_mode():
+        got = run(walk, d["x"], tiles)
+        ref = run(plain, d["x"], tiles)
+        f32 = run(walk, d["x"], d["blocks"]) if bf16 else got
+        if case == "inf_unreached":
+            clean = d["x"].clone()
+            clean[row] = 0.0
+            ref_clean = run(plain, clean, tiles)
+    torch.cuda.synchronize()
+    assert (walk.launches, walk.launches_bf16) == (before[0] + 1,
+                                                   before[1] + bf16)
+    assert _bf16_nan_equal(got, f32)
+    nan = ref.isnan()
+    if case == "inf_unreached":
+        assert nan.any()                  # the dense product's 0·inf
+        _close(got, ref_clean)
+    elif case == "nan":
+        assert nan.any(1).nonzero().flatten().tolist() == [row]
+        assert nan[row].all() and torch.equal(got.isnan(), nan)
+        _close(got[~nan.any(1)], ref[~nan.any(1)])
+    else:
+        _close(got, ref)
+    reached = torch.zeros(got.shape[0], dtype=torch.bool)
+    for k in range(len(ops["rows"])):
+        hit = ops["blocks"][k].any(1 if kernel == "K7f" else 0)
+        blk = int((ops["rows"] if kernel == "K7f" else ops["cols"])[k])
+        reached[blk * _EDGE:(blk + 1) * _EDGE] |= hit
+    if kernel == "K7bt":
+        assert not reached[2 * _EDGE:3 * _EDGE].any()
+    assert not got[~reached.to(cuda)].any()
+
+
+@pytest.mark.parametrize("case", ["sparse", "dense", "zero_inside",
+                                  "edgeless"])
+@pytest.mark.parametrize("tile_type", ["f32", "bf16"])
+def test_k7_rowmax_quadrants_match_plain(cuda, tile_type, case):
+    """K7rm on 256-wide masks (a CTA per 128-row half of a tile row, over
+    its quadrants): bit for bit against the plain version, −1e30 on the
+    nodes without an entry (0-9, and tile row 2 when edgeless)."""
+    rng = np.random.default_rng(91)
+    plan, ops, _ = _k7_quad_operands(rng, "K7f", case, 8)
+    d = {k: v.to(cuda) for k, v in ops.items()}
+    tiles = d["blocks"].to(torch.bfloat16) if tile_type == "bf16" \
+        else d["blocks"]
+    fn = att_bsr.att_rowmax
+    before = (fn.launches, fn.launches_bf16)
+    with torch.inference_mode():
+        got = fn(d["rows"], d["cols"], plan.to(cuda), tiles, d["ssrc"],
+                 d["sdst"], 0.2)
+    torch.cuda.synchronize()
+    bf16 = tile_type == "bf16"
+    assert (fn.launches, fn.launches_bf16) == (before[0] + (not bf16),
+                                               before[1] + bf16)
+    assert torch.equal(got.cpu(), ops["m"])
+    assert (got[:10] == -1e30).all()
+    if case == "edgeless":
+        assert (got[2 * _EDGE:3 * _EDGE] == -1e30).all()
+
+
+# forward tiles of the score pass's card test at 256 (1,280 nodes, five
+# tile rows): tile row 1 has 4 tiles, tile column 2 none (a transpose
+# filler), tile row 3 none (dsdst written as 0)
+_SCORE_QUAD_ROWS = [0, 0, 1, 1, 1, 1, 2, 4, 4]
+_SCORE_QUAD_COLS = [0, 1, 0, 1, 3, 4, 3, 0, 4]
+
+
+def _score_quad_operands(rng, feat, dev, full):
+    """``_score_operands`` on 256-wide tiles: 3% fill with positive values
+    at the mask, quadrant (0, 1) of every tile empty but tile 2 (tile row
+    1 against column 0), which is full when ``full``; nodes 0-9 have no
+    entry (m = −1e30)."""
+    nb = 5
+    rows = np.asarray(_SCORE_QUAD_ROWS, np.int32)
+    cols = np.asarray(_SCORE_QUAD_COLS, np.int32)
+    mask = rng.random((len(rows), _EDGE, _EDGE)) < 0.03
+    mask[:, :128, 128:] = False
+    if full:
+        mask[2] = True
+    mask[0, :10] = mask[1, :10] = False
+    blocks = np.where(mask, rng.random(mask.shape) + 0.5, 0.0)
+    n = nb * _EDGE
+
+    def dev_(a, dtype=np.float32):
+        return torch.from_numpy(np.asarray(a, dtype)).to(dev)
+
+    d = dict(rows=dev_(rows, np.int32), cols=dev_(cols, np.int32),
+             blocks=dev_(blocks),
+             ssrc=dev_(rng.standard_normal(n)),
+             sdst=dev_(rng.standard_normal(n)),
+             x=dev_(rng.standard_normal((n, feat))),
+             g=dev_(rng.standard_normal((n, feat))),
+             dden=dev_(rng.standard_normal(n)))
+    plan = build_dyn_plan(rows, cols, nb).to(dev)
+    assert 0 in plan.t_scale.tolist()            # the filler of column 2
+    d["m"] = att_bsr.att_rowmax_plain(d["rows"], d["cols"], plan,
+                                      d["blocks"], d["ssrc"], d["sdst"], 0.2)
+    return plan, d
+
+
+@pytest.mark.parametrize("feat", [40, 128, 512])
+@pytest.mark.parametrize("case", ["sparse", "full", "inf_unreached",
+                                  "inf_reached", "deterministic"])
+@pytest.mark.parametrize("tile_type", ["f32", "bf16"])
+def test_k7_score_pass_quadrants_match_plain(cuda, tile_type, case, feat):
+    """K7's score pass on 256-wide masks (one CTA a 128-wide quadrant, the
+    partials (K, 2·256)) and its partials' sums, in the cases of
+    ``test_k7_score_pass_matches_plain``: the partials and both score
+    gradients against their plain versions, two launches bit-equal, the
+    bf16 form bit for bit against the f32 form on the same mask;
+    ``inf_reached`` gives NaN exactly where the plain version is not
+    finite (the 3xTF32 split's recorded divergence)."""
+    rng = np.random.default_rng(feat + 95)
+    plan, d = _score_quad_operands(rng, feat, cuda, full=case == "full")
+    if case == "inf_unreached":
+        d["g"][3, 0] = float("inf")                # node 3 has no entry
+        d["blocks"][d["cols"] == 3, :, 5] = 0.0    # column 3·256+5 unreached
+        d["x"][3 * _EDGE + 5, feat // 2] = float("-inf")
+    if case == "inf_reached":
+        i = 2 * _EDGE + int(torch.nonzero(d["blocks"][6].sum(1))[0])
+        d["g"][i, feat - 1] = float("inf")
+    bf16 = tile_type == "bf16"
+    tiles = d["blocks"].to(torch.bfloat16) if bf16 else d["blocks"]
+
+    def args(t):
+        return (d["rows"], d["cols"], plan, t, d["ssrc"], d["sdst"], d["m"],
+                d["g"], d["x"], d["dden"], 0.2)
+
+    fn = att_bsr.att_bwd_scores
+    before = (fn.launches, fn.launches_bf16, att_bsr.att_sums.launches)
+    with torch.inference_mode():
+        got = fn(*args(tiles))
+        again = fn(*args(tiles))
+        ref = att_bsr.att_bwd_scores_plain(*args(tiles))
+        f32 = fn(*args(d["blocks"])) if bf16 else got
+        part = att_bsr._launch_scores("k7s", cuda, tiles, d["rows"],
+                                      d["cols"], d["ssrc"], d["sdst"],
+                                      d["m"], d["g"], d["x"], d["dden"], 0.2)
+        part_p = att_bsr.att_scores_plain(*args(tiles))
+        sums = att_bsr.att_sums(plan, *part_p)
+        sums_p = att_bsr.att_sums_plain(plan, *part_p)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_bf16, att_bsr.att_sums.launches) == (
+        before[0] + 2 * (not bf16) + bf16, before[1] + 2 * bf16,
+        before[2] + 3 + bf16)
+    assert part[0].shape == (len(_SCORE_QUAD_ROWS), 2 * _EDGE)
+    for a, b in zip(got, again):
+        assert _bf16_nan_equal(a, b)
+    for a, b in zip(got, f32):
+        assert _bf16_nan_equal(a, b)
+    if case == "inf_reached":
+        for a, b in zip(got, ref):
+            bad = ~torch.isfinite(b)
+            assert bad.any() and torch.equal(a.isnan(), bad)
+            _close(a[~bad], b[~bad])
+        return
+    for a, b in (*zip(got, ref), *zip(part, part_p), *zip(sums, sums_p)):
+        _close(a, b)
+    dssrc, dsdst = got
+    assert not dsdst[:10].any() and not dsdst[3 * _EDGE:4 * _EDGE].any()
+    assert not dssrc[2 * _EDGE:3 * _EDGE].any()      # no tile in column 2
+
+
+@pytest.mark.parametrize("wrapper", ["att_rowmax", "att_fwd", "att_bwd_t",
+                                     "att_bwd_scores", "att_sums"])
+def test_k7_wrappers_refuse_an_edge_off_128_on_card(cuda, wrapper):
+    """On CUDA tensors, tiles of edge 192 (and partials of a 192-wide tile)
+    raise ``ValueError`` before any launch, as on the CPU; the C entries
+    themselves return cudaErrorInvalidValue (1) for block 192."""
+    from fitgnn_tpu_torch.ops import kernels
+    rows = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    cols = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    plan = build_dyn_plan(rows.cpu().numpy(), cols.cpu().numpy(), 2).to(cuda)
+    blocks = torch.ones((2, 192, 192), device=cuda)
+    v = torch.zeros(384, device=cuda)
+    x = torch.ones((384, 8), device=cuda)
+    bwd = (plan, blocks, v, v, v, x, x, v, 0.2)
+    calls = {
+        "att_rowmax": lambda: att_bsr.att_rowmax(rows, cols, plan, blocks, v,
+                                                 v, 0.2),
+        "att_fwd": lambda: att_bsr.att_fwd(rows, cols, plan, blocks, v, v,
+                                           v, x, 0.2),
+        "att_bwd_t": lambda: att_bsr.att_bwd_t(*bwd),
+        "att_bwd_scores": lambda: att_bsr.att_bwd_scores(rows, cols, *bwd),
+        "att_sums": lambda: att_bsr.att_sums(
+            plan, torch.zeros((2, 192), device=cuda),
+            torch.zeros((2, 192), device=cuda))}
+    counted = (att_bsr.att_rowmax, att_bsr.att_fwd, att_bsr.att_bwd_t,
+               att_bsr.att_bwd_scores)
+    before = [f.launches for f in counted] + [att_bsr.att_sums.launches]
+    with pytest.raises(ValueError, match="multiple of 128"):
+        calls[wrapper]()
+    assert [f.launches for f in counted] + [att_bsr.att_sums.launches] \
+        == before
+    if wrapper == "att_rowmax":
+        out = torch.empty_like(v)
+        fn = kernels.function("att_bsr", "fitgnn_att_rowmax",
+                              att_bsr._ROWMAX_ARGTYPES)
+        rc = fn(kernels.ptr(blocks), kernels.ptr(plan.row_splits),
+                kernels.ptr(cols), kernels.ptr(v), kernels.ptr(v),
+                kernels.ptr(out), 2, 192, 0.2, kernels.stream(cuda))
+        torch.cuda.synchronize()
+        assert rc == 1

@@ -8,9 +8,11 @@ cluster collapse (exact k of 0 and some); the plain K4, K4ᵀ and K5 against
 the JAX package's ``_dyn_apply`` (both orientations) and
 ``_dyn_grad_blocks`` at 256; ``tile_gat_attention`` (forward and the
 gradients in ``h``, ``att_src`` through ``score_src``, and ``score_dst``)
-under ``GLOBAL_MAX`` 1 and 0; one GAT ``gc_train_step``; and the
-refusals (``FUSED_TILES=1`` at 256, the tile opt-ins under ``att_unit``,
-an edge off the multiples of 128 in K4, K4ᵀ and K5's wrappers).
+under ``GLOBAL_MAX`` 1 and 0; one GAT ``gc_train_step``; ``FUSED_TILES=1``
+at 256 against the two-stage path (the fused path's own tests against the
+JAX package are ``test_torch_port_fused_block.py``'s); and the refusals
+(the tile opt-ins under ``att_unit``, an edge off the multiples of 128 in
+K4, K4ᵀ and K5's wrappers).
 The JAX Pallas kernels run in interpret mode (its attention tests never
 build ``att_unit`` at 256, so these call its functions directly); the
 port's wrappers take their plain versions because the tensors lie on the
@@ -39,7 +41,7 @@ from fitgnn_tpu.train import losses as jax_losses
 from fitgnn_tpu_torch.graph.build import build_graph
 from fitgnn_tpu_torch.models.convert import params_from_flax
 from fitgnn_tpu_torch.models.models import NodeModel
-from fitgnn_tpu_torch.ops.att_bsr import att_rowmax_plain
+from fitgnn_tpu_torch.ops.att_bsr import att_fwd, att_rowmax_plain
 from fitgnn_tpu_torch.ops.bsr_dynamic import (build_dyn_plan,
                                               dyn_grad_blocks, dyn_tiles,
                                               dyn_tiles_t)
@@ -341,21 +343,33 @@ def test_gat_train_step_block256_matches_jax(monkeypatch, case, global_max):
 
 @pytest.mark.parametrize("case", ["f32", "bf16"])
 def test_fused_tiles_at_256_raise_naming_the_roadmap(monkeypatch, case):
-    """``FUSED_TILES=1`` on 256-wide tiles with a plan: K7 at another edge
-    is not ported, so the port raises naming ROADMAP.md §2 before any
-    launch, where the JAX package runs its fused kernels; unset, the same
-    call takes the two-stage path."""
+    """``FUSED_TILES=1`` on 256-wide tiles with a plan runs the fused tile
+    attention (K7 at 256; it raised here until K7's forms at another edge
+    were ported), which equals the two-stage path on the same operator:
+    the output and the gradients in ``score_src``, ``score_dst`` and
+    ``h`` (tolerance above), with no launch on the CPU."""
     ht, _ = operators(case)
     rng = np.random.default_rng(23)
-    h = torch.from_numpy(rng.standard_normal((N, 16)).astype(np.float32))
-    ss, sd = (torch.from_numpy(rng.standard_normal(N).astype(np.float32))
-              for _ in range(2))
-    assert torch.isfinite(tile_gat_attention(ht, ss, sd, h, SLOPE)).all()
+    h = rng.standard_normal((N, 16)).astype(np.float32)
+    ss, sd = (rng.standard_normal(N).astype(np.float32) for _ in range(2))
+    tgt = torch.from_numpy(rng.standard_normal((N, 16)).astype(np.float32))
+
+    def run():
+        leaves = [torch.tensor(v, requires_grad=True) for v in (ss, sd, h)]
+        out = tile_gat_attention(ht, *leaves, SLOPE)
+        ((out - tgt) ** 2).sum().backward()
+        return out.detach(), [v.grad for v in leaves]
+
+    two_stage = run()
     monkeypatch.setenv("FITGNN_GAT_FUSED_TILES", "1")
-    launches = dyn_tiles.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §2"):
-        tile_gat_attention(ht, ss, sd, h, SLOPE)
-    assert dyn_tiles.launches == launches
+    launches = (dyn_tiles.launches, att_fwd.launches, att_fwd.launches_bf16)
+    fused = run()
+    assert (dyn_tiles.launches, att_fwd.launches,
+            att_fwd.launches_bf16) == launches
+    close(fused[0], two_stage[0].numpy())
+    for got, ref in zip(fused[1], two_stage[1]):
+        assert torch.isfinite(got).all()
+        close(got, ref.numpy(), grad=True)
 
 
 @pytest.mark.parametrize("kw", [dict(use_diag=True), dict(use_rowwalk=True),
