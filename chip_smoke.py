@@ -212,11 +212,16 @@ Phases (any failure exits non-zero before the result lines):
    operators built by ``build_hybrid(block=256)`` on phase 3's node order,
    as ``bench.py`` composes them (threshold 48; threshold 192 with
    ``use_diag``; threshold 48 with ``tile_group=2``), their tiles,
-   diagonal blocks and stragglers beside the split expected; K1
-   (forward and on the transpose), K2, K9 and K8 (both orientations, from
-   init and from zero) at edge 256 on f32 and bf16 tiles at F=128 and
-   512, each against its plain version (tolerance as in phase 3) with its
-   kernel, plain and library times and its bound; then, every counter at
+   diagonal blocks and stragglers beside the split expected, and each
+   direction's live 128-wide quadrants (its occupancy words, checked
+   against the tiles); K1 (forward and on the transpose), K2 and K9 (also
+   on the transpose at 512) and K8 (both orientations, from init and from
+   zero) at edge 256 on f32 and bf16 tiles at F=128 and 512, each against
+   its plain version (tolerance as in phase 3) with its kernel, plain and
+   library times and its bound; K1, K2 and K9 walk the live quadrants of
+   the words and are also held bit for bit against the walk without words
+   (timed beside them) and bounded a second time over the live quadrants,
+   the slabs they reach and the output; then, every counter at
    0 just before each run, one eval forward and one ``gc_train_step`` of
    GCN at hidden 512 with K11's dropout on each operator in f32 and bf16,
    launching phase 4's and 5's counts at 128 (K1 / K8 / K9 in their
@@ -262,8 +267,9 @@ Phases (any failure exits non-zero before the result lines):
    forms at edge 256 (``K1@256``, ``K1bf@256``, ``K4@256``, ``K7f@256``,
    ...) as their own entries (launches summed over the main-path phases 5
    to 16, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
-   K7sums, and K5, K7f, K7bt, K7s and K7sums at 256, with their ``ptxas``
-   register and spill counts), then the ``ok`` line.
+   K7sums, and K1, K2, K9 (their walks of the live quadrants), K5, K7f,
+   K7bt, K7s and K7sums at 256, with their ``ptxas`` register and spill
+   counts), then the ``ok`` line.
 
 The JAX package's environment switches are set in ``os.environ`` for one
 phase and restored after it; the earlier phases must launch none of K6
@@ -3698,6 +3704,10 @@ EDGE = 256
 EDGE_OPS = {"t48": (dict(min_block_edges=48), (1_174, 662, 0, 225_132)),
             "t192diag": (dict(min_block_edges=192, use_diag=True),
                          (16, 0, 662, 284_690))}
+# the live 128-wide quadrants of the occupancy words (forward direction)
+# and the quadrants the walk without words reads (every tile's, fillers and
+# group pads included): threshold 48, and its grouped layout
+EDGE_QUADS = {"t48": (3_115, 4_696), "group2": (3_115, 6_944)}
 # the forms counted at edge 256 ("K1@256", "K1bf@256", ...)
 EDGE_IDS = ("K1", "K2", "K8", "K9", "K1bf", "K2bf", "K8bf", "K9bf")
 # one GCN train step (hidden 512, dropout 0.5 through K11) and one eval
@@ -3766,12 +3776,15 @@ def at_edge(counts: dict) -> dict:
 
 def bf16_tiles(h):
     """A hybrid operator with its tiles and diagonal blocks in bf16 (what
-    ``build_hybrid(tile_dtype=torch.bfloat16)`` builds: f32, then cast)."""
+    ``build_hybrid(tile_dtype=torch.bfloat16)`` builds: f32, then cast, the
+    occupancy words made of the cast tiles)."""
+
+    def cast(b, **kw):
+        return dataclasses.replace(b, blocks=b.blocks.to(torch.bfloat16),
+                                   **kw)
+
     b = h.bsr
-    bsr = dataclasses.replace(
-        b, blocks=b.blocks.to(torch.bfloat16),
-        transpose=dataclasses.replace(
-            b.transpose, blocks=b.transpose.blocks.to(torch.bfloat16)))
+    bsr = cast(b, transpose=cast(b.transpose))
     return dataclasses.replace(
         h, bsr=bsr, diag_blocks=None if h.diag_blocks is None
         else h.diag_blocks.to(torch.bfloat16))
@@ -3814,16 +3827,44 @@ def block_operators(g) -> dict:
               f"stragglers; f32 tiles {b.blocks.numel() * 4 / 2**20:.1f} MiB "
               f"a direction; expected {ref} (diff "
               f"{tuple(a - c for a, c in zip(got, ref))})")
+        for what, d in (("forward", b), ("transpose", b.transpose)):
+            live, _ = live_quadrants(d)
+            print(f"edge {EDGE} {name} {what}: {live} live 128-wide "
+                  f"quadrants of {d.nnz_blocks * (EDGE // 128) ** 2} "
+                  f"(occupancy words {d.quad_bits.numel() * 8} bytes); "
+                  f"expected {EDGE_QUADS.get(name, ('-', '-'))} forward")
     check(ops["t192diag"].diag_r > 0, "t192diag: no K8 chain")
     return ops
+
+
+def live_quadrants(b) -> tuple:
+    """The live 128-wide quadrants of ``b``'s occupancy words and the
+    distinct 128-row X slabs they reach; fails unless the words are the
+    quadrants' occupancy, counted here from the tiles' magnitudes."""
+    nq = b.block // 128
+    words = (b.quad_bits.unsqueeze(1) >> torch.arange(
+        nq * nq, device=b.quad_bits.device)) & 1
+    occupied = b.blocks.float().abs().reshape(-1, nq, 128, nq, 128).sum(
+        (2, 4)).reshape(-1, nq * nq) != 0
+    check(torch.equal(words.bool(), occupied),
+          f"edge {b.block}: occupancy words differ from the tiles")
+    k, ij = words.nonzero(as_tuple=True)
+    slabs = torch.unique(b.cols.long()[k] * nq + ij % nq).numel()
+    return k.numel(), slabs
 
 
 def phase_block_kernels(device, ops) -> dict:
     """K1 (forward and on the transpose), K2, K9 (``tile_group=2``) and K8
     (forward and transposed, from init and from zero) at edge 256, f32
-    and bf16 tiles, at F=128 and 512, each against its plain version with
-    its kernel, plain and library times and its bound (live tiles of
-    256 x 256 at 4 or 2 bytes an entry)."""
+    and bf16 tiles, at F=128 and 512 (K2 and K9 also on the transpose at
+    512), each against its plain version with its kernel, plain and
+    library times and its bound (live tiles of 256 x 256 at 4 or 2 bytes
+    an entry).  K1, K2 and K9 walk the live quadrants of the occupancy
+    words: each also bit for bit against the walk without words (null
+    words), with that walk's time (``nowords_ms``); their bound is over
+    the live 128-wide quadrants, the slabs they reach and the output, and
+    the bound over every quadrant of a live tile stays beside it as
+    ``bound_tiles_ms``."""
     from fitgnn_tpu_torch.ops.bsr_spmm import (bsr_spmm_acc,
                                                bsr_spmm_acc_plain,
                                                bsr_spmm_fwd,
@@ -3846,20 +3887,32 @@ def phase_block_kernels(device, ops) -> dict:
         diag_live = int((diag != 0).flatten(1).any(1).sum())
         diag_nnz = int((diag != 0).sum())
         diag32 = diag.float()
+        # (K1 and K2's operator, K9's, the library's CSR, tile non-zeros,
+        # live tiles, distinct slabs of the live tiles, live quadrants,
+        # distinct slabs of the live quadrants) a direction
         rows = {}
-        for what, b in (("forward", h48.bsr), ("transpose",
-                                                 h48.bsr.transpose)):
+        for what, b, b9 in (("forward", h48.bsr, bg),
+                            ("transpose", h48.bsr.transpose, bg.transpose)):
             live = (b.blocks != 0).flatten(1).any(1)
             csr, nnz = tile_csr(dataclasses.replace(
                 b, blocks=b.blocks.float()), n)
-            rows[what] = (b, csr, nnz, int(live.sum()),
-                          int(torch.unique(b.cols[live]).numel()))
+            quads = live_quadrants(b)
+            check(quads == live_quadrants(b9),
+                  f"edge {EDGE} {tt} {what}: the grouped layout's live "
+                  "quadrants differ")
+            rows[what] = (b, b9, csr, nnz, int(live.sum()),
+                          int(torch.unique(b.cols[live]).numel()), *quads)
 
         def show(k, sh):
             print(f"  {k}{suffix}@{EDGE} {sh['shape']}: kernel_ms="
-                  f"{sh['ms']:.4f} plain_ms={sh['plain_ms']:.4f} "
+                  f"{sh['ms']:.4f} "
+                  + (f"nowords_ms={sh['nowords_ms']:.4f} "
+                     if "nowords_ms" in sh else "")
+                  + f"plain_ms={sh['plain_ms']:.4f} "
                   f"library_ms={sh['library_ms']:.4f} bound_ms="
-                  f"{sh['bound_ms']:.4f} ({sh['bound_by']})")
+                  f"{sh['bound_ms']:.4f} ({sh['bound_by']})"
+                  + (f" bound_tiles_ms={sh['bound_tiles_ms']:.4f}"
+                     if "bound_tiles_ms" in sh else ""))
 
         with torch.inference_mode():
             for feat in (NUM_FEATURES, HIDDEN):
@@ -3867,57 +3920,69 @@ def phase_block_kernels(device, ops) -> dict:
                 xl = x.to(torch.bfloat16).float() if tt == "bf16" else x
                 init = torch.randn((n, feat), generator=gen, device=device)
                 print(f"edge {EDGE} {tt} F={feat}:")
-                for what, (b, csr, nnz, tiles, uniq) in rows.items():
-                    # the live tiles, the indices, the distinct slabs, init
-                    # and out; 2 FLOPs per tile non-zero and feature
-                    slabs = uniq * EDGE * feat * 4
-                    b1, by1 = bound(tiles * EDGE * EDGE * width
-                                    + (2 * b.nnz_blocks + nb + 1) * 4
-                                    + slabs + 2 * n * feat * 4,
-                                    2.0 * nnz * feat)
+                for what, (b, b9, csr, nnz, tiles, uniq, quads,
+                           qslabs) in rows.items():
                     tag = (f"F={feat}"
                            f"{' transpose' if what == 'transpose' else ''}")
-                    got = bsr_spmm_acc(b, x, init)
-                    ref = bsr_spmm_acc_plain(b, x, init)
-                    torch.cuda.synchronize()
-                    err = compare(f"K1{suffix}@{EDGE} bsr_spmm_acc {tag}",
-                                  got, ref)
-                    compare(f"K1{suffix}@{EDGE} library torch.sparse.addmm "
-                            f"{tag}", torch.sparse.addmm(init, csr, xl), ref)
-                    sh = dict(
-                        F=feat, shape=tag,
-                        on_path=what == "forward" or feat == HIDDEN,
-                        **err, bound_ms=b1, bound_by=by1,
-                        ms=cuda_ms(lambda: bsr_spmm_acc(b, x, init), 20),
-                        plain_ms=cuda_ms(lambda: bsr_spmm_acc_plain(
-                            b, x, init), 5),
-                        library_ms=cuda_ms(lambda: torch.sparse.addmm(
-                            init, csr, xl), 20))
-                    out[f"K1{suffix}@{EDGE}"].append(sh)
-                    show("K1", sh)
-                b, csr, nnz, tiles, uniq = rows["forward"]
-                bw, byw = bound(tiles * EDGE * EDGE * width
-                                + (tiles + nb + 1) * 4
-                                + uniq * EDGE * feat * 4 + n * feat * 4,
-                                2.0 * nnz * feat)
-                ref = bsr_spmm_plain(b, x)
-                for k, (bk, walk) in (("K2", (b, bsr_spmm_fwd)),
-                                      ("K9", (bg, bsr_spmm_grouped))):
-                    got = walk(bk, x)
-                    torch.cuda.synchronize()
-                    err = compare(f"{k}{suffix}@{EDGE} {walk.__name__} "
-                                  f"F={feat}", got, bsr_spmm_plain(bk, x))
-                    compare(f"{k}{suffix}@{EDGE} vs the grid walk's plain "
-                            f"version F={feat}", got, ref)
-                    sh = dict(F=feat, shape=f"F={feat}", **err, bound_ms=bw,
-                              bound_by=byw,
-                              ms=cuda_ms(lambda: walk(bk, x), 20),
-                              plain_ms=cuda_ms(lambda: bsr_spmm_plain(bk, x),
-                                               5),
-                              library_ms=cuda_ms(
-                                  lambda: torch.sparse.mm(csr, xl), 20))
-                    out[f"{k}{suffix}@{EDGE}"].append(sh)
-                    show(k, sh)
+                    # the live tiles (or quadrants), the indices, the
+                    # distinct slabs, init (K1) and out; 2 FLOPs per tile
+                    # non-zero and feature
+                    flops = 2.0 * nnz * feat
+                    live_bytes = (quads * 128 * 128 * width
+                                  + qslabs * 128 * feat * 4 + n * feat * 4)
+                    for k, bk, walk, plain, ins, lib, on_path in (
+                            ("K1", b, bsr_spmm_acc, bsr_spmm_acc_plain,
+                             (x, init), lambda: torch.sparse.addmm(
+                                 init, csr, xl),
+                             what == "forward" or feat == HIDDEN),
+                            ("K2", b, bsr_spmm_fwd, bsr_spmm_plain, (x,),
+                             lambda: torch.sparse.mm(csr, xl),
+                             what == "forward"),
+                            ("K9", b9, bsr_spmm_grouped, bsr_spmm_plain,
+                             (x,), lambda: torch.sparse.mm(csr, xl),
+                             what == "forward" or feat == HIDDEN)):
+                        if what == "transpose" and k != "K1" \
+                                and feat != HIDDEN:
+                            continue
+                        with_init = len(ins) == 2
+                        b1, _ = bound(
+                            tiles * EDGE * EDGE * width
+                            + ((2 if with_init else 1) * bk.nnz_blocks + nb
+                               + 1) * 4
+                            + uniq * EDGE * feat * 4
+                            + (2 if with_init else 1) * n * feat * 4, flops)
+                        bl, byl = bound(live_bytes + (n * feat * 4
+                                                      if with_init else 0),
+                                        flops)
+                        nowords = dataclasses.replace(bk, words=False)
+                        got = walk(bk, *ins)
+                        ref = plain(bk, *ins)
+                        without = walk(nowords, *ins)
+                        torch.cuda.synchronize()
+                        err = compare(f"{k}{suffix}@{EDGE} {walk.__name__} "
+                                      f"{tag}", got, ref)
+                        check(torch.equal(got, without),
+                              f"{k}{suffix}@{EDGE} {tag}: the walk with "
+                              "occupancy words is not the walk without "
+                              "them bit for bit")
+                        compare(f"{k}{suffix}@{EDGE} vs the grid walk's "
+                                f"plain version without words {tag}", got,
+                                plain(dataclasses.replace(b, words=False),
+                                      *ins))
+                        compare(f"{k}{suffix}@{EDGE} library {tag}", lib(),
+                                ref)
+                        sh = dict(
+                            F=feat, shape=tag, on_path=on_path, **err,
+                            bound_ms=bl, bound_by=byl, bound_tiles_ms=b1,
+                            live_quadrants=quads,
+                            ms=cuda_ms(lambda: walk(bk, *ins), 20),
+                            nowords_ms=cuda_ms(lambda: walk(nowords, *ins),
+                                               20),
+                            plain_ms=cuda_ms(lambda: plain(bk, *ins), 5),
+                            library_ms=cuda_ms(lib, 20))
+                        out[f"{k}{suffix}@{EDGE}"].append(sh)
+                        show(k, sh)
+                        del got, ref, without
                 x3, i3 = xl.reshape(nb, EDGE, feat), init.reshape(nb, EDGE,
                                                                   feat)
                 for transpose in (False, True):
@@ -4799,6 +4864,21 @@ def main() -> int:
     # counts, two load widths each)
     for (k, *_), entry in zip(KERNELS, kernels_line["kernels"]):
         base, _, edge = k.partition("@")
+        if edge and base in ("K1", "K2", "K9", "K1bf", "K2bf", "K9bf"):
+            # the walk of the live quadrants (WORDS, then QUAD): K1's from
+            # init, K2's and K9's from zero, x rounded on bf16 tiles
+            form = ("sparse::Plain,__nv_bfloat16,true,true,true>"
+                    if base.endswith("bf") else
+                    "sparse::Plain,float,false,true,true>")
+            entry["registers"] = {
+                kernel: {"registers": n, "spilled_bytes": spill}
+                for _, kernel, n, spill in regs
+                if kernel.replace(" ", "").endswith(form)
+                and walk_args(kernel)[1] == (base[:2] == "K1")}
+            check(len(entry["registers"]) == 2,
+                  f"{entry['name']}: no ptxas record of its words walk")
+            print(f"{k} registers: {entry['registers']}")
+            continue
         hook = {"K7f": "FwdScores", "K7bt": "DxScores"}.get(base)
         name = {"K5": "dyn_grad_blocks_kernel<", "K7s": "att_scores_kernel",
                 "K7sums": "att_sums_kernel",

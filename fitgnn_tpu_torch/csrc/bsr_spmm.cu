@@ -57,6 +57,12 @@
 // (tile_sparse.cuh, QUAD); at 128 it is the walk above.  K10 walks 128-wide
 // tiles only, as _rowwalk_kernel does: its entries return
 // cudaErrorInvalidValue for another edge and build no quadrant walk.
+//
+// Occupancy words: every entry takes `words`, the tiles' occupancy words
+// of build_bsr (tile_sparse.cuh, WORDS), or null.  Given (K1, K2 and K9
+// above 128), the walk reads and applies the live quadrants alone, and
+// starts each one's slab copy with its tile read; null walks every
+// quadrant.  K10's entries take null only.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -68,65 +74,70 @@ namespace {
 // the non-zero walk, rows orientation: tile k for slot k at scale 1, from
 // init under INIT (K1), else from zero (init unused); T the tile type,
 // ROUND_X: x rounded to bf16; block the tile edge, a multiple of 128 under
-// QUAD (the quadrant walk), else 128 (anything else:
-// cudaErrorInvalidValue)
+// QUAD (the quadrant walk, with words where they are given), else 128
+// (anything else: cudaErrorInvalidValue)
 template <bool INIT, class T = float, bool ROUND_X = false, bool QUAD = true>
 int launch_nonzero(const void* blocks, const void* row_splits,
-                   const void* cols, const void* x, const void* init,
-                   void* out, int64_t num_row_blocks, int64_t feat,
-                   int64_t block, void* stream) {
+                   const void* cols, const void* words, const void* x,
+                   const void* init, void* out, int64_t num_row_blocks,
+                   int64_t feat, int64_t block, void* stream) {
   if (QUAD ? block < sparse::BLK || block % sparse::BLK
            : block != sparse::BLK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(sparse::launch<false, INIT, false, ROUND_X, QUAD>(
-      static_cast<const T*>(blocks),
-      static_cast<const int32_t*>(row_splits), nullptr, nullptr,
-      static_cast<const int32_t*>(cols), static_cast<const float*>(x),
-      static_cast<const float*>(init), static_cast<float*>(out),
-      num_row_blocks, feat, static_cast<cudaStream_t>(stream),
-      sparse::Plain{}, static_cast<int>(block / sparse::BLK)));
+  return static_cast<int>(
+      sparse::launch<false, INIT, false, ROUND_X, QUAD, T, sparse::Plain,
+                     QUAD>(
+          static_cast<const T*>(blocks),
+          static_cast<const int32_t*>(row_splits), nullptr, nullptr,
+          static_cast<const int32_t*>(cols), static_cast<const float*>(x),
+          static_cast<const float*>(init), static_cast<float*>(out),
+          num_row_blocks, feat, static_cast<cudaStream_t>(stream),
+          sparse::Plain{}, static_cast<int>(block / sparse::BLK),
+          static_cast<const uint64_t*>(words)));
 }
 
 }  // namespace
 
 // blocks (K,block,block) f32, 16-byte aligned; row_splits
-// (num_row_blocks+1,) int32; cols (K,) int32; x, init, out
-// (num_row_blocks*block, feat) f32, all contiguous (x and init at any
-// 4-byte alignment: each takes its 16-byte path only where it starts on a
-// 16-byte boundary and feat % 4 == 0).  Each entry returns
+// (num_row_blocks+1,) int32; cols (K,) int32; words (K,) int64 or null; x,
+// init, out (num_row_blocks*block, feat) f32, all contiguous (x and init
+// at any 4-byte alignment: each takes its 16-byte path only where it
+// starts on a 16-byte boundary and feat % 4 == 0).  Each entry returns
 // cudaErrorInvalidValue for a block that is not a multiple of 128 (K10:
-// not 128),
+// not 128) and for words at 128 or above 1024 (K10: any words),
 // cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
 // else cudaGetLastError() after the launch.
 
 // K1: out = init + A . x
 extern "C" int fitgnn_bsr_spmm_acc(const void* blocks, const void* row_splits,
-                                   const void* cols, const void* x,
-                                   const void* init, void* out,
-                                   int64_t num_row_blocks, int64_t feat,
-                                   int64_t block, void* stream) {
-  return launch_nonzero<true>(blocks, row_splits, cols, x, init, out,
+                                   const void* cols, const void* words,
+                                   const void* x, const void* init,
+                                   void* out, int64_t num_row_blocks,
+                                   int64_t feat, int64_t block,
+                                   void* stream) {
+  return launch_nonzero<true>(blocks, row_splits, cols, words, x, init, out,
                               num_row_blocks, feat, block, stream);
 }
 
 // K2: out = A . x
 extern "C" int fitgnn_bsr_spmm(const void* blocks, const void* row_splits,
-                               const void* cols, const void* x, void* out,
+                               const void* cols, const void* words,
+                               const void* x, void* out,
                                int64_t num_row_blocks, int64_t feat,
                                int64_t block, void* stream) {
-  return launch_nonzero<false>(blocks, row_splits, cols, x, nullptr,
+  return launch_nonzero<false>(blocks, row_splits, cols, words, x, nullptr,
                                out, num_row_blocks, feat, block, stream);
 }
 
 // K9: out = A . x on the group-padded layout
 extern "C" int fitgnn_bsr_spmm_grouped(const void* blocks,
                                        const void* row_splits,
-                                       const void* cols, const void* x,
-                                       void* out, int64_t num_row_blocks,
-                                       int64_t feat, int64_t block,
-                                       void* stream) {
-  return launch_nonzero<false>(blocks, row_splits, cols, x, nullptr,
+                                       const void* cols, const void* words,
+                                       const void* x, void* out,
+                                       int64_t num_row_blocks, int64_t feat,
+                                       int64_t block, void* stream) {
+  return launch_nonzero<false>(blocks, row_splits, cols, words, x, nullptr,
                                out, num_row_blocks, feat, block, stream);
 }
 
@@ -134,13 +145,13 @@ extern "C" int fitgnn_bsr_spmm_grouped(const void* blocks,
 // row without tiles comes out as zeros)
 extern "C" int fitgnn_bsr_spmm_rowwalk(const void* blocks,
                                        const void* row_splits,
-                                       const void* cols, const void* x,
-                                       void* out, int64_t num_row_blocks,
-                                       int64_t feat, int64_t block,
-                                       void* stream) {
+                                       const void* cols, const void* words,
+                                       const void* x, void* out,
+                                       int64_t num_row_blocks, int64_t feat,
+                                       int64_t block, void* stream) {
   return launch_nonzero<false, float, false, false>(
-      blocks, row_splits, cols, x, nullptr, out, num_row_blocks, feat, block,
-      stream);
+      blocks, row_splits, cols, words, x, nullptr, out, num_row_blocks, feat,
+      block, stream);
 }
 
 // The same four on bf16 tiles, blocks (K,block,block) bf16, 16-byte aligned;
@@ -150,45 +161,49 @@ using bf16 = __nv_bfloat16;
 // K1 bf16: out = init + A . bf16(x)
 extern "C" int fitgnn_bsr_spmm_acc_bf16(const void* blocks,
                                         const void* row_splits,
-                                        const void* cols, const void* x,
-                                        const void* init, void* out,
-                                        int64_t num_row_blocks, int64_t feat,
-                                        int64_t block, void* stream) {
-  return launch_nonzero<true, bf16, true>(blocks, row_splits, cols, x, init,
-                                          out, num_row_blocks, feat, block,
-                                          stream);
+                                        const void* cols, const void* words,
+                                        const void* x, const void* init,
+                                        void* out, int64_t num_row_blocks,
+                                        int64_t feat, int64_t block,
+                                        void* stream) {
+  return launch_nonzero<true, bf16, true>(blocks, row_splits, cols, words,
+                                          x, init, out, num_row_blocks,
+                                          feat, block, stream);
 }
 
 // K2 bf16: out = A . bf16(x)
 extern "C" int fitgnn_bsr_spmm_bf16(const void* blocks, const void* row_splits,
-                                    const void* cols, const void* x, void* out,
+                                    const void* cols, const void* words,
+                                    const void* x, void* out,
                                     int64_t num_row_blocks, int64_t feat,
                                     int64_t block, void* stream) {
-  return launch_nonzero<false, bf16, true>(blocks, row_splits, cols, x,
-                                           nullptr, out, num_row_blocks, feat,
-                                           block, stream);
+  return launch_nonzero<false, bf16, true>(blocks, row_splits, cols, words,
+                                           x, nullptr, out, num_row_blocks,
+                                           feat, block, stream);
 }
 
 // K9 bf16: out = A . bf16(x) on the group-padded layout
 extern "C" int fitgnn_bsr_spmm_grouped_bf16(const void* blocks,
                                             const void* row_splits,
-                                            const void* cols, const void* x,
+                                            const void* cols,
+                                            const void* words, const void* x,
                                             void* out, int64_t num_row_blocks,
                                             int64_t feat, int64_t block,
                                             void* stream) {
-  return launch_nonzero<false, bf16, true>(blocks, row_splits, cols, x,
-                                           nullptr, out, num_row_blocks, feat,
-                                           block, stream);
+  return launch_nonzero<false, bf16, true>(blocks, row_splits, cols, words,
+                                           x, nullptr, out, num_row_blocks,
+                                           feat, block, stream);
 }
 
 // K10 bf16: out = A . x on the row-walk layout, x not rounded
 extern "C" int fitgnn_bsr_spmm_rowwalk_bf16(const void* blocks,
                                             const void* row_splits,
-                                            const void* cols, const void* x,
+                                            const void* cols,
+                                            const void* words, const void* x,
                                             void* out, int64_t num_row_blocks,
                                             int64_t feat, int64_t block,
                                             void* stream) {
   return launch_nonzero<false, bf16, false, false>(
-      blocks, row_splits, cols, x, nullptr, out, num_row_blocks, feat, block,
-      stream);
+      blocks, row_splits, cols, words, x, nullptr, out, num_row_blocks, feat,
+      block, stream);
 }

@@ -186,6 +186,26 @@
 // orientation the columns of quadrant (h, q), in the columns orientation
 // the forward rows of quadrant (q, h).  Without QUAD both are r and
 // cols[k], as they were.
+//
+// Occupancy words (WORDS).  build_bsr stores beside tiles wider than 128
+// one 64-bit word a tile, bit i nq + j set where quadrant (i, j) holds an
+// entry that the vote counts (f32 e != 0; bf16 the bits other than the
+// sign): nq <= 8.  A rows-orientation QUAD launch that is given them (K1,
+// K2 and K9 at 256, bsr_spmm.cu) walks the live quadrants of row h only
+// (walk_live): a slot carries the row's nq bits of its word, read with its
+// column one slot ahead, and an empty quadrant is never read, voted on or
+// waited for; a tile whose row holds no live quadrant (every one of K9's
+// pads) costs its two index reads.  The empty quadrants applied nothing,
+// so the output is the walk's without words, bit for bit.  Since every
+// quadrant walked is live, no vote gates the slab copy: the X slab is
+// double-buffered (the tile and two slabs, 192 KiB), and the next live
+// quadrant's slab copy starts with its tile's register prefetch, before
+// the current quadrant is applied, as DIAG's does.  On bf16 tiles it
+// rounds the landed slab two values a conversion (round_slab_pairs).  A set bit on an empty
+// quadrant only costs its walk; a cleared bit on a live quadrant drops its
+// product, as the plain versions with words drop it.  WORDS is a template
+// flag: every launch without words (null words; K4, K4T, K7f, K7bt's dx,
+// K8, the columns walk, every walk at 128) builds the code above.
 
 #pragma once
 
@@ -207,6 +227,9 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // dynamic shared memory: the tile and the X slab, 128 KB
 constexpr int SMEM = (BLK * BLK + BLK * FT) * static_cast<int>(sizeof(float));
+// with occupancy words: the tile and two X slabs, 192 KB
+constexpr int SMEM_WORDS = SMEM + BLK * FT * static_cast<int>(sizeof(float));
+constexpr int MAX_WORD_QUADS = 8;               // nq^2 bits in 64
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
                                            int src_bytes) {
@@ -402,6 +425,28 @@ __device__ __forceinline__ void round_slab(float* xs, int tid) {
   }
 }
 
+// round_slab with two values a conversion (cvt.rn.bf16x2.f32) under VEC:
+// the same values, half the conversion instructions.  Only the words walk
+// takes it: every walk without words keeps round_slab, so that it builds
+// to the code, registers and times it had before the words (ROADMAP.md
+// §2 has round_slab become this form once those walks are re-measured)
+template <bool VEC>
+__device__ __forceinline__ void round_slab_pairs(float* xs, int tid) {
+  if (!VEC) {
+    round_slab<false>(xs, tid);
+    return;
+  }
+  for (int q = tid; q < BLK * FT / 4; q += THREADS) {
+    float4* p = reinterpret_cast<float4*>(xs) + q;
+    const float4 v = *p;
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+    const uint32_t ua = *reinterpret_cast<const uint32_t*>(&a);
+    const uint32_t ub = *reinterpret_cast<const uint32_t*>(&b);
+    *p = make_float4(bf16_lo(ua), bf16_hi(ua), bf16_lo(ub), bf16_hi(ub));
+  }
+}
+
 // The identity hook: an entry's value is the entry (every walk but K7's)
 struct Plain {
   static constexpr int SMEM = 0;                // floats of shared memory
@@ -490,6 +535,92 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
   }
 }
 
+// acc += the rows walk of tile row r's run row_splits[r] .. row_splits[r+1]
+// over the live quadrants (h, q) of each tile, by the occupancy words (the
+// header's WORDS): quadrant (h, q) of tile k against X's 128-row slab
+// cols[k] nq + q, in ascending (slot, q) order.  smem holds the tile and
+// two slabs.  Called by every thread of the CTA (the walk is uniform).
+template <bool VEC, class T, bool ROUND_X>
+__device__ __forceinline__ void walk_live(
+    const T* __restrict__ blocks, const int32_t* __restrict__ row_splits,
+    const int32_t* __restrict__ cols, const uint64_t* __restrict__ words,
+    const float* __restrict__ x, float* smem, int64_t r, int h, int nq,
+    int64_t f0, int64_t feat, int tid, float (&acc)[ROWS][FL]) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row0 = warp * ROWS;
+  float* as = smem;
+  float* const xs[2] = {smem + BLK * BLK, smem + BLK * BLK + BLK * FT};
+  const int64_t edge = static_cast<int64_t>(nq) * BLK;
+  const unsigned row_bits = (1u << nq) - 1;
+  const int end = row_splits[r + 1];
+  // slot k0 is the current one, m0 its live quadrants not yet walked (the
+  // current quadrant the lowest); slot k1's column and bits are read one
+  // slot ahead
+  int k0 = 0, col0 = 0, k1 = row_splits[r], col1 = 0;
+  unsigned m0 = 0, m1 = 0;
+  auto read = [&] {
+    if (k1 < end) {
+      col1 = cols[k1];
+      m1 = static_cast<unsigned>(words[k1] >> (h * nq)) & row_bits;
+    }
+  };
+  // on to the next slot with a live quadrant, if m0 has none left
+  auto seek = [&] {
+    while (m0 == 0 && k1 < end) {
+      k0 = k1;
+      col0 = col1;
+      m0 = m1;
+      ++k1;
+      read();
+    }
+  };
+  TileRegs<T> ch;
+  auto fetch = [&](int q) {
+    ch.template load<true>(blocks + k0 * edge * edge + h * BLK * edge
+                               + q * BLK, edge, warp, lane);
+  };
+  auto slab = [&](float* to, int q) {
+    start_slab<VEC>(to, x + (static_cast<int64_t>(col0) * nq + q) * BLK
+                               * feat, f0, feat, tid);
+  };
+  read();
+  seek();
+  if (m0 != 0) {
+    const int q = __ffs(m0) - 1;
+    slab(xs[0], q);
+    fetch(q);
+  }
+  // the current quadrant is in ch, its slab copy in flight into xs[buf]
+  for (int buf = 0; m0 != 0; buf ^= 1) {
+    // the last apply is done: the tile and slab buf ^ 1 may be overwritten
+    __syncthreads();
+    ch.store(as, warp, lane);
+    m0 &= m0 - 1;
+    seek();
+    if (m0 != 0) {
+      // the next live quadrant's slab and tile, in flight during the apply
+      const int q = __ffs(m0) - 1;
+      slab(xs[buf ^ 1], q);
+      fetch(q);
+    } else {
+      cp_async_commit();                        // an empty group
+    }
+    cp_async_wait<1>();                         // slab buf has landed
+    if (ROUND_X) round_slab_pairs<VEC>(xs[buf], tid);
+    __syncthreads();
+    // output row i takes tile row i: entries j = lane + 32m
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float e = as[swizzled(row0 + i, lane + 32 * m)];
+        apply(e, [&] { return e; }, m, 1.f, xs[buf], lane, acc[i]);
+      }
+    }
+  }
+}
+
 // The tile walk.  TRANS = false, rows orientation (K1, K2, K9, K10, K4,
 // K8 and K7f): out[r] = init[r] + sum_k A_k @ X[cols[k]] over the run
 // row_splits[r] .. row_splits[r+1]; sel and scale are unused (the callers
@@ -506,18 +637,25 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
 // above (block rows, cols, the diagonal blocks) counts in E; the walk
 // takes each tile as its nq x nq quadrants, and the hook sees 128-row
 // blocks (its begin and finish the output block, its tile step the
-// quadrant's partner slab).  Without QUAD, nq is 1 and unread.
+// quadrant's partner slab).  Without QUAD, nq is 1 and unread.  WORDS
+// (rows, QUAD, no DIAG, the Plain hook): words holds each tile's occupancy
+// word and the walk takes the live quadrants only (walk_live); otherwise
+// words is unread.
 template <bool TRANS, bool INIT, bool VEC, bool DIAG, class V, class T,
-          bool ROUND_X, bool QUAD>
+          bool ROUND_X, bool WORDS, bool QUAD>
 __global__ void __launch_bounds__(THREADS, 1)
 walk_kernel(const T* __restrict__ blocks,
             const int32_t* __restrict__ row_splits,
             const int32_t* __restrict__ sel,
             const int32_t* __restrict__ scale,
             const int32_t* __restrict__ cols,
+            const uint64_t* __restrict__ words,
             const float* __restrict__ x, const float* __restrict__ init,
             float* __restrict__ out, int64_t feat, int64_t slices, V val,
             int nq) {
+  static_assert(!WORDS || (QUAD && !TRANS && !DIAG
+                           && std::is_same<V, Plain>::value),
+                "occupancy words: the rows walk of quadrants, Plain hook");
   extern __shared__ __align__(16) float smem[];
   float* as = smem;                             // the swizzled tile
   float* xs = smem + BLK * BLK;                 // the X slab
@@ -544,6 +682,12 @@ walk_kernel(const T* __restrict__ blocks,
     }
   }
   val.begin(hs, ob, tid);
+  if (WORDS) {
+    walk_live<VEC, T, ROUND_X>(blocks, row_splits, cols, words, x, smem, r,
+                               h, nq, f0, feat, tid, acc);
+    store_rows(acc, out, ob, f0, row0, lane, feat);
+    return;
+  }
 
   // a slot's indices, read one step before they are used, so no load of
   // the walk waits on a load of an index
@@ -673,8 +817,11 @@ walk_kernel(const T* __restrict__ blocks,
 // nothing when either count is 0.  quads: the tiles' edge over 128
 // (num_row_blocks counts tile rows of that edge); above 1 the quadrant
 // walk, which only a launch with QUAD builds (K1, K2, K9, K8, K4, K4T,
-// K7f and K7bt's dx).
-// Returns cudaErrorInvalidValue for quads < 1, or > 1 without QUAD,
+// K7f and K7bt's dx).  words: the tiles' occupancy words, or null; given,
+// the walk of the live quadrants (SMEM_WORDS bytes), which only a launch
+// with WORDS builds (K1, K2 and K9).
+// Returns cudaErrorInvalidValue for quads < 1, or > 1 without QUAD, and
+// for words without WORDS or with quads outside 2 .. MAX_WORD_QUADS,
 // cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
 // else cudaGetLastError() after the launch.  The vector slab copy is
 // chosen on x's alignment; the kernel chooses the vector init load on
@@ -682,18 +829,24 @@ walk_kernel(const T* __restrict__ blocks,
 // the tile type, comes from blocks, which must start on a 16-byte
 // boundary; ROUND_X (bf16 tiles only) rounds x to bf16.
 template <bool TRANS, bool INIT, bool DIAG = false, bool ROUND_X = false,
-          bool QUAD = false, class T = float, class V = Plain>
+          bool QUAD = false, class T = float, class V = Plain,
+          bool WORDS = false>
 cudaError_t launch(const T* blocks, const int32_t* row_splits,
                    const int32_t* sel, const int32_t* scale,
                    const int32_t* cols, const float* x, const float* init,
                    float* out, int64_t num_row_blocks, int64_t feat,
-                   cudaStream_t stream, V val = V{}, int quads = 1) {
+                   cudaStream_t stream, V val = V{}, int quads = 1,
+                   const uint64_t* words = nullptr) {
   static_assert(std::is_same<T, float>::value
                 || std::is_same<T, __nv_bfloat16>::value,
                 "tiles are f32 or bf16");
   static_assert(!ROUND_X || std::is_same<T, __nv_bfloat16>::value,
                 "x is rounded to bf16 for bf16 tiles only");
   if (quads < 1 || (quads > 1 && !QUAD)) return cudaErrorInvalidValue;
+  const bool with_words = words != nullptr;
+  if (with_words && (!WORDS || quads < 2 || quads > MAX_WORD_QUADS)) {
+    return cudaErrorInvalidValue;
+  }
   if (num_row_blocks > 0 && feat > 0) {
     const int64_t slices = (feat + FT - 1) / FT;
     const int64_t ctas = num_row_blocks * quads * slices;
@@ -701,21 +854,28 @@ cudaError_t launch(const T* blocks, const int32_t* row_splits,
     const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0
                      && feat % 4 == 0;
     const auto kernel =
-        quads > 1
-            ? (vec ? walk_kernel<TRANS, INIT, true, DIAG, V, T, ROUND_X, QUAD>
+        with_words
+            ? (vec ? walk_kernel<TRANS, INIT, true, DIAG, V, T, ROUND_X,
+                                 WORDS, QUAD>
                    : walk_kernel<TRANS, INIT, false, DIAG, V, T, ROUND_X,
-                                 QUAD>)
+                                 WORDS, QUAD>)
+        : quads > 1
+            ? (vec ? walk_kernel<TRANS, INIT, true, DIAG, V, T, ROUND_X,
+                                 false, QUAD>
+                   : walk_kernel<TRANS, INIT, false, DIAG, V, T, ROUND_X,
+                                 false, QUAD>)
             : (vec ? walk_kernel<TRANS, INIT, true, DIAG, V, T, ROUND_X,
-                                 false>
+                                 false, false>
                    : walk_kernel<TRANS, INIT, false, DIAG, V, T, ROUND_X,
-                                 false>);
-    const int bytes = SMEM + V::SMEM * static_cast<int>(sizeof(float));
+                                 false, false>);
+    const int bytes = (with_words ? SMEM_WORDS : SMEM)
+                      + V::SMEM * static_cast<int>(sizeof(float));
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (set != cudaSuccess) return set;
     kernel<<<static_cast<unsigned>(ctas), THREADS, bytes, stream>>>(
-        blocks, row_splits, sel, scale, cols, x, init, out, feat, slices,
-        val, quads);
+        blocks, row_splits, sel, scale, cols, words, x, init, out, feat,
+        slices, val, quads);
   }
   return cudaGetLastError();
 }

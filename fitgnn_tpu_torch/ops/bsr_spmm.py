@@ -35,6 +35,15 @@ gathered X slabs, then ``index_add_`` over block rows).  Each has its own
 128-wide only) the walk takes each tile as 128-wide quadrants, and the
 same counts count it.
 
+Occupancy words: above 128 (up to 1024) a ``BsrMatrix`` makes
+``quad_bits`` of its tiles when it is built, one int64 a tile with bit
+``i·nq + j`` set where quadrant (i, j) of 128 × 128 holds a non-zero
+(``quad_words``; ``nq = block / 128``), the transpose its own.  K1, K2
+and K9 hand them to the walk, which then reads and applies the live
+quadrants alone; the plain versions apply the same quadrants.  A
+``BsrMatrix`` built with ``words=False`` (``quad_bits`` None) walks every
+quadrant.
+
 bf16 tiles: each wrapper launches the walk's bf16 form on them (the C
 entries ending in ``_bf16``) and counts it in ``launches_bf16``.  The
 rounding is the Pallas kernels': K1, K2 and K9 round ``x`` to bf16 and sum
@@ -76,6 +85,17 @@ class BsrMatrix:
     group: int = 1              # every row's run padded to a multiple (K9)
     einsum: bool = False        # the einsum layout: no coverage fillers
     block: int = BLOCK          # tile edge E, a multiple of 128
+    words: bool = True          # occupancy words for the walk (E > 128)
+    # (K,) int64 occupancy words of ``blocks`` (``quad_words``), or None
+    quad_bits: Optional[torch.Tensor] = dataclasses.field(init=False,
+                                                          default=None)
+
+    def __post_init__(self):
+        # The words are made of the tiles here and nowhere else, so a new
+        # ``blocks`` (``dataclasses.replace``, ``.to``) gets its own; a
+        # cache's packed tiles (not a tensor) get none until unpacked.
+        if self.words and isinstance(self.blocks, torch.Tensor):
+            self.quad_bits = quad_words(self.blocks, self.block)
 
     @property
     def bf16(self) -> bool:
@@ -106,6 +126,20 @@ def check_block(block: int) -> None:
                          f"multiple of {BLOCK}")
 
 
+def quad_words(blocks: torch.Tensor, block: int) -> Optional[torch.Tensor]:
+    """The occupancy words of (K, block, block) tiles: (K,) int64, bit
+    ``i·nq + j`` set where 128 × 128 quadrant (i, j) holds an entry that
+    the walk's vote counts (``e != 0``: −0 is zero, NaN counts; on bf16
+    tiles the same as the bits other than the sign), ``nq = block / 128``.
+    None at 128 and above 1024 (nq² > 64 bits)."""
+    nq = block // BLOCK
+    if not 1 < nq <= 8:
+        return None
+    live = (blocks != 0).reshape(-1, nq, BLOCK, nq, BLOCK).any(4).any(2)
+    shift = torch.arange(nq * nq, dtype=torch.int64, device=blocks.device)
+    return (live.reshape(-1, nq * nq).long() << shift).sum(1)
+
+
 def build_bsr(senders: np.ndarray, receivers: np.ndarray, weight: np.ndarray,
               num_nodes_padded: int, block: int = BLOCK,
               with_transpose: bool = True, *, tile_dtype=None,
@@ -114,7 +148,9 @@ def build_bsr(senders: np.ndarray, receivers: np.ndarray, weight: np.ndarray,
     """Host-side BCSR construction from a COO edge list (numpy): the same
     blocks, rows, cols and row_splits as the JAX package's ``build_bsr``
     with the same ``block``, ``tile_dtype``, ``rowwalk``, ``group`` and
-    ``einsum``, and a transpose built with the same edge and flags.
+    ``einsum``, and a transpose built with the same edge and flags;
+    above 128 each direction's occupancy words (``quad_words``) of its
+    tiles in their final type, fillers and pads included.
     ``block`` must be a multiple of 128 (``ValueError``), and 128 under
     ``rowwalk``, as the JAX package's row walk refuses another edge.
 
@@ -203,12 +239,34 @@ def _tile_sum(b: BsrMatrix, x: torch.Tensor,
               out: torch.Tensor) -> torch.Tensor:
     """``out += A·x`` in place on an (N_pad, F) ``out``: gather the (K,
     block, F) X slabs, one batched matmul, ``index_add_`` over block rows;
-    x rounded as the walk rounds it, the tiles widened to x's type."""
+    x rounded as the walk rounds it, the tiles widened to x's type.  With
+    occupancy words, the (L, 128, 128) live quadrants alone against their
+    128-row slabs, as the walk applies them."""
+    if b.quad_bits is not None:
+        return _quad_sum(b, round_x(b, x), out)
     n, feat = x.shape
     xb = round_x(b, x).reshape(b.num_col_blocks, b.block, feat)
     prod = torch.bmm(b.blocks.to(x.dtype), xb.index_select(0, b.cols.long()))
     return out.reshape(b.num_row_blocks, b.block, feat).index_add_(
         0, b.rows.long(), prod).reshape(n, feat)
+
+
+def _quad_sum(b: BsrMatrix, x: torch.Tensor,
+              out: torch.Tensor) -> torch.Tensor:
+    """``_tile_sum`` over the quadrants whose bit is set in ``b.quad_bits``
+    (x already rounded): quadrant (i, j) of tile k adds its product with
+    128-row slab ``cols[k]·nq + j`` into 128-row block ``rows[k]·nq + i``."""
+    n, feat = x.shape
+    nq = b.block // BLOCK
+    shift = torch.arange(nq * nq, device=b.quad_bits.device)
+    k, ij = ((b.quad_bits.unsqueeze(1) >> shift) & 1).nonzero(as_tuple=True)
+    i, j = ij // nq, ij % nq
+    tiles = b.blocks.reshape(-1, nq, BLOCK, nq, BLOCK)[k, i, :, j, :]
+    slabs = x.reshape(-1, BLOCK, feat).index_select(
+        0, b.cols.long()[k] * nq + j)
+    return out.reshape(-1, BLOCK, feat).index_add_(
+        0, b.rows.long()[k] * nq + i,
+        torch.bmm(tiles.to(x.dtype), slabs)).reshape(n, feat)
 
 
 def bsr_spmm_acc_plain(b: BsrMatrix, x: torch.Tensor,
@@ -255,6 +313,11 @@ def _operands(b: BsrMatrix, x: torch.Tensor, what: str,
                     torch.bfloat16 if b.bf16 else torch.float32, dev)
     kernels.require(b.row_splits, "row_splits", torch.int32, dev)
     kernels.require(b.cols, "cols", torch.int32, dev)
+    if b.quad_bits is not None:
+        kernels.require(b.quad_bits, "quad_bits", torch.int64, dev)
+        if b.quad_bits.shape != (b.nnz_blocks,):
+            raise ValueError(f"{what}: quad_bits {tuple(b.quad_bits.shape)}"
+                             f" is not ({b.nnz_blocks},)")
     if b.blocks.data_ptr() % 16:
         raise ValueError(f"{what}: blocks must be 16-byte aligned")
     if b.blocks.shape[1:] != (b.block, b.block):
@@ -263,25 +326,28 @@ def _operands(b: BsrMatrix, x: torch.Tensor, what: str,
     return dev
 
 
-# blocks, row_splits, cols, x, [init,] out, num_row_blocks, feat, block,
-# stream
+# blocks, row_splits, cols, words, x, [init,] out, num_row_blocks, feat,
+# block, stream
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
-_ARGS_ACC = [_PTR] * 6 + [_I64] * 3 + [_PTR]
-_ARGS_FWD = [_PTR] * 5 + [_I64] * 3 + [_PTR]
+_ARGS_ACC = [_PTR] * 7 + [_I64] * 3 + [_PTR]
+_ARGS_FWD = [_PTR] * 6 + [_I64] * 3 + [_PTR]
 
 
 def _launch(b: BsrMatrix, x: torch.Tensor, dev: torch.device, what: str,
             name: str, argtypes: list, ins: list) -> torch.Tensor:
     """Launch C entry ``name`` (its ``_bf16`` twin on bf16 tiles) on the
-    tile structure, the input tensors ``ins`` and a fresh output, then the
-    sizes and the tile edge."""
+    tile structure and its occupancy words (null without them), the input
+    tensors ``ins`` and a fresh output, then the sizes and the tile
+    edge."""
     out = torch.empty_like(x)
     launch = kernels.function("bsr_spmm", kernels.entry(name, b.blocks),
                               argtypes)
+    words = None if b.quad_bits is None else kernels.ptr(b.quad_bits)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(b.blocks), kernels.ptr(b.row_splits),
-                    kernels.ptr(b.cols), *(kernels.ptr(t) for t in ins),
-                    kernels.ptr(out), b.num_row_blocks, x.shape[1], b.block,
+                    kernels.ptr(b.cols), words,
+                    *(kernels.ptr(t) for t in ins), kernels.ptr(out),
+                    b.num_row_blocks, x.shape[1], b.block,
                     kernels.stream(dev))
     kernels.check(rc, what)
     return out

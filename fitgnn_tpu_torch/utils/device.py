@@ -33,7 +33,8 @@ def to_device(v, device):
 
 
 def dataclass_to(obj, device):
-    """``dataclasses.replace`` with every field moved to ``device``."""
+    """``dataclasses.replace`` with every field moved to ``device``; a
+    field that ``__post_init__`` makes is made anew of the moved ones."""
     return dataclasses.replace(obj, **{
         f.name: to_device(getattr(obj, f.name), device)
-        for f in dataclasses.fields(obj)})
+        for f in dataclasses.fields(obj) if f.init})

@@ -56,6 +56,23 @@ its alternatives, on one GPU.
   committed 4 give 64 rows a CTA at F <= 64).  Each is timed twice (in
   order, then in reverse).
 
+* The quadrant walk with occupancy words (K1, K2 and K9 at tile edge 256;
+  ``csrc/tile_sparse.cuh``'s ``walk_live``), on the bench graph's
+  operators at 256 (``build_optimized_graph`` for GCN, then
+  ``chip_smoke.block_operators``: threshold 48, and with ``tile_group=2``
+  for K9), f32 and bf16 tiles, F = 128 and 512: the walk without words
+  (null words: every quadrant read and voted on), the walk that skips the
+  empty quadrants but keeps the vote and starts the slab copy after it
+  ("skip only"), and the committed walk, which skips them and starts each
+  live quadrant's slab copy with its tile read ("skip + early slab"); on
+  bf16 tiles also the committed walk with the landed slab rounded one
+  value a conversion (``round_slab``) instead of two (``round_slab_pairs``;
+  "single"); in the order none, skip, early, single, single, early, skip,
+  none, each checked against the plain version and bit for bit against
+  the walk without words.
+  ``--quad-words-only`` runs this section alone, and prints the
+  ``ptxas`` registers of both words forms.
+
 Each alternative but the last K7 one and the old segment sum is the
 committed source with a few textual edits; all are built with ``nvcc``
 into ``build/fitgnn_tpu_torch/variants/``; the script fails if an edit no
@@ -74,6 +91,7 @@ the card's name and power limit, one line per shape, then one JSON line.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -84,8 +102,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import (cuda_ms, device_ms, make_graph,  # noqa
-                        ptxas_entries)
+from chip_smoke import (bf16_tiles, block_operators, cuda_ms,  # noqa
+                        device_ms, make_graph, ptxas_entries)
 from fitgnn_tpu_torch.ops import (att_bsr, bsr_dynamic, coo_segmm,  # noqa
                                   diag_spmm, kernels)
 from fitgnn_tpu_torch.ops.bsr_dynamic import build_dyn_plan  # noqa
@@ -506,6 +524,155 @@ SEGMM_VARIANTS = {
     "8 rows a group": _set("ROWS", 8)}
 
 
+# the walk of the live quadrants with the vote kept and the slab copy
+# after it, one slab buffer (the committed walk_live starts the next live
+# quadrant's slab copy with its tile read, double-buffered)
+SKIP_ONLY = [('''  if (m0 != 0) {
+    const int q = __ffs(m0) - 1;
+    slab(xs[0], q);
+    fetch(q);
+  }
+  // the current quadrant is in ch, its slab copy in flight into xs[buf]
+  for (int buf = 0; m0 != 0; buf ^= 1) {
+    // the last apply is done: the tile and slab buf ^ 1 may be overwritten
+    __syncthreads();
+    ch.store(as, warp, lane);
+    m0 &= m0 - 1;
+    seek();
+    if (m0 != 0) {
+      // the next live quadrant's slab and tile, in flight during the apply
+      const int q = __ffs(m0) - 1;
+      slab(xs[buf ^ 1], q);
+      fetch(q);
+    } else {
+      cp_async_commit();                        // an empty group
+    }
+    cp_async_wait<1>();                         // slab buf has landed
+''', '''  if (m0 != 0) fetch(__ffs(m0) - 1);
+  for (const int buf = 0; m0 != 0;) {
+    const bool any = __syncthreads_or(ch.any());
+    if (any) {
+      ch.store(as, warp, lane);
+      slab(xs[buf], __ffs(m0) - 1);
+    }
+    m0 &= m0 - 1;
+    seek();
+    if (m0 != 0) fetch(__ffs(m0) - 1);
+    if (!any) continue;
+    cp_async_wait<0>();
+''')]
+
+# the committed words walk with the bf16 slab rounded one value a
+# conversion, as the walks without words round it
+ROUND_SINGLE = [("    if (ROUND_X) round_slab_pairs<VEC>(xs[buf], tid);",
+                 "    if (ROUND_X) round_slab<VEC>(xs[buf], tid);")]
+
+# the C entries of the words section: (wrapper ID, entry, argtypes, init)
+QUAD_ENTRIES = (("K1", "fitgnn_bsr_spmm_acc", "_ARGS_ACC", True),
+                ("K2", "fitgnn_bsr_spmm", "_ARGS_FWD", False),
+                ("K9", "fitgnn_bsr_spmm_grouped", "_ARGS_FWD", False))
+
+
+def quadwords_section(dev) -> tuple:
+    """The walk with occupancy words, committed against skip only, null
+    words and (bf16) the slab rounded singly (the module docstring says
+    which); returns the rows and the words forms' registers."""
+    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+    from fitgnn_tpu_torch.ops import bsr_spmm as bsr
+
+    libs = build_libraries({name: ({
+        "tile_sparse.cuh": edited(read("tile_sparse.cuh"), edits),
+        "bsr_spmm.cu": read("bsr_spmm.cu")}, "bsr_spmm.cu")
+        for name, edits in (("quad_skip_only", SKIP_ONLY),
+                            ("quad_round_single", ROUND_SINGLE))})
+    kernels.build([t for t in kernels.TARGETS if t.name == "bsr_spmm"])
+    regs = {}
+    for form, log in (("skip only", os.path.join(
+            OUT, "quad_skip_only", "libquad_skip_only.log")),
+            ("bf16 slab rounded singly", os.path.join(
+                OUT, "quad_round_single", "libquad_round_single.log")),
+            ("skip + early slab", next(t.log_path for t in kernels.TARGETS
+                                       if t.name == "bsr_spmm"))):
+        # the words forms: WORDS and QUAD, the last two flags
+        for k, n, spill in ptxas_entries(log):
+            if "walk_kernel" in k and k.replace(" ", "").endswith(
+                    "true,true>"):
+                regs[f"{form}: {k}"] = (n, spill)
+    x, s, r, y, train = make_graph()
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                 layer_name="GCNConv", seed=0)
+    ops = {k: h for k, h in block_operators(g).items()
+           if k in ("t48", "group2")}
+    n = g.num_nodes_padded
+    del g
+    gen = torch.Generator(device=dev).manual_seed(21)
+    stream = kernels.stream(dev)
+    results = []
+    for tt in ("f32", "bf16"):
+        for name, h in ops.items():
+            b = (bf16_tiles(h) if tt == "bf16" else h).bsr.to(dev)
+            for k, entry, args, with_init in QUAD_ENTRIES:
+                if (k == "K9") != (name == "group2"):
+                    continue
+                fns = {f: c_function(libs[lib], kernels.entry(entry,
+                                                              b.blocks),
+                                     getattr(bsr, args))
+                       for f, lib in (("skip", "quad_skip_only"),
+                                      ("single", "quad_round_single"))}
+                wrapper = {"K1": bsr.bsr_spmm_acc, "K2": bsr.bsr_spmm_fwd,
+                           "K9": bsr.bsr_spmm_grouped}[k]
+                nowords = dataclasses.replace(b, words=False)
+                for feat in (128, 512):
+                    xx = torch.randn((n, feat), generator=gen, device=dev)
+                    ins = [xx]
+                    if with_init:
+                        ins.append(torch.randn((n, feat), generator=gen,
+                                               device=dev))
+
+                    def variant(f):
+                        def run():
+                            out = torch.empty_like(xx)
+                            kernels.check(fns[f](
+                                kernels.ptr(b.blocks),
+                                kernels.ptr(b.row_splits),
+                                kernels.ptr(b.cols), kernels.ptr(b.quad_bits),
+                                *(kernels.ptr(t) for t in ins),
+                                kernels.ptr(out), b.num_row_blocks, feat,
+                                b.block, stream), f"{k} {f}")
+                            return out
+                        return run
+
+                    forms = {"none": lambda: wrapper(nowords, *ins),
+                             "skip": variant("skip"),
+                             "early": lambda: wrapper(b, *ins)}
+                    if tt == "bf16":
+                        forms["single"] = variant("single")
+                    plain = (bsr.bsr_spmm_acc_plain(b, *ins) if with_init
+                             else bsr.bsr_spmm_plain(b, *ins))
+                    got = {f: run() for f, run in forms.items()}
+                    for f, out in got.items():
+                        check(f"{k}@256 {tt} F={feat} {f}", out, plain)
+                        if not torch.equal(out, got["none"]):
+                            raise RuntimeError(f"{k}@256 {tt} F={feat} {f}:"
+                                               " not the walk without words "
+                                               "bit for bit")
+                    times = {f: [] for f in forms}
+                    order = ("none", "skip", "early", "single")
+                    for f in order + order[::-1]:
+                        if f in forms:
+                            times[f].append(ms(forms[f]))
+                    results.append({
+                        "kernel": f"{k}@256", "tiles": tt, "operator": name,
+                        "F": feat, **{f"{f}_ms": sum(v) / len(v)
+                                      for f, v in times.items()},
+                        "runs_ms": times})
+                    print(results[-1])
+                    del xx, ins, got, plain
+            del b, nowords
+            torch.cuda.empty_cache()
+    return results, regs
+
+
 def segmm_section(dev) -> list:
     """The segment sum's forms, old against new, then the design's steps
     (the module docstring says which)."""
@@ -650,6 +817,11 @@ def main() -> int:
     if "--segmm-only" in sys.argv[1:]:
         print(json.dumps({"device": torch.cuda.get_device_name(0),
                           "results": segmm_section(dev)}))
+        return 0
+    if "--quad-words-only" in sys.argv[1:]:
+        rows, regs = quadwords_section(dev)
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "registers": regs, "results": rows}))
         return 0
     gen = torch.Generator(device=dev).manual_seed(0)
     results = []
@@ -845,8 +1017,11 @@ def main() -> int:
                            for k, f in diagnostics.items()}})
         print(results[-1])
     results.extend(segmm_section(dev))
+    rows, quad_regs = quadwords_section(dev)
+    results.extend(rows)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "registers": regs, "results": results}))
+                      "registers": {**regs, **quad_regs},
+                      "results": results}))
     return 0
 
 

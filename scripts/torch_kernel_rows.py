@@ -12,8 +12,12 @@ own ``build/``.  The script builds every kernel, makes the bench graph
 operator at F=128 and 512) and phase 5's kernel rows (K2, K9, K10 and K8's
 four forms on the opt-in operators), each checked against its plain
 version, and prints ``ROWS {"checkout": ..., "rows": {"K1 F=512": ms,
-...}}``; with ``--edge256`` also phase 14's rows at tile edge 256 (K1, K2,
-K9, K8 and their bf16 forms; a checkout from before that phase has none).
+...}}``, then ``DETAIL`` with each row's bound and library time and,
+where the checkout has them, the bound over every quadrant of a live
+tile beside a walk's bound over the live quadrants (``bound_tiles_ms``)
+and the walk without occupancy words (``nowords_ms``); with ``--edge256`` also phase 14's rows at tile edge
+256 (K1, K2, K9, K8 and their bf16 forms; a checkout from before that
+phase has none).
 With ``--gat`` also phase 3's GAT rows (K4, K4ᵀ and K5 on the
 ``att_unit`` operator at F=128 and 512), and with both flags phase 15's
 (K4, K4ᵀ and K5 at tile edge 256, where the checkout has that phase).
@@ -72,9 +76,13 @@ def main() -> int:
                 shapes.update(cs.phase_gat_fused_block_kernels(device, ops))
             ids += [f"{k}@{cs.EDGE}" for k in cs.GAT_EDGE_IDS]
     rows = {f"{k} {sh.get('shape') or 'F=%s' % sh['F']}"
-            f"{' ' + sh['launch'] if 'launch' in sh else ''}": sh["ms"]
+            f"{' ' + sh['launch'] if 'launch' in sh else ''}": sh
             for k in ids if k in shapes for sh in shapes[k]}
-    print("ROWS " + json.dumps({"checkout": root, "rows": rows}))
+    print("ROWS " + json.dumps({"checkout": root, "rows": {
+        k: sh["ms"] for k, sh in rows.items()}}))
+    keys = ("bound_ms", "bound_tiles_ms", "library_ms", "nowords_ms")
+    print("DETAIL " + json.dumps({"checkout": root, "rows": {
+        k: {f: sh[f] for f in keys if f in sh} for k, sh in rows.items()}}))
     return 0
 
 

@@ -3,6 +3,7 @@
 
     python3 scripts/torch_train_profile.py      # from the repository root
     python3 scripts/torch_train_profile.py --collapse-only   # the collapse
+    python3 scripts/torch_train_profile.py --block 256   # tiles of edge 256
 
 Builds the bench graph of ``chip_smoke.py`` (169,344 nodes, 128 features,
 40 classes, seed 0) through the port's ``build_optimized_graph`` for GCN
@@ -25,8 +26,14 @@ default path and under ``FITGNN_GAT_FUSED_TILES=1 FITGNN_GAT_SEGMM_DEN=1``,
 and SAGE and GIN under ``cluster_agg`` 2048 (the static collapse's
 product runs in cuBLAS, so it lands in the dense group; each static row
 also times the collapse term alone, ``_cluster_static_term`` forward at
-F=128 and forward and backward at F=512, as a step runs it).  For each
-it prints:
+F=128 and forward and backward at F=512, as a step runs it).
+``--block E`` profiles instead GCN with K11 on tiles of edge E (a
+multiple of 128; ``build_hybrid(block=E)`` on the reordered graph, as
+``bench.py``'s ``FITGNN_BENCH_BLOCK`` composes it and ``chip_smoke.py``'s
+phase 14 builds it): at threshold 48 (K1), at 48 with ``tile_group=2``
+(K9) and at 192 with ``use_diag`` (K8, then K1); the walks at E take the
+tiles as 128-wide quadrants and land in the same groups.  For each
+configuration it prints:
 
 * the step's time (``gc_train_step``: forward, masked NLL, backward, Adam)
   from CUDA events over 10 steps after 3 warm-ups, and the eval forward's
@@ -245,6 +252,10 @@ def main() -> int:
     if "--collapse-only" in sys.argv[1:]:
         profile_collapse(x, s, r, y, train, dev)
         return 0
+    if "--block" in sys.argv[1:]:
+        profile_block(int(sys.argv[sys.argv.index("--block") + 1]), x, s, r,
+                      y, train, dev)
+        return 0
     g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
                                  layer_name="GATConv", seed=0)
     g = g.to(dev)
@@ -304,6 +315,41 @@ def main() -> int:
     del own, configs
     profile_collapse(x, s, r, y, train, dev)
     return 0
+
+
+# the rows at another tile edge: (label, build_hybrid's options, the
+# rows-walk label)
+BLOCK_CONFIGS = (("threshold 48", dict(min_block_edges=48), K1),
+                 ("threshold 48 tile_group=2",
+                  dict(min_block_edges=48, tile_group=2),
+                  "K9 bsr_spmm_grouped"),
+                 ("threshold 192 use_diag",
+                  dict(min_block_edges=192, use_diag=True), K1))
+
+
+def profile_block(block: int, x, s, r, y, train, dev) -> None:
+    """GCN with K11 on each of ``BLOCK_CONFIGS``' operators at tile edge
+    ``block``, built on the reordered graph of ``build_optimized_graph``."""
+    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                 layer_name="GCNConv", seed=0)
+    for name, kw, walk in BLOCK_CONFIGS:
+        h = build_hybrid(g.senders.numpy(), g.receivers.numpy(),
+                         g.edge_weight.numpy(), g.num_nodes_padded,
+                         block=block, use_segmm=True, **kw)
+        info = {"block": block, "operator": kw, "tiles": h.bsr.nnz_blocks,
+                "diag_blocks": 0 if h.diag_blocks is None
+                else h.diag_blocks.shape[0],
+                "straggler_edges": h.num_coo_edges}
+        gd = g._replace(aux=h).to(dev)
+        out = profile_step("GCNConv", gd, dev,
+                           f"GCNConv K11 block {block} {name}", walk,
+                           fused_dropout=True, bit_dropout=False)
+        print(json.dumps({**info, **out}))
+        del gd, h
+        torch.cuda.empty_cache()
 
 
 # the collapse rows: (label, layer, build_optimized_graph's collapse, the

@@ -1304,10 +1304,10 @@ def _quad_operands(rng, kernel, case):
     * K9: the group-padded BCSR (group 3: every run gains zero pads);
     * K8: four diagonal blocks, block 2 all zero, block 1 the one the case
       edits.
-    Returns the operands, the 128-row output blocks of the dense tile
-    (empty unless "dense"), the output row the NaN must reach (None unless
-    "nan") and the 256-row output block that no non-zero reaches (None for
-    K9)."""
+    The BCSR's occupancy words are those of the edited tiles.  Returns
+    the operands, the 128-row output blocks of the dense tile (empty unless
+    "dense"), the output row the NaN must reach (None unless "nan") and the
+    256-row output block that no non-zero reaches (None for K9)."""
     rows_walk = kernel not in ("K8T", "K8Tinit")
     zero_block = None
     if kernel in _DIAG_WALKS:
@@ -1351,8 +1351,8 @@ def _quad_operands(rng, kernel, case):
     blocks = torch.from_numpy(blocks.astype(np.float32))
     if b is None:
         return blocks, dense_blocks, nan_row, zero_block
-    b.blocks = blocks
-    return b, dense_blocks, nan_row, zero_block
+    return (dataclasses.replace(b, blocks=blocks), dense_blocks, nan_row,
+            zero_block)
 
 
 @pytest.mark.parametrize("feat,aligned", [(40, True), (128, True),
@@ -1446,17 +1446,123 @@ def test_walk_entries_refuse_an_edge_they_do_not_walk(cuda, bf16):
                   tile_dtype=torch.bfloat16 if bf16 else None).to(cuda)
     x = torch.randn((512, 16), device=cuda)
     out = torch.zeros_like(x)
-    for name, block, want in (("fitgnn_bsr_spmm_rowwalk", 256, 1),
-                              ("fitgnn_bsr_spmm_rowwalk", 128, 0),
-                              ("fitgnn_bsr_spmm", 192, 1),
-                              ("fitgnn_bsr_spmm", 128, 0)):
+    # occupancy words (all quadrants live) where a case passes them: no
+    # entry has a words form at 128, and K10 has none at all
+    words = torch.full((b.nnz_blocks,), -1, dtype=torch.int64, device=cuda)
+    for name, block, w, want in (("fitgnn_bsr_spmm_rowwalk", 256, None, 1),
+                                 ("fitgnn_bsr_spmm_rowwalk", 128, None, 0),
+                                 ("fitgnn_bsr_spmm", 192, None, 1),
+                                 ("fitgnn_bsr_spmm", 128, None, 0),
+                                 ("fitgnn_bsr_spmm", 128, words, 1),
+                                 ("fitgnn_bsr_spmm_rowwalk", 128, words, 1)):
         fn = kernels.function("bsr_spmm", kernels.entry(name, b.blocks),
                               bsr_mod._ARGS_FWD)
         rc = fn(kernels.ptr(b.blocks), kernels.ptr(b.row_splits),
-                kernels.ptr(b.cols), kernels.ptr(x), kernels.ptr(out),
-                b.num_row_blocks, 16, block, kernels.stream(cuda))
+                kernels.ptr(b.cols), None if w is None else kernels.ptr(w),
+                kernels.ptr(x), kernels.ptr(out), b.num_row_blocks, 16,
+                block, kernels.stream(cuda))
         torch.cuda.synchronize()
-        assert rc == want, (name, block, rc)
+        assert rc == want, (name, block, w is not None, rc)
+
+
+# --- occupancy words: the walk of the live quadrants alone ----------------
+
+_WORD_WALKS = ("K1", "K2", "K9")
+
+
+def _words_case(rng, kernel, tile_type, feat, aligned, cuda):
+    """The quadrant walks' sparse operands (``_quad_operands``) on the
+    card in ``tile_type``, x (unaligned unless ``aligned``) and K1's
+    init."""
+    b, *_ = _quad_operands(rng, kernel, "sparse")
+    if tile_type == "bf16":
+        b = dataclasses.replace(b, blocks=b.blocks.to(torch.bfloat16))
+    x = torch.from_numpy(rng.standard_normal((1024, feat)).astype(
+        np.float32)).to(cuda)
+    ins = (x if aligned else _unaligned(x),)
+    if kernel == "K1":
+        ins += (torch.from_numpy(rng.standard_normal((1024, feat)).astype(
+            np.float32)).to(cuda),)
+    return b.to(cuda), ins
+
+
+@pytest.mark.parametrize("feat,aligned", [(40, False), (40, True),
+                                          (512, True)])
+@pytest.mark.parametrize("tile_type", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", _WORD_WALKS)
+def test_quadwords_walks_match_plain(cuda, kernel, tile_type, feat, aligned):
+    """K1, K2 and K9 at edge 256 with occupancy words (the live quadrants,
+    each one's slab copy started with its tile read): against their plain
+    versions with the words (at F=40 on an unaligned x, the 4-byte slab
+    copy), and bit for bit the walk without words (null words), which
+    reads and votes on every quadrant; each walk counts one launch."""
+    rng = np.random.default_rng(feat + 210)
+    b, ins = _words_case(rng, kernel, tile_type, feat, aligned, cuda)
+    walk, plain = _NONZERO_WALKS[kernel]
+    count = "launches_bf16" if tile_type == "bf16" else "launches"
+    before = getattr(walk, count)
+    with torch.inference_mode():
+        got = walk(b, *ins)
+        ref = plain(b, *ins)
+        without = walk(dataclasses.replace(b, words=False), *ins)
+    torch.cuda.synchronize()
+    assert getattr(walk, count) == before + 2
+    _close(got, ref)
+    assert torch.equal(got, without)
+
+
+@pytest.mark.parametrize("tile_type", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", _WORD_WALKS)
+def test_quadwords_cleared_bit_is_honoured(cuda, kernel, tile_type):
+    """A live quadrant whose bit is cleared is not applied, as the plain
+    version with those words leaves it out: its 128-row output block
+    changes, every other row stays bit for bit."""
+    rng = np.random.default_rng(221)
+    b, ins = _words_case(rng, kernel, tile_type, 128, True, cuda)
+    walk, plain = _NONZERO_WALKS[kernel]
+    lo = int(b.row_splits[1])                     # tile row 1's first tile
+    assert int(b.quad_bits[lo]) >> 3 & 1          # quadrant (1, 1) is live
+    cleared = dataclasses.replace(b)
+    cleared.quad_bits = b.quad_bits.clone()
+    cleared.quad_bits[lo] &= ~(1 << 3)
+    with torch.inference_mode():
+        full = walk(b, *ins)
+        got = walk(cleared, *ins)
+        ref = plain(cleared, *ins)
+    torch.cuda.synchronize()
+    _close(got, ref)
+    block = slice(3 * 128, 4 * 128)               # tile row 1, half 1
+    assert not torch.equal(got[block], full[block])
+    rest = torch.ones(got.shape[0], dtype=torch.bool, device=cuda)
+    rest[block] = False
+    assert torch.equal(got[rest], full[rest])
+
+
+@pytest.mark.parametrize("tile_type", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", _WORD_WALKS)
+def test_quadwords_inf_only_an_empty_quadrant_reaches(cuda, kernel,
+                                                      tile_type):
+    """The walk's divergence from the dense product (``ROADMAP.md`` §3): an
+    inf in x at a row that only empty quadrants reach (slab half 1 of tile
+    column 1, whose quadrant column 1 is cleared in every tile) leaves the
+    output finite, as the plain version with words does; the dense
+    product, the plain version without words, gives NaN there."""
+    rng = np.random.default_rng(231)
+    b, ins = _words_case(rng, kernel, tile_type, 128, True, cuda)
+    walk, plain = _NONZERO_WALKS[kernel]
+    blocks = b.blocks.clone()
+    blocks[b.cols == 1, :, 128:] = 0
+    b = dataclasses.replace(b, blocks=blocks)
+    x = ins[0].clone()
+    x[3 * 128 + 50] = float("inf")                # slab 2·1 + 1, row 50
+    ins = (x, *ins[1:])
+    with torch.inference_mode():
+        got = walk(b, *ins)
+        ref = plain(b, *ins)
+        dense = plain(dataclasses.replace(b, words=False), *ins)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ref).all()) and dense.isnan().any()
+    _close(got, ref)
 
 
 @pytest.mark.parametrize("use_diag", [False, True])

@@ -57,7 +57,11 @@ def test_walk_args_reads_flags_and_hook(trans, init, diag, hook, vec):
                                           ("__nv_bfloat16", "true"),
                                           ("__nv_bfloat16", "false"),
                                           ("float", "false, true"),
-                                          ("__nv_bfloat16", "true, true")])
+                                          ("__nv_bfloat16", "true, true"),
+                                          ("float", "false, false, true"),
+                                          ("float", "false, true, true"),
+                                          ("__nv_bfloat16",
+                                           "true, true, true")])
 @pytest.mark.parametrize("trans,init,diag,hook", [
     (False, False, False, "att::FwdScores"),
     (True, False, False, "att::DxScores"),
@@ -66,9 +70,9 @@ def test_walk_args_reads_flags_and_hook(trans, init, diag, hook, vec):
 def test_walk_args_reads_the_tile_type_forms(trans, init, diag, hook, tile,
                                              round_x):
     """The walk's names as ``nvcc`` gives them, with the tile type,
-    ROUND_X and QUAD after the hook (f32 and the bf16 forms, and the
-    quadrant walk of wider tiles), read as the same flags and hook, and
-    grouped as the name without them."""
+    ROUND_X, WORDS and QUAD after the hook (f32 and the bf16 forms, the
+    quadrant walk of wider tiles and its walk of the live quadrants), read
+    as the same flags and hook, and grouped as the name without them."""
     name = _walk(trans, init, True, diag, hook).replace(
         f"{hook}>", f"{hook}, {tile}, {round_x}>", 1)
     assert f", {tile}, {round_x}>" in name
