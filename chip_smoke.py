@@ -239,7 +239,12 @@ Phases (any failure exits non-zero before the result lines):
    passes) at edge 256 on ``pe``-like tile values at F=128 and 512, each
    against its plain version (tolerance as in phase 3) with its kernel,
    plain and library times (``torch.sparse.mm`` on the tiles' non-zeros;
-   K5's ``torch.bmm`` on pre-gathered slabs, TF32 off) and its bound;
+   K5's ``torch.bmm`` on pre-gathered slabs, TF32 off) and its bound; K4
+   and K4ᵀ walk the live quadrants of the plan's occupancy words (checked
+   against the mask's), are also held bit for bit against the walk
+   without words (timed beside them) and bounded over the live quadrants,
+   the slabs they reach and the output, the bound over every quadrant of
+   every tile beside it;
    then, every counter at 0 just before each run, one GAT
    ``gc_train_step`` and one eval forward at hidden 512 (dropout 0.5) on
    each operator under the default switches and under ``GLOBAL_MAX=0``,
@@ -267,9 +272,9 @@ Phases (any failure exits non-zero before the result lines):
    forms at edge 256 (``K1@256``, ``K1bf@256``, ``K4@256``, ``K7f@256``,
    ...) as their own entries (launches summed over the main-path phases 5
    to 16, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
-   K7sums, and K1, K2, K9 (their walks of the live quadrants), K5, K7f,
-   K7bt, K7s and K7sums at 256, with their ``ptxas`` register and spill
-   counts), then the ``ok`` line.
+   K7sums, and K1, K2, K9, K4, K4ᵀ (their walks of the live quadrants),
+   K5, K7f, K7bt, K7s and K7sums at 256, with their ``ptxas`` register
+   and spill counts), then the ``ok`` line.
 
 The JAX package's environment switches are set in ``os.environ`` for one
 phase and restored after it; the earlier phases must launch none of K6
@@ -692,13 +697,42 @@ def read_counts() -> dict:
     return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
+def dyn_live_quadrants(b, plan) -> tuple:
+    """The live 128-wide quadrants of a dynamic plan's occupancy words and
+    the distinct 128-row slabs they reach in each walk: (quadrants, slabs
+    of the forward walk, slabs of the transpose walk).  Fails unless the
+    words are the mask's own (``live_quadrants``) and each transpose
+    slot's word is that of its tile transposed (0 on a filler)."""
+    from fitgnn_tpu_torch.ops.bsr_spmm import quad_words
+
+    quads, slabs = live_quadrants(b)
+    check(torch.equal(plan.words, b.quad_bits),
+          "the plan's words are not the mask's")
+    tiles = b.blocks.index_select(0, plan.t_sel.long()).transpose(1, 2)
+    check(torch.equal(plan.t_words, torch.where(
+        plan.t_scale != 0, quad_words(tiles, b.block), 0)),
+        "the plan's transpose words are not its tiles' transposed")
+    del tiles
+    nq = b.block // 128
+    bits = (plan.words.unsqueeze(1) >> torch.arange(
+        nq * nq, device=plan.words.device)) & 1
+    k, ij = bits.nonzero(as_tuple=True)
+    t_slabs = torch.unique(b.rows.long()[k] * nq + ij // nq).numel()
+    return quads, slabs, t_slabs
+
+
 def dyn_kernel_rows(device, hd, gen, tag: str = "") -> dict:
     """K4, K4ᵀ (on the transpose plan) and K5 on the tiles of ``hd``, an
     ``att_unit`` operator on the card, at the tiles' edge, with
     attention-like values (positive on the mask, zero elsewhere) at F=128
     and 512: each against its plain version, with its kernel, plain and
-    library times and its bound.  Returns the rows by ID, ``tag`` ("" or
-    "@256") after each."""
+    library times and its bound.  Where the plan has occupancy words (edge
+    256), K4 and K4ᵀ walk their live quadrants: each also bit for bit
+    against the walk without words (timed beside it, ``nowords_ms``), with
+    its bound over the live quadrants, the slabs they reach and the
+    output, and the bound over every quadrant of every tile beside it
+    (``bound_tiles_ms``).  Returns the rows by ID, ``tag`` ("" or "@256")
+    after each."""
     from fitgnn_tpu_torch.ops.bsr_dynamic import (
         dyn_grad_blocks, dyn_grad_blocks_plain, dyn_tiles, dyn_tiles_plain,
         dyn_tiles_t, dyn_tiles_t_plain)
@@ -706,6 +740,13 @@ def dyn_kernel_rows(device, hd, gen, tag: str = "") -> dict:
     b, plan = hd.bsr, hd.dyn_plan
     n, edge = hd.num_nodes, b.block
     nb, k_all = n // edge, b.nnz_blocks
+    words = plan.words is not None
+    nowords = dataclasses.replace(plan, words=None, t_words=None)
+    if words:
+        quads, q_slabs, qt_slabs = dyn_live_quadrants(b, plan)
+        print(f"K4{tag}, K4T{tag}: {quads} live 128-wide quadrants of "
+              f"{k_all * (edge // 128) ** 2} in the occupancy words; "
+              f"{q_slabs} / {qt_slabs} distinct slabs they reach")
     mask = b.blocks > 0
     blocks = torch.where(mask, torch.rand(mask.shape, generator=gen,
                                           device=device), 0.0)
@@ -739,6 +780,14 @@ def dyn_kernel_rows(device, hd, gen, tag: str = "") -> dict:
                 torch.cuda.synchronize()
                 err4 = compare(f"K4{tag} dyn_tiles F={feat}", k4, p4)
                 err4t = compare(f"K4T{tag} dyn_tiles_t F={feat}", k4t, p4t)
+                if words:
+                    check(torch.equal(k4, dyn_tiles(b.rows, b.cols, nowords,
+                                                    blocks, x)),
+                          f"K4{tag} F={feat}: the walk with occupancy "
+                          "words is not the walk without them bit for bit")
+                    check(torch.equal(k4t, dyn_tiles_t(nowords, blocks, gr)),
+                          f"K4T{tag} F={feat}: the walk with occupancy "
+                          "words is not the walk without them bit for bit")
                 compare(f"K4{tag} library torch.sparse.mm F={feat}",
                         torch.sparse.mm(a_csr, x), p4)
                 compare(f"K4T{tag} library torch.sparse.mm F={feat}",
@@ -759,6 +808,32 @@ def dyn_kernel_rows(device, hd, gen, tag: str = "") -> dict:
                                                 + nb + 1) * 4
                                   + uniq_rows * edge * feat * 4
                                   + n * feat * 4, 2.0 * nnz * feat)
+                live4 = {}
+                if words:
+                    # with the words: each live quadrant (64 KiB), the
+                    # indices and words, the distinct 128-row slabs of the
+                    # live quadrants and the output; the bounds above, over
+                    # every quadrant of every tile, stay beside them
+                    kt = plan.t_sel.numel()
+                    bl4, byl4 = bound(
+                        quads * 128 * 128 * 4 + (k_all + nb + 1) * 4
+                        + k_all * 8 + q_slabs * 128 * feat * 4
+                        + n * feat * 4, 2.0 * nnz * feat)
+                    blt, bylt = bound(
+                        quads * 128 * 128 * 4 + (2 * kt + nb + 1) * 4
+                        + kt * 8 + qt_slabs * 128 * feat * 4
+                        + n * feat * 4, 2.0 * nnz * feat)
+                    live4 = {
+                        "K4": dict(
+                            bound_ms=bl4, bound_by=byl4, bound_tiles_ms=b4,
+                            live_quadrants=quads,
+                            nowords_ms=cuda_ms(lambda: dyn_tiles(
+                                b.rows, b.cols, nowords, blocks, x), 20)),
+                        "K4T": dict(
+                            bound_ms=blt, bound_by=bylt, bound_tiles_ms=b4t,
+                            live_quadrants=quads,
+                            nowords_ms=cuda_ms(lambda: dyn_tiles_t(
+                                nowords, blocks, gr), 20))}
                 # K5's output is every dense tile: 2·F FLOPs per entry,
                 # which the kernel computes as three TF32 passes on the
                 # tensor cores (hi/lo split); the same FLOPs on the f32
@@ -772,24 +847,24 @@ def dyn_kernel_rows(device, hd, gen, tag: str = "") -> dict:
                 gs = gr.reshape(nb, edge, feat).index_select(0,
                                                              b.rows.long())
                 xs = x.reshape(nb, edge, feat).index_select(0, b.cols.long())
-                out[f"K4{tag}"].append(dict(
+                out[f"K4{tag}"].append({**dict(
                     F=feat, **err4, bound_ms=b4, bound_by=by4,
                     ms=cuda_ms(lambda: dyn_tiles(b.rows, b.cols, plan,
                                                  blocks, x), 20),
                     plain_ms=cuda_ms(lambda: dyn_tiles_plain(
                         b.rows, b.cols, plan, blocks, x), 5),
                     library_ms=cuda_ms(lambda: torch.sparse.mm(a_csr, x),
-                                       20)))
+                                       20)), **live4.get("K4", {})})
                 # the GAT step at hidden 512 takes no dx in layer 0 (the
                 # raw features need no gradient): K4ᵀ runs at F=512 alone
-                out[f"K4T{tag}"].append(dict(
+                out[f"K4T{tag}"].append({**dict(
                     F=feat, on_path=feat == HIDDEN, **err4t, bound_ms=b4t,
                     bound_by=by4t,
                     ms=cuda_ms(lambda: dyn_tiles_t(plan, blocks, gr), 20),
                     plain_ms=cuda_ms(lambda: dyn_tiles_t_plain(
                         plan, blocks, gr), 5),
                     library_ms=cuda_ms(lambda: torch.sparse.mm(a_t_csr, gr),
-                                       20)))
+                                       20)), **live4.get("K4T", {})})
                 # no one PyTorch call gathers the slabs and multiplies
                 # them: the bmm of slabs gathered first stands in
                 out[f"K5{tag}"].append(dict(
@@ -806,9 +881,13 @@ def dyn_kernel_rows(device, hd, gen, tag: str = "") -> dict:
                 for k in ("K4", "K4T", "K5"):
                     sh = out[f"{k}{tag}"][-1]
                     print(f"  {k}{tag} F={feat}: kernel_ms={sh['ms']:.4f} "
-                          f"plain_ms={sh['plain_ms']:.4f} library_ms="
+                          + (f"nowords_ms={sh['nowords_ms']:.4f} "
+                             if "nowords_ms" in sh else "")
+                          + f"plain_ms={sh['plain_ms']:.4f} library_ms="
                           f"{sh['library_ms']:.4f} bound_ms="
-                          f"{sh['bound_ms']:.4f} ({sh['bound_by']})")
+                          f"{sh['bound_ms']:.4f} ({sh['bound_by']})"
+                          + (f" bound_tiles_ms={sh['bound_tiles_ms']:.4f}"
+                             if "bound_tiles_ms" in sh else ""))
                 print(f"  K5{tag} F={feat}: bound on the f32 CUDA cores "
                       f"{b5_cc:.4f} ms")
                 del x, gr, gs, xs
@@ -4864,17 +4943,22 @@ def main() -> int:
     # counts, two load widths each)
     for (k, *_), entry in zip(KERNELS, kernels_line["kernels"]):
         base, _, edge = k.partition("@")
-        if edge and base in ("K1", "K2", "K9", "K1bf", "K2bf", "K9bf"):
+        if edge and base in ("K1", "K2", "K9", "K1bf", "K2bf", "K9bf", "K4",
+                             "K4T"):
             # the walk of the live quadrants (WORDS, then QUAD): K1's from
-            # init, K2's and K9's from zero, x rounded on bf16 tiles
+            # init, K2's and K9's from zero, x rounded on bf16 tiles (the
+            # static walks' library); K4's rows and K4ᵀ's columns (the
+            # dynamic tiles' library)
             form = ("sparse::Plain,__nv_bfloat16,true,true,true>"
                     if base.endswith("bf") else
                     "sparse::Plain,float,false,true,true>")
+            lib = "bsr_dynamic" if base in ("K4", "K4T") else "bsr_spmm"
             entry["registers"] = {
                 kernel: {"registers": n, "spilled_bytes": spill}
-                for _, kernel, n, spill in regs
-                if kernel.replace(" ", "").endswith(form)
-                and walk_args(kernel)[1] == (base[:2] == "K1")}
+                for t, kernel, n, spill in regs
+                if t == lib and kernel.replace(" ", "").endswith(form)
+                and walk_args(kernel)[:2] == (base == "K4T",
+                                              base[:2] == "K1")}
             check(len(entry["registers"]) == 2,
                   f"{entry['name']}: no ptxas record of its words walk")
             print(f"{k} registers: {entry['registers']}")

@@ -76,6 +76,23 @@
 // register file.  At E = 256 the dense dB is 4x the work of a 128 tile, so
 // the tensor cores (three TF32 passes), not the bytes, bound K5 on the
 // bench graph.  At E = 128 (nq = 1) both are the kernels above, unchanged.
+//
+// Occupancy words (E > 128).  GAT's tile values are pe = where(mask,
+// exp(.), 0), zero wherever the att_unit mask is, so the mask's occupancy
+// words (its BsrMatrix's quad_bits, tile_sparse.cuh WORDS) cover every
+// non-zero of pe.  The plan carries them (ops/bsr_dynamic.py DynPlan:
+// words a forward tile, t_words a transpose slot, the tile's word with bit
+// i nq + j moved to j nq + i and 0 on a scale-0 filler), and
+// fitgnn_bsr_dyn_apply hands them to the walk: K4 and K4T then read and
+// apply only the quadrants whose bit is set, each one's slab copy started
+// with its tile read (walk_live, rows and columns), and give the walk
+// without words bit for bit.  Null words walk every quadrant.  The
+// contract: the words are the mask's, and blocks_dyn is zero on every
+// quadrant whose bit is clear.  The walk departs from the dense product
+// (the plain versions and _dyn_apply, which read no words) only on inputs
+// the main path never makes: a non-zero value in a cleared quadrant is
+// dropped, and an inf or NaN in x that only such quadrants reach stays
+// out of the output (ROADMAP.md §3).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -135,19 +152,23 @@ dyn_grad_blocks_kernel(const int32_t* __restrict__ rows,
 
 // blocks (K,block,block) f32, 16-byte aligned; row_splits
 // (num_row_blocks+1,) int32 slot range per output tile row; cols (slots,)
-// int32 input tile per slot; x, out (num_row_blocks*block, feat) f32.
-// trans != 0 reads each tile transposed: sel, scale (slots,) int32 are
-// then the tile read by a slot and its scale (0 = filler).  The forward
-// (trans == 0) reads tile k for slot k at scale 1 and passes sel and scale
-// as null.  block, the tile edge, is a multiple of 128; above 128 the walk
-// takes each tile as 128-wide quadrants (tile_sparse.cuh, QUAD), at 128 it
-// is the walk above.  All contiguous.  Returns cudaErrorInvalidValue for a
-// block that is not a multiple of 128, cudaErrorInvalidConfiguration when
-// the grid would exceed 2^31 - 1 CTAs, else cudaGetLastError() after the
-// launch.
+// int32 input tile per slot; words (slots,) int64 occupancy words or null;
+// x, out (num_row_blocks*block, feat) f32.  trans != 0 reads each tile
+// transposed: sel, scale (slots,) int32 are then the tile read by a slot
+// and its scale (0 = filler), and words[k] tile sel[k]'s word transposed
+// (0 where scale[k] is 0).  The forward (trans == 0) reads tile k for slot
+// k at scale 1, words[k] its word, and passes sel and scale as null.
+// block, the tile edge, is a multiple of 128; above 128 the walk takes
+// each tile as 128-wide quadrants (tile_sparse.cuh, QUAD), given words
+// only the live ones (WORDS); at 128 it is the walk above.  All
+// contiguous.  Returns cudaErrorInvalidValue for a block that is not a
+// multiple of 128 and for words at 128 or above 1024,
+// cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
+// else cudaGetLastError() after the launch.
 extern "C" int fitgnn_bsr_dyn_apply(const void* blocks, const void* row_splits,
                                     const void* sel, const void* scale,
-                                    const void* cols, const void* x, void* out,
+                                    const void* cols, const void* words,
+                                    const void* x, void* out,
                                     int64_t num_row_blocks, int64_t feat,
                                     int64_t block, int trans, void* stream) {
   if (block < BLK || block % BLK) {
@@ -156,19 +177,23 @@ extern "C" int fitgnn_bsr_dyn_apply(const void* blocks, const void* row_splits,
   const auto* b = static_cast<const float*>(blocks);
   const auto* rs = static_cast<const int32_t*>(row_splits);
   const auto* c = static_cast<const int32_t*>(cols);
+  const auto* w = static_cast<const uint64_t*>(words);
   const auto* xp = static_cast<const float*>(x);
   auto* op = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   const int nq = static_cast<int>(block / BLK);
+  using sparse::Plain;
   if (trans) {
-    return static_cast<int>(sparse::launch<true, false, false, false, true>(
-        b, rs, static_cast<const int32_t*>(sel),
-        static_cast<const int32_t*>(scale), c, xp, nullptr, op,
-        num_row_blocks, feat, s, sparse::Plain{}, nq));
+    return static_cast<int>(
+        sparse::launch<true, false, false, false, true, float, Plain, true>(
+            b, rs, static_cast<const int32_t*>(sel),
+            static_cast<const int32_t*>(scale), c, xp, nullptr, op,
+            num_row_blocks, feat, s, Plain{}, nq, w));
   }
-  return static_cast<int>(sparse::launch<false, false, false, false, true>(
-      b, rs, nullptr, nullptr, c, xp, nullptr, op, num_row_blocks, feat, s,
-      sparse::Plain{}, nq));
+  return static_cast<int>(
+      sparse::launch<false, false, false, false, true, float, Plain, true>(
+          b, rs, nullptr, nullptr, c, xp, nullptr, op, num_row_blocks, feat,
+          s, Plain{}, nq, w));
 }
 
 // rows, cols (num_tiles,) int32 tile-row and tile-column ids; g, x (*,

@@ -190,22 +190,32 @@
 // Occupancy words (WORDS).  build_bsr stores beside tiles wider than 128
 // one 64-bit word a tile, bit i nq + j set where quadrant (i, j) holds an
 // entry that the vote counts (f32 e != 0; bf16 the bits other than the
-// sign): nq <= 8.  A rows-orientation QUAD launch that is given them (K1,
-// K2 and K9 at 256, bsr_spmm.cu) walks the live quadrants of row h only
-// (walk_live): a slot carries the row's nq bits of its word, read with its
-// column one slot ahead, and an empty quadrant is never read, voted on or
-// waited for; a tile whose row holds no live quadrant (every one of K9's
-// pads) costs its two index reads.  The empty quadrants applied nothing,
-// so the output is the walk's without words, bit for bit.  Since every
+// sign): nq <= 8.  A QUAD launch of the Plain hook outside DIAG that is
+// given them (K1, K2 and K9 at 256, bsr_spmm.cu; K4 and K4T at 256,
+// bsr_dynamic.cu) walks the live quadrants of output half h only
+// (walk_live): a slot carries row h's nq bits of its word, read with its
+// column (and, in the columns orientation, its tile) one slot ahead, and
+// an empty quadrant is never read, voted on or waited for; a slot whose
+// row holds no live quadrant (every one of K9's pads, K4T's scale-0
+// fillers) costs its index reads.  The columns orientation (K4T) takes per
+// slot the word of tile sel[k] transposed, bit i nq + j moved to j nq + i
+// (the transpose plan's t_words, ops/bsr_dynamic.py), so that its row-h
+// bits are quadrants (q, h) of tile sel[k], the ones its output half h
+// reads; a scale-0 slot's word is 0, and the walk applies at scale 1.  The
+// empty quadrants applied nothing, and the live ones are taken in
+// ascending (slot, q) order as the walk without words takes them, so the
+// output is that walk's, bit for bit.  Since every
 // quadrant walked is live, no vote gates the slab copy: the X slab is
 // double-buffered (the tile and two slabs, 192 KiB), and the next live
 // quadrant's slab copy starts with its tile's register prefetch, before
 // the current quadrant is applied, as DIAG's does.  On bf16 tiles it
 // rounds the landed slab two values a conversion (round_slab_pairs).  A set bit on an empty
 // quadrant only costs its walk; a cleared bit on a live quadrant drops its
-// product, as the plain versions with words drop it.  WORDS is a template
-// flag: every launch without words (null words; K4, K4T, K7f, K7bt's dx,
-// K8, the columns walk, every walk at 128) builds the code above.
+// product, as the plain versions with words drop it (K4 and K4T's plain
+// versions read no words: there a value that only a cleared quadrant holds
+// is the walk's divergence, bsr_dynamic.cu).  WORDS is a template flag:
+// every launch without words (null words; K7f, K7bt's dx, K8, every walk
+// at 128) builds the code above.
 
 #pragma once
 
@@ -535,17 +545,21 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
   }
 }
 
-// acc += the rows walk of tile row r's run row_splits[r] .. row_splits[r+1]
-// over the live quadrants (h, q) of each tile, by the occupancy words (the
-// header's WORDS): quadrant (h, q) of tile k against X's 128-row slab
-// cols[k] nq + q, in ascending (slot, q) order.  smem holds the tile and
+// acc += the walk of tile row r's run row_splits[r] .. row_splits[r+1]
+// over the live quadrants of output half h, by the occupancy words (the
+// header's WORDS), in ascending (slot, q) order.  Rows (TRANS = false):
+// quadrant (h, q) of tile k against X's 128-row slab cols[k] nq + q; sel
+// is unread.  Columns (TRANS): quadrant (q, h) of tile sel[k], read
+// transposed, against slab cols[k] nq + q, at scale 1; words[k] is tile
+// sel[k]'s word transposed (0 on a scale-0 slot).  smem holds the tile and
 // two slabs.  Called by every thread of the CTA (the walk is uniform).
-template <bool VEC, class T, bool ROUND_X>
+template <bool TRANS, bool VEC, class T, bool ROUND_X>
 __device__ __forceinline__ void walk_live(
     const T* __restrict__ blocks, const int32_t* __restrict__ row_splits,
-    const int32_t* __restrict__ cols, const uint64_t* __restrict__ words,
-    const float* __restrict__ x, float* smem, int64_t r, int h, int nq,
-    int64_t f0, int64_t feat, int tid, float (&acc)[ROWS][FL]) {
+    const int32_t* __restrict__ sel, const int32_t* __restrict__ cols,
+    const uint64_t* __restrict__ words, const float* __restrict__ x,
+    float* smem, int64_t r, int h, int nq, int64_t f0, int64_t feat,
+    int tid, float (&acc)[ROWS][FL]) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int row0 = warp * ROWS;
@@ -555,13 +569,15 @@ __device__ __forceinline__ void walk_live(
   const unsigned row_bits = (1u << nq) - 1;
   const int end = row_splits[r + 1];
   // slot k0 is the current one, m0 its live quadrants not yet walked (the
-  // current quadrant the lowest); slot k1's column and bits are read one
-  // slot ahead
+  // current quadrant the lowest); slot k1's column, bits (and under TRANS
+  // its tile) are read one slot ahead
   int k0 = 0, col0 = 0, k1 = row_splits[r], col1 = 0;
+  int tile0 = 0, tile1 = 0;                     // TRANS: sel of k0, k1
   unsigned m0 = 0, m1 = 0;
   auto read = [&] {
     if (k1 < end) {
       col1 = cols[k1];
+      if (TRANS) tile1 = sel[k1];
       m1 = static_cast<unsigned>(words[k1] >> (h * nq)) & row_bits;
     }
   };
@@ -570,6 +586,7 @@ __device__ __forceinline__ void walk_live(
     while (m0 == 0 && k1 < end) {
       k0 = k1;
       col0 = col1;
+      if (TRANS) tile0 = tile1;
       m0 = m1;
       ++k1;
       read();
@@ -577,8 +594,13 @@ __device__ __forceinline__ void walk_live(
   };
   TileRegs<T> ch;
   auto fetch = [&](int q) {
-    ch.template load<true>(blocks + k0 * edge * edge + h * BLK * edge
-                               + q * BLK, edge, warp, lane);
+    if (TRANS) {
+      ch.template load<true>(blocks + tile0 * edge * edge + q * BLK * edge
+                                 + h * BLK, edge, warp, lane);
+    } else {
+      ch.template load<true>(blocks + k0 * edge * edge + h * BLK * edge
+                                 + q * BLK, edge, warp, lane);
+    }
   };
   auto slab = [&](float* to, int q) {
     start_slab<VEC>(to, x + (static_cast<int64_t>(col0) * nq + q) * BLK
@@ -609,13 +631,35 @@ __device__ __forceinline__ void walk_live(
     cp_async_wait<1>();                         // slab buf has landed
     if (ROUND_X) round_slab_pairs<VEC>(xs[buf], tid);
     __syncthreads();
-    // output row i takes tile row i: entries j = lane + 32m
+    if (TRANS) {
+      // output rows 4q .. 4q+3 take tile columns 4q .. 4q+3: one float4
+      // of each tile row j = lane + 32m, as the walk without words
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
+      for (int qd = 0; qd < ROWS / 4; ++qd) {
+        const int q = warp * (ROWS / 4) + qd;
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const float e = as[swizzled(row0 + i, lane + 32 * m)];
-        apply(e, [&] { return e; }, m, 1.f, xs[buf], lane, acc[i]);
+        for (int m = 0; m < 4; ++m) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              as + swizzled(lane + 32 * m, 4 * q));
+          apply(v.x, [&] { return v.x; }, m, 1.f, xs[buf], lane,
+                acc[4 * qd + 0]);
+          apply(v.y, [&] { return v.y; }, m, 1.f, xs[buf], lane,
+                acc[4 * qd + 1]);
+          apply(v.z, [&] { return v.z; }, m, 1.f, xs[buf], lane,
+                acc[4 * qd + 2]);
+          apply(v.w, [&] { return v.w; }, m, 1.f, xs[buf], lane,
+                acc[4 * qd + 3]);
+        }
+      }
+    } else {
+      // output row i takes tile row i: entries j = lane + 32m
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const float e = as[swizzled(row0 + i, lane + 32 * m)];
+          apply(e, [&] { return e; }, m, 1.f, xs[buf], lane, acc[i]);
+        }
       }
     }
   }
@@ -638,9 +682,9 @@ __device__ __forceinline__ void walk_live(
 // takes each tile as its nq x nq quadrants, and the hook sees 128-row
 // blocks (its begin and finish the output block, its tile step the
 // quadrant's partner slab).  Without QUAD, nq is 1 and unread.  WORDS
-// (rows, QUAD, no DIAG, the Plain hook): words holds each tile's occupancy
-// word and the walk takes the live quadrants only (walk_live); otherwise
-// words is unread.
+// (QUAD, no DIAG, the Plain hook; either orientation): words holds each
+// slot's occupancy word (under TRANS its tile's, transposed) and the walk
+// takes the live quadrants only (walk_live); otherwise words is unread.
 template <bool TRANS, bool INIT, bool VEC, bool DIAG, class V, class T,
           bool ROUND_X, bool WORDS, bool QUAD>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -653,9 +697,8 @@ walk_kernel(const T* __restrict__ blocks,
             const float* __restrict__ x, const float* __restrict__ init,
             float* __restrict__ out, int64_t feat, int64_t slices, V val,
             int nq) {
-  static_assert(!WORDS || (QUAD && !TRANS && !DIAG
-                           && std::is_same<V, Plain>::value),
-                "occupancy words: the rows walk of quadrants, Plain hook");
+  static_assert(!WORDS || (QUAD && !DIAG && std::is_same<V, Plain>::value),
+                "occupancy words: the walk of quadrants, Plain hook");
   extern __shared__ __align__(16) float smem[];
   float* as = smem;                             // the swizzled tile
   float* xs = smem + BLK * BLK;                 // the X slab
@@ -683,8 +726,8 @@ walk_kernel(const T* __restrict__ blocks,
   }
   val.begin(hs, ob, tid);
   if (WORDS) {
-    walk_live<VEC, T, ROUND_X>(blocks, row_splits, cols, words, x, smem, r,
-                               h, nq, f0, feat, tid, acc);
+    walk_live<TRANS, VEC, T, ROUND_X>(blocks, row_splits, sel, cols, words,
+                                      x, smem, r, h, nq, f0, feat, tid, acc);
     store_rows(acc, out, ob, f0, row0, lane, feat);
     return;
   }
@@ -817,9 +860,10 @@ walk_kernel(const T* __restrict__ blocks,
 // nothing when either count is 0.  quads: the tiles' edge over 128
 // (num_row_blocks counts tile rows of that edge); above 1 the quadrant
 // walk, which only a launch with QUAD builds (K1, K2, K9, K8, K4, K4T,
-// K7f and K7bt's dx).  words: the tiles' occupancy words, or null; given,
-// the walk of the live quadrants (SMEM_WORDS bytes), which only a launch
-// with WORDS builds (K1, K2 and K9).
+// K7f and K7bt's dx).  words: the slots' occupancy words (under TRANS the
+// transposed words of their tiles), or null; given, the walk of the live
+// quadrants (SMEM_WORDS bytes), which only a launch with WORDS builds (K1,
+// K2, K9, K4 and K4T; the Plain hook outside DIAG alone).
 // Returns cudaErrorInvalidValue for quads < 1, or > 1 without QUAD, and
 // for words without WORDS or with quads outside 2 .. MAX_WORD_QUADS,
 // cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,

@@ -25,6 +25,17 @@ tiles' shape (K5, which has no tile operand, from its ``block``).  Above
 them, K5 gives each its own CTA); an edge off the multiples of 128 raises
 ``ValueError``.
 
+Occupancy words: above 128 (up to 1024) a plan built with the mask's
+occupancy words (``build_dyn_plan(..., words=bsr.quad_bits)``, as
+``build_hybrid`` builds GAT's) carries them for both walks: ``words`` a
+forward tile, ``t_words`` a transpose slot (its tile's word transposed, 0
+on a filler).  K4 and K4ᵀ then read and apply the live quadrants alone
+(``csrc/tile_sparse.cuh`` ``walk_live``) and give the walk without words
+bit for bit, provided the tile values are zero wherever the mask's
+quadrant is empty, as GAT's ``where(mask, exp(·), 0)`` is
+(``bsr_spmm_dyn`` states the contract).  The plain versions read no words:
+they stay the JAX package's dense product.
+
 Each wrapper launches the hand-written kernel of ``csrc/bsr_dynamic.cu``
 on CUDA tensors (it replaces ``fitgnn_tpu/ops/pallas/bsr_dynamic.py``'s
 ``_make_dyn_kernel`` and ``_dB_kernel``; the source note there says what
@@ -37,12 +48,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from fitgnn_tpu_torch.ops import kernels
-from fitgnn_tpu_torch.ops.bsr_spmm import BLOCK, check_block
+from fitgnn_tpu_torch.ops.bsr_spmm import BLOCK, MAX_WORD_QUADS, check_block
 from fitgnn_tpu_torch.utils.device import dataclass_to
 
 
@@ -58,16 +70,43 @@ class DynPlan:
     t_cols: torch.Tensor        # (Kt,) int32 input block id
     t_row_splits: torch.Tensor  # (NB+1,) int32 slot range per out block
     row_splits: torch.Tensor    # (NB+1,) int32 forward tile range per row
+    # occupancy words of the tiles' 128-wide quadrants (edge 256 to 1024),
+    # or None: (K,) int64 a forward tile, bit i·nq + j for quadrant (i, j);
+    # (Kt,) int64 a transpose slot, its tile's word with bit i·nq + j moved
+    # to j·nq + i, 0 where t_scale is 0
+    words: Optional[torch.Tensor] = None
+    t_words: Optional[torch.Tensor] = None
 
     def to(self, device) -> "DynPlan":
         return dataclass_to(self, device)
 
 
-def build_dyn_plan(rows: np.ndarray, cols: np.ndarray, nb: int) -> DynPlan:
+def transpose_words(words: np.ndarray, nq: int) -> np.ndarray:
+    """Occupancy words of the transposed tiles: bit ``i·nq + j`` of each
+    (int64) word moved to ``j·nq + i``."""
+    u = np.asarray(words, dtype=np.int64).view(np.uint64)
+    out = np.zeros_like(u)
+    for i in range(nq):
+        for j in range(nq):
+            bit = (u >> np.uint64(i * nq + j)) & np.uint64(1)
+            out |= bit << np.uint64(j * nq + i)
+    return out.view(np.int64)
+
+
+def build_dyn_plan(rows: np.ndarray, cols: np.ndarray, nb: int,
+                   words=None, block: int = BLOCK) -> DynPlan:
     """Host-side: the transpose's slots sorted by their out block (the
     forward ``cols``), with zero-scale fillers so every out block is
     visited, exactly as the JAX package's ``build_dyn_plan``; plus the
-    CSR pointers of both walks.  ``rows`` must be sorted ascending."""
+    CSR pointers of both walks.  ``rows`` must be sorted ascending.
+
+    ``words``: the (K,) int64 occupancy words of the (K, block, block)
+    mask whose runtime values the walks will read (a ``BsrMatrix``'s
+    ``quad_bits``), or None; given, the plan carries them and their
+    transpose-slot form (``t_words``), which K4 and K4ᵀ then walk.  They
+    are None without words (as at edge 128 and above 1024, where a
+    ``BsrMatrix`` makes none); words at another edge raise
+    ``ValueError``."""
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     order = np.argsort(cols, kind="stable")
@@ -87,10 +126,24 @@ def build_dyn_plan(rows: np.ndarray, cols: np.ndarray, nb: int) -> DynPlan:
         return torch.from_numpy(np.asarray(a, dtype=np.int32))
 
     splits = np.arange(nb + 1)
-    return DynPlan(t_sel=i32(t_sel), t_scale=i32(t_scale),
+    plan = DynPlan(t_sel=i32(t_sel), t_scale=i32(t_scale),
                    t_rows=i32(t_rows), t_cols=i32(t_cols),
                    t_row_splits=i32(np.searchsorted(t_rows, splits)),
                    row_splits=i32(np.searchsorted(rows, splits)))
+    if words is not None:
+        nq = block // BLOCK
+        if block % BLOCK or not 1 < nq <= MAX_WORD_QUADS:
+            raise ValueError(f"build_dyn_plan: occupancy words need a tile "
+                             f"edge of 256 to {BLOCK * MAX_WORD_QUADS} in "
+                             f"steps of {BLOCK}, not {block}")
+        w = np.asarray(torch.as_tensor(words).cpu(), dtype=np.int64)
+        if w.shape != rows.shape:
+            raise ValueError(f"build_dyn_plan: words {w.shape} for "
+                             f"{len(rows)} tiles")
+        tw = np.where(t_scale != 0, transpose_words(w[t_sel], nq), 0)
+        plan.words = torch.from_numpy(w.copy())
+        plan.t_words = torch.from_numpy(tw.astype(np.int64))
+    return plan
 
 
 def _apply_plain(blocks, rows, cols, x, sel=None, scale=None,
@@ -129,9 +182,9 @@ def dyn_grad_blocks_plain(rows, cols, g, x,
     return torch.bmm(gb, xb.transpose(1, 2))
 
 
-# blocks, row_splits, sel, scale, cols, x, out, num_row_blocks, feat,
-# block, trans, stream
-_APPLY_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3
+# blocks, row_splits, sel, scale, cols, words, x, out, num_row_blocks,
+# feat, block, trans, stream
+_APPLY_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3
                    + [ctypes.c_int, ctypes.c_void_p])
 # rows, cols, g, x, dB, num_tiles, feat, block, stream
 _GRAD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [
@@ -162,8 +215,12 @@ def _check_operands(what: str, blocks, x, block: int,
     return dev
 
 
-def _launch_apply(what, blocks, row_splits, sel, scale, cols, x,
+def _launch_apply(what, blocks, row_splits, sel, scale, cols, words, x,
                   trans: bool) -> torch.Tensor:
+    """Launch K4 (K4ᵀ under ``trans``) on a fresh output; ``words`` the
+    slots' occupancy words or None (the walk of every quadrant).  Given
+    words, a tile edge the walk of the live quadrants does not take (128,
+    above 1024) raises: there is no fallback to the walk without them."""
     ints = [("row_splits", row_splits), ("cols", cols)]
     if sel is not None:
         ints += [("sel", sel), ("scale", scale)]
@@ -176,6 +233,11 @@ def _launch_apply(what, blocks, row_splits, sel, scale, cols, x,
     if row_splits.shape[0] != nb + 1:
         raise ValueError(f"{what}: row_splits has {row_splits.shape[0]} "
                          f"entries for {nb} block rows")
+    if words is not None:
+        kernels.require(words, "words", torch.int64, dev)
+        if words.shape != cols.shape:
+            raise ValueError(f"{what}: words {tuple(words.shape)} for "
+                             f"{cols.shape[0]} slots")
     out = torch.empty_like(x)
     launch = kernels.function("bsr_dynamic", "fitgnn_bsr_dyn_apply",
                               _APPLY_ARGTYPES)
@@ -184,7 +246,9 @@ def _launch_apply(what, blocks, row_splits, sel, scale, cols, x,
         rc = launch(kernels.ptr(blocks), kernels.ptr(row_splits),
                     null if sel is None else kernels.ptr(sel),
                     null if scale is None else kernels.ptr(scale),
-                    kernels.ptr(cols), kernels.ptr(x), kernels.ptr(out),
+                    kernels.ptr(cols),
+                    null if words is None else kernels.ptr(words),
+                    kernels.ptr(x), kernels.ptr(out),
                     nb, x.shape[1], block, int(trans), kernels.stream(dev))
     kernels.check(rc, what)
     return out
@@ -193,13 +257,14 @@ def _launch_apply(what, blocks, row_splits, sel, scale, cols, x,
 def dyn_tiles(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
               blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K4 forward, ``out[rows[k]] += blocks[k] @ x[cols[k]]`` from zero
-    (``rows`` sorted; the kernel walks ``plan.row_splits``): the CUDA
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    (``rows`` sorted; the kernel walks ``plan.row_splits``, and with
+    ``plan.words`` the live quadrants alone): the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         check_block(blocks.shape[-1])
         return dyn_tiles_plain(rows, cols, plan, blocks, x)
     out = _launch_apply("dyn_tiles", blocks, plan.row_splits, None, None,
-                        cols, x, trans=False)
+                        cols, plan.words, x, trans=False)
     dyn_tiles.launches += 1
     return out
 
@@ -207,14 +272,15 @@ def dyn_tiles(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
 def dyn_tiles_t(plan: DynPlan, blocks: torch.Tensor,
                 g: torch.Tensor) -> torch.Tensor:
     """K4 transposed, ``out[t_rows[k]] += t_scale[k]·blocks[t_sel[k]]ᵀ @
-    g[t_cols[k]]`` from zero: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    g[t_cols[k]]`` from zero (with ``plan.t_words`` the live quadrants
+    alone): the CUDA kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
     if g.device.type == "cpu":
         check_block(blocks.shape[-1])
         return dyn_tiles_t_plain(plan, blocks, g)
     out = _launch_apply("dyn_tiles_t", blocks, plan.t_row_splits,
-                        plan.t_sel, plan.t_scale, plan.t_cols, g,
-                        trans=True)
+                        plan.t_sel, plan.t_scale, plan.t_cols, plan.t_words,
+                        g, trans=True)
     dyn_tiles_t.launches += 1
     return out
 
@@ -278,8 +344,20 @@ def bsr_spmm_dyn(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     tiles, differentiable in ``blocks_dyn`` and ``x``.  ``rows`` must be
     sorted ascending and cover every block row (the static BSR's coverage
     fillers do; their dynamic values must be zero); ``plan =
-    build_dyn_plan(rows, cols, nb)``, nb counting block rows of E.  A
-    backward launches only what its inputs need: no K4ᵀ when ``x`` needs
-    no gradient."""
+    build_dyn_plan(rows, cols, nb[, words, block])``, nb counting block
+    rows of E.  A backward launches only what its inputs need: no K4ᵀ when
+    ``x`` needs no gradient.
+
+    With occupancy words in the plan (E of 256 to 1024; ``build_hybrid``
+    gives GAT's plan its ``att_unit`` mask's ``quad_bits``), the contract
+    is that ``blocks_dyn`` is zero on every 128-wide quadrant whose bit is
+    clear, as ``where(mask, exp(·), 0)`` is on the mask's empty quadrants.
+    K4 and K4ᵀ then skip those quadrants unread.  On CUDA tensors the
+    result departs from the dense product (the plain versions, the JAX
+    package's ``bsr_spmm_dyn``) only off that contract: a non-zero value
+    in a cleared quadrant is dropped, and an inf or NaN in ``x`` (or the
+    cotangent) that only such quadrants reach stays out of the output
+    (``ROADMAP.md`` §3).  K5 (``dblocks``) is unchanged: the dense
+    gradient of every tile."""
     return _BsrSpmmDyn.apply(rows, cols, plan, blocks_dyn.contiguous(),
                              x.contiguous())

@@ -68,6 +68,7 @@ from fitgnn_tpu_torch.ops import kernels
 from fitgnn_tpu_torch.utils.device import dataclass_to
 
 BLOCK = 128  # default node-block edge length: one dense tile
+MAX_WORD_QUADS = 8  # quadrants a side an int64 occupancy word covers
 
 
 @dataclasses.dataclass
@@ -133,7 +134,7 @@ def quad_words(blocks: torch.Tensor, block: int) -> Optional[torch.Tensor]:
     tiles the same as the bits other than the sign), ``nq = block / 128``.
     None at 128 and above 1024 (nq² > 64 bits)."""
     nq = block // BLOCK
-    if not 1 < nq <= 8:
+    if not 1 < nq <= MAX_WORD_QUADS:
         return None
     live = (blocks != 0).reshape(-1, nq, BLOCK, nq, BLOCK).any(4).any(2)
     shift = torch.arange(nq * nq, dtype=torch.int64, device=blocks.device)

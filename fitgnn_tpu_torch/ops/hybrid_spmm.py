@@ -16,7 +16,8 @@ the tiles on top of it.  The backward (``dx = Aᵀ·g``) is the same chain on
 the transpose structures, built as the JAX package builds them: K3 on
 ``t_segmm``, then K1 on ``bsr.transpose`` accumulating on it.  For GAT's
 ``att_unit`` operator the build also makes the dynamic-tile plan
-(``ops/bsr_dynamic.py``) that the attention tiles walk.
+(``ops/bsr_dynamic.py``) that the attention tiles walk, with the mask's
+occupancy words above edge 128.
 
 The JAX package's tile opt-ins, dispatched as its ``_hybrid_spmm_main``:
 
@@ -231,9 +232,12 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
     dyn_plan = None
     if semantics == "att_unit" and bsr is not None and not bsr.einsum:
         # the grid-walk tile order: rows sorted with coverage fillers, whose
-        # zero masks give zero attention tiles (the einsum layout has none)
+        # zero masks give zero attention tiles (the einsum layout has none);
+        # above 128 the mask's occupancy words, which cover every non-zero
+        # of the attention tiles where(mask, exp(.), 0)
         dyn_plan = build_dyn_plan(bsr.rows.numpy(), bsr.cols.numpy(),
-                                  bsr.num_row_blocks)
+                                  bsr.num_row_blocks, words=bsr.quad_bits,
+                                  block=bsr.block)
 
     def i32(a):
         return torch.from_numpy(a.astype(np.int32))

@@ -31,9 +31,12 @@ F=128 and forward and backward at F=512, as a step runs it).
 multiple of 128; ``build_hybrid(block=E)`` on the reordered graph, as
 ``bench.py``'s ``FITGNN_BENCH_BLOCK`` composes it and ``chip_smoke.py``'s
 phase 14 builds it): at threshold 48 (K1), at 48 with ``tile_group=2``
-(K9) and at 192 with ``use_diag`` (K8, then K1); the walks at E take the
-tiles as 128-wide quadrants and land in the same groups.  For each
-configuration it prints:
+(K9) and at 192 with ``use_diag`` (K8, then K1), then GAT on its default
+two-stage path on the ``att_unit`` operator at E and threshold 48 (K4,
+K4ᵀ and K5 at E; above 128 K4 and K4ᵀ walk the live quadrants of the
+plan's occupancy words), as ``chip_smoke.py``'s phase 15 builds it; the
+walks at E take the tiles as 128-wide quadrants and land in the same
+groups.  For each configuration it prints:
 
 * the step's time (``gc_train_step``: forward, masked NLL, backward, Adam)
   from CUDA events over 10 steps after 3 warm-ups, and the eval forward's
@@ -67,6 +70,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -329,7 +333,9 @@ BLOCK_CONFIGS = (("threshold 48", dict(min_block_edges=48), K1),
 
 def profile_block(block: int, x, s, r, y, train, dev) -> None:
     """GCN with K11 on each of ``BLOCK_CONFIGS``' operators at tile edge
-    ``block``, built on the reordered graph of ``build_optimized_graph``."""
+    ``block``, built on the reordered graph of ``build_optimized_graph``,
+    then GAT (dropout 0.5, the default switches) on the ``att_unit``
+    operator at ``block`` and threshold 48 of its own reordered graph."""
     from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
     from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
 
@@ -350,6 +356,22 @@ def profile_block(block: int, x, s, r, y, train, dev) -> None:
         print(json.dumps({**info, **out}))
         del gd, h
         torch.cuda.empty_cache()
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                 layer_name="GATConv", seed=0)
+    h = build_hybrid(g.senders.numpy().astype(np.int64),
+                     g.receivers.numpy().astype(np.int64),
+                     (g.edge_weight.numpy() > 0).astype(np.float32),
+                     g.num_nodes_padded, min_block_edges=48, block=block,
+                     use_segmm=True, semantics="att_unit",
+                     real_nodes=len(x))
+    info = {"block": block, "operator": {"min_block_edges": 48,
+                                         "semantics": "att_unit"},
+            "tiles": h.bsr.nnz_blocks, "straggler_edges": h.num_coo_edges}
+    gd = g._replace(aux=h).to(dev)
+    out = profile_step("GATConv", gd, dev,
+                       f"GATConv block {block} threshold 48",
+                       "K4 dyn_tiles")
+    print(json.dumps({**info, **out}))
 
 
 # the collapse rows: (label, layer, build_optimized_graph's collapse, the

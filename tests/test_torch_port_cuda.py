@@ -24,7 +24,8 @@ from fitgnn_tpu_torch.ops import dropout as dropout_mod
 from fitgnn_tpu_torch.ops.bsr_spmm import (build_bsr, bsr_spmm_acc,
                                            bsr_spmm_acc_plain, bsr_spmm_fwd,
                                            bsr_spmm_grouped, bsr_spmm_plain,
-                                           bsr_spmm_raw, bsr_spmm_rowwalk)
+                                           bsr_spmm_raw, bsr_spmm_rowwalk,
+                                           quad_words)
 from fitgnn_tpu_torch.ops.coo_segmm import (build_segmm, segmm_spmm,
                                             segmm_spmm_plain,
                                             segmm_weighted_den_raw,
@@ -245,6 +246,127 @@ def test_k4_k5_kernels_match_plain(cuda, feat):
     for a, b in zip(got, ref):
         _close(a, b)
     assert not got[1][2 * 128:3 * 128].any()     # the filler's block
+
+
+# --- occupancy words in GAT's plan: K4 and K4ᵀ over the live quadrants ----
+
+def _dynwords_operands(rng, edge):
+    """K4's and K4ᵀ's operands on ``edge``-wide tiles (four tile rows): a
+    sorted tile list covering every tile row whose tile column 2 is never
+    used (the transpose plan's scale-0 filler slot); a 0/1 mask ~3% full
+    with each 128-wide quadrant empty at odds 0.4 and quadrant (0, 1) of
+    every tile empty; the plan with the mask's occupancy words; and
+    ``pe``-like values, positive on the mask and zero elsewhere."""
+    nb, nq = 4, edge // 128
+    rows = np.sort(np.concatenate([np.arange(nb), rng.integers(0, nb, 8)]))
+    cols = rng.choice([0, 1, 3], len(rows))
+    k = len(rows)
+    empty = rng.random((k, nq, nq)) < 0.4
+    empty[:, 0, 1] = True
+    mask = (rng.random((k, edge, edge)) < 0.03) & ~np.repeat(np.repeat(
+        empty, 128, 1), 128, 2)
+    mask = torch.from_numpy(mask.astype(np.float32))
+    plan = build_dyn_plan(rows, cols, nb, words=quad_words(mask, edge),
+                          block=edge)
+    assert plan.t_scale.numpy().tolist().count(0) == 1
+    pe = torch.where(mask > 0, torch.from_numpy(
+        rng.random((k, edge, edge)).astype(np.float32)) + 0.1, 0.0)
+    return (torch.from_numpy(rows.astype(np.int32)),
+            torch.from_numpy(cols.astype(np.int32)), plan, pe)
+
+
+def _dynwords_walk(kernel, rows, cols, pe, x):
+    """K4 (``dyn_tiles``) or K4ᵀ (``dyn_tiles_t``) on a plan: (the walk,
+    the plain version)."""
+    if kernel == "K4":
+        return (lambda plan: dyn_tiles(rows, cols, plan, pe, x),
+                lambda plan: dyn_tiles_plain(rows, cols, plan, pe, x))
+    return (lambda plan: dyn_tiles_t(plan, pe, x),
+            lambda plan: dyn_tiles_t_plain(plan, pe, x))
+
+
+def _no_words(plan):
+    return dataclasses.replace(plan, words=None, t_words=None)
+
+
+@pytest.mark.parametrize("feat,aligned", [(40, True), (40, False),
+                                          (128, True), (512, True)])
+@pytest.mark.parametrize("edge", [256, 512])
+@pytest.mark.parametrize("kernel", ["K4", "K4T"])
+def test_dynwords_walks_match_plain(cuda, kernel, edge, feat, aligned):
+    """K4 and K4ᵀ with the plan's occupancy words (the live quadrants
+    alone, each one's slab copy started with its tile read; K4ᵀ by the
+    transposed words, its filler slot's word 0) on ``pe``-like values at
+    edges 256 and 512: against their plain versions (at F=40 on an
+    unaligned x, the 4-byte slab copy), and bit for bit the walk without
+    words, which reads and votes on every quadrant; each walk counts one
+    launch."""
+    rng = np.random.default_rng(edge + feat + 240)
+    rows, cols, plan, pe = _dynwords_operands(rng, edge)
+    x = torch.from_numpy(rng.standard_normal((4 * edge, feat)).astype(
+        np.float32)).to(cuda)
+    walk, plain = _dynwords_walk(kernel, rows.to(cuda), cols.to(cuda),
+                                 pe.to(cuda), x if aligned else _unaligned(x))
+    plan = plan.to(cuda)
+    count = dyn_tiles if kernel == "K4" else dyn_tiles_t
+    before = count.launches
+    with torch.inference_mode():
+        got = walk(plan)
+        ref = plain(plan)
+        without = walk(_no_words(plan))
+    torch.cuda.synchronize()
+    assert count.launches == before + 2
+    _close(got, ref)
+    assert torch.equal(got, without)
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K4T"])
+def test_dynwords_value_only_an_empty_quadrant_holds(cuda, kernel):
+    """The walk's divergence from the dense product (``ROADMAP.md`` §3): a
+    value in a quadrant whose bit is clear (entry (5, 200) of tile 1, in
+    its quadrant (0, 1), empty in the mask) is dropped by the walk with
+    words, which gives the walk of the values without it bit for bit; the
+    plain version (the dense product, as the JAX package's) and the walk
+    without words keep it, in its output row alone."""
+    rng = np.random.default_rng(251)
+    rows, cols, plan, pe = _dynwords_operands(rng, 256)
+    assert not (int(plan.words[1]) >> 1) & 1
+    stray = pe.clone()
+    stray[1, 5, 200] = 3.0
+    row = (int(rows[1]) * 256 + 5 if kernel == "K4"
+           else int(cols[1]) * 256 + 200)
+    x = torch.from_numpy(rng.standard_normal((1024, 128)).astype(
+        np.float32)).to(cuda)
+    plan = plan.to(cuda)
+    rows, cols = rows.to(cuda), cols.to(cuda)
+    walk, plain = _dynwords_walk(kernel, rows, cols, stray.to(cuda), x)
+    clean, _ = _dynwords_walk(kernel, rows, cols, pe.to(cuda), x)
+    with torch.inference_mode():
+        got, ref = walk(plan), plain(plan)
+        without, want = walk(_no_words(plan)), clean(plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _close(without, ref)
+    moved = (got - ref).abs().amax(1) > 1e-3 * float(ref.abs().max())
+    assert moved.nonzero().flatten().tolist() == [row]
+
+
+def test_dynwords_refused_where_the_walk_has_no_words(cuda):
+    """Words on 128-wide tiles (which no plan builder makes) raise: the
+    entry has no words form at 128, and there is no fallback to the walk
+    without them."""
+    rows = torch.tensor([0, 1], dtype=torch.int32)
+    cols = torch.tensor([1, 0], dtype=torch.int32)
+    plan = build_dyn_plan(rows.numpy(), cols.numpy(), 2)
+    plan.words = torch.full((2,), -1, dtype=torch.int64)
+    plan.t_words = plan.words.clone()
+    plan = plan.to(cuda)
+    blocks = torch.ones((2, 128, 128), device=cuda)
+    x = torch.ones((256, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        dyn_tiles(rows.to(cuda), cols.to(cuda), plan, blocks, x)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        dyn_tiles_t(plan, blocks, x)
 
 
 # F=101 and the unaligned g take K5's 4-byte loads; F=0 writes zeros
