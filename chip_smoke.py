@@ -1087,8 +1087,8 @@ def phase_fused_kernels(device, g) -> dict:
             # the pass and the sums apart, each against its plain version
             # on the same inputs
             part = att_bsr._launch_scores("att_bwd_scores", device, blocks,
-                                          rows, cols, ssrc, sdst, mg, gr, x,
-                                          dden, SLOPE)
+                                          rows, cols, None, ssrc, sdst, mg,
+                                          gr, x, dden, SLOPE)
             part_p = att_bsr.att_scores_plain(rows, cols, *bwd)
             sums = att_bsr.att_sums(plan, *part_p)
             sums_p = att_bsr.att_sums_plain(plan, *part_p)
@@ -1193,8 +1193,8 @@ def phase_fused_kernels(device, g) -> dict:
                 bound_ms=bdx, bound_by=bydx,
                 ms=cuda_ms(lambda: att_bsr._launch_walk(
                     "att_bwd_t (dx)", device, blocks, plan.t_row_splits,
-                    plan.t_sel, plan.t_scale, plan.t_cols, ssrc, sdst, mg,
-                    gr, None, True, SLOPE), 20),
+                    plan.t_sel, plan.t_scale, plan.t_cols, None, ssrc, sdst,
+                    mg, gr, None, True, SLOPE), 20),
                 plain_ms=cuda_ms(lambda: plain_dx(gr), 5), library_ms=None,
                 two_stage_ms=two_bwd if need_dx else None,
                 two_stage_label=two_label))
@@ -1220,8 +1220,8 @@ def phase_fused_kernels(device, g) -> dict:
                 max_rel_err=max(er["max_rel_err"] for er in (*e_s, *e_p)),
                 bound_ms=bs, bound_by=bys, bound_tensor_cores_ms=bs_tc,
                 ms=cuda_ms(lambda: att_bsr._launch_scores(
-                    "att_bwd_scores", device, blocks, rows, cols, ssrc, sdst,
-                    mg, gr, x, dden, SLOPE), 20),
+                    "att_bwd_scores", device, blocks, rows, cols, None, ssrc,
+                    sdst, mg, gr, x, dden, SLOPE), 20),
                 plain_ms=cuda_ms(lambda: att_bsr.att_scores_plain(
                     rows, cols, *bwd), 5),
                 library_ms=None,
@@ -3002,13 +3002,13 @@ def _bf16_k7_rows(device, h, shapes, gen) -> dict:
             def dx_walk(bl):
                 return att_bsr._launch_walk(
                     "att_bwd_t (dx)", device, bl, plan.t_row_splits,
-                    plan.t_sel, plan.t_scale, plan.t_cols, ssrc, sdst, mg,
-                    gr, None, True, SLOPE)
+                    plan.t_sel, plan.t_scale, plan.t_cols, None, ssrc, sdst,
+                    mg, gr, None, True, SLOPE)
 
             def scores(bl):
                 return att_bsr._launch_scores(
-                    "att_bwd_scores", device, bl, rows, cols, ssrc, sdst, mg,
-                    gr, x, dden, SLOPE)
+                    "att_bwd_scores", device, bl, rows, cols, None, ssrc,
+                    sdst, mg, gr, x, dden, SLOPE)
 
             num, den = att_bsr.att_fwd(*fwd(blocks), mg, x, SLOPE)
             same(f"K7fbf F={feat}", (num, den),
@@ -3856,7 +3856,9 @@ def at_edge(counts: dict) -> dict:
 def bf16_tiles(h):
     """A hybrid operator with its tiles and diagonal blocks in bf16 (what
     ``build_hybrid(tile_dtype=torch.bfloat16)`` builds: f32, then cast, the
-    occupancy words made of the cast tiles)."""
+    occupancy words made of the cast tiles).  An ``att_unit`` plan keeps
+    its words, which the kernels read against the cast mask: checked here
+    to be the cast tiles' own (a 0/1 mask keeps its non-zeros in bf16)."""
 
     def cast(b, **kw):
         return dataclasses.replace(b, blocks=b.blocks.to(torch.bfloat16),
@@ -3864,6 +3866,11 @@ def bf16_tiles(h):
 
     b = h.bsr
     bsr = cast(b, transpose=cast(b.transpose))
+    plan = h.dyn_plan
+    if plan is not None and plan.words is not None:
+        check(torch.equal(plan.words, bsr.quad_bits),
+              "bf16 tiles: the plan's occupancy words are not the cast "
+              "mask's")
     return dataclasses.replace(
         h, bsr=bsr, diag_blocks=None if h.diag_blocks is None
         else h.diag_blocks.to(torch.bfloat16))
@@ -4368,9 +4375,16 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
     mask widened), with kernel, plain and two-stage times and its bound,
     and the fused outputs and gradients against the two-stage path at the
     same edge (``pe``, K4@256 and row sums; its autograd backward through
-    K5@256 and K4ᵀ@256).  Returns the rows by ID (``K7f@256``,
-    ``K7fbf@256``, ...; K7sums, which reads no tile, from the f32 mask)."""
+    K5@256 and K4ᵀ@256).  The plan carries the mask's occupancy words
+    (checked against the mask, ``live`` against the words): K7f walks the
+    live quadrants and K7s runs its live grid, each also bit for bit the
+    launch without them (timed beside it, ``nowords_ms``), with its bound
+    over the live quadrants and the tile bound beside it
+    (``bound_tiles_ms``; K7s also its dense TF32 product over the live
+    quadrants).  Returns the rows by ID (``K7f@256``, ``K7fbf@256``, ...;
+    K7sums, which reads no tile, from the f32 mask)."""
     from fitgnn_tpu_torch.ops import att_bsr
+    from fitgnn_tpu_torch.ops.bsr_dynamic import live_quadrants as live_ids
     from fitgnn_tpu_torch.ops.tile_gat import tiles_two_stage
 
     hd = h.to(device)
@@ -4383,11 +4397,23 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
     nnz = int((blocks != 0).sum())
     uniq_cols = int(torch.unique(cols).numel())
     uniq_rows = int(torch.unique(rows).numel())
+    # the live quadrants of the plan's words, the distinct 128-row slabs
+    # they reach (x by column, g by row) and the walk and grid without them
+    quads, c_slabs, r_slabs = dyn_live_quadrants(b, plan)
+    check(torch.equal(plan.live.cpu().long(), torch.from_numpy(
+        live_ids(plan.words.cpu().numpy(), nq))),
+        "the plan's live quadrants are not its words' set bits")
+    nowords = dataclasses.replace(plan, words=None, t_words=None, live=None)
+    print(f"K7f{'bf' if bf16 else ''}@{EDGE}, K7s: {quads} live 128-wide "
+          f"quadrants of {k_all * nq * nq}; {c_slabs} / {r_slabs} distinct "
+          "x / g slabs they reach")
     ssrc, sdst, dden = (torch.randn(n, generator=gen, device=device)
                         for _ in range(3))
     mg = (sdst + ssrc.max()).clamp_min(0.0)
     vec = n * 4
-    tile_bytes = k_all * e * e * blocks.element_size()
+    elt = blocks.element_size()
+    tile_bytes = k_all * e * e * elt
+    quad_bytes = quads * 128 * 128 * elt
     idx_f = (k_all + nb + 1) * 4
     idx_t = (3 * plan.t_sel.numel() + nb + 1) * 4
     part_bytes = 2 * k_all * nq * e * 4               # (K, nq·E) twice
@@ -4397,6 +4423,7 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
         out[f"K7sums@{EDGE}"] = []
     fwd = (rows, cols, plan, blocks, ssrc, sdst)
     fwd32 = (rows, cols, plan, b32, ssrc, sdst)
+    fwd0 = (rows, cols, nowords, blocks, ssrc, sdst)
     two_bwd_label = (f"the two-stage autograd backward at {EDGE} for dssrc, "
                      f"dsdst and dx (K5@{EDGE}, K4T@{EDGE}, the elementwise "
                      "chain): compare with K7bt + K7s + K7sums")
@@ -4409,6 +4436,11 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
             check(all(torch.equal(a, c) for a, c in zip(got, f32)),
                   f"{name}: the bf16 form differs from the f32 form")
 
+    def bits(name, got, without):
+        check(all(torch.equal(a, c) for a, c in zip(got, without)),
+              f"{name}: with the occupancy words not the launch without "
+              "them bit for bit")
+
     def errs(es):
         return dict(max_abs_err=max(x["max_abs_err"] for x in es),
                     max_rel_err=max(x["max_rel_err"] for x in es))
@@ -4417,9 +4449,13 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
         out[f"{k}{sfx}@{EDGE}"].append(sh)
         two = sh.get("two_stage_ms")
         print(f"  {k}{sfx}@{EDGE} {sh['shape']}: kernel_ms={sh['ms']:.4f} "
-              f"plain_ms={sh['plain_ms']:.4f} library_ms=null two_stage_ms="
-              f"{'null' if two is None else f'{two:.4f}'} "
-              f"bound_ms={sh['bound_ms']:.4f} ({sh['bound_by']})")
+              + (f"nowords_ms={sh['nowords_ms']:.4f} "
+                 if "nowords_ms" in sh else "")
+              + f"plain_ms={sh['plain_ms']:.4f} library_ms=null "
+              f"two_stage_ms={'null' if two is None else f'{two:.4f}'} "
+              f"bound_ms={sh['bound_ms']:.4f} ({sh['bound_by']})"
+              + (f" bound_tiles_ms={sh['bound_tiles_ms']:.4f}"
+                 if "bound_tiles_ms" in sh else ""))
 
     print(f"GAT fused tiles at edge {EDGE}, {tt} mask: {k_all} tiles "
           f"(fillers included), {nnz} mask entries")
@@ -4448,23 +4484,26 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
         x = torch.randn((n, feat), generator=gen, device=device)
         gr = torch.randn((n, feat), generator=gen, device=device)
         bwd = (plan, blocks, ssrc, sdst, mg, gr, x, dden, SLOPE)
+        bwd0 = (nowords, *bwd[1:])
         tag = f"{sfx}@{EDGE}"
 
         def dx_walk(bl):
             return att_bsr._launch_walk(
                 "att_bwd_t (dx)", device, bl, plan.t_row_splits, plan.t_sel,
-                plan.t_scale, plan.t_cols, ssrc, sdst, mg, gr, None, True,
-                SLOPE)
+                plan.t_scale, plan.t_cols, None, ssrc, sdst, mg, gr, None,
+                True, SLOPE)
 
-        def scores(bl):
+        def scores(bl, live=plan.live):
             return att_bsr._launch_scores(
-                "att_bwd_scores", device, bl, rows, cols, ssrc, sdst, mg, gr,
-                x, dden, SLOPE)
+                "att_bwd_scores", device, bl, rows, cols, live, ssrc, sdst,
+                mg, gr, x, dden, SLOPE)
 
         with torch.inference_mode():
             num, den = att_bsr.att_fwd(*fwd, mg, x, SLOPE)
             same(f"K7f{tag} F={feat}", (num, den),
                  att_bsr.att_fwd(*fwd32, mg, x, SLOPE))
+            bits(f"K7f{tag} F={feat}", (num, den),
+                 att_bsr.att_fwd(*fwd0, mg, x, SLOPE))
             num_p, den_p = att_bsr.att_fwd_plain(*fwd, mg, x, SLOPE)
             e_f = [compare(f"K7f{tag} att_fwd {w} F={feat}", a, p_)
                    for w, a, p_ in (("num", num, num_p), ("den", den, den_p))]
@@ -4475,6 +4514,7 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
                           att_bsr.att_bwd_t_plain(*bwd, need_dssrc=False)[0])
             part = scores(blocks)
             same(f"K7s{tag} F={feat}", part, scores(b32))
+            bits(f"K7s{tag} F={feat}", part, scores(blocks, None))
             part_p = att_bsr.att_scores_plain(rows, cols, *bwd)
             check(part[0].shape == (k_all, nq * e),
                   f"K7s{tag}: partials {tuple(part[0].shape)}")
@@ -4485,7 +4525,10 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
             pair = f"K7s{tag} + K7sums@{EDGE} F={feat}"
             check(torch.equal(dss, again[0]) and torch.equal(dsd, again[1]),
                   f"{pair}: two launches differ")
-            print(f"  {pair}: two launches bit-equal")
+            bits(pair, (dss, dsd), att_bsr.att_bwd_scores(rows, cols, *bwd0))
+            print(f"  {pair}: two launches bit-equal, and bit for bit the "
+                  "pass over every quadrant; K7f likewise the walk without "
+                  "words")
             e_s = [compare(f"K7s{tag} att_bwd_scores {w} F={feat}", a, p_)
                    for w, a, p_ in zip(("dssrc", "dsdst"), (dss, dsd),
                                        att_bsr.att_bwd_scores_plain(
@@ -4518,24 +4561,39 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
         del num2, den2, grads2, num, den, dx, dss, dsd
         with torch.inference_mode():
             slabs = e * feat * 4
+            qslab = 128 * feat * 4
             # the bounds of phase 3's rows with 256-wide tiles and slabs,
-            # the partials (K, nq·E) each
-            bf_, byf = bound(tile_bytes + idx_f + 3 * vec + uniq_cols * slabs
-                             + n * feat * 4 + vec, nnz * (2.0 * feat + 5))
+            # the partials (K, nq·E) each; over the live quadrants: each
+            # live quadrant read once, the words (K7f) or the live list
+            # (K7s) and the distinct 128-row slabs the live quadrants
+            # reach, the tile bounds beside them
+            f_ops = nnz * (2.0 * feat + 5)
+            bf_t, _ = bound(tile_bytes + idx_f + 3 * vec + uniq_cols * slabs
+                            + n * feat * 4 + vec, f_ops)
+            bf_, byf = bound(quad_bytes + idx_f + k_all * 8 + 3 * vec
+                             + c_slabs * qslab + n * feat * 4 + vec, f_ops)
             bdx, bydx = bound(tile_bytes + idx_t + 3 * vec
                               + uniq_rows * slabs + n * feat * 4,
                               nnz * (2.0 * feat + 5))
-            bs, bys = bound(tile_bytes + 2 * k_all * 4 + 4 * vec
+            s_ops = nnz * (2.0 * feat + 8)
+            bs_t, _ = bound(tile_bytes + 2 * k_all * 4 + 4 * vec
                             + (uniq_rows + uniq_cols) * slabs + part_bytes,
-                            nnz * (2.0 * feat + 8))
+                            s_ops)
+            bs, bys = bound(quad_bytes + 2 * k_all * 4 + quads * 4 + 4 * vec
+                            + (r_slabs + c_slabs) * qslab + part_bytes,
+                            s_ops)
             bs_tc = 3 * 2.0 * k_all * e * e * feat \
+                / PEAK_TF32_FLOP_PER_S * 1e3
+            bs_tc_live = 3 * 2.0 * quads * 128 * 128 * feat \
                 / PEAK_TF32_FLOP_PER_S * 1e3
             bc, byc = bound(part_bytes + idx_t + (nb + 1) * 4 + 2 * vec,
                             2.0 * k_all * nq * e)
             add("K7f", dict(
                 F=feat, shape=f"F={feat}", **errs(e_f), bound_ms=bf_,
-                bound_by=byf,
+                bound_by=byf, bound_tiles_ms=bf_t, live_quadrants=quads,
                 ms=cuda_ms(lambda: att_bsr.att_fwd(*fwd, mg, x, SLOPE), 20),
+                nowords_ms=cuda_ms(lambda: att_bsr.att_fwd(
+                    *fwd0, mg, x, SLOPE), 20),
                 plain_ms=cuda_ms(lambda: att_bsr.att_fwd_plain(
                     *fwd, mg, x, SLOPE), 5), library_ms=None,
                 two_stage_ms=cuda_ms(lambda: tiles_two_stage(
@@ -4555,15 +4613,19 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
                            20)
             add("K7s", dict(
                 F=feat, shape=f"F={feat}", **errs(e_s + e_p), bound_ms=bs,
-                bound_by=bys, bound_tensor_cores_ms=bs_tc,
+                bound_by=bys, bound_tiles_ms=bs_t, live_quadrants=quads,
+                bound_tensor_cores_ms=bs_tc,
+                bound_tensor_cores_live_ms=bs_tc_live,
                 ms=cuda_ms(lambda: scores(blocks), 20),
+                nowords_ms=cuda_ms(lambda: scores(blocks, None), 20),
                 plain_ms=cuda_ms(lambda: att_bsr.att_scores_plain(
                     rows, cols, *bwd), 5), library_ms=None,
                 both_outputs_ms=both, two_stage_ms=two_scores,
                 two_stage_label=two_scores_label))
             print(f"  K7s{tag} + K7sums@{EDGE} F={feat}: both outputs "
                   f"{both:.4f} ms; the pass's dense product at the TF32 "
-                  f"rate {bs_tc:.4f} ms")
+                  f"rate {bs_tc_live:.4f} ms over the live quadrants, "
+                  f"{bs_tc:.4f} over every quadrant")
             if not bf16:
                 # a few microseconds, under the wrapper's host work: ms is
                 # the device time, wrapper_ms cuda_ms's
@@ -4811,15 +4873,17 @@ KERNELS = (
     ("K7rm@256", "K7rm@256 att_rowmax on 256-wide masks (a CTA a 128-row "
      "half, over its quadrants)", "fitgnn_tpu_torch/csrc/att_bsr.cu",
      "fitgnn_tpu/ops/pallas/att_bsr.py:78"),
-    ("K7f@256", "K7f@256 att_fwd on 256-wide masks (the rows walk's QUAD "
-     "form under att::FwdScores)", "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+    ("K7f@256", "K7f@256 att_fwd on 256-wide masks (the rows walk of the "
+     "live quadrants of the plan's occupancy words under att::FwdScores)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/att_bsr.py:125"),
     ("K7bt@256", "K7bt@256 att_bwd_t dx on 256-wide masks (the columns "
      "walk's QUAD form under att::DxScores)",
      "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/att_bsr.py:185"),
     ("K7s@256", "K7s@256 att_bwd_scores' pass on 256-wide masks (one "
-     "tensor-core CTA a 128-wide quadrant; partials (K, 2·256))",
+     "tensor-core CTA a live 128-wide quadrant, the plan's live list; "
+     "partials (K, 2·256))",
      "fitgnn_tpu_torch/csrc/att_bsr.cu",
      "fitgnn_tpu/ops/pallas/att_bsr.py:267"),
     ("K7sums@256", "K7sums@256 att_sums on the quadrant partials",
@@ -4980,9 +5044,13 @@ def main() -> int:
             and ((hook is not None
                   and (walk_args(kernel) or (None,) * 4)[3] == hook)
                  or (name is not None and kernel.startswith(name)))}
-        # two load widths each, K7f, K7bt and K7s also on bf16 tiles
+        # two load widths each, K7f, K7bt and K7s also on bf16 tiles; at
+        # 256 K7f also walks the live quadrants (WORDS) and K7s runs its
+        # live grid (LIVE), each beside its form without them
         want = {"K7sums": 1, "K3": 6, "K3w": 6, "K6": 6, "K5": 2}.get(base,
                                                                        4)
+        if edge and base in ("K7f", "K7s"):
+            want = 8
         check(len(entry["registers"]) == want,
               f"{entry['name']}: no ptxas record of its kernels")
         print(f"{k} registers: {entry['registers']}")

@@ -145,10 +145,29 @@
 //   bit-equal, and at nq = 1 they are the (K, 128) partials above.
 //   att_sums_kernel runs one CTA per 128-row block and adds a tile's nq
 //   partials of that half in order before it adds them as at 128.
+// Occupancy words (QUAD up to nq = 8; the dynamic plan's words of the
+// mask, DynPlan.words, and their live list, DynPlan.live): a third of the
+// bench graph's quadrants at threshold 48 are empty (1,581 of 4,696).
+// * K7f walks the live quadrants alone (tile_sparse.cuh's walk_live under
+//   FwdScores: no read, vote or wait for an empty quadrant, the next live
+//   quadrant's slab and ssrc copied while the current one is applied; den's
+//   partials in shared memory, where in registers they would spill the
+//   walk), and gives the walk of every quadrant bit for bit: the live
+//   quadrants in the same order, the same adds;
+// * the score pass runs its grid on the live list (LIVE): CTA i takes
+//   quadrant live[i] = k nq^2 + qi nq + qj, ascending, so a tile's live
+//   quadrants stay adjacent; everything inside a CTA is as above.  The
+//   wrapper zeroes the partials first: an empty quadrant's, which no CTA
+//   writes, are +0, what its CTA writes without the list (the select
+//   drops every product, inf or NaN ones too).  So the partials, dssrc and
+//   dsdst are the full grid's bit for bit, and a third of the tensor-core
+//   work and of the CTAs is gone on the bench graph.
 // Bounds at E as at 128, each live tile read whole (256 KiB at 256, bf16
 // 128 KiB); the pass's dense product is 4x a 128 tile's entries, so at
 // E = 256 its three TF32 passes (2.F FLOPs an entry each) bound it by the
-// operations on the bench graph.
+// operations on the bench graph.  With the words each live quadrant is
+// read once (64 KiB, bf16 32 KiB) with the slabs the live quadrants reach,
+// and the dense product runs over the live quadrants alone.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -280,11 +299,12 @@ constexpr int SC_SMEM = tf32x3::SMEM + 1024
     + (SC_TILE + 4 * BLK + WARPS * BLK) * static_cast<int>(sizeof(float));
 static_assert(tf32x3::THREADS == THREADS, "a warp per 16 tile rows");
 
-template <bool VEC, class T, bool QUAD>
+template <bool VEC, class T, bool LIVE, bool QUAD>
 __global__ void __launch_bounds__(THREADS, 1)
 att_scores_kernel(const T* __restrict__ blocks,
                   const int32_t* __restrict__ rows,
                   const int32_t* __restrict__ cols,
+                  const int32_t* __restrict__ live,
                   const float* __restrict__ ssrc,
                   const float* __restrict__ sdst,
                   const float* __restrict__ m,
@@ -302,12 +322,16 @@ att_scores_kernel(const T* __restrict__ blocks,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  // tile k and, under QUAD, its quadrant (qi, qj): CTA k nq^2 + qi nq +
-  // qj, so the nq^2 CTAs of a tile run together and share their slabs in
-  // L2 (K5's grid); r and c count 128-row blocks
-  const int64_t k = QUAD ? blockIdx.x / (nq * nq) : blockIdx.x;
-  const int64_t qi = QUAD ? blockIdx.x / nq % nq : 0;
-  const int64_t qj = QUAD ? blockIdx.x % nq : 0;
+  // tile k and, under QUAD, its quadrant (qi, qj): quadrant id = k nq^2 +
+  // qi nq + qj, CTA id, so the nq^2 CTAs of a tile run together and share
+  // their slabs in L2 (K5's grid); under LIVE CTA i takes id live[i], the
+  // live quadrants in ascending order (a tile's still adjacent); r and c
+  // count 128-row blocks
+  const unsigned id = LIVE ? static_cast<unsigned>(live[blockIdx.x])
+                           : blockIdx.x;
+  const int64_t k = QUAD ? id / (nq * nq) : id;
+  const int64_t qi = QUAD ? id / nq % nq : 0;
+  const int64_t qj = QUAD ? id % nq : 0;
   const int64_t edge = QUAD ? static_cast<int64_t>(nq) * BLK : BLK;
   const int64_t r = QUAD ? static_cast<int64_t>(rows[k]) * nq + qi : rows[k];
   const int64_t c = QUAD ? static_cast<int64_t>(cols[k]) * nq + qj : cols[k];
@@ -315,7 +339,8 @@ att_scores_kernel(const T* __restrict__ blocks,
   // at rpart[k][qj][128 qi + i], the column sums over its rows at
   // cpart[k][qi][128 qj + j]
   const int64_t rp = QUAD ? (k * nq + qj) * nq + qi : k;
-  const int64_t cp = QUAD ? static_cast<int64_t>(blockIdx.x) : k;
+  const int64_t cp = LIVE ? (k * nq + qi) * nq + qj
+                          : QUAD ? static_cast<int64_t>(blockIdx.x) : k;
   // the tile (its quadrant, rows at stride E) and the score vectors into
   // shared memory while the product runs (no load waits): 16-byte chunk q
   // of tile row i at chunk q ^ (i % 8), so the epilogue's float2 (bf16:
@@ -522,6 +547,50 @@ struct FwdScores {
       if (lane == 0) den[r * BLK + row0 + o] = v;
     }
   }
+
+  // The walk of the live quadrants (WORDS): hs holds sdst and m of block
+  // r, ssrc of the partner slab in two buffers (one a slab buffer, copied
+  // into that slab's group), then den's partials, one a lane and output
+  // row at hs[4 BLK + 32 i + lane]: in registers they spilled the walk,
+  // which already takes 127-128 of its 128.  Each lane's partial is its
+  // own, read and written by it alone, and takes the adds of dsum in the
+  // same order, so den is the walk without words' bit for bit.
+  static constexpr int SMEM_LIVE = 4 * BLK + sparse::THREADS * ROWS;
+
+  __device__ __forceinline__ float* partial(float* hs, int i, int lane) {
+    return hs + 4 * BLK + 32 * i + lane;
+  }
+  __device__ __forceinline__ void begin_live(float* hs, int64_t r, int tid) {
+    begin(hs, r, tid);                            // dsum stays unread
+    const int row0 = (tid >> 5) * ROWS;
+#pragma unroll
+    for (int o = 0; o < ROWS; ++o) *partial(hs, row0 + o, tid & 31) = 0.f;
+  }
+  __device__ __forceinline__ void stage(float* hs, int buf, int64_t c,
+                                        int tid) {
+    if (tid < BLK) {
+      sparse::cp_async4(hs + (2 + buf) * BLK + tid, ssrc + c * BLK + tid, 4);
+    }
+  }
+  __device__ __forceinline__ float value_live(float* hs, int buf, float e,
+                                              int o, int mm, int row0,
+                                              int lane) {
+    const int i = row0 + o;
+    const float p = att_pe(e, hs[i] + hs[(2 + buf) * BLK + lane + 32 * mm],
+                           hs[BLK + i], slope);
+    *partial(hs, i, lane) += p;
+    return p;
+  }
+  __device__ __forceinline__ void finish_live(float* hs, int64_t r,
+                                              int64_t f0, int row0,
+                                              int lane) {
+    if (den == nullptr || f0 != 0) return;        // uniform across the CTA
+#pragma unroll
+    for (int o = 0; o < ROWS; ++o) {
+      const float v = warp_sum(*partial(hs, row0 + o, lane));
+      if (lane == 0) den[r * BLK + row0 + o] = v;
+    }
+  }
 };
 
 // K7bt's dx on the columns walk: slot k reads tile sel[k], whose rows are
@@ -557,6 +626,13 @@ struct DxScores {
 
 }  // namespace att
 
+// K7f's rows walk takes the occupancy words (K7bt's dx, the columns walk
+// under DxScores, does not)
+namespace sparse {
+template <>
+struct takes_words<att::FwdScores, false> : std::true_type {};
+}  // namespace sparse
+
 namespace {
 
 // the entries' launches, T the tile type (float or __nv_bfloat16); block,
@@ -591,10 +667,10 @@ int rowmax(const void* blocks, const void* row_splits, const void* cols,
 
 template <class T>
 int walk(const void* blocks, const void* splits, const void* sel,
-         const void* scale, const void* cols, const void* ssrc,
-         const void* sdst, const void* m, const void* x, void* out,
-         void* den, int64_t num_row_blocks, int64_t feat, int64_t block,
-         int trans, float slope, void* stream) {
+         const void* scale, const void* cols, const void* words,
+         const void* ssrc, const void* sdst, const void* m, const void* x,
+         void* out, void* den, int64_t num_row_blocks, int64_t feat,
+         int64_t block, int trans, float slope, void* stream) {
   if (bad_edge(block)) return static_cast<int>(cudaErrorInvalidValue);
   const int nq = static_cast<int>(block / BLK);
   const auto st = static_cast<cudaStream_t>(stream);
@@ -605,48 +681,61 @@ int walk(const void* blocks, const void* splits, const void* sel,
   const auto* sd = static_cast<const float*>(sdst);
   const auto* mm = static_cast<const float*>(m);
   const auto* xp = static_cast<const float*>(x);
+  const auto* w = static_cast<const uint64_t*>(words);
   auto* op = static_cast<float*>(out);
   if (trans) {
+    // no words walk under DxScores: given words, cudaErrorInvalidValue
     return static_cast<int>(sparse::launch<true, false, false, false, true>(
         b, sp, static_cast<const int32_t*>(sel),
         static_cast<const int32_t*>(scale), c, xp, nullptr, op,
-        num_row_blocks, feat, st, att::DxScores{ss, sd, mm, slope}, nq));
+        num_row_blocks, feat, st, att::DxScores{ss, sd, mm, slope}, nq, w));
   }
-  return static_cast<int>(sparse::launch<false, false, false, false, true>(
-      b, sp, nullptr, nullptr, c, xp, nullptr, op, num_row_blocks, feat, st,
-      att::FwdScores{ss, sd, mm, static_cast<float*>(den), slope}, nq));
+  return static_cast<int>(
+      sparse::launch<false, false, false, false, true, T, att::FwdScores,
+                     true>(
+          b, sp, nullptr, nullptr, c, xp, nullptr, op, num_row_blocks, feat,
+          st, att::FwdScores{ss, sd, mm, static_cast<float*>(den), slope},
+          nq, w));
 }
 
 template <class T>
 int scores(const void* blocks, const void* rows, const void* cols,
-           const void* ssrc, const void* sdst, const void* m,
-           const void* dden, const void* g, const void* x, void* cpart,
-           void* rpart, int64_t num_tiles, int64_t feat, int64_t block,
-           float slope, void* stream) {
+           const void* live, const void* ssrc, const void* sdst,
+           const void* m, const void* dden, const void* g, const void* x,
+           void* cpart, void* rpart, int64_t num_tiles, int64_t num_live,
+           int64_t feat, int64_t block, float slope, void* stream) {
   if (feat <= 0 || feat > MAX_F || bad_edge(block)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nq = static_cast<int>(block / BLK);
-  const int64_t ctas = num_tiles * nq * nq;
-  if (ctas > 0x7fffffff) {
+  // the live grid: quadrants alone, nq > 1
+  const bool with_live = live != nullptr;
+  if (with_live && (nq < 2 || num_live < 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_tiles * nq * nq > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
+  const int64_t ctas = with_live ? num_live : num_tiles * nq * nq;
   if (ctas > 0) {
     const bool vec = reinterpret_cast<uintptr_t>(g) % 16 == 0
                      && reinterpret_cast<uintptr_t>(x) % 16 == 0
                      && feat % 4 == 0;
     const auto kernel =
-        nq > 1 ? (vec ? att_scores_kernel<true, T, true>
-                      : att_scores_kernel<false, T, true>)
-               : (vec ? att_scores_kernel<true, T, false>
-                      : att_scores_kernel<false, T, false>);
+        with_live ? (vec ? att_scores_kernel<true, T, true, true>
+                         : att_scores_kernel<false, T, true, true>)
+        : nq > 1 ? (vec ? att_scores_kernel<true, T, false, true>
+                        : att_scores_kernel<false, T, false, true>)
+                 : (vec ? att_scores_kernel<true, T, false, false>
+                        : att_scores_kernel<false, T, false, false>);
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SC_SMEM);
     if (set != cudaSuccess) return static_cast<int>(set);
     kernel<<<static_cast<unsigned>(ctas), THREADS, SC_SMEM,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(blocks), static_cast<const int32_t*>(rows),
-        static_cast<const int32_t*>(cols), static_cast<const float*>(ssrc),
+        static_cast<const int32_t*>(cols),
+        static_cast<const int32_t*>(live), static_cast<const float*>(ssrc),
         static_cast<const float*>(sdst), static_cast<const float*>(m),
         static_cast<const float*>(dden), static_cast<const float*>(g),
         static_cast<const float*>(x), static_cast<float*>(cpart),
@@ -688,36 +777,40 @@ extern "C" int fitgnn_att_rowmax_bf16(const void* blocks,
 }
 
 // The walk: trans == 0 is the forward (splits = row_splits, sel = scale =
-// null, cols the input tiles, x the features, den (n,) f32 or null);
-// trans != 0 the dx walk of the transpose plan (splits = t_row_splits,
-// sel = t_sel, scale = t_scale, cols = t_cols, x = g, den null).  blocks
+// null, cols the input tiles, x the features, den (n,) f32 or null;
+// words, the tiles' (K,) occupancy words, or null); trans != 0 the dx walk
+// of the transpose plan (splits = t_row_splits, sel = t_sel, scale =
+// t_scale, cols = t_cols, x = g, den and words null).  blocks
 // (K,block,block) f32, 16-byte aligned; ssrc, sdst, m (n,) f32; x, out
-// (n, feat) f32 with n = num_row_blocks*block; all contiguous.  Returns
+// (n, feat) f32 with n = num_row_blocks*block; all contiguous.  Given
+// words, the forward walks the live quadrants alone (block 256 to 1024).
+// Returns cudaErrorInvalidValue for words at another block or with trans,
 // cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
 // else cudaGetLastError() after the launch.
 extern "C" int fitgnn_att_walk(const void* blocks, const void* splits,
                                const void* sel, const void* scale,
-                               const void* cols, const void* ssrc,
-                               const void* sdst, const void* m, const void* x,
-                               void* out, void* den, int64_t num_row_blocks,
+                               const void* cols, const void* words,
+                               const void* ssrc, const void* sdst,
+                               const void* m, const void* x, void* out,
+                               void* den, int64_t num_row_blocks,
                                int64_t feat, int64_t block, int trans,
                                float slope, void* stream) {
-  return walk<float>(blocks, splits, sel, scale, cols, ssrc, sdst, m, x,
-                     out, den, num_row_blocks, feat, block, trans, slope,
+  return walk<float>(blocks, splits, sel, scale, cols, words, ssrc, sdst, m,
+                     x, out, den, num_row_blocks, feat, block, trans, slope,
                      stream);
 }
 
 extern "C" int fitgnn_att_walk_bf16(const void* blocks, const void* splits,
                                     const void* sel, const void* scale,
-                                    const void* cols, const void* ssrc,
-                                    const void* sdst, const void* m,
-                                    const void* x, void* out, void* den,
-                                    int64_t num_row_blocks, int64_t feat,
-                                    int64_t block, int trans, float slope,
-                                    void* stream) {
-  return walk<__nv_bfloat16>(blocks, splits, sel, scale, cols, ssrc, sdst, m,
-                             x, out, den, num_row_blocks, feat, block, trans,
-                             slope, stream);
+                                    const void* cols, const void* words,
+                                    const void* ssrc, const void* sdst,
+                                    const void* m, const void* x, void* out,
+                                    void* den, int64_t num_row_blocks,
+                                    int64_t feat, int64_t block, int trans,
+                                    float slope, void* stream) {
+  return walk<__nv_bfloat16>(blocks, splits, sel, scale, cols, words, ssrc,
+                             sdst, m, x, out, den, num_row_blocks, feat,
+                             block, trans, slope, stream);
 }
 
 // The score-gradient pass: the column partials cpart and the row partials
@@ -727,31 +820,37 @@ extern "C" int fitgnn_att_walk_bf16(const void* blocks, const void* splits,
 // column sums over the rows of quadrant row qi ((K, 128) at block 128).
 // blocks (K,block,block) f32, 16-byte aligned; ssrc, sdst, m, dden (n,)
 // f32; g, x (n, feat) f32 with 0 < feat <= 512; rows, cols (K,) int32; all
-// contiguous.  Returns cudaErrorInvalidValue for another feat,
-// cudaErrorInvalidConfiguration when num_tiles nq^2 exceeds 2^31 - 1, else
-// cudaGetLastError() after the launch.
+// contiguous.  live, (num_live,) int32, the quadrants to run (ids k nq^2 +
+// qi nq + qj, ascending: the mask's live ones), or null for every quadrant
+// of every tile; given, only their partials are written (the caller
+// zeroes the rest).  Returns cudaErrorInvalidValue for another feat and
+// for live at block 128, cudaErrorInvalidConfiguration when num_tiles nq^2
+// exceeds 2^31 - 1, else cudaGetLastError() after the launch.
 extern "C" int fitgnn_att_scores(const void* blocks, const void* rows,
-                                 const void* cols, const void* ssrc,
-                                 const void* sdst, const void* m,
-                                 const void* dden, const void* g,
-                                 const void* x, void* cpart, void* rpart,
-                                 int64_t num_tiles, int64_t feat,
+                                 const void* cols, const void* live,
+                                 const void* ssrc, const void* sdst,
+                                 const void* m, const void* dden,
+                                 const void* g, const void* x, void* cpart,
+                                 void* rpart, int64_t num_tiles,
+                                 int64_t num_live, int64_t feat,
                                  int64_t block, float slope, void* stream) {
-  return scores<float>(blocks, rows, cols, ssrc, sdst, m, dden, g, x, cpart,
-                       rpart, num_tiles, feat, block, slope, stream);
+  return scores<float>(blocks, rows, cols, live, ssrc, sdst, m, dden, g, x,
+                       cpart, rpart, num_tiles, num_live, feat, block, slope,
+                       stream);
 }
 
 extern "C" int fitgnn_att_scores_bf16(const void* blocks, const void* rows,
-                                      const void* cols, const void* ssrc,
-                                      const void* sdst, const void* m,
-                                      const void* dden, const void* g,
-                                      const void* x, void* cpart, void* rpart,
-                                      int64_t num_tiles, int64_t feat,
-                                      int64_t block, float slope,
-                                      void* stream) {
-  return scores<__nv_bfloat16>(blocks, rows, cols, ssrc, sdst, m, dden, g, x,
-                               cpart, rpart, num_tiles, feat, block, slope,
-                               stream);
+                                      const void* cols, const void* live,
+                                      const void* ssrc, const void* sdst,
+                                      const void* m, const void* dden,
+                                      const void* g, const void* x,
+                                      void* cpart, void* rpart,
+                                      int64_t num_tiles, int64_t num_live,
+                                      int64_t feat, int64_t block,
+                                      float slope, void* stream) {
+  return scores<__nv_bfloat16>(blocks, rows, cols, live, ssrc, sdst, m, dden,
+                               g, x, cpart, rpart, num_tiles, num_live, feat,
+                               block, slope, stream);
 }
 
 // dssrc and dsdst (n,) f32 from the pass's partials (K, nq, block) f32:

@@ -213,9 +213,17 @@
 // quadrant only costs its walk; a cleared bit on a live quadrant drops its
 // product, as the plain versions with words drop it (K4 and K4T's plain
 // versions read no words: there a value that only a cleared quadrant holds
-// is the walk's divergence, bsr_dynamic.cu).  WORDS is a template flag:
-// every launch without words (null words; K7f, K7bt's dx, K8, every walk
-// at 128) builds the code above.
+// is the walk's divergence, bsr_dynamic.cu).  K7f's rows walk takes the
+// words too (att_bsr.cu, the plan's words of the mask): its hook's
+// partner operand (ssrc of the quadrant's slab) is double-buffered beside
+// the slabs and staged into each slab's cp.async group (stage), its value
+// step reads the buffer of the slab being applied (value_live), and its
+// den partials sit in shared memory after them (begin_live, finish_live);
+// the order of its adds is the walk without words', so num and den are
+// that walk's bit for bit.  The hooks a words walk takes are listed by
+// takes_words (Plain in both orientations, FwdScores in the rows one; not
+// K7bt's DxScores).  WORDS is a template flag: every launch without words
+// (null words; K7bt's dx, K8, every walk at 128) builds the code above.
 
 #pragma once
 
@@ -457,9 +465,14 @@ __device__ __forceinline__ void round_slab_pairs(float* xs, int tid) {
   }
 }
 
-// The identity hook: an entry's value is the entry (every walk but K7's)
+// The identity hook: an entry's value is the entry (every walk but K7's).
+// The steps ending in _live are the walk of the live quadrants' (WORDS,
+// walk_live): the hook's shared memory (SMEM_LIVE floats) lies after the
+// two slabs, its partner operand copied into buffer buf beside slab buf
+// (stage: into the slab's cp.async group, no commit of its own)
 struct Plain {
   static constexpr int SMEM = 0;                // floats of shared memory
+  static constexpr int SMEM_LIVE = 0;           // the same in walk_live
   __device__ __forceinline__ void begin(float*, int64_t, int) {}
   __device__ __forceinline__ void tile(float*, int64_t, int) {}
   __device__ __forceinline__ float value(float*, float e, int, int, int,
@@ -467,7 +480,21 @@ struct Plain {
     return e;
   }
   __device__ __forceinline__ void finish(int64_t, int64_t, int, int) {}
+  __device__ __forceinline__ void begin_live(float*, int64_t, int) {}
+  __device__ __forceinline__ void stage(float*, int, int64_t, int) {}
+  __device__ __forceinline__ float value_live(float*, int, float e, int, int,
+                                              int, int) {
+    return e;
+  }
+  __device__ __forceinline__ void finish_live(float*, int64_t, int64_t, int,
+                                              int) {}
 };
+
+// The hooks that the walk of the live quadrants takes, by orientation:
+// Plain in both (K1, K2, K9, K4, K4T); att_bsr.cu adds K7f's FwdScores in
+// the rows orientation
+template <class V, bool TRANS>
+struct takes_words : std::is_same<V, Plain> {};
 
 // acc += sum, over the lanes' entries e != 0 in ascending lane order, of
 // s.v . xs[32m + lane][the lane's 4 columns], v = get() the entry's value
@@ -552,14 +579,18 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
 // is unread.  Columns (TRANS): quadrant (q, h) of tile sel[k], read
 // transposed, against slab cols[k] nq + q, at scale 1; words[k] is tile
 // sel[k]'s word transposed (0 on a scale-0 slot).  smem holds the tile and
-// two slabs.  Called by every thread of the CTA (the walk is uniform).
-template <bool TRANS, bool VEC, class T, bool ROUND_X>
+// two slabs, then the hook's SMEM_LIVE floats (hs); the hook's partner
+// operand of each live quadrant is staged into the group of its slab, in
+// the buffer of that slab (rows orientation: K7f's ssrc), and its value
+// step sees that buffer.  Called by every thread of the CTA (the walk is
+// uniform).
+template <bool TRANS, bool VEC, class T, bool ROUND_X, class V>
 __device__ __forceinline__ void walk_live(
     const T* __restrict__ blocks, const int32_t* __restrict__ row_splits,
     const int32_t* __restrict__ sel, const int32_t* __restrict__ cols,
     const uint64_t* __restrict__ words, const float* __restrict__ x,
     float* smem, int64_t r, int h, int nq, int64_t f0, int64_t feat,
-    int tid, float (&acc)[ROWS][FL]) {
+    int tid, float (&acc)[ROWS][FL], V& val, float* hs) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int row0 = warp * ROWS;
@@ -610,6 +641,7 @@ __device__ __forceinline__ void walk_live(
   seek();
   if (m0 != 0) {
     const int q = __ffs(m0) - 1;
+    val.stage(hs, 0, static_cast<int64_t>(col0) * nq + q, tid);
     slab(xs[0], q);
     fetch(q);
   }
@@ -621,8 +653,10 @@ __device__ __forceinline__ void walk_live(
     m0 &= m0 - 1;
     seek();
     if (m0 != 0) {
-      // the next live quadrant's slab and tile, in flight during the apply
+      // the next live quadrant's slab (with the hook's operand) and tile,
+      // in flight during the apply
       const int q = __ffs(m0) - 1;
+      val.stage(hs, buf ^ 1, static_cast<int64_t>(col0) * nq + q, tid);
       slab(xs[buf ^ 1], q);
       fetch(q);
     } else {
@@ -652,13 +686,16 @@ __device__ __forceinline__ void walk_live(
         }
       }
     } else {
-      // output row i takes tile row i: entries j = lane + 32m
+      // output row i takes tile row i: entries j = lane + 32m, the value
+      // only where the ballot found a non-zero
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
           const float e = as[swizzled(row0 + i, lane + 32 * m)];
-          apply(e, [&] { return e; }, m, 1.f, xs[buf], lane, acc[i]);
+          apply(e, [&] {
+            return val.value_live(hs, buf, e, i, m, row0, lane);
+          }, m, 1.f, xs[buf], lane, acc[i]);
         }
       }
     }
@@ -682,9 +719,11 @@ __device__ __forceinline__ void walk_live(
 // takes each tile as its nq x nq quadrants, and the hook sees 128-row
 // blocks (its begin and finish the output block, its tile step the
 // quadrant's partner slab).  Without QUAD, nq is 1 and unread.  WORDS
-// (QUAD, no DIAG, the Plain hook; either orientation): words holds each
-// slot's occupancy word (under TRANS its tile's, transposed) and the walk
-// takes the live quadrants only (walk_live); otherwise words is unread.
+// (QUAD, no DIAG, a hook of takes_words: Plain in either orientation,
+// K7f's FwdScores in the rows one): words holds each slot's occupancy word
+// (under TRANS its tile's, transposed) and the walk takes the live
+// quadrants only (walk_live, the hook's shared memory after the two
+// slabs); otherwise words is unread.
 template <bool TRANS, bool INIT, bool VEC, bool DIAG, class V, class T,
           bool ROUND_X, bool WORDS, bool QUAD>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -697,8 +736,8 @@ walk_kernel(const T* __restrict__ blocks,
             const float* __restrict__ x, const float* __restrict__ init,
             float* __restrict__ out, int64_t feat, int64_t slices, V val,
             int nq) {
-  static_assert(!WORDS || (QUAD && !DIAG && std::is_same<V, Plain>::value),
-                "occupancy words: the walk of quadrants, Plain hook");
+  static_assert(!WORDS || (QUAD && !DIAG && takes_words<V, TRANS>::value),
+                "occupancy words: the walk of quadrants, a hook it takes");
   extern __shared__ __align__(16) float smem[];
   float* as = smem;                             // the swizzled tile
   float* xs = smem + BLK * BLK;                 // the X slab
@@ -724,13 +763,18 @@ walk_kernel(const T* __restrict__ blocks,
       for (int f = 0; f < FL; ++f) acc[i][f] = 0.f;
     }
   }
-  val.begin(hs, ob, tid);
-  if (WORDS) {
+  if constexpr (WORDS) {
+    // the hook's shared memory after the two slabs
+    float* hl = smem + BLK * BLK + 2 * BLK * FT;
+    val.begin_live(hl, ob, tid);
     walk_live<TRANS, VEC, T, ROUND_X>(blocks, row_splits, sel, cols, words,
-                                      x, smem, r, h, nq, f0, feat, tid, acc);
+                                      x, smem, r, h, nq, f0, feat, tid, acc,
+                                      val, hl);
     store_rows(acc, out, ob, f0, row0, lane, feat);
+    val.finish_live(hl, ob, f0, row0, lane);
     return;
   }
+  val.begin(hs, ob, tid);
 
   // a slot's indices, read one step before they are used, so no load of
   // the walk waits on a load of an index
@@ -862,8 +906,9 @@ walk_kernel(const T* __restrict__ blocks,
 // walk, which only a launch with QUAD builds (K1, K2, K9, K8, K4, K4T,
 // K7f and K7bt's dx).  words: the slots' occupancy words (under TRANS the
 // transposed words of their tiles), or null; given, the walk of the live
-// quadrants (SMEM_WORDS bytes), which only a launch with WORDS builds (K1,
-// K2, K9, K4 and K4T; the Plain hook outside DIAG alone).
+// quadrants (SMEM_WORDS bytes and the hook's V::SMEM_LIVE floats), which
+// only a launch with WORDS builds (K1, K2, K9, K4 and K4T under Plain, K7f
+// under FwdScores; outside DIAG).
 // Returns cudaErrorInvalidValue for quads < 1, or > 1 without QUAD, and
 // for words without WORDS or with quads outside 2 .. MAX_WORD_QUADS,
 // cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
@@ -872,6 +917,21 @@ walk_kernel(const T* __restrict__ blocks,
 // init's own.  val is the value hook (Plain: the entries as they are); T,
 // the tile type, comes from blocks, which must start on a 16-byte
 // boundary; ROUND_X (bf16 tiles only) rounds x to bf16.
+// bytes of dynamic shared memory of the walk of the live quadrants: the
+// tile, two slabs and the hook's SMEM_LIVE floats (0 without WORDS: never
+// launched)
+template <class V, bool WORDS>
+constexpr int words_smem() {
+  if constexpr (WORDS) {
+    constexpr int bytes = SMEM_WORDS
+                          + V::SMEM_LIVE * static_cast<int>(sizeof(float));
+    static_assert(bytes <= 232448, "over a block's shared memory");
+    return bytes;
+  } else {
+    return 0;
+  }
+}
+
 template <bool TRANS, bool INIT, bool DIAG = false, bool ROUND_X = false,
           bool QUAD = false, class T = float, class V = Plain,
           bool WORDS = false>
@@ -912,8 +972,9 @@ cudaError_t launch(const T* blocks, const int32_t* row_splits,
                                  false, false>
                    : walk_kernel<TRANS, INIT, false, DIAG, V, T, ROUND_X,
                                  false, false>);
-    const int bytes = (with_words ? SMEM_WORDS : SMEM)
-                      + V::SMEM * static_cast<int>(sizeof(float));
+    const int bytes = with_words ? words_smem<V, WORDS>()
+                                 : SMEM + V::SMEM * static_cast<int>(
+                                       sizeof(float));
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (set != cudaSuccess) return set;

@@ -43,7 +43,12 @@ Tiles of any edge E that is a multiple of 128 (the JAX package's
 ``build_hybrid(block=E, semantics="att_unit")``): the kernels take E from
 the tiles' shape and walk an E-wide tile as 128-wide quadrants (the
 source note says how); the score pass's partials are then (K, nq·E), nq =
-E / 128 (``att_scores_plain``).  Every wrapper refuses another edge with
+E / 128 (``att_scores_plain``).  Where the plan carries the mask's
+occupancy words (``DynPlan.words`` and ``live``, E of 256 to 1024), K7f
+walks the live quadrants alone and the score pass runs a CTA on each live
+quadrant alone; both give the launches without them bit for bit.  The
+plain versions read neither: they stay the JAX package's dense
+computation.  Every wrapper refuses another edge with
 ``ValueError``, on the CPU too.  ``ops/tile_gat.py``'s exact max without
 ``FUSED_TILES`` runs ``att_rowmax_plain`` at E on any device.
 
@@ -239,13 +244,13 @@ def att_bwd_scores_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst, m, g,
 # stream
 _ROWMAX_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
                     + [ctypes.c_float, ctypes.c_void_p])
-# blocks, splits, sel, scale, cols, ssrc, sdst, m, x, out, den,
+# blocks, splits, sel, scale, cols, words, ssrc, sdst, m, x, out, den,
 # num_row_blocks, feat, block, trans, slope, stream
-_WALK_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3
+_WALK_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int64] * 3
                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-# blocks, rows, cols, ssrc, sdst, m, dden, g, x, cpart, rpart, num_tiles,
-# feat, block, slope, stream
-_SCORES_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3
+# blocks, rows, cols, live, ssrc, sdst, m, dden, g, x, cpart, rpart,
+# num_tiles, num_live, feat, block, slope, stream
+_SCORES_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int64] * 4
                     + [ctypes.c_float, ctypes.c_void_p])
 # cpart, rpart, row_splits, t_row_splits, t_sel, t_scale, dssrc, dsdst,
 # num_row_blocks, block, stream
@@ -336,37 +341,57 @@ def _ptr(t):
     return _NULL if t is None else kernels.ptr(t)
 
 
-def _launch_walk(what, dev, blocks, splits, sel, scale, cols, ssrc, sdst, m,
-                 x, den, trans: bool, slope: float) -> torch.Tensor:
-    """One launch of the tile walk (forward or the transpose plan's dx)."""
+def _launch_walk(what, dev, blocks, splits, sel, scale, cols, words, ssrc,
+                 sdst, m, x, den, trans: bool, slope: float) -> torch.Tensor:
+    """One launch of the tile walk (forward or the transpose plan's dx);
+    ``words`` the forward tiles' occupancy words or None (the walk of every
+    quadrant).  Given words, a walk that has no words form (the dx walk, a
+    tile edge of 128 or above 1024) raises: there is no fallback to the
+    walk without them."""
+    if words is not None:
+        kernels.require(words, "words", torch.int64, blocks.device)
+        if words.shape != cols.shape:
+            raise ValueError(f"{what}: words {tuple(words.shape)} for "
+                             f"{cols.shape[0]} slots")
     out = torch.empty_like(x)
     launch = kernels.function("att_bsr", kernels.entry("fitgnn_att_walk", blocks),
                               _WALK_ARGTYPES)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(blocks), kernels.ptr(splits), _ptr(sel),
-                    _ptr(scale), kernels.ptr(cols), kernels.ptr(ssrc),
-                    kernels.ptr(sdst), kernels.ptr(m), kernels.ptr(x),
-                    kernels.ptr(out), _ptr(den), splits.shape[0] - 1,
-                    x.shape[1], blocks.shape[-1], int(trans), float(slope),
-                    kernels.stream(dev))
+                    _ptr(scale), kernels.ptr(cols), _ptr(words),
+                    kernels.ptr(ssrc), kernels.ptr(sdst), kernels.ptr(m),
+                    kernels.ptr(x), kernels.ptr(out), _ptr(den),
+                    splits.shape[0] - 1, x.shape[1], blocks.shape[-1],
+                    int(trans), float(slope), kernels.stream(dev))
     kernels.check(rc, what)
     return out
 
 
-def _launch_scores(what, dev, blocks, rows, cols, ssrc, sdst, m, g, x, dden,
-                   slope: float) -> tuple:
+def _launch_scores(what, dev, blocks, rows, cols, live, ssrc, sdst, m, g, x,
+                   dden, slope: float) -> tuple:
     """One launch of the score-gradient pass: ``(cpart, rpart)``, (K, nq·b)
-    each (``att_scores_plain``'s layout)."""
+    each (``att_scores_plain``'s layout).  ``live`` the quadrants to run
+    (``DynPlan.live``) or None (every quadrant of every tile); given, the
+    partials start from zeros, which the empty quadrants keep (the +0 that
+    their CTAs write without it), and a tile edge of 128 raises."""
     b = blocks.shape[-1]
-    cpart, rpart = torch.empty((2, blocks.shape[0], b // BLOCK * b),
-                               dtype=torch.float32, device=dev)
+    shape = (2, blocks.shape[0], b // BLOCK * b)
+    if live is None:
+        cpart, rpart = torch.empty(shape, dtype=torch.float32, device=dev)
+    else:
+        kernels.require(live, "live", torch.int32, blocks.device)
+        if live.dim() != 1:
+            raise ValueError(f"{what}: live {tuple(live.shape)} must be "
+                             "(L,)")
+        cpart, rpart = torch.zeros(shape, dtype=torch.float32, device=dev)
     launch = kernels.function("att_bsr", kernels.entry("fitgnn_att_scores", blocks),
                               _SCORES_ARGTYPES)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(blocks), kernels.ptr(rows), kernels.ptr(cols),
-                    kernels.ptr(ssrc), kernels.ptr(sdst), kernels.ptr(m),
-                    kernels.ptr(dden), kernels.ptr(g), kernels.ptr(x),
-                    kernels.ptr(cpart), kernels.ptr(rpart), blocks.shape[0],
+                    _ptr(live), kernels.ptr(ssrc), kernels.ptr(sdst),
+                    kernels.ptr(m), kernels.ptr(dden), kernels.ptr(g),
+                    kernels.ptr(x), kernels.ptr(cpart), kernels.ptr(rpart),
+                    blocks.shape[0], 0 if live is None else live.shape[0],
                     x.shape[1], b, float(slope), kernels.stream(dev))
     kernels.check(rc, what)
     return cpart, rpart
@@ -377,7 +402,11 @@ def att_fwd(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
             m: torch.Tensor, x: torch.Tensor, slope: float) -> tuple:
     """K7f: ``(num (n, F), den (n,))`` of the tiles' softmax numerators
     worked out in the kernel, every row written: the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    tensor, the plain version on a CPU tensor.  With ``plan.words`` (edge
+    256 to 1024) the kernel walks the live quadrants alone, which gives the
+    walk of every quadrant bit for bit: ``plan.words`` must be the
+    occupancy words of ``blocks`` (the mask the plan was built from, or a
+    cast of it with the same non-zeros, as the bf16 cast of a 0/1 mask)."""
     if x.device.type == "cpu":
         _edge("att_fwd", blocks)
         return att_fwd_plain(rows, cols, plan, blocks, ssrc, sdst, m, x,
@@ -386,7 +415,7 @@ def att_fwd(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
                  dict(ssrc=ssrc, sdst=sdst, m=m), dict(x=x), dict(cols=cols))
     den = torch.empty_like(ssrc)
     num = _launch_walk("att_fwd", dev, blocks, plan.row_splits, None, None,
-                       cols, ssrc, sdst, m, x, den, False, slope)
+                       cols, plan.words, ssrc, sdst, m, x, den, False, slope)
     kernels.count(att_fwd, blocks)
     return num, den
 
@@ -434,7 +463,13 @@ def att_bwd_scores(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     """K7bt's ``dssrc`` and K7bf's ``dsdst``, ``(dssrc, dsdst)``: on a CUDA
     tensor one launch of the score-gradient pass over the forward tiles
     (counted here; ``rows`` sorted, ``plan.row_splits`` their CSR), then
-    ``att_sums`` on its partials; the plain version on a CPU tensor."""
+    ``att_sums`` on its partials; the plain version on a CPU tensor.  With
+    ``plan.live`` (edge 256 to 1024) the pass runs one CTA a live quadrant
+    and no other, bit for bit the pass over every quadrant (an empty
+    quadrant's partials are +0 either way): ``plan.words``, whose live
+    quadrants ``plan.live`` lists, must be the occupancy words of
+    ``blocks`` (the mask the plan was built from, or a cast of it with the
+    same non-zeros)."""
     if x.device.type == "cpu":
         _edge("att_bwd_scores", blocks)
         return att_bwd_scores_plain(rows, cols, plan, blocks, ssrc, sdst, m,
@@ -446,7 +481,8 @@ def att_bwd_scores(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
         raise ValueError(f"att_bwd_scores: {rows.shape[0]} rows and "
                          f"{cols.shape[0]} cols for {blocks.shape[0]} tiles")
     cpart, rpart = _launch_scores("att_bwd_scores", dev, blocks, rows, cols,
-                                  ssrc, sdst, m, g, x, dden, slope)
+                                  plan.live, ssrc, sdst, m, g, x, dden,
+                                  slope)
     kernels.count(att_bwd_scores, blocks)
     return att_sums(plan, cpart, rpart)
 
@@ -482,8 +518,8 @@ def att_bwd_t(plan: DynPlan, blocks: torch.Tensor, ssrc: torch.Tensor,
     dx = dssrc = None
     if need_dx:
         dx = _launch_walk("att_bwd_t (dx)", dev, blocks, plan.t_row_splits,
-                          plan.t_sel, plan.t_scale, plan.t_cols, ssrc, sdst,
-                          m, g, None, True, slope)
+                          plan.t_sel, plan.t_scale, plan.t_cols, None, ssrc,
+                          sdst, m, g, None, True, slope)
         kernels.count(att_bwd_t, blocks)
     if need_dssrc:
         dssrc = att_bwd_scores(*_forward_tiles(plan, blocks.shape[0]), plan,

@@ -29,7 +29,9 @@ Occupancy words: above 128 (up to 1024) a plan built with the mask's
 occupancy words (``build_dyn_plan(..., words=bsr.quad_bits)``, as
 ``build_hybrid`` builds GAT's) carries them for both walks: ``words`` a
 forward tile, ``t_words`` a transpose slot (its tile's word transposed, 0
-on a filler).  K4 and K4ᵀ then read and apply the live quadrants alone
+on a filler), and ``live``, the list of their live quadrants (the grid of
+K7's score pass, ``ops/att_bsr.py``, which also runs K7f's forward on
+``words``).  K4 and K4ᵀ then read and apply the live quadrants alone
 (``csrc/tile_sparse.cuh`` ``walk_live``) and give the walk without words
 bit for bit, provided the tile values are zero wherever the mask's
 quadrant is empty, as GAT's ``where(mask, exp(·), 0)`` is
@@ -76,6 +78,10 @@ class DynPlan:
     # to j·nq + i, 0 where t_scale is 0
     words: Optional[torch.Tensor] = None
     t_words: Optional[torch.Tensor] = None
+    # the live quadrants of ``words``, or None where it is None: (L,) int32
+    # ``k·nq² + i·nq + j`` for every set bit ``i·nq + j`` of ``words[k]``,
+    # ascending (a tile's quadrants adjacent): the score pass's grid
+    live: Optional[torch.Tensor] = None
 
     def to(self, device) -> "DynPlan":
         return dataclass_to(self, device)
@@ -102,10 +108,11 @@ def build_dyn_plan(rows: np.ndarray, cols: np.ndarray, nb: int,
 
     ``words``: the (K,) int64 occupancy words of the (K, block, block)
     mask whose runtime values the walks will read (a ``BsrMatrix``'s
-    ``quad_bits``), or None; given, the plan carries them and their
-    transpose-slot form (``t_words``), which K4 and K4ᵀ then walk.  They
-    are None without words (as at edge 128 and above 1024, where a
-    ``BsrMatrix`` makes none); words at another edge raise
+    ``quad_bits``), or None; given, the plan carries them, their
+    transpose-slot form (``t_words``), which K4 and K4ᵀ then walk, and the
+    list of their live quadrants (``live``), on which K7's score pass runs
+    its grid.  They are None without words (as at edge 128 and above 1024,
+    where a ``BsrMatrix`` makes none); words at another edge raise
     ``ValueError``."""
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
@@ -143,7 +150,20 @@ def build_dyn_plan(rows: np.ndarray, cols: np.ndarray, nb: int,
         tw = np.where(t_scale != 0, transpose_words(w[t_sel], nq), 0)
         plan.words = torch.from_numpy(w.copy())
         plan.t_words = torch.from_numpy(tw.astype(np.int64))
+        plan.live = i32(live_quadrants(w, nq))
     return plan
+
+
+def live_quadrants(words: np.ndarray, nq: int) -> np.ndarray:
+    """The set bits of (K,) int64 occupancy words as quadrant ids ``k·nq² +
+    bit``, ascending; (L,) int64."""
+    u = np.asarray(words, dtype=np.int64).view(np.uint64)
+    if len(u) * nq * nq > np.iinfo(np.int32).max:
+        raise ValueError(f"live_quadrants: {len(u)} tiles of {nq * nq} "
+                         "quadrants overflow int32 ids")
+    bits = (u[:, None] >> np.arange(nq * nq, dtype=np.uint64)) \
+        & np.uint64(1)
+    return np.flatnonzero(bits)
 
 
 def _apply_plain(blocks, rows, cols, x, sel=None, scale=None,

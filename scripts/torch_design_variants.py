@@ -269,7 +269,7 @@ def k7_per_row():
     walk's ``row_splits`` and ``rpart`` is ``dsdst``."""
     return build_variant("k7_per_row", {
         "att_bsr.cu": edited(read("att_bsr.cu"), [
-            ("  const int64_t k = QUAD ? blockIdx.x / (nq * nq) : blockIdx.x;\n",
+            ("  const int64_t k = QUAD ? id / (nq * nq) : id;\n",
              "  const int64_t r = blockIdx.x;\n  float rs0 = 0.f, rs1 = 0.f;\n"
              "  for (int64_t k = rows[r]; k < rows[r + 1]; ++k) {\n"),
             ("  const int64_t r = QUAD ? static_cast<int64_t>(rows[k]) * nq + qi"
@@ -529,6 +529,7 @@ SEGMM_VARIANTS = {
 # quadrant's slab copy with its tile read, double-buffered)
 SKIP_ONLY = [('''  if (m0 != 0) {
     const int q = __ffs(m0) - 1;
+    val.stage(hs, 0, static_cast<int64_t>(col0) * nq + q, tid);
     slab(xs[0], q);
     fetch(q);
   }
@@ -540,8 +541,10 @@ SKIP_ONLY = [('''  if (m0 != 0) {
     m0 &= m0 - 1;
     seek();
     if (m0 != 0) {
-      // the next live quadrant's slab and tile, in flight during the apply
+      // the next live quadrant's slab (with the hook's operand) and tile,
+      // in flight during the apply
       const int q = __ffs(m0) - 1;
+      val.stage(hs, buf ^ 1, static_cast<int64_t>(col0) * nq + q, tid);
       slab(xs[buf ^ 1], q);
       fetch(q);
     } else {
@@ -553,6 +556,8 @@ SKIP_ONLY = [('''  if (m0 != 0) {
     const bool any = __syncthreads_or(ch.any());
     if (any) {
       ch.store(as, warp, lane);
+      val.stage(hs, buf, static_cast<int64_t>(col0) * nq + __ffs(m0) - 1,
+                tid);
       slab(xs[buf], __ffs(m0) - 1);
     }
     m0 &= m0 - 1;
@@ -923,15 +928,15 @@ def main() -> int:
                                        mg, x, 0.2)
             out, den = torch.empty_like(x), torch.empty_like(ssrc)
             kernels.check(fn(p(blocks), p(plan.row_splits), null, null,
-                             p(cols), p(ssrc), p(sdst), p(mg), p(x), p(out),
-                             p(den), NB, feat, 128, 0, 0.2, stream),
+                             p(cols), null, p(ssrc), p(sdst), p(mg), p(x),
+                             p(out), p(den), NB, feat, 128, 0, 0.2, stream),
                           "k7 fwd")
             return out, den
 
         def dx(fn):
             out = torch.empty_like(x)
             kernels.check(fn(p(blocks), p(plan.t_row_splits), p(plan.t_sel),
-                             p(plan.t_scale), p(plan.t_cols), p(ssrc),
+                             p(plan.t_scale), p(plan.t_cols), null, p(ssrc),
                              p(sdst), p(mg), p(x), p(out), null, NB, feat,
                              128, 1, 0.2, stream), "k7 dx")
             return out
@@ -961,16 +966,16 @@ def main() -> int:
 
         def scores():
             return att_bsr._launch_scores("att_bwd_scores", dev, blocks,
-                                          rows, cols, ssrc, sdst, mg, gr, x,
-                                          dden, 0.2)
+                                          rows, cols, None, ssrc, sdst, mg,
+                                          gr, x, dden, 0.2)
 
         def run_tiles(fn, what):
             def run():
                 cp, rp = torch.empty((2, TILES, 128), device=dev)
-                kernels.check(fn(p(blocks), p(rows), p(cols), p(ssrc),
-                                 p(sdst), p(mg), p(dden), p(gr), p(x),
-                                 p(cp), p(rp), TILES, feat, 128, 0.2,
-                                 stream),
+                kernels.check(fn(p(blocks), p(rows), p(cols), null,
+                                 p(ssrc), p(sdst), p(mg), p(dden), p(gr),
+                                 p(x), p(cp), p(rp), TILES, 0, feat, 128,
+                                 0.2, stream),
                               what)
                 return cp, rp
             return run
@@ -979,9 +984,9 @@ def main() -> int:
             cp = torch.empty((TILES, 128), device=dev)
             dsdst = torch.empty(NB * 128, device=dev)
             kernels.check(per_row(p(blocks), p(plan.row_splits), p(cols),
-                                  p(ssrc), p(sdst), p(mg), p(dden), p(gr),
-                                  p(x), p(cp), p(dsdst), NB, feat, 128, 0.2,
-                                  stream), "k7 per row")
+                                  null, p(ssrc), p(sdst), p(mg), p(dden),
+                                  p(gr), p(x), p(cp), p(dsdst), NB, 0, feat,
+                                  128, 0.2, stream), "k7 per row")
             return cp, dsdst
 
         def scores_sampled():

@@ -34,7 +34,10 @@ phase 14 builds it): at threshold 48 (K1), at 48 with ``tile_group=2``
 (K9) and at 192 with ``use_diag`` (K8, then K1), then GAT on its default
 two-stage path on the ``att_unit`` operator at E and threshold 48 (K4,
 K4ᵀ and K5 at E; above 128 K4 and K4ᵀ walk the live quadrants of the
-plan's occupancy words), as ``chip_smoke.py``'s phase 15 builds it; the
+plan's occupancy words), as ``chip_smoke.py``'s phase 15 builds it, and
+on the same operator under ``FITGNN_GAT_FUSED_TILES=1
+FITGNN_GAT_SEGMM_DEN=1`` (K7 at E, K6; above 128 K7f walks the live
+quadrants and K7s runs a CTA a live quadrant), phase 16's fused step; the
 walks at E take the tiles as 128-wide quadrants and land in the same
 groups.  For each configuration it prints:
 
@@ -372,6 +375,15 @@ def profile_block(block: int, x, s, r, y, train, dev) -> None:
                        f"GATConv block {block} threshold 48",
                        "K4 dyn_tiles")
     print(json.dumps({**info, **out}))
+    torch.cuda.empty_cache()
+    # the fused path with K6 on the same operator: K7 at the edge (above
+    # 128 K7f on the live quadrants, K7s on its live grid), no rows walk
+    # from zero
+    with switches(FUSED):
+        out = profile_step("GATConv", gd, dev,
+                           f"GATConv block {block} threshold 48 fused + K6",
+                           None)
+    print(json.dumps({**info, "switches": FUSED, **out}))
 
 
 # the collapse rows: (label, layer, build_optimized_graph's collapse, the
