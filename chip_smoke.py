@@ -235,8 +235,9 @@ Phases (any failure exits non-zero before the result lines):
    padded to 169,984), their live tiles, stragglers and share of empty
    128-wide quadrants beside the split expected; K4 (``dyn_tiles``), K4ᵀ
    (``dyn_tiles_t`` on the transpose plan) and K5 (``dyn_grad_blocks``,
-   one CTA a quadrant, bound at the tensor cores' TF32 rate for its three
-   passes) at edge 256 on ``pe``-like tile values at F=128 and 512, each
+   one CTA a live quadrant of the plan's ``live`` list, bound at the
+   tensor cores' TF32 rate for its three passes over the live quadrants)
+   at edge 256 on ``pe``-like tile values at F=128 and 512, each
    against its plain version (tolerance as in phase 3) with its kernel,
    plain and library times (``torch.sparse.mm`` on the tiles' non-zeros;
    K5's ``torch.bmm`` on pre-gathered slabs, TF32 off) and its bound; K4
@@ -244,14 +245,17 @@ Phases (any failure exits non-zero before the result lines):
    against the mask's), are also held bit for bit against the walk
    without words (timed beside them) and bounded over the live quadrants,
    the slabs they reach and the output, the bound over every quadrant of
-   every tile beside it;
+   every tile beside it; K5's live quadrants bit for bit the full grid's
+   and every other quadrant +0, the full grid timed beside it;
    then, every counter at 0 just before each run, one GAT
    ``gc_train_step`` and one eval forward at hidden 512 (dropout 0.5) on
    each operator under the default switches and under ``GLOBAL_MAX=0``,
    launching phase 4's GAT counts (K4, K4ᵀ, K5 in their ``@256`` forms)
    and held against the plain versions (the eval forward, the loss and
-   every gradient); and the step's ms on each operator beside the
-   edge-128 GAT operator's, in one call;
+   every gradient); the threshold-48 step's loss and gradients, under
+   PyTorch's deterministic algorithms, bit for bit with and without the
+   plan's ``live`` (K5 on the full grid); and the step's ms on each
+   operator beside the edge-128 GAT operator's, in one call;
 16. GAT's fused tile attention at edge 256 (``phase_gat_fused_block_*``):
    on phase 15's threshold-48 operator, f32 and bf16 masks, K7rm
    (``att_rowmax``, bit for bit), K7f (``att_fwd``), K7bt's ``dx`` walk,
@@ -259,8 +263,11 @@ Phases (any failure exits non-zero before the result lines):
    each against its plain version (tolerance as in phase 3; two launches
    of K7s + K7sums bit-equal; each bf16 form bit for bit its f32 form),
    with kernel, plain and two-stage times (the two-stage path at 256) and
-   its bound, and the fused outputs and gradients against the two-stage
-   path at 256; then, every counter at 0 just before each run, one fused
+   its bound, K7f, K7bt's ``dx`` (on the plan's words, ``words`` and
+   ``t_words``) and K7s (on its ``live`` list) also bit for bit the
+   launches without them (timed beside them), and the fused outputs and
+   gradients against the two-stage path at 256; then, every counter at 0
+   just before each run, one fused
    GAT ``gc_train_step`` and one eval forward at hidden 512 (dropout 0.5)
    on the threshold-48 operator under ``FUSED`` and ``FUSED_EXACT`` (f32
    and bf16 masks) and on the collapsed one under phase 12's ``FUSED``
@@ -731,8 +738,11 @@ def dyn_kernel_rows(device, hd, gen, tag: str = "") -> dict:
     against the walk without words (timed beside it, ``nowords_ms``), with
     its bound over the live quadrants, the slabs they reach and the
     output, and the bound over every quadrant of every tile beside it
-    (``bound_tiles_ms``).  Returns the rows by ID, ``tag`` ("" or "@256")
-    after each."""
+    (``bound_tiles_ms``); K5 runs on the plan's live list: its live
+    quadrants bit for bit the full grid's (timed beside it, ``nowords_ms``)
+    and every other quadrant +0, bound over the live quadrants' products
+    with the tile bound beside it.  Returns the rows by ID, ``tag`` ("" or
+    "@256") after each."""
     from fitgnn_tpu_torch.ops.bsr_dynamic import (
         dyn_grad_blocks, dyn_grad_blocks_plain, dyn_tiles, dyn_tiles_plain,
         dyn_tiles_t, dyn_tiles_t_plain)
@@ -793,11 +803,38 @@ def dyn_kernel_rows(device, hd, gen, tag: str = "") -> dict:
                 compare(f"K4T{tag} library torch.sparse.mm F={feat}",
                         torch.sparse.mm(a_t_csr, gr), p4t)
                 del k4, p4, k4t, p4t
-                k5 = dyn_grad_blocks(b.rows, b.cols, gr, x, edge)
-                p5 = dyn_grad_blocks_plain(b.rows, b.cols, gr, x, edge)
+                k5 = dyn_grad_blocks(b.rows, b.cols, gr, x, edge,
+                                     plan.live)
+                p5 = dyn_grad_blocks_plain(b.rows, b.cols, gr, x, edge,
+                                           plan.live)
                 torch.cuda.synchronize()
                 err5 = compare(f"K5{tag} dyn_grad_blocks F={feat}", k5, p5)
-                del k5, p5
+                del p5
+                if words:
+                    # the live quadrants the full grid's, the others +0
+                    full = dyn_grad_blocks(b.rows, b.cols, gr, x, edge)
+                    nq = edge // 128
+                    keep = torch.zeros(k_all * nq * nq, dtype=torch.bool,
+                                       device=device)
+                    keep[plan.live.long()] = True
+
+                    def quads_of(t):
+                        return t.reshape(k_all, nq, 128, nq, 128).transpose(
+                            2, 3).reshape(-1, 128, 128)
+
+                    q5, qf = quads_of(k5), quads_of(full)
+                    check(torch.equal(q5[keep], qf[keep]),
+                          f"K5{tag} F={feat}: a live quadrant is not the "
+                          "full grid's bit for bit")
+                    dead = q5[~keep]
+                    check(bool((dead == 0).all())
+                          and not bool(dead.signbit().any()),
+                          f"K5{tag} F={feat}: an empty quadrant is not +0")
+                    print(f"  K5{tag} F={feat}: {int(keep.sum())} live "
+                          "quadrants bit for bit the full grid's, "
+                          f"{int((~keep).sum())} empty ones +0")
+                    del full, q5, qf, dead, keep
+                del k5
                 # K4 and K4ᵀ read every tile (at 256 all four quadrants),
                 # the slabs of the distinct input blocks and write the
                 # output once; 2 FLOPs per tile non-zero and feature
@@ -844,6 +881,22 @@ def dyn_kernel_rows(device, hd, gen, tag: str = "") -> dict:
                 b5, by5 = bound(b5_bytes, 3 * b5_flops,
                                 PEAK_TF32_FLOP_PER_S)
                 b5_cc, _ = bound(b5_bytes, b5_flops)
+                live5 = {}
+                if words:
+                    # on the live list: the dense output once (zeros
+                    # included), the indices and the list, the distinct
+                    # 128-row g and x slabs the live quadrants reach; the
+                    # three TF32 passes over the live quadrants alone
+                    bl5, byl5 = bound(
+                        tile_bytes + idx_bytes + quads * 4
+                        + (qt_slabs + q_slabs) * 128 * feat * 4,
+                        3 * 2.0 * quads * 128 * 128 * feat,
+                        PEAK_TF32_FLOP_PER_S)
+                    live5 = dict(
+                        bound_ms=bl5, bound_by=byl5, bound_tiles_ms=b5,
+                        live_quadrants=quads,
+                        nowords_ms=cuda_ms(lambda: dyn_grad_blocks(
+                            b.rows, b.cols, gr, x, edge), 10))
                 gs = gr.reshape(nb, edge, feat).index_select(0,
                                                              b.rows.long())
                 xs = x.reshape(nb, edge, feat).index_select(0, b.cols.long())
@@ -867,17 +920,17 @@ def dyn_kernel_rows(device, hd, gen, tag: str = "") -> dict:
                                        20)), **live4.get("K4T", {})})
                 # no one PyTorch call gathers the slabs and multiplies
                 # them: the bmm of slabs gathered first stands in
-                out[f"K5{tag}"].append(dict(
+                out[f"K5{tag}"].append({**dict(
                     F=feat, **err5, bound_ms=b5, bound_by=by5,
                     bound_cuda_cores_ms=b5_cc,
                     ms=cuda_ms(lambda: dyn_grad_blocks(b.rows, b.cols, gr, x,
-                                                       edge), 10),
+                                                       edge, plan.live), 10),
                     plain_ms=cuda_ms(lambda: dyn_grad_blocks_plain(
-                        b.rows, b.cols, gr, x, edge), 5),
+                        b.rows, b.cols, gr, x, edge, plan.live), 5),
                     library_ms=cuda_ms(lambda: torch.bmm(
                         gs, xs.transpose(1, 2)), 10),
                     library_label="torch.bmm on pre-gathered slabs (the "
-                    "gather excluded), TF32 off"))
+                    "gather excluded), TF32 off"), **live5})
                 for k in ("K4", "K4T", "K5"):
                     sh = out[f"{k}{tag}"][-1]
                     print(f"  {k}{tag} F={feat}: kernel_ms={sh['ms']:.4f} "
@@ -4296,9 +4349,12 @@ def phase_gat_block_steps(device, g, ops) -> dict:
     and under ``GLOBAL_MAX=0``, one GAT ``gc_train_step`` at hidden 512
     (bit dropout 0.5, seed-0 weights) and one eval forward, launching
     ``GAT_EDGE_STEP`` and held against the same run with the plain versions
-    (the eval forward, the loss and every gradient); then the
-    ``gc_train_step`` ms on each operator beside the edge-128 GAT
-    operator's (phase 3's order at threshold 48), in one call."""
+    (the eval forward, the loss and every gradient); on the threshold-48
+    operator, under PyTorch's deterministic algorithms, the step with the
+    plan's ``live`` list (K5 on the live quadrants) against the step
+    without it (the full grid), bit for bit; then the ``gc_train_step`` ms
+    on each operator beside the edge-128 GAT operator's (phase 3's order
+    at threshold 48), in one call."""
     from fitgnn_tpu_torch.models.models import NodeModel
 
     t_phase = time.perf_counter()
@@ -4332,6 +4388,27 @@ def phase_gat_block_steps(device, g, ops) -> dict:
                 compare(f"{what}: grad {k} kernels vs plain", got[2][k],
                         ref[2][k])
             del got, ref
+        if name == "t48":
+            # K5 on the live list gives the step the full grid gives
+            plan = gd.aux.dyn_plan
+            check(plan.live is not None, "t48: the plan has no live list")
+            full = gd._replace(aux=dataclasses.replace(
+                gd.aux, dyn_plan=dataclasses.replace(plan, live=None)))
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                a, b_, c = (run(gr) for gr in (gd, full, gd))
+            finally:
+                torch.use_deterministic_algorithms(False)
+            for other, what in ((b_, "without the live list"),
+                                (c, "twice")):
+                check(torch.equal(a[1], other[1]) and all(
+                    torch.equal(a[2][k], other[2][k]) for k in a[2]),
+                    f"edge{EDGE} gat512 t48 step {what}: not bit for bit "
+                    "the step with the live list")
+            print(f"edge{EDGE} gat512 t48 step: loss and {len(a[2])} "
+                  "gradients bit for bit with and without the plan's live "
+                  "list (deterministic algorithms)")
+            del a, b_, c, full
         del gd
         torch.cuda.empty_cache()
 
@@ -4381,7 +4458,8 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
     launch without them (timed beside it, ``nowords_ms``), with its bound
     over the live quadrants and the tile bound beside it
     (``bound_tiles_ms``; K7s also its dense TF32 product over the live
-    quadrants).  Returns the rows by ID (``K7f@256``, ``K7fbf@256``, ...;
+    quadrants); K7bt's ``dx`` walks the live quadrants of the plan's
+    ``t_words`` likewise.  Returns the rows by ID (``K7f@256``, ``K7fbf@256``, ...;
     K7sums, which reads no tile, from the f32 mask)."""
     from fitgnn_tpu_torch.ops import att_bsr
     from fitgnn_tpu_torch.ops.bsr_dynamic import live_quadrants as live_ids
@@ -4487,10 +4565,10 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
         bwd0 = (nowords, *bwd[1:])
         tag = f"{sfx}@{EDGE}"
 
-        def dx_walk(bl):
+        def dx_walk(bl, words=plan.t_words):
             return att_bsr._launch_walk(
                 "att_bwd_t (dx)", device, bl, plan.t_row_splits, plan.t_sel,
-                plan.t_scale, plan.t_cols, None, ssrc, sdst, mg, gr, None,
+                plan.t_scale, plan.t_cols, words, ssrc, sdst, mg, gr, None,
                 True, SLOPE)
 
         def scores(bl, live=plan.live):
@@ -4510,6 +4588,7 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
             del num_p, den_p
             dx = dx_walk(blocks)
             same(f"K7bt{tag} F={feat}", (dx,), (dx_walk(b32),))
+            bits(f"K7bt{tag} F={feat}", (dx,), (dx_walk(blocks, None),))
             e_t = compare(f"K7bt{tag} att_bwd_t dx F={feat}", dx,
                           att_bsr.att_bwd_t_plain(*bwd, need_dssrc=False)[0])
             part = scores(blocks)
@@ -4527,8 +4606,8 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
                   f"{pair}: two launches differ")
             bits(pair, (dss, dsd), att_bsr.att_bwd_scores(rows, cols, *bwd0))
             print(f"  {pair}: two launches bit-equal, and bit for bit the "
-                  "pass over every quadrant; K7f likewise the walk without "
-                  "words")
+                  "pass over every quadrant; K7f and K7bt likewise the walk "
+                  "without words")
             e_s = [compare(f"K7s{tag} att_bwd_scores {w} F={feat}", a, p_)
                    for w, a, p_ in zip(("dssrc", "dsdst"), (dss, dsd),
                                        att_bsr.att_bwd_scores_plain(
@@ -4572,8 +4651,12 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
                             + n * feat * 4 + vec, f_ops)
             bf_, byf = bound(quad_bytes + idx_f + k_all * 8 + 3 * vec
                              + c_slabs * qslab + n * feat * 4 + vec, f_ops)
-            bdx, bydx = bound(tile_bytes + idx_t + 3 * vec
-                              + uniq_rows * slabs + n * feat * 4,
+            bdx_t, _ = bound(tile_bytes + idx_t + 3 * vec
+                             + uniq_rows * slabs + n * feat * 4,
+                             nnz * (2.0 * feat + 5))
+            kt = plan.t_sel.numel()
+            bdx, bydx = bound(quad_bytes + idx_t + kt * 8 + 3 * vec
+                              + r_slabs * qslab + n * feat * 4,
                               nnz * (2.0 * feat + 5))
             s_ops = nnz * (2.0 * feat + 8)
             bs_t, _ = bound(tile_bytes + 2 * k_all * 4 + 4 * vec
@@ -4603,8 +4686,10 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
             # the path launches the dx walk at F=512 only (layer 1)
             add("K7bt", dict(
                 F=feat, shape=f"F={feat}", launch="dx", on_path=need_dx,
-                **e_t, bound_ms=bdx, bound_by=bydx,
+                **e_t, bound_ms=bdx, bound_by=bydx, bound_tiles_ms=bdx_t,
+                live_quadrants=quads,
                 ms=cuda_ms(lambda: dx_walk(blocks), 20),
+                nowords_ms=cuda_ms(lambda: dx_walk(blocks, None), 20),
                 plain_ms=cuda_ms(lambda: att_bsr.att_bwd_t_plain(
                     *bwd, need_dssrc=False), 5), library_ms=None,
                 two_stage_ms=two_bwd if need_dx else None,
@@ -4866,8 +4951,10 @@ KERNELS = (
      "transpose plan's quadrants, read transposed)",
      "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/bsr_dynamic.py:68"),
-    ("K5@256", "K5@256 dyn_grad_blocks on 256-wide tiles (one CTA a "
-     "128-wide quadrant)", "fitgnn_tpu_torch/csrc/bsr_dynamic.cu",
+    ("K5@256", "K5@256 dyn_grad_blocks on 256-wide tiles (one tensor-core "
+     "CTA a live 128-wide quadrant of the plan's live list, the empty "
+     "quadrants written as +0 in the same launch)",
+     "fitgnn_tpu_torch/csrc/bsr_dynamic.cu",
      "fitgnn_tpu/ops/pallas/bsr_dynamic.py:122"),
     # GAT's fused forms at tile edge 256, phase 16
     ("K7rm@256", "K7rm@256 att_rowmax on 256-wide masks (a CTA a 128-row "
@@ -4878,7 +4965,8 @@ KERNELS = (
      "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/att_bsr.py:125"),
     ("K7bt@256", "K7bt@256 att_bwd_t dx on 256-wide masks (the columns "
-     "walk's QUAD form under att::DxScores)",
+     "walk of the live quadrants of the plan's transpose words under "
+     "att::DxScores)",
      "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
      "fitgnn_tpu/ops/pallas/att_bsr.py:185"),
     ("K7s@256", "K7s@256 att_bwd_scores' pass on 256-wide masks (one "
@@ -5045,12 +5133,12 @@ def main() -> int:
                   and (walk_args(kernel) or (None,) * 4)[3] == hook)
                  or (name is not None and kernel.startswith(name)))}
         # two load widths each, K7f, K7bt and K7s also on bf16 tiles; at
-        # 256 K7f also walks the live quadrants (WORDS) and K7s runs its
-        # live grid (LIVE), each beside its form without them
+        # 256 K7f and K7bt also walk the live quadrants (WORDS) and K7s and
+        # K5 run their live grids (LIVE), each beside its form without them
         want = {"K7sums": 1, "K3": 6, "K3w": 6, "K6": 6, "K5": 2}.get(base,
                                                                        4)
-        if edge and base in ("K7f", "K7s"):
-            want = 8
+        if edge and base in ("K7f", "K7bt", "K7s", "K5"):
+            want *= 2
         check(len(entry["registers"]) == want,
               f"{entry['name']}: no ptxas record of its kernels")
         print(f"{k} registers: {entry['registers']}")

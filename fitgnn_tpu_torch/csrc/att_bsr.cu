@@ -154,6 +154,15 @@
 //   partials in shared memory, where in registers they would spill the
 //   walk), and gives the walk of every quadrant bit for bit: the live
 //   quadrants in the same order, the same adds;
+// * K7bt's dx walks the live quadrants of the transpose slots' words
+//   (DynPlan.t_words: each slot's tile word transposed, 0 on a filler) in
+//   the columns form of walk_live under DxScores: the partner block's sdst
+//   and m double-buffered beside the slabs and copied into each slab's
+//   group, so the copy of the next live quadrant's slab and scores runs
+//   beside the current apply, where the walk without words started both
+//   after its vote on each quadrant; pe formed as there, four values of a
+//   float4 before their ballots, so dx is that walk's bit for bit, f32 and
+//   bf16 masks;
 // * the score pass runs its grid on the live list (LIVE): CTA i takes
 //   quadrant live[i] = k nq^2 + qi nq + qj, ascending, so a tile's live
 //   quadrants stay adjacent; everything inside a CTA is as above.  The
@@ -166,8 +175,9 @@
 // 128 KiB); the pass's dense product is 4x a 128 tile's entries, so at
 // E = 256 its three TF32 passes (2.F FLOPs an entry each) bound it by the
 // operations on the bench graph.  With the words each live quadrant is
-// read once (64 KiB, bf16 32 KiB) with the slabs the live quadrants reach,
-// and the dense product runs over the live quadrants alone.
+// read once (64 KiB, bf16 32 KiB) with the slabs the live quadrants reach
+// (and each slot's word), and the dense product runs over the live
+// quadrants alone.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -622,15 +632,46 @@ struct DxScores {
     return att_pe(e, hs[BLK + j] + hs[row0 + o], hs[2 * BLK + j], slope);
   }
   __device__ __forceinline__ void finish(int64_t, int64_t, int, int) {}
+
+  // The walk of the live quadrants (WORDS, the transpose slots' words):
+  // hs holds ssrc of block r, then sdst and m of the partner block p in
+  // two buffers of 2 BLK floats (one a slab buffer, copied into that
+  // slab's group), so the copy of the next live quadrant's partner runs
+  // beside the current apply.  pe is formed as value forms it, so dx is
+  // the walk without words' bit for bit.
+  static constexpr int SMEM_LIVE = 5 * BLK;
+
+  __device__ __forceinline__ void begin_live(float* hs, int64_t r, int tid) {
+    begin(hs, r, tid);
+  }
+  __device__ __forceinline__ void stage(float* hs, int buf, int64_t p,
+                                        int tid) {
+    if (tid < 2 * BLK) {
+      sparse::cp_async4(hs + (1 + 2 * buf) * BLK + tid,
+                        tid < BLK ? sdst + p * BLK + tid
+                                  : m + p * BLK + tid - BLK, 4);
+    }
+  }
+  __device__ __forceinline__ float value_live(float* hs, int buf, float e,
+                                              int o, int mm, int row0,
+                                              int lane) {
+    const int j = lane + 32 * mm;
+    const float* pb = hs + (1 + 2 * buf) * BLK;
+    return att_pe(e, pb[j] + hs[row0 + o], pb[BLK + j], slope);
+  }
+  __device__ __forceinline__ void finish_live(float*, int64_t, int64_t, int,
+                                              int) {}
 };
 
 }  // namespace att
 
-// K7f's rows walk takes the occupancy words (K7bt's dx, the columns walk
-// under DxScores, does not)
+// K7f's rows walk and K7bt's dx, the columns walk, take the occupancy
+// words
 namespace sparse {
 template <>
 struct takes_words<att::FwdScores, false> : std::true_type {};
+template <>
+struct takes_words<att::DxScores, true> : std::true_type {};
 }  // namespace sparse
 
 namespace {
@@ -684,11 +725,13 @@ int walk(const void* blocks, const void* splits, const void* sel,
   const auto* w = static_cast<const uint64_t*>(words);
   auto* op = static_cast<float*>(out);
   if (trans) {
-    // no words walk under DxScores: given words, cudaErrorInvalidValue
-    return static_cast<int>(sparse::launch<true, false, false, false, true>(
-        b, sp, static_cast<const int32_t*>(sel),
-        static_cast<const int32_t*>(scale), c, xp, nullptr, op,
-        num_row_blocks, feat, st, att::DxScores{ss, sd, mm, slope}, nq, w));
+    return static_cast<int>(
+        sparse::launch<true, false, false, false, true, T, att::DxScores,
+                       true>(
+            b, sp, static_cast<const int32_t*>(sel),
+            static_cast<const int32_t*>(scale), c, xp, nullptr, op,
+            num_row_blocks, feat, st, att::DxScores{ss, sd, mm, slope}, nq,
+            w));
   }
   return static_cast<int>(
       sparse::launch<false, false, false, false, true, T, att::FwdScores,
@@ -780,13 +823,14 @@ extern "C" int fitgnn_att_rowmax_bf16(const void* blocks,
 // null, cols the input tiles, x the features, den (n,) f32 or null;
 // words, the tiles' (K,) occupancy words, or null); trans != 0 the dx walk
 // of the transpose plan (splits = t_row_splits, sel = t_sel, scale =
-// t_scale, cols = t_cols, x = g, den and words null).  blocks
-// (K,block,block) f32, 16-byte aligned; ssrc, sdst, m (n,) f32; x, out
-// (n, feat) f32 with n = num_row_blocks*block; all contiguous.  Given
-// words, the forward walks the live quadrants alone (block 256 to 1024).
-// Returns cudaErrorInvalidValue for words at another block or with trans,
-// cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,
-// else cudaGetLastError() after the launch.
+// t_scale, cols = t_cols, x = g, den null; words, the slots' (Kt,) words,
+// each its tile's transposed and 0 on a scale-0 filler, DynPlan.t_words,
+// or null).  blocks (K,block,block) f32, 16-byte aligned; ssrc, sdst, m
+// (n,) f32; x, out (n, feat) f32 with n = num_row_blocks*block; all
+// contiguous.  Given words, either walk takes the live quadrants alone
+// (block 256 to 1024).  Returns cudaErrorInvalidValue for words at
+// another block, cudaErrorInvalidConfiguration when the grid would exceed
+// 2^31 - 1 CTAs, else cudaGetLastError() after the launch.
 extern "C" int fitgnn_att_walk(const void* blocks, const void* splits,
                                const void* sel, const void* scale,
                                const void* cols, const void* words,

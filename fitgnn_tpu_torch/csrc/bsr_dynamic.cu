@@ -25,9 +25,11 @@
 //
 // K5, fitgnn_dyn_grad_blocks:
 //   dB[k] = g[rows[k]*128 : +128, :] @ x[cols[k]*128 : +128, :]^T,
-// for every tile, fillers included, dense and in f32.  Replaces
-// fitgnn_tpu/ops/pallas/bsr_dynamic.py:_dB_kernel (grid built by
-// _dyn_grad_blocks), whose dot_general is the dense product too.
+// for every tile, fillers included, dense and in f32 (above edge 128,
+// given the plan's live list, on its live quadrants alone and +0 on the
+// others: below).  Replaces fitgnn_tpu/ops/pallas/bsr_dynamic.py:_dB_kernel
+// (grid built by _dyn_grad_blocks), whose dot_general is the dense
+// product too.
 //
 // Bound on an H100.  K4 and K4T: bytes.  The function needs 2 FLOPs per
 // tile non-zero and feature, and the attention tiles are ~3% full, so the
@@ -54,12 +56,16 @@
 // Not kept, as no faster at the bench graph's shapes: a third stage that
 // keeps one wgmma group in flight across chunks
 // (scripts/torch_design_variants.py times it), a cp.async ring of raw
-// chunks in place of the register prefetch, and mma.sync m16n8k8 with the
-// same split.  Left for later: two
-// CTAs an SM (fewer registers and one stage), a persistent grid that
-// overlaps a tile's store with the next tile's loads, and a product
-// sampled at the tile mask (only ~3% of dB is used downstream, but that
-// changes the op's output at every unmasked entry).
+// chunks in place of the register prefetch, mma.sync m16n8k8 with the
+// same split, and on the live list (below) a persistent grid, one CTA an
+// SM walking the list with the next quadrant's first F-chunk loaded while
+// the current one's accumulators are stored
+// (scripts/variants/dyn_grad_blocks_persistent.cu; at edge 256 on the
+// bench graph 0.2655 / 0.7344 ms at F=128 / 512 against the live grid's
+// 0.2597 / 0.7009, H100 80GB HBM3 at 700 W).  Left for later: two CTAs an
+// SM (fewer registers and one stage), and a product sampled at the tile
+// mask (only ~3% of dB is used downstream, but that changes the op's
+// output at every unmasked entry).
 //
 // Tiles of another edge.  The JAX package's build_hybrid(block=E,
 // semantics="att_unit") gives GAT (K, E, E) tiles for any E = 128 nq, and
@@ -76,6 +82,9 @@
 // register file.  At E = 256 the dense dB is 4x the work of a 128 tile, so
 // the tensor cores (three TF32 passes), not the bytes, bound K5 on the
 // bench graph.  At E = 128 (nq = 1) both are the kernels above, unchanged.
+// With the live list (below) the product runs on the live quadrants alone:
+// at F=512 their three TF32 passes still bind it, at F=128 the bytes (the
+// dense output, zeros included, and the slabs the live quadrants reach).
 //
 // Occupancy words (E > 128).  GAT's tile values are pe = where(mask,
 // exp(.), 0), zero wherever the att_unit mask is, so the mask's occupancy
@@ -93,6 +102,28 @@
 // the main path never makes: a non-zero value in a cleared quadrant is
 // dropped, and an inf or NaN in x that only such quadrants reach stays
 // out of the output (ROADMAP.md §3).
+//   K5 takes the plan's live list (DynPlan.live: the words' set bits as
+// quadrant ids k nq^2 + qi nq + qj, ascending): CTA b runs the product of
+// quadrant live[b] alone, the same code, product and stores as the full
+// grid's CTA there, so a live quadrant of dB is the full grid's bit for
+// bit; no CTA computes an empty quadrant's product (a third of the bench
+// graph's quadrants at threshold 48).  The empty quadrants are written as
+// +0 in the same launch: CTA b first stores zeros over the gap between
+// live[b - 1] and live[b], and one CTA more covers the gap after the last
+// live quadrant (tiles with no live quadrant, the coverage fillers,
+// included); a gap's stores are issued before the product's loads and
+// need no search and no CTA of their own.  Kept over a torch.empty output
+// with a separate store-only pass, a second launch over the same gaps,
+// because it is faster at both widths: 0.2597 / 0.7009 ms at F=128 / 512
+// on the bench graph against 0.2974 / 0.7449, the full grid 0.3405 /
+// 0.9928 (scripts/torch_design_variants.py --k5-live-only, H100 80GB
+// HBM3 at 700 W).  The
+// divergence (ROADMAP.md §3): on an empty quadrant dB is +0 where
+// _dB_kernel gives g x^T.  GAT's only reader of dB is the backward of
+// pe = where(mask, exp(.), 0), which keeps dB only where the mask is set,
+// and an empty quadrant has no set entry, so no gradient the layer returns
+// sees it (and an inf in g or x that only empty quadrants reach leaves dB
+// finite).  Null live is the full grid, as before.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -106,22 +137,57 @@ constexpr int BLK = tf32x3::BLK;
 // the product's two stages, 1 KB aligned
 constexpr int GSMEM = tf32x3::SMEM + 1024;
 
-template <bool VEC, bool QUAD>
+// Writes dB's quadrants lo .. hi - 1 (ids k nq^2 + qi nq + qj: 128 rows of
+// 128 floats at row stride nq 128) as +0, one after another; a warp stores
+// one row's 512 contiguous bytes a step.
+__device__ __forceinline__ void zero_quadrants(float* __restrict__ dB,
+                                               int64_t lo, int64_t hi,
+                                               int nq, int tid) {
+  const int64_t edge = static_cast<int64_t>(nq) * BLK;
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int64_t q = lo; q < hi; ++q) {
+    const int64_t k = q / (nq * nq);
+    const int64_t qi = q / nq % nq, qj = q % nq;
+    float* o = dB + k * edge * edge + qi * BLK * edge + qj * BLK
+               + 4 * (tid & 31);
+#pragma unroll 4
+    for (int i = tid >> 5; i < BLK; i += tf32x3::THREADS / 32) {
+      *reinterpret_cast<float4*>(o + i * edge) = z;
+    }
+  }
+}
+
+template <bool VEC, bool LIVE, bool QUAD>
 __global__ void __launch_bounds__(tf32x3::THREADS, 1)
 dyn_grad_blocks_kernel(const int32_t* __restrict__ rows,
                        const int32_t* __restrict__ cols,
+                       const int32_t* __restrict__ live,
                        const float* __restrict__ g,
                        const float* __restrict__ x, float* __restrict__ dB,
-                       int64_t feat, int nq) {
+                       int64_t feat, int64_t num_live, int64_t num_quads,
+                       int nq) {
   extern __shared__ unsigned char graw[];
   const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(graw));
   float* sm = reinterpret_cast<float*>(graw + ((1024 - base % 1024) % 1024));
   const int tid = threadIdx.x;
   const int wg = tid / 128;                     // output rows 64 wg ..
+  if (LIVE) {
+    // the empty quadrants between live[b - 1] and live[b] (the last CTA,
+    // b = num_live: after the last live one) as +0, their stores issued
+    // before the product's loads
+    const int64_t b = blockIdx.x;
+    zero_quadrants(dB, b == 0 ? 0 : live[b - 1] + 1,
+                   b == num_live ? num_quads : live[b], nq, tid);
+    if (b == num_live) return;
+  }
   // the tile, and under QUAD its quadrant (qi, qj): the nq^2 CTAs of a
-  // tile are adjacent, so they run together and share their slabs in L2
-  const int64_t k = QUAD ? blockIdx.x / (nq * nq) : blockIdx.x;
-  const int quad = QUAD ? static_cast<int>(blockIdx.x % (nq * nq)) : 0;
+  // tile are adjacent, so they run together and share their slabs in L2;
+  // under LIVE CTA b takes quadrant live[b], ascending, so a tile's live
+  // quadrants stay adjacent
+  const unsigned id = LIVE ? static_cast<unsigned>(live[blockIdx.x])
+                           : blockIdx.x;
+  const int64_t k = QUAD ? id / (nq * nq) : id;
+  const int quad = QUAD ? static_cast<int>(id % (nq * nq)) : 0;
   const int64_t qi = QUAD ? quad / nq : 0, qj = QUAD ? quad % nq : 0;
   const int64_t edge = QUAD ? static_cast<int64_t>(nq) * BLK : BLK;
   const float* gb = g + (static_cast<int64_t>(rows[k]) * edge + qi * BLK)
@@ -199,40 +265,58 @@ extern "C" int fitgnn_bsr_dyn_apply(const void* blocks, const void* row_splits,
 // rows, cols (num_tiles,) int32 tile-row and tile-column ids; g, x (*,
 // feat) f32; dB (num_tiles,block,block) f32, 16-byte aligned; all
 // contiguous.  block, the tile edge, is a multiple of 128: above 128 each
-// tile's nq^2 quadrants (nq = block / 128) are CTAs of their own.  feat may
-// be 0 (dB is then written as zeros).  Returns cudaErrorInvalidValue for a
-// block that is not a multiple of 128, cudaErrorInvalidConfiguration when
-// the grid (num_tiles nq^2 CTAs) would exceed 2^31 - 1, else
-// cudaGetLastError() after the launch.
+// tile's nq^2 quadrants (nq = block / 128) are CTAs of their own.  live,
+// (num_live,) int32, the quadrants whose product is wanted (ids k nq^2 +
+// qi nq + qj, ascending: the mask's live ones, DynPlan.live), or null for
+// every quadrant of every tile; given, every other quadrant of dB is
+// written as +0 (nq 2 to 8).  feat may be 0 (dB is then written as zeros).
+// Returns cudaErrorInvalidValue for a block that is not a multiple of 128
+// and for live at another nq or with num_live outside 0 .. num_tiles nq^2,
+// cudaErrorInvalidConfiguration when the grid (num_tiles nq^2 CTAs, or
+// num_live + 1) would exceed 2^31 - 1, else cudaGetLastError() after the
+// launch.
 extern "C" int fitgnn_dyn_grad_blocks(const void* rows, const void* cols,
-                                      const void* g, const void* x, void* dB,
-                                      int64_t num_tiles, int64_t feat,
-                                      int64_t block, void* stream) {
+                                      const void* live, const void* g,
+                                      const void* x, void* dB,
+                                      int64_t num_tiles, int64_t num_live,
+                                      int64_t feat, int64_t block,
+                                      void* stream) {
   if (block < BLK || block % BLK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nq = static_cast<int>(block / BLK);
-  const int64_t ctas = num_tiles * nq * nq;
-  if (ctas > 0x7fffffff) {
+  const int64_t quads = num_tiles * nq * nq;
+  const bool with_live = live != nullptr;
+  if (with_live && (nq < 2 || nq > sparse::MAX_WORD_QUADS || num_live < 0
+                    || num_live > quads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (quads > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  if (ctas > 0) {
+  // under live one CTA a live quadrant and one for the empty ones after
+  // the last
+  const int64_t ctas = with_live ? num_live + 1 : quads;
+  if (quads > 0) {
     const bool vec = reinterpret_cast<uintptr_t>(g) % 16 == 0
                      && reinterpret_cast<uintptr_t>(x) % 16 == 0
                      && feat % 4 == 0;
     const auto kernel =
-        nq > 1 ? (vec ? dyn_grad_blocks_kernel<true, true>
-                      : dyn_grad_blocks_kernel<false, true>)
-               : (vec ? dyn_grad_blocks_kernel<true, false>
-                      : dyn_grad_blocks_kernel<false, false>);
+        with_live ? (vec ? dyn_grad_blocks_kernel<true, true, true>
+                         : dyn_grad_blocks_kernel<false, true, true>)
+        : nq > 1 ? (vec ? dyn_grad_blocks_kernel<true, false, true>
+                        : dyn_grad_blocks_kernel<false, false, true>)
+                 : (vec ? dyn_grad_blocks_kernel<true, false, false>
+                        : dyn_grad_blocks_kernel<false, false, false>);
     const cudaError_t set = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM);
     if (set != cudaSuccess) return static_cast<int>(set);
     kernel<<<static_cast<unsigned>(ctas), tf32x3::THREADS, GSMEM,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cols),
-        static_cast<const float*>(g), static_cast<const float*>(x),
-        static_cast<float*>(dB), feat, nq);
+        static_cast<const int32_t*>(live), static_cast<const float*>(g),
+        static_cast<const float*>(x), static_cast<float*>(dB), feat,
+        num_live, quads, nq);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -220,10 +220,17 @@
 // step reads the buffer of the slab being applied (value_live), and its
 // den partials sit in shared memory after them (begin_live, finish_live);
 // the order of its adds is the walk without words', so num and den are
-// that walk's bit for bit.  The hooks a words walk takes are listed by
-// takes_words (Plain in both orientations, FwdScores in the rows one; not
-// K7bt's DxScores).  WORDS is a template flag: every launch without words
-// (null words; K7bt's dx, K8, every walk at 128) builds the code above.
+// that walk's bit for bit.  K7bt's dx, the columns walk under DxScores,
+// takes the transpose slots' words (the plan's t_words) the same way: its
+// partner operands (sdst and m of the quadrant's forward rows) ride each
+// slab's group in two buffers, and its value step forms the four values
+// of a float4 before their ballots, as the walk without words does, from
+// the buffer of the slab being applied; a filler slot's word is 0, so no
+// filler is walked, and dx is that walk's bit for bit.  The hooks a words
+// walk takes are listed by takes_words (Plain in both orientations,
+// FwdScores in the rows one, DxScores in the columns one).  WORDS is a
+// template flag: every launch without words (null words; K8, every walk
+// at 128) builds the code above.
 
 #pragma once
 
@@ -492,7 +499,7 @@ struct Plain {
 
 // The hooks that the walk of the live quadrants takes, by orientation:
 // Plain in both (K1, K2, K9, K4, K4T); att_bsr.cu adds K7f's FwdScores in
-// the rows orientation
+// the rows orientation and K7bt's DxScores in the columns one
 template <class V, bool TRANS>
 struct takes_words : std::is_same<V, Plain> {};
 
@@ -581,9 +588,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
 // sel[k]'s word transposed (0 on a scale-0 slot).  smem holds the tile and
 // two slabs, then the hook's SMEM_LIVE floats (hs); the hook's partner
 // operand of each live quadrant is staged into the group of its slab, in
-// the buffer of that slab (rows orientation: K7f's ssrc), and its value
-// step sees that buffer.  Called by every thread of the CTA (the walk is
-// uniform).
+// the buffer of that slab (rows orientation: K7f's ssrc; columns: K7bt's
+// sdst and m), and its value step sees that buffer.  Called by every
+// thread of the CTA (the walk is uniform).
 template <bool TRANS, bool VEC, class T, bool ROUND_X, class V>
 __device__ __forceinline__ void walk_live(
     const T* __restrict__ blocks, const int32_t* __restrict__ row_splits,
@@ -675,13 +682,20 @@ __device__ __forceinline__ void walk_live(
         for (int m = 0; m < 4; ++m) {
           const float4 v = *reinterpret_cast<const float4*>(
               as + swizzled(lane + 32 * m, 4 * q));
-          apply(v.x, [&] { return v.x; }, m, 1.f, xs[buf], lane,
+          // the four values first, so that their work overlaps (Plain's
+          // are the entries)
+          const float w[4] = {
+              val.value_live(hs, buf, v.x, 4 * qd + 0, m, row0, lane),
+              val.value_live(hs, buf, v.y, 4 * qd + 1, m, row0, lane),
+              val.value_live(hs, buf, v.z, 4 * qd + 2, m, row0, lane),
+              val.value_live(hs, buf, v.w, 4 * qd + 3, m, row0, lane)};
+          apply(v.x, [&] { return w[0]; }, m, 1.f, xs[buf], lane,
                 acc[4 * qd + 0]);
-          apply(v.y, [&] { return v.y; }, m, 1.f, xs[buf], lane,
+          apply(v.y, [&] { return w[1]; }, m, 1.f, xs[buf], lane,
                 acc[4 * qd + 1]);
-          apply(v.z, [&] { return v.z; }, m, 1.f, xs[buf], lane,
+          apply(v.z, [&] { return w[2]; }, m, 1.f, xs[buf], lane,
                 acc[4 * qd + 2]);
-          apply(v.w, [&] { return v.w; }, m, 1.f, xs[buf], lane,
+          apply(v.w, [&] { return w[3]; }, m, 1.f, xs[buf], lane,
                 acc[4 * qd + 3]);
         }
       }
@@ -720,7 +734,8 @@ __device__ __forceinline__ void walk_live(
 // blocks (its begin and finish the output block, its tile step the
 // quadrant's partner slab).  Without QUAD, nq is 1 and unread.  WORDS
 // (QUAD, no DIAG, a hook of takes_words: Plain in either orientation,
-// K7f's FwdScores in the rows one): words holds each slot's occupancy word
+// K7f's FwdScores in the rows one, K7bt's DxScores in the columns one):
+// words holds each slot's occupancy word
 // (under TRANS its tile's, transposed) and the walk takes the live
 // quadrants only (walk_live, the hook's shared memory after the two
 // slabs); otherwise words is unread.
@@ -908,7 +923,7 @@ walk_kernel(const T* __restrict__ blocks,
 // transposed words of their tiles), or null; given, the walk of the live
 // quadrants (SMEM_WORDS bytes and the hook's V::SMEM_LIVE floats), which
 // only a launch with WORDS builds (K1, K2, K9, K4 and K4T under Plain, K7f
-// under FwdScores; outside DIAG).
+// under FwdScores, K7bt's dx under DxScores; outside DIAG).
 // Returns cudaErrorInvalidValue for quads < 1, or > 1 without QUAD, and
 // for words without WORDS or with quads outside 2 .. MAX_WORD_QUADS,
 // cudaErrorInvalidConfiguration when the grid would exceed 2^31 - 1 CTAs,

@@ -44,11 +44,12 @@ Tiles of any edge E that is a multiple of 128 (the JAX package's
 the tiles' shape and walk an E-wide tile as 128-wide quadrants (the
 source note says how); the score pass's partials are then (K, nq·E), nq =
 E / 128 (``att_scores_plain``).  Where the plan carries the mask's
-occupancy words (``DynPlan.words`` and ``live``, E of 256 to 1024), K7f
-walks the live quadrants alone and the score pass runs a CTA on each live
-quadrant alone; both give the launches without them bit for bit.  The
-plain versions read neither: they stay the JAX package's dense
-computation.  Every wrapper refuses another edge with
+occupancy words (``DynPlan.words``, ``t_words`` and ``live``, E of 256 to
+1024), K7f and K7bt's ``dx`` walk the live quadrants alone and the score
+pass runs a CTA on each live quadrant alone; each gives the launch
+without them bit for bit.  The plain versions read none of them: they
+stay the JAX package's dense computation.  Every wrapper refuses another
+edge with
 ``ValueError``, on the CPU too.  ``ops/tile_gat.py``'s exact max without
 ``FUSED_TILES`` runs ``att_rowmax_plain`` at E on any device.
 
@@ -344,10 +345,11 @@ def _ptr(t):
 def _launch_walk(what, dev, blocks, splits, sel, scale, cols, words, ssrc,
                  sdst, m, x, den, trans: bool, slope: float) -> torch.Tensor:
     """One launch of the tile walk (forward or the transpose plan's dx);
-    ``words`` the forward tiles' occupancy words or None (the walk of every
-    quadrant).  Given words, a walk that has no words form (the dx walk, a
-    tile edge of 128 or above 1024) raises: there is no fallback to the
-    walk without them."""
+    ``words`` the slots' occupancy words (the forward tiles' ``words``, the
+    transpose slots' ``t_words``) or None (the walk of every quadrant).
+    Given words, a tile edge the walk of the live quadrants does not take
+    (128, above 1024) raises: there is no fallback to the walk without
+    them."""
     if words is not None:
         kernels.require(words, "words", torch.int64, blocks.device)
         if words.shape != cols.shape:
@@ -506,7 +508,12 @@ def att_bwd_t(plan: DynPlan, blocks: torch.Tensor, ssrc: torch.Tensor,
               need_dx: bool = True, need_dssrc: bool = True) -> tuple:
     """K7bt: ``(dx, dssrc)`` on the transpose plan, each None unless asked
     for: on a CUDA tensor the walk kernel for ``dx`` (counted here) and
-    ``att_bwd_scores`` for ``dssrc``, the plain version on a CPU tensor."""
+    ``att_bwd_scores`` for ``dssrc``, the plain version on a CPU tensor.
+    With ``plan.t_words`` (edge 256 to 1024) the ``dx`` walk takes the live
+    quadrants alone, which gives the walk of every quadrant bit for bit:
+    ``plan.t_words`` must be the transposed occupancy words of the tiles
+    each slot reads (the mask the plan was built from, or a cast of it
+    with the same non-zeros, as the bf16 cast of a 0/1 mask)."""
     if x.device.type == "cpu":
         _edge("att_bwd_t", blocks)
         return att_bwd_t_plain(plan, blocks, ssrc, sdst, m, g, x, dden,
@@ -518,8 +525,8 @@ def att_bwd_t(plan: DynPlan, blocks: torch.Tensor, ssrc: torch.Tensor,
     dx = dssrc = None
     if need_dx:
         dx = _launch_walk("att_bwd_t (dx)", dev, blocks, plan.t_row_splits,
-                          plan.t_sel, plan.t_scale, plan.t_cols, None, ssrc,
-                          sdst, m, g, None, True, slope)
+                          plan.t_sel, plan.t_scale, plan.t_cols,
+                          plan.t_words, ssrc, sdst, m, g, None, True, slope)
         kernels.count(att_bwd_t, blocks)
     if need_dssrc:
         dssrc = att_bwd_scores(*_forward_tiles(plan, blocks.shape[0]), plan,

@@ -15,7 +15,8 @@ differentiable in ``blocks_dyn`` and ``x``, as the JAX package's
   orientation); coverage-filler slots have ``t_scale`` 0 and add nothing;
 * ``dblocks``: K5 (``dyn_grad_blocks``), ``dB[k] = g[rows[k]] @ x[cols[k]]ᵀ``,
   dense, on the tensor cores with f32 accuracy (TF32 operands split into
-  a high and a low part).
+  a high and a low part); given the plan's ``live`` list, on its live
+  quadrants alone and +0 on the others.
 
 The tiles are (K, E, E) for any edge E that is a multiple of 128 (the JAX
 package's ``build_hybrid(block=E, semantics="att_unit")``); every index
@@ -30,13 +31,16 @@ occupancy words (``build_dyn_plan(..., words=bsr.quad_bits)``, as
 ``build_hybrid`` builds GAT's) carries them for both walks: ``words`` a
 forward tile, ``t_words`` a transpose slot (its tile's word transposed, 0
 on a filler), and ``live``, the list of their live quadrants (the grid of
-K7's score pass, ``ops/att_bsr.py``, which also runs K7f's forward on
-``words``).  K4 and K4ᵀ then read and apply the live quadrants alone
-(``csrc/tile_sparse.cuh`` ``walk_live``) and give the walk without words
-bit for bit, provided the tile values are zero wherever the mask's
-quadrant is empty, as GAT's ``where(mask, exp(·), 0)`` is
-(``bsr_spmm_dyn`` states the contract).  The plain versions read no words:
-they stay the JAX package's dense product.
+K5 and of K7's score pass, ``ops/att_bsr.py``, which also runs K7f's
+forward on ``words`` and K7bt's ``dx`` on ``t_words``).  K4 and K4ᵀ then
+read and apply the live quadrants alone (``csrc/tile_sparse.cuh``
+``walk_live``) and give the walk without words bit for bit, provided the
+tile values are zero wherever the mask's quadrant is empty, as GAT's
+``where(mask, exp(·), 0)`` is (``bsr_spmm_dyn`` states the contract).  The
+plain versions of K4 and K4ᵀ read no words: they stay the JAX package's
+dense product.  K5 runs a CTA only on each ``live`` quadrant and writes
+the others as +0; its plain version takes the same ``live`` and zeroes
+the same quadrants, and without it is the JAX package's dense product.
 
 Each wrapper launches the hand-written kernel of ``csrc/bsr_dynamic.cu``
 on CUDA tensors (it replaces ``fitgnn_tpu/ops/pallas/bsr_dynamic.py``'s
@@ -80,7 +84,8 @@ class DynPlan:
     t_words: Optional[torch.Tensor] = None
     # the live quadrants of ``words``, or None where it is None: (L,) int32
     # ``k·nq² + i·nq + j`` for every set bit ``i·nq + j`` of ``words[k]``,
-    # ascending (a tile's quadrants adjacent): the score pass's grid
+    # ascending (a tile's quadrants adjacent): the grid of K5 and of K7's
+    # score pass
     live: Optional[torch.Tensor] = None
 
     def to(self, device) -> "DynPlan":
@@ -108,12 +113,12 @@ def build_dyn_plan(rows: np.ndarray, cols: np.ndarray, nb: int,
 
     ``words``: the (K,) int64 occupancy words of the (K, block, block)
     mask whose runtime values the walks will read (a ``BsrMatrix``'s
-    ``quad_bits``), or None; given, the plan carries them, their
-    transpose-slot form (``t_words``), which K4 and K4ᵀ then walk, and the
-    list of their live quadrants (``live``), on which K7's score pass runs
-    its grid.  They are None without words (as at edge 128 and above 1024,
-    where a ``BsrMatrix`` makes none); words at another edge raise
-    ``ValueError``."""
+    ``quad_bits``), or None; given, the plan carries them (walked by K4
+    and K7f), their transpose-slot form (``t_words``, walked by K4ᵀ and
+    K7bt's ``dx``) and the list of their live quadrants (``live``), on
+    which K5 and K7's score pass run their grids.  They are None without
+    words (as at edge 128 and above 1024, where a ``BsrMatrix`` makes
+    none); words at another edge raise ``ValueError``."""
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     order = np.argsort(cols, kind="stable")
@@ -193,21 +198,31 @@ def dyn_tiles_t_plain(plan: DynPlan, blocks, g) -> torch.Tensor:
                         scale=plan.t_scale, trans=True)
 
 
-def dyn_grad_blocks_plain(rows, cols, g, x,
-                          block: int = BLOCK) -> torch.Tensor:
-    """``dB[k] = g[rows[k]] @ x[cols[k]]ᵀ`` over (block, F) slabs."""
+def dyn_grad_blocks_plain(rows, cols, g, x, block: int = BLOCK,
+                          live=None) -> torch.Tensor:
+    """``dB[k] = g[rows[k]] @ x[cols[k]]ᵀ`` over (block, F) slabs; given
+    ``live`` (quadrant ids ``k·nq² + i·nq + j``), +0 on every 128-wide
+    quadrant it does not list."""
     n, feat = x.shape
     gb = g.reshape(n // block, block, feat).index_select(0, rows.long())
     xb = x.reshape(n // block, block, feat).index_select(0, cols.long())
-    return torch.bmm(gb, xb.transpose(1, 2))
+    out = torch.bmm(gb, xb.transpose(1, 2))
+    if live is None:
+        return out
+    k, nq = out.shape[0], block // BLOCK
+    keep = torch.zeros(k * nq * nq, dtype=torch.bool, device=out.device)
+    keep[live.long()] = True
+    return torch.where(keep.reshape(k, nq, 1, nq, 1),
+                       out.reshape(k, nq, BLOCK, nq, BLOCK),
+                       0.0).reshape(out.shape)
 
 
 # blocks, row_splits, sel, scale, cols, words, x, out, num_row_blocks,
 # feat, block, trans, stream
 _APPLY_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3
                    + [ctypes.c_int, ctypes.c_void_p])
-# rows, cols, g, x, dB, num_tiles, feat, block, stream
-_GRAD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [
+# rows, cols, live, g, x, dB, num_tiles, num_live, feat, block, stream
+_GRAD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4 + [
     ctypes.c_void_p]
 
 
@@ -306,26 +321,40 @@ def dyn_tiles_t(plan: DynPlan, blocks: torch.Tensor,
 
 
 def dyn_grad_blocks(rows: torch.Tensor, cols: torch.Tensor, g: torch.Tensor,
-                    x: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
+                    x: torch.Tensor, block: int = BLOCK,
+                    live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K5, ``dB[k] = g[rows[k]] @ x[cols[k]]ᵀ`` for every tile (fillers
     included), (K, block, block), ``block`` the tile edge: the CUDA kernel
-    on a CUDA tensor, the plain version on a CPU tensor."""
+    on a CUDA tensor, the plain version on a CPU tensor.  ``live``: the
+    plan's (L,) int32 list of quadrant ids ``k·nq² + i·nq + j``, ascending
+    (``DynPlan.live``), or None; given, only those quadrants' products are
+    computed and every other quadrant is +0 (the kernel launches no
+    product there).  A live list at edge 128 (or above 1024) raises on the
+    card: there is no fallback to the full grid."""
     if g.shape != x.shape:
         raise ValueError(f"dyn_grad_blocks: g {tuple(g.shape)} and x "
                          f"{tuple(x.shape)} differ")
     if x.device.type == "cpu":
         check_block(block)
-        return dyn_grad_blocks_plain(rows, cols, g, x, block)
+        return dyn_grad_blocks_plain(rows, cols, g, x, block, live)
     dev = _check_operands("dyn_grad_blocks", None, x, block, ("rows", rows),
                           ("cols", cols))
     kernels.require(g, "g", torch.float32, dev)
+    if live is not None:
+        kernels.require(live, "live", torch.int32, dev)
+        if live.dim() != 1:
+            raise ValueError(f"dyn_grad_blocks: live {tuple(live.shape)} "
+                             "must be (L,)")
     k = rows.shape[0]
     out = torch.empty((k, block, block), dtype=x.dtype, device=dev)
     launch = kernels.function("bsr_dynamic", "fitgnn_dyn_grad_blocks",
                               _GRAD_ARGTYPES)
     with torch.cuda.device(dev):
-        rc = launch(kernels.ptr(rows), kernels.ptr(cols), kernels.ptr(g),
-                    kernels.ptr(x), kernels.ptr(out), k, x.shape[1], block,
+        rc = launch(kernels.ptr(rows), kernels.ptr(cols),
+                    ctypes.c_void_p(None) if live is None
+                    else kernels.ptr(live), kernels.ptr(g), kernels.ptr(x),
+                    kernels.ptr(out), k,
+                    0 if live is None else live.shape[0], x.shape[1], block,
                     kernels.stream(dev))
     kernels.check(rc, "dyn_grad_blocks")
     dyn_grad_blocks.launches += 1
@@ -351,8 +380,8 @@ class _BsrSpmmDyn(torch.autograd.Function):
         dblocks = dx = None
         if ctx.needs_input_grad[3]:
             dblocks = dyn_grad_blocks(rows, cols, g, x,
-                                      blocks_dyn.shape[-1]).to(
-                                          blocks_dyn.dtype)
+                                      blocks_dyn.shape[-1],
+                                      ctx.plan.live).to(blocks_dyn.dtype)
         if ctx.needs_input_grad[4]:
             dx = dyn_tiles_t(ctx.plan, blocks_dyn, g)
         return None, None, None, dblocks, dx
@@ -376,8 +405,12 @@ def bsr_spmm_dyn(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     result departs from the dense product (the plain versions, the JAX
     package's ``bsr_spmm_dyn``) only off that contract: a non-zero value
     in a cleared quadrant is dropped, and an inf or NaN in ``x`` (or the
-    cotangent) that only such quadrants reach stays out of the output
-    (``ROADMAP.md`` §3).  K5 (``dblocks``) is unchanged: the dense
-    gradient of every tile."""
+    cotangent) that only such quadrants reach stays out of the output.
+    K5 (``dblocks``) then runs on the plan's ``live`` quadrants alone, on
+    any device: ``dblocks`` is +0 on every quadrant whose bit is clear,
+    where the dense gradient (the JAX package's) is ``g·xᵀ``.  GAT's
+    ``where(mask, exp(·), 0)`` reads ``dblocks`` only under the mask, so no
+    gradient it returns sees the difference (``ROADMAP.md`` §3).  Without
+    words every tile's dense gradient is computed."""
     return _BsrSpmmDyn.apply(rows, cols, plan, blocks_dyn.contiguous(),
                              x.contiguous())

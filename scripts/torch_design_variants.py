@@ -72,6 +72,19 @@ its alternatives, on one GPU.
   the walk without words.
   ``--quad-words-only`` runs this section alone, and prints the
   ``ptxas`` registers of both words forms.
+* K5 on the live list at tile edge 256 (``--k5-live-only``, this section
+  alone), on the bench graph's GAT plan at threshold 48 (3,115 live of
+  4,696 quadrants), F = 128 and 512: the full grid (no list), the
+  committed live grid (a CTA a live quadrant, each first storing the
+  zeros of the gap of empty quadrants before it, one more CTA for the gap
+  after the last), the same with the zeros written by a store-only pass
+  of their own after the products (``K5_ZERO_PASS``, a textual edit), and
+  a persistent grid, one CTA an SM walking the list, the next quadrant's
+  first F-chunk loaded while the current one's accumulators are stored
+  (``scripts/variants/dyn_grad_blocks_persistent.cu``); in the order
+  full, kept, pass, persistent and back, each checked against the plain
+  version with the list and each live form bit for bit the committed one;
+  with their ``ptxas`` registers.
 
 Each alternative but the last K7 one and the old segment sum is the
 committed source with a few textual edits; all are built with ``nvcc``
@@ -222,6 +235,148 @@ def k5_three_stages():
         "tile_sparse.cuh": read("tile_sparse.cuh")},
         "bsr_dynamic.cu", "fitgnn_dyn_grad_blocks",
         bsr_dynamic._GRAD_ARGTYPES)
+
+
+# K5 on the live list with the empty quadrants zeroed by a store-only pass
+# of its own after the products (a second launch over the same gaps, no
+# shared memory), in place of the product CTAs' gap stores
+K5_ZERO_PASS = [
+    ("""    zero_quadrants(dB, b == 0 ? 0 : live[b - 1] + 1,
+                   b == num_live ? num_quads : live[b], nq, tid);
+""", ""),
+    ("template <bool VEC, bool LIVE, bool QUAD>\n",
+     """__global__ void __launch_bounds__(tf32x3::THREADS)
+zero_gaps_kernel(const int32_t* __restrict__ live, float* __restrict__ dB,
+                 int64_t num_live, int64_t num_quads, int nq) {
+  const int64_t b = blockIdx.x;
+  zero_quadrants(dB, b == 0 ? 0 : live[b - 1] + 1,
+                 b == num_live ? num_quads : live[b], nq, threadIdx.x);
+}
+
+template <bool VEC, bool LIVE, bool QUAD>
+"""),
+    ("""        num_live, quads, nq);
+  }
+""", """        num_live, quads, nq);
+    if (with_live) {
+      zero_gaps_kernel<<<static_cast<unsigned>(num_live + 1),
+                         tf32x3::THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int32_t*>(live), static_cast<float*>(dB),
+          num_live, quads, nq);
+    }
+  }
+""")]
+
+
+def k5_live_variants() -> dict:
+    """K5's live grid with a separate store-only pass for the zeros, and
+    the persistent grid (``scripts/variants/dyn_grad_blocks_persistent.cu``);
+    name -> C function."""
+    with open(os.path.join(ROOT, "scripts", "variants",
+                           "dyn_grad_blocks_persistent.cu")) as f:
+        persistent = f.read()
+    libs = build_libraries({
+        "k5_zero_pass": ({
+            "bsr_dynamic.cu": edited(read("bsr_dynamic.cu"), K5_ZERO_PASS),
+            "tf32x3.cuh": read("tf32x3.cuh"),
+            "tile_sparse.cuh": read("tile_sparse.cuh")}, "bsr_dynamic.cu"),
+        "k5_persistent": ({
+            "dyn_grad_blocks_persistent.cu": persistent,
+            "tf32x3.cuh": read("tf32x3.cuh")},
+            "dyn_grad_blocks_persistent.cu")})
+    return {name: c_function(lib, "fitgnn_dyn_grad_blocks",
+                             bsr_dynamic._GRAD_ARGTYPES)
+            for name, lib in libs.items()}
+
+
+def k5_live_section(dev) -> tuple:
+    """K5 at edge 256 on the bench graph's GAT plan (threshold 48, its
+    live list), F = 128 and 512: the full grid (no list), the committed
+    live grid (the gaps zeroed by the product CTAs), the live grid with a
+    store-only pass for the zeros, and the persistent grid, in the order
+    full, kept, pass, persistent, persistent, pass, kept, full; each
+    checked against the plain version with the list, and each live form
+    bit for bit the committed one.  Returns the rows and the variants'
+    registers."""
+    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+    from chip_smoke import NUM_NODES
+
+    fns = k5_live_variants()
+    kernels.build([t for t in kernels.TARGETS if t.name == "bsr_dynamic"])
+    regs = {}
+    for form, log in (
+            ("kept", next(t.log_path for t in kernels.TARGETS
+                          if t.name == "bsr_dynamic")),
+            ("zero pass", os.path.join(OUT, "k5_zero_pass",
+                                       "libk5_zero_pass.log")),
+            ("persistent", os.path.join(OUT, "k5_persistent",
+                                        "libk5_persistent.log"))):
+        for k, n, spill in ptxas_entries(log):
+            if "dyn_grad_blocks_kernel<" in k and k.endswith("true, true>") \
+                    or "persistent_kernel" in k or "zero_gaps" in k:
+                regs[f"{form}: {k}"] = (n, spill)
+    x, s, r, y, train = make_graph()
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                 layer_name="GCNConv", seed=0)
+    h = build_hybrid(g.senders.numpy().astype("int64"),
+                     g.receivers.numpy().astype("int64"),
+                     (g.edge_weight.numpy() > 0).astype("float32"),
+                     g.num_nodes_padded, block=256, min_block_edges=48,
+                     use_segmm=True, semantics="att_unit",
+                     real_nodes=NUM_NODES)
+    n = g.num_nodes_padded
+    del g
+    hd = h.to(dev)
+    b, plan = hd.bsr, hd.dyn_plan
+    k = b.nnz_blocks
+    print(f"K5@256 live grid: {plan.live.numel()} live quadrants of "
+          f"{k * 4}")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    stream = kernels.stream(dev)
+    results = []
+    for feat in (128, 512):
+        xx = torch.randn((n, feat), generator=gen, device=dev)
+        gr = torch.randn((n, feat), generator=gen, device=dev)
+
+        def variant(name):
+            def run():
+                out = torch.empty((k, 256, 256), device=dev)
+                kernels.check(fns[name](
+                    kernels.ptr(b.rows), kernels.ptr(b.cols),
+                    kernels.ptr(plan.live), kernels.ptr(gr),
+                    kernels.ptr(xx), kernels.ptr(out), k,
+                    plan.live.numel(), feat, 256, stream), name)
+                return out
+            return run
+
+        forms = {"full": lambda: bsr_dynamic.dyn_grad_blocks(
+                     b.rows, b.cols, gr, xx, 256),
+                 "kept": lambda: bsr_dynamic.dyn_grad_blocks(
+                     b.rows, b.cols, gr, xx, 256, plan.live),
+                 "zero_pass": variant("k5_zero_pass"),
+                 "persistent": variant("k5_persistent")}
+        ref = bsr_dynamic.dyn_grad_blocks_plain(b.rows, b.cols, gr, xx, 256,
+                                                plan.live)
+        got = {f: run() for f, run in forms.items()}
+        check(f"K5@256 F={feat} kept", got["kept"], ref)
+        for f in ("zero_pass", "persistent"):
+            if not torch.equal(got[f], got["kept"]):
+                raise RuntimeError(f"K5@256 F={feat} {f}: not the committed "
+                                   "live grid bit for bit")
+        del got, ref
+        times = {f: [] for f in forms}
+        order = ("full", "kept", "zero_pass", "persistent")
+        for f in order + order[::-1]:
+            times[f].append(ms(forms[f]))
+        results.append({"kernel": "K5@256", "F": feat,
+                        **{f"{f}_ms": sum(v) / len(v)
+                           for f, v in times.items()}, "runs_ms": times})
+        print(results[-1])
+        del xx, gr
+        torch.cuda.empty_cache()
+    return results, regs
 
 
 def k7_variant(name: str, edits: list):
@@ -828,6 +983,11 @@ def main() -> int:
         print(json.dumps({"device": torch.cuda.get_device_name(0),
                           "registers": regs, "results": rows}))
         return 0
+    if "--k5-live-only" in sys.argv[1:]:
+        rows, regs = k5_live_section(dev)
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "registers": regs, "results": rows}))
+        return 0
     gen = torch.Generator(device=dev).manual_seed(0)
     results = []
 
@@ -870,8 +1030,8 @@ def main() -> int:
         def run_three():
             out = torch.empty((TILES, 128, 128), device=dev)
             kernels.check(three(kernels.ptr(rows), kernels.ptr(cols),
-                                kernels.ptr(gr), kernels.ptr(x),
-                                kernels.ptr(out), TILES, feat, 128,
+                                None, kernels.ptr(gr), kernels.ptr(x),
+                                kernels.ptr(out), TILES, 0, feat, 128,
                                 kernels.stream(dev)), "k5_three_stages")
             return out
 

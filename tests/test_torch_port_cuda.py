@@ -2306,8 +2306,14 @@ def _k7words_operands(rng, edge, tile_type, feat, case="sparse"):
 
 
 def _k7words_runs(kernel, d, plan):
-    """K7f (``num``, ``den``) or K7s + K7sums (``dssrc``, ``dsdst``, then
-    the pass's partials) on a plan: (the kernels, the plain version)."""
+    """K7f (``num``, ``den``), K7bt's ``dx`` or K7s + K7sums (``dssrc``,
+    ``dsdst``, then the pass's partials) on a plan: (the kernels, the plain
+    version)."""
+    if kernel == "K7bt":
+        args = [plan] + [d[k] for k in ("blocks", "ssrc", "sdst", "m", "g",
+                                        "x", "dden")] + [0.2]
+        return (lambda: att_bsr.att_bwd_t(*args, need_dssrc=False)[:1],
+                lambda: att_bsr.att_bwd_t_plain(*args, need_dssrc=False)[:1])
     if kernel == "K7f":
         args = [d[k] for k in ("rows", "cols")] + [plan] + [
             d[k] for k in ("blocks", "ssrc", "sdst", "m", "x")] + [0.2]
@@ -2334,15 +2340,22 @@ def _k7words_without(plan):
     return dataclasses.replace(plan, words=None, t_words=None, live=None)
 
 
+_K7WORDS_COUNTERS = {"K7f": att_bsr.att_fwd, "K7bt": att_bsr.att_bwd_t,
+                     "K7s": att_bsr.att_bwd_scores}
+
+
 @pytest.mark.parametrize("feat,aligned", [(40, True), (40, False),
                                           (128, True), (512, True)])
 @pytest.mark.parametrize("tile_type", ["f32", "bf16"])
 @pytest.mark.parametrize("edge", [256, 512])
-@pytest.mark.parametrize("kernel", ["K7f", "K7s"])
+@pytest.mark.parametrize("kernel", ["K7f", "K7s", "K7bt"])
 def test_k7words_match_plain(cuda, kernel, edge, tile_type, feat, aligned):
     """K7f with the plan's occupancy words (the rows walk of the live
     quadrants under its score hook: each quadrant's ssrc staged with its
-    slab, two buffers, den's partials in shared memory) and K7s on the
+    slab, two buffers, den's partials in shared memory), K7bt's ``dx``
+    with the transpose slots' words (the columns walk of the live
+    quadrants under its score hook: the partner's sdst and m staged with
+    each slab, two buffers; the filler slot's word 0) and K7s on the
     plan's live list (one CTA a live quadrant, the partials from zeros),
     at edges 256 and 512, f32 and bf16 masks: against their plain versions
     (at F=40 on unaligned x and g, the 4-byte copies), and bit for bit the
@@ -2356,7 +2369,7 @@ def test_k7words_match_plain(cuda, kernel, edge, tile_type, feat, aligned):
     assert plan.live.numel() < d["rows"].numel() * (edge // 128) ** 2
     run, plain = _k7words_runs(kernel, d, plan)
     without, _ = _k7words_runs(kernel, d, _k7words_without(plan))
-    fn = att_bsr.att_fwd if kernel == "K7f" else att_bsr.att_bwd_scores
+    fn = _K7WORDS_COUNTERS[kernel]
     before = fn.launches + fn.launches_bf16
     with torch.inference_mode():
         got, ref, base = run(), plain(), without()
@@ -2369,13 +2382,13 @@ def test_k7words_match_plain(cuda, kernel, edge, tile_type, feat, aligned):
 
 @pytest.mark.parametrize("tile_type", ["f32", "bf16"])
 @pytest.mark.parametrize("case", ["one_live", "inf_empty"])
-@pytest.mark.parametrize("kernel", ["K7f", "K7s"])
+@pytest.mark.parametrize("kernel", ["K7f", "K7s", "K7bt"])
 def test_k7words_bit_equal_without_words(cuda, kernel, case, tile_type):
-    """K7f and K7s with words and ``live`` give the launches without them
-    bit for bit on a tile whose quadrants are all empty but one, and with
-    an inf in x and g that only empty quadrants reach: finite, since
-    neither form applies an empty quadrant's product (the walk skips it
-    or the select drops it; the grid runs no CTA there)."""
+    """K7f, K7bt's ``dx`` and K7s with words and ``live`` give the
+    launches without them bit for bit on a tile whose quadrants are all
+    empty but one, and with an inf in x and g that only empty quadrants
+    reach: finite, since no form applies an empty quadrant's product (the
+    walks skip it or the select drops it; the grid runs no CTA there)."""
     rng = np.random.default_rng(251 + len(case))
     plan, d = _k7words_operands(rng, 256, tile_type, 128, case)
     d = {k: v.to(cuda) for k, v in d.items()}
@@ -2394,9 +2407,9 @@ def test_k7words_bit_equal_without_words(cuda, kernel, case, tile_type):
 
 
 def test_k7words_refused_where_there_is_no_form(cuda):
-    """Words on 128-wide masks (which ``build_dyn_plan`` never makes) and
-    the dx walk given words raise, and so does a live list at 128: there
-    is no fallback to the launch without them."""
+    """Words on 128-wide masks (which ``build_dyn_plan`` never makes), to
+    the forward walk or to the dx walk, raise, and so does a live list at
+    128: there is no fallback to the launch without them."""
     rows = torch.tensor([0, 1], dtype=torch.int32)
     cols = torch.tensor([1, 0], dtype=torch.int32)
     plan = build_dyn_plan(rows.numpy(), cols.numpy(), 2)
@@ -2417,3 +2430,145 @@ def test_k7words_refused_where_there_is_no_form(cuda):
                              plan.t_row_splits, plan.t_sel, plan.t_scale,
                              plan.t_cols, plan.words, v, v, v, x, None, True,
                              0.2)
+
+
+# --- K5 on the plan's live list -------------------------------------------
+
+def _k5live_operands(rng, edge, feat):
+    """K5's operands at ``edge`` (four tile rows, a sorted tile list
+    covering each) and a live list of about 60% of the quadrants, tile 0's
+    none (a coverage filler's) and tile 1's all; ``keep`` (K·nq²,) marks
+    the listed quadrant ids ``k·nq² + i·nq + j``.  On the CPU."""
+    nb, nq = 4, edge // 128
+    rows = np.sort(np.concatenate([np.arange(nb), rng.integers(0, nb, 8)]))
+    cols = rng.choice([0, 1, 3], len(rows))
+    keep = rng.random((len(rows), nq * nq)) < 0.6
+    keep[0], keep[1] = False, True
+    keep = keep.reshape(-1)
+    g, x = (torch.from_numpy(rng.standard_normal(
+        (nb * edge, feat)).astype(np.float32)) for _ in range(2))
+    return (torch.from_numpy(rows.astype(np.int32)),
+            torch.from_numpy(cols.astype(np.int32)),
+            torch.from_numpy(np.flatnonzero(keep).astype(np.int32)),
+            torch.from_numpy(keep), g, x)
+
+
+def _by_quadrant(db, edge):
+    """(K, E, E) tiles as (K·nq², 128, 128) quadrants in id order."""
+    k, nq = db.shape[0], edge // 128
+    return db.reshape(k, nq, 128, nq, 128).transpose(2, 3).reshape(
+        k * nq * nq, 128, 128)
+
+
+@pytest.mark.parametrize("feat,aligned", [(40, False), (128, True),
+                                          (512, True)])
+@pytest.mark.parametrize("edge", [256, 512])
+def test_k5live_matches_plain(cuda, edge, feat, aligned):
+    """K5 on a live list (a CTA a listed quadrant, the gaps between them
+    written as +0 in the same launch) at edges 256 and 512: within the
+    tolerance of its plain version with the same list (at F=40 on an
+    unaligned g, the 4-byte loads); every listed quadrant bit for bit the
+    full grid's, every other one +0 (a whole tile of them, and the gap
+    after the last listed id); one launch counted each."""
+    rng = np.random.default_rng(edge + feat + 240)
+    rows, cols, live, keep, g, x = _k5live_operands(rng, edge, feat)
+    rows, cols, live, keep, g, x = (t.to(cuda) for t in (rows, cols, live,
+                                                         keep, g, x))
+    if not aligned:
+        g = _unaligned(g)
+    before = dyn_grad_blocks.launches
+    with torch.inference_mode():
+        got = dyn_grad_blocks(rows, cols, g, x, edge, live)
+        full = dyn_grad_blocks(rows, cols, g, x, edge)
+        ref = dyn_grad_blocks_plain(rows, cols, g, x, edge, live)
+    torch.cuda.synchronize()
+    assert dyn_grad_blocks.launches == before + 2
+    assert got.shape == (rows.shape[0], edge, edge)
+    _close(got, ref)
+    q, qf = _by_quadrant(got, edge), _by_quadrant(full, edge)
+    assert torch.equal(q[keep], qf[keep])
+    dead = q[~keep]
+    assert dead.numel() and (dead == 0).all() and not dead.signbit().any()
+
+
+def test_k5live_inf_only_empty_quadrants_reach(cuda):
+    """An inf in g at a row of the lower half of tile row ``rows[1]`` and
+    in x at a row of the right half of tile column ``cols[1]``, where every
+    quadrant that reads them is off the live list: K5 on the list stays
+    finite and equals its plain version with the list, while the full grid
+    does not stay finite (no CTA computes an empty quadrant's product)."""
+    edge, feat = 256, 128
+    rng = np.random.default_rng(249)
+    rows, cols, _, keep, g, x = _k5live_operands(rng, edge, feat)
+    keep = keep.reshape(-1, 2, 2)
+    keep[rows == rows[1], 1, :] = False
+    keep[cols == cols[1], :, 1] = False
+    keep = keep.reshape(-1)
+    live = torch.from_numpy(np.flatnonzero(keep.numpy()).astype(np.int32))
+    g[int(rows[1]) * edge + 150, 0] = float("inf")
+    x[int(cols[1]) * edge + 200, feat // 2] = float("-inf")
+    rows, cols, live, g, x = (t.to(cuda) for t in (rows, cols, live, g, x))
+    with torch.inference_mode():
+        got = dyn_grad_blocks(rows, cols, g, x, edge, live)
+        full = dyn_grad_blocks(rows, cols, g, x, edge)
+        ref = dyn_grad_blocks_plain(rows, cols, g, x, edge, live)
+    torch.cuda.synchronize()
+    assert not torch.isfinite(full).all()
+    _close(got, ref)
+
+
+def test_k5live_refused_where_there_is_no_live_grid(cuda):
+    """A live list at edge 128, or one longer than the tiles' quadrants,
+    raises: there is no fallback to the full grid."""
+    rows = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    cols = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    x = torch.ones((512, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        dyn_grad_blocks(rows, cols, x[:256], x[:256], 128,
+                        torch.tensor([0], dtype=torch.int32, device=cuda))
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        dyn_grad_blocks(rows, cols, x, x, 256,
+                        torch.arange(9, dtype=torch.int32, device=cuda))
+
+
+def test_k5live_gat_two_stage_step_bit_equal(cuda):
+    """One GAT training step (hidden 64, dropout off) on the 256-wide
+    ``att_unit`` operator, under PyTorch's deterministic algorithms: K5 on
+    the plan's live list gives the loss and every gradient of the step
+    with the full grid (the plan's ``live`` removed) bit for bit, and the
+    step with the list twice the same; K5 launches twice a step."""
+    rng = np.random.default_rng(24)
+    n, feat = 1920, 128
+    s, r = _bench_like(rng, n=n, e=20_000)
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    y = rng.integers(0, 5, n)
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=rng.random(n) < .5,
+                                 min_block_edges=48, layer_name="GATConv")
+    h = build_hybrid(g.senders.numpy(), g.receivers.numpy(),
+                     g.edge_weight.numpy(), g.num_nodes_padded,
+                     min_block_edges=96, block=_EDGE, use_segmm=True,
+                     semantics="att_unit")
+    plan = h.dyn_plan
+    assert plan.live is not None
+    assert plan.live.numel() < h.bsr.nnz_blocks * 4        # empty quadrants
+    gd = g._replace(aux=h).to(cuda)
+    g0 = gd._replace(aux=dataclasses.replace(gd.aux, dyn_plan=dataclasses
+                                             .replace(gd.aux.dyn_plan,
+                                                      live=None)))
+    model = NodeModel("GATConv", feat, 64, 2, 5, dropout_rate=0.0)
+    model.reset_parameters(torch.Generator().manual_seed(0)).train()
+    model = model.to(cuda)
+    before = dyn_grad_blocks.launches
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = [_grads(model, gr, gd.y, gd.train_mask)
+                for gr in (gd, g0, gd)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    assert dyn_grad_blocks.launches == before + 6
+    (loss, grads), *others = runs
+    for loss_o, grads_o in others:
+        assert torch.equal(loss_o, loss)
+        for k, v in grads.items():
+            assert torch.isfinite(v).all() and torch.equal(grads_o[k], v), k
