@@ -264,8 +264,10 @@ Phases (any failure exits non-zero before the result lines):
    of K7s + K7sums bit-equal; each bf16 form bit for bit its f32 form),
    with kernel, plain and two-stage times (the two-stage path at 256) and
    its bound, K7f, K7bt's ``dx`` (on the plan's words, ``words`` and
-   ``t_words``) and K7s (on its ``live`` list) also bit for bit the
-   launches without them (timed beside them), and the fused outputs and
+   ``t_words``), K7s (on its ``live`` list) and K7sums (the live
+   quadrants' partials of ``words`` and ``t_words``, on each mask's pass)
+   also bit for bit the launches without them (timed beside them), and
+   the fused outputs and
    gradients against the two-stage path at 256; then, every counter at 0
    just before each run, one fused
    GAT ``gc_train_step`` and one eval forward at hidden 512 (dropout 0.5)
@@ -4459,8 +4461,12 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
     over the live quadrants and the tile bound beside it
     (``bound_tiles_ms``; K7s also its dense TF32 product over the live
     quadrants); K7bt's ``dx`` walks the live quadrants of the plan's
-    ``t_words`` likewise.  Returns the rows by ID (``K7f@256``, ``K7fbf@256``, ...;
-    K7sums, which reads no tile, from the f32 mask)."""
+    ``t_words`` likewise, and K7sums reads the partials of the live
+    quadrants of ``words`` and ``t_words`` alone (on each mask's pass,
+    against its plain version and bit for bit the launch without them;
+    its row's ``bound_ms`` over the live partials).  Returns the rows by
+    ID (``K7f@256``, ``K7fbf@256``, ...; K7sums, which reads no tile,
+    from the f32 mask)."""
     from fitgnn_tpu_torch.ops import att_bsr
     from fitgnn_tpu_torch.ops.bsr_dynamic import live_quadrants as live_ids
     from fitgnn_tpu_torch.ops.tile_gat import tiles_two_stage
@@ -4617,7 +4623,19 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
                                        att_bsr.att_sums(plan, *part_p),
                                        att_bsr.att_sums_plain(plan,
                                                               *part_p))]
-            del part_p, again
+            # K7sums with the plan's words reads the live quadrants'
+            # partials of the pass alone
+            sums = att_bsr.att_sums(plan, *part)
+            bits(f"K7sums{tag} F={feat}", sums,
+                 att_bsr.att_sums(nowords, *part))
+            e_c += [compare(f"K7sums{tag} att_sums {w} words F={feat}", a,
+                            p_)
+                    for w, a, p_ in zip(("dssrc", "dsdst"), sums,
+                                        att_bsr.att_sums_plain(plan, *part))]
+            print(f"  K7sums{tag} F={feat}: with the words within tolerance "
+                  "of its plain version and bit for bit the launch without "
+                  "them, on the pass's partials")
+            del part_p, again, sums
         # the two-stage path at the same edge must agree, forward and in
         # the gradients
         ss_, sd_ = ssrc.clone().requires_grad_(), sdst.clone().requires_grad_()
@@ -4669,8 +4687,12 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
                 / PEAK_TF32_FLOP_PER_S * 1e3
             bs_tc_live = 3 * 2.0 * quads * 128 * 128 * feat \
                 / PEAK_TF32_FLOP_PER_S * 1e3
-            bc, byc = bound(part_bytes + idx_t + (nb + 1) * 4 + 2 * vec,
+            bc_t, _ = bound(part_bytes + idx_t + (nb + 1) * 4 + 2 * vec,
                             2.0 * k_all * nq * e)
+            # with the words: each live quadrant's row and column partial
+            # (1 KiB), the slots' words
+            bc, byc = bound(quads * 2 * 128 * 4 + idx_t + (nb + 1) * 4
+                            + (k_all + kt) * 8 + 2 * vec, 2.0 * quads * 128)
             add("K7f", dict(
                 F=feat, shape=f"F={feat}", **errs(e_f), bound_ms=bf_,
                 bound_by=byf, bound_tiles_ms=bf_t, live_quadrants=quads,
@@ -4716,8 +4738,10 @@ def k7_edge_rows(device, h, tt, gen) -> dict:
                 # the device time, wrapper_ms cuda_ms's
                 add("K7sums", dict(
                     F=feat, shape=f"F={feat}", **errs(e_c), bound_ms=bc,
-                    bound_by=byc,
+                    bound_by=byc, bound_tiles_ms=bc_t, live_quadrants=quads,
                     ms=device_ms(lambda: att_bsr.att_sums(plan, *part), 20),
+                    nowords_ms=device_ms(lambda: att_bsr.att_sums(
+                        nowords, *part), 20),
                     wrapper_ms=cuda_ms(lambda: att_bsr.att_sums(plan, *part),
                                        20),
                     plain_ms=cuda_ms(lambda: att_bsr.att_sums_plain(
@@ -4974,7 +4998,9 @@ KERNELS = (
      "partials (K, 2·256))",
      "fitgnn_tpu_torch/csrc/att_bsr.cu",
      "fitgnn_tpu/ops/pallas/att_bsr.py:267"),
-    ("K7sums@256", "K7sums@256 att_sums on the quadrant partials",
+    ("K7sums@256", "K7sums@256 att_sums on the quadrant partials (one "
+     "warp a 128-row block; the live quadrants' partials of the plan's "
+     "words alone)",
      "fitgnn_tpu_torch/csrc/att_bsr.cu",
      "fitgnn_tpu/ops/pallas/att_bsr.py:185"),
     ("K7rmbf@256", "K7rmbf@256 att_rowmax on 256-wide bf16 masks",
@@ -5123,7 +5149,7 @@ def main() -> int:
                 }.get(base)
         if hook is None and name is None:
             continue
-        quad = ("" if base in ("K3", "K3w", "K6")
+        quad = ("" if base in ("K3", "K3w", "K6", "K7sums")
                 else "true>" if edge else "false>")
         entry["registers"] = {
             kernel: {"registers": n, "spilled_bytes": spill}
@@ -5134,8 +5160,9 @@ def main() -> int:
                  or (name is not None and kernel.startswith(name)))}
         # two load widths each, K7f, K7bt and K7s also on bf16 tiles; at
         # 256 K7f and K7bt also walk the live quadrants (WORDS) and K7s and
-        # K5 run their live grids (LIVE), each beside its form without them
-        want = {"K7sums": 1, "K3": 6, "K3w": 6, "K6": 6, "K5": 2}.get(base,
+        # K5 run their live grids (LIVE), each beside its form without them;
+        # K7sums one kernel at every edge, its QB forms 1, 2 and any
+        want = {"K7sums": 3, "K3": 6, "K3w": 6, "K6": 6, "K5": 2}.get(base,
                                                                        4)
         if edge and base in ("K7f", "K7bt", "K7s", "K5"):
             want *= 2

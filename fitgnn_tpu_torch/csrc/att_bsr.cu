@@ -66,10 +66,11 @@
 // shuffles and then over the 8 warps
 // through shared memory in a fixed order: one row and one column partial
 // per (tile, row or column), two (K, 128) scratch tensors (1.1 MB each on
-// the bench graph).  att_sums_kernel (one CTA of 128 threads per block)
-// then adds, in order, the row partials of block row r's tiles
-// row_splits[r] .. row_splits[r+1] into dsdst, and scale . cpart[sel]
-// over the transpose plan's slots of block c into dssrc, skipping the
+// the bench graph).  att_sums_kernel (one warp per 128-row block, its
+// partial loads issued before its adds) then adds, in order, the row
+// partials of block row r's tiles row_splits[r] .. row_splits[r+1] into
+// dsdst, and scale . cpart[sel] over the transpose plan's slots of block
+// c into dssrc, skipping the
 // coverage fillers (scale 0): every real forward tile is one slot, so this
 // is the JAX kernel's sum in the plan's order.  No atomics, so two launches
 // are bit-equal.  The dense product costs nothing the bytes do not: at 3%
@@ -86,7 +87,8 @@
 // passes of 2.F FLOPs per tile entry, takes 0.223 ms at F=512 on the bench
 // graph's 2,192 tiles at 495 TFLOP/s, under those bytes.  The function
 // needs 2.F + ~8 FLOPs per mask entry.  att_sums: bytes (the partials
-// once, dssrc and dsdst once).
+// once, dssrc and dsdst once; with the words, the live quadrants'
+// partials alone).
 //
 // Not kept: att_reduce_kernel, the two reductions before this pass (a CTA
 // per block, each mask entry's partner feature row reread from L2 and
@@ -143,7 +145,7 @@
 //   column qj) and cpart[k][qi][128 qj + j] (column j's over quadrant row
 //   qi), each written by one CTA: no atomics, so two launches stay
 //   bit-equal, and at nq = 1 they are the (K, 128) partials above.
-//   att_sums_kernel runs one CTA per 128-row block and adds a tile's nq
+//   att_sums_kernel runs one warp per 128-row block and adds a tile's nq
 //   partials of that half in order before it adds them as at 128.
 // Occupancy words (QUAD up to nq = 8; the dynamic plan's words of the
 // mask, DynPlan.words, and their live list, DynPlan.live): a third of the
@@ -170,7 +172,12 @@
 //   writes, are +0, what its CTA writes without the list (the select
 //   drops every product, inf or NaN ones too).  So the partials, dssrc and
 //   dsdst are the full grid's bit for bit, and a third of the tensor-core
-//   work and of the CTAs is gone on the bench graph.
+//   work and of the CTAs is gone on the bench graph;
+// * the sums read the partials of the live quadrants alone: bit h nq + u
+//   of words[k] for rpart[k][u][128 h + i], of t_words[s] for
+//   cpart[t_sel[s]][u][128 h + j] (att_sums_kernel says why the result is
+//   the sum of every partial bit for bit, on partials that are +0 where
+//   the bit is clear).
 // Bounds at E as at 128, each live tile read whole (256 KiB at 256, bf16
 // 128 KiB); the pass's dense product is 4x a 128 tile's entries, so at
 // E = 256 its three TF32 passes (2.F FLOPs an entry each) bound it by the
@@ -445,56 +452,151 @@ att_scores_kernel(const T* __restrict__ blocks,
   }
 }
 
-// The partials' sums, one CTA of 128 threads per 128-row block: CTA b <
-// nb gives dsdst[b] = the row partials of block row b's tiles row_splits[b]
-// .. row_splits[b+1], in order; CTA nb + c gives dssrc[c] = the column
+// The partials' sums (K7sums): one warp per 128-row block, 8 warps a CTA
+// (2,648 warps in 331 CTAs on the bench graph: one wave).  Warp b < nb
+// gives dsdst[b] = the row partials of block row b's tiles row_splits[b]
+// .. row_splits[b+1], in order; warp nb + c gives dssrc[c] = the column
 // partials of the transpose plan's slots of block c, in order, times their
-// scale (a coverage filler, scale 0, is skipped).  Every row is written, 0
-// where no tile adds to it.  QUAD: nb counts 128-row blocks, half h = b %
-// nq of tile row (column) b / nq; a tile's nq partials of that half (over
-// its quadrants' columns, or rows) are summed in order first, then added
-// as the one partial is without QUAD.
-template <bool QUAD>
-__global__ void __launch_bounds__(BLK)
+// scale (a coverage filler, scale 0, is skipped).  Lane l owns rows 4l ..
+// 4l + 3 of the block, read and written as one float4.  Every row is
+// written, 0 where no tile adds to it.  nb counts 128-row blocks, half h =
+// b % nq of tile row (column) b / nq: a tile's partials of that half,
+// rpart[k][u][128 h + i] over its quadrant columns u (cpart[t_sel][u][...]
+// over its quadrant rows), are summed in order first, then added; at nq =
+// 1 the one partial is added as it is.
+//
+// The loads before the adds: the warp reads its slot range once, then the
+// range's slots 32 at a time, one a lane (the tile, its scale and its
+// word, each a load of its own), and hands them out with shuffles,
+// SUM_SLOTS slots at a time (a block row of the bench graph holds 1.77
+// slots on average, 6 at most, at edge 256): every live partial of those
+// slots is loaded into registers (QB of them a slot, fixed at nq = 1 and
+// 2) before the first of their adds, which then run in the order above.
+// A warp so waits for about three dependent loads (the range, the slots,
+// the partials); the CTA a block it replaces (2,648 CTAs of 128 threads on
+// the bench graph, 1.25 waves) loaded a tile's slot and then each partial,
+// one after another.  At nq = 2, 4 slots a batch (80 registers) were
+// slower than 3 (68), and 6 (110) did not fit the grid in one wave; a
+// cursor that handed out one partial at a time
+// (scripts/variants/att_sums_cursor.cu, 100 registers) was no faster than
+// the CTA a block (scripts/torch_design_variants.py --k7sums-only).
+//
+// Occupancy words (words, t_words; nq 2 to 8): the partial of quadrant u
+// of half h, bit h nq + u of the slot's word (the forward tile's for
+// dsdst; for dssrc the transpose slot's, its tile's word transposed, 0 on
+// a filler), is read only where that bit is set, and a tile without a set
+// bit in the half is skipped whole.  The pass writes +0 into an empty
+// quadrant's partials, so this is the sum of every partial bit for bit:
+// leaving out a zero addend changes a tile's sum t at most in the sign of
+// a zero (x + 0 is x unless x is a zero too), and v starts at +0 and is
+// never -0 (under round-to-nearest a sum, or an fma, is -0 only when both
+// of its addends are), so v + t and fmaf(1, t, v) absorb a zero t of
+// either sign.  Null words read every partial.
+constexpr int SUM_WARPS = 8;
+constexpr int SUM_SLOTS = 3;                      // slots a batch of loads
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 fma4(float s, float4 a, float4 b) {
+  return make_float4(fmaf(s, a.x, b.x), fmaf(s, a.y, b.y), fmaf(s, a.z, b.z),
+                     fmaf(s, a.w, b.w));
+}
+
+// partial u of tile k's half at part (the half's offset and the lane's
+// rows already added)
+__device__ __forceinline__ float4 ld4(const float* part, int k, int nq,
+                                      int u, int64_t stride) {
+  return __ldg(reinterpret_cast<const float4*>(
+      part + (static_cast<int64_t>(k) * nq + u) * stride));
+}
+
+// QB: the quadrants of a tile half (nq) where the instantiation fixes them
+// (1, 2), else 0 (nq read at run time: each partial loaded where it is
+// added)
+template <int QB>
+__global__ void __launch_bounds__(SUM_WARPS * 32)
 att_sums_kernel(const float* __restrict__ cpart,
                 const float* __restrict__ rpart,
                 const int32_t* __restrict__ row_splits,
                 const int32_t* __restrict__ t_splits,
                 const int32_t* __restrict__ t_sel,
                 const int32_t* __restrict__ t_scale,
+                const int64_t* __restrict__ words,
+                const int64_t* __restrict__ t_words,
                 float* __restrict__ dssrc, float* __restrict__ dsdst,
                 int64_t nb, int nq) {
-  const int64_t b = blockIdx.x;
-  const int tid = threadIdx.x;
-  // the tile's partial of half h: rpart[k][0..nq)[128 h + tid] (cpart
-  // alike), the first without an add
-  const auto part = [&](const float* p, int64_t k, int64_t h) {
-    if (!QUAD) return p[k * BLK + tid];
-    const float* q = p + (k * nq * nq + h) * BLK + tid;
-    float t = q[0];
-    for (int u = 1; u < nq; ++u) t += q[static_cast<int64_t>(u) * nq * BLK];
-    return t;
-  };
-  float v = 0.f;
-  if (b < nb) {
-    const int64_t r = QUAD ? b / nq : b;
-    const int hi = row_splits[r + 1];
-    for (int k = row_splits[r]; k < hi; ++k) {
-      v += part(rpart, k, QUAD ? b % nq : 0);
+  constexpr unsigned FULL = 0xffffffffu;
+  if (QB) nq = QB;
+  const int lane = threadIdx.x % 32;
+  const int64_t w =
+      static_cast<int64_t>(blockIdx.x) * SUM_WARPS + threadIdx.x / 32;
+  if (w >= 2 * nb) return;
+  const bool dst = w < nb;
+  const int64_t b = dst ? w : w - nb;
+  const int h = static_cast<int>(b % nq);
+  const int64_t* wd = dst ? words : t_words;
+  const float* part = (dst ? rpart : cpart) + h * BLK + 4 * lane;
+  const int64_t stride = static_cast<int64_t>(nq) * BLK;  // quadrant u + 1
+  const int32_t* splits = (dst ? row_splits : t_splits) + b / nq;
+  const int lo = splits[0], hi = splits[1];
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = lo; c0 < hi; c0 += 32) {
+    const int n = min(32, hi - c0);
+    // the lane's slot: its tile, its scale and the quadrants of half h it
+    // reads, a bit each (without words all of them; none on a filler)
+    int tile = 0;
+    float scale = 0.f;
+    uint32_t bits = 0;
+    if (lane < n) {
+      const int s = c0 + lane;
+      tile = dst ? s : t_sel[s];
+      scale = dst ? 1.f : static_cast<float>(t_scale[s]);
+      const uint64_t word = wd == nullptr ? 0 : wd[s];
+      if (scale != 0.f) {
+        bits = wd == nullptr ? FULL
+                             : static_cast<uint32_t>((word >> (h * nq)) &
+                                                     ((1u << nq) - 1));
+      }
     }
-    dsdst[b * BLK + tid] = v;
-    return;
+    for (int j0 = 0; j0 < n; j0 += SUM_SLOTS) {
+      // SUM_SLOTS slots handed out, their partials loaded, then added
+      float4 buf[SUM_SLOTS][QB ? QB : 1];
+      uint32_t bj[SUM_SLOTS];
+      int kj[SUM_SLOTS];
+      float sj[SUM_SLOTS];
+#pragma unroll
+      for (int i = 0; i < SUM_SLOTS; ++i) {
+        const int j = j0 + i;
+        bj[i] = __shfl_sync(FULL, bits, j % 32);
+        kj[i] = __shfl_sync(FULL, tile, j % 32);
+        sj[i] = __shfl_sync(FULL, scale, j % 32);
+        if (j >= n) bj[i] = 0;
+#pragma unroll
+        for (int u = 0; u < QB; ++u) {
+          if ((bj[i] >> u) & 1) buf[i][u] = ld4(part, kj[i], nq, u, stride);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < SUM_SLOTS; ++i) {
+        if (bj[i] == 0) continue;
+        float4 t = v;
+        bool first = true;
+#pragma unroll
+        for (int u = 0; u < (QB ? QB : nq); ++u) {
+          if (wd == nullptr || (bj[i] >> u) & 1) {
+            const float4 q = QB ? buf[i][QB ? u : 0]
+                                : ld4(part, kj[i], nq, u, stride);
+            t = first ? q : add4(t, q);
+            first = false;
+          }
+        }
+        v = dst ? add4(v, t) : fma4(sj[i], t, v);
+      }
+    }
   }
-  const int64_t c = b - nb;
-  const int64_t ct = QUAD ? c / nq : c;
-  const int hi = t_splits[ct + 1];
-  for (int k = t_splits[ct]; k < hi; ++k) {
-    const int32_t sc = t_scale[k];
-    if (sc == 0) continue;
-    v = fmaf(static_cast<float>(sc), part(cpart, t_sel[k], QUAD ? c % nq : 0),
-             v);
-  }
-  dssrc[c * BLK + tid] = v;
+  *reinterpret_cast<float4*>((dst ? dsdst : dssrc) + b * BLK + 4 * lane) = v;
 }
 
 }  // namespace
@@ -900,32 +1002,54 @@ extern "C" int fitgnn_att_scores_bf16(const void* blocks, const void* rows,
 // dssrc and dsdst (n,) f32 from the pass's partials (K, nq, block) f32:
 // the row partials over row_splits (num_row_blocks + 1), the column
 // partials over the transpose plan (t_row_splits, t_sel, t_scale); int32,
-// all contiguous; n = num_row_blocks*block.  Returns cudaErrorInvalidValue
-// for a block that is not a multiple of 128, cudaErrorInvalidConfiguration
-// when 2 n / 128 exceeds 2^31 - 1, else cudaGetLastError() after the
-// launch.
+// all contiguous; n = num_row_blocks*block; cpart, rpart, dssrc and dsdst
+// 16-byte aligned.  words (K,) and t_words (Kt,) int64, the forward
+// tiles' and the transpose slots' occupancy words (DynPlan.words and
+// t_words; block 256 to 1024), or both null.  The contract of the words:
+// the partials of a quadrant whose bit is clear are never read, and must
+// be zeros (the +0 that the pass writes there) for the result to be the
+// sum of every partial; given them, it is that sum bit for bit.  Returns
+// cudaErrorInvalidValue for a block that is not a multiple of 128, for
+// words at another block or only one of the two, and for a pointer off
+// 16 bytes; cudaErrorInvalidConfiguration when 2 n / 128 exceeds 2^31 - 1;
+// else cudaGetLastError() after the launch.
 extern "C" int fitgnn_att_sums(const void* cpart, const void* rpart,
                                const void* row_splits, const void* t_splits,
                                const void* t_sel, const void* t_scale,
+                               const void* words, const void* t_words,
                                void* dssrc, void* dsdst,
                                int64_t num_row_blocks, int64_t block,
                                void* stream) {
   if (bad_edge(block)) return static_cast<int>(cudaErrorInvalidValue);
   const int nq = static_cast<int>(block / BLK);
+  if ((words == nullptr) != (t_words == nullptr) ||
+      (words != nullptr && (nq < 2 || nq > sparse::MAX_WORD_QUADS))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto off16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if (off16(cpart) || off16(rpart) || off16(dssrc) || off16(dsdst)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int64_t nb = num_row_blocks * nq;        // 128-row blocks
   if (2 * nb > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   if (nb > 0) {
-    const auto kernel = nq > 1 ? att_sums_kernel<true>
-                               : att_sums_kernel<false>;
-    kernel<<<static_cast<unsigned>(2 * nb), BLK, 0,
+    const int64_t ctas = (2 * nb + SUM_WARPS - 1) / SUM_WARPS;
+    const auto kernel = nq == 1   ? att_sums_kernel<1>
+                        : nq == 2 ? att_sums_kernel<2>
+                                  : att_sums_kernel<0>;
+    kernel<<<static_cast<unsigned>(ctas), SUM_WARPS * 32, 0,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(cpart), static_cast<const float*>(rpart),
         static_cast<const int32_t*>(row_splits),
         static_cast<const int32_t*>(t_splits),
         static_cast<const int32_t*>(t_sel),
-        static_cast<const int32_t*>(t_scale), static_cast<float*>(dssrc),
+        static_cast<const int32_t*>(t_scale),
+        static_cast<const int64_t*>(words),
+        static_cast<const int64_t*>(t_words), static_cast<float*>(dssrc),
         static_cast<float*>(dsdst), nb, nq);
   }
   return static_cast<int>(cudaGetLastError());

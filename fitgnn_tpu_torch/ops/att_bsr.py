@@ -45,12 +45,12 @@ the tiles' shape and walk an E-wide tile as 128-wide quadrants (the
 source note says how); the score pass's partials are then (K, nq·E), nq =
 E / 128 (``att_scores_plain``).  Where the plan carries the mask's
 occupancy words (``DynPlan.words``, ``t_words`` and ``live``, E of 256 to
-1024), K7f and K7bt's ``dx`` walk the live quadrants alone and the score
-pass runs a CTA on each live quadrant alone; each gives the launch
-without them bit for bit.  The plain versions read none of them: they
-stay the JAX package's dense computation.  Every wrapper refuses another
-edge with
-``ValueError``, on the CPU too.  ``ops/tile_gat.py``'s exact max without
+1024), K7f and K7bt's ``dx`` walk the live quadrants alone, the score
+pass runs a CTA on each live quadrant alone and ``att_sums`` reads their
+partials alone; each gives the launch without them bit for bit.  The
+plain versions read none of them: they stay the JAX package's dense
+computation.  Every wrapper refuses another edge with ``ValueError``, on
+the CPU too.  ``ops/tile_gat.py``'s exact max without
 ``FUSED_TILES`` runs ``att_rowmax_plain`` at E on any device.
 
 bf16 tiles (``train --hybrid_bf16_tiles``): the tiles are GAT's 0/1 mask,
@@ -253,9 +253,9 @@ _WALK_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int64] * 3
 # num_tiles, num_live, feat, block, slope, stream
 _SCORES_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int64] * 4
                     + [ctypes.c_float, ctypes.c_void_p])
-# cpart, rpart, row_splits, t_row_splits, t_sel, t_scale, dssrc, dsdst,
-# num_row_blocks, block, stream
-_SUMS_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2
+# cpart, rpart, row_splits, t_row_splits, t_sel, t_scale, words, t_words,
+# dssrc, dsdst, num_row_blocks, block, stream
+_SUMS_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 2
                   + [ctypes.c_void_p])
 
 _NULL = ctypes.c_void_p(None)
@@ -427,7 +427,16 @@ def att_sums(plan: DynPlan, cpart: torch.Tensor,
     """K7's partial sums: ``(dssrc, dsdst)`` (n,) from the score-gradient
     pass's column and row partials (K, nq·b), summed over the transpose
     plan's slots and the forward walk's tiles in order: the CUDA kernel on
-    a CUDA tensor, the plain version on a CPU tensor."""
+    a CUDA tensor, the plain version on a CPU tensor.  On the card the
+    partials must be 16-byte aligned (``torch.empty`` and ``torch.zeros``
+    give that).  With ``plan.words`` and ``plan.t_words`` (edge 256 to
+    1024) the kernel reads the partials of the live quadrants alone: bit
+    ``h·nq + u`` of ``words[k]`` for ``rpart[k, u·b + 128·h : +128]``, of
+    ``t_words[s]`` for ``cpart[t_sel[s], u·b + 128·h : +128]``.  The
+    contract: a quadrant whose bit is clear must hold zeros in both
+    partials (the +0 that ``att_bwd_scores``' pass writes there); then the
+    result is the sum of every partial bit for bit, and otherwise what
+    stands there is left out."""
     b = _part_edge("att_sums", cpart)
     if rpart.shape != cpart.shape:
         raise ValueError(f"att_sums: rpart {tuple(rpart.shape)} and cpart "
@@ -443,14 +452,28 @@ def att_sums(plan: DynPlan, cpart: torch.Tensor,
     if plan.t_row_splits.shape[0] != nb + 1:
         raise ValueError("att_sums: the plan's two walks cover "
                          "different block counts")
+    if (plan.words is None) != (plan.t_words is None):
+        raise ValueError("att_sums: the plan has words for one walk only")
+    if plan.words is not None:
+        for name, t, k in (("words", plan.words, cpart.shape[0]),
+                           ("t_words", plan.t_words, plan.t_sel.shape[0])):
+            kernels.require(t, name, torch.int64, dev)
+            if t.shape != (k,):
+                raise ValueError(f"att_sums: {name} {tuple(t.shape)} for "
+                                 f"{k} slots")
     dssrc, dsdst = torch.empty((2, nb * b), dtype=torch.float32,
                                device=dev)
+    for name, t in (("cpart", cpart), ("rpart", rpart), ("dssrc", dssrc),
+                    ("dsdst", dsdst)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"att_sums: {name} is not 16-byte aligned")
     launch = kernels.function("att_bsr", "fitgnn_att_sums", _SUMS_ARGTYPES)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(cpart), kernels.ptr(rpart),
                     kernels.ptr(plan.row_splits),
                     kernels.ptr(plan.t_row_splits), kernels.ptr(plan.t_sel),
-                    kernels.ptr(plan.t_scale), kernels.ptr(dssrc),
+                    kernels.ptr(plan.t_scale), _ptr(plan.words),
+                    _ptr(plan.t_words), kernels.ptr(dssrc),
                     kernels.ptr(dsdst), nb, b, kernels.stream(dev))
     kernels.check(rc, "att_sums")
     att_sums.launches += 1

@@ -85,8 +85,23 @@ its alternatives, on one GPU.
   full, kept, pass, persistent and back, each checked against the plain
   version with the list and each live form bit for bit the committed one;
   with their ``ptxas`` registers.
+* K7sums (``att_sums``; ``--k7sums-only``, this section alone), on the
+  score pass's partials (F=128) of the bench graph's GAT operators at tile
+  edge 128 (``build_optimized_graph``'s, no words) and 256 (threshold 48,
+  the plan's words): the kernel before its redesign
+  (``scripts/variants/att_sums_cta_per_block.cu``: a CTA of 128 threads a
+  128-row block, each tile's partials loaded and added one after another,
+  every partial read) against the committed one (a warp a block, 3 slots'
+  partial loads issued before their adds), with the words and without
+  them (null words); a cursor handing out one partial at a time
+  (``scripts/variants/att_sums_cursor.cu``); 4 and 6 slots a batch, 4
+  warps a CTA (``K7SUMS_EDITS``); and two diagnostics, the stores alone
+  and the range's load with the stores (timed, not checked).  Device time
+  (``chip_smoke.device_ms``, 100 launches), in order and then in reverse;
+  each form bit for bit the old kernel; with their ``ptxas`` registers.
 
-Each alternative but the last K7 one and the old segment sum is the
+Each alternative but the last K7 one, the old segment sum and K7sums's
+two files is the
 committed source with a few textual edits; all are built with ``nvcc``
 into ``build/fitgnn_tpu_torch/variants/``; the script fails if an edit no
 longer applies.  ``--segmm-only`` runs the segment sum's section alone.
@@ -375,6 +390,135 @@ def k5_live_section(dev) -> tuple:
                            for f, v in times.items()}, "runs_ms": times})
         print(results[-1])
         del xx, gr
+        torch.cuda.empty_cache()
+    return results, regs
+
+
+# K7sums's neighbours, each a textual edit of the committed att_bsr.cu:
+# the slots a batch of loads and the warps a CTA; and two diagnostics,
+# timed but not checked (their sums are wrong by design): the stores
+# alone, and the range's load with the stores
+K7SUMS_EDITS = {
+    "slots4": [("constexpr int SUM_SLOTS = 3;",
+                "constexpr int SUM_SLOTS = 4;")],
+    "slots6": [("constexpr int SUM_SLOTS = 3;",
+                "constexpr int SUM_SLOTS = 6;")],
+    "warps4": [("constexpr int SUM_WARPS = 8;",
+                "constexpr int SUM_WARPS = 4;")],
+    "diagnostic_stores": [("const int lo = splits[0], hi = splits[1];",
+                           "const int lo = 0, hi = 0;")],
+    "diagnostic_range": [("for (int c0 = lo; c0 < hi; c0 += 32) {",
+                          "for (int c0 = lo; c0 < lo; c0 += 32) {")],
+}
+
+
+def k7sums_section(dev) -> tuple:
+    """K7sums before its redesign against the committed kernel (with and
+    without the plan's words), the cursor variant and the edits of
+    ``K7SUMS_EDITS``, at edges 128 and 256 (module docstring).  Returns
+    the rows and the kernels' registers."""
+    from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+    from chip_smoke import NUM_NODES
+
+    def variant(rel):
+        with open(os.path.join(ROOT, "scripts", "variants", rel)) as f:
+            return {rel: f.read()}, rel
+
+    specs = {"k7sums_per_block": variant("att_sums_cta_per_block.cu"),
+             "k7sums_cursor": variant("att_sums_cursor.cu")}
+    for name, edits in K7SUMS_EDITS.items():
+        specs[f"k7sums_{name}"] = ({
+            "att_bsr.cu": edited(read("att_bsr.cu"), edits),
+            "tf32x3.cuh": read("tf32x3.cuh"),
+            "tile_sparse.cuh": read("tile_sparse.cuh")}, "att_bsr.cu")
+    libs = build_libraries(specs)
+    old = c_function(libs["k7sums_per_block"], "fitgnn_att_sums_per_block",
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2
+                     + [ctypes.c_void_p])
+    fns = {"cursor": c_function(libs["k7sums_cursor"],
+                                "fitgnn_att_sums_cursor",
+                                att_bsr._SUMS_ARGTYPES)}
+    fns.update({name: c_function(libs[f"k7sums_{name}"], "fitgnn_att_sums",
+                                 att_bsr._SUMS_ARGTYPES)
+                for name in K7SUMS_EDITS})
+    kernels.build([t for t in kernels.TARGETS if t.name == "att_bsr"])
+    regs = {}
+    logs = {"kept": next(t.log_path for t in kernels.TARGETS
+                         if t.name == "att_bsr")}
+    logs.update({name: os.path.join(OUT, name, f"lib{name}.log")
+                 for name in specs})
+    for form, log in logs.items():
+        for k, n, spill in ptxas_entries(log):
+            if k.startswith("att_sums_kernel"):
+                regs[f"{form}: {k}"] = (n, spill)
+    x, s, r, y, train = make_graph()
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                 layer_name="GATConv", seed=0)
+    h256 = build_hybrid(g.senders.numpy().astype("int64"),
+                        g.receivers.numpy().astype("int64"),
+                        (g.edge_weight.numpy() > 0).astype("float32"),
+                        g.num_nodes_padded, block=256, min_block_edges=48,
+                        use_segmm=True, semantics="att_unit",
+                        real_nodes=NUM_NODES)
+    n = g.num_nodes_padded
+    gen = torch.Generator(device=dev).manual_seed(25)
+    stream = kernels.stream(dev)
+    p = kernels.ptr
+    results = []
+    for edge, h in ((128, g.aux), (256, h256)):
+        hd = h.to(dev)
+        b, plan = hd.bsr, hd.dyn_plan
+        nowords = dataclasses.replace(plan, words=None, t_words=None,
+                                      live=None)
+        slots = plan.t_row_splits.diff()
+        print(f"K7sums@{edge}: {plan.row_splits.numel() - 1} block rows, "
+              f"{slots.float().mean():.3f} slots a block on average, "
+              f"{int(slots.max())} at most")
+        ssrc, sdst, dden = (torch.randn(n, generator=gen, device=dev)
+                            for _ in range(3))
+        mg = (sdst + ssrc.max()).clamp_min(0.0)
+        xx, gr = (torch.randn((n, 128), generator=gen, device=dev)
+                  for _ in range(2))
+        part = att_bsr._launch_scores("k7s", dev, b.blocks, b.rows, b.cols,
+                                      plan.live, ssrc, sdst, mg, gr, xx,
+                                      dden, 0.2)
+        nb = plan.row_splits.numel() - 1
+        words = plan.words is not None
+
+        def launch(fn, *args):
+            def run():
+                dssrc, dsdst = torch.empty((2, n), device=dev)
+                kernels.check(fn(p(part[0]), p(part[1]), p(plan.row_splits),
+                                 p(plan.t_row_splits), p(plan.t_sel),
+                                 p(plan.t_scale), *args, p(dssrc), p(dsdst),
+                                 nb, edge, stream), "k7sums variant")
+                return dssrc, dsdst
+            return run
+
+        with_words = ((p(plan.words), p(plan.t_words)) if words
+                      else (None, None))
+        forms = {"old": launch(old),
+                 "words": lambda: att_bsr.att_sums(plan, *part),
+                 "nowords": lambda: att_bsr.att_sums(nowords, *part),
+                 **{name: launch(fn, *with_words)
+                    for name, fn in fns.items()}}
+        ref = forms["old"]()
+        check(f"K7sums@{edge} words dssrc", forms["words"]()[0],
+              att_bsr.att_sums_plain(plan, *part)[0])
+        for f, run in forms.items():
+            if f != "old" and not f.startswith("diagnostic") and not all(
+                    torch.equal(a, c) for a, c in zip(run(), ref)):
+                raise RuntimeError(f"K7sums@{edge} {f}: not the kernel "
+                                   "before the redesign bit for bit")
+        times = {f: [] for f in forms}
+        for f in list(forms) + list(forms)[::-1]:
+            times[f].append(device_ms(forms[f], 100))
+        results.append({"kernel": f"K7sums@{edge}", "words": words,
+                        **{f"{f}_ms": sum(v) / len(v)
+                           for f, v in times.items()}, "runs_ms": times})
+        print(results[-1])
+        del hd, part
         torch.cuda.empty_cache()
     return results, regs
 
@@ -980,6 +1124,11 @@ def main() -> int:
         return 0
     if "--quad-words-only" in sys.argv[1:]:
         rows, regs = quadwords_section(dev)
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "registers": regs, "results": rows}))
+        return 0
+    if "--k7sums-only" in sys.argv[1:]:
+        rows, regs = k7sums_section(dev)
         print(json.dumps({"device": torch.cuda.get_device_name(0),
                           "registers": regs, "results": rows}))
         return 0

@@ -15,7 +15,9 @@ version, and prints ``ROWS {"checkout": ..., "rows": {"K1 F=512": ms,
 ...}}``, then ``DETAIL`` with each row's bound and library time and,
 where the checkout has them, the bound over every quadrant of a live
 tile beside a walk's bound over the live quadrants (``bound_tiles_ms``)
-and the walk without occupancy words (``nowords_ms``); with ``--edge256`` also phase 14's rows at tile edge
+and the walk without occupancy words (``nowords_ms``), the time with the
+wrapper's host work (``wrapper_ms``) and K7s's both outputs
+(``both_outputs_ms``); with ``--edge256`` also phase 14's rows at tile edge
 256 (K1, K2, K9, K8 and their bf16 forms; a checkout from before that
 phase has none).
 With ``--gat`` also phase 3's GAT rows (K4, K4ᵀ and K5 on the
@@ -80,7 +82,8 @@ def main() -> int:
             for k in ids if k in shapes for sh in shapes[k]}
     print("ROWS " + json.dumps({"checkout": root, "rows": {
         k: sh["ms"] for k, sh in rows.items()}}))
-    keys = ("bound_ms", "bound_tiles_ms", "library_ms", "nowords_ms")
+    keys = ("bound_ms", "bound_tiles_ms", "library_ms", "nowords_ms",
+            "wrapper_ms", "both_outputs_ms")
     print("DETAIL " + json.dumps({"checkout": root, "rows": {
         k: {f: sh[f] for f in keys if f in sh} for k, sh in rows.items()}}))
     return 0

@@ -2432,6 +2432,110 @@ def test_k7words_refused_where_there_is_no_form(cuda):
                              0.2)
 
 
+# --- K7sums: the partials of the live quadrants alone ----------------------
+
+def _k7sums_partials(d, plan):
+    """K7s's partials on the plan's live list (zeros where no CTA runs)."""
+    return att_bsr._launch_scores(
+        "k7s", d["x"].device, d["blocks"], d["rows"], d["cols"], plan.live,
+        *(d[k] for k in ("ssrc", "sdst", "m", "g", "x", "dden")), 0.2)
+
+
+@pytest.mark.parametrize("feat", [128, 512])
+@pytest.mark.parametrize("tile_type", ["f32", "bf16"])
+@pytest.mark.parametrize("edge", [256, 512])
+def test_k7sums_words_match_plain(cuda, edge, tile_type, feat):
+    """K7sums with the plan's words and t_words on K7s's partials with
+    ``live`` (f32 and bf16 masks): within tolerance of ``att_sums_plain``,
+    bit for bit the launch without words and two launches bit-equal; one
+    launch counted a call."""
+    rng = np.random.default_rng(edge + feat + len(tile_type) + 260)
+    plan, d = _k7words_operands(rng, edge, tile_type, feat)
+    d = {k: v.to(cuda) for k, v in d.items()}
+    plan = plan.to(cuda)
+    before = att_bsr.att_sums.launches
+    with torch.inference_mode():
+        part = _k7sums_partials(d, plan)
+        got = att_bsr.att_sums(plan, *part)
+        again = att_bsr.att_sums(plan, *part)
+        without = att_bsr.att_sums(_k7words_without(plan), *part)
+        ref = att_bsr.att_sums_plain(plan, *part)
+    torch.cuda.synchronize()
+    assert att_bsr.att_sums.launches == before + 3
+    for a, b, c, r in zip(got, again, without, ref):
+        _close(a, r)
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("tile_type", ["f32", "bf16"])
+def test_k7sums_nan_only_in_an_empty_quadrant_stays_out(cuda, tile_type):
+    """The contract of the words: a NaN planted in the partials of a
+    quadrant whose bit is clear (tile 1's quadrant (0, 1), empty in every
+    tile: row partial ``rpart[1][1][5]`` and column partial
+    ``cpart[1][0][128 + 7]``) is never read by the words launch, which
+    gives the clean partials' sums bit for bit; the launch without words
+    and the plain version read it, in the rows it reaches alone."""
+    rng = np.random.default_rng(257)
+    plan, d = _k7words_operands(rng, 256, tile_type, 128)
+    d = {k: v.to(cuda) for k, v in d.items()}
+    plan = plan.to(cuda)
+    assert not (int(plan.words[1]) >> 1) & 1
+    slot = int(torch.nonzero(plan.t_sel == 1)[0])
+    assert not (int(plan.t_words[slot]) >> 2) & 1    # (0, 1) transposed
+    with torch.inference_mode():
+        cpart, rpart = _k7sums_partials(d, plan)
+        clean = att_bsr.att_sums(plan, cpart, rpart)
+        cpart[1, 128 + 7] = rpart[1, 256 + 5] = float("nan")
+        got = att_bsr.att_sums(plan, cpart, rpart)
+        without = att_bsr.att_sums(_k7words_without(plan), cpart, rpart)
+        ref = att_bsr.att_sums_plain(plan, cpart, rpart)
+    torch.cuda.synchronize()
+    for a, c in zip(got, clean):
+        assert torch.isfinite(a).all() and torch.equal(a, c)
+    reached = (int(d["cols"][1]) * 256 + 128 + 7,
+               int(d["rows"][1]) * 256 + 5)
+    for out in (without, ref):
+        for v, row in zip(out, reached):
+            assert torch.nonzero(v.isnan()).flatten().tolist() == [row]
+
+
+def test_k7sums_edge128_matches_plain(cuda):
+    """At edge 128 (no words) the same kernel: against the plain version on
+    the score pass's partials and two launches bit-equal."""
+    rng = np.random.default_rng(128)
+    plan, d = _score_operands(rng, 128, cuda, full=False)
+    with torch.inference_mode():
+        part = _k7sums_partials(d, plan)
+        got, again = (att_bsr.att_sums(plan, *part) for _ in range(2))
+        ref = att_bsr.att_sums_plain(plan, *part)
+    torch.cuda.synchronize()
+    for a, b, r in zip(got, again, ref):
+        _close(a, r)
+        assert torch.equal(a, b)
+
+
+def test_k7sums_refuses_bad_words_and_alignment(cuda):
+    """Words of another dtype or length, words for one walk only and
+    partials off 16 bytes raise before a launch."""
+    rng = np.random.default_rng(5)
+    plan, d = _k7words_operands(rng, 256, "f32", 16)
+    plan = plan.to(cuda)
+    d = {k: v.to(cuda) for k, v in d.items()}
+    cpart, rpart = _k7sums_partials(d, plan)
+    before = att_bsr.att_sums.launches
+    for bad, match in (
+            (dict(words=plan.words.int()), "words"),
+            (dict(t_words=plan.t_words[1:]), "t_words"),
+            (dict(t_words=None), "one walk only")):
+        with pytest.raises(ValueError, match=match):
+            att_bsr.att_sums(dataclasses.replace(plan, **bad), cpart, rpart)
+    buf = torch.zeros(cpart.numel() + 4, device=cuda)
+    off = buf[1:1 + cpart.numel()].view(cpart.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        att_bsr.att_sums(plan, off, rpart)
+    assert att_bsr.att_sums.launches == before
+
+
 # --- K5 on the plan's live list -------------------------------------------
 
 def _k5live_operands(rng, edge, feat):

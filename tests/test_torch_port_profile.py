@@ -110,6 +110,9 @@ def test_walk_args_ignores_other_kernels(name):
     ("void (anonymous namespace)::att_sums_kernel(float const*, float "
      "const*, int const*, int const*, int const*, int const*, float*, "
      "float*, long)", None, _train.K7SUMS),
+    ("void (anonymous namespace)::att_sums_kernel<2>(float const*, float "
+     "const*, int const*, int const*, int const*, int const*, long const*, "
+     "long const*, float*, float*, long, int)", None, _train.K7SUMS),
     ("void (anonymous namespace)::att_rowmax_kernel(float const*)", None,
      "K7rm att_rowmax")] + [
     # the straggler sum, segmm_spmm_kernel<DEN, L, VEC>: K6 with den
