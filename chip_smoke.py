@@ -102,10 +102,11 @@ Phases (any failure exits non-zero before the result lines):
 9. curriculum buckets: the 1-hop halo partition (``--extra_node``) in
    size buckets (``--bucket_sizes``) through the port's CLI at hidden
    512, every launch counter at 0 just before each run (``phase_buckets``):
-   GCN ``Gc_train_2_Gs_train`` for 3 + 2 epochs in GD, whose partition is
-   computed once (each bucket's (S, N_pad, E_pad) and the padded rows,
-   bucketed and with one pad, held within 1% of ``BUCKET_ROWS`` and
-   ``SINGLE_PAD_ROWS``) and then taken from the cache, and in MB, both
+   GCN ``Gc_train_2_Gs_train`` for 3 + 2 epochs in GD, whose partition
+   phase 17's ``save-graphs`` computed just before (each bucket's (S,
+   N_pad, E_pad) and the padded rows, bucketed and with one pad, held
+   within 1% of ``BUCKET_ROWS`` and ``SINGLE_PAD_ROWS``) and every run
+   here takes from the cache (none partitions), and in MB, both
    with ``--fused_epochs --eval_chunk 8192 --checkpoint_every 1``; GAT
    ``Gc_train_2_Gs_infer --fused_epochs`` for 3; GCN ``Gc_train_2_Gs_infer``
    for 3 with and without ``--fused_epochs`` (the fused phase under
@@ -277,10 +278,42 @@ Phases (any failure exits non-zero before the result lines):
    tile kernels in their ``@256`` forms) and held against the plain
    versions; and the fused step's ms on each operator beside the edge-128
    operator's, in one call;
-17. one JSON line with every kernel's numbers, the bf16 forms and the
+17. the ``stats``, ``save-graphs`` and ``memory`` subcommands through the
+   port's CLI on ``cuda`` (``phase_tools_*``), no launch: ``stats`` on the
+   bench graph (its row: sizes, 40 classes, the homophily measures in
+   [0, 1]); before phase 9, ``save-graphs`` with phase 9's partition flags
+   (``--extra_node --bucket_sizes``) computes the partition into the
+   port's cache (counted) and ``memory`` on the same flags loads it
+   (never partitions), its two rows the byte accounting of that
+   partition; after phase 13, ``memory --task graph_cls --extra_node`` on
+   its 2,048 molecules (the first chunk's Gs and Gc views on the card, the
+   largest molecule's row against the dataset's arrays); every row
+   printed;
+18. GAT's tile opt-ins and diagnostic switches (``phase_gat_optins``):
+   the ``att_unit`` operators of ``use_diag`` (edges 128 and 256, f32 and
+   bf16 masks), ``tile_group=2`` (128 and 256) and ``use_rowwalk`` (128)
+   at threshold 48 on phase 3's order, their structure checked (no
+   diagonal tile beside the diagonal blocks, even group runs, a plan
+   except on the row walk, at 256 the plan's words, transposes and live
+   list the tiles' own with word 0 on pads and fillers); on each, under
+   its modes (two-stage, ``FUSED``, ``FUSED_EXACT``), one GAT
+   ``gc_train_step`` at hidden 512 (dropout 0.5) and one eval forward,
+   every counter at 0 just before, launching the mode's counts (K4, K4ᵀ,
+   K5 or the K7 forms, ``@256`` at 256, bf16 forms on bf16 masks; on the
+   row walk K6 and K3w alone) and held against the plain versions; at
+   256 the two-stage and ``FUSED_EXACT`` steps with the plan's words and
+   live list against the same steps without them and against themselves,
+   bit for bit, under deterministic algorithms; then each diagnostic
+   switch setting (``FUSED_BWD``, ``FUSED_BWD`` + ``FUSED_SORTED_DH``,
+   ``SORTED_NUM`` + ``SORTED_SRC``) on the default operator at 128: the
+   default path's launches, the straggler primitive it selects, held
+   against the plain versions and the default step; and the step's ms on
+   every operator and setting beside the edge-128 and phase 15's edge-256
+   threshold-48 operators, two-stage, fused and under each switch;
+19. one JSON line with every kernel's numbers, the bf16 forms and the
    forms at edge 256 (``K1@256``, ``K1bf@256``, ``K4@256``, ``K7f@256``,
    ...) as their own entries (launches summed over the main-path phases 5
-   to 16, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
+   to 18, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
    K7sums, and K1, K2, K9, K4, K4ᵀ (their walks of the live quadrants),
    K5, K7f, K7bt, K7s and K7sums at 256, with their ``ptxas`` register
    and spill counts), then the ``ok`` line.
@@ -2152,10 +2185,12 @@ class Interrupted(Exception):
     """The crash a resume check simulates."""
 
 
-def phase_buckets(device, tmp, plain_infer) -> dict:
+def phase_buckets(device, tmp, plain_infer, warmed) -> dict:
     """The extra-node curriculum on size-bucketed batches through the
     port's CLI at hidden 512: GCN ``Gc_train_2_Gs_train`` in GD (the
-    partition computed here once, then from the cache) and in MB, each
+    partition that phase 17's ``save-graphs`` computed, ``warmed`` = its
+    host seconds and itself, loaded from the cache, never computed here)
+    and in MB, each
     with the fused Gc phase, the chunked eval and a resume checkpoint an
     epoch; GAT ``Gc_train_2_Gs_infer`` with the fused Gc phase; GCN
     ``Gc_train_2_Gs_infer`` with and without ``--fused_epochs`` (the fused
@@ -2254,12 +2289,12 @@ def phase_buckets(device, tmp, plain_infer) -> dict:
     for patch in patches:
         patch.start()
     try:
-        # (1) GCN GD: the partition, computed once
+        # (1) GCN GD: the partition from the cache save-graphs warmed
         gd = train("buck_gd", ["--gradient_method", "GD", *BUCKET_GD],
                    "GCNConv", 3)
-        check(len(seen["partitions"]) == 1,
-              "the first bucketed run did not partition")
-        secs, part = seen["partitions"][0]
+        check(not seen["partitions"], "the first bucketed run partitioned: "
+              "save-graphs left the cache cold")
+        secs, part = warmed
         batches = part.subgraphs
         check(isinstance(batches, tuple) and len(batches) >= 2,
               f"the extra-node partition gave {len(batches)} buckets")
@@ -2356,6 +2391,8 @@ def phase_buckets(device, tmp, plain_infer) -> dict:
               and np.isclose(resumed.test_acc, gd.test_acc, rtol=1e-3,
                              atol=0),
               "the resumed run disagrees with the uninterrupted one")
+        check(not seen["partitions"], "a bucketed train partitioned: the "
+              "cache save-graphs warmed was not read")
     finally:
         for patch in patches:
             patch.stop()
@@ -4826,6 +4863,399 @@ def phase_gat_fused_block_steps(device, g, ops) -> dict:
     return phases
 
 
+# ---- phase 17: the memory, stats and save-graphs subcommands ---------------
+
+def read_rows(path: str, header: str) -> list:
+    """The rows of a results CSV the CLI appended to, by column name; the
+    header must be the JAX package's."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    check(lines[0] == header, f"{path}: header {lines[0]!r}")
+    return [dict(zip(header.split(","), line.split(",")))
+            for line in lines[1:]]
+
+
+def phase_tools_node(tmp, g) -> tuple:
+    """``stats``, then ``save-graphs`` and ``memory`` on the bench graph
+    with phase 9's partition flags (``--extra_node --bucket_sizes``;
+    neither subcommand takes ``--hidden``), through the port's CLI on
+    ``cuda`` with every counter at 0 just before each: no launch;
+    ``save-graphs`` computes the partition (counted) into the port's
+    cache, ``memory`` loads it (no partition) and holds the full graph and
+    the largest subgraph on the card, and its rows are the byte accounting
+    of the partition ``save-graphs`` made.  Returns (the partition's host
+    seconds, the partition), which phase 9's ``train`` runs then load from
+    the cache."""
+    from fitgnn_tpu_torch.bench.memory import graph_bytes
+    from fitgnn_tpu_torch.data.stats import DatasetStats
+    from fitgnn_tpu_torch.partition import pipeline
+    from fitgnn_tpu_torch.utils.results import MEMORY_HEADER
+
+    t_phase = time.perf_counter()
+    seen = []
+    partition = pipeline.coarsen_and_partition
+
+    def timed_partition(*args, **kwargs):
+        t0 = time.perf_counter()
+        part = partition(*args, **kwargs)
+        seen.append((time.perf_counter() - t0, part))
+        return part
+
+    flags = ["--extra_node", "--bucket_sizes"]
+    with mock.patch.object(pipeline, "coarsen_and_partition",
+                           timed_partition):
+        launches, _, wall = run_cli(tmp, ["stats"])
+        expect(launches, {}, "tools stats")
+        row = read_rows(os.path.join(tmp, "dataset_info.csv"),
+                        DatasetStats.CSV_HEADER)[-1]
+        check(row["num_nodes"] == str(NUM_NODES)
+              and row["num_features"] == str(NUM_FEATURES)
+              and row["num_classes"] == str(NUM_CLASSES)
+              and all(0.0 <= float(row[k]) <= 1.0 for k in (
+                  "homophily_edge", "homophily_node",
+                  "homophily_edge_insensitive")), f"stats row {row}")
+        print(f"tools stats: {wall:.1f} s; dataset_info.csv row {row}")
+        launches, _, wall = run_cli(tmp, ["save-graphs", *flags])
+        expect(launches, {}, "tools save-graphs")
+        check(len(seen) == 1, f"save-graphs partitioned {len(seen)} times")
+        secs, part = seen[0]
+        print(f"tools save-graphs: {wall:.1f} s, the partition {secs:.2f} s "
+              "host, into the port's cache")
+        torch.cuda.reset_peak_memory_stats()
+        launches, _, wall = run_cli(tmp, ["memory", *flags])
+        expect(launches, {}, "tools memory")
+        check(len(seen) == 1, "memory partitioned: save-graphs left the "
+              "cache cold")
+    rows = read_rows(os.path.join(tmp, "memory_usage.csv"), MEMORY_HEADER)
+    check([r["Type"] for r in rows] == ["full_graph:extra_node",
+                                        "max_subgraph:extra_node"],
+          f"memory rows {rows}")
+    # the rows from the partition save-graphs made: the graph's real
+    # payload (phase 3's graph: the same edges in another node order), and
+    # the largest subgraph's across the buckets
+    full = graph_bytes(int(g.n_node), int(g.n_edge), NUM_FEATURES)
+    sub = max(graph_bytes(int(n), int(e), NUM_FEATURES)
+              for b in part.subgraphs
+              for n, e in zip(b.n_node.tolist(), b.n_edge.tolist()))
+    for r_, want in zip(rows, (full, sub)):
+        check(r_["Max_Memory_Usage_Graphs(MB)"]
+              == f"{want / (1024 * 1024):.2f}", f"memory row {r_}, "
+              f"expected {want / (1024 * 1024):.2f} MB")
+    print(f"tools memory: {wall:.1f} s, from the cache; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; rows "
+          + "; ".join(f"{r_['Type']} {r_['Max_Memory_Usage_Graphs(MB)']} MB"
+                      for r_ in rows))
+    print(f"tools phase (node): {time.perf_counter() - t_phase:.1f} s")
+    return secs, part
+
+
+def phase_tools_graph(tmp) -> None:
+    """``memory --task graph_cls --extra_node`` on phase 13's 2,048
+    molecules through the port's CLI on ``cuda``, no launch: the first
+    chunk of 128 molecules in the Gs and the Gc view held on the card and
+    the largest molecule, three rows (MB of 10^6 bytes, as the JAX
+    package's); the largest molecule's row checked against the dataset's
+    arrays, the chunks' above 0."""
+    from fitgnn_tpu_torch.data.datasets import load_graph_dataset
+    from fitgnn_tpu_torch.utils.results import MEMORY_HEADER
+
+    t_phase = time.perf_counter()
+    launches, _, wall = run_cli(tmp, ["memory", "--task", "graph_cls",
+                                      "--extra_node"], dataset="qm9proxycls")
+    expect(launches, {}, "tools memory graph_cls")
+    rows = read_rows(os.path.join(tmp, "memory_usage.csv"),
+                     MEMORY_HEADER)[-3:]
+    check([r["Type"] for r in rows] == [
+        "chunk_gs:extra_node", "chunk_gc:extra_node",
+        "max_graph:extra_node"], f"graph memory rows {rows}")
+    gds = load_graph_dataset("qm9proxycls", os.path.join(tmp, "dataset"))
+    big = max(gds.graphs, key=lambda g: g[0].shape[0])
+    want = f"{sum(a.nbytes for a in big) / 1e6:.2f}"
+    # a molecule's few KB print as 0.00 MB, as in the JAX package
+    check(rows[2]["Max_Memory_Usage_Graphs(MB)"] == want
+          and all(float(r["Max_Memory_Usage_Graphs(MB)"]) > 0
+                  for r in rows[:2]),
+          f"graph memory rows {rows}, max_graph expected {want}")
+    print(f"tools memory graph_cls: {wall:.1f} s; rows " + "; ".join(
+        f"{r['Type']} {r['Max_Memory_Usage_Graphs(MB)']} MB" for r in rows))
+    print(f"tools phase (graph): {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---- phase 18: GAT's tile opt-ins and diagnostic switches ------------------
+
+# GAT's opt-in operators on phase 3's order at threshold 48 (the CLI's):
+# (edge, build_hybrid's opt-ins, bf16 mask, the modes of STEP / EVAL /
+# MODE_ENV each steps under)
+GAT_OPTIN_OPS = {
+    "diag128": (128, dict(use_diag=True), False,
+                ("GATConv", "GATConv fused", "GATConv fused exact")),
+    "diag128bf": (128, dict(use_diag=True), True,
+                  ("GATConv", "GATConv fused exact")),
+    "diag256": (EDGE, dict(use_diag=True), False,
+                ("GATConv", "GATConv fused", "GATConv fused exact")),
+    "diag256bf": (EDGE, dict(use_diag=True), True, ("GATConv fused",)),
+    "group128": (128, dict(tile_group=2), False,
+                 ("GATConv", "GATConv fused")),
+    "group256": (EDGE, dict(tile_group=2), False,
+                 ("GATConv", "GATConv fused exact")),
+    "rowwalk128": (128, dict(use_rowwalk=True), False,
+                   ("GATConv", "GATConv fused", "GATConv fused exact"))}
+# the modes held bit for bit with and without the plan's occupancy words
+GAT_OPTIN_WORDS_MODES = ("GATConv", "GATConv fused exact")
+# the diagnostic switches, each stepped on the default operator (edge 128,
+# threshold 48) with the default path's launches, and the straggler
+# primitives of ops/tile_gat.py each must run
+GAT_SWITCHES = {
+    "fused_bwd": ({"FITGNN_GAT_FUSED_BWD": "1"},
+                  {"_StragglerAttentionFused"}),
+    "fused_bwd_sorted_dh": ({"FITGNN_GAT_FUSED_BWD": "1",
+                             "FITGNN_GAT_FUSED_SORTED_DH": "1"},
+                            {"_StragglerAttentionFused"}),
+    "sorted_num_src": ({"FITGNN_GAT_SORTED_NUM": "1",
+                        "FITGNN_GAT_SORTED_SRC": "1"},
+                       {"_WeightedSpmmSorted", "_GatherSenders"})}
+
+
+def gat_optin_want(name: str, mode: str) -> dict:
+    """The launches of one step and one eval forward of ``mode`` on the
+    opt-in operator ``name``: the mode's counts at 128 (phase 4), under the
+    ``@256`` IDs at 256 and in their bf16 forms on a bf16 mask; on the row
+    walk (no plan: the einsum branch, never fused) the straggler kernels'
+    alone."""
+    edge, kw, bf16, _ = GAT_OPTIN_OPS[name]
+    want = {k: STEP[mode].get(k, 0) + EVAL[mode].get(k, 0)
+            for k in (*STEP[mode], *EVAL[mode])}
+    if kw.get("use_rowwalk"):
+        want = {k: v for k, v in want.items() if k in ("K3w", "K6")}
+    if bf16:
+        want = bf16_counts(want)
+    return at_edge(want) if edge == EDGE else want
+
+
+def gat_optin_operators(g) -> dict:
+    """GAT's opt-in operators (``GAT_OPTIN_OPS``) on phase 3's graph, as
+    ``build_optimized_graph`` weighs GAT's operator (presence): name →
+    the graph with the operator attached, CPU tensors; a bf16 mask is the
+    f32 operator's cast (``bf16_tiles``).  Checks each one's structure:
+    no live diagonal tile in the BCSR beside diagonal blocks, every block
+    row's run a multiple of 2 under ``tile_group=2``, no plan on the row
+    walk and one elsewhere, and at 256 the plan's occupancy words (and
+    their transposes and live list) those of the BCSR's own tiles, word 0
+    on every pad and filler."""
+    from fitgnn_tpu_torch.ops.bsr_dynamic import live_quadrants as live_ids
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+
+    t0 = time.perf_counter()
+    s = g.senders.numpy().astype(np.int64)
+    r = g.receivers.numpy().astype(np.int64)
+    w = (g.edge_weight.numpy() > 0).astype(np.float32)
+    built, ops = {}, {}
+    for name, (edge, kw, bf16, _) in GAT_OPTIN_OPS.items():
+        key = (edge, tuple(kw.items()))
+        if key not in built:
+            built[key] = build_hybrid(
+                s, r, w, g.num_nodes_padded, min_block_edges=48, block=edge,
+                use_segmm=True, semantics="att_unit", real_nodes=NUM_NODES,
+                **kw)
+        h = built[key]
+        ops[name] = g._replace(aux=bf16_tiles(h) if bf16 else h)
+    print(f"GAT opt-in ingest ({len(built)} operators): "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, gr in ops.items():
+        edge, kw, _, _ = GAT_OPTIN_OPS[name]
+        h = gr.aux
+        b, plan = h.bsr, h.dyn_plan
+        check(b is not None and b.block == edge,
+              f"GAT opt-in {name}: no {edge}-wide tile")
+        live = b.blocks.flatten(1).any(1)
+        on_diag = int((live & (b.rows == b.cols)).sum())
+        nd = 0 if h.diag_blocks is None else int(
+            h.diag_blocks.flatten(1).any(1).sum())
+        check((h.diag_blocks is not None) == bool(kw.get("use_diag"))
+              and (on_diag == 0 or h.diag_blocks is None),
+              f"GAT opt-in {name}: {nd} diagonal blocks, {on_diag} live "
+              "diagonal tiles in the BCSR")
+        if kw.get("tile_group"):
+            runs = torch.bincount(b.rows.long(), minlength=b.num_row_blocks)
+            check(b.group == 2 and bool((runs % 2 == 0).all()),
+                  f"GAT opt-in {name}: a block row's run is not even")
+        check((plan is None) == bool(kw.get("use_rowwalk")),
+              f"GAT opt-in {name}: a plan where the JAX package builds "
+              "none, or none where it builds one")
+        words = ""
+        if plan is not None and edge == EDGE:
+            quads, _, _ = dyn_live_quadrants(b, plan)
+            check(bool((plan.words[~live] == 0).all())
+                  and torch.equal(plan.live.long(), torch.from_numpy(
+                      live_ids(plan.words.numpy(), edge // 128))),
+                  f"GAT opt-in {name}: the plan's words or live list do "
+                  "not follow its tiles")
+            words = (f"; plan words: {quads} live quadrants of "
+                     f"{4 * b.nnz_blocks}, word 0 on the "
+                     f"{int((~live).sum())} empty tiles")
+        print(f"GAT opt-in {name} (edge {edge}, {b.blocks.dtype}): "
+              f"{int(live.sum())} live tiles of {b.nnz_blocks} "
+              f"({on_diag} on the diagonal), {nd} live diagonal blocks, "
+              f"{int((h.weights != 0).sum())} stragglers, "
+              f"{'a plan' if plan is not None else 'no plan'}{words}")
+    return ops
+
+
+@contextlib.contextmanager
+def straggler_branches():
+    """The straggler primitives of ``ops/tile_gat.py`` that the calls in
+    the block apply: a set of their class names."""
+    from fitgnn_tpu_torch.ops import tile_gat
+
+    used = set()
+
+    def proxy(name):
+        cls = getattr(tile_gat, name)
+
+        class Counted:
+            @staticmethod
+            def apply(*args):
+                used.add(name)
+                return cls.apply(*args)
+        return Counted
+
+    with contextlib.ExitStack() as stack:
+        for name in ("_StragglerAttentionFused", "_WeightedSpmmSorted",
+                     "_GatherSenders"):
+            stack.enter_context(mock.patch.object(tile_gat, name,
+                                                  proxy(name)))
+        yield used
+
+
+def phase_gat_optins(device, g, ops15) -> dict:
+    """Through the library surface, every counter at 0 just before each
+    counted run: on each of GAT's opt-in operators (``GAT_OPTIN_OPS``),
+    under each of its modes, one GAT ``gc_train_step`` at hidden 512 (bit
+    dropout 0.5, seed-0 weights) and one eval forward, launching
+    ``gat_optin_want``'s counts and held against the same run with the
+    plain versions (the eval forward, the loss and every gradient); at
+    256, under PyTorch's deterministic algorithms, each mode of
+    ``GAT_OPTIN_WORDS_MODES`` with the plan's occupancy words and live list
+    against the same step without them and against itself, bit for bit;
+    then each diagnostic switch setting (``GAT_SWITCHES``) on the default
+    operator at 128: the default path's launches, the straggler primitive
+    it selects, held against the plain versions and against the default
+    step; and the ``gc_train_step`` ms of every operator and setting beside
+    the edge-128 default operator's and phase 15's threshold-48 operator
+    at 256 (``ops15["t48"]``), two-stage, fused and under each switch."""
+    from fitgnn_tpu_torch.models.models import NodeModel
+
+    t_phase = time.perf_counter()
+    ops = gat_optin_operators(g)
+    phases = {}
+
+    def model_():
+        m = NodeModel("GATConv", NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                      dropout_rate=0.5)
+        return m.reset_parameters(torch.Generator().manual_seed(0)).to(
+            device)
+
+    def run(gd):
+        return eval_and_step(model_(), gd, device)
+
+    def held(what, got, ref, against="plain"):
+        compare(f"{what}: eval forward kernels vs {against}", got[0], ref[0])
+        compare(f"{what}: loss kernels vs {against}", got[1].reshape(1),
+                ref[1].reshape(1))
+        for k in ref[2]:
+            compare(f"{what}: grad {k} kernels vs {against}", got[2][k],
+                    ref[2][k])
+
+    def bits(what, a, other):
+        check(torch.equal(a[0], other[0]) and torch.equal(a[1], other[1])
+              and all(torch.equal(a[2][k], other[2][k]) for k in a[2]),
+              f"{what}: not bit for bit")
+
+    for name, gr in ops.items():
+        edge, _, _, modes = GAT_OPTIN_OPS[name]
+        gd = gr.to(device)
+        for mode in modes:
+            what = f"gat512 optin {name} {mode} step and eval"
+            with switches(MODE_ENV[mode]):
+                reset_counts()
+                got = run(gd)
+                launches = read_counts()
+                launches = at_edge(launches) if edge == EDGE else launches
+                expect(launches, gat_optin_want(name, mode), what)
+                phases[what] = launches
+                with plain_versions():
+                    ref = run(gd)
+            held(what, got, ref)
+            del got, ref
+        plan = gd.aux.dyn_plan
+        if edge == EDGE and plan is not None and plan.words is not None \
+                and not gd.aux.bsr.bf16:
+            bare = gd._replace(aux=dataclasses.replace(
+                gd.aux, dyn_plan=dataclasses.replace(
+                    plan, words=None, t_words=None, live=None)))
+            for mode in GAT_OPTIN_WORDS_MODES:
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    with switches(MODE_ENV[mode]):
+                        a, b_, c = run(gd), run(bare), run(gd)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                what = f"gat512 optin {name} {mode}"
+                bits(f"{what} step and eval without the plan's words", a, b_)
+                bits(f"{what} step and eval twice", a, c)
+                print(f"{what}: eval forward, loss and {len(a[2])} "
+                      "gradients bit for bit with and without the plan's "
+                      "occupancy words and live list (deterministic "
+                      "algorithms)")
+                del a, b_, c
+            del bare
+        del gd
+        torch.cuda.empty_cache()
+
+    # the diagnostic switches on the default operator at 128
+    base = att_unit_128(g)
+    gd = base.to(device)
+    want = {k: STEP["GATConv"].get(k, 0) + EVAL["GATConv"].get(k, 0)
+            for k in (*STEP["GATConv"], *EVAL["GATConv"])}
+    with straggler_branches() as used:
+        default = run(gd)
+    check(not used, f"the default GAT step ran {sorted(used)}")
+    for sname, (env, branch) in GAT_SWITCHES.items():
+        what = f"gat512 switch {sname} step and eval"
+        with switches(env), straggler_branches() as used:
+            reset_counts()
+            got = run(gd)
+            launches = read_counts()
+            expect(launches, want, what)
+            phases[what] = launches
+            with plain_versions():
+                ref = run(gd)
+        check(used == branch, f"{what}: ran {sorted(used)}, expected "
+              f"{sorted(branch)}")
+        print(f"{what}: the straggler primitives {sorted(used)}")
+        held(what, got, ref)
+        held(what, got, default, "the default step")
+        del got, ref
+    del gd, default
+    torch.cuda.empty_cache()
+
+    # the step's time on each operator and setting beside the yardsticks
+    graphs = (("edge 128 t48", base), (f"edge {EDGE} t48", ops15["t48"]),
+              *ops.items())
+    step_ms("GAT two-stage hidden 512, dropout 0.5", model_, device, graphs)
+    with switches(FUSED):
+        step_ms("GAT fused + SEGMM_DEN hidden 512, dropout 0.5", model_,
+                device, graphs)
+    for sname, env in (("default", {}), *((k, v[0]) for k, v
+                                          in GAT_SWITCHES.items())):
+        with switches(env):
+            step_ms(f"GAT switch {sname}, hidden 512, dropout 0.5", model_,
+                    device, graphs[:1])
+    print(f"GAT opt-in and switch steps: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return phases
+
+
 def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     """One kernel's line: times and bounds summed over the shapes one step
     or forward launches it at (those not marked ``on_path: False``); errors
@@ -5069,7 +5499,9 @@ def main() -> int:
                                                    serve_avg_dev)
         phases.update(curriculum)
         torch.cuda.empty_cache()
-        phases.update(phase_buckets(device, tmp, plain_infer))
+        warmed = phase_tools_node(tmp, g)
+        phases.update(phase_buckets(device, tmp, plain_infer, warmed))
+        del warmed
         torch.cuda.empty_cache()
         graphs, hdiag, sage_gin_shapes = phase_sage_gin_kernels(device, ds,
                                                                 gcn_split)
@@ -5092,6 +5524,7 @@ def main() -> int:
         phases.update(phase_cluster_cli(tmp))
         torch.cuda.empty_cache()
         phases.update(phase_graph(device, tmp))
+        phase_tools_graph(tmp)
         torch.cuda.empty_cache()
         ops = block_operators(g)
         shapes.update(phase_block_kernels(device, ops))
@@ -5103,6 +5536,7 @@ def main() -> int:
         phases.update(phase_gat_block_steps(device, g, ops))
         shapes.update(phase_gat_fused_block_kernels(device, ops))
         phases.update(phase_gat_fused_block_steps(device, g, ops))
+        phases.update(phase_gat_optins(device, g, ops))
         del ops, g
         torch.cuda.empty_cache()
 

@@ -4,6 +4,9 @@
     python -m fitgnn_tpu_torch.cli.main infer --dataset cora ...
     python -m fitgnn_tpu_torch.cli.main train --baseline --dataset cora ...
     python -m fitgnn_tpu_torch.cli.main infer-baseline --dataset cora ...
+    python -m fitgnn_tpu_torch.cli.main memory      --dataset cora ...
+    python -m fitgnn_tpu_torch.cli.main stats       --dataset cora
+    python -m fitgnn_tpu_torch.cli.main save-graphs --dataset cora ...
 
 Ported, for node tasks with GCN, GAT, SAGE and GIN: ``train`` (the FIT-GNN
 curriculum: coarsening, partition, the three Gc/Gs setups in GD and MB),
@@ -32,9 +35,13 @@ to the same path) coarsens each graph, collates the splits in chunks of
 ``--batch_size`` and runs one of the four graph setups, saving the best
 parameters to ``save/<task>/<output_dir>/model.pt``; ``infer`` (and
 ``infer-baseline``) times one forward per graph in the Gs and in the Gc
-view from that checkpoint.  The options not ported yet, ``memory``,
-``stats`` and ``save-graphs``, raise ``NotImplementedError`` naming their
-ROADMAP item.  Every subcommand takes
+view from that checkpoint.  ``memory`` appends the full graph's and the
+largest subgraph's byte footprint (node tasks; the Gs chunk, Gc chunk and
+largest molecule on graph tasks) to ``memory_usage.csv``, ``stats`` the
+dataset's sizes and homophily to ``dataset_info.csv``, and
+``save-graphs`` computes the partition into the port's artifact cache,
+where ``train``, ``infer`` and ``memory`` on the same flags find it.
+Every subcommand takes
 ``--device {cuda,cpu}`` (default ``cuda``); asking for ``cuda`` without a
 GPU raises instead of falling back.
 """
@@ -57,12 +64,6 @@ COMMUNITY_NODE_CAP = 165_000
 AUTO_COMMUNITY_NODES = 170_000
 
 GRAPH_TASKS = ("graph_cls", "graph_reg")
-
-_NOT_PORTED = {
-    "memory": "ROADMAP.md §1 item 4 (memory benches)",
-    "stats": "ROADMAP.md §1 item 4 (dataset stats)",
-    "save-graphs": "ROADMAP.md §1 item 4 (partition artifact cache)",
-}
 
 # train options the port does not run yet: (flag, is set, ROADMAP item);
 # the baseline ignores --bucket_sizes, --eval_chunk and --fused_epochs, and
@@ -912,16 +913,131 @@ def _cmd_infer_graph(args) -> int:
     return 0
 
 
+def _tree_bytes(tree) -> int:
+    """Bytes of every tensor leaf of a ``Graph`` or ``SubgraphBatch`` (the
+    ``None`` fields left out), as the JAX package sums
+    ``jtu.tree_leaves``.  The leaves map one to one: a collated chunk's
+    ``gc`` holds x (f32), senders, receivers (int32), edge_weight (f32),
+    n_node and n_edge (int32, 0-d), its ``gs`` the same with a subgraph
+    axis plus consume_mask (bool) and orig_idx (int32), in both packages;
+    the labels, which the port holds in int64 where the JAX package holds
+    int32, sit in the batch's ``y``, outside both trees."""
+    import torch
+    return sum(v.numel() * v.element_size() for v in tree
+               if isinstance(v, torch.Tensor))
+
+
+def _memory_row(args, kind: str, mb: float) -> str:
+    from fitgnn_tpu_torch.utils import results as R
+    row = R.format_row(R.MEMORY_HEADER, {
+        "dataset": args.dataset, "coarsening_method": args.coarsening_method,
+        "coarsening_ratio": args.coarsening_ratio, "task": args.task,
+        "type": f"{kind}:{_node_mode(args)}",
+        "max_memory_usage_graphs": f"{mb:.2f}"})
+    R.append_csv_row("memory_usage.csv", R.MEMORY_HEADER, row)
+    return row
+
+
+def _cmd_memory_graph(args) -> int:
+    """Graph-task memory rows, as the JAX package's ``_cmd_memory_graph``:
+    the first chunk's Gs and Gc views at 128 graphs a chunk (MB of 10^6
+    bytes, as there) and the largest single molecule's raw arrays, the
+    chunk held on the device."""
+    from fitgnn_tpu_torch.data.datasets import load_graph_dataset
+    from fitgnn_tpu_torch.data.graph_level import collate_graph_level_batches
+    from fitgnn_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    gds = load_graph_dataset(args.dataset, args.data_root)
+    chunks = collate_graph_level_batches(
+        _graph_samples(args, gds), getattr(args, "batch_size", 0) or 128)
+    b0 = chunks[0].to(device)
+    biggest = max(gds.graphs, key=lambda g: g[0].shape[0])
+    big_mb = (biggest[0].nbytes + biggest[1].nbytes + biggest[2].nbytes) / 1e6
+    for kind, val in (("chunk_gs", _tree_bytes(b0.gs) / 1e6),
+                      ("chunk_gc", _tree_bytes(b0.gc) / 1e6),
+                      ("max_graph", big_mb)):
+        print(f"memory_usage.csv <- {_memory_row(args, kind, val)}")
+    return 0
+
+
+def cmd_memory(args) -> int:
+    """The full graph's and the largest subgraph's footprint, as the JAX
+    package's ``cmd_memory``: the partition through the cache, both held
+    on the device, one row each to ``memory_usage.csv`` with ``real_mb``
+    (the padded MB printed beside it)."""
+    from fitgnn_tpu_torch.bench.memory import memory_report
+    from fitgnn_tpu_torch.graph.build import build_graph
+    from fitgnn_tpu_torch.graph.container import SubgraphBatch
+    from fitgnn_tpu_torch.utils.device import resolve_device
+
+    if args.task in GRAPH_TASKS:
+        return _cmd_memory_graph(args)
+    device = resolve_device(args.device)
+    ds = _load_node(args)
+    _apply_auto_config(args, ds.num_nodes)
+    num_classes = ds.num_classes if args.task == "node_cls" else None
+    train, val, test = _splits(args, ds, num_classes)
+    part = _partition(args, ds, train, val, test, num_classes)
+    g = build_graph(ds.x, ds.senders, ds.receivers).to(device)
+    sub = part.subgraphs
+    sub = (sub.to(device) if isinstance(sub, SubgraphBatch)
+           else tuple(b.to(device) for b in sub))
+    for r in memory_report(g, sub):
+        row = _memory_row(args, r.kind, r.real_mb)
+        print(f"memory_usage.csv <- {row}  (padded: {r.padded_mb:.2f} MB)")
+    return 0
+
+
+def cmd_stats(args) -> int:
+    """One ``dataset_info.csv`` row, as the JAX package's ``cmd_stats``
+    (host numpy; ``--device`` is checked as on every subcommand)."""
+    from fitgnn_tpu_torch.data.stats import DatasetStats, node_dataset_stats
+    from fitgnn_tpu_torch.utils.results import append_csv_row
+    from fitgnn_tpu_torch.utils.device import resolve_device
+
+    resolve_device(args.device)
+    ds = _load_node(args)
+    st = node_dataset_stats(args.dataset, ds.x, ds.senders, ds.receivers,
+                            ds.y, classification=args.task == "node_cls")
+    append_csv_row("dataset_info.csv", DatasetStats.CSV_HEADER, st.csv_row())
+    print(st.csv_row())
+    return 0
+
+
+def cmd_save_graphs(args) -> int:
+    """Warm the port's partition-artifact cache, as the JAX package's
+    ``cmd_save_graphs`` (``_partition`` loads or computes)."""
+    from fitgnn_tpu_torch.graph.container import SubgraphBatch
+    from fitgnn_tpu_torch.utils.device import resolve_device
+
+    resolve_device(args.device)
+    ds = _load_node(args)
+    _apply_auto_config(args, ds.num_nodes)
+    num_classes = ds.num_classes if args.task == "node_cls" else None
+    train, val, test = _splits(args, ds, num_classes)
+    part = _partition(args, ds, train, val, test, num_classes)
+    if isinstance(part.subgraphs, SubgraphBatch):
+        desc = f"{part.subgraphs.num_subgraphs} subgraphs"
+    else:
+        desc = (f"{sum(b.num_subgraphs for b in part.subgraphs)} subgraphs "
+                f"in {len(part.subgraphs)} size buckets "
+                f"{[b.num_nodes_padded for b in part.subgraphs]}")
+    print(f"partition artifacts cached ({part.num_metanodes} metanodes, "
+          f"{desc})")
+    return 0
+
+
+_NODE_TOOLS = {"memory": cmd_memory, "stats": cmd_stats,
+               "save-graphs": cmd_save_graphs}
+
+
 def main(argv=None) -> int:
     parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if args.command in _NOT_PORTED:
-        raise NotImplementedError(
-            f"subcommand {args.command!r} is not ported yet: "
-            f"{_NOT_PORTED[args.command]}")
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = parser.parse_args(argv)
     args = arg_correction(args)
+    if args.command in _NODE_TOOLS:
+        return _NODE_TOOLS[args.command](args)
     if args.command == "train":
         # the JAX package's order: the cluster flags' refusals, then the
         # graph tasks (--baseline included), then the node paths

@@ -68,11 +68,12 @@ def build_optimized_graph(x: np.ndarray, senders: np.ndarray,
     (``torch.bfloat16``: bf16 tiles, ``train --hybrid_bf16_tiles``),
     ``tile_group``, ``use_diag`` and the cluster collapses with their
     ``_exact`` splits pass through to ``build_hybrid`` (the walks' bf16
-    forms, K9, K8), which refuses ``tile_group`` and ``use_diag`` for
-    GATConv.  Under a collapse the nodes pad to a multiple of K, which
-    must be a positive multiple of 128.  ``min_block_edges="auto"`` takes
-    the planner's threshold (``graph/planner.py``) for the reordered
-    graph's real edges."""
+    forms, K9, K8; for GATConv the diagonal attention blocks and the
+    group-padded dynamic-tile plan of ``ops/tile_gat.py``).  Under a
+    collapse the nodes pad to a multiple of K, which must be a positive
+    multiple of 128.  ``min_block_edges="auto"`` takes the planner's
+    threshold (``graph/planner.py``) for the reordered graph's real
+    edges."""
     from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
     from fitgnn_tpu_torch.partition.community import \
         hierarchical_community_order
@@ -151,10 +152,10 @@ def optimize_coarse(coarse, *, min_block_edges: int = 48, tile_dtype=None,
     stores Gc's tiles in bf16 (``train --hybrid_bf16_tiles``);
     ``use_segmm`` (K3 for the stragglers, the default; ``False``: the
     per-edge gather and segment sum) and ``tile_group`` (K9's grouped
-    layout; GATConv refuses it) and the cluster collapses pass through to
-    ``build_hybrid``; ``min_block_edges="auto"`` takes the planner's
-    threshold.  The CLI passes neither ``use_segmm`` nor ``tile_group``,
-    as the JAX package's does not."""
+    layout; GATConv's group-padded plan) and the cluster collapses pass
+    through to ``build_hybrid``; ``min_block_edges="auto"`` takes the
+    planner's threshold.  The CLI passes neither ``use_segmm`` nor
+    ``tile_group``, as the JAX package's does not."""
     from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
     from fitgnn_tpu_torch.partition.community import \
         hierarchical_community_order

@@ -42,10 +42,16 @@ The JAX package's tile opt-ins, dispatched as its ``_hybrid_spmm_main``:
   separate one.  Under ``att_unit`` it has no dynamic-tile plan, as in the
   JAX package, so GAT's tiles take the einsum branch of ``ops/tile_gat.py``.
 
-``att_unit`` (GATConv) refuses ``use_diag``, ``use_rowwalk`` and
-``tile_group > 1``: its tile attention walks the grid-walk tiles (or the
-einsum layout's) only, at any edge that is a multiple of 128 (its
-dynamic-tile plan counts block rows of that edge).
+Under ``att_unit`` (GATConv) the same opt-ins build the JAX package's
+attention operators: ``use_diag`` the diagonal blocks of presence weights
+(in the tile type), which ``ops/tile_gat.py`` attends to by one batched
+matmul, the BCSR the off-diagonal tiles; ``tile_group > 1`` the
+group-padded tile list, over which the dynamic-tile plan is built (its
+zero pads are empty masks); ``use_rowwalk`` (E = 128) and the einsum
+layout no plan, so their tiles take ``ops/tile_gat.py``'s einsum branch.
+Above 128 the plan's occupancy words (``words``, ``t_words``, ``live``)
+are made of the BCSR's tiles, so they follow the off-diagonal and the
+group-padded lists: a pad or filler tile has word 0.
 
 The cluster collapse of the stragglers (``cluster_agg`` for the static
 weights of GCN, SAGE and GIN, ``cluster_att`` for GAT's ``att_unit``), as
@@ -154,15 +160,9 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
     not padding (the summaries' means leave the others out); defaults to
     ``num_nodes_padded``, which must be a multiple of both E and K.
 
-    ``use_diag``, ``use_rowwalk`` and ``tile_group > 1`` under ``att_unit``
-    are not ported yet and raise ``NotImplementedError`` (ROADMAP.md §1
-    item 3)."""
-    if semantics == "att_unit" and (use_diag or use_rowwalk
-                                    or tile_group != 1):
-        raise NotImplementedError(
-            "build_hybrid: use_diag, use_rowwalk and tile_group > 1 under "
-            "att_unit (GATConv's tile attention) are not ported yet "
-            "(ROADMAP.md §1 item 3)")
+    Under ``att_unit`` the dynamic-tile plan is built where the JAX
+    package builds it: on a BCSR in neither the row-walk nor the einsum
+    layout (the grid-walk list, or its group-padded form)."""
     check_tile_dtype(tile_dtype)
     check_block(block)
     if num_nodes_padded % block:
@@ -230,11 +230,13 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                               num_nodes_padded)
 
     dyn_plan = None
-    if semantics == "att_unit" and bsr is not None and not bsr.einsum:
-        # the grid-walk tile order: rows sorted with coverage fillers, whose
-        # zero masks give zero attention tiles (the einsum layout has none);
-        # above 128 the mask's occupancy words, which cover every non-zero
-        # of the attention tiles where(mask, exp(.), 0)
+    if (semantics == "att_unit" and bsr is not None and not bsr.rowwalk
+            and not bsr.einsum):
+        # the grid-walk tile order: rows sorted with coverage fillers (and
+        # group pads), whose zero masks give zero attention tiles (the row
+        # walk and einsum layouts have none); above 128 the mask's
+        # occupancy words, which cover every non-zero of the attention
+        # tiles where(mask, exp(.), 0)
         dyn_plan = build_dyn_plan(bsr.rows.numpy(), bsr.cols.numpy(),
                                   bsr.num_row_blocks, words=bsr.quad_bits,
                                   block=bsr.block)

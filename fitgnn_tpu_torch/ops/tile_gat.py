@@ -25,23 +25,35 @@ only at exactly ``"1"``):
 * ``FITGNN_GAT_GLOBAL_MAX=0``: the exact per-receiver max, its tile part
   from K7's ``att_rowmax`` when fused, else from the materialised scores;
 * ``FITGNN_GAT_SEGMM_DEN=1``: the straggler numerator and denominator from
-  K6 at any width, with sender scores gathered from ``score_src``.
+  K6 at any width, with sender scores gathered from ``score_src``;
+* the diagnostic switches, plain PyTorch as the JAX package's are plain
+  XLA (each of its ``custom_vjp`` a ``torch.autograd.Function``):
+  ``FITGNN_GAT_SORTED_SRC=1`` gathers the straggler sender scores with a
+  backward that sums over the sorted transpose list
+  (``_GatherSenders``), ``FITGNN_GAT_SORTED_NUM=1`` the numerator with
+  both backward sums sorted (``_WeightedSpmmSorted``), and
+  ``FITGNN_GAT_FUSED_BWD=1`` the straggler numerator and denominator in
+  one augmented sum with a closed-form backward
+  (``_StragglerAttentionFused``; its ``dh`` over the sorted transpose list
+  under ``FITGNN_GAT_FUSED_SORTED_DH=1``).  Each is taken under the JAX
+  package's predicates (``FUSED_BWD`` needs the global max, ``att_src``,
+  no K3w or K6 and neither of the other three switches on).
 
 The tiles may have any edge E that is a multiple of 128
 (``build_hybrid(block=E, semantics="att_unit")``): the two-stage path, the
 exact max and the einsum branch take E from the tiles' shape, K4, K4ᵀ and
 K5 walk E-wide tiles as 128-wide quadrants, and so does the fused path
 (K7rm, K7f, K7bt's ``dx`` and the score pass, ``ops/att_bsr.py``), as the
-JAX package hands ``bsr.block`` to its fused kernels.
-
-The JAX package's diagnostic switches ``FITGNN_GAT_FUSED_BWD``,
-``_FUSED_SORTED_DH``, ``_SORTED_SRC`` and ``_SORTED_NUM`` (no Pallas
-kernel) and its ``partials``, ``src_score_bound`` and ``extra_rowmax``
-arguments are not ported: they raise ``NotImplementedError`` rather than
-run the default branch in their place.  Under ``att_unit``
-``build_hybrid`` refuses ``use_diag``, ``use_rowwalk`` and ``tile_group >
-1``, so the tiles here are in the grid-walk layout or the einsum layout,
-and no ``diag_blocks`` reaches this module.
+JAX package hands ``bsr.block`` to its fused kernels.  The tile opt-ins of
+``build_hybrid`` reach this module as the JAX package's do: the
+group-padded tile list (``tile_group > 1``) with its plan, whose zero pads
+are empty masks; the row-walk layout (``use_rowwalk``) without a plan, so
+its tiles take the einsum branch; and the diagonal blocks (``use_diag``),
+attended to by one batched matmul over contiguous slabs after the
+stragglers (masked before the exp; the exact max folds in their row
+maxima), while the tiles, two-stage or fused, hold the off-diagonal
+blocks.  The ``partials``, ``src_score_bound`` and ``extra_rowmax``
+arguments serve the distributed layer and raise ``NotImplementedError``.
 
 With the cluster collapse (``build_hybrid(cluster_att=K)``) each collapsed
 straggler edge attends to its sender's cluster-summary row: the summary's
@@ -49,9 +61,9 @@ score is the member mean of ``score_src`` (means commute with the linear
 score projection), and its message the member mean of ``h``.  One dense
 (N, C) score block, masked by the count table before the exp and weighted
 by the counts, and one (N, C) × (C, F) product add to the numerator and
-the denominator, after the stragglers and before the tiles, under every
-switch; the exact max folds in the summary rows' max.  This is plain
-PyTorch, as the JAX package's is XLA.  The tiles may be bf16
+the denominator, after the stragglers and the diagonal and before the
+tiles, under every switch; the exact max folds in the summary rows' max.
+This is plain PyTorch, as the JAX package's is XLA.  The tiles may be bf16
 (``tile_dtype=torch.bfloat16``): they are the 0/1 mask, so the scores and
 ``pe`` stay f32 and only the kernels' tile loads change.  The einsum
 layout has no dynamic-tile plan, so its tiles take the JAX package's XLA
@@ -76,10 +88,6 @@ from fitgnn_tpu_torch.ops.segment import segment_sum, take_rows
 
 _NEG = -1e30  # "minus infinity" that survives exp/where without NaNs
 
-# the JAX package's diagnostic switches the port refuses
-_REFUSED = ("FITGNN_GAT_FUSED_BWD", "FITGNN_GAT_FUSED_SORTED_DH",
-            "FITGNN_GAT_SORTED_SRC", "FITGNN_GAT_SORTED_NUM")
-
 
 @dataclasses.dataclass(frozen=True)
 class Switches:
@@ -89,26 +97,142 @@ class Switches:
     global_max: bool = True         # FITGNN_GAT_GLOBAL_MAX
     segmm_den: bool = False         # FITGNN_GAT_SEGMM_DEN
     segmm_max_f: int = 64           # FITGNN_GAT_SEGMM_MAXF
+    fused_bwd: bool = False         # FITGNN_GAT_FUSED_BWD
+    fused_sorted_dh: bool = False   # FITGNN_GAT_FUSED_SORTED_DH
+    sorted_src: bool = False        # FITGNN_GAT_SORTED_SRC
+    sorted_num: bool = False        # FITGNN_GAT_SORTED_NUM
 
 
 def switches() -> Switches:
     """Read the switches from the environment as the JAX package reads
-    them; raise for a diagnostic switch the port lacks."""
-    env = os.environ.get
-    asked = [f"{k}=1" for k in _REFUSED if env(k, "0") == "1"]
-    if asked:
-        raise NotImplementedError(
-            f"tile_gat_attention: {', '.join(asked)} selects a diagnostic "
-            "branch of the JAX package that is not ported (ROADMAP.md §1 "
-            "item 3); unset it")
-    return Switches(fused_tiles=env("FITGNN_GAT_FUSED_TILES", "0") == "1",
-                    global_max=env("FITGNN_GAT_GLOBAL_MAX", "1") == "1",
-                    segmm_den=env("FITGNN_GAT_SEGMM_DEN", "0") == "1",
-                    segmm_max_f=int(env("FITGNN_GAT_SEGMM_MAXF", "64")))
+    them."""
+    def on(name: str, default: str = "0") -> bool:
+        return os.environ.get(name, default) == "1"
+
+    return Switches(fused_tiles=on("FITGNN_GAT_FUSED_TILES"),
+                    global_max=on("FITGNN_GAT_GLOBAL_MAX", "1"),
+                    segmm_den=on("FITGNN_GAT_SEGMM_DEN"),
+                    segmm_max_f=int(os.environ.get("FITGNN_GAT_SEGMM_MAXF",
+                                                   "64")),
+                    fused_bwd=on("FITGNN_GAT_FUSED_BWD"),
+                    fused_sorted_dh=on("FITGNN_GAT_FUSED_SORTED_DH"),
+                    sorted_src=on("FITGNN_GAT_SORTED_SRC"),
+                    sorted_num=on("FITGNN_GAT_SORTED_NUM"))
 
 
 def _leaky(v: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(v >= 0, v, slope * v)
+
+
+# ---- the diagnostic switches' straggler primitives --------------------------
+# Both straggler lists are sorted (the forward by receiver, the transpose
+# by sender) and ``t_edge_perm`` maps per-edge data between the two orders,
+# so each backward below sums over a sorted list.
+
+class _GatherSenders(torch.autograd.Function):
+    """``v[senders]`` whose backward sums over the sorted transpose list
+    (the JAX package's ``_gather_senders``)."""
+
+    @staticmethod
+    def forward(ctx, aux, v):
+        ctx.aux = aux
+        return take_rows(v, aux.senders)
+
+    @staticmethod
+    def backward(ctx, g):
+        aux = ctx.aux
+        return None, segment_sum(take_rows(g, aux.t_edge_perm),
+                                 aux.t_receivers, aux.num_nodes)
+
+
+class _WeightedSpmmSorted(torch.autograd.Function):
+    """``out[r] = Σ_e w[e]·x[s_e]`` with both backward sums sorted: ``dx``
+    over the transpose list, ``dw`` a row-wise dot of sorted gathers (the
+    JAX package's ``_weighted_spmm_sorted``); the gathered rows are saved
+    for the backward."""
+
+    @staticmethod
+    def forward(ctx, aux, w, x):
+        y = take_rows(x, aux.senders)
+        ctx.aux = aux
+        ctx.save_for_backward(w, y)
+        return segment_sum(y * w[:, None].to(x.dtype), aux.receivers,
+                           aux.num_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        aux = ctx.aux
+        w, y = ctx.saved_tensors
+        wt = take_rows(w, aux.t_edge_perm)
+        gt = take_rows(g, aux.t_senders)
+        dx = segment_sum(gt * wt[:, None].to(g.dtype), aux.t_receivers,
+                         aux.num_nodes)
+        gr = take_rows(g, aux.receivers)
+        dw = (gr.float() * y.float()).sum(-1).to(w.dtype)
+        return None, dw, dx
+
+
+def _strag_core(aux, sm, h, score_dst, a_src, maxs, slope: float):
+    """One augmented row sum ``Σ_e pes·[y | 1 | lp·y | lp]`` over the
+    stragglers: ``num``, ``den`` and the residuals ``num'``, ``den'`` of
+    the closed-form backward (``lp`` = LeakyReLU'), with the sender scores
+    from the gathered rows and the global bound ``maxs``."""
+    f = h.shape[-1]
+    y = take_rows(h, aux.senders)                          # (E, F)
+    ssrc = y.float() @ a_src.float()
+    sdst = take_rows(score_dst.float(), aux.receivers)
+    pre = ssrc + sdst
+    es = torch.where(pre >= 0, pre, slope * pre)
+    m_e = (sdst + maxs).clamp_min(0.0)                     # a constant bound
+    pes = torch.exp(torch.where(sm, es, _NEG) - m_e) * sm
+    lp = torch.where(pre >= 0, 1.0, slope) * sm            # LeakyReLU'
+    pc = pes[:, None].to(h.dtype)
+    plc = (pes * lp)[:, None].to(h.dtype)
+    s = segment_sum(torch.cat([y * pc, pc, y * plc, plc], dim=1),
+                    aux.receivers, aux.num_nodes)          # (N, 2F+2)
+    return (s[:, :f], s[:, f].float(), s[:, f + 1:2 * f + 1],
+            s[:, 2 * f + 1].float(), y, pes, lp)
+
+
+class _StragglerAttentionFused(torch.autograd.Function):
+    """The stragglers' ``(num, den)`` with no scalar segment sum in the
+    backward (the JAX package's ``_straggler_attention_fused``):
+    ``dL/dsdst[r] = ⟨num'[r], dnum[r]⟩ + den'[r]·dden[r]``, node-local;
+    ``dh`` one row gather and one row sum, over the senders or, with
+    ``sorted_dh``, over the sorted transpose list; ``da_src`` one
+    multiply-reduce over the saved rows."""
+
+    @staticmethod
+    def forward(ctx, aux, sm, h, score_dst, a_src, maxs, slope, sorted_dh):
+        num, den, nump, denp, y, pes, lp = _strag_core(
+            aux, sm, h, score_dst, a_src, maxs, slope)
+        ctx.aux, ctx.sorted_dh = aux, sorted_dh
+        ctx.dtypes = (h.dtype, score_dst.dtype)
+        ctx.save_for_backward(y, pes, lp, nump, denp, a_src)
+        return num, den
+
+    @staticmethod
+    def backward(ctx, dnum, dden):
+        aux = ctx.aux
+        hdt, sdt = ctx.dtypes
+        y, pes, lp, nump, denp, a_src = ctx.saved_tensors
+        f = y.shape[-1]
+        gaug = torch.cat([dnum, dden[:, None].to(dnum.dtype)], dim=1)
+        g_e = take_rows(gaug, aux.receivers)                # (E, F+1)
+        t_e = (g_e[:, :f].float() * y.float()).sum(-1) + g_e[:, f].float()
+        dpre = pes * lp * t_e                               # dL/dpre
+        dsdst = ((nump.float() * dnum.float()).sum(-1)
+                 + denp * dden.float())                     # node-local
+        da_src = dpre @ y.float()
+        dy = (pes[:, None].to(hdt) * g_e[:, :f].to(hdt)
+              + dpre[:, None].to(hdt) * a_src.to(hdt)[None, :])
+        if ctx.sorted_dh:
+            dh = segment_sum(take_rows(dy, aux.t_edge_perm), aux.t_receivers,
+                             aux.num_nodes)
+        else:
+            dh = segment_sum(dy, aux.senders, aux.num_nodes)
+        return (None, None, dh, dsdst.to(sdt), da_src.to(a_src.dtype), None,
+                None, None)
 
 
 def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
@@ -122,26 +246,41 @@ def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
     ``score_src``/``score_dst``: (N,) per-node attention projections;
     ``h``: (N, F) messages; ``att_src``: the (F,) attention vector, which
     derives the straggler sender scores from the gathered message rows.
-    Returns (N, F)."""
-    sw = switches()
+    Returns (N, F).  The branches are the JAX package's, predicate for
+    predicate."""
     if partials or src_score_bound is not None or extra_rowmax is not None:
         raise NotImplementedError(
             "tile_gat_attention: partials, src_score_bound and extra_rowmax "
             "serve the hierarchical distributed layer, not ported yet "
             "(ROADMAP.md §1 item 4)")
+    sw = switches()
     n = aux.num_nodes
     f = h.shape[-1]
     senders, receivers = aux.senders, aux.receivers
 
     # ---- straggler per-edge scores (receiver-sorted lists) ----------------
     sm = aux.weights > 0
+    sorted_bwd = aux.t_edge_perm is not None
     use_segmm_den = sw.segmm_den and aux.segmm is not None
     use_segmm = (aux.segmm is not None and f <= sw.segmm_max_f
                  and not use_segmm_den)
+    if (sw.fused_bwd and sw.global_max and att_src is not None and sorted_bwd
+            and not use_segmm and not use_segmm_den and not sw.sorted_num
+            and not sw.sorted_src and not sw.fused_tiles):
+        maxs = score_src.float().max().detach()
+        m = (score_dst.float() + maxs).clamp_min(0.0).detach()
+        num, den = _StragglerAttentionFused.apply(
+            aux, sm, h, score_dst, att_src, maxs, float(negative_slope),
+            sw.fused_sorted_dh)
+        return _finish_tiles(aux, score_src, score_dst, h, negative_slope, m,
+                             num, den, fused=False)
     y = None
-    if att_src is not None and not use_segmm and not use_segmm_den:
+    if (att_src is not None and not use_segmm and not use_segmm_den
+            and not (sorted_bwd and sw.sorted_num)):
         y = take_rows(h, senders)                   # reused by the numerator
         ssrc_e = y.float() @ att_src.float()
+    elif sorted_bwd and sw.sorted_src:
+        ssrc_e = _GatherSenders.apply(aux, score_src)
     else:
         ssrc_e = take_rows(score_src, senders)
     sdst_e = take_rows(score_dst, receivers)
@@ -168,6 +307,9 @@ def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
         num = segmm_weighted_spmm(aux.segmm, aux.t_segmm, senders, receivers,
                                   aux.t_edge_perm, pes, h)
         den = segment_sum(pes, receivers, n)
+    elif sorted_bwd and sw.sorted_num:
+        num = _WeightedSpmmSorted.apply(aux, pes, h)
+        den = segment_sum(pes, receivers, n)
     else:
         if y is None:
             y = take_rows(h, senders)
@@ -177,8 +319,29 @@ def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
                               n)
         num = num_aug[:, :f]
         den = num_aug[:, f].float()
+    return _finish_tiles(aux, score_src, score_dst, h, negative_slope, m,
+                         num, den, fused=fused)
 
-    # ---- the collapsed stragglers' summary rows ---------------------------
+
+def _finish_tiles(aux, score_src, score_dst, h, slope: float, m, num, den,
+                  fused: bool) -> torch.Tensor:
+    """Add the diagonal blocks', the cluster summaries' and the tiles'
+    contributions to the stragglers' ``(num, den)``, in the JAX package's
+    order, and normalize."""
+    n = aux.num_nodes
+    f = h.shape[-1]
+    if aux.diag_blocks is not None:
+        # the diagonal blocks' out rows are their block rows: one batched
+        # matmul over contiguous slabs, no gather and no scatter
+        b = aux.diag_blocks.shape[-1]
+        nb = n // b
+        e_d = _diag_scores(aux, score_src, score_dst, slope)
+        pe_d = torch.where(aux.diag_blocks > 0, torch.exp(
+            e_d - m.reshape(nb, b)[:, :, None]), 0.0)
+        num = num + torch.bmm(pe_d.to(h.dtype), h.reshape(nb, b, f)).reshape(
+            n, f).to(num.dtype)
+        den = den + pe_d.sum(2).reshape(n)
+
     if aux.cluster_count is not None:
         # duplicate edges from one cluster share the summary's score, so the
         # count multiplies the numerator.  The global-max bound needs no
@@ -188,18 +351,17 @@ def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
         c = n // aux.cluster_size
         member = aux.cluster_member.float()
         # masked BEFORE the exp, as the tiles are: every exponent stays ≤ 0
-        e_c = _cluster_scores(aux, score_src, score_dst, negative_slope)
+        e_c = _cluster_scores(aux, score_src, score_dst, slope)
         pe_c = torch.exp(e_c - m[:, None]) * cnt.float()
         hs = ((h.float() * member[:, None]).reshape(c, aux.cluster_size, f)
               .sum(1) * aux.cluster_scale[:, None]).to(h.dtype)  # (C, F)
         num = num + (pe_c.to(h.dtype) @ hs).to(num.dtype)
         den = den + pe_c.sum(1)
 
-    # ---- the tiles' contribution, then normalize ---------------------------
     bsr = aux.bsr
     if bsr is not None:
         tiles = att_tiles if fused else tiles_two_stage
-        num_t, den_t = tiles(negative_slope, bsr.rows, bsr.cols, aux.dyn_plan,
+        num_t, den_t = tiles(slope, bsr.rows, bsr.cols, aux.dyn_plan,
                              bsr.blocks, score_src.float(), score_dst.float(),
                              m, h)
         num = num + num_t.to(num.dtype)
@@ -210,10 +372,10 @@ def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
 
 def _exact_max(aux, es, score_src, score_dst, slope: float,
                fused: bool) -> torch.Tensor:
-    """The exact per-receiver max over straggler, tile and cluster-summary
-    scores, detached;
-    −1e30 where a row has no edge (never 0: a row whose every score sits
-    below −88 would underflow its denominator to 0)."""
+    """The exact per-receiver max over straggler, tile, diagonal-block and
+    cluster-summary scores, detached; −1e30 where a row has no edge (never
+    0: a row whose every score sits below −88 would underflow its
+    denominator to 0)."""
     bsr = aux.bsr
     with torch.no_grad():
         m = torch.full((aux.num_nodes,), _NEG, dtype=torch.float32,
@@ -227,12 +389,28 @@ def _exact_max(aux, es, score_src, score_dst, slope: float,
             m = torch.maximum(m, rowmax(bsr.rows, bsr.cols, aux.dyn_plan,
                                         bsr.blocks, score_src.float(),
                                         score_dst.float(), slope))
+        if aux.diag_blocks is not None:
+            # the diagonal blocks carry in-edges too: an interior node whose
+            # every edge is diagonal would otherwise exponentiate against
+            # −1e30
+            m = torch.maximum(m, _diag_scores(
+                aux, score_src, score_dst, slope).amax(2).reshape(-1))
         if aux.cluster_count is not None:
             # the summary rows carry in-edges too: a row whose every in-edge
             # collapsed would otherwise exponentiate against −1e30
             m = torch.maximum(m, _cluster_scores(
                 aux, score_src, score_dst, slope).max(dim=1).values)
     return m
+
+
+def _diag_scores(aux, score_src, score_dst, slope: float) -> torch.Tensor:
+    """(nb, b, b) scores of the diagonal blocks (block ``k`` holds receiver
+    ``k·b + i`` and sender ``k·b + j``), −1e30 where a block has no edge."""
+    nb, b, _ = aux.diag_blocks.shape
+    sd = score_dst.float().reshape(nb, b)
+    ss = score_src.float().reshape(nb, b)
+    return torch.where(aux.diag_blocks > 0, _leaky(
+        sd[:, :, None] + ss[:, None, :], slope), _NEG)
 
 
 def _cluster_src_scores(aux, score_src: torch.Tensor) -> torch.Tensor:

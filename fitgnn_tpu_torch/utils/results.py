@@ -28,6 +28,9 @@ INFERENCE_HEADER = (
     "extra_nodes,cluster_node,community_used,hidden,num_layers,"
     "num_test_samples,avg_inf_time,avg_loss,acc,avg_inf_time_device")
 
+MEMORY_HEADER = ("Dataset,Coarsening_Method,Coarsening_Ratio,Task,Type,"
+                 "Max_Memory_Usage_Graphs(MB)")
+
 
 def append_csv_row(path: str, header: str, row: str) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

@@ -117,13 +117,6 @@ def test_cuda_default_raises_without_gpu(toy):
               str(tmp_path / "dataset")])
 
 
-@pytest.mark.parametrize("command", [
-    ["memory"], ["stats"], ["save-graphs"]], ids=lambda c: "_".join(c))
-def test_unported_subcommands_raise(command):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main([*command, "--dataset", "toy", "--device", "cpu"])
-
-
 @pytest.fixture
 def toyg(tmp_path, monkeypatch):
     """24 graphs of ``random_graph_dataset`` as a ``toyg_graphs.npz``

@@ -2676,3 +2676,134 @@ def test_k5live_gat_two_stage_step_bit_equal(cuda):
         assert torch.equal(loss_o, loss)
         for k, v in grads.items():
             assert torch.isfinite(v).all() and torch.equal(grads_o[k], v), k
+
+
+# --- GAT's tile opt-ins (use_diag, tile_group, use_rowwalk) and switches ----
+
+# (edge, build_hybrid's opt-ins, bf16 mask, switches, the launches of one
+# step at hidden 64 by counter: at 128 → 64 layer 0 aggregates lin(x),
+# which needs dx, so every tile kernel runs twice)
+_GAT_OPTINS = {
+    "diag128": (128, dict(use_diag=True), False, {},
+                dict(K4=2, K4T=2, K5=2)),
+    "diag128-fused-exact": (128, dict(use_diag=True), False,
+                            {"FITGNN_GAT_FUSED_TILES": "1",
+                             "FITGNN_GAT_GLOBAL_MAX": "0"},
+                            dict(K7rm=2, K7f=2, K7bt=2, K7s=2, K7sums=2)),
+    "diag256-exact": (256, dict(use_diag=True), False,
+                      {"FITGNN_GAT_GLOBAL_MAX": "0"},
+                      dict(K4=2, K4T=2, K5=2)),
+    "diag256bf-fused": (256, dict(use_diag=True), True,
+                        {"FITGNN_GAT_FUSED_TILES": "1"},
+                        dict(K7f=2, K7bt=2, K7s=2, K7sums=2)),
+    "group128-fused": (128, dict(tile_group=2), False,
+                       {"FITGNN_GAT_FUSED_TILES": "1"},
+                       dict(K7f=2, K7bt=2, K7s=2, K7sums=2)),
+    "group256": (256, dict(tile_group=2), False, {},
+                 dict(K4=2, K4T=2, K5=2)),
+    "rowwalk128-fused": (128, dict(use_rowwalk=True), False,
+                         {"FITGNN_GAT_FUSED_TILES": "1"}, {})}
+
+
+def _gat_counts():
+    return dict(K4=dyn_tiles, K4T=dyn_tiles_t, K5=dyn_grad_blocks,
+                K7rm=att_bsr.att_rowmax, K7f=att_bsr.att_fwd,
+                K7bt=att_bsr.att_bwd_t, K7s=att_bsr.att_bwd_scores,
+                K7sums=att_bsr.att_sums)
+
+
+def _launches(counts):
+    return {k: fn.launches + getattr(fn, "launches_bf16", 0)
+            for k, fn in counts.items()}
+
+
+def _gat_optin_graph(rng, edge, kw, bf16):
+    """A 1,920-node graph (2,048 rows) on ``edge``-node communities, 70% of
+    the edges inside (dense diagonal tiles), 15% between communities 4k
+    and 4k + 1 (dense off-diagonal tiles, beside the diagonal blocks of
+    ``use_diag``; the other block rows hold one tile, so ``tile_group=2``
+    pads them), 15% anywhere (stragglers), with GAT's opt-in operator at
+    ``edge`` attached (presence weights)."""
+    from fitgnn_tpu_torch.graph.build import build_graph
+    n, feat, e = 1920, 128, 24_000
+    r = rng.integers(0, n, e)
+    u = rng.random(e)
+    own = r // edge
+    blk = np.where((u < 0.7) | (own % 4 != 0), own, own + 1)
+    s = np.where(u < 0.85, np.minimum(blk * edge + rng.integers(0, edge, e),
+                                      n - 1), rng.integers(0, n, e))
+    keep = s != r
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    y = rng.integers(0, 5, n)
+    g = build_graph(x, s[keep], r[keep], y=y, train_mask=rng.random(n) < .5,
+                    node_pad_to=256)
+    h = build_hybrid(g.senders.numpy(), g.receivers.numpy(),
+                     (g.edge_weight.numpy() > 0).astype(np.float32),
+                     g.num_nodes_padded, min_block_edges=edge, block=edge,
+                     use_segmm=True,
+                     tile_dtype=torch.bfloat16 if bf16 else None,
+                     semantics="att_unit", **kw)
+    assert h.bsr is not None and bool(
+        (h.bsr.rows != h.bsr.cols)[h.bsr.blocks.flatten(1).any(1)].any())
+    assert (h.dyn_plan is None) == bool(kw.get("use_rowwalk"))
+    return g._replace(aux=h)
+
+
+@pytest.mark.parametrize("case", list(_GAT_OPTINS))
+def test_gat_optin_training_on_card_matches_cpu(cuda, monkeypatch, case):
+    """One GAT training step (hidden 64, dropout off) on each of GAT's
+    opt-in operators: the diagonal blocks beside the off-diagonal tiles
+    (two-stage and fused, f32 and bf16 masks, both maxima), the
+    group-padded plan and the row walk (no plan: no tile kernel even under
+    ``FUSED_TILES=1``); kernels on the card against plain versions on the
+    CPU, each tile kernel launched twice."""
+    edge, kw, bf16, env, want = _GAT_OPTINS[case]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    g = _gat_optin_graph(np.random.default_rng(25), edge, kw, bf16)
+    model = NodeModel("GATConv", 128, 64, 2, 5, dropout_rate=0.0)
+    model.reset_parameters(torch.Generator().manual_seed(0)).train()
+    loss_c, grads_c = _grads(model, g, g.y, g.train_mask)
+    gd = g.to(cuda)
+    counts = _gat_counts()
+    before = _launches(counts)
+    loss_d, grads_d = _grads(model.to(cuda), gd, gd.y, gd.train_mask)
+    torch.cuda.synchronize()
+    after = _launches(counts)
+    assert {k: after[k] - before[k] for k in counts
+            if after[k] != before[k]} == want
+    _close(loss_d, loss_c)
+    for k, v in grads_c.items():
+        _close(grads_d[k], v)
+
+
+@pytest.mark.parametrize("env", [
+    {"FITGNN_GAT_FUSED_BWD": "1"},
+    {"FITGNN_GAT_FUSED_BWD": "1", "FITGNN_GAT_FUSED_SORTED_DH": "1"},
+    {"FITGNN_GAT_SORTED_NUM": "1", "FITGNN_GAT_SORTED_SRC": "1"}],
+    ids=["fused_bwd", "fused_bwd_sorted_dh", "sorted_num_src"])
+def test_gat_switches_on_card_match_cpu(cuda, monkeypatch, env):
+    """One GAT training step at hidden 256 (every aggregation above
+    ``SEGMM_MAXF``, so the switches take their branches) under each
+    diagnostic setting: the stragglers in PyTorch, the tiles through K4,
+    K4ᵀ and K5; on the card against the CPU."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    rng = np.random.default_rng(26)
+    n, feat = 1500, 128
+    s, r = _bench_like(rng)
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    y = rng.integers(0, 5, n)
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=rng.random(n) < .5,
+                                 min_block_edges=48, layer_name="GATConv")
+    model = NodeModel("GATConv", feat, 256, 2, 5, dropout_rate=0.0)
+    model.reset_parameters(torch.Generator().manual_seed(0)).train()
+    loss_c, grads_c = _grads(model, g, g.y, g.train_mask)
+    gd = g.to(cuda)
+    before = dyn_tiles.launches
+    loss_d, grads_d = _grads(model.to(cuda), gd, gd.y, gd.train_mask)
+    torch.cuda.synchronize()
+    assert dyn_tiles.launches == before + 2
+    _close(loss_d, loss_c)
+    for k, v in grads_c.items():
+        _close(grads_d[k], v)

@@ -11,8 +11,8 @@ gradients in ``h``, ``att_src`` through ``score_src``, and ``score_dst``)
 under ``GLOBAL_MAX`` 1 and 0; one GAT ``gc_train_step``; ``FUSED_TILES=1``
 at 256 against the two-stage path (the fused path's own tests against the
 JAX package are ``test_torch_port_fused_block.py``'s); and the refusals
-(the tile opt-ins under ``att_unit``, an edge off the multiples of 128 in
-K4, K4ᵀ and K5's wrappers).
+(the row walk under ``att_unit`` at 256, in both packages; an edge off the
+multiples of 128 in K4, K4ᵀ and K5's wrappers).
 The JAX Pallas kernels run in interpret mode (its attention tests never
 build ``att_unit`` at 256, so these call its functions directly); the
 port's wrappers take their plain versions because the tensors lie on the
@@ -372,15 +372,17 @@ def test_fused_tiles_at_256_raise_naming_the_roadmap(monkeypatch, case):
         close(got, ref.numpy(), grad=True)
 
 
-@pytest.mark.parametrize("kw", [dict(use_diag=True), dict(use_rowwalk=True),
-                                dict(tile_group=2)])
+@pytest.mark.parametrize("kw", [dict(use_rowwalk=True)])
 def test_att_unit_opt_ins_at_256_raise(kw):
-    """``use_diag``, ``use_rowwalk`` and ``tile_group > 1`` stay refused
-    under ``att_unit`` at 256, naming ROADMAP.md §1 item 3."""
+    """``use_rowwalk`` under ``att_unit`` stays at edge 128, in both
+    packages: at 256 both raise ``ValueError``.  (``use_diag`` and
+    ``tile_group > 1`` build at 256: ``tests/test_torch_port_gat_optins.py``
+    holds them against the JAX package.)"""
     s, r, w = att_coo(4)
-    with pytest.raises(NotImplementedError, match="§1 item 3"):
-        build_hybrid(s, r, w, N, min_block_edges=200, block=E,
-                     semantics="att_unit", **kw)
+    for build in (build_hybrid, jax_build_hybrid):
+        with pytest.raises(ValueError, match="rowwalk supports block=128"):
+            build(s, r, w, N, min_block_edges=200, block=E,
+                  semantics="att_unit", **kw)
 
 
 @pytest.mark.parametrize("kernel", ["K4", "K4T", "K5"])

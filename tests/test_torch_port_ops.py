@@ -238,15 +238,10 @@ def test_hybrid_without_tiles_matches_jax():
         np.asarray(jax_hybrid_spmm(hj, jnp.asarray(x))), **TOL)
 
 
-# the tile opt-ins of the GCN operator are ported (bf16 tiles and the
-# einsum layout too), and so are the cluster collapses; under GATConv's
-# att_unit semantics use_diag, use_rowwalk and tile_group > 1 still raise,
-# and so do tiles of another type
-@pytest.mark.parametrize("opt_in", [dict(use_diag=True, semantics="att_unit"),
-                                    dict(use_rowwalk=True,
-                                         semantics="att_unit"),
-                                    dict(tile_group=2, semantics="att_unit"),
-                                    dict(tile_dtype=torch.float16)])
+# the tile opt-ins are ported (bf16 tiles and the einsum layout too, and
+# under GATConv's att_unit semantics), and so are the cluster collapses;
+# tiles of another type still raise
+@pytest.mark.parametrize("opt_in", [dict(tile_dtype=torch.float16)])
 def test_hybrid_opt_ins_raise(opt_in):
     s, r, w = sorted_coo(np.random.default_rng(12), 256, 500)
     with pytest.raises(NotImplementedError):

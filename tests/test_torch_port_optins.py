@@ -337,19 +337,6 @@ def test_hybrid_without_transpose_runs_bsr_spmm():
     close(out, jax_hybrid_spmm(hj, jnp.asarray(x)))
 
 
-@pytest.mark.parametrize("kw", [dict(use_diag=True), dict(use_rowwalk=True),
-                                dict(tile_group=2)])
-def test_att_unit_refuses_tile_opt_ins(kw):
-    s, r, w = sorted_coo(np.random.default_rng(11), 512, 3000)
-    with pytest.raises(NotImplementedError, match="att_unit"):
-        build_hybrid(s, r, w, 512, min_block_edges=20, semantics="att_unit",
-                     **kw)
-    if "use_rowwalk" not in kw:     # build_optimized_graph has no rowwalk
-        x = np.zeros((512, 4), np.float32)
-        with pytest.raises(NotImplementedError, match="att_unit"):
-            build_optimized_graph(x, s, r, layer_name="GATConv", **kw)
-
-
 # --- K11 ------------------------------------------------------------------
 
 def test_philox_known_answers():
