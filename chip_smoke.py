@@ -310,10 +310,25 @@ Phases (any failure exits non-zero before the result lines):
    against the plain versions and the default step; and the step's ms on
    every operator and setting beside the edge-128 and phase 15's edge-256
    threshold-48 operators, two-stage, fused and under each switch;
-19. one JSON line with every kernel's numbers, the bf16 forms and the
+19. the hierarchical layer (``parallel/hierarchical.py``) in a one-rank
+   NCCL world, H = D = 1: the bench graph in phase 3's Leiden order,
+   ``shard_graph`` under each layer's semantics and ``build_hier_plan``
+   at its threshold of 150 (the interior's tiles and stragglers printed,
+   and the tiles it and the single-device operator do not share);
+   for GCN, SAGE, GIN and GAT at hidden 512 from the same seed-0
+   parameters, the ``HierNodeModel``'s eval forward, its eval loss and
+   metric and one ``hier_train_step``'s loss and gradients (dropout off)
+   on the kernels, held against the single-device ``NodeModel`` on its
+   operator at threshold 150 on the plain versions (no launch; GIN's
+   ReLU masks replayed, as in phase 10); the
+   step's and the eval's launches (K1 ×3 and K3 ×3 a
+   step, ×2 each an eval, for GCN, SAGE and GIN; none for GAT, whose
+   interior takes the einsum tile branch without a plan) and their ms
+   beside the single-device path's in the same call;
+20. one JSON line with every kernel's numbers, the bf16 forms and the
    forms at edge 256 (``K1@256``, ``K1bf@256``, ``K4@256``, ``K7f@256``,
    ...) as their own entries (launches summed over the main-path phases 5
-   to 18, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
+   to 19, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
    K7sums, and K1, K2, K9, K4, K4ᵀ (their walks of the live quadrants),
    K5, K7f, K7bt, K7s and K7sums at 256, with their ``ptxas`` register
    and spill counts), then the ``ok`` line.
@@ -2594,6 +2609,10 @@ class ReluMasks:
 
         def relu(z, inplace=False):
             m = next(it)
+            if m.shape[0] < z.shape[0]:
+                # recorded on fewer rows (phase 19's rank holds no padding
+                # rows): the rows past them keep their own signs
+                m = torch.cat([m, z.detach()[m.shape[0]:] > 0])
             diff = (z.detach() > 0) != m
             self.flips += int(diff.sum())
             self.z_max = max(self.z_max, float(z.detach().abs().max()))
@@ -5256,6 +5275,182 @@ def phase_gat_optins(device, g, ops15) -> dict:
     return phases
 
 
+# ---- phase 19: the hierarchical layer in a one-rank NCCL world -------------
+
+HIER_THRESHOLD = 150               # build_hier_plan's default threshold
+HIER_TIMED = 5
+# a hier step and eval at hidden 512 launch what the single-device ones do:
+# the same layers' dense work around the rank's interior operator (K1 and
+# K3 for GCN, SAGE and GIN); GAT's interior has no plan and launches none
+HIER_STEP = {"GCNConv": {"K1": 3, "K3": 3}, "SAGEConv": {"K1": 3, "K3": 3},
+             "GINConv": {"K1": 3, "K3": 3}, "GATConv": {}}
+HIER_EVAL = {"GCNConv": {"K1": 2, "K3": 2}, "SAGEConv": {"K1": 2, "K3": 2},
+             "GINConv": {"K1": 2, "K3": 2}, "GATConv": {}}
+
+
+def tiles_apart(hyb, ref_op) -> list:
+    """The (block row, block column) tiles that one operator holds and the
+    other does not, each tagged with the operator that holds it."""
+    def tiles(op):
+        if op.bsr is None:
+            return set()
+        return set(zip(op.bsr.rows.tolist(), op.bsr.cols.tolist()))
+    a, b = tiles(hyb), tiles(ref_op)
+    return ([("interior", *t) for t in sorted(a - b)]
+            + [("single-device", *t) for t in sorted(b - a)])
+
+
+def phase_hier(device, tmp, ds, g, order) -> dict:
+    """Phase 19 (see the module docstring): returns the launches of each
+    layer's counted hier step and eval."""
+    import torch.distributed as dist
+    from fitgnn_tpu_torch.graph.optimize import (_LAYER_SEMANTICS,
+                                                 _operator_weights)
+    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+    from fitgnn_tpu_torch.parallel import (HierNodeModel, build_hier_plan,
+                                           hier_eval_step, hier_train_step,
+                                           initialize_distributed,
+                                           make_hier_mesh, shard_graph)
+    from fitgnn_tpu_torch.train import steps
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    initialize_distributed(device, f"file://{tmp}/hier_store", 0, 1)
+    phases = {}
+    try:
+        mesh = make_hier_mesh(1, 1)
+        check(dist.get_backend() == "nccl", "phase 19 is not on NCCL")
+        s_np = g.senders.numpy().astype(np.int64)
+        r_np = g.receivers.numpy().astype(np.int64)
+        n_pad = g.num_nodes_padded
+        # phase 3's graph carries the train mask alone: the test rows in
+        # its order
+        ref_test = torch.zeros(n_pad, dtype=torch.bool)
+        ref_test[:NUM_NODES] = torch.from_numpy(ds.test_mask[order])
+        ref_test = ref_test.to(device)
+        for layer in ("GCNConv", "SAGEConv", "GINConv", "GATConv"):
+            sem = _LAYER_SEMANTICS[layer]
+            t0 = time.perf_counter()
+            sg = shard_graph(ds.x, ds.senders, ds.receivers, ds.y, 1,
+                             train_mask=ds.train_mask, val_mask=ds.val_mask,
+                             test_mask=ds.test_mask, order=order,
+                             semantics=sem)
+            n_loc = sg.nodes_per_shard
+            plan = build_hier_plan(sg.senders, sg.receivers, sg.edge_weight,
+                                   1, 1, n_loc, np.arange(n_loc) // 128,
+                                   interior_semantics=sem)
+            rp = plan.local(mesh, device)
+            ref_op = build_hybrid(
+                s_np, r_np, _operator_weights(s_np, r_np,
+                                              g.edge_weight.numpy(), n_pad,
+                                              sem), n_pad,
+                min_block_edges=HIER_THRESHOLD, use_segmm=True,
+                semantics=sem, real_nodes=NUM_NODES)
+            gd = g._replace(aux=ref_op).to(device)
+            hyb = rp.int_hybrid
+            print(f"hier {layer}: plan and operators in "
+                  f"{time.perf_counter() - t0:.1f} s host; interior "
+                  f"{0 if hyb.bsr is None else hyb.bsr.nnz_blocks} tiles, "
+                  f"{hyb.num_coo_edges} stragglers (single-device "
+                  f"operator at {HIER_THRESHOLD}: "
+                  f"{0 if ref_op.bsr is None else ref_op.bsr.nnz_blocks} "
+                  f"tiles, {ref_op.num_coo_edges} stragglers); halo and "
+                  f"summary edges {int((plan.halo_weights != 0).sum())} / "
+                  f"{int((plan.sum_weights != 0).sum())}")
+            check(n_loc == NUM_NODES and hyb.dyn_plan is None,
+                  f"hier {layer}: unexpected shard or interior")
+            print(f"hier {layer}: tiles apart from the interior's "
+                  f"{tiles_apart(hyb, ref_op)} (single-device operator's "
+                  f"rows over n_pad {n_pad} of {NUM_NODES} real)")
+            shard = sg.local(0, device)
+
+            def models():
+                ref = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                                dropout_rate=0.0)
+                ref.reset_parameters(torch.Generator().manual_seed(0))
+                hier = HierNodeModel(layer, NUM_FEATURES, HIDDEN, 2,
+                                     NUM_CLASSES, dropout_rate=0.0)
+                hier.load_state_dict(ref.state_dict())
+                return ref.to(device), hier.to(device)
+
+            ref, hier = models()
+            ref.eval()
+            hier.eval()
+            # the single-device reference runs on the plain versions, so
+            # the hier path's K1 and K3 are held against bsr_spmm_acc_plain
+            # and segmm_spmm_plain on its own operator, forward and back
+            reset_counts()
+            with torch.no_grad(), plain_versions():
+                r_out = ref(gd.x, gd)[:NUM_NODES]
+                r_loss, r_metric = steps.gc_eval_step(
+                    ref, gd, gd.y, ref_test, "classification")
+            torch.cuda.synchronize()
+            expect(read_counts(), {}, f"hier {layer} plain eval reference")
+            with torch.no_grad():
+                compare(f"hier {layer} eval forward", hier(shard.x, rp),
+                        r_out)
+            reset_counts()
+            loss, metric = hier_eval_step(hier, shard.x, shard.y,
+                                          shard.test_mask, rp,
+                                          "classification")
+            torch.cuda.synchronize()
+            launches = read_counts()
+            expect(launches, HIER_EVAL[layer], f"hier {layer} eval")
+            phases[f"hier {layer} eval"] = launches
+            compare(f"hier {layer} eval (loss, metric)",
+                    torch.stack([loss, metric]).float(),
+                    torch.stack([r_loss, r_metric]).float())
+            opt_h = steps.adam_l2(hier.parameters(), 0.01, 5e-4)
+            opt_r = steps.adam_l2(ref.parameters(), 0.01, 5e-4)
+            relus = ReluMasks()     # GIN's kinks, as phase 10's
+            reset_counts()
+            with relus.record():
+                loss = hier_train_step(hier, opt_h, shard.x, shard.y,
+                                       shard.train_mask, rp, None,
+                                       "classification")
+            torch.cuda.synchronize()
+            launches = read_counts()
+            expect(launches, HIER_STEP[layer], f"hier {layer} train step")
+            phases[f"hier {layer} step"] = launches
+            reset_counts()
+            with plain_versions(), relus.replay():
+                r_loss = steps.gc_train_step(ref, opt_r, gd, gd.y,
+                                             gd.train_mask, None,
+                                             "classification")
+            torch.cuda.synchronize()
+            expect(read_counts(), {}, f"hier {layer} plain step reference")
+            relus.report(f"hier {layer} step, plain reference")
+            compare(f"hier {layer} step loss", loss.reshape(1),
+                    r_loss.reshape(1))
+            r_grads = dict(ref.named_parameters())
+            for k, p in hier.named_parameters():
+                compare(f"hier {layer} grad {k}", p.grad, r_grads[k].grad)
+
+            times = {
+                "hier step": cuda_ms(lambda: hier_train_step(
+                    hier, opt_h, shard.x, shard.y, shard.train_mask, rp,
+                    None, "classification"), HIER_TIMED),
+                "single-device step": cuda_ms(lambda: steps.gc_train_step(
+                    ref, opt_r, gd, gd.y, gd.train_mask, None,
+                    "classification"), HIER_TIMED),
+                "hier eval": cuda_ms(lambda: hier_eval_step(
+                    hier, shard.x, shard.y, shard.test_mask, rp,
+                    "classification"), HIER_TIMED),
+                "single-device eval": cuda_ms(lambda: steps.gc_eval_step(
+                    ref, gd, gd.y, ref_test, "classification"),
+                    HIER_TIMED)}
+            print(f"hier {layer} ms (CUDA events over {HIER_TIMED}, "
+                  f"hidden {HIDDEN}, {smi}): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+            del hier, ref, opt_h, opt_r, gd, rp, plan, sg, shard, ref_op
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return phases
+
+
 def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     """One kernel's line: times and bounds summed over the shapes one step
     or forward launches it at (those not marked ``on_path: False``); errors
@@ -5537,7 +5732,10 @@ def main() -> int:
         shapes.update(phase_gat_fused_block_kernels(device, ops))
         phases.update(phase_gat_fused_block_steps(device, g, ops))
         phases.update(phase_gat_optins(device, g, ops))
-        del ops, g
+        del ops
+        torch.cuda.empty_cache()
+        phases.update(phase_hier(device, tmp, ds, g, order))
+        del g
         torch.cuda.empty_cache()
 
     kernels_line = {"kernels": [

@@ -14,6 +14,12 @@ curriculum: coarsening, partition, the three Gc/Gs setups in GD and MB),
 ``train`` saved), ``train --baseline`` (full-batch training, with layer-0
 pre-aggregation under ``--preaggregate`` for GCN, SAGE and GIN) and
 ``infer-baseline`` (the full-graph inference-latency baseline).
+``train --baseline --num_devices P --num_hosts H`` trains the full graph
+sharded over P ranks through the hierarchical exchange
+(``parallel/hierarchical.py``): the CLI starts the P ranks itself
+(``torch.multiprocessing``), or runs as one of them under a ``torchrun``
+world of size P; ``--device cuda`` takes card ``r`` for rank ``r`` over
+NCCL, ``--device cpu`` runs the ranks on the CPU over gloo.
 ``train --hybrid_bf16_tiles`` stores the hybrid operator's tiles in bf16
 on ``--baseline`` and in the curriculum's Gc phase; ``infer`` and
 ``infer-baseline`` take no such flag, as in the JAX package.  ``train
@@ -69,7 +75,8 @@ GRAPH_TASKS = ("graph_cls", "graph_reg")
 # the baseline ignores --bucket_sizes, --eval_chunk and --fused_epochs, and
 # the curriculum --preaggregate, as the JAX package's do
 _TRAIN_NOT_PORTED = (
-    ("--num_devices > 1", lambda a: a.num_devices > 1,
+    ("--num_devices > 1 without --baseline (the distributed curriculum)",
+     lambda a: a.num_devices > 1 and not a.baseline,
      "ROADMAP.md §1 item 4 (distributed paths)"),
 )
 
@@ -605,6 +612,8 @@ def cmd_train_baseline(args) -> int:
     from fitgnn_tpu_torch.utils import results as R
     from fitgnn_tpu_torch.utils.device import resolve_device
 
+    if args.num_devices > 1:
+        return _cmd_train_baseline_dist(args)
     device = resolve_device(args.device)
     ds = _load_node(args)
     _apply_auto_config(args, ds.num_nodes)
@@ -706,6 +715,209 @@ def cmd_train_baseline(args) -> int:
     R.append_csv_row(f"results/baseline/{args.dataset}.csv", header, row)
     print(f"results/baseline/{args.dataset}.csv <- {row}")
     return 0
+
+
+def _cmd_train_baseline_dist(args) -> int:
+    """Full-graph baseline training sharded over a (num_hosts × chips) mesh
+    of ``--num_devices`` ranks, as the JAX package's
+    ``_cmd_train_baseline_dist``: the refusals here, then the P ranks
+    (``_baseline_dist_rank``), started with ``torch.multiprocessing`` or,
+    under a ``torchrun`` world of size P, this process being one of them.
+    ``--device cuda`` needs P cards and never runs on the CPU."""
+    from fitgnn_tpu_torch.parallel import LAYER_SEMANTICS, chips_per_host
+
+    P = args.num_devices
+    try:
+        chips_per_host(P, args.num_hosts)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if args.device == "cuda":
+        import torch
+        found = torch.cuda.device_count()
+        if found < P:
+            raise SystemExit(f"num_devices={P} but only {found} CUDA "
+                             f"devices (--device cpu runs the {P} ranks on "
+                             "the CPU over gloo)")
+    if args.layer_name not in LAYER_SEMANTICS:
+        raise SystemExit(f"unknown --layer_name {args.layer_name}")
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        # one rank of a torchrun world (env:// rendezvous)
+        if int(os.environ["WORLD_SIZE"]) != P:
+            raise SystemExit(f"--num_devices {P} but the torchrun world "
+                             f"has {os.environ['WORLD_SIZE']} ranks")
+        _baseline_dist_rank(int(os.environ["RANK"]), args, None)
+        return 0
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_baseline_dist_rank, args=(args, f"file://{tmp}/store"),
+                 nprocs=P, join=True)
+    return 0
+
+
+def _baseline_dist_rank(rank: int, args, init_method) -> None:
+    """One rank of ``train --baseline --num_devices P``: every rank makes
+    the host-side plan as the JAX package makes it (Leiden on the full
+    graph, community placement, ``shard_graph`` under the layer's
+    semantics, clusters made shard-local, ``build_hier_plan`` at its
+    default threshold of 150) and builds its own interior operator; per run
+    the parameters from ``seed + run`` (the same on every rank), the epochs
+    with best-val tracking, a warm-up and a timed test eval.  Rank 0 prints,
+    saves the best parameters of all runs to
+    ``save/<task>/baseline/<output_dir>/model.pt`` (a ``NodeModel`` state
+    dict) and appends the ``baseline_dist_{H}x{D}`` row."""
+    import contextlib
+    import torch
+    import torch.distributed as dist
+    from fitgnn_tpu_torch.parallel import initialize_distributed
+    from fitgnn_tpu_torch.utils.device import resolve_device
+
+    P, H = args.num_devices, args.num_hosts
+    D = P // H
+    if args.device == "cuda":
+        device = resolve_device(
+            f"cuda:{int(os.environ.get('LOCAL_RANK', rank))}")
+    else:
+        device = resolve_device("cpu")
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // P))
+    initialize_distributed(device, init_method,
+                           rank if init_method else None,
+                           P if init_method else None)
+    quiet = (contextlib.redirect_stdout(open(os.devnull, "w")) if rank
+             else contextlib.nullcontext())
+    try:
+        with quiet:
+            _baseline_dist_run(args, rank, device, P, H, D)
+    finally:
+        dist.destroy_process_group()
+
+
+def _baseline_dist_run(args, rank, device, P, H, D) -> None:
+    """The body of ``_baseline_dist_rank`` in its process group."""
+    import torch
+    from fitgnn_tpu_torch.parallel import (LAYER_SEMANTICS, HierNodeModel,
+                                           build_hier_plan, hier_eval_step,
+                                           hier_train_step,
+                                           init_hier_params,
+                                           make_hier_mesh,
+                                           placement_by_community,
+                                           shard_graph)
+    from fitgnn_tpu_torch.parallel.collectives import all_reduce_sum
+    from fitgnn_tpu_torch.partition.community import leiden_communities
+    from fitgnn_tpu_torch.train.checkpoint import save_params
+    from fitgnn_tpu_torch.train.steps import adam_l2
+    from fitgnn_tpu_torch.utils import results as R
+
+    ds = _load_node(args)
+    _apply_auto_config(args, ds.num_nodes)
+    classify = args.task == "node_cls"
+    num_classes = ds.num_classes if classify else None
+    train, val, test = _splits(args, ds, num_classes)
+    labels = leiden_communities(ds.senders, ds.receivers, ds.num_nodes,
+                                seed=args.seed)
+    order, _ = placement_by_community(labels, P)
+    semantics = LAYER_SEMANTICS[args.layer_name]
+    sg = shard_graph(ds.x, ds.senders, ds.receivers, np.asarray(ds.y), P,
+                     train_mask=train, val_mask=val, test_mask=test,
+                     order=order, semantics=semantics)
+    # clusters = communities made shard-local: shard_graph slices uniform
+    # n_loc blocks that need not align with the placement, so a community
+    # straddling a slice boundary is split at it; padding nodes get an
+    # inert cluster of each shard
+    n_loc = sg.nodes_per_shard
+    n_pad_total = sg.num_nodes_global
+    lab_ordered = np.concatenate(
+        [labels[order], np.full(n_pad_total - len(order),
+                                labels.max() + 1, dtype=np.int64)])
+    shard_idx = np.arange(n_pad_total) // n_loc
+    pair = shard_idx * (int(lab_ordered.max()) + 2) + lab_ordered
+    _, cluster_of = np.unique(pair, return_inverse=True)
+    plan = build_hier_plan(sg.senders, sg.receivers, sg.edge_weight, H, D,
+                           n_loc, cluster_of, interior_hybrid=True,
+                           interior_semantics=semantics)
+    mesh = make_hier_mesh(H, D)
+    rp = plan.local(mesh, device)
+    # every rank's interior split, printed by rank 0 (tiles, stragglers)
+    split = torch.zeros((P, 2), dtype=torch.int64, device=device)
+    hyb = rp.int_hybrid
+    split[rank, 0] = 0 if hyb.bsr is None else hyb.bsr.nnz_blocks
+    split[rank, 1] = hyb.num_coo_edges
+    split = all_reduce_sum(split).tolist()
+    print(f"hier interior operators ({H}x{D} mesh, threshold "
+          f"{plan.interior['min_block_edges']}): "
+          + ", ".join(f"rank {p} {t} dense tiles / {e} straggler edges"
+                      for p, (t, e) in enumerate(split)))
+    shard = sg.local(rank, device)
+    task = "classification" if classify else "regression"
+    x, y = shard.x, shard.y
+
+    all_acc, all_loss, all_time = [], [], []
+    overall_best = (np.inf, None)
+    for run in range(args.runs):
+        seed = args.seed + run
+        model = HierNodeModel(args.layer_name, in_dim=ds.x.shape[1],
+                              hidden=args.hidden,
+                              num_layers=args.num_layers1,
+                              out_dim=num_classes if classify else 1,
+                              classify=classify)
+        model = init_hier_params(model, seed).to(device)
+        opt = adam_l2(model.parameters(), args.lr, args.weight_decay)
+        gen = torch.Generator(device=device).manual_seed(seed)
+
+        def snapshot():
+            return {k: v.detach().clone()
+                    for k, v in model.state_dict().items()}
+
+        best_val, best_state = np.inf, snapshot()
+        for epoch in range(args.epochs1):
+            hier_train_step(model, opt, x, y, shard.train_mask, rp, gen,
+                            task)
+            val_loss, _ = hier_eval_step(model, x, y, shard.val_mask, rp,
+                                         task)
+            if float(val_loss) < best_val or epoch == 0:
+                best_val, best_state = float(val_loss), snapshot()
+        model.load_state_dict(best_state)
+        hier_eval_step(model, x, y, shard.test_mask, rp, task)   # warm-up
+        t0 = time.perf_counter()
+        test_loss, test_acc = hier_eval_step(model, x, y, shard.test_mask,
+                                             rp, task)
+        test_loss, test_acc = float(test_loss), float(test_acc)
+        all_time.append(time.perf_counter() - t0)
+        all_acc.append(test_acc)
+        all_loss.append(test_loss)
+        if best_val < overall_best[0] or overall_best[1] is None:
+            overall_best = (best_val, best_state)
+        print(f"distributed baseline run {run} ({H}x{D} mesh, "
+              f"{args.layer_name}): test_loss={test_loss:.4f} "
+              f"acc={test_acc:.4f}")
+    if rank:
+        return
+    ckpt = checkpoint_path(args.task, args.output_dir, baseline=True)
+    save_params(ckpt, overall_best[1])
+    print(f"checkpoint saved: {ckpt}")
+
+    acc, loss = np.asarray(all_acc), np.asarray(all_loss)
+    top_acc = np.sort(acc)[::-1][:10]
+    # regression: ``acc`` holds the std-normalized L1, the value recorded
+    # as the regression loss
+    top_loss = np.sort(loss if classify else acc)[:10]
+    header = R.TRAIN_NODE_CLS_HEADER if classify else R.TRAIN_NODE_REG_HEADER
+    row = R.format_row(header, {
+        "dataset": args.dataset, "coarsening_method": "none",
+        "coarsening_ratio": "", "experiment": args.experiment,
+        "exp_setup": f"baseline_dist_{H}x{D}", "layer_name": args.layer_name,
+        "extra_nodes": False, "cluster_node": H > 1,
+        "community_used": True, "hidden": args.hidden, "runs": args.runs,
+        "num_layers": args.num_layers1, "batch_size": args.batch_size,
+        "lr": args.lr, "ave_acc": f"{acc.mean()} +/- {acc.std()}",
+        "ave_time": float(np.mean(all_time)),
+        "top_10_acc": f"{top_acc.mean()} +/- {top_acc.std()}",
+        "best_acc": float(top_acc[0]),
+        "top_10_loss": f"{top_loss.mean()} +/- {top_loss.std()}",
+        "best_loss": float(top_loss[0])})
+    R.append_csv_row(f"results/baseline/{args.dataset}.csv", header, row)
+    print(f"results/baseline/{args.dataset}.csv <- {row}")
 
 
 def cmd_train(args) -> int:

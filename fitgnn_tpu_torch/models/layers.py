@@ -20,6 +20,13 @@
 Every layer also takes a stack of same-padded subgraphs (``x`` (S, N, F),
 a ``Graph`` whose tensors have the subgraph axis in front), as the JAX
 package's ``jax.vmap`` over a ``SubgraphBatch`` runs them.
+
+``forward(x, g)`` picks the aggregation from the graph and hands it to
+``propagate(x, agg)``, which holds the layer's dense work and its choice
+of the narrow side.  The hierarchical layer (``parallel/hierarchical.py``)
+calls ``propagate`` with its own aggregation: ``agg(h)`` for GCN, SAGE and
+GIN, ``agg(h, a_src, a_dst)`` (the attention vectors of ``h``'s width) for
+GAT.
 """
 
 from __future__ import annotations
@@ -76,6 +83,9 @@ class GCNConv(nn.Module):
             def agg(h):
                 return spmm_coo(g.edge_weight, g.senders, g.receivers, h,
                                 g.num_nodes_padded)
+        return self.propagate(x, agg)
+
+    def propagate(self, x: torch.Tensor, agg) -> torch.Tensor:
         # Â(X·W) = (Â·X)·W — aggregate on the NARROW side of the layer: the
         # SpMM's traffic scales with the aggregated width, so an expanding
         # layer aggregates its input and a contracting one its output
@@ -111,7 +121,13 @@ class GATConv(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
-        n, f_in, c = g.num_nodes_padded, x.shape[-1], self.features
+        return self.propagate(
+            x, lambda h, a_s, a_d: self._attend(h, a_s, a_d, g))
+
+    def propagate(self, x: torch.Tensor, attend) -> torch.Tensor:
+        """``attend(h, a_src, a_dst)``: the attention aggregation of the
+        messages ``h`` under the (F,) attention vectors of their width."""
+        f_in, c = x.shape[-1], self.features
         a_src, a_dst = self.att_src[0], self.att_dst[0]
         # aggregate on the NARROW side of an expanding layer (exact, since
         # the attention weight is a per-edge scalar): Σ α·(X·W)[s] =
@@ -120,34 +136,33 @@ class GATConv(nn.Module):
         narrow = f_in < c
         if narrow:
             w = self.lin.weight                       # (C, F_in)
-            v_src, v_dst = a_src @ w, a_dst @ w       # (F_in,)
-            score_src, score_dst = x @ v_src, x @ v_dst
-            h = x
+            out = self.lin(attend(x, a_src @ w, a_dst @ w))   # (Σ α·x)·W
         else:
-            h = self.lin(x)
-            score_src, score_dst = h @ a_src, h @ a_dst
+            out = attend(self.lin(x), a_src, a_dst)
+        return out + self.bias
+
+    def _attend(self, h, a_src, a_dst, g: Graph) -> torch.Tensor:
+        n = g.num_nodes_padded
+        score_src, score_dst = h @ a_src, h @ a_dst
         if isinstance(g.aux, HybridSpmm) and g.aux.semantics == "att_unit":
             out = tile_gat_attention(g.aux, score_src, score_dst, h,
-                                     self.negative_slope,
-                                     att_src=v_src if narrow else a_src)
+                                     self.negative_slope, att_src=a_src)
         elif use_dense(n):
             out = self._dense(score_src, score_dst, h, g)
-        elif x.dim() == 3:
+        elif h.dim() == 3:
             # a stack of large subgraphs: the per-edge path over the
             # flattened node rows
             s, r = flat_edges(g.senders, g.receivers, n)
-            rows = x.shape[0] * n
+            rows = h.shape[0] * n
             out = self._per_edge(score_src.reshape(-1),
                                  score_dst.reshape(-1),
                                  h.reshape(rows, -1), s, r,
                                  g.edge_mask.reshape(-1), rows)
-            out = out.reshape(x.shape[0], n, -1)
+            out = out.reshape(h.shape[0], n, -1)
         else:
             out = self._per_edge(score_src, score_dst, h, g.senders,
                                  g.receivers, g.edge_mask, n)
-        if narrow:
-            out = self.lin(out)                       # (Σ α·x)·W
-        return out + self.bias
+        return out
 
     def _per_edge(self, score_src, score_dst, h, senders, receivers,
                   edge_mask, n) -> torch.Tensor:
@@ -245,7 +260,9 @@ class SAGEConv(nn.Module):
                           generator)
 
     def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
-        agg = sage_aggregator(g, x.dtype)
+        return self.propagate(x, sage_aggregator(g, x.dtype))
+
+    def propagate(self, x: torch.Tensor, agg) -> torch.Tensor:
         if self.features <= x.shape[-1]:
             # aggregate on the narrow side: mean(x)·W + b = mean(x·W) + b,
             # the bias added after the mean, so a node without neighbours
@@ -276,7 +293,9 @@ class GINConv(nn.Module):
                 lin.bias.zero_()
 
     def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
-        agg = gin_aggregator(g, x.dtype)
+        return self.propagate(x, gin_aggregator(g, x.dtype))
+
+    def propagate(self, x: torch.Tensor, agg) -> torch.Tensor:
         if self.features <= x.shape[-1]:
             # aggregate on the narrow side: W₀((1+ε)x + Σx) + b₀
             # = (1+ε)(x·W₀) + Σ(x·W₀) + b₀

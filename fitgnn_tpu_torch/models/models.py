@@ -127,14 +127,19 @@ class ConvStack(nn.Module):
                                  rate)
         return dropout(x, rate, generator, bit=False)
 
-    def forward(self, x: torch.Tensor, g: Graph,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, g: Optional[Graph],
+                generator: Optional[torch.Generator] = None,
+                agg_for=None) -> torch.Tensor:
+        """``agg_for(layer)``, when given, is the aggregation each layer's
+        ``propagate`` runs instead of the one ``g`` picks (the hierarchical
+        exchange's); ``g`` is then unused."""
         drop = self.training and self.dropout_rate > 0.0
         if drop and generator is None:
             raise ValueError("ConvStack: train-mode dropout needs an explicit "
                              "torch.Generator")
         for layer in self.layers:
-            x = F.elu(layer(x, g))
+            x = F.elu(layer(x, g) if agg_for is None
+                      else layer.propagate(x, agg_for(layer)))
             if drop:
                 x = self._dropout(x, generator)
         return x
@@ -163,11 +168,13 @@ class NodeModel(nn.Module):
             self.head.bias.zero_()
         return self
 
-    def forward(self, x: torch.Tensor, g: Graph,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, g: Optional[Graph],
+                generator: Optional[torch.Generator] = None,
+                agg_for=None) -> torch.Tensor:
         """Log-probs (classification) or the raw scalar; ``generator``
-        drives the dropout masks in train mode."""
-        out = self.head(self.convs(x, g, generator))
+        drives the dropout masks in train mode, ``agg_for`` as
+        ``ConvStack.forward``'s."""
+        out = self.head(self.convs(x, g, generator, agg_for))
         if self.classify:
             return F.log_softmax(out.float(), dim=-1)
         return out.float()

@@ -142,7 +142,8 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                  cluster_att_exact: int = 0,
                  cluster_agg: int = 0,
                  cluster_agg_exact: int = 0,
-                 real_nodes: Optional[int] = None) -> HybridSpmm:
+                 real_nodes: Optional[int] = None,
+                 build_dyn: bool = True) -> HybridSpmm:
     """Split edges by tile occupancy and build both structures (host-side),
     as the JAX package's ``build_hybrid`` does, with its ``block`` (the tile
     edge E, a multiple of 128: the tiles, the diagonal blocks and every
@@ -162,7 +163,10 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
 
     Under ``att_unit`` the dynamic-tile plan is built where the JAX
     package builds it: on a BCSR in neither the row-walk nor the einsum
-    layout (the grid-walk list, or its group-padded form)."""
+    layout (the grid-walk list, or its group-padded form), unless
+    ``build_dyn`` is False (the hierarchical layer's rank-local interior,
+    as the JAX package's ``_stack_shard_hybrids`` builds it): then there is
+    no plan, and GAT's tiles take ``ops/tile_gat.py``'s einsum branch."""
     check_tile_dtype(tile_dtype)
     check_block(block)
     if num_nodes_padded % block:
@@ -230,8 +234,8 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                               num_nodes_padded)
 
     dyn_plan = None
-    if (semantics == "att_unit" and bsr is not None and not bsr.rowwalk
-            and not bsr.einsum):
+    if (build_dyn and semantics == "att_unit" and bsr is not None
+            and not bsr.rowwalk and not bsr.einsum):
         # the grid-walk tile order: rows sorted with coverage fillers (and
         # group pads), whose zero masks give zero attention tiles (the row
         # walk and einsum layouts have none); above 128 the mask's

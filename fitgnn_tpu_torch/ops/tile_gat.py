@@ -52,8 +52,12 @@ its tiles take the einsum branch; and the diagonal blocks (``use_diag``),
 attended to by one batched matmul over contiguous slabs after the
 stragglers (masked before the exp; the exact max folds in their row
 maxima), while the tiles, two-stage or fused, hold the off-diagonal
-blocks.  The ``partials``, ``src_score_bound`` and ``extra_rowmax``
-arguments serve the distributed layer and raise ``NotImplementedError``.
+blocks.  The hierarchical layer (``parallel/hierarchical.py``) folds
+edges this operator does not see into the same softmax: ``partials``
+returns ``(num, den, m)`` before the normalization (and keeps the
+``FUSED_BWD`` branch off, as the JAX package does), ``src_score_bound``
+replaces ``max(score_src)`` in the global-max bound and ``extra_rowmax``
+is folded into the exact max.
 
 With the cluster collapse (``build_hybrid(cluster_att=K)``) each collapsed
 straggler edge attends to its sender's cluster-summary row: the summary's
@@ -247,12 +251,15 @@ def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
     ``h``: (N, F) messages; ``att_src``: the (F,) attention vector, which
     derives the straggler sender scores from the gathered message rows.
     Returns (N, F).  The branches are the JAX package's, predicate for
-    predicate."""
-    if partials or src_score_bound is not None or extra_rowmax is not None:
-        raise NotImplementedError(
-            "tile_gat_attention: partials, src_score_bound and extra_rowmax "
-            "serve the hierarchical distributed layer, not ported yet "
-            "(ROADMAP.md §1 item 4)")
+    predicate.
+
+    ``partials=True`` returns ``(num, den, m)`` before the normalization,
+    so that a caller can add edges this operator does not see (the
+    hierarchical layer's halo and summary edges) to the same softmax.  The
+    stabilizer must then bound those edges' scores too:
+    ``src_score_bound`` replaces ``max(score_src)`` in the global-max bound
+    (the caller passes the max over every sender table), and
+    ``extra_rowmax`` (N,) is folded into the exact max."""
     sw = switches()
     n = aux.num_nodes
     f = h.shape[-1]
@@ -266,7 +273,7 @@ def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
                  and not use_segmm_den)
     if (sw.fused_bwd and sw.global_max and att_src is not None and sorted_bwd
             and not use_segmm and not use_segmm_den and not sw.sorted_num
-            and not sw.sorted_src and not sw.fused_tiles):
+            and not sw.sorted_src and not sw.fused_tiles and not partials):
         maxs = score_src.float().max().detach()
         m = (score_dst.float() + maxs).clamp_min(0.0).detach()
         num, den = _StragglerAttentionFused.apply(
@@ -291,11 +298,14 @@ def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
     if sw.global_max:
         # LeakyReLU(sdst[r] + ssrc[s]) ≤ max(0, sdst[r] + max ssrc), one
         # reduction over all rows
-        maxs = score_src.float().max().detach()
+        maxs = (score_src.float().max() if src_score_bound is None else
+                torch.as_tensor(src_score_bound, dtype=torch.float32,
+                                device=score_src.device)).detach()
         m = (score_dst.float() + maxs).clamp_min(0.0).detach()
         m_e = (sdst_e.float() + maxs).clamp_min(0.0).detach()
     else:
-        m = _exact_max(aux, es, score_src, score_dst, negative_slope, fused)
+        m = _exact_max(aux, es, score_src, score_dst, negative_slope, fused,
+                       extra_rowmax)
         m_e = take_rows(m, receivers)
 
     # ---- straggler numerator and denominator ------------------------------
@@ -320,14 +330,15 @@ def tile_gat_attention(aux, score_src: torch.Tensor, score_dst: torch.Tensor,
         num = num_aug[:, :f]
         den = num_aug[:, f].float()
     return _finish_tiles(aux, score_src, score_dst, h, negative_slope, m,
-                         num, den, fused=fused)
+                         num, den, fused=fused, partials=partials)
 
 
 def _finish_tiles(aux, score_src, score_dst, h, slope: float, m, num, den,
-                  fused: bool) -> torch.Tensor:
+                  fused: bool, partials: bool = False):
     """Add the diagonal blocks', the cluster summaries' and the tiles'
     contributions to the stragglers' ``(num, den)``, in the JAX package's
-    order, and normalize."""
+    order, and normalize (with ``partials``, return ``(num, den, m)``
+    instead)."""
     n = aux.num_nodes
     f = h.shape[-1]
     if aux.diag_blocks is not None:
@@ -366,16 +377,18 @@ def _finish_tiles(aux, score_src, score_dst, h, slope: float, m, num, den,
                              m, h)
         num = num + num_t.to(num.dtype)
         den = den + den_t
+    if partials:
+        return num, den, m
     den = den.clamp_min(1e-16).to(h.dtype)
     return num / den[:, None]
 
 
 def _exact_max(aux, es, score_src, score_dst, slope: float,
-               fused: bool) -> torch.Tensor:
+               fused: bool, extra_rowmax=None) -> torch.Tensor:
     """The exact per-receiver max over straggler, tile, diagonal-block and
-    cluster-summary scores, detached; −1e30 where a row has no edge (never
-    0: a row whose every score sits below −88 would underflow its
-    denominator to 0)."""
+    cluster-summary scores and ``extra_rowmax``, detached; −1e30 where a
+    row has no edge (never 0: a row whose every score sits below −88 would
+    underflow its denominator to 0)."""
     bsr = aux.bsr
     with torch.no_grad():
         m = torch.full((aux.num_nodes,), _NEG, dtype=torch.float32,
@@ -400,6 +413,10 @@ def _exact_max(aux, es, score_src, score_dst, slope: float,
             # collapsed would otherwise exponentiate against −1e30
             m = torch.maximum(m, _cluster_scores(
                 aux, score_src, score_dst, slope).max(dim=1).values)
+        if extra_rowmax is not None:
+            # edges outside the operator (the hierarchical layer's halo and
+            # summary edges) share this softmax: their row maxima bound m
+            m = torch.maximum(m, extra_rowmax.float())
     return m
 
 

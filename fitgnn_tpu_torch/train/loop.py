@@ -131,14 +131,17 @@ class NodeTaskConfig:
     checkpoint_every: int = 0             # epochs between resume saves
                                           # (0 = phase and run boundaries)
     device: str = "cuda"                  # "cpu" only when asked
-    num_devices: int = 1                  # >1 is not ported yet
+    num_devices: int = 1                  # >1 (the distributed
+                                          # curriculum) is not ported yet
 
 
 def _check_config(cfg: NodeTaskConfig) -> None:
     if cfg.num_devices > 1:
         raise NotImplementedError(
-            "run_node_task: num_devices > 1 is not ported yet: ROADMAP.md "
-            "§1 item 4 (distributed paths)")
+            "run_node_task: num_devices > 1 (the distributed curriculum) is "
+            "not ported yet: ROADMAP.md §1 item 4 (distributed paths); "
+            "train --baseline --num_devices N runs the distributed "
+            "baseline")
     if cfg.exp_setup not in EXP_SETUPS:
         raise ValueError(f"exp_setup must be one of {EXP_SETUPS}")
     if cfg.gradient_method not in ("GD", "MB"):

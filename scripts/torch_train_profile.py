@@ -4,6 +4,7 @@
     python3 scripts/torch_train_profile.py      # from the repository root
     python3 scripts/torch_train_profile.py --collapse-only   # the collapse
     python3 scripts/torch_train_profile.py --block 256   # tiles of edge 256
+    python3 scripts/torch_train_profile.py --hier   # the hierarchical layer
 
 Builds the bench graph of ``chip_smoke.py`` (169,344 nodes, 128 features,
 40 classes, seed 0) through the port's ``build_optimized_graph`` for GCN
@@ -39,7 +40,15 @@ on the same operator under ``FITGNN_GAT_FUSED_TILES=1
 FITGNN_GAT_SEGMM_DEN=1`` (K7 at E, K6; above 128 K7f walks the live
 quadrants and K7s runs a CTA a live quadrant), phase 16's fused step; the
 walks at E take the tiles as 128-wide quadrants and land in the same
-groups.  For each configuration it prints:
+groups.  ``--hier`` profiles instead the hierarchical layer
+(``parallel/hierarchical.py``) in a one-rank NCCL world, as
+``chip_smoke.py``'s phase 19 builds it (the bench graph in the Leiden
+order of ``build_optimized_graph``, ``shard_graph`` and
+``build_hier_plan`` at its threshold of 150, dropout off): the
+``HierNodeModel``'s ``hier_train_step`` and ``hier_eval_step`` for GCN
+and GAT, each beside the single-device ``NodeModel`` on its operator at
+threshold 150 (the same seed-0 parameters).  For each configuration it
+prints:
 
 * the step's time (``gc_train_step``: forward, masked NLL, backward, Adam)
   from CUDA events over 10 steps after 3 warm-ups, and the eval forward's
@@ -175,6 +184,16 @@ def profile_step(layer: str, g, dev, label: str, rows_walk: str | None,
         steps.gc_train_step(model, opt, g, g.y, g.train_mask, gen,
                             "classification")
 
+    def eval_():
+        steps.gc_eval_step(model, g, g.y, g.train_mask, "classification")
+
+    return {"layer": layer, **profile_fns(label, step, eval_, rows_walk)}
+
+
+def profile_fns(label: str, step, eval_, rows_walk: str | None) -> dict:
+    """Times ``step`` and ``eval_`` by CUDA events and profiles ``step``;
+    ``rows_walk`` is the label of the one rows-walk wrapper it launches
+    (None: none)."""
     for _ in range(3):
         step()
     start = torch.cuda.Event(enable_timing=True)
@@ -188,11 +207,11 @@ def profile_step(layer: str, g, dev, label: str, rows_walk: str | None,
     step_ms = start.elapsed_time(end) / 10
 
     for _ in range(3):
-        steps.gc_eval_step(model, g, g.y, g.train_mask, "classification")
+        eval_()
     torch.cuda.synchronize()
     start.record()
     for _ in range(10):
-        steps.gc_eval_step(model, g, g.y, g.train_mask, "classification")
+        eval_()
     end.record()
     end.synchronize()
     eval_ms = start.elapsed_time(end) / 10
@@ -231,8 +250,7 @@ def profile_step(layer: str, g, dev, label: str, rows_walk: str | None,
               f"{key[:90]}")
     busy = sum(groups.values())
     return {
-        "config": label, "layer": layer, "step_ms": step_ms,
-        "eval_ms": eval_ms,
+        "config": label, "step_ms": step_ms, "eval_ms": eval_ms,
         "profiled_window_ms_per_step": window_ms / PROFILED,
         "device_busy_ms_per_step": busy,
         "idle_share": 1.0 - busy * PROFILED / window_ms,
@@ -262,6 +280,9 @@ def main() -> int:
     if "--block" in sys.argv[1:]:
         profile_block(int(sys.argv[sys.argv.index("--block") + 1]), x, s, r,
                       y, train, dev)
+        return 0
+    if "--hier" in sys.argv[1:]:
+        profile_hier(x, s, r, y, train, dev)
         return 0
     g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,
                                  layer_name="GATConv", seed=0)
@@ -322,6 +343,80 @@ def main() -> int:
     del own, configs
     profile_collapse(x, s, r, y, train, dev)
     return 0
+
+
+def profile_hier(x, s, r, y, train, dev) -> None:
+    """GCN and GAT through the hierarchical layer at one rank (NCCL, H = D
+    = 1) and through the single-device path, both at threshold 150."""
+    import tempfile
+    import torch.distributed as dist
+    from fitgnn_tpu_torch.graph.optimize import (_LAYER_SEMANTICS,
+                                                 _operator_weights,
+                                                 build_optimized_graph)
+    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+    from fitgnn_tpu_torch.parallel import (HierNodeModel, build_hier_plan,
+                                           hier_eval_step, hier_train_step,
+                                           initialize_distributed,
+                                           make_hier_mesh, shard_graph)
+    from fitgnn_tpu_torch.train import steps
+
+    g, order = build_optimized_graph(x, s, r, y=y, train_mask=train,
+                                     layer_name="GCNConv", seed=0)
+    s_np = g.senders.numpy().astype(np.int64)
+    r_np = g.receivers.numpy().astype(np.int64)
+    n_pad = g.num_nodes_padded
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(dev, f"file://{tmp}/store", 0, 1)
+        try:
+            mesh = make_hier_mesh(1, 1)
+            for layer in ("GCNConv", "GATConv"):
+                sem = _LAYER_SEMANTICS[layer]
+                sg = shard_graph(x, s, r, y, 1, train_mask=train,
+                                 order=order, semantics=sem)
+                n_loc = sg.nodes_per_shard
+                rp = build_hier_plan(
+                    sg.senders, sg.receivers, sg.edge_weight, 1, 1, n_loc,
+                    np.arange(n_loc) // 128,
+                    interior_semantics=sem).local(mesh, dev)
+                shard = sg.local(0, dev)
+                gd = g._replace(aux=build_hybrid(
+                    s_np, r_np, _operator_weights(
+                        s_np, r_np, g.edge_weight.numpy(), n_pad, sem),
+                    n_pad, min_block_edges=150, use_segmm=True,
+                    semantics=sem, real_nodes=len(x))).to(dev)
+                ref = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                                dropout_rate=0.0)
+                ref.reset_parameters(torch.Generator().manual_seed(0))
+                hier = HierNodeModel(layer, NUM_FEATURES, HIDDEN, 2,
+                                     NUM_CLASSES, dropout_rate=0.0)
+                hier.load_state_dict(ref.state_dict())
+                ref, hier = ref.to(dev), hier.to(dev)
+                opt_h = steps.adam_l2(hier.parameters(), 0.01, 5e-4)
+                opt_r = steps.adam_l2(ref.parameters(), 0.01, 5e-4)
+                walk = K1 if layer == "GCNConv" else None
+                runs = (
+                    ("hier", lambda: hier_train_step(
+                        hier, opt_h, shard.x, shard.y, shard.train_mask,
+                        rp, None, "classification"),
+                     lambda: hier_eval_step(
+                        hier, shard.x, shard.y, shard.train_mask, rp,
+                        "classification"), walk),
+                    ("single-device", lambda: steps.gc_train_step(
+                        ref, opt_r, gd, gd.y, gd.train_mask, None,
+                        "classification"),
+                     lambda: steps.gc_eval_step(
+                        ref, gd, gd.y, gd.train_mask, "classification"),
+                     walk if layer == "GCNConv" else "K4 dyn_tiles"))
+                for name, step, eval_, rows_walk in runs:
+                    out = profile_fns(f"{layer} {name} threshold 150",
+                                      step, eval_, rows_walk)
+                    print(json.dumps({"layer": layer, "path": name,
+                                      "dropout": 0.0, **out}))
+                del rp, shard, gd, ref, hier, opt_h, opt_r, runs
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
 
 
 # the rows at another tile edge: (label, build_hybrid's options, the

@@ -253,7 +253,9 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(mods) > 20
-    for sub in ("coarsen", "partition", "train", "bench", "utils"):
+    for sub in ("coarsen", "partition", "train", "bench", "utils",
+                "parallel"):
         assert any(m.startswith(f"fitgnn_tpu_torch.{sub}.") for m in mods)
     assert "fitgnn_tpu_torch.coarsen.variation" in mods
     assert "fitgnn_tpu_torch.train.loop" in mods
+    assert "fitgnn_tpu_torch.parallel.hierarchical" in mods

@@ -363,14 +363,25 @@ def test_segment_helpers_match_jax():
                   jnp.asarray(dst)))
 
 
-# the diagnostic switches are ported (tests/test_torch_port_gat_switches.py);
-# the distributed layer's arguments still raise
+# the diagnostic switches are ported (tests/test_torch_port_gat_switches.py),
+# and the distributed layer's arguments with parallel/hierarchical.py
 @pytest.mark.parametrize("env,kwargs", [({}, dict(partials=True))])
 def test_unported_tile_gat_options_raise(monkeypatch, env, kwargs):
+    """Kept under its name from before the distributed layer was ported:
+    ``partials=True`` no longer raises, it returns the JAX package's
+    ``(num, den, m)`` before the normalization (here on the straggler-only
+    operator; ``tests/test_torch_port_hier.py`` holds it on tiles)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    ht, _, _ = _straggler_hybrid(1)
-    v = torch.zeros(ht.num_nodes)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tile_gat_attention(ht, v, v, torch.zeros(ht.num_nodes, 4), 0.2,
-                           **kwargs)
+    ht, hj, rng = _straggler_hybrid(1)
+    n = ht.num_nodes
+    h = rng.standard_normal((n, 4)).astype(np.float32)
+    ss, sd = (rng.standard_normal(n).astype(np.float32) for _ in range(2))
+    got = tile_gat_attention(ht, torch.from_numpy(ss), torch.from_numpy(sd),
+                             torch.from_numpy(h), 0.2, **kwargs)
+    ref = jax_tile_gat(hj, jnp.asarray(ss), jnp.asarray(sd), jnp.asarray(h),
+                       0.2, **kwargs)
+    assert len(got) == len(ref) == 3
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-5)

@@ -250,13 +250,33 @@ def test_switches_read_at_call_time(monkeypatch):
 
 @pytest.mark.parametrize("kwargs", [dict(partials=True),
                                     dict(src_score_bound=1.0),
-                                    dict(extra_rowmax=torch.zeros(N))],
+                                    dict(extra_rowmax=np.zeros(N))],
                          ids=["partials", "src_score_bound",
                               "extra_rowmax"])
-def test_distributed_arguments_still_raise(kwargs):
-    """The arguments of the distributed layer are not ported: they raise,
-    naming ROADMAP.md §1 item 4."""
-    ht, _, n = operators("default")
-    v = torch.zeros(n)
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        tile_gat_attention(ht, v, v, torch.zeros(n, 4), SLOPE, **kwargs)
+def test_distributed_arguments_still_raise(monkeypatch, kwargs):
+    """Kept under its name from before the distributed layer was ported:
+    its three arguments no longer raise.  Each, alone, gives the JAX
+    package's result on the default operator under the global max with
+    ``FUSED_BWD`` on, a branch that ``partials`` switches off in both
+    packages."""
+    set_switches(monkeypatch, ("FUSED_BWD",))
+    ht, hj, n = operators("default")
+    rng = np.random.default_rng(5)
+    h = rng.standard_normal((n, 4)).astype(np.float32)
+    a = rng.standard_normal(4).astype(np.float32)
+    ss, sd = h @ a, rng.standard_normal(n).astype(np.float32)
+    tk = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+          for k, v in kwargs.items()}
+    jk = {k: jnp.asarray(v) for k, v in kwargs.items()}
+    got = tile_gat_attention(ht, torch.from_numpy(ss), torch.from_numpy(sd),
+                             torch.from_numpy(h), SLOPE,
+                             att_src=torch.from_numpy(a), **tk)
+    ref = jax.jit(lambda b, c, d, e: jax_tile_gat_mod.tile_gat_attention(
+        hj, b, c, d, SLOPE, att_src=e, **jk))(
+            jnp.asarray(ss), jnp.asarray(sd), jnp.asarray(h), jnp.asarray(a))
+    if kwargs.get("partials"):
+        assert len(got) == len(ref) == 3
+    else:
+        got, ref = (got,), (ref,)
+    for g, r in zip(got, ref):
+        close(g, r)

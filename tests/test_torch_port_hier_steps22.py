@@ -1,0 +1,26 @@
+"""The port's hierarchical train and eval steps against the JAX package's
+on two hosts of two chips, (H, D) = (2, 2), where cluster summaries cross
+hosts: GCN, SAGE and GIN for classification (``torch_port_hier_cases.py``
+holds the cases and the tolerances)."""
+
+import pytest
+import torch
+
+from torch_port_hier_cases import check_steps, name_of, start_world
+
+torch.set_num_threads(1)
+
+CONFIGS = [(layer, "classification", 2, 2)
+           for layer in ("GCNConv", "SAGEConv", "GINConv")]
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    w = start_world(CONFIGS, tmp_path_factory.mktemp("hier_steps22"))
+    yield w
+    w.wait()
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=name_of)
+def test_hier_steps_match_jax(world, cfg):
+    check_steps(world, cfg)

@@ -1,0 +1,176 @@
+"""One rank of the gloo world that the distributed port tests start.
+
+    python tests/torch_port_dist_worker.py RANK WORLD STORE SPEC OUT
+
+``SPEC`` is a pickled list of cases (numpy inputs, made by the test);
+every rank runs every case in order, on one (H × D) mesh a case, and
+writes its results to ``OUT/<case>.<rank>.pkl``.  It imports torch, numpy
+and the port alone, never JAX.  The cases:
+
+* ``aggregate``: ``hier_aggregate`` of the shard's rows and the gradient
+  of Σ tanh(out) over every rank;
+* ``attention``: the same through ``hier_attention_aggregate``, under the
+  case's GAT switches;
+* ``train``: ``hier_train_step`` steps from the case's parameters (a
+  ``NodeModel`` state dict), then ``hier_eval_step``: the losses, the
+  first step's gradients (summed over the ranks), the parameters after
+  the steps and the eval's (loss, metric).
+"""
+
+import os
+import pickle
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from fitgnn_tpu_torch.parallel import (HierNodeModel,  # noqa: E402
+                                       build_hier_plan, hier_aggregate,
+                                       hier_attention_aggregate,
+                                       hier_eval_step, hier_train_step,
+                                       initialize_distributed,
+                                       make_hier_mesh)
+from fitgnn_tpu_torch.train.steps import adam_l2  # noqa: E402
+
+
+def _plan(case, mesh):
+    sg = case["sg"]
+    plan = build_hier_plan(sg.senders, sg.receivers, case.get(
+        "weights", sg.edge_weight), case["H"], case["D"], sg.nodes_per_shard,
+        case["cluster_of"], **case.get("plan", {}))
+    return sg, plan.local(mesh, "cpu")
+
+
+def run_case(case, mesh):
+    rank = mesh.rank
+    sg, rp = _plan(case, mesh)
+    old = {k: os.environ.get(k) for k in case.get("env", {})}
+    os.environ.update(case.get("env", {}))
+    try:
+        if case["kind"] in ("aggregate", "attention"):
+            h = torch.from_numpy(sg.x[rank]).requires_grad_()
+            if case["kind"] == "aggregate":
+                out = hier_aggregate(h, rp)
+            else:
+                out = hier_attention_aggregate(
+                    h, rp, torch.from_numpy(case["a_src"]),
+                    torch.from_numpy(case["a_dst"]), 0.2)
+            torch.tanh(out).sum().backward()
+            return {"out": out.detach().numpy(), "grad": h.grad.numpy()}
+        shard = sg.local(rank, "cpu")
+        task = case["task"]
+        model = HierNodeModel(case["layer"], in_dim=sg.x.shape[-1],
+                              hidden=case["hidden"], num_layers=2,
+                              out_dim=case["out_dim"],
+                              classify=task == "classification",
+                              dropout_rate=0.0)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in case["params"].items()})
+        opt = adam_l2(model.parameters(), case["lr"], case["wd"])
+        losses, grads = [], None
+        for _ in range(case["steps"]):
+            losses.append(float(hier_train_step(
+                model, opt, shard.x, shard.y, shard.train_mask, rp, None,
+                task)))
+            if grads is None:     # the first step's summed gradients
+                grads = {k: p.grad.numpy().copy()
+                         for k, p in model.named_parameters()}
+        loss, metric = hier_eval_step(model, shard.x, shard.y,
+                                      shard.val_mask, rp, task)
+        return {"losses": losses, "eval": (float(loss), float(metric)),
+                "grads": grads,
+                "params": {k: v.detach().numpy().copy()
+                           for k, v in model.state_dict().items()}}
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class World:
+    """A gloo world of ``size`` worker processes running ``cases`` (a list
+    of (name, case)), started at once; ``results(name)`` waits for every
+    rank's result of that case (or for a rank to fail) and gives them."""
+
+    def __init__(self, cases, tmp_dir, size: int = 4, timeout: float = 300):
+        self.dir, self.size, self.timeout = str(tmp_dir), size, timeout
+        spec = os.path.join(self.dir, "spec.pkl")
+        with open(spec, "wb") as f:
+            pickle.dump(cases, f)
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        self.logs = [open(os.path.join(self.dir, f"rank{r}.log"), "w")
+                     for r in range(size)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), str(r), str(size),
+             os.path.join(self.dir, "store"), spec, self.dir],
+            stdout=log, stderr=subprocess.STDOUT, env=env)
+            for r, log in enumerate(self.logs)]
+        self.done = False
+
+    def _failed(self, rcs):
+        logs = "".join(
+            open(os.path.join(self.dir, f"rank{r}.log")).read()[-3000:]
+            for r in range(self.size))
+        raise RuntimeError(f"gloo world failed (rcs {rcs}):\n{logs}")
+
+    def wait(self):
+        """Wait for the world to end; stop it after the timeout."""
+        if self.done:
+            return
+        try:
+            rcs = [p.wait(timeout=self.timeout) for p in self.procs]
+        finally:
+            for p in self.procs:
+                p.kill()
+            for log in self.logs:
+                log.close()
+            self.done = True
+        if any(rcs):
+            self._failed(rcs)
+
+    def results(self, name):
+        paths = [os.path.join(self.dir, f"{name}.{r}.pkl")
+                 for r in range(self.size)]
+        t0 = time.monotonic()
+        while not all(map(os.path.exists, paths)):
+            rcs = [p.poll() for p in self.procs]
+            if any(rcs) or all(rc is not None for rc in rcs):
+                self.wait()
+                self._failed(rcs)
+            if time.monotonic() - t0 > self.timeout:
+                self.wait()
+            time.sleep(0.05)
+        out = []
+        for path in paths:
+            with open(path, "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def main(rank, world, store, spec, out):
+    torch.set_num_threads(1)
+    initialize_distributed(torch.device("cpu"), f"file://{store}", rank,
+                           world)
+    with open(spec, "rb") as f:
+        cases = pickle.load(f)
+    meshes = {}
+    for name, case in cases:
+        hd = (case["H"], case["D"])
+        if hd not in meshes:
+            meshes[hd] = make_hier_mesh(*hd)
+        res = run_case(case, meshes[hd])
+        path = os.path.join(out, f"{name}.{rank}.pkl")
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump(res, f)
+        os.replace(path + ".tmp", path)
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6])
