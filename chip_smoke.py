@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (the full-graph
-baselines, the FIT-GNN curriculum and the graph-level tasks) on one GPU
-and hold its CUDA kernels against their plain PyTorch versions.
+baselines, the FIT-GNN curriculum, its distributed form at one rank and
+the graph-level tasks) on one GPU and hold its CUDA kernels against their
+plain PyTorch versions.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -325,10 +326,35 @@ Phases (any failure exits non-zero before the result lines):
    step, ×2 each an eval, for GCN, SAGE and GIN; none for GAT, whose
    interior takes the einsum tile branch without a plan) and their ms
    beside the single-device path's in the same call;
-20. one JSON line with every kernel's numbers, the bf16 forms and the
+20. the distributed curriculum in a one-rank NCCL world, H = D = 1
+   (``phase_dist_curriculum``), through the functions ``run_node_task``
+   itself uses for it (``NodeTaskConfig(distributed=True)`` selects that
+   path at one rank): phase 8's partition from the port's cache (a Gc of
+   84,586 nodes, 84,759 subgraphs of N_pad 24), the Gc in
+   ``optimize_coarse``'s Leiden order (at one rank the placement keeps
+   the Gc's order, in which no block reaches the threshold; the count of
+   such blocks in the partition's order printed), with the
+   single-device operator at the hier interior's threshold of 150 as the
+   reference; the hierarchical Gc phase of GCN (``_make_hier_gc_steps``:
+   the interior's tiles and stragglers printed) at hidden 512 from seed-0
+   parameters, dropout off: one eval and one step with the kernels (K1 ×2
+   and K3 ×2 an eval, ×3 each a step) held against ``gc_eval_step`` /
+   ``gc_train_step`` on the coarse graph under the plain versions (no
+   launch): loss, metric and every gradient, and their ms beside each
+   other; GAT's hier eval (no launch) against the per-edge single-device
+   eval; the subgraph-sharded Gs GD step and MB epoch, each with a val
+   eval (``_make_dist_steps``), against the single-device ones
+   (``_gs_train_epoch``, ``_gs_eval``) on the same batch, one side at a
+   time: the loss, the val (loss, metric), the (last step's) gradients
+   and the parameters, whether each is bit for bit, no launch; then a
+   2 + 2-epoch ``Gc_train_2_Gs_train`` through ``run_node_task``
+   (dropout 0.5): its launches (the Gc epochs' alone), the hier Gc ms an
+   epoch, the Gs seconds an epoch and the test eval's seconds beside
+   phase 8's single-device figures;
+21. one JSON line with every kernel's numbers, the bf16 forms and the
    forms at edge 256 (``K1@256``, ``K1bf@256``, ``K4@256``, ``K7f@256``,
    ...) as their own entries (launches summed over the main-path phases 5
-   to 19, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
+   to 20, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
    K7sums, and K1, K2, K9, K4, K4ᵀ (their walks of the live quadrants),
    K5, K7f, K7bt, K7s and K7sums at 256, with their ``ptxas`` register
    and spill counts), then the ``ok`` line.
@@ -2067,7 +2093,7 @@ def phase_curriculum(device, tmp, serve_avg, serve_avg_dev) -> dict:
         seen["runs"].append(res)
         return res
 
-    phases, rows = {}, {}
+    phases, rows, times = {}, {}, {}
     patches = (mock.patch.object(pipeline, "coarsen_and_partition",
                                  timed_partition),
                mock.patch.object(optimize_mod, "optimize_coarse",
@@ -2107,6 +2133,7 @@ def phase_curriculum(device, tmp, serve_avg, serve_avg_dev) -> dict:
                   f"curriculum {out_dir}: test loss {res.test_loss}")
             gc_ms = [round(t * 1e3, 3) for t in res.gc_epoch_seconds]
             gs_s = [round(t, 4) for t in res.gs_epoch_seconds]
+            times[out_dir] = (gc_ms, gs_s, res.test_time)
             if ep1:
                 n, n_pad, tiles, stragglers = seen["gc"][-1]
                 print(f"curriculum {out_dir}: Gc {n} nodes (N_pad {n_pad}): "
@@ -2173,7 +2200,7 @@ def phase_curriculum(device, tmp, serve_avg, serve_avg_dev) -> dict:
             expect(read_counts(), {}, f"curriculum {layer} batched forward")
         compare(f"curriculum {layer} batched Gs forward, {sub.num_subgraphs} "
                 "subgraphs, cuda vs cpu", got, ref)
-    return phases, (avg, avg_dev)
+    return phases, (avg, avg_dev), times
 
 
 # phase 9: the extra-node curriculum in size buckets.  The padded rows the
@@ -5451,6 +5478,290 @@ def phase_hier(device, tmp, ds, g, order) -> dict:
     return phases
 
 
+# phase 20: the distributed curriculum at one NCCL rank on phase 8's
+# partition (its Gc and subgraph batch, from the port's cache)
+DIST_GC_NODES = 84_586
+DIST_SUBGRAPHS = 84_759
+DIST_N_PAD = 24
+DIST_EPOCHS = 2
+
+
+def _cached_partition(tmp):
+    """Phase 8's partition, through the CLI's ``_partition`` on phase 8's
+    flags; fails if it is not in the cache."""
+    from fitgnn_tpu_torch.cli import main as cli
+    from fitgnn_tpu_torch.partition import pipeline
+
+    args = cli.arg_correction(cli.build_parser().parse_args([
+        "train", "--dataset", "bench", "--data_root",
+        os.path.join(tmp, "dataset"), "--experiment", "random"]))
+    ds = cli._load_node(args)
+    train, val, test = cli._splits(args, ds, ds.num_classes)
+
+    def missed(*a, **k):
+        raise Failed("phase 20: phase 8's partition is not in the cache")
+
+    t0 = time.perf_counter()
+    with mock.patch.object(pipeline, "coarsen_and_partition", missed):
+        part = cli._partition(args, ds, train, val, test, ds.num_classes)
+    print(f"dist curriculum: phase 8's partition from the cache in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return part
+
+
+def _seeded_pair(layer, device):
+    """Two NodeModels with the same seed-0 parameters, dropout off."""
+    from fitgnn_tpu_torch.models.models import NodeModel
+    ref = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                    dropout_rate=0.0)
+    ref.reset_parameters(torch.Generator().manual_seed(0))
+    model = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                      dropout_rate=0.0)
+    model.load_state_dict(ref.state_dict())
+    return ref.to(device), model.to(device)
+
+
+def _bitwise(got: dict, ref: dict) -> bool:
+    return all(torch.equal(got[k], ref[k]) for k in ref)
+
+
+def phase_dist_curriculum(device, tmp, single) -> dict:
+    """Phase 20 (see the module docstring): returns the launches of the
+    hier Gc step and eval and of the 2 + 2-epoch run."""
+    import torch.distributed as dist
+    from fitgnn_tpu_torch.graph.optimize import optimize_coarse
+    from fitgnn_tpu_torch.parallel import hier_view, initialize_distributed
+    from fitgnn_tpu_torch.train import loop, steps
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    part = _cached_partition(tmp)
+    batch = part.subgraphs
+    check(int(part.coarse.graph.n_node) == DIST_GC_NODES
+          and batch.num_subgraphs == DIST_SUBGRAPHS
+          and batch.num_nodes_padded == DIST_N_PAD,
+          "phase 20: not phase 8's partition")
+    # at one rank the placement keeps the Gc's order, and in the
+    # partition's order no 128 x 128 block of the Gc holds HIER_THRESHOLD
+    # edges; the Gc in optimize_coarse's Leiden order (the single-device
+    # Gc phase's), whose operator at HIER_THRESHOLD is the reference
+    g0 = part.coarse.graph
+    e = int(g0.n_edge)
+    blocks = np.unique(g0.receivers[:e].numpy().astype(np.int64) // 128
+                       * (g0.num_nodes_padded // 128 + 1)
+                       + g0.senders[:e].numpy() // 128, return_counts=True)[1]
+    t0 = time.perf_counter()
+    coarse = optimize_coarse(part.coarse, seed=0, layer_name="GCNConv",
+                             min_block_edges=HIER_THRESHOLD)
+    ref_op = coarse.graph.aux
+    print(f"dist curriculum: Gc {DIST_GC_NODES} nodes, blocks of >= "
+          f"{HIER_THRESHOLD} edges in the partition's order "
+          f"{int((blocks >= HIER_THRESHOLD).sum())}; Leiden order in "
+          f"{time.perf_counter() - t0:.1f} s host, single-device operator "
+          f"at {HIER_THRESHOLD}: {ref_op.bsr.nnz_blocks} tiles, "
+          f"{ref_op.num_coo_edges} stragglers")
+    cd = coarse.to(device)
+    initialize_distributed(device, f"file://{tmp}/dist_store", 0, 1)
+    phases = {}
+    base = dict(hidden=HIDDEN, num_layers=2, out_dim=NUM_CLASSES,
+                task="classification", device=str(device), num_devices=1,
+                num_hosts=1, distributed=True, seed=0)
+    try:
+        check(dist.get_backend() == "nccl", "phase 20 is not on NCCL")
+        # 1. the hierarchical Gc phase, GCN: a step and an eval
+        t0 = time.perf_counter()
+        hs = loop._make_hier_gc_steps(
+            loop.NodeTaskConfig(layer_name="GCNConv", **base), coarse,
+            device)
+        hyb, plan = hs.rank_plan.int_hybrid, hs.host.plan
+        print(f"dist curriculum hier Gc GCN: plan and interior in "
+              f"{time.perf_counter() - t0:.1f} s host; shard "
+              f"{hs.host.sg.nodes_per_shard} rows; interior "
+              f"{0 if hyb.bsr is None else hyb.bsr.nnz_blocks} tiles, "
+              f"{hyb.num_coo_edges} stragglers; halo and summary edges "
+              f"{int((plan.halo_weights != 0).sum())} / "
+              f"{int((plan.sum_weights != 0).sum())}; tiles apart "
+              f"{tiles_apart(hyb, ref_op)}")
+        check(hyb.bsr is not None and hyb.bsr.nnz_blocks > 0
+              and hyb.num_coo_edges > 0, "phase 20: no hybrid interior")
+        ref, model = _seeded_pair("GCNConv", device)
+        hmodel = hier_view(model)
+        gd = cd.graph
+        reset_counts()
+        with plain_versions():
+            r_loss, r_metric = steps.gc_eval_step(ref, gd, cd.y_val,
+                                                  cd.val_mask,
+                                                  "classification")
+        torch.cuda.synchronize()
+        expect(read_counts(), {}, "dist curriculum plain Gc eval reference")
+        reset_counts()
+        loss, metric = hs.evaluate(hmodel)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        expect(launches, HIER_EVAL["GCNConv"], "dist curriculum hier Gc eval")
+        phases["dist curriculum hier Gc eval"] = launches
+        compare("dist curriculum hier Gc eval (loss, metric)",
+                torch.stack([loss, metric]).float(),
+                torch.stack([r_loss, r_metric]).float())
+        opt_h = steps.adam_l2(model.parameters(), 0.01, 5e-4)
+        opt_r = steps.adam_l2(ref.parameters(), 0.01, 5e-4)
+        reset_counts()
+        loss = hs.train(hmodel, opt_h, None)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        expect(launches, HIER_STEP["GCNConv"], "dist curriculum hier Gc step")
+        phases["dist curriculum hier Gc step"] = launches
+        reset_counts()
+        with plain_versions():
+            r_loss = steps.gc_train_step(ref, opt_r, gd, cd.y_train,
+                                         cd.train_mask, None,
+                                         "classification")
+        torch.cuda.synchronize()
+        expect(read_counts(), {}, "dist curriculum plain Gc step reference")
+        compare("dist curriculum hier Gc step loss", loss.reshape(1),
+                r_loss.reshape(1))
+        r_grads = dict(ref.named_parameters())
+        for k, p in model.named_parameters():
+            compare(f"dist curriculum hier Gc grad {k}", p.grad,
+                    r_grads[k].grad)
+        times = {
+            "hier step": cuda_ms(lambda: hs.train(hmodel, opt_h, None),
+                                 HIER_TIMED),
+            "single-device step": cuda_ms(lambda: steps.gc_train_step(
+                ref, opt_r, gd, cd.y_train, cd.train_mask, None,
+                "classification"), HIER_TIMED),
+            "hier eval": cuda_ms(lambda: hs.evaluate(hmodel), HIER_TIMED),
+            "single-device eval": cuda_ms(lambda: steps.gc_eval_step(
+                ref, gd, cd.y_val, cd.val_mask, "classification"),
+                HIER_TIMED)}
+        print(f"dist curriculum hier Gc GCN ms (CUDA events over "
+              f"{HIER_TIMED}, hidden {HIDDEN}, dropout off, {smi}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+        del hs, hmodel, ref, model, opt_h, opt_r
+        # GAT's eval forward: the interior's einsum branch, no launch
+        hs = loop._make_hier_gc_steps(
+            loop.NodeTaskConfig(layer_name="GATConv", **base), coarse,
+            device)
+        ref, model = _seeded_pair("GATConv", device)
+        reset_counts()
+        with plain_versions():
+            r_loss, r_metric = steps.gc_eval_step(
+                ref, gd._replace(aux=None), cd.y_val, cd.val_mask,
+                "classification")
+        torch.cuda.synchronize()
+        expect(read_counts(), {}, "dist curriculum plain GAT eval")
+        reset_counts()
+        loss, metric = hs.evaluate(hier_view(model))
+        torch.cuda.synchronize()
+        launches = read_counts()
+        expect(launches, HIER_EVAL["GATConv"],
+               "dist curriculum hier Gc GAT eval")
+        compare("dist curriculum hier Gc GAT eval (loss, metric)",
+                torch.stack([loss, metric]).float(),
+                torch.stack([r_loss, r_metric]).float())
+        del hs, ref, model, cd, gd
+        torch.cuda.empty_cache()
+
+        # 2. the subgraph-sharded Gs steps against the single-device ones,
+        # one side at a time (a GD step peaks near 30 GiB)
+        for method in ("GD", "MB"):
+            cfg = loop.NodeTaskConfig(layer_name="GCNConv",
+                                      gradient_method=method, **base)
+            ref, model = _seeded_pair("GCNConv", device)
+            train, evaluate = loop._make_dist_steps(cfg, (batch,), device)
+            opt = steps.adam_l2(model.parameters(), 0.01, 5e-4)
+            side = {}
+            for name, fn in (
+                    ("dist", lambda: (train(model, opt, None),
+                                      evaluate(model, "val"), model)),
+                    ("single", lambda: (loop._gs_train_epoch(
+                        ref, opt_r, bd, None, cfg),
+                        loop._gs_eval(ref, bd, cfg, "val"), ref))):
+                if name == "single":
+                    del train, evaluate, opt
+                    torch.cuda.empty_cache()
+                    bd = (batch.to(device),)
+                    opt_r = steps.adam_l2(ref.parameters(), 0.01, 5e-4)
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t0 = time.perf_counter()
+                loss, (v_loss, v_metric), m = fn()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                expect(read_counts(), {}, f"dist curriculum Gs {method} "
+                       f"({name})")
+                side[name] = dict(
+                    loss=torch.as_tensor(float(loss)).reshape(1),
+                    val=torch.tensor([v_loss, v_metric]),
+                    grads={k: p.grad.detach().clone()
+                           for k, p in m.named_parameters()},
+                    params={k: v.detach().clone()
+                            for k, v in m.state_dict().items()})
+                print(f"dist curriculum Gs {method} epoch + val eval "
+                      f"({name}): {secs:.3f} s, peak "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            del bd, opt_r, ref, model
+            torch.cuda.empty_cache()
+            got, want = side["dist"], side["single"]
+            compare(f"dist curriculum Gs {method} loss", got["loss"],
+                    want["loss"])
+            compare(f"dist curriculum Gs val eval (loss, metric) after "
+                    f"{method}", got["val"], want["val"])
+            what = "last step's grad" if method == "MB" else "grad"
+            for k, v in want["grads"].items():
+                compare(f"dist curriculum Gs {method} {what} {k}",
+                        got["grads"][k], v)
+            for k, v in want["params"].items():
+                compare(f"dist curriculum Gs {method} param {k}",
+                        got["params"][k], v)
+            print(f"dist curriculum Gs {method}: bit for bit the single-"
+                  f"device side: loss "
+                  f"{torch.equal(got['loss'], want['loss'])}, val eval "
+                  f"{torch.equal(got['val'], want['val'])}, grads "
+                  f"{_bitwise(got['grads'], want['grads'])}, params "
+                  f"{_bitwise(got['params'], want['params'])}")
+
+        # 3. Gc_train_2_Gs_train through run_node_task's distributed path
+        cfg = loop.NodeTaskConfig(layer_name="GCNConv",
+                                  exp_setup="Gc_train_2_Gs_train",
+                                  epochs1=DIST_EPOCHS, epochs2=DIST_EPOCHS,
+                                  runs=1, **base)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = loop.run_node_task(cfg, coarse, batch, verbose=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        expect(launches, {k: DIST_EPOCHS * (HIER_STEP["GCNConv"][k]
+                                            + HIER_EVAL["GCNConv"][k])
+                          for k in HIER_STEP["GCNConv"]},
+               "dist curriculum run")
+        phases["dist curriculum run"] = launches
+        r = res.runs[0]
+        check(np.isfinite(r.test_loss) and r.test_loss > 0
+              and len(r.gc_epoch_seconds) == DIST_EPOCHS
+              and len(r.gs_epoch_seconds) == DIST_EPOCHS,
+              f"dist curriculum run: {r}")
+        gc_ms, gs_s, test_s = single["cur_gcn"][0], single["cur_gcn_gd"][1], \
+            single["cur_gcn_gd"][2]
+        print(f"dist curriculum Gc_train_2_Gs_train {DIST_EPOCHS} + "
+              f"{DIST_EPOCHS} epochs at one NCCL rank, hidden {HIDDEN}, "
+              f"dropout 0.5 ({smi}): {wall:.1f} s; hier Gc epoch ms "
+              f"{[round(t * 1e3, 3) for t in r.gc_epoch_seconds]}; Gs "
+              f"epoch s {[round(t, 4) for t in r.gs_epoch_seconds]}; test "
+              f"eval {r.test_time:.4f} s; test loss {r.test_loss:.4f} "
+              f"metric {r.test_acc:.4f}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | phase "
+              f"8 single-device: Gc epoch ms {gc_ms} (cur_gcn, threshold "
+              f"48), Gs epoch s {gs_s}, test eval {test_s:.4f} s "
+              "(cur_gcn_gd)")
+    finally:
+        dist.destroy_process_group()
+    return phases
+
+
 def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     """One kernel's line: times and bounds summed over the shapes one step
     or forward launches it at (those not marked ``on_path: False``); errors
@@ -5690,8 +6001,8 @@ def main() -> int:
         phases.update(serve)
         del g_gat
         torch.cuda.empty_cache()
-        curriculum, plain_infer = phase_curriculum(device, tmp, serve_avg,
-                                                   serve_avg_dev)
+        curriculum, plain_infer, single = phase_curriculum(
+            device, tmp, serve_avg, serve_avg_dev)
         phases.update(curriculum)
         torch.cuda.empty_cache()
         warmed = phase_tools_node(tmp, g)
@@ -5736,6 +6047,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phases.update(phase_hier(device, tmp, ds, g, order))
         del g
+        torch.cuda.empty_cache()
+        phases.update(phase_dist_curriculum(device, tmp, single))
         torch.cuda.empty_cache()
 
     kernels_line = {"kernels": [

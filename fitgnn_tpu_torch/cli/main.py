@@ -16,10 +16,13 @@ pre-aggregation under ``--preaggregate`` for GCN, SAGE and GIN) and
 ``infer-baseline`` (the full-graph inference-latency baseline).
 ``train --baseline --num_devices P --num_hosts H`` trains the full graph
 sharded over P ranks through the hierarchical exchange
-(``parallel/hierarchical.py``): the CLI starts the P ranks itself
-(``torch.multiprocessing``), or runs as one of them under a ``torchrun``
-world of size P; ``--device cuda`` takes card ``r`` for rank ``r`` over
-NCCL, ``--device cpu`` runs the ranks on the CPU over gloo.
+(``parallel/hierarchical.py``), and ``train --num_devices P --num_hosts
+H`` runs the curriculum distributed: the Gc phase on that exchange, the
+Gs phase sharded over the subgraph axis (``parallel/dist_subgraphs.py``).
+The CLI starts the P ranks itself (``torch.multiprocessing``), or runs as
+one of them under a ``torchrun`` world of size P; ``--device cuda`` takes
+card ``r`` for rank ``r`` over NCCL, ``--device cpu`` runs the ranks on
+the CPU over gloo.
 ``train --hybrid_bf16_tiles`` stores the hybrid operator's tiles in bf16
 on ``--baseline`` and in the curriculum's Gc phase; ``infer`` and
 ``infer-baseline`` take no such flag, as in the JAX package.  ``train
@@ -70,15 +73,6 @@ COMMUNITY_NODE_CAP = 165_000
 AUTO_COMMUNITY_NODES = 170_000
 
 GRAPH_TASKS = ("graph_cls", "graph_reg")
-
-# train options the port does not run yet: (flag, is set, ROADMAP item);
-# the baseline ignores --bucket_sizes, --eval_chunk and --fused_epochs, and
-# the curriculum --preaggregate, as the JAX package's do
-_TRAIN_NOT_PORTED = (
-    ("--num_devices > 1 without --baseline (the distributed curriculum)",
-     lambda a: a.num_devices > 1 and not a.baseline,
-     "ROADMAP.md §1 item 4 (distributed paths)"),
-)
 
 # the resume flags under --baseline: the JAX package's baseline reads
 # neither, so the port refuses them rather than ignore them
@@ -569,11 +563,9 @@ def _operator_line(hyb, cluster_att: int) -> str:
 
 
 def _check_train_args(args) -> None:
-    """Raise for every node-task train option the port does not run."""
-    for flag, is_set, item in _TRAIN_NOT_PORTED:
-        if is_set(args):
-            raise NotImplementedError(
-                f"train {flag} is not ported yet: {item}")
+    """Raise for the resume flags under ``--baseline`` (the baseline
+    ignores ``--bucket_sizes``, ``--eval_chunk`` and ``--fused_epochs``,
+    and the curriculum ``--preaggregate``, as the JAX package's do)."""
     if args.baseline:
         for flag, is_set in _BASELINE_NO_RESUME:
             if is_set(args):
@@ -720,10 +712,16 @@ def cmd_train_baseline(args) -> int:
 def _cmd_train_baseline_dist(args) -> int:
     """Full-graph baseline training sharded over a (num_hosts × chips) mesh
     of ``--num_devices`` ranks, as the JAX package's
-    ``_cmd_train_baseline_dist``: the refusals here, then the P ranks
-    (``_baseline_dist_rank``), started with ``torch.multiprocessing`` or,
-    under a ``torchrun`` world of size P, this process being one of them.
-    ``--device cuda`` needs P cards and never runs on the CPU."""
+    ``_cmd_train_baseline_dist``: ``_baseline_dist_run`` on each rank."""
+    return _start_ranks(args, _baseline_dist_run)
+
+
+def _start_ranks(args, body) -> int:
+    """The refusals of ``--num_devices P``, then the P ranks, each running
+    ``body(args, rank, device)`` (``_dist_rank``): started with
+    ``torch.multiprocessing`` or, under a ``torchrun`` world of size P,
+    this process being one of them.  ``--device cuda`` needs P cards and
+    never runs on the CPU."""
     from fitgnn_tpu_torch.parallel import LAYER_SEMANTICS, chips_per_host
 
     P = args.num_devices
@@ -745,17 +743,48 @@ def _cmd_train_baseline_dist(args) -> int:
         if int(os.environ["WORLD_SIZE"]) != P:
             raise SystemExit(f"--num_devices {P} but the torchrun world "
                              f"has {os.environ['WORLD_SIZE']} ranks")
-        _baseline_dist_rank(int(os.environ["RANK"]), args, None)
+        _dist_rank(int(os.environ["RANK"]), args, None, body)
         return 0
     import tempfile
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_baseline_dist_rank, args=(args, f"file://{tmp}/store"),
+        mp.spawn(_dist_rank, args=(args, f"file://{tmp}/store", body),
                  nprocs=P, join=True)
     return 0
 
 
-def _baseline_dist_rank(rank: int, args, init_method) -> None:
+def _dist_rank(rank: int, args, init_method, body) -> None:
+    """One rank of ``--num_devices P``: card ``LOCAL_RANK`` (else
+    ``rank``) over NCCL under ``--device cuda``, the CPU over gloo (the
+    host's cores shared among the ranks) under ``--device cpu``; the
+    process group, then ``body`` with every rank but 0 printing
+    nothing."""
+    import contextlib
+    import torch
+    import torch.distributed as dist
+    from fitgnn_tpu_torch.parallel import initialize_distributed
+    from fitgnn_tpu_torch.utils.device import resolve_device
+
+    P = args.num_devices
+    if args.device == "cuda":
+        device = resolve_device(
+            f"cuda:{int(os.environ.get('LOCAL_RANK', rank))}")
+    else:
+        device = resolve_device("cpu")
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // P))
+    initialize_distributed(device, init_method,
+                           rank if init_method else None,
+                           P if init_method else None)
+    quiet = (contextlib.redirect_stdout(open(os.devnull, "w")) if rank
+             else contextlib.nullcontext())
+    try:
+        with quiet:
+            body(args, rank, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _baseline_dist_run(args, rank, device) -> None:
     """One rank of ``train --baseline --num_devices P``: every rank makes
     the host-side plan as the JAX package makes it (Leiden on the full
     graph, community placement, ``shard_graph`` under the layer's
@@ -766,35 +795,6 @@ def _baseline_dist_rank(rank: int, args, init_method) -> None:
     saves the best parameters of all runs to
     ``save/<task>/baseline/<output_dir>/model.pt`` (a ``NodeModel`` state
     dict) and appends the ``baseline_dist_{H}x{D}`` row."""
-    import contextlib
-    import torch
-    import torch.distributed as dist
-    from fitgnn_tpu_torch.parallel import initialize_distributed
-    from fitgnn_tpu_torch.utils.device import resolve_device
-
-    P, H = args.num_devices, args.num_hosts
-    D = P // H
-    if args.device == "cuda":
-        device = resolve_device(
-            f"cuda:{int(os.environ.get('LOCAL_RANK', rank))}")
-    else:
-        device = resolve_device("cpu")
-        # the ranks share the host's cores
-        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // P))
-    initialize_distributed(device, init_method,
-                           rank if init_method else None,
-                           P if init_method else None)
-    quiet = (contextlib.redirect_stdout(open(os.devnull, "w")) if rank
-             else contextlib.nullcontext())
-    try:
-        with quiet:
-            _baseline_dist_run(args, rank, device, P, H, D)
-    finally:
-        dist.destroy_process_group()
-
-
-def _baseline_dist_run(args, rank, device, P, H, D) -> None:
-    """The body of ``_baseline_dist_rank`` in its process group."""
     import torch
     from fitgnn_tpu_torch.parallel import (LAYER_SEMANTICS, HierNodeModel,
                                            build_hier_plan, hier_eval_step,
@@ -809,6 +809,8 @@ def _baseline_dist_run(args, rank, device, P, H, D) -> None:
     from fitgnn_tpu_torch.train.steps import adam_l2
     from fitgnn_tpu_torch.utils import results as R
 
+    P, H = args.num_devices, args.num_hosts
+    D = P // H
     ds = _load_node(args)
     _apply_auto_config(args, ds.num_nodes)
     classify = args.task == "node_cls"
@@ -921,16 +923,18 @@ def _baseline_dist_run(args, rank, device, P, H, D) -> None:
 
 
 def cmd_train(args) -> int:
-    """The FIT-GNN curriculum, as the JAX package's ``cmd_train`` on one
-    device: partition (through the cache), the Gc graph Leiden-reordered
+    """The FIT-GNN curriculum, as the JAX package's ``cmd_train``: on one
+    device, partition (through the cache), the Gc graph Leiden-reordered
     onto the hybrid operator when ``--hybrid_spmm`` lets it, then
-    ``run_node_task``.  The last run's best parameters go to
+    ``run_node_task``; with ``--num_devices P`` the P ranks of
+    ``_train_dist_run``.  The last run's best parameters go to
     ``save/<task>/<output_dir>/model.pt``, one row to
     ``results/<dataset>.csv``."""
-    from fitgnn_tpu_torch.train.loop import NodeTaskConfig, run_node_task
-    from fitgnn_tpu_torch.utils import results as R
+    from fitgnn_tpu_torch.train.loop import run_node_task
     from fitgnn_tpu_torch.utils.device import resolve_device
 
+    if args.num_devices > 1:
+        return _start_ranks(args, _train_dist_run)
     resolve_device(args.device)
     ds = _load_node(args)
     _apply_auto_config(args, ds.num_nodes)
@@ -954,9 +958,26 @@ def cmd_train(args) -> int:
             print(f"Gc hybrid operator: "
                   f"{_operator_line(coarse.graph.aux, args.cluster_attention)}")
 
+    cfg = _train_config(args, num_classes, args.device)
+    if cfg.resume_path and not args.resume:
+        # --checkpoint_every without --resume is a fresh session: a stale
+        # checkpoint of an earlier one must not skip its epochs
+        shutil.rmtree(cfg.resume_path, ignore_errors=True)
+    res = run_node_task(cfg, coarse, part.subgraphs, verbose=True)
+    _train_row(args, cfg, res)
+    return 0
+
+
+def _train_config(args, num_classes, device: str):
+    """The ``NodeTaskConfig`` of ``train``'s flags on ``device``: under
+    ``--num_devices P`` the mesh, and the cluster flags as the hier Gc
+    phase's interior collapse (``gc_cluster``, ``gc_cluster_exact``)."""
+    from fitgnn_tpu_torch.train.loop import NodeTaskConfig
+
     task = "classification" if args.task == "node_cls" else "regression"
     save_path = checkpoint_path(args.task, args.output_dir, baseline=False)
-    cfg = NodeTaskConfig(
+    dist = args.num_devices > 1
+    return NodeTaskConfig(
         layer_name=args.layer_name, hidden=args.hidden,
         num_layers=args.num_layers1, task=task,
         out_dim=num_classes if task == "classification" else 1,
@@ -977,17 +998,24 @@ def cmd_train(args) -> int:
         resume_path=(os.path.join("save", args.task, args.output_dir,
                                   "resume")
                      if (args.resume or args.checkpoint_every) else None),
-        checkpoint_every=args.checkpoint_every, device=args.device)
-    if cfg.resume_path and not args.resume:
-        # --checkpoint_every without --resume is a fresh session: a stale
-        # checkpoint of an earlier one must not skip its epochs
-        shutil.rmtree(cfg.resume_path, ignore_errors=True)
-    res = run_node_task(cfg, coarse, part.subgraphs, verbose=True)
-    print(f"checkpoint saved: {save_path}")
-    s = res.summary
+        checkpoint_every=args.checkpoint_every, device=device,
+        num_devices=args.num_devices, num_hosts=args.num_hosts,
+        gc_cluster=((args.cluster_attention or args.cluster_aggregation)
+                    if dist else 0),
+        gc_cluster_exact=((args.cluster_attention_exact
+                           or args.cluster_aggregation_exact)
+                          if dist else 0))
 
-    header = (R.TRAIN_NODE_CLS_HEADER if task == "classification"
-              else R.TRAIN_NODE_REG_HEADER)
+
+def _train_row(args, cfg, res) -> None:
+    """``train``'s checkpoint line and its ``results/<dataset>.csv``
+    row."""
+    from fitgnn_tpu_torch.utils import results as R
+
+    print(f"checkpoint saved: {cfg.save_path}")
+    s = res.summary
+    classify = cfg.task == "classification"
+    header = R.TRAIN_NODE_CLS_HEADER if classify else R.TRAIN_NODE_REG_HEADER
     row = R.format_row(header, {
         "dataset": args.dataset, "coarsening_method": args.coarsening_method,
         "coarsening_ratio": args.coarsening_ratio,
@@ -1005,14 +1033,49 @@ def cmd_train(args) -> int:
         # node_reg loss columns hold the std-normalized L1, the value the
         # reference records as its regression loss
         "top_10_loss": (
-            f"{s['top_10_loss']} +/- {s['top_10_loss_std']}"
-            if task == "classification"
+            f"{s['top_10_loss']} +/- {s['top_10_loss_std']}" if classify
             else f"{s['top_10_metric']} +/- {s['top_10_metric_std']}"),
-        "best_loss": (s["best_loss"] if task == "classification"
-                      else s["best_metric"])})
+        "best_loss": s["best_loss"] if classify else s["best_metric"]})
     R.append_csv_row(f"results/{args.dataset}.csv", header, row)
     print(f"results/{args.dataset}.csv <- {row}")
-    return 0
+
+
+def _train_dist_run(args, rank, device) -> None:
+    """One rank of ``train --num_devices P`` (the distributed curriculum,
+    as the JAX package's ``cmd_train`` runs it under ``--num_devices``):
+    rank 0 computes the partition or loads it from the port's cache, then
+    the others load it from the cache, so it is computed once; the Gc
+    graph keeps its prebuilt weights (the single-device
+    ``optimize_coarse`` is skipped: each rank builds its own interior
+    operator, so ``--hybrid_threshold`` and ``--hybrid_bf16_tiles`` do not
+    reach it, and the cluster flags become the interior's collapse); then
+    ``run_node_task`` on this rank's device.  Rank 0 saves the checkpoint
+    and appends the row."""
+    import torch.distributed as dist
+    from fitgnn_tpu_torch.train.loop import run_node_task
+
+    ds = _load_node(args)
+    _apply_auto_config(args, ds.num_nodes)
+    num_classes = ds.num_classes if args.task == "node_cls" else None
+    train, val, test = _splits(args, ds, num_classes)
+    part = None
+    if rank == 0:
+        part = _partition(args, ds, train, val, test, num_classes)
+    dist.barrier()
+    if part is None:
+        part = _partition(args, ds, train, val, test, num_classes)
+    if (args.cluster_attention or args.cluster_aggregation) and \
+            part.coarse is None:
+        raise SystemExit(_NO_GC_PHASE)
+    cfg = _train_config(args, num_classes, str(device))
+    if cfg.resume_path and not args.resume:
+        # a fresh session: the stale checkpoint goes before any rank reads
+        if rank == 0:
+            shutil.rmtree(cfg.resume_path, ignore_errors=True)
+        dist.barrier()
+    res = run_node_task(cfg, part.coarse, part.subgraphs, verbose=True)
+    if rank == 0:
+        _train_row(args, cfg, res)
 
 
 def _graph_samples(args, gds, n: Optional[int] = None) -> list:

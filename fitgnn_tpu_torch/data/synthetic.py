@@ -1,7 +1,11 @@
-"""Synthetic graph-level datasets for tests and the on-card smoke run: the
-port's copy of the JAX package's generators, drawing the same numpy values
-in the same order, so one seed gives the same graphs bit for bit.
+"""Synthetic datasets for tests and the on-card smoke run: the port's copy
+of the JAX package's generators, drawing the same numpy values in the same
+order, so one seed gives the same graphs bit for bit.
 
+* ``sbm_graph``            — a homophilous stochastic block model with
+  class-mean features, for node classification.
+* ``random_regression_graph`` — the same graph with a smooth scalar
+  target, for node regression.
 * ``qm9_like_dataset``     — a QM9-shaped molecule proxy (9–29 atoms, 11
   features) with a regression target and a 2-class structural label.
 * ``random_graph_dataset`` — a small 2-class set: sparse rings against
@@ -11,6 +15,58 @@ in the same order, so one seed gives the same graphs bit for bit.
 from __future__ import annotations
 
 import numpy as np
+
+
+def sbm_graph(num_nodes: int = 600, num_classes: int = 4,
+              num_features: int = 64, p_in: float = 0.04,
+              p_out: float = 0.002, feature_noise: float = 1.0,
+              seed: int = 0):
+    """Homophilous SBM with class-mean features plus noise; returns (x,
+    senders, receivers, y).  Up to 4,000 nodes every pair is drawn, above
+    that edges are sampled per pair class."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, num_classes, size=num_nodes).astype(np.int32)
+    means = rng.normal(scale=2.0, size=(num_classes, num_features))
+    x = (means[y] + feature_noise * rng.normal(size=(num_nodes, num_features))
+         ).astype(np.float32)
+    if num_nodes <= 4000:
+        probs = np.where(y[:, None] == y[None, :], p_in, p_out)
+        upper = np.triu(rng.random((num_nodes, num_nodes)) < probs, k=1)
+        senders, receivers = np.nonzero(upper)
+    else:
+        n_in = int(p_in * num_nodes * num_nodes / (2 * num_classes))
+        n_out = int(p_out * num_nodes * num_nodes / 2)
+        s_in = rng.integers(0, num_nodes, size=4 * n_in)
+        r_in = rng.integers(0, num_nodes, size=4 * n_in)
+        keep = (y[s_in] == y[r_in]) & (s_in != r_in)
+        s1, r1 = s_in[keep][:n_in], r_in[keep][:n_in]
+        s_out = rng.integers(0, num_nodes, size=2 * n_out)
+        r_out = rng.integers(0, num_nodes, size=2 * n_out)
+        keep = y[s_out] != y[r_out]
+        s2, r2 = s_out[keep][:n_out], r_out[keep][:n_out]
+        senders = np.concatenate([s1, s2])
+        receivers = np.concatenate([r1, r2])
+    return (x, senders.astype(np.int32), receivers.astype(np.int32), y)
+
+
+def random_regression_graph(num_nodes: int = 400, num_features: int = 32,
+                            seed: int = 0):
+    """``sbm_graph`` (3 classes) with a smooth scalar target: a linear
+    function of x, averaged half and half with its neighbours' mean."""
+    rng = np.random.default_rng(seed)
+    x, senders, receivers, _ = sbm_graph(
+        num_nodes=num_nodes, num_classes=3, num_features=num_features,
+        seed=seed)
+    w = rng.normal(size=num_features) / np.sqrt(num_features)
+    y = (x @ w).astype(np.float32)
+    deg = np.zeros(num_nodes)
+    np.add.at(deg, receivers, 1.0)
+    np.add.at(deg, senders, 1.0)
+    agg = np.zeros(num_nodes, dtype=np.float32)
+    np.add.at(agg, receivers, y[senders])
+    np.add.at(agg, senders, y[receivers])
+    y = 0.5 * y + 0.5 * agg / np.maximum(deg, 1.0).astype(np.float32)
+    return x, senders, receivers, y
 
 
 def qm9_like_dataset(num_graphs: int = 130_831, min_nodes: int = 9,

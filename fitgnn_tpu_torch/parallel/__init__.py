@@ -1,12 +1,17 @@
 """The distributed paths on ``torch.distributed``: one rank a shard
 (``mesh``, ``multihost``), the differentiable exchanges (``collectives``),
 host-side sharding (``shard``) and the hierarchical layer
-(``hierarchical``), behind ``train --baseline --num_devices N``."""
+(``hierarchical``), behind ``train --baseline --num_devices N``, and the
+subgraph-axis Gs steps (``dist_subgraphs``) that, with the hierarchical
+Gc phase, run the distributed curriculum (``train --num_devices N``)."""
 
+from fitgnn_tpu_torch.parallel.dist_subgraphs import (
+    dist_gs_eval_step, dist_gs_train_epoch_mb, dist_gs_train_step_gd,
+    pad_batch_to_shards, shard_batches)
 from fitgnn_tpu_torch.parallel.hierarchical import (
     HierNodeModel, HierPlan, RankPlan, build_hier_plan, hier_aggregate,
     hier_attention_aggregate, hier_eval_step, hier_oracle_features,
-    hier_train_step, init_hier_params)
+    hier_train_step, hier_view, init_hier_params)
 from fitgnn_tpu_torch.parallel.mesh import (CHIP_AXIS, DATA_AXIS, HOST_AXIS,
                                             HierMesh, chips_per_host,
                                             make_hier_mesh)
@@ -25,5 +30,7 @@ __all__ = [
     "shard_prebuilt_graph", "HierNodeModel", "HierPlan", "RankPlan",
     "build_hier_plan", "hier_aggregate", "hier_attention_aggregate",
     "hier_eval_step", "hier_oracle_features", "hier_train_step",
-    "init_hier_params",
+    "hier_view", "init_hier_params", "dist_gs_eval_step",
+    "dist_gs_train_epoch_mb", "dist_gs_train_step_gd",
+    "pad_batch_to_shards", "shard_batches",
 ]

@@ -508,6 +508,18 @@ class HierNodeModel(NodeModel):
         return super().forward(x, None, generator, agg_for)
 
 
+def hier_view(model: NodeModel) -> HierNodeModel:
+    """A ``HierNodeModel`` over ``model``'s own layers and head: the same
+    parameters and dropout, so an optimizer over ``model.parameters()``
+    steps either, as the JAX package's hier and single-device models share
+    one parameter tree."""
+    view = HierNodeModel.__new__(HierNodeModel)
+    torch.nn.Module.__init__(view)
+    view.classify = model.classify
+    view.convs, view.head = model.convs, model.head
+    return view
+
+
 def init_hier_params(model: HierNodeModel, seed: int) -> HierNodeModel:
     """flax's default init drawn from a ``torch.Generator`` seeded with
     ``seed``: the same parameters on every rank."""

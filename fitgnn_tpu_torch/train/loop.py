@@ -21,7 +21,16 @@ JAX package ignores it); ``eval_chunk`` evaluates the subgraphs in slices;
 a killed session up where its last save left it.  Multi-run statistics
 (mean, top-10, best) match the reference's reporting.
 
-Not ported yet: ``num_devices > 1``, which raises ``NotImplementedError``.
+``num_devices = P > 1`` runs the distributed curriculum, as the JAX
+package's ``run_node_task`` does, in an initialized process group of P
+ranks, each calling ``run_node_task`` with its own device: the Gs phase
+sharded over the subgraph axis (``parallel/dist_subgraphs.py``), the Gc
+phase over a ``num_hosts`` × chips hierarchical mesh
+(``_make_hier_gc_steps``; it comes before ``fused_epochs``, which is then
+ignored).  Every rank takes the same host-side decisions, from values
+summed over the ranks; rank 0 alone logs, writes the intermediate CSV,
+saves the parameters and the resume checkpoint (a barrier after each
+save), and prints.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import zlib
-from typing import List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -130,18 +139,34 @@ class NodeTaskConfig:
                                           # checkpoint; loaded if present
     checkpoint_every: int = 0             # epochs between resume saves
                                           # (0 = phase and run boundaries)
-    device: str = "cuda"                  # "cpu" only when asked
-    num_devices: int = 1                  # >1 (the distributed
-                                          # curriculum) is not ported yet
+    device: str = "cuda"                  # "cpu" only when asked; a
+                                          # rank's own card (cuda:r) under
+                                          # num_devices > 1
+    num_devices: int = 1                  # >1: the ranks of the process
+                                          # group; the Gs phase sharded over
+                                          # the subgraph axis, the Gc phase
+                                          # over the hierarchical mesh
+    num_hosts: int = 1                    # with num_devices > 1: the Gc
+                                          # mesh as (hosts × chips), exact
+                                          # halo within a host, cluster
+                                          # summaries across hosts
+    gc_cluster: int = 0                   # with num_devices > 1: each
+                                          # rank's interior stragglers
+                                          # collapsed onto summaries of K
+                                          # nodes (snapped to a divisor of
+                                          # the padded shard)
+    gc_cluster_exact: int = 0             # the top-k straggler senders that
+                                          # keep the exact per-edge path
+    distributed: bool = False             # the distributed path at
+                                          # num_devices = 1 too (a one-rank
+                                          # world); above 1 it is the only
+                                          # path
 
 
 def _check_config(cfg: NodeTaskConfig) -> None:
-    if cfg.num_devices > 1:
-        raise NotImplementedError(
-            "run_node_task: num_devices > 1 (the distributed curriculum) is "
-            "not ported yet: ROADMAP.md §1 item 4 (distributed paths); "
-            "train --baseline --num_devices N runs the distributed "
-            "baseline")
+    if cfg.num_devices > 1 and cfg.num_devices % cfg.num_hosts:
+        raise ValueError(f"num_devices {cfg.num_devices} must divide by "
+                         f"num_hosts {cfg.num_hosts}")
     if cfg.exp_setup not in EXP_SETUPS:
         raise ValueError(f"exp_setup must be one of {EXP_SETUPS}")
     if cfg.gradient_method not in ("GD", "MB"):
@@ -203,20 +228,193 @@ def _gs_eval(model, batches, cfg: NodeTaskConfig, split: str) -> tuple:
     return float(loss), float(metric)
 
 
+def _dist_rank(cfg: NodeTaskConfig) -> int:
+    """This rank's index in the process group of ``cfg.num_devices``
+    ranks that the distributed curriculum runs in."""
+    import torch.distributed as dist
+    P = cfg.num_devices
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"num_devices={P} runs in an initialized process group of {P} "
+            "ranks (parallel.initialize_distributed), one run_node_task a "
+            "rank; train --num_devices starts them")
+    if dist.get_world_size() != P:
+        raise ValueError(f"num_devices={P} but the process group has "
+                         f"{dist.get_world_size()} ranks")
+    return dist.get_rank()
+
+
+def _make_dist_steps(cfg: NodeTaskConfig, batches, device) -> tuple:
+    """The subgraph-axis sharded Gs steps of the JAX package's
+    ``_make_dist_steps``: this rank's slice of every batch on ``device``,
+    MB's global chunk ``min(batch_size, chunk cap · P)`` over every
+    bucket.  Returns ``(train(model, opt, generator) -> loss,
+    evaluate(model, split) -> (loss, metric) floats)``."""
+    import torch.distributed as dist
+    from fitgnn_tpu_torch.parallel.dist_subgraphs import (
+        dist_gs_eval_step, dist_gs_train_epoch_mb, dist_gs_train_step_gd,
+        shard_batches)
+
+    P = cfg.num_devices
+    local = shard_batches(batches, dist.get_rank(), P, device)
+    if cfg.gradient_method == "MB":
+        bs = min(cfg.batch_size, *(_chunk_cap(cfg, b) * P for b in batches))
+
+        def train(model, opt, gen):
+            return dist_gs_train_epoch_mb(model, opt, local, gen, cfg.task,
+                                          bs, P)
+    else:
+        def train(model, opt, gen):
+            return dist_gs_train_step_gd(model, opt, local, gen, cfg.task)
+
+    def evaluate(model, split):
+        loss, metric = dist_gs_eval_step(model, local, cfg.task, split)
+        return float(loss), float(metric)
+
+    return train, evaluate
+
+
+@dataclasses.dataclass
+class HierGcPlan:
+    """The host side of the distributed Gc phase, the same on every rank:
+    the coarse graph's community placement, sharded under the layer's
+    weights, its val labels on the same placement, the (shard, community)
+    clusters, the interior collapse's cluster size and the exchange
+    plan."""
+
+    order: np.ndarray                 # node order of the placement
+    cluster_of: np.ndarray            # (P · n_loc,) cluster of each slot
+    cluster_size: int                 # K after the snap (0: no collapse)
+    sg: object                        # parallel.shard.ShardedGraph
+    y_val: np.ndarray                 # (P, n_loc) coarse val labels
+    plan: object                      # parallel.hierarchical.HierPlan
+
+
+def hier_gc_plan(cfg: NodeTaskConfig, coarse: CoarseData) -> HierGcPlan:
+    """The JAX package's ``_make_hier_gc_steps`` up to the plan: the
+    layer's aggregation weights on the coarse graph, Leiden on its real
+    non-self edges (``seed``), community placement onto the P shards,
+    ``shard_prebuilt_graph``, clusters from (shard, community) pairs,
+    ``gc_cluster`` snapped to the largest multiple of 128 that divides the
+    padded shard (with the JAX package's warning), and ``build_hier_plan``
+    with each rank's interior on the hybrid operator at its default
+    threshold of 150."""
+    from fitgnn_tpu_torch.graph.optimize import (_LAYER_SEMANTICS,
+                                                 _operator_weights)
+    from fitgnn_tpu_torch.parallel.hierarchical import build_hier_plan
+    from fitgnn_tpu_torch.parallel.multihost import placement_by_community
+    from fitgnn_tpu_torch.parallel.shard import (shard_node_array,
+                                                 shard_prebuilt_graph)
+    from fitgnn_tpu_torch.partition.community import leiden_communities
+
+    H, P = cfg.num_hosts, cfg.num_devices
+    ln = cfg.layer_name
+    if ln not in _LAYER_SEMANTICS:
+        raise ValueError(f"unknown layer {ln!r} for the distributed Gc phase")
+    g = coarse.graph
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    s = host(g.senders).astype(np.int64)
+    r = host(g.receivers).astype(np.int64)
+    w = host(g.edge_weight).astype(np.float32)
+    real = np.arange(len(s)) < int(g.n_edge)
+    nonself = real & (s != r)
+    # padding edges are weight-0 self-loops on the pad node, the
+    # convention _operator_weights keeps
+    wl = _operator_weights(s, r, w, g.num_nodes_padded, _LAYER_SEMANTICS[ln])
+    x = host(g.x)
+    labels = leiden_communities(s[nonself], r[nonself], x.shape[0],
+                                seed=cfg.seed)
+    order, _ = placement_by_community(labels, P)
+    sg = shard_prebuilt_graph(x, s, r, wl, host(coarse.y_train), P,
+                              train_mask=host(coarse.train_mask),
+                              val_mask=host(coarse.val_mask), order=order)
+    n_loc, n_pad = sg.nodes_per_shard, sg.num_nodes_global
+    # the val labels on the same placement as sg
+    y_val = shard_node_array(host(coarse.y_val), P, n_loc, order=order)
+    lab = np.concatenate([labels[order], np.full(
+        n_pad - len(order), labels.max() + 1, dtype=np.int64)])
+    pair = (np.arange(n_pad) // n_loc) * (int(lab.max()) + 2) + lab
+    _, cluster_of = np.unique(pair, return_inverse=True)
+    K = cfg.gc_cluster
+    n_pad_shard = -(-n_loc // 128) * 128
+    if K and n_pad_shard % K:
+        # the padded shard is set by the partition, not the user: the
+        # largest 128-multiple divisor of it at most K
+        nb = n_pad_shard // 128
+        cands = [128 * d for d in range(1, nb + 1)
+                 if nb % d == 0 and 128 * d <= K]
+        newk = max(cands) if cands else 128 if n_pad_shard % 128 == 0 else 0
+        print(f"warning: interior cluster size {K} does not divide the "
+              f"per-shard padded node count {n_pad_shard}; using {newk}")
+        K = newk
+    plan = build_hier_plan(sg.senders, sg.receivers, sg.edge_weight, H,
+                           P // H, n_loc, cluster_of, interior_hybrid=True,
+                           interior_semantics=_LAYER_SEMANTICS[ln],
+                           interior_cluster=K,
+                           interior_cluster_exact=cfg.gc_cluster_exact)
+    return HierGcPlan(order=order, cluster_of=cluster_of, cluster_size=K,
+                      sg=sg, y_val=y_val, plan=plan)
+
+
+class HierGcSteps(NamedTuple):
+    """The distributed Gc phase of one rank: ``train(model, opt,
+    generator) -> loss`` and ``evaluate(model) -> (loss, metric)`` for a
+    ``HierNodeModel``, with the rank's ``RankPlan`` and the host side."""
+
+    train: Callable
+    evaluate: Callable
+    rank_plan: object
+    host: HierGcPlan
+
+
+def _make_hier_gc_steps(cfg: NodeTaskConfig, coarse: CoarseData,
+                        device) -> HierGcSteps:
+    """The distributed Gc phase of the JAX package's
+    ``_make_hier_gc_steps``: ``hier_gc_plan``, the (num_hosts × chips)
+    mesh, this rank's plan slice, interior operator and shard on
+    ``device``."""
+    from fitgnn_tpu_torch.parallel.hierarchical import (hier_eval_step,
+                                                        hier_train_step)
+    from fitgnn_tpu_torch.parallel.mesh import make_hier_mesh
+
+    hg = hier_gc_plan(cfg, coarse)
+    mesh = make_hier_mesh(cfg.num_hosts, cfg.num_devices // cfg.num_hosts)
+    rp = hg.plan.local(mesh, device)
+    shard = hg.sg.local(mesh.rank, device)
+    yv = hg.y_val[mesh.rank]
+    y_val = torch.from_numpy(np.ascontiguousarray(yv.astype(
+        np.int64 if np.issubdtype(yv.dtype, np.integer) else np.float32))
+    ).to(device)
+    task = cfg.task
+
+    def train(model, opt, gen):
+        return hier_train_step(model, opt, shard.x, shard.y,
+                               shard.train_mask, rp, gen, task)
+
+    def evaluate(model):
+        return hier_eval_step(model, shard.x, y_val, shard.val_mask, rp,
+                              task)
+
+    return HierGcSteps(train, evaluate, rp, hg)
+
+
 def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
                   batch, verbose: bool = False) -> TaskResult:
     """Run ``cfg.runs`` runs of ``cfg.exp_setup`` on ``cfg.device``.
 
     ``coarse`` and ``batch`` are the partition's CPU tensors; ``batch`` is
     one ``SubgraphBatch`` or a sequence of size-bucketed ones (GD and eval
-    give the same result either way).  They move to the device once.  Each
-    run starts from ``reset_parameters`` drawn from a generator seeded with
-    ``seed + run``, and its dropout draws from a generator with the same
-    seed on the device.  With ``resume_path`` a checkpoint found there is
-    taken up first (completed runs are skipped, the run it was written in
-    goes on from its epoch), and the session's state is saved there at
-    each phase boundary, every ``checkpoint_every`` epochs and after each
-    run."""
+    give the same result either way).  They move to the device once (under
+    ``num_devices > 1`` this rank's shards alone).  Each run starts from
+    ``reset_parameters`` drawn from a generator seeded with ``seed + run``,
+    and its dropout draws from a generator with the same seed on the
+    device.  With ``resume_path`` a checkpoint found there is taken up
+    first (completed runs are skipped, the run it was written in goes on
+    from its epoch), and the session's state is saved there at each phase
+    boundary, every ``checkpoint_every`` epochs and after each run."""
     _check_config(cfg)
     if cfg.exp_setup != "Gs_train_2_Gs_infer" and coarse is None:
         raise ValueError(f"{cfg.exp_setup} requires a coarse graph")
@@ -227,16 +425,43 @@ def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
         raise TypeError("run_node_task: batch must be a SubgraphBatch or a "
                         "non-empty sequence of them")
     device = resolve_device(cfg.device)
-    batches = tuple(b.to(device) for b in batches)
-    if coarse is not None:
-        coarse = coarse.to(device)
     task = cfg.task
     use_gc = cfg.exp_setup in ("Gc_train_2_Gs_infer", "Gc_train_2_Gs_train")
     use_gs = cfg.exp_setup in ("Gs_train_2_Gs_infer", "Gc_train_2_Gs_train")
+    distributed = cfg.num_devices > 1 or cfg.distributed
+    hier = None
+    if distributed:
+        import torch.distributed as dist
+        from fitgnn_tpu_torch.parallel.hierarchical import hier_view
+        rank = _dist_rank(cfg)
+        gs_train, gs_eval = _make_dist_steps(cfg, batches, device)
+        if use_gc:
+            # the Gc phase on the hierarchical mesh: the whole curriculum
+            # runs distributed
+            hier = _make_hier_gc_steps(cfg, coarse, device)
+            hyb = hier.rank_plan.int_hybrid
+            tiles = 0 if hyb.bsr is None else hyb.bsr.nnz_blocks
+            if verbose and rank == 0:
+                print(f"[Gc hier] {cfg.num_hosts}x"
+                      f"{cfg.num_devices // cfg.num_hosts} mesh, rank 0 "
+                      f"interior: {tiles} dense tiles, {hyb.num_coo_edges} "
+                      "straggler edges", flush=True)
+    else:
+        rank = 0
+        batches = tuple(b.to(device) for b in batches)
+        if coarse is not None:
+            coarse = coarse.to(device)
+
+        def gs_train(model, opt, gen):
+            return _gs_train_epoch(model, opt, batches, gen, cfg)
+
+        def gs_eval(model, split):
+            return _gs_eval(model, batches, cfg, split)
+    lead = rank == 0
     fp = _config_fp(cfg)
 
     def vprint(msg):
-        if verbose:
+        if verbose and lead:
             print(msg, flush=True)
 
     results: List[RunResult] = []
@@ -283,16 +508,21 @@ def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
             best_val = here.best_val
 
         def save_resume(phase, epoch, since_best=0, run=run):
-            if cfg.resume_path is not None:
+            if cfg.resume_path is None:
+                return
+            if lead:
                 ckpt.save_resume(
                     cfg.resume_path, model, opt, best_state, best_val, gen,
                     phase, epoch, run,
                     [[r.test_loss, r.test_acc, r.test_time]
                      for r in results],
                     since_best=since_best, config_fp=fp)
+            if distributed:
+                # no rank goes on before the checkpoint is whole
+                dist.barrier()
 
         writer = None
-        if cfg.logdir is not None:
+        if cfg.logdir is not None and lead:
             from fitgnn_tpu_torch.utils.logging import ScalarWriter
             writer = ScalarWriter(cfg.logdir, run=run + 1)
             if here is not None:
@@ -310,7 +540,26 @@ def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
         if use_gc and (here is None or here.phase == "gc"):
             start, since_best = ((here.epoch + 1, here.since_best)
                                  if here is not None else (0, 0))
-            if cfg.fused_epochs and not cfg.early_stopping:
+            if hier is not None:
+                # the hier model is a view of the Gs model's layers, so the
+                # Gc phase steps the same parameters and optimizer
+                hmodel, tag = hier_view(model), "[Gc hier]"
+
+                def gc_epoch():
+                    train_loss = hier.train(hmodel, opt, gen)
+                    return train_loss, hier.evaluate(hmodel)[0]
+            else:
+                tag = "[Gc]"
+
+                def gc_epoch():
+                    train_loss = steps.gc_train_step(
+                        model, opt, coarse.graph, coarse.y_train,
+                        coarse.train_mask, gen, task,
+                        reduction=cfg.loss_reduction)
+                    return train_loss, steps.gc_eval_step(
+                        model, coarse.graph, coarse.y_val, coarse.val_mask,
+                        task)[0]
+            if hier is None and cfg.fused_epochs and not cfg.early_stopping:
                 t0 = time.perf_counter()
                 best_state, best_v, tr, vl = steps.gc_train_epochs_fused(
                     model, opt, coarse.graph, coarse.y_train,
@@ -330,13 +579,9 @@ def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
             else:
                 t_gc = t_ep0 = time.perf_counter()
                 for epoch in range(start, cfg.epochs1):
-                    train_loss = steps.gc_train_step(
-                        model, opt, coarse.graph, coarse.y_train,
-                        coarse.train_mask, gen, task,
-                        reduction=cfg.loss_reduction)
-                    val_loss, _ = steps.gc_eval_step(
-                        model, coarse.graph, coarse.y_val, coarse.val_mask,
-                        task)
+                    train_loss, val_loss = gc_epoch()
+                    # every rank's val loss is the same sum over the ranks,
+                    # so every rank takes the decisions below alike
                     val_loss = float(val_loss)
                     t_ep1 = time.perf_counter()
                     gc_times.append(t_ep1 - t_ep0)
@@ -344,7 +589,7 @@ def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
                     log("Gc_train_loss", float(train_loss), epoch)
                     log("Gc_val_loss", val_loss, epoch)
                     if epoch < 2 or epoch % 10 == 0:
-                        vprint(f"[Gc] epoch {epoch}: val={val_loss:.4f}"
+                        vprint(f"{tag} epoch {epoch}: val={val_loss:.4f}"
                                f" {t_ep1 - t_gc:.0f}s")
                     if val_loss < best_val or epoch == 0:
                         best_val, best_state = val_loss, snapshot()
@@ -358,7 +603,7 @@ def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
                             and (epoch + 1) % cfg.checkpoint_every == 0):
                         save_resume("gc", epoch, since_best)
                 if len(gc_times) > 1:
-                    vprint(f"[Gc] first epoch {gc_times[0]:.3f}s, steady "
+                    vprint(f"{tag} first epoch {gc_times[0]:.3f}s, steady "
                            f"{float(np.median(gc_times[1:])):.4f}s/epoch "
                            f"(median of {len(gc_times) - 1})")
 
@@ -381,9 +626,8 @@ def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
                 save_resume("gs", -1)
             t_gs = t_ep0 = time.perf_counter()
             for epoch in range(start, cfg.epochs2):
-                train_loss = float(_gs_train_epoch(model, opt, batches, gen,
-                                                   cfg))
-                val_loss, val_acc = _gs_eval(model, batches, cfg, "val")
+                train_loss = float(gs_train(model, opt, gen))
+                val_loss, val_acc = gs_eval(model, "val")
                 t_ep1 = time.perf_counter()
                 gs_times.append(t_ep1 - t_ep0)
                 t_ep0 = t_ep1
@@ -410,12 +654,12 @@ def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
                     current = snapshot()
                     model.load_state_dict(best_state)
                     t0 = time.perf_counter()
-                    t_loss, t_acc = _gs_eval(model, batches, cfg, "test")
+                    t_loss, t_acc = gs_eval(model, "test")
                     t_time = time.perf_counter() - t0
                     model.load_state_dict(current)
                     log("Gs_test_loss_intermediate", t_loss, epoch)
                     log("Gs_test_acc_intermediate", t_acc, epoch)
-                    if cfg.intermediate_csv_path is not None:
+                    if cfg.intermediate_csv_path is not None and lead:
                         from fitgnn_tpu_torch.utils.results import \
                             append_csv_row
                         append_csv_row(
@@ -430,16 +674,16 @@ def run_node_task(cfg: NodeTaskConfig, coarse: Optional[CoarseData],
         # test with the best-val parameters: a warm-up, then timed to the
         # value
         model.load_state_dict(best_state)
-        _gs_eval(model, batches, cfg, "test")
+        gs_eval(model, "test")
         t0 = time.perf_counter()
-        test_loss, test_metric = _gs_eval(model, batches, cfg, "test")
+        test_loss, test_metric = gs_eval(model, "test")
         elapsed = time.perf_counter() - t0
         results.append(RunResult(test_loss=test_loss, test_acc=test_metric,
                                  test_time=elapsed,
                                  gc_epoch_seconds=gc_times,
                                  gs_epoch_seconds=gs_times,
                                  gc_fused_seconds=gc_fused_s))
-        if cfg.save_path is not None:
+        if cfg.save_path is not None and lead:
             ckpt.save_params(cfg.save_path, best_state)
         # the run-complete marker, after model.pt: a crash between the two
         # re-runs the save; a resumed session starts the next run fresh

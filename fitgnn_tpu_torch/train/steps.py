@@ -139,22 +139,26 @@ def gs_train_step_gd(model: nn.Module, opt: torch.optim.Optimizer,
     return loss.detach()
 
 
+def pad_subgraphs(batch: SubgraphBatch, pad: int) -> SubgraphBatch:
+    """``batch`` with ``pad`` empty subgraphs after its own (zero features
+    and weights, no nodes or edges, all masks False), which contribute
+    nothing."""
+    if not pad:
+        return batch
+    return SubgraphBatch(*(
+        None if a is None
+        else torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+        for a in batch))
+
+
 def chunk_pad(batch: SubgraphBatch, chunk: int) -> tuple:
     """The batch cut into ``k`` chunks of ``chunk`` subgraphs, in order:
-    views, except the last, which is padded with empty subgraphs (zero
-    features and weights, no nodes or edges, all masks False), so they
-    contribute nothing.  Returns ``(chunks, k)``."""
+    views, except the last, which is padded with empty subgraphs
+    (``pad_subgraphs``).  Returns ``(chunks, k)``."""
     size = batch.num_subgraphs
     k = -(-size // chunk)
     chunks = [batch.slice(i * chunk, (i + 1) * chunk) for i in range(k)]
-    pad = k * chunk - size
-    if pad:
-        def p(a):
-            if a is None:
-                return None
-            return torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
-
-        chunks[-1] = SubgraphBatch(*(p(v) for v in chunks[-1]))
+    chunks[-1] = pad_subgraphs(chunks[-1], k * chunk - size)
     return chunks, k
 
 

@@ -281,14 +281,6 @@ def test_run_node_task_regression_matches_jax():
     close(got.summary["best_metric"], ref.summary["best_metric"])
 
 
-@pytest.mark.parametrize("field,value", [("num_devices", 2)])
-def test_run_node_task_refuses_unported_options(field, value):
-    part, _ = partitions()
-    cfg = loop.NodeTaskConfig(device="cpu", **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.run_node_task(cfg, part.coarse, part.subgraphs)
-
-
 @pytest.fixture
 def toy(tmp_path, monkeypatch):
     """A 300-node, 4-class community dataset as an npz cache; the working

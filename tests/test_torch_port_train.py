@@ -313,7 +313,6 @@ def test_train_baseline_node_reg(toy):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--num_devices", "2"], ["--num_devices", "4", "--num_hosts", "2"],
     ["--baseline", "--resume"],
     ["--baseline", "--checkpoint_every", "5"]])
 def test_unported_train_options_raise(flags):

@@ -14,7 +14,18 @@ and the port alone, never JAX.  The cases:
 * ``train``: ``hier_train_step`` steps from the case's parameters (a
   ``NodeModel`` state dict), then ``hier_eval_step``: the losses, the
   first step's gradients (summed over the ranks), the parameters after
-  the steps and the eval's (loss, metric).
+  the steps and the eval's (loss, metric);
+* ``gs``: the subgraph-axis Gs steps on this rank's slice of the case's
+  batches (``shard_batches``) from its parameters at dropout 0: the
+  val and test evals (``dist_gs_eval_step``), then one GD step or one MB
+  epoch; the evals, the loss, the parameters after it and Adam's step;
+* ``gc_eval``: the distributed Gc phase of ``run_node_task``
+  (``_make_hier_gc_steps`` on the case's coarse graph and config) from
+  its parameters at dropout 0: the val eval's (loss, metric);
+* ``run``: ``run_node_task`` of the case's config on its coarse graph and
+  batches: the test (loss, metric), the epochs timed and the final
+  parameters; with ``cut`` a first session stopped before that Gs val
+  eval (its last resume save standing) is taken up by a second.
 """
 
 import os
@@ -22,18 +33,26 @@ import pickle
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from fitgnn_tpu_torch.models.models import NodeModel  # noqa: E402
 from fitgnn_tpu_torch.parallel import (HierNodeModel,  # noqa: E402
-                                       build_hier_plan, hier_aggregate,
+                                       build_hier_plan, dist_gs_eval_step,
+                                       dist_gs_train_epoch_mb,
+                                       dist_gs_train_step_gd,
+                                       hier_aggregate,
                                        hier_attention_aggregate,
                                        hier_eval_step, hier_train_step,
-                                       initialize_distributed,
-                                       make_hier_mesh)
+                                       hier_view, initialize_distributed,
+                                       make_hier_mesh, shard_batches)
+from fitgnn_tpu_torch.parallel import dist_subgraphs  # noqa: E402
+from fitgnn_tpu_torch.train import loop  # noqa: E402
+from fitgnn_tpu_torch.train.checkpoint import optimizer_step  # noqa: E402
 from fitgnn_tpu_torch.train.steps import adam_l2  # noqa: E402
 
 
@@ -43,6 +62,81 @@ def _plan(case, mesh):
         "weights", sg.edge_weight), case["H"], case["D"], sg.nodes_per_shard,
         case["cluster_of"], **case.get("plan", {}))
     return sg, plan.local(mesh, "cpu")
+
+
+class Cut(Exception):
+    """A session stopped on purpose (the ``run`` case's ``cut``)."""
+
+
+def _node_model(case):
+    model = NodeModel(case["layer"], in_dim=case["in_dim"],
+                      hidden=case["hidden"], num_layers=2,
+                      out_dim=case["out_dim"],
+                      classify=case["task"] == "classification",
+                      dropout_rate=0.0)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in case["params"].items()})
+    return model
+
+
+def _state(model):
+    return {k: v.detach().numpy().copy()
+            for k, v in model.state_dict().items()}
+
+
+def run_curriculum_case(case, rank, world):
+    """The distributed curriculum's cases (``gs``, ``gc_eval``, ``run``)."""
+    task = case.get("task")
+    if case["kind"] == "gs":
+        local = shard_batches(case["batches"], rank, world, "cpu")
+        model = _node_model(case)
+        evals = {split: tuple(float(v) for v in dist_gs_eval_step(
+            model, local, task, split)) for split in ("val", "test")}
+        opt = adam_l2(model.parameters(), case["lr"], case["wd"])
+        if case["method"] == "GD":
+            loss = dist_gs_train_step_gd(model, opt, local, None, task)
+        else:
+            loss = dist_gs_train_epoch_mb(model, opt, local, None, task,
+                                          case["batch_size"], world)
+        return {"evals": evals, "loss": float(loss),
+                "params": _state(model), "steps": optimizer_step(opt)}
+    if case["kind"] == "gc_eval":
+        cfg = loop.NodeTaskConfig(**case["cfg"], device="cpu")
+        steps = loop._make_hier_gc_steps(cfg, case["coarse"], "cpu")
+        loss, metric = steps.evaluate(hier_view(_node_model(case)))
+        return {"eval": (float(loss), float(metric))}
+    # "run": the final model of each session is the last NodeModel built
+    models = []
+
+    class Recorded(NodeModel):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            models.append(self)
+
+    cfg = loop.NodeTaskConfig(**case["cfg"], device="cpu")
+    with mock.patch.object(loop, "NodeModel", Recorded):
+        if case.get("cut") is not None:
+            calls = [0]
+            evaluate = dist_subgraphs.dist_gs_eval_step
+
+            def cut_at(model, batches, task, split="val", group=None):
+                calls[0] += 1
+                if calls[0] == case["cut"]:
+                    raise Cut
+                return evaluate(model, batches, task, split, group)
+
+            with mock.patch.object(dist_subgraphs, "dist_gs_eval_step",
+                                   cut_at):
+                try:
+                    loop.run_node_task(cfg, case["coarse"], case["batches"])
+                    raise AssertionError("the session was not cut")
+                except Cut:
+                    pass
+        res = loop.run_node_task(cfg, case["coarse"], case["batches"])
+    r = res.runs[-1]
+    return {"test": (r.test_loss, r.test_acc),
+            "epochs": (len(r.gc_epoch_seconds), len(r.gs_epoch_seconds)),
+            "params": _state(models[-1])}
 
 
 def run_case(case, mesh):
@@ -161,10 +255,13 @@ def main(rank, world, store, spec, out):
         cases = pickle.load(f)
     meshes = {}
     for name, case in cases:
-        hd = (case["H"], case["D"])
-        if hd not in meshes:
-            meshes[hd] = make_hier_mesh(*hd)
-        res = run_case(case, meshes[hd])
+        if case["kind"] in ("gs", "gc_eval", "run"):
+            res = run_curriculum_case(case, rank, world)
+        else:
+            hd = (case["H"], case["D"])
+            if hd not in meshes:
+                meshes[hd] = make_hier_mesh(*hd)
+            res = run_case(case, meshes[hd])
         path = os.path.join(out, f"{name}.{rank}.pkl")
         with open(path + ".tmp", "wb") as f:
             pickle.dump(res, f)
