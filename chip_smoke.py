@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (the full-graph
-baselines, the FIT-GNN curriculum, its distributed form at one rank and
-the graph-level tasks) on one GPU and hold its CUDA kernels against their
-plain PyTorch versions.
+baselines, the FIT-GNN curriculum, its distributed forms at one rank, the
+flat data mesh's steps, the graph-level tasks and a raw Planetoid set) on
+one GPU and hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -351,10 +351,34 @@ Phases (any failure exits non-zero before the result lines):
    (dropout 0.5): its launches (the Gc epochs' alone), the hier Gc ms an
    epoch, the Gs seconds an epoch and the test eval's seconds beside
    phase 8's single-device figures;
-21. one JSON line with every kernel's numbers, the bf16 forms and the
+21. the flat data mesh (``parallel/halo.py``, ``dist_model.py``,
+   ``dist_train.py``) in a one-rank NCCL world (``phase_flat``): Leiden
+   on the bench graph and ``placement_by_community`` (the identity at one
+   shard), ``shard_graph`` under each layer's semantics and
+   ``build_halo_plan`` (E_loc, K = 8 and no boundary row printed); for
+   GCN, SAGE, GIN and GAT at hidden 512 from the same seed-0 parameters,
+   dropout off: the ``DistNodeModel``'s eval forward and test eval, the
+   ``DistNodeModelHalo``'s test eval, one all-gather and one halo train
+   step, every counter at 0 just before and none of the port's kernels
+   launched; under PyTorch's deterministic algorithms the halo table's
+   eval, loss, gradients and parameters bit for bit the all-gather
+   table's; the forward, the eval and the step's loss and gradients held
+   against ``NodeModel``'s ``gc_eval_step`` / ``gc_train_step`` on the
+   shard's edges as a per-edge graph in the same node order (GIN's ReLU
+   masks replayed, as in phase 10); the two steps' ms and edges/s beside
+   that single-device step (GCN also beside phase 3's operator, K3 and
+   K1); then ``scripts/torch_scaling_bench.py --devices 1`` as a process
+   of its own (its P=1 line printed);
+22. a Cora-shaped Planetoid raw set (``write_planetoid_cora``: 2,708
+   nodes, 1,433 features, 7 classes, ``ind.cora.*`` pickles from seed 0)
+   under the temp root, no npz cache: ``load_node_dataset`` reads it,
+   then ``stats`` and ``train --baseline --dataset cora`` (hidden 512, 5
+   epochs) through the port's CLI on ``cuda``, no launch, their rows
+   checked, and still no cache afterwards;
+23. one JSON line with every kernel's numbers, the bf16 forms and the
    forms at edge 256 (``K1@256``, ``K1bf@256``, ``K4@256``, ``K7f@256``,
    ...) as their own entries (launches summed over the main-path phases 5
-   to 20, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
+   to 22, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
    K7sums, and K1, K2, K9, K4, K4ᵀ (their walks of the live quadrants),
    K5, K7f, K7bt, K7s and K7sums at 256, with their ``ptxas`` register
    and spill counts), then the ``ok`` line.
@@ -5762,6 +5786,275 @@ def phase_dist_curriculum(device, tmp, single) -> dict:
     return phases
 
 
+# phase 21: the flat data mesh at one NCCL rank on the bench graph
+FLAT_TIMED = 5
+FLAT_LAYERS = ("GCNConv", "SAGEConv", "GINConv", "GATConv")
+
+
+def phase_flat(device, tmp, ds, g) -> dict:
+    """Phase 21 (see the module docstring): returns the (empty) launches
+    of each layer's counted steps and evals."""
+    import torch.distributed as dist
+    from fitgnn_tpu_torch.graph.build import build_graph
+    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.parallel import (LAYER_SEMANTICS, DistNodeModel,
+                                           DistNodeModelHalo,
+                                           build_halo_plan, dist_eval_step,
+                                           initialize_distributed,
+                                           make_dist_eval_step,
+                                           make_dist_train_step,
+                                           make_halo_train_step, make_mesh,
+                                           placement_by_community,
+                                           shard_graph)
+    from fitgnn_tpu_torch.partition.community import leiden_communities
+    from fitgnn_tpu_torch.train import steps
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    task = "classification"
+    n = ds.num_nodes
+    t0 = time.perf_counter()
+    labels = leiden_communities(ds.senders, ds.receivers, n, seed=0)
+    place, _ = placement_by_community(labels, 1)
+    check(np.array_equal(place, np.arange(n)),
+          "phase 21: the placement at one shard is not the identity")
+
+    def shard(sem):
+        return shard_graph(ds.x, ds.senders, ds.receivers, ds.y, 1,
+                           train_mask=ds.train_mask, val_mask=ds.val_mask,
+                           test_mask=ds.test_mask, order=place,
+                           semantics=sem)
+
+    # the single-device reference: the GCN shard's real edges as a
+    # per-edge graph in the shard's node order (GCN reads its weights,
+    # SAGE and GIN its non-self edges, GAT its edge mask)
+    sg = shard("gcn_norm")
+    real = sg.edge_weight[0] != 0
+    gref = build_graph(sg.x[0], sg.senders[0][real], sg.receivers[0][real],
+                       edge_weight=sg.edge_weight[0][real], y=sg.y[0],
+                       train_mask=sg.train_mask[0],
+                       test_mask=sg.test_mask[0], undirected=False,
+                       self_loops=False, normalize=False)
+    print(f"flat: Leiden ({int(labels.max()) + 1} communities), the "
+          f"placement (the identity at one shard) and the reference graph "
+          f"in {time.perf_counter() - t0:.1f} s host")
+    initialize_distributed(device, f"file://{tmp}/flat_store", 0, 1)
+    phases = {}
+    try:
+        mesh = make_mesh(1)
+        check(dist.get_backend() == "nccl", "phase 21 is not on NCCL")
+        gd, g3 = gref.to(device), g.to(device)
+        del gref
+        for layer in FLAT_LAYERS:
+            t0 = time.perf_counter()
+            if layer != "GCNConv":
+                sg = shard(LAYER_SEMANTICS[layer])
+            plan = build_halo_plan(sg.senders, sg.receivers, sg.edge_weight,
+                                   1, sg.nodes_per_shard)
+            e_real = int((sg.edge_weight[0] != 0).sum())
+            print(f"flat {layer}: shard and plan in "
+                  f"{time.perf_counter() - t0:.1f} s host; E_loc "
+                  f"{sg.senders.shape[1]} ({e_real} real edges), n_loc "
+                  f"{sg.nodes_per_shard}, halo K {plan.k}, "
+                  f"{int(plan.send_mask.sum())} boundary rows")
+            check(sg.nodes_per_shard == n and plan.k == 8
+                  and not plan.send_mask.any(),
+                  f"flat {layer}: unexpected shard or plan at one rank")
+            local = sg.local(0, device)
+            edges, lp = sg.local_edges(0, device), plan.local(0, device)
+            ref = NodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                            dropout_rate=0.0)
+            ref.reset_parameters(torch.Generator().manual_seed(0))
+            ag = DistNodeModel(layer, NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                               dropout_rate=0.0)
+            halo = DistNodeModelHalo(layer, NUM_FEATURES, HIDDEN, 2,
+                                     NUM_CLASSES, dropout_rate=0.0)
+            for m in (ag, halo):
+                m.load_state_dict(ref.state_dict())
+                m.to(device)
+            ref.to(device)
+            opts = [steps.adam_l2(m.parameters(), 0.01, 5e-4)
+                    for m in (ag, halo, ref)]
+            step_a = make_dist_train_step(mesh, ag)
+            step_h = make_halo_train_step(mesh, halo, lp)
+            relus = ReluMasks()        # GIN's kinks, as phase 10's
+            # the two tables under deterministic algorithms (the segment
+            # sums' index_add_ adds atomically otherwise), bit for bit
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                reset_counts()
+                ag.eval()
+                with torch.no_grad():
+                    out = ag(local.x, edges.senders, edges.receivers,
+                             edges.edge_weight, group=mesh.chip_group)
+                ev_a = make_dist_eval_step(mesh, ag, "test")(local, edges)
+                ev_h = dist_eval_step(halo, local, lp, "test",
+                                      mesh.chip_group)
+                with relus.record():
+                    loss_a = step_a(opts[0], local, edges)
+                loss_h = step_h(opts[1], local)
+                torch.cuda.synchronize()
+                launches = read_counts()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            expect(launches, {}, f"flat {layer} eval and steps")
+            phases[f"flat {layer} steps"] = launches
+            same = (torch.equal(torch.stack(ev_a), torch.stack(ev_h))
+                    and torch.equal(loss_a, loss_h)
+                    and all(torch.equal(pa.grad, ph.grad)
+                            and torch.equal(pa, ph)
+                            for pa, ph in zip(ag.parameters(),
+                                              halo.parameters())))
+            check(same, f"flat {layer}: the halo table's eval and step are "
+                  "not bit for bit the all-gather table's")
+            print(f"flat {layer}: the halo table's eval, step loss, "
+                  "gradients and parameters bit for bit the all-gather "
+                  "table's (deterministic algorithms)")
+            ref.eval()
+            with torch.no_grad():
+                r_out = ref(gd.x, gd)[:n]
+                r_ev = steps.gc_eval_step(ref, gd, gd.y, gd.test_mask, task)
+            compare(f"flat {layer} eval forward", out, r_out)
+            compare(f"flat {layer} eval (loss, metric)",
+                    torch.stack(ev_a).float(), torch.stack(r_ev).float())
+            with relus.replay():
+                r_loss = steps.gc_train_step(ref, opts[2], gd, gd.y,
+                                             gd.train_mask, None, task)
+            relus.report(f"flat {layer} step, single-device reference")
+            compare(f"flat {layer} step loss", loss_a.reshape(1),
+                    r_loss.reshape(1))
+            r_grads = dict(ref.named_parameters())
+            for k, p in ag.named_parameters():
+                compare(f"flat {layer} grad {k}", p.grad, r_grads[k].grad)
+
+            times = {
+                "all-gather step": cuda_ms(
+                    lambda: step_a(opts[0], local, edges), FLAT_TIMED),
+                "halo step": cuda_ms(lambda: step_h(opts[1], local),
+                                     FLAT_TIMED),
+                "single-device step (per edge)": cuda_ms(
+                    lambda: steps.gc_train_step(ref, opts[2], gd, gd.y,
+                                                gd.train_mask, None, task),
+                    FLAT_TIMED)}
+            if layer == "GCNConv":
+                # the single-device path of train --baseline: phase 3's
+                # hybrid operator (K3, then K1)
+                times["single-device step (phase 3's operator)"] = cuda_ms(
+                    lambda: steps.gc_train_step(ref, opts[2], g3, g3.y,
+                                                g3.train_mask, None, task),
+                    FLAT_TIMED)
+            print(f"flat {layer} ms (CUDA events over {FLAT_TIMED}, hidden "
+                  f"{HIDDEN}, dropout off, {e_real} edges, {smi}): "
+                  + ", ".join(f"{k} {v:.3f} ({e_real / v / 1e3:.1f} M "
+                              "edges/s)" for k, v in times.items()))
+            del ref, ag, halo, opts, local, edges, lp, plan
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    del gd, g3
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "scripts", "torch_scaling_bench.py"), "--devices",
+         "1"], capture_output=True, text=True, timeout=600)
+    check(bench.returncode == 0, "scripts/torch_scaling_bench.py --devices 1 "
+          f"failed:\n{bench.stderr[-3000:]}")
+    line = [ln for ln in bench.stdout.splitlines() if ln.startswith("P=1:")]
+    check(len(line) == 1, f"scaling bench: no P=1 line in {bench.stdout!r}")
+    print(f"flat scaling bench (--devices 1, the script's graph, "
+          f"{time.perf_counter() - t0:.1f} s): {line[0]}")
+    return phases
+
+
+# phase 22: a Cora-shaped Planetoid raw set
+CORA_NODES, CORA_FEATURES, CORA_CLASSES = 2708, 1433, 7
+CORA_TRAIN, CORA_TEST = 140, 1000
+
+
+def write_planetoid_cora(root: str, seed: int = 0) -> None:
+    """``<root>/cora/raw/ind.cora.*`` from ``seed``: 2,708 nodes, 1,433
+    binary features around a class centre each, 7 classes, neighbours
+    drawn mostly among a node's class; 140 rows of ``x``/``y``, 1,000
+    test ids in a shuffled index file, ``tx``/``ty`` in its order, as
+    Planetoid's files hold them."""
+    import pickle
+
+    import scipy.sparse as sp
+
+    raw = os.path.join(root, "cora", "raw")
+    os.makedirs(raw)
+    rng = np.random.default_rng(seed)
+    n, f, c = CORA_NODES, CORA_FEATURES, CORA_CLASSES
+    n_allx = n - CORA_TEST
+    y = rng.integers(0, c, n)
+    centres = rng.random((c, f)) < 0.02
+    x = (centres[y] | (rng.random((n, f)) < 0.01)).astype(np.float32)
+    by_class = np.argsort(y, kind="stable")
+    pos = np.empty(n, dtype=np.int64)
+    pos[by_class] = np.arange(n)
+    graph = {}
+    for i in range(n):
+        near = by_class[np.clip(pos[i] + rng.integers(-20, 21, 3), 0, n - 1)]
+        graph[i] = sorted({int(v) for v in near} | {int(rng.integers(n))})
+    test_idx = rng.permutation(np.arange(n_allx, n))
+    onehot = np.eye(c)[y]
+    objs = dict(x=sp.csr_matrix(x[:CORA_TRAIN]), y=onehot[:CORA_TRAIN],
+                tx=sp.csr_matrix(x[test_idx]), ty=onehot[test_idx],
+                allx=sp.csr_matrix(x[:n_allx]), ally=onehot[:n_allx],
+                graph=graph)
+    for key, obj in objs.items():
+        with open(os.path.join(raw, f"ind.cora.{key}"), "wb") as fo:
+            pickle.dump(obj, fo)
+    with open(os.path.join(raw, "ind.cora.test.index"), "w") as fo:
+        fo.write("\n".join(str(i) for i in test_idx))
+
+
+def phase_planetoid(tmp) -> dict:
+    """Phase 22 (see the module docstring): returns the launches of the
+    ``train --baseline`` run."""
+    from fitgnn_tpu_torch.data.datasets import load_node_dataset
+    from fitgnn_tpu_torch.data.stats import DatasetStats
+    from fitgnn_tpu_torch.utils.results import TRAIN_NODE_CLS_HEADER
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "dataset")
+    write_planetoid_cora(root)
+    ds = load_node_dataset("cora", root)
+    check(ds.x.shape == (CORA_NODES, CORA_FEATURES)
+          and ds.num_classes == CORA_CLASSES
+          and int(ds.train_mask.sum()) == CORA_TRAIN
+          and int(ds.test_mask.sum()) == CORA_TEST,
+          f"planetoid: unexpected arrays {ds.x.shape}, {ds.num_classes} "
+          "classes")
+    print(f"planetoid: raw files written and read in "
+          f"{time.perf_counter() - t0:.1f} s host ({len(ds.senders)} "
+          "edges)")
+    launches, _, wall = run_cli(tmp, ["stats"], dataset="cora")
+    expect(launches, {}, "planetoid stats")
+    row = read_rows(os.path.join(tmp, "dataset_info.csv"),
+                    DatasetStats.CSV_HEADER)[-1]
+    check(row["dataset"] == "cora" and row["num_nodes"] == str(CORA_NODES)
+          and row["num_features"] == str(CORA_FEATURES)
+          and row["num_classes"] == str(CORA_CLASSES), f"stats row {row}")
+    print(f"planetoid stats: {wall:.1f} s; dataset_info.csv row {row}")
+    launches, _, wall = run_cli(tmp, [
+        "train", "--baseline", "--hidden", str(HIDDEN), "--runs", "1",
+        "--epochs1", "5", "--output_dir", "cora"], dataset="cora")
+    expect(launches, {}, "planetoid train --baseline")
+    rows = read_rows(os.path.join(tmp, "results", "baseline", "cora.csv"),
+                     TRAIN_NODE_CLS_HEADER)
+    check(len(rows) == 1 and np.isfinite(float(rows[0]["best_loss"]))
+          and float(rows[0]["best_loss"]) > 0, f"train row {rows}")
+    check(not os.path.exists(os.path.join(root, "cora", "cora.npz")),
+          "planetoid: an npz cache appeared")
+    print(f"planetoid train --baseline: {wall:.1f} s; best_acc "
+          f"{rows[0]['best_acc']} best_loss {rows[0]['best_loss']} "
+          f"ave_time {rows[0]['ave_time']}")
+    return {"planetoid train": launches}
+
+
 def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     """One kernel's line: times and bounds summed over the shapes one step
     or forward launches it at (those not marked ``on_path: False``); errors
@@ -6046,9 +6339,12 @@ def main() -> int:
         del ops
         torch.cuda.empty_cache()
         phases.update(phase_hier(device, tmp, ds, g, order))
-        del g
         torch.cuda.empty_cache()
         phases.update(phase_dist_curriculum(device, tmp, single))
+        torch.cuda.empty_cache()
+        phases.update(phase_flat(device, tmp, ds, g))
+        del g
+        phases.update(phase_planetoid(tmp))
         torch.cuda.empty_cache()
 
     kernels_line = {"kernels": [

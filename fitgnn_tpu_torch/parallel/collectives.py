@@ -1,4 +1,4 @@
-"""Differentiable collectives of the hierarchical layer, in place of the
+"""Differentiable collectives of the distributed layers, in place of the
 JAX package's ``jax.lax.all_to_all``, ``all_gather`` and ``psum``.
 
 A rank's loss reaches other ranks' activations only through these
@@ -68,6 +68,14 @@ def halo_exchange(buf: torch.Tensor, mesh) -> torch.Tensor:
     """(D, K, F) rows to send to each chip of this host → the (D·K, F) halo
     table: rows ``[d·K, (d+1)·K)`` come from chip ``d``."""
     return _AllToAll.apply(buf, mesh.chip_group).reshape(-1, buf.shape[-1])
+
+
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """(n, F) rows of this rank → the (P·n, F) rows of every rank of
+    ``group`` (None: the default group), rank ``p``'s at ``[p·n,
+    (p+1)·n)``: ``jax.lax.all_gather(x, axis, tiled=True)``.  The backward
+    reduce-scatters (sums) the cotangent."""
+    return _AllGather.apply(x, group)
 
 
 def gather_summaries(local: torch.Tensor, mesh) -> torch.Tensor:

@@ -12,6 +12,9 @@ In the port one rank is one shard, and each mesh axis is a set of
 * a **host group** is the H ranks that share a chip index, in host order:
   the summaries' second gather runs over it (the ``host`` axis).
 
+The flat ``data`` mesh of the all-gather and halo layers (``make_mesh``)
+is the (1 × P) mesh: its chip group holds every rank, in rank order.
+
 ``torch.distributed.new_group`` must be called by every rank in the same
 order, so every rank creates every group, chip groups first.
 """
@@ -64,3 +67,12 @@ def make_hier_mesh(num_hosts: int, chips_per_host: int) -> HierMesh:
     return HierMesh(num_hosts, chips_per_host, rank,
                     chip_groups[rank // chips_per_host],
                     host_groups[rank % chips_per_host])
+
+
+def make_mesh(num_devices: int | None = None) -> HierMesh:
+    """The flat ``data`` mesh over an initialized process group of exactly
+    ``num_devices`` ranks (default: the whole world): an H = 1
+    ``HierMesh`` whose ``chip_group`` is the data axis."""
+    if num_devices is None:
+        num_devices = dist.get_world_size()
+    return make_hier_mesh(1, num_devices)

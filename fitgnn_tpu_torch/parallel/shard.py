@@ -35,6 +35,15 @@ class LocalShard(NamedTuple):
     test_mask: torch.Tensor
 
 
+class LocalEdges(NamedTuple):
+    """One shard's edges on its rank's device: global senders (the
+    all-gather table's row ids), local receivers."""
+
+    senders: torch.Tensor       # (E_loc,) int64
+    receivers: torch.Tensor     # (E_loc,) int64
+    edge_weight: torch.Tensor   # (E_loc,)
+
+
 class ShardedGraph(NamedTuple):
     """Leading axis = shard. Senders are GLOBAL ids; receivers LOCAL."""
 
@@ -68,6 +77,13 @@ class ShardedGraph(NamedTuple):
         return LocalShard(*(torch.from_numpy(np.ascontiguousarray(a)).to(
             device) for a in (self.x[p], y, self.train_mask[p],
                               self.val_mask[p], self.test_mask[p])))
+
+    def local_edges(self, p: int, device) -> LocalEdges:
+        """Shard ``p``'s edges on ``device``, indices as int64."""
+        return LocalEdges(*(torch.from_numpy(np.ascontiguousarray(a)).to(
+            device) for a in (self.senders[p].astype(np.int64),
+                              self.receivers[p].astype(np.int64),
+                              self.edge_weight[p])))
 
 
 def shard_graph(

@@ -1,6 +1,7 @@
 """The port's CLI against the JAX package, on the CPU: ``infer-baseline``
 on a node dataset, ``train`` and ``infer`` on a graph-level one, the
-dataset loaders, and the import rule (no JAX in the port)."""
+dataset loaders (caches and raw files), and the import rule (no JAX in
+the port, and no pandas in its loaders)."""
 
 import os
 import subprocess
@@ -16,6 +17,8 @@ from fitgnn_tpu.bench.inference import \
     baseline_inference_benchmark as jax_baseline_benchmark
 from fitgnn_tpu.data.datasets import \
     load_graph_dataset as jax_load_graph_dataset
+from fitgnn_tpu.data.datasets import \
+    load_node_dataset as jax_load_node_dataset
 from fitgnn_tpu.data.splits import \
     splits_classification as jax_splits_classification
 from fitgnn_tpu.data.splits import splits_regression as jax_splits_regression
@@ -34,6 +37,8 @@ from fitgnn_tpu_torch.data.splits import (splits_classification,
 from fitgnn_tpu_torch.data.synthetic import random_graph_dataset
 from fitgnn_tpu_torch.models.convert import params_from_flax
 from fitgnn_tpu_torch.utils.results import INFERENCE_HEADER, format_row
+
+from torch_port_raw_files import write_ogbn, write_planetoid, write_qm9
 
 torch.set_num_threads(1)
 
@@ -200,8 +205,15 @@ def test_graph_dataset_loading(toyg):
     for a, b in zip(again.graphs, ref.graphs):
         for u, v in zip(a, b):
             np.testing.assert_array_equal(u, v)
-    with pytest.raises(NotImplementedError, match="other dataset loaders"):
-        load_graph_dataset("QM9", str(toyg))
+    # a raw QM9 set (no cache): the JAX package's arrays
+    write_qm9(str(toyg))
+    got, ref = (f("QM9", str(toyg)) for f in (load_graph_dataset,
+                                              jax_load_graph_dataset))
+    assert len(got.graphs) == len(ref.graphs) == 3
+    for a, b in zip(got.graphs, ref.graphs):
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u, v)
+    np.testing.assert_array_equal(got.y, ref.y)
     with pytest.raises(DatasetNotFoundError):
         load_graph_dataset("nope", str(toyg))
 
@@ -225,15 +237,22 @@ def test_dataset_loading(toy):
     assert got.train_mask is None and got.num_classes == 4
     with pytest.raises(DatasetNotFoundError):
         load_node_dataset("nope", str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        load_node_dataset("cora", str(tmp_path))
+    # raw Planetoid files (no cache): the JAX package's arrays
+    write_planetoid(str(tmp_path), name="cora")
+    got, ref = (f("cora", str(tmp_path)) for f in (load_node_dataset,
+                                                   jax_load_node_dataset))
+    for k in ("x", "senders", "receivers", "y", "train_mask", "val_mask",
+              "test_mask"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(ref, k))
     ring = load_node_dataset("random_50", str(tmp_path))
     assert ring.num_nodes == 50 and len(ring.senders) == 200
 
 
-def test_port_imports_neither_jax_nor_reference():
+def test_port_imports_neither_jax_nor_reference(tmp_path):
     """Importing every module of the port pulls in neither JAX, nor the
-    JAX package, nor networkx (the GPU machine has none)."""
+    JAX package, nor networkx (the GPU machine has none), and its loaders
+    (the OGB ``.csv.gz`` reader among them) leave pandas out too."""
+    write_ogbn(str(tmp_path))
     pkg = os.path.join(REPO, "fitgnn_tpu_torch")
     mods = []
     for root, _, files in os.walk(pkg):
@@ -245,8 +264,11 @@ def test_port_imports_neither_jax_nor_reference():
     code = ("import importlib, sys\n"
             f"for m in {sorted(mods)!r}:\n"
             "    importlib.import_module(m)\n"
+            "from fitgnn_tpu_torch.data.datasets import load_node_dataset\n"
+            f"ds = load_node_dataset('ogbn-arxiv', {str(tmp_path)!r})\n"
+            "assert ds.x.shape == (12, 5) and ds.train_mask.sum() == 6\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'fitgnn_tpu', 'networkx')]\n"
+            "('jax', 'fitgnn_tpu', 'networkx', 'pandas')]\n"
             "print(len(sys.modules))\n"
             "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -25,7 +25,17 @@ and the port alone, never JAX.  The cases:
 * ``run``: ``run_node_task`` of the case's config on its coarse graph and
   batches: the test (loss, metric), the epochs timed and the final
   parameters; with ``cut`` a first session stopped before that Gs val
-  eval (its last resume save standing) is taken up by a second.
+  eval (its last resume save standing) is taken up by a second;
+* ``flat_layers``: on the flat data mesh, the case's layer
+  (``make_dist_conv``, from its parameters) on the all-gather and the halo
+  table: the output, the gradient of Σ tanh(out) over every rank in the
+  shard's rows and in the parameters (summed over the ranks); the halo
+  table ``halo_exchange`` gives of rows that name their shard; and
+  ``create_dist_state``'s parameters from the case's seed;
+* ``flat_train``: ``make_dist_train_step`` (or ``make_halo_train_step``
+  on the halo table) steps from the case's parameters, then
+  ``make_dist_eval_step`` on the val rows: the losses, the parameters
+  after the steps and the eval's (loss, metric).
 """
 
 import os
@@ -41,15 +51,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from fitgnn_tpu_torch.models.models import NodeModel  # noqa: E402
-from fitgnn_tpu_torch.parallel import (HierNodeModel,  # noqa: E402
-                                       build_hier_plan, dist_gs_eval_step,
+from fitgnn_tpu_torch.parallel import (DistNodeModel,  # noqa: E402
+                                       DistNodeModelHalo, HierNodeModel,
+                                       build_hier_plan, create_dist_state,
+                                       dist_gs_eval_step,
                                        dist_gs_train_epoch_mb,
                                        dist_gs_train_step_gd,
                                        hier_aggregate,
                                        hier_attention_aggregate,
-                                       hier_eval_step, hier_train_step,
-                                       hier_view, initialize_distributed,
-                                       make_hier_mesh, shard_batches)
+                                       halo_exchange, hier_eval_step,
+                                       hier_train_step, hier_view,
+                                       initialize_distributed,
+                                       make_dist_conv, make_dist_eval_step,
+                                       make_dist_train_step,
+                                       make_halo_train_step, make_hier_mesh,
+                                       make_mesh, shard_batches)
+from fitgnn_tpu_torch.parallel.collectives import \
+    all_reduce_grads  # noqa: E402
 from fitgnn_tpu_torch.parallel import dist_subgraphs  # noqa: E402
 from fitgnn_tpu_torch.train import loop  # noqa: E402
 from fitgnn_tpu_torch.train.checkpoint import optimizer_step  # noqa: E402
@@ -137,6 +155,60 @@ def run_curriculum_case(case, rank, world):
     return {"test": (r.test_loss, r.test_acc),
             "epochs": (len(r.gc_epoch_seconds), len(r.gs_epoch_seconds)),
             "params": _state(models[-1])}
+
+
+def run_flat_case(case, mesh):
+    """The flat data mesh's cases (``flat_layers``, ``flat_train``)."""
+    rank, sg, plan = mesh.rank, case["sg"], case["plan"]
+    shard = sg.local(rank, "cpu")
+    tables = {"gather": sg.local_edges(rank, "cpu"),
+              "halo": plan.local(rank, "cpu")}
+    if case["kind"] == "flat_train":
+        edges = tables[case["table"]]
+        cls = DistNodeModelHalo if case["table"] == "halo" else DistNodeModel
+        model = cls(case["layer"], sg.x.shape[-1], case["hidden"], 2,
+                    case["out_dim"],
+                    classify=case["task"] == "classification",
+                    dropout_rate=0.0)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in case["params"].items()})
+        opt = adam_l2(model.parameters(), case["lr"], case["wd"])
+        if case["table"] == "halo":
+            step = make_halo_train_step(mesh, model, edges)
+            losses = [float(step(opt, shard)) for _ in range(case["steps"])]
+        else:
+            step = make_dist_train_step(mesh, model)
+            losses = [float(step(opt, shard, edges))
+                      for _ in range(case["steps"])]
+        loss, metric = make_dist_eval_step(mesh, model, "val")(shard, edges)
+        return {"losses": losses, "eval": (float(loss), float(metric)),
+                "params": _state(model)}
+    res = {}
+    for table, edges in tables.items():
+        layer = make_dist_conv(case["layer"], sg.x.shape[-1],
+                               case["hidden"], table == "halo")
+        layer.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in case["params"].items()})
+        x = shard.x.clone().requires_grad_()
+        out = layer(x, edges.senders, edges.receivers, edges.edge_weight,
+                    getattr(edges, "send_idx", None),
+                    getattr(edges, "send_mask", None), mesh.chip_group)
+        torch.tanh(out).sum().backward()
+        all_reduce_grads(layer.parameters(), mesh.chip_group)
+        res[table] = {"out": out.detach().numpy(), "x_grad": x.grad.numpy(),
+                      "grads": {k: p.grad.numpy().copy()
+                                for k, p in layer.named_parameters()}}
+    # rows that name their shard and row: shard p's row j is p·1000 + j
+    n_loc = sg.nodes_per_shard
+    h = (rank * 1000 + torch.arange(n_loc, dtype=torch.float32))[:, None]
+    lp = tables["halo"]
+    res["halo_rows"] = halo_exchange(h.repeat(1, 3), lp.send_idx,
+                                     lp.send_mask).numpy()
+    model, _ = create_dist_state(
+        DistNodeModel(case["layer"], sg.x.shape[-1], case["hidden"], 2, 3),
+        case["seed"], "cpu")
+    res["created"] = _state(model)
+    return res
 
 
 def run_case(case, mesh):
@@ -257,6 +329,10 @@ def main(rank, world, store, spec, out):
     for name, case in cases:
         if case["kind"] in ("gs", "gc_eval", "run"):
             res = run_curriculum_case(case, rank, world)
+        elif case["kind"] in ("flat_layers", "flat_train"):
+            if "flat" not in meshes:
+                meshes["flat"] = make_mesh()
+            res = run_flat_case(case, meshes["flat"])
         else:
             hd = (case["H"], case["D"])
             if hd not in meshes:
