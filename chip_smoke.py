@@ -375,10 +375,33 @@ Phases (any failure exits non-zero before the result lines):
    then ``stats`` and ``train --baseline --dataset cora`` (hidden 512, 5
    epochs) through the port's CLI on ``cuda``, no launch, their rows
    checked, and still no cache afterwards;
-23. one JSON line with every kernel's numbers, the bf16 forms and the
+23. tiles of f16, fp8 e4m3fn and fp8 e5m2 (``phase_tile_types``; run
+   after phase 21, on phase 3's graph): for each type, GCN's ``use_diag``
+   operator and GAT's ``att_unit`` one from ``build_hybrid(tile_dtype=
+   ...)`` (threshold 48, K3 stragglers), their tiles byte for byte the
+   f32 operator's cast (``cast_tiles``); on the card the tiles and the
+   diagonal blocks are f32, the cast values widened; then, every counter
+   at 0 just before, one eval forward and one train step at hidden 512
+   (GCN with K11 dropout 0.5, GAT fused + K6 with dropout 0.5; seed-0
+   weights) under deterministic algorithms: the f32 forms launched, as
+   many as the same run on the operator widened on the host launches, and
+   bit for bit that run; then the two steps' ms on f16 and e4m3 tiles
+   beside f32, in one call;
+24. the products proxy (``phase_products_ingest``, after phase 22):
+   ``planted_products_graph(2,449,029)`` (degree 25, ~30.6 M directed
+   edges) through ``build_graph``, which must take the C++ branch once:
+   the generator's and the ingest's host seconds and the edge counts;
+   then on the first 2.1 M input edges the C++ core against the numpy
+   branch, canonicalised by ``lexsort`` (edges exactly, weights within
+   rtol 1e-5);
+25. the tooling (``phase_tooling``, after phase 23):
+   ``measure_spmm_roofline()`` at its defaults (the achieved GB/s against
+   3,350) and a ``device_trace`` of three hybrid SpMMs on phase 3's
+   operator, whose Chrome trace must hold the card's kernels;
+26. one JSON line with every kernel's numbers, the bf16 forms and the
    forms at edge 256 (``K1@256``, ``K1bf@256``, ``K4@256``, ``K7f@256``,
    ...) as their own entries (launches summed over the main-path phases 5
-   to 22, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
+   to 23, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
    K7sums, and K1, K2, K9, K4, K4ᵀ (their walks of the live quadrants),
    K5, K7f, K7bt, K7s and K7sums at 256, with their ``ptxas`` register
    and spill counts), then the ``ok`` line.
@@ -6055,6 +6078,239 @@ def phase_planetoid(tmp) -> dict:
     return {"planetoid train": launches}
 
 
+# ---- phase 23: tiles of f16, fp8 e4m3fn and fp8 e5m2 -----------------------
+
+# the JAX package's other tile types (build_hybrid(tile_dtype=...)): the
+# card holds such tiles widened to f32 and runs the f32 forms on them
+LOWP = {"f16": torch.float16, "e4m3": torch.float8_e4m3fn,
+        "e5m2": torch.float8_e5m2}
+# phase 23's counted runs: name -> (build_hybrid flags, semantics, mode)
+LP_RUNS = {"gcn diag": (dict(use_diag=True), "gcn_norm", "GCNConv"),
+           "gat": ({}, "att_unit", "GATConv fused")}
+
+
+def widened(h):
+    """The operator with its tiles and diagonal blocks widened to f32 on
+    the host: what the card's copy of an f16 or fp8 operator must equal."""
+    def wide(b, **kw):
+        return dataclasses.replace(b, blocks=b.blocks.float(), **kw)
+
+    return dataclasses.replace(
+        h, bsr=wide(h.bsr, transpose=wide(h.bsr.transpose)),
+        diag_blocks=None if h.diag_blocks is None
+        else h.diag_blocks.float())
+
+
+def phase_tile_types(device, g) -> dict:
+    """Phase 23: tiles of f16, fp8 e4m3fn and fp8 e5m2 (see the list at
+    the top).  Returns the counted runs' launches."""
+    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.ops.bsr_spmm import cast_tiles
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+
+    t_phase = time.perf_counter()
+    s = g.senders.numpy().astype(np.int64)
+    r = g.receivers.numpy().astype(np.int64)
+    w, n = g.edge_weight.numpy(), g.num_nodes_padded
+    pres = (w > 0).astype(np.float32)
+
+    def build(kw, sem, dtype=None):
+        return build_hybrid(s, r, pres if sem == "att_unit" else w, n,
+                            min_block_edges=48, use_segmm=True,
+                            semantics=sem, tile_dtype=dtype, **kw)
+
+    def model_(layer):
+        if layer == "GCNConv":
+            m = NodeModel("GCNConv", NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                          dropout_rate=0.5, fused_dropout=True,
+                          bit_dropout=False)
+        else:
+            m = NodeModel("GATConv", NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                          dropout_rate=0.5)
+        return m.reset_parameters(torch.Generator().manual_seed(0)).to(
+            device)
+
+    def bitwise(a, b):
+        return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                and all(torch.equal(a[2][k], b[2][k]) for k in a[2]))
+
+    phases, ops = {}, {}
+    for run, (kw, sem, mode) in LP_RUNS.items():
+        f32 = build(kw, sem)
+        ops[run] = {"f32": f32}
+        for t, dtype in LOWP.items():
+            t0 = time.perf_counter()
+            h = ops[run][t] = build(kw, sem, dtype)
+            t_build = time.perf_counter() - t0
+            for a, b in ((h.bsr.blocks, f32.bsr.blocks),
+                         (h.bsr.transpose.blocks, f32.bsr.transpose.blocks),
+                         (h.diag_blocks, f32.diag_blocks)):
+                check((a is None) == (b is None) and (b is None or torch.equal(
+                    a.view(torch.uint8), cast_tiles(b, dtype).view(
+                        torch.uint8))),
+                      f"{t} {run}: build_hybrid's tiles are not the f32 "
+                      "tiles cast")
+            what = f"tile type {t} {run} step and eval"
+            # under deterministic algorithms (PyTorch's segment sums add
+            # in a fixed order), so that the two runs may be compared bit
+            # for bit
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with switches(MODE_ENV[mode]):
+                    gw = g._replace(aux=widened(h)).to(device)
+                    reset_counts()
+                    ref = eval_and_step(model_(mode.split()[0]), gw, device)
+                    want = read_counts()
+                    del gw
+                    gd = g._replace(aux=h).to(device)
+                    check(all(a is None or a.dtype == torch.float32
+                              for a in (gd.aux.bsr.blocks,
+                                        gd.aux.bsr.transpose.blocks,
+                                        gd.aux.diag_blocks)),
+                          f"{what}: the tiles are not f32 on the card")
+                    check(torch.equal(gd.aux.bsr.blocks.cpu(),
+                                      h.bsr.blocks.float()),
+                          f"{what}: the card's tiles are not the cast "
+                          "tiles widened")
+                    reset_counts()
+                    got = eval_and_step(model_(mode.split()[0]), gd, device)
+                    launches = read_counts()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            expect(launches, want, what)
+            check(not any(v for k, v in launches.items() if k.endswith("bf")),
+                  f"{what}: a bf16 form ran")
+            check(bitwise(got, ref), f"{what}: differs from the same run on "
+                  "the tiles widened on the host")
+            print(f"{what}: build_hybrid {t_build:.1f} s host, bit for bit "
+                  "the run on the host-widened tiles")
+            phases[what] = launches
+            del gd, got, ref
+            torch.cuda.empty_cache()
+
+    # the steps' time on f16 and e4m3 tiles beside f32, in one call each
+    for run, (_, _, mode) in LP_RUNS.items():
+        with switches(MODE_ENV[mode]):
+            step_ms(f"{mode} hidden 512, dropout 0.5, {run}, tile types",
+                    lambda: model_(mode.split()[0]), device,
+                    [(t, g._replace(aux=ops[run][t]))
+                     for t in ("f32", "f16", "e4m3")])
+    del ops
+    torch.cuda.empty_cache()
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return phases
+
+
+# ---- phase 24: ingest at products scale ------------------------------------
+
+PRODUCTS_NODES = 2_449_029        # ogbn-products' node count
+INGEST_SLICE = 2_100_000          # directed edges of the two-branch check
+
+
+def phase_products_ingest() -> None:
+    """``planted_products_graph(2,449,029)`` (degree 25, ~30.6 M directed
+    edges) through the port's ``build_graph``: the C++ branch's host
+    seconds and edge count; then on its first 2.1 M edges the C++ core
+    against the numpy branch, canonicalised by ``np.lexsort`` (the
+    senders and receivers exactly, the weights within rtol 1e-5), as the
+    JAX package's ``tests/test_native_build.py`` holds its two branches."""
+    from fitgnn_tpu_torch.data.synthetic import planted_products_graph
+    from fitgnn_tpu_torch.graph import build as build_mod
+    from fitgnn_tpu_torch.graph.native_build import (NATIVE_EDGE_THRESHOLD,
+                                                     build_edges_native)
+
+    t0 = time.perf_counter()
+    x, s, r, y = planted_products_graph(PRODUCTS_NODES)
+    t_gen = time.perf_counter() - t0
+    check(len(s) > NATIVE_EDGE_THRESHOLD, "products: below the C++ branch")
+    calls = []
+    orig = build_mod.build_edges_native
+
+    def counted(*a, **k):
+        calls.append(len(a[0]))
+        return orig(*a, **k)
+
+    with mock.patch.object(build_mod, "build_edges_native", counted):
+        t0 = time.perf_counter()
+        g = build_mod.build_graph(x, s, r, y=y)
+        t_build = time.perf_counter() - t0
+    check(calls == [len(s)], f"products: the C++ branch ran {calls}")
+    ne = int(g.n_edge)
+    sr, ss = g.receivers.numpy()[:ne], g.senders.numpy()[:ne]
+    check(bool((np.diff(sr) >= 0).all()), "products: receivers unsorted")
+    w = g.edge_weight.numpy()[:ne]
+    check(bool(np.isfinite(w).all() and (w > 0).all()),
+          "products: weights not finite and positive")
+    print(f"products ingest: {PRODUCTS_NODES} nodes, {len(s)} directed "
+          f"input edges -> {ne} edges (symmetrized, self loops; N_pad "
+          f"{g.num_nodes_padded}, E_pad {g.senders.shape[0]}); generator "
+          f"{t_gen:.1f} s, build_graph (C++ branch) {t_build:.1f} s host")
+    del g, x, sr, ss, w
+    # the two branches on a slice
+    s2, r2 = s[:INGEST_SLICE].astype(np.int64), r[:INGEST_SLICE].astype(
+        np.int64)
+    t0 = time.perf_counter()
+    ns, nr, nw = build_edges_native(s2, r2, PRODUCTS_NODES)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ws = np.ones(len(s2), dtype=np.float32)
+    os_, or_, ow = build_mod.to_undirected(s2.astype(np.int32),
+                                           r2.astype(np.int32), ws)
+    os_, or_, ow = build_mod.add_self_loops(os_, or_, ow, PRODUCTS_NODES)
+    ow = build_mod.gcn_normalize(os_, or_, ow, PRODUCTS_NODES)
+    os_, or_, ow = build_mod.sort_by_receiver(os_, or_, ow)
+    t_np = time.perf_counter() - t0
+
+    def canon(a, b, c):
+        order = np.lexsort((a, b))
+        return a[order], b[order], c[order]
+
+    ns, nr, nw = canon(ns, nr, nw)
+    os_, or_, ow = canon(os_.astype(np.int64), or_.astype(np.int64), ow)
+    check(np.array_equal(ns, os_) and np.array_equal(nr, or_),
+          "products slice: the branches' edges differ")
+    check(bool(np.allclose(nw, ow, rtol=1e-5, atol=0)),
+          "products slice: the branches' weights differ")
+    print(f"products slice ({INGEST_SLICE} input edges, {len(ns)} out): "
+          f"C++ {t_nat:.2f} s, numpy {t_np:.2f} s host; edges equal, "
+          f"weights max rel diff "
+          f"{float(np.max(np.abs(nw - ow) / ow)):.2e}")
+
+
+# ---- phase 25: the tooling on the card -------------------------------------
+
+def phase_tooling(device, g) -> None:
+    """``measure_spmm_roofline()`` at its defaults on the card (the
+    achieved GB/s against the H100's 3,350), and a ``device_trace`` of the
+    bench operator's hybrid SpMM that must hold CUDA kernel events."""
+    from fitgnn_tpu_torch.bench.roofline import measure_spmm_roofline
+    from fitgnn_tpu_torch.ops.hybrid_spmm import hybrid_spmm
+    from fitgnn_tpu_torch.utils.profiling import device_trace
+
+    rep = measure_spmm_roofline(device=device)
+    check(rep.peak_gbps == 3350.0, f"roofline: peak {rep.peak_gbps}")
+    print(f"roofline (per-edge segment sum, 131,072 nodes, degree 8, F=512, "
+          f"20 reps): {rep.seconds_per_spmm * 1e3:.4f} ms a call, "
+          f"{rep.bytes_moved / 1e9:.3f} GB, {rep.achieved_gbps:.1f} GB/s = "
+          f"{100 * rep.fraction_of_roofline:.1f}% of {rep.peak_gbps:.0f}")
+    gd = g.to(device)
+    with tempfile.TemporaryDirectory() as d:
+        with torch.inference_mode(), device_trace(d) as prof:
+            for _ in range(3):
+                hybrid_spmm(gd.aux, gd.x)
+        with open(os.path.join(d, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    names = {e["name"].split("<")[0] for e in kern}
+    check(len(kern) >= 6, f"device_trace: {len(kern)} CUDA kernel events")
+    dev_us = sum(getattr(e, "device_time_total", 0.0)
+                 for e in prof.key_averages())
+    print(f"device_trace: {len(events)} events, {len(kern)} CUDA kernel "
+          f"events ({sorted(names)[:6]}...), device time {dev_us:.0f} us")
+    del gd
+    torch.cuda.empty_cache()
+
+
 def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     """One kernel's line: times and bounds summed over the shapes one step
     or forward launches it at (those not marked ``on_path: False``); errors
@@ -6343,9 +6599,13 @@ def main() -> int:
         phases.update(phase_dist_curriculum(device, tmp, single))
         torch.cuda.empty_cache()
         phases.update(phase_flat(device, tmp, ds, g))
+        torch.cuda.empty_cache()
+        phases.update(phase_tile_types(device, g))
+        phase_tooling(device, g)
         del g
         phases.update(phase_planetoid(tmp))
         torch.cuda.empty_cache()
+        phase_products_ingest()
 
     kernels_line = {"kernels": [
         summarize(label, "cuda", source, replaces,

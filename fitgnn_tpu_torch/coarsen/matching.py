@@ -6,10 +6,12 @@
 * ``matching_optimal`` — maximum-weight perfect-ish matching on the negated
   cost (the reference vendors a 945-line pure-Python port,
   ``maxWeightMatching.py``); prefers the first-party C++ blossom core
-  (``native/blossom.cpp``, built with g++ into ``build/fitgnn_tpu_torch/``).
-  The JAX package falls back to networkx's blossom when the library is
-  unavailable or the instance is too large; the port has no networkx and
-  raises instead.
+  (``native/blossom.cpp``, built with g++ into ``build/fitgnn_tpu_torch/``)
+  up to ``native_blossom.MAX_NODES`` nodes.  Above it the JAX package
+  hands the instance to networkx's blossom; the port runs its own copy of
+  that algorithm (``coarsen/blossom.py``), which gives networkx's matching
+  exactly.  A failed native build raises (the JAX package would fall back
+  to networkx at every size).
 """
 
 from __future__ import annotations
@@ -42,16 +44,20 @@ def matching_optimal(num_nodes: int, edges: np.ndarray, costs: np.ndarray,
                      r: float) -> List[np.ndarray]:
     """Min-cost matching via blossom; keeps the r·N cheapest matched pairs.
     Runs the first-party C++ core (native/blossom.cpp), which stores the
-    instance densely: more than ``native_blossom.MAX_NODES`` nodes raise
-    ``NotImplementedError``."""
+    instance densely, up to ``native_blossom.MAX_NODES`` nodes, and the
+    port's copy of networkx's blossom above it (pure Python, as slow as
+    networkx)."""
     costs = np.asarray(costs, dtype=np.float64)
     shift = costs.max() if costs.size else 0.0
     weights = shift - costs + 1.0   # maximize (positive) == minimize cost
 
-    from fitgnn_tpu_torch.coarsen.native_blossom import \
-        max_weight_matching_native
-    mate = max_weight_matching_native(edges, weights, num_nodes,
-                                      max_cardinality=True)
+    from fitgnn_tpu_torch.coarsen import blossom, native_blossom
+    if num_nodes > native_blossom.MAX_NODES:
+        mate = blossom.max_weight_matching(edges, weights, num_nodes,
+                                           max_cardinality=True)
+    else:
+        mate = native_blossom.max_weight_matching_native(
+            edges, weights, num_nodes, max_cardinality=True)
     cost_of = {}
     for (a, b), c in zip(edges.T, costs):
         key = (min(int(a), int(b)), max(int(a), int(b)))

@@ -20,6 +20,7 @@ BLOSSOM = Target("blossom", [_SRC], lambda out: [
     "g++", "-O2", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", out])
 
 # the core stores the instance as a dense (2n)² table and refuses more nodes
+# (``coarsen/matching.py`` runs ``coarsen/blossom.py`` above it)
 MAX_NODES = 3000
 
 _lib_handle = None
@@ -44,15 +45,12 @@ def _lib() -> ctypes.CDLL:
 def max_weight_matching_native(edges: np.ndarray, weights: np.ndarray,
                                num_nodes: int, max_cardinality: bool = False
                                ) -> np.ndarray:
-    """mate array (n,), -1 = unmatched.  Raises ``NotImplementedError``
-    above ``MAX_NODES`` nodes (the JAX package hands those to networkx,
-    which the port does not use) and ``RuntimeError`` when the core fails."""
+    """mate array (n,), -1 = unmatched, for at most ``MAX_NODES`` nodes
+    (``ValueError`` above: ``coarsen/blossom.py`` takes those).  Raises
+    ``RuntimeError`` when the core fails."""
     if num_nodes > MAX_NODES:
-        raise NotImplementedError(
-            f"optimal matching on {num_nodes} nodes: the native blossom "
-            f"holds at most {MAX_NODES} (ROADMAP.md §1, optimal matching "
-            "above the blossom's size); use "
-            "algorithm='greedy'")
+        raise ValueError(f"the native blossom holds at most {MAX_NODES} "
+                         f"nodes, got {num_nodes}")
     lib = _lib()
     eu = np.ascontiguousarray(edges[0], dtype=np.int64)
     ev = np.ascontiguousarray(edges[1], dtype=np.int64)

@@ -2,8 +2,13 @@
 of the JAX package's generators, drawing the same numpy values in the same
 order, so one seed gives the same graphs bit for bit.
 
+* ``ring_graph``           — N nodes on a ring plus 3N random chords, 100
+  features, 10 classes (the reference's synthetic dataset).
 * ``sbm_graph``            — a homophilous stochastic block model with
   class-mean features, for node classification.
+* ``planted_products_graph`` — the products-scale proxy: a planted
+  partition whose labels need neighbourhood aggregation (degree 25,
+  47 classes; 2,449,029 nodes give ~30.6 M directed edges).
 * ``random_regression_graph`` — the same graph with a smooth scalar
   target, for node regression.
 * ``qm9_like_dataset``     — a QM9-shaped molecule proxy (9–29 atoms, 11
@@ -15,6 +20,23 @@ order, so one seed gives the same graphs bit for bit.
 from __future__ import annotations
 
 import numpy as np
+
+
+def ring_graph(num_nodes: int, num_features: int = 100,
+               num_classes: int = 10, seed: int = 0):
+    """Ring + random chords; ~4N directed edges before symmetrizing.
+    Returns (x, senders, receivers, y)."""
+    rng = np.random.default_rng(seed)
+    ring_s = np.arange(num_nodes, dtype=np.int64)
+    ring_r = (ring_s + 1) % num_nodes
+    extra = rng.integers(0, num_nodes, size=(2, 3 * num_nodes))
+    senders = np.concatenate([ring_s, extra[0]])
+    receivers = np.concatenate([ring_r, extra[1]])
+    keep = senders != receivers
+    senders, receivers = senders[keep], receivers[keep]
+    x = rng.normal(size=(num_nodes, num_features)).astype(np.float32)
+    y = rng.integers(0, num_classes, size=num_nodes).astype(np.int32)
+    return x, senders.astype(np.int32), receivers.astype(np.int32), y
 
 
 def sbm_graph(num_nodes: int = 600, num_classes: int = 4,
@@ -47,6 +69,50 @@ def sbm_graph(num_nodes: int = 600, num_classes: int = 4,
         senders = np.concatenate([s1, s2])
         receivers = np.concatenate([r1, r2])
     return (x, senders.astype(np.int32), receivers.astype(np.int32), y)
+
+
+def planted_products_graph(num_nodes: int, degree: int = 25,
+                           community_size: int = 512, num_classes: int = 47,
+                           num_features: int = 100, intra_p: float = 0.85,
+                           feature_sigma: float = 6.0,
+                           label_noise: float = 0.1, seed: int = 0):
+    """A planted-partition graph whose labels cannot be read off the
+    features alone (the regime of ogbn-products, ~0.75-0.85 accuracy).
+
+    * communities of ``community_size`` contiguous nodes; ``intra_p`` of the
+      edges stay inside the receiver's community;
+    * each community draws a class; a node's label is its community's,
+      then a ``label_noise`` fraction is redrawn uniformly;
+    * features are the class centroid plus ``feature_sigma``·N(0, I), so
+      only aggregation over the mostly same-class neighbours recovers the
+      label.
+
+    Returns (x, senders, receivers, y), ~``num_nodes``·``degree``/2
+    directed int64 edges (symmetrized downstream)."""
+    rng = np.random.default_rng(seed)
+    n, e = num_nodes, num_nodes * degree // 2
+    rcv = rng.integers(0, n, e, dtype=np.int64)
+    comm = rcv // community_size
+    snd = np.where(
+        rng.random(e) < intra_p,
+        np.minimum(comm * community_size
+                   + rng.integers(0, community_size, e), n - 1),
+        rng.integers(0, n, e, dtype=np.int64))
+    keep = snd != rcv
+    snd, rcv = snd[keep], rcv[keep]
+    n_comm = (n + community_size - 1) // community_size
+    class_of_comm = rng.integers(0, num_classes, n_comm)
+    y_true = class_of_comm[np.arange(n) // community_size].astype(np.int64)
+    centroids = rng.standard_normal(
+        (num_classes, num_features)).astype(np.float32)
+    x = (centroids[y_true]
+         + feature_sigma * rng.standard_normal(
+             (n, num_features)).astype(np.float32))
+    y = y_true.copy()
+    if label_noise > 0:
+        flip = rng.random(n) < label_noise
+        y[flip] = rng.integers(0, num_classes, int(flip.sum()))
+    return x, snd, rcv, y
 
 
 def random_regression_graph(num_nodes: int = 400, num_features: int = 32,

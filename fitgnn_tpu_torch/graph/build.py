@@ -6,9 +6,11 @@ layers only do weighted aggregation.  The arrays are built in numpy exactly
 as the JAX package builds them and become CPU tensors at the end; callers
 move the graph with ``Graph.to(device)``.
 
-The JAX package sends unweighted inputs of more than 2 M edges through a
-one-pass C++ core (``fitgnn_tpu/graph/native_build.py``); that branch is
-not ported yet, so every input takes the numpy branch here.
+Unweighted inputs of more than 2 M edges go through the one-pass C++ core
+(``graph/native_build.py``) under the JAX package's condition.  Its edges
+come sorted by receiver then sender, so the two branches give the same
+edges in different orders; keeping the condition keeps the JAX package's
+order on both sides of it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import numpy as np
 import torch
 
 from fitgnn_tpu_torch.graph.container import Graph
+from fitgnn_tpu_torch.graph.native_build import (NATIVE_EDGE_THRESHOLD,
+                                                 build_edges_native)
 
 
 def to_undirected(senders: np.ndarray, receivers: np.ndarray,
@@ -91,17 +95,25 @@ def build_graph(
         edge_weight = np.ones(senders.shape[0], dtype=np.float32)
     edge_weight = np.asarray(edge_weight, dtype=np.float32)
 
-    if undirected and senders.size:
-        senders, receivers, edge_weight = to_undirected(
+    uniform = bool(np.all(edge_weight == 1.0)) if edge_weight.size else True
+    if uniform and senders.size > NATIVE_EDGE_THRESHOLD:
+        senders, receivers, edge_weight = build_edges_native(
+            senders, receivers, num_nodes, undirected=undirected,
+            self_loops=self_loops, normalize=normalize)
+        senders = senders.astype(np.int32)
+        receivers = receivers.astype(np.int32)
+    else:
+        if undirected and senders.size:
+            senders, receivers, edge_weight = to_undirected(
+                senders, receivers, edge_weight)
+        if self_loops:
+            senders, receivers, edge_weight = add_self_loops(
+                senders, receivers, edge_weight, num_nodes)
+        if normalize:
+            edge_weight = gcn_normalize(senders, receivers, edge_weight,
+                                        num_nodes)
+        senders, receivers, edge_weight = sort_by_receiver(
             senders, receivers, edge_weight)
-    if self_loops:
-        senders, receivers, edge_weight = add_self_loops(
-            senders, receivers, edge_weight, num_nodes)
-    if normalize:
-        edge_weight = gcn_normalize(senders, receivers, edge_weight,
-                                    num_nodes)
-    senders, receivers, edge_weight = sort_by_receiver(
-        senders, receivers, edge_weight)
 
     num_edges = int(senders.shape[0])
     n_pad = max(_round_up(num_nodes + 1, node_pad_to), node_pad_to)

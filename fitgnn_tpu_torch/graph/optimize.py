@@ -65,11 +65,13 @@ def build_optimized_graph(x: np.ndarray, senders: np.ndarray,
     Returns ``(graph, order)`` where ``order[i]`` is the original id of the
     node now at position ``i``.  Defaults are the JAX package's production
     config (threshold 48, f32 tiles, K3 stragglers); ``tile_dtype``
-    (``torch.bfloat16``: bf16 tiles, ``train --hybrid_bf16_tiles``),
-    ``tile_group``, ``use_diag`` and the cluster collapses with their
-    ``_exact`` splits pass through to ``build_hybrid`` (the walks' bf16
-    forms, K9, K8; for GATConv the diagonal attention blocks and the
-    group-padded dynamic-tile plan of ``ops/tile_gat.py``).  Under a
+    (``torch.bfloat16``: bf16 tiles, ``train --hybrid_bf16_tiles``;
+    ``torch.float16``, ``torch.float8_e4m3fn``, ``torch.float8_e5m2``: the
+    library's other types), ``tile_group``, ``use_diag`` and the cluster
+    collapses with their ``_exact`` splits pass through to
+    ``build_hybrid`` (the walks' bf16 forms, K9, K8; for GATConv
+    the diagonal attention blocks and the group-padded dynamic-tile plan
+    of ``ops/tile_gat.py``).  Under a
     collapse the nodes pad to a multiple of K, which must be a positive
     multiple of 128.  ``min_block_edges="auto"`` takes the planner's
     threshold (``graph/planner.py``) for the reordered graph's real
@@ -149,7 +151,8 @@ def optimize_coarse(coarse, *, min_block_edges: int = 48, tile_dtype=None,
     Gs phase takes the transferred parameters, not Gc node ids.  The node
     arrays grow to a multiple of 128 (of K under a cluster collapse) with
     inert rows (zero features, False masks).  ``tile_dtype=torch.bfloat16``
-    stores Gc's tiles in bf16 (``train --hybrid_bf16_tiles``);
+    stores Gc's tiles in bf16 (``train --hybrid_bf16_tiles``; f16 and fp8
+    as ``build_hybrid`` takes them);
     ``use_segmm`` (K3 for the stragglers, the default; ``False``: the
     per-edge gather and segment sum) and ``tile_group`` (K9's grouped
     layout; GATConv's group-padded plan) and the cluster collapses pass

@@ -228,8 +228,8 @@ class GraphModel(nn.Module):
 
 def preaggregate_features(g: Graph) -> torch.Tensor:
     """x̃ = Â·X, computed once at ingest for a pre-aggregated GCN (through
-    the graph's hybrid operator when it has one: K3 then K1, in its bf16
-    form, x rounded to bf16, on an operator with bf16 tiles)."""
+    the graph's hybrid operator when it has one: K3 then K1, in its form
+    for the tiles' type; x rounded to bf16 on bf16 tiles alone)."""
     if isinstance(g.aux, HybridSpmm):
         return hybrid_spmm(g.aux, g.x)
     return spmm_coo(g.edge_weight, g.senders, g.receivers, g.x,

@@ -60,6 +60,8 @@ its bf16 tiles to the same kernels.  The wrappers that read the tiles
 (``att_rowmax``, ``att_fwd``, ``att_bwd_t``'s ``dx`` walk and
 ``att_bwd_scores``) launch the kernels' bf16 forms on them (the C entries
 ending in ``_bf16``) and count those in ``<wrapper>.launches_bf16``.
+f16 and fp8 masks reach the card widened to f32 (``BsrMatrix``), so
+they take the f32 forms; the plain versions read them on the CPU.
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ import torch
 
 from fitgnn_tpu_torch.ops import kernels
 from fitgnn_tpu_torch.ops.bsr_dynamic import DynPlan
-from fitgnn_tpu_torch.ops.bsr_spmm import BLOCK, check_block
+from fitgnn_tpu_torch.ops.bsr_spmm import BLOCK, check_block, tile_nonzero
 
 NEG = -1e30
 MAX_F = 512
@@ -93,7 +95,7 @@ def _tile_pe(blocks, ssrc, sdst, m, row_blk, col_blk, slope):
     columns block ``col_blk[k]`` (blocks of the tiles' edge); masked
     before the exp."""
     b = blocks.shape[-1]
-    mask = blocks != 0
+    mask = tile_nonzero(blocks)
     raw = (_slabs(sdst, row_blk, b)[:, :, None]
            + _slabs(ssrc, col_blk, b)[:, None, :])
     e = torch.where(mask, _leaky(raw, slope), NEG)
@@ -126,7 +128,8 @@ def att_rowmax_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst,
     nb = ssrc.shape[0] // b
     raw = (_slabs(sdst, rows, b)[:, :, None]
            + _slabs(ssrc, cols, b)[:, None, :])
-    tmax = torch.where(blocks != 0, _leaky(raw, slope), NEG).amax(dim=2)
+    tmax = torch.where(tile_nonzero(blocks), _leaky(raw, slope),
+                       NEG).amax(dim=2)
     out = torch.full((nb, b), NEG, dtype=tmax.dtype, device=tmax.device)
     idx = rows.long()[:, None].expand_as(tmax)
     return out.scatter_reduce(0, idx, tmax, "amax",

@@ -9,8 +9,9 @@ zero coverage fillers where it had none), the group-padded layout
 (``group > 1``: every row's run zero-padded to a multiple of ``group``),
 the row-walk layout (``rowwalk``: no fillers; 128-wide tiles only, as in
 the JAX package) and the einsum layout (``einsum``: no fillers either).
-Its tiles are f32, or bf16 under ``tile_dtype=torch.bfloat16`` (built in
-f32, then cast, as the JAX package casts them).
+Its tiles are f32, or of the type ``tile_dtype`` names (bf16, f16, fp8
+e4m3fn or fp8 e5m2), built in f32 and then cast as the JAX package casts
+them (``cast_tiles``).
 
 * ``bsr_spmm_acc(b, x, init)`` = ``init + A·x``: K1 on the grid-walk
   layout, ``init + bsr_spmm(...)`` on the others, as the JAX package's
@@ -53,6 +54,15 @@ plain versions apply the same rule.  The einsum layout is the JAX
 package's XLA path (``_bsr_spmm_einsum``), plain PyTorch here on either
 device: ``x`` rounded to the tile type, one ``bmm`` whose tile products
 are rounded to it, ``index_add_`` in it, then f32.
+
+f16, fp8 e4m3fn and fp8 e5m2 tiles: the Pallas kernels round ``x`` only
+on bf16 tiles; on any other type ``jnp.dot`` and ``jnp.einsum`` promote
+the tile to f32.  So every layout, the einsum one included, leaves ``x``
+in f32 and widens each tile value to f32 exactly: the result is the f32
+walk's on ``blocks.float()``.  So such tiles are widened to f32 once, when
+a ``BsrMatrix`` is made on the card or moved there (``card_tiles``), and
+every wrapper launches its f32 form on them; the plain versions widen
+them on the CPU.
 """
 
 from __future__ import annotations
@@ -70,12 +80,22 @@ from fitgnn_tpu_torch.utils.device import dataclass_to
 BLOCK = 128  # default node-block edge length: one dense tile
 MAX_WORD_QUADS = 8  # quadrants a side an int64 occupancy word covers
 
+# the tile types besides f32 (``tile_dtype=None``), as the JAX package's
+# ``tile_dtype`` takes them
+FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+TILE_DTYPES = (torch.bfloat16, torch.float16) + FP8
+# the types whose tiles the card holds widened to f32 (``card_tiles``)
+WIDENED = (torch.float16,) + FP8
+# |v| above which ml_dtypes' f32 -> e4m3fn cast gives NaN (the tie at 464
+# rounds to even, 448); torch's cast saturates at 448 instead
+_E4M3_NAN_ABOVE = 464.0
+
 
 @dataclasses.dataclass
 class BsrMatrix:
     """Dense-block BCSR adjacency. ``blocks[k]`` is tile (rows[k], cols[k])."""
 
-    blocks: torch.Tensor        # (K, block, block) f32 or bf16 tile values
+    blocks: torch.Tensor        # (K, block, block) f32 or TILE_DTYPES values
     rows: torch.Tensor          # (K,) int32 block-row id, sorted ascending
     cols: torch.Tensor          # (K,) int32 block-col id
     num_row_blocks: int
@@ -95,6 +115,7 @@ class BsrMatrix:
         # The words are made of the tiles here and nowhere else, so a new
         # ``blocks`` (``dataclasses.replace``, ``.to``) gets its own; a
         # cache's packed tiles (not a tensor) get none until unpacked.
+        self.blocks = card_tiles(self.blocks)
         if self.words and isinstance(self.blocks, torch.Tensor):
             self.quad_bits = quad_words(self.blocks, self.block)
 
@@ -111,12 +132,62 @@ class BsrMatrix:
 
 
 def check_tile_dtype(tile_dtype) -> None:
-    """Tiles are f32 (``None``) or bf16 (``torch.bfloat16``); the JAX
-    package's other types are not ported."""
-    if tile_dtype not in (None, torch.bfloat16):
-        raise NotImplementedError(
-            f"tile_dtype={tile_dtype!r}: only f32 (None) and bf16 tiles "
-            "are ported (ROADMAP.md §1 item 2)")
+    """Tiles are f32 (``None``) or one of ``TILE_DTYPES``.  Any other type
+    raises: the JAX package would cast GCN's weights to it, so an integer
+    type would truncate them to zero (ROADMAP.md §3)."""
+    if tile_dtype is not None and tile_dtype not in TILE_DTYPES:
+        raise ValueError(
+            f"tile_dtype={tile_dtype!r}: tiles are None (f32), "
+            "torch.bfloat16, torch.float16, torch.float8_e4m3fn or "
+            "torch.float8_e5m2")
+
+
+def cast_tiles(t: torch.Tensor, tile_dtype) -> torch.Tensor:
+    """f32 values ``t`` in the tile type, bit for bit as the JAX package's
+    ``astype`` (ml_dtypes) gives them: torch's cast, but on fp8 e4m3fn a
+    magnitude above 464, an inf or a NaN gives NaN (``0x7f`` with the
+    sign) where torch saturates at ±448, and on fp8 e5m2 a NaN is ``0x7e``
+    with the sign where torch gives ``0x7f``.  ``None`` leaves ``t``."""
+    if tile_dtype is None:
+        return t
+    out = t.to(tile_dtype)
+    if tile_dtype in FP8:
+        if tile_dtype == torch.float8_e4m3fn:
+            nan = ~(t.abs() <= _E4M3_NAN_ABOVE)
+            code = 0x7f
+        else:
+            nan = torch.isnan(t)
+            code = 0x7e
+        bits = out.view(torch.uint8)
+        sign = torch.signbit(t).to(torch.uint8) << 7
+        out = torch.where(nan, sign | code, bits).view(tile_dtype)
+    return out
+
+
+def tile_nonzero(blocks: torch.Tensor) -> torch.Tensor:
+    """``e != 0`` of every tile entry on any tile type and device (fp8 by
+    its bits other than the sign: −0 is zero, NaN counts, as ``!=`` on the
+    wider types)."""
+    if blocks.dtype in FP8:
+        return (blocks.view(torch.uint8) & 0x7f) != 0
+    return blocks != 0
+
+
+def card_tiles(t):
+    """Tiles as the card's kernels take them: f16 and fp8 tiles on a CUDA
+    device widened to f32 (exact), anything else as it is.  The JAX
+    package's kernels promote such a tile to f32 and leave ``x`` alone, so
+    the f32 walk on the widened tiles computes their function."""
+    if (isinstance(t, torch.Tensor) and t.device.type == "cuda"
+            and t.dtype in WIDENED):
+        return t.float()
+    return t
+
+
+def tile_values(blocks: torch.Tensor) -> torch.Tensor:
+    """The tiles as a type that arithmetic and comparisons take on every
+    device: fp8 widened to f32 (exact), the others as they are."""
+    return blocks.float() if blocks.dtype in FP8 else blocks
 
 
 def check_block(block: int) -> None:
@@ -136,7 +207,8 @@ def quad_words(blocks: torch.Tensor, block: int) -> Optional[torch.Tensor]:
     nq = block // BLOCK
     if not 1 < nq <= MAX_WORD_QUADS:
         return None
-    live = (blocks != 0).reshape(-1, nq, BLOCK, nq, BLOCK).any(4).any(2)
+    live = tile_nonzero(blocks).reshape(-1, nq, BLOCK, nq, BLOCK).any(
+        4).any(2)
     shift = torch.arange(nq * nq, dtype=torch.int64, device=blocks.device)
     return (live.reshape(-1, nq * nq).long() << shift).sum(1)
 
@@ -217,12 +289,10 @@ def build_bsr(senders: np.ndarray, receivers: np.ndarray, weight: np.ndarray,
                       with_transpose=False, tile_dtype=tile_dtype,
                       rowwalk=rowwalk, group=group, einsum=einsum)
     row_splits = np.searchsorted(rows, np.arange(nb + 1)).astype(np.int32)
-    blocks_t = torch.from_numpy(blocks)
-    if tile_dtype is not None:
-        blocks_t = blocks_t.to(tile_dtype)
     return BsrMatrix(
-        blocks=blocks_t, rows=torch.from_numpy(rows),
-        cols=torch.from_numpy(cols), num_row_blocks=nb, num_col_blocks=nb,
+        blocks=cast_tiles(torch.from_numpy(blocks), tile_dtype),
+        rows=torch.from_numpy(rows), cols=torch.from_numpy(cols),
+        num_row_blocks=nb, num_col_blocks=nb,
         transpose=t, row_splits=torch.from_numpy(row_splits),
         rowwalk=rowwalk, group=group, einsum=einsum, block=block)
 
@@ -230,7 +300,8 @@ def build_bsr(senders: np.ndarray, receivers: np.ndarray, weight: np.ndarray,
 def round_x(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """``x`` as the walk of ``b``'s layout multiplies it: rounded to bf16
     (and held in f32, exactly) on bf16 tiles, except in the row walk (K10),
-    whose TPU kernel promotes the tile instead; as it is on f32 tiles."""
+    whose TPU kernel promotes the tile instead; as it is on every other
+    tile type."""
     if b.bf16 and not b.rowwalk:
         return x.to(torch.bfloat16).to(x.dtype)
     return x
@@ -262,7 +333,8 @@ def _quad_sum(b: BsrMatrix, x: torch.Tensor,
     shift = torch.arange(nq * nq, device=b.quad_bits.device)
     k, ij = ((b.quad_bits.unsqueeze(1) >> shift) & 1).nonzero(as_tuple=True)
     i, j = ij // nq, ij % nq
-    tiles = b.blocks.reshape(-1, nq, BLOCK, nq, BLOCK)[k, i, :, j, :]
+    tiles = tile_values(b.blocks).reshape(-1, nq, BLOCK, nq, BLOCK)[
+        k, i, :, j, :]
     slabs = x.reshape(-1, BLOCK, feat).index_select(
         0, b.cols.long()[k] * nq + j)
     return out.reshape(-1, BLOCK, feat).index_add_(
@@ -284,13 +356,15 @@ def bsr_spmm_plain(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 def bsr_spmm_einsum(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """``A·x`` on the einsum layout, as the JAX package's
-    ``_bsr_spmm_einsum``: the X slabs in the tile type (bf16 or f32), one
-    batched matmul whose tile products come out in that type, their sum
-    over block rows (``index_add_``) in it, then x's type.  Plain PyTorch
-    on every device, as XLA computes it there."""
+    ``_bsr_spmm_einsum``: on bf16 tiles the X slabs in bf16, one batched
+    matmul whose tile products come out in bf16, their sum over block rows
+    (``index_add_``) in it, then x's type; on any other type the einsum
+    promotes the tiles, so the same in f32 on the widened tiles.  Plain
+    PyTorch on every device, as XLA computes it there."""
     n, feat = x.shape
-    xb = x.to(b.blocks.dtype).reshape(b.num_col_blocks, b.block, feat)
-    prod = torch.bmm(b.blocks, xb.index_select(0, b.cols.long()))
+    blocks = b.blocks if b.bf16 else b.blocks.to(x.dtype)
+    xb = x.to(blocks.dtype).reshape(b.num_col_blocks, b.block, feat)
+    prod = torch.bmm(blocks, xb.index_select(0, b.cols.long()))
     out = torch.zeros((b.num_row_blocks, b.block, feat), dtype=prod.dtype,
                       device=prod.device)
     return out.index_add_(0, b.rows.long(), prod).reshape(n, feat).to(x.dtype)

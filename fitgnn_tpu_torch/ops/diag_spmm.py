@@ -24,7 +24,11 @@ follow it.
 bf16 blocks (the JAX package's ``tile_dtype=bfloat16``): ``x`` is rounded
 to bf16 in both orientations, as the TPU kernel casts it, and the exact
 bf16 × bf16 products are summed in f32 (``init`` stays f32); the kernel is
-the walk's bf16 form (``fitgnn_diag_spmm_bf16``).
+the walk's bf16 form (``fitgnn_diag_spmm_bf16``).  f16 and fp8 blocks
+leave ``x`` in f32 and are widened to f32 exactly, as the JAX package's
+``jnp.dot`` promotes them: the plain version widens them on the CPU, and
+they reach the card already widened (``HybridSpmm``), so the kernel sees
+f32 blocks.
 
 ``diag_spmm.launches`` counts kernel launches on f32 blocks,
 ``diag_spmm.launches_bf16`` on bf16 blocks.  No autograd: the hybrid

@@ -35,7 +35,15 @@ The JAX package's tile opt-ins, dispatched as its ``_hybrid_spmm_main``:
 * ``tile_dtype=torch.bfloat16``: the tiles and the diagonal blocks are
   stored in bf16 and every walk takes its bf16 form (``ops/bsr_spmm.py``,
   ``ops/diag_spmm.py``); the diagonal's batched matmul then runs in bf16,
-  as the JAX package's einsum does.
+  as the JAX package's einsum does.  ``torch.float16``,
+  ``torch.float8_e4m3fn`` and ``torch.float8_e5m2`` store them in that
+  type (cast as the JAX package casts, ``cast_tiles``).  The JAX
+  package's kernels promote such tiles to f32 and leave ``x`` alone, so
+  on the card the tiles and the diagonal blocks are held widened to f32
+  (``bsr_spmm.card_tiles``) and every walk takes its f32 form; the
+  diagonal's matmul and the static collapse's product promote them too,
+  as XLA's do.  The collapse table keeps its type: the member summaries
+  are rounded to it.
 * ``use_einsum_tiles``: the BCSR's einsum layout (plain PyTorch, as the
   JAX package's XLA einsum); like the row walk and the grouped layout, it
   takes no part in the diagonal chain, and K1's fused add becomes a
@@ -78,6 +86,7 @@ import torch
 from fitgnn_tpu_torch.ops.bsr_dynamic import DynPlan, build_dyn_plan
 from fitgnn_tpu_torch.ops.bsr_spmm import (BLOCK, BsrMatrix, build_bsr,
                                            bsr_spmm, bsr_spmm_acc,
+                                           card_tiles, cast_tiles,
                                            check_block, check_tile_dtype)
 from fitgnn_tpu_torch.ops.coo_segmm import SegCsr, build_segmm, segmm_spmm
 from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm, pick_run_length
@@ -104,7 +113,8 @@ class HybridSpmm:
                                        # (GAT attention); att_unit only
     diag_blocks: Optional[torch.Tensor] = None  # (NB, E, E) dense
                                        # block-diagonal tiles (use_diag),
-                                       # f32 or bf16 as the BCSR's
+                                       # in the BCSR's tile type (f32 on
+                                       # the card for f16 and fp8)
     diag_r: int = 0                    # > 0: the diagonal runs through K8
                                        # (the TPU's blocks per grid step);
                                        # 0: a batched matmul
@@ -117,6 +127,9 @@ class HybridSpmm:
     cluster_scale: Optional[torch.Tensor] = None  # (C,) 1/|real members|
     cluster_member: Optional[torch.Tensor] = None  # (N,) 1.0 on real rows
     cluster_size: int = 0              # K, nodes a cluster (0: off)
+
+    def __post_init__(self):
+        self.diag_blocks = card_tiles(self.diag_blocks)
 
     @property
     def num_coo_edges(self) -> int:
@@ -132,6 +145,7 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
                  block: int = BLOCK,
                  tile_dtype=None,
                  use_segmm: bool = False,
+                 segmm_group=None,
                  use_diag: bool = False,
                  diag_r: Optional[int] = None,
                  use_rowwalk: bool = False,
@@ -147,10 +161,18 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
     """Split edges by tile occupancy and build both structures (host-side),
     as the JAX package's ``build_hybrid`` does, with its ``block`` (the tile
     edge E, a multiple of 128: the tiles, the diagonal blocks and every
-    layout at that edge), ``tile_dtype`` (``None`` or ``torch.bfloat16``),
+    layout at that edge), ``tile_dtype`` (``None`` or one of
+    ``bsr_spmm.TILE_DTYPES``; another type raises ``ValueError``),
     ``use_diag`` / ``diag_r`` (``None`` → ``pick_run_length(nb)``),
     ``use_rowwalk`` (E = 128 only, as there), ``tile_group`` and
     ``use_einsum_tiles``.
+
+    ``segmm_group`` (an int, ``"auto"`` or ``None``) is accepted and not
+    read: in the JAX package it sets the TPU's chunk layout of K3's
+    selectors (output blocks a selector chunk covers), which changes how
+    the straggler sum is tiled and not what it computes.  The port's
+    straggler CSR has no chunks, and its K3 gives the operator the JAX
+    package builds with the same ``segmm_group``.
 
     ``cluster_att`` (``att_unit`` only) / ``cluster_agg`` (the static
     semantics): K, the nodes a cluster; the stragglers collapse onto the
@@ -191,9 +213,7 @@ def build_hybrid(senders: np.ndarray, receivers: np.ndarray,
             np.add.at(db, (receivers[on_diag] // block,
                            receivers[on_diag] % block,
                            senders[on_diag] % block), weight[on_diag])
-            diag_blocks = torch.from_numpy(db)
-            if tile_dtype is not None:
-                diag_blocks = diag_blocks.to(tile_dtype)
+            diag_blocks = cast_tiles(torch.from_numpy(db), tile_dtype)
             diag_r_val = pick_run_length(nb) if diag_r is None else diag_r
 
     bsr = None
@@ -308,7 +328,7 @@ def _collapse(cs, cr, cw, n: int, semantics: str, cluster_att: int,
     nr = n if real_nodes is None else int(real_nodes)
     member = (np.arange(n) < nr).astype(np.float32)
     counts = member.reshape(c, k_size).sum(axis=1)
-    return dict(cluster_count=torch.from_numpy(cc).to(cdtype),
+    return dict(cluster_count=cast_tiles(torch.from_numpy(cc), cdtype),
                 cluster_scale=torch.from_numpy(
                     (1.0 / np.maximum(counts, 1.0)).astype(np.float32)),
                 cluster_member=torch.from_numpy(member),
@@ -390,8 +410,11 @@ class _FusedCoreDiag(torch.autograd.Function):
 def _diag_bmm(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """diag(A)·x as one batched matmul over the (nb, E, F) views (the
     JAX package's XLA einsum branch: on bf16 blocks x is cast to bf16 and
-    the product comes out in bf16); autograd gives its transpose."""
+    the product comes out in bf16; any other type is promoted to x's);
+    autograd gives its transpose."""
     nb, b, _ = blocks.shape
+    if blocks.dtype != torch.bfloat16:
+        blocks = blocks.to(x.dtype)
     xb = x.to(blocks.dtype).reshape(nb, b, -1)
     return torch.bmm(blocks, xb).reshape(x.shape).to(x.dtype)
 
@@ -400,9 +423,10 @@ def _cluster_static_term(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
     """The collapsed stragglers under static weights, as the JAX package's
     ``_cluster_static_term``: each cluster's member sum in f32 (a K-long
     sum in bf16 would lose about 3 digits), times ``cluster_scale``,
-    rounded to the table's type, then ``table @ summaries`` with both
-    widened to f32 (the JAX package's ``preferred_element_type=f32``; the
-    products of two bf16 values are exact in f32).  Autograd gives the
+    rounded to the table's type as the JAX package casts
+    (``cast_tiles``), then ``table @ summaries`` with both widened to f32
+    (the JAX package's ``preferred_element_type=f32``; the products of two
+    bf16, f16 or fp8 values are exact in f32).  Autograd gives the
     backward: the transposed product and a broadcast."""
     k_size = h.cluster_size
     table = h.cluster_count
@@ -410,7 +434,7 @@ def _cluster_static_term(h: HybridSpmm, x: torch.Tensor) -> torch.Tensor:
     member = h.cluster_member.to(x.dtype)        # 0/1: exact in any type
     sums = (x * member[:, None]).reshape(c, k_size, x.shape[-1]).sum(
         1, dtype=torch.float32)
-    summaries = (sums * h.cluster_scale[:, None]).to(table.dtype)
+    summaries = cast_tiles(sums * h.cluster_scale[:, None], table.dtype)
     return torch.matmul(table.float(), summaries.float()).to(x.dtype)
 
 

@@ -67,9 +67,11 @@ score projection), and its message the member mean of ``h``.  One dense
 by the counts, and one (N, C) × (C, F) product add to the numerator and
 the denominator, after the stragglers and the diagonal and before the
 tiles, under every switch; the exact max folds in the summary rows' max.
-This is plain PyTorch, as the JAX package's is XLA.  The tiles may be bf16
-(``tile_dtype=torch.bfloat16``): they are the 0/1 mask, so the scores and
-``pe`` stay f32 and only the kernels' tile loads change.  The einsum
+This is plain PyTorch, as the JAX package's is XLA.  The tiles may be bf16,
+f16 or fp8 (``tile_dtype``): they are the 0/1 mask, so the scores and
+``pe`` stay f32 and only the kernels' tile loads change (the mask is read
+through ``tile_values``, which widens fp8, whose comparisons not every
+device has).  The einsum
 layout has no dynamic-tile plan, so its tiles take the JAX package's XLA
 branch: a batched matmul of ``pe`` and the gathered slabs and a sum over
 block rows, in plain PyTorch.
@@ -86,6 +88,7 @@ import torch
 from fitgnn_tpu_torch.ops.att_bsr import MAX_F, att_rowmax, att_rowmax_plain, \
     att_tiles
 from fitgnn_tpu_torch.ops.bsr_dynamic import bsr_spmm_dyn
+from fitgnn_tpu_torch.ops.bsr_spmm import tile_values
 from fitgnn_tpu_torch.ops.coo_segmm import segmm_weighted_spmm, \
     segmm_weighted_spmm_den
 from fitgnn_tpu_torch.ops.segment import segment_sum, take_rows
@@ -347,7 +350,7 @@ def _finish_tiles(aux, score_src, score_dst, h, slope: float, m, num, den,
         b = aux.diag_blocks.shape[-1]
         nb = n // b
         e_d = _diag_scores(aux, score_src, score_dst, slope)
-        pe_d = torch.where(aux.diag_blocks > 0, torch.exp(
+        pe_d = torch.where(tile_values(aux.diag_blocks) > 0, torch.exp(
             e_d - m.reshape(nb, b)[:, :, None]), 0.0)
         num = num + torch.bmm(pe_d.to(h.dtype), h.reshape(nb, b, f)).reshape(
             n, f).to(num.dtype)
@@ -426,7 +429,7 @@ def _diag_scores(aux, score_src, score_dst, slope: float) -> torch.Tensor:
     nb, b, _ = aux.diag_blocks.shape
     sd = score_dst.float().reshape(nb, b)
     ss = score_src.float().reshape(nb, b)
-    return torch.where(aux.diag_blocks > 0, _leaky(
+    return torch.where(tile_values(aux.diag_blocks) > 0, _leaky(
         sd[:, :, None] + ss[:, None, :], slope), _NEG)
 
 
@@ -455,7 +458,7 @@ def tiles_two_stage(slope: float, rows, cols, plan, blocks, ssrc, sdst, m,
     layout: a batched matmul and a sum over block rows) and a row sum."""
     b = blocks.shape[-1]
     nb = x.shape[0] // b
-    mask = blocks > 0                               # static adjacency
+    mask = tile_values(blocks) > 0                  # static adjacency
     ssrc_t = ssrc.reshape(nb, b)[cols.long()]       # (K,b) sender scores
     sdst_t = sdst.reshape(nb, b)[rows.long()]       # (K,b) receiver scores
     # mask BEFORE the exp: an edgeless row's masked entries would give

@@ -279,5 +279,8 @@ def test_port_imports_neither_jax_nor_reference(tmp_path):
                 "parallel"):
         assert any(m.startswith(f"fitgnn_tpu_torch.{sub}.") for m in mods)
     assert "fitgnn_tpu_torch.coarsen.variation" in mods
+    for m in ("graph.native_build", "coarsen.blossom", "coarsen.visualize",
+              "bench.roofline", "utils.profiling"):
+        assert f"fitgnn_tpu_torch.{m}" in mods
     assert "fitgnn_tpu_torch.train.loop" in mods
     assert "fitgnn_tpu_torch.parallel.hierarchical" in mods

@@ -28,6 +28,8 @@ import fitgnn_tpu.coarsen.native_variation as jax_native_variation
 from fitgnn_tpu.coarsen import METHODS as JAX_METHODS
 from fitgnn_tpu.coarsen import coarsen as jax_coarsen
 from fitgnn_tpu.coarsen import quality as jax_quality
+from fitgnn_tpu.coarsen.matching import \
+    matching_optimal as jax_matching_optimal
 from fitgnn_tpu.coarsen.sparsify import graph_sparsify as jax_sparsify
 
 from fitgnn_tpu_torch.coarsen import METHODS, coarsen, quality
@@ -115,11 +117,21 @@ def test_optimal_matching_runs_the_native_blossom(jax_native, method):
     assert_same(got, ref)
 
 
-def test_optimal_matching_refuses_more_nodes_than_the_blossom_holds():
+def test_optimal_matching_refuses_more_nodes_than_the_blossom_holds(
+        monkeypatch):
+    """Once refused: above ``MAX_NODES`` the port runs its own copy of
+    networkx's blossom (``coarsen/blossom.py``), where the JAX package runs
+    networkx; the matchings are equal.  ``MAX_NODES`` is lowered so that a
+    small path (ties everywhere) is above it."""
+    monkeypatch.setattr(native_blossom, "MAX_NODES", 40)
+    monkeypatch.setattr(jax_native_blossom, "max_weight_matching_native",
+                        lambda *a, **k: None)
     n = native_blossom.MAX_NODES + 1
     edges = np.stack([np.arange(n - 1), np.arange(1, n)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        matching_optimal(n, edges, np.ones(n - 1), 0.3)
+    got = matching_optimal(n, edges, np.ones(n - 1), 0.3)
+    ref = jax_matching_optimal(n, edges, np.ones(n - 1), 0.3)
+    assert len(got) == len(ref) == int(np.ceil(0.3 * n))
+    np.testing.assert_array_equal(np.stack(got), np.stack(ref))
 
 
 def test_failed_native_build_raises(monkeypatch, tmp_path):

@@ -2807,3 +2807,103 @@ def test_gat_switches_on_card_match_cpu(cuda, monkeypatch, env):
     _close(loss_d, loss_c)
     for k, v in grads_c.items():
         _close(grads_d[k], v)
+
+
+# --- f16, fp8 e4m3 and fp8 e5m2 tiles ---------------------------------------
+
+_LOWP = {"f16": torch.float16, "e4m3": torch.float8_e4m3fn,
+         "e5m2": torch.float8_e5m2}
+_TILE_WRAPPERS = (bsr_spmm_acc, bsr_spmm_fwd, bsr_spmm_grouped,
+                  bsr_spmm_rowwalk, diag_spmm, att_bsr.att_rowmax,
+                  att_bsr.att_fwd, att_bsr.att_bwd_t, att_bsr.att_bwd_scores)
+
+
+def _tile_counts() -> dict:
+    return {(fn.__name__, attr): getattr(fn, attr) for fn in _TILE_WRAPPERS
+            for attr in ("launches", "launches_bf16")}
+
+
+@pytest.mark.parametrize("opts", [{}, dict(use_diag=True),
+                                  dict(use_diag=True, block=256),
+                                  dict(use_rowwalk=True),
+                                  dict(tile_group=2)],
+                         ids=["grid", "diag", "diag256", "rowwalk", "group2"])
+@pytest.mark.parametrize("tile_type", list(_LOWP))
+def test_lowp_operator_widens_on_card(cuda, tile_type, opts):
+    """An operator of f16 or fp8 tiles moved to the card holds its tiles
+    and diagonal blocks widened to f32 (the cast values exactly) and runs
+    the f32 forms on them: forward and gradient against the plain versions
+    on the CPU operator, f32 launches only."""
+    rng = np.random.default_rng(360)
+    n = 1024
+    s, r, w = _coo(rng, n, 20_000)
+    w[:4] = [300.0, -200.0, 3e-3, 1e-5]
+    hc = build_hybrid(s, r, w, n, min_block_edges=20, use_segmm=True,
+                      tile_dtype=_LOWP[tile_type], **opts)
+    hd = hc.to(cuda)
+    for got, ref in ((hd.bsr.blocks, hc.bsr.blocks),
+                     (hd.diag_blocks, hc.diag_blocks)):
+        if ref is not None:
+            assert got.dtype == torch.float32
+            assert torch.equal(got.cpu(), ref.float())
+    x = rng.standard_normal((n, 64)).astype(np.float32)
+    xc = torch.tensor(x, requires_grad=True)
+    xd = torch.tensor(x, device=cuda, requires_grad=True)
+    before = _tile_counts()
+    out_d = hybrid_spmm(hd, xd)
+    out_d.square().sum().backward()
+    torch.cuda.synchronize()
+    after = _tile_counts()
+    out_c = hybrid_spmm(hc, xc)
+    out_c.square().sum().backward()
+    _close(out_d.detach().cpu(), out_c.detach())
+    _close(xd.grad.cpu(), xc.grad)
+    grew = {k for k in after if after[k] != before[k]}
+    assert grew and all(attr == "launches" for _, attr in grew)
+
+
+@pytest.mark.parametrize("layer,env", [
+    ("GCNConv", {}), ("GATConv", {}),
+    ("GATConv", {"FITGNN_GAT_FUSED_TILES": "1"})],
+    ids=["gcn", "gat", "gat_fused"])
+@pytest.mark.parametrize("tile_type", list(_LOWP))
+def test_lowp_train_step_on_card_matches_cpu(cuda, monkeypatch, tile_type,
+                                             layer, env):
+    """One step's loss and gradients on an operator of f16 or fp8 tiles
+    from ``build_optimized_graph``: on the card (the f32 forms on the
+    widened tiles) against the plain versions on the CPU operator."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    rng = np.random.default_rng(27)
+    n, feat = 1500, 128
+    s, r = _bench_like(rng)
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    y = rng.integers(0, 5, n)
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=rng.random(n) < .5,
+                                 min_block_edges=48, layer_name=layer,
+                                 tile_dtype=_LOWP[tile_type])
+    assert g.aux.bsr.blocks.dtype == _LOWP[tile_type]
+    model = NodeModel(layer, feat, 64, 2, 5, dropout_rate=0.0)
+    model.reset_parameters(torch.Generator().manual_seed(0)).train()
+    loss_c, grads_c = _grads(model, g, g.y, g.train_mask)
+    gd = g.to(cuda)
+    assert gd.aux.bsr.blocks.dtype == torch.float32
+    loss_d, grads_d = _grads(model.to(cuda), gd, gd.y, gd.train_mask)
+    _close(loss_d, loss_c)
+    for k, v in grads_c.items():
+        _close(grads_d[k], v)
+
+
+def test_wrappers_refuse_lowp_tiles_on_card(cuda):
+    """A ``BsrMatrix`` made on the card widens f16 tiles; tiles of f16 or
+    fp8 handed to a wrapper on the card themselves are refused before a
+    launch."""
+    rng = np.random.default_rng(350)
+    s, r, w = _coo(rng, 512, 4000)
+    b = build_bsr(s, r, w, 512).to(cuda)
+    assert dataclasses.replace(
+        b, blocks=b.blocks.half()).blocks.dtype == torch.float32
+    x = torch.zeros((512, 16), device=cuda)
+    for dt in _LOWP.values():
+        with pytest.raises(ValueError, match="float32"):
+            diag_spmm(b.blocks[:4].to(dt), x, 2)

@@ -238,14 +238,31 @@ def test_hybrid_without_tiles_matches_jax():
         np.asarray(jax_hybrid_spmm(hj, jnp.asarray(x))), **TOL)
 
 
-# the tile opt-ins are ported (bf16 tiles and the einsum layout too, and
-# under GATConv's att_unit semantics), and so are the cluster collapses;
-# tiles of another type still raise
-@pytest.mark.parametrize("opt_in", [dict(tile_dtype=torch.float16)])
+# the tile opt-ins are ported (every tile type of the JAX package, the
+# einsum layout, GATConv's att_unit semantics) and so are the cluster
+# collapses; a tile type outside the five raises
+@pytest.mark.parametrize("opt_in", [dict(tile_dtype=torch.int8),
+                                    dict(tile_dtype=torch.float16)])
 def test_hybrid_opt_ins_raise(opt_in):
+    """An integer tile type raises ``ValueError`` naming the five types;
+    float16 tiles, once refused, give the JAX package's operator and
+    product."""
     s, r, w = sorted_coo(np.random.default_rng(12), 256, 500)
-    with pytest.raises(NotImplementedError):
-        build_hybrid(s, r, w, 256, **opt_in)
+    if opt_in["tile_dtype"] is torch.int8:
+        with pytest.raises(ValueError, match="float8_e5m2"):
+            build_hybrid(s, r, w, 256, **opt_in)
+        return
+    ht = build_hybrid(s, r, w, 256, min_block_edges=8, **opt_in)
+    hj = jax_build_hybrid(s, r, w, 256, min_block_edges=8,
+                          tile_dtype=jnp.float16)
+    assert ht.bsr.blocks.dtype == torch.float16
+    np.testing.assert_array_equal(ht.bsr.blocks.view(torch.int16).numpy(),
+                                  np.asarray(hj.bsr.blocks).view(np.int16))
+    x = np.random.default_rng(13).standard_normal((256, 16)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        hybrid_spmm(ht, torch.from_numpy(x)).numpy(),
+        np.asarray(jax_hybrid_spmm(hj, jnp.asarray(x))), **TOL)
 
 
 @pytest.mark.parametrize("opt_in", [dict(cluster_att=128,

@@ -127,18 +127,14 @@ def test_build_bsr_layouts_match_jax(layout):
                                      tile_dtype=torch.bfloat16),
                                 dict(tile_dtype=torch.float16)])
 def test_build_bsr_unported_variants_raise(kw):
-    """Of the variants once refused, the 256-wide tiles (f32 grid walk,
-    bf16 einsum) now build the JAX package's arrays; float16 tiles still
-    raise, naming their ROADMAP item."""
+    """The variants once refused now build the JAX package's arrays: the
+    256-wide tiles (f32 grid walk, bf16 einsum) and float16 tiles."""
     s, r, w = sorted_coo(np.random.default_rng(2), 512, 1000)
-    if kw.get("tile_dtype") is torch.float16:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-            build_bsr(s, r, w, 512, **kw)
-        return
-    jkw = dict(kw, tile_dtype=jnp.bfloat16 if "tile_dtype" in kw else None)
+    jdt = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
+    jkw = dict(kw, tile_dtype=jdt.get(kw.get("tile_dtype")))
     bt, bj = build_bsr(s, r, w, 512, **kw), jax_build_bsr(s, r, w, 512, **jkw)
     for mt, mj in ((bt, bj), (bt.transpose, bj.transpose)):
-        assert mt.block == mj.block == 256
+        assert mt.block == mj.block == kw.get("block", 128)
         assert mt.blocks.dtype == kw.get("tile_dtype", torch.float32)
         np.testing.assert_array_equal(
             mt.blocks.float().numpy(),
