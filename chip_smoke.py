@@ -398,18 +398,40 @@ Phases (any failure exits non-zero before the result lines):
    ``measure_spmm_roofline()`` at its defaults (the achieved GB/s against
    3,350) and a ``device_trace`` of three hybrid SpMMs on phase 3's
    operator, whose Chrome trace must hold the card's kernels;
-26. one JSON line with every kernel's numbers, the bf16 forms and the
-   forms at edge 256 (``K1@256``, ``K1bf@256``, ``K4@256``, ``K7f@256``,
-   ...) as their own entries (launches summed over the main-path phases 5
-   to 23, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
-   K7sums, and K1, K2, K9, K4, K4ᵀ (their walks of the live quadrants),
-   K5, K7f, K7bt, K7s and K7sums at 256, with their ``ptxas`` register
-   and spill counts), then the ``ok`` line.
+26. bf16 activations, the conv stack's ``dtype=torch.bfloat16`` (after
+   phase 11, on its bf16 operators and phase 3's): K1a (K1 on bf16 ``x``
+   and ``init``, f32 tiles) and K1bfa (bf16 tiles) on ``bsr`` and
+   ``bsr.transpose``, K3a on the GCN straggler CSR both ways, K3wa and
+   K6a (K3w, K6) on GAT's, at F=128 and 512, and K11a at (N_pad, 512),
+   each against its plain version (``compare_bf16``: rtol 2⁻⁶, two bf16
+   steps; K6a's den and K11a exactly, K11a with the f32 form's mask) and
+   twice bit-equal, timed beside its f32-activation form with its bound
+   and library call; each widened form once (K2, K9, K10, K8, K4, K4ᵀ, K5,
+   K7f, K7bt's ``dx``, K7s, K1 at 256: its f32 form launched, on the
+   widened operands bit for bit, against its plain version); then three
+   steps through the library, every counter at 0 just before each
+   counted step and eval forward: ``bench.py``'s bf16 GCN (pre-aggregated
+   layer 0, bf16 tiles, bit dropout: K3a 3, K1bfa 3 and no f32 K1 or
+   K3), the bf16 GCN + K11 step (K3 2, K1 2 on layer 0's f32 input, K3a
+   3, K1a 3, K11a 4) and the bf16 fused + K6 GAT step on the bf16 mask
+   (K7fbf 4, K7btbf 1, K7sbf 2, K7sums 2, K6a 4, K3wa 1), each held
+   against the plain versions
+   (loss 1e-2 relative, gradients 5e-2·max|ref|, eval forward
+   2e-2·max(1, max|ref|)) and timed beside its f32 twin;
+27. one JSON line with every kernel's numbers, the bf16 forms, the
+   bf16-activation forms (``K1a``, ``K1bfa``, ``K3a``, ``K3wa``, ``K6a``,
+   ``K11a``) and the forms at edge 256 (``K1@256``, ``K1bf@256``,
+   ``K4@256``, ``K7f@256``, ...) as their own entries (launches summed over
+   the main-path phases 5 to 26, per phase beside them; K3, K3w, K6, K5,
+   K7f, K7bt, K7s and K7sums, their bf16-activation forms, and K1, K2,
+   K9, K4, K4ᵀ (their walks of the live quadrants), K5, K7f, K7bt, K7s
+   and K7sums at 256, with their ``ptxas`` register and spill counts),
+   then the ``ok`` line.
 
 The JAX package's environment switches are set in ``os.environ`` for one
 phase and restored after it; the earlier phases must launch none of K6
-and K7, the CLI phases none of the opt-in kernels, and no phase before 11
-a bf16 form.
+and K7, the CLI phases none of the opt-in kernels, no phase before 11
+a bf16 form, and no phase but 26 a bf16-activation form.
 """
 
 from __future__ import annotations
@@ -803,8 +825,16 @@ def counters() -> dict:
            "K7sums": att_bsr.att_sums,
            "K2": bsr_spmm_fwd, "K8": diag_spmm, "K9": bsr_spmm_grouped,
            "K10": bsr_spmm_rowwalk, "K11": philox_dropout}
+    # the bf16-activation forms (phase 26): K1a on f32 tiles, K1bfa on
+    # bf16 tiles, K3a / K3wa / K6a the straggler sum's, K11a the dropout's
+    act = {"K1a": (bsr_spmm_acc, "launches_a"),
+           "K1bfa": (bsr_spmm_acc, "launches_bfa"),
+           "K3a": (segmm_spmm, "launches_a"),
+           "K3wa": (segmm_weighted_raw, "launches_a"),
+           "K6a": (segmm_weighted_den_raw, "launches_a"),
+           "K11a": (philox_dropout, "launches_a")}
     return {**{k: (fn, "launches") for k, fn in f32.items()},
-            **{BF[k]: (f32[k], "launches_bf16") for k in BF}}
+            **{BF[k]: (f32[k], "launches_bf16") for k in BF}, **act}
 
 
 # the kernels with a bf16 form (bf16 tiles), and its ID
@@ -3467,6 +3497,446 @@ def phase_bf16_steps(device, g, ops) -> dict:
                     p.grad)
         del gd, model, grads, fwd
         torch.cuda.empty_cache()
+    return phases
+
+
+# ---- phase 26: bf16 activations (the conv stack's dtype=torch.bfloat16) ---
+
+BF16_ACT_RTOL = 2 ** -6
+
+
+def compare_bf16(name: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """``compare`` for bf16 outputs of the same rule: f32 sums taken in
+    another order, each rounded to bf16 once, may round to neighbouring
+    bf16 values: rtol 2⁻⁶ (two bf16 steps where a step is largest, 2⁻⁷ of
+    the value) and atol 1e-4·max|ref|."""
+    check(got.dtype == ref.dtype == torch.bfloat16,
+          f"{name}: {got.dtype} / {ref.dtype}, not bf16")
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    atol = 1e-4 * float(ref.abs().max())
+    max_abs = float(diff.max())
+    max_rel = float((diff / ref.abs().clamp_min(max(atol, 1e-30))).max())
+    print(f"  {name}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
+          f"(atol={atol:.3e}, rtol={BF16_ACT_RTOL})")
+    check(bool((diff <= atol + BF16_ACT_RTOL * ref.abs()).all()),
+          f"{name}: kernel disagrees with its plain version")
+    return {"max_abs_err": max_abs, "max_rel_err": max_rel}
+
+
+def _library_bf16(fn):
+    """``fn``'s time (a torch.sparse call on bf16 operands), or None where
+    the card's PyTorch has no such product; the reason printed."""
+    try:
+        fn()
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"  library call on bf16 refused: {str(exc).splitlines()[0]}")
+        return None
+    return cuda_ms(fn, 20)
+
+
+def phase_bf16_act_kernels(device, g, ops) -> dict:
+    """The kernels' bf16-activation forms at F=128 and 512 on the bench
+    graph, each against its plain version (``compare_bf16``; K11a bit for
+    bit), with kernel, plain and library times, the f32-activation form's
+    time on the same operator beside it, and the bound from the bytes it
+    moves (activations at 2 bytes a value) and its operations: K1a (phase
+    3's f32 tiles) and K1bfa (bench.py's bf16 tiles, phase 11's default
+    operator) on ``bsr`` and ``bsr.transpose``; K3a on the GCN straggler CSR
+    both ways, K3wa (K3w) and K6a (K6) on GAT's with runtime weights (K3wa
+    also on the transpose CSR with the permutation); K11a at (N_pad, 512).
+    Then each widened form once against its plain version
+    (``phase_bf16_act_widened``)."""
+    from fitgnn_tpu_torch.ops.bsr_spmm import bsr_spmm_acc, bsr_spmm_acc_plain
+    from fitgnn_tpu_torch.ops.coo_segmm import (
+        segmm_spmm, segmm_spmm_plain, segmm_weighted_den_raw,
+        segmm_weighted_den_raw_plain, segmm_weighted_raw,
+        segmm_weighted_raw_plain)
+    from fitgnn_tpu_torch.ops.dropout import (philox_dropout,
+                                              philox_dropout_plain,
+                                              seed_from_generator)
+
+    bf16 = torch.bfloat16
+    n = g.num_nodes_padded
+    nb = n // 128
+    h32, hbf = g.aux.to(device), ops["default"].to(device)
+    hgat = ops["gat"].to(device)
+    gen = torch.Generator(device=device).manual_seed(26)
+    out = {k: [] for k in ("K1a", "K1bfa", "K3a", "K3wa", "K6a", "K11a")}
+
+    def show(k, sh):
+        lib = sh["library_ms"]
+        print(f"  {k} {sh['shape']}: kernel_ms={sh['ms']:.4f} (f32 "
+              f"activations {sh['f32_ms']:.4f}) plain_ms="
+              f"{sh['plain_ms']:.4f} library_ms="
+              f"{'null' if lib is None else f'{lib:.4f}'} bound_ms="
+              f"{sh['bound_ms']:.4f} ({sh['bound_by']})"
+              + (f" wrapper_ms={sh['wrapper_ms']:.4f}"
+                 if "wrapper_ms" in sh else ""))
+
+    with torch.inference_mode():
+        for feat in (NUM_FEATURES, HIDDEN):
+            x32 = torch.randn((n, feat), generator=gen, device=device)
+            init32 = torch.randn((n, feat), generator=gen, device=device)
+            x, init = x32.to(bf16), init32.to(bf16)
+            print(f"bf16 activations F={feat}:")
+            # K1a / K1bfa, forward and transpose
+            for k, h, tile_bytes in (("K1a", h32, 4), ("K1bfa", hbf, 2)):
+                for way, b in (("forward", h.bsr),
+                               ("transpose", h.bsr.transpose)):
+                    nz_tile = (b.blocks != 0).flatten(1).any(1)
+                    tiles = int(nz_tile.sum())
+                    nnz = int((b.blocks != 0).sum())
+                    uniq = int(torch.unique(b.cols[nz_tile]).numel())
+                    tag = f"F={feat} {way}"
+                    got = bsr_spmm_acc(b, x, init)
+                    again = bsr_spmm_acc(b, x, init)
+                    err = compare_bf16(f"{k} bsr_spmm_acc {tag}", got,
+                                       bsr_spmm_acc_plain(b, x, init))
+                    check(torch.equal(got, again),
+                          f"{k} {tag}: two launches differ")
+                    try:
+                        a_csr = tile_csr(b, n)[0].to(bf16)
+                    except (RuntimeError, NotImplementedError) as exc:
+                        a_csr = None
+                        print("  bf16 CSR refused: "
+                              f"{str(exc).splitlines()[0]}")
+                    b1, by1 = bound(
+                        tiles * 128 * 128 * tile_bytes
+                        + (2 * b.nnz_blocks + nb + 1) * 4
+                        + uniq * 128 * feat * 2 + 2 * n * feat * 2,
+                        2.0 * nnz * feat)
+                    sh = dict(
+                        F=feat, shape=tag, on_path=feat == HIDDEN, **err,
+                        bound_ms=b1, bound_by=by1,
+                        ms=cuda_ms(lambda: bsr_spmm_acc(b, x, init), 20),
+                        f32_ms=cuda_ms(lambda: bsr_spmm_acc(b, x32, init32),
+                                       20),
+                        plain_ms=cuda_ms(
+                            lambda: bsr_spmm_acc_plain(b, x, init), 5),
+                        library_ms=None if a_csr is None else _library_bf16(
+                            lambda: torch.sparse.addmm(init, a_csr, x)),
+                        library_label="torch.sparse.addmm on the tiles' "
+                                      "CSR in bf16 and bf16 x, init")
+                    out[k].append(sh)
+                    show(k, sh)
+                    del a_csr, got, again
+            # K3a on the GCN stragglers, both ways
+            for way, m in (("forward", h32.segmm),
+                           ("transpose", h32.t_segmm)):
+                tag = f"F={feat} {way}"
+                live = m.weights != 0
+                e = int(live.sum())
+                uniq = int(torch.unique(m.senders[live]).numel())
+                got = segmm_spmm(m, x)
+                check(torch.equal(got, segmm_spmm(m, x)),
+                      f"K3a {tag}: two launches differ")
+                err = compare_bf16(f"K3a segmm_spmm {tag}", got,
+                                   segmm_spmm_plain(m, x))
+                a_str = torch.sparse_csr_tensor(m.row_ptr, m.senders,
+                                                m.weights.to(bf16), (n, n))
+                b3, by3 = bound((n + 1) * 4 + e * 8 + uniq * feat * 2
+                                + n * feat * 2, 2.0 * e * feat)
+                sh = dict(F=feat, shape=tag, on_path=feat == HIDDEN, **err,
+                          bound_ms=b3, bound_by=by3,
+                          **segmm_times(lambda: segmm_spmm(m, x)),
+                          f32_ms=device_ms(lambda: segmm_spmm(m, x32), 20),
+                          plain_ms=cuda_ms(lambda: segmm_spmm_plain(m, x),
+                                           5),
+                          library_ms=_library_bf16(
+                              lambda: torch.sparse.mm(a_str, x)),
+                          library_label="torch.sparse.mm on the straggler "
+                                        "CSR in bf16 and bf16 x")
+                out["K3a"].append(sh)
+                show("K3a", sh)
+            # K3wa and K6a on GAT's stragglers with runtime weights
+            m, mt = hgat.segmm, hgat.t_segmm
+            live = m.weights != 0
+            e = int(live.sum())
+            uniq = int(torch.unique(m.senders[live]).numel())
+            w_edge = torch.rand(m.senders.shape, generator=gen,
+                                device=device)
+            perm = hgat.t_edge_perm
+            for k, tag, fn, plain, extra, path in (
+                    ("K3wa", f"F={feat} forward",
+                     lambda: segmm_weighted_raw(m, w_edge, x),
+                     lambda: segmm_weighted_raw_plain(m, w_edge, x),
+                     e * 4, False),
+                    ("K3wa", f"F={feat} transpose",
+                     lambda: segmm_weighted_raw(mt, w_edge, x, perm),
+                     lambda: segmm_weighted_raw_plain(mt, w_edge, x, perm),
+                     e * 8, feat == HIDDEN),
+                    ("K6a", f"F={feat} forward",
+                     lambda: segmm_weighted_den_raw(m, w_edge, x),
+                     lambda: segmm_weighted_den_raw_plain(m, w_edge, x),
+                     e * 4 + n * 4, True)):
+                got, ref = fn(), plain()
+                again = fn()
+                if k == "K6a":
+                    check(torch.equal(got[1], again[1]),
+                          f"K6a {tag}: two launches' den differ")
+                    compare(f"K6a den {tag}", got[1], ref[1])
+                    got, ref, again = got[0], ref[0], again[0]
+                check(torch.equal(got, again),
+                      f"{k} {tag}: two launches differ")
+                err = compare_bf16(f"{k} {tag}", got, ref)
+                bw, byw = bound((n + 1) * 4 + e * 8 + extra
+                                + uniq * feat * 2 + n * feat * 2,
+                                2.0 * e * feat + e)
+                wide = {"K3wa": lambda: segmm_weighted_raw(m, w_edge, x32),
+                        "K6a": lambda: segmm_weighted_den_raw(
+                            m, w_edge, x32)}[k]
+                sh = dict(F=feat, shape=tag, on_path=path, **err,
+                          bound_ms=bw, bound_by=byw, **segmm_times(fn),
+                          f32_ms=device_ms(wide, 20),
+                          plain_ms=cuda_ms(plain, 5), library_ms=None,
+                          library_label="none: no one-call PyTorch product "
+                                        "forms w_edge·weights per edge")
+                out[k].append(sh)
+                show(k, sh)
+            del x, init, x32, init32, got, ref, again, w_edge
+        # K11a at the layer output's shape, bit for bit
+        x32 = torch.randn((n, HIDDEN), generator=gen, device=device)
+        x = x32.to(bf16)
+        seed = seed_from_generator(gen, device)
+        got = philox_dropout(x, seed, 0.5)
+        check(torch.equal(got, philox_dropout_plain(x, seed, 0.5)),
+              "K11a: kernel and plain version differ")
+        check(torch.equal(got == 0, philox_dropout(x32, seed, 0.5) == 0),
+              "K11a: its mask is not the f32 form's")
+        print(f"K11a philox_dropout on bf16: bit-exact, the f32 form's mask "
+              f"on {x.numel()} values")
+        b11, by11 = bound(2 * x.numel() * 2 + 4, float(x.numel()))
+        sh = dict(F=HIDDEN, shape=f"({n}, {HIDDEN})", max_abs_err=0.0,
+                  max_rel_err=0.0, bit_exact=True, bound_ms=b11,
+                  bound_by=by11,
+                  ms=cuda_ms(lambda: philox_dropout(x, seed, 0.5), 20),
+                  f32_ms=cuda_ms(lambda: philox_dropout(x32, seed, 0.5), 20),
+                  plain_ms=cuda_ms(lambda: philox_dropout_plain(x, seed, 0.5),
+                                   3),
+                  library_ms=cuda_ms(lambda: torch.nn.functional.dropout(
+                      x, 0.5, training=True), 20),
+                  library_label="torch.nn.functional.dropout on bf16 (its "
+                                "own mask stream)")
+        out["K11a"].append(sh)
+        show("K11a", sh)
+        del x, x32, got
+        phase_bf16_act_widened(device, g, ops, gen)
+    del h32, hbf, hgat
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_act_widened(device, g, ops, gen) -> None:
+    """Each form without a bf16-activation form, once on bf16 operands of
+    the bench graph at F=512: the launch counted as its f32 form's, its
+    output the f32 form on the widened operands rounded once (bit for bit)
+    and the plain version's within ``compare_bf16``: K2 (forward-only),
+    K9, K10, K8 (transposed, from init), K4, K4ᵀ and K5 (GAT's bf16 ``pe``
+    values on its plan), K7f, K7bt's ``dx`` and K7s on its mask, and K1 at
+    edge 256 (a synthetic community graph: the quadrant walk with words)."""
+    from fitgnn_tpu_torch.ops import att_bsr, bsr_dynamic
+    from fitgnn_tpu_torch.ops.bsr_spmm import (build_bsr, bsr_spmm_acc,
+                                               bsr_spmm_acc_plain,
+                                               bsr_spmm_fwd,
+                                               bsr_spmm_grouped,
+                                               bsr_spmm_plain,
+                                               bsr_spmm_rowwalk)
+    from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm, diag_spmm_plain
+
+    bf16 = torch.bfloat16
+    n = g.num_nodes_padded
+    x = torch.randn((n, HIDDEN), generator=gen, device=device).to(bf16)
+    init = torch.randn((n, HIDDEN), generator=gen, device=device).to(bf16)
+    b2 = ops["default"].bsr.to(device)
+    b9 = ops["group2"].bsr.to(device)
+    b10 = ops["rowwalk"].bsr.to(device)
+    hd = ops["diag"]
+    diag = hd.diag_blocks.to(device)
+    hg = ops["gat"].to(device)
+    bg, plan = hg.bsr, hg.dyn_plan
+    rows, cols = bg.rows, bg.cols
+    ssrc = torch.randn(n, generator=gen, device=device)
+    sdst = torch.randn(n, generator=gen, device=device)
+    m = att_bsr.att_rowmax(rows, cols, plan, bg.blocks, ssrc, sdst, SLOPE)
+    m = torch.where(m > -1e29, m + 1.0, m)
+    pe = torch.where(bg.blocks != 0, torch.rand(bg.blocks.shape,
+                                                generator=gen,
+                                                device=device), 0.0).to(bf16)
+    dden = torch.randn(n, generator=gen, device=device)
+    rng = np.random.default_rng(26)
+    n2 = 16384
+    r2 = np.sort(rng.integers(0, n2, 200_000))
+    s2 = np.where(rng.random(len(r2)) < 0.85,
+                  (r2 // 256) * 256 + rng.integers(0, 256, len(r2)),
+                  rng.integers(0, n2, len(r2)))
+    b256 = build_bsr(s2, r2, rng.random(len(r2)).astype(np.float32), n2,
+                     block=256).to(device)
+    check(b256.quad_bits is not None, "K1@256: no occupancy words")
+    x2 = x[:n2].contiguous()
+    i2 = init[:n2].contiguous()
+    forms = (
+        ("K2", bsr_spmm_fwd, lambda a: bsr_spmm_fwd(b2, a),
+         lambda a: bsr_spmm_plain(b2, a), (x,)),
+        ("K9", bsr_spmm_grouped, lambda a: bsr_spmm_grouped(b9, a),
+         lambda a: bsr_spmm_plain(b9, a), (x,)),
+        ("K10", bsr_spmm_rowwalk, lambda a: bsr_spmm_rowwalk(b10, a),
+         lambda a: bsr_spmm_plain(b10, a), (x,)),
+        ("K8", diag_spmm,
+         lambda a, c: diag_spmm(diag, a, hd.diag_r, True, c),
+         lambda a, c: diag_spmm_plain(diag, a, hd.diag_r, True, c),
+         (x, init)),
+        ("K4", bsr_dynamic.dyn_tiles,
+         lambda v, a: bsr_dynamic.dyn_tiles(rows, cols, plan, v, a),
+         lambda v, a: bsr_dynamic.dyn_tiles_plain(rows, cols, plan, v, a),
+         (pe, x)),
+        ("K4T", bsr_dynamic.dyn_tiles_t,
+         lambda v, a: bsr_dynamic.dyn_tiles_t(plan, v, a),
+         lambda v, a: bsr_dynamic.dyn_tiles_t_plain(plan, v, a), (pe, x)),
+        ("K5", bsr_dynamic.dyn_grad_blocks,
+         lambda a, c: bsr_dynamic.dyn_grad_blocks(rows, cols, a, c),
+         lambda a, c: bsr_dynamic.dyn_grad_blocks_plain(rows, cols, a, c),
+         (init, x)),
+        ("K7f", att_bsr.att_fwd,
+         lambda a: att_bsr.att_fwd(rows, cols, plan, bg.blocks, ssrc, sdst,
+                                   m, a, SLOPE)[0],
+         lambda a: att_bsr.att_fwd_plain(rows, cols, plan, bg.blocks, ssrc,
+                                         sdst, m, a, SLOPE)[0], (x,)),
+        ("K7bt", att_bsr.att_bwd_t,
+         lambda a, c: att_bsr.att_bwd_t(plan, bg.blocks, ssrc, sdst, m, a, c,
+                                        dden, SLOPE, need_dssrc=False)[0],
+         lambda a, c: att_bsr.att_bwd_t_plain(plan, bg.blocks, ssrc, sdst, m,
+                                              a, c, dden, SLOPE,
+                                              need_dssrc=False)[0],
+         (init, x)),
+        ("K7s", att_bsr.att_bwd_scores,
+         lambda a, c: att_bsr.att_bwd_scores(rows, cols, plan, bg.blocks,
+                                             ssrc, sdst, m, a, c, dden,
+                                             SLOPE)[1],
+         lambda a, c: att_bsr.att_bwd_scores_plain(rows, cols, plan,
+                                                   bg.blocks, ssrc, sdst, m,
+                                                   a, c, dden, SLOPE)[1],
+         (init, x)),
+        ("K1@256", bsr_spmm_acc, lambda a, c: bsr_spmm_acc(b256, a, c),
+         lambda a, c: bsr_spmm_acc_plain(b256, a, c), (x2, i2)))
+    def total(fn):
+        return fn.launches + getattr(fn, "launches_bf16", 0)
+
+    print("bf16 activations, the widened route (F=512):")
+    for name, fn, call, plain, acts in forms:
+        before = total(fn)
+        got = call(*acts)
+        check(total(fn) == before + 1,
+              f"{name}: the widened route launched no f32 form")
+        check(torch.equal(got, call(*(a.float() for a in acts)).to(
+            got.dtype)), f"{name}: not the f32 form on widened operands")
+        ref = plain(*acts)
+        if got.dtype == bf16:
+            compare_bf16(f"{name} widened", got, ref)
+        else:
+            compare(f"{name} widened", got, ref)
+    del x, init, b2, b9, b10, diag, hg, pe, b256, x2, i2
+
+
+def phase_bf16_act_steps(device, g, ops) -> dict:
+    """The bf16 stack through the library surface at hidden 512, each step
+    beside its f32 twin (the same model without ``dtype``) in the same
+    call, every counter at 0 just before each counted run:
+
+    * bench.py's configuration: a bf16 GCN stack on bench.py's bf16 tiles,
+      layer 0 pre-aggregated (``preaggregate_input``, then bf16), bit
+      dropout 0.5: one ``gc_train_step`` and one eval forward launch K3a
+      and K1bfa (3 each) and no f32 form of K1 or K3;
+    * the bf16 GCN + K11 step (``fused_dropout=True, bit_dropout=False``)
+      on phase 3's f32 tiles: layer 0 aggregates the f32 input (K3, K1),
+      layer 1 bf16 (K3a, K1a), K11a after each layer;
+    * the bf16 fused + K6 GAT step (``FUSED_TILES=1 SEGMM_DEN=1``) on
+      phase 11's bf16 mask: K6a, K3wa and K7's widened forms (their
+      bf16-mask forms, bit for bit the f32 forms on a 0/1 mask).
+
+    Each counted run is held against the same run with the plain versions
+    (the loss within 1e-2 relative, each gradient within 5e-2·max|ref|,
+    the eval forward within 2e-2·max(1, max|ref|): bf16 roundings flip on
+    sums taken in another order), its eval forward printed beside the f32
+    twin's, and the step and eval forward timed (CUDA events over
+    ``EDGE_TIMED_STEPS``) for both."""
+    from fitgnn_tpu_torch.models.models import NodeModel, preaggregate_input
+    from fitgnn_tpu_torch.train import steps
+
+    bf16 = torch.bfloat16
+    phases, times = {}, {}
+    gb = g._replace(aux=ops["default"]).to(device)
+    x_pre = preaggregate_input(gb, "GCNConv")
+    runs = (
+        ("bench", "GCNConv", g._replace(aux=ops["default"]),
+         dict(first_layer_preaggregated=True), {}, x_pre,
+         {"K3a": 3, "K1bfa": 3}),
+        ("gcn k11", "GCNConv", g, dict(fused_dropout=True,
+                                       bit_dropout=False), {}, None,
+         {"K3": 2, "K1": 2, "K3a": 3, "K1a": 3, "K11a": 4}),
+        ("gat fused den", "GATConv", g._replace(aux=ops["gat"]), {}, FUSED,
+         None, {"K7fbf": 4, "K7btbf": 1, "K7sbf": 2, "K7sums": 2, "K6a": 4,
+                "K3wa": 1}))
+    del gb
+    for what, layer, gr, kw, env, xin, want in runs:
+        gd = gr.to(device)
+        gd32 = gd if xin is None else gd._replace(x=xin)
+        gd16 = gd if xin is None else gd._replace(x=xin.to(bf16))
+
+        def make(dtype):
+            mdl = NodeModel(layer, gd32.x.shape[1], HIDDEN, 2, NUM_CLASSES,
+                            dropout_rate=0.5, dtype=dtype, **kw)
+            return mdl.reset_parameters(
+                torch.Generator().manual_seed(0)).to(device)
+
+        with switches(env):
+            model = make(bf16)
+            reset_counts()
+            fwd, loss, grads = eval_and_step(model, gd16, device)
+            launches = read_counts()
+            expect(launches, want, f"bf16a {what} step and eval")
+            phases[f"bf16a {what} step and eval"] = launches
+            with plain_versions():
+                fwd_p, loss_p, grads_p = eval_and_step(make(bf16), gd16,
+                                                       device)
+            check(abs(float(loss) - float(loss_p))
+                  <= 1e-2 * abs(float(loss_p)),
+                  f"bf16a {what}: loss {float(loss)} against the plain "
+                  f"versions' {float(loss_p)}")
+            for k, v in grads_p.items():
+                err = float((grads[k] - v).abs().max())
+                check(grads[k].dtype == torch.float32
+                      and err <= 5e-2 * float(v.abs().max()),
+                      f"bf16a {what}: grad {k} off the plain versions' by "
+                      f"{err:.3e}")
+            scale = max(1.0, float(fwd_p.abs().max()))
+            err = float((fwd - fwd_p).abs().max())
+            check(err <= 2e-2 * scale, f"bf16a {what}: eval forward off "
+                  f"the plain versions' by {err:.3e}")
+            fwd32 = eval_and_step(make(None), gd32, device)[0]
+            print(f"bf16a {what}: loss {float(loss):.5f} (plain "
+                  f"{float(loss_p):.5f}); eval log-probs max |bf16 - f32 "
+                  f"twin| {float((fwd - fwd32).abs().max()):.4f} of "
+                  f"{float(fwd32.abs().max()):.4f}")
+            for name, dtype, gdx in (("bf16", bf16, gd16), ("f32", None,
+                                                           gd32)):
+                model = make(dtype)
+                opt = steps.adam_l2(model.parameters(), 0.01, 5e-4)
+                gen = torch.Generator(device=device).manual_seed(0)
+                step = cuda_ms(lambda: steps.gc_train_step(
+                    model, opt, gdx, gdx.y, gdx.train_mask, gen,
+                    "classification"), EDGE_TIMED_STEPS)
+                model.eval()
+                with torch.inference_mode():
+                    ev = cuda_ms(lambda: model(gdx.x, gdx), EDGE_TIMED_STEPS)
+                times[f"{what} {name}"] = (step, ev)
+        del gd, gd32, gd16, model, fwd, fwd_p, fwd32, grads, grads_p
+        torch.cuda.empty_cache()
+    print(f"bf16a ms (hidden 512, dropout 0.5, CUDA events over "
+          f"{EDGE_TIMED_STEPS}; step / eval forward): "
+          + ", ".join(f"{k} {s:.3f} / {e:.3f}" for k, (s, e)
+                      in times.items()))
     return phases
 
 
@@ -6500,7 +6970,109 @@ KERNELS = (
     ("K7sbf@256", "K7sbf@256 att_bwd_scores' pass on 256-wide bf16 masks",
      "fitgnn_tpu_torch/csrc/att_bsr.cu",
      "fitgnn_tpu/ops/pallas/att_bsr.py:267"),
+    # the bf16-activation forms (the conv stack's dtype=bf16), phase 26
+    ("K1a", "K1a bsr_spmm_acc on bf16 activations (f32 tiles; the slab "
+     "read as bf16, sums f32, rounded once)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_spmm.py:200"),
+    ("K1bfa", "K1bfa bsr_spmm_acc on bf16 activations and bf16 tiles",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_spmm.py:200"),
+    ("K3a", "K3a segmm_spmm on bf16 activations (each weight rounded to "
+     "bf16 first)", "fitgnn_tpu_torch/csrc/coo_segmm.cu",
+     "fitgnn_tpu/ops/pallas/coo_segmm.py:187"),
+    ("K3wa", "K3wa segmm_weighted_raw on bf16 activations (K3a's kernel, "
+     "runtime weights)", "fitgnn_tpu_torch/csrc/coo_segmm.cu",
+     "fitgnn_tpu/ops/pallas/coo_segmm.py:370"),
+    ("K6a", "K6a segmm_weighted_den_raw on bf16 activations (den f32 over "
+     "the unrounded weights)", "fitgnn_tpu_torch/csrc/coo_segmm.cu",
+     "fitgnn_tpu/ops/pallas/coo_segmm.py:236"),
+    ("K11a", "K11a philox_dropout on bf16 activations (the f32 form's "
+     "mask, the bf16 scale)", "fitgnn_tpu_torch/csrc/dropout.cu",
+     "fitgnn_tpu/ops/pallas/dropout.py:29"),
 )
+
+
+def register_records(regs, kernels_line) -> None:
+    """Puts each kernel's ``ptxas`` register and spill counts (``regs``,
+    ``phase_build``'s) into its entry of ``kernels_line``, and checks
+    that every form it expects was built."""
+    # the register counts of K7's walks (both slab copies), of the score
+    # pass and K5 (both load widths), each at 128 and in its quadrant form
+    # at 256 (QUAD, the last template flag), and of the column sum and of
+    # the straggler sum (K3 and K3w without den, K6 with it: three lane
+    # counts, two load widths each)
+    for (k, *_), entry in zip(KERNELS, kernels_line["kernels"]):
+        base, _, edge = k.partition("@")
+        if base in ("K1a", "K1bfa"):
+            # the rows walk from init on bf16 activations (its last
+            # template parameter), f32 or bf16 tiles: two load widths
+            tiles = "float" if base == "K1a" else "__nv_bfloat16"
+            entry["registers"] = {
+                kernel: {"registers": n, "spilled_bytes": spill}
+                for t, kernel, n, spill in regs
+                if t == "bsr_spmm" and kernel.replace(" ", "").endswith(
+                    f"sparse::Plain,{tiles},false,false,false,"
+                    "__nv_bfloat16>")}
+            check(len(entry["registers"]) == 2,
+                  f"{entry['name']}: no ptxas record of its walk")
+            print(f"{k} registers: {entry['registers']}")
+            continue
+        if edge and base in ("K1", "K2", "K9", "K1bf", "K2bf", "K9bf", "K4",
+                             "K4T"):
+            # the walk of the live quadrants (WORDS, then QUAD): K1's from
+            # init, K2's and K9's from zero, x rounded on bf16 tiles (the
+            # static walks' library); K4's rows and K4ᵀ's columns (the
+            # dynamic tiles' library)
+            form = ("sparse::Plain,__nv_bfloat16,true,true,true,float>"
+                    if base.endswith("bf") else
+                    "sparse::Plain,float,false,true,true,float>")
+            lib = "bsr_dynamic" if base in ("K4", "K4T") else "bsr_spmm"
+            entry["registers"] = {
+                kernel: {"registers": n, "spilled_bytes": spill}
+                for t, kernel, n, spill in regs
+                if t == lib and kernel.replace(" ", "").endswith(form)
+                and walk_args(kernel)[:2] == (base == "K4T",
+                                              base[:2] == "K1")}
+            check(len(entry["registers"]) == 2,
+                  f"{entry['name']}: no ptxas record of its words walk")
+            print(f"{k} registers: {entry['registers']}")
+            continue
+        hook = {"K7f": "FwdScores", "K7bt": "DxScores"}.get(base)
+        name = {"K5": "dyn_grad_blocks_kernel<", "K7s": "att_scores_kernel",
+                "K7sums": "att_sums_kernel",
+                "K3": "segmm_spmm_kernel<false", "K3w":
+                "segmm_spmm_kernel<false", "K6": "segmm_spmm_kernel<true",
+                "K3a": "segmm_spmm_kernel<false", "K3wa":
+                "segmm_spmm_kernel<false", "K6a": "segmm_spmm_kernel<true"
+                }.get(base)
+        if hook is None and name is None:
+            continue
+        # the straggler sum's last template parameter is its activations'
+        # type; the walk's (after QUAD) is f32 for every hook form
+        quad = ("float>" if base in ("K3", "K3w", "K6")
+                else "__nv_bfloat16>" if base in ("K3a", "K3wa", "K6a")
+                else "" if base == "K7sums"
+                else ("true" if edge else "false")
+                + (", float>" if hook is not None else ">"))
+        entry["registers"] = {
+            kernel: {"registers": n, "spilled_bytes": spill}
+            for _, kernel, n, spill in regs
+            if kernel.endswith(quad)
+            and ((hook is not None
+                  and (walk_args(kernel) or (None,) * 4)[3] == hook)
+                 or (name is not None and kernel.startswith(name)))}
+        # two load widths each, K7f, K7bt and K7s also on bf16 tiles; at
+        # 256 K7f and K7bt also walk the live quadrants (WORDS) and K7s and
+        # K5 run their live grids (LIVE), each beside its form without them;
+        # K7sums one kernel at every edge, its QB forms 1, 2 and any
+        want = {"K7sums": 3, "K3": 6, "K3w": 6, "K6": 6, "K3a": 6,
+                "K3wa": 6, "K6a": 6, "K5": 2}.get(base, 4)
+        if edge and base in ("K7f", "K7bt", "K7s", "K5"):
+            want *= 2
+        check(len(entry["registers"]) == want,
+              f"{entry['name']}: no ptxas record of its kernels")
+        print(f"{k} registers: {entry['registers']}")
 
 
 def main() -> int:
@@ -6569,6 +7141,10 @@ def main() -> int:
         shapes.update(phase_bf16_kernels(device, ops, shapes))
         phase_bf16_edge_cases(device, ops)
         phases.update(phase_bf16_steps(device, g, ops))
+        t26 = time.perf_counter()
+        shapes.update(phase_bf16_act_kernels(device, g, ops))
+        phases.update(phase_bf16_act_steps(device, g, ops))
+        print(f"phase 26: {time.perf_counter() - t26:.1f} s")
         del ops
         torch.cuda.empty_cache()
         phases.update(phase_bf16_cli(tmp))
@@ -6615,61 +7191,7 @@ def main() -> int:
     for entry in kernels_line["kernels"]:
         check(entry["launches"] > 0,
               f"{entry['name']} never launched on a main-path phase")
-    # the register counts of K7's walks (both slab copies), of the score
-    # pass and K5 (both load widths), each at 128 and in its quadrant form
-    # at 256 (QUAD, the last template flag), and of the column sum and of
-    # the straggler sum (K3 and K3w without den, K6 with it: three lane
-    # counts, two load widths each)
-    for (k, *_), entry in zip(KERNELS, kernels_line["kernels"]):
-        base, _, edge = k.partition("@")
-        if edge and base in ("K1", "K2", "K9", "K1bf", "K2bf", "K9bf", "K4",
-                             "K4T"):
-            # the walk of the live quadrants (WORDS, then QUAD): K1's from
-            # init, K2's and K9's from zero, x rounded on bf16 tiles (the
-            # static walks' library); K4's rows and K4ᵀ's columns (the
-            # dynamic tiles' library)
-            form = ("sparse::Plain,__nv_bfloat16,true,true,true>"
-                    if base.endswith("bf") else
-                    "sparse::Plain,float,false,true,true>")
-            lib = "bsr_dynamic" if base in ("K4", "K4T") else "bsr_spmm"
-            entry["registers"] = {
-                kernel: {"registers": n, "spilled_bytes": spill}
-                for t, kernel, n, spill in regs
-                if t == lib and kernel.replace(" ", "").endswith(form)
-                and walk_args(kernel)[:2] == (base == "K4T",
-                                              base[:2] == "K1")}
-            check(len(entry["registers"]) == 2,
-                  f"{entry['name']}: no ptxas record of its words walk")
-            print(f"{k} registers: {entry['registers']}")
-            continue
-        hook = {"K7f": "FwdScores", "K7bt": "DxScores"}.get(base)
-        name = {"K5": "dyn_grad_blocks_kernel<", "K7s": "att_scores_kernel",
-                "K7sums": "att_sums_kernel",
-                "K3": "segmm_spmm_kernel<false", "K3w":
-                "segmm_spmm_kernel<false", "K6": "segmm_spmm_kernel<true"
-                }.get(base)
-        if hook is None and name is None:
-            continue
-        quad = ("" if base in ("K3", "K3w", "K6", "K7sums")
-                else "true>" if edge else "false>")
-        entry["registers"] = {
-            kernel: {"registers": n, "spilled_bytes": spill}
-            for _, kernel, n, spill in regs
-            if kernel.endswith(quad)
-            and ((hook is not None
-                  and (walk_args(kernel) or (None,) * 4)[3] == hook)
-                 or (name is not None and kernel.startswith(name)))}
-        # two load widths each, K7f, K7bt and K7s also on bf16 tiles; at
-        # 256 K7f and K7bt also walk the live quadrants (WORDS) and K7s and
-        # K5 run their live grids (LIVE), each beside its form without them;
-        # K7sums one kernel at every edge, its QB forms 1, 2 and any
-        want = {"K7sums": 3, "K3": 6, "K3w": 6, "K6": 6, "K5": 2}.get(base,
-                                                                       4)
-        if edge and base in ("K7f", "K7bt", "K7s", "K5"):
-            want *= 2
-        check(len(entry["registers"]) == want,
-              f"{entry['name']}: no ptxas record of its kernels")
-        print(f"{k} registers: {entry['registers']}")
+    register_records(regs, kernels_line)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -207,3 +207,65 @@ extern "C" int fitgnn_bsr_spmm_rowwalk_bf16(const void* blocks,
       blocks, row_splits, cols, words, x, nullptr, out, num_row_blocks, feat,
       block, stream);
 }
+
+// K1a and K1bfa: K1 on bf16 activations, the bf16 branch of _kernel_acc
+// (fitgnn_tpu/ops/pallas/bsr_spmm.py:200-222, pallas_call :233): x, init
+// and out (num_row_blocks*128, feat) bf16, each tile's products summed in
+// f32 (on bf16 tiles bf16 x bf16, on f32 tiles the tile promotes x; exact
+// in f32 either way), from init widened to f32, and each sum rounded to
+// bf16 once as it is stored (to nearest even), where the Pallas kernel
+// adds each tile's rounded product into its bf16 output block.  The walk
+// is tile_sparse.cuh's rows walk from init with A = __nv_bfloat16: its slab
+// copied as bf16 by cp.async, 8 values a 16-byte piece, and widened to f32
+// in shared memory once it has landed.  Edge 128 only, no words (the walk
+// of 128-wide tiles; the edge-256 and words forms of K1 take the widened
+// route in ops/bsr_spmm.py): another block or any words give
+// cudaErrorInvalidValue.  Bound on an H100: bytes, as K1's, with x, init
+// and out at 2 bytes a value.
+namespace {
+
+template <class T>
+int launch_acc_a(const void* blocks, const void* row_splits, const void* cols,
+                 const void* words, const void* x, const void* init,
+                 void* out, int64_t num_row_blocks, int64_t feat,
+                 int64_t block, void* stream) {
+  if (block != sparse::BLK || words != nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(
+      sparse::launch<false, true, false, false, false, T, sparse::Plain,
+                     false, __nv_bfloat16>(
+          static_cast<const T*>(blocks),
+          static_cast<const int32_t*>(row_splits), nullptr, nullptr,
+          static_cast<const int32_t*>(cols),
+          static_cast<const __nv_bfloat16*>(x),
+          static_cast<const __nv_bfloat16*>(init),
+          static_cast<__nv_bfloat16*>(out), num_row_blocks, feat,
+          static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
+// K1a: out = init + A . x on f32 tiles, x, init, out bf16
+extern "C" int fitgnn_bsr_spmm_acc_a(const void* blocks,
+                                     const void* row_splits,
+                                     const void* cols, const void* words,
+                                     const void* x, const void* init,
+                                     void* out, int64_t num_row_blocks,
+                                     int64_t feat, int64_t block,
+                                     void* stream) {
+  return launch_acc_a<float>(blocks, row_splits, cols, words, x, init, out,
+                             num_row_blocks, feat, block, stream);
+}
+
+// K1bfa: out = init + A . x on bf16 tiles, x, init, out bf16
+extern "C" int fitgnn_bsr_spmm_acc_a_bf16(const void* blocks,
+                                          const void* row_splits,
+                                          const void* cols, const void* words,
+                                          const void* x, const void* init,
+                                          void* out, int64_t num_row_blocks,
+                                          int64_t feat, int64_t block,
+                                          void* stream) {
+  return launch_acc_a<bf16>(blocks, row_splits, cols, words, x, init, out,
+                            num_row_blocks, feat, block, stream);
+}

@@ -58,8 +58,10 @@
 // != 0, or an x or out off a 16-byte boundary, takes 4-byte loads and
 // stores (VEC = false).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -123,6 +125,55 @@ __device__ __forceinline__ void store4(float* p, int64_t c, int64_t feat,
   if (c + 3 < feat) p[c + 3] = v.w;
 }
 
+// bf16 activations (A = __nv_bfloat16): 8 consecutive columns of row p
+// from column c, widened to f32 (exact) as two float4; VEC one 16-byte
+// load (feat % 8 == 0), else one load a column below feat
+template <bool VEC>
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, int64_t c,
+                                      int64_t feat, float4 (&g)[2]) {
+  if (VEC) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p + c);
+    g[0] = make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+    g[1] = make_float4(__uint_as_float(u.z << 16),
+                       __uint_as_float(u.z & 0xffff0000u),
+                       __uint_as_float(u.w << 16),
+                       __uint_as_float(u.w & 0xffff0000u));
+    return;
+  }
+  float v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    v[i] = c + i < feat ? __bfloat162float(p[c + i]) : 0.f;
+  }
+  g[0] = make_float4(v[0], v[1], v[2], v[3]);
+  g[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// the 8 sums of load8's columns rounded to bf16 once (to nearest even)
+template <bool VEC>
+__device__ __forceinline__ void store8(__nv_bfloat16* p, int64_t c,
+                                       int64_t feat, const float4 (&a)[2]) {
+  const float v[8] = {a[0].x, a[0].y, a[0].z, a[0].w,
+                      a[1].x, a[1].y, a[1].z, a[1].w};
+  if (VEC) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    *reinterpret_cast<uint4*>(p + c) = make_uint4(w[0], w[1], w[2], w[3]);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (c + i < feat) p[c + i] = __float2bfloat16_rn(v[i]);
+  }
+}
+
 __device__ __forceinline__ void fma4(float4& acc, float w, float4 v) {
   acc.x = fmaf(w, v.x, acc.x);
   acc.y = fmaf(w, v.y, acc.y);
@@ -130,16 +181,23 @@ __device__ __forceinline__ void fma4(float4& acc, float w, float4 v) {
   acc.w = fmaf(w, v.w, acc.w);
 }
 
-template <bool DEN, int L, bool VEC>
+// A: the activations' type (x and out), float or __nv_bfloat16 (K3a: a
+// lane's 4 V = 8 columns are consecutive, one 16-byte gather an edge, and
+// each formed weight is rounded to bf16 before its products, as the
+// Pallas kernels cast the selector; the sums stay f32 and den sums the
+// unrounded weights)
+template <bool DEN, int L, bool VEC, class A = float>
 __global__ void __launch_bounds__(THREADS)
 segmm_spmm_kernel(const int32_t* __restrict__ row_ptr,
                   const int32_t* __restrict__ senders,
                   const float* __restrict__ weights,
                   const float* __restrict__ w_edge,
                   const int32_t* __restrict__ perm,
-                  const float* __restrict__ x, float* __restrict__ out,
+                  const A* __restrict__ x, A* __restrict__ out,
                   float* __restrict__ den, int64_t num_rows, int64_t feat,
                   int chunks, int splits) {
+  constexpr bool NARROW = !std::is_same<A, float>::value;
+  static_assert(!NARROW || V == 2, "a bf16 lane gathers 8 values");
   constexpr int G = THREADS / L;              // lane groups a CTA
   constexpr int WIDTH = 4 * V * L;            // columns a group
   __shared__ int s_rp[MAX_ROWS + 1];
@@ -170,8 +228,13 @@ segmm_spmm_kernel(const int32_t* __restrict__ row_ptr,
     const int ga = s_rp[k];
     const int gb = s_rp[kend];
     int64_t col[V];
+    if constexpr (NARROW) {
 #pragma unroll
-    for (int v = 0; v < V; ++v) col[v] = c * WIDTH + v * 4 * L + lane * 4;
+      for (int v = 0; v < V; ++v) col[v] = c * WIDTH + lane * 8 + 4 * v;
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) col[v] = c * WIDTH + v * 4 * L + lane * 4;
+    }
     float4 acc[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -180,11 +243,17 @@ segmm_spmm_kernel(const int32_t* __restrict__ row_ptr,
     // writes row k (zeros if it had no edge) and moves to the next
     auto flush = [&]() {
       const int64_t r = r0 + k;
-      float* o = out + r * feat;
+      A* o = out + r * feat;
+      if constexpr (NARROW) {
+        if (col[0] < feat) store8<VEC>(o, col[0], feat, acc);
 #pragma unroll
-      for (int v = 0; v < V; ++v) {
-        if (col[v] < feat) store4<VEC>(o, col[v], feat, acc[v]);
-        acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int v = 0; v < V; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          if (col[v] < feat) store4<VEC>(o, col[v], feat, acc[v]);
+          acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
       }
       if (DEN && c == 0 && lane == 0) den[r] = wsum;
       wsum = 0.f;
@@ -215,20 +284,34 @@ segmm_spmm_kernel(const int32_t* __restrict__ row_ptr,
         float4 g[U][V];
 #pragma unroll
         for (int j = 0; j < U; ++j) {
-          const float* xr = x + static_cast<int64_t>(s[j]) * feat;
+          const A* xr = x + static_cast<int64_t>(s[j]) * feat;
+          if constexpr (NARROW) {
+            if (j < left && col[0] < feat) {
+              load8<VEC>(xr, col[0], feat, g[j]);
+            } else {
 #pragma unroll
-          for (int v = 0; v < V; ++v) {
-            g[j][v] = j < left && col[v] < feat
-                          ? load4<VEC>(xr, col[v], feat)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
+              for (int v = 0; v < V; ++v) {
+                g[j][v] = make_float4(0.f, 0.f, 0.f, 0.f);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              g[j][v] = j < left && col[v] < feat
+                            ? load4<VEC>(xr, col[v], feat)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
           }
         }
 #pragma unroll
         for (int j = 0; j < U; ++j) {
           if (j < left) {
             while (e + j >= s_rp[k + 1]) flush();
+            // the weight of the products: rounded to bf16 under NARROW
+            const float wp =
+                NARROW ? __bfloat162float(__float2bfloat16_rn(w[j])) : w[j];
 #pragma unroll
-            for (int v = 0; v < V; ++v) fma4(acc[v], w[j], g[j][v]);
+            for (int v = 0; v < V; ++v) fma4(acc[v], wp, g[j][v]);
             if (DEN) wsum += w[j];
           }
         }
@@ -238,24 +321,58 @@ segmm_spmm_kernel(const int32_t* __restrict__ row_ptr,
   }
 }
 
-template <bool DEN, int L, typename... A>
+template <bool DEN, int L, class X, typename... A>
 void launch_lanes(bool vec, unsigned grid, cudaStream_t st, A... a) {
   if (vec) {
-    segmm_spmm_kernel<DEN, L, true><<<grid, THREADS, 0, st>>>(a...);
+    segmm_spmm_kernel<DEN, L, true, X><<<grid, THREADS, 0, st>>>(a...);
   } else {
-    segmm_spmm_kernel<DEN, L, false><<<grid, THREADS, 0, st>>>(a...);
+    segmm_spmm_kernel<DEN, L, false, X><<<grid, THREADS, 0, st>>>(a...);
   }
 }
 
-template <bool DEN, typename... A>
+template <bool DEN, class X, typename... A>
 void launch_den(int lanes, A... a) {
   if (lanes == 8) {
-    launch_lanes<DEN, 8>(a...);
+    launch_lanes<DEN, 8, X>(a...);
   } else if (lanes == 16) {
-    launch_lanes<DEN, 16>(a...);
+    launch_lanes<DEN, 16, X>(a...);
   } else {
-    launch_lanes<DEN, 32>(a...);
+    launch_lanes<DEN, 32, X>(a...);
   }
+}
+
+// the launch over x, out of type X (float, or __nv_bfloat16 for K3a)
+template <class X>
+int launch_segmm(const void* row_ptr, const void* senders,
+                 const void* weights, const void* w_edge, const void* perm,
+                 const void* x, void* out, void* den, int64_t num_rows,
+                 int64_t feat, void* stream) {
+  if (num_rows > 0 && feat > 0) {
+    const Shape sh = shape_for(feat);
+    constexpr int64_t PIECE = std::is_same<X, float>::value ? 4 : 8;
+    const bool vec = feat % PIECE == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    const auto grid = static_cast<unsigned>((num_rows + sh.rows - 1) /
+                                            sh.rows);
+    const auto st = static_cast<cudaStream_t>(stream);
+    const auto* rp = static_cast<const int32_t*>(row_ptr);
+    const auto* sp = static_cast<const int32_t*>(senders);
+    const auto* wp = static_cast<const float*>(weights);
+    const auto* ep = static_cast<const float*>(w_edge);
+    const auto* pp = static_cast<const int32_t*>(perm);
+    const auto* xp = static_cast<const X*>(x);
+    auto* op = static_cast<X*>(out);
+    auto* dp = static_cast<float*>(den);
+    if (den != nullptr) {
+      launch_den<true, X>(sh.lanes, vec, grid, st, rp, sp, wp, ep, pp, xp,
+                          op, dp, num_rows, feat, sh.chunks, sh.splits);
+    } else {
+      launch_den<false, X>(sh.lanes, vec, grid, st, rp, sp, wp, ep, pp, xp,
+                           op, dp, num_rows, feat, sh.chunks, sh.splits);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -271,31 +388,28 @@ extern "C" int fitgnn_segmm_spmm(const void* row_ptr, const void* senders,
                                  const void* perm, const void* x, void* out,
                                  void* den, int64_t num_rows, int64_t feat,
                                  void* stream) {
-  if (num_rows > 0 && feat > 0) {
-    const Shape sh = shape_for(feat);
-    const bool vec = feat % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
-    const auto grid = static_cast<unsigned>((num_rows + sh.rows - 1) /
-                                            sh.rows);
-    const auto st = static_cast<cudaStream_t>(stream);
-    const auto* rp = static_cast<const int32_t*>(row_ptr);
-    const auto* sp = static_cast<const int32_t*>(senders);
-    const auto* wp = static_cast<const float*>(weights);
-    const auto* ep = static_cast<const float*>(w_edge);
-    const auto* pp = static_cast<const int32_t*>(perm);
-    const auto* xp = static_cast<const float*>(x);
-    auto* op = static_cast<float*>(out);
-    auto* dp = static_cast<float*>(den);
-    if (den != nullptr) {
-      launch_den<true>(sh.lanes, vec, grid, st, rp, sp, wp, ep, pp, xp, op,
-                       dp, num_rows, feat, sh.chunks, sh.splits);
-    } else {
-      launch_den<false>(sh.lanes, vec, grid, st, rp, sp, wp, ep, pp, xp, op,
-                        dp, num_rows, feat, sh.chunks, sh.splits);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_segmm<float>(row_ptr, senders, weights, w_edge, perm, x, out,
+                             den, num_rows, feat, stream);
+}
+
+// K3a: the same on bf16 activations, x (*, feat) and out (num_rows, feat)
+// bf16, the bf16 branch of _kernel and _kernel_den
+// (fitgnn_tpu/ops/pallas/coo_segmm.py:187-205, 236-260; pallas_call :218,
+// :272): each formed weight (weights[e], or w_edge[perm[e]] * weights[e])
+// is rounded to bf16 before its products, as the selector is cast there;
+// the products of two bf16 are exact in f32, the sums f32 fmaf chains in
+// edge order, each rounded to bf16 once as it is stored (there each
+// chunk's product is rounded into the bf16 output block); den (K6) stays
+// f32 and sums the unrounded weights (:253-254).  16-byte gathers of 8
+// values where feat % 8 == 0 and x and out start on 16-byte boundaries,
+// else one load a column.  Bound on an H100: as K3's, at 2 bytes a value.
+extern "C" int fitgnn_segmm_spmm_a(const void* row_ptr, const void* senders,
+                                   const void* weights, const void* w_edge,
+                                   const void* perm, const void* x, void* out,
+                                   void* den, int64_t num_rows, int64_t feat,
+                                   void* stream) {
+  return launch_segmm<__nv_bfloat16>(row_ptr, senders, weights, w_edge, perm,
+                                     x, out, den, num_rows, feat, stream);
 }
 
 // The launch shape for feat columns, into cfg[0..3]: lanes a row, floats a

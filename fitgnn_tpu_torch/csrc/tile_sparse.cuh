@@ -153,6 +153,21 @@
 // The shared-memory tile stays f32 (64 KB): holding it as bf16 and the
 // apply's reads of it at 2 bytes an entry is later work.
 //
+// Activation types.  The walk's last template parameter A is the type of
+// x, init and out: float for every walk above, __nv_bfloat16 for the rows
+// walk from init at edge 128 with the Plain hook (K1a on f32 tiles, K1bfa
+// on bf16 tiles, bsr_spmm.cu), the bf16 branch of _kernel_acc
+// (bsr_spmm.py:200-222).  Its slab is copied as bf16 (cp.async, 8 values a
+// 16-byte piece) into the f32 slab's place and read as bf16 by the apply
+// (an 8-byte read a lane a non-zero, half the f32 slab's), each value
+// widened to f32 (exact); init is widened as it is read; the sums are f32
+// FMAs as above and each is rounded to bf16 once as it is stored (to
+// nearest even), where the Pallas kernel rounds each tile's product into
+// its bf16 output block.  On bf16 tiles the products are bf16 x bf16, on
+// f32 tiles the tile promotes x; exact in f32 either way.  No other walk
+// takes bf16 activations (a static_assert in walk_kernel): the edge-256,
+// words, DIAG and hook forms take the widened route (ops/kernels.py).
+//
 // Tiles of another edge (QUAD).  The JAX package's build_hybrid(block=E)
 // and build_bsr(block=E) store (K, E, E) tiles for any E = 128 nq (Mosaic
 // needs the multiple of 128, fitgnn_tpu/ops/pallas/att_bsr.py:28-29); K1,
@@ -433,6 +448,40 @@ __device__ __forceinline__ void start_slab(float* xs,
   cp_async_commit();
 }
 
+// The slab copy of bf16 activations (the walk's A = __nv_bfloat16): the
+// 128 slab rows land as bf16 where the f32 slab would (xs, row stride FT
+// values), 16-byte pieces of 8 values as one cp.async group, 0 past feat;
+// the apply reads them as bf16 (half the shared-memory bytes of an f32
+// slab a non-zero) and widens each to f32 (exact).  VEC: x starts on a
+// 16-byte boundary and feat % 8 == 0; otherwise each value is loaded and
+// stored here, and the group is empty.
+template <bool VEC>
+__device__ __forceinline__ void start_slab(float* xs,
+                                           const __nv_bfloat16* __restrict__ xb,
+                                           int64_t f0, int64_t feat,
+                                           int tid) {
+  __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(xs);
+  if (VEC) {
+    for (int q = tid; q < BLK * FT / 8; q += THREADS) {
+      const int j = q / (FT / 8);
+      const int c8 = (q % (FT / 8)) * 8;
+      const int64_t gc = f0 + c8;
+      const bool ok = gc < feat;
+      cp_async16(reinterpret_cast<float*>(st + j * FT + c8),
+                 reinterpret_cast<const float*>(ok ? xb + j * feat + gc : xb),
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int q = tid; q < BLK * FT; q += THREADS) {
+      const int j = q / FT;
+      const int c = q % FT;
+      const int64_t gc = f0 + c;
+      st[j * FT + c] = gc < feat ? xb[j * feat + gc] : __float2bfloat16(0.f);
+    }
+  }
+  cp_async_commit();
+}
+
 // Rounds to bf16 the slab elements that start_slab<VEC> had thread tid
 // copy (those it sees once its copies have landed): 16-byte piece q at
 // xs + 4q under VEC, else element q
@@ -527,6 +576,28 @@ __device__ __forceinline__ void apply(float e, Get get, int m, float s,
   }
 }
 
+// apply on a bf16 slab (the walk's A = __nv_bfloat16): the lane's 4
+// columns of slab row 32m + src one 8-byte read, widened to f32 (exact)
+template <class Get>
+__device__ __forceinline__ void apply(float e, Get get, int m, float s,
+                                      const __nv_bfloat16* xs, int lane,
+                                      float (&acc)[FL]) {
+  unsigned nz = __ballot_sync(FULL, e != 0.f);
+  if (nz == 0) return;
+  const float w = get();
+  while (nz) {
+    const int src = __ffs(nz) - 1;
+    nz &= nz - 1;
+    const float v = __shfl_sync(FULL, w, src) * s;
+    const uint2 u = *reinterpret_cast<const uint2*>(
+        xs + (32 * m + src) * FT + FL * lane);
+    acc[0] = fmaf(v, bf16_lo(u.x), acc[0]);
+    acc[1] = fmaf(v, bf16_hi(u.x), acc[1]);
+    acc[2] = fmaf(v, bf16_lo(u.y), acc[2]);
+    acc[3] = fmaf(v, bf16_hi(u.y), acc[3]);
+  }
+}
+
 // acc = init rows r*BLK + row0 .. +ROWS-1, the lane's columns of slice f0
 // (0 past feat): one 16-byte load a row where init starts on a 16-byte
 // boundary and feat % 4 == 0 (its rows then all do), else one load a
@@ -574,6 +645,61 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
 #pragma unroll
       for (int f = 0; f < FL; ++f) {
         if (c + f < feat) o[f] = acc[i][f];
+      }
+    }
+  }
+}
+
+// load_rows for bf16 init, widened to f32 (exact): one 8-byte load a row
+// where init starts on an 8-byte boundary and feat % 4 == 0, else one load
+// a column
+__device__ __forceinline__ void load_rows(float (&acc)[ROWS][FL],
+                                          const __nv_bfloat16* __restrict__ init,
+                                          int64_t r, int64_t f0, int row0,
+                                          int lane, int64_t feat) {
+  const int64_t c = f0 + FL * lane;
+  const bool vec = reinterpret_cast<uintptr_t>(init) % 8 == 0
+                   && feat % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const __nv_bfloat16* p = init + (r * BLK + row0 + i) * feat + c;
+    if (vec && c + FL <= feat) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+      acc[i][0] = bf16_lo(u.x);
+      acc[i][1] = bf16_hi(u.x);
+      acc[i][2] = bf16_lo(u.y);
+      acc[i][3] = bf16_hi(u.y);
+    } else {
+#pragma unroll
+      for (int f = 0; f < FL; ++f) {
+        acc[i][f] = c + f < feat ? __bfloat162float(p[f]) : 0.f;
+      }
+    }
+  }
+}
+
+// store_rows for a bf16 out: each sum rounded to bf16 once (to nearest
+// even); one 8-byte store a row where feat % 4 == 0 (out is fresh, so its
+// rows then start on 8-byte boundaries), else one store a column
+__device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
+                                           __nv_bfloat16* __restrict__ out,
+                                           int64_t r, int64_t f0, int row0,
+                                           int lane, int64_t feat) {
+  const int64_t c = f0 + FL * lane;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    __nv_bfloat16* o = out + (r * BLK + row0 + i) * feat + c;
+    if (feat % 4 == 0 && c + FL <= feat) {
+      const __nv_bfloat162 a = __floats2bfloat162_rn(acc[i][0], acc[i][1]);
+      const __nv_bfloat162 b = __floats2bfloat162_rn(acc[i][2], acc[i][3]);
+      uint2 u;
+      u.x = *reinterpret_cast<const uint32_t*>(&a);
+      u.y = *reinterpret_cast<const uint32_t*>(&b);
+      *reinterpret_cast<uint2*>(o) = u;
+    } else {
+#pragma unroll
+      for (int f = 0; f < FL; ++f) {
+        if (c + f < feat) o[f] = __float2bfloat16_rn(acc[i][f]);
       }
     }
   }
@@ -738,9 +864,14 @@ __device__ __forceinline__ void walk_live(
 // words holds each slot's occupancy word
 // (under TRANS its tile's, transposed) and the walk takes the live
 // quadrants only (walk_live, the hook's shared memory after the two
-// slabs); otherwise words is unread.
+// slabs); otherwise words is unread.  A is the activations' type (x, init
+// and out): float, or __nv_bfloat16 (K1a and K1bfa, bsr_spmm.cu: the rows
+// walk from init at edge 128, Plain hook), whose slab is copied as bf16
+// and read as bf16 by the apply, which widens each value (start_slab,
+// apply), whose init is widened as it is read and whose sums are rounded
+// to bf16 once as they are stored; the sums are f32 as in the f32 walk.
 template <bool TRANS, bool INIT, bool VEC, bool DIAG, class V, class T,
-          bool ROUND_X, bool WORDS, bool QUAD>
+          bool ROUND_X, bool WORDS, bool QUAD, class A = float>
 __global__ void __launch_bounds__(THREADS, 1)
 walk_kernel(const T* __restrict__ blocks,
             const int32_t* __restrict__ row_splits,
@@ -748,15 +879,21 @@ walk_kernel(const T* __restrict__ blocks,
             const int32_t* __restrict__ scale,
             const int32_t* __restrict__ cols,
             const uint64_t* __restrict__ words,
-            const float* __restrict__ x, const float* __restrict__ init,
-            float* __restrict__ out, int64_t feat, int64_t slices, V val,
+            const A* __restrict__ x, const A* __restrict__ init,
+            A* __restrict__ out, int64_t feat, int64_t slices, V val,
             int nq) {
   static_assert(!WORDS || (QUAD && !DIAG && takes_words<V, TRANS>::value),
                 "occupancy words: the walk of quadrants, a hook it takes");
+  static_assert(std::is_same<A, float>::value
+                || (std::is_same<A, __nv_bfloat16>::value && !TRANS && !DIAG
+                    && !ROUND_X && !WORDS && !QUAD
+                    && std::is_same<V, Plain>::value),
+                "bf16 activations: the rows walk at edge 128, Plain hook");
   extern __shared__ __align__(16) float smem[];
   float* as = smem;                             // the swizzled tile
   float* xs = smem + BLK * BLK;                 // the X slab
   float* hs = xs + BLK * FT;                    // the hook's V::SMEM floats
+  const A* xa = reinterpret_cast<const A*>(xs); // the slab as apply reads it
   // the 128-row output block, and under QUAD its tile row and half
   const int64_t ob = static_cast<int64_t>(blockIdx.x) / slices;
   const int64_t r = QUAD ? ob / nq : ob;
@@ -887,10 +1024,10 @@ walk_kernel(const T* __restrict__ blocks,
                               val.value(hs, v.y, 4 * qd + 1, m, row0, lane),
                               val.value(hs, v.z, 4 * qd + 2, m, row0, lane),
                               val.value(hs, v.w, 4 * qd + 3, m, row0, lane)};
-          apply(v.x, [&] { return w[0]; }, m, st, xs, lane, acc[4 * qd + 0]);
-          apply(v.y, [&] { return w[1]; }, m, st, xs, lane, acc[4 * qd + 1]);
-          apply(v.z, [&] { return w[2]; }, m, st, xs, lane, acc[4 * qd + 2]);
-          apply(v.w, [&] { return w[3]; }, m, st, xs, lane, acc[4 * qd + 3]);
+          apply(v.x, [&] { return w[0]; }, m, st, xa, lane, acc[4 * qd + 0]);
+          apply(v.y, [&] { return w[1]; }, m, st, xa, lane, acc[4 * qd + 1]);
+          apply(v.z, [&] { return w[2]; }, m, st, xa, lane, acc[4 * qd + 2]);
+          apply(v.w, [&] { return w[3]; }, m, st, xa, lane, acc[4 * qd + 3]);
         }
       }
     } else {
@@ -902,7 +1039,7 @@ walk_kernel(const T* __restrict__ blocks,
           // the value only where the ballot found a non-zero
           const float e = as[swizzled(row0 + i, lane + 32 * m)];
           apply(e, [&] { return val.value(hs, e, i, m, row0, lane); }, m,
-                1.f, xs, lane, acc[i]);
+                1.f, xa, lane, acc[i]);
         }
       }
     }
@@ -931,7 +1068,9 @@ walk_kernel(const T* __restrict__ blocks,
 // chosen on x's alignment; the kernel chooses the vector init load on
 // init's own.  val is the value hook (Plain: the entries as they are); T,
 // the tile type, comes from blocks, which must start on a 16-byte
-// boundary; ROUND_X (bf16 tiles only) rounds x to bf16.
+// boundary; ROUND_X (bf16 tiles only) rounds x to bf16.  A, the
+// activations' type, names x, init and out: under bf16 (the rows walk at
+// 128 only, walk_kernel) the vector slab copy needs feat % 8 == 0.
 // bytes of dynamic shared memory of the walk of the live quadrants: the
 // tile, two slabs and the hook's SMEM_LIVE floats (0 without WORDS: never
 // launched)
@@ -947,13 +1086,22 @@ constexpr int words_smem() {
   }
 }
 
+// the type A itself, in a context that deduces nothing (so a null init
+// converts to const A* for the A a launch names, float by default)
+template <class A>
+struct Same {
+  using type = A;
+};
+
 template <bool TRANS, bool INIT, bool DIAG = false, bool ROUND_X = false,
           bool QUAD = false, class T = float, class V = Plain,
-          bool WORDS = false>
+          bool WORDS = false, class A = float>
 cudaError_t launch(const T* blocks, const int32_t* row_splits,
                    const int32_t* sel, const int32_t* scale,
-                   const int32_t* cols, const float* x, const float* init,
-                   float* out, int64_t num_row_blocks, int64_t feat,
+                   const int32_t* cols, const typename Same<A>::type* x,
+                   const typename Same<A>::type* init,
+                   typename Same<A>::type* out, int64_t num_row_blocks,
+                   int64_t feat,
                    cudaStream_t stream, V val = V{}, int quads = 1,
                    const uint64_t* words = nullptr) {
   static_assert(std::is_same<T, float>::value
@@ -970,23 +1118,24 @@ cudaError_t launch(const T* blocks, const int32_t* row_splits,
     const int64_t slices = (feat + FT - 1) / FT;
     const int64_t ctas = num_row_blocks * quads * slices;
     if (ctas > 0x7fffffff) return cudaErrorInvalidConfiguration;
+    constexpr bool NARROW = !std::is_same<A, float>::value;
     const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0
-                     && feat % 4 == 0;
+                     && feat % (NARROW ? 8 : 4) == 0;
     const auto kernel =
         with_words
             ? (vec ? walk_kernel<TRANS, INIT, true, DIAG, V, T, ROUND_X,
-                                 WORDS, QUAD>
+                                 WORDS, QUAD, A>
                    : walk_kernel<TRANS, INIT, false, DIAG, V, T, ROUND_X,
-                                 WORDS, QUAD>)
+                                 WORDS, QUAD, A>)
         : quads > 1
             ? (vec ? walk_kernel<TRANS, INIT, true, DIAG, V, T, ROUND_X,
-                                 false, QUAD>
+                                 false, QUAD, A>
                    : walk_kernel<TRANS, INIT, false, DIAG, V, T, ROUND_X,
-                                 false, QUAD>)
+                                 false, QUAD, A>)
             : (vec ? walk_kernel<TRANS, INIT, true, DIAG, V, T, ROUND_X,
-                                 false, false>
+                                 false, false, A>
                    : walk_kernel<TRANS, INIT, false, DIAG, V, T, ROUND_X,
-                                 false, false>);
+                                 false, false, A>);
     const int bytes = with_words ? words_smem<V, WORDS>()
                                  : SMEM + V::SMEM * static_cast<int>(
                                        sizeof(float));

@@ -43,6 +43,12 @@ NODE_REG = ("chameleon", "squirrel", "crocodile")
 GRAPH_CLS = ("ENZYMES", "PROTEINS", "AIDS")
 GRAPH_REG = ("QM9", "ZINC", "ZINC_subset")
 
+# the dataset name → task map of the JAX package's ``TASK_OF``
+TASK_OF = {**{d: "node_cls" for d in NODE_CLS},
+           **{d: "node_reg" for d in NODE_REG},
+           **{d: "graph_cls" for d in GRAPH_CLS},
+           **{d: "graph_reg" for d in GRAPH_REG}}
+
 
 @dataclasses.dataclass
 class NodeDataset:

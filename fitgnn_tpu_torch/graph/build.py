@@ -152,3 +152,38 @@ def build_graph(
         val_mask=mask(val_mask),
         test_mask=mask(test_mask),
     )
+
+
+def pad_graph(g: Graph, n_pad: int, e_pad: int) -> Graph:
+    """A built graph re-padded to larger static shapes, as the JAX
+    package's ``pad_graph``: features, labels and masks padded with zeros
+    (masks False), new padding edges of weight 0 on the new last node, and
+    the old padding edges moved there too.  Shrinking raises
+    ``ValueError``."""
+    cur_n, cur_e = g.num_nodes_padded, g.senders.shape[-1]
+    if n_pad < cur_n or e_pad < cur_e:
+        raise ValueError(f"pad_graph only grows: ({cur_n}, {cur_e}) to "
+                         f"({n_pad}, {e_pad})")
+
+    def pad_n(a, fill=0):
+        if a is None:
+            return None
+        pad = a.new_full((n_pad - cur_n, *a.shape[1:]), fill)
+        return torch.cat([a, pad])
+
+    def pad_e(a, fill):
+        return torch.cat([a, a.new_full((e_pad - cur_e,), fill)])
+
+    old_pad = torch.arange(e_pad, device=g.senders.device) >= g.n_edge
+    last = n_pad - 1
+    return Graph(
+        x=pad_n(g.x),
+        senders=torch.where(old_pad, last, pad_e(g.senders, last)).to(
+            g.senders.dtype),
+        receivers=torch.where(old_pad, last, pad_e(g.receivers, last)).to(
+            g.receivers.dtype),
+        edge_weight=pad_e(g.edge_weight, 0.0),
+        n_node=g.n_node, n_edge=g.n_edge,
+        y=pad_n(g.y), train_mask=pad_n(g.train_mask, False),
+        val_mask=pad_n(g.val_mask, False),
+        test_mask=pad_n(g.test_mask, False))

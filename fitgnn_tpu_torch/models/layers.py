@@ -21,6 +21,15 @@ Every layer also takes a stack of same-padded subgraphs (``x`` (S, N, F),
 a ``Graph`` whose tensors have the subgraph axis in front), as the JAX
 package's ``jax.vmap`` over a ``SubgraphBatch`` runs them.
 
+The compute dtype (``dtype``; None, or ``torch.bfloat16`` as ``bench.py``
+composes the JAX package's stack) follows flax's ``nn.Dense(dtype=…)``:
+each dense transform casts its input and weight to the dtype and gives
+its product in it (``dense``: the sums in f32, rounded once), the bias is
+added in it, and the aggregations then run on that dtype's activations
+(the kernels' bf16-activation forms, ``ops/``).  Parameters stay f32, so
+state dicts and ``models/convert.py`` do not change.  GAT keeps its scores
+and softmax in f32 and casts its messages to the dtype.
+
 ``forward(x, g)`` picks the aggregation from the graph and hands it to
 ``propagate(x, agg)``, which holds the layer's dense work and its choice
 of the narrow side.  The hierarchical layer (``parallel/hierarchical.py``)
@@ -54,6 +63,60 @@ _NEG = -1e30
 _TRUNC_STD = 0.87962566103423978
 
 
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two 2-D matrices of a narrow type, the products summed
+    in f32 and returned in f32: on the card cuBLAS's GEMM with an f32
+    output (``out_dtype``), whose reduction is f32 whatever
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    says (a bf16 output may take a reduced-precision split-K reduction
+    under it); elsewhere the f32 product of the widened operands (exact
+    products, f32 sums)."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _NarrowLinear(torch.autograd.Function):
+    """``x·Wᵀ`` in the compute dtype ``dt``: x and W cast to it, the sums in
+    f32, the product rounded to ``dt`` once, as the TPU's bf16 matmul
+    (flax's ``nn.Dense(dtype=bf16)``).  The backward's two products are
+    taken the same way; each gradient is rounded to ``dt`` and handed back
+    in its input's type, as the backward of the casts gives it."""
+
+    @staticmethod
+    def forward(ctx, x, w, dt):
+        xd, wd = x.to(dt), w.to(dt)
+        ctx.save_for_backward(xd, wd)
+        ctx.types = (x.dtype, w.dtype)
+        x2 = xd.reshape(-1, xd.shape[-1])
+        return _mm32(x2, wd.t()).to(dt).reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        xd, wd = ctx.saved_tensors
+        x_t, w_t = ctx.types
+        dt = xd.dtype
+        g2 = g.to(dt).reshape(-1, g.shape[-1])
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm32(g2, wd).to(dt).to(x_t).reshape(xd.shape)
+        if ctx.needs_input_grad[1]:
+            dw = _mm32(g2.t(), xd.reshape(-1, xd.shape[-1])).to(dt).to(w_t)
+        return dx, dw, None
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          dtype: Optional[torch.dtype] = None,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x·Wᵀ (+ b)`` with ``nn.Linear``'s (out, in) weight: in f32 without
+    a ``dtype``, else in it (``_NarrowLinear``) with the bias cast to it
+    and added in it, as flax's ``nn.Dense(dtype=…)``."""
+    if dtype is None:
+        return F.linear(x, weight, bias)
+    out = _NarrowLinear.apply(x, weight, dtype)
+    return out if bias is None else out + bias.to(dtype)
+
+
 def lecun_normal_(w: torch.Tensor, fan_in: int,
                   generator: Optional[torch.Generator]) -> torch.Tensor:
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
@@ -62,11 +125,14 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 
 
 class GCNConv(nn.Module):
-    """``lin`` stores the weight as ``nn.Linear`` does, (out, in)."""
+    """``lin`` stores the weight as ``nn.Linear`` does, (out, in);
+    ``dtype`` the compute dtype (None: f32)."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.features = features
+        self.dtype = dtype
         self.lin = nn.Linear(in_features, features, bias=False)
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -90,9 +156,9 @@ class GCNConv(nn.Module):
         # SpMM's traffic scales with the aggregated width, so an expanding
         # layer aggregates its input and a contracting one its output
         if self.features <= x.shape[-1]:
-            out = agg(self.lin(x))
+            out = agg(dense(x, self.lin.weight, self.dtype))
         else:
-            out = self.lin(agg(x))
+            out = dense(agg(x), self.lin.weight, self.dtype)
         return out + self.bias.to(out.dtype)
 
 
@@ -101,10 +167,12 @@ class GATConv(nn.Module):
     ``nn.Linear`` does, (out, in); ``att_src``/``att_dst`` are (1, out)."""
 
     def __init__(self, in_features: int, features: int,
-                 negative_slope: float = 0.2):
+                 negative_slope: float = 0.2,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.features = features
         self.negative_slope = negative_slope
+        self.dtype = dtype
         self.lin = nn.Linear(in_features, features, bias=False)
         self.att_src = nn.Parameter(torch.empty(1, features))
         self.att_dst = nn.Parameter(torch.empty(1, features))
@@ -126,7 +194,10 @@ class GATConv(nn.Module):
 
     def propagate(self, x: torch.Tensor, attend) -> torch.Tensor:
         """``attend(h, a_src, a_dst)``: the attention aggregation of the
-        messages ``h`` under the (F,) attention vectors of their width."""
+        messages ``h`` under the (F,) attention vectors of their width.
+        Under ``dtype`` the scores come from ``h`` in f32 (on the narrow
+        side from the input as it is) and the messages are ``h`` cast to
+        the dtype, as the JAX package's ``GATConv`` takes them."""
         f_in, c = x.shape[-1], self.features
         a_src, a_dst = self.att_src[0], self.att_dst[0]
         # aggregate on the NARROW side of an expanding layer (exact, since
@@ -136,14 +207,18 @@ class GATConv(nn.Module):
         narrow = f_in < c
         if narrow:
             w = self.lin.weight                       # (C, F_in)
-            out = self.lin(attend(x, a_src @ w, a_dst @ w))   # (Σ α·x)·W
+            out = dense(attend(x, a_src @ w, a_dst @ w), w,  # (Σ α·x)·W
+                        self.dtype)
         else:
-            out = attend(self.lin(x), a_src, a_dst)
-        return out + self.bias
+            out = attend(dense(x, self.lin.weight, self.dtype), a_src, a_dst)
+        return out + self.bias.to(out.dtype)
 
     def _attend(self, h, a_src, a_dst, g: Graph) -> torch.Tensor:
         n = g.num_nodes_padded
-        score_src, score_dst = h @ a_src, h @ a_dst
+        h32 = h.float()
+        score_src, score_dst = h32 @ a_src, h32 @ a_dst
+        if self.dtype is not None:
+            h = h.to(self.dtype)                      # the messages
         if isinstance(g.aux, HybridSpmm) and g.aux.semantics == "att_unit":
             out = tile_gat_attention(g.aux, score_src, score_dst, h,
                                      self.negative_slope, att_src=a_src)
@@ -169,7 +244,7 @@ class GATConv(nn.Module):
         e = F.leaky_relu(gather_concat_score(senders, receivers, score_src,
                                              score_dst), self.negative_slope)
         alpha = segment_softmax(e, receivers, n, mask=edge_mask)
-        return segment_sum(take_rows(h, senders) * alpha[:, None],
+        return segment_sum(take_rows(h, senders) * alpha[:, None].to(h.dtype),
                            receivers, n)
 
     def _dense(self, score_src, score_dst, h, g: Graph) -> torch.Tensor:
@@ -244,9 +319,11 @@ class SAGEConv(nn.Module):
     """``lin_l`` (with bias) on the neighbour mean plus ``lin_r`` (no bias)
     on the node itself, ``nn.Linear``'s (out, in) storage."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.features = features
+        self.dtype = dtype
         self.lin_l = nn.Linear(in_features, features)
         self.lin_r = nn.Linear(in_features, features, bias=False)
 
@@ -267,19 +344,23 @@ class SAGEConv(nn.Module):
             # aggregate on the narrow side: mean(x)·W + b = mean(x·W) + b,
             # the bias added after the mean, so a node without neighbours
             # gets b as lin_l(mean(x)) gives it
-            out = agg(F.linear(x, self.lin_l.weight)) + self.lin_l.bias
+            out = agg(dense(x, self.lin_l.weight, self.dtype))
+            out = out + self.lin_l.bias.to(out.dtype)
         else:
-            out = self.lin_l(agg(x))
-        return out + self.lin_r(x)
+            out = dense(agg(x), self.lin_l.weight, self.dtype,
+                        self.lin_l.bias)
+        return out + dense(x, self.lin_r.weight, self.dtype)
 
 
 class GINConv(nn.Module):
     """``relu(mlp_1(relu(mlp_0((1+ε)·x + Σ_neigh x))))``; ``eps`` is a
     trainable 0-dim parameter, the MLP's hidden width ``features``."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.features = features
+        self.dtype = dtype
         self.eps = nn.Parameter(torch.zeros(()))
         self.mlp_0 = nn.Linear(in_features, features)
         self.mlp_1 = nn.Linear(features, features)
@@ -296,22 +377,26 @@ class GINConv(nn.Module):
         return self.propagate(x, gin_aggregator(g, x.dtype))
 
     def propagate(self, x: torch.Tensor, agg) -> torch.Tensor:
+        dt = self.dtype
         if self.features <= x.shape[-1]:
             # aggregate on the narrow side: W₀((1+ε)x + Σx) + b₀
             # = (1+ε)(x·W₀) + Σ(x·W₀) + b₀
-            h0 = F.linear(x, self.mlp_0.weight)
-            h = F.relu((1.0 + self.eps) * h0 + agg(h0) + self.mlp_0.bias)
+            h0 = dense(x, self.mlp_0.weight, dt)
+            h = F.relu((1.0 + self.eps).to(h0.dtype) * h0 + agg(h0)
+                       + self.mlp_0.bias.to(h0.dtype))
         else:
-            h = F.relu(self.mlp_0((1.0 + self.eps) * x + agg(x)))
-        return F.relu(self.mlp_1(h))
+            h = (1.0 + self.eps).to(x.dtype) * x + agg(x)
+            h = F.relu(dense(h, self.mlp_0.weight, dt, self.mlp_0.bias))
+        return F.relu(dense(h, self.mlp_1.weight, dt, self.mlp_1.bias))
 
 
 LAYERS = {"GCNConv": GCNConv, "GATConv": GATConv, "SAGEConv": SAGEConv,
           "GINConv": GINConv}
 
 
-def make_layer(layer_name: str, in_features: int, hidden: int) -> nn.Module:
+def make_layer(layer_name: str, in_features: int, hidden: int,
+               dtype: Optional[torch.dtype] = None) -> nn.Module:
     if layer_name not in LAYERS:
         raise ValueError(f"unknown layer {layer_name!r}; choose from "
                          f"{sorted(LAYERS)}")
-    return LAYERS[layer_name](in_features, hidden)
+    return LAYERS[layer_name](in_features, hidden, dtype=dtype)

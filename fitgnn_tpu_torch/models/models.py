@@ -16,6 +16,14 @@ rate ½ under ``bit_dropout`` (the default), else the in-kernel Philox
 dropout (K11, ``ops/dropout.py``) under ``fused_dropout``, else Bernoulli
 dropout from a uniform draw.
 
+The conv stack's compute dtype (``NodeModel(dtype=torch.bfloat16)``, the
+JAX package's ``NodeModel(dtype=jnp.bfloat16)``, which ``bench.py``
+composes): every conv layer, the pre-aggregated layers and the head
+compute in it (``models/layers.py``), the dropouts work in the
+activations' type, and only the logits are promoted to f32 for the
+``log_softmax`` (a regression output is returned in f32).  Parameters stay
+f32.  ``GraphModel`` takes no dtype, as in the JAX package.
+
 Layer-0 pre-aggregation (``first_layer_preaggregated``), as the JAX
 package's: the input features are constant, so layer 0's aggregation runs
 once at ingest (``preaggregate_input``) and the layer becomes dense work
@@ -34,8 +42,9 @@ import torch.nn.functional as F
 
 from fitgnn_tpu_torch.graph.container import Graph, SubgraphBatch
 from fitgnn_tpu_torch.models.layers import (GCNConv, GINConv, SAGEConv,
-                                            gin_aggregator, lecun_normal_,
-                                            make_layer, sage_aggregator)
+                                            dense, gin_aggregator,
+                                            lecun_normal_, make_layer,
+                                            sage_aggregator)
 from fitgnn_tpu_torch.ops.dropout import fused_dropout, seed_from_generator
 from fitgnn_tpu_torch.ops.hybrid_spmm import HybridSpmm, hybrid_spmm
 from fitgnn_tpu_torch.ops.segment import segment_max, segment_mean
@@ -68,7 +77,8 @@ class _PreAggGCN(GCNConv):
     only the dense transform and the bias remain."""
 
     def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
-        return self.lin(x) + self.bias
+        h = dense(x, self.lin.weight, self.dtype)
+        return h + self.bias.to(h.dtype)
 
 
 class _PreAggSAGE(SAGEConv):
@@ -77,7 +87,8 @@ class _PreAggSAGE(SAGEConv):
 
     def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
         x_raw, x_mean = x.chunk(2, dim=-1)
-        return self.lin_l(x_mean) + self.lin_r(x_raw)
+        return (dense(x_mean, self.lin_l.weight, self.dtype, self.lin_l.bias)
+                + dense(x_raw, self.lin_r.weight, self.dtype))
 
 
 class _PreAggGIN(GINConv):
@@ -86,8 +97,10 @@ class _PreAggGIN(GINConv):
 
     def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
         x_raw, x_sum = x.chunk(2, dim=-1)
-        h = F.relu(self.mlp_0((1.0 + self.eps) * x_raw + x_sum))
-        return F.relu(self.mlp_1(h))
+        h = (1.0 + self.eps).to(x_raw.dtype) * x_raw + x_sum
+        h = F.relu(dense(h, self.mlp_0.weight, self.dtype, self.mlp_0.bias))
+        return F.relu(dense(h, self.mlp_1.weight, self.dtype,
+                            self.mlp_1.bias))
 
 
 _PREAGG = {"GCNConv": _PreAggGCN, "SAGEConv": _PreAggSAGE,
@@ -99,19 +112,22 @@ class ConvStack(nn.Module):
     dropout(``dropout_rate``): bit dropout when ``bit_dropout`` and the rate
     is ½, else K11 when ``fused_dropout`` (one seed a layer, drawn from the
     generator), else Bernoulli dropout.  ``first_layer_preaggregated``:
-    layer 0 takes ``preaggregate_input``'s features (GCN, SAGE, GIN)."""
+    layer 0 takes ``preaggregate_input``'s features (GCN, SAGE, GIN).
+    ``dtype``: every layer's compute dtype (None: f32)."""
 
     def __init__(self, layer_name: str, in_dim: int, hidden: int,
                  num_layers: int, dropout_rate: float = 0.5,
                  fused_dropout: bool = False, bit_dropout: bool = True,
-                 first_layer_preaggregated: bool = False):
+                 first_layer_preaggregated: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if first_layer_preaggregated and layer_name not in _PREAGG:
             raise ValueError("pre-aggregation is exact for GCN/SAGE/GIN only")
         self.layers = nn.ModuleList(
-            _PREAGG[layer_name](in_dim, hidden)
+            _PREAGG[layer_name](in_dim, hidden, dtype=dtype)
             if i == 0 and first_layer_preaggregated
-            else make_layer(layer_name, in_dim if i == 0 else hidden, hidden)
+            else make_layer(layer_name, in_dim if i == 0 else hidden, hidden,
+                            dtype)
             for i in range(num_layers))
         self.dropout_rate = dropout_rate
         self.fused_dropout = fused_dropout
@@ -146,16 +162,22 @@ class ConvStack(nn.Module):
 
 
 class NodeModel(nn.Module):
+    """Convs → dense head.  ``dtype`` (None or ``torch.bfloat16``): the
+    compute dtype of the stack and the head; the logits are promoted to
+    f32 for the ``log_softmax``."""
+
     def __init__(self, layer_name: str, in_dim: int, hidden: int,
                  num_layers: int, out_dim: int, classify: bool = True,
                  dropout_rate: float = 0.5, fused_dropout: bool = False,
                  bit_dropout: bool = True,
-                 first_layer_preaggregated: bool = False):
+                 first_layer_preaggregated: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.classify = classify
+        self.dtype = dtype
         self.convs = ConvStack(layer_name, in_dim, hidden, num_layers,
                                dropout_rate, fused_dropout, bit_dropout,
-                               first_layer_preaggregated)
+                               first_layer_preaggregated, dtype)
         self.head = nn.Linear(hidden, out_dim)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -174,7 +196,8 @@ class NodeModel(nn.Module):
         """Log-probs (classification) or the raw scalar; ``generator``
         drives the dropout masks in train mode, ``agg_for`` as
         ``ConvStack.forward``'s."""
-        out = self.head(self.convs(x, g, generator, agg_for))
+        out = dense(self.convs(x, g, generator, agg_for), self.head.weight,
+                    self.dtype, self.head.bias)
         if self.classify:
             return F.log_softmax(out.float(), dim=-1)
         return out.float()

@@ -62,6 +62,15 @@ its bf16 tiles to the same kernels.  The wrappers that read the tiles
 ending in ``_bf16``) and count those in ``<wrapper>.launches_bf16``.
 f16 and fp8 masks reach the card widened to f32 (``BsrMatrix``), so
 they take the f32 forms; the plain versions read them on the CPU.
+
+bf16 activations (the JAX package's conv-stack ``dtype=bfloat16``): no K7
+form reads them narrow.  ``att_fwd``, ``att_bwd_t`` and
+``att_bwd_scores`` take the widened route (``kernels.widened``): ``x`` and
+``g`` widened to f32, the form for the mask's type launched and counted
+as usual, ``num`` and ``dx`` rounded to bf16 once, ``den`` and the score
+gradients left f32, on either device.  The Pallas kernels cast ``pe`` to
+the activations' type before its product; here ``pe`` stays f32
+(``ROADMAP.md`` §3).
 """
 
 from __future__ import annotations
@@ -138,7 +147,11 @@ def att_rowmax_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst,
 
 def att_fwd_plain(rows, cols, plan: DynPlan, blocks, ssrc, sdst, m, x,
                   slope: float) -> tuple:
-    """``(num, den)`` from the materialised ``pe``."""
+    """``(num, den)`` from the materialised ``pe``; bf16 ``x`` by the
+    widened route."""
+    if x.dtype == torch.bfloat16:
+        return kernels.widened(lambda x: att_fwd_plain(
+            rows, cols, plan, blocks, ssrc, sdst, m, x, slope), x)
     b = blocks.shape[-1]
     nb = x.shape[0] // b
     _, _, pe = _tile_pe(blocks, ssrc, sdst, m, rows, cols, slope)
@@ -153,7 +166,11 @@ def att_bwd_t_plain(plan: DynPlan, blocks, ssrc, sdst, m, g, x, dden,
     """``(dx, dssrc)``, each None unless asked for, on the transpose plan:
     slot ``k`` reads forward tile ``t_sel[k]`` (rows block ``t_cols[k]``,
     columns block ``t_rows[k]``) scaled by ``t_scale[k]`` (0 for a coverage
-    filler)."""
+    filler).  bf16 ``g`` and ``x`` by the widened route."""
+    if x.dtype == torch.bfloat16:
+        return kernels.widened(lambda g, x: att_bwd_t_plain(
+            plan, blocks, ssrc, sdst, m, g, x, dden, slope, need_dx,
+            need_dssrc), g, x)
     b = blocks.shape[-1]
     nb = x.shape[0] // b
     mask, raw, pe = _tile_pe(blocks.index_select(0, plan.t_sel.long()), ssrc,
@@ -411,7 +428,11 @@ def att_fwd(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     256 to 1024) the kernel walks the live quadrants alone, which gives the
     walk of every quadrant bit for bit: ``plan.words`` must be the
     occupancy words of ``blocks`` (the mask the plan was built from, or a
-    cast of it with the same non-zeros, as the bf16 cast of a 0/1 mask)."""
+    cast of it with the same non-zeros, as the bf16 cast of a 0/1 mask).
+    bf16 ``x`` through ``kernels.widened`` (``num`` bf16, ``den`` f32)."""
+    if kernels.narrow("att_fwd", x):
+        return kernels.widened(lambda x: att_fwd(rows, cols, plan, blocks,
+                                                 ssrc, sdst, m, x, slope), x)
     if x.device.type == "cpu":
         _edge("att_fwd", blocks)
         return att_fwd_plain(rows, cols, plan, blocks, ssrc, sdst, m, x,
@@ -497,7 +518,12 @@ def att_bwd_scores(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     quadrant's partials are +0 either way): ``plan.words``, whose live
     quadrants ``plan.live`` lists, must be the occupancy words of
     ``blocks`` (the mask the plan was built from, or a cast of it with the
-    same non-zeros)."""
+    same non-zeros).  bf16 ``g`` and ``x`` through ``kernels.widened``."""
+    if kernels.narrow("att_bwd_scores", x):
+        return kernels.widened(
+            lambda g, x: att_bwd_scores(rows, cols, plan, blocks, ssrc, sdst,
+                                        m, g, x, dden, slope), g, x,
+            rounds=())
     if x.device.type == "cpu":
         _edge("att_bwd_scores", blocks)
         return att_bwd_scores_plain(rows, cols, plan, blocks, ssrc, sdst, m,
@@ -539,7 +565,12 @@ def att_bwd_t(plan: DynPlan, blocks: torch.Tensor, ssrc: torch.Tensor,
     quadrants alone, which gives the walk of every quadrant bit for bit:
     ``plan.t_words`` must be the transposed occupancy words of the tiles
     each slot reads (the mask the plan was built from, or a cast of it
-    with the same non-zeros, as the bf16 cast of a 0/1 mask)."""
+    with the same non-zeros, as the bf16 cast of a 0/1 mask).  bf16 ``g``
+    and ``x`` through ``kernels.widened`` (``dx`` bf16, ``dssrc`` f32)."""
+    if kernels.narrow("att_bwd_t", x):
+        return kernels.widened(
+            lambda g, x: att_bwd_t(plan, blocks, ssrc, sdst, m, g, x, dden,
+                                   slope, need_dx, need_dssrc), g, x)
     if x.device.type == "cpu":
         _edge("att_bwd_t", blocks)
         return att_bwd_t_plain(plan, blocks, ssrc, sdst, m, g, x, dden,

@@ -190,10 +190,18 @@ def _apply_plain(blocks, rows, cols, x, sel=None, scale=None,
 
 
 def dyn_tiles_plain(rows, cols, plan: DynPlan, blocks, x) -> torch.Tensor:
+    """K4's plain version; bf16 ``x`` by the widened route."""
+    if x.dtype == torch.bfloat16:
+        return kernels.widened(lambda b, x: _apply_plain(b, rows, cols, x),
+                               blocks, x)
     return _apply_plain(blocks, rows, cols, x)
 
 
 def dyn_tiles_t_plain(plan: DynPlan, blocks, g) -> torch.Tensor:
+    """K4ᵀ's plain version; bf16 ``g`` by the widened route."""
+    if g.dtype == torch.bfloat16:
+        return kernels.widened(lambda b, g: dyn_tiles_t_plain(plan, b, g),
+                               blocks, g)
     return _apply_plain(blocks, plan.t_rows, plan.t_cols, g, sel=plan.t_sel,
                         scale=plan.t_scale, trans=True)
 
@@ -202,7 +210,10 @@ def dyn_grad_blocks_plain(rows, cols, g, x, block: int = BLOCK,
                           live=None) -> torch.Tensor:
     """``dB[k] = g[rows[k]] @ x[cols[k]]ᵀ`` over (block, F) slabs; given
     ``live`` (quadrant ids ``k·nq² + i·nq + j``), +0 on every 128-wide
-    quadrant it does not list."""
+    quadrant it does not list.  bf16 ``g`` and ``x`` widened to f32, the
+    result left f32, as the wrapper's route."""
+    if x.dtype == torch.bfloat16:
+        g, x = g.float(), x.float()
     n, feat = x.shape
     gb = g.reshape(n // block, block, feat).index_select(0, rows.long())
     xb = x.reshape(n // block, block, feat).index_select(0, cols.long())
@@ -294,7 +305,13 @@ def dyn_tiles(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
     """K4 forward, ``out[rows[k]] += blocks[k] @ x[cols[k]]`` from zero
     (``rows`` sorted; the kernel walks ``plan.row_splits``, and with
     ``plan.words`` the live quadrants alone): the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    tensor, the plain version on a CPU tensor.  bf16 ``x`` (with bf16
+    ``blocks``, GAT's ``pe`` in the messages' type) takes the widened route
+    (``kernels.widened``: both widened to f32, the output rounded once)."""
+    if kernels.narrow("dyn_tiles", x):
+        return kernels.widened(
+            lambda blocks, x: dyn_tiles(rows, cols, plan, blocks, x), blocks,
+            x)
     if x.device.type == "cpu":
         check_block(blocks.shape[-1])
         return dyn_tiles_plain(rows, cols, plan, blocks, x)
@@ -309,7 +326,10 @@ def dyn_tiles_t(plan: DynPlan, blocks: torch.Tensor,
     """K4 transposed, ``out[t_rows[k]] += t_scale[k]·blocks[t_sel[k]]ᵀ @
     g[t_cols[k]]`` from zero (with ``plan.t_words`` the live quadrants
     alone): the CUDA kernel on a CUDA tensor, the plain version on a CPU
-    tensor."""
+    tensor; bf16 ``g`` through ``kernels.widened``, as ``dyn_tiles``."""
+    if kernels.narrow("dyn_tiles_t", g):
+        return kernels.widened(lambda blocks, g: dyn_tiles_t(plan, blocks, g),
+                               blocks, g)
     if g.device.type == "cpu":
         check_block(blocks.shape[-1])
         return dyn_tiles_t_plain(plan, blocks, g)
@@ -330,10 +350,18 @@ def dyn_grad_blocks(rows: torch.Tensor, cols: torch.Tensor, g: torch.Tensor,
     (``DynPlan.live``), or None; given, only those quadrants' products are
     computed and every other quadrant is +0 (the kernel launches no
     product there).  A live list at edge 128 (or above 1024) raises on the
-    card: there is no fallback to the full grid."""
+    card: there is no fallback to the full grid.  bf16 ``g`` and ``x``
+    take the widened route (``kernels.widened``), the tiles' gradient left
+    f32 (the caller rounds it to the dynamic tiles' type once): the JAX
+    kernel's bf16 branch casts both to bf16, which they are already, so
+    the f32 products of the widened values are its products."""
     if g.shape != x.shape:
         raise ValueError(f"dyn_grad_blocks: g {tuple(g.shape)} and x "
                          f"{tuple(x.shape)} differ")
+    if kernels.narrow("dyn_grad_blocks", x):
+        return kernels.widened(
+            lambda g, x: dyn_grad_blocks(rows, cols, g, x, block, live), g, x,
+            rounds=())
     if x.device.type == "cpu":
         check_block(block)
         return dyn_grad_blocks_plain(rows, cols, g, x, block, live)

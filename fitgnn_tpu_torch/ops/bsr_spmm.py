@@ -55,6 +55,20 @@ package's XLA path (``_bsr_spmm_einsum``), plain PyTorch here on either
 device: ``x`` rounded to the tile type, one ``bmm`` whose tile products
 are rounded to it, ``index_add_`` in it, then f32.
 
+bf16 activations (the JAX package's conv-stack ``dtype=bfloat16``): ``x``,
+``init`` and the output are bf16.  K1 on the grid-walk layout at edge 128
+launches its bf16-activation forms (C entries ``fitgnn_bsr_spmm_acc_a``
+and ``_a_bf16``; counted in ``bsr_spmm_acc.launches_a`` on f32 tiles,
+K1a, and ``launches_bfa`` on bf16 tiles, K1bfa): the slab read as bf16,
+each tile's products summed in f32 from ``init`` and the sum rounded to
+bf16 once, where the Pallas kernel rounds each tile's product into its
+bf16 output block (``ROADMAP.md`` §3).  Every other form (K1 at an edge
+above 128, K2, K9, K10) takes the widened route (``kernels.widened``):
+``x`` widened to f32, the f32-activation form launched and counted as
+usual, the output rounded to bf16 once.  The plain versions follow the
+same rules.  The einsum layout stays the JAX package's XLA path: on f32
+tiles the product promotes the bf16 slabs to f32 and rounds the sum once.
+
 f16, fp8 e4m3fn and fp8 e5m2 tiles: the Pallas kernels round ``x`` only
 on bf16 tiles; on any other type ``jnp.dot`` and ``jnp.einsum`` promote
 the tile to f32.  So every layout, the einsum one included, leaves ``x``
@@ -344,13 +358,20 @@ def _quad_sum(b: BsrMatrix, x: torch.Tensor,
 
 def bsr_spmm_acc_plain(b: BsrMatrix, x: torch.Tensor,
                        init: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch ``init + A·x`` (K1)."""
+    """Plain PyTorch ``init + A·x`` (K1); on bf16 ``x`` and ``init`` (K1a,
+    K1bfa) the sum in f32 over the widened operands, rounded to bf16
+    once."""
+    if x.dtype == torch.bfloat16:
+        return _tile_sum(b, x.float(), init.to(torch.float32,
+                                                copy=True)).to(x.dtype)
     return _tile_sum(b, x, init.clone())
 
 
 def bsr_spmm_plain(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch ``A·x`` on the grid-walk, grouped and row-walk layouts
-    (K2, K9, K10)."""
+    (K2, K9, K10); bf16 ``x`` by the widened route."""
+    if x.dtype == torch.bfloat16:
+        return kernels.widened(lambda x: bsr_spmm_plain(b, x), x)
     return _tile_sum(b, x, torch.zeros_like(x))
 
 
@@ -359,10 +380,12 @@ def bsr_spmm_einsum(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     ``_bsr_spmm_einsum``: on bf16 tiles the X slabs in bf16, one batched
     matmul whose tile products come out in bf16, their sum over block rows
     (``index_add_``) in it, then x's type; on any other type the einsum
-    promotes the tiles, so the same in f32 on the widened tiles.  Plain
+    promotes the tiles, so the same in f32 on the widened tiles (bf16 ``x``
+    promoted to f32 with them, the sum rounded to bf16 once).  Plain
     PyTorch on every device, as XLA computes it there."""
     n, feat = x.shape
-    blocks = b.blocks if b.bf16 else b.blocks.to(x.dtype)
+    blocks = (b.blocks if b.bf16
+              else b.blocks.to(torch.promote_types(x.dtype, torch.float32)))
     xb = x.to(blocks.dtype).reshape(b.num_col_blocks, b.block, feat)
     prod = torch.bmm(blocks, xb.index_select(0, b.cols.long()))
     out = torch.zeros((b.num_row_blocks, b.block, feat), dtype=prod.dtype,
@@ -371,8 +394,10 @@ def bsr_spmm_einsum(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def _operands(b: BsrMatrix, x: torch.Tensor, what: str,
-              init: Optional[torch.Tensor] = None) -> Optional[torch.device]:
-    """Validate a walk's operands; the CUDA device, or None on the CPU."""
+              init: Optional[torch.Tensor] = None,
+              act: torch.dtype = torch.float32) -> Optional[torch.device]:
+    """Validate a walk's operands, ``x`` and ``init`` of type ``act``; the
+    CUDA device, or None on the CPU."""
     if x.dim() != 2 or x.shape[0] != b.num_row_blocks * b.block:
         raise ValueError(f"{what}: x {tuple(x.shape)} must be "
                          f"({b.num_row_blocks * b.block}, F)")
@@ -381,9 +406,9 @@ def _operands(b: BsrMatrix, x: torch.Tensor, what: str,
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     dev = x.device
-    kernels.require(x, "x", torch.float32, dev)
+    kernels.require(x, "x", act, dev)
     if init is not None:
-        kernels.require(init, "init", torch.float32, dev)
+        kernels.require(init, "init", act, dev)
     kernels.require(b.blocks, "blocks",
                     torch.bfloat16 if b.bf16 else torch.float32, dev)
     kernels.require(b.row_splits, "row_splits", torch.int32, dev)
@@ -441,6 +466,24 @@ def bsr_spmm_acc(b: BsrMatrix, x: torch.Tensor,
                          f"{tuple(init.shape)} differ")
     if b.rowwalk or b.einsum or b.group > 1:
         return init + bsr_spmm_raw(b, x)
+    if kernels.narrow("bsr_spmm_acc", x):
+        if init.dtype != x.dtype:
+            raise ValueError(f"bsr_spmm_acc: init {init.dtype} and x "
+                             f"{x.dtype} differ")
+        if b.block != BLOCK:
+            # the quadrant walk (and its words) has no bf16-activation form
+            return kernels.widened(lambda x, init: bsr_spmm_acc(b, x, init),
+                                   x, init)
+        dev = _operands(b, x, "bsr_spmm_acc", init, torch.bfloat16)
+        if dev is None:
+            return bsr_spmm_acc_plain(b, x, init)
+        out = _launch(b, x, dev, "bsr_spmm_acc", "fitgnn_bsr_spmm_acc_a",
+                      _ARGS_ACC, [x, init])
+        if b.bf16:
+            bsr_spmm_acc.launches_bfa += 1
+        else:
+            bsr_spmm_acc.launches_a += 1
+        return out
     dev = _operands(b, x, "bsr_spmm_acc", init)
     if dev is None:
         return bsr_spmm_acc_plain(b, x, init)
@@ -457,6 +500,8 @@ def bsr_spmm_fwd(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("bsr_spmm_fwd: K2 walks the grid-walk layout, got "
                          f"rowwalk={b.rowwalk} einsum={b.einsum} "
                          f"group={b.group}")
+    if kernels.narrow("bsr_spmm_fwd", x):
+        return kernels.widened(lambda x: bsr_spmm_fwd(b, x), x)
     dev = _operands(b, x, "bsr_spmm_fwd")
     if dev is None:
         return bsr_spmm_plain(b, x)
@@ -474,6 +519,8 @@ def bsr_spmm_grouped(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("bsr_spmm_grouped: K9 walks the group-padded "
                          f"layout, got rowwalk={b.rowwalk} "
                          f"einsum={b.einsum} group={b.group}")
+    if kernels.narrow("bsr_spmm_grouped", x):
+        return kernels.widened(lambda x: bsr_spmm_grouped(b, x), x)
     dev = _operands(b, x, "bsr_spmm_grouped")
     if dev is None:
         return bsr_spmm_plain(b, x)
@@ -488,6 +535,8 @@ def bsr_spmm_rowwalk(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
     tile's non-zeros; a block row without tiles comes out zero."""
     if not b.rowwalk or b.einsum:
         raise ValueError("bsr_spmm_rowwalk: K10 walks the row-walk layout")
+    if kernels.narrow("bsr_spmm_rowwalk", x):
+        return kernels.widened(lambda x: bsr_spmm_rowwalk(b, x), x)
     dev = _operands(b, x, "bsr_spmm_rowwalk")
     if dev is None:
         return bsr_spmm_plain(b, x)
@@ -499,6 +548,7 @@ def bsr_spmm_rowwalk(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 for _fn in (bsr_spmm_acc, bsr_spmm_fwd, bsr_spmm_grouped, bsr_spmm_rowwalk):
     _fn.launches = _fn.launches_bf16 = 0
+bsr_spmm_acc.launches_a = bsr_spmm_acc.launches_bfa = 0
 
 
 def bsr_spmm_raw(b: BsrMatrix, x: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,14 @@ the transpose CSR and ``dw_e = ⟨g_num[r_e], x[s_e]⟩ + g_den[r_e]`` is plain
 PyTorch.  The TPU's ``first_slot`` map (its saved gather is in padded slot
 order) has no counterpart: this CSR is in edge order.
 
+bf16 activations (the JAX package's conv-stack ``dtype=bfloat16``): on
+bf16 ``x`` each wrapper launches the kernel's bf16-activation form (K3a,
+the C entry ``fitgnn_segmm_spmm_a``; counted in ``<wrapper>.launches_a``):
+bf16 rows gathered 8 values a lane, each formed weight rounded to bf16
+before its products (the Pallas kernels cast the selector to bf16), the
+sums f32 and rounded to bf16 once, ``den`` f32 over the unrounded weights.
+The plain versions follow the same rule.
+
 ``segmm_spmm.launches``, ``segmm_weighted_raw.launches`` and
 ``segmm_weighted_den_raw.launches`` count kernel launches with static
 weights, runtime weights, and runtime weights with the denominator;
@@ -94,8 +102,13 @@ def _receivers(m: SegCsr) -> torch.Tensor:
 def segmm_spmm_plain(m: SegCsr, x: torch.Tensor,
                      weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch straggler aggregation: gather, scale by ``weights``
-    (``m.weights`` when None), ``index_add_`` onto the receivers."""
+    (``m.weights`` when None), ``index_add_`` onto the receivers.  On bf16
+    ``x`` (K3a): each weight rounded to bf16, the products and sums in f32
+    over the widened rows, the sums rounded to bf16 once."""
     w = m.weights if weights is None else weights
+    if x.dtype == torch.bfloat16:
+        wr = w.to(torch.bfloat16).float()
+        return segmm_spmm_plain(m, x.float(), wr).to(x.dtype)
     y = x.index_select(0, m.senders.long()) * w[:, None].to(x.dtype)
     out = torch.zeros((m.num_nodes, x.shape[1]), dtype=x.dtype,
                       device=x.device)
@@ -126,11 +139,13 @@ def _launch(what: str, m: SegCsr, x: torch.Tensor,
             den: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel over ``m``'s CSR: edge weights ``m.weights``, times
     ``w_edge`` (times ``w_edge[perm]``) when given; with ``den``
-    ((num_nodes,) f32) it also writes the weight sums (K6)."""
+    ((num_nodes,) f32) it also writes the weight sums (K6).  On bf16 ``x``
+    the bf16-activation form (K3a), whose output is bf16."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     dev = x.device
-    kernels.require(x, "x", torch.float32, dev)
+    narrow = kernels.narrow(what, x)
+    kernels.require(x, "x", x.dtype, dev)
     kernels.require(m.row_ptr, "row_ptr", torch.int32, dev)
     kernels.require(m.senders, "senders", torch.int32, dev)
     kernels.require(m.weights, "weights", torch.float32, dev)
@@ -149,7 +164,9 @@ def _launch(what: str, m: SegCsr, x: torch.Tensor,
     if den is not None and x.shape[1] == 0:
         raise ValueError(f"{what}: F=0 leaves den unwritten")
     out = torch.empty_like(x)
-    launch = kernels.function("coo_segmm", "fitgnn_segmm_spmm", _ARGTYPES)
+    launch = kernels.function(
+        "coo_segmm", "fitgnn_segmm_spmm_a" if narrow else "fitgnn_segmm_spmm",
+        _ARGTYPES)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(m.row_ptr), kernels.ptr(m.senders),
                     kernels.ptr(m.weights), *ptrs, kernels.ptr(x),
@@ -179,11 +196,20 @@ def segmm_spmm(m: SegCsr, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return segmm_spmm_plain(m, x)
     out = _launch("segmm_spmm", m, x)
-    segmm_spmm.launches += 1
+    _count(segmm_spmm, x)
     return out
 
 
-segmm_spmm.launches = 0
+def _count(fn, x: torch.Tensor) -> None:
+    """One launch of wrapper ``fn``'s form for ``x``'s type: counted in
+    ``fn.launches_a`` for bf16 activations, else in ``fn.launches``."""
+    if x.dtype == torch.bfloat16:
+        fn.launches_a += 1
+    else:
+        fn.launches += 1
+
+
+segmm_spmm.launches = segmm_spmm.launches_a = 0
 
 
 def segmm_weighted_raw_plain(m: SegCsr, w_edge: torch.Tensor,
@@ -206,11 +232,11 @@ def segmm_weighted_raw(m: SegCsr, w_edge: torch.Tensor, x: torch.Tensor,
         return segmm_weighted_raw_plain(m, w_edge, x, perm)
     out = _launch("segmm_weighted_raw", m, x,
                   w_edge.to(m.weights.dtype).contiguous(), perm)
-    segmm_weighted_raw.launches += 1
+    _count(segmm_weighted_raw, x)
     return out
 
 
-segmm_weighted_raw.launches = 0
+segmm_weighted_raw.launches = segmm_weighted_raw.launches_a = 0
 
 
 class _SegmmWeighted(torch.autograd.Function):
@@ -271,11 +297,11 @@ def segmm_weighted_den_raw(m: SegCsr, w_edge: torch.Tensor,
     den = torch.empty(m.num_nodes, dtype=torch.float32, device=x.device)
     num = _launch("segmm_weighted_den_raw", m, x,
                   w_edge.to(m.weights.dtype).contiguous(), den=den)
-    segmm_weighted_den_raw.launches += 1
+    _count(segmm_weighted_den_raw, x)
     return num, den
 
 
-segmm_weighted_den_raw.launches = 0
+segmm_weighted_den_raw.launches = segmm_weighted_den_raw.launches_a = 0
 
 
 class _SegmmWeightedDen(torch.autograd.Function):

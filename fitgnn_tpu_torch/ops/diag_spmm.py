@@ -30,6 +30,11 @@ leave ``x`` in f32 and are widened to f32 exactly, as the JAX package's
 they reach the card already widened (``HybridSpmm``), so the kernel sees
 f32 blocks.
 
+bf16 activations: K8 has no bf16-activation form; bf16 ``x`` and ``init``
+take the widened route (``kernels.widened``: widened to f32, the form for
+the blocks' type launched and counted as usual, the output rounded to
+bf16 once), on either device.
+
 ``diag_spmm.launches`` counts kernel launches on f32 blocks,
 ``diag_spmm.launches_bf16`` on bf16 blocks.  No autograd: the hybrid
 operator differentiates through its transpose chain.
@@ -74,7 +79,11 @@ def diag_spmm_plain(blocks: torch.Tensor, x: torch.Tensor, r: int,
                     transpose: bool = False,
                     init: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch K8: a batched matmul over the (nb, E, F) views (x
-    rounded to bf16 first on bf16 blocks)."""
+    rounded to bf16 first on bf16 blocks); bf16 ``x`` by the widened
+    route."""
+    if x.dtype == torch.bfloat16:
+        return kernels.widened(lambda x, init: diag_spmm_plain(
+            blocks, x, r, transpose, init), x, init)
     _check(blocks, x, r, init)
     nb, b, _ = blocks.shape
     a = blocks.to(x.dtype)
@@ -94,7 +103,11 @@ def diag_spmm(blocks: torch.Tensor, x: torch.Tensor, r: int,
               transpose: bool = False,
               init: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(init +) diag(A)·x`` (or ``diag(A)ᵀ·x``): the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    tensor, the plain version on a CPU tensor; bf16 ``x`` (and ``init``)
+    through ``kernels.widened``."""
+    if kernels.narrow("diag_spmm", x):
+        return kernels.widened(
+            lambda x, init: diag_spmm(blocks, x, r, transpose, init), x, init)
     if x.device.type == "cpu":
         return diag_spmm_plain(blocks, x, r, transpose, init)
     if x.device.type != "cuda":

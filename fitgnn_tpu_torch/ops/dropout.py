@@ -21,8 +21,16 @@ the TPU's (dropout needs i.i.d. Bernoulli noise, not a particular stream).
 * On a CPU tensor it runs the plain version ``philox_dropout_plain``: the
   same Philox rounds in int64 torch arithmetic, bit for bit the kernel's.
 
+bf16 activations (K11a, the bf16 branch of the JAX kernel, whose scale is
+``jnp.asarray(1/(1−rate), x.dtype)``): the same bits and keep rule, so a
+seed drops the same elements as the f32 form; the scale is rounded to
+bf16 and a kept element is the bf16 product ``x·scale``.  On a CUDA tensor
+``philox_dropout`` launches the kernel's bf16 form
+(``fitgnn_philox_dropout_a``), on a CPU tensor the plain version computes
+the same product in bf16.
+
 ``philox_dropout.launches`` counts kernel launches (one per forward and one
-per backward).
+per backward), ``philox_dropout.launches_a`` those of the bf16 form.
 """
 
 from __future__ import annotations
@@ -78,17 +86,24 @@ def dropout_bits(seed: torch.Tensor, numel: int) -> torch.Tensor:
     return torch.stack(words, dim=1).reshape(-1)[:numel]
 
 
-def _threshold(rate: float) -> tuple:
-    """(uint32 threshold, float32 scale) of the JAX kernel's rule."""
+def _threshold(rate: float, dtype: torch.dtype = torch.float32) -> tuple:
+    """(uint32 threshold, scale) of the JAX kernel's rule, the scale
+    ``1/(1−rate)`` in ``dtype`` (f32, or bf16 for K11a), as a float."""
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"fused_dropout: rate must be in [0, 1), got {rate}")
-    return int(rate * 2 ** 32), float(np.float32(1.0 / (1.0 - rate)))
+    if dtype == torch.bfloat16:
+        scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float64).to(
+            torch.bfloat16).item()
+    else:
+        scale = float(np.float32(1.0 / (1.0 - rate)))
+    return int(rate * 2 ** 32), scale
 
 
 def philox_dropout_plain(x: torch.Tensor, seed: torch.Tensor,
                          rate: float) -> torch.Tensor:
-    """Plain PyTorch K11: the kernel's bits, keep rule and scale."""
-    thresh, scale = _threshold(rate)
+    """Plain PyTorch K11: the kernel's bits, keep rule and scale (on bf16
+    ``x`` the bf16 scale, the product in bf16: K11a's)."""
+    thresh, scale = _threshold(rate, x.dtype)
     keep = dropout_bits(seed, x.numel()).reshape(x.shape) >= thresh
     return torch.where(keep, x * torch.tensor(scale, dtype=x.dtype,
                                               device=x.device), 0.0)
@@ -113,22 +128,28 @@ def philox_dropout(x: torch.Tensor, seed: torch.Tensor,
         return philox_dropout_plain(x, seed, rate)
     if x.device.type != "cuda":
         raise ValueError(f"philox_dropout: unsupported device {x.device}")
-    thresh, scale = _threshold(rate)
+    narrow = kernels.narrow("philox_dropout", x)
+    thresh, scale = _threshold(rate, x.dtype)
     dev = x.device
-    kernels.require(x, "x", torch.float32, dev)
+    kernels.require(x, "x", x.dtype, dev)
     kernels.require(seed, "seed", torch.int32, dev)
     out = torch.empty_like(x)
-    launch = kernels.function("dropout", "fitgnn_philox_dropout", _ARGTYPES)
+    launch = kernels.function(
+        "dropout", "fitgnn_philox_dropout_a" if narrow
+        else "fitgnn_philox_dropout", _ARGTYPES)
     vec = int(x.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(x), kernels.ptr(out), kernels.ptr(seed),
                     x.numel(), thresh, scale, vec, kernels.stream(dev))
     kernels.check(rc, "philox_dropout")
-    philox_dropout.launches += 1
+    if narrow:
+        philox_dropout.launches_a += 1
+    else:
+        philox_dropout.launches += 1
     return out
 
 
-philox_dropout.launches = 0
+philox_dropout.launches = philox_dropout.launches_a = 0
 
 
 class _FusedDropout(torch.autograd.Function):

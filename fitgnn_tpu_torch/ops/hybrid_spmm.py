@@ -44,6 +44,13 @@ The JAX package's tile opt-ins, dispatched as its ``_hybrid_spmm_main``:
   diagonal's matmul and the static collapse's product promote them too,
   as XLA's do.  The collapse table keeps its type: the member summaries
   are rounded to it.
+* bf16 activations (the conv stack's ``dtype=torch.bfloat16``): ``x`` and
+  every chain's output are bf16, and each wrapper picks its form by
+  ``x``'s type on every call (layer 0 of a GCN that is not pre-aggregated
+  aggregates the f32 input, layer 1 bf16): K3 → K1 pass bf16 through K3a
+  into K1a's ``init`` (K1bfa on bf16 tiles) with no f32 copy, forward and
+  backward; the other forms take their widened route
+  (``ops/kernels.py``).
 * ``use_einsum_tiles``: the BCSR's einsum layout (plain PyTorch, as the
   JAX package's XLA einsum); like the row walk and the grouped layout, it
   takes no part in the diagonal chain, and K1's fused add becomes a
@@ -410,11 +417,12 @@ class _FusedCoreDiag(torch.autograd.Function):
 def _diag_bmm(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """diag(A)·x as one batched matmul over the (nb, E, F) views (the
     JAX package's XLA einsum branch: on bf16 blocks x is cast to bf16 and
-    the product comes out in bf16; any other type is promoted to x's);
-    autograd gives its transpose."""
+    the product comes out in bf16; blocks of any other type and x are
+    promoted to at least f32, so bf16 x on f32 blocks gives the f32
+    product rounded to bf16 once); autograd gives its transpose."""
     nb, b, _ = blocks.shape
     if blocks.dtype != torch.bfloat16:
-        blocks = blocks.to(x.dtype)
+        blocks = blocks.to(torch.promote_types(x.dtype, torch.float32))
     xb = x.to(blocks.dtype).reshape(nb, b, -1)
     return torch.bmm(blocks, xb).reshape(x.shape).to(x.dtype)
 

@@ -97,6 +97,37 @@ def count(fn, tiles: torch.Tensor) -> None:
         fn.launches += 1
 
 
+def narrow(what: str, x: torch.Tensor) -> bool:
+    """Whether ``x`` holds bf16 activations, which a wrapper hands to its
+    kernel's bf16-activation form (K1a, K1bfa, K3a, K11a) or to
+    ``widened``; False for f32.  On the card any other type raises
+    ``ValueError``: the kernels take f32 and bf16 activations only
+    (ROADMAP.md §3).  A CPU tensor of another type goes to the plain
+    version, as before."""
+    if x.dtype == torch.bfloat16:
+        return True
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        raise ValueError(f"{what}: activations must be float32 or bfloat16, "
+                         f"got {x.dtype} (ROADMAP.md §3)")
+    return False
+
+
+def widened(fn, *acts: torch.Tensor, rounds=(0,)):
+    """The widened route of a kernel form with no bf16-activation form of
+    its own: ``fn`` on ``acts`` widened to f32 (exact), which launches the
+    form's f32-activation kernel (counted in its usual count) on the card
+    and its plain version on the CPU, then each output at ``rounds`` (the
+    output itself when ``fn`` returns one tensor) rounded to bf16 once;
+    the others (f32 sums such as a softmax denominator) stay f32.  Where a
+    Pallas kernel rounds each tile's or chunk's partial into a bf16 block,
+    this rounds the f32 total once (ROADMAP.md §3)."""
+    out = fn(*(a if a is None else a.float() for a in acts))
+    if isinstance(out, torch.Tensor):
+        return out.to(torch.bfloat16) if rounds else out
+    return tuple(o.to(torch.bfloat16) if i in rounds and o is not None
+                 else o for i, o in enumerate(out))
+
+
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
             device: torch.device) -> None:
     """Validate an operand before its pointer goes to a kernel."""

@@ -515,7 +515,7 @@ def hier_view(model: NodeModel) -> HierNodeModel:
     one parameter tree."""
     view = HierNodeModel.__new__(HierNodeModel)
     torch.nn.Module.__init__(view)
-    view.classify = model.classify
+    view.classify, view.dtype = model.classify, model.dtype
     view.convs, view.head = model.convs, model.head
     return view
 

@@ -43,6 +43,12 @@ def _lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_double), ctypes.c_double, ctypes.c_uint64,
         ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]
+    lib.modularity.restype = ctypes.c_double
+    lib.modularity.argtypes = [
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_double]
     _lib_handle = lib
     return lib
 
@@ -69,6 +75,27 @@ def leiden_communities(senders: np.ndarray, receivers: np.ndarray,
     if k < 0:
         raise RuntimeError("leiden_partition failed")
     return out
+
+
+def partition_modularity(senders: np.ndarray, receivers: np.ndarray,
+                         num_nodes: int, labels: np.ndarray,
+                         weight: Optional[np.ndarray] = None,
+                         resolution: float = 1.0) -> float:
+    """The modularity of the partition ``labels`` (at ``resolution``) on
+    the graph of the edges ``senders`` → ``receivers`` (``weight``, or 1
+    each): the ``modularity`` entry of the Leiden library built from
+    ``native/leiden.cpp``, as the JAX package's ``partition_modularity``
+    reads it."""
+    s = np.ascontiguousarray(senders, dtype=np.int64)
+    r = np.ascontiguousarray(receivers, dtype=np.int64)
+    lab = np.ascontiguousarray(labels, dtype=np.int64)
+    w_ptr = None
+    if weight is not None:
+        w = np.ascontiguousarray(weight, dtype=np.float64)
+        w_ptr = w.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+    return float(_lib().modularity(
+        num_nodes, len(s), _as_i64_ptr(s), _as_i64_ptr(r), w_ptr,
+        _as_i64_ptr(lab), float(resolution)))
 
 
 def merge_communities(labels: np.ndarray, cap: int) -> np.ndarray:

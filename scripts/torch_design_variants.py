@@ -897,10 +897,11 @@ def quadwords_section(dev) -> tuple:
                 OUT, "quad_round_single", "libquad_round_single.log")),
             ("skip + early slab", next(t.log_path for t in kernels.TARGETS
                                        if t.name == "bsr_spmm"))):
-        # the words forms: WORDS and QUAD, the last two flags
+        # the words forms: WORDS and QUAD, the two flags before the
+        # activations' type
         for k, n, spill in ptxas_entries(log):
             if "walk_kernel" in k and k.replace(" ", "").endswith(
-                    "true,true>"):
+                    "true,true,float>"):
                 regs[f"{form}: {k}"] = (n, spill)
     x, s, r, y, train = make_graph()
     g, _ = build_optimized_graph(x, s, r, y=y, train_mask=train,

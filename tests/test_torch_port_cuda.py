@@ -2907,3 +2907,281 @@ def test_wrappers_refuse_lowp_tiles_on_card(cuda):
     for dt in _LOWP.values():
         with pytest.raises(ValueError, match="float32"):
             diag_spmm(b.blocks[:4].to(dt), x, 2)
+
+
+# ---- bf16 activations (the conv stack's dtype=torch.bfloat16) --------------
+# K1a / K1bfa, K3a (K3, K3w, K6) and K11a against their plain versions; the
+# widened route of every other form; the dense layers' f32 sums; a bf16
+# training step on the card against the CPU.  Outputs are bf16 rounded once
+# from f32 sums taken in another order, so they may round to neighbouring
+# bf16 values: rtol 2⁻⁶ (two bf16 steps where a step is largest, 2⁻⁷ of the
+# value) and atol 1e-4·max|ref|; K11a and the widened route's definition
+# bit for bit.
+
+BF16 = torch.bfloat16
+
+
+def _unaligned_narrow(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of bf16 ``x`` starting 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    start = next(i for i in range(8) if (buf.data_ptr() + 2 * i) % 16 == 2)
+    view = buf[start:start + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    return view
+
+
+def _close_bf16(got, ref):
+    assert got.dtype == ref.dtype == BF16
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2 ** -6,
+                               atol=1e-4 * float(ref.float().abs().max()))
+
+
+def _randn_bf16(rng, shape, cuda, aligned=True):
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda).to(BF16)
+    return x if aligned else _unaligned_narrow(x)
+
+
+@pytest.mark.parametrize("feat,aligned", [(16, True), (100, True),
+                                          (101, True), (128, True),
+                                          (512, True), (128, False)])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("tiles", ["f32", "bf16"])
+def test_bf16a_k1_kernel_matches_plain(cuda, tiles, transpose, feat,
+                                       aligned):
+    """K1a (f32 tiles) and K1bfa (bf16 tiles) on bf16 ``x`` and ``init``,
+    forward and on the transpose: F % 8 != 0 and the unaligned views take
+    the 2-byte slab path, F=101 the scalar init and stores."""
+    rng = np.random.default_rng(feat + 7)
+    n = 1024
+    s, r, w = _coo(rng, n, 20_000)
+    b = build_bsr(s, r, w, n, tile_dtype=BF16 if tiles == "bf16" else None)
+    b = (b.transpose if transpose else b).to(cuda)
+    x = _randn_bf16(rng, (n, feat), cuda, aligned)
+    init = _randn_bf16(rng, (n, feat), cuda, aligned)
+    attr = "launches_bfa" if tiles == "bf16" else "launches_a"
+    before = (getattr(bsr_spmm_acc, attr), bsr_spmm_acc.launches,
+              bsr_spmm_acc.launches_bf16)
+    with torch.inference_mode():
+        got = bsr_spmm_acc(b, x, init)
+        again = bsr_spmm_acc(b, x, init)
+        ref = bsr_spmm_acc_plain(b, x, init)
+    torch.cuda.synchronize()
+    assert (getattr(bsr_spmm_acc, attr), bsr_spmm_acc.launches,
+            bsr_spmm_acc.launches_bf16) == (before[0] + 2, *before[1:])
+    _close_bf16(got, ref)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("feat,aligned", SEGMM_SHAPES)
+@pytest.mark.parametrize("form", ["k3", "k3w", "k3w_transpose", "k6"])
+def test_bf16a_k3_kernel_matches_plain(cuda, form, feat, aligned):
+    """K3a in its three uses: K3, K3w (forward and on the transpose CSR
+    with the permutation) and K6, whose ``den`` stays f32 and sums the
+    unrounded weights; two launches bit-equal."""
+    rng, m, _, w_edge = _segmm_inputs(cuda, feat, True, 3)
+    x = _randn_bf16(rng, (1024, feat), cuda, aligned)
+    fn = {"k3": segmm_spmm, "k3w": segmm_weighted_raw,
+          "k3w_transpose": segmm_weighted_raw,
+          "k6": segmm_weighted_den_raw}[form]
+    perm = None
+    if form == "k3w_transpose":
+        perm = torch.from_numpy(rng.permutation(len(w_edge)).astype(
+            np.int32)).to(cuda)
+    args = {"k3": (m, x), "k3w": (m, w_edge, x),
+            "k3w_transpose": (m, w_edge, x, perm),
+            "k6": (m, w_edge, x)}[form]
+    plain = {"k3": segmm_spmm_plain,
+             "k3w": lambda *a: segmm_spmm_plain(
+                 m, x, w_edge.float() * m.weights),
+             "k3w_transpose": lambda *a: segmm_spmm_plain(
+                 m, x, w_edge[perm.long()] * m.weights),
+             "k6": segmm_weighted_den_raw_plain}[form]
+    before = (fn.launches_a, fn.launches)
+    with torch.inference_mode():
+        got, again, ref = fn(*args), fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert (fn.launches_a, fn.launches) == (before[0] + 2, before[1])
+    if form == "k6":
+        (got, den), (again, den2), (ref, den_ref) = got, again, ref
+        assert den.dtype == torch.float32 and torch.equal(den, den2)
+        torch.testing.assert_close(den, den_ref, rtol=1e-5, atol=1e-6)
+    _close_bf16(got, ref)
+    assert torch.equal(got, again)
+    assert not got[3 * 128:4 * 128].any()          # the empty block
+
+
+@pytest.mark.parametrize("shape,aligned", [((1000, 512), True),
+                                           ((37, 101), True),
+                                           ((64, 128), False)])
+@pytest.mark.parametrize("rate", [0.5, 0.3])
+def test_bf16a_k11_kernel_matches_plain_bit_exact(cuda, shape, aligned,
+                                                  rate):
+    """K11a equals its plain version exactly, and drops the elements that
+    the f32 form drops on the same seed."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x32 = torch.randn(shape, generator=gen, device=cuda) + 10.0
+    x = x32.to(BF16)
+    x = x if aligned else _unaligned_narrow(x)
+    seed = dropout_mod.seed_from_generator(gen, cuda)
+    before = (philox_dropout.launches_a, philox_dropout.launches)
+    with torch.inference_mode():
+        got = philox_dropout(x, seed, rate)
+        ref = philox_dropout_plain(x, seed, rate)
+        wide = philox_dropout(x32, seed, rate)
+    torch.cuda.synchronize()
+    assert (philox_dropout.launches_a,
+            philox_dropout.launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == BF16 and torch.equal(got, ref)
+    assert torch.equal(got == 0, wide == 0)
+
+
+def _widened_cases(cuda, rng):
+    """(name, wrapper's counter attribute holder, call on bf16 operands,
+    the same call on f32 operands) for each form with a widened route."""
+    n = 1024
+    s, r, w = _coo(rng, n, 20_000)
+    b = {k: build_bsr(s, r, w, n, **kw).to(cuda) for k, kw in (
+        ("K2", {}), ("K9", dict(group=2)), ("K10", dict(rowwalk=True)),
+        ("K1@256", dict(block=256)))}
+    blocks = torch.from_numpy((rng.random((8, 128, 128)) < 0.05).astype(
+        np.float32) * rng.random((8, 128, 128)).astype(np.float32)).to(cuda)
+    rows = np.sort(np.concatenate([np.arange(8), rng.integers(0, 8, 8)]))
+    cols = rng.integers(0, 8, len(rows))
+    plan = build_dyn_plan(rows, cols, 8).to(cuda)
+    rt = torch.from_numpy(rows.astype(np.int32)).to(cuda)
+    ct = torch.from_numpy(cols.astype(np.int32)).to(cuda)
+    vals = blocks[torch.from_numpy(rng.integers(0, 8, len(rows))).to(cuda)]
+    x, g, init = (_randn_bf16(rng, (n, 64), cuda) for _ in range(3))
+    return [
+        ("K2", bsr_spmm_fwd, lambda a: bsr_spmm_fwd(b["K2"], a), (x,)),
+        ("K9", bsr_spmm_grouped, lambda a: bsr_spmm_grouped(b["K9"], a),
+         (x,)),
+        ("K10", bsr_spmm_rowwalk, lambda a: bsr_spmm_rowwalk(b["K10"], a),
+         (x,)),
+        ("K1@256", bsr_spmm_acc,
+         lambda a, c: bsr_spmm_acc(b["K1@256"], a, c), (x, init)),
+        ("K8", diag_spmm, lambda a, c: diag_spmm(blocks, a, 2, True, c),
+         (x, init)),
+        ("K4", dyn_tiles, lambda v, a: dyn_tiles(rt, ct, plan, v, a),
+         (vals.to(BF16), x)),
+        ("K4T", dyn_tiles_t, lambda v, a: dyn_tiles_t(plan, v, a),
+         (vals.to(BF16), g)),
+        ("K5", dyn_grad_blocks, lambda a, c: dyn_grad_blocks(rt, ct, a, c),
+         (g, x)),
+    ]
+
+
+def test_bf16a_widened_forms_launch_their_f32_form(cuda):
+    """Each form without a bf16-activation form: the bf16 call is its f32
+    kernel on the widened operands, rounded once (bit for bit), and counts
+    one launch of the f32-activation form."""
+    rng = np.random.default_rng(21)
+    for name, fn, call, acts in _widened_cases(cuda, rng):
+        before = fn.launches
+        with torch.inference_mode():
+            got = call(*acts)
+            ref = call(*(a.float() for a in acts))
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2, name
+        assert torch.equal(got, ref.to(got.dtype)), name
+        assert got.dtype == (torch.float32 if name == "K5" else BF16), name
+
+
+def test_bf16a_other_activation_types_raise(cuda):
+    """On the card the kernels take f32 and bf16 activations only."""
+    rng = np.random.default_rng(22)
+    s, r, w = _coo(rng, 512, 4000)
+    b = build_bsr(s, r, w, 512).to(cuda)
+    m = build_segmm(s, r, w, 512).to(cuda)
+    x = torch.zeros((512, 16), device=cuda, dtype=torch.float16)
+    seed = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for call in (lambda: bsr_spmm_acc(b, x, x), lambda: bsr_spmm_fwd(b, x),
+                 lambda: segmm_spmm(m, x),
+                 lambda: philox_dropout(x, seed, 0.5),
+                 lambda: diag_spmm(b.blocks[:4], x, 2)):
+        with pytest.raises(ValueError, match="ROADMAP.md §3"):
+            call()
+
+
+def test_bf16a_dense_sums_in_f32(cuda, monkeypatch):
+    """The dense layers' bf16 products: the same bits whatever
+    ``allow_bf16_reduced_precision_reduction`` says (f32 sums), one rounding
+    from the float64 product, forward and both gradients."""
+    from fitgnn_tpu_torch.models.layers import dense
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((4096, 512), generator=gen, device=cuda).to(BF16)
+    w = torch.randn((512, 512), generator=gen, device=cuda) / 20.0
+    gy = torch.randn((4096, 512), generator=gen, device=cuda).to(BF16)
+    runs = []
+    for flag in (True, False):
+        monkeypatch.setattr(
+            torch.backends.cuda.matmul,
+            "allow_bf16_reduced_precision_reduction", flag)
+        xx = x.clone().requires_grad_()
+        ww = w.clone().requires_grad_()
+        y = dense(xx, ww, BF16)
+        y.backward(gy)
+        runs.append((y, xx.grad, ww.grad))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    y, dx, dw = runs[0]
+    assert y.dtype == dx.dtype == BF16 and dw.dtype == torch.float32
+    exact = x.double() @ w.to(BF16).double().t()
+    torch.testing.assert_close(y.double(), exact, rtol=2 ** -8,
+                               atol=1e-4 * float(exact.abs().max()))
+    exact_dw = gy.double().t() @ x.double()
+    torch.testing.assert_close(dw.double(), exact_dw, rtol=2 ** -8,
+                               atol=1e-4 * float(exact_dw.abs().max()))
+
+
+@pytest.mark.parametrize("layer,env", [
+    ("GCNConv", {}), ("SAGEConv", {}), ("GINConv", {}), ("GATConv", {}),
+    ("GATConv", {"FITGNN_GAT_FUSED_TILES": "1",
+                 "FITGNN_GAT_SEGMM_DEN": "1"})])
+@pytest.mark.parametrize("tiles", ["f32", "bf16"])
+def test_bf16a_training_on_card_matches_cpu(cuda, monkeypatch, layer, env,
+                                            tiles):
+    """One step of ``NodeModel(dtype=bf16)`` at hidden 64: the kernels on the
+    card against the plain versions on the CPU (loss within 1e-2 relative,
+    each gradient within 5e-2·max|ref|, as the CPU tests hold the port to
+    the JAX package); the GCN step launches K3a and K1a / K1bfa and no f32
+    form of K1 or K3."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    rng = np.random.default_rng(23)
+    n, feat = 1500, 128
+    s, r = _bench_like(rng, n)
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    y = rng.integers(0, 5, n)
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=rng.random(n) < .5,
+                                 min_block_edges=48, layer_name=layer,
+                                 tile_dtype=BF16 if tiles == "bf16" else None)
+    model = NodeModel(layer, feat, 64, 2, 5, dropout_rate=0.0, dtype=BF16)
+    model.reset_parameters(torch.Generator().manual_seed(0)).train()
+    loss_c, grads_c = _grads(model, g, g.y, g.train_mask)
+    gd = g.to(cuda)
+    counts = (bsr_spmm_acc.launches, bsr_spmm_acc.launches_bf16,
+              bsr_spmm_acc.launches_a, bsr_spmm_acc.launches_bfa,
+              segmm_spmm.launches, segmm_spmm.launches_a)
+    loss_d, grads_d = _grads(model.to(cuda), gd, gd.y, gd.train_mask)
+    torch.cuda.synchronize()
+    if layer == "GCNConv":
+        # both layers aggregate lin(·) in bf16, which needs a gradient: two
+        # forward, two backward
+        k1 = 4
+        want = (0, 0, 0 if tiles == "bf16" else k1,
+                k1 if tiles == "bf16" else 0, 0, k1)
+        got = tuple(c - b for c, b in zip(
+            (bsr_spmm_acc.launches, bsr_spmm_acc.launches_bf16,
+             bsr_spmm_acc.launches_a, bsr_spmm_acc.launches_bfa,
+             segmm_spmm.launches, segmm_spmm.launches_a), counts))
+        assert got == want, got
+    np.testing.assert_allclose(float(loss_d), float(loss_c), rtol=1e-2)
+    for k, v in grads_c.items():
+        assert grads_d[k].dtype == torch.float32
+        torch.testing.assert_close(grads_d[k], v, rtol=0,
+                                   atol=5e-2 * float(v.abs().max()))

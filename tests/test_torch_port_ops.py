@@ -12,20 +12,25 @@ import torch
 
 import jax.numpy as jnp
 
+from fitgnn_tpu.data.datasets import TASK_OF as JAX_TASK_OF
 from fitgnn_tpu.graph.build import build_graph as jax_build_graph
+from fitgnn_tpu.graph.build import pad_graph as jax_pad_graph
 from fitgnn_tpu.ops.hybrid_spmm import build_hybrid as jax_build_hybrid
 from fitgnn_tpu.ops.hybrid_spmm import hybrid_spmm as jax_hybrid_spmm
 from fitgnn_tpu.ops.pallas.bsr_spmm import build_bsr as jax_build_bsr
 from fitgnn_tpu.ops.pallas.bsr_spmm import bsr_spmm_acc_raw
 from fitgnn_tpu.ops.pallas.coo_segmm import build_segmm as jax_build_segmm
 from fitgnn_tpu.ops.pallas.coo_segmm import segmm_spmm as jax_segmm_spmm
+from fitgnn_tpu.ops.sddmm import sddmm_dot as jax_sddmm_dot
 from fitgnn_tpu.ops.spmm import spmm_coo as jax_spmm_coo
 from fitgnn_tpu.partition import community as jax_community
 
-from fitgnn_tpu_torch.graph.build import build_graph
+from fitgnn_tpu_torch.data.datasets import TASK_OF
+from fitgnn_tpu_torch.graph.build import build_graph, pad_graph
 from fitgnn_tpu_torch.ops.bsr_spmm import build_bsr, bsr_spmm_acc
 from fitgnn_tpu_torch.ops.coo_segmm import build_segmm, segmm_spmm
 from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid, hybrid_spmm
+from fitgnn_tpu_torch.ops.sddmm import sddmm_dot
 from fitgnn_tpu_torch.ops.segment import segment_sum, take_rows
 from fitgnn_tpu_torch.ops.spmm import spmm_coo
 from fitgnn_tpu_torch.partition import community
@@ -73,6 +78,70 @@ def test_build_graph_matches_jax():
     assert gt.val_mask is None and gt.aux is None
     assert gt.senders.dtype == torch.int32
     assert (np.diff(gt.receivers.numpy()) >= 0).all()
+
+
+def test_pad_graph_matches_jax():
+    """A built graph re-padded to larger shapes: every field as the JAX
+    package's ``pad_graph`` gives it (the old padding edges moved onto the
+    new last node); shrinking raises."""
+    rng = np.random.default_rng(3)
+    n = 300
+    s, r = rng.integers(0, n, 1500), rng.integers(0, n, 1500)
+    x = rng.standard_normal((n, 8)).astype(np.float32)
+    kw = dict(y=rng.integers(0, 4, n), train_mask=rng.random(n) < 0.3,
+              val_mask=rng.random(n) < 0.3, node_pad_to=128)
+    gt = build_graph(x, s, r, **kw)
+    gj = jax_build_graph(x, s, r, **kw)
+    e_pad = gt.senders.shape[0] + 200
+    pt, pj = pad_graph(gt, 640, e_pad), jax_pad_graph(gj, 640, e_pad)
+    for name in ("x", "senders", "receivers", "edge_weight", "n_node",
+                 "n_edge", "y", "train_mask", "val_mask"):
+        got, ref = getattr(pt, name), np.asarray(getattr(pj, name))
+        assert got.dtype == getattr(gt, name).dtype, name
+        np.testing.assert_array_equal(got.numpy(), ref, err_msg=name)
+    assert pt.test_mask is None and pt.num_nodes_padded == 640
+    with pytest.raises(ValueError, match="only grows"):
+        pad_graph(gt, 128, e_pad)
+
+
+@pytest.mark.parametrize("heads", [None, 3])
+def test_sddmm_dot_matches_jax(heads):
+    """``score[e] = ⟨a[send[e]], b[recv[e]]⟩``, (E,) or (E, H)."""
+    rng = np.random.default_rng(4)
+    shape = (50, 16) if heads is None else (50, heads, 16)
+    a = rng.standard_normal(shape).astype(np.float32)
+    b = rng.standard_normal(shape).astype(np.float32)
+    s, r = rng.integers(0, 50, 400), rng.integers(0, 50, 400)
+    got = sddmm_dot(torch.from_numpy(s), torch.from_numpy(r),
+                    torch.from_numpy(a), torch.from_numpy(b))
+    ref = np.asarray(jax_sddmm_dot(jnp.asarray(s), jnp.asarray(r),
+                                   jnp.asarray(a), jnp.asarray(b)))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("weighted,resolution", [(False, 1.0), (True, 1.0),
+                                                 (True, 0.5)])
+def test_partition_modularity_matches_jax(weighted, resolution):
+    """The Leiden library's ``modularity`` of a Leiden partition and of a
+    random one, read as the JAX package reads it."""
+    rng = np.random.default_rng(5)
+    n = 700
+    s, r = community_edges(rng, n)
+    w = rng.random(len(s)) if weighted else None
+    labels = community.leiden_communities(s, r, n, weight=w, seed=0)
+    for lab in (labels, rng.integers(0, 9, n)):
+        got = community.partition_modularity(s, r, n, lab, weight=w,
+                                             resolution=resolution)
+        assert isinstance(got, float)
+        assert got == jax_community.partition_modularity(
+            s, r, n, lab, weight=w, resolution=resolution)
+    assert community.partition_modularity(s, r, n, labels, weight=w) > 0.5
+
+
+def test_task_of_matches_jax():
+    assert TASK_OF == JAX_TASK_OF
+    assert TASK_OF["cora"] == "node_cls" and TASK_OF["QM9"] == "graph_reg"
 
 
 def test_leiden_and_hierarchical_order_match_jax():
