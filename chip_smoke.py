@@ -406,9 +406,9 @@ Phases (any failure exits non-zero before the result lines):
    each against its plain version (``compare_bf16``: rtol 2⁻⁶, two bf16
    steps; K6a's den and K11a exactly, K11a with the f32 form's mask) and
    twice bit-equal, timed beside its f32-activation form with its bound
-   and library call; each widened form once (K2, K9, K10, K8, K4, K4ᵀ, K5,
-   K7f, K7bt's ``dx``, K7s, K1 at 256: its f32 form launched, on the
-   widened operands bit for bit, against its plain version); then three
+   and library call; each widened form once (K2, K9, K10, K8, K7f, K7bt's
+   ``dx``, K7s, K1 at 256: its f32 form launched, on the widened operands
+   bit for bit, against its plain version); then three
    steps through the library, every counter at 0 just before each
    counted step and eval forward: ``bench.py``'s bf16 GCN (pre-aggregated
    layer 0, bf16 tiles, bit dropout: K3a 3, K1bfa 3 and no f32 K1 or
@@ -418,12 +418,30 @@ Phases (any failure exits non-zero before the result lines):
    against the plain versions
    (loss 1e-2 relative, gradients 5e-2·max|ref|, eval forward
    2e-2·max(1, max|ref|)) and timed beside its f32 twin;
-27. one JSON line with every kernel's numbers, the bf16 forms, the
+27. GAT's two-stage tile path on bf16 activations (after phase 18):
+   ``bench.py``'s GAT operator (``build_hybrid(..., semantics="att_unit",
+   tile_dtype=torch.bfloat16, min_block_edges=32, use_segmm=True,
+   block=128)``) and phase 15's threshold-48 operator with bf16 tiles at
+   edge 256: K4a (``dyn_tiles``), K4ᵀa (``dyn_tiles_t``) and K5a
+   (``dyn_grad_blocks``) on bf16 ``pe`` values and bf16 activations at
+   F=128 and 512, each against its plain version (``compare_bf16``),
+   twice bit-equal, at 256 bit for bit the walks without words and the
+   full grid on the live quadrants (+0 elsewhere), timed beside the f32
+   form on the same values and the widened route it replaces, with its
+   bound (bf16 bytes; K5a's bf16 tensor-core rate) and library call; then
+   ``NodeModel("GATConv", 128, 512, 2, 40, dtype=torch.bfloat16,
+   dropout_rate=0.5, bit_dropout=True)``'s eval forward and
+   ``gc_train_step`` on each operator, every counter at 0 just before:
+   K4a 4, K4ᵀa 1, K5a 2 (``@256`` at 256), no f32 K4, K4ᵀ or K5, no
+   ``kernels.widened`` call, the widths 128 and 512 in bf16, held against
+   the plain versions as phase 26's steps and timed beside the f32 twin;
+28. one JSON line with every kernel's numbers, the bf16 forms, the
    bf16-activation forms (``K1a``, ``K1bfa``, ``K3a``, ``K3wa``, ``K6a``,
-   ``K11a``) and the forms at edge 256 (``K1@256``, ``K1bf@256``,
-   ``K4@256``, ``K7f@256``, ...) as their own entries (launches summed over
-   the main-path phases 5 to 26, per phase beside them; K3, K3w, K6, K5,
-   K7f, K7bt, K7s and K7sums, their bf16-activation forms, and K1, K2,
+   ``K11a``, ``K4a``, ``K4Ta``, ``K5a`` and their @256 forms) and the
+   forms at edge 256 (``K1@256``, ``K1bf@256``, ``K4@256``, ``K7f@256``,
+   ...) as their own entries (launches summed over the main-path phases 5
+   to 27, per phase beside them; K3, K3w, K6, K5, K7f, K7bt, K7s and
+   K7sums, their bf16-activation forms, K4a, K4ᵀa and K5a, and K1, K2,
    K9, K4, K4ᵀ (their walks of the live quadrants), K5, K7f, K7bt, K7s
    and K7sums at 256, with their ``ptxas`` register and spill counts),
    then the ``ok`` line.
@@ -431,7 +449,7 @@ Phases (any failure exits non-zero before the result lines):
 The JAX package's environment switches are set in ``os.environ`` for one
 phase and restored after it; the earlier phases must launch none of K6
 and K7, the CLI phases none of the opt-in kernels, no phase before 11
-a bf16 form, and no phase but 26 a bf16-activation form.
+a bf16 form, and no phase but 26 and 27 a bf16-activation form.
 """
 
 from __future__ import annotations
@@ -455,6 +473,7 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12        # f32 outside the tensor cores
 PEAK_TF32_FLOP_PER_S = 495e12      # TF32 on the tensor cores
+PEAK_BF16_FLOP_PER_S = 989e12      # bf16 on the tensor cores
 
 # bench.py's graph
 NUM_NODES = 169_344
@@ -826,13 +845,17 @@ def counters() -> dict:
            "K2": bsr_spmm_fwd, "K8": diag_spmm, "K9": bsr_spmm_grouped,
            "K10": bsr_spmm_rowwalk, "K11": philox_dropout}
     # the bf16-activation forms (phase 26): K1a on f32 tiles, K1bfa on
-    # bf16 tiles, K3a / K3wa / K6a the straggler sum's, K11a the dropout's
+    # bf16 tiles, K3a / K3wa / K6a the straggler sum's, K11a the dropout's;
+    # (phase 27) K4a, K4Ta and K5a the dynamic tiles'
     act = {"K1a": (bsr_spmm_acc, "launches_a"),
            "K1bfa": (bsr_spmm_acc, "launches_bfa"),
            "K3a": (segmm_spmm, "launches_a"),
            "K3wa": (segmm_weighted_raw, "launches_a"),
            "K6a": (segmm_weighted_den_raw, "launches_a"),
-           "K11a": (philox_dropout, "launches_a")}
+           "K11a": (philox_dropout, "launches_a"),
+           "K4a": (dyn_tiles, "launches_a"),
+           "K4Ta": (dyn_tiles_t, "launches_a"),
+           "K5a": (dyn_grad_blocks, "launches_a")}
     return {**{k: (fn, "launches") for k, fn in f32.items()},
             **{BF[k]: (f32[k], "launches_bf16") for k in BF}, **act}
 
@@ -3733,10 +3756,11 @@ def phase_bf16_act_widened(device, g, ops, gen) -> None:
     the bench graph at F=512: the launch counted as its f32 form's, its
     output the f32 form on the widened operands rounded once (bit for bit)
     and the plain version's within ``compare_bf16``: K2 (forward-only),
-    K9, K10, K8 (transposed, from init), K4, K4ᵀ and K5 (GAT's bf16 ``pe``
-    values on its plan), K7f, K7bt's ``dx`` and K7s on its mask, and K1 at
-    edge 256 (a synthetic community graph: the quadrant walk with words)."""
-    from fitgnn_tpu_torch.ops import att_bsr, bsr_dynamic
+    K9, K10, K8 (transposed, from init), K7f, K7bt's ``dx`` and K7s on
+    GAT's mask, and K1 at edge 256 (a synthetic community graph: the
+    quadrant walk with words).  K4, K4ᵀ and K5 have bf16-activation forms
+    of their own (phase 27)."""
+    from fitgnn_tpu_torch.ops import att_bsr
     from fitgnn_tpu_torch.ops.bsr_spmm import (build_bsr, bsr_spmm_acc,
                                                bsr_spmm_acc_plain,
                                                bsr_spmm_fwd,
@@ -3761,9 +3785,6 @@ def phase_bf16_act_widened(device, g, ops, gen) -> None:
     sdst = torch.randn(n, generator=gen, device=device)
     m = att_bsr.att_rowmax(rows, cols, plan, bg.blocks, ssrc, sdst, SLOPE)
     m = torch.where(m > -1e29, m + 1.0, m)
-    pe = torch.where(bg.blocks != 0, torch.rand(bg.blocks.shape,
-                                                generator=gen,
-                                                device=device), 0.0).to(bf16)
     dden = torch.randn(n, generator=gen, device=device)
     rng = np.random.default_rng(26)
     n2 = 16384
@@ -3787,17 +3808,6 @@ def phase_bf16_act_widened(device, g, ops, gen) -> None:
          lambda a, c: diag_spmm(diag, a, hd.diag_r, True, c),
          lambda a, c: diag_spmm_plain(diag, a, hd.diag_r, True, c),
          (x, init)),
-        ("K4", bsr_dynamic.dyn_tiles,
-         lambda v, a: bsr_dynamic.dyn_tiles(rows, cols, plan, v, a),
-         lambda v, a: bsr_dynamic.dyn_tiles_plain(rows, cols, plan, v, a),
-         (pe, x)),
-        ("K4T", bsr_dynamic.dyn_tiles_t,
-         lambda v, a: bsr_dynamic.dyn_tiles_t(plan, v, a),
-         lambda v, a: bsr_dynamic.dyn_tiles_t_plain(plan, v, a), (pe, x)),
-        ("K5", bsr_dynamic.dyn_grad_blocks,
-         lambda a, c: bsr_dynamic.dyn_grad_blocks(rows, cols, a, c),
-         lambda a, c: bsr_dynamic.dyn_grad_blocks_plain(rows, cols, a, c),
-         (init, x)),
         ("K7f", att_bsr.att_fwd,
          lambda a: att_bsr.att_fwd(rows, cols, plan, bg.blocks, ssrc, sdst,
                                    m, a, SLOPE)[0],
@@ -3836,7 +3846,7 @@ def phase_bf16_act_widened(device, g, ops, gen) -> None:
             compare_bf16(f"{name} widened", got, ref)
         else:
             compare(f"{name} widened", got, ref)
-    del x, init, b2, b9, b10, diag, hg, pe, b256, x2, i2
+    del x, init, b2, b9, b10, diag, hg, b256, x2, i2
 
 
 def phase_bf16_act_steps(device, g, ops) -> dict:
@@ -4457,9 +4467,10 @@ EDGE_TIMED_STEPS = 10
 
 # GAT's forms counted at edge 256: the two-stage path's (phase 15) and the
 # fused path's (phase 16), with the bf16 forms of the fused kernels that
-# read the mask (K7sums reads none)
+# read the mask (K7sums reads none), and the two-stage path's on bf16
+# activations (phase 27)
 GAT_EDGE_IDS = ("K4", "K4T", "K5", "K7rm", "K7f", "K7bt", "K7s", "K7sums",
-                "K7rmbf", "K7fbf", "K7btbf", "K7sbf")
+                "K7rmbf", "K7fbf", "K7btbf", "K7sbf", "K4a", "K4Ta", "K5a")
 
 
 def eval_and_step(model, gd, device) -> tuple:
@@ -6781,6 +6792,401 @@ def phase_tooling(device, g) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- phase 27: GAT's dynamic tiles on bf16 activations -----------------
+
+# bench.py's GAT configuration (FITGNN_BENCH_LAYER=GATConv with its
+# defaults): the bf16 conv stack and bf16 tiles (GAT's 0/1 mask), tile
+# threshold 32, use_segmm, bit dropout 0.5, edge 128, the two-stage tile
+# path (no FITGNN_GAT_FUSED_TILES)
+GAT_BENCH_THRESHOLD = 32
+# one bf16 two-stage GAT step and one eval forward at hidden 512: K4a in
+# both layers of each, K4ᵀa in layer 1's backward alone (layer 0's raw
+# features need no gradient), K5a in both layers' backward; no K3wa (read
+# off the first chip run of this phase: at widths 128 and 512 the
+# stragglers take the den-column scatter, K3w's gate being F <= 64)
+BF16_DYN_STEP = {"K4a": 4, "K4Ta": 1, "K5a": 2}
+# the widths those launches see, by wrapper: layer 0 aggregates the raw
+# features (GAT aggregates on the narrow side of an expanding layer),
+# layer 1 the hidden width
+BF16_DYN_WIDTHS = {"dyn_tiles": [NUM_FEATURES, NUM_FEATURES, HIDDEN, HIDDEN],
+                   "dyn_tiles_t": [HIDDEN],
+                   "dyn_grad_blocks": [NUM_FEATURES, HIDDEN]}
+
+
+def dyn_a_kernel_rows(device, hd, gen, tag: str = "") -> dict:
+    """K4a, K4ᵀa (on the transpose plan) and K5a on the bf16 tiles of
+    ``hd``, a bf16 ``att_unit`` operator on the card, at the tiles' edge,
+    with bf16 attention-like values (positive on the mask, zero elsewhere)
+    and bf16 activations at F=128 and 512 (the widths the step gives
+    them; K4ᵀa's at 128 off the path): each against its plain version
+    (``compare_bf16``), two launches bit-equal, with its kernel, plain and
+    library times, the f32 form's time on the same values widened
+    (``f32_ms``) and the widened route's (``widened_ms``: the f32 form on
+    ``.float()`` copies, the output rounded to bf16), and its bound from
+    the bytes it moves (tiles, slabs and outputs at 2 bytes a value) and
+    its operations (K4a, K4ᵀa: f32 FMAs per tile non-zero; K5a: one bf16
+    tensor-core pass over every tile, at 256 over the live quadrants).
+    Where the plan has occupancy words (edge 256), K4a and K4ᵀa walk their
+    live quadrants, bit for bit the walks without them, and K5a runs on the
+    live list, bit for bit the full grid on every listed quadrant and +0 on
+    the others.  Returns the rows by ID, ``tag`` ("" or "@256") after
+    each."""
+    from fitgnn_tpu_torch.ops.bsr_dynamic import (
+        dyn_grad_blocks, dyn_grad_blocks_plain, dyn_tiles, dyn_tiles_plain,
+        dyn_tiles_t, dyn_tiles_t_plain)
+
+    bf16 = torch.bfloat16
+    b, plan = hd.bsr, hd.dyn_plan
+    check(b.blocks.dtype == bf16, f"K4a{tag}: the mask is not bf16")
+    n, edge = hd.num_nodes, b.block
+    nb, k_all = n // edge, b.nnz_blocks
+    words = plan.words is not None
+    nowords = dataclasses.replace(plan, words=None, t_words=None)
+    if words:
+        quads, q_slabs, qt_slabs = dyn_live_quadrants(b, plan)
+    mask = b.blocks > 0
+    pe = torch.where(mask, torch.rand(mask.shape, generator=gen,
+                                      device=device), 0.0).to(bf16)
+    pe32 = pe.float()
+    nnz = int(mask.sum())
+    nz = mask.nonzero()
+    a_rows = b.rows.long()[nz[:, 0]] * edge + nz[:, 1]
+    a_cols = b.cols.long()[nz[:, 0]] * edge + nz[:, 2]
+    a_vals = pe[nz[:, 0], nz[:, 1], nz[:, 2]]
+    del mask, nz
+    try:
+        a_csr = torch.sparse_coo_tensor(torch.stack([a_rows, a_cols]),
+                                        a_vals, (n, n)).coalesce(
+                                        ).to_sparse_csr()
+        a_t_csr = torch.sparse_coo_tensor(torch.stack([a_cols, a_rows]),
+                                          a_vals, (n, n)).coalesce(
+                                          ).to_sparse_csr()
+    except (RuntimeError, NotImplementedError) as exc:
+        a_csr = a_t_csr = None
+        print(f"  bf16 CSR refused: {str(exc).splitlines()[0]}")
+    del a_rows, a_cols, a_vals
+    uniq_cols = int(torch.unique(b.cols).numel())
+    uniq_rows = int(torch.unique(b.rows).numel())
+    tile_bytes = k_all * edge * edge * 2
+    idx_bytes = (2 * k_all + nb + 1) * 4
+    kt = plan.t_sel.numel()
+    out = {f"{k}{tag}": [] for k in ("K4a", "K4Ta", "K5a")}
+    live = plan.live
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            for feat in (NUM_FEATURES, HIDDEN):
+                x = torch.randn((n, feat), generator=gen,
+                                device=device).to(bf16)
+                gr = torch.randn((n, feat), generator=gen,
+                                 device=device).to(bf16)
+                x32, g32 = x.float(), gr.float()
+                print(f"bf16 activations F={feat}"
+                      f"{' at edge ' + str(edge) if tag else ''}:")
+                runs = {
+                    "K4a": (lambda: dyn_tiles(b.rows, b.cols, plan, pe, x),
+                            lambda: dyn_tiles_plain(b.rows, b.cols, plan,
+                                                    pe, x),
+                            lambda: dyn_tiles(b.rows, b.cols, plan, pe32,
+                                              x32),
+                            lambda: dyn_tiles(b.rows, b.cols, plan,
+                                              pe.float(), x.float()).to(bf16),
+                            lambda: dyn_tiles(b.rows, b.cols, nowords, pe,
+                                              x),
+                            None if a_csr is None
+                            else lambda: torch.sparse.mm(a_csr, x)),
+                    "K4Ta": (lambda: dyn_tiles_t(plan, pe, gr),
+                             lambda: dyn_tiles_t_plain(plan, pe, gr),
+                             lambda: dyn_tiles_t(plan, pe32, g32),
+                             lambda: dyn_tiles_t(plan, pe.float(),
+                                                 gr.float()).to(bf16),
+                             lambda: dyn_tiles_t(nowords, pe, gr),
+                             None if a_t_csr is None
+                             else lambda: torch.sparse.mm(a_t_csr, gr)),
+                    "K5a": (lambda: dyn_grad_blocks(b.rows, b.cols, gr, x,
+                                                    edge, live),
+                            lambda: dyn_grad_blocks_plain(b.rows, b.cols, gr,
+                                                          x, edge, live),
+                            lambda: dyn_grad_blocks(b.rows, b.cols, g32, x32,
+                                                    edge, live),
+                            lambda: dyn_grad_blocks(
+                                b.rows, b.cols, gr.float(), x.float(), edge,
+                                live).to(bf16),
+                            lambda: dyn_grad_blocks(b.rows, b.cols, gr, x,
+                                                    edge),
+                            None)}
+                # K5a's library yardstick: one bmm of pre-gathered bf16
+                # slabs (the gather excluded), every tile
+                gs = gr.reshape(nb, edge, feat).index_select(0,
+                                                             b.rows.long())
+                xs = x.reshape(nb, edge, feat).index_select(0, b.cols.long())
+                for k, (call, plain, f32, wide, without, lib) in runs.items():
+                    name = f"{k}{tag}"
+                    got, again, ref = call(), call(), plain()
+                    torch.cuda.synchronize()
+                    err = compare_bf16(f"{name} F={feat}", got, ref)
+                    check(torch.equal(got, again),
+                          f"{name} F={feat}: two launches differ")
+                    if words:
+                        other = without()
+                        if k == "K5a":
+                            nq = edge // 128
+                            keep = torch.zeros(k_all * nq * nq,
+                                               dtype=torch.bool,
+                                               device=device)
+                            keep[live.long()] = True
+
+                            def quads_of(t):
+                                return t.reshape(k_all, nq, 128, nq,
+                                                 128).transpose(2, 3).reshape(
+                                                     -1, 128, 128)
+
+                            q5, qf = quads_of(got), quads_of(other)
+                            dead = q5[~keep]
+                            check(torch.equal(q5[keep], qf[keep])
+                                  and bool((dead == 0).all())
+                                  and not bool(dead.signbit().any()),
+                                  f"{name} F={feat}: not the full grid on "
+                                  "the live quadrants and +0 elsewhere")
+                            del q5, qf, dead, keep
+                        else:
+                            check(torch.equal(got, other),
+                                  f"{name} F={feat}: the walk with words is "
+                                  "not the walk without them bit for bit")
+                        del other
+                    if k == "K5a":
+                        # one bf16 pass against 3xTF32 on the same values:
+                        # the same products, f32 sums in another order
+                        d = (got.float() - wide().float()).abs()
+                        print(f"  {name} F={feat}: |K5a - K5 on the widened "
+                              f"values, rounded| max {float(d.max()):.3e}, "
+                              f"{int((d != 0).sum())} of {d.numel()} "
+                              "entries differ")
+                        del d
+                    del got, again, ref
+                    # (bytes, operations, the rate of those operations):
+                    # over the live quadrants with the words, and over
+                    # every tile (``bound_tiles_ms``) beside it
+                    out_bytes = n * feat * 2
+                    if k == "K4a":
+                        tiles_w = (tile_bytes + idx_bytes
+                                   + uniq_cols * edge * feat * 2 + out_bytes,
+                                   2.0 * nnz * feat, PEAK_F32_FLOP_PER_S)
+                        live_w = ((quads * 128 * 128 * 2
+                                   + (k_all + nb + 1) * 4 + k_all * 8
+                                   + q_slabs * 128 * feat * 2 + out_bytes,
+                                   2.0 * nnz * feat, PEAK_F32_FLOP_PER_S)
+                                  if words else tiles_w)
+                    elif k == "K4Ta":
+                        tiles_w = (tile_bytes + (3 * kt + nb + 1) * 4
+                                   + uniq_rows * edge * feat * 2 + out_bytes,
+                                   2.0 * nnz * feat, PEAK_F32_FLOP_PER_S)
+                        live_w = ((quads * 128 * 128 * 2
+                                   + (2 * kt + nb + 1) * 4 + kt * 8
+                                   + qt_slabs * 128 * feat * 2 + out_bytes,
+                                   2.0 * nnz * feat, PEAK_F32_FLOP_PER_S)
+                                  if words else tiles_w)
+                    else:
+                        # the dense output once (zeros included), the
+                        # indices, the distinct g and x slabs; one bf16
+                        # pass (with the list: over the live quadrants and
+                        # the slabs they reach)
+                        tiles_w = (tile_bytes + idx_bytes
+                                   + (uniq_rows + uniq_cols) * edge * feat
+                                   * 2, 2.0 * k_all * edge * edge * feat,
+                                   PEAK_BF16_FLOP_PER_S)
+                        live_w = ((tile_bytes + idx_bytes + quads * 4
+                                   + (qt_slabs + q_slabs) * 128 * feat * 2,
+                                   2.0 * quads * 128 * 128 * feat,
+                                   PEAK_BF16_FLOP_PER_S)
+                                  if words else tiles_w)
+                    by, tiles_b = bound(*live_w), bound(*tiles_w)
+                    sh = dict(
+                        F=feat, shape=f"F={feat}",
+                        on_path=not (k == "K4Ta" and feat != HIDDEN),
+                        **err, bound_ms=by[0], bound_by=by[1],
+                        bound_tiles_ms=tiles_b[0],
+                        ms=cuda_ms(call, 20), f32_ms=cuda_ms(f32, 20),
+                        widened_ms=cuda_ms(wide, 20),
+                        plain_ms=cuda_ms(plain, 3),
+                        library_ms=(cuda_ms(lambda: torch.bmm(
+                            gs, xs.transpose(1, 2)), 10) if k == "K5a"
+                            else None if lib is None
+                            else _library_bf16(lib)),
+                        library_label=(
+                            "torch.bmm on pre-gathered bf16 slabs (the "
+                            "gather excluded), every tile" if k == "K5a"
+                            else "torch.sparse.mm on a bf16 CSR of the "
+                            "tile non-zeros" + (" (transposed)"
+                                                if k == "K4Ta" else "")))
+                    if words:
+                        sh["live_quadrants"] = quads
+                        sh["nowords_ms"] = cuda_ms(without, 10)
+                    out[name].append(sh)
+                    lib_ms = sh["library_ms"]
+                    print(f"  {name} F={feat}: kernel_ms={sh['ms']:.4f} "
+                          f"(f32 form {sh['f32_ms']:.4f}, widened route "
+                          f"{sh['widened_ms']:.4f}"
+                          + (f", without words {sh['nowords_ms']:.4f}"
+                             if words else "")
+                          + f") plain_ms={sh['plain_ms']:.4f} library_ms="
+                          + ("null" if lib_ms is None else f"{lib_ms:.4f}")
+                          + f" bound_ms={sh['bound_ms']:.4f} "
+                          f"({sh['bound_by']}) bound_tiles_ms="
+                          f"{sh['bound_tiles_ms']:.4f}")
+                del x, gr, x32, g32, gs, xs, runs
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def gat_bench_operator(g):
+    """bench.py's GAT operator on phase 3's node order: ``build_hybrid(...,
+    semantics="att_unit", tile_dtype=torch.bfloat16, min_block_edges=32,
+    use_segmm=True, block=128)`` on the presence weights, as
+    ``build_optimized_graph(layer_name="GATConv")`` builds it; its split
+    printed."""
+    from fitgnn_tpu_torch.graph.optimize import _operator_weights
+    from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
+
+    t0 = time.perf_counter()
+    s, r = g.senders.numpy(), g.receivers.numpy()
+    w, n = g.edge_weight.numpy(), g.num_nodes_padded
+    h = build_hybrid(s, r, _operator_weights(s, r, w, n, "att_unit"), n,
+                     semantics="att_unit", tile_dtype=torch.bfloat16,
+                     min_block_edges=GAT_BENCH_THRESHOLD, use_segmm=True,
+                     block=128, real_nodes=NUM_NODES)
+    b = h.bsr
+    check(b is not None and b.blocks.dtype == torch.bfloat16
+          and h.dyn_plan is not None and h.segmm is not None,
+          "bench GAT operator: no bf16 tiles with a plan and stragglers")
+    live = (b.blocks != 0).flatten(1).any(1)
+    print(f"bench GAT operator (threshold {GAT_BENCH_THRESHOLD}, bf16 mask): "
+          f"{int(live.sum())} live tiles (+{b.nnz_blocks - int(live.sum())} "
+          f"fillers), {int((h.weights != 0).sum())} stragglers; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return h
+
+
+def phase_bf16_dyn(device, g, ops15) -> tuple:
+    """Phase 27: GAT's two-stage tile path on bf16 activations, in bench.py's
+    GAT configuration (``gat_bench_operator``, edge 128) and at edge 256 on
+    phase 15's threshold-48 operator with bf16 tiles (``t48bf``): K4a,
+    K4ᵀa and K5a on each operator's tiles (``dyn_a_kernel_rows``), then
+    ``bf16_dyn_steps``.  Returns (the kernel rows, the launch counts by
+    phase)."""
+    t_phase = time.perf_counter()
+    hb = gat_bench_operator(g)
+    gen = torch.Generator(device=device).manual_seed(27)
+    shapes = dyn_a_kernel_rows(device, hb.to(device), gen)
+    shapes.update(dyn_a_kernel_rows(device, ops15["t48bf"].aux.to(device),
+                                    gen, f"@{EDGE}"))
+    torch.cuda.empty_cache()
+    phases = bf16_dyn_steps(device, (
+        ("edge 128 t32bf", g._replace(aux=hb), ""),
+        (f"edge {EDGE} t48bf", ops15["t48bf"], f"@{EDGE}")))
+    print(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
+    return shapes, phases
+
+
+def bf16_dyn_steps(device, runs) -> dict:
+    """Through the library surface, on each (name, graph, tag) of ``runs``:
+    ``NodeModel("GATConv", 128, 512, 2, 40, dtype=torch.bfloat16,
+    dropout_rate=0.5, bit_dropout=True)``, one eval forward and one
+    ``steps.gc_train_step`` with every counter at 0 just before, launching
+    ``BF16_DYN_STEP`` (K4a, K4ᵀa, K5a under their ``@256`` IDs at 256) and
+    no f32 form of K4, K4ᵀ or K5, calling ``kernels.widened`` never, and
+    handing K4a, K4ᵀa and K5a bf16 operands at ``BF16_DYN_WIDTHS``; held
+    against the same run with the plain versions (the loss within 1e-2
+    relative, each gradient f32 and within 5e-2·max|ref|, the eval forward
+    within 2e-2·max(1, max|ref|)), its eval forward printed beside the f32
+    twin's (the same model without ``dtype`` on the same operator); then
+    the step and eval forward timed (CUDA events over
+    ``EDGE_TIMED_STEPS``) for both, in one call."""
+    from fitgnn_tpu_torch.models.models import NodeModel
+    from fitgnn_tpu_torch.ops import bsr_dynamic, kernels
+    from fitgnn_tpu_torch.train import steps
+
+    bf16 = torch.bfloat16
+    phases, times = {}, {}
+    for what, gr, tag in runs:
+        gd = gr.to(device)
+
+        def make(dtype):
+            mdl = NodeModel("GATConv", NUM_FEATURES, HIDDEN, 2, NUM_CLASSES,
+                            dtype=dtype, dropout_rate=0.5, bit_dropout=True)
+            return mdl.reset_parameters(
+                torch.Generator().manual_seed(0)).to(device)
+
+        name = f"bf16a gat two-stage {what} step and eval"
+        widened, widths = [], []
+        wide, count = kernels.widened, bsr_dynamic._count
+
+        def counted_widened(*a, **kw):
+            widened.append(1)
+            return wide(*a, **kw)
+
+        def counted(fn, x):
+            widths.append((fn.__name__, x.dtype, x.shape[1]))
+            count(fn, x)
+
+        reset_counts()
+        with mock.patch.object(kernels, "widened", counted_widened), \
+                mock.patch.object(bsr_dynamic, "_count", counted):
+            fwd, loss, grads = eval_and_step(make(bf16), gd, device)
+        launches = read_counts()
+        launches = at_edge(launches) if tag else launches
+        expect(launches, {f"{k}{tag}": v for k, v in BF16_DYN_STEP.items()},
+               name)
+        phases[name] = launches
+        check(not widened, f"{name}: kernels.widened called "
+              f"{len(widened)} times")
+        seen = {k: sorted(f for fn, _, f in widths if fn == k)
+                for k in BF16_DYN_WIDTHS}
+        check(seen == BF16_DYN_WIDTHS
+              and all(d == bf16 for _, d, _ in widths),
+              f"{name}: widths {seen} ({set(d for _, d, _ in widths)}), "
+              f"expected {BF16_DYN_WIDTHS} in bf16")
+        with plain_versions():
+            fwd_p, loss_p, grads_p = eval_and_step(make(bf16), gd, device)
+        check(abs(float(loss) - float(loss_p)) <= 1e-2 * abs(float(loss_p)),
+              f"{name}: loss {float(loss)} against the plain versions' "
+              f"{float(loss_p)}")
+        for k, v in grads_p.items():
+            err = float((grads[k] - v).abs().max())
+            check(grads[k].dtype == torch.float32
+                  and err <= 5e-2 * float(v.abs().max()),
+                  f"{name}: grad {k} off the plain versions' by {err:.3e}")
+        scale = max(1.0, float(fwd_p.abs().max()))
+        err = float((fwd - fwd_p).abs().max())
+        check(err <= 2e-2 * scale, f"{name}: eval forward off the plain "
+              f"versions' by {err:.3e}")
+        fwd32 = eval_and_step(make(None), gd, device)[0]
+        print(f"{name}: loss {float(loss):.5f} (plain {float(loss_p):.5f});"
+              f" eval log-probs max |bf16 - f32 twin| "
+              f"{float((fwd - fwd32).abs().max()):.4f} of "
+              f"{float(fwd32.abs().max()):.4f}")
+        for label, dtype in (("bf16", bf16), ("f32", None)):
+            model = make(dtype)
+            opt = steps.adam_l2(model.parameters(), 0.01, 5e-4)
+            gen = torch.Generator(device=device).manual_seed(0)
+            step = cuda_ms(lambda: steps.gc_train_step(
+                model, opt, gd, gd.y, gd.train_mask, gen, "classification"),
+                EDGE_TIMED_STEPS)
+            model.eval()
+            with torch.inference_mode():
+                ev = cuda_ms(lambda: model(gd.x, gd), EDGE_TIMED_STEPS)
+            times[f"{what} {label}"] = (step, ev)
+        del gd, model, fwd, fwd_p, fwd32, grads, grads_p
+        torch.cuda.empty_cache()
+    print(f"bf16a gat two-stage ms (hidden 512, dropout 0.5, CUDA events "
+          f"over {EDGE_TIMED_STEPS}; step / eval forward): "
+          + ", ".join(f"{k} {s_:.3f} / {e:.3f}" for k, (s_, e)
+                      in times.items()))
+    return phases
+
+
 def summarize(name, route, source, replaces, launches, per_shape) -> dict:
     """One kernel's line: times and bounds summed over the shapes one step
     or forward launches it at (those not marked ``on_path: False``); errors
@@ -6990,6 +7396,31 @@ KERNELS = (
     ("K11a", "K11a philox_dropout on bf16 activations (the f32 form's "
      "mask, the bf16 scale)", "fitgnn_tpu_torch/csrc/dropout.cu",
      "fitgnn_tpu/ops/pallas/dropout.py:29"),
+    # GAT's dynamic tiles on bf16 activations, phase 27
+    ("K4a", "K4a dyn_tiles on bf16 activations (bf16 pe tiles; the slab "
+     "read as bf16, sums f32, rounded once)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_dynamic.py:68"),
+    ("K4Ta", "K4Ta dyn_tiles_t on bf16 activations (the columns walk on "
+     "bf16 pe tiles and a bf16 slab)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_dynamic.py:68"),
+    ("K5a", "K5a dyn_grad_blocks on bf16 activations (one bf16 wgmma pass, "
+     "bf16x1.cuh; dB rounded to bf16 once)",
+     "fitgnn_tpu_torch/csrc/bsr_dynamic.cu",
+     "fitgnn_tpu/ops/pallas/bsr_dynamic.py:122"),
+    ("K4a@256", "K4a@256 dyn_tiles on bf16 activations and 256-wide bf16 "
+     "tiles (the walk of the plan's live quadrants)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_dynamic.py:68"),
+    ("K4Ta@256", "K4Ta@256 dyn_tiles_t on bf16 activations and 256-wide "
+     "bf16 tiles (the transpose words' live quadrants)",
+     "fitgnn_tpu_torch/csrc/tile_sparse.cuh",
+     "fitgnn_tpu/ops/pallas/bsr_dynamic.py:68"),
+    ("K5a@256", "K5a@256 dyn_grad_blocks on bf16 activations (one bf16 "
+     "wgmma CTA a live 128-wide quadrant, the empty ones +0)",
+     "fitgnn_tpu_torch/csrc/bsr_dynamic.cu",
+     "fitgnn_tpu/ops/pallas/bsr_dynamic.py:122"),
 )
 
 
@@ -7018,6 +7449,22 @@ def register_records(regs, kernels_line) -> None:
                   f"{entry['name']}: no ptxas record of its walk")
             print(f"{k} registers: {entry['registers']}")
             continue
+        if base in ("K4a", "K4Ta"):
+            # the dynamic tiles' walks on bf16 tiles and activations (A,
+            # the last template parameter): at 128 the walk (QUAD and
+            # WORDS off), at 256 the walk of the live quadrants
+            form = ("sparse::Plain,__nv_bfloat16,false,"
+                    + ("true,true" if edge else "false,false")
+                    + ",__nv_bfloat16>")
+            entry["registers"] = {
+                kernel: {"registers": n, "spilled_bytes": spill}
+                for t, kernel, n, spill in regs
+                if t == "bsr_dynamic" and kernel.replace(" ", "").endswith(
+                    form) and walk_args(kernel)[0] == (base == "K4Ta")}
+            check(len(entry["registers"]) == 2,
+                  f"{entry['name']}: no ptxas record of its walk")
+            print(f"{k} registers: {entry['registers']}")
+            continue
         if edge and base in ("K1", "K2", "K9", "K1bf", "K2bf", "K9bf", "K4",
                              "K4T"):
             # the walk of the live quadrants (WORDS, then QUAD): K1's from
@@ -7039,7 +7486,8 @@ def register_records(regs, kernels_line) -> None:
             print(f"{k} registers: {entry['registers']}")
             continue
         hook = {"K7f": "FwdScores", "K7bt": "DxScores"}.get(base)
-        name = {"K5": "dyn_grad_blocks_kernel<", "K7s": "att_scores_kernel",
+        name = {"K5": "dyn_grad_blocks_kernel<", "K5a":
+                "dyn_grad_blocks_kernel<", "K7s": "att_scores_kernel",
                 "K7sums": "att_sums_kernel",
                 "K3": "segmm_spmm_kernel<false", "K3w":
                 "segmm_spmm_kernel<false", "K6": "segmm_spmm_kernel<true",
@@ -7049,12 +7497,14 @@ def register_records(regs, kernels_line) -> None:
         if hook is None and name is None:
             continue
         # the straggler sum's last template parameter is its activations'
-        # type; the walk's (after QUAD) is f32 for every hook form
+        # type; the walk's (after QUAD) is f32 for every hook form; K5's
+        # (after QUAD) its operands' type, f32 or bf16 (K5a)
         quad = ("float>" if base in ("K3", "K3w", "K6")
                 else "__nv_bfloat16>" if base in ("K3a", "K3wa", "K6a")
                 else "" if base == "K7sums"
                 else ("true" if edge else "false")
-                + (", float>" if hook is not None else ">"))
+                + (", float>" if hook is not None or base == "K5"
+                   else ", __nv_bfloat16>" if base == "K5a" else ">"))
         entry["registers"] = {
             kernel: {"registers": n, "spilled_bytes": spill}
             for _, kernel, n, spill in regs
@@ -7067,8 +7517,8 @@ def register_records(regs, kernels_line) -> None:
         # K5 run their live grids (LIVE), each beside its form without them;
         # K7sums one kernel at every edge, its QB forms 1, 2 and any
         want = {"K7sums": 3, "K3": 6, "K3w": 6, "K6": 6, "K3a": 6,
-                "K3wa": 6, "K6a": 6, "K5": 2}.get(base, 4)
-        if edge and base in ("K7f", "K7bt", "K7s", "K5"):
+                "K3wa": 6, "K6a": 6, "K5": 2, "K5a": 2}.get(base, 4)
+        if edge and base in ("K7f", "K7bt", "K7s", "K5", "K5a"):
             want *= 2
         check(len(entry["registers"]) == want,
               f"{entry['name']}: no ptxas record of its kernels")
@@ -7168,6 +7618,9 @@ def main() -> int:
         shapes.update(phase_gat_fused_block_kernels(device, ops))
         phases.update(phase_gat_fused_block_steps(device, g, ops))
         phases.update(phase_gat_optins(device, g, ops))
+        dyn_shapes, dyn_phases = phase_bf16_dyn(device, g, ops)
+        shapes.update(dyn_shapes)
+        phases.update(dyn_phases)
         del ops
         torch.cuda.empty_cache()
         phases.update(phase_hier(device, tmp, ds, g, order))

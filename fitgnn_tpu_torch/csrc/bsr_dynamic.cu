@@ -124,51 +124,98 @@
 // and an empty quadrant has no set entry, so no gradient the layer returns
 // sees it (and an inf in g or x that only empty quadrants reach leaves dB
 // finite).  Null live is the full grid, as before.
+//
+// bf16 activations (K4a, K4Ta, K5a; the conv stack's dtype=bfloat16, where
+// GAT's pe, g and x are bf16).  The Pallas kernels' bf16 branches read
+// bf16 tiles and activations and write bf16 (bsr_dynamic.py:82-86 for K4,
+// :131-138 and out_dtype at :205-206 for K5).  fitgnn_bsr_dyn_apply_a is
+// every walk above (edge 128, quadrants, live quadrants; both
+// orientations) on bf16 tiles with bf16 x: the tile is read at 2 bytes an
+// entry, the slab copied and read as bf16, the sums f32 and each rounded
+// to bf16 once as it is stored (tile_sparse.cuh, A = __nv_bfloat16); the
+// Pallas kernel rounds each tile's product into its bf16 block, so the two
+// may differ by a bf16 step where a block row has several tiles.
+// fitgnn_dyn_grad_blocks_a is K5's grid (full, quadrants, live list with
+// its +0 quadrants) with the product of bf16x1.cuh: one wgmma m64n128k16
+// pass on bf16 g and x, exact products and f32 sums (3xTF32 on the same
+// widened values gives the same products, summed in another order: the
+// two differ in the last f32 bits, ROADMAP.md §3), each sum rounded to
+// bf16 once as dB is stored.  Its stages are half K5's (no hi/lo split),
+// and its bound on the bench graph is the bytes at F=128 and the dense
+// bf16 products (one pass at 989 TFLOP/s) at F=512.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
+#include "bf16x1.cuh"
 #include "tf32x3.cuh"
 #include "tile_sparse.cuh"
 
 namespace {
 
 constexpr int BLK = tf32x3::BLK;
-// the product's two stages, 1 KB aligned
-constexpr int GSMEM = tf32x3::SMEM + 1024;
+static_assert(bf16x1::BLK == BLK && bf16x1::THREADS == tf32x3::THREADS,
+              "both products take the same CTA");
+// the product's two stages, 1 KB aligned: E is g, x and dB's type (f32:
+// tf32x3's stages; bf16: bf16x1's)
+template <class E>
+constexpr int grad_smem() {
+  return (std::is_same<E, float>::value ? tf32x3::SMEM : bf16x1::SMEM)
+         + 1024;
+}
+
+// four +0 entries of dB at p (16 bytes of f32, 8 of bf16)
+__device__ __forceinline__ void zero4(float* p) {
+  *reinterpret_cast<float4*>(p) = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ void zero4(__nv_bfloat16* p) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(0u, 0u);
+}
+
+// dB's entries (i, j), (i, j + 1) from two sums: f32 as they are, bf16
+// each rounded once (to nearest even)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 // Writes dB's quadrants lo .. hi - 1 (ids k nq^2 + qi nq + qj: 128 rows of
-// 128 floats at row stride nq 128) as +0, one after another; a warp stores
-// one row's 512 contiguous bytes a step.
-__device__ __forceinline__ void zero_quadrants(float* __restrict__ dB,
+// 128 entries at row stride nq 128) as +0, one after another; a warp stores
+// one row's contiguous bytes (512 f32, 256 bf16) a step.
+template <class E>
+__device__ __forceinline__ void zero_quadrants(E* __restrict__ dB,
                                                int64_t lo, int64_t hi,
                                                int nq, int tid) {
   const int64_t edge = static_cast<int64_t>(nq) * BLK;
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int64_t q = lo; q < hi; ++q) {
     const int64_t k = q / (nq * nq);
     const int64_t qi = q / nq % nq, qj = q % nq;
-    float* o = dB + k * edge * edge + qi * BLK * edge + qj * BLK
-               + 4 * (tid & 31);
+    E* o = dB + k * edge * edge + qi * BLK * edge + qj * BLK + 4 * (tid & 31);
 #pragma unroll 4
     for (int i = tid >> 5; i < BLK; i += tf32x3::THREADS / 32) {
-      *reinterpret_cast<float4*>(o + i * edge) = z;
+      zero4(o + i * edge);
     }
   }
 }
 
-template <bool VEC, bool LIVE, bool QUAD>
+// E = float: K5 (3xTF32, tf32x3.cuh); E = __nv_bfloat16: K5a (one bf16
+// pass, bf16x1.cuh), dB rounded to bf16 once from the f32 sums
+template <bool VEC, bool LIVE, bool QUAD, class E = float>
 __global__ void __launch_bounds__(tf32x3::THREADS, 1)
 dyn_grad_blocks_kernel(const int32_t* __restrict__ rows,
                        const int32_t* __restrict__ cols,
                        const int32_t* __restrict__ live,
-                       const float* __restrict__ g,
-                       const float* __restrict__ x, float* __restrict__ dB,
+                       const E* __restrict__ g,
+                       const E* __restrict__ x, E* __restrict__ dB,
                        int64_t feat, int64_t num_live, int64_t num_quads,
                        int nq) {
   extern __shared__ unsigned char graw[];
   const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(graw));
-  float* sm = reinterpret_cast<float*>(graw + ((1024 - base % 1024) % 1024));
+  unsigned char* sm = graw + ((1024 - base % 1024) % 1024);
   const int tid = threadIdx.x;
   const int wg = tid / 128;                     // output rows 64 wg ..
   if (LIVE) {
@@ -190,28 +237,110 @@ dyn_grad_blocks_kernel(const int32_t* __restrict__ rows,
   const int quad = QUAD ? static_cast<int>(id % (nq * nq)) : 0;
   const int64_t qi = QUAD ? quad / nq : 0, qj = QUAD ? quad % nq : 0;
   const int64_t edge = QUAD ? static_cast<int64_t>(nq) * BLK : BLK;
-  const float* gb = g + (static_cast<int64_t>(rows[k]) * edge + qi * BLK)
-                        * feat;
-  const float* xb = x + (static_cast<int64_t>(cols[k]) * edge + qj * BLK)
-                        * feat;
+  const E* gb = g + (static_cast<int64_t>(rows[k]) * edge + qi * BLK) * feat;
+  const E* xb = x + (static_cast<int64_t>(cols[k]) * edge + qj * BLK) * feat;
 
   float d[64];
-  tf32x3::product<VEC>(d, sm, gb, xb, feat, tid);
+  if constexpr (std::is_same<E, float>::value) {
+    tf32x3::product<VEC>(d, reinterpret_cast<float*>(sm), gb, xb, feat, tid);
+  } else {
+    bf16x1::product<VEC>(d, reinterpret_cast<__nv_bfloat16*>(sm), gb, xb,
+                         feat, tid);
+  }
 
   // accumulator j of a thread: row 64 wg + 16 warp + lane / 4 (+8 for the
   // odd pair), columns 8 (j / 4) + 2 (lane % 4) + {0, 1} of the quadrant,
   // whose rows lie edge floats apart in dB
   const int lane = tid & 31;
   const int i0 = wg * 64 + ((tid & 127) >> 5) * 16 + (lane >> 2);
-  float* o = dB + k * edge * edge + (qi * BLK + i0) * edge + qj * BLK
-             + 2 * (lane & 3);
+  E* o = dB + k * edge * edge + (qi * BLK + i0) * edge + qj * BLK
+         + 2 * (lane & 3);
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    *reinterpret_cast<float2*>(o + 8 * j) =
-        make_float2(d[4 * j], d[4 * j + 1]);
-    *reinterpret_cast<float2*>(o + 8 * edge + 8 * j) =
-        make_float2(d[4 * j + 2], d[4 * j + 3]);
+    store2(o + 8 * j, d[4 * j], d[4 * j + 1]);
+    store2(o + 8 * edge + 8 * j, d[4 * j + 2], d[4 * j + 3]);
   }
+}
+
+// K4 (A = float, f32 tiles) and K4a / K4Ta (A = __nv_bfloat16, bf16 tiles:
+// GAT's pe in the activations' type): the entries below
+template <class A>
+int launch_apply(const void* blocks, const void* row_splits, const void* sel,
+                 const void* scale, const void* cols, const void* words,
+                 const void* x, void* out, int64_t num_row_blocks,
+                 int64_t feat, int64_t block, int trans, void* stream) {
+  if (block < BLK || block % BLK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* b = static_cast<const A*>(blocks);
+  const auto* rs = static_cast<const int32_t*>(row_splits);
+  const auto* c = static_cast<const int32_t*>(cols);
+  const auto* w = static_cast<const uint64_t*>(words);
+  const auto* xp = static_cast<const A*>(x);
+  auto* op = static_cast<A*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int nq = static_cast<int>(block / BLK);
+  using sparse::Plain;
+  if (trans) {
+    return static_cast<int>(
+        sparse::launch<true, false, false, false, true, A, Plain, true, A>(
+            b, rs, static_cast<const int32_t*>(sel),
+            static_cast<const int32_t*>(scale), c, xp, nullptr, op,
+            num_row_blocks, feat, s, Plain{}, nq, w));
+  }
+  return static_cast<int>(
+      sparse::launch<false, false, false, false, true, A, Plain, true, A>(
+          b, rs, nullptr, nullptr, c, xp, nullptr, op, num_row_blocks, feat,
+          s, Plain{}, nq, w));
+}
+
+// K5 (E = float) and K5a (E = __nv_bfloat16): the entries below
+template <class E>
+int launch_grad(const void* rows, const void* cols, const void* live,
+                const void* g, const void* x, void* dB, int64_t num_tiles,
+                int64_t num_live, int64_t feat, int64_t block,
+                void* stream) {
+  if (block < BLK || block % BLK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nq = static_cast<int>(block / BLK);
+  const int64_t quads = num_tiles * nq * nq;
+  const bool with_live = live != nullptr;
+  if (with_live && (nq < 2 || nq > sparse::MAX_WORD_QUADS || num_live < 0
+                    || num_live > quads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (quads > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  // under live one CTA a live quadrant and one for the empty ones after
+  // the last
+  const int64_t ctas = with_live ? num_live + 1 : quads;
+  if (quads > 0) {
+    // 16-byte loads: 4 f32 or 8 bf16 values
+    constexpr int64_t PIECE = 16 / sizeof(E);
+    const bool vec = reinterpret_cast<uintptr_t>(g) % 16 == 0
+                     && reinterpret_cast<uintptr_t>(x) % 16 == 0
+                     && feat % PIECE == 0;
+    const auto kernel =
+        with_live ? (vec ? dyn_grad_blocks_kernel<true, true, true, E>
+                         : dyn_grad_blocks_kernel<false, true, true, E>)
+        : nq > 1 ? (vec ? dyn_grad_blocks_kernel<true, false, true, E>
+                        : dyn_grad_blocks_kernel<false, false, true, E>)
+                 : (vec ? dyn_grad_blocks_kernel<true, false, false, E>
+                        : dyn_grad_blocks_kernel<false, false, false, E>);
+    constexpr int bytes = grad_smem<E>();
+    const cudaError_t set = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (set != cudaSuccess) return static_cast<int>(set);
+    kernel<<<static_cast<unsigned>(ctas), tf32x3::THREADS, bytes,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cols),
+        static_cast<const int32_t*>(live), static_cast<const E*>(g),
+        static_cast<const E*>(x), static_cast<E*>(dB), feat, num_live, quads,
+        nq);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -237,29 +366,32 @@ extern "C" int fitgnn_bsr_dyn_apply(const void* blocks, const void* row_splits,
                                     const void* x, void* out,
                                     int64_t num_row_blocks, int64_t feat,
                                     int64_t block, int trans, void* stream) {
-  if (block < BLK || block % BLK) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto* b = static_cast<const float*>(blocks);
-  const auto* rs = static_cast<const int32_t*>(row_splits);
-  const auto* c = static_cast<const int32_t*>(cols);
-  const auto* w = static_cast<const uint64_t*>(words);
-  const auto* xp = static_cast<const float*>(x);
-  auto* op = static_cast<float*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int nq = static_cast<int>(block / BLK);
-  using sparse::Plain;
-  if (trans) {
-    return static_cast<int>(
-        sparse::launch<true, false, false, false, true, float, Plain, true>(
-            b, rs, static_cast<const int32_t*>(sel),
-            static_cast<const int32_t*>(scale), c, xp, nullptr, op,
-            num_row_blocks, feat, s, Plain{}, nq, w));
-  }
-  return static_cast<int>(
-      sparse::launch<false, false, false, false, true, float, Plain, true>(
-          b, rs, nullptr, nullptr, c, xp, nullptr, op, num_row_blocks, feat,
-          s, Plain{}, nq, w));
+  return launch_apply<float>(blocks, row_splits, sel, scale, cols, words, x,
+                             out, num_row_blocks, feat, block, trans, stream);
+}
+
+// K4a and K4Ta: fitgnn_bsr_dyn_apply on bf16 activations, the bf16 branch
+// of _make_dyn_kernel (fitgnn_tpu/ops/pallas/bsr_dynamic.py:82-86: bf16
+// tiles and x, bf16 x bf16 products in f32, an output of x's type).
+// blocks (K,block,block), x and out bf16, the rest as above: the same
+// walks (edge 128, the quadrant walk above it, with words the walk of the
+// live quadrants) with A = __nv_bfloat16 (tile_sparse.cuh: the slab
+// copied and read as bf16, each sum f32 and rounded to bf16 once as it is
+// stored, where the Pallas kernel rounds each tile's product into its
+// bf16 output block).  The vector slab copy needs x on a 16-byte boundary
+// and feat % 8 == 0.  Bound on an H100: bytes, as K4's, with the tiles,
+// the slabs and the output at 2 bytes a value.
+extern "C" int fitgnn_bsr_dyn_apply_a(const void* blocks,
+                                      const void* row_splits,
+                                      const void* sel, const void* scale,
+                                      const void* cols, const void* words,
+                                      const void* x, void* out,
+                                      int64_t num_row_blocks, int64_t feat,
+                                      int64_t block, int trans,
+                                      void* stream) {
+  return launch_apply<__nv_bfloat16>(blocks, row_splits, sel, scale, cols,
+                                     words, x, out, num_row_blocks, feat,
+                                     block, trans, stream);
 }
 
 // rows, cols (num_tiles,) int32 tile-row and tile-column ids; g, x (*,
@@ -281,42 +413,26 @@ extern "C" int fitgnn_dyn_grad_blocks(const void* rows, const void* cols,
                                       int64_t num_tiles, int64_t num_live,
                                       int64_t feat, int64_t block,
                                       void* stream) {
-  if (block < BLK || block % BLK) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int nq = static_cast<int>(block / BLK);
-  const int64_t quads = num_tiles * nq * nq;
-  const bool with_live = live != nullptr;
-  if (with_live && (nq < 2 || nq > sparse::MAX_WORD_QUADS || num_live < 0
-                    || num_live > quads)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (quads > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  // under live one CTA a live quadrant and one for the empty ones after
-  // the last
-  const int64_t ctas = with_live ? num_live + 1 : quads;
-  if (quads > 0) {
-    const bool vec = reinterpret_cast<uintptr_t>(g) % 16 == 0
-                     && reinterpret_cast<uintptr_t>(x) % 16 == 0
-                     && feat % 4 == 0;
-    const auto kernel =
-        with_live ? (vec ? dyn_grad_blocks_kernel<true, true, true>
-                         : dyn_grad_blocks_kernel<false, true, true>)
-        : nq > 1 ? (vec ? dyn_grad_blocks_kernel<true, false, true>
-                        : dyn_grad_blocks_kernel<false, false, true>)
-                 : (vec ? dyn_grad_blocks_kernel<true, false, false>
-                        : dyn_grad_blocks_kernel<false, false, false>);
-    const cudaError_t set = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM);
-    if (set != cudaSuccess) return static_cast<int>(set);
-    kernel<<<static_cast<unsigned>(ctas), tf32x3::THREADS, GSMEM,
-             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cols),
-        static_cast<const int32_t*>(live), static_cast<const float*>(g),
-        static_cast<const float*>(x), static_cast<float*>(dB), feat,
-        num_live, quads, nq);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_grad<float>(rows, cols, live, g, x, dB, num_tiles, num_live,
+                            feat, block, stream);
+}
+
+// K5a: fitgnn_dyn_grad_blocks on bf16 activations, the bf16 branch of
+// _dB_kernel (fitgnn_tpu/ops/pallas/bsr_dynamic.py:131-138, out_dtype
+// bf16 at :205-206): g, x and dB bf16, the rest as above.  The same grid,
+// live list and +0 quadrants; the product is one bf16 wgmma pass
+// (bf16x1.cuh, exact products, f32 sums) and each sum is rounded to bf16
+// once as dB is stored, as the Pallas kernel rounds its f32 dot (one F
+// chunk up to 512) into its bf16 block.  The vector load needs g and x on
+// 16-byte boundaries and feat % 8 == 0.  Bound on an H100: bytes at F =
+// 128 (dB and the slabs at 2 bytes a value), the dense bf16 products
+// (989 TFLOP/s) above.
+extern "C" int fitgnn_dyn_grad_blocks_a(const void* rows, const void* cols,
+                                        const void* live, const void* g,
+                                        const void* x, void* dB,
+                                        int64_t num_tiles, int64_t num_live,
+                                        int64_t feat, int64_t block,
+                                        void* stream) {
+  return launch_grad<__nv_bfloat16>(rows, cols, live, g, x, dB, num_tiles,
+                                    num_live, feat, block, stream);
 }

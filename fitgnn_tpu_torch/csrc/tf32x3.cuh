@@ -103,8 +103,9 @@ __device__ __forceinline__ void put_chunk(float* hi, float* lo,
 
 // wgmma shared-memory descriptor of a K-major operand under the 128-byte
 // swizzle: start address, leading offset 16 B (unused when swizzled),
-// stride 1024 B between 8-row groups, layout 1 = 128-byte swizzle
-__device__ __forceinline__ uint64_t sdesc(const float* p) {
+// stride 1024 B between 8-row groups, layout 1 = 128-byte swizzle (of any
+// element type: bf16x1.cuh's operands too)
+__device__ __forceinline__ uint64_t sdesc(const void* p) {
   const uint64_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   return ((a & 0x3FFFF) >> 4) | (uint64_t{1} << 16)
          | (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
@@ -151,7 +152,7 @@ __device__ __forceinline__ void mma_tf32(float (&d)[64], uint64_t a,
 }
 
 // keeps the compiler from moving accumulator registers across the
-// asynchronous wgmma
+// asynchronous wgmma (bf16x1.cuh's too)
 __device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");

@@ -154,19 +154,27 @@
 // apply's reads of it at 2 bytes an entry is later work.
 //
 // Activation types.  The walk's last template parameter A is the type of
-// x, init and out: float for every walk above, __nv_bfloat16 for the rows
-// walk from init at edge 128 with the Plain hook (K1a on f32 tiles, K1bfa
-// on bf16 tiles, bsr_spmm.cu), the bf16 branch of _kernel_acc
-// (bsr_spmm.py:200-222).  Its slab is copied as bf16 (cp.async, 8 values a
-// 16-byte piece) into the f32 slab's place and read as bf16 by the apply
-// (an 8-byte read a lane a non-zero, half the f32 slab's), each value
-// widened to f32 (exact); init is widened as it is read; the sums are f32
-// FMAs as above and each is rounded to bf16 once as it is stored (to
-// nearest even), where the Pallas kernel rounds each tile's product into
-// its bf16 output block.  On bf16 tiles the products are bf16 x bf16, on
-// f32 tiles the tile promotes x; exact in f32 either way.  No other walk
-// takes bf16 activations (a static_assert in walk_kernel): the edge-256,
-// words, DIAG and hook forms take the widened route (ops/kernels.py).
+// x, init and out: float for every walk above, __nv_bfloat16 for
+//   the rows walk from init at edge 128 (K1a on f32 tiles, K1bfa on bf16
+//     tiles, bsr_spmm.cu), the bf16 branch of _kernel_acc
+//     (bsr_spmm.py:200-222);
+//   the dynamic tiles' walks from zero on bf16 tiles (K4a rows, K4Ta
+//     columns, bsr_dynamic.cu: GAT's pe in the activations' type), at
+//     edge 128 and as the quadrant walk above it, with or without the
+//     occupancy words (walk_live), the bf16 branch of _make_dyn_kernel
+//     (bsr_dynamic.py:82-86);
+// each under the Plain hook.  The slab is copied as bf16 (cp.async, 8
+// values a 16-byte piece) into the f32 slab's place (in walk_live each of
+// the two) and read as bf16 by the apply (an 8-byte read a lane a
+// non-zero, half the f32 slab's), each value widened to f32 (exact); init
+// is widened as it is read; the sums are f32 FMAs as above and each is
+// rounded to bf16 once as it is stored (to nearest even), where the Pallas
+// kernel rounds each tile's product into its bf16 output block.  On bf16
+// tiles the products are bf16 x bf16, on f32 tiles the tile promotes x;
+// exact in f32 either way, so ROUND_X has nothing to do (x is bf16
+// already) and is off.  No other walk takes bf16 activations (a
+// static_assert in walk_kernel): K1 above 128, K2, K9, K10, DIAG and the
+// hook forms take the widened route (ops/kernels.py).
 //
 // Tiles of another edge (QUAD).  The JAX package's build_hybrid(block=E)
 // and build_bsr(block=E) store (K, E, E) tiles for any E = 128 nq (Mosaic
@@ -717,11 +725,11 @@ __device__ __forceinline__ void store_rows(const float (&acc)[ROWS][FL],
 // the buffer of that slab (rows orientation: K7f's ssrc; columns: K7bt's
 // sdst and m), and its value step sees that buffer.  Called by every
 // thread of the CTA (the walk is uniform).
-template <bool TRANS, bool VEC, class T, bool ROUND_X, class V>
+template <bool TRANS, bool VEC, class T, bool ROUND_X, class V, class A>
 __device__ __forceinline__ void walk_live(
     const T* __restrict__ blocks, const int32_t* __restrict__ row_splits,
     const int32_t* __restrict__ sel, const int32_t* __restrict__ cols,
-    const uint64_t* __restrict__ words, const float* __restrict__ x,
+    const uint64_t* __restrict__ words, const A* __restrict__ x,
     float* smem, int64_t r, int h, int nq, int64_t f0, int64_t feat,
     int tid, float (&acc)[ROWS][FL], V& val, float* hs) {
   const int lane = tid & 31;
@@ -798,6 +806,7 @@ __device__ __forceinline__ void walk_live(
     cp_async_wait<1>();                         // slab buf has landed
     if (ROUND_X) round_slab_pairs<VEC>(xs[buf], tid);
     __syncthreads();
+    const A* xa = reinterpret_cast<const A*>(xs[buf]);  // as apply reads it
     if (TRANS) {
       // output rows 4q .. 4q+3 take tile columns 4q .. 4q+3: one float4
       // of each tile row j = lane + 32m, as the walk without words
@@ -815,13 +824,13 @@ __device__ __forceinline__ void walk_live(
               val.value_live(hs, buf, v.y, 4 * qd + 1, m, row0, lane),
               val.value_live(hs, buf, v.z, 4 * qd + 2, m, row0, lane),
               val.value_live(hs, buf, v.w, 4 * qd + 3, m, row0, lane)};
-          apply(v.x, [&] { return w[0]; }, m, 1.f, xs[buf], lane,
+          apply(v.x, [&] { return w[0]; }, m, 1.f, xa, lane,
                 acc[4 * qd + 0]);
-          apply(v.y, [&] { return w[1]; }, m, 1.f, xs[buf], lane,
+          apply(v.y, [&] { return w[1]; }, m, 1.f, xa, lane,
                 acc[4 * qd + 1]);
-          apply(v.z, [&] { return w[2]; }, m, 1.f, xs[buf], lane,
+          apply(v.z, [&] { return w[2]; }, m, 1.f, xa, lane,
                 acc[4 * qd + 2]);
-          apply(v.w, [&] { return w[3]; }, m, 1.f, xs[buf], lane,
+          apply(v.w, [&] { return w[3]; }, m, 1.f, xa, lane,
                 acc[4 * qd + 3]);
         }
       }
@@ -835,7 +844,7 @@ __device__ __forceinline__ void walk_live(
           const float e = as[swizzled(row0 + i, lane + 32 * m)];
           apply(e, [&] {
             return val.value_live(hs, buf, e, i, m, row0, lane);
-          }, m, 1.f, xs[buf], lane, acc[i]);
+          }, m, 1.f, xa, lane, acc[i]);
         }
       }
     }
@@ -866,10 +875,12 @@ __device__ __forceinline__ void walk_live(
 // quadrants only (walk_live, the hook's shared memory after the two
 // slabs); otherwise words is unread.  A is the activations' type (x, init
 // and out): float, or __nv_bfloat16 (K1a and K1bfa, bsr_spmm.cu: the rows
-// walk from init at edge 128, Plain hook), whose slab is copied as bf16
-// and read as bf16 by the apply, which widens each value (start_slab,
-// apply), whose init is widened as it is read and whose sums are rounded
-// to bf16 once as they are stored; the sums are f32 as in the f32 walk.
+// walk from init at edge 128; K4a and K4Ta, bsr_dynamic.cu: both walks
+// from zero on bf16 tiles, at 128 and over quadrants, with or without
+// words; Plain hook), whose slab is copied as bf16 and read as bf16 by
+// the apply, which widens each value (start_slab, apply), whose init is
+// widened as it is read and whose sums are rounded to bf16 once as they
+// are stored; the sums are f32 as in the f32 walk.
 template <bool TRANS, bool INIT, bool VEC, bool DIAG, class V, class T,
           bool ROUND_X, bool WORDS, bool QUAD, class A = float>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -885,10 +896,14 @@ walk_kernel(const T* __restrict__ blocks,
   static_assert(!WORDS || (QUAD && !DIAG && takes_words<V, TRANS>::value),
                 "occupancy words: the walk of quadrants, a hook it takes");
   static_assert(std::is_same<A, float>::value
-                || (std::is_same<A, __nv_bfloat16>::value && !TRANS && !DIAG
-                    && !ROUND_X && !WORDS && !QUAD
-                    && std::is_same<V, Plain>::value),
-                "bf16 activations: the rows walk at edge 128, Plain hook");
+                || (std::is_same<A, __nv_bfloat16>::value && !DIAG
+                    && !ROUND_X && std::is_same<V, Plain>::value
+                    && (!TRANS || std::is_same<T, __nv_bfloat16>::value)
+                    && (!QUAD || (!INIT && std::is_same<T,
+                                                        __nv_bfloat16>::value))),
+                "bf16 activations: the rows walk from init at edge 128 (K1a, "
+                "K1bfa) and the dynamic tiles' walks on bf16 tiles (K4a, "
+                "K4Ta), Plain hook");
   extern __shared__ __align__(16) float smem[];
   float* as = smem;                             // the swizzled tile
   float* xs = smem + BLK * BLK;                 // the X slab
@@ -1069,8 +1084,8 @@ walk_kernel(const T* __restrict__ blocks,
 // init's own.  val is the value hook (Plain: the entries as they are); T,
 // the tile type, comes from blocks, which must start on a 16-byte
 // boundary; ROUND_X (bf16 tiles only) rounds x to bf16.  A, the
-// activations' type, names x, init and out: under bf16 (the rows walk at
-// 128 only, walk_kernel) the vector slab copy needs feat % 8 == 0.
+// activations' type, names x, init and out: under bf16 (the forms
+// walk_kernel lists) the vector slab copy needs feat % 8 == 0.
 // bytes of dynamic shared memory of the walk of the live quadrants: the
 // tile, two slabs and the hook's SMEM_LIVE floats (0 without WORDS: never
 // launched)

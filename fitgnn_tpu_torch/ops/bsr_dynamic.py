@@ -48,6 +48,22 @@ on CUDA tensors (it replaces ``fitgnn_tpu/ops/pallas/bsr_dynamic.py``'s
 bounds each on an H100 and what the design does about it) and its plain
 PyTorch version (``*_plain``, a batched matmul and ``index_add_``) on CPU
 tensors.  ``<wrapper>.launches`` counts kernel launches.
+
+bf16 activations (the JAX package's conv-stack ``dtype=bfloat16``: GAT's
+``pe`` in the messages' type, bf16 ``x`` and cotangent): each wrapper
+launches its kernel's bf16-activation form, counted in
+``<wrapper>.launches_a``: K4a and K4ᵀa (C entry
+``fitgnn_bsr_dyn_apply_a``: the same walks on bf16 tiles and a bf16
+slab, each sum f32 and rounded to bf16 once) and K5a
+(``fitgnn_dyn_grad_blocks_a``: one bf16 tensor-core pass, ``dB`` rounded
+to bf16 once), at every edge and with the plan's words and live list as
+the f32 forms.  The Pallas kernels round each tile's product into their
+bf16 output block; K5's one F chunk (up to 512) rounds once as here
+(``ROADMAP.md`` §3).  On the card the tiles must be in ``x``'s type (f32
+with f32, bf16 with bf16), as GAT makes them; there is no fallback, and
+a form that fails to build or launch raises.  The plain versions take
+bf16 operands too: the products and sums in f32 on the widened values,
+each output rounded to bf16 once, as the forms compute them.
 """
 
 from __future__ import annotations
@@ -175,7 +191,12 @@ def _apply_plain(blocks, rows, cols, x, sel=None, scale=None,
                  trans=False) -> torch.Tensor:
     """``out[rows[k]] += scale[k]·(blocks[sel[k]] or its transpose) @
     x[cols[k]]``, from zero, at the tiles' edge: a batched matmul and
-    ``index_add_``."""
+    ``index_add_``.  On bf16 ``x`` (K4a, K4ᵀa) the products and sums in
+    f32 over the widened tiles and ``x``, the output rounded to bf16
+    once."""
+    if x.dtype == torch.bfloat16:
+        return _apply_plain(blocks.float(), rows, cols, x.float(), sel, scale,
+                            trans).to(torch.bfloat16)
     n, feat = x.shape
     e = blocks.shape[-1]
     a = blocks if sel is None else blocks.index_select(0, sel.long())
@@ -190,18 +211,12 @@ def _apply_plain(blocks, rows, cols, x, sel=None, scale=None,
 
 
 def dyn_tiles_plain(rows, cols, plan: DynPlan, blocks, x) -> torch.Tensor:
-    """K4's plain version; bf16 ``x`` by the widened route."""
-    if x.dtype == torch.bfloat16:
-        return kernels.widened(lambda b, x: _apply_plain(b, rows, cols, x),
-                               blocks, x)
+    """K4's plain version (K4a's on bf16 ``x``)."""
     return _apply_plain(blocks, rows, cols, x)
 
 
 def dyn_tiles_t_plain(plan: DynPlan, blocks, g) -> torch.Tensor:
-    """K4ᵀ's plain version; bf16 ``g`` by the widened route."""
-    if g.dtype == torch.bfloat16:
-        return kernels.widened(lambda b, g: dyn_tiles_t_plain(plan, b, g),
-                               blocks, g)
+    """K4ᵀ's plain version (K4ᵀa's on bf16 ``g``)."""
     return _apply_plain(blocks, plan.t_rows, plan.t_cols, g, sel=plan.t_sel,
                         scale=plan.t_scale, trans=True)
 
@@ -210,10 +225,12 @@ def dyn_grad_blocks_plain(rows, cols, g, x, block: int = BLOCK,
                           live=None) -> torch.Tensor:
     """``dB[k] = g[rows[k]] @ x[cols[k]]ᵀ`` over (block, F) slabs; given
     ``live`` (quadrant ids ``k·nq² + i·nq + j``), +0 on every 128-wide
-    quadrant it does not list.  bf16 ``g`` and ``x`` widened to f32, the
-    result left f32, as the wrapper's route."""
+    quadrant it does not list.  On bf16 ``g`` and ``x`` (K5a) the products
+    and sums in f32 over the widened values, ``dB`` rounded to bf16
+    once."""
     if x.dtype == torch.bfloat16:
-        g, x = g.float(), x.float()
+        return dyn_grad_blocks_plain(rows, cols, g.float(), x.float(), block,
+                                     live).to(torch.bfloat16)
     n, feat = x.shape
     gb = g.reshape(n // block, block, feat).index_select(0, rows.long())
     xb = x.reshape(n // block, block, feat).index_select(0, cols.long())
@@ -239,7 +256,8 @@ _GRAD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4 + [
 
 def _check_operands(what: str, blocks, x, block: int,
                     *ints) -> torch.device:
-    """Validate a launch's operands at tile edge ``block``; returns their
+    """Validate a launch's operands at tile edge ``block``: ``x`` (and the
+    tiles) f32, or bf16 for the bf16-activation forms; returns their
     device."""
     check_block(block)
     if x.dim() != 2 or x.shape[0] % block:
@@ -248,9 +266,10 @@ def _check_operands(what: str, blocks, x, block: int,
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     dev = x.device
-    kernels.require(x, "x", torch.float32, dev)
+    kernels.require(x, "x", x.dtype, dev)
     if blocks is not None:
-        kernels.require(blocks, "blocks", torch.float32, dev)
+        # the tiles in the activations' type, as GAT makes pe
+        kernels.require(blocks, "blocks", x.dtype, dev)
         if blocks.dim() != 3 or blocks.shape[1:] != (block, block):
             raise ValueError(f"{what}: blocks {tuple(blocks.shape)} must be "
                              f"(K, {block}, {block})")
@@ -285,8 +304,8 @@ def _launch_apply(what, blocks, row_splits, sel, scale, cols, words, x,
             raise ValueError(f"{what}: words {tuple(words.shape)} for "
                              f"{cols.shape[0]} slots")
     out = torch.empty_like(x)
-    launch = kernels.function("bsr_dynamic", "fitgnn_bsr_dyn_apply",
-                              _APPLY_ARGTYPES)
+    launch = kernels.function("bsr_dynamic", "fitgnn_bsr_dyn_apply" + (
+        "_a" if x.dtype == torch.bfloat16 else ""), _APPLY_ARGTYPES)
     null = ctypes.c_void_p(None)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(blocks), kernels.ptr(row_splits),
@@ -300,24 +319,29 @@ def _launch_apply(what, blocks, row_splits, sel, scale, cols, words, x,
     return out
 
 
+def _count(fn, x: torch.Tensor) -> None:
+    """One launch of wrapper ``fn``: its bf16-activation form's
+    (``launches_a``) on bf16 ``x``, else its f32 form's (``launches``)."""
+    if x.dtype == torch.bfloat16:
+        fn.launches_a += 1
+    else:
+        fn.launches += 1
+
+
 def dyn_tiles(rows: torch.Tensor, cols: torch.Tensor, plan: DynPlan,
               blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """K4 forward, ``out[rows[k]] += blocks[k] @ x[cols[k]]`` from zero
     (``rows`` sorted; the kernel walks ``plan.row_splits``, and with
     ``plan.words`` the live quadrants alone): the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor.  bf16 ``x`` (with bf16
-    ``blocks``, GAT's ``pe`` in the messages' type) takes the widened route
-    (``kernels.widened``: both widened to f32, the output rounded once)."""
-    if kernels.narrow("dyn_tiles", x):
-        return kernels.widened(
-            lambda blocks, x: dyn_tiles(rows, cols, plan, blocks, x), blocks,
-            x)
+    tensor, the plain version on a CPU tensor.  bf16 ``x`` with bf16
+    ``blocks`` (GAT's ``pe`` in the messages' type) launches K4a."""
+    kernels.narrow("dyn_tiles", x)
     if x.device.type == "cpu":
         check_block(blocks.shape[-1])
         return dyn_tiles_plain(rows, cols, plan, blocks, x)
     out = _launch_apply("dyn_tiles", blocks, plan.row_splits, None, None,
                         cols, plan.words, x, trans=False)
-    dyn_tiles.launches += 1
+    _count(dyn_tiles, x)
     return out
 
 
@@ -326,17 +350,15 @@ def dyn_tiles_t(plan: DynPlan, blocks: torch.Tensor,
     """K4 transposed, ``out[t_rows[k]] += t_scale[k]·blocks[t_sel[k]]ᵀ @
     g[t_cols[k]]`` from zero (with ``plan.t_words`` the live quadrants
     alone): the CUDA kernel on a CUDA tensor, the plain version on a CPU
-    tensor; bf16 ``g`` through ``kernels.widened``, as ``dyn_tiles``."""
-    if kernels.narrow("dyn_tiles_t", g):
-        return kernels.widened(lambda blocks, g: dyn_tiles_t(plan, blocks, g),
-                               blocks, g)
+    tensor; bf16 ``g`` with bf16 ``blocks`` launches K4ᵀa."""
+    kernels.narrow("dyn_tiles_t", g)
     if g.device.type == "cpu":
         check_block(blocks.shape[-1])
         return dyn_tiles_t_plain(plan, blocks, g)
     out = _launch_apply("dyn_tiles_t", blocks, plan.t_row_splits,
                         plan.t_sel, plan.t_scale, plan.t_cols, plan.t_words,
                         g, trans=True)
-    dyn_tiles_t.launches += 1
+    _count(dyn_tiles_t, g)
     return out
 
 
@@ -351,23 +373,18 @@ def dyn_grad_blocks(rows: torch.Tensor, cols: torch.Tensor, g: torch.Tensor,
     computed and every other quadrant is +0 (the kernel launches no
     product there).  A live list at edge 128 (or above 1024) raises on the
     card: there is no fallback to the full grid.  bf16 ``g`` and ``x``
-    take the widened route (``kernels.widened``), the tiles' gradient left
-    f32 (the caller rounds it to the dynamic tiles' type once): the JAX
-    kernel's bf16 branch casts both to bf16, which they are already, so
-    the f32 products of the widened values are its products."""
+    launch K5a, whose ``dB`` is bf16 (rounded once from the f32 sums), as
+    the JAX kernel's ``out_dtype=blocks_dyn.dtype``."""
     if g.shape != x.shape:
         raise ValueError(f"dyn_grad_blocks: g {tuple(g.shape)} and x "
                          f"{tuple(x.shape)} differ")
-    if kernels.narrow("dyn_grad_blocks", x):
-        return kernels.widened(
-            lambda g, x: dyn_grad_blocks(rows, cols, g, x, block, live), g, x,
-            rounds=())
+    kernels.narrow("dyn_grad_blocks", x)
     if x.device.type == "cpu":
         check_block(block)
         return dyn_grad_blocks_plain(rows, cols, g, x, block, live)
     dev = _check_operands("dyn_grad_blocks", None, x, block, ("rows", rows),
                           ("cols", cols))
-    kernels.require(g, "g", torch.float32, dev)
+    kernels.require(g, "g", x.dtype, dev)
     if live is not None:
         kernels.require(live, "live", torch.int32, dev)
         if live.dim() != 1:
@@ -375,8 +392,8 @@ def dyn_grad_blocks(rows: torch.Tensor, cols: torch.Tensor, g: torch.Tensor,
                              "must be (L,)")
     k = rows.shape[0]
     out = torch.empty((k, block, block), dtype=x.dtype, device=dev)
-    launch = kernels.function("bsr_dynamic", "fitgnn_dyn_grad_blocks",
-                              _GRAD_ARGTYPES)
+    launch = kernels.function("bsr_dynamic", "fitgnn_dyn_grad_blocks" + (
+        "_a" if x.dtype == torch.bfloat16 else ""), _GRAD_ARGTYPES)
     with torch.cuda.device(dev):
         rc = launch(kernels.ptr(rows), kernels.ptr(cols),
                     ctypes.c_void_p(None) if live is None
@@ -385,13 +402,12 @@ def dyn_grad_blocks(rows: torch.Tensor, cols: torch.Tensor, g: torch.Tensor,
                     0 if live is None else live.shape[0], x.shape[1], block,
                     kernels.stream(dev))
     kernels.check(rc, "dyn_grad_blocks")
-    dyn_grad_blocks.launches += 1
+    _count(dyn_grad_blocks, x)
     return out
 
 
-dyn_tiles.launches = 0
-dyn_tiles_t.launches = 0
-dyn_grad_blocks.launches = 0
+for _fn in (dyn_tiles, dyn_tiles_t, dyn_grad_blocks):
+    _fn.launches = _fn.launches_a = 0
 
 
 class _BsrSpmmDyn(torch.autograd.Function):
@@ -407,6 +423,7 @@ class _BsrSpmmDyn(torch.autograd.Function):
         g = g.contiguous()
         dblocks = dx = None
         if ctx.needs_input_grad[3]:
+            # K5a's dB is bf16 already; K5's f32 dB takes the tiles' type
             dblocks = dyn_grad_blocks(rows, cols, g, x,
                                       blocks_dyn.shape[-1],
                                       ctx.plan.live).to(blocks_dyn.dtype)

@@ -49,7 +49,8 @@ def _target(name: str, headers: tuple = ()) -> Target:
 # ``build(TARGETS)`` compiles the stale ones in parallel, one nvcc each
 TARGETS = (_target("bsr_spmm", ("tile_sparse.cuh",)),
            _target("coo_segmm"),
-           _target("bsr_dynamic", ("tf32x3.cuh", "tile_sparse.cuh")),
+           _target("bsr_dynamic", ("bf16x1.cuh", "tf32x3.cuh",
+                                   "tile_sparse.cuh")),
            _target("att_bsr", ("tf32x3.cuh", "tile_sparse.cuh")),
            _target("diag_spmm", ("tile_sparse.cuh",)), _target("dropout"))
 
@@ -99,7 +100,8 @@ def count(fn, tiles: torch.Tensor) -> None:
 
 def narrow(what: str, x: torch.Tensor) -> bool:
     """Whether ``x`` holds bf16 activations, which a wrapper hands to its
-    kernel's bf16-activation form (K1a, K1bfa, K3a, K11a) or to
+    kernel's bf16-activation form (K1a, K1bfa, K3a, K4a, K4ᵀa, K5a, K11a)
+    or to
     ``widened``; False for f32.  On the card any other type raises
     ``ValueError``: the kernels take f32 and bf16 activations only
     (ROADMAP.md §3).  A CPU tensor of another type goes to the plain

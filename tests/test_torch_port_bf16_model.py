@@ -39,15 +39,21 @@ import jax.numpy as jnp
 
 import fitgnn_tpu.ops.tile_gat as jax_tile_gat_mod
 from fitgnn_tpu.graph.optimize import \
+    _operator_weights as jax_operator_weights
+from fitgnn_tpu.graph.optimize import \
     build_optimized_graph as jax_build_optimized_graph
+from fitgnn_tpu.ops.hybrid_spmm import build_hybrid as jax_build_hybrid
 from fitgnn_tpu.models import NodeModel as JaxNodeModel
 from fitgnn_tpu.models.models import \
     preaggregate_input as jax_preaggregate_input
 from fitgnn_tpu.train import losses as jax_losses
 
-from fitgnn_tpu_torch.graph.optimize import build_optimized_graph
+from fitgnn_tpu_torch.graph.optimize import (_LAYER_SEMANTICS,
+                                             _operator_weights,
+                                             build_optimized_graph)
 from fitgnn_tpu_torch.models.convert import params_from_flax
 from fitgnn_tpu_torch.models.models import NodeModel, preaggregate_input
+from fitgnn_tpu_torch.ops.hybrid_spmm import build_hybrid
 from fitgnn_tpu_torch.train import steps
 
 from test_torch_port_sage_gin import community_graph
@@ -86,23 +92,48 @@ def _port_model(name, in_dim, preagg, dtype, params):
     return model
 
 
-def check_case(monkeypatch, name, bf_tiles, preagg, switches):
+def _at_edge(g, jax_g, name, bf_tiles, block, min_block_edges):
+    """Both packages' graphs with their operators rebuilt at tile edge
+    ``block`` (``build_hybrid(block=...)`` on the reordered graph, as
+    bench.py's ``FITGNN_BENCH_BLOCK`` builds it)."""
+    n = g.num_nodes_padded
+    s = g.senders.numpy().astype(np.int64)
+    r = g.receivers.numpy().astype(np.int64)
+    kw = dict(min_block_edges=min_block_edges, block=block, use_segmm=True,
+              semantics=_LAYER_SEMANTICS[name], real_nodes=n)
+    ht = build_hybrid(s, r, _operator_weights(
+        s, r, g.edge_weight.numpy(), n, kw["semantics"]), n,
+        tile_dtype=BF16 if bf_tiles else None, **kw)
+    hj = jax_build_hybrid(s, r, jax_operator_weights(
+        s, r, np.asarray(jax_g.edge_weight), n, kw["semantics"]), n,
+        tile_dtype=jnp.bfloat16 if bf_tiles else None, **kw)
+    return g._replace(aux=ht), jax_g._replace(aux=hj)
+
+
+def check_case(monkeypatch, name, bf_tiles, preagg, switches, block=128,
+               min_block_edges=80):
     """The bf16 model of one case against the JAX package's (see the module
-    note)."""
+    note), its operator at tile edge ``block`` and threshold
+    ``min_block_edges``; above 128 on a graph of ``N`` nodes rounded up to
+    a multiple of ``block``, less 12 (room for the padding node)."""
     for k, v in switches.items():
         monkeypatch.setattr(jax_tile_gat_mod, f"_{k}", v)
         monkeypatch.setenv(f"FITGNN_GAT_{k}", "1")
     rng = np.random.default_rng(6)
-    x, s, r = community_graph(rng, N, 16)
-    y = rng.integers(0, 4, N)
-    mask = rng.random(N) < 0.5
-    kw = dict(y=y, train_mask=mask, min_block_edges=80, layer_name=name)
+    n = N if block == 128 else -(-N // block) * block - 12
+    x, s, r = community_graph(rng, n, 16)
+    y = rng.integers(0, 4, n)
+    mask = rng.random(n) < 0.5
+    kw = dict(y=y, train_mask=mask, min_block_edges=min_block_edges,
+              layer_name=name)
     gt, _ = build_optimized_graph(x, s, r, tile_dtype=BF16 if bf_tiles
                                   else None, **kw)
     gj, _ = jax_build_optimized_graph(x, s, r, tile_dtype=jnp.bfloat16
                                       if bf_tiles else None, **kw)
+    if block != 128:
+        gt, gj = _at_edge(gt, gj, name, bf_tiles, block, min_block_edges)
     assert gt.aux.segmm is not None and gt.aux.bsr is not None
-    assert gt.aux.bsr.bf16 == bf_tiles
+    assert gt.aux.bsr.bf16 == bf_tiles and gt.aux.bsr.block == block
     xj, xt = gj.x, gt.x
     if preagg:
         xj = jax_preaggregate_input(gj, name)

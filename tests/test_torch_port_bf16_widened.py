@@ -6,11 +6,11 @@ operands widened to f32 (exact), the form for the tiles' type run (its
 kernel on the card, its plain version here, because the tensors lie on
 the CPU), each bf16 output rounded once.  One call through each wrapper:
 K2, K9 and K10 (``bsr_spmm_fwd``, ``_grouped``, ``_rowwalk``), K1 at edge
-256 with the occupancy words, K8 (``diag_spmm``), K4 and K4ᵀ (``dyn_tiles``,
-``dyn_tiles_t``) and K5 (``dyn_grad_blocks``) on GAT's bf16 ``pe`` values,
-K7f (``att_fwd``), K7bt's ``dx`` (``att_bwd_t``) and the score pass
-(``att_bwd_scores``), each against the JAX kernel in interpret mode on the
-same bf16 arrays.
+256 with the occupancy words, K8 (``diag_spmm``), K7f (``att_fwd``), K7bt's
+``dx`` (``att_bwd_t``) and the score pass (``att_bwd_scores``), each
+against the JAX kernel in interpret mode on the same bf16 arrays.  K4, K4ᵀ
+and K5 have bf16-activation forms of their own (K4a, K4ᵀa, K5a): their
+cases are ``tests/test_torch_port_bf16_dyn.py``'s.
 
 Tolerance: within ``1e-2·max|ref|`` (the Pallas kernels round each tile's
 partial into a bf16 block, and K7's cast ``pe`` to bf16 before its
@@ -26,16 +26,13 @@ import torch
 import jax.numpy as jnp
 
 from fitgnn_tpu.ops.pallas import att_bsr as jax_att
-from fitgnn_tpu.ops.pallas.bsr_dynamic import _dyn_apply, _dyn_grad_blocks
 from fitgnn_tpu.ops.pallas.bsr_dynamic import build_dyn_plan as jax_plan
 from fitgnn_tpu.ops.pallas.bsr_spmm import _fwd_dispatch, bsr_spmm_acc_raw
 from fitgnn_tpu.ops.pallas.bsr_spmm import build_bsr as jax_build_bsr
 from fitgnn_tpu.ops.pallas.diag_spmm import diag_spmm_raw
 
 from fitgnn_tpu_torch.ops import att_bsr
-from fitgnn_tpu_torch.ops.bsr_dynamic import (build_dyn_plan,
-                                              dyn_grad_blocks, dyn_tiles,
-                                              dyn_tiles_t)
+from fitgnn_tpu_torch.ops.bsr_dynamic import build_dyn_plan
 from fitgnn_tpu_torch.ops.bsr_spmm import (build_bsr, bsr_spmm_acc,
                                            bsr_spmm_raw)
 from fitgnn_tpu_torch.ops.diag_spmm import diag_spmm
@@ -99,50 +96,6 @@ def run_k8():
                               init=_j(init, JBF16))
 
 
-def _dyn():
-    """A sorted tile list whose block column 3 is unused (a filler slot in
-    the transpose plan); GAT's ``pe``-like tile values in bf16."""
-    rng = np.random.default_rng(15)
-    nb = N // 128
-    rows = np.sort(np.concatenate([np.arange(nb), rng.integers(0, nb, 5)]))
-    cols = rng.choice([0, 1, 2], len(rows))
-    vals = np.where(rng.random((len(rows), 128, 128)) < 0.05,
-                    rng.random((len(rows), 128, 128)), 0.0)
-    vals = torch.from_numpy(vals.astype(np.float32)).to(BF16)
-    return (rows.astype(np.int32), cols.astype(np.int32), nb, vals,
-            bf16_array(rng, (N, 16)), bf16_array(rng, (N, 16)))
-
-
-def run_dyn(form):
-    rows, cols, nb, vals, x, g = _dyn()
-    plan, pj = build_dyn_plan(rows, cols, nb), jax_plan(rows, cols, nb)
-    rt, ct = torch.from_numpy(rows), torch.from_numpy(cols)
-    vj = jnp.asarray(vals.float().numpy(), JBF16)
-    if form == "K4":
-        got = dyn_tiles(rt, ct, plan, vals, bf(x))
-        _widened_equal(got, lambda v, a: dyn_tiles(rt, ct, plan, v, a), vals,
-                       bf(x))
-        k = len(rows)
-        return got, _dyn_apply(vj, _j(rows), jnp.arange(k, dtype=jnp.int32),
-                               jnp.ones(k, jnp.int32), _j(cols),
-                               _j(x, JBF16), 128, trans=False,
-                               interpret=True)
-    if form == "K4T":
-        got = dyn_tiles_t(plan, vals, bf(g))
-        _widened_equal(got, lambda v, a: dyn_tiles_t(plan, v, a), vals,
-                       bf(g))
-        return got, _dyn_apply(vj, pj.t_rows, pj.t_sel, pj.t_scale,
-                               pj.t_cols, _j(g, JBF16), 128, trans=True,
-                               interpret=True)
-    got = dyn_grad_blocks(rt, ct, bf(g), bf(x))
-    assert got.dtype == torch.float32                   # rounded by the caller
-    _widened_equal(got, lambda a, b: dyn_grad_blocks(rt, ct, a, b), bf(g),
-                   bf(x))
-    return got.to(BF16), _dyn_grad_blocks(_j(rows), _j(cols), _j(g, JBF16),
-                                          _j(x, JBF16), 128,
-                                          out_dtype=JBF16, interpret=True)
-
-
 def run_k7(form):
     d = _tile_inputs(16, 16)
     plan = build_dyn_plan(d["rows"], d["cols"], d["nb"])
@@ -187,8 +140,7 @@ def run_k7(form):
 FORMS = {"K2": lambda: run_static("K2"), "K9": lambda: run_static("K9"),
          "K10": lambda: run_static("K10"),
          "K1@256": lambda: run_static("K1@256"), "K8": run_k8,
-         "K4": lambda: run_dyn("K4"), "K4T": lambda: run_dyn("K4T"),
-         "K5": lambda: run_dyn("K5"), "K7f": lambda: run_k7("K7f"),
+         "K7f": lambda: run_k7("K7f"),
          "K7bt": lambda: run_k7("K7bt"), "K7s": lambda: run_k7("K7s")}
 
 

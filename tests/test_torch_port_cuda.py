@@ -3049,13 +3049,7 @@ def _widened_cases(cuda, rng):
         ("K1@256", dict(block=256)))}
     blocks = torch.from_numpy((rng.random((8, 128, 128)) < 0.05).astype(
         np.float32) * rng.random((8, 128, 128)).astype(np.float32)).to(cuda)
-    rows = np.sort(np.concatenate([np.arange(8), rng.integers(0, 8, 8)]))
-    cols = rng.integers(0, 8, len(rows))
-    plan = build_dyn_plan(rows, cols, 8).to(cuda)
-    rt = torch.from_numpy(rows.astype(np.int32)).to(cuda)
-    ct = torch.from_numpy(cols.astype(np.int32)).to(cuda)
-    vals = blocks[torch.from_numpy(rng.integers(0, 8, len(rows))).to(cuda)]
-    x, g, init = (_randn_bf16(rng, (n, 64), cuda) for _ in range(3))
+    x, init = (_randn_bf16(rng, (n, 64), cuda) for _ in range(2))
     return [
         ("K2", bsr_spmm_fwd, lambda a: bsr_spmm_fwd(b["K2"], a), (x,)),
         ("K9", bsr_spmm_grouped, lambda a: bsr_spmm_grouped(b["K9"], a),
@@ -3066,12 +3060,6 @@ def _widened_cases(cuda, rng):
          lambda a, c: bsr_spmm_acc(b["K1@256"], a, c), (x, init)),
         ("K8", diag_spmm, lambda a, c: diag_spmm(blocks, a, 2, True, c),
          (x, init)),
-        ("K4", dyn_tiles, lambda v, a: dyn_tiles(rt, ct, plan, v, a),
-         (vals.to(BF16), x)),
-        ("K4T", dyn_tiles_t, lambda v, a: dyn_tiles_t(plan, v, a),
-         (vals.to(BF16), g)),
-        ("K5", dyn_grad_blocks, lambda a, c: dyn_grad_blocks(rt, ct, a, c),
-         (g, x)),
     ]
 
 
@@ -3088,7 +3076,7 @@ def test_bf16a_widened_forms_launch_their_f32_form(cuda):
         torch.cuda.synchronize()
         assert fn.launches == before + 2, name
         assert torch.equal(got, ref.to(got.dtype)), name
-        assert got.dtype == (torch.float32 if name == "K5" else BF16), name
+        assert got.dtype == BF16, name
 
 
 def test_bf16a_other_activation_types_raise(cuda):
@@ -3180,6 +3168,182 @@ def test_bf16a_training_on_card_matches_cpu(cuda, monkeypatch, layer, env,
              bsr_spmm_acc.launches_a, bsr_spmm_acc.launches_bfa,
              segmm_spmm.launches, segmm_spmm.launches_a), counts))
         assert got == want, got
+    np.testing.assert_allclose(float(loss_d), float(loss_c), rtol=1e-2)
+    for k, v in grads_c.items():
+        assert grads_d[k].dtype == torch.float32
+        torch.testing.assert_close(grads_d[k], v, rtol=0,
+                                   atol=5e-2 * float(v.abs().max()))
+
+
+# --- K4a, K4ᵀa and K5a: GAT's dynamic tiles on bf16 activations ------------
+
+_DYN_A = {"K4a": dyn_tiles, "K4Ta": dyn_tiles_t, "K5a": dyn_grad_blocks}
+
+
+def _dyn_a_counts() -> dict:
+    return {k: (fn.launches, fn.launches_a) for k, fn in _DYN_A.items()}
+
+
+def _dyn_a_operands(rng, edge, feat, cuda, aligned=True):
+    """On the card: a sorted tile list over four tile rows whose tile
+    column 2 is never used (the transpose plan's filler slot); a 0/1 mask
+    ~3% full, above 128 with each 128-wide quadrant empty at odds 0.4 and
+    quadrant (0, 1) of every tile empty, and the plan with its occupancy
+    words and live list there; bf16 ``pe``-like values on the mask; bf16
+    ``x`` and ``g`` (``g`` off a 16-byte boundary unless ``aligned``)."""
+    nb, nq = 4, edge // 128
+    rows = np.sort(np.concatenate([np.arange(nb), rng.integers(0, nb, 8)]))
+    cols = rng.choice([0, 1, 3], len(rows))
+    k = len(rows)
+    empty = rng.random((k, nq, nq)) < (0.4 if nq > 1 else 0.0)
+    if nq > 1:
+        empty[:, 0, 1] = True
+    mask = (rng.random((k, edge, edge)) < 0.03) & ~np.repeat(np.repeat(
+        empty, 128, 1), 128, 2)
+    mask = torch.from_numpy(mask.astype(np.float32))
+    plan = build_dyn_plan(rows, cols, nb, words=quad_words(mask, edge),
+                          block=edge)
+    assert (plan.live is not None) == (edge > 128)
+    pe = torch.where(mask > 0, torch.from_numpy(
+        rng.random((k, edge, edge)).astype(np.float32)) + 0.1, 0.0)
+    x = _randn_bf16(rng, (nb * edge, feat), cuda)
+    g = _randn_bf16(rng, (nb * edge, feat), cuda, aligned)
+    return (torch.from_numpy(rows.astype(np.int32)).to(cuda),
+            torch.from_numpy(cols.astype(np.int32)).to(cuda), plan.to(cuda),
+            pe.to(BF16).to(cuda), x, g)
+
+
+@pytest.mark.parametrize("feat,aligned", [(16, True), (36, True),
+                                          (128, True), (512, True),
+                                          (128, False)])
+@pytest.mark.parametrize("edge", [128, 256])
+@pytest.mark.parametrize("kernel", ["K4a", "K4Ta", "K5a"])
+def test_bf16a_dyn_kernels_match_plain(cuda, kernel, edge, feat, aligned):
+    """K4a, K4ᵀa (the walks on bf16 tiles and a bf16 slab) and K5a (one
+    bf16 tensor-core pass) at edges 128 and 256, F % 8 != 0 and the
+    unaligned ``g`` taking the scalar copies: within ``compare_bf16``'s
+    bound of their plain versions, bf16, two launches bit-equal, counted
+    under ``launches_a`` and no f32 form's; at 256 K4a and K4ᵀa with the
+    plan's words bit for bit the walks without them, and K5a on the live
+    list bit for bit the full grid on every listed quadrant and +0 on the
+    others."""
+    rng = np.random.default_rng(edge + feat + 320 + aligned)
+    rows, cols, plan, pe, x, g = _dyn_a_operands(rng, edge, feat, cuda,
+                                                 aligned)
+    fn = _DYN_A[kernel]
+    call, plain, without = {
+        "K4a": (lambda p: dyn_tiles(rows, cols, p, pe, g),
+                lambda p: dyn_tiles_plain(rows, cols, p, pe, g),
+                lambda p: dyn_tiles(rows, cols, _no_words(p), pe, g)),
+        "K4Ta": (lambda p: dyn_tiles_t(p, pe, g),
+                 lambda p: dyn_tiles_t_plain(p, pe, g),
+                 lambda p: dyn_tiles_t(_no_words(p), pe, g)),
+        "K5a": (lambda p: dyn_grad_blocks(rows, cols, g, x, edge, p.live),
+                lambda p: dyn_grad_blocks_plain(rows, cols, g, x, edge,
+                                                p.live),
+                lambda p: dyn_grad_blocks(rows, cols, g, x, edge))}[kernel]
+    before = fn.launches, fn.launches_a
+    with torch.inference_mode():
+        got, again, ref = call(plan), call(plan), plain(plan)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_a) == (before[0], before[1] + 2)
+    _close_bf16(got, ref)
+    assert torch.equal(got, again)
+    if kernel == "K4Ta":
+        assert not got[2 * edge:3 * edge].any()     # the filler's block
+    if edge == 128:
+        return
+    with torch.inference_mode():
+        other = without(plan)
+    torch.cuda.synchronize()
+    if kernel != "K5a":
+        assert torch.equal(got, other)
+        return
+    keep = torch.zeros(rows.shape[0] * 4, dtype=torch.bool, device=cuda)
+    keep[plan.live.long()] = True
+    q, qf = _by_quadrant(got, edge), _by_quadrant(other, edge)
+    assert torch.equal(q[keep], qf[keep])
+    dead = q[~keep]
+    assert dead.numel() and (dead == 0).all() and not dead.signbit().any()
+
+
+def test_bf16a_k5a_zero_features_and_exact_products(cuda):
+    """K5a at F=0 writes zeros; on bf16 values whose products and sums are
+    exact in f32 (small integers) it equals the float64 product, rounded
+    to bf16 once."""
+    rng = np.random.default_rng(330)
+    rows, cols, _, _, _, _ = _dyn_a_operands(rng, 128, 8, cuda)
+    empty = torch.zeros((512, 0), dtype=BF16, device=cuda)
+    ints = [torch.from_numpy(rng.integers(-8, 9, (512, 96)).astype(
+        np.float32)).to(cuda).to(BF16) for _ in range(2)]
+    with torch.inference_mode():
+        zero = dyn_grad_blocks(rows, cols, empty, empty)
+        got = dyn_grad_blocks(rows, cols, *ints)
+    torch.cuda.synchronize()
+    assert zero.dtype == BF16 and not zero.any()
+    exact = dyn_grad_blocks_plain(rows, cols, ints[0].double(),
+                                  ints[1].double())
+    assert torch.equal(got, exact.to(BF16))
+
+
+def test_bf16a_dyn_kernels_refuse_mixed_types(cuda):
+    """On the card the tiles are in the activations' type and K5's ``g``
+    in ``x``'s: f32 tiles with bf16 ``x``, or bf16 ``g`` with f32 ``x``,
+    raise (no widened route, no fallback)."""
+    rng = np.random.default_rng(331)
+    rows, cols, plan, pe, x, g = _dyn_a_operands(rng, 128, 16, cuda)
+    with pytest.raises(ValueError, match="blocks"):
+        dyn_tiles(rows, cols, plan, pe.float(), x)
+    with pytest.raises(ValueError, match="blocks"):
+        dyn_tiles_t(plan, pe.float(), g)
+    with pytest.raises(ValueError, match="g: expected"):
+        dyn_grad_blocks(rows, cols, g, x.float())
+
+
+@pytest.mark.parametrize("edge", [128, 256])
+def test_bf16a_gat_two_stage_step_launches_narrow_forms(cuda, monkeypatch,
+                                                        edge):
+    """One step of the bf16 two-stage GAT (``NodeModel(dtype=bf16)``,
+    hidden 64, dropout off) on a bf16 ``att_unit`` operator with
+    ``use_segmm`` (threshold 32 at 128, 48 at 256): the kernels on the card
+    against the plain versions on the CPU (loss within 1e-2 relative, each
+    gradient within 5e-2·max|ref|); K4a, K4ᵀa and K5a launch twice each
+    (hidden 64 < F: layer 0 aggregates lin(x), whose gradient needs dx)
+    and no f32 form of K4, K4ᵀ or K5, and ``kernels.widened`` is never
+    called."""
+    from fitgnn_tpu_torch.ops import kernels
+    calls = []
+    wide = kernels.widened
+    monkeypatch.setattr(kernels, "widened",
+                        lambda *a, **k: calls.append(1) or wide(*a, **k))
+    rng = np.random.default_rng(332)
+    n, feat = 1920, 128
+    s, r = _bench_like(rng, n=n, e=20_000)
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    y = rng.integers(0, 5, n)
+    g, _ = build_optimized_graph(x, s, r, y=y, train_mask=rng.random(n) < .5,
+                                 min_block_edges=32, layer_name="GATConv",
+                                 tile_dtype=BF16)
+    if edge != 128:
+        g = g._replace(aux=build_hybrid(
+            g.senders.numpy(), g.receivers.numpy(),
+            (g.edge_weight.numpy() > 0).astype(np.float32),
+            g.num_nodes_padded, min_block_edges=48, block=edge,
+            use_segmm=True, semantics="att_unit", tile_dtype=BF16))
+    assert g.aux.bsr.bf16 and g.aux.bsr.block == edge
+    model = NodeModel("GATConv", feat, 64, 2, 5, dropout_rate=0.0,
+                      dtype=BF16)
+    model.reset_parameters(torch.Generator().manual_seed(0)).train()
+    loss_c, grads_c = _grads(model, g, g.y, g.train_mask)
+    gd = g.to(cuda)
+    before = _dyn_a_counts()
+    calls.clear()
+    loss_d, grads_d = _grads(model.to(cuda), gd, gd.y, gd.train_mask)
+    torch.cuda.synchronize()
+    after = _dyn_a_counts()
+    assert {k: (after[k][0] - before[k][0], after[k][1] - before[k][1])
+            for k in after} == {k: (0, 2) for k in after}
+    assert not calls
     np.testing.assert_allclose(float(loss_d), float(loss_c), rtol=1e-2)
     for k, v in grads_c.items():
         assert grads_d[k].dtype == torch.float32
